@@ -1,0 +1,604 @@
+"""Paged-KV Transformer serving on one GPU — the port of
+``PagedTransformerGenerator`` from ``paddle_tpu/serving/paged_decoder.py``.
+
+* **one pooled KV tensor** ``[h, R, page_size, d]`` on the device, shared
+  by every lane, layer and role (encoder-KV, cross-KV, decoder-self-KV);
+  a logical page spans all layers and K+V of a page_size-token span;
+* **per-request page tables** from the host-side ``PageAllocator``, fed
+  to the device as int32 data each step;
+* **chunked prefill**: the source is encoded CAUSALLY in fixed-size
+  chunks in the SAME step that decodes the in-flight lanes
+  (``PagedTransformer.unified_step``, the counterpart of the reference's
+  ``build_unified_program``); lanes in neither phase ride along with
+  trash-page writes and length-1 masks;
+* **prefix sharing**: full prompt chunks are content-addressed (chain
+  hashes), so identical prompt prefixes map to the same physical pages
+  with refcounts.
+
+The host-side logic (admission, page tables, feeds, greedy) is the
+reference's, line for line, so both packages make the same decisions on
+the same requests.  Where the reference ran a compiled program through
+its Executor, this runs ``PagedTransformer.unified_step`` eagerly under
+``torch.no_grad``; the pool lives in the generator and is written in
+place.  Pools may be float32, bfloat16 or int8 (with a float32
+per-(row, slot) scale sidecar).
+
+Not ported yet, and refused with ``NotImplementedError`` when asked for:
+beam search, the host-RAM KV tier and sessions, the sharded mesh, AOT
+pre-resolution and speculative decoding.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.transformer import PagedTransformer
+from ..observability import tracing as _obs_tracing
+from .decoder import _Cfg, dense_kv_bytes_per_slot
+from .paging import (PageAllocator, PoolCapacityError, TRASH_PAGE,
+                     chunk_hashes)
+
+__all__ = ["PagedTransformerGenerator", "kv_page_bytes",
+           "default_num_pages"]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+_KV_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
+_KV_TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "int8": torch.int8}
+
+# decode-time cache state in a JAX scope (paged pool + sidecar, dense
+# per-lane caches): never weights, so load_params skips them
+_CACHE_MARKERS = ("@kv_pool", "@kv_scales", "@kcache", "@vcache",
+                  "@crossk", "@crossv")
+
+
+def kv_page_bytes(n_layer: int, n_head: int, d_head: int, page_size: int,
+                  kv_dtype: str = "float32") -> int:
+    """Device bytes ONE logical page costs: ``2 * n_layer`` physical rows
+    of ``[page_size, n_head * d_head]`` K/V in ``kv_dtype``, plus — for
+    int8 pools — the fp32 block scale each (row, slot) carries in the
+    sidecar."""
+    if kv_dtype not in _KV_ITEMSIZE:
+        raise ValueError(f"kv_page_bytes: unsupported kv_dtype "
+                         f"{kv_dtype!r} (one of {sorted(_KV_ITEMSIZE)})")
+    rows = 2 * n_layer
+    data = rows * page_size * n_head * d_head * _KV_ITEMSIZE[kv_dtype]
+    scales = rows * page_size * 4 if kv_dtype == "int8" else 0
+    return data + scales
+
+
+def default_num_pages(src_len: int, max_out_len: int,
+                      page_size: int) -> int:
+    """The constructor's pool-sizing default: room for ~8 worst-case
+    requests (+ the trash page)."""
+    p_src = _ceil_div(src_len, page_size)
+    p_out = _ceil_div(max_out_len, page_size)
+    return 8 * (2 * p_src + p_out) + 1
+
+
+class _Lane:
+    """Host bookkeeping for one in-flight slot."""
+
+    __slots__ = ("phase", "src", "s_true", "max_new", "enc_done",
+                 "pending_chunk", "enc_table", "cross_table", "self_table",
+                 "hashes", "hit_hashes", "inserted_hashes", "enc_owned",
+                 "cross_owned", "cur", "pos")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.phase = "idle"        # idle | prefill | decode | hold
+        self.src = None
+        self.s_true = 0
+        self.max_new = 0
+        self.enc_done = 0
+        self.pending_chunk = 0
+        self.enc_table: List[int] = []
+        self.cross_table: List[int] = []
+        self.self_table: List[int] = []
+        self.hashes: List[str] = []
+        self.hit_hashes: List[str] = []
+        self.inserted_hashes: List[str] = []
+        self.enc_owned: List[int] = []
+        self.cross_owned: List[int] = []
+        self.cur = 0
+        self.pos = 0
+
+
+class PagedTransformerGenerator:
+    """Serving-side Transformer decoder over a paged KV pool.
+
+    The scheduler surface is page-aware: ``open_slots / admit_slot /
+    clear_slot / lane_step`` plus ``can_admit / prompt_infeasible /
+    pages_needed`` for admission control.  ``greedy`` decodes a whole
+    batch through the same loop.  Weights come from ``init_params(seed)``
+    or, by their Fluid names, from ``load_params``."""
+
+    page_aware = True
+
+    def __init__(self, src_vocab_size, trg_vocab_size, *, n_layer=6,
+                 n_head=8, d_key=64, d_value=64, d_model=512,
+                 d_inner_hid=2048, max_length=256, src_len=64,
+                 max_out_len=64, device=None, param_prefix="tf",
+                 start_id=0, end_id=1, page_size=8, num_pages=None,
+                 chunk_size=8, prefix_sharing=True, topk_size=None,
+                 kv_dtype="float32", mesh=None, mesh_axes=None,
+                 host_pages=0, session_store=None, xfer_width=4,
+                 demote_watermark=0):
+        unported = {"topk_size (beam search)": topk_size is not None,
+                    "mesh / mesh_axes": mesh is not None or bool(mesh_axes),
+                    "host_pages (KV host tier)": host_pages != 0,
+                    "session_store": session_store is not None,
+                    "xfer_width (KV host tier)": xfer_width != 4,
+                    "demote_watermark (KV host tier)":
+                        demote_watermark != 0}
+        asked = [k for k, v in unported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"PagedTransformerGenerator: {', '.join(asked)} not "
+                f"ported to paddle_tpu_torch yet")
+        if d_key != d_value:
+            raise ValueError("paged KV pool requires d_key == d_value "
+                             "(one pool row shape serves both)")
+        if kv_dtype not in _KV_ITEMSIZE:
+            raise ValueError(f"kv_dtype={kv_dtype!r}: pick one of "
+                             f"{sorted(_KV_ITEMSIZE)}")
+        self.device = resolve_device(device)
+        self.cfg = _Cfg(src_vocab_size, trg_vocab_size, n_layer, n_head,
+                        d_key, d_value, d_model, d_inner_hid, max_length)
+        self.src_len = int(src_len)
+        self.max_out_len = int(max_out_len)
+        self.prefix = param_prefix
+        self.start_id = int(start_id)
+        self.end_id = int(end_id)
+        self.page_size = int(page_size)
+        self.chunk = int(chunk_size)
+        self.prefix_sharing = bool(prefix_sharing)
+        self.p_src = _ceil_div(self.src_len, self.page_size)
+        self.p_out = _ceil_div(self.max_out_len, self.page_size)
+        if num_pages is None:
+            num_pages = default_num_pages(self.src_len, self.max_out_len,
+                                          self.page_size)
+        self.num_pages = int(num_pages)
+        self.kv_dtype = kv_dtype
+        self._pool_shape = (n_head, self.num_pages * n_layer * 2,
+                            self.page_size, d_key)
+        self._scales_shape = (1, self.num_pages * n_layer * 2,
+                              self.page_size)
+        self.page_bytes = kv_page_bytes(n_layer, n_head, d_key,
+                                        self.page_size, kv_dtype)
+        self.alloc = PageAllocator(self.num_pages, self.page_size)
+        self._lanes: List[_Lane] = []
+        self._slots = 0
+        self._steps = 0
+        self._tracer = _obs_tracing.tracer()
+        self.model = PagedTransformer(
+            src_vocab_size, trg_vocab_size, n_layer, n_head, d_key,
+            d_value, d_model, d_inner_hid, max_length).to(self.device)
+        self.model.eval()
+        self.model.requires_grad_(False)
+        self._reset_pool()
+
+    # -- device pool ---------------------------------------------------------
+    def _reset_pool(self):
+        self.pool = torch.zeros(self._pool_shape,
+                                dtype=_KV_TORCH_DTYPE[self.kv_dtype],
+                                device=self.device)
+        self.kv_scales = (torch.zeros(self._scales_shape,
+                                      dtype=torch.float32,
+                                      device=self.device)
+                          if self.kv_dtype == "int8" else None)
+
+    # -- parameters ----------------------------------------------------------
+    def init_params(self, seed: Optional[int] = None) -> None:
+        """Random-init every parameter from a seeded CPU
+        ``torch.Generator`` (the same weights on every device)."""
+        gen = torch.Generator()
+        gen.manual_seed(0 if seed is None else int(seed))
+        self.model.init_params(gen)
+
+    def load_params(self, named_arrays: Mapping[str, np.ndarray],
+                    prefix: Optional[str] = None) -> int:
+        """Carry weights across from a JAX scope: ``named_arrays`` maps
+        Fluid names (``tf.enc0.self.q.w``, ``tf.vocab_proj.w``, ...) to
+        arrays.  Cache variables (``@kv_pool`` and the like) and names
+        outside ``prefix`` (default: this generator's ``param_prefix``)
+        are skipped, as the reference's ``copy_weights`` skips them.
+        Every parameter of the model must be present with its shape;
+        returns the number loaded."""
+        prefix = self.prefix if prefix is None else prefix
+        params = dict(self.model.named_parameters())
+        seen = set()
+        for name, arr in named_arrays.items():
+            if any(m in name for m in _CACHE_MARKERS) \
+                    or not name.startswith(prefix + "."):
+                continue
+            key = name[len(prefix) + 1:]
+            p = params.get(key)
+            if p is None:
+                raise KeyError(f"load_params: {name!r} names no parameter "
+                               f"of the paged Transformer")
+            val = torch.tensor(np.asarray(arr))
+            if tuple(val.shape) != tuple(p.shape):
+                raise ValueError(f"load_params: {name!r} has shape "
+                                 f"{tuple(val.shape)}, the model wants "
+                                 f"{tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(val.to(p.dtype))
+            seen.add(key)
+        missing = sorted(set(params) - seen)
+        if missing:
+            raise KeyError(f"load_params: no value for {len(missing)} "
+                           f"parameter(s) under {prefix!r}, e.g. "
+                           f"{prefix}.{missing[0]}")
+        return len(seen)
+
+    # -- admission accounting ------------------------------------------------
+    def _prompt_pages(self, n_tokens: int) -> int:
+        return _ceil_div(max(1, int(n_tokens)), self.page_size)
+
+    def _self_pages(self, max_new: int) -> int:
+        return _ceil_div(int(max_new), self.page_size) if max_new else 0
+
+    def _resolve_max_new(self, max_new: Optional[int]) -> int:
+        if max_new is None:
+            return self.max_out_len
+        return min(int(max_new), self.max_out_len)
+
+    def pages_needed(self, src_tokens, max_new: Optional[int] = None) -> int:
+        """Pages an admission would allocate right now (prompt pages for
+        chunks the prefix cache does not already hold, x2 for enc+cross,
+        plus the reserved decode pages)."""
+        src = np.asarray(src_tokens).reshape(-1)
+        mn = self._resolve_max_new(max_new)
+        hits = 0
+        if self.prefix_sharing:
+            # count=False: an admission PROBE must not skew the
+            # prefix_hit_rate that cache_stats() reports
+            hits = len(self.alloc.lookup_chain(
+                chunk_hashes(src, self.page_size), count=False))
+        return (2 * (self._prompt_pages(len(src)) - hits)
+                + self._self_pages(mn))
+
+    def can_admit(self, src_tokens, max_new: Optional[int] = None) -> bool:
+        return self.pages_needed(src_tokens, max_new) <= \
+            self.alloc.available()
+
+    def prompt_infeasible(self, src_tokens,
+                          max_new: Optional[int] = None) -> bool:
+        """True when the request could NEVER be admitted: its prompt +
+        reserved decode pages exceed the whole pool even with every
+        other page free."""
+        src = np.asarray(src_tokens).reshape(-1)
+        mn = self._resolve_max_new(max_new)
+        return (2 * self._prompt_pages(len(src)) + self._self_pages(mn)
+                > self.alloc.total_usable)
+
+    # -- continuous-batching surface -----------------------------------------
+    def open_slots(self, n_slots: int) -> None:
+        if self._lanes:
+            for slot in range(len(self._lanes)):
+                self.clear_slot(slot)
+        self._slots = int(n_slots)
+        self._lanes = [_Lane() for _ in range(self._slots)]
+
+    def admit_slot(self, slot: int, src_tokens_1d,
+                   max_new: Optional[int] = None) -> int:
+        """Allocate the lane's page tables (prefix-cache hits first) and
+        queue it for chunked prefill.  No device work happens here — the
+        prefill rides the following ``lane_step`` calls, interleaved with
+        every other lane's decode."""
+        if not self._lanes:
+            raise RuntimeError("open_slots() before admit_slot()")
+        lane = self._lanes[slot]
+        if lane.phase != "idle":
+            raise RuntimeError(f"admit_slot: slot {slot} is busy")
+        src = np.asarray(src_tokens_1d).reshape(-1).astype(np.int64)
+        s_true = len(src)
+        if s_true > self.src_len:
+            raise ValueError(
+                f"admit_slot: prompt length {s_true} exceeds the "
+                f"generator's src_len {self.src_len}; raise src_len or "
+                f"truncate explicitly at the call site")
+        mn = self._resolve_max_new(max_new)
+        if self.prompt_infeasible(src, mn):
+            raise PoolCapacityError(
+                f"request needs {2 * self._prompt_pages(s_true) + self._self_pages(mn)} "
+                f"pages for its prompt + decode reservation alone, but the "
+                f"pool only has {self.alloc.total_usable} usable pages")
+        n_prompt = self._prompt_pages(s_true)
+        hashes = chunk_hashes(src, self.page_size)
+        hits = self.alloc.lookup_chain(hashes) if self.prefix_sharing \
+            else []
+        n_hit = len(hits)
+        # ref the hit chunks BEFORE allocating: alloc() evicts LRU
+        # refcount-0 chunks under pressure, and an un-reffed hit is
+        # exactly such a chunk
+        for h, _enc, _cross in hits:
+            self.alloc.ref_chunk(h)
+        try:
+            fresh = self.alloc.alloc(2 * (n_prompt - n_hit)
+                                     + self._self_pages(mn))
+        except PoolCapacityError:
+            for h, _enc, _cross in hits:
+                self.alloc.unref_chunk(h)
+            raise
+        n_own = n_prompt - n_hit
+        lane.src = src
+        lane.s_true = s_true
+        lane.max_new = mn
+        lane.hashes = hashes
+        lane.hit_hashes = [h for h, _, _ in hits]
+        lane.inserted_hashes = []
+        lane.enc_table = [e for _, e, _ in hits] + fresh[:n_own]
+        lane.cross_table = [x for _, _, x in hits] + fresh[n_own:2 * n_own]
+        lane.self_table = fresh[2 * n_own:]
+        lane.enc_owned = fresh[:n_own]
+        lane.cross_owned = fresh[n_own:2 * n_own]
+        lane.enc_done = n_hit * self.page_size
+        lane.pending_chunk = 0
+        lane.cur = self.start_id
+        lane.pos = 0
+        if lane.enc_done >= s_true:     # whole prompt served from cache
+            lane.phase = "decode"
+        else:
+            lane.phase = "prefill"
+        return s_true
+
+    def clear_slot(self, slot: int) -> None:
+        """Retire a lane: release every page reference immediately.
+        Prefix-cached chunks drop to the evictable list (still hittable,
+        reclaimed under pressure); everything else returns to the free
+        list."""
+        lane = self._lanes[slot]
+        if lane.phase == "idle":
+            return
+        for h in lane.hit_hashes + lane.inserted_hashes:
+            self.alloc.unref_chunk(h)
+        for p in lane.enc_owned + lane.cross_owned:
+            self.alloc.unref(p)
+        for p in lane.self_table:
+            self.alloc.unref(p)
+        lane.reset()
+
+    def _finish_prefill(self, lane: _Lane) -> None:
+        lane.phase = "decode"
+        if self.prefix_sharing:
+            full = lane.s_true // self.page_size
+            for i in range(len(lane.hit_hashes), full):
+                enc, cross = lane.enc_table[i], lane.cross_table[i]
+                if self.alloc.insert_chunk(lane.hashes[i], enc, cross):
+                    # ownership of BOTH pages transfers to the cache entry
+                    lane.inserted_hashes.append(lane.hashes[i])
+                    lane.enc_owned.remove(enc)
+                    lane.cross_owned.remove(cross)
+        # decode only reads CROSS pages: the lane's non-cached encoder-KV
+        # pages are dead weight from here on — free them now so admission
+        # capacity tracks what a decoding request really holds
+        for p in lane.enc_owned:
+            self.alloc.unref(p)
+        lane.enc_owned = []
+        lane.enc_table = []
+
+    def _prefill_arrays(self) -> Dict[str, np.ndarray]:
+        """The chunked-prefill half of a unified-step feed: one source
+        chunk per lane in phase ``prefill`` (recording each lane's
+        ``pending_chunk``); every other lane rides trash-page writes.
+        Pair with ``_absorb_prefill()`` after the step ran."""
+        B, C, ps = self._slots, self.chunk, self.page_size
+        feed = {"pf_word": np.zeros((B, C), np.int64),
+                "pf_pos": np.zeros((B, C), np.int64),
+                "pf_base": np.zeros(B, np.int32),
+                "pf_len": np.ones(B, np.int32),
+                "enc_table": np.zeros((B, self.p_src), np.int32),
+                "enc_pages": np.full((B, C), TRASH_PAGE, np.int32),
+                "cross_pages": np.full((B, C), TRASH_PAGE, np.int32),
+                "w_offsets": np.zeros((B, C), np.int32)}
+        for slot, lane in enumerate(self._lanes):
+            if lane.phase != "prefill":
+                continue
+            done = lane.enc_done
+            m = min(C, lane.s_true - done)
+            lane.pending_chunk = m
+            feed["pf_word"][slot, :m] = lane.src[done:done + m]
+            feed["pf_pos"][slot, :m] = np.arange(done, done + m)
+            feed["pf_base"][slot] = done
+            feed["pf_len"][slot] = done + m
+            feed["enc_table"][slot, :len(lane.enc_table)] = lane.enc_table
+            pos = done + np.arange(m)
+            feed["enc_pages"][slot, :m] = [lane.enc_table[p // ps]
+                                           for p in pos]
+            feed["cross_pages"][slot, :m] = [lane.cross_table[p // ps]
+                                             for p in pos]
+            feed["w_offsets"][slot, :m] = pos % ps
+        return feed
+
+    def _decode_arrays(self, n_tokens: int = 1) -> Dict[str, np.ndarray]:
+        """Idle-default decode-half feed arrays — idle lanes ride
+        trash-page writes, length-1 masks, position 0."""
+        B = self._slots
+        return {"trg_word": np.zeros((B, n_tokens), np.int64),
+                "trg_pos": np.zeros((B, n_tokens), np.int64),
+                "self_table": np.zeros((B, self.p_out), np.int32),
+                "self_pages": np.full((B, n_tokens), TRASH_PAGE,
+                                      np.int32),
+                "self_offsets": np.zeros((B, n_tokens), np.int32),
+                "self_lengths": np.ones(B, np.int32),
+                "self_base": np.zeros(B, np.int32),
+                "cross_table": np.zeros((B, self.p_src), np.int32),
+                "src_lengths": np.ones(B, np.int32)}
+
+    def _fill_decode_lane(self, dec: Dict[str, np.ndarray], slot: int,
+                          lane, tokens, base_pos: int) -> None:
+        """Fill one lane's rows of a ``_decode_arrays`` feed: ``tokens``
+        embed at positions ``base_pos..base_pos+n-1`` and their K/V
+        scatter into the lane's self pages at those slots."""
+        ps = self.page_size
+        n = len(tokens)
+        t = int(base_pos)
+        if t + n > len(lane.self_table) * ps:
+            raise RuntimeError(
+                f"slot {slot}: writing {n} token(s) at position {t} "
+                f"runs past the reserved {len(lane.self_table)} "
+                f"self pages")
+        for j, tok in enumerate(tokens):
+            dec["trg_word"][slot, j] = tok
+            dec["trg_pos"][slot, j] = t + j
+            dec["self_pages"][slot, j] = lane.self_table[(t + j) // ps]
+            dec["self_offsets"][slot, j] = (t + j) % ps
+        dec["self_table"][slot, :len(lane.self_table)] = lane.self_table
+        dec["self_lengths"][slot] = t + n
+        dec["self_base"][slot] = t
+        dec["cross_table"][slot, :len(lane.cross_table)] = \
+            lane.cross_table
+        dec["src_lengths"][slot] = lane.s_true
+
+    def _absorb_prefill(self) -> None:
+        """Post-step bookkeeping for ``_prefill_arrays``: advance each
+        prefilling lane past its pending chunk (the trace instant comes
+        AFTER the step ran — a chunk that never ran must not appear in
+        the request timeline)."""
+        for slot, lane in enumerate(self._lanes):
+            if lane.phase != "prefill":
+                continue
+            self._tracer.instant(
+                "lane/prefill_chunk", cat="serving", slot=slot,
+                tokens=lane.pending_chunk,
+                done=lane.enc_done + lane.pending_chunk,
+                total=lane.s_true)
+            lane.enc_done += lane.pending_chunk
+            lane.pending_chunk = 0
+            if lane.enc_done >= lane.s_true:
+                self._finish_prefill(lane)
+
+    def step_feed(self) -> Dict[str, np.ndarray]:
+        """The full feed of the next ``lane_step`` (prefill half + decode
+        half) as host arrays; records each prefilling lane's pending
+        chunk like ``lane_step`` does."""
+        feed = self._prefill_arrays()
+        dec = self._decode_arrays()
+        for slot, lane in enumerate(self._lanes):
+            if lane.phase == "decode" and lane.self_table:
+                self._fill_decode_lane(dec, slot, lane, [lane.cur],
+                                       lane.pos)
+        feed.update(dec)
+        return feed
+
+    def run_feed(self, feed: Mapping[str, np.ndarray]):
+        """Run one unified step on this generator's pool: the feed goes to
+        the device, the prefill tower and the decode step write the pool
+        in place.  Returns (next_ids int32 [B, 1], logits [B, 1, vocab])
+        as device tensors."""
+        f = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+             for k, v in feed.items()}
+        return self.model.unified_step(f, self.pool, self.kv_scales)
+
+    def absorb_step(self, next_ids) -> Dict[int, int]:
+        """Host bookkeeping after a step ran on ``step_feed()``'s feed:
+        prefill lanes advance past their chunk, decode lanes take their
+        token from ``next_ids`` ([B] or [B, 1]).  Returns {slot: token}
+        for the lanes that decoded.  Feeding another run's ids here is
+        how a comparison teacher-forces two generators alike."""
+        ids = np.asarray(next_ids).reshape(self._slots)
+        decoding = [slot for slot, lane in enumerate(self._lanes)
+                    if lane.phase == "decode" and lane.self_table]
+        self._steps += 1
+        self._absorb_prefill()
+        emitted: Dict[int, int] = {}
+        for slot in decoding:
+            lane = self._lanes[slot]
+            tok = int(ids[slot])
+            lane.cur = tok
+            lane.pos += 1
+            emitted[slot] = tok
+        return emitted
+
+    def lane_step(self) -> Dict[int, int]:
+        """ONE step over every lane: prefill lanes advance one source
+        chunk, decode lanes emit one token.  Returns {slot: token} for
+        the lanes that decoded."""
+        if self._slots == 0:
+            raise RuntimeError("open_slots() before lane_step()")
+        nxt, _logits = self.run_feed(self.step_feed())
+        return self.absorb_step(nxt.cpu().numpy())
+
+    # -- greedy --------------------------------------------------------------
+    def greedy(self, src_tokens, src_lengths, max_new: Optional[int] = None,
+               stop_at_end: bool = True) -> np.ndarray:
+        """Paged greedy decode of a whole batch: admit every row, then
+        lane_step until done.  With ``stop_at_end`` every row stops at
+        the first step where all rows have emitted ``end_id``."""
+        src_tokens = np.asarray(src_tokens)
+        src_lengths = np.asarray(src_lengths, np.int32)
+        b = src_tokens.shape[0]
+        max_new = min(max_new or self.max_out_len, self.max_out_len)
+        self.open_slots(b)
+        for i in range(b):
+            self.admit_slot(i, src_tokens[i, :src_lengths[i]],
+                            max_new=max_new)
+        out: List[List[int]] = [[] for _ in range(b)]
+        target = max_new
+        while True:
+            for i, lane in enumerate(self._lanes):
+                if lane.phase == "decode" and len(out[i]) >= target:
+                    lane.phase = "hold"
+            if all(lane.phase in ("hold", "idle") for lane in self._lanes):
+                break
+            for slot, tok in self.lane_step().items():
+                out[slot].append(tok)
+            if stop_at_end and target == max_new:
+                # columns = the latest first-end index + 1
+                firsts = [row.index(self.end_id) + 1
+                          if self.end_id in row else None for row in out]
+                if all(f is not None or len(out[i]) >= max_new
+                       for i, f in enumerate(firsts)):
+                    target = min(max_new,
+                                 max(f if f is not None else max_new
+                                     for f in firsts))
+        for i in range(b):
+            self.clear_slot(i)
+        return np.asarray([row[:target] for row in out], np.int64)
+
+    # -- accounting ----------------------------------------------------------
+    def kv_bytes_per_slot_dense(self) -> int:
+        """What ONE lane costs in the dense-cache decoder — the baseline
+        the paged pool's bytes in use are compared against."""
+        return dense_kv_bytes_per_slot(self.cfg, self.src_len,
+                                       self.max_out_len)
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one cached token costs across every layer, K and
+        V (int8 pools include their fp32 block-scale sidecar)."""
+        return self.page_bytes // self.page_size
+
+    def cache_stats(self) -> Dict[str, object]:
+        """Page / prefix / pool-bytes accounting (the reference's
+        ``cache_stats`` without its executable-cache, shard and tier
+        blocks)."""
+        pages = self.alloc.stats()
+        active = sum(1 for lane in self._lanes
+                     if lane.phase not in ("idle",))
+        in_use_bytes = self.page_bytes * pages["in_use"]
+        return {
+            "pages": pages,
+            "steps": self._steps,
+            "hbm": {
+                "kv_dtype": self.kv_dtype,
+                "page_bytes": self.page_bytes,
+                "kv_bytes_per_token": self.kv_bytes_per_token(),
+                "pool_bytes": self.page_bytes * self.num_pages,
+                "bytes_in_use": in_use_bytes,
+                "bytes_per_active_slot": (in_use_bytes // active)
+                if active else 0,
+                "dense_bytes_per_slot": self.kv_bytes_per_slot_dense(),
+            },
+        }

@@ -1,0 +1,193 @@
+"""The port's serving tensor functions against the JAX package, on the CPU.
+
+* ``ragged_decode_attention``: the port's wrapper takes its plain PyTorch
+  version for CPU tensors; it must agree with the JAX entry run through
+  its XLA gather path and through the Pallas kernel in interpret mode
+  (causal and not, C in {1, 4}, float32 / bfloat16 / int8 pools, a dead
+  lane).  Everything computes in float32; the two sides differ only in
+  summation order, so the tolerance is rtol = atol = 1e-5.
+* ``paged_cache_write``, ``quantized_paged_cache_write``,
+  ``abs_max_scale`` and ``quantize_array``: bit for bit.
+
+The CUDA kernel itself is held against the plain version on the card by
+``chip_smoke.py``.
+"""
+
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.fluid.ops import cache_ops as jax_cache_ops
+from paddle_tpu.fluid.ops import quant_ops as jax_quant_ops
+import paddle_tpu.kernels.flash_attention  # noqa: F401  (module, not the fn)
+from paddle_tpu_torch.fluid.ops import cache_ops, quant_ops
+from paddle_tpu_torch.kernels import flash_attention as fa
+
+jax_fa = sys.modules["paddle_tpu.kernels.flash_attention"]
+
+H, D, L, NPAGES, P, PS, B = 2, 4, 3, 6, 3, 4, 3
+R = NPAGES * L * 2
+
+
+class _Ctx:
+    """The attribute surface a JAX op emitter reads."""
+
+    def __init__(self, **attrs):
+        self.attrs = attrs
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+
+def _pool(kv_dtype, rng):
+    """(numpy pool, numpy scales or None) with values every dtype holds
+    exactly: bf16 values are rounded once, here, for both sides."""
+    f = rng.randn(H, R, PS, D).astype(np.float32)
+    if kv_dtype == "float32":
+        return f, None
+    if kv_dtype == "bfloat16":
+        return np.asarray(jnp.asarray(f, jnp.bfloat16)), None
+    q = rng.randint(-127, 128, (H, R, PS, D)).astype(np.int8)
+    scales = (rng.rand(1, R, PS).astype(np.float32) + 0.5) / 127.0
+    return q, scales
+
+
+def _torch_pool(pool_np, kv_dtype):
+    if kv_dtype == "bfloat16":
+        return torch.from_numpy(pool_np.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(pool_np))
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_ragged_attention_matches_jax(kv_dtype, c, causal, impl):
+    rng = np.random.RandomState(3)
+    pool_np, scales_np = _pool(kv_dtype, rng)
+    q = rng.randn(B, c, H, D).astype(np.float32)
+    tbl = rng.randint(0, NPAGES, (B, P)).astype(np.int32)
+    lengths = np.array([7, 0, 11], np.int32)        # lane 1 is dead
+    base = np.array([5, 0, 9], np.int32) if c == 1 else \
+        np.array([3, 0, 7], np.int32)
+    want = jax_fa.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(pool_np), jnp.asarray(tbl),
+        jnp.asarray(lengths), jnp.asarray(base), layer=2, n_layer=L,
+        causal=causal, impl=impl,
+        scales=None if scales_np is None else jnp.asarray(scales_np))
+    got = fa.ragged_decode_attention(
+        torch.from_numpy(q), _torch_pool(pool_np, kv_dtype),
+        torch.from_numpy(tbl), torch.from_numpy(lengths),
+        torch.from_numpy(base), layer=2, n_layer=L, causal=causal,
+        scales=None if scales_np is None else torch.from_numpy(scales_np))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert (got[1] == 0).all()                       # dead lane contract
+
+
+def test_ragged_attention_cpu_path_never_launches_the_kernel():
+    """CPU tensors take the plain version; the launch counter belongs to
+    the CUDA path alone."""
+    rng = np.random.RandomState(0)
+    pool = torch.from_numpy(rng.randn(H, R, PS, D).astype(np.float32))
+    before = fa.ragged_decode_attention.launches
+    fa.ragged_decode_attention(
+        torch.zeros(B, 1, H, D), pool, torch.ones(B, P, dtype=torch.int32),
+        torch.full((B,), 5, dtype=torch.int32), causal=False, layer=0,
+        n_layer=L)
+    assert fa.ragged_decode_attention.launches == before
+    with pytest.raises(ValueError, match="q_base"):
+        fa.ragged_decode_attention(torch.zeros(B, 1, H, D), pool,
+                                   torch.ones(B, P, dtype=torch.int32),
+                                   torch.ones(B, dtype=torch.int32),
+                                   layer=0, n_layer=L)
+
+
+def test_paged_kv_rows_matches_jax():
+    tbl = np.random.RandomState(1).randint(0, 50, (4, 7)).astype(np.int32)
+    for layer in range(L):
+        jk, jv = jax_fa.paged_kv_rows(tbl, layer, L)
+        tk, tv = fa.paged_kv_rows(torch.from_numpy(tbl), layer, L)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def _write_inputs(rng, chunk):
+    """A [B, C] write with lanes on distinct pages and dead positions on
+    the trash page — but only one token per (row, slot) off page 0, so
+    the result does not depend on the order duplicate writes land in."""
+    k = (rng.randn(B, chunk, H, D) * 3).astype(np.float32)
+    v = (rng.randn(B, chunk, H, D) * 3).astype(np.float32)
+    pos = np.arange(chunk)
+    pages = np.stack([1 + b * 2 + pos // PS for b in range(B)]) \
+        .astype(np.int32)
+    offsets = np.tile(pos % PS, (B, 1)).astype(np.int32)
+    pages[1, chunk // 2:] = 0                          # dead tail
+    offsets[1, chunk // 2:] = 0
+    k[1, chunk // 2:] = 0.0                            # trash gets zeros
+    v[1, chunk // 2:] = 0.0
+    return k, v, pages, offsets
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_paged_cache_write_bitwise(kv_dtype, chunk):
+    rng = np.random.RandomState(chunk)
+    k, v, pages, offsets = _write_inputs(rng, chunk)
+    jdt = jnp.float32 if kv_dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if kv_dtype == "float32" else torch.bfloat16
+    want = jax_cache_ops.paged_cache_write(
+        _Ctx(layer=1, n_layer=L), jnp.zeros((H, R, PS, D), jdt),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(pages),
+        jnp.asarray(offsets))
+    pool = torch.zeros(H, R, PS, D, dtype=tdt)
+    got = cache_ops.paged_cache_write(
+        pool, torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(pages), torch.from_numpy(offsets), layer=1,
+        n_layer=L)
+    assert got is pool                                 # written in place
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(want).astype(np.float32))
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_quantized_paged_cache_write_bitwise(chunk):
+    rng = np.random.RandomState(10 + chunk)
+    k, v, pages, offsets = _write_inputs(rng, chunk)
+    k[0, 0] = 0.0                                      # zero block: scale 1
+    want_pool, want_scales = jax_cache_ops.quantized_paged_cache_write(
+        _Ctx(layer=2, n_layer=L), jnp.zeros((H, R, PS, D), jnp.int8),
+        jnp.zeros((1, R, PS), jnp.float32), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(pages), jnp.asarray(offsets))
+    pool = torch.zeros(H, R, PS, D, dtype=torch.int8)
+    scales = torch.zeros(1, R, PS)
+    cache_ops.quantized_paged_cache_write(
+        pool, scales, torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(pages), torch.from_numpy(offsets), layer=2,
+        n_layer=L)
+    np.testing.assert_array_equal(pool.numpy(), np.asarray(want_pool))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want_scales))
+
+
+@pytest.mark.parametrize("axis", [None, 0, (0, 1), (1, 2)])
+def test_quantize_bitwise(axis):
+    rng = np.random.RandomState(5)
+    x = (rng.randn(3, 4, 5, 6) * 2).astype(np.float32)
+    x[1] = 0.0                                         # zero channel
+    x[0, 0, 0, :3] = [0.25, -0.75, 1.25]               # half-way at 0.5
+    js = jax_quant_ops.abs_max_scale(jnp.asarray(x), axis)
+    ts = quant_ops.abs_max_scale(torch.from_numpy(x), axis)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    # exact halves on the grid: round half to even on both sides
+    s = np.full_like(np.asarray(js), 0.5)
+    jq = jax_quant_ops.quantize_array(jnp.asarray(x), jnp.asarray(s), axis)
+    tq = quant_ops.quantize_array(torch.from_numpy(x), torch.from_numpy(s),
+                                  axis)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    jq = jax_quant_ops.quantize_array(jnp.asarray(x), js, axis)
+    tq = quant_ops.quantize_array(torch.from_numpy(x), ts, axis)
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's paged serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -7,24 +7,42 @@ Runs from the root of a checkout and needs one CUDA card; it imports
 ``paddle_tpu_torch`` and never JAX or ``paddle_tpu``.  Phases:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build the CUDA kernel from the checkout's sources (``nvcc``, sm_90a);
-3. hold the kernel against its plain PyTorch version on the card at the
-   serving path's shapes (decode C=1 over self pages, decode C=1 over
-   cross pages, prefill C=32), for float32, bfloat16 and int8 pools,
-   with dead lanes and lengths that end mid-page;
-4. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
+2. build the four CUDA kernels from the checkout's sources (``nvcc``,
+   sm_90a, one compiler per source, all started together) and log their
+   ptxas lines;
+3. hold the ragged paged-attention kernel against its plain PyTorch
+   version at the serving path's shapes (decode C=1 over self pages,
+   decode C=1 over cross pages, prefill C=32), for float32, bfloat16
+   and int8 pools, with dead lanes and lengths that end mid-page;
+4. hold the flash-attention forward, dq and dk/dv kernels against their
+   plain versions (B=8, L=256, H=8, D=64, 'blhd'): causal and not,
+   dropout 0 and 0.1, float32 and bfloat16, both bias shapes (forward),
+   Lq=200 against Lk=136, and block offsets where every row is dead;
+   the dropout masks of the forward and dk/dv kernels exactly;
+5. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
    through ``ContinuousBatchingScheduler`` over a Transformer-base
-   ``PagedTransformerGenerator`` once per pool dtype, and check that
-   every request finished and that the kernel served every attention
-   call (18 launches per step at 6 layers);
-5. replay the same requests teacher-forced through a card generator and
-   a CPU generator (``device="cpu"``, plain path) with the same weights
-   and compare the logits of every decoding lane;
-6. time the kernel and its plain version at the path's shapes.
+   ``PagedTransformerGenerator`` once per pool dtype (18 ragged-kernel
+   launches per step), and replay them teacher-forced on the card and
+   on the CPU (``device="cpu"``, plain path) with the same weights;
+6. train: build ``transformer()`` at Transformer-base width through
+   ``fluid.layers`` with ``Adam(1e-4).minimize``; run one step at batch
+   2 on the card and on the CPU from the same scope and seeds (dropout
+   on) and compare the loss, gradients, updated parameters and the
+   updates themselves; then 20
+   steps at batch 64 on the card through ``fluid.Executor`` (the main
+   path: 18 fused attentions per step, each launching the forward, dq
+   and dk/dv kernels once), with a falling loss;
+7. serve 4 requests with the trained scope, loaded by name into a
+   ``PagedTransformerGenerator`` (``param_prefix="tf"``);
+8. at the training path's shapes (B=64, L=256, dropout 0.1, causal and
+   not), hold ``flash_attention`` and its autograd backward against the
+   plain forward and backward (out, lse, dq, dk, dv); then time every
+   kernel, its plain version and the PyTorch library call for the same
+   function at the paths' shapes.
 
-It prints a ``serving`` line, a ``kernels`` line and, last, the
-``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
-failed check exits 1 without the last line.
+It prints a ``serving`` line, a ``training`` line, a ``kernels`` line
+and, last, the ``{"ok": true, ...}`` line; per-case detail goes to
+standard error.  Any failed check exits 1 without the last line.
 """
 
 from __future__ import annotations
@@ -77,7 +95,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-# -- phase 3/6: the kernel against its plain version ------------------------
+# -- phases 3 and 8: the ragged kernel against its plain version -----------
 
 def kernel_cases(torch, gen):
     """Argument sets at the serving path's shapes: 8 lanes, 8 heads,
@@ -177,7 +195,7 @@ def time_case(torch, fa, case, pool, scales, plain, iters):
     return t0.elapsed_time(t1) / iters
 
 
-# -- phase 4/5: serving -----------------------------------------------------
+# -- phases 5 and 7: serving ------------------------------------------------
 
 def make_generator(device, kv_dtype):
     from paddle_tpu_torch.serving import PagedTransformerGenerator
@@ -192,8 +210,8 @@ def prompts(np):
 
 
 def serve_once(torch, np, fa, gen, srcs):
-    """The main path: requests in through the scheduler's thread, tokens
-    out.  Returns (run record, every request finished)."""
+    """The serving path: requests in through the scheduler's thread,
+    tokens out.  Returns (run record, every request finished)."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler
 
     gen.open_slots(N_SLOTS)
@@ -261,6 +279,365 @@ def teacher_forced(np, gpu, cpu, srcs):
     return worst, agree / max(1, total)
 
 
+# -- phases 4 and 8: flash kernels against their plain versions ------------
+
+# kernel vs plain, same inputs on the card.  fp32: both compute in fp32
+# and differ in summation order only (64-tile online softmax against one
+# softmax over all keys; 64- and 256-term dots), errors ~1e-6 relative,
+# and gradients sum up to 256 such terms.  bf16: the same fp32 arithmetic
+# on bf16 inputs, but each output is rounded to bf16 on both sides, and
+# a value near a rounding boundary moves by one bf16 ulp (2^-8 relative).
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_SHAPE = dict(B=8, H=8, D=64)
+
+
+def flash_cases():
+    """Argument sets at B=8, L=256, H=8, D=64 in 'blhd': causal and not,
+    dropout 0 and 0.1, fp32 and bf16; the two bias shapes (forward only:
+    the backward with a bias is the plain one); Lq=200 against Lk=136;
+    and causal block_offsets (0, 256), where every row is dead."""
+    cases = [dict(dtype=dt, causal=c, rate=r, lq=256, lk=256, bias=None,
+                  offsets=None, grads=True)
+             for dt in ("float32", "bfloat16") for c in (False, True)
+             for r in (0.0, 0.1)]
+    cases += [dict(dtype="float32", causal=False, rate=0.0, lq=256, lk=256,
+                   bias=b, offsets=None, grads=False) for b in ("b1", "1h")]
+    cases += [dict(dtype="float32", causal=c, rate=0.1, lq=200, lk=136,
+                   bias=None, offsets=None, grads=True)
+              for c in (False, True)]
+    cases.append(dict(dtype="float32", causal=True, rate=0.0, lq=256,
+                      lk=256, bias=None, offsets=(0, 256), grads=True))
+    return cases
+
+
+def _case_name(c):
+    return (f"{c['dtype']}/{'causal' if c['causal'] else 'full'}/"
+            f"p{c['rate']}/{c['lq']}x{c['lk']}"
+            + (f"/bias_{c['bias']}" if c["bias"] else "")
+            + (f"/off{c['offsets']}" if c["offsets"] else ""))
+
+
+def _max_err(torch, got, want):
+    """(max |got - want| over finite entries, max |want| there); the
+    error is +inf where the two differ in which entries are infinite."""
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin], want[~fin]):
+        return float("inf"), 0.0
+    if not fin.any():
+        return 0.0, 0.0
+    return ((got[fin] - want[fin]).abs().max().item(),
+            want[fin].abs().max().item())
+
+
+def run_flash_case(torch, fa, case, dev, gen):
+    """One case: kernels and plain versions on the same inputs -> (name,
+    {tensor: max_abs_err}, ok).  A tensor passes when its error is within
+    the dtype's tolerance times max(1, its largest magnitude)."""
+    B, H, D = FLASH_SHAPE["B"], FLASH_SHAPE["H"], FLASH_SHAPE["D"]
+    dt = getattr(torch, case["dtype"])
+    lq, lk = case["lq"], case["lk"]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dt)
+
+    q, k, v, dout = randn(B, lq, H, D), randn(B, lk, H, D), \
+        randn(B, lk, H, D), randn(B, lq, H, D)
+    bias = None
+    if case["bias"]:
+        shape = (B, 1, lq, lk) if case["bias"] == "b1" else (1, H, lq, lk)
+        bias = torch.randn(*shape, generator=gen).to(dev)
+    cfg = (case["causal"], D ** -0.5, case["rate"], SEED if case["rate"]
+           else 0, "blhd", case["offsets"] or (0, 0))
+    out, lse = fa._flash_fwd_cuda(q, k, v, bias, *cfg)
+    p_out, p_lse = fa.flash_forward_plain(q, k, v, bias, *cfg)
+    errs = {"out": _max_err(torch, out, p_out),
+            "lse": _max_err(torch, lse, p_lse)}
+    if case["grads"]:
+        args = (q, k, v, out, dout, lse, *cfg)
+        dq = fa._flash_dq_cuda(*args)
+        dk, dv = fa._flash_dkv_cuda(*args)
+        want = fa.flash_backward_plain(q, k, v, p_out, dout, p_lse, None,
+                                       *cfg)
+        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            errs[name] = _max_err(torch, g, w)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[case["dtype"]]
+    ok = all(e <= tol * max(1.0, mag) for e, mag in errs.values())
+    if case["offsets"] == (0, case["lk"]) and case["causal"]:
+        ok = ok and not out.any().item() and bool(torch.isinf(lse).all())
+    return _case_name(case), {n: e for n, (e, _) in errs.items()}, ok
+
+
+def dropout_mask_probe(torch, fa, dev):
+    """The kernels' dropout masks, compared exactly with keep_scale.  With
+    q = k = 0 every probability is 1/256 (exact), so with v one-hot on key
+    64*g + d the forward's out[r, d] is keep(r, 64g + d) / 256 exactly, and
+    with dout one-hot on row 64*g + d the dk/dv kernel's dv[c, d] is
+    keep(64g + d, c) / 256.  Returns (forward masks equal, dv masks
+    equal)."""
+    B, H, L, D, rate = 1, 2, 256, 64, 0.1
+    z = torch.zeros(B, L, H, D, device=dev)
+    cfg = (False, D ** -0.5, rate, SEED, "blhd", (0, 0))
+    lse = torch.full((B, H, L), float(math.log(L)), device=dev)
+    bh = torch.arange(H, device=dev)[:, None, None]
+    want = fa.keep_scale(SEED, bh, torch.arange(L, device=dev)[:, None],
+                         torch.arange(L, device=dev)[None, :], rate) > 0
+    fwd_ok = dv_ok = True
+    for g in range(L // D):
+        onehot = torch.zeros(B, L, H, D, device=dev)
+        idx = torch.arange(D, device=dev)
+        onehot[:, g * D + idx, :, idx] = 1.0
+        out, _ = fa._flash_fwd_cuda(z, z, onehot, None, *cfg)
+        got = out[0].permute(1, 0, 2) > 0                 # [H, r, d]
+        fwd_ok &= torch.equal(got, want[:, :, g * D:(g + 1) * D])
+        out0 = torch.zeros_like(z)
+        _, dv = fa._flash_dkv_cuda(z, z, z, out0, onehot, lse, *cfg)
+        got = dv[0].permute(1, 0, 2) > 0                  # [H, c, d]
+        dv_ok &= torch.equal(got, want[:, g * D:(g + 1) * D, :]
+                             .transpose(1, 2))
+    torch.cuda.synchronize()
+    return bool(fwd_ok), bool(dv_ok)
+
+
+
+
+def cuda_ms(torch, fn, iters):
+    """ms per call of ``fn`` on the current stream: CUDA events around
+    ``iters`` calls, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def flash_bound(kind, causal, B, H, L, D, item=4):
+    """Least time of one flash call: q, k, v (and out, dout, lse for the
+    backward) read once and the outputs written once, against the fp32
+    dot products the call must do (4, 6 and 8 * L^2 * D per batch*head
+    for fwd, dq and dk/dv: s and p.v; s, dp and ds.k; s, dp, p.do and
+    ds.q), of which the causal mask keeps (L + 1) / 2L."""
+    keep = (L + 1) / (2 * L) if causal else 1.0
+    ops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * B * H * L * L * D * keep
+    t, lse = B * L * H * D * item, B * H * L * 4
+    nbytes = {"fwd": 4 * t + lse, "dq": 6 * t + lse, "dkv": 7 * t + lse}[kind]
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def flash_entry_check(torch, fa, q, k, v, dout, cfg):
+    """The training path's call at its shapes, through its entry point:
+    ``flash_attention`` and its autograd backward (the three kernels),
+    held against the plain forward and backward on the same inputs.  The
+    lse is the one the wrapper saved for its backward.  Returns (name,
+    {tensor: max_abs_err}, ok) as ``run_flash_case`` does."""
+    causal, _scale, rate = cfg[:3]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, None, *cfg)
+    lse = out.grad_fn.saved_tensors[-1]
+    grads = torch.autograd.grad(out, leaves, dout)
+    p_out, p_lse = fa.flash_forward_plain(q, k, v, None, *cfg)
+    want = fa.flash_backward_plain(q, k, v, p_out, dout, p_lse, None, *cfg)
+    errs = {"out": _max_err(torch, out.detach(), p_out),
+            "lse": _max_err(torch, lse, p_lse)}
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        errs[name] = _max_err(torch, g, w)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+    ok = all(e <= tol * max(1.0, mag) for e, mag in errs.values())
+    name = (f"flash_attention/{'causal' if causal else 'full'}/p{rate}/"
+            f"B{q.shape[0]}xL{q.shape[1]}")
+    return name, {n: e for n, (e, _) in errs.items()}, ok
+
+
+def flash_timings(torch, fa, dev, gen):
+    """At the training path's shapes, B=64, L=256, H=8, D=64, float32,
+    dropout 0.1, non-causal and causal: first ``flash_entry_check``;
+    then each flash kernel, its plain version and the library call
+    (``scaled_dot_product_attention``, dropout 0, its autograd backward
+    for dq + dk/dv), timed.  The plain backward computes dq, dk and dv
+    in one call and is timed as such.  Returns (timing rows, checks)."""
+    import torch.nn.functional as F
+
+    B, L, H, D = TRAIN_BATCH, SEQ, MODEL["n_head"], MODEL["d_key"]
+    q, k, v, dout = (torch.randn(B, L, H, D, generator=gen).to(dev)
+                     for _ in range(4))
+    rows, checks = {}, []
+    for causal in (False, True):
+        cfg = (causal, D ** -0.5, TRAIN["dropout_rate"], SEED, "blhd",
+               (0, 0))
+        checks.append(flash_entry_check(torch, fa, q, k, v, dout, cfg))
+        out, lse = fa._flash_fwd_cuda(q, k, v, None, *cfg)
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous().requires_grad_(
+            x is not dout) for x in (q, k, v, dout))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                 is_causal=causal)
+        plain_bwd = cuda_ms(torch, lambda: fa.flash_backward_plain(
+            q, k, v, out, dout, lse, None, *cfg), 5)
+        t = {"fwd": cuda_ms(torch, lambda: fa._flash_fwd_cuda(
+                q, k, v, None, *cfg), 20),
+             "dq": cuda_ms(torch, lambda: fa._flash_dq_cuda(
+                 q, k, v, out, dout, lse, *cfg), 20),
+             "dkv": cuda_ms(torch, lambda: fa._flash_dkv_cuda(
+                 q, k, v, out, dout, lse, *cfg), 20)}
+        plain = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
+            q, k, v, None, *cfg), 5), "dq": plain_bwd, "dkv": plain_bwd}
+        with torch.no_grad():
+            lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), 20)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qh, kh, vh), doh, retain_graph=True), 20)
+        library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        for kind in ("fwd", "dq", "dkv"):
+            b_ms, b_by = flash_bound(kind, causal, B, H, L, D)
+            rows[(kind, causal)] = {
+                "kernel": kind, "causal": causal, "ms": t[kind],
+                "plain_ms": plain[kind], "library_ms": library[kind],
+                "bound_ms": b_ms, "bound_by": b_by}
+        del lib_out, qh, kh, vh, doh, out, lse
+    return rows, checks
+
+
+# -- phases 6 and 7: training, and serving what was trained ------------------
+
+# bench.py's Transformer-base training recipe: fused attention without
+# materialised biases (causal decoder self-attention in the kernel),
+# the streamed vocab loss, dropout 0.1, Adam(1e-4), in float32; its
+# amp_dtype (bf16 activations) is not ported.  max_length is the serving
+# generator's, so the position tables carry over.
+SEQ = 256
+TRAIN = dict(max_length=SERVE["max_length"], dropout_rate=0.1,
+             src_seq_len=SEQ, trg_seq_len=SEQ, fused=True,
+             materialize_attn_bias=False, fused_vocab_loss=True,
+             param_prefix="tf")
+LR = 1e-4
+TRAIN_BATCH, TRAIN_STEPS, COMPARE_BATCH = 64, 20, 2
+N_TRAINED_REQUESTS = 4
+# encoder self, decoder self (causal) and cross attention per layer
+ATTN_PER_STEP = 3 * MODEL["n_layer"]
+CAUSAL_PER_STEP = MODEL["n_layer"]
+# card vs CPU, one step from one scope with dropout on (both draw the
+# same hash masks): float32 end to end with TF32 off, so they differ by
+# summation order only, through 12 layers and a 32768-way softmax.  The
+# gradient error is taken relative to the gradient's largest magnitude.
+# Adam's first step moves a weight by lr * g / (|g| + eps / 0.03), about
+# +-lr, and a gradient within rounding of 0 may flip that sign: the
+# updated weights can differ by 2 lr where the gradients agree.  So the
+# update itself, w_after - w_init, is held to its own size as well, on
+# the elements whose |g| is at least UPDATE_GRAD_FLOOR of the
+# parameter's largest: there a gradient within STEP_GRAD_RTOL cannot
+# flip the step's sign and moves it by at most 1e-3 / 1e-2 = 0.1 of
+# itself, while a skipped, doubled or misdirected update is off by 1 or
+# more.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+STEP_PARAM_ATOL = 2 * LR + 1e-6
+UPDATE_GRAD_FLOOR = 1e-2
+STEP_UPDATE_RTOL = 0.1
+UPDATE_MIN_SHARE = 0.5          # the floor must leave most elements checked
+
+
+def build_training(fluid, transformer):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _, _ = transformer(VOCAB, VOCAB, **MODEL, **TRAIN)
+        fluid.optimizer.Adam(LR).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def train_feed(np, batch):
+    """One fixed batch of packed full-length pairs, made from the seed."""
+    rng = np.random.RandomState(SEED)
+    pos = np.tile(np.arange(SEQ), (batch, 1))
+    return {"src_word": rng.randint(2, VOCAB, (batch, SEQ)),
+            "src_pos": pos,
+            "trg_word": rng.randint(2, VOCAB, (batch, SEQ)),
+            "trg_pos": pos,
+            "lbl_word": rng.randint(2, VOCAB, (batch, SEQ)),
+            "lbl_weight": np.ones((batch, SEQ), np.float32)}
+
+
+def compare_step(np, fluid, main, loss, init, feed):
+    """One step on the card and on the CPU from the same scope: the loss,
+    the gradients, the updated weights and the updates of encoder layer 0
+    and decoder layer 0.  Returns a record of the four errors."""
+    params = [p.name for p in main.global_block().all_parameters()
+              if p.name.startswith(("tf.enc0.", "tf.dec0."))]
+    fetch = [loss.name] + [n + "@GRAD" for n in params]
+    res = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.scope_from_numpy(init, place)
+        t0 = time.perf_counter()
+        got = fluid.Executor(place).run(main, feed=feed, fetch_list=fetch,
+                                        scope=scope)
+        res.append((got, fluid.scope_to_numpy(scope, params),
+                    time.perf_counter() - t0))
+        del scope
+    (g_card, w_card, t_card), (g_cpu, w_cpu, t_cpu) = res
+    upd_err, checked, total = 0.0, 0, 0
+    for n, g in zip(params, g_cpu[1:]):
+        u_card, u_cpu = w_card[n] - init[n], w_cpu[n] - init[n]
+        sure = np.abs(g) >= UPDATE_GRAD_FLOOR * np.abs(g).max()
+        if sure.any():
+            upd_err = max(upd_err, float((np.abs(u_card - u_cpu)[sure]
+                                          / np.abs(u_cpu)[sure]).max()))
+        checked += int(sure.sum())
+        total += g.size
+    return {"loss_card": float(g_card[0]), "loss_cpu": float(g_cpu[0]),
+            "update_rel_err": upd_err, "update_checked_share":
+            checked / max(1, total),
+            "loss_rel_err": abs(float(g_card[0]) - float(g_cpu[0]))
+            / abs(float(g_cpu[0])),
+            "grad_rel_err": max(float(np.abs(a - b).max())
+                                / max(float(np.abs(b).max()), 1e-30)
+                                for a, b in zip(g_card[1:], g_cpu[1:])),
+            "param_max_abs_err": max(float(np.abs(w_card[n] - w_cpu[n])
+                                           .max()) for n in params),
+            "n_params": len(params), "card_s": t_card, "cpu_s": t_cpu}
+
+
+def train_on_card(torch, fluid, fa, main, loss, init, feed):
+    """The training path: TRAIN_STEPS steps of ``Executor.run`` on the
+    card, with the flash kernels' launch counts set to 0 just before and
+    read just after.  Returns (record, trained scope)."""
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    exe = fluid.Executor(place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        # the fetched loss comes back as a numpy array: the step is done
+        lv, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+    launches = dict(fa.flash_attention.launches)
+    steady = sorted(times[1:])[len(times[1:]) // 2]        # median
+    tokens = TRAIN_BATCH * SEQ * 2
+    rec = {"batch": TRAIN_BATCH, "seq": SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "first_step_ms": times[0] * 1e3,
+           "step_ms_median": steady * 1e3,
+           "step_ms_mean": sum(times[1:]) / len(times[1:]) * 1e3,
+           "tokens_per_s": tokens / steady,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()}}
+    return rec, scope
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -270,24 +647,29 @@ def main() -> int:
     import numpy as np
 
     import paddle_tpu_torch.kernels.flash_attention as fa
+    from paddle_tpu_torch import fluid
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models.transformer import transformer
 
     failures = []
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
 
-    # -- build
+    # -- build: every kernel source at once
     t0 = time.perf_counter()
-    lib = _build.build_all([fa.KERNEL_NAME])[fa.KERNEL_NAME]
-    log(f"built {lib.name} in {time.perf_counter() - t0:.1f}s")
-    build_log = lib.with_name(lib.name + ".log")
-    if build_log.exists():          # ptxas: registers, spills, barriers
-        for ln in build_log.read_text().splitlines():
-            if "ptxas" in ln and "Compile time" not in ln:
-                log(ln)
+    sources = [fa.KERNEL_NAME] + sorted(set(fa.FLASH_KERNELS.values()))
+    libs = _build.build_all(sources)
+    log(f"built {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for lib in libs.values():
+        build_log = lib.with_name(lib.name + ".log")
+        if build_log.exists():      # ptxas: registers, spills, barriers
+            for ln in build_log.read_text().splitlines():
+                if "ptxas" in ln and "Compile time" not in ln:
+                    log(ln)
 
-    # -- kernel vs plain on the card
+    # -- the ragged kernel vs plain on the card
     dev = torch.device("cuda", 0)
     gen = torch.Generator()
     gen.manual_seed(SEED)
@@ -318,7 +700,24 @@ def main() -> int:
             max_err = max(max_err, case_err)
             log(f"kernel vs plain {kv}/{name}: max_abs_err {case_err}")
 
-    # -- serving, the main path, once per pool dtype
+    # -- the flash kernels vs plain on the card
+    flash_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    owner = {"out": "fwd", "lse": "fwd", "dq": "dq", "dk": "dkv",
+             "dv": "dkv"}
+    for case in flash_cases():
+        name, errs, ok = run_flash_case(torch, fa, case, dev, gen)
+        log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
+        for t, e in errs.items():
+            flash_err[owner[t]] = max(flash_err[owner[t]], e)
+        if not ok:
+            failures.append(f"flash kernel vs plain {name}: {errs}")
+    masks = dropout_mask_probe(torch, fa, dev)
+    log(f"flash dropout masks equal keep_scale (fwd, dv): {masks}")
+    if not all(masks):
+        failures.append(f"flash dropout masks differ from keep_scale: "
+                        f"(fwd, dv) = {masks}")
+
+    # -- serving, once per pool dtype
     srcs = prompts(np)
     runs = []
     launches = 0
@@ -364,7 +763,59 @@ def main() -> int:
         del gpu, cpu
         torch.cuda.empty_cache()
 
-    # -- timings at the path's shapes
+    # -- training: the program, one step card vs CPU, then the card alone
+    t0 = time.perf_counter()
+    main_prog, startup, loss = build_training(fluid, transformer)
+    init_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init_scope)
+    init = fluid.scope_to_numpy(init_scope)
+    del init_scope
+    log(f"built the training program ({len(main_prog.global_block().ops)} "
+        f"ops) and its {len(init)} initial arrays in "
+        f"{time.perf_counter() - t0:.1f}s")
+    feed = train_feed(np, TRAIN_BATCH)
+    step = compare_step(np, fluid, main_prog, loss, init,
+                        {k: v[:COMPARE_BATCH] for k, v in feed.items()})
+    log(f"training step card vs CPU: {json.dumps(step)}")
+    if not (step["loss_rel_err"] <= STEP_LOSS_RTOL
+            and step["grad_rel_err"] <= STEP_GRAD_RTOL
+            and step["param_max_abs_err"] <= STEP_PARAM_ATOL
+            and step["update_rel_err"] <= STEP_UPDATE_RTOL
+            and step["update_checked_share"] >= UPDATE_MIN_SHARE):
+        failures.append(f"training step card vs CPU: {step}")
+    torch.cuda.empty_cache()
+    training, scope = train_on_card(torch, fluid, fa, main_prog, loss, init,
+                                    feed)
+    training.update(card=card, compare=step)
+    log(f"training: {json.dumps(training)}")
+    want = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
+    if training["launches"] != want:
+        failures.append(f"training: flash launches {training['launches']} "
+                        f"in {TRAIN_STEPS} steps, want {want}")
+    if not (np.isfinite(training["losses"]).all()
+            and training["losses"][-1] < training["losses"][0]):
+        failures.append(f"training: loss did not fall: "
+                        f"{training['losses']}")
+
+    # -- serve what was trained: the scope's parameters, by name
+    params = [p.name for p in main_prog.global_block().all_parameters()]
+    trained = fluid.scope_to_numpy(scope, params)
+    del scope
+    torch.cuda.empty_cache()
+    g = make_generator("cuda", "float32")
+    n_loaded = g.load_params(trained)
+    rec, ok = serve_once(torch, np, fa, g, srcs[:N_TRAINED_REQUESTS])
+    rec.update(kv_dtype="float32", weights="trained", loaded=n_loaded)
+    launches += rec["launches"]
+    log(f"served the trained scope: {json.dumps(rec)}")
+    if not ok or rec["launches"] != ATTN_PER_STEP * rec["steps"] \
+            or rec["steps"] == 0:
+        failures.append(f"serving the trained scope: {rec}")
+    runs.append(rec)
+    del g
+    torch.cuda.empty_cache()
+
+    # -- timings at the paths' shapes
     timing = []
     for kv, (pool, scales) in pools.items():
         for name, case in cases.items():
@@ -375,6 +826,15 @@ def main() -> int:
             timing.append({"kv_dtype": kv, "case": name, "ms": ms,
                            "ms_repeat": ms2, "plain_ms": pms,
                            "bound_ms": b_ms, "bound_by": b_by})
+    del pools
+    torch.cuda.empty_cache()
+    flash_rows, checks = flash_timings(torch, fa, dev, gen)
+    for name, errs, ok in checks:
+        log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
+        for t, e in errs.items():
+            flash_err[owner[t]] = max(flash_err[owner[t]], e)
+        if not ok:
+            failures.append(f"flash entry point vs plain {name}: {errs}")
     fp32 = [t for t in timing if t["kv_dtype"] == "float32"]
     b_bytes = sum(t["bound_ms"] for t in fp32 if t["bound_by"] == "bytes")
     b_ops = sum(t["bound_ms"] for t in fp32 if t["bound_by"] != "bytes")
@@ -392,10 +852,36 @@ def main() -> int:
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None,
     }]
+    replaces = {"fwd": 527, "dq": 743, "dkv": 788}
+    for k in ("fwd", "dq", "dkv"):
+        # per call, averaged over the training step's mix of 12 full and
+        # 6 causal attentions
+        def mix(key, k=k):
+            full, causal = flash_rows[(k, False)], flash_rows[(k, True)]
+            return ((ATTN_PER_STEP - CAUSAL_PER_STEP) * full[key]
+                    + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
+
+        by = {flash_rows[(k, c)]["bound_by"] for c in (False, True)}
+        kernels.append({
+            "name": f"flash_attention_{k}",
+            "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{fa.FLASH_KERNELS[k]}"
+                      f".cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                        f"{replaces[k]}",
+            "launches": training["launches"][k],
+            "max_abs_err": flash_err[k],
+            "ms": mix("ms"), "plain_ms": mix("plain_ms"),
+            "bound_ms": mix("bound_ms"),
+            "bound_by": by.pop() if len(by) == 1 else "operations",
+            "library_ms": mix("library_ms")})
     for t in timing:
         log(json.dumps(t))
+    for r in flash_rows.values():
+        log(json.dumps(r))
 
     print(json.dumps({"serving": {"card": card, "runs": runs}}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
         for f in failures:

@@ -1,3 +1,34 @@
-"""The port's counterpart of ``paddle_tpu.fluid``.  So far it holds only
-the ops the paged serving path runs (``fluid.ops``); the ProgramDesc
-front end, lowering and Executor are not ported yet."""
+"""The port's counterpart of ``paddle_tpu.fluid``: programs of blocks of
+ops built by ``layers.*``, differentiated by ``append_backward`` /
+``optimizer.Adam(...).minimize``, and run one step at a time by an
+``Executor`` that executes the block's ops eagerly on one device
+(``lowering.py``).  Importing it registers the op emitters.
+
+Cut to what the Transformer training program needs.  Not ported (they
+raise ``NotImplementedError`` where the API reaches them): sequence
+inputs (``lod_level > 0``, SeqArray), sparse embeddings, meshes and
+sequence parallelism, ``amp_dtype``, gradient clipping and regularizers,
+optimizers other than Adam, control-flow ops, ``run_pipeline`` /
+``run_steps``, the compile cache and ``cost_analysis``."""
+
+from . import ops as _ops  # registers the op emitters  # noqa: F401
+from . import initializer, layers, optimizer, unique_name  # noqa: F401
+from .backward import append_backward
+from .core.registry import registered_ops
+from .executor import (CPUPlace, CUDAPlace, Executor, Scope, global_scope,
+                       scope_from_numpy, scope_guard, scope_to_numpy)
+from .framework import (Block, Operator, Parameter, Program, Variable,
+                        default_main_program, default_startup_program,
+                        program_guard, switch_main_program,
+                        switch_startup_program)
+from .param_attr import ParamAttr
+
+__all__ = [
+    "layers", "optimizer", "initializer", "unique_name",
+    "append_backward", "registered_ops",
+    "Executor", "Scope", "global_scope", "scope_guard", "CUDAPlace",
+    "CPUPlace", "scope_from_numpy", "scope_to_numpy",
+    "Program", "Block", "Operator", "Variable", "Parameter", "ParamAttr",
+    "default_main_program", "default_startup_program", "program_guard",
+    "switch_main_program", "switch_startup_program",
+]

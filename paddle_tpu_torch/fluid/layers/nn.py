@@ -1,0 +1,194 @@
+"""Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
+to what ``models/transformer.transformer()`` builds.  Each layer appends
+ops to the current block through ``LayerHelper`` exactly as the
+reference does, so both packages build byte-identical programs."""
+
+from __future__ import annotations
+
+import math
+
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+__all__ = ["fc", "embedding", "dropout", "softmax_with_cross_entropy",
+           "layer_norm", "reduce_sum", "reshape",
+           "fused_attention", "fused_vocab_cross_entropy"]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None, main_program=None, startup_program=None):
+    """Fully connected: one ``mul`` per input (each with its own weight),
+    a ``sum`` of the partial products, then the bias and the
+    activation."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name,
+                         main_program=main_program,
+                         startup_program=startup_program)
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var in helper.multiple_input():
+        in_features = math.prod(input_var.shape[num_flatten_dims:])
+        w = helper.create_parameter(helper.param_attr,
+                                    shape=[in_features, size], dtype=dtype)
+        tmp = helper.create_tmp_variable(dtype)
+        helper.append_op("mul", {"X": input_var, "Y": w}, {"Out": tmp},
+                         {"x_num_col_dims": num_flatten_dims,
+                          "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(dtype)
+        helper.append_op("sum", {"X": mul_results}, {"Out": pre_bias})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims,
+                                    bias_shape=[size])
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, padding_idx=None,
+              param_attr=None, dtype="float32", name=None,
+              main_program=None, startup_program=None):
+    """Embedding lookup with a dense gradient.  ``is_sparse=True`` (the
+    reference's SelectedRows gradient) is not ported."""
+    if is_sparse:
+        raise NotImplementedError("embedding(is_sparse=True): SelectedRows "
+                                  "gradients are not ported to "
+                                  "paddle_tpu_torch")
+    helper = LayerHelper("embedding", param_attr=param_attr, name=name,
+                         main_program=main_program,
+                         startup_program=startup_program)
+    w = helper.create_parameter(helper.param_attr, shape=list(size),
+                                dtype=dtype)
+    out = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    attrs = {"is_sparse": False}
+    if padding_idx is not None:
+        attrs["padding_idx"] = int(padding_idx)
+    helper.append_op("lookup_table", {"W": w, "Ids": input}, {"Out": out},
+                     attrs)
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    helper.append_op("dropout", {"X": x}, {"Out": out},
+                     {"dropout_prob": float(dropout_prob),
+                      "is_test": is_test})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_tmp_variable(logits.dtype)
+    loss = helper.create_tmp_variable(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     {"Logits": logits, "Label": label},
+                     {"Softmax": softmax, "Loss": loss},
+                     {"soft_label": soft_label})
+    return loss
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    norm_shape = [math.prod(input.shape[begin_norm_axis:])]
+    inputs = {"X": input}
+    if scale:
+        inputs["Scale"] = helper.create_parameter(
+            helper.param_attr, shape=norm_shape, dtype=dtype,
+            default_initializer=ConstantInitializer(1.0), suffix="scale")
+    if shift:
+        inputs["Bias"] = helper.create_parameter(
+            helper.bias_attr or ParamAttr(), shape=norm_shape,
+            dtype=dtype, is_bias=True)
+    out = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    mean = helper.create_tmp_variable(dtype, stop_gradient=True)
+    var = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op("layer_norm", inputs,
+                     {"Y": out, "Mean": mean, "Variance": var},
+                     {"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def _make_reduce(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(input.dtype)
+        attrs = {"keep_dim": keep_dim, "reduce_all": dim is None}
+        if dim is not None:
+            attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+        helper.append_op(op_type, {"X": input}, {"Out": out}, attrs)
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _make_reduce("reduce_sum")
+
+
+def reshape(x, shape, act=None, name=None):
+    helper = LayerHelper("reshape", name=name, act=act)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("reshape", {"X": x}, {"Out": out},
+                     {"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def fused_attention(q, k, v, bias=None, causal=False, sm_scale=None,
+                    seq_parallel=False, sp_impl="ring", impl=None,
+                    dropout_rate=0.0, is_test=False, layout="bhld",
+                    name=None):
+    """Fused scaled-dot-product attention (``kernels.flash_attention``):
+    ``layout='bhld'`` takes [b, h, l, d], ``'blhd'`` [b, l, h, d].
+    ``dropout_rate`` drops attention probabilities inside the kernel
+    (hash mask, train mode only).  The attrs are the reference's, so the
+    program serializes alike; sequence parallelism (``seq_parallel``)
+    and the ``impl`` switch are not ported."""
+    if seq_parallel:
+        raise NotImplementedError("fused_attention(seq_parallel=...): ring "
+                                  "and Ulysses attention need a mesh, not "
+                                  "ported to paddle_tpu_torch")
+    if impl is not None:
+        raise NotImplementedError(f"fused_attention(impl={impl!r}) is not "
+                                  f"ported to paddle_tpu_torch")
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"fused_attention: sp_impl must be 'ring' or 'ulysses', "
+            f"got {sp_impl!r}")
+    helper = LayerHelper("fused_attention", name=name)
+    out = helper.create_tmp_variable(q.dtype)
+    inputs = {"Q": q, "K": k, "V": v}
+    if bias is not None:
+        inputs["Bias"] = bias
+    attrs = {"causal": bool(causal), "seq_parallel": False,
+             "sp_impl": str(sp_impl),
+             "dropout_rate": float(dropout_rate), "is_test": bool(is_test),
+             "layout": str(layout)}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    helper.append_op("fused_attention", inputs, {"Out": out}, attrs)
+    return out
+
+
+def fused_vocab_cross_entropy(input, label, vocab_size, chunk=8192,
+                              param_attr=None, name=None):
+    """Streaming projection + softmax + cross-entropy against a [D, V]
+    vocab matrix: the math of ``fc(bias_attr=False)`` +
+    ``softmax_with_cross_entropy`` without the [N, V] logits held whole.
+    Share the projection with an inference head by passing the same
+    ``param_attr`` name to an ``fc``."""
+    helper = LayerHelper("fused_vocab_cross_entropy", param_attr=param_attr,
+                         name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr, shape=[d, vocab_size],
+                                dtype=input.dtype)
+    loss = helper.create_tmp_variable("float32")
+    helper.append_op("fused_vocab_cross_entropy",
+                     {"X": input, "W": w, "Label": label}, {"Loss": loss},
+                     {"chunk": int(chunk)})
+    return loss

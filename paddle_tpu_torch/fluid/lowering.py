@@ -1,0 +1,226 @@
+"""Block lowering: run a block's ops eagerly on one device — the port of
+``paddle_tpu/fluid/lowering.py``.
+
+The reference traces every op's emitter into one XLA computation, where
+dead code is dropped and a grad op's re-run of its forward op is folded
+into the first run by common-subexpression elimination.  Eager PyTorch
+does neither by itself, so ``BlockPlan`` does both from the desc alone:
+
+* dead-code elimination: only ops that feed a fetch or write a
+  persistable var run (the Transformer's unfetched ``predict``
+  projection, for one, never does);
+* a forward op whose ``*_grad`` op has no emitter of its own runs under
+  autograd with the inputs its grad op asks for as leaves, and keeps its
+  graph on a tape; the grad op takes the vector-Jacobian product through
+  that graph (``torch.autograd.grad``), so no forward runs twice — a
+  ``fused_attention`` launches its forward kernel once per step and its
+  grad op launches the dq and dk/dv kernels.
+
+Random numbers: each random op carries a build-time ``__rng_salt__``; its
+seed is a host-side integer hash of (program seed, step, salt)
+(``op_seed``), so the card and the CPU draw the same dropout masks from
+the same seed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+
+from .core.desc import BlockDesc, OpDesc
+from .core.registry import (EmitCtx, GRAD_SUFFIX, base_op_type, get_op_info,
+                            has_op, is_grad_op_type)
+
+__all__ = ["BlockPlan", "run_block_ops", "op_seed", "MARKER_OPS"]
+
+# pure marker ops (wired by the executor's feed/fetch handling)
+MARKER_OPS = {"feed", "fetch"}
+
+_M64 = (1 << 64) - 1
+
+
+def op_seed(seed: int, step: int, salt: int) -> int:
+    """uint32 seed of the random op with ``salt`` in step ``step`` of a
+    program seeded ``seed``: a splitmix64 finalizer over the three."""
+    x = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xD1B54A32D192ED03
+         + int(salt) * 0x8CB92BA72F3D8DD7) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return (x ^ (x >> 31)) & 0xFFFFFFFF
+
+
+class BlockPlan:
+    """What running a block for given feeds and fetches needs, derived
+    from the desc: the live ops in order, the state read from the scope
+    (``state_in``) and written back (``state_out``), and the tape links
+    between grad ops and their forward ops."""
+
+    def __init__(self, block: BlockDesc, feed_names: Sequence[str],
+                 fetch_names: Sequence[str]):
+        ops = [op for op in block.ops if op.type not in MARKER_OPS]
+        persistable = {n for n, vd in block.vars.items() if vd.persistable}
+        needed = set(fetch_names)
+        live = []
+        for op in reversed(ops):
+            if any(n and (n in needed or n in persistable)
+                   for n in op.output_names()):
+                live.append(op)
+                needed.update(n for n in op.input_names() if n)
+        self.ops: List[OpDesc] = live[::-1]
+
+        feeds = set(feed_names)
+        written: set = set()
+        self.state_in: List[str] = []
+        for op in self.ops:
+            for n in op.input_names():
+                if n and n not in written and n not in feeds \
+                        and n not in self.state_in:
+                    self.state_in.append(n)
+            written.update(n for n in op.output_names() if n)
+        for n in fetch_names:
+            if n not in written and n not in feeds \
+                    and n not in self.state_in:
+                self.state_in.append(n)
+        self.state_out = sorted(n for n in written if n in persistable)
+
+        # tape[forward position] = the (slot, index) inputs its grad op
+        # wants; grad_of[grad position] = forward position
+        self.tape: Dict[int, List[Tuple[str, int]]] = {}
+        self.grad_of: Dict[int, int] = {}
+        last_writer: Dict[str, int] = {}
+        for pos, op in enumerate(self.ops):
+            if is_grad_op_type(op.type) and not has_op(op.type):
+                fwd = self._forward_of(pos, op, last_writer)
+                self.grad_of[pos] = fwd
+                self.tape[fwd] = [
+                    (slot[: -len(GRAD_SUFFIX)], i)
+                    for slot, names in op.outputs.items()
+                    for i, n in enumerate(names) if n]
+            for n in op.output_names():
+                if n:
+                    last_writer[n] = pos
+
+    def _forward_of(self, pos: int, op: OpDesc,
+                    last_writer: Dict[str, int]) -> int:
+        """The position of the forward op whose output gradients grad op
+        ``op`` consumes: the last writer of the var a cotangent names
+        (``x@GRAD`` or ``x@GRAD@ZERO`` -> ``x``)."""
+        base = base_op_type(op.type)
+        if not has_op(base):
+            raise KeyError(f"no emitter for op type {op.type!r}")
+        for slot, names in op.inputs.items():
+            if not slot.endswith(GRAD_SUFFIX):
+                continue
+            for n in names:
+                fwd = last_writer.get(n.split(GRAD_SUFFIX)[0]) if n else None
+                if fwd is not None and self.ops[fwd].type == base:
+                    if fwd in self.tape:
+                        raise RuntimeError(f"op #{fwd} ({base}) has two "
+                                           "grad ops")
+                    return fwd
+        raise RuntimeError(f"grad op #{pos} ({op.type}) has no live forward "
+                           f"op in this block")
+
+
+def _gather_inputs(op: OpDesc, env: Dict[str, Any]) -> Dict[str, list]:
+    ins: Dict[str, list] = {}
+    for slot, names in op.inputs.items():
+        vals = []
+        for n in names:
+            if not n:
+                continue
+            if n not in env:
+                raise KeyError(
+                    f"op {op.type}: input {slot}={n!r} not materialized; "
+                    f"known vars: {sorted(env)[:20]}...")
+            vals.append(env[n])
+        if vals:
+            ins[slot] = vals
+    return ins
+
+
+def _scatter_outputs(op: OpDesc, outs: Dict[str, list], env: Dict[str, Any]):
+    for slot, names in op.outputs.items():
+        for n, v in zip(names, outs.get(slot, [])):
+            if n:
+                env[n] = v
+
+
+def _emit_taped(ctx: EmitCtx, op: OpDesc, ins: Dict[str, list],
+                wanted: List[Tuple[str, int]]):
+    """Run a forward op under autograd with the wanted inputs as leaves.
+    Returns (outputs detached for the env, (leaves, outputs with graph))."""
+    ins = {slot: list(vals) for slot, vals in ins.items()}
+    leaves = {}
+    for slot, i in wanted:
+        leaf = ins[slot][i].detach().requires_grad_(True)
+        ins[slot][i] = leaf
+        leaves[(slot, i)] = leaf
+    with torch.enable_grad():
+        outs = get_op_info(op.type).emit(ctx, ins)
+    detached = {slot: [v.detach() for v in vals]
+                for slot, vals in outs.items()}
+    return detached, (leaves, outs)
+
+
+def _emit_tape_grad(op: OpDesc, ins: Dict[str, list], entry):
+    """A ``*_grad`` op: the vector-Jacobian product of its forward op's
+    taped graph with the cotangents ``<OutSlot>@GRAD``; gradients go out
+    under ``<InSlot>@GRAD``, aligned with the forward slot's entries.  An
+    input the outputs do not depend on gets zeros."""
+    leaves, outs = entry
+    cotangents = {s[: -len(GRAD_SUFFIX)]: v for s, v in ins.items()
+                  if s.endswith(GRAD_SUFFIX)}
+    ys, cts = [], []
+    for slot in sorted(cotangents):
+        for y, c in zip(outs.get(slot, []), cotangents[slot]):
+            if y.requires_grad:
+                ys.append(y)
+                # a cotangent must carry its output's dtype exactly
+                cts.append(c.to(y.dtype))
+    keys = list(leaves)
+    grads = (torch.autograd.grad(ys, [leaves[k] for k in keys], cts,
+                                 allow_unused=True)
+             if ys else [None] * len(keys))
+    got = dict(zip(keys, grads))
+    out: Dict[str, list] = {}
+    for slot, names in op.outputs.items():
+        fwd_slot = slot[: -len(GRAD_SUFFIX)]
+        vals = []
+        for i, n in enumerate(names):
+            g = got.get((fwd_slot, i)) if n else None
+            if n and g is None:
+                g = torch.zeros_like(leaves[(fwd_slot, i)])
+            vals.append(g)
+        out[slot] = vals
+    return out
+
+
+def run_block_ops(plan: BlockPlan, env: Dict[str, Any], seed: int,
+                  step: int, device: torch.device,
+                  mode: str = "train") -> Dict[str, Any]:
+    """Run the plan's ops in order into ``env`` (name -> tensor), the
+    eager analog of the reference executor's per-op loop."""
+    tape: Dict[int, Any] = {}
+    # under a running torch.profiler, each op's work is a range named
+    # after its type, so the trace attributes time to Fluid ops
+    annotate = torch.autograd.profiler._is_profiler_enabled
+    for pos, op in enumerate(plan.ops):
+        ins = _gather_inputs(op, env)
+        salt = op.attr("__rng_salt__", None)
+        ctx = EmitCtx(op, seed=None if salt is None
+                      else op_seed(seed, step, salt), device=device,
+                      mode=mode)
+        with (torch.profiler.record_function(op.type) if annotate
+              else contextlib.nullcontext()):
+            if pos in plan.grad_of:
+                outs = _emit_tape_grad(op, ins,
+                                       tape.pop(plan.grad_of[pos]))
+            elif pos in plan.tape:
+                outs, tape[pos] = _emit_taped(ctx, op, ins, plan.tape[pos])
+            else:
+                outs = get_op_info(op.type).emit(ctx, ins)
+        _scatter_outputs(op, outs, env)
+    return env

@@ -1,2 +1,13 @@
-"""Tensor functions of the port's serving path: the paged KV writes
-(``cache_ops``) and the int8 quantize-on-write rule (``quant_ops``)."""
+"""Op corpus of the port: importing this package registers every op
+emitter the slice runs (tensor, math, activation, nn, loss and optimizer
+ops).  ``cache_ops`` and ``quant_ops`` hold the serving path's paged KV
+writes and its int8 quantize-on-write rule as plain tensor functions."""
+
+from . import (  # noqa: F401
+    activation_ops,
+    loss_ops,
+    math_ops,
+    nn_ops,
+    optimizer_ops,
+    tensor_ops,
+)

@@ -1,0 +1,91 @@
+"""Math ops: the projection matmul, the elementwise family, sum, scale and
+reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``, cut to
+what the Transformer, its backward and Adam emit.  The matmul is
+``torch.matmul`` (cuBLAS on the card, fp32 with TF32 off), as the
+reference leaves it to XLA."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.registry import primitive
+
+
+def _flatten_2d(x, num_col_dims: int):
+    """Leading num_col_dims dims into rows, the rest into cols (reference
+    mul_op.cc:30)."""
+    lead = math.prod(x.shape[:num_col_dims]) if num_col_dims else 1
+    return x.reshape(lead, -1)
+
+
+@primitive("mul", inputs=["X", "Y"])
+def mul(ctx, x, y):
+    """Projection matmul (reference mul_op.cc): X and Y flattened to 2-D
+    per x_num_col_dims / y_num_col_dims, multiplied, leading dims
+    restored."""
+    xd = ctx.attr("x_num_col_dims", 1)
+    yd = ctx.attr("y_num_col_dims", 1)
+    out = torch.matmul(_flatten_2d(x, xd), _flatten_2d(y, yd))
+    return out.reshape(*x.shape[:xd], *y.shape[yd:])
+
+
+def _bcast_to_x(x, y, axis: int):
+    """Reference broadcast rule (elementwise_op_function.h): Y's dims
+    align with X's starting at ``axis`` (default: trailing alignment)."""
+    if x.shape == y.shape or axis in (-1, None):
+        return y
+    pad_right = x.dim() - axis - y.dim()
+    return y.reshape((1,) * axis + tuple(y.shape) + (1,) * pad_right)
+
+
+def _elementwise(name, fn):
+    @primitive(name, inputs=["X", "Y"])
+    def _op(ctx, x, y, _fn=fn):
+        return _fn(x, _bcast_to_x(x, y, ctx.attr("axis", -1)))
+    _op.__name__ = name
+    return _op
+
+
+_elementwise("elementwise_add", lambda x, y: x + y)
+_elementwise("elementwise_sub", lambda x, y: x - y)
+_elementwise("elementwise_mul", lambda x, y: x * y)
+_elementwise("elementwise_div", lambda x, y: x / y)
+
+
+@primitive("sum", inputs=["X*"])
+def sum_op(ctx, xs):
+    """Variadic add — also the fan-in accumulator ``append_backward``
+    inserts."""
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+@primitive("scale")
+def scale(ctx, x):
+    s = ctx.attr("scale", 1.0)
+    b = ctx.attr("bias", 0.0)
+    if ctx.attr("bias_after_scale", True):
+        return x * s + b
+    return (x + b) * s
+
+
+def _reduce(name, fn):
+    @primitive(name)
+    def _op(ctx, x, _fn=fn):
+        """reference reduce_op.cc: dim (list or int), keep_dim,
+        reduce_all."""
+        dim = ctx.attr("dim", [0])
+        if ctx.attr("reduce_all", False):
+            dim = tuple(range(x.dim()))
+        elif isinstance(dim, int):
+            dim = (dim,)
+        return _fn(x, dim=tuple(dim), keepdim=ctx.attr("keep_dim", False))
+    _op.__name__ = name
+    return _op
+
+
+_reduce("reduce_sum", torch.sum)

@@ -1,0 +1,110 @@
+"""Tensor creation and manipulation ops — the port of
+``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer, its
+backward and Adam emit.
+
+Random ops draw from a CPU ``torch.Generator`` seeded with the op's
+host-side seed (``EmitCtx.seed``) and copy to the device, so one seed
+gives the same values on every device; during shape inference (``meta``)
+they draw nothing.  The reference's runtime narrows int64 and float64 to
+int32 and float32, and so do these ops.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import primitive
+from ..core.types import runtime_dtype, torch_dtype
+
+
+def _rt_dtype(name) -> torch.dtype:
+    return torch_dtype(runtime_dtype(name))
+
+
+@primitive("fill_constant", inputs=[], no_grad=True)
+def fill_constant(ctx, *_):
+    return torch.full(tuple(ctx.attr("shape")), ctx.attr("value", 0.0),
+                      dtype=_rt_dtype(ctx.attr("dtype", "float32")),
+                      device=ctx.device)
+
+
+@primitive("fill_zeros_like", no_grad=True)
+def fill_zeros_like(ctx, x):
+    return torch.zeros_like(x)
+
+
+def _draw(ctx, fill):
+    """``fill(cpu_tensor, generator)`` on a float32 CPU tensor of the op's
+    shape, then cast and copy to the op's device."""
+    shape = tuple(ctx.attr("shape"))
+    dt = _rt_dtype(ctx.attr("dtype", "float32"))
+    if ctx.device.type == "meta":
+        return torch.empty(shape, dtype=dt, device="meta")
+    gen = torch.Generator()
+    gen.manual_seed(int(ctx.seed))
+    x = fill(torch.empty(shape, dtype=torch.float32), gen)
+    return x.to(device=ctx.device, dtype=dt)
+
+
+@primitive("uniform_random", inputs=[], no_grad=True)
+def uniform_random(ctx, *_):
+    return _draw(ctx, lambda t, g: t.uniform_(ctx.attr("min", -1.0),
+                                              ctx.attr("max", 1.0),
+                                              generator=g))
+
+
+@primitive("gaussian_random", inputs=[], no_grad=True)
+def gaussian_random(ctx, *_):
+    return _draw(ctx, lambda t, g: t.normal_(generator=g)
+                 * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))
+
+
+@primitive("assign")
+def assign(ctx, x):
+    return x
+
+
+@primitive("reshape")
+def reshape(ctx, x):
+    """0 in the shape keeps that input dim, -1 is inferred."""
+    shape = list(ctx.attr("shape"))
+    return x.reshape([x.shape[i] if d == 0 else d
+                      for i, d in enumerate(shape)])
+
+
+def _ids(ids: torch.Tensor) -> torch.Tensor:
+    """[..., 1] or [...] ids -> [...] int64 (torch indexes with int64)."""
+    if ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    return ids.long()
+
+
+@primitive("lookup_table", inputs=["W", "Ids"], stop_grad_slots=("Ids",))
+def lookup_table(ctx, w, ids):
+    """Embedding gather (reference lookup_table_op.cc); padding_idx rows
+    are zero.  Dense only."""
+    if ctx.attr("is_sparse", False):
+        raise NotImplementedError("lookup_table: is_sparse=True "
+                                  "(SelectedRows gradients) is not ported")
+    idv = _ids(ids)
+    out = w[idv]
+    pad = ctx.attr("padding_idx", None)
+    if pad is not None:
+        out = torch.where((idv == pad)[..., None], 0.0, out)
+    return out
+
+
+@primitive("lookup_table_grad", inputs=["W", "Ids", "Out@GRAD"],
+           outputs=["W@GRAD"], no_grad=True)
+def lookup_table_grad(ctx, w, ids, og):
+    """Hand-written adjoint of lookup_table: the dense scatter-add of the
+    output gradients into the looked-up rows."""
+    if ctx.attr("is_sparse", False):
+        raise NotImplementedError("lookup_table_grad: is_sparse=True is "
+                                  "not ported")
+    rows = _ids(ids).reshape(-1)
+    vals = og.reshape(-1, og.shape[-1])
+    pad = ctx.attr("padding_idx", None)
+    if pad is not None:
+        vals = torch.where((rows == pad)[:, None], 0.0, vals)
+    return torch.zeros_like(w).index_add_(0, rows, vals.to(w.dtype))

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source under ``kernels/csrc/`` is compiled by ``nvcc`` into a
+Each kernel source under ``kernels/csrc/`` (with the ``*.cuh`` headers
+beside it) is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build happens at first use, from the sources in the checkout, into
 ``kernels/build/`` (listed in ``.gitignore``); the library's file name
-carries a hash of the source and the flags, so an edited source is never
+carries a hash of the source, the headers and the flags, so an edited source is never
 served a stale library.  Nothing is built or imported when this module
 is imported: the CPU tests import every module of the package.
 """
@@ -48,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers count too: an edited header rebuilds every source
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,20 +1,35 @@
-"""Ragged paged attention — the port of the serving half of
+"""Flash attention and ragged paged attention — the port of
 ``paddle_tpu/kernels/flash_attention.py``.
 
-The paged KV pool is ONE tensor ``[H, R, page_size, D]`` (head-major: one
-head's page is a contiguous ``page_size x D`` slab).  A *logical* page
-spans every layer and both K and V of a page_size-token span: physical
-row = ``(page * n_layer + layer) * 2`` (+1 for V).  Per-request block
-tables hold logical page ids; page 0 is the trash page dead lanes write
-into.
+Training half.  ``flash_attention`` is the fused attention the
+``fused_attention`` op calls: q/k/v in ``'blhd'`` ([B, L, H, D], the
+Transformer's layout) or ``'bhld'``, an optional additive bias
+[B|1, H|1, Lq, Lk], causal masking on global positions
+(``block_offsets``), and attention-probability dropout from a
+counter-based hash (``keep_scale``), so no [Lq, Lk] mask exists in either
+direction.  Its gradient is a ``torch.autograd.Function``.  For CUDA
+tensors the forward launches ``csrc/flash_attention_fwd.cu`` (the port of
+the TPU kernel ``_fwd_kernel``) and the bias-free backward launches the
+dq and dk/dv kernels of ``csrc/flash_attention_bwd.cu`` (the ports of
+``_dq_kernel`` and ``_dkv_kernel``); a backward with a bias runs the
+plain backward on every device, as the reference routes it.  For CPU
+tensors ``flash_forward_plain`` / ``flash_backward_plain`` run, the
+counterparts of the reference's ``_xla_forward`` / ``_xla_backward``.
 
-``ragged_decode_attention`` is the entry the model calls.  For a CUDA
-tensor it launches the hand-written kernel
+Serving half.  The paged KV pool is ONE tensor ``[H, R, page_size, D]``
+(head-major: one head's page is a contiguous ``page_size x D`` slab).  A
+*logical* page spans every layer and both K and V of a page_size-token
+span: physical row = ``(page * n_layer + layer) * 2`` (+1 for V).
+Per-request block tables hold logical page ids; page 0 is the trash page
+dead lanes write into.  ``ragged_decode_attention`` is the entry the
+model calls: for a CUDA tensor it launches
 ``csrc/ragged_paged_attention.cu`` (the port of the TPU kernel
 ``_ragged_kernel``); for a CPU tensor it runs ``ragged_attention_plain``,
-the counterpart of the reference's ``_ragged_xla``.  Nothing falls back:
-a build or launch failure raises.  The flash forward and backward
-kernels of the training path are not ported yet.
+the counterpart of the reference's ``_ragged_xla``.
+
+Nothing falls back: on a CUDA tensor a wrapper launches its kernel or
+raises.  Each wrapper counts its launches (``flash_attention.launches``,
+``ragged_decode_attention.launches``).
 """
 
 from __future__ import annotations
@@ -26,7 +41,9 @@ from typing import Optional
 import torch
 
 __all__ = ["paged_kv_rows", "ragged_attention_plain",
-           "ragged_decode_attention", "KERNEL_NAME"]
+           "ragged_decode_attention", "KERNEL_NAME", "FLASH_KERNELS",
+           "DEFAULT_MASK_VALUE", "keep_scale", "flash_attention",
+           "flash_forward_plain", "flash_backward_plain"]
 
 KERNEL_NAME = "ragged_paged_attention"
 MASK_VALUE = -1e9          # the reference's masked-score value, exactly
@@ -199,3 +216,371 @@ def ragged_decode_attention(q, pool, page_table, lengths, q_base=None, *,
 
 
 ragged_decode_attention.launches = 0     # kernel launches, CUDA path only
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: the training path
+# ---------------------------------------------------------------------------
+
+# launch-count key -> kernel source under csrc/ (dq and dk/dv share one)
+FLASH_KERNELS = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd",
+                 "dkv": "flash_attention_bwd"}
+# the reference's masked-score value: finite, so a row that sees only
+# masked keys is recognised by its running max (m <= MASK / 2)
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels are instantiated for the one head width the configurations
+# use (d_key = d_value = 64)
+_FLASH_HEAD_DIM = 64
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(x, c: int):
+    """``x * c`` modulo 2^32 for int64 (or Python int) ``x`` in [0, 2^32)
+    and a constant ``c`` < 2^32.  The high and low 16 bits of ``x`` are
+    multiplied apart (each product < 2^48), so int64 never overflows."""
+    return (((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c) & _U32
+
+
+def keep_scale(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """Counter-based dropout mask of the reference (``keep_scale`` of
+    paddle_tpu/kernels/flash_attention.py), bit for bit: a murmur3-style
+    finalizer over the global (batch*head, row, col) position and a
+    uint32 seed.  The reference's uint32 arithmetic wraps modulo 2^32;
+    here it runs in int64 masked to 32 bits after every multiply and
+    xor.  Inputs broadcast (at least one is a tensor); returns float32
+    values in {0, 1/(1-rate)}.  Python ints stay Python ints: a scalar
+    made into a device tensor would cost a host-device copy, and with it
+    a stream synchronisation, per call."""
+
+    def u32(t):
+        return (t.to(torch.int64) if isinstance(t, torch.Tensor)
+                else int(t)) & _U32
+
+    rows, cols, bh, seed = u32(rows), u32(cols), u32(bh), u32(seed)
+    x = (_mul_u32(rows, 0x9E3779B1) + _mul_u32(cols, 0x85EBCA77)) & _U32
+    x = x ^ _mul_u32(bh, 0xC2B2AE3D) ^ seed
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul_u32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    # top 24 bits -> uniform [0, 1), compared with the rate rounded to
+    # float32, as the reference compares
+    u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    rate32 = torch.tensor(rate, dtype=torch.float32).item()
+    return torch.where(u >= rate32, 1.0 / (1.0 - rate), 0.0).to(
+        torch.float32)
+
+
+def _bh_grid(b: int, h: int, device) -> torch.Tensor:
+    """[b, h, 1, 1] flattened batch*head index, ``b_idx * h + h_idx`` —
+    the kernels' blockIdx.y, so plain and kernel masks agree."""
+    return (torch.arange(b, device=device)[:, None] * h
+            + torch.arange(h, device=device)[None, :])[:, :, None, None]
+
+
+def _bhld(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """A [B, H, L, D] view ('blhd' <-> 'bhld' is its own inverse)."""
+    return x.permute(0, 2, 1, 3) if layout == "blhd" else x
+
+
+def _plain_scores(qh, kh, bias, causal, sm_scale, offsets):
+    """fp32 scores [b, h, lq, lk] with bias and causal mask, and the
+    global (rows, cols) positions."""
+    lq, lk = qh.shape[2], kh.shape[2]
+    rows = offsets[0] + torch.arange(lq, device=qh.device)
+    cols = offsets[1] + torch.arange(lk, device=qh.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        s = s.masked_fill(rows[:, None] < cols[None, :], DEFAULT_MASK_VALUE)
+    return s, rows, cols
+
+
+def _plain_keep(qh, rows, cols, rate, seed):
+    b, h = qh.shape[0], qh.shape[1]
+    return keep_scale(seed, _bh_grid(b, h, qh.device), rows[:, None],
+                      cols[None, :], rate)
+
+
+def _flash_args(q, sm_scale, dropout_rate, dropout_seed, layout,
+                block_offsets):
+    if layout not in ("bhld", "blhd"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    rate = float(dropout_rate)
+    seed = 0
+    if rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        seed = int(dropout_seed) & _U32
+    offsets = (0, 0) if block_offsets is None else (
+        int(block_offsets[0]), int(block_offsets[1]))
+    return float(sm_scale), rate, seed, offsets
+
+
+def flash_forward_plain(q, k, v, bias=None, causal=False, sm_scale=None,
+                        dropout_rate=0.0, dropout_seed=None, layout="bhld",
+                        block_offsets=None):
+    """The forward in plain PyTorch, fp32 throughout: the counterpart of
+    the reference's ``_xla_forward`` (one softmax over all keys instead of
+    its blockwise scan; the two differ in summation order only).  Returns
+    ``(out, lse)``: out in q's layout and dtype, lse [B, H, Lq] fp32.  A
+    row with no live key outputs 0 with lse +inf."""
+    sm_scale, rate, seed, offsets = _flash_args(
+        q, sm_scale, dropout_rate, dropout_seed, layout, block_offsets)
+    qh, kh, vh = (_bhld(x, layout) for x in (q, k, v))
+    s, rows, cols = _plain_scores(qh, kh, bias, causal, sm_scale, offsets)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    if rate > 0.0:
+        # dropout on the unnormalised p; l keeps the full softmax sum
+        p = p * _plain_keep(qh, rows, cols, rate, seed)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p, vh.float())
+    dead = (l == 0.0) | (m <= DEFAULT_MASK_VALUE * 0.5)
+    denom = torch.where(dead, 1.0, l)
+    lse = torch.where(dead, float("inf"), m + torch.log(denom))
+    out = torch.where(dead[..., None], 0.0, acc / denom[..., None])
+    return _bhld(out.to(q.dtype), layout).contiguous(), lse
+
+
+def flash_backward_plain(q, k, v, out, dout, lse, bias=None, causal=False,
+                         sm_scale=None, dropout_rate=0.0, dropout_seed=None,
+                         layout="bhld", block_offsets=None):
+    """The backward in plain PyTorch: the counterpart of the reference's
+    ``_xla_backward``.  p is recomputed from the saved lse, delta =
+    rowsum(out * dout) uses the dropped output.  Returns
+    ``(dq, dk, dv, dbias)``; dbias is None without a bias and is summed
+    over the dimensions the bias broadcasts."""
+    sm_scale, rate, seed, offsets = _flash_args(
+        q, sm_scale, dropout_rate, dropout_seed, layout, block_offsets)
+    qh, kh, vh, oh, doh = (_bhld(x, layout).float()
+                           for x in (q, k, v, out, dout))
+    s, rows, cols = _plain_scores(qh, kh, bias, causal, sm_scale, offsets)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
+    delta = (oh * doh).sum(dim=-1)
+    if rate > 0.0:
+        keep = _plain_keep(qh, rows, cols, rate, seed)
+        dv = torch.einsum("bhqk,bhqd->bhkd", p * keep, doh)
+        ds_raw = p * (keep * dp - delta[..., None])
+    else:
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, doh)
+        ds_raw = p * (dp - delta[..., None])
+    ds = ds_raw * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh)
+    dbias = None
+    if bias is not None:
+        if bias.shape[0] == 1:
+            ds_raw = ds_raw.sum(dim=0, keepdim=True)
+        if bias.shape[1] == 1:
+            ds_raw = ds_raw.sum(dim=1, keepdim=True)
+        dbias = ds_raw.to(bias.dtype)
+    grads = [_bhld(g.to(x.dtype), layout).contiguous()
+             for g, x in ((dq, q), (dk, k), (dv, v))]
+    return (*grads, dbias)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_entry(name: str):
+    """C entry ``name`` ("fwd", "dq" or "dkv") and its shared-memory size
+    function, built and bound at first use."""
+    from ._build import load_library
+
+    lib = load_library(FLASH_KERNELS[name])
+    fn = getattr(lib, f"flash_attention_{name}")
+    n_ptrs = {"fwd": 6, "dq": 7, "dkv": 8}[name]
+    head = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 \
+        + [ctypes.c_longlong] * 6
+    if name == "fwd":
+        head += [ctypes.c_int] * 2             # bias extents
+    fn.argtypes = head + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.c_float] * 2 + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem = getattr(lib, f"flash_attention_{name}_smem_bytes")
+    smem.argtypes = [ctypes.c_int]
+    smem.restype = ctypes.c_size_t
+    return fn, smem
+
+
+def _fcheck(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention (CUDA kernel): {what}")
+
+
+def _flash_geometry(q, k, v, layout, extra=()):
+    """Validate the kernels' inputs; returns (B, H, Lq, Lk, D) and the
+    element strides of q-shaped and k-shaped tensors."""
+    _fcheck(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+            "q, k, v must be 4-d and k, v of one shape")
+    b, h, lq, d = _bhld(q, layout).shape
+    kb, kh, lk, kd = _bhld(k, layout).shape
+    _fcheck((kb, kh, kd) == (b, h, d), f"k/v batch, heads, width "
+            f"{(kb, kh, kd)} != q's {(b, h, d)}")
+    _fcheck(q.dtype in _FLASH_DTYPES, f"dtype {q.dtype} not float32 or "
+            "bfloat16")
+    _fcheck(d == _FLASH_HEAD_DIM, f"head width {d} is not "
+            f"{_FLASH_HEAD_DIM}")
+    for t in (q, k, v, *extra):
+        _fcheck(t.device == q.device, f"tensor on {t.device}, expected "
+                f"{q.device}")
+        _fcheck(t.is_contiguous(), "inputs must be contiguous")
+    for t in (k, v):
+        _fcheck(t.dtype == q.dtype, "q, k, v must share one dtype")
+
+    def strides(l):
+        return ((l * h * d, d, h * d) if layout == "blhd"
+                else (h * l * d, l * d, d))
+
+    return (b, h, lq, lk, d), strides(lq) + strides(lk)
+
+
+def _flash_launch(name: str, d: int, *args) -> None:
+    fn, smem_fn = _flash_entry(name)
+    smem = smem_fn(d)
+    _fcheck(smem <= _SMEM_LIMIT, f"{name} needs {smem} bytes of shared "
+            f"memory per block, sm_90 allows {_SMEM_LIMIT}")
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"flash_attention {name} launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches[name] += 1
+
+
+def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale, rate, seed, layout,
+                    offsets):
+    """Launch the forward kernel on the current stream -> (out, lse)."""
+    extra = () if bias is None else (bias,)
+    (b, h, lq, lk, d), strides = _flash_geometry(q, k, v, layout, extra)
+    bias_b = bias_h = 1
+    if bias is not None:
+        _fcheck(bias.dtype == torch.float32 and bias.dim() == 4,
+                "bias must be float32 [B|1, H|1, Lq, Lk]")
+        bias_b, bias_h = bias.shape[0], bias.shape[1]
+        _fcheck(bias_b in (1, b) and bias_h in (1, h)
+                and tuple(bias.shape[2:]) == (lq, lk),
+                f"bias shape {tuple(bias.shape)} does not broadcast to "
+                f"{(b, h, lq, lk)}")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    if b * h * lq == 0:
+        return out, lse
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _flash_launch("fwd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), b, h, lq, lk, d, *strides, bias_b, bias_h,
+                  sm_scale, int(causal), offsets[0], offsets[1], rate,
+                  1.0 / (1.0 - rate), seed, _FLASH_DTYPES[q.dtype], stream)
+    return out, lse
+
+
+def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
+                     seed, layout, offsets):
+    """Validate the backward's inputs -> (D, the C arguments the dq and
+    dk/dv entries share after their pointers, the input pointers)."""
+    (b, h, lq, lk, d), strides = _flash_geometry(q, k, v, layout,
+                                                 (out, dout, lse))
+    _fcheck(out.shape == q.shape and dout.shape == q.shape
+            and out.dtype == q.dtype and dout.dtype == q.dtype,
+            "out and dout must match q's shape and dtype")
+    _fcheck(lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, lq),
+            f"lse must be float32 {(b, h, lq)}")
+    _fcheck(b * h * lq * lk > 0, "empty attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (b, h, lq, lk, d, *strides, sm_scale, int(causal), offsets[0],
+              offsets[1], rate, 1.0 / (1.0 - rate), seed,
+              _FLASH_DTYPES[q.dtype], stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           dout.data_ptr(), lse.data_ptr())
+    return d, common, ins
+
+
+def _flash_dq_cuda(q, k, v, out, dout, lse, *cfg):
+    """Launch the dq kernel on the current stream -> dq."""
+    d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
+    dq = torch.empty_like(q)
+    _flash_launch("dq", d, *ins, dq.data_ptr(), *common)
+    return dq
+
+
+def _flash_dkv_cuda(q, k, v, out, dout, lse, *cfg):
+    """Launch the dk/dv kernel on the current stream -> (dk, dv)."""
+    d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_launch("dkv", d, *ins, dk.data_ptr(), dv.data_ptr(), *common)
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel (or plain forward on the CPU) saving (out, lse);
+    backward kernels (or the plain backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, cfg):
+        causal, sm_scale, rate, seed, layout, offsets = cfg
+        if q.is_cuda:
+            out, lse = _flash_fwd_cuda(q, k, v, bias, *cfg)
+        else:
+            out, lse = flash_forward_plain(
+                q, k, v, bias, causal, sm_scale, rate, seed, layout,
+                offsets)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        causal, sm_scale, rate, seed, layout, offsets = ctx.cfg
+        if q.is_cuda and bias is None:
+            args = (q, k, v, out, dout.contiguous(), lse, *ctx.cfg)
+            return (_flash_dq_cuda(*args), *_flash_dkv_cuda(*args), None,
+                    None)
+        # with a bias the reference has no backward kernel either
+        # (_use_pallas_bwd routes it to _xla_backward, which also yields
+        # dbias): the plain backward is its routing, on every device
+        dq, dk, dv, dbias = flash_backward_plain(
+            q, k, v, out, dout, lse, bias, causal, sm_scale, rate, seed,
+            layout, offsets)
+        return dq, dk, dv, dbias, None
+
+
+def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
+                    causal: bool = False, sm_scale: Optional[float] = None,
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    layout: str = "bhld",
+                    block_offsets=None) -> torch.Tensor:
+    """Fused attention, differentiable.  layout='bhld': q [B, H, Lq, D],
+    k/v [B, H, Lk, D]; layout='blhd': q [B, Lq, H, D] etc.  Optional
+    additive bias [B|1, H|1, Lq, Lk].  ``dropout_rate`` > 0 drops
+    attention probabilities with the hash mask keyed on
+    ``dropout_seed`` (a uint32); same seed, same mask.
+    ``block_offsets=(row_off, col_off)`` place q and k/v at global
+    positions for the causal mask and the hash.  Rows with no live key
+    return 0.
+
+    CUDA tensors launch the forward kernel, and the dq and dk/dv kernels
+    in the bias-free backward (counted in ``flash_attention.launches``);
+    CPU tensors run the plain versions.  On ``meta`` tensors (build-time
+    shape inference) it returns an empty output and launches nothing."""
+    if bias is not None and bias.dim() != 4:
+        raise ValueError(f"bias must be 4-d, got {tuple(bias.shape)}")
+    sm_scale, rate, seed, offsets = _flash_args(
+        q, sm_scale, dropout_rate, dropout_seed, layout, block_offsets)
+    if q.device.type == "meta":
+        return torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                           device="meta")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _FlashAttention.apply(q, k, v, bias, (bool(causal), sm_scale,
+                                                 rate, seed, layout,
+                                                 offsets))
+
+
+# kernel launches per kernel, CUDA path only
+flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch/CUDA port's Transformer training step on one GPU.
+
+    python3 profile_training.py [--batch 64] [--steps 3] [--out FILE]
+
+Builds the training program ``chip_smoke.py`` trains (Transformer-base,
+L=256, bench.py's recipe in float32), runs two warm-up steps, then
+``--steps`` steps under ``torch.profiler`` (while a profiler runs, the
+executor labels each Fluid op's work with its type).  Prints one JSON
+line: wall ms per step, device-busy ms per step (the sum of kernel
+times; the step runs on one stream, so kernels do not overlap), the
+device's idle share, device ms per step by kernel family (the flash
+kernels, matrix products, elementwise, reductions, the rest), kernel
+launches and host synchronisations per step, and per Fluid op type the
+host ms per step (time on the calling thread) and the device span its
+kernels cover (a grad op's backward kernels run on the autograd
+engine's thread, so they are counted by family, not by op).  With
+``--out``, the full tables go to that file.  Needs one CUDA card;
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# kernel-name fragments -> family, first match wins
+FAMILIES = (("flash_fwd", ("fwd_kernel",)), ("flash_dq", ("dq_kernel",)),
+            ("flash_dkv", ("dkv_kernel",)),
+            ("matmul", ("gemm", "Gemm", "cutlass", "xmma")),
+            ("elementwise", ("elementwise", "vectorized", "unrolled")),
+            ("reduce", ("reduce", "Reduce", "softmax", "norm")),
+            ("index", ("index", "gather", "scatter")))
+
+
+def family(name: str) -> str:
+    for fam, frags in FAMILIES:
+        if any(f in name for f in frags):
+            return fam
+    return "other"
+
+
+def _dev_us(evt, self_only=True) -> float:
+    """Device microseconds of a profiler event, across torch versions."""
+    names = (("self_device_time_total", "self_cuda_time_total")
+             if self_only else ("device_time_total", "cuda_time_total"))
+    for n in names:
+        if hasattr(evt, n):
+            return float(getattr(evt, n))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default=None,
+                    help="file for the kernel and op tables")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_training: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models.transformer import transformer
+
+    card = cs.card_line()
+    main_prog, startup, loss = cs.build_training(fluid, transformer)
+    place = fluid.CUDAPlace(0)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = cs.train_feed(np, args.batch)
+    for _ in range(2):
+        exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    op_types = {op.type for op in main_prog.global_block().ops}
+
+    by_family = defaultdict(float)
+    launches = 0
+    kernels = []
+    for evt in prof.key_averages():
+        us = _dev_us(evt)
+        if evt.key in op_types:
+            continue
+        if us > 0 and getattr(evt, "device_type", None) is not None \
+                and "CUDA" in str(evt.device_type):
+            by_family[family(evt.key)] += us
+            launches += evt.count
+            kernels.append((us, evt.count, evt.key))
+    # per Fluid op type: host time of its annotation on the calling
+    # thread, and the span its kernels cover on the device timeline
+    by_op, dev_by_op = defaultdict(float), defaultdict(float)
+    for evt in prof.events():
+        if evt.name not in op_types:
+            continue
+        if "CUDA" in str(getattr(evt, "device_type", "")):
+            dev_by_op[evt.name] += evt.time_range.elapsed_us() / 1e3 \
+                / args.steps
+        else:
+            by_op[evt.name] += evt.cpu_time_total / 1e3 / args.steps
+    # host waits for the card: each one drains the stream, so the host
+    # cannot queue work ahead of it
+    syncs = sum(evt.count for evt in prof.key_averages()
+                if evt.key in ("cudaStreamSynchronize",
+                               "cudaDeviceSynchronize"))
+    busy = sum(by_family.values()) / 1e3 / args.steps
+    step_ms = wall / args.steps * 1e3
+    rec = {"card": card, "batch": args.batch, "seq": cs.SEQ,
+           "steps": args.steps, "wall_ms_per_step": step_ms,
+           "device_busy_ms_per_step": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "device_ms_per_step_by_family": {
+               k: v / 1e3 / args.steps for k, v in sorted(
+                   by_family.items(), key=lambda kv: -kv[1])},
+           "kernel_launches_per_step": launches / args.steps,
+           "host_syncs_per_step": syncs / args.steps,
+           "host_ms_per_step_by_op_type": dict(sorted(
+               by_op.items(), key=lambda kv: -kv[1])[:15]),
+           "device_span_ms_per_step_by_op_type": dict(sorted(
+               dev_by_op.items(), key=lambda kv: -kv[1])[:15])}
+    print(json.dumps(rec), flush=True)
+    if args.out is None:
+        return 0
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(json.dumps(rec, indent=1) + "\n\nkernels by device time "
+                "(us per step, launches per step, name)\n")
+        for us, n, name in sorted(kernels, reverse=True):
+            f.write(f"{us / args.steps:12.1f} {n / args.steps:8.1f}  "
+                    f"{name[:160]}\n")
+        f.write("\nhost ms, device span ms per step by Fluid op type\n")
+        for k, v in sorted(by_op.items(), key=lambda kv: -kv[1]):
+            f.write(f"{v:10.3f} {dev_by_op.get(k, 0.0):10.3f}  {k}\n")
+        f.write("\n" + prof.key_averages().table(
+            sort_by="self_cpu_time_total", row_limit=40))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

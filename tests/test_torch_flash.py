@@ -1,0 +1,205 @@
+"""The port's flash attention (training half) against the JAX package.
+
+The port's plain forward and backward are what the CUDA kernels are held
+against on the card, so here they are held against the reference: its
+``xla`` path and its Pallas kernels in interpret mode, on the same numpy
+inputs.  Tolerances: both sides compute in float32 and differ in
+summation order only (one softmax over all keys against the reference's
+blockwise online softmax, 8-wide dot products), so 2e-5 absolute on
+outputs of magnitude ~1 and 1e-4 on gradients; dropout masks are
+compared exactly.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch.kernels.flash_attention as tfa
+
+# the module itself: paddle_tpu.kernels re-exports a function of its name
+jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
+
+OUT_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def qkv(b=2, h=2, lq=16, lk=16, d=8, layout="bhld", seed=0):
+    rng = np.random.RandomState(seed)
+
+    def shape(l):
+        return (b, l, h, d) if layout == "blhd" else (b, h, l, d)
+
+    return (rng.randn(*shape(lq)).astype(np.float32),
+            rng.randn(*shape(lk)).astype(np.float32),
+            rng.randn(*shape(lk)).astype(np.float32))
+
+
+def bias_of(kind, b, h, lq, lk, seed=1):
+    if kind is None:
+        return None
+    rng = np.random.RandomState(seed)
+    shape = {"b1": (b, 1, lq, lk), "1h": (1, h, lq, lk)}[kind]
+    return rng.randn(*shape).astype(np.float32)
+
+
+def T(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def test_keep_scale_bitwise():
+    rng = np.random.RandomState(3)
+    for rate in (0.1, 0.5):
+        seed = int(rng.randint(0, 2**32, dtype=np.uint64))
+        rows = rng.randint(0, 2**20, (64, 1)).astype(np.int32)
+        cols = rng.randint(0, 2**20, (1, 48)).astype(np.int32)
+        bh = rng.randint(0, 4096, (64, 48)).astype(np.int32)
+        want = np.asarray(jfa.keep_scale(jnp.uint32(seed), jnp.asarray(bh),
+                                         jnp.asarray(rows),
+                                         jnp.asarray(cols), rate))
+        got = tfa.keep_scale(seed, T(bh), T(rows), T(cols), rate).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert 0 < (got == 0).mean() < 1
+
+
+CASES = [
+    # (layout, causal, bias, dropout, lq, lk, block, offsets)
+    ("bhld", False, None, 0.0, 16, 16, None, None),
+    ("bhld", True, None, 0.0, 16, 16, None, None),
+    ("blhd", True, None, 0.0, 16, 16, None, None),
+    ("blhd", False, "b1", 0.0, 16, 16, None, None),
+    ("bhld", False, "1h", 0.0, 16, 24, None, None),
+    ("blhd", True, None, 0.2, 16, 16, None, None),
+    ("bhld", False, "b1", 0.2, 16, 16, None, None),
+    ("blhd", False, None, 0.0, 20, 13, 8, None),       # ragged lengths
+    ("bhld", True, None, 0.0, 16, 16, 8, (0, 16)),     # every row dead
+    ("bhld", True, None, 0.0, 16, 16, 8, (0, 8)),      # half the rows dead
+]
+
+
+def _jax_forward(q, k, v, bias, causal, rate, layout, block, offsets,
+                 impl):
+    kw = dict(bias=None if bias is None else jnp.asarray(bias),
+              causal=causal, dropout_rate=rate,
+              dropout_seed=11 if rate else None, layout=layout,
+              block_offsets=offsets, impl=impl)
+    if block:
+        kw.update(block_q=block, block_k=block)
+    return np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), **kw))
+
+
+def _port_forward(q, k, v, bias, causal, rate, layout, offsets):
+    return tfa.flash_forward_plain(
+        T(q), T(k), T(v), T(bias), causal, dropout_rate=rate,
+        dropout_seed=11 if rate else None, layout=layout,
+        block_offsets=offsets)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_forward_and_lse_match_reference(case):
+    layout, causal, bias_kind, rate, lq, lk, block, offsets = case
+    q, k, v = qkv(lq=lq, lk=lk, layout=layout)
+    bias = bias_of(bias_kind, 2, 2, lq, lk)
+    out, lse = _port_forward(q, k, v, bias, causal, rate, layout, offsets)
+    for impl in ("xla", "pallas_interpret"):
+        want = _jax_forward(q, k, v, bias, causal, rate, layout, block,
+                            offsets, impl)
+        np.testing.assert_allclose(out.numpy(), want, **OUT_TOL)
+    # the reference's own (out, lse) pair
+    sw = (lambda x: np.swapaxes(x, 1, 2)) if layout == "blhd" else (
+        lambda x: x)
+    off = None if offsets is None else jfa.offsets_carrier(*offsets)
+    seed = jfa.seed_to_carrier(11) if rate else 0.0
+    _, want_lse = jfa._xla_forward(
+        jnp.asarray(sw(q)), jnp.asarray(sw(k)), jnp.asarray(sw(v)),
+        None if bias is None else jnp.asarray(bias), seed, off,
+        q.shape[-1] ** -0.5, causal, None, lk, rate)
+    want_lse = np.asarray(want_lse)
+    dead = np.isinf(want_lse)
+    np.testing.assert_array_equal(np.isinf(lse.numpy()), dead)
+    np.testing.assert_allclose(lse.numpy()[~dead], want_lse[~dead],
+                               **OUT_TOL)
+    if offsets == (0, 16):
+        assert dead.all() and not out.numpy().any()
+
+
+@pytest.fixture
+def pallas_bwd(monkeypatch):
+    """Route the reference's bias-free backward through its dq/dkv Pallas
+    kernels at these tiny shapes (it keeps its XLA backward below
+    PALLAS_BWD_MIN_L)."""
+    monkeypatch.setattr(jfa, "PALLAS_BWD_MIN_L", 0)
+
+
+GRAD_CASES = [
+    # (layout, causal, bias, dropout, lq, lk)
+    ("blhd", False, None, 0.0, 16, 16),
+    ("blhd", True, None, 0.0, 16, 16),
+    ("bhld", True, None, 0.2, 16, 16),
+    ("blhd", False, None, 0.2, 16, 24),
+    ("bhld", False, "b1", 0.0, 16, 16),
+    ("blhd", True, "1h", 0.2, 16, 16),
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_grads_match_reference(case, pallas_bwd):
+    layout, causal, bias_kind, rate, lq, lk = case
+    q, k, v = qkv(lq=lq, lk=lk, layout=layout, seed=5)
+    bias = bias_of(bias_kind, 2, 2, lq, lk)
+    rng = np.random.RandomState(9)
+    w = rng.randn(*q.shape).astype(np.float32)   # a weighted cotangent
+    kw = dict(causal=causal, dropout_rate=rate,
+              dropout_seed=11 if rate else None, layout=layout)
+
+    tq, tk, tv = (T(x).requires_grad_(True) for x in (q, k, v))
+    tb = None if bias is None else T(bias).requires_grad_(True)
+    out = tfa.flash_attention(tq, tk, tv, bias=tb, **kw)
+    (out * T(w)).sum().backward()
+    got = [tq.grad, tk.grad, tv.grad] + ([] if tb is None else [tb.grad])
+
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    if bias is not None:
+        args.append(jnp.asarray(bias))
+    argnums = tuple(range(len(args)))
+    for impl in ("xla", "pallas_interpret"):
+        def loss(*a):
+            b_ = a[3] if len(a) > 3 else None
+            return (jfa.flash_attention(*a[:3], bias=b_, impl=impl, **kw)
+                    * w).sum()
+
+        want = jax.grad(loss, argnums=argnums)(*args)
+        for g, wg in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wg),
+                                       **GRAD_TOL)
+
+
+def test_meta_tensors_launch_nothing():
+    """Build-time shape inference runs the op on meta tensors: the wrapper
+    returns the output shape and counts no launch."""
+    before = dict(tfa.flash_attention.launches)
+    q = torch.empty(3, 10, 2, 64, device="meta")
+    out = tfa.flash_attention(q, q, q, causal=True, layout="blhd",
+                              dropout_rate=0.1, dropout_seed=1)
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert tfa.flash_attention.launches == before
+
+
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
+    """The checks run before any build or launch, so they are testable
+    without a card."""
+    for d in (32, 48):                  # only D = 64 is instantiated
+        q = torch.zeros(1, 4, 2, d)
+        with pytest.raises(ValueError, match="head width"):
+            tfa._flash_geometry(q, q, q, "blhd")
+    with pytest.raises(ValueError, match="dtype"):
+        tfa._flash_geometry(q.double(), q.double(), q.double(), "blhd")
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = q.transpose(1, 2)
+        tfa._flash_geometry(qt, qt, qt, "bhld")

@@ -3,7 +3,7 @@
 * ``paddle_tpu_torch`` (every module) and ``chip_smoke`` import in a
   process where importing ``jax`` or ``paddle_tpu`` raises.
 * Without CUDA, an entry point raises unless the caller asks for the
-  CPU by name; ``chip_smoke.py`` exits non-zero and prints no result,
+  CPU by name (``device="cpu"``, ``fluid.CPUPlace()``); ``chip_smoke.py`` exits non-zero and prints no result,
   also when it sits in a directory without the rest of the repo.
 """
 
@@ -15,7 +15,7 @@ import sys
 import pytest
 import torch
 
-from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch import fluid, resolve_device
 from paddle_tpu_torch.serving import PagedTransformerGenerator
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,7 +51,7 @@ def _run(args, cwd, env=None):
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15      # every module was imported
+    assert int(out.stdout.strip()) >= 35      # every module was imported
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -70,6 +70,20 @@ def test_entry_points_refuse_to_fall_back(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is False
     with pytest.raises(NotImplementedError, match="beam"):
         PagedTransformerGenerator(24, 24, device="cpu", topk_size=4)
+
+
+def test_executor_runs_on_the_card_unless_given_cpu_place(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (fluid.Executor, lambda: fluid.Executor(fluid.CUDAPlace(0)),
+                 lambda: fluid.scope_from_numpy({"w": [1.0]})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(TypeError, match="CUDAPlace or CPUPlace"):
+        fluid.Executor("cpu")
+    exe = fluid.Executor(fluid.CPUPlace())
+    assert exe.device == torch.device("cpu")
+    scope = fluid.scope_from_numpy({"w": [1.0]}, fluid.CPUPlace())
+    assert scope.find_var("w").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("alone", [False, True])

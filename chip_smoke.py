@@ -38,11 +38,30 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    not), hold ``flash_attention`` and its autograd backward against the
    plain forward and backward (out, lse, dq, dk, dv); then time every
    kernel, its plain version and the PyTorch library call for the same
-   function at the paths' shapes.
+   function at the paths' shapes;
+9. hold the fused LSTM forward kernel (``lstm_forward``) against its
+   plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
+   peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
+   activations at H=200, and B=1, T=1 (h, c, masked positions exactly
+   0; and for the peephole cases and the variants the gradients of
+   every input, through the kernel forward and the hand-written
+   backward, against autograd through the plain loop);
+10. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
+   128, vocab 30000, 2 x (fc + dynamic_lstm) at hidden 512, last step,
+   fc softmax, Adam 2e-3) at batch 128, T=100: one step at batch 4 card
+   vs CPU from one scope (loss, every gradient), then 20 steps on the
+   card on one fixed ragged batch (2 kernel launches per step, falling
+   loss);
+11. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
+   LSTMs, forward and reverse, with peepholes) for 5 steps at batch
+   128, T=100, ragged lengths (3 launches per step, falling loss);
+12. time the LSTM kernel, its plain loop and ``torch.nn.LSTM`` (cuDNN)
+   at B=128, T=100, H = 256, 512 and 1280.
 
-It prints a ``serving`` line, a ``training`` line, a ``kernels`` line
-and, last, the ``{"ok": true, ...}`` line; per-case detail goes to
-standard error.  Any failed check exits 1 without the last line.
+It prints the card's name and power limit, a ``serving`` line, a
+``training`` line, an ``lstm`` line, a ``kernels`` line and, last, the
+``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
+failed check exits 1 without the last line.
 """
 
 from __future__ import annotations
@@ -637,8 +656,350 @@ def train_on_card(torch, fluid, fa, main, loss, init, feed):
                                  for k, v in launches.items()}}
     return rec, scope
 
+# -- phases 9-12: the LSTM text classifiers ----------------------------------
+
+# the reference's RNN benchmark (bench.py's bench_lstm, from benchmark/
+# paddle/rnn/rnn.py): IMDB text classifier at its batch and padded length
+LSTM_VOCAB, LSTM_EMB, LSTM_HIDDEN, LSTM_NUM = 30000, 128, 512, 2
+LSTM_BATCH, LSTM_T, LSTM_LR = 128, 100, 2e-3
+LSTM_STEPS, LSTM_COMPARE_BATCH = 20, 4
+LSTM_WIDTHS = (256, 512, 1280)
+BOOK_STEPS = 5
+# kernel vs plain loop, same inputs on the card: fp32 on both sides,
+# summation order only (H-term dot products, expf vs torch's exp), over
+# 100 steps of a contracting recurrence
+LSTM_TOL = 1e-4
+# card vs CPU, one step from one scope: fp32 end to end, the kernel and
+# cuBLAS against the CPU's plain loop and products, summation order only
+LSTM_LOSS_RTOL = 1e-5
+LSTM_GRAD_RTOL = 1e-4
+
+
+def lstm_cases():
+    """(name, B, T, H, config, grads) of the kernel-vs-plain check."""
+    default = dict(peep=True, reverse=False, init=False, ragged=False,
+                   acts=("sigmoid", "tanh", "tanh"))
+    cases = [(f"H{h}/{'peep' if p else 'nopeep'}", LSTM_BATCH, LSTM_T, h,
+              dict(default, peep=p), p)
+             for h in LSTM_WIDTHS for p in (False, True)]
+    variants = [("ragged", dict(ragged=True)),
+                ("ragged/reverse", dict(ragged=True, reverse=True)),
+                ("ragged/reverse/h0c0", dict(ragged=True, reverse=True,
+                                             init=True))]
+    cases += [(f"H512/{n}", LSTM_BATCH, LSTM_T, 512, dict(default, **kw),
+               True) for n, kw in variants]
+    cases.append(("H200/relu-identity-sigmoid/ragged", 64, 30, 200,
+                  dict(default, ragged=True,
+                       acts=("relu", "identity", "sigmoid")), True))
+    cases.append(("H1280/ragged/reverse/h0c0", 8, 20, 1280,
+                  dict(default, ragged=True, reverse=True, init=True), True))
+    cases.append(("B1/T1/H256", 1, 1, 256, dict(default), True))
+    # above H ~ 1400 no weight slice fits shared memory: read from L2
+    cases.append(("H2048/w-from-L2/ragged", 4, 6, 2048,
+                  dict(default, ragged=True), True))
+    return cases
+
+
+def lstm_inputs(torch, gen, dev, B, T, H, cfg):
+    x = (torch.randn(B, T, 4 * H, generator=gen) * 0.5).to(dev)
+    w = (torch.randn(H, 4 * H, generator=gen) * H ** -0.5).to(dev)
+    b = (torch.randn((7 if cfg["peep"] else 4) * H, generator=gen)
+         * 0.1).to(dev)
+    lengths = torch.full((B,), T)
+    if cfg["ragged"]:
+        lengths = torch.randint(0, T + 1, (B,), generator=gen)
+        lengths[:3] = torch.tensor([0, 1, T])[:B]
+    h0 = c0 = None
+    if cfg["init"]:
+        h0 = torch.randn(B, H, generator=gen).to(dev)
+        c0 = torch.randn(B, H, generator=gen).to(dev)
+    kw = dict(use_peepholes=cfg["peep"], is_reverse=cfg["reverse"],
+              gate_activation=cfg["acts"][0], cell_activation=cfg["acts"][1],
+              candidate_activation=cfg["acts"][2])
+    return (x, w, b, lengths.to(torch.int32).to(dev), h0, c0), kw
+
+
+def run_lstm_case(torch, lk, gen, dev, case):
+    """One case: the kernel (through ``lstm_forward``, and with grads
+    through ``dynamic_lstm``, whose backward is hand-written) against the
+    plain loop (and autograd through it) -> (name, {tensor: err}, ok,
+    plan).  A tensor passes within LSTM_TOL of max(1, its largest
+    magnitude); outputs past each row's length must be exactly 0."""
+    name, B, T, H, cfg, grads = case
+    (x, w, b, lengths, h0, c0), kw = lstm_inputs(torch, gen, dev, B, T, H,
+                                                 cfg)
+    h, c = lk.lstm_forward(x, w, b, lengths, h0, c0, **kw)
+    ph, pc = lk.lstm_forward_plain(x, w, b, lengths, h0, c0, **kw)
+    errs = {"h": _max_err(torch, h, ph), "c": _max_err(torch, c, pc)}
+    pad = (torch.arange(T, device=dev)[None, :]
+           >= lengths[:, None].long())[..., None]
+    zero = bool((h * pad == 0).all() and (c * pad == 0).all())
+    if grads:
+        ins = [t for t in (x, w, b, h0, c0) if t is not None]
+        names = ["dx", "dw", "dbias", "dh0", "dc0"][:len(ins)]
+        dh = torch.randn(B, T, H, generator=gen).to(dev)
+        dc = torch.randn(B, T, H, generator=gen).to(dev)
+
+        def grads_of(fn):
+            leaves = [t.detach().requires_grad_(True) for t in ins]
+            state = leaves[3:] if h0 is not None else [None, None]
+            oh, oc = fn(*leaves[:3], lengths, *state, **kw)
+            return torch.autograd.grad((oh, oc), leaves, (dh, dc))
+
+        got = grads_of(lk.dynamic_lstm)
+        want = grads_of(lk.lstm_forward_plain)
+        for n, g, e in zip(names, got, want):
+            errs[n] = _max_err(torch, g, e)
+    torch.cuda.synchronize()
+    ok = zero and all(e <= LSTM_TOL * max(1.0, mag)
+                      for e, mag in errs.values())
+    return name, {n: e for n, (e, _) in errs.items()}, ok, \
+        lk.lstm_plan(B, H)
+
+
+def lstm_bound(B, T, H):
+    """Least time of one forward: x, w, the bias and peepholes and the
+    lengths read once, h and c written once, against the recurrent
+    product's 2*B*T*H*4H fp32 operations (every step is live with full
+    lengths)."""
+    nbytes = 4 * (B * T * 4 * H + 4 * H * H + 7 * H + B + 2 * B * T * H)
+    t_ops = 2 * B * T * H * 4 * H / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def lstm_timings(torch, lk, dev, gen):
+    """ms per call at B=128, T=100 and each width, as the model runs it
+    (peepholes, full lengths): the kernel (twice, around the others),
+    the plain loop, and ``torch.nn.LSTM`` (cuDNN; no peepholes, and its
+    own input product [B*T, H] x [H, 4H] on top: the same recurrent work
+    and gates in the order i, f, g, o)."""
+    rows = {}
+    for H in LSTM_WIDTHS:
+        cfg = dict(peep=True, reverse=False, init=False, ragged=False,
+                   acts=("sigmoid", "tanh", "tanh"))
+        (x, w, b, lengths, _, _), kw = lstm_inputs(
+            torch, gen, dev, LSTM_BATCH, LSTM_T, H, cfg)
+        rnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+        xi = torch.randn(LSTM_BATCH, LSTM_T, H, generator=gen).to(dev)
+        with torch.no_grad():
+            k1 = cuda_ms(torch, lambda: lk.lstm_forward(x, w, b, lengths,
+                                                        **kw), 10)
+            plain = cuda_ms(torch, lambda: lk.lstm_forward_plain(
+                x, w, b, lengths, **kw), 3)
+            lib = cuda_ms(torch, lambda: rnn(xi), 10)
+            k2 = cuda_ms(torch, lambda: lk.lstm_forward(x, w, b, lengths,
+                                                        **kw), 10)
+        b_ms, b_by = lstm_bound(LSTM_BATCH, LSTM_T, H)
+        rows[H] = {"H": H, "ms": k1, "ms_repeat": k2, "plain_ms": plain,
+                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                   "plan": lk.lstm_plan(LSTM_BATCH, H)}
+        del x, w, b, rnn, xi
+    return rows
+
+
+def build_rnn_benchmark(fluid):
+    """bench.py's bench_lstm model, step for step, through the port's
+    layers."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        net = fluid.layers.embedding(input=words, size=[LSTM_VOCAB,
+                                                        LSTM_EMB])
+        for _ in range(LSTM_NUM):
+            proj = fluid.layers.fc(input=net, size=LSTM_HIDDEN * 4)
+            net, _ = fluid.layers.dynamic_lstm(input=proj,
+                                               size=LSTM_HIDDEN * 4)
+        last = fluid.layers.sequence_last_step(input=net)
+        pred = fluid.layers.fc(input=last, size=2, act="softmax")
+        cost = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adam(learning_rate=LSTM_LR).minimize(cost)
+    return main, startup, cost
+
+
+def build_book_lstm(fluid, stacked_lstm_net):
+    """The book's stacked_lstm_net at its default widths."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        data = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                 lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        cost, acc, _ = stacked_lstm_net(data, label, input_dim=LSTM_VOCAB)
+        fluid.optimizer.Adam(learning_rate=LSTM_LR).minimize(cost)
+    return main, startup, cost, acc
+
+
+def rnn_benchmark_lengths(batch):
+    """Full rows but a few short ones: 1, 5, 16 and 60 of 100 steps."""
+    lengths = [LSTM_T] * batch
+    lengths[:4] = [1, LSTM_T // 20, LSTM_T // 6, 3 * LSTM_T // 5]
+    return lengths[:batch]
+
+
+def lstm_feed(np, fluid, batch, lengths):
+    """A batch of word ids with the given lengths, padded to LSTM_T."""
+    rng = np.random.RandomState(SEED)
+    seqs = [rng.randint(0, LSTM_VOCAB, (n, 1)) for n in lengths]
+    return {"words": fluid.make_seq(seqs, dtype=np.int32, max_len=LSTM_T),
+            "label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+
+
+def initial_scope(fluid, startup):
+    """The startup program's arrays, drawn on the CPU from its seed."""
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return fluid.scope_to_numpy(scope)
+
+
+def compare_lstm_step(np, fluid, main, loss, init, feed):
+    """One step on the card and on the CPU from one scope: the loss and
+    every parameter's gradient (each relative to its largest
+    magnitude)."""
+    params = [p.name for p in main.global_block().all_parameters()]
+    fetch = [loss.name] + [n + "@GRAD" for n in params]
+    res = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.scope_from_numpy(init, place)
+        res.append(fluid.Executor(place).run(main, feed=feed,
+                                             fetch_list=fetch, scope=scope))
+        del scope
+    card, cpu = res
+    return {"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+            "loss_rel_err": abs(float(card[0]) - float(cpu[0]))
+            / abs(float(cpu[0])),
+            "grad_rel_err": max(float(np.abs(a - b).max())
+                                / max(float(np.abs(b).max()), 1e-30)
+                                for a, b in zip(card[1:], cpu[1:])),
+            "n_params": len(params)}
+
+
+def train_lstm(torch, fluid, lk, main, fetch, init, feed, steps):
+    """The LSTM training path: ``steps`` steps of ``Executor.run`` on the
+    card, the kernel's launch count set to 0 just before and read just
+    after."""
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    exe = fluid.Executor(place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lk.lstm_forward.launches = 0
+    outs, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        times.append(time.perf_counter() - t0)
+        outs.append([float(v) for v in got])
+    launches = lk.lstm_forward.launches
+    steady = sorted(times[1:])[len(times[1:]) // 2]        # median
+    batch = len(feed["label"])
+    return {"batch": batch, "seq": LSTM_T, "steps": steps,
+            "losses": [o[0] for o in outs],
+            "accuracy": [o[1] for o in outs] if len(fetch) > 1 else None,
+            "first_step_ms": times[0] * 1e3,
+            "step_ms_median": steady * 1e3,
+            "step_ms_mean": sum(times[1:]) / len(times[1:]) * 1e3,
+            "tokens_per_s": batch * LSTM_T / steady,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "launches_per_step": launches / steps}
+
+
+def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
+    """Phases 9-12.  Returns the ``lstm`` record and the kernels-line
+    entry of ``lstm_fwd``."""
+    from paddle_tpu_torch.models.sentiment import stacked_lstm_net
+
+    checks, err = [], 0.0
+    for case in lstm_cases():
+        name, errs, ok, plan = run_lstm_case(torch, lk, gen, dev, case)
+        log(f"lstm {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)} "
+            f"plan {json.dumps(plan)}")
+        err = max(err, errs["h"], errs["c"])     # the kernel's own outputs
+        checks.append({"case": name, "errs": errs, "ok": ok})
+        if not ok:
+            failures.append(f"lstm kernel vs plain {name}: {errs}")
+
+    # the RNN benchmark model: card vs CPU, then the card alone
+    t0 = time.perf_counter()
+    main_prog, startup, loss = build_rnn_benchmark(fluid)
+    init = initial_scope(fluid, startup)
+    lengths = rnn_benchmark_lengths(LSTM_BATCH)
+    feed = lstm_feed(np, fluid, LSTM_BATCH, lengths)
+    log(f"built the RNN benchmark program "
+        f"({len(main_prog.global_block().ops)} ops) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    small = {"words": fluid.make_seq(
+        [feed["words"].data[i, :n] for i, n in
+         enumerate(lengths[:LSTM_COMPARE_BATCH])], max_len=LSTM_T),
+        "label": feed["label"][:LSTM_COMPARE_BATCH]}
+    step = compare_lstm_step(np, fluid, main_prog, loss, init, small)
+    log(f"rnn benchmark step card vs CPU: {json.dumps(step)}")
+    if not (step["loss_rel_err"] <= LSTM_LOSS_RTOL
+            and step["grad_rel_err"] <= LSTM_GRAD_RTOL):
+        failures.append(f"rnn benchmark step card vs CPU: {step}")
+    bench = train_lstm(torch, fluid, lk, main_prog, [loss], init, feed,
+                       LSTM_STEPS)
+    bench.update(hidden=LSTM_HIDDEN, compare=step)
+    log(f"rnn benchmark training: {json.dumps(bench)}")
+    if bench["launches"] != LSTM_NUM * LSTM_STEPS:
+        failures.append(f"rnn benchmark: {bench['launches']} lstm_fwd "
+                        f"launches in {LSTM_STEPS} steps, want "
+                        f"{LSTM_NUM * LSTM_STEPS}")
+    if not (np.isfinite(bench["losses"]).all()
+            and bench["losses"][-1] < bench["losses"][0]):
+        failures.append(f"rnn benchmark: loss did not fall: "
+                        f"{bench['losses']}")
+    del init
+    torch.cuda.empty_cache()
+
+    # the book's stacked LSTM net, ragged lengths
+    main_prog, startup, loss, acc = build_book_lstm(fluid, stacked_lstm_net)
+    init = initial_scope(fluid, startup)
+    rng = np.random.RandomState(SEED + 1)
+    lengths = rng.randint(1, LSTM_T + 1, LSTM_BATCH)
+    lengths[0] = LSTM_T
+    feed = lstm_feed(np, fluid, LSTM_BATCH, lengths)
+    n_lstm = sum(op.type == "dynamic_lstm"
+                 for op in main_prog.global_block().ops)
+    book = train_lstm(torch, fluid, lk, main_prog, [loss, acc], init, feed,
+                      BOOK_STEPS)
+    log(f"stacked_lstm_net training: {json.dumps(book)}")
+    if book["launches"] != n_lstm * BOOK_STEPS or n_lstm != 3:
+        failures.append(f"stacked_lstm_net: {book['launches']} lstm_fwd "
+                        f"launches in {BOOK_STEPS} steps, want 3 a step")
+    if not (np.isfinite(book["losses"]).all()
+            and book["losses"][-1] < book["losses"][0]):
+        failures.append(f"stacked_lstm_net: loss did not fall: "
+                        f"{book['losses']}")
+    del init
+    torch.cuda.empty_cache()
+
+    rows = lstm_timings(torch, lk, dev, gen)
+    for r in rows.values():
+        log(json.dumps(r))
+    main_row = rows[LSTM_HIDDEN]
+    entry = {"name": lk.KERNEL_NAME, "route": "cuda",
+             "source": "paddle_tpu_torch/kernels/csrc/lstm_fwd.cu",
+             "replaces": "tools/lstm_probe.py:38",
+             "launches": bench["launches"] + book["launches"],
+             "max_abs_err": err,
+             # per call at the benchmark model's width, H=512
+             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+             "bound_ms": main_row["bound_ms"],
+             "bound_by": main_row["bound_by"],
+             "library_ms": main_row["library_ms"]}
+    rec = {"checks": checks, "rnn_benchmark": bench,
+           "stacked_lstm_net": book, "timings": list(rows.values())}
+    return rec, entry
+
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
@@ -647,6 +1008,7 @@ def main() -> int:
     import numpy as np
 
     import paddle_tpu_torch.kernels.flash_attention as fa
+    import paddle_tpu_torch.kernels.lstm as lk
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models.transformer import transformer
@@ -658,7 +1020,8 @@ def main() -> int:
 
     # -- build: every kernel source at once
     t0 = time.perf_counter()
-    sources = [fa.KERNEL_NAME] + sorted(set(fa.FLASH_KERNELS.values()))
+    sources = ([fa.KERNEL_NAME, lk.KERNEL_NAME]
+               + sorted(set(fa.FLASH_KERNELS.values())))
     libs = _build.build_all(sources)
     log(f"built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -766,10 +1129,7 @@ def main() -> int:
     # -- training: the program, one step card vs CPU, then the card alone
     t0 = time.perf_counter()
     main_prog, startup, loss = build_training(fluid, transformer)
-    init_scope = fluid.Scope()
-    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init_scope)
-    init = fluid.scope_to_numpy(init_scope)
-    del init_scope
+    init = initial_scope(fluid, startup)
     log(f"built the training program ({len(main_prog.global_block().ops)} "
         f"ops) and its {len(init)} initial arrays in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -880,9 +1240,17 @@ def main() -> int:
     for r in flash_rows.values():
         log(json.dumps(r))
 
+    # -- the LSTM text classifiers: kernel checks, training, timings
+    lstm_rec, lstm_entry = lstm_phases(torch, np, fluid, lk, dev, gen,
+                                       failures)
+    lstm_rec["card"] = card
+    kernels.append(lstm_entry)
+
     print(json.dumps({"serving": {"card": card, "runs": runs}}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"lstm": lstm_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:
         for f in failures:
             log(f"chip_smoke: FAIL: {f}")

@@ -119,20 +119,38 @@ def _parse_slot(spec: str):
 
 def primitive(op_type: str, inputs: Sequence[str] = ("X",),
               outputs: Sequence[str] = ("Out",), no_grad: bool = False,
-              stop_grad_slots: Sequence[str] = ()):
+              stop_grad_slots: Sequence[str] = (),
+              seq_transparent: bool = False):
     """Decorator: register a function of (ctx, *input_slots) -> output
     value(s) as an op emitter.  The function receives one positional arg
     per input slot (a tensor, None for a missing optional, or a list for
     a variadic slot) and returns one value per output slot (a tuple if
-    several)."""
+    several).
+
+    ``seq_transparent=True``: a SeqArray input reaches the function as
+    its ``.data``, and every output is re-wrapped with the lengths of the
+    first SeqArray input — how elementwise ops inherit the sequence
+    structure of their input."""
     in_specs = [_parse_slot(s) for s in inputs]
     out_names = list(outputs)
 
     def deco(fn):
         def emit(ctx: EmitCtx, ins: Dict[str, list]) -> Dict[str, list]:
+            from .lod import SeqArray
+
             args = []
+            lengths = None
             for name, kind in in_specs:
                 vals = ins.get(name, [])
+                if seq_transparent:
+                    unwrapped = []
+                    for v in vals:
+                        if isinstance(v, SeqArray):
+                            if lengths is None:
+                                lengths = v.lengths
+                            v = v.data
+                        unwrapped.append(v)
+                    vals = unwrapped
                 if kind == "list":
                     args.append(list(vals))
                 elif kind == "optional":
@@ -149,8 +167,14 @@ def primitive(op_type: str, inputs: Sequence[str] = ("X",),
             elif not isinstance(result, tuple):
                 raise ValueError(f"op {op_type}: expected tuple of "
                                  f"{len(out_names)} outputs")
-            return {slot: list(val) if isinstance(val, list) else [val]
-                    for slot, val in zip(out_names, result)}
+            out = {}
+            for slot, val in zip(out_names, result):
+                vals = list(val) if isinstance(val, list) else [val]
+                if lengths is not None:
+                    vals = [v if isinstance(v, SeqArray)
+                            else SeqArray(v, lengths) for v in vals]
+                out[slot] = vals
+            return out
 
         register(OpInfo(type=op_type, emit=emit, no_grad=no_grad,
                         stop_grad_slots=stop_grad_slots,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .core.lod import SeqArray
 from .core.types import runtime_dtype, torch_dtype
 from .framework import Program, Variable, default_main_program
 from .lowering import BlockPlan, run_block_ops
@@ -127,16 +128,24 @@ def _place_device(place) -> torch.device:
                     f"{place!r}")
 
 
-def _to_device(v, device: torch.device) -> torch.Tensor:
+def _to_device(v, device: torch.device):
     """One host value as a device tensor; int64 and float64 narrow to
     int32 and float32 as in the reference's runtime.  Arrays are copied:
     the optimizer ops update scope tensors in place, and a read-only
-    array (a JAX buffer) must not be written through."""
+    array (a JAX buffer) must not be written through.  A SeqArray moves
+    as its data and its int32 lengths."""
+    if isinstance(v, SeqArray):
+        return SeqArray(_to_device(v.data, device),
+                        _to_device(v.lengths, device))
     t = v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
     return t.to(device=device, dtype=torch_dtype(runtime_dtype(t.dtype)))
 
 
-def _to_numpy(t) -> np.ndarray:
+def _to_numpy(t):
+    """A fetched value on the host: a numpy array, or a SeqArray of numpy
+    data and lengths."""
+    if isinstance(t, SeqArray):
+        return SeqArray(_to_numpy(t.data), _to_numpy(t.lengths))
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()

@@ -20,6 +20,7 @@ import torch
 from . import unique_name
 from .core import registry as _registry
 from .core.desc import BlockDesc, OpDesc, ProgramDesc, VarDesc
+from .core.lod import SeqArray
 from .core.registry import EmitCtx, get_op_info
 from .core.types import VarType, canonical_dtype, runtime_dtype, torch_dtype
 
@@ -31,8 +32,10 @@ __all__ = [
 
 grad_var_name = _registry.grad_var_name
 
-# dummy extent standing in for a dynamic (-1) dim during inference
+# dummy extents standing in for a dynamic (-1) dim and for a sequence's
+# padded time axis during inference
 _DUMMY_BATCH = 13
+_DUMMY_TIME = 11
 
 # ops whose build-time inference is skipped (IO and markers)
 _NO_INFER_OPS = {"feed", "fetch", "while", "conditional_block", "print",
@@ -104,8 +107,9 @@ class Variable:
     def grad_name(self) -> str:
         return grad_var_name(self.name)
 
-    def abstract_value(self) -> torch.Tensor:
-        """The ``meta`` tensor standing in for this var during inference."""
+    def abstract_value(self):
+        """The ``meta`` tensor (a SeqArray of them for a sequence var)
+        standing in for this var during inference."""
         return abstract_from_meta(self.shape, self.dtype, self.lod_level,
                                   name=self.name)
 
@@ -273,10 +277,17 @@ class Block:
             return
         for slot, vals in out_abs.items():
             for var, av in zip(out_vars.get(slot, []), vals):
-                if not isinstance(av, torch.Tensor):
+                lod = 0
+                if isinstance(av, SeqArray):
+                    # drop the dummy time axis, as the desc records it
+                    lod, av = 1, av.data
+                    shape = [av.shape[0]] + list(av.shape[2:])
+                elif isinstance(av, torch.Tensor):
+                    shape = list(av.shape)
+                else:
                     continue
-                shape = list(av.shape)
-                var.desc.lod_level = 0
+                var.desc.lod_level = (max(var.desc.lod_level, lod)
+                                      if lod else 0)
                 if batch_dyn and shape and shape[0] == _DUMMY_BATCH:
                     shape[0] = -1
                 var.desc.shape = shape
@@ -284,18 +295,25 @@ class Block:
 
 
 def abstract_from_meta(shape, dtype: str, lod_level: int = 0,
-                       name: str = "<var>") -> torch.Tensor:
+                       name: str = "<var>"):
     """A ``meta`` tensor from recorded var metadata: the dummy extent for
-    dynamic dims, int64 narrowed to the reference runtime's int32."""
+    dynamic dims, int64 narrowed to the reference runtime's int32.  A
+    sequence var (``lod_level == 1``) becomes a SeqArray of meta tensors
+    with a dummy time axis after the batch axis."""
     if shape is None:
         raise ValueError(f"variable {name} has no shape")
-    if lod_level > 0:
+    if lod_level >= 2:
         raise NotImplementedError(
-            f"variable {name}: lod_level > 0 (sequence tensors) is not "
+            f"variable {name}: lod_level >= 2 (NestedSeqArray) is not "
             f"ported to paddle_tpu_torch")
     shape = [(_DUMMY_BATCH if d == -1 else d) for d in shape]
-    return torch.empty(shape, dtype=torch_dtype(runtime_dtype(dtype)),
-                       device="meta")
+    dt = torch_dtype(runtime_dtype(dtype))
+    if lod_level == 1:
+        data = torch.empty([shape[0], _DUMMY_TIME, *shape[1:]], dtype=dt,
+                           device="meta")
+        lengths = torch.empty([shape[0]], dtype=torch.int32, device="meta")
+        return SeqArray(data, lengths)
+    return torch.empty(shape, dtype=dt, device="meta")
 
 
 def _names_dict(d) -> Dict[str, List[str]]:

@@ -1,7 +1,8 @@
 """Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
-to what ``models/transformer.transformer()`` builds.  Each layer appends
-ops to the current block through ``LayerHelper`` exactly as the
-reference does, so both packages build byte-identical programs."""
+to what ``models/transformer.transformer()`` and the LSTM text
+classifiers build.  Each layer appends ops to the current block through
+``LayerHelper`` exactly as the reference does, so both packages build
+byte-identical programs."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "dropout", "softmax_with_cross_entropy",
+__all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
+           "softmax_with_cross_entropy",
            "layer_norm", "reduce_sum", "reshape",
            "fused_attention", "fused_vocab_cross_entropy"]
 
@@ -20,7 +22,9 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None, main_program=None, startup_program=None):
     """Fully connected: one ``mul`` per input (each with its own weight),
     a ``sum`` of the partial products, then the bias and the
-    activation."""
+    activation.  A sequence input [b, t, f...] keeps its time axis: its
+    weight covers the feature dims and the bias broadcasts on the last
+    axis."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name,
                          main_program=main_program,
@@ -28,12 +32,17 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     dtype = helper.input_dtype()
     mul_results = []
     for input_var in helper.multiple_input():
-        in_features = math.prod(input_var.shape[num_flatten_dims:])
+        seq = 1 if input_var.lod_level > 0 else 0
+        # a padded sequence's desc shape [b, f...] omits its time axis
+        flat = input_var.shape[1:] if seq else \
+            input_var.shape[num_flatten_dims:]
+        in_features = math.prod(flat)
         w = helper.create_parameter(helper.param_attr,
                                     shape=[in_features, size], dtype=dtype)
-        tmp = helper.create_tmp_variable(dtype)
+        tmp = helper.create_tmp_variable(dtype,
+                                         lod_level=input_var.lod_level)
         helper.append_op("mul", {"X": input_var, "Y": w}, {"Out": tmp},
-                         {"x_num_col_dims": num_flatten_dims,
+                         {"x_num_col_dims": num_flatten_dims + seq,
                           "y_num_col_dims": 1})
         mul_results.append(tmp)
     if len(mul_results) == 1:
@@ -41,7 +50,10 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     else:
         pre_bias = helper.create_tmp_variable(dtype)
         helper.append_op("sum", {"X": mul_results}, {"Out": pre_bias})
-    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims,
+    # shape inference has given pre_bias the sequence level of its value
+    seq = 1 if pre_bias.lod_level else 0
+    pre_act = helper.append_bias_op(pre_bias,
+                                    dim_start=num_flatten_dims + seq,
                                     bias_shape=[size])
     return helper.append_activation(pre_act)
 
@@ -87,6 +99,34 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
                      {"Softmax": softmax, "Loss": loss},
                      {"soft_label": soft_label})
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, name=None):
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_tmp_variable(input.dtype,
+                                     lod_level=input.lod_level)
+    helper.append_op("cross_entropy", {"X": input, "Label": label},
+                     {"Out": out}, {"soft_label": soft_label})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None, **kw):
+    """Top-k accuracy: a ``top_k`` op, then ``accuracy``."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    topk_indices = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("top_k", {"X": input},
+                     {"Out": topk_out, "Indices": topk_indices}, {"k": k})
+    acc_out = helper.create_tmp_variable("float32", stop_gradient=True)
+    correct = correct or helper.create_tmp_variable("int32",
+                                                    stop_gradient=True)
+    total = total or helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("accuracy",
+                     {"Out": topk_out, "Indices": topk_indices,
+                      "Label": label},
+                     {"Accuracy": acc_out, "Correct": correct,
+                      "Total": total})
+    return acc_out
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

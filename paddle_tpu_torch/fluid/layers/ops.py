@@ -1,12 +1,13 @@
 """Thin layer wrappers over registered ops — the port of
-``paddle_tpu/fluid/layers/ops.py``, cut to the ops the Transformer
-builds: the ``elementwise_*`` family and ``scale``."""
+``paddle_tpu/fluid/layers/ops.py``, cut to the ops the Transformer and
+the LSTM text classifiers build: the ``elementwise_*`` family, ``mean``
+and ``scale``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["scale"]
+__all__ = ["mean", "scale"]
 
 
 def _generate_binary(op_type: str):
@@ -27,6 +28,13 @@ for _op in ["elementwise_add", "elementwise_sub", "elementwise_mul",
             "elementwise_div"]:
     _globals[_op] = _generate_binary(_op)
     __all__.append(_op)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("mean", {"X": x}, {"Out": out})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from .core.desc import BlockDesc, OpDesc
+from .core.lod import SeqArray
 from .core.registry import (EmitCtx, GRAD_SUFFIX, base_op_type, get_op_info,
                             has_op, is_grad_op_type)
 
@@ -148,38 +149,47 @@ def _scatter_outputs(op: OpDesc, outs: Dict[str, list], env: Dict[str, Any]):
                 env[n] = v
 
 
+def _data(v):
+    """The tensor autograd sees: a SeqArray's padded data."""
+    return v.data if isinstance(v, SeqArray) else v
+
+
 def _emit_taped(ctx: EmitCtx, op: OpDesc, ins: Dict[str, list],
                 wanted: List[Tuple[str, int]]):
-    """Run a forward op under autograd with the wanted inputs as leaves.
-    Returns (outputs detached for the env, (leaves, outputs with graph))."""
+    """Run a forward op under autograd with the wanted inputs as leaves
+    (a SeqArray input's leaf is its data).  Returns (outputs detached for
+    the env, (leaves, inputs, outputs with graph))."""
     ins = {slot: list(vals) for slot, vals in ins.items()}
     leaves = {}
     for slot, i in wanted:
-        leaf = ins[slot][i].detach().requires_grad_(True)
-        ins[slot][i] = leaf
+        v = ins[slot][i]
+        leaf = _data(v).detach().requires_grad_(True)
+        ins[slot][i] = v.with_data(leaf) if isinstance(v, SeqArray) else leaf
         leaves[(slot, i)] = leaf
     with torch.enable_grad():
         outs = get_op_info(op.type).emit(ctx, ins)
     detached = {slot: [v.detach() for v in vals]
                 for slot, vals in outs.items()}
-    return detached, (leaves, outs)
+    return detached, (leaves, ins, outs)
 
 
 def _emit_tape_grad(op: OpDesc, ins: Dict[str, list], entry):
     """A ``*_grad`` op: the vector-Jacobian product of its forward op's
     taped graph with the cotangents ``<OutSlot>@GRAD``; gradients go out
     under ``<InSlot>@GRAD``, aligned with the forward slot's entries.  An
-    input the outputs do not depend on gets zeros."""
-    leaves, outs = entry
+    input the outputs do not depend on gets zeros, and the gradient of a
+    SeqArray input keeps that input's lengths."""
+    leaves, primals, outs = entry
     cotangents = {s[: -len(GRAD_SUFFIX)]: v for s, v in ins.items()
                   if s.endswith(GRAD_SUFFIX)}
     ys, cts = [], []
     for slot in sorted(cotangents):
         for y, c in zip(outs.get(slot, []), cotangents[slot]):
+            y = _data(y)
             if y.requires_grad:
                 ys.append(y)
                 # a cotangent must carry its output's dtype exactly
-                cts.append(c.to(y.dtype))
+                cts.append(_data(c).to(y.dtype))
     keys = list(leaves)
     grads = (torch.autograd.grad(ys, [leaves[k] for k in keys], cts,
                                  allow_unused=True)
@@ -193,6 +203,9 @@ def _emit_tape_grad(op: OpDesc, ins: Dict[str, list], entry):
             g = got.get((fwd_slot, i)) if n else None
             if n and g is None:
                 g = torch.zeros_like(leaves[(fwd_slot, i)])
+            primal = primals[fwd_slot][i] if n else None
+            if isinstance(primal, SeqArray):
+                g = primal.with_data(g)
             vals.append(g)
         out[slot] = vals
     return out

@@ -1,11 +1,19 @@
-"""Losses — the port of ``paddle_tpu/fluid/ops/loss_ops.py``, cut to
-``softmax_with_cross_entropy`` and ``fused_vocab_cross_entropy``."""
+"""Softmax, losses and metrics — the port of
+``paddle_tpu/fluid/ops/loss_ops.py``, cut to ``softmax``,
+``cross_entropy``, ``softmax_with_cross_entropy``,
+``fused_vocab_cross_entropy`` and ``accuracy``."""
 
 from __future__ import annotations
 
 import torch
 
+from ..core.lod import SeqArray
 from ..core.registry import primitive
+
+
+@primitive("softmax", seq_transparent=True)
+def softmax(ctx, x):
+    return torch.softmax(x, dim=-1)
 
 
 def _label_ce(logp, label, soft_label):
@@ -16,6 +24,31 @@ def _label_ce(logp, label, soft_label):
     if ids.dim() == logp.dim() and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     return -torch.gather(logp, -1, ids.long()[..., None])
+
+
+@primitive("cross_entropy", inputs=["X", "Label"], stop_grad_slots=("Label",),
+           seq_transparent=True)
+def cross_entropy(ctx, x, label):
+    """X is a probability distribution (after a softmax), as in the
+    reference's cross_entropy_op.cc."""
+    logp = torch.log(torch.clamp(x, min=1e-8))
+    return _label_ce(logp, label, ctx.attr("soft_label", False))
+
+
+@primitive("accuracy", inputs=["Out", "Indices", "Label"],
+           outputs=["Accuracy", "Correct", "Total"], no_grad=True)
+def accuracy(ctx, out, indices, label):
+    """reference accuracy_op.cc: a row is correct when its label is among
+    its top-k indices.  Correct and Total are int32 scalars; Total is the
+    batch size, filled on the device (no host copy)."""
+    if isinstance(indices, SeqArray):
+        indices, label = indices.data, label.data
+    lbl = label.reshape(label.shape[0], -1)[:, :1].to(torch.int32)
+    hit = (indices.to(torch.int32) == lbl).any(dim=-1)
+    total = torch.full((), hit.shape[0], dtype=torch.int32,
+                       device=hit.device)
+    correct = hit.sum().to(torch.int32)
+    return correct.float() / total.float(), correct, total
 
 
 @primitive("softmax_with_cross_entropy", inputs=["Logits", "Label"],

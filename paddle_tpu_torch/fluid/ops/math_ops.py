@@ -1,6 +1,8 @@
-"""Math ops: the projection matmul, the elementwise family, sum, scale and
-reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``, cut to
-what the Transformer, its backward and Adam emit.  The matmul is
+"""Math ops: the projection matmul, the elementwise family, sum, scale,
+mean and reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``,
+cut to what the Transformer, the LSTM text classifiers, their backward
+and Adam emit.  ``mul``, ``sum`` and ``elementwise_*`` see a SeqArray
+input's data and return a SeqArray, as in the reference.  The matmul is
 ``torch.matmul`` (cuBLAS on the card, fp32 with TF32 off), as the
 reference leaves it to XLA."""
 
@@ -20,7 +22,7 @@ def _flatten_2d(x, num_col_dims: int):
     return x.reshape(lead, -1)
 
 
-@primitive("mul", inputs=["X", "Y"])
+@primitive("mul", inputs=["X", "Y"], seq_transparent=True)
 def mul(ctx, x, y):
     """Projection matmul (reference mul_op.cc): X and Y flattened to 2-D
     per x_num_col_dims / y_num_col_dims, multiplied, leading dims
@@ -41,7 +43,7 @@ def _bcast_to_x(x, y, axis: int):
 
 
 def _elementwise(name, fn):
-    @primitive(name, inputs=["X", "Y"])
+    @primitive(name, inputs=["X", "Y"], seq_transparent=True)
     def _op(ctx, x, y, _fn=fn):
         return _fn(x, _bcast_to_x(x, y, ctx.attr("axis", -1)))
     _op.__name__ = name
@@ -54,7 +56,7 @@ _elementwise("elementwise_mul", lambda x, y: x * y)
 _elementwise("elementwise_div", lambda x, y: x / y)
 
 
-@primitive("sum", inputs=["X*"])
+@primitive("sum", inputs=["X*"], seq_transparent=True)
 def sum_op(ctx, xs):
     """Variadic add — also the fan-in accumulator ``append_backward``
     inserts."""
@@ -62,6 +64,12 @@ def sum_op(ctx, xs):
     for x in xs[1:]:
         out = out + x
     return out
+
+
+@primitive("mean")
+def mean(ctx, x):
+    """reference mean_op.cc — full reduction to a 0-d scalar."""
+    return torch.mean(x)
 
 
 @primitive("scale")

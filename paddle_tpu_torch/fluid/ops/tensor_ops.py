@@ -1,6 +1,6 @@
 """Tensor creation and manipulation ops — the port of
-``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer, its
-backward and Adam emit.
+``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer,
+the LSTM text classifiers, their backward and Adam emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 host-side seed (``EmitCtx.seed``) and copy to the device, so one seed
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.lod import SeqArray
 from ..core.registry import primitive
 from ..core.types import runtime_dtype, torch_dtype
 
@@ -28,7 +29,7 @@ def fill_constant(ctx, *_):
                       device=ctx.device)
 
 
-@primitive("fill_zeros_like", no_grad=True)
+@primitive("fill_zeros_like", no_grad=True, seq_transparent=True)
 def fill_zeros_like(ctx, x):
     return torch.zeros_like(x)
 
@@ -59,7 +60,7 @@ def gaussian_random(ctx, *_):
                  * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))
 
 
-@primitive("assign")
+@primitive("assign", seq_transparent=True)
 def assign(ctx, x):
     return x
 
@@ -82,29 +83,44 @@ def _ids(ids: torch.Tensor) -> torch.Tensor:
 @primitive("lookup_table", inputs=["W", "Ids"], stop_grad_slots=("Ids",))
 def lookup_table(ctx, w, ids):
     """Embedding gather (reference lookup_table_op.cc); padding_idx rows
-    are zero.  Dense only."""
+    are zero.  SeqArray ids give a SeqArray with their lengths.  Dense
+    only."""
     if ctx.attr("is_sparse", False):
         raise NotImplementedError("lookup_table: is_sparse=True "
                                   "(SelectedRows gradients) is not ported")
-    idv = _ids(ids)
+    seq = isinstance(ids, SeqArray)
+    idv = _ids(ids.data if seq else ids)
     out = w[idv]
     pad = ctx.attr("padding_idx", None)
     if pad is not None:
         out = torch.where((idv == pad)[..., None], 0.0, out)
-    return out
+    return ids.with_data(out) if seq else out
 
 
 @primitive("lookup_table_grad", inputs=["W", "Ids", "Out@GRAD"],
            outputs=["W@GRAD"], no_grad=True)
 def lookup_table_grad(ctx, w, ids, og):
     """Hand-written adjoint of lookup_table: the dense scatter-add of the
-    output gradients into the looked-up rows."""
+    output gradients into the looked-up rows (a sequence's padding rows
+    too, whose gradients are zero)."""
     if ctx.attr("is_sparse", False):
         raise NotImplementedError("lookup_table_grad: is_sparse=True is "
                                   "not ported")
+    if isinstance(ids, SeqArray):
+        ids = ids.data
+    if isinstance(og, SeqArray):
+        og = og.data
     rows = _ids(ids).reshape(-1)
     vals = og.reshape(-1, og.shape[-1])
     pad = ctx.attr("padding_idx", None)
     if pad is not None:
         vals = torch.where((rows == pad)[:, None], 0.0, vals)
     return torch.zeros_like(w).index_add_(0, rows, vals.to(w.dtype))
+
+
+@primitive("top_k", inputs=["X"], outputs=["Out", "Indices"], no_grad=True)
+def top_k(ctx, x):
+    """reference top_k_op.cc: the k largest values of the last axis and
+    their int32 indices."""
+    vals, idx = torch.topk(x, ctx.attr("k", 1), dim=-1)
+    return vals, idx.to(torch.int32)

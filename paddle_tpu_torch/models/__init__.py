@@ -1,2 +1,3 @@
-"""Models of the port.  ``transformer.PagedTransformer`` is the
-encoder-decoder Transformer in its paged serving form."""
+"""Models of the port.  ``transformer`` holds the Transformer's Fluid
+builders and its paged serving form; ``sentiment`` the book's stacked
+LSTM text classifier."""

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's Transformer training step on one GPU.
+"""Profile a training step of the PyTorch/CUDA port on one GPU.
 
-    python3 profile_training.py [--batch 64] [--steps 3] [--out FILE]
+    python3 profile_training.py [--model transformer|lstm] [--batch N]
+                                [--steps 3] [--out FILE]
 
-Builds the training program ``chip_smoke.py`` trains (Transformer-base,
-L=256, bench.py's recipe in float32), runs two warm-up steps, then
+Builds a training program ``chip_smoke.py`` trains: ``transformer``
+(default; Transformer-base, L=256, bench.py's recipe in float32, batch
+64) or ``lstm`` (the RNN benchmark model, hidden 512, T=100, Adam 2e-3,
+batch 128, the same ragged batch), runs two warm-up steps, then
 ``--steps`` steps under ``torch.profiler`` (while a profiler runs, the
 executor labels each Fluid op's work with its type).  Prints one JSON
 line: wall ms per step, device-busy ms per step (the sum of kernel
 times; the step runs on one stream, so kernels do not overlap), the
 device's idle share, device ms per step by kernel family (the flash
-kernels, matrix products, elementwise, reductions, the rest), kernel
+and LSTM kernels, matrix products, elementwise, reductions, the rest), kernel
 launches and host synchronisations per step, and per Fluid op type the
 host ms per step (time on the calling thread) and the device span its
 kernels cover (a grad op's backward kernels run on the autograd
@@ -31,7 +34,8 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # kernel-name fragments -> family, first match wins
-FAMILIES = (("flash_fwd", ("fwd_kernel",)), ("flash_dq", ("dq_kernel",)),
+FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
+            ("flash_fwd", ("fwd_kernel",)), ("flash_dq", ("dq_kernel",)),
             ("flash_dkv", ("dkv_kernel",)),
             ("matmul", ("gemm", "Gemm", "cutlass", "xmma")),
             ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -58,7 +62,10 @@ def _dev_us(evt, self_only=True) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--model", choices=("transformer", "lstm"),
+                    default="transformer")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 64 (transformer) or 128 (lstm)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="file for the kernel and op tables")
@@ -77,12 +84,20 @@ def main() -> int:
     from paddle_tpu_torch.models.transformer import transformer
 
     card = cs.card_line()
-    main_prog, startup, loss = cs.build_training(fluid, transformer)
+    if args.model == "lstm":
+        batch = args.batch or cs.LSTM_BATCH
+        seq = cs.LSTM_T
+        main_prog, startup, loss = cs.build_rnn_benchmark(fluid)
+        feed = cs.lstm_feed(np, fluid, batch, cs.rnn_benchmark_lengths(batch))
+    else:
+        batch = args.batch or cs.TRAIN_BATCH
+        seq = cs.SEQ
+        main_prog, startup, loss = cs.build_training(fluid, transformer)
+        feed = cs.train_feed(np, batch)
     place = fluid.CUDAPlace(0)
     exe = fluid.Executor(place)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    feed = cs.train_feed(np, args.batch)
     for _ in range(2):
         exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
@@ -126,7 +141,7 @@ def main() -> int:
                                "cudaDeviceSynchronize"))
     busy = sum(by_family.values()) / 1e3 / args.steps
     step_ms = wall / args.steps * 1e3
-    rec = {"card": card, "batch": args.batch, "seq": cs.SEQ,
+    rec = {"card": card, "model": args.model, "batch": batch, "seq": seq,
            "steps": args.steps, "wall_ms_per_step": step_ms,
            "device_busy_ms_per_step": busy,
            "device_idle_share": max(0.0, 1.0 - busy / step_ms),

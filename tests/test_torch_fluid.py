@@ -257,8 +257,9 @@ def test_unported_features_raise():
     with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
         x = tfluid.layers.data("x", [4], "float32")
         ids = tfluid.layers.data("ids", [4], "int64")
+        # level-1 sequences are ported; level-2 (NestedSeqArray) is not
         with pytest.raises(NotImplementedError, match="lod_level"):
-            tfluid.layers.data("s", [4], "int64", lod_level=1)
+            tfluid.layers.data("s", [4], "int64", lod_level=2)
         with pytest.raises(NotImplementedError, match="is_sparse"):
             tfluid.layers.embedding(ids, [8, 4], is_sparse=True)
         with pytest.raises(NotImplementedError, match="seq_parallel"):

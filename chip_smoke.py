@@ -42,10 +42,12 @@ Runs from the root of a checkout and needs one CUDA card; it imports
 9. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
-   activations at H=200, and B=1, T=1 (h, c, masked positions exactly
-   0; and for the peephole cases and the variants the gradients of
-   every input, through the kernel forward and the hand-written
-   backward, against autograd through the plain loop);
+   activations at H=200, B=1, T=1, and the edges of the kernel's
+   tiling: B=100 at H=512, H=1000 ragged and reverse, the widest H whose
+   weight slice stays in shared memory and the next (h, c, masked
+   positions exactly 0; and for the peephole cases and the variants the
+   gradients of every input, through the kernel forward and the
+   hand-written backward, against autograd through the plain loop);
 10. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
    128, vocab 30000, 2 x (fc + dynamic_lstm) at hidden 512, last step,
    fc softmax, Adam 2e-3) at batch 128, T=100: one step at batch 4 card
@@ -55,8 +57,9 @@ Runs from the root of a checkout and needs one CUDA card; it imports
 11. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
    LSTMs, forward and reverse, with peepholes) for 5 steps at batch
    128, T=100, ragged lengths (3 launches per step, falling loss);
-12. time the LSTM kernel, its plain loop and ``torch.nn.LSTM`` (cuDNN)
-   at B=128, T=100, H = 256, 512 and 1280.
+12. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
+   off) and cuDNN's own input product alone at B=128, T=100, H = 256,
+   512 and 1280.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``training`` line, an ``lstm`` line, a ``kernels`` line and, last, the
@@ -85,10 +88,12 @@ SERVE = dict(max_length=257, src_len=256, max_out_len=64, page_size=16,
 N_REQUESTS, N_SLOTS, MAX_NEW = 8, 8, 32
 KV_DTYPES = ("float32", "bfloat16", "int8")
 
-# H100 SXM data-sheet peaks (dense): HBM3 rate and the fp32 rate outside
-# the tensor cores (the kernel's arithmetic is fp32 on CUDA cores)
+# H100 SXM data-sheet peaks (dense): HBM3 rate, the fp32 rate outside
+# the tensor cores (the attention kernels' arithmetic) and the TF32
+# tensor-core rate (the LSTM kernel's three TF32 products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain on the same inputs: both compute in fp32; they differ
 # only in summation order (64-term dots, per-page partial softmax sums
@@ -675,8 +680,18 @@ LSTM_LOSS_RTOL = 1e-5
 LSTM_GRAD_RTOL = 1e-4
 
 
-def lstm_cases():
-    """(name, B, T, H, config, grads) of the kernel-vs-plain check."""
+def resident_edge(lk, B, limits):
+    """The largest H whose weight slice the planner keeps in shared
+    memory at B rows on a card with these (SMs, shared memory) limits."""
+    H = 1024
+    while lk.lstm_plan(B, H + 1, *limits)["w_smem"]:
+        H += 1
+    return H
+
+
+def lstm_cases(lk, limits):
+    """(name, B, T, H, config, grads) of the kernel-vs-plain check; the
+    last four hit the edges of the kernel's tiling on this card."""
     default = dict(peep=True, reverse=False, init=False, ragged=False,
                    acts=("sigmoid", "tanh", "tanh"))
     cases = [(f"H{h}/{'peep' if p else 'nopeep'}", LSTM_BATCH, LSTM_T, h,
@@ -694,9 +709,23 @@ def lstm_cases():
     cases.append(("H1280/ragged/reverse/h0c0", 8, 20, 1280,
                   dict(default, ragged=True, reverse=True, init=True), True))
     cases.append(("B1/T1/H256", 1, 1, 256, dict(default), True))
-    # above H ~ 1400 no weight slice fits shared memory: read from L2
+    # no weight slice of H=2048 fits shared memory: read from L2
     cases.append(("H2048/w-from-L2/ragged", 4, 6, 2048,
                   dict(default, ragged=True), True))
+    # B not a multiple of the 16-row tile (nor of the 4 batch groups);
+    # H not a multiple of the h chunk (H=1000: 64-column chunks, the last
+    # one padded with zeros).  H=200 above leaves its last block short of
+    # units, H=1321 below is odd
+    cases.append(("B100/H512/ragged", 100, LSTM_T, 512,
+                  dict(default, ragged=True), True))
+    cases.append(("H1000/ragged/reverse", LSTM_BATCH, LSTM_T, 1000,
+                  dict(default, ragged=True, reverse=True), True))
+    # the widest slice still resident in shared memory, and the first H
+    # whose slice is read from L2
+    edge = resident_edge(lk, LSTM_BATCH, limits)
+    for H, where in ((edge, "w-resident"), (edge + 1, "w-from-L2")):
+        cases.append((f"H{H}/{where}/ragged", LSTM_BATCH, 20, H,
+                      dict(default, ragged=True), True))
     return cases
 
 
@@ -754,16 +783,18 @@ def run_lstm_case(torch, lk, gen, dev, case):
     ok = zero and all(e <= LSTM_TOL * max(1.0, mag)
                       for e, mag in errs.values())
     return name, {n: e for n, (e, _) in errs.items()}, ok, \
-        lk.lstm_plan(B, H)
+        lk.device_plan(B, H, dev)
 
 
-def lstm_bound(B, T, H):
+def lstm_bound(B, T, H, passes=3, flops_per_s=TF32_FLOPS_PER_S):
     """Least time of one forward: x, w, the bias and peepholes and the
     lengths read once, h and c written once, against the recurrent
-    product's 2*B*T*H*4H fp32 operations (every step is live with full
-    lengths)."""
+    product's 2*B*T*H*4H operations done ``passes`` times at
+    ``flops_per_s`` (every step is live with full lengths).  The kernel
+    does three TF32 products on the tensor cores; passes=1 at
+    FP32_FLOPS_PER_S is the CUDA cores' fp32 bound."""
     nbytes = 4 * (B * T * 4 * H + 4 * H * H + 7 * H + B + 2 * B * T * H)
-    t_ops = 2 * B * T * H * 4 * H / FP32_FLOPS_PER_S * 1e3
+    t_ops = passes * 2 * B * T * H * 4 * H / flops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -772,9 +803,15 @@ def lstm_bound(B, T, H):
 def lstm_timings(torch, lk, dev, gen):
     """ms per call at B=128, T=100 and each width, as the model runs it
     (peepholes, full lengths): the kernel (twice, around the others),
-    the plain loop, and ``torch.nn.LSTM`` (cuDNN; no peepholes, and its
-    own input product [B*T, H] x [H, 4H] on top: the same recurrent work
-    and gates in the order i, f, g, o)."""
+    the plain loop, ``torch.nn.LSTM`` (cuDNN; no peepholes, and its own
+    input product [B*T, H] x [H, 4H] on top: the same recurrent work and
+    gates in the order i, f, g, o), and that input product alone
+    (``torch.matmul``), so that library - gemm is cuDNN's recurrence.
+    Both sides compute in fp32: TF32 is off for cuDNN and cuBLAS."""
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("lstm_timings: TF32 is on; cuDNN and cuBLAS "
+                           "must be timed in fp32")
     rows = {}
     for H in LSTM_WIDTHS:
         cfg = dict(peep=True, reverse=False, init=False, ragged=False,
@@ -783,19 +820,28 @@ def lstm_timings(torch, lk, dev, gen):
             torch, gen, dev, LSTM_BATCH, LSTM_T, H, cfg)
         rnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
         xi = torch.randn(LSTM_BATCH, LSTM_T, H, generator=gen).to(dev)
+        wi = rnn.weight_ih_l0.detach().t().contiguous()
         with torch.no_grad():
             k1 = cuda_ms(torch, lambda: lk.lstm_forward(x, w, b, lengths,
                                                         **kw), 10)
             plain = cuda_ms(torch, lambda: lk.lstm_forward_plain(
                 x, w, b, lengths, **kw), 3)
             lib = cuda_ms(torch, lambda: rnn(xi), 10)
+            gemm = cuda_ms(torch, lambda: torch.matmul(
+                xi.reshape(-1, H), wi), 10)
             k2 = cuda_ms(torch, lambda: lk.lstm_forward(x, w, b, lengths,
                                                         **kw), 10)
         b_ms, b_by = lstm_bound(LSTM_BATCH, LSTM_T, H)
-        rows[H] = {"H": H, "ms": k1, "ms_repeat": k2, "plain_ms": plain,
-                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                   "plan": lk.lstm_plan(LSTM_BATCH, H)}
-        del x, w, b, rnn, xi
+        rows[H] = {"H": H, "ms": k1, "ms_repeat": k2,
+                   "us_per_step": min(k1, k2) / LSTM_T * 1e3,
+                   "plain_ms": plain, "library_ms": lib,
+                   "library_gemm_ms": gemm,
+                   "library_recurrence_ms": lib - gemm,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_fp32_ms": lstm_bound(LSTM_BATCH, LSTM_T, H, 1,
+                                               FP32_FLOPS_PER_S)[0],
+                   "plan": lk.device_plan(LSTM_BATCH, H, dev)}
+        del x, w, b, rnn, xi, wi
     return rows
 
 
@@ -915,7 +961,7 @@ def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
     from paddle_tpu_torch.models.sentiment import stacked_lstm_net
 
     checks, err = [], 0.0
-    for case in lstm_cases():
+    for case in lstm_cases(lk, lk.device_limits(dev.index or 0)):
         name, errs, ok, plan = run_lstm_case(torch, lk, gen, dev, case)
         log(f"lstm {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)} "
             f"plan {json.dumps(plan)}")

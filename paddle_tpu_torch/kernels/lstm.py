@@ -28,7 +28,8 @@ from typing import Optional
 import torch
 
 __all__ = ["KERNEL_NAME", "ACTIVATIONS", "lstm_forward", "lstm_forward_plain",
-           "lstm_backward_plain", "lstm_plan", "dynamic_lstm"]
+           "lstm_backward_plain", "lstm_plan", "device_plan", "device_limits",
+           "dynamic_lstm"]
 
 KERNEL_NAME = "lstm_fwd"
 # activation name -> the kernel's code (the order of rnn_ops._ACTS)
@@ -71,9 +72,12 @@ def _mask(lengths, T: int, dtype):
 def lstm_forward_plain(x, w, bias, lengths, h0=None, c0=None,
                        use_peepholes=True, is_reverse=False,
                        gate_activation="sigmoid", cell_activation="tanh",
-                       candidate_activation="tanh"):
+                       candidate_activation="tanh", matmul=torch.matmul):
     """The forward as a per-step loop, the counterpart of the reference's
-    ``_scan_seq`` + ``dynamic_lstm`` step -> (h, c), each [B, T, H]."""
+    ``_scan_seq`` + ``dynamic_lstm`` step -> (h, c), each [B, T, H].
+    ``matmul`` computes the recurrent product h @ w (a test passes a
+    rounded product to see what the kernel's tensor-core arithmetic
+    does over T steps)."""
     B, T, _ = x.shape
     H = w.shape[0]
     ga, ca, cda = (_act(gate_activation), _act(cell_activation),
@@ -84,7 +88,7 @@ def lstm_forward_plain(x, w, bias, lengths, h0=None, c0=None,
     m = _mask(lengths, T, x.dtype)
     hs, cs = [None] * T, [None] * T
     for t in (range(T - 1, -1, -1) if is_reverse else range(T)):
-        gates = x[:, t] + torch.matmul(h, w) + gate_bias
+        gates = x[:, t] + matmul(h, w) + gate_bias
         gc, gi, gf, go = gates.split(H, dim=-1)
         if peep is not None:
             gi = gi + peep[0] * c
@@ -100,6 +104,100 @@ def lstm_forward_plain(x, w, bias, lengths, h0=None, c0=None,
     return torch.stack(hs, 1), torch.stack(cs, 1)
 
 
+# The kernel's work split (csrc/lstm_fwd.cu).  A block of THREADS threads
+# owns k hidden units (all four gates) for Bs batch rows.  Its warps form
+# a wm x wn grid: each owns one 16-row m-tile of the block's rows and ntw
+# n-tiles of 8 columns (2 units x 4 gates) of the [H, 4k] weight slice.
+THREADS, WARPS, MAX_TILES, MAX_STAGES = 256, 8, 8, 16
+CHUNKS = (64, 32, 16)           # h columns a ring slot stages, largest first
+# the order in which the C entry point reads the plan
+PLAN_FIELDS = ("k", "nh", "nb", "Bs", "wm", "wn", "ntw", "kc", "stages",
+               "hp", "kp", "w_smem", "ring_off", "stage_floats", "smem",
+               "grid")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ring(bsp: int, H: int, n: int, w_smem: bool, smem_max: int):
+    """The ring of h chunks in the shared memory left beside the weight
+    slice, or None when fewer than two slots fit: the widest chunk kc
+    (fewer block barriers, longer runs of products between them) that
+    keeps two chunks in flight ahead of the one being multiplied, or
+    all of them, or else as many as fit.  hp is H rounded up to kc: the
+    h buffer's row pitch; kp = hp + 4 the row pitch of the n-major slice
+    (4 mod 8 words: its ldmatrix reads are free of bank conflicts)."""
+    best = None
+    for kc in CHUNKS:
+        hp = _cdiv(H, kc) * kc
+        ring_off = n * (hp + 4) if w_smem else 0
+        stage = bsp * kc              # rows unpadded (XOR-swizzled)
+        stages = min(MAX_STAGES, hp // kc + 1,
+                     (smem_max // 4 - ring_off) // stage)
+        if stages < 2:
+            continue
+        key = (min(stages - 1, 2, hp // kc), kc)
+        if best is None or key > best[0]:
+            best = (key, dict(kc=kc, stages=stages, hp=hp, kp=hp + 4,
+                              ring_off=ring_off, stage_floats=stage,
+                              smem=4 * (ring_off + stages * stage)))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, H: int, sms: int, smem_max: int):
+    best, best_cost = None, None
+    for k in range(2, 2 * WARPS * MAX_TILES + 1, 2):
+        nh = _cdiv(H, k)
+        if nh > sms or (k > 2 and _cdiv(H, k - 2) == nh):
+            continue                  # too many blocks, or padding only
+        n = 4 * k
+        for bs in sorted({_cdiv(B, nb) for nb in range(1, B + 1)}):
+            nb = _cdiv(B, bs)
+            mt = _cdiv(bs, 16)
+            if nh * nb > sms or mt > WARPS:
+                continue
+            wn = WARPS // mt
+            ntw = _cdiv(k // 2, wn)
+            if ntw > MAX_TILES:
+                continue
+            for w_smem in (1, 0):
+                ring = _ring(16 * mt, H, n, bool(w_smem), smem_max)
+                if ring is not None:
+                    break
+            if ring is None:
+                continue
+            hp = ring["hp"]
+            # w resident first (from L2 it costs 4H^2 floats a step per
+            # batch group); then the longest product a warp runs; then the
+            # fewest bytes the grid reads from L2 a step; then the smaller
+            # grid and shared memory
+            l2 = nh * nb * (16 * mt * hp + (1 - w_smem) * hp * n)
+            cost = (1 - w_smem, ntw * hp, l2, nh * nb, ring["smem"])
+            if best is None or cost < best_cost:
+                best_cost = cost
+                best = dict(k=k, nh=nh, nb=nb, Bs=bs, wm=mt, wn=wn, ntw=ntw,
+                            w_smem=w_smem, grid=nh * nb, **ring)
+    return best
+
+
+def lstm_plan(B: int, H: int, sms: int, smem_max: int) -> dict:
+    """The kernel's work split for B rows and H units on a card with
+    ``sms`` SMs and ``smem_max`` bytes of shared memory a block: units
+    per block k and unit groups nh, batch groups nb of Bs rows, the warp
+    grid wm x wn and n-tiles per warp ntw, the h ring (chunk kc columns,
+    stages, h row pitch hp), the weight slice's row pitch kp and whether
+    it sits in shared memory, the shared-memory layout and bytes, and the
+    grid (at most one block per SM: the launch is cooperative).  Raises
+    ValueError when no split fits."""
+    plan = _plan(int(B), int(H), int(sms), int(smem_max))
+    if plan is None:
+        raise ValueError(f"lstm_fwd: no work split for B={B}, H={H} fits "
+                         f"{sms} SMs and {smem_max} bytes of shared memory")
+    return dict(plan)
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel_fn():
     """The C entry points, built and bound at first use."""
@@ -108,26 +206,30 @@ def _kernel_fn():
     lib = load_library(KERNEL_NAME)
     fn = lib.lstm_fwd
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    plan = lib.lstm_fwd_plan
-    plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    plan.restype = ctypes.c_int
-    return fn, plan
+    limits = lib.lstm_fwd_limits
+    limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    limits.restype = ctypes.c_int
+    return fn, limits
 
 
-def lstm_plan(B: int, H: int) -> dict:
-    """The kernel's work split for B rows and H units on the current card:
-    units per block k, batch groups nb, rows per block Bs, rows per
-    thread R, grid, dynamic shared memory, and whether the weight slice
-    sits in shared memory.  Raises when no split can be co-resident."""
-    _, plan_fn = _kernel_fn()
-    out = (ctypes.c_int * 7)()
-    err = plan_fn(int(B), int(H), ctypes.addressof(out))
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int):
+    """(SMs, shared memory a block may opt into, in bytes) of card
+    ``index``, as the CUDA runtime reports them."""
+    _, limits = _kernel_fn()
+    out = (ctypes.c_int * 2)()
+    err = limits(int(index), ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"lstm_fwd: no work split for B={B}, H={H} fits "
-                           f"the card (CUDA error {err})")
-    return dict(zip(("k", "nb", "Bs", "R", "grid", "smem", "w_smem"), out))
+        raise RuntimeError(f"lstm_fwd: cannot query card {index} (CUDA "
+                           f"error {err})")
+    return out[0], out[1]
+
+
+def device_plan(B: int, H: int, device) -> dict:
+    """``lstm_plan`` for the card that holds ``device``."""
+    return lstm_plan(B, H, *device_limits(torch.device(device).index or 0))
 
 
 def _check(cond: bool, what: str) -> None:
@@ -165,20 +267,27 @@ def _lstm_cuda(x, w, bias, lengths, h0, c0, use_peepholes, is_reverse,
     if B * T * H == 0:
         return h, c
     fn, _ = _kernel_fn()
-    hbuf = torch.empty(2, B, H, dtype=torch.float32, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    plan = device_plan(B, H, dev)
+    # h_{t-1} double buffer, rows padded to hp with zeros the kernel never
+    # writes; one step counter per batch group
+    hbuf = torch.zeros(2, B, plan["hp"], dtype=torch.float32, device=dev)
+    counters = torch.zeros(plan["nb"], dtype=torch.int32, device=dev)
+    packed = (ctypes.c_int * len(PLAN_FIELDS))(*(plan[f]
+                                                 for f in PLAN_FIELDS))
     bias = bias.reshape(-1)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-             bias[4 * H:].data_ptr() if use_peepholes else None,
-             ptr(h0), ptr(c0), lengths.data_ptr(), h.data_ptr(), c.data_ptr(),
-             hbuf.data_ptr(), counter.data_ptr(), B, T, H, int(is_reverse),
-             ACTIVATIONS[gate_activation], ACTIVATIONS[cell_activation],
-             ACTIVATIONS[candidate_activation],
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                 bias[4 * H:].data_ptr() if use_peepholes else None,
+                 ptr(h0), ptr(c0), lengths.data_ptr(), h.data_ptr(),
+                 c.data_ptr(), hbuf.data_ptr(), counters.data_ptr(), B, T, H,
+                 int(is_reverse), ACTIVATIONS[gate_activation],
+                 ACTIVATIONS[cell_activation],
+                 ACTIVATIONS[candidate_activation], ctypes.addressof(packed),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lstm_fwd launch failed: CUDA error {err} (B={B}, "
-                           f"T={T}, H={H})")
+                           f"T={T}, H={H}, plan {plan})")
     lstm_forward.launches += 1
     return h, c
 

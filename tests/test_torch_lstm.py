@@ -193,3 +193,125 @@ def test_wrapper_refuses_what_it_does_not_run():
                              lens.to("meta"))
     assert h.shape == c.shape == (2, 3, 4) and h.device.type == "meta"
 
+
+
+# -- the kernel's work split (kernels/lstm.py's planner) at an H100's
+# limits: 132 SMs, 232,448 bytes of shared memory a block
+SMS, SMEM = 132, 232448
+
+
+def _owners(plan, B, H):
+    """Who updates which (row, unit) under ``plan``, as csrc/lstm_fwd.cu
+    assigns it: warp (mw, nw) of a block owns m-tile mw and n-tiles
+    nw*ntw .. +ntw-1; after the gate exchange lane (g, t) holds row
+    mw*16 + g (+8 for odd t) and unit 2*tile + t//2.  -> int arrays
+    (row, unit, block, thread), one entry per pair a thread updates."""
+    blk, warp, lane, tile = np.meshgrid(
+        np.arange(plan["grid"]), np.arange(lstm.WARPS), np.arange(32),
+        np.arange(plan["ntw"]), indexing="ij")
+    ub, bg = blk % plan["nh"], blk // plan["nh"]
+    mw, nw = warp % plan["wm"], warp // plan["wm"]
+    g, t = lane >> 2, lane & 3
+    nt = nw * plan["ntw"] + tile
+    row = mw * 16 + g + 8 * (t & 1)
+    du = nt * 2 + (t >> 1)
+    b, u = bg * plan["Bs"] + row, ub * plan["k"] + du
+    ok = ((nw < plan["wn"]) & (nt < plan["k"] // 2) & (row < plan["Bs"])
+          & (b < B) & (u < H))
+    return b[ok], u[ok], blk[ok], (warp * 32 + lane)[ok]
+
+
+@pytest.mark.parametrize("H", [1, 200, 256, 512, 1000, 1280, 2048])
+@pytest.mark.parametrize("B", [1, 4, 100, 128])
+def test_plan_covers_every_pair_once_and_fits(B, H):
+    plan = lstm.lstm_plan(B, H, SMS, SMEM)
+    b, u, blk, thr = _owners(plan, B, H)
+    # every (row, unit) pair has exactly one owner
+    key = b.astype(np.int64) * H + u
+    assert np.array_equal(np.sort(key), np.arange(B * H))
+    # ... and a thread carries at most one pair per n-tile it owns
+    _, per_thread = np.unique(blk.astype(np.int64) * lstm.THREADS + thr,
+                              return_counts=True)
+    assert per_thread.max() <= plan["ntw"]
+    # one block per SM: the cooperative launch must be co-resident
+    assert plan["grid"] == plan["nh"] * plan["nb"] <= SMS
+    assert plan["nh"] * plan["k"] >= H and plan["nb"] * plan["Bs"] >= B
+    assert plan["wm"] * plan["wn"] <= lstm.WARPS and plan["Bs"] <= \
+        16 * plan["wm"] and 1 <= plan["ntw"] <= lstm.MAX_TILES
+    # the shared-memory layout fits: weight slice, then the h ring
+    w_bytes = 16 * plan["k"] * plan["kp"] if plan["w_smem"] else 0
+    assert plan["ring_off"] * 4 == w_bytes
+    assert plan["smem"] == w_bytes + 4 * plan["stages"] \
+        * plan["stage_floats"] <= SMEM
+    assert 2 <= plan["stages"] <= lstm.MAX_STAGES
+    assert plan["hp"] % plan["kc"] == 0 and plan["hp"] >= H
+    assert plan["kc"] % 16 == 0          # whole pairs of k-steps a chunk
+    # bank-conflict-free slice rows (kp = 4 mod 8 words); ring rows are
+    # kc words, swizzled
+    assert plan["kp"] % 8 == 4 and plan["kp"] >= plan["hp"]
+    assert plan["stage_floats"] == 16 * plan["wm"] * plan["kc"]
+    # the weight slice is resident wherever any slice fits: the smallest
+    # (fewest units a block) beside the smallest ring (two 16-column
+    # slots of one 16-row tile) must not fit when it is not
+    if not plan["w_smem"]:
+        k0 = next(k for k in range(2, 4 * H + 3, 2) if -(-H // k) <= SMS)
+        assert 4 * (4 * k0 * (-(-H // 16) * 16 + 4) + 2 * 16 * 16) > SMEM
+
+
+def test_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="no work split"):
+        lstm.lstm_plan(128, 512, 1, 1024)
+
+
+# -- the kernel's arithmetic: products on TF32 tensor cores
+
+
+def _tf32(a):
+    """Round float32 to TF32 as cvt.rna.tf32.f32 does: to nearest, ties
+    away from zero, keeping 10 mantissa bits (the low 13 bits zero)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a):
+    """a ~ hi + lo as the kernel splits it: hi rounded, the exact rest
+    a - hi truncated to TF32 (its low 13 bits cleared)."""
+    hi = _tf32(a)
+    return hi, ((a - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(h, w):
+    (hh, hl), (wh, wl) = _split(h), _split(w)
+    return (torch.matmul(hh, wh)
+            + (torch.matmul(hh, wl) + torch.matmul(hl, wh)))
+
+
+def _mm_tf32(h, w):
+    return torch.matmul(_tf32(h), _tf32(w))
+
+
+def test_3xtf32_recurrence_holds_the_fp32_tolerance_and_tf32_does_not():
+    """The kernel splits each operand into two TF32 parts and sums three
+    products.  Over 100 steps at H=512 that stays within chip_smoke's
+    LSTM_TOL (1e-4 of max(1, magnitude)) of the float32 loop; a single
+    TF32 product does not, which is why the kernel splits."""
+    tol = 1e-4
+    Bn, Tn, Hn = 8, 100, 512
+    r = np.random.RandomState(3)
+    x = torch.tensor((r.randn(Bn, Tn, 4 * Hn) * 0.5).astype(np.float32))
+    w = torch.tensor((r.randn(Hn, 4 * Hn) * Hn ** -0.5).astype(np.float32))
+    bias = torch.tensor((r.randn(7 * Hn) * 0.1).astype(np.float32))
+    lens = torch.full((Bn,), Tn, dtype=torch.int32)
+    # the rounding is the one the card's conversion makes
+    probe = torch.tensor([1 + 2 ** -11, 1 + 3 * 2 ** -12, -(1 + 2 ** -11)])
+    assert _tf32(probe).tolist() == [1 + 2 ** -10, 1 + 2 ** -10,
+                                     -(1 + 2 ** -10)]
+    errs = {}
+    want = lstm.lstm_forward_plain(x, w, bias, lens)
+    mag = max(1.0, *(float(t.abs().max()) for t in want))
+    for name, mm in (("3xtf32", _mm_3xtf32), ("tf32", _mm_tf32)):
+        got = lstm.lstm_forward_plain(x, w, bias, lens, matmul=mm)
+        errs[name] = max(float((g - e).abs().max())
+                         for g, e in zip(got, want))
+    assert errs["3xtf32"] <= tol * mag, errs
+    assert errs["tf32"] > tol * mag, errs

@@ -18,6 +18,8 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    plain versions (B=8, L=256, H=8, D=64, 'blhd'): causal and not,
    dropout 0 and 0.1, float32 and bfloat16, both bias shapes (forward),
    Lq=200 against Lk=136, and block offsets where every row is dead;
+   the backward's tile edges (Lq=77 against Lk=45 and 45 against 77,
+   causal and not, dropout 0.1, fp32 and one bf16) and one 'bhld' case;
    the dropout masks of the forward and dk/dv kernels exactly;
 5. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
    through ``ContinuousBatchingScheduler`` over a Transformer-base
@@ -89,8 +91,9 @@ N_REQUESTS, N_SLOTS, MAX_NEW = 8, 8, 32
 KV_DTYPES = ("float32", "bfloat16", "int8")
 
 # H100 SXM data-sheet peaks (dense): HBM3 rate, the fp32 rate outside
-# the tensor cores (the attention kernels' arithmetic) and the TF32
-# tensor-core rate (the LSTM kernel's three TF32 products)
+# the tensor cores (the ragged and flash forward kernels' arithmetic)
+# and the TF32 tensor-core rate (the three TF32 products of the LSTM
+# and flash backward kernels)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
@@ -308,9 +311,12 @@ def teacher_forced(np, gpu, cpu, srcs):
 # kernel vs plain, same inputs on the card.  fp32: both compute in fp32
 # and differ in summation order only (64-tile online softmax against one
 # softmax over all keys; 64- and 256-term dots), errors ~1e-6 relative,
-# and gradients sum up to 256 such terms.  bf16: the same fp32 arithmetic
-# on bf16 inputs, but each output is rounded to bf16 on both sides, and
-# a value near a rounding boundary moves by one bf16 ulp (2^-8 relative).
+# and gradients sum up to 256 such terms; the backward's products are
+# three TF32 products (operands split into two TF32 parts), whose
+# dropped lo*lo term and truncated lo part are below 2^-20 relative.
+# bf16: the same fp32 arithmetic on bf16 inputs, but each output is
+# rounded to bf16 on both sides, and a value near a rounding boundary
+# moves by one bf16 ulp (2^-8 relative).
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_SHAPE = dict(B=8, H=8, D=64)
 
@@ -319,7 +325,11 @@ def flash_cases():
     """Argument sets at B=8, L=256, H=8, D=64 in 'blhd': causal and not,
     dropout 0 and 0.1, fp32 and bf16; the two bias shapes (forward only:
     the backward with a bias is the plain one); Lq=200 against Lk=136;
-    and causal block_offsets (0, 256), where every row is dead."""
+    causal block_offsets (0, 256), where every row is dead; then the
+    edges of the backward's 16-row warp tiles and 8-column steps: Lq=77
+    against Lk=45 and 45 against 77, causal and not, dropout 0.1, in
+    fp32 (and one in bf16); and one 'bhld' case.  A case without a
+    ``layout`` is 'blhd'."""
     cases = [dict(dtype=dt, causal=c, rate=r, lq=256, lk=256, bias=None,
                   offsets=None, grads=True)
              for dt in ("float32", "bfloat16") for c in (False, True)
@@ -331,6 +341,14 @@ def flash_cases():
               for c in (False, True)]
     cases.append(dict(dtype="float32", causal=True, rate=0.0, lq=256,
                       lk=256, bias=None, offsets=(0, 256), grads=True))
+    cases += [dict(dtype="float32", causal=c, rate=0.1, lq=lq, lk=lk,
+                   bias=None, offsets=None, grads=True)
+              for lq, lk in ((77, 45), (45, 77)) for c in (False, True)]
+    cases.append(dict(dtype="bfloat16", causal=True, rate=0.1, lq=77,
+                      lk=45, bias=None, offsets=None, grads=True))
+    cases.append(dict(dtype="float32", causal=True, rate=0.1, lq=200,
+                      lk=136, bias=None, offsets=None, grads=True,
+                      layout="bhld"))
     return cases
 
 
@@ -338,7 +356,8 @@ def _case_name(c):
     return (f"{c['dtype']}/{'causal' if c['causal'] else 'full'}/"
             f"p{c['rate']}/{c['lq']}x{c['lk']}"
             + (f"/bias_{c['bias']}" if c["bias"] else "")
-            + (f"/off{c['offsets']}" if c["offsets"] else ""))
+            + (f"/off{c['offsets']}" if c["offsets"] else "")
+            + (f"/{c['layout']}" if "layout" in c else ""))
 
 
 def _max_err(torch, got, want):
@@ -362,18 +381,19 @@ def run_flash_case(torch, fa, case, dev, gen):
     B, H, D = FLASH_SHAPE["B"], FLASH_SHAPE["H"], FLASH_SHAPE["D"]
     dt = getattr(torch, case["dtype"])
     lq, lk = case["lq"], case["lk"]
+    layout = case.get("layout", "blhd")
 
-    def randn(*shape):
+    def randn(l):
+        shape = (B, l, H, D) if layout == "blhd" else (B, H, l, D)
         return torch.randn(*shape, generator=gen).to(dev, dt)
 
-    q, k, v, dout = randn(B, lq, H, D), randn(B, lk, H, D), \
-        randn(B, lk, H, D), randn(B, lq, H, D)
+    q, k, v, dout = randn(lq), randn(lk), randn(lk), randn(lq)
     bias = None
     if case["bias"]:
         shape = (B, 1, lq, lk) if case["bias"] == "b1" else (1, H, lq, lk)
         bias = torch.randn(*shape, generator=gen).to(dev)
     cfg = (case["causal"], D ** -0.5, case["rate"], SEED if case["rate"]
-           else 0, "blhd", case["offsets"] or (0, 0))
+           else 0, layout, case["offsets"] or (0, 0))
     out, lse = fa._flash_fwd_cuda(q, k, v, bias, *cfg)
     p_out, p_lse = fa.flash_forward_plain(q, k, v, bias, *cfg)
     errs = {"out": _max_err(torch, out, p_out),
@@ -442,17 +462,21 @@ def cuda_ms(torch, fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
-def flash_bound(kind, causal, B, H, L, D, item=4):
+def flash_bound(kind, causal, B, H, L, D, item=4, passes=1,
+                flops_per_s=FP32_FLOPS_PER_S):
     """Least time of one flash call: q, k, v (and out, dout, lse for the
-    backward) read once and the outputs written once, against the fp32
-    dot products the call must do (4, 6 and 8 * L^2 * D per batch*head
-    for fwd, dq and dk/dv: s and p.v; s, dp and ds.k; s, dp, p.do and
-    ds.q), of which the causal mask keeps (L + 1) / 2L."""
+    backward) read once and the outputs written once, against the dot
+    products the call must do (4, 6 and 8 * L^2 * D per batch*head for
+    fwd, dq and dk/dv: s and p.v; s, dp and ds.k; s, dp, p.do and ds.q),
+    of which the causal mask keeps (L + 1) / 2L, done ``passes`` times
+    at ``flops_per_s``.  The defaults are the CUDA cores' fp32 bound;
+    the backward kernels do three TF32 products on the tensor cores
+    (passes=3 at TF32_FLOPS_PER_S)."""
     keep = (L + 1) / (2 * L) if causal else 1.0
     ops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * B * H * L * L * D * keep
     t, lse = B * L * H * D * item, B * H * L * 4
     nbytes = {"fwd": 4 * t + lse, "dq": 6 * t + lse, "dkv": 7 * t + lse}[kind]
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = passes * ops / flops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -522,11 +546,17 @@ def flash_timings(torch, fa, dev, gen):
             lib_out, (qh, kh, vh), doh, retain_graph=True), 20)
         library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
         for kind in ("fwd", "dq", "dkv"):
-            b_ms, b_by = flash_bound(kind, causal, B, H, L, D)
+            # the forward's products run in fp32 on the CUDA cores, the
+            # backward's as three TF32 products on the tensor cores
+            fp32_ms, fp32_by = flash_bound(kind, causal, B, H, L, D)
+            b_ms, b_by = (fp32_ms, fp32_by) if kind == "fwd" else \
+                flash_bound(kind, causal, B, H, L, D, passes=3,
+                            flops_per_s=TF32_FLOPS_PER_S)
             rows[(kind, causal)] = {
                 "kernel": kind, "causal": causal, "ms": t[kind],
                 "plain_ms": plain[kind], "library_ms": library[kind],
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_fp32_ms": fp32_ms}
         del lib_out, qh, kh, vh, doh, out, lse
     return rows, checks
 
@@ -1075,8 +1105,9 @@ def main() -> int:
         build_log = lib.with_name(lib.name + ".log")
         if build_log.exists():      # ptxas: registers, spills, barriers
             for ln in build_log.read_text().splitlines():
-                if "ptxas" in ln and "Compile time" not in ln:
-                    log(ln)
+                if ("ptxas" in ln and "Compile time" not in ln) \
+                        or "spill" in ln:
+                    log(ln.strip())
 
     # -- the ragged kernel vs plain on the card
     dev = torch.device("cuda", 0)
@@ -1280,7 +1311,8 @@ def main() -> int:
             "ms": mix("ms"), "plain_ms": mix("plain_ms"),
             "bound_ms": mix("bound_ms"),
             "bound_by": by.pop() if len(by) == 1 else "operations",
-            "library_ms": mix("library_ms")})
+            "library_ms": mix("library_ms"),
+            "bound_fp32_ms": mix("bound_fp32_ms")})
     for t in timing:
         log(json.dumps(t))
     for r in flash_rows.values():

@@ -12,96 +12,157 @@
 //
 // p is recomputed from the saved lse, p = exp(s - lse), under the same
 // masks as the forward; delta = rowsum(out * dout) is formed in the
-// kernel from the (dropped) output.  With dropout, dp is multiplied by
-// the forward's keep_scale; dv takes p * keep and dk takes
-// ds = p * (dp * keep - delta) * sm_scale.  With a bias the backward is
-// the plain one, as the reference routes it (it has no bias-carrying
-// backward kernel and dbias needs the [Lq, Lk] shape anyway).
+// kernel from the (dropped) output, once per query tile.  With dropout,
+// dp is multiplied by the forward's keep_scale; dv takes p * keep and dk
+// and dq take ds = p * (dp * keep - delta) * sm_scale.  With a bias the
+// backward is the plain one, as the reference routes it (it has no
+// bias-carrying backward kernel and dbias needs the [Lq, Lk] shape).
 //
-// Bound: fp32 operations.  At B=64, L=256, H=8, D=64, dq recomputes s
-// and dp and forms dq, 6*B*H*L^2*D = 12.9 GFLOP (0.19 ms at 67 TFLOP/s);
-// dk/dv forms s, dp, dv and dk, 8*B*H*L^2*D = 17.2 GFLOP (0.26 ms); half
-// of each under the causal mask.  The bytes (q, k, v, out, dout, lse
-// read once, the gradients written once) take under 0.07 ms at 3.35 TB/s.
+// Bound: operations.  At B=64, L=256, H=8, D=64, dq recomputes s and dp
+// and forms dq, 6*B*H*L^2*D = 12.9 GFLOP; dk/dv forms s, dp, dv and dk,
+// 8*B*H*L^2*D = 17.2 GFLOP; half of each under the causal mask.  Done as
+// three TF32 products each at the card's 495 TFLOP/s that is 0.078 and
+// 0.104 ms (0.19 and 0.26 ms as fp32 on the CUDA cores).  The bytes (q,
+// k, v, out, dout, lse read once, the gradients written once) take under
+// 0.07 ms at 3.35 TB/s.
 //
-// Design, first version (plain and right before fast):
-//   * dq: one block per (query tile, batch*head) looping over key tiles;
-//     dk/dv: one block per (key tile, batch*head) looping over query
-//     tiles -- the TPU's serial grid axes become these loops, and the
-//     accumulators sit in registers instead of VMEM scratch;
-//   * tensors are read in place through their strides, tiles staged in
-//     shared memory as fp32, products on the CUDA cores in fp32; the
-//     lse is one float per row, not a [block, 128] lane-broadcast tile;
+// Design:
+//   * dq: one block per (64-row query tile, batch*head) looping over key
+//     tiles; dk/dv: one block per (64-row key tile, batch*head) looping
+//     over query tiles -- the TPU's serial grid axes become these loops,
+//     the accumulators sit in registers instead of VMEM scratch.  Two
+//     passes and no atomics, so the gradients are the same from run to
+//     run;
+//   * 4 warps a block, each owning 16 rows of the block's tile (query
+//     rows in dq, key rows in dk/dv) and all 64 columns of every product
+//     over them;
+//   * every product on the tensor cores at fp32 accuracy (3xTF32): each
+//     operand is split into a rounded TF32 high part and the exact rest,
+//     and c += lo*hi + hi*lo + hi*hi with mma.sync m16n8k8 into one fp32
+//     accumulator (flash_attention_mma.cuh).  An operand read from a
+//     bf16 tensor is exact in TF32, so its correction product is skipped.
+//     mma.sync, not wgmma: wgmma takes TF32 operands only K-major from
+//     shared memory, which dS^T.Q and P^T.dO are not;
+//   * the k index of every product is permuted within its 8-column step
+//     (flash_attention_mma.cuh), so the score and dp fragments of one
+//     product are the A fragments of the next: s and dp stay in
+//     registers through the mask, expf, the dropout hash and ds, and go
+//     into dq += ds.k, dv += (p*keep)^T.do and dk += ds^T.q without a
+//     trip through shared memory;
+//   * tiles come by cp.async (16 bytes a thread, L2 only) into unpadded
+//     tiles whose 16-byte chunks are XOR-swizzled, so the copies and all
+//     fragment loads are free of bank conflicts; rows past L are
+//     zero-filled, never read.  dq double-buffers k and v, dk/dv q, do
+//     and the next tile's out: the next tile's copy runs under this
+//     tile's products, and one barrier a tile (two in dk/dv, around
+//     delta) orders them;
+//   * the per-element work (mask, expf, dropout hash, ds) runs the same
+//     instructions for every element: dropout is a template parameter,
+//     the mask a predicate, the keep test an integer compare;
 //   * tiles wholly above the causal diagonal are skipped; ragged lengths
-//     are bounds checks (rows past Lq get lse = +inf, so p = 0);
-//   * no tensor cores, TMA or load/compute overlap yet.
+//     are bounds checks (rows past Lq get lse = +inf, so p = 0).
+//
+// Shared memory a block (fp32; bf16 half of it), two blocks an SM:
+//   dq:    q, do and two k, v buffers, 6 x 16 KB = 98,304 bytes;
+//   dk/dv: k, v, two q, do buffers and out, 7 x 16 KB, plus lse and
+//          delta of the query tile: 115,200 bytes.
+// Registers a thread: up to 255 (128 threads and two blocks an SM allow
+// that); the ptxas lines of the build log, which chip_smoke.py prints,
+// give each instantiation's count and its spills.
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace flash {
 namespace {
 
-// rowsum(out * dout) of this thread's four query rows: the half-warp
-// splits the D columns and reduces with shuffles
-template <int D, typename T>
-__device__ __forceinline__ void row_delta(float delta[4], const T* ob,
-                                          const float* sdO,
-                                          long long row_stride, int q0,
-                                          int Lq, int ty, int tx) {
-  constexpr int NC = D / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int lr = ty * 4 + i;
-    const int r = q0 + lr;
-    float acc = 0.0f;
-    if (r < Lq) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        acc += to_float(ob[r * row_stride + d]) * sdO[lr * (D + 1) + d];
-      }
-    }
-    delta[i] = half_warp_sum(acc);
-  }
+constexpr int kWarps = 4;
+constexpr int kBwdThreads = 32 * kWarps;
+
+template <typename T>
+constexpr size_t dq_smem(int D) {        // q, do, 2 x (k, v)
+  return sizeof(T) * (size_t)(2 * BQ + 4 * BK) * D;
+}
+template <typename T>
+constexpr size_t dkv_smem(int D) {       // k, v, 2 x (q, do), out; lse, delta
+  return sizeof(T) * (size_t)(2 * BK + 5 * BQ) * D + 2 * BQ * sizeof(float);
 }
 
+// rowsum(out * dout) of tile row r, each of a lane pair (r, half) taking
+// half of the D columns; both lanes of the pair return the row's sum
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float row_delta(const T* sO, const T* sdO, int r,
+                                           int half) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = half * D / 2; c < (half + 1) * D / 2; c += 2) {
+    const float2 o = ld2(sO + at<D, T>(r, c));
+    const float2 d = ld2(sdO + at<D, T>(r, c));
+    acc = fmaf(o.x, d.x, acc);
+    acc = fmaf(o.y, d.y, acc);
+  }
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+}
+
+// keep_scale of flash_attention_common.cuh as a threshold test: its
+// uniform u = (x >> 8) * 2^-24 is exact, so u >= rate exactly when
+// x >> 8 >= ceil(rate * 2^24) (rate * 2^24 is exact in fp32).  Same
+// hash, same bits; an integer compare in place of a convert, a multiply
+// and a float compare.  This and live() below measured faster on the
+// card than keep_scale() and kept(), which the forward keeps using.
+__device__ __forceinline__ uint32_t keep_threshold(float rate) {
+  return (uint32_t)ceilf(rate * 16777216.0f);
+}
+
+__device__ __forceinline__ float keep_of(uint32_t seed, uint32_t bh,
+                                         uint32_t row, uint32_t col,
+                                         uint32_t thr, float inv_keep) {
+  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u;
+  x = x ^ (bh * 0xC2B2AE3Du) ^ seed;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return (x >> 8) >= thr ? inv_keep : 0.0f;
+}
+
+// kept() of flash_attention_common.cuh without branches: every element
+// of a tile takes the same instructions
+__device__ __forceinline__ bool live(int r, int c, int Lk, int causal,
+                                     int row_off, int col_off) {
+  return (c < Lk) & ((causal == 0) | (row_off + r >= col_off + c));
+}
+
+template <int D, typename T, bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ out,
           const T* __restrict__ dout, const float* __restrict__ lse,
           T* __restrict__ dq, int H, int Lq, int Lk, Strides sq_,
           Strides sk_, float sm_scale, int causal, int row_off, int col_off,
           float rate, float inv_keep, uint32_t seed) {
-  constexpr int NC = D / 16;
-  constexpr int P = D + 1;
+  constexpr bool kLo = sizeof(T) == 4;   // fp32 inputs carry a low part
+  constexpr int NT = D / 8;              // 8-column steps over D
+  constexpr int NK = BK / 8;             // 8-column steps over a key tile
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const uint32_t thr = keep_threshold(rate);
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first tile row
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
-  extern __shared__ float smem[];
-  float* sQ = smem;            // [BQ][D + 1]
-  float* sdO = sQ + BQ * P;    // [BQ][D + 1]
-  float* sK = sdO + BQ * P;    // [BK][D + 1]
-  float* sV = sK + BK * P;     // [BK][D + 1]
-  float* sS = sV + BK * P;     // [BQ][BK + 1]  ds of this tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][D], swizzled
+  T* sdO = sQ + BQ * D;                    // [BQ][D]
+  T* sK = sdO + BQ * D;                    // [2][BK][D]
+  T* sV = sK + 2 * BK * D;                 // [2][BK][D]
 
   const long long qoff = b * sq_.b + h * sq_.h;
   const long long koff = b * sk_.b + h * sk_.h;
-  load_tile<BQ, D>(sQ, q + qoff, sq_.l, q0, Lq);
-  load_tile<BQ, D>(sdO, dout + qoff, sq_.l, q0, Lq);
-  __syncthreads();
-
-  float delta[4], lse_r[4];
-  row_delta<D>(delta, out + qoff, sdO, sq_.l, q0, Lq, ty, tx);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    lse_r[i] = r < Lq ? lse[(long long)bh * Lq + r] : INFINITY;
-  }
 
   int n_keys = Lk;
   if (causal) {
@@ -110,94 +171,124 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const int n_tiles = (n_keys + BK - 1) / BK;
 
-  float acc[4][NC];
+  // q, do, the out rows (into the second k buffer, free until the first
+  // prefetch) and the first k, v tile
+  cp_tile<BQ, D, kBwdThreads>(sQ, q + qoff, sq_.l, q0, Lq);
+  cp_tile<BQ, D, kBwdThreads>(sdO, dout + qoff, sq_.l, q0, Lq);
+  cp_tile<BQ, D, kBwdThreads>(sK + BK * D, out + qoff, sq_.l, q0, Lq);
+  if (n_tiles > 0) {
+    cp_tile<BK, D, kBwdThreads>(sK, k + koff, sk_.l, 0, Lk);
+    cp_tile<BK, D, kBwdThreads>(sV, v + koff, sk_.l, 0, Lk);
+  }
+  cp_commit();
+
+  // lse and delta of this thread's rows g and g + 8 of the warp's 16
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wr + g + 8 * i;
+    lse_r[i] = r < Lq ? lse[(long long)bh * Lq + r] : INFINITY;
+  }
+  cp_wait_all();
+  __syncthreads();
+  {
+    const float d = row_delta<D>(sK + BK * D, sdO, wr + (lane >> 1),
+                                 lane & 1);
+    delta_r[0] = __shfl_sync(0xffffffffu, d, 2 * g);
+    delta_r[1] = __shfl_sync(0xffffffffu, d, 2 * g + 16);
+  }
+
+  float acc[NT][4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
+    const T* cK = sK + (kt & 1) * BK * D;
+    const T* cV = sV + (kt & 1) * BK * D;
+    // tile kt has landed, and every warp is done with tile kt - 1 (and,
+    // at kt = 0, with the out rows), whose buffer takes tile kt + 1
+    cp_wait_all();
     __syncthreads();
-    load_tile<BK, D>(sK, k + koff, sk_.l, k0, Lk);
-    load_tile<BK, D>(sV, v + koff, sk_.l, k0, Lk);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty * 4 + i) * P + d];
-        ov[i] = sdO[(ty * 4 + i) * P + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * P + d];
-        vv[j] = sV[(tx + 16 * j) * P + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
+    if (kt + 1 < n_tiles) {
+      T* nK = sK + ((kt + 1) & 1) * BK * D;
+      T* nV = sV + ((kt + 1) & 1) * BK * D;
+      cp_tile<BK, D, kBwdThreads>(nK, k + koff, sk_.l, k0 + BK, Lk);
+      cp_tile<BK, D, kBwdThreads>(nV, v + koff, sk_.l, k0 + BK, Lk);
+      cp_commit();
     }
 
+    // s = q.k^T and dp = do.v^T over the warp's 16 rows, 64 keys
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        float x = s[i][j] * sm_scale;
-        if (!kept(r, c, Lk, causal, row_off, col_off)) x = kMask;
-        const float p = expf(x - lse_r[i]);
-        float g = dp[i][j];
-        if (rate > 0.0f)
-          g *= keep_scale(seed, bh, row_off + r, col_off + c, rate,
-                          inv_keep);
-        sS[(ty * 4 + i) * (BK + 1) + tx + 16 * j] =
-            p * (g - delta[i]) * sm_scale;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const int c = ks * 8 + 2 * t;
+      FragA aq, ao;
+      load_a<D, kLo>(aq, sQ, wr + g, c);
+      load_a<D, kLo>(ao, sdO, wr + g, c);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        FragB bk, bv;
+        load_b_rows<D, kLo>(bk, cK, j * 8 + g, c);
+        load_b_rows<D, kLo>(bv, cV, j * 8 + g, c);
+        mma3<kLo, kLo>(s[j], aq, bk);
+        mma3<kLo, kLo>(dp[j], ao, bv);
       }
     }
-    __syncthreads();
 
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float kv[NC];
+    // ds, in place of s; element e of step j is row g + 8 * (e / 2),
+    // key column 8j + 2t + e % 2
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = sK[kk * P + tx + 16 * c];
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = sS[(ty * 4 + i) * (BK + 1) + kk];
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + wr + g + 8 * (e >> 1);
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const float x = live(r, col, Lk, causal, row_off, col_off)
+                            ? s[j][e] * sm_scale : kMask;
+        const float p = expf(x - lse_r[e >> 1]);
+        float gd = dp[j][e];
+        if (kDrop)
+          gd *= keep_of(seed, bh, row_off + r, col_off + col, thr, inv_keep);
+        s[j][e] = p * (gd - delta_r[e >> 1]) * sm_scale;
+      }
+
+    // dq += ds.k: k-step j is keys 8j..8j+7, whose ds is s[j]
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
+    for (int j = 0; j < NK; ++j) {
+      FragA ads;
+      c_to_a(ads, s[j]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        FragB bk;
+        load_b_cols<D, kLo>(bk, cK, j * 8 + 2 * t, n * 8 + g);
+        mma3<true, kLo>(acc[n], ads, bk);
       }
     }
   }
 
   T* dqb = dq + qoff;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wr + g + 8 * i;
     if (r >= Lq) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      store(dqb + r * sq_.l + tx + 16 * c, acc[i][c]);
+    for (int n = 0; n < NT; ++n)
+      st2(dqb + r * sq_.l + n * 8 + 2 * t, acc[n][2 * i], acc[n][2 * i + 1]);
   }
 }
 
-// thread (ty, tx) owns key rows ty*4 + i of the tile and query columns
-// tx + 16*j of the transposed score tile s^T [BK][BQ]
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
+// the warp owns key rows wr..wr+15 of the block's tile; the score tile is
+// transposed, s^T [keys][queries], so its C fragments are the A fragments
+// of dv += (p*keep)^T.do and dk += ds^T.q
+template <int D, typename T, bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ out,
            const T* __restrict__ dout, const float* __restrict__ lse,
@@ -205,140 +296,156 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            Strides sq_, Strides sk_, float sm_scale, int causal,
            int row_off, int col_off, float rate, float inv_keep,
            uint32_t seed) {
-  constexpr int NC = D / 16;
-  constexpr int P = D + 1;
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int NT = D / 8;
+  constexpr int NQ = BQ / 8;             // 8-column steps over a query tile
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.x * BK;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const uint32_t thr = keep_threshold(rate);
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
-  extern __shared__ float smem[];
-  float* sK = smem;                // [BK][D + 1]
-  float* sV = sK + BK * P;         // [BK][D + 1]
-  float* sQ = sV + BK * P;         // [BQ][D + 1]
-  float* sdO = sQ + BQ * P;        // [BQ][D + 1]
-  float* sPk = sdO + BQ * P;       // [BK][BQ + 1]  p * keep, transposed
-  float* sS = sPk + BK * (BQ + 1); // [BK][BQ + 1]  ds, transposed
-  float* sL = sS + BK * (BQ + 1);  // [BQ] lse of the query tile
-  float* sD = sL + BQ;             // [BQ] delta of the query tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [BK][D], swizzled
+  T* sV = sK + BK * D;                     // [BK][D]
+  T* sQ = sV + BK * D;                     // [2][BQ][D]
+  T* sdO = sQ + 2 * BQ * D;                // [2][BQ][D]
+  T* sO = sdO + 2 * BQ * D;                // [BQ][D] out of the next tile
+  float* sL = reinterpret_cast<float*>(sO + BQ * D);  // [BQ] lse
+  float* sD = sL + BQ;                                // [BQ] delta
 
   const long long qoff = b * sq_.b + h * sq_.h;
   const long long koff = b * sk_.b + h * sk_.h;
-  load_tile<BK, D>(sK, k + koff, sk_.l, k0, Lk);
-  load_tile<BK, D>(sV, v + koff, sk_.l, k0, Lk);
 
   // query tiles wholly above the diagonal see none of these keys
   int qt0 = 0;
   if (causal) qt0 = max(0, col_off + k0 - row_off) / BQ;
   const int n_qt = (Lq + BQ - 1) / BQ;
 
-  float dk_acc[4][NC], dv_acc[4][NC];
+  const long long lrow = (long long)bh * Lq;
+  float lse_next = INFINITY;             // lse of row threadIdx.x of the
+  if (qt0 < n_qt) {                      // next tile (threads < BQ)
+    cp_tile<BK, D, kBwdThreads>(sK, k + koff, sk_.l, k0, Lk);
+    cp_tile<BK, D, kBwdThreads>(sV, v + koff, sk_.l, k0, Lk);
+    const int q0 = qt0 * BQ;
+    T* nQ = sQ + (qt0 & 1) * BQ * D;
+    T* ndO = sdO + (qt0 & 1) * BQ * D;
+    cp_tile<BQ, D, kBwdThreads>(nQ, q + qoff, sq_.l, q0, Lq);
+    cp_tile<BQ, D, kBwdThreads>(ndO, dout + qoff, sq_.l, q0, Lq);
+    cp_tile<BQ, D, kBwdThreads>(sO, out + qoff, sq_.l, q0, Lq);
+    cp_commit();
+    if (threadIdx.x < BQ && q0 + threadIdx.x < Lq)
+      lse_next = lse[lrow + q0 + threadIdx.x];
+  }
+
+  float dk_acc[NT][4], dv_acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
+    const T* cQ = sQ + (qt & 1) * BQ * D;
+    const T* cdO = sdO + (qt & 1) * BQ * D;
+    // tile qt has landed; every warp is done with tile qt - 1's buffers,
+    // lse and delta
+    cp_wait_all();
     __syncthreads();
-    load_tile<BQ, D>(sQ, q + qoff, sq_.l, q0, Lq);
-    load_tile<BQ, D>(sdO, dout + qoff, sq_.l, q0, Lq);
-    __syncthreads();
+    if (threadIdx.x < BQ) sL[threadIdx.x] = lse_next;
     {
-      // lse and delta of the query tile: each half-warp takes 4 rows
-      float delta[4];
-      row_delta<D>(delta, out + qoff, sdO, sq_.l, q0, Lq, ty, tx);
-      if (tx == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = q0 + ty * 4 + i;
-          sD[ty * 4 + i] = delta[i];
-          sL[ty * 4 + i] = r < Lq ? lse[(long long)bh * Lq + r] : INFINITY;
-        }
-      }
+      const int r = threadIdx.x >> 1;
+      const float d = row_delta<D>(sO, cdO, r, threadIdx.x & 1);
+      if ((threadIdx.x & 1) == 0) sD[r] = d;
     }
+    // lse and delta are visible and out is free: the next tile's copy
+    // runs under this tile's products
     __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty * 4 + i) * P + d];
-        vv[i] = sV[(ty * 4 + i) * P + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * P + d];
-        ov[j] = sdO[(tx + 16 * j) * P + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
+    if (qt + 1 < n_qt) {
+      const int n0 = q0 + BQ;
+      T* nQ = sQ + ((qt + 1) & 1) * BQ * D;
+      T* ndO = sdO + ((qt + 1) & 1) * BQ * D;
+      cp_tile<BQ, D, kBwdThreads>(nQ, q + qoff, sq_.l, n0, Lq);
+      cp_tile<BQ, D, kBwdThreads>(ndO, dout + qoff, sq_.l, n0, Lq);
+      cp_tile<BQ, D, kBwdThreads>(sO, out + qoff, sq_.l, n0, Lq);
+      cp_commit();
+      lse_next = INFINITY;
+      if (threadIdx.x < BQ && n0 + threadIdx.x < Lq)
+        lse_next = lse[lrow + n0 + threadIdx.x];
     }
 
+    // s^T = k.q^T and dp^T = v.do^T over the warp's 16 keys, 64 queries
+    float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = k0 + ty * 4 + i;           // key position
+    for (int j = 0; j < NQ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int lq = tx + 16 * j;
-        const int r = q0 + lq;                 // query position
-        float x = s[i][j] * sm_scale;
-        if (!kept(r, c, Lk, causal, row_off, col_off)) x = kMask;
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const int c = ks * 8 + 2 * t;
+      FragA ak, av;
+      load_a<D, kLo>(ak, sK, wr + g, c);
+      load_a<D, kLo>(av, sV, wr + g, c);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        FragB bq, bo;
+        load_b_rows<D, kLo>(bq, cQ, j * 8 + g, c);
+        load_b_rows<D, kLo>(bo, cdO, j * 8 + g, c);
+        mma3<kLo, kLo>(st[j], ak, bq);
+        mma3<kLo, kLo>(dpt[j], av, bo);
+      }
+    }
+
+    // p * keep in place of s^T and ds in place of dp^T; element e of step
+    // j is key row g + 8 * (e / 2), query column 8j + 2t + e % 2
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + wr + g + 8 * (e >> 1);   // key position
+        const int lq = j * 8 + 2 * t + (e & 1);
+        const int r = q0 + lq;                         // query position
+        const float x = live(r, col, Lk, causal, row_off, col_off)
+                            ? st[j][e] * sm_scale : kMask;
         const float p = expf(x - sL[lq]);
-        float keep = 1.0f;
-        if (rate > 0.0f)
-          keep = keep_scale(seed, bh, row_off + r, col_off + c, rate,
-                            inv_keep);
-        sPk[(ty * 4 + i) * (BQ + 1) + lq] = p * keep;
-        sS[(ty * 4 + i) * (BQ + 1) + lq] =
-            p * (dp[i][j] * keep - sD[lq]) * sm_scale;
+        const float keep =
+            kDrop ? keep_of(seed, bh, row_off + r, col_off + col, thr,
+                            inv_keep)
+                  : 1.0f;
+        st[j][e] = p * keep;
+        dpt[j][e] = p * (dpt[j][e] * keep - sD[lq]) * sm_scale;
       }
-    }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float ov[NC], qv[NC];
+    // dv += (p*keep)^T.do and dk += ds^T.q: k-step j is queries 8j..8j+7
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        ov[c] = sdO[qq * P + tx + 16 * c];
-        qv[c] = sQ[qq * P + tx + 16 * c];
-      }
+    for (int j = 0; j < NQ; ++j) {
+      FragA ap, ads;
+      c_to_a(ap, st[j]);
+      c_to_a(ads, dpt[j]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pk = sPk[(ty * 4 + i) * (BQ + 1) + qq];
-        const float ds = sS[(ty * 4 + i) * (BQ + 1) + qq];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv_acc[i][c] = fmaf(pk, ov[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(ds, qv[c], dk_acc[i][c]);
-        }
+      for (int n = 0; n < NT; ++n) {
+        FragB bo, bq;
+        load_b_cols<D, kLo>(bo, cdO, j * 8 + 2 * t, n * 8 + g);
+        load_b_cols<D, kLo>(bq, cQ, j * 8 + 2 * t, n * 8 + g);
+        mma3<true, kLo>(dv_acc[n], ap, bo);
+        mma3<true, kLo>(dk_acc[n], ads, bq);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int c = k0 + wr + g + 8 * i;
     if (c >= Lk) continue;
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const long long at = koff + c * sk_.l + tx + 16 * cc;
-      store(dk + at, dk_acc[i][cc]);
-      store(dv + at, dv_acc[i][cc]);
+    for (int n = 0; n < NT; ++n) {
+      const long long at_ = koff + c * sk_.l + n * 8 + 2 * t;
+      st2(dk + at_, dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      st2(dv + at_, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
   }
 }
@@ -355,15 +462,26 @@ struct BwdArgs {
   uint32_t seed;
 };
 
-template <int D, typename T>
-int launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes(D);
-  auto kernel = dq_kernel<D, T>;
+// dynamic shared memory past 48 KB, and the carveout that lets two
+// blocks share an SM
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D, typename T, bool kDrop>
+int launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = dq_smem<T>(D);
+  auto kernel = dq_kernel<D, T, kDrop>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.out),
       static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dq), a.H,
@@ -372,15 +490,14 @@ int launch_dq(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int D, typename T, bool kDrop>
 int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes(D);
-  auto kernel = dkv_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = dkv_smem<T>(D);
+  auto kernel = dkv_kernel<D, T, kDrop>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.out),
       static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dk),
@@ -393,7 +510,12 @@ template <typename T>
 int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
   // the one head width a configuration uses (d_key = d_value = 64)
   if (D != 64) return (int)cudaErrorInvalidValue;
-  return dkv ? launch_dkv<64, T>(a, stream) : launch_dq<64, T>(a, stream);
+  // dropout is a template parameter: no per-element branch on the rate
+  if (a.rate > 0.0f)
+    return dkv ? launch_dkv<64, T, true>(a, stream)
+               : launch_dq<64, T, true>(a, stream);
+  return dkv ? launch_dkv<64, T, false>(a, stream)
+             : launch_dq<64, T, false>(a, stream);
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v,
@@ -418,16 +540,20 @@ int run(bool dkv, const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// dynamic shared memory of one block, in bytes, for fp32 inputs (bf16
+// inputs take half the tile bytes)
 size_t flash_attention_dq_smem_bytes(int D) {
-  return flash::dq_smem_bytes(D);
+  return flash::dq_smem<float>(D);
 }
 
 size_t flash_attention_dkv_smem_bytes(int D) {
-  return flash::dkv_smem_bytes(D);
+  return flash::dkv_smem<float>(D);
 }
 
 // dq of the bias-free flash attention.  dtype: 0 fp32, 1 bf16; strides
-// in elements; dq has q's strides.  Returns the launch's CUDA error.
+// in elements; dq has q's strides.  Every tensor's base must be 16-byte
+// aligned and its rows (D elements) contiguous: tiles are copied in
+// 16-byte pieces.  Returns the launch's CUDA error.
 int flash_attention_dq(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const float* lse,
                        void* dq, int B, int H, int Lq, int Lk, int D,

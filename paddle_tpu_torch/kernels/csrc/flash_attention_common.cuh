@@ -1,12 +1,14 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a):
 // the tile geometry, the per-tensor strides, the dropout hash and the
-// tile loader.  Included by flash_attention_fwd.cu and
+// forward's tile loader.  Included by flash_attention_fwd.cu and
 // flash_attention_bwd.cu; each of those builds into its own library.
+// The backward's tensor-core and copy helpers are in
+// flash_attention_mma.cuh.
 //
-// Tiles are BQ query rows by BK key rows, 256 threads a block.  Thread t
-// is (ty, tx) = (t / 16, t % 16): it owns score rows ty*4 + i (i < 4)
-// and score columns tx + 16*j (j < 4), and output columns tx + 16*c
-// (c < D / 16) of its four rows.  The 16 threads that share a ty are one
+// Tiles are BQ query rows by BK key rows.  The forward runs 256 threads
+// a block; thread t is (ty, tx) = (t / 16, t % 16): it owns score rows
+// ty*4 + i (i < 4) and score columns tx + 16*j (j < 4), and output
+// columns tx + 16*c (c < D / 16) of its four rows.  The 16 threads that share a ty are one
 // half-warp, so a row's max and sum reduce with four xor shuffles.
 // Shared-memory rows are padded to D + 1 floats, so the 16 lanes of a
 // half-warp reading column d of 16 different rows hit 16 banks.
@@ -32,14 +34,6 @@ constexpr float kMask = -0.7f * FLT_MAX;
 // padded to D + 1 (BK + 1 for the [rows][keys] probability tiles)
 inline size_t fwd_smem_bytes(int D) {    // q, k, v, p
   return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
-}
-inline size_t dq_smem_bytes(int D) {     // q, do, k, v, ds
-  return sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (D + 1) +
-                          BQ * (BK + 1));
-}
-inline size_t dkv_smem_bytes(int D) {    // k, v, q, do, p, ds, lse, delta
-  return sizeof(float) * ((size_t)(2 * BK + 2 * BQ) * (D + 1) +
-                          2 * BK * (BQ + 1) + 2 * BQ);
 }
 
 // element strides of one [B, L, H, D] ('blhd') or [B, H, L, D] ('bhld')

@@ -1,0 +1,197 @@
+// Tensor-core and copy helpers of the flash-attention backward for Hopper
+// (sm_90a): 3xTF32 mma.sync products, cp.async tile copies into swizzled
+// shared memory, and the fragment loads that read them.  Included by
+// flash_attention_bwd.cu only.  The split and the mma wrapper are copies
+// of lstm_fwd.cu's: each .cu builds into its own library, so nothing is
+// shared between them.
+//
+// Fragments of mma.sync.m16n8k8.tf32 (g = lane / 4, t = lane % 4):
+//   A (16 x 8):  a0 (g, k t), a1 (g + 8, k t), a2 (g, k t+4), a3 (g+8, k t+4)
+//   B (8 x 8):   b0 (k t, n g), b1 (k t+4, n g)
+//   C (16 x 8):  c0 (g, 2t), c1 (g, 2t+1), c2 (g + 8, 2t), c3 (g + 8, 2t+1)
+// The order of the 8 terms of a k-step does not change the product, so
+// every product here maps the mma's k index t to column 2t and t + 4 to
+// column 2t + 1 of its 8-column step, in A and B alike.  Then a C
+// fragment (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) is already the A
+// fragment of the next product over those columns (a = c0, c2, c1, c3):
+// the scores and their gradients go from one product into the next in
+// registers, and A and row-wise B fragments are pairs of neighbouring
+// elements, one 8-byte (fp32) or 4-byte (bf16) shared load each.
+//
+// Shared tiles are [64 rows][64 columns] of the input type, rows
+// unpadded, their 16-byte chunks XOR-swizzled by swz(row).  The chosen
+// swizzle leaves every access of the kernels free of bank conflicts:
+//   * cp.async: 8 lanes write 8 chunks of one row (any XOR does);
+//   * A and row-wise B pairs, (row r0 + g, column c0 + 2t): in fp32 a
+//     half-warp's 16 float2 need swz(r) >> 1 distinct over rows 0-3 and
+//     over rows 4-7; in bf16 the warp's 32 words need swz a permutation
+//     of rows 0-7;
+//   * column-wise B, (row k0 + 2t + e, column n0 + g): rows {0, 2, 4, 6}
+//     and {1, 3, 5, 7} need swz(r) >> 1 (fp32) or swz(r) (bf16)
+//     distinct.
+// swz = 0, 2, 4, 6, 3, 1, 7, 5 for rows 0-7 meets all of them.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace flash {
+
+__device__ __forceinline__ int swz(int row) {
+  const int hi = (row >> 2) & 1;
+  return (((row & 3) ^ hi) << 1) | hi;
+}
+
+// element offset of (row, col) in a swizzled [rows][D] tile of T
+template <int D, typename T>
+__device__ __forceinline__ int at(int row, int col) {
+  constexpr int E = 16 / sizeof(T);      // elements per 16-byte chunk
+  return row * D + (((col / E) ^ swz(row)) * E) + col % E;
+}
+
+// (row, col) and (row, col + 1), col even, as two floats
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
+  // round to nearest even, as torch rounds
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// v ~ hi + lo in TF32 (10 mantissa bits): hi rounds to nearest, ties away
+// (as cvt.rna.tf32.f32 does), v - hi is exact, and the tensor core reads
+// lo's top 10 mantissa bits (truncation), so |v - hi - lo| < 2^-21 |v|.
+// Three full-rate operations: cvt is a slow instruction.  With kLo false
+// the value is exact in TF32 (it came from bf16) and lo is not used.
+template <bool kLo>
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  const uint32_t b = __float_as_uint(v);
+  if (kLo) {
+    hi = (b + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(v - __uint_as_float(hi));
+  } else {
+    hi = b;
+    lo = 0u;
+  }
+}
+
+// c += a * b, fp32 accumulation.  Not volatile: the compiler may
+// interleave independent products.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One operand of a 3xTF32 product: its high and low TF32 parts
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a * b at fp32 accuracy: the two small terms first, then hi * hi.
+// A term whose low part is 0 (an operand read from bf16) is skipped.
+template <bool kALo, bool kBLo>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  if (kALo) mma(c, a.lo, b.hi[0], b.hi[1]);
+  if (kBLo) mma(c, a.hi, b.lo[0], b.lo[1]);
+  mma(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A fragment from a swizzled tile: rows r and r + 8, columns c, c + 1
+template <int D, bool kLo, typename T>
+__device__ __forceinline__ void load_a(FragA& f, const T* s, int r, int c) {
+  const float2 x = ld2(s + at<D, T>(r, c));
+  const float2 y = ld2(s + at<D, T>(r + 8, c));
+  split<kLo>(x.x, f.hi[0], f.lo[0]);
+  split<kLo>(y.x, f.hi[1], f.lo[1]);
+  split<kLo>(x.y, f.hi[2], f.lo[2]);
+  split<kLo>(y.y, f.hi[3], f.lo[3]);
+}
+
+// A fragment from a C fragment over the same 8 columns
+__device__ __forceinline__ void c_to_a(FragA& f, const float (&c)[4]) {
+  split<true>(c[0], f.hi[0], f.lo[0]);
+  split<true>(c[2], f.hi[1], f.lo[1]);
+  split<true>(c[1], f.hi[2], f.lo[2]);
+  split<true>(c[3], f.hi[3], f.lo[3]);
+}
+
+// B fragment whose n index is the tile's row: B[k][n] = tile[n][k];
+// (row n, columns c, c + 1)
+template <int D, bool kLo, typename T>
+__device__ __forceinline__ void load_b_rows(FragB& f, const T* s, int n,
+                                            int c) {
+  const float2 x = ld2(s + at<D, T>(n, c));
+  split<kLo>(x.x, f.hi[0], f.lo[0]);
+  split<kLo>(x.y, f.hi[1], f.lo[1]);
+}
+
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// B fragment whose k index is the tile's row: B[k][n] = tile[k][n];
+// (rows k, k + 1, column n)
+template <int D, bool kLo, typename T>
+__device__ __forceinline__ void load_b_cols(FragB& f, const T* s, int k,
+                                            int n) {
+  split<kLo>(ld1(s + at<D, T>(k, n)), f.hi[0], f.lo[0]);
+  split<kLo>(ld1(s + at<D, T>(k + 1, n)), f.hi[1], f.lo[1]);
+}
+
+// 16 bytes global -> shared through L2 only; zero-filled when !valid
+// (src-size 0: nothing is read)
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [r0, r0 + R) of one head's [L, D] slice into the swizzled tile s,
+// by NT threads; rows at or past L are zero.  Neighbouring threads copy
+// neighbouring chunks of a row, so the reads coalesce.
+template <int R, int D, int NT, typename T>
+__device__ __forceinline__ void cp_tile(T* s, const T* base,
+                                        long long row_stride, int r0,
+                                        int L) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = D / E;             // chunks per row
+  static_assert((R * CPR) % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / CPR;
+    const int c = idx - r * CPR;
+    const int row = r0 + r;
+    const bool ok = row < L;
+    const T* src = ok ? base + row * row_stride + c * E : base;
+    cp16(s + r * D + ((c ^ swz(r)) * E), src, ok);
+  }
+}
+
+}  // namespace flash

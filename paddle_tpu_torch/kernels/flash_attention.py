@@ -491,6 +491,12 @@ def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
     _fcheck(lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, lq),
             f"lse must be float32 {(b, h, lq)}")
     _fcheck(b * h * lq * lk > 0, "empty attention")
+    # the kernels copy tiles in 16-byte pieces (cp.async); rows are D = 64
+    # elements, so an aligned base aligns every row
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        _fcheck(t.data_ptr() % 16 == 0, f"{name} must start on a 16-byte "
+                f"boundary, its address is {t.data_ptr():#x}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (b, h, lq, lk, d, *strides, sm_scale, int(causal), offsets[0],
               offsets[1], rate, 1.0 / (1.0 - rate), seed,

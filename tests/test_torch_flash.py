@@ -203,3 +203,95 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         qt = q.transpose(1, 2)
         tfa._flash_geometry(qt, qt, qt, "bhld")
+
+
+def test_backward_wrapper_refuses_unaligned_tensors():
+    """The backward kernels copy tiles in 16-byte pieces: a tensor that
+    is contiguous but starts off a 16-byte boundary is refused before any
+    launch."""
+    good = torch.zeros(1, 4, 2, 64)
+    lse = torch.zeros(1, 2, 4)
+    q = torch.zeros(good.numel() + 1)[1:].view(good.shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    cfg = (False, 0.125, 0.0, 0, "blhd", (0, 0))
+    for i in range(5):
+        args = [good] * 5
+        args[i] = q
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa._flash_bwd_setup(*args, lse, *cfg)
+
+
+# -- the backward kernels' arithmetic: products on TF32 tensor cores
+
+# chip_smoke.py's FLASH_TOL["float32"]: kernel vs plain on the card
+FLASH_TOL_F32 = 1e-4
+
+
+def _tf32(a):
+    """Round float32 to TF32 as cvt.rna.tf32.f32 does: to nearest, ties
+    away from zero, keeping 10 mantissa bits (the low 13 bits zero)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a):
+    """a ~ hi + lo as the kernel splits it: hi rounded, the exact rest
+    a - hi truncated to TF32 (its low 13 bits cleared)."""
+    hi = _tf32(a)
+    return hi, ((a - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(h, w):
+    (hh, hl), (wh, wl) = _split(h), _split(w)
+    return (torch.matmul(hh, wh)
+            + (torch.matmul(hh, wl) + torch.matmul(hl, wh)))
+
+
+def _mm_tf32(h, w):
+    return torch.matmul(_tf32(h), _tf32(w))
+
+
+def _backward_with(mm, q, k, v, out, dout, lse, causal, rate, seed):
+    """The dq and dk/dv kernels' arithmetic on [B, H, L, D] float32
+    tensors, every product through ``mm``: s = q.k^T and dp = do.v^T,
+    p = exp(s * scale - lse) under the mask, ds = p * (dp * keep -
+    delta) * scale, then dq = ds.k, dk = ds^T.q, dv = (p * keep)^T.do."""
+    sm_scale = q.shape[-1] ** -0.5
+    lq, lk = q.shape[2], k.shape[2]
+    rows, cols = torch.arange(lq), torch.arange(lk)
+    s = mm(q, k.transpose(-1, -2)) * sm_scale
+    if causal:
+        s = s.masked_fill(rows[:, None] < cols[None, :],
+                          tfa.DEFAULT_MASK_VALUE)
+    p = torch.exp(s - lse[..., None])
+    dp = mm(dout, v.transpose(-1, -2))
+    keep = tfa._plain_keep(q, rows, cols, rate, seed)
+    delta = (out * dout).sum(dim=-1)
+    ds = p * (dp * keep - delta[..., None]) * sm_scale
+    return (mm(ds, k), mm(ds.transpose(-1, -2), q),
+            mm((p * keep).transpose(-1, -2), dout))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_3xtf32_backward_holds_the_fp32_tolerance_and_tf32_does_not(
+        causal):
+    """The backward kernels split each product's operands into two TF32
+    parts and sum three tensor-core products.  At B=2, H=2, L=256, D=64
+    with dropout 0.1 that keeps dq, dk and dv within chip_smoke's float32
+    tolerance (1e-4 of max(1, magnitude)) of the plain backward; a single
+    TF32 product does not, which is why the kernels split."""
+    r = np.random.RandomState(7)
+    q, k, v, dout = (torch.tensor(r.randn(2, 2, 256, 64).astype(np.float32))
+                     for _ in range(4))
+    rate, seed = 0.1, 11
+    cfg = (causal, None, rate, seed, "bhld")
+    out, lse = tfa.flash_forward_plain(q, k, v, None, *cfg)
+    want = tfa.flash_backward_plain(q, k, v, out, dout, lse, None, *cfg)[:3]
+    errs = {}
+    for name, mm in (("3xtf32", _mm_3xtf32), ("tf32", _mm_tf32)):
+        got = _backward_with(mm, q, k, v, out, dout, lse, causal, rate, seed)
+        errs[name] = [float((g - w).abs().max()) / max(1.0, float(
+            w.abs().max())) for g, w in zip(got, want)]
+    print(f"max |error| / max(1, magnitude) of dq, dk, dv: {errs}")
+    assert max(errs["3xtf32"]) <= FLASH_TOL_F32, errs
+    assert max(errs["tf32"]) > FLASH_TOL_F32, errs

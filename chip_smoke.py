@@ -20,7 +20,10 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    Lq=200 against Lk=136, and block offsets where every row is dead;
    the backward's tile edges (Lq=77 against Lk=45 and 45 against 77,
    causal and not, dropout 0.1, fp32 and one bf16) and one 'bhld' case;
-   the dropout masks of the forward and dk/dv kernels exactly;
+   the other head widths the kernels are built for, D = 8, 16 and 32
+   (fp32 and bf16, causal, dropout 0.1, 256x256 and 77x45), and D = 24,
+   which the wrappers pad to 32; the dropout masks of the forward and
+   dk/dv kernels exactly;
 5. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
    through ``ContinuousBatchingScheduler`` over a Transformer-base
    ``PagedTransformerGenerator`` once per pool dtype (18 ragged-kernel
@@ -40,7 +43,8 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    not), hold ``flash_attention`` and its autograd backward against the
    plain forward and backward (out, lse, dq, dk, dv); then time every
    kernel, its plain version and the PyTorch library call for the same
-   function at the paths' shapes;
+   function at the paths' shapes (the flash forward at dropout 0.1 and
+   0, the library's at 0);
 9. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
@@ -311,14 +315,16 @@ def teacher_forced(np, gpu, cpu, srcs):
 # kernel vs plain, same inputs on the card.  fp32: both compute in fp32
 # and differ in summation order only (64-tile online softmax against one
 # softmax over all keys; 64- and 256-term dots), errors ~1e-6 relative,
-# and gradients sum up to 256 such terms; the backward's products are
+# and gradients sum up to 256 such terms; every kernel's products are
 # three TF32 products (operands split into two TF32 parts), whose
 # dropped lo*lo term and truncated lo part are below 2^-20 relative.
 # bf16: the same fp32 arithmetic on bf16 inputs, but each output is
 # rounded to bf16 on both sides, and a value near a rounding boundary
 # moves by one bf16 ulp (2^-8 relative).
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-FLASH_SHAPE = dict(B=8, H=8, D=64)
+FLASH_SHAPE = dict(B=8, H=8)
+# the head widths the kernels are built for besides 64, and one they pad
+NARROW_WIDTHS, PADDED_WIDTH = (8, 16, 32), 24
 
 
 def flash_cases():
@@ -328,8 +334,11 @@ def flash_cases():
     causal block_offsets (0, 256), where every row is dead; then the
     edges of the backward's 16-row warp tiles and 8-column steps: Lq=77
     against Lk=45 and 45 against 77, causal and not, dropout 0.1, in
-    fp32 (and one in bf16); and one 'bhld' case.  A case without a
-    ``layout`` is 'blhd'."""
+    fp32 (and one in bf16); and one 'bhld' case.  Then the other built
+    head widths, D = 8, 16 and 32, in fp32 and bf16, causal with dropout
+    0.1 at 256x256 and at the ragged 77x45 edge, and the padded width
+    D = 24 at both.  A case without a ``layout`` is 'blhd', without a
+    ``d`` D = 64."""
     cases = [dict(dtype=dt, causal=c, rate=r, lq=256, lk=256, bias=None,
                   offsets=None, grads=True)
              for dt in ("float32", "bfloat16") for c in (False, True)
@@ -349,6 +358,13 @@ def flash_cases():
     cases.append(dict(dtype="float32", causal=True, rate=0.1, lq=200,
                       lk=136, bias=None, offsets=None, grads=True,
                       layout="bhld"))
+    cases += [dict(dtype=dt, causal=True, rate=0.1, lq=lq, lk=lk, bias=None,
+                   offsets=None, grads=True, d=d)
+              for d in NARROW_WIDTHS for dt in ("float32", "bfloat16")
+              for lq, lk in ((256, 256), (77, 45))]
+    cases += [dict(dtype="float32", causal=True, rate=0.1, lq=lq, lk=lk,
+                   bias=None, offsets=None, grads=True, d=PADDED_WIDTH)
+              for lq, lk in ((256, 256), (77, 45))]
     return cases
 
 
@@ -357,7 +373,8 @@ def _case_name(c):
             f"p{c['rate']}/{c['lq']}x{c['lk']}"
             + (f"/bias_{c['bias']}" if c["bias"] else "")
             + (f"/off{c['offsets']}" if c["offsets"] else "")
-            + (f"/{c['layout']}" if "layout" in c else ""))
+            + (f"/{c['layout']}" if "layout" in c else "")
+            + (f"/D{c['d']}" if "d" in c else ""))
 
 
 def _max_err(torch, got, want):
@@ -378,7 +395,7 @@ def run_flash_case(torch, fa, case, dev, gen):
     """One case: kernels and plain versions on the same inputs -> (name,
     {tensor: max_abs_err}, ok).  A tensor passes when its error is within
     the dtype's tolerance times max(1, its largest magnitude)."""
-    B, H, D = FLASH_SHAPE["B"], FLASH_SHAPE["H"], FLASH_SHAPE["D"]
+    B, H, D = FLASH_SHAPE["B"], FLASH_SHAPE["H"], case.get("d", 64)
     dt = getattr(torch, case["dtype"])
     lq, lk = case["lq"], case["lk"]
     layout = case.get("layout", "blhd")
@@ -470,8 +487,8 @@ def flash_bound(kind, causal, B, H, L, D, item=4, passes=1,
     fwd, dq and dk/dv: s and p.v; s, dp and ds.k; s, dp, p.do and ds.q),
     of which the causal mask keeps (L + 1) / 2L, done ``passes`` times
     at ``flops_per_s``.  The defaults are the CUDA cores' fp32 bound;
-    the backward kernels do three TF32 products on the tensor cores
-    (passes=3 at TF32_FLOPS_PER_S)."""
+    the kernels do three TF32 products on the tensor cores (passes=3 at
+    TF32_FLOPS_PER_S)."""
     keep = (L + 1) / (2 * L) if causal else 1.0
     ops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * B * H * L * L * D * keep
     t, lse = B * L * H * D * item, B * H * L * 4
@@ -512,8 +529,10 @@ def flash_timings(torch, fa, dev, gen):
     dropout 0.1, non-causal and causal: first ``flash_entry_check``;
     then each flash kernel, its plain version and the library call
     (``scaled_dot_product_attention``, dropout 0, its autograd backward
-    for dq + dk/dv), timed.  The plain backward computes dq, dk and dv
-    in one call and is timed as such.  Returns (timing rows, checks)."""
+    for dq + dk/dv), timed; the forward kernel also at dropout 0, like
+    for like with the library's.  The plain backward computes dq, dk and
+    dv in one call and is timed as such.  Returns (timing rows,
+    checks)."""
     import torch.nn.functional as F
 
     B, L, H, D = TRAIN_BATCH, SEQ, MODEL["n_head"], MODEL["d_key"]
@@ -531,6 +550,9 @@ def flash_timings(torch, fa, dev, gen):
                                                  is_causal=causal)
         plain_bwd = cuda_ms(torch, lambda: fa.flash_backward_plain(
             q, k, v, out, dout, lse, None, *cfg), 5)
+        cfg0 = (causal, D ** -0.5, 0.0, 0, "blhd", (0, 0))
+        fwd0 = cuda_ms(torch, lambda: fa._flash_fwd_cuda(
+            q, k, v, None, *cfg0), 20)
         t = {"fwd": cuda_ms(torch, lambda: fa._flash_fwd_cuda(
                 q, k, v, None, *cfg), 20),
              "dq": cuda_ms(torch, lambda: fa._flash_dq_cuda(
@@ -546,17 +568,17 @@ def flash_timings(torch, fa, dev, gen):
             lib_out, (qh, kh, vh), doh, retain_graph=True), 20)
         library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
         for kind in ("fwd", "dq", "dkv"):
-            # the forward's products run in fp32 on the CUDA cores, the
-            # backward's as three TF32 products on the tensor cores
-            fp32_ms, fp32_by = flash_bound(kind, causal, B, H, L, D)
-            b_ms, b_by = (fp32_ms, fp32_by) if kind == "fwd" else \
-                flash_bound(kind, causal, B, H, L, D, passes=3,
-                            flops_per_s=TF32_FLOPS_PER_S)
+            # every kernel's products run as three TF32 products on the
+            # tensor cores; the CUDA cores' fp32 bound beside it
+            fp32_ms, _ = flash_bound(kind, causal, B, H, L, D)
+            b_ms, b_by = flash_bound(kind, causal, B, H, L, D, passes=3,
+                                     flops_per_s=TF32_FLOPS_PER_S)
             rows[(kind, causal)] = {
                 "kernel": kind, "causal": causal, "ms": t[kind],
                 "plain_ms": plain[kind], "library_ms": library[kind],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bound_fp32_ms": fp32_ms}
+        rows[("fwd", causal)]["ms_dropout0"] = fwd0
         del lib_out, qh, kh, vh, doh, out, lse
     return rows, checks
 
@@ -1299,6 +1321,7 @@ def main() -> int:
                     + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
 
         by = {flash_rows[(k, c)]["bound_by"] for c in (False, True)}
+        extra = {"ms_dropout0": mix("ms_dropout0")} if k == "fwd" else {}
         kernels.append({
             "name": f"flash_attention_{k}",
             "route": "cuda",
@@ -1312,7 +1335,7 @@ def main() -> int:
             "bound_ms": mix("bound_ms"),
             "bound_by": by.pop() if len(by) == 1 else "operations",
             "library_ms": mix("library_ms"),
-            "bound_fp32_ms": mix("bound_fp32_ms")})
+            "bound_fp32_ms": mix("bound_fp32_ms"), **extra})
     for t in timing:
         log(json.dumps(t))
     for r in flash_rows.values():

@@ -6,7 +6,8 @@
 // launched by `_pallas_backward`, entry `flash_attention`).  They compute
 // what those kernels and the plain `_xla_backward` compute, bias-free:
 //
-//   q, k, v, out, dout  as in the forward ('blhd' or 'bhld', fp32 or bf16)
+//   q, k, v, out, dout  as in the forward ('blhd' or 'bhld', fp32 or bf16,
+//                       D = 8, 16, 32 or 64)
 //   lse [B, H, Lq] fp32, +inf on dead rows
 //   dq like q, dk and dv like k, in the input dtype
 //
@@ -62,7 +63,8 @@
 //   * tiles wholly above the causal diagonal are skipped; ragged lengths
 //     are bounds checks (rows past Lq get lse = +inf, so p = 0).
 //
-// Shared memory a block (fp32; bf16 half of it), two blocks an SM:
+// Shared memory a block at D = 64 (fp32; bf16 half of it; narrower heads
+// in proportion), two blocks an SM:
 //   dq:    q, do and two k, v buffers, 6 x 16 KB = 98,304 bytes;
 //   dk/dv: k, v, two q, do buffers and out, 7 x 16 KB, plus lse and
 //          delta of the query tile: 115,200 bytes.
@@ -75,9 +77,6 @@
 
 namespace flash {
 namespace {
-
-constexpr int kWarps = 4;
-constexpr int kBwdThreads = 32 * kWarps;
 
 template <typename T>
 constexpr size_t dq_smem(int D) {        // q, do, 2 x (k, v)
@@ -104,38 +103,8 @@ __device__ __forceinline__ float row_delta(const T* sO, const T* sdO, int r,
   return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
 }
 
-// keep_scale of flash_attention_common.cuh as a threshold test: its
-// uniform u = (x >> 8) * 2^-24 is exact, so u >= rate exactly when
-// x >> 8 >= ceil(rate * 2^24) (rate * 2^24 is exact in fp32).  Same
-// hash, same bits; an integer compare in place of a convert, a multiply
-// and a float compare.  This and live() below measured faster on the
-// card than keep_scale() and kept(), which the forward keeps using.
-__device__ __forceinline__ uint32_t keep_threshold(float rate) {
-  return (uint32_t)ceilf(rate * 16777216.0f);
-}
-
-__device__ __forceinline__ float keep_of(uint32_t seed, uint32_t bh,
-                                         uint32_t row, uint32_t col,
-                                         uint32_t thr, float inv_keep) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u;
-  x = x ^ (bh * 0xC2B2AE3Du) ^ seed;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return (x >> 8) >= thr ? inv_keep : 0.0f;
-}
-
-// kept() of flash_attention_common.cuh without branches: every element
-// of a tile takes the same instructions
-__device__ __forceinline__ bool live(int r, int c, int Lk, int causal,
-                                     int row_off, int col_off) {
-  return (c < Lk) & ((causal == 0) | (row_off + r >= col_off + c));
-}
-
 template <int D, typename T, bool kDrop>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ out,
           const T* __restrict__ dout, const float* __restrict__ lse,
@@ -164,21 +133,17 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long qoff = b * sq_.b + h * sq_.h;
   const long long koff = b * sk_.b + h * sk_.h;
 
-  int n_keys = Lk;
-  if (causal) {
-    const int last_row = row_off + min(q0 + BQ, Lq) - 1;
-    n_keys = max(0, min(Lk, last_row - col_off + 1));
-  }
+  const int n_keys = live_keys(q0, Lq, Lk, causal, row_off, col_off);
   const int n_tiles = (n_keys + BK - 1) / BK;
 
   // q, do, the out rows (into the second k buffer, free until the first
   // prefetch) and the first k, v tile
-  cp_tile<BQ, D, kBwdThreads>(sQ, q + qoff, sq_.l, q0, Lq);
-  cp_tile<BQ, D, kBwdThreads>(sdO, dout + qoff, sq_.l, q0, Lq);
-  cp_tile<BQ, D, kBwdThreads>(sK + BK * D, out + qoff, sq_.l, q0, Lq);
+  cp_tile<BQ, D, kThreads>(sQ, q + qoff, sq_.l, q0, Lq);
+  cp_tile<BQ, D, kThreads>(sdO, dout + qoff, sq_.l, q0, Lq);
+  cp_tile<BQ, D, kThreads>(sK + BK * D, out + qoff, sq_.l, q0, Lq);
   if (n_tiles > 0) {
-    cp_tile<BK, D, kBwdThreads>(sK, k + koff, sk_.l, 0, Lk);
-    cp_tile<BK, D, kBwdThreads>(sV, v + koff, sk_.l, 0, Lk);
+    cp_tile<BK, D, kThreads>(sK, k + koff, sk_.l, 0, Lk);
+    cp_tile<BK, D, kThreads>(sV, v + koff, sk_.l, 0, Lk);
   }
   cp_commit();
 
@@ -215,8 +180,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (kt + 1 < n_tiles) {
       T* nK = sK + ((kt + 1) & 1) * BK * D;
       T* nV = sV + ((kt + 1) & 1) * BK * D;
-      cp_tile<BK, D, kBwdThreads>(nK, k + koff, sk_.l, k0 + BK, Lk);
-      cp_tile<BK, D, kBwdThreads>(nV, v + koff, sk_.l, k0 + BK, Lk);
+      cp_tile<BK, D, kThreads>(nK, k + koff, sk_.l, k0 + BK, Lk);
+      cp_tile<BK, D, kThreads>(nV, v + koff, sk_.l, k0 + BK, Lk);
       cp_commit();
     }
 
@@ -288,7 +253,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // transposed, s^T [keys][queries], so its C fragments are the A fragments
 // of dv += (p*keep)^T.do and dk += ds^T.q
 template <int D, typename T, bool kDrop>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ out,
            const T* __restrict__ dout, const float* __restrict__ lse,
@@ -329,14 +294,14 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long lrow = (long long)bh * Lq;
   float lse_next = INFINITY;             // lse of row threadIdx.x of the
   if (qt0 < n_qt) {                      // next tile (threads < BQ)
-    cp_tile<BK, D, kBwdThreads>(sK, k + koff, sk_.l, k0, Lk);
-    cp_tile<BK, D, kBwdThreads>(sV, v + koff, sk_.l, k0, Lk);
+    cp_tile<BK, D, kThreads>(sK, k + koff, sk_.l, k0, Lk);
+    cp_tile<BK, D, kThreads>(sV, v + koff, sk_.l, k0, Lk);
     const int q0 = qt0 * BQ;
     T* nQ = sQ + (qt0 & 1) * BQ * D;
     T* ndO = sdO + (qt0 & 1) * BQ * D;
-    cp_tile<BQ, D, kBwdThreads>(nQ, q + qoff, sq_.l, q0, Lq);
-    cp_tile<BQ, D, kBwdThreads>(ndO, dout + qoff, sq_.l, q0, Lq);
-    cp_tile<BQ, D, kBwdThreads>(sO, out + qoff, sq_.l, q0, Lq);
+    cp_tile<BQ, D, kThreads>(nQ, q + qoff, sq_.l, q0, Lq);
+    cp_tile<BQ, D, kThreads>(ndO, dout + qoff, sq_.l, q0, Lq);
+    cp_tile<BQ, D, kThreads>(sO, out + qoff, sq_.l, q0, Lq);
     cp_commit();
     if (threadIdx.x < BQ && q0 + threadIdx.x < Lq)
       lse_next = lse[lrow + q0 + threadIdx.x];
@@ -369,9 +334,9 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int n0 = q0 + BQ;
       T* nQ = sQ + ((qt + 1) & 1) * BQ * D;
       T* ndO = sdO + ((qt + 1) & 1) * BQ * D;
-      cp_tile<BQ, D, kBwdThreads>(nQ, q + qoff, sq_.l, n0, Lq);
-      cp_tile<BQ, D, kBwdThreads>(ndO, dout + qoff, sq_.l, n0, Lq);
-      cp_tile<BQ, D, kBwdThreads>(sO, out + qoff, sq_.l, n0, Lq);
+      cp_tile<BQ, D, kThreads>(nQ, q + qoff, sq_.l, n0, Lq);
+      cp_tile<BQ, D, kThreads>(ndO, dout + qoff, sq_.l, n0, Lq);
+      cp_tile<BQ, D, kThreads>(sO, out + qoff, sq_.l, n0, Lq);
       cp_commit();
       lse_next = INFINITY;
       if (threadIdx.x < BQ && n0 + threadIdx.x < Lq)
@@ -481,7 +446,7 @@ int launch_dq(const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.out),
       static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dq), a.H,
@@ -497,7 +462,7 @@ int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.out),
       static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dk),
@@ -506,16 +471,27 @@ int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
-  // the one head width a configuration uses (d_key = d_value = 64)
-  if (D != 64) return (int)cudaErrorInvalidValue;
+template <int D, typename T>
+int launch(bool dkv, const BwdArgs& a, cudaStream_t stream) {
   // dropout is a template parameter: no per-element branch on the rate
   if (a.rate > 0.0f)
-    return dkv ? launch_dkv<64, T, true>(a, stream)
-               : launch_dq<64, T, true>(a, stream);
-  return dkv ? launch_dkv<64, T, false>(a, stream)
-             : launch_dq<64, T, false>(a, stream);
+    return dkv ? launch_dkv<D, T, true>(a, stream)
+               : launch_dq<D, T, true>(a, stream);
+  return dkv ? launch_dkv<D, T, false>(a, stream)
+             : launch_dq<D, T, false>(a, stream);
+}
+
+// the head widths of the repo's configurations and the reference's
+// kernel tests; the wrapper pads any other width up to 64 to the next
+template <typename T>
+int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
+  switch (D) {
+    case 8: return launch<8, T>(dkv, a, stream);
+    case 16: return launch<16, T>(dkv, a, stream);
+    case 32: return launch<32, T>(dkv, a, stream);
+    case 64: return launch<64, T>(dkv, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v,

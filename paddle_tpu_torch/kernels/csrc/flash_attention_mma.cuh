@@ -1,9 +1,9 @@
-// Tensor-core and copy helpers of the flash-attention backward for Hopper
+// Tensor-core and copy helpers of the flash-attention kernels for Hopper
 // (sm_90a): 3xTF32 mma.sync products, cp.async tile copies into swizzled
 // shared memory, and the fragment loads that read them.  Included by
-// flash_attention_bwd.cu only.  The split and the mma wrapper are copies
-// of lstm_fwd.cu's: each .cu builds into its own library, so nothing is
-// shared between them.
+// flash_attention_fwd.cu and flash_attention_bwd.cu.  The split and the
+// mma wrapper are copies of lstm_fwd.cu's: each .cu builds into its own
+// library, so nothing is shared between them.
 //
 // Fragments of mma.sync.m16n8k8.tf32 (g = lane / 4, t = lane % 4):
 //   A (16 x 8):  a0 (g, k t), a1 (g + 8, k t), a2 (g, k t+4), a3 (g+8, k t+4)
@@ -18,9 +18,11 @@
 // registers, and A and row-wise B fragments are pairs of neighbouring
 // elements, one 8-byte (fp32) or 4-byte (bf16) shared load each.
 //
-// Shared tiles are [64 rows][64 columns] of the input type, rows
-// unpadded, their 16-byte chunks XOR-swizzled by swz(row).  The chosen
-// swizzle leaves every access of the kernels free of bank conflicts:
+// Shared tiles are [64 rows][D columns] of the input type, rows
+// unpadded, their 16-byte chunks XOR-swizzled by swz(row), masked to the
+// row's chunk count so a chunk never leaves its row.  With 8 or more
+// chunks a row (fp32 D >= 32, bf16 D = 64) the swizzle leaves every
+// access of the kernels free of bank conflicts:
 //   * cp.async: 8 lanes write 8 chunks of one row (any XOR does);
 //   * A and row-wise B pairs, (row r0 + g, column c0 + 2t): in fp32 a
 //     half-warp's 16 float2 need swz(r) >> 1 distinct over rows 0-3 and
@@ -29,7 +31,10 @@
 //   * column-wise B, (row k0 + 2t + e, column n0 + g): rows {0, 2, 4, 6}
 //     and {1, 3, 5, 7} need swz(r) >> 1 (fp32) or swz(r) (bf16)
 //     distinct.
-// swz = 0, 2, 4, 6, 3, 1, 7, 5 for rows 0-7 meets all of them.
+// swz = 0, 2, 4, 6, 3, 1, 7, 5 for rows 0-7 meets all of them.  Narrower
+// rows (fp32 D = 8, 16; bf16 D = 8, 16, 32) are a whole 128-byte line or
+// less for every 8 rows, so some of those accesses take two to four
+// wavefronts: slower, not wrong, on calls that move few bytes.
 
 #pragma once
 
@@ -44,11 +49,20 @@ __device__ __forceinline__ int swz(int row) {
   return (((row & 3) ^ hi) << 1) | hi;
 }
 
+// where chunk c of a row of a swizzled [rows][D] tile of T lies in it
+template <int D, typename T>
+__device__ __forceinline__ int chunk_at(int row, int c) {
+  constexpr int CPR = D * (int)sizeof(T) / 16;   // chunks per row
+  static_assert(CPR >= 1 && (CPR & (CPR - 1)) == 0,
+                "a row is a power-of-two count of 16-byte chunks");
+  return c ^ (swz(row) & (CPR - 1));
+}
+
 // element offset of (row, col) in a swizzled [rows][D] tile of T
 template <int D, typename T>
 __device__ __forceinline__ int at(int row, int col) {
   constexpr int E = 16 / sizeof(T);      // elements per 16-byte chunk
-  return row * D + (((col / E) ^ swz(row)) * E) + col % E;
+  return row * D + chunk_at<D, T>(row, col / E) * E + col % E;
 }
 
 // (row, col) and (row, col + 1), col even, as two floats
@@ -104,6 +118,9 @@ struct FragB {
 
 // c += a * b at fp32 accuracy: the two small terms first, then hi * hi.
 // A term whose low part is 0 (an operand read from bf16) is skipped.
+// The tensor core adds into c with truncation, so a long chain of
+// products into one c drifts toward zero (flash_attention_fwd.cu's
+// kPart sums short chains into fresh fragments for that reason).
 template <bool kALo, bool kBLo>
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
                                      const FragB& b) {
@@ -174,23 +191,26 @@ __device__ __forceinline__ void cp_wait_all() {
 
 // rows [r0, r0 + R) of one head's [L, D] slice into the swizzled tile s,
 // by NT threads; rows at or past L are zero.  Neighbouring threads copy
-// neighbouring chunks of a row, so the reads coalesce.
+// neighbouring chunks of a row, so the reads coalesce.  A tile of fewer
+// chunks than threads (bf16 D = 8) leaves the last threads idle.
 template <int R, int D, int NT, typename T>
 __device__ __forceinline__ void cp_tile(T* s, const T* base,
                                         long long row_stride, int r0,
                                         int L) {
   constexpr int E = 16 / sizeof(T);
   constexpr int CPR = D / E;             // chunks per row
-  static_assert((R * CPR) % NT == 0, "tile chunks must split evenly");
+  constexpr int N = R * CPR;
+  static_assert(N % NT == 0 || N < NT, "tile chunks must split evenly");
 #pragma unroll
-  for (int i = 0; i < R * CPR / NT; ++i) {
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
     const int idx = threadIdx.x + i * NT;
+    if (N < NT && idx >= N) break;
     const int r = idx / CPR;
     const int c = idx - r * CPR;
     const int row = r0 + r;
     const bool ok = row < L;
     const T* src = ok ? base + row * row_stride + c * E : base;
-    cp16(s + r * D + ((c ^ swz(r)) * E), src, ok);
+    cp16(s + r * D + chunk_at<D, T>(r, c) * E, src, ok);
   }
 }
 

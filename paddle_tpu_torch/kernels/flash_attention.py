@@ -15,6 +15,10 @@ dq and dk/dv kernels of ``csrc/flash_attention_bwd.cu`` (the ports of
 plain backward on every device, as the reference routes it.  For CPU
 tensors ``flash_forward_plain`` / ``flash_backward_plain`` run, the
 counterparts of the reference's ``_xla_forward`` / ``_xla_backward``.
+The kernels are built for head widths 8, 16, 32 and 64; the wrappers
+zero-pad any other width below 64 to the next of those and slice the
+results back (exact: zero columns change no product), and refuse a
+width above 64 with ``NotImplementedError``.
 
 Serving half.  The paged KV pool is ONE tensor ``[H, R, page_size, D]``
 (head-major: one head's page is a contiguous ``page_size x D`` slab).  A
@@ -229,9 +233,9 @@ FLASH_KERNELS = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd",
 # masked keys is recognised by its running max (m <= MASK / 2)
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels are instantiated for the one head width the configurations
-# use (d_key = d_value = 64)
-_FLASH_HEAD_DIM = 64
+# the head widths the kernels are built for: every width a configuration
+# of the repo (d_key 8, 16, 32, 64) and the reference's kernel tests use
+_FLASH_WIDTHS = (8, 16, 32, 64)
 _U32 = 0xFFFFFFFF
 
 
@@ -413,9 +417,36 @@ def _fcheck(cond: bool, what: str) -> None:
         raise ValueError(f"flash_attention (CUDA kernel): {what}")
 
 
+def _kernel_width(d: int) -> int:
+    """The narrowest head width the kernels are built for that holds
+    ``d``; a width above the widest raises ``NotImplementedError``."""
+    for w in _FLASH_WIDTHS:
+        if d <= w:
+            return w
+    raise NotImplementedError(
+        f"flash_attention (CUDA kernel): head width {d} > "
+        f"{_FLASH_WIDTHS[-1]} is not built; the kernels take widths "
+        f"{_FLASH_WIDTHS} and pad narrower ones")
+
+
+def _pad_width(xs, w: int):
+    """Each tensor of ``xs`` zero-padded along its last (head) axis from
+    the width they share to ``w``.  Exact for attention: a zero column
+    adds nothing to q.k or to rowsum(out * dout), and the products over
+    the kept columns are unchanged; the caller keeps the true width's
+    sm_scale and slices the results back."""
+    d = xs[0].shape[-1]
+    _fcheck(all(x.shape[-1] == d for x in xs), "q, k, v (and out, dout) "
+            "must share one head width")
+    return tuple(torch.nn.functional.pad(x, (0, w - d)) for x in xs)
+
+
 def _flash_geometry(q, k, v, layout, extra=()):
     """Validate the kernels' inputs; returns (B, H, Lq, Lk, D) and the
-    element strides of q-shaped and k-shaped tensors."""
+    element strides of q-shaped and k-shaped tensors.  q, k and v must
+    start on a 16-byte boundary: the kernels copy their tiles in 16-byte
+    pieces (cp.async), and a row of any built width (8 elements or more)
+    is a whole number of them, so an aligned base aligns every row."""
     _fcheck(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
             "q, k, v must be 4-d and k, v of one shape")
     b, h, lq, d = _bhld(q, layout).shape
@@ -424,20 +455,29 @@ def _flash_geometry(q, k, v, layout, extra=()):
             f"{(kb, kh, kd)} != q's {(b, h, d)}")
     _fcheck(q.dtype in _FLASH_DTYPES, f"dtype {q.dtype} not float32 or "
             "bfloat16")
-    _fcheck(d == _FLASH_HEAD_DIM, f"head width {d} is not "
-            f"{_FLASH_HEAD_DIM}")
+    if _kernel_width(d) != d:
+        raise ValueError(f"flash_attention (CUDA kernel): head width {d} "
+                         f"is not built (widths {_FLASH_WIDTHS}); pad it "
+                         f"to {_kernel_width(d)}")
     for t in (q, k, v, *extra):
         _fcheck(t.device == q.device, f"tensor on {t.device}, expected "
                 f"{q.device}")
         _fcheck(t.is_contiguous(), "inputs must be contiguous")
     for t in (k, v):
         _fcheck(t.dtype == q.dtype, "q, k, v must share one dtype")
+    _check_aligned((("q", q), ("k", k), ("v", v)))
 
     def strides(l):
         return ((l * h * d, d, h * d) if layout == "blhd"
                 else (h * l * d, l * d, d))
 
     return (b, h, lq, lk, d), strides(lq) + strides(lk)
+
+
+def _check_aligned(named) -> None:
+    for name, t in named:
+        _fcheck(t.data_ptr() % 16 == 0, f"{name} must start on a 16-byte "
+                f"boundary, its address is {t.data_ptr():#x}")
 
 
 def _flash_launch(name: str, d: int, *args) -> None:
@@ -455,6 +495,12 @@ def _flash_launch(name: str, d: int, *args) -> None:
 def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale, rate, seed, layout,
                     offsets):
     """Launch the forward kernel on the current stream -> (out, lse)."""
+    d = q.shape[-1]
+    w = _kernel_width(d)
+    if w != d:
+        out, lse = _flash_fwd_cuda(*_pad_width((q, k, v), w), bias, causal,
+                                   sm_scale, rate, seed, layout, offsets)
+        return out[..., :d].contiguous(), lse
     extra = () if bias is None else (bias,)
     (b, h, lq, lk, d), strides = _flash_geometry(q, k, v, layout, extra)
     bias_b = bias_h = 1
@@ -491,12 +537,7 @@ def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
     _fcheck(lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, lq),
             f"lse must be float32 {(b, h, lq)}")
     _fcheck(b * h * lq * lk > 0, "empty attention")
-    # the kernels copy tiles in 16-byte pieces (cp.async); rows are D = 64
-    # elements, so an aligned base aligns every row
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
-                    ("dout", dout)):
-        _fcheck(t.data_ptr() % 16 == 0, f"{name} must start on a 16-byte "
-                f"boundary, its address is {t.data_ptr():#x}")
+    _check_aligned((("out", out), ("dout", dout)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (b, h, lq, lk, d, *strides, sm_scale, int(causal), offsets[0],
               offsets[1], rate, 1.0 / (1.0 - rate), seed,
@@ -508,6 +549,11 @@ def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
 
 def _flash_dq_cuda(q, k, v, out, dout, lse, *cfg):
     """Launch the dq kernel on the current stream -> dq."""
+    d = q.shape[-1]
+    w = _kernel_width(d)
+    if w != d:
+        padded = _pad_width((q, k, v, out, dout), w)
+        return _flash_dq_cuda(*padded, lse, *cfg)[..., :d].contiguous()
     d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
     dq = torch.empty_like(q)
     _flash_launch("dq", d, *ins, dq.data_ptr(), *common)
@@ -516,6 +562,12 @@ def _flash_dq_cuda(q, k, v, out, dout, lse, *cfg):
 
 def _flash_dkv_cuda(q, k, v, out, dout, lse, *cfg):
     """Launch the dk/dv kernel on the current stream -> (dk, dv)."""
+    d = q.shape[-1]
+    w = _kernel_width(d)
+    if w != d:
+        padded = _pad_width((q, k, v, out, dout), w)
+        return tuple(g[..., :d].contiguous()
+                     for g in _flash_dkv_cuda(*padded, lse, *cfg))
     d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_launch("dkv", d, *ins, dk.data_ptr(), dv.data_ptr(), *common)

@@ -192,17 +192,72 @@ def test_meta_tensors_launch_nothing():
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """The checks run before any build or launch, so they are testable
-    without a card."""
-    for d in (32, 48):                  # only D = 64 is instantiated
-        q = torch.zeros(1, 4, 2, d)
-        with pytest.raises(ValueError, match="head width"):
-            tfa._flash_geometry(q, q, q, "blhd")
+    without a card.  A width below 64 that is not built reaches the
+    kernels only padded (test_padded_width_is_exact)."""
+    q = torch.zeros(1, 4, 2, 48)
+    with pytest.raises(ValueError, match="head width 48 .* pad it to 64"):
+        tfa._flash_geometry(q, q, q, "blhd")
+    q = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="dtype"):
         tfa._flash_geometry(q.double(), q.double(), q.double(), "blhd")
-    q = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
         qt = q.transpose(1, 2)
         tfa._flash_geometry(qt, qt, qt, "bhld")
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 80, 128])
+def test_kernel_head_widths(d):
+    """The kernels are built for D = 8, 16, 32 and 64, every width the
+    repo's configurations and the reference's kernel tests use; a wider
+    head raises NotImplementedError naming its width from every wrapper,
+    before any build or launch."""
+    b, h, lq, lk = 1, 2, 4, 4
+    q = torch.zeros(b, lq, h, d)
+    k = torch.zeros(b, lk, h, d)
+    if d <= 64:
+        dims, strides = tfa._flash_geometry(q, k, k, "blhd")
+        assert dims == (b, h, lq, lk, d)
+        assert strides == (lq * h * d, d, h * d, lk * h * d, d, h * d)
+        return
+    lse = torch.zeros(b, h, lq)
+    cfg = (False, d ** -0.5, 0.0, 0, "blhd", (0, 0))
+    with pytest.raises(NotImplementedError, match=f"head width {d}"):
+        tfa._flash_geometry(q, k, k, "blhd")
+    with pytest.raises(NotImplementedError, match=f"head width {d}"):
+        tfa._flash_fwd_cuda(q, k, k, None, *cfg)
+    for fn in (tfa._flash_dq_cuda, tfa._flash_dkv_cuda):
+        with pytest.raises(NotImplementedError, match=f"head width {d}"):
+            fn(q, k, k, q, q, lse, *cfg)
+
+
+@pytest.mark.parametrize("d", [24, 40])
+def test_padded_width_is_exact(d):
+    """A width the kernels are not built for is zero-padded to the next
+    built one (24 -> 32, 40 -> 64) with the true width's sm_scale, and
+    the results sliced back.  Through the plain versions on the padded
+    tensors, out, lse, dq, dk and dv equal the unpadded results within
+    1e-6: zero columns add nothing to q.k or rowsum(out * dout)."""
+    w = tfa._kernel_width(d)
+    assert w == {24: 32, 40: 64}[d]
+    r = np.random.RandomState(d)
+    q, k, v, dout = (torch.tensor(r.randn(2, 40, 2, d).astype(np.float32))
+                     for _ in range(4))
+    cfg = (True, d ** -0.5, 0.1, 11, "blhd")
+    out, lse = tfa.flash_forward_plain(q, k, v, None, *cfg)
+    want = tfa.flash_backward_plain(q, k, v, out, dout, lse, None, *cfg)[:3]
+    pq, pk, pv = tfa._pad_width((q, k, v), w)
+    assert pq.shape[-1] == w and not pq[..., d:].any()
+    p_out, p_lse = tfa.flash_forward_plain(pq, pk, pv, None, *cfg)
+    assert not p_out[..., d:].any()
+    # the backward's wrapper pads what autograd hands it: the sliced out
+    pads = tfa._pad_width((q, k, v, p_out[..., :d], dout), w)
+    got = tfa.flash_backward_plain(*pads, p_lse, None, *cfg)[:3]
+    tol = dict(atol=1e-6, rtol=0)
+    torch.testing.assert_close(p_out[..., :d], out, **tol)
+    torch.testing.assert_close(p_lse, lse, **tol)
+    for g, wg in zip(got, want):
+        assert not g[..., d:].any()
+        torch.testing.assert_close(g[..., :d], wg, **tol)
 
 
 def test_backward_wrapper_refuses_unaligned_tensors():
@@ -221,7 +276,7 @@ def test_backward_wrapper_refuses_unaligned_tensors():
             tfa._flash_bwd_setup(*args, lse, *cfg)
 
 
-# -- the backward kernels' arithmetic: products on TF32 tensor cores
+# -- the kernels' arithmetic: products on TF32 tensor cores
 
 # chip_smoke.py's FLASH_TOL["float32"]: kernel vs plain on the card
 FLASH_TOL_F32 = 1e-4
@@ -295,3 +350,61 @@ def test_3xtf32_backward_holds_the_fp32_tolerance_and_tf32_does_not(
     print(f"max |error| / max(1, magnitude) of dq, dk, dv: {errs}")
     assert max(errs["3xtf32"]) <= FLASH_TOL_F32, errs
     assert max(errs["tf32"]) > FLASH_TOL_F32, errs
+
+
+def _forward_with(mm, q, k, v, causal, rate, seed, tile=64):
+    """The forward kernel's arithmetic on [B, H, L, D] float32 tensors:
+    an online softmax over ``tile``-key tiles, s = q.k^T through ``mm``,
+    scaled and masked; m, l and the accumulator rescaled by alpha; p
+    dropped by keep_scale after it enters l; o += p.v through ``mm``.
+    Returns (out, lse)."""
+    sm_scale = q.shape[-1] ** -0.5
+    lq, lk = q.shape[2], k.shape[2]
+    rows = torch.arange(lq)
+    m = torch.full(q.shape[:3], -float("inf"))
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, lk, tile):
+        cols = torch.arange(k0, min(k0 + tile, lk))
+        kt, vt = k[:, :, cols], v[:, :, cols]
+        s = mm(q, kt.transpose(-1, -2)) * sm_scale
+        if causal:
+            s = s.masked_fill(rows[:, None] < cols[None, :],
+                              tfa.DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        p = p * tfa._plain_keep(q, rows, cols, rate, seed)
+        acc = acc * alpha[..., None] + mm(p, vt)
+        m = m_new
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_3xtf32_forward_holds_the_fp32_tolerance(causal):
+    """The forward kernel computes s = q.k^T and o += p.v as three TF32
+    products each.  Emulated at B=2, H=2, L=256, D=64 with dropout 0.1,
+    it stays within chip_smoke's float32 tolerance (1e-4 of max(1,
+    magnitude)) of the reference's Pallas forward in interpret mode (out)
+    and its XLA forward (lse), on the same numpy inputs.  The error of a
+    single TF32 product is printed beside it."""
+    r = np.random.RandomState(8)
+    q, k, v = (r.randn(2, 2, 256, 64).astype(np.float32) for _ in range(3))
+    rate, seed = 0.1, 11
+    want_out = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        dropout_rate=rate, dropout_seed=seed, layout="bhld",
+        impl="pallas_interpret"))
+    _, want_lse = jfa._xla_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+        jfa.seed_to_carrier(seed), None, 64 ** -0.5, causal, None, 256,
+        rate)
+    want = (want_out, np.asarray(want_lse))
+    errs = {}
+    for name, mm in (("3xtf32", _mm_3xtf32), ("tf32", _mm_tf32)):
+        got = _forward_with(mm, T(q), T(k), T(v), causal, rate, seed)
+        errs[name] = [float(np.abs(g.numpy() - w).max()) / max(
+            1.0, float(np.abs(w).max())) for g, w in zip(got, want)]
+    print(f"max |error| / max(1, magnitude) of out, lse: {errs}")
+    assert max(errs["3xtf32"]) <= FLASH_TOL_F32, errs

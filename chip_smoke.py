@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-ragged DIR]
 
 Runs from the root of a checkout and needs one CUDA card; it imports
 ``paddle_tpu_torch`` and never JAX or ``paddle_tpu``.  Phases:
@@ -13,7 +13,11 @@ Runs from the root of a checkout and needs one CUDA card; it imports
 3. hold the ragged paged-attention kernel against its plain PyTorch
    version at the serving path's shapes (decode C=1 over self pages,
    decode C=1 over cross pages, prefill C=32), for float32, bfloat16
-   and int8 pools, with dead lanes and lengths that end mid-page;
+   and int8 pools, with dead lanes and lengths that end mid-page; then
+   at D=128, page 8, C=7, causal and not, with a lane that uses all P
+   pages, over three grids that ``ragged_plan`` splits one page a split,
+   three pages a split and into one split (each must reach that path,
+   and run the device kernels it needs: split, and merge if split);
 4. hold the flash-attention forward, dq and dk/dv kernels against their
    plain versions (B=8, L=256, H=8, D=64, 'blhd'): causal and not,
    dropout 0 and 0.1, float32 and bfloat16, both bias shapes (forward),
@@ -22,8 +26,9 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    causal and not, dropout 0.1, fp32 and one bf16) and one 'bhld' case;
    the other head widths the kernels are built for, D = 8, 16 and 32
    (fp32 and bf16, causal, dropout 0.1, 256x256 and 77x45), and D = 24,
-   which the wrappers pad to 32; the dropout masks of the forward and
-   dk/dv kernels exactly;
+   which the wrappers pad to 32; the widths above 64 (80, 128, 256: the
+   wide kernels, 64-column chunks), fp32 and bf16; the dropout masks of
+   the forward and dk/dv kernels exactly;
 5. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
    through ``ContinuousBatchingScheduler`` over a Transformer-base
    ``PagedTransformerGenerator`` once per pool dtype (18 ragged-kernel
@@ -44,7 +49,15 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    plain forward and backward (out, lse, dq, dk, dv); then time every
    kernel, its plain version and the PyTorch library call for the same
    function at the paths' shapes (the flash forward at dropout 0.1 and
-   0, the library's at 0);
+   0, the library's at 0; the flash kernels also at D = 80, 128, 256).
+   The ragged kernel is timed on the device clock: 200 calls captured in
+   a CUDA graph whose replay CUDA events time (``ms``), beside the same
+   calls issued one by one through the wrapper (``ms_eager``), an empty
+   kernel timed the graph's way (``launch_floor_ms``), the device
+   kernels one call runs (the kernel nodes of a CUDA graph of its calls)
+   and, with
+   ``--parent-ragged DIR``, an earlier ``ragged_paged_attention.cu`` in
+   DIR built there and timed the graph's way (``parent_ms``);
 9. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
@@ -209,21 +222,252 @@ def run_case(fa, case, s, pool, scales, plain):
               scales=scales)
 
 
-def time_case(torch, fa, case, pool, scales, plain, iters):
-    """ms per call: CUDA events around ``iters`` calls that rotate over
-    16 argument sets on distinct pages (more than L2 holds)."""
+def case_calls(fa, case, pool, scales, iters, plain=False):
+    """``iters`` calls that rotate over the case's 16 argument sets on
+    distinct pages (more than L2 holds), as closures."""
     sets = case["sets"]
-    for s in sets[:4]:
-        run_case(fa, case, s, pool, scales, plain)
+    return [lambda s=sets[i % len(sets)]: run_case(fa, case, s, pool,
+                                                   scales, plain)
+            for i in range(iters)]
+
+
+def time_case(torch, fa, case, pool, scales, plain, iters):
+    """ms per call through the Python wrapper: CUDA events around
+    ``iters`` calls issued one after another.  For a kernel of a few
+    microseconds this is the host's issue rate (``ms_eager``)."""
+    calls = case_calls(fa, case, pool, scales, iters, plain)
+    for fn in calls[:4]:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for i in range(iters):
-        run_case(fa, case, sets[i % len(sets)], pool, scales, plain)
+    for fn in calls:
+        fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(torch, calls, replays=5):
+    """ms per call on the device clock: the calls captured into one CUDA
+    graph, whose replays CUDA events time; the host issues nothing per
+    call, so this is the kernels' own time plus the gaps between them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up: builds, attributes
+        for fn in calls[:4]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / (replays * len(calls))
+    del graph
+    return ms
+
+
+def launch_floor_ms(torch, fa, iters):
+    """One empty kernel's launch, timed as ``graph_ms`` times a call."""
+    _, _, empty = fa._kernel_fn()
+
+    def launch():
+        err = empty(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty launch failed: CUDA error {err}")
+
+    return graph_ms(torch, [launch] * iters)
+
+
+def build_parent_ragged(src_dir):
+    """The parent commit's ragged kernel, from ``src_dir``'s
+    ``ragged_paged_attention.cu`` (its first version, one block per
+    (lane, head)), built with the port's nvcc flags and bound to its own
+    C entry -> the entry."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    src = os.path.join(src_dir, "ragged_paged_attention.cu")
+    lib = os.path.join(src_dir, "libparent_ragged.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(lib).ragged_paged_attention
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def parent_calls(torch, parent, fa, case, pool, scales, iters):
+    """``case_calls`` through the parent's kernel."""
+    H, R, ps, D = pool.shape
+    dtype = fa._POOL_DTYPES[pool.dtype]
+    outs = [torch.empty_like(s["q"]) for s in case["sets"]]
+
+    def call(i):
+        s = case["sets"][i % len(case["sets"])]
+        q, out = s["q"], outs[i % len(outs)]
+        B, C = q.shape[:2]
+        err = parent(q.data_ptr(), pool.data_ptr(),
+                     scales.data_ptr() if scales is not None else None,
+                     s["table"].data_ptr(), case["lengths"].data_ptr(),
+                     case["q_base"].data_ptr(), out.data_ptr(), B, C, H, R,
+                     ps, D, s["table"].shape[1], s["layer"],
+                     MODEL["n_layer"], int(case["causal"]),
+                     MODEL["d_key"] ** -0.5, dtype,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent ragged kernel: CUDA error {err}")
+        return out
+
+    return [lambda i=i: call(i) for i in range(iters)]
+
+
+# ragged shapes beside the serving path's: a wider head, shorter pages, a
+# chunk of 7 rows; lane 0 uses all P pages, lane 1 is dead, and the
+# others end mid-page, so some splits start past their lane's length
+RAGGED_EXTRA = dict(D=128, ps=8, C=7, pages=64, n_layer=2)
+# (B, H, P) for each of the kernel's paths, as ``ragged_plan`` splits
+# them on a 132-SM card: one page a split with a merge; three pages a
+# split (the page ring wraps) with a merge; so many (lane, head) pairs
+# that one split walks the whole table and no merge runs
+RAGGED_EXTRA_GRIDS = {"page_splits": (4, 4, 6), "ring": (4, 4, 198),
+                      "one_split": (33, 32, 6)}
+
+
+def ragged_extra_cases(torch, gen, dev):
+    """{grid: (pools by dtype, argument sets)} at RAGGED_EXTRA's shapes
+    over each grid of RAGGED_EXTRA_GRIDS, causal and not."""
+    from paddle_tpu_torch.fluid.ops.quant_ops import (abs_max_scale,
+                                                      quantize_array)
+    x = RAGGED_EXTRA
+    R = x["pages"] * x["n_layer"] * 2
+    out = {}
+    for grid, (B, H, P) in RAGGED_EXTRA_GRIDS.items():
+        f32 = torch.randn(H, R, x["ps"], x["D"], generator=gen).to(dev)
+        sc = abs_max_scale(f32, axis=(1, 2))
+        pools = {"float32": (f32, None),
+                 "bfloat16": (f32.to(torch.bfloat16), None),
+                 "int8": (quantize_array(f32, sc, axis=(1, 2)),
+                          sc.reshape(1, R, x["ps"]).contiguous())}
+        lengths = torch.cat([torch.tensor([P * x["ps"], 0]), torch.randint(
+            1, P * x["ps"], (B - 2,), generator=gen)]).to(torch.int32)
+        sets = []
+        for causal in (False, True):
+            table = torch.randint(1, x["pages"], (B, P), generator=gen)
+            sets.append(dict(
+                causal=causal, layer=1,
+                q=torch.randn(B, x["C"], H, x["D"], generator=gen).to(dev),
+                table=table.to(torch.int32).to(dev), lengths=lengths.to(dev),
+                q_base=torch.clamp(lengths - x["C"], min=0).to(dev)))
+        out[grid] = (pools, sets)
+    return out
+
+
+def device_kernels_per_call(torch, calls):
+    """Device kernels one call runs: ``calls`` captured into a CUDA graph
+    (after one warm-up call), its kernel nodes counted through the
+    driver (``cuGraphGetNodes``) and divided by the calls."""
+    import ctypes
+
+    calls[0]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0            # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels / len(calls)
+
+
+def run_ragged_extra(torch, fa, extra, failures):
+    """Every extra grid, set and pool dtype through
+    ``ragged_decode_attention`` against the plain version under
+    KERNEL_ATOL / KERNEL_RTOL; the dead lane must be 0.  Each grid must
+    reach the path it is named for (the split the wrapper launched), and
+    one call must run the device kernels that split needs (the kernel
+    nodes of its calls captured in a CUDA graph): the split kernel, and a merge kernel when there is
+    more than one split.  Returns ({grid: record}, the largest error)."""
+    x = RAGGED_EXTRA
+    worst, recs = 0.0, {}
+    for grid, (pools, sets) in extra.items():
+        plans, grid_err = set(), 0.0
+        for kv, (pool, scales) in pools.items():
+            for s in sets:
+                args = (s["q"], pool, s["table"], s["lengths"], s["q_base"])
+                kw = dict(layer=s["layer"], n_layer=x["n_layer"],
+                          causal=s["causal"], sm_scale=x["D"] ** -0.5,
+                          scales=scales)
+                want = fa.ragged_attention_plain(
+                    *args, s["layer"], x["n_layer"], s["causal"],
+                    x["D"] ** -0.5, scales=scales)
+                got = fa.ragged_decode_attention(*args, **kw)
+                plans.add(fa.ragged_decode_attention.last_plan)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ok = bool(torch.allclose(got, want, atol=KERNEL_ATOL,
+                                         rtol=KERNEL_RTOL))
+                dead = bool((got[1] == 0).all())
+                grid_err = max(grid_err, err)
+                name = (f"{grid}/{kv}/{'causal' if s['causal'] else 'full'}"
+                        f"/B{got.shape[0]}/H{got.shape[2]}/"
+                        f"P{s['table'].shape[1]}/D{x['D']}/ps{x['ps']}/"
+                        f"C{x['C']}")
+                log(f"kernel vs plain {name}: max_abs_err {err}")
+                if not ok or not dead:
+                    failures.append(f"kernel {name}: max_abs_err {err} "
+                                    f"(dead lane zero: {dead})")
+        (pps, splits), = plans
+        pool, scales = pools["float32"]
+        s = sets[0]
+        per_call = device_kernels_per_call(torch, [
+            lambda: fa.ragged_decode_attention(
+                s["q"], pool, s["table"], s["lengths"], s["q_base"],
+                layer=s["layer"], n_layer=x["n_layer"], causal=s["causal"],
+                sm_scale=x["D"] ** -0.5)] * 8)
+        recs[grid] = {"pages_per_split": pps, "splits": splits,
+                      "device_kernels_per_call": per_call,
+                      "max_abs_err": grid_err}
+        log(f"ragged grid {grid}: {json.dumps(recs[grid])}")
+        if per_call != (1 if splits == 1 else 2):
+            failures.append(f"ragged grid {grid}: {per_call} device kernels "
+                            f"a call at {splits} splits")
+        worst = max(worst, grid_err)
+    paths = {grid: (r["pages_per_split"], r["splits"])
+             for grid, r in recs.items()}
+    reached = {"page_splits": paths["page_splits"][0] == 1
+               and paths["page_splits"][1] > 1,
+               "ring": paths["ring"][0] >= 3 and paths["ring"][1] > 1,
+               "one_split": paths["one_split"][1] == 1}
+    if not all(reached.values()):
+        failures.append(f"ragged grids missed their paths (pages a split, "
+                        f"splits): {paths}")
+    return recs, worst
 
 
 # -- phases 5 and 7: serving ------------------------------------------------
@@ -240,9 +484,11 @@ def prompts(np):
             for _ in range(N_REQUESTS)]
 
 
-def serve_once(torch, np, fa, gen, srcs):
+def serve_once(torch, np, fa, gen, srcs, on_start=None):
     """The serving path: requests in through the scheduler's thread,
-    tokens out.  Returns (run record, every request finished)."""
+    tokens out.  ``on_start()``, if given, runs after the warm-up step,
+    just before the run's clock starts.  Returns (run record, every
+    request finished)."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler
 
     gen.open_slots(N_SLOTS)
@@ -251,6 +497,8 @@ def serve_once(torch, np, fa, gen, srcs):
     sched = ContinuousBatchingScheduler(gen, n_slots=N_SLOTS,
                                         max_new_tokens=MAX_NEW)
     steps0 = gen.cache_stats()["steps"]
+    if on_start is not None:
+        on_start()
     fa.ragged_decode_attention.launches = 0
     t0 = time.perf_counter()
     sched.serve()
@@ -325,6 +573,9 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_SHAPE = dict(B=8, H=8)
 # the head widths the kernels are built for besides 64, and one they pad
 NARROW_WIDTHS, PADDED_WIDTH = (8, 16, 32), 24
+# heads wider than 64, which run the wide kernels in 64-column chunks (80
+# padded to 128)
+WIDE_WIDTHS = (80, 128, 256)
 
 
 def flash_cases():
@@ -337,8 +588,10 @@ def flash_cases():
     fp32 (and one in bf16); and one 'bhld' case.  Then the other built
     head widths, D = 8, 16 and 32, in fp32 and bf16, causal with dropout
     0.1 at 256x256 and at the ragged 77x45 edge, and the padded width
-    D = 24 at both.  A case without a ``layout`` is 'blhd', without a
-    ``d`` D = 64."""
+    D = 24 at both.  Then the widths above 64 (WIDE_WIDTHS), fp32 and
+    bf16, causal with dropout 0.1 at 256x256, and at 77x45 non-causal in
+    fp32 without and (forward only) with a bias.  A case without a
+    ``layout`` is 'blhd', without a ``d`` D = 64."""
     cases = [dict(dtype=dt, causal=c, rate=r, lq=256, lk=256, bias=None,
                   offsets=None, grads=True)
              for dt in ("float32", "bfloat16") for c in (False, True)
@@ -365,6 +618,12 @@ def flash_cases():
     cases += [dict(dtype="float32", causal=True, rate=0.1, lq=lq, lk=lk,
                    bias=None, offsets=None, grads=True, d=PADDED_WIDTH)
               for lq, lk in ((256, 256), (77, 45))]
+    cases += [dict(dtype=dt, causal=True, rate=0.1, lq=256, lk=256,
+                   bias=None, offsets=None, grads=True, d=d)
+              for d in WIDE_WIDTHS for dt in ("float32", "bfloat16")]
+    cases += [dict(dtype="float32", causal=False, rate=0.1, lq=77, lk=45,
+                   bias=b, offsets=None, grads=b is None, d=d)
+              for d in WIDE_WIDTHS for b in (None, "b1")]
     return cases
 
 
@@ -581,6 +840,31 @@ def flash_timings(torch, fa, dev, gen):
         rows[("fwd", causal)]["ms_dropout0"] = fwd0
         del lib_out, qh, kh, vh, doh, out, lse
     return rows, checks
+
+
+def flash_wide_timings(torch, fa, dev, gen):
+    """ms per call of each flash kernel at every width in WIDE_WIDTHS and
+    at 64 beside them: B=8, L=256, H=8, fp32, non-causal, dropout 0.1
+    ('blhd'), on the device clock (``graph_ms`` over 20 calls: at this
+    shape a D = 64 call takes less than the host needs to issue one).
+    Speed above 64 is not tuned; this records it."""
+    B, H, L = FLASH_SHAPE["B"], FLASH_SHAPE["H"], 256
+    rows = {}
+    for d in (64,) + WIDE_WIDTHS:
+        q, k, v, dout = (torch.randn(B, L, H, d, generator=gen).to(dev)
+                         for _ in range(4))
+        cfg = (False, d ** -0.5, 0.1, SEED, "blhd", (0, 0))
+        out, lse = fa._flash_fwd_cuda(q, k, v, None, *cfg)
+        rows[d] = {
+            "fwd": graph_ms(torch, [lambda: fa._flash_fwd_cuda(
+                q, k, v, None, *cfg)] * 20),
+            "dq": graph_ms(torch, [lambda: fa._flash_dq_cuda(
+                q, k, v, out, dout, lse, *cfg)] * 20),
+            "dkv": graph_ms(torch, [lambda: fa._flash_dkv_cuda(
+                q, k, v, out, dout, lse, *cfg)] * 20)}
+        log(f"flash D={d} (B{B} L{L} H{H} fp32 p0.1) ms: "
+            f"{json.dumps(rows[d])}")
+    return rows
 
 
 # -- phases 6 and 7: training, and serving what was trained ------------------
@@ -1097,6 +1381,14 @@ def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent-ragged", metavar="DIR", default=None,
+                    help="a directory holding an earlier "
+                    "ragged_paged_attention.cu (same C entry as the "
+                    "parent commit's): build it there and time it beside "
+                    "the kernel, the same way (parent_ms)")
+    args = ap.parse_args()
     started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -1161,6 +1453,10 @@ def main() -> int:
                                     f"{err} (dead lane zero: {dead})")
             max_err = max(max_err, case_err)
             log(f"kernel vs plain {kv}/{name}: max_abs_err {case_err}")
+    extra = ragged_extra_cases(torch, gen, dev)
+    extra_grids, extra_err = run_ragged_extra(torch, fa, extra, failures)
+    max_err = max(max_err, extra_err)
+    del extra
 
     # -- the flash kernels vs plain on the card
     flash_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -1274,19 +1570,43 @@ def main() -> int:
     del g
     torch.cuda.empty_cache()
 
-    # -- timings at the paths' shapes
+    # -- timings at the paths' shapes: the ragged kernel on the device
+    # clock (a CUDA graph of 200 calls), through the wrapper one call at
+    # a time (ms_eager), the parent's kernel by the same graph method,
+    # and the plain version
+    parent = None
+    if args.parent_ragged:
+        parent = build_parent_ragged(args.parent_ragged)
+        log(f"built the parent's ragged kernel from {args.parent_ragged}")
+    floor_ms = launch_floor_ms(torch, fa, 200)
     timing = []
     for kv, (pool, scales) in pools.items():
         for name, case in cases.items():
-            ms = time_case(torch, fa, case, pool, scales, False, 200)
+            dev_ms = graph_ms(torch, case_calls(fa, case, pool, scales, 200))
+            eager = time_case(torch, fa, case, pool, scales, False, 200)
             pms = time_case(torch, fa, case, pool, scales, True, 20)
-            ms2 = time_case(torch, fa, case, pool, scales, False, 200)
+            dev_ms2 = graph_ms(torch, case_calls(fa, case, pool, scales,
+                                                 200))
+            par = (graph_ms(torch, parent_calls(torch, parent, fa, case,
+                                                pool, scales, 200))
+                   if parent is not None else None)
             b_ms, b_by = bound(case, pool, scales)
-            timing.append({"kv_dtype": kv, "case": name, "ms": ms,
-                           "ms_repeat": ms2, "plain_ms": pms,
-                           "bound_ms": b_ms, "bound_by": b_by})
+            per_call = device_kernels_per_call(
+                torch, case_calls(fa, case, pool, scales, 16))
+            pps, splits = fa.ragged_decode_attention.last_plan
+            timing.append({"kv_dtype": kv, "case": name, "ms": dev_ms,
+                           "ms_repeat": dev_ms2, "ms_eager": eager,
+                           "parent_ms": par, "plain_ms": pms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "launch_floor_ms": floor_ms,
+                           "pages_per_split": pps, "splits": splits,
+                           "device_kernels_per_call": per_call})
+            if per_call != (1 if splits == 1 else 2):
+                failures.append(f"ragged {kv}/{name}: {per_call} device "
+                                f"kernels a call at {splits} splits")
     del pools
     torch.cuda.empty_cache()
+    wide_rows = flash_wide_timings(torch, fa, dev, gen)
     flash_rows, checks = flash_timings(torch, fa, dev, gen)
     for name, errs, ok in checks:
         log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
@@ -1297,6 +1617,7 @@ def main() -> int:
     fp32 = [t for t in timing if t["kv_dtype"] == "float32"]
     b_bytes = sum(t["bound_ms"] for t in fp32 if t["bound_by"] == "bytes")
     b_ops = sum(t["bound_ms"] for t in fp32 if t["bound_by"] != "bytes")
+    by_case = {t["case"]: t for t in fp32}
     kernels = [{
         "name": fa.KERNEL_NAME,
         "route": "cuda",
@@ -1304,12 +1625,27 @@ def main() -> int:
         "replaces": "paddle_tpu/kernels/flash_attention.py:181",
         "launches": launches,
         "max_abs_err": max_err,
-        # one call of each of the step's three shapes, float32 pool
+        # one call of each of the step's three shapes, float32 pool, on
+        # the device clock; ms_eager through the wrapper call by call
         "ms": sum(t["ms"] for t in fp32),
         "plain_ms": sum(t["plain_ms"] for t in fp32),
         "bound_ms": b_bytes + b_ops,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
         "library_ms": None,
+        "ms_eager": sum(t["ms_eager"] for t in fp32),
+        "parent_ms": (sum(t["parent_ms"] for t in fp32)
+                      if parent is not None else None),
+        "launch_floor_ms": floor_ms,
+        # device kernels one call runs: kernel nodes of a CUDA graph of
+        # 16 calls, over 16
+        "kernels_per_call": {c: t["device_kernels_per_call"]
+                             for c, t in by_case.items()},
+        "ms_by_case": {f"{t['kv_dtype']}/{t['case']}": t["ms"]
+                       for t in timing},
+        "extra_grids": extra_grids,
+        "parent_ms_by_case": ({f"{t['kv_dtype']}/{t['case']}":
+                               t["parent_ms"] for t in timing}
+                              if parent is not None else None),
     }]
     replaces = {"fwd": 527, "dq": 743, "dkv": 788}
     for k in ("fwd", "dq", "dkv"):
@@ -1335,7 +1671,9 @@ def main() -> int:
             "bound_ms": mix("bound_ms"),
             "bound_by": by.pop() if len(by) == 1 else "operations",
             "library_ms": mix("library_ms"),
-            "bound_fp32_ms": mix("bound_fp32_ms"), **extra})
+            "bound_fp32_ms": mix("bound_fp32_ms"),
+            "ms_by_width": {f"D{d}": r[k] for d, r in wide_rows.items()},
+            **extra})
     for t in timing:
         log(json.dumps(t))
     for r in flash_rows.values():

@@ -7,7 +7,7 @@
 // what those kernels and the plain `_xla_backward` compute, bias-free:
 //
 //   q, k, v, out, dout  as in the forward ('blhd' or 'bhld', fp32 or bf16,
-//                       D = 8, 16, 32 or 64)
+//                       D = 8, 16, 32, 64 or any multiple of 64 above)
 //   lse [B, H, Lq] fp32, +inf on dead rows
 //   dq like q, dk and dv like k, in the input dtype
 //
@@ -63,6 +63,20 @@
 //   * tiles wholly above the causal diagonal are skipped; ragged lengths
 //     are bounds checks (rows past Lq get lse = +inf, so p = 0).
 //
+// Heads wider than 64 (D = 64 * nc; the wrapper pads other widths up to
+// the next multiple of 64) run `dq_wide_kernel` and `dkv_wide_kernel`:
+// the same work split with a third grid axis over 64-column output
+// chunks.  A block streams every 64-column chunk of its operands through
+// double-buffered chunk tiles, one (tile, chunk) stage at a time,
+// accumulating s and dp over all nc chunks in registers; the chunks are
+// taken in the order oc + 1, ..., oc (mod nc), so the last stage leaves
+// chunk oc of k (dq) or of q and do (dk/dv) in shared memory for the
+// block's own output product.  delta = rowsum(out * dout) sums over the
+// chunks too: once before the key loop in dq, per query tile from the
+// stages' out chunks in dk/dv.  Shared memory stays that of 64-wide
+// tiles whatever D is, so any width runs; s and dp are recomputed per
+// output chunk, and speed at these widths is not tuned.
+//
 // Shared memory a block at D = 64 (fp32; bf16 half of it; narrower heads
 // in proportion), two blocks an SM:
 //   dq:    q, do and two k, v buffers, 6 x 16 KB = 98,304 bytes;
@@ -103,6 +117,122 @@ __device__ __forceinline__ float row_delta(const T* sO, const T* sdO, int r,
   return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
 }
 
+// x += a1.b1^T and y += a2.b2^T: the warp's 16 rows (wr + g, + 8) of
+// the [64][D] tiles a1 and a2 against all 64 rows of b1 and b2, as C
+// fragments (s and dp in dq; s^T and dp^T in dk/dv)
+template <int D, typename T>
+__device__ __forceinline__ void score_pair(float (&x)[8][4], float (&y)[8][4],
+                                           const T* a1, const T* a2,
+                                           const T* b1, const T* b2, int wr,
+                                           int g, int t) {
+  constexpr bool kLo = sizeof(T) == 4;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const int c = ks * 8 + 2 * t;
+    FragA f1, f2;
+    load_a<D, kLo>(f1, a1, wr + g, c);
+    load_a<D, kLo>(f2, a2, wr + g, c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      FragB h1, h2;
+      load_b_rows<D, kLo>(h1, b1, j * 8 + g, c);
+      load_b_rows<D, kLo>(h2, b2, j * 8 + g, c);
+      mma3<kLo, kLo>(x[j], f1, h1);
+      mma3<kLo, kLo>(y[j], f2, h2);
+    }
+  }
+}
+
+// dq's step for one key tile at k0: ds from s and dp in place of s (row
+// q0 + wr + g + 8 * (e / 2), key column k0 + 8j + 2t + e % 2), then
+// acc += ds.k, k-step j being keys 8j..8j+7; cK is the tile's k (a
+// 64-column chunk of it in the wide kernel)
+template <int D, typename T, bool kDrop>
+__device__ __forceinline__ void dq_step(float (&s)[8][4],
+                                        const float (&dp)[8][4],
+                                        float (&acc)[D / 8][4], const T* cK,
+                                        const float (&lse_r)[2],
+                                        const float (&delta_r)[2], int q0,
+                                        int k0, const TileCtx& c) {
+  constexpr bool kLo = sizeof(T) == 4;
+  const int wr = c.wr, g = c.g, t = c.t;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + wr + g + 8 * (e >> 1);
+      const int col = k0 + j * 8 + 2 * t + (e & 1);
+      const float x = live(r, col, c.Lk, c.causal, c.row_off, c.col_off)
+                          ? s[j][e] * c.sm_scale : kMask;
+      const float p = expf(x - lse_r[e >> 1]);
+      float gd = dp[j][e];
+      if (kDrop)
+        gd *= keep_of(c.seed, c.bh, c.row_off + r, c.col_off + col, c.thr,
+                      c.inv_keep);
+      s[j][e] = p * (gd - delta_r[e >> 1]) * c.sm_scale;
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    FragA ads;
+    c_to_a(ads, s[j]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      FragB bk;
+      load_b_cols<D, kLo>(bk, cK, j * 8 + 2 * t, n * 8 + g);
+      mma3<true, kLo>(acc[n], ads, bk);
+    }
+  }
+}
+
+// dk/dv's step for one query tile at q0: p * keep in place of s^T and ds
+// in place of dp^T (key row k0 + wr + g + 8 * (e / 2), query column
+// 8j + 2t + e % 2, whose lse and delta are sL and sD), then
+// dv += (p*keep)^T.do and dk += ds^T.q, k-step j being queries
+// 8j..8j+7; cQ and cdO are the tile's q and do (64-column chunks of them
+// in the wide kernel)
+template <int D, typename T, bool kDrop>
+__device__ __forceinline__ void dkv_step(float (&st)[8][4],
+                                         float (&dpt)[8][4],
+                                         float (&dk_acc)[D / 8][4],
+                                         float (&dv_acc)[D / 8][4],
+                                         const T* cQ, const T* cdO,
+                                         const float* sL, const float* sD,
+                                         int q0, int k0, const TileCtx& c) {
+  constexpr bool kLo = sizeof(T) == 4;
+  const int wr = c.wr, g = c.g, t = c.t;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + wr + g + 8 * (e >> 1);   // key position
+      const int lq = j * 8 + 2 * t + (e & 1);
+      const int r = q0 + lq;                         // query position
+      const float x = live(r, col, c.Lk, c.causal, c.row_off, c.col_off)
+                          ? st[j][e] * c.sm_scale : kMask;
+      const float p = expf(x - sL[lq]);
+      const float keep =
+          kDrop ? keep_of(c.seed, c.bh, c.row_off + r, c.col_off + col,
+                          c.thr, c.inv_keep)
+                : 1.0f;
+      st[j][e] = p * keep;
+      dpt[j][e] = p * (dpt[j][e] * keep - sD[lq]) * c.sm_scale;
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    FragA ap, ads;
+    c_to_a(ap, st[j]);
+    c_to_a(ads, dpt[j]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      FragB bo, bq;
+      load_b_cols<D, kLo>(bo, cdO, j * 8 + 2 * t, n * 8 + g);
+      load_b_cols<D, kLo>(bq, cQ, j * 8 + 2 * t, n * 8 + g);
+      mma3<true, kLo>(dv_acc[n], ap, bo);
+      mma3<true, kLo>(dk_acc[n], ads, bq);
+    }
+  }
+}
+
 template <int D, typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -123,6 +253,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wr = (threadIdx.x >> 5) * 16;  // the warp's first tile row
   const int g = lane >> 2;
   const int t = lane & 3;
+  const TileCtx tc{bh, wr, g, t, Lk, causal, row_off, col_off,
+                   sm_scale, inv_keep, seed, thr};
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // [BQ][D], swizzled
@@ -191,51 +323,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < NT; ++ks) {
-      const int c = ks * 8 + 2 * t;
-      FragA aq, ao;
-      load_a<D, kLo>(aq, sQ, wr + g, c);
-      load_a<D, kLo>(ao, sdO, wr + g, c);
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-        FragB bk, bv;
-        load_b_rows<D, kLo>(bk, cK, j * 8 + g, c);
-        load_b_rows<D, kLo>(bv, cV, j * 8 + g, c);
-        mma3<kLo, kLo>(s[j], aq, bk);
-        mma3<kLo, kLo>(dp[j], ao, bv);
-      }
-    }
-
-    // ds, in place of s; element e of step j is row g + 8 * (e / 2),
-    // key column 8j + 2t + e % 2
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q0 + wr + g + 8 * (e >> 1);
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const float x = live(r, col, Lk, causal, row_off, col_off)
-                            ? s[j][e] * sm_scale : kMask;
-        const float p = expf(x - lse_r[e >> 1]);
-        float gd = dp[j][e];
-        if (kDrop)
-          gd *= keep_of(seed, bh, row_off + r, col_off + col, thr, inv_keep);
-        s[j][e] = p * (gd - delta_r[e >> 1]) * sm_scale;
-      }
-
-    // dq += ds.k: k-step j is keys 8j..8j+7, whose ds is s[j]
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      FragA ads;
-      c_to_a(ads, s[j]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        FragB bk;
-        load_b_cols<D, kLo>(bk, cK, j * 8 + 2 * t, n * 8 + g);
-        mma3<true, kLo>(acc[n], ads, bk);
-      }
-    }
+    score_pair<D>(s, dp, sQ, sdO, cK, cV, wr, g, t);
+    dq_step<D, T, kDrop>(s, dp, acc, cK, lse_r, delta_r, q0, k0, tc);
   }
 
   T* dqb = dq + qoff;
@@ -273,6 +362,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wr = (threadIdx.x >> 5) * 16;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const TileCtx tc{bh, wr, g, t, Lk, causal, row_off, col_off,
+                   sm_scale, inv_keep, seed, thr};
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);  // [BK][D], swizzled
@@ -349,57 +440,9 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < NT; ++ks) {
-      const int c = ks * 8 + 2 * t;
-      FragA ak, av;
-      load_a<D, kLo>(ak, sK, wr + g, c);
-      load_a<D, kLo>(av, sV, wr + g, c);
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        FragB bq, bo;
-        load_b_rows<D, kLo>(bq, cQ, j * 8 + g, c);
-        load_b_rows<D, kLo>(bo, cdO, j * 8 + g, c);
-        mma3<kLo, kLo>(st[j], ak, bq);
-        mma3<kLo, kLo>(dpt[j], av, bo);
-      }
-    }
-
-    // p * keep in place of s^T and ds in place of dp^T; element e of step
-    // j is key row g + 8 * (e / 2), query column 8j + 2t + e % 2
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + wr + g + 8 * (e >> 1);   // key position
-        const int lq = j * 8 + 2 * t + (e & 1);
-        const int r = q0 + lq;                         // query position
-        const float x = live(r, col, Lk, causal, row_off, col_off)
-                            ? st[j][e] * sm_scale : kMask;
-        const float p = expf(x - sL[lq]);
-        const float keep =
-            kDrop ? keep_of(seed, bh, row_off + r, col_off + col, thr,
-                            inv_keep)
-                  : 1.0f;
-        st[j][e] = p * keep;
-        dpt[j][e] = p * (dpt[j][e] * keep - sD[lq]) * sm_scale;
-      }
-
-    // dv += (p*keep)^T.do and dk += ds^T.q: k-step j is queries 8j..8j+7
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-      FragA ap, ads;
-      c_to_a(ap, st[j]);
-      c_to_a(ads, dpt[j]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        FragB bo, bq;
-        load_b_cols<D, kLo>(bo, cdO, j * 8 + 2 * t, n * 8 + g);
-        load_b_cols<D, kLo>(bq, cQ, j * 8 + 2 * t, n * 8 + g);
-        mma3<true, kLo>(dv_acc[n], ap, bo);
-        mma3<true, kLo>(dk_acc[n], ads, bq);
-      }
-    }
+    score_pair<D>(st, dpt, sK, sV, cQ, cdO, wr, g, t);
+    dkv_step<D, T, kDrop>(st, dpt, dk_acc, dv_acc, cQ, cdO, sL, sD, q0, k0,
+                          tc);
   }
 
 #pragma unroll
@@ -409,6 +452,258 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const long long at_ = koff + c * sk_.l + n * 8 + 2 * t;
+      st2(dk + at_, dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      st2(dv + at_, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// -- D = 64 * nc: chunked over the head width --------------------------------
+
+template <typename T>
+constexpr size_t dq_wide_smem() {       // 2 x (q, do, k, v) chunk tiles
+  return sizeof(T) * (size_t)2 * (2 * BQ + 2 * BK) * 64;
+}
+template <typename T>
+constexpr size_t dkv_wide_smem() {      // 2 x (k, v, q, do, out); lse, delta
+  return sizeof(T) * (size_t)2 * (2 * BK + 3 * BQ) * 64 +
+         2 * BQ * sizeof(float);
+}
+
+// one block per (query tile, batch*head, output chunk oc); a stage is one
+// (key tile, input chunk)
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ out,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               T* __restrict__ dq, int H, int Lq, int Lk, Strides sq_,
+               Strides sk_, float sm_scale, int causal, int row_off,
+               int col_off, float rate, float inv_keep, uint32_t seed,
+               int nc) {
+  constexpr int D = 64;
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int NT = D / 8;
+  constexpr int NK = BK / 8;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * BQ;
+  const int oc = blockIdx.z;
+  const uint32_t thr = keep_threshold(rate);
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const TileCtx tc{bh, wr, g, t, Lk, causal, row_off, col_off,
+                   sm_scale, inv_keep, seed, thr};
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [2][BQ][64], swizzled
+  T* sdO = sQ + 2 * BQ * D;                // [2][BQ][64]
+  T* sK = sdO + 2 * BQ * D;                // [2][BK][64]
+  T* sV = sK + 2 * BK * D;                 // [2][BK][64]
+
+  const long long qoff = b * sq_.b + h * sq_.h;
+  const long long koff = b * sk_.b + h * sk_.h;
+  const int n_tiles =
+      (live_keys(q0, Lq, Lk, causal, row_off, col_off) + BK - 1) / BK;
+  const int n_stages = n_tiles * nc;
+
+  // delta of the warp's rows over all chunks of out and do, through the
+  // first q and do buffers, before the key loop
+  float dsum = 0.0f;
+  for (int c = 0; c < nc; ++c) {
+    cp_tile<BQ, D, kThreads>(sQ, out + qoff + c * D, sq_.l, q0, Lq);
+    cp_tile<BQ, D, kThreads>(sdO, dout + qoff + c * D, sq_.l, q0, Lq);
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
+    dsum += row_delta<D>(sQ, sdO, wr + (lane >> 1), lane & 1);
+    __syncthreads();
+  }
+  float lse_r[2], delta_r[2];
+  delta_r[0] = __shfl_sync(0xffffffffu, dsum, 2 * g);
+  delta_r[1] = __shfl_sync(0xffffffffu, dsum, 2 * g + 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wr + g + 8 * i;
+    lse_r[i] = r < Lq ? lse[(long long)bh * Lq + r] : INFINITY;
+  }
+
+  // stage st: key tile st / nc, chunk (oc + 1 + st % nc) % nc
+  auto copy_stage = [&](int st) {
+    const int kt = st / nc, i = st - kt * nc, buf = st & 1;
+    const int c = (oc + 1 + i) % nc;
+    cp_tile<BQ, D, kThreads>(sQ + buf * BQ * D, q + qoff + c * D, sq_.l, q0,
+                             Lq);
+    cp_tile<BQ, D, kThreads>(sdO + buf * BQ * D, dout + qoff + c * D, sq_.l,
+                             q0, Lq);
+    cp_tile<BK, D, kThreads>(sK + buf * BK * D, k + koff + c * D, sk_.l,
+                             kt * BK, Lk);
+    cp_tile<BK, D, kThreads>(sV + buf * BK * D, v + koff + c * D, sk_.l,
+                             kt * BK, Lk);
+    cp_commit();
+  };
+  if (n_stages > 0) copy_stage(0);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float s[NK][4], dp[NK][4];
+
+  for (int st = 0; st < n_stages; ++st) {
+    const int kt = st / nc, i = st - kt * nc, buf = st & 1;
+    const int k0 = kt * BK;
+    const T* cQ = sQ + buf * BQ * D;
+    const T* cdO = sdO + buf * BQ * D;
+    const T* cK = sK + buf * BK * D;
+    const T* cV = sV + buf * BK * D;
+    cp_wait_all();
+    __syncthreads();
+    if (st + 1 < n_stages) copy_stage(st + 1);
+
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    }
+    score_pair<D>(s, dp, cQ, cdO, cK, cV, wr, g, t);
+    if (i != nc - 1) continue;
+    // chunk oc of k, which this last stage holds
+    dq_step<D, T, kDrop>(s, dp, acc, cK, lse_r, delta_r, q0, k0, tc);
+  }
+
+  T* dqb = dq + qoff + oc * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wr + g + 8 * i;
+    if (r >= Lq) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      st2(dqb + r * sq_.l + n * 8 + 2 * t, acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// one block per (key tile, batch*head, output chunk oc); a stage is one
+// (query tile, input chunk) and copies that chunk of k, v, q, do and out
+template <typename T, bool kDrop>
+__global__ void __launch_bounds__(kThreads)
+dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ out,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk,
+                Strides sq_, Strides sk_, float sm_scale, int causal,
+                int row_off, int col_off, float rate, float inv_keep,
+                uint32_t seed, int nc) {
+  constexpr int D = 64;
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int NT = D / 8;
+  constexpr int NQ = BQ / 8;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * BK;
+  const int oc = blockIdx.z;
+  const uint32_t thr = keep_threshold(rate);
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const TileCtx tc{bh, wr, g, t, Lk, causal, row_off, col_off,
+                   sm_scale, inv_keep, seed, thr};
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [2][BK][64], swizzled
+  T* sV = sK + 2 * BK * D;                 // [2][BK][64]
+  T* sQ = sV + 2 * BK * D;                 // [2][BQ][64]
+  T* sdO = sQ + 2 * BQ * D;                // [2][BQ][64]
+  T* sO = sdO + 2 * BQ * D;                // [2][BQ][64]
+  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * D);  // [BQ] lse
+  float* sD = sL + BQ;                                    // [BQ] delta
+
+  const long long qoff = b * sq_.b + h * sq_.h;
+  const long long koff = b * sk_.b + h * sk_.h;
+  int qt0 = 0;
+  if (causal) qt0 = max(0, col_off + k0 - row_off) / BQ;
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  const int n_stages = max(0, n_qt - qt0) * nc;
+  const long long lrow = (long long)bh * Lq;
+
+  // stage st: query tile qt0 + st / nc, chunk (oc + 1 + st % nc) % nc
+  auto copy_stage = [&](int st) {
+    const int qi = st / nc, i = st - qi * nc, buf = st & 1;
+    const int q0 = (qt0 + qi) * BQ;
+    const int c = (oc + 1 + i) % nc;
+    cp_tile<BK, D, kThreads>(sK + buf * BK * D, k + koff + c * D, sk_.l, k0,
+                             Lk);
+    cp_tile<BK, D, kThreads>(sV + buf * BK * D, v + koff + c * D, sk_.l, k0,
+                             Lk);
+    cp_tile<BQ, D, kThreads>(sQ + buf * BQ * D, q + qoff + c * D, sq_.l, q0,
+                             Lq);
+    cp_tile<BQ, D, kThreads>(sdO + buf * BQ * D, dout + qoff + c * D, sq_.l,
+                             q0, Lq);
+    cp_tile<BQ, D, kThreads>(sO + buf * BQ * D, out + qoff + c * D, sq_.l,
+                             q0, Lq);
+    cp_commit();
+  };
+  if (n_stages > 0) copy_stage(0);
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+  float st_[NQ][4], dpt[NQ][4];
+  float dsum = 0.0f;          // delta of query row threadIdx.x / 2
+
+  for (int st = 0; st < n_stages; ++st) {
+    const int qi = st / nc, i = st - qi * nc, buf = st & 1;
+    const int q0 = (qt0 + qi) * BQ;
+    const T* cK = sK + buf * BK * D;
+    const T* cV = sV + buf * BK * D;
+    const T* cQ = sQ + buf * BQ * D;
+    const T* cdO = sdO + buf * BQ * D;
+    cp_wait_all();
+    __syncthreads();
+    if (st + 1 < n_stages) copy_stage(st + 1);
+
+    if (i == 0) {
+      dsum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st_[j][e] = dpt[j][e] = 0.0f;
+    }
+    dsum += row_delta<D>(sO + buf * BQ * D, cdO, threadIdx.x >> 1,
+                         threadIdx.x & 1);
+    score_pair<D>(st_, dpt, cK, cV, cQ, cdO, wr, g, t);
+    if (i != nc - 1) continue;
+
+    // the query tile's lse and delta, visible to every warp (the last
+    // reads of the previous tile's came before this stage's barrier)
+    if (threadIdx.x < BQ)
+      sL[threadIdx.x] =
+          q0 + (int)threadIdx.x < Lq ? lse[lrow + q0 + threadIdx.x]
+                                     : INFINITY;
+    if ((threadIdx.x & 1) == 0) sD[threadIdx.x >> 1] = dsum;
+    __syncthreads();
+
+    // chunk oc of do and q, which this last stage holds
+    dkv_step<D, T, kDrop>(st_, dpt, dk_acc, dv_acc, cQ, cdO, sL, sD, q0, k0,
+                          tc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = k0 + wr + g + 8 * i;
+    if (c >= Lk) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const long long at_ = koff + c * sk_.l + oc * D + n * 8 + 2 * t;
       st2(dk + at_, dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
       st2(dv + at_, dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
     }
@@ -481,8 +776,50 @@ int launch(bool dkv, const BwdArgs& a, cudaStream_t stream) {
              : launch_dq<D, T, false>(a, stream);
 }
 
+template <typename T, bool kDrop>
+int launch_dq_wide(int nc, const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = dq_wide_smem<T>();
+  auto kernel = dq_wide_kernel<T, kDrop>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Lq + BQ - 1) / BQ, a.B * a.H, nc);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.out),
+      static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dq), a.H,
+      a.Lq, a.Lk, a.sq, a.sk, a.sm_scale, a.causal, a.row_off, a.col_off,
+      a.rate, a.inv_keep, a.seed, nc);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kDrop>
+int launch_dkv_wide(int nc, const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = dkv_wide_smem<T>();
+  auto kernel = dkv_wide_kernel<T, kDrop>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Lk + BK - 1) / BK, a.B * a.H, nc);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.out),
+      static_cast<const T*>(a.dout), a.lse, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.H, a.Lq, a.Lk, a.sq, a.sk, a.sm_scale,
+      a.causal, a.row_off, a.col_off, a.rate, a.inv_keep, a.seed, nc);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide(bool dkv, int nc, const BwdArgs& a, cudaStream_t stream) {
+  if (a.rate > 0.0f)
+    return dkv ? launch_dkv_wide<T, true>(nc, a, stream)
+               : launch_dq_wide<T, true>(nc, a, stream);
+  return dkv ? launch_dkv_wide<T, false>(nc, a, stream)
+             : launch_dq_wide<T, false>(nc, a, stream);
+}
+
 // the head widths of the repo's configurations and the reference's
-// kernel tests; the wrapper pads any other width up to 64 to the next
+// kernel tests, and any multiple of 64 above them (the wide kernels);
+// the wrapper pads every other width up to the next of those
 template <typename T>
 int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
   switch (D) {
@@ -490,7 +827,10 @@ int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
     case 16: return launch<16, T>(dkv, a, stream);
     case 32: return launch<32, T>(dkv, a, stream);
     case 64: return launch<64, T>(dkv, a, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (D > 64 && D % 64 == 0)
+        return launch_wide<T>(dkv, D / 64, a, stream);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -517,13 +857,13 @@ int run(bool dkv, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dynamic shared memory of one block, in bytes, for fp32 inputs (bf16
-// inputs take half the tile bytes)
+// inputs take half the tile bytes); D > 64 uses 64-wide chunk tiles
 size_t flash_attention_dq_smem_bytes(int D) {
-  return flash::dq_smem<float>(D);
+  return D > 64 ? flash::dq_wide_smem<float>() : flash::dq_smem<float>(D);
 }
 
 size_t flash_attention_dkv_smem_bytes(int D) {
-  return flash::dkv_smem<float>(D);
+  return D > 64 ? flash::dkv_wide_smem<float>() : flash::dkv_smem<float>(D);
 }
 
 // dq of the bias-free flash attention.  dtype: 0 fp32, 1 bf16; strides

@@ -74,4 +74,15 @@ __device__ __forceinline__ int live_keys(int q0, int Lq, int Lk, int causal,
   return max(0, min(Lk, last_row - col_off + 1));
 }
 
+// what the per-tile steps of a kernel (flash_attention_fwd.cu
+// softmax_pv, flash_attention_bwd.cu dq_step / dkv_step) need besides
+// their fragments: the thread's place in the block's tile (warp row wr,
+// fragment coordinates g = lane / 4 and t = lane % 4), the masks and the
+// dropout hash of the call
+struct TileCtx {
+  int bh, wr, g, t, Lk, causal, row_off, col_off;
+  float sm_scale, inv_keep;
+  uint32_t seed, thr;
+};
+
 }  // namespace flash

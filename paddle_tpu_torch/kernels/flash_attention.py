@@ -15,10 +15,10 @@ dq and dk/dv kernels of ``csrc/flash_attention_bwd.cu`` (the ports of
 plain backward on every device, as the reference routes it.  For CPU
 tensors ``flash_forward_plain`` / ``flash_backward_plain`` run, the
 counterparts of the reference's ``_xla_forward`` / ``_xla_backward``.
-The kernels are built for head widths 8, 16, 32 and 64; the wrappers
-zero-pad any other width below 64 to the next of those and slice the
-results back (exact: zero columns change no product), and refuse a
-width above 64 with ``NotImplementedError``.
+The kernels are built for head widths 8, 16, 32 and 64, and for any
+multiple of 64 above them (the wide kernels, in 64-column chunks); the
+wrappers zero-pad every other width to the next of those and slice the
+results back (exact: zero columns change no product).
 
 Serving half.  The paged KV pool is ONE tensor ``[H, R, page_size, D]``
 (head-major: one head's page is a contiguous ``page_size x D`` slab).  A
@@ -28,8 +28,10 @@ Per-request block tables hold logical page ids; page 0 is the trash page
 dead lanes write into.  ``ragged_decode_attention`` is the entry the
 model calls: for a CUDA tensor it launches
 ``csrc/ragged_paged_attention.cu`` (the port of the TPU kernel
-``_ragged_kernel``); for a CPU tensor it runs ``ragged_attention_plain``,
-the counterpart of the reference's ``_ragged_xla``.
+``_ragged_kernel``), whose page walk ``ragged_plan`` splits across
+blocks (a second kernel merges the splits); for a CPU tensor it runs
+``ragged_attention_plain``, the counterpart of the reference's
+``_ragged_xla``.
 
 Nothing falls back: on a CUDA tensor a wrapper launches its kernel or
 raises.  Each wrapper counts its launches (``flash_attention.launches``,
@@ -45,7 +47,8 @@ from typing import Optional
 import torch
 
 __all__ = ["paged_kv_rows", "ragged_attention_plain",
-           "ragged_decode_attention", "KERNEL_NAME", "FLASH_KERNELS",
+           "ragged_decode_attention", "ragged_plan", "KERNEL_NAME",
+           "FLASH_KERNELS",
            "DEFAULT_MASK_VALUE", "keep_scale", "flash_attention",
            "flash_forward_plain", "flash_backward_plain"]
 
@@ -110,18 +113,53 @@ def ragged_attention_plain(q, pool, page_table, lengths, q_base, layer,
 
 @functools.lru_cache(maxsize=1)
 def _kernel_fn():
-    """The C entry point, built and bound at first use."""
+    """The C entries, built and bound at first use: the kernel, its
+    shared-memory size, and one empty launch (the timing floor)."""
     from ._build import load_library
 
     lib = load_library(KERNEL_NAME)
     fn = lib.ragged_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     smem = lib.ragged_paged_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
+    smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_size_t
-    return fn, smem
+    empty = lib.ragged_paged_attention_empty_launch
+    empty.argtypes = [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    return fn, smem, empty
+
+
+# blocks the ragged kernel's grid aims for, per SM: enough in flight
+# that one block's page loads overlap others' arithmetic (at the serving
+# shapes, one page a split)
+RAGGED_BLOCKS_PER_SM = 8
+
+
+def ragged_plan(B: int, H: int, P: int, sms: int):
+    """The ragged kernel's page split -> ``(pages_per_split, splits)``;
+    its grid is (split, head, lane).
+
+    Split s of a (lane, head) walks pages [s * pps, (s + 1) * pps) of
+    the lane's table (those below its length); ``splits = ceil(P /
+    pps)`` covers every page below P exactly once.  Sized from what the
+    host knows, never from the lengths (on the card in the serving step;
+    reading them is a sync): as many splits as give RAGGED_BLOCKS_PER_SM
+    blocks per SM over the B * H (lane, head) pairs, at most one a page.
+    The chunk's rows, the page size and the pool's type do not enter."""
+    if min(B, H, P, sms) < 1:
+        raise ValueError(f"ragged_plan: sizes must be positive, got "
+                         f"{(B, H, P, sms)}")
+    want = -(-RAGGED_BLOCKS_PER_SM * sms // (B * H))
+    pps = -(-P // min(P, want))
+    return pps, -(-P // pps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(cond: bool, what: str) -> None:
@@ -131,13 +169,17 @@ def _check(cond: bool, what: str) -> None:
 
 def _ragged_cuda(q, pool, page_table, lengths, q_base, layer, n_layer,
                  causal, sm_scale, scales):
-    """Validate and launch the CUDA kernel on the current stream."""
+    """Validate and launch the CUDA kernels on the current stream: the
+    split kernel and, with more than one split, the merge kernel.  The
+    ``(pages_per_split, splits)`` launched is kept in
+    ``ragged_decode_attention.last_plan``."""
     dev = q.device
     _check(q.dim() == 4 and pool.dim() == 4 and page_table.dim() == 2,
            "q [B, C, H, D], pool [H, R, ps, D] and page_table [B, P] "
            "expected")
     b, c, h, d = q.shape
     ph, r, ps, pd = pool.shape
+    n_pages = page_table.shape[1]
     _check((ph, pd) == (h, d), f"pool heads/width {(ph, pd)} != q's "
            f"{(h, d)}")
     _check(q.dtype == torch.float32, f"q must be float32, got {q.dtype}")
@@ -146,8 +188,9 @@ def _ragged_cuda(q, pool, page_table, lengths, q_base, layer, n_layer,
     _check(r % 2 == 0 and 0 <= layer < n_layer,
            "pool rows must pair K and V, and 0 <= layer < n_layer")
     _check(tuple(page_table.shape[:1]) == (b,) and lengths.shape == (b,)
-           and q_base.shape == (b,), "page_table, lengths and q_base "
-           "must have one row per lane")
+           and q_base.shape == (b,) and n_pages > 0 and c > 0,
+           "page_table, lengths and q_base must have one row per lane, "
+           "the table a page and q a row")
     tensors = [q, pool, page_table, lengths, q_base]
     if pool.dtype == torch.int8:
         _check(scales is not None, "an int8 pool needs its scales")
@@ -163,22 +206,28 @@ def _ragged_cuda(q, pool, page_table, lengths, q_base, layer, n_layer,
     for t in (page_table, lengths, q_base):
         _check(t.dtype == torch.int32, f"index tensors must be int32, "
                f"got {t.dtype}")
-    fn, smem_fn = _kernel_fn()
-    smem = smem_fn(c, ps, d)
+    pps, splits = ragged_plan(b, h, n_pages, _sm_count(dev.index or 0))
+    fn, smem_fn, _ = _kernel_fn()
+    dtype = _POOL_DTYPES[pool.dtype]
+    smem = smem_fn(c, ps, d, dtype)
     _check(smem <= _SMEM_LIMIT, f"needs {smem} bytes of shared memory per "
            f"block, sm_90 allows {_SMEM_LIMIT}")
     out = torch.empty_like(q)
+    # the splits' partials: acc [B, H, S, C, D], then m, l, kept
+    ws = (torch.empty(b * h * splits * c * (d + 3), dtype=torch.float32,
+                      device=dev) if splits > 1 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), pool.data_ptr(),
              scales.data_ptr() if scales is not None else None,
              page_table.data_ptr(), lengths.data_ptr(), q_base.data_ptr(),
-             out.data_ptr(), b, c, h, r, ps, d, page_table.shape[1],
-             int(layer), int(n_layer), int(bool(causal)), float(sm_scale),
-             _POOL_DTYPES[pool.dtype], stream)
+             out.data_ptr(), ws.data_ptr() if ws is not None else None,
+             b, c, h, r, ps, d, n_pages, int(layer), int(n_layer),
+             int(bool(causal)), float(sm_scale), pps, dtype, stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     ragged_decode_attention.launches += 1
+    ragged_decode_attention.last_plan = (pps, splits)
     return out
 
 
@@ -220,6 +269,7 @@ def ragged_decode_attention(q, pool, page_table, lengths, q_base=None, *,
 
 
 ragged_decode_attention.launches = 0     # kernel launches, CUDA path only
+ragged_decode_attention.last_plan = None  # (pages_per_split, splits)
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +284,11 @@ FLASH_KERNELS = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd",
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths the kernels are built for: every width a configuration
-# of the repo (d_key 8, 16, 32, 64) and the reference's kernel tests use
+# of the repo (d_key 8, 16, 32, 64) and the reference's kernel tests use;
+# a wider head runs the wide kernels, which take any multiple of
+# _WIDE_CHUNK as that many 64-column chunks
 _FLASH_WIDTHS = (8, 16, 32, 64)
+_WIDE_CHUNK = 64
 _U32 = 0xFFFFFFFF
 
 
@@ -418,15 +471,14 @@ def _fcheck(cond: bool, what: str) -> None:
 
 
 def _kernel_width(d: int) -> int:
-    """The narrowest head width the kernels are built for that holds
-    ``d``; a width above the widest raises ``NotImplementedError``."""
+    """The head width the kernels launch with for a head of width ``d``:
+    the narrowest built width (8, 16, 32, 64) that holds it, and above
+    64 the next multiple of 64, which the wide kernels take as 64-column
+    chunks."""
     for w in _FLASH_WIDTHS:
         if d <= w:
             return w
-    raise NotImplementedError(
-        f"flash_attention (CUDA kernel): head width {d} > "
-        f"{_FLASH_WIDTHS[-1]} is not built; the kernels take widths "
-        f"{_FLASH_WIDTHS} and pad narrower ones")
+    return -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
 
 
 def _pad_width(xs, w: int):
@@ -457,8 +509,9 @@ def _flash_geometry(q, k, v, layout, extra=()):
             "bfloat16")
     if _kernel_width(d) != d:
         raise ValueError(f"flash_attention (CUDA kernel): head width {d} "
-                         f"is not built (widths {_FLASH_WIDTHS}); pad it "
-                         f"to {_kernel_width(d)}")
+                         f"is not built (widths {_FLASH_WIDTHS} and "
+                         f"multiples of {_WIDE_CHUNK}); pad it to "
+                         f"{_kernel_width(d)}")
     for t in (q, k, v, *extra):
         _fcheck(t.device == q.device, f"tensor on {t.device}, expected "
                 f"{q.device}")

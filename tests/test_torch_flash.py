@@ -208,26 +208,25 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("d", [8, 16, 32, 64, 80, 128])
 def test_kernel_head_widths(d):
     """The kernels are built for D = 8, 16, 32 and 64, every width the
-    repo's configurations and the reference's kernel tests use; a wider
-    head raises NotImplementedError naming its width from every wrapper,
-    before any build or launch."""
+    repo's configurations and the reference's kernel tests use, and take
+    any multiple of 64 above them as 64-column chunks (the wide kernels).
+    A wider head launches at the next multiple of 64 (80 and 128 both at
+    128, two chunks) with the strides of that width; the unpadded 80 is
+    refused by the geometry check, which the wrappers only reach padded."""
     b, h, lq, lk = 1, 2, 4, 4
+    w = tfa._kernel_width(d)
+    assert w == (d if d <= 64 else 128)
     q = torch.zeros(b, lq, h, d)
     k = torch.zeros(b, lk, h, d)
-    if d <= 64:
-        dims, strides = tfa._flash_geometry(q, k, k, "blhd")
-        assert dims == (b, h, lq, lk, d)
-        assert strides == (lq * h * d, d, h * d, lk * h * d, d, h * d)
-        return
-    lse = torch.zeros(b, h, lq)
-    cfg = (False, d ** -0.5, 0.0, 0, "blhd", (0, 0))
-    with pytest.raises(NotImplementedError, match=f"head width {d}"):
-        tfa._flash_geometry(q, k, k, "blhd")
-    with pytest.raises(NotImplementedError, match=f"head width {d}"):
-        tfa._flash_fwd_cuda(q, k, k, None, *cfg)
-    for fn in (tfa._flash_dq_cuda, tfa._flash_dkv_cuda):
-        with pytest.raises(NotImplementedError, match=f"head width {d}"):
-            fn(q, k, k, q, q, lse, *cfg)
+    if w != d:
+        with pytest.raises(ValueError, match=f"head width {d} .* pad it "
+                           f"to {w}"):
+            tfa._flash_geometry(q, k, k, "blhd")
+        q, k = tfa._pad_width((q, k), w)
+    dims, strides = tfa._flash_geometry(q, k, k, "blhd")
+    assert dims == (b, h, lq, lk, w)
+    assert strides == (lq * h * w, w, h * w, lk * h * w, w, h * w)
+    assert (w // tfa._WIDE_CHUNK if w > 64 else 1) == (2 if d > 64 else 1)
 
 
 @pytest.mark.parametrize("d", [24, 40])
@@ -408,3 +407,128 @@ def test_3xtf32_forward_holds_the_fp32_tolerance(causal):
             1.0, float(np.abs(w).max())) for g, w in zip(got, want)]
     print(f"max |error| / max(1, magnitude) of out, lse: {errs}")
     assert max(errs["3xtf32"]) <= FLASH_TOL_F32, errs
+
+
+# -- heads wider than 64: the wide kernels' work split over 64-column chunks
+
+def _chunk_order(oc, nc):
+    """The input chunks in the order a wide block takes them: oc + 1,
+    ..., oc (mod nc), so the last stage holds the block's own chunk."""
+    return [(oc + 1 + i) % nc for i in range(nc)]
+
+
+def _wide_forward(q, k, v, causal, rate, seed, sm_scale, chunk=64, tile=64):
+    """fwd_wide_kernel's arithmetic on [B, H, L, Dp] float32 tensors, Dp a
+    multiple of ``chunk``: per output chunk oc, an online softmax over
+    ``tile``-key tiles with s = q.k^T summed over the input chunks in
+    order, scaled and masked, and o_oc += p.v_oc.  Returns (out, lse)."""
+    nc = q.shape[-1] // chunk
+    lq, lk = q.shape[2], k.shape[2]
+    rows = torch.arange(lq)
+    out = torch.zeros(q.shape)
+    for oc in range(nc):
+        ocs = slice(oc * chunk, (oc + 1) * chunk)
+        m = torch.full(q.shape[:3], -float("inf"))
+        l = torch.zeros(q.shape[:3])
+        acc = torch.zeros(q.shape[:3] + (chunk,))
+        for k0 in range(0, lk, tile):
+            cols = torch.arange(k0, min(k0 + tile, lk))
+            s = torch.zeros(q.shape[:3] + (len(cols),))
+            for c in range(nc):
+                cs = slice(c * chunk, (c + 1) * chunk)
+                s = s + torch.matmul(q[..., cs],
+                                     k[:, :, cols][..., cs].transpose(-1, -2))
+            s = s * sm_scale
+            if causal:
+                s = s.masked_fill(rows[:, None] < cols[None, :],
+                                  tfa.DEFAULT_MASK_VALUE)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = alpha * l + p.sum(dim=-1)
+            p = p * tfa._plain_keep(q, rows, cols, rate, seed)
+            acc = acc * alpha[..., None] + torch.matmul(p, v[:, :, cols][
+                ..., ocs])
+            m = m_new
+        out[..., ocs] = acc / l[..., None]
+        if oc == 0:
+            lse = m + torch.log(l)
+    return out, lse
+
+
+def _wide_backward(q, k, v, out, dout, lse, causal, rate, seed, sm_scale,
+                   chunk=64, tile=64):
+    """dq_wide_kernel's and dkv_wide_kernel's arithmetic on [B, H, L, Dp]
+    float32 tensors: per output chunk oc and (query tile, key tile), s
+    and dp summed over the input chunks in the wide kernels' order, delta
+    = rowsum(out * do) over the chunks, ds = p * (dp * keep - delta) *
+    scale; dq_oc += ds.k_oc, dk_oc += ds^T.q_oc, dv_oc += (p * keep)^T.
+    do_oc.  Returns (dq, dk, dv)."""
+    nc = q.shape[-1] // chunk
+    lq, lk = q.shape[2], k.shape[2]
+    grads = [torch.zeros(x.shape) for x in (q, k, v)]
+    for oc in range(nc):
+        ocs = slice(oc * chunk, (oc + 1) * chunk)
+        order = [slice(c * chunk, (c + 1) * chunk)
+                 for c in _chunk_order(oc, nc)]
+        for q0 in range(0, lq, tile):
+            rows = torch.arange(q0, min(q0 + tile, lq))
+            delta = sum((out[:, :, rows][..., cs] * dout[:, :, rows][..., cs])
+                        .sum(dim=-1) for cs in order)
+            for k0 in range(0, lk, tile):
+                cols = torch.arange(k0, min(k0 + tile, lk))
+                s = sum(torch.matmul(q[:, :, rows][..., cs], k[:, :, cols][
+                    ..., cs].transpose(-1, -2)) for cs in order) * sm_scale
+                dp = sum(torch.matmul(dout[:, :, rows][..., cs], v[:, :, cols][
+                    ..., cs].transpose(-1, -2)) for cs in order)
+                if causal:
+                    s = s.masked_fill(rows[:, None] < cols[None, :],
+                                      tfa.DEFAULT_MASK_VALUE)
+                p = torch.exp(s - lse[:, :, rows][..., None])
+                keep = tfa._plain_keep(q, rows, cols, rate, seed)
+                ds = p * (dp * keep - delta[..., None]) * sm_scale
+                grads[0][:, :, rows, ocs] += torch.matmul(
+                    ds, k[:, :, cols][..., ocs])
+                grads[1][:, :, cols, ocs] += torch.matmul(
+                    ds.transpose(-1, -2), q[:, :, rows][..., ocs])
+                grads[2][:, :, cols, ocs] += torch.matmul(
+                    (p * keep).transpose(-1, -2), dout[:, :, rows][..., ocs])
+    return grads
+
+
+@pytest.mark.parametrize("d", [80, 128, 256])
+def test_wide_chunked_split_matches_reference(d, pallas_bwd):
+    """The wide kernels' work split, emulated in plain PyTorch on the
+    inputs zero-padded to the next multiple of 64 (s and dp summed over
+    64-column chunks, one output chunk at a time, with the true width's
+    sm_scale), matches the reference's Pallas forward and its Pallas dq
+    and dk/dv kernels in interpret mode on the unpadded inputs: out, lse,
+    dq, dk and dv within 1e-5 of max(1, magnitude), causal, dropout 0.1,
+    Lq = Lk = 80 (a full and a ragged 64-row tile)."""
+    r = np.random.RandomState(d)
+    q, k, v, w = (r.randn(1, 2, 80, d).astype(np.float32) for _ in range(4))
+    rate, seed, scale = 0.1, 11, d ** -0.5
+    kw = dict(causal=True, dropout_rate=rate, dropout_seed=seed,
+              layout="bhld", impl="pallas_interpret")
+    want_out = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+    _, want_lse = jfa._xla_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None,
+        jfa.seed_to_carrier(seed), None, scale, True, None, 80, rate)
+    want_grads = jax.grad(
+        lambda *a: (jfa.flash_attention(*a, **kw) * w).sum(),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    wide = tfa._kernel_width(d)
+    pq, pk, pv = tfa._pad_width((T(q), T(k), T(v)), wide)
+    out, lse = _wide_forward(pq, pk, pv, True, rate, seed, scale)
+    assert not out[..., d:].any()
+    pout, pdo = tfa._pad_width((out[..., :d], T(w)), wide)
+    grads = _wide_backward(pq, pk, pv, pout, pdo, lse, True, rate, seed,
+                           scale)
+    got = [out[..., :d], lse] + [g[..., :d] for g in grads]
+    want = [want_out, np.asarray(want_lse)] + [np.asarray(g)
+                                               for g in want_grads]
+    for name, g, wt in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        err = float(np.abs(g.numpy() - wt).max())
+        assert err <= 1e-5 * max(1.0, float(np.abs(wt).max())), (name, err)

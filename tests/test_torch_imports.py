@@ -1,7 +1,8 @@
 """The port stands alone, and its entry points never fall back silently.
 
-* ``paddle_tpu_torch`` (every module) and ``chip_smoke`` import in a
-  process where importing ``jax`` or ``paddle_tpu`` raises.
+* ``paddle_tpu_torch`` (every module), ``chip_smoke`` and
+  ``profile_serving`` import in a process where importing ``jax`` or
+  ``paddle_tpu`` raises.
 * Without CUDA, an entry point raises unless the caller asks for the
   CPU by name (``device="cpu"``, ``fluid.CPUPlace()``); ``chip_smoke.py`` exits non-zero and prints no result,
   also when it sits in a directory without the rest of the repo.
@@ -36,6 +37,7 @@ names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import profile_serving
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

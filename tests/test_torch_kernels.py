@@ -6,6 +6,10 @@
   (causal and not, C in {1, 4}, float32 / bfloat16 / int8 pools, a dead
   lane).  Everything computes in float32; the two sides differ only in
   summation order, so the tolerance is rtol = atol = 1e-5.
+* the CUDA kernel's work split: ``ragged_plan`` covers every page once,
+  and an emulation of the kernel's split-and-merge (per-split online
+  softmax partials, then their log-sum-exp merge) agrees with the same
+  JAX entry within the same 1e-5.
 * ``paged_cache_write``, ``quantized_paged_cache_write``,
   ``abs_max_scale`` and ``quantize_array``: bit for bit.
 
@@ -104,6 +108,131 @@ def test_ragged_attention_cpu_path_never_launches_the_kernel():
                                    torch.ones(B, P, dtype=torch.int32),
                                    torch.ones(B, dtype=torch.int32),
                                    layer=0, n_layer=L)
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, H, P, sms)
+    (8, 8, 16, 132),                     # serving prefill, decode cross
+    (8, 8, 4, 132),                      # decode over self pages
+    (4, 4, 6, 132),
+    (4, 4, 198, 132),                    # three pages a split
+    (33, 32, 6, 132),                    # one split
+    (1, 1, 1, 1),
+    (64, 16, 33, 132),                   # more (lane, head) pairs than SMs
+    (2, 2, 1000, 132),
+    (3, 5, 9, 7),
+])
+def test_ragged_plan_covers_every_page_once(shape):
+    """The kernel's split s walks pages [s * pps, (s + 1) * pps): over
+    ``splits`` splits that covers every page below P exactly once, with
+    no split empty of table pages."""
+    P = shape[2]
+    pps, splits = fa.ragged_plan(*shape)
+    assert 1 <= pps <= P and splits == -(-P // pps)
+    pages = [pg for s in range(splits)
+             for pg in range(s * pps, min((s + 1) * pps, P))]
+    assert pages == list(range(P))
+    assert (splits - 1) * pps < P
+
+
+def _split_merge(q, pool, tbl, lengths, base, layer, n_layer, causal,
+                 sm_scale, scales, pps):
+    """The CUDA kernel's arithmetic in plain PyTorch (float32): split s of
+    lane b walks its pages [s * pps, (s + 1) * pps) below the lane's
+    length with an online softmax per page (raw K dotted with q, times
+    the int8 scale and sm_scale; masked scores -1e9), leaving (m, l,
+    kept, acc), or (-inf, 0, 0, -) past the length; the merge skips
+    those, weights each split by exp(m_s - max m) and outputs 0 where no
+    split kept a key."""
+    h, _r, ps, d = pool.shape
+    b, c = q.shape[0], q.shape[1]
+    n_pages = tbl.shape[1]
+    splits = -(-n_pages // pps)
+    k_rows, v_rows = fa.paged_kv_rows(tbl, layer, n_layer)
+    sc = None if scales is None else scales.reshape(-1, ps)
+    out = torch.zeros(b, c, h, d)
+    rows = torch.arange(c)
+    for lane in range(b):
+        length = int(lengths[lane])
+        n_live = min(n_pages, -(-length // ps)) if length > 0 else 0
+        for head in range(h):
+            parts = []
+            for s in range(splits):
+                pg0, pg1 = s * pps, min((s + 1) * pps, n_live)
+                if pg0 >= pg1:
+                    parts.append((torch.full((c,), -float("inf")),
+                                  torch.zeros(c), torch.zeros(c, dtype=bool),
+                                  None))
+                    continue
+                m = torch.full((c,), -float("inf"))
+                l = torch.zeros(c)
+                kept = torch.zeros(c, dtype=bool)
+                acc = torch.zeros(c, d)
+                for pg in range(pg0, pg1):
+                    kr, vr = int(k_rows[lane, pg]), int(v_rows[lane, pg])
+                    kk = pool[head, kr].to(torch.float32)
+                    vv = pool[head, vr].to(torch.float32)
+                    x = q[lane, :, head] @ kk.T
+                    if sc is not None:
+                        x = x * sc[kr]
+                    x = x * sm_scale
+                    cols = pg * ps + torch.arange(ps)
+                    keep = (cols[None, :] < length).expand(c, ps)
+                    if causal:
+                        keep = keep & (cols[None, :]
+                                       <= int(base[lane]) + rows[:, None])
+                    x = torch.where(keep, x, torch.tensor(-1e9))
+                    m_new = torch.maximum(m, x.amax(dim=1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(x - m_new[:, None])
+                    l = alpha * l + p.sum(dim=1)
+                    if sc is not None:
+                        p = p * sc[vr][None, :]
+                    acc = acc * alpha[:, None] + p @ vv
+                    kept |= keep.any(dim=1)
+                    m = m_new
+                parts.append((m, l, kept, acc))
+            mx = torch.stack([p[0] for p in parts]).amax(dim=0)
+            kept = torch.stack([p[2] for p in parts]).any(dim=0)
+            l_all, a_all = torch.zeros(c), torch.zeros(c, d)
+            for m_s, l_s, _k, a_s in parts:
+                if a_s is None:
+                    continue
+                w = torch.exp(m_s - mx)
+                l_all += w * l_s
+                a_all += w[:, None] * a_s
+            out[lane, :, head] = torch.where(
+                kept[:, None], a_all / torch.where(kept, l_all, 1.0)[:, None],
+                0.0)
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("pps", [1, 2, P])
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_split_merge_emulation_matches_jax(kv_dtype, c, pps, impl):
+    """The kernel's split-and-merge against the JAX entry, causal: lane 0
+    ends mid-page, so at one page a split its last split starts past its
+    length; lane 1 is dead; lane 2 uses all P pages to the last slot."""
+    rng = np.random.RandomState(7)
+    pool_np, scales_np = _pool(kv_dtype, rng)
+    q = rng.randn(B, c, H, D).astype(np.float32)
+    tbl = rng.randint(0, NPAGES, (B, P)).astype(np.int32)
+    lengths = np.array([7, 0, P * PS], np.int32)
+    base = np.maximum(lengths - c, 0).astype(np.int32)
+    want = jax_fa.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(pool_np), jnp.asarray(tbl),
+        jnp.asarray(lengths), jnp.asarray(base), layer=1, n_layer=L,
+        causal=True, impl=impl,
+        scales=None if scales_np is None else jnp.asarray(scales_np))
+    got = _split_merge(
+        torch.from_numpy(q), _torch_pool(pool_np, kv_dtype),
+        torch.from_numpy(tbl), lengths, base, 1, L, True, D ** -0.5,
+        None if scales_np is None else torch.from_numpy(scales_np), pps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert (got[1] == 0).all()
 
 
 def test_paged_kv_rows_matches_jax():

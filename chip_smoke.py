@@ -44,12 +44,28 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    and dk/dv kernels once), with a falling loss;
 7. serve 4 requests with the trained scope, loaded by name into a
    ``PagedTransformerGenerator`` (``param_prefix="tf"``);
-8. at the training path's shapes (B=64, L=256, dropout 0.1, causal and
-   not), hold ``flash_attention`` and its autograd backward against the
-   plain forward and backward (out, lse, dq, dk, dv); then time every
-   kernel, its plain version and the PyTorch library call for the same
-   function at the paths' shapes (the flash forward at dropout 0.1 and
-   0, the library's at 0; the flash kernels also at D = 80, 128, 256).
+8. train the same Transformer in bench.py's own bf16 recipe
+   (``amp_dtype="bfloat16"``: bf16 activations, f32 master weights; the
+   same startup program and dropout salts): one step at batch 2 on the
+   card, on the CPU, and of the float32 program on the CPU, from one
+   scope (loss, every gradient in relative L2, and the card's distance
+   to the float32 gradients against the CPU's); then 20 steps at batch
+   64 on the card, 18 launches of each flash kernel per step, every one
+   on bf16 inputs (counted by dtype at the wrapper), with a falling
+   loss;
+9. the book's first two chapters on the card, each first step against
+   the CPU port from one scope (loss, every gradient): ``fit_a_line``
+   (200 SGD steps at batch 32, the loss down ~100x), ``conv_net`` (20
+   Adam steps at batch 64 on synthetic digits) and the bf16 conv-pool
+   net of ``tests/test_book.py`` (20 Momentum steps at batch 64, bf16
+   images as a bf16 tensor feed), with falling losses;
+10. at the training path's shapes (B=64, L=256, dropout 0.1, causal and
+   not), in float32 and in bf16, hold ``flash_attention`` and its
+   autograd backward against the plain forward and backward (out, lse,
+   dq, dk, dv); then time every kernel, its plain version and the
+   PyTorch library call for the same function at the paths' shapes (the
+   flash forward at dropout 0.1 and 0, the library's, in the same
+   dtype, at 0; the float32 flash kernels also at D = 80, 128, 256).
    The ragged kernel is timed on the device clock: 200 calls captured in
    a CUDA graph whose replay CUDA events time (``ms``), beside the same
    calls issued one by one through the wrapper (``ms_eager``), an empty
@@ -58,7 +74,7 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    and, with
    ``--parent-ragged DIR``, an earlier ``ragged_paged_attention.cu`` in
    DIR built there and timed the graph's way (``parent_ms``);
-9. hold the fused LSTM forward kernel (``lstm_forward``) against its
+11. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
    activations at H=200, B=1, T=1, and the edges of the kernel's
@@ -67,22 +83,23 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    positions exactly 0; and for the peephole cases and the variants the
    gradients of every input, through the kernel forward and the
    hand-written backward, against autograd through the plain loop);
-10. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
+12. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
    128, vocab 30000, 2 x (fc + dynamic_lstm) at hidden 512, last step,
    fc softmax, Adam 2e-3) at batch 128, T=100: one step at batch 4 card
    vs CPU from one scope (loss, every gradient), then 20 steps on the
    card on one fixed ragged batch (2 kernel launches per step, falling
    loss);
-11. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
+13. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
    LSTMs, forward and reverse, with peepholes) for 5 steps at batch
    128, T=100, ragged lengths (3 launches per step, falling loss);
-12. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
+14. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
    off) and cuDNN's own input product alone at B=128, T=100, H = 256,
    512 and 1280.
 
 It prints the card's name and power limit, a ``serving`` line, a
-``training`` line, an ``lstm`` line, a ``kernels`` line and, last, the
-``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
+``training`` line, a ``training_bf16`` line, a ``book`` line, an
+``lstm`` line, a ``kernels`` line (the flash kernels once in float32 and
+once, ``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
 failed check exits 1 without the last line.
 """
 
@@ -114,6 +131,9 @@ KV_DTYPES = ("float32", "bfloat16", "int8")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+# ... and the bf16 tensor-core rate (the bound of the flash kernels'
+# bf16 instantiations, which the amp recipe runs)
+BF16_FLOPS_PER_S = 989e12
 
 # kernel vs plain on the same inputs: both compute in fp32; they differ
 # only in summation order (64-term dots, per-page partial softmax sums
@@ -139,7 +159,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-# -- phases 3 and 8: the ragged kernel against its plain version -----------
+# -- phases 3 and 10: the ragged kernel against its plain version ----------
 
 def kernel_cases(torch, gen):
     """Argument sets at the serving path's shapes: 8 lanes, 8 heads,
@@ -558,7 +578,7 @@ def teacher_forced(np, gpu, cpu, srcs):
     return worst, agree / max(1, total)
 
 
-# -- phases 4 and 8: flash kernels against their plain versions ------------
+# -- phases 4 and 10: flash kernels against their plain versions -----------
 
 # kernel vs plain, same inputs on the card.  fp32: both compute in fp32
 # and differ in summation order only (64-tile online softmax against one
@@ -783,20 +803,26 @@ def flash_entry_check(torch, fa, q, k, v, dout, cfg):
     return name, {n: e for n, (e, _) in errs.items()}, ok
 
 
-def flash_timings(torch, fa, dev, gen):
-    """At the training path's shapes, B=64, L=256, H=8, D=64, float32,
-    dropout 0.1, non-causal and causal: first ``flash_entry_check``;
-    then each flash kernel, its plain version and the library call
-    (``scaled_dot_product_attention``, dropout 0, its autograd backward
-    for dq + dk/dv), timed; the forward kernel also at dropout 0, like
-    for like with the library's.  The plain backward computes dq, dk and
-    dv in one call and is timed as such.  Returns (timing rows,
-    checks)."""
+def flash_timings(torch, fa, dev, gen, dtype="float32"):
+    """At the training path's shapes, B=64, L=256, H=8, D=64, in
+    ``dtype`` (float32, or bfloat16 as the amp recipe runs them), dropout
+    0.1, non-causal and causal: first ``flash_entry_check``; then each
+    flash kernel, its plain version and the library call
+    (``scaled_dot_product_attention`` in the same dtype, dropout 0, its
+    autograd backward for dq + dk/dv), timed; the forward kernel also at
+    dropout 0, like for like with the library's.  The plain backward
+    computes dq, dk and dv in one call and is timed as such.  Bounds:
+    float32, the kernels' three TF32 products (the CUDA cores' fp32 bound
+    beside); bfloat16, 2-byte tensors and the products at the bf16
+    tensor-core rate (one TF32 pass beside: a bf16 operand is exact in
+    TF32).  Returns (timing rows, checks)."""
     import torch.nn.functional as F
 
     B, L, H, D = TRAIN_BATCH, SEQ, MODEL["n_head"], MODEL["d_key"]
-    q, k, v, dout = (torch.randn(B, L, H, D, generator=gen).to(dev)
+    dt = getattr(torch, dtype)
+    q, k, v, dout = (torch.randn(B, L, H, D, generator=gen).to(dev, dt)
                      for _ in range(4))
+    item = q.element_size()
     rows, checks = {}, []
     for causal in (False, True):
         cfg = (causal, D ** -0.5, TRAIN["dropout_rate"], SEED, "blhd",
@@ -827,16 +853,24 @@ def flash_timings(torch, fa, dev, gen):
             lib_out, (qh, kh, vh), doh, retain_graph=True), 20)
         library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
         for kind in ("fwd", "dq", "dkv"):
-            # every kernel's products run as three TF32 products on the
-            # tensor cores; the CUDA cores' fp32 bound beside it
-            fp32_ms, _ = flash_bound(kind, causal, B, H, L, D)
-            b_ms, b_by = flash_bound(kind, causal, B, H, L, D, passes=3,
-                                     flops_per_s=TF32_FLOPS_PER_S)
+            if dtype == "float32":
+                # the kernels' products run as three TF32 products on the
+                # tensor cores; the CUDA cores' fp32 bound beside it
+                side_ms, _ = flash_bound(kind, causal, B, H, L, D)
+                b_ms, b_by = flash_bound(kind, causal, B, H, L, D, passes=3,
+                                         flops_per_s=TF32_FLOPS_PER_S)
+                side = {"bound_fp32_ms": side_ms}
+            else:
+                side_ms, _ = flash_bound(kind, causal, B, H, L, D, item,
+                                         flops_per_s=TF32_FLOPS_PER_S)
+                b_ms, b_by = flash_bound(kind, causal, B, H, L, D, item,
+                                         flops_per_s=BF16_FLOPS_PER_S)
+                side = {"bound_tf32_ms": side_ms}
             rows[(kind, causal)] = {
-                "kernel": kind, "causal": causal, "ms": t[kind],
-                "plain_ms": plain[kind], "library_ms": library[kind],
-                "bound_ms": b_ms, "bound_by": b_by,
-                "bound_fp32_ms": fp32_ms}
+                "kernel": kind, "dtype": dtype, "causal": causal,
+                "ms": t[kind], "plain_ms": plain[kind],
+                "library_ms": library[kind], "bound_ms": b_ms,
+                "bound_by": b_by, **side}
         rows[("fwd", causal)]["ms_dropout0"] = fwd0
         del lib_out, qh, kh, vh, doh, out, lse
     return rows, checks
@@ -871,8 +905,8 @@ def flash_wide_timings(torch, fa, dev, gen):
 
 # bench.py's Transformer-base training recipe: fused attention without
 # materialised biases (causal decoder self-attention in the kernel),
-# the streamed vocab loss, dropout 0.1, Adam(1e-4), in float32; its
-# amp_dtype (bf16 activations) is not ported.  max_length is the serving
+# the streamed vocab loss, dropout 0.1, Adam(1e-4), in float32 here and
+# in its own bf16 recipe in phase 8.  max_length is the serving
 # generator's, so the position tables carry over.
 SEQ = 256
 TRAIN = dict(max_length=SERVE["max_length"], dropout_rate=0.1,
@@ -906,11 +940,15 @@ STEP_UPDATE_RTOL = 0.1
 UPDATE_MIN_SHARE = 0.5          # the floor must leave most elements checked
 
 
-def build_training(fluid, transformer):
+def build_training(fluid, transformer, amp_dtype=None):
+    """bench.py's Transformer-base training program; ``amp_dtype``
+    "bfloat16" is its bf16 recipe (the same parameters, startup program
+    and dropout salts as the float32 program)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        avg_cost, _, _ = transformer(VOCAB, VOCAB, **MODEL, **TRAIN)
+        avg_cost, _, _ = transformer(VOCAB, VOCAB, **MODEL, **TRAIN,
+                                     amp_dtype=amp_dtype)
         fluid.optimizer.Adam(LR).minimize(avg_cost)
     return main, startup, avg_cost
 
@@ -968,14 +1006,18 @@ def compare_step(np, fluid, main, loss, init, feed):
 
 def train_on_card(torch, fluid, fa, main, loss, init, feed):
     """The training path: TRAIN_STEPS steps of ``Executor.run`` on the
-    card, with the flash kernels' launch counts set to 0 just before and
-    read just after.  Returns (record, trained scope)."""
+    card, with the flash kernels' launch counts (all, and by input
+    dtype) set to 0 just before and read just after.  Returns (record,
+    trained scope)."""
     place = fluid.CUDAPlace(0)
     scope = fluid.scope_from_numpy(init, place)
     exe = fluid.Executor(place)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    by_dtype = fa.flash_attention.launches_by_dtype
+    for dt in by_dtype:
+        by_dtype[dt] = {"fwd": 0, "dq": 0, "dkv": 0}
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -984,6 +1026,7 @@ def train_on_card(torch, fluid, fa, main, loss, init, feed):
         times.append(time.perf_counter() - t0)
         losses.append(float(lv))
     launches = dict(fa.flash_attention.launches)
+    launches_by_dtype = {dt: dict(n) for dt, n in by_dtype.items()}
     steady = sorted(times[1:])[len(times[1:]) // 2]        # median
     tokens = TRAIN_BATCH * SEQ * 2
     rec = {"batch": TRAIN_BATCH, "seq": SEQ, "steps": TRAIN_STEPS,
@@ -992,12 +1035,191 @@ def train_on_card(torch, fluid, fa, main, loss, init, feed):
            "step_ms_mean": sum(times[1:]) / len(times[1:]) * 1e3,
            "tokens_per_s": tokens / steady,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": launches,
+           "launches": launches, "launches_by_dtype": launches_by_dtype,
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in launches.items()}}
     return rec, scope
 
-# -- phases 9-12: the LSTM text classifiers ----------------------------------
+
+# -- phase 8: the bf16 recipe -----------------------------------------------
+
+# bench.py's own recipe (bench.py:456-462, amp_dtype="bfloat16"): bf16
+# activations from one cast at each embedding, f32 master weights
+AMP = "bfloat16"
+# card vs CPU port, one amp step at batch 2 from one scope and one seed
+# (the CPU tests' bf16 tolerances, tests/test_torch_amp.py): the two
+# round activations and gradients to bf16 after sums taken in another
+# order, so a value near a rounding boundary lands one bf16 ulp apart,
+# and the backward's cancellations and relu switches turn that into a
+# few percent of a gradient.  The loss within AMP_LOSS_RTOL; every
+# gradient within AMP_GRAD_L2 in relative L2; and the card's bf16
+# gradients no farther from the CPU port's float32 gradients (same
+# scope, same masks) than the CPU port's bf16 gradients are, within
+# AMP_NOISE_RATIO, in the median over parameters.
+AMP_LOSS_RTOL, AMP_GRAD_L2, AMP_NOISE_RATIO = 1e-2, 0.25, 1.25
+
+
+def _rel_l2(np, got, want):
+    return float(np.linalg.norm(got - want)
+                 / max(float(np.linalg.norm(want)), 1e-30))
+
+
+def compare_amp_step(np, fluid, amp_main, amp_loss, f32_main, f32_loss,
+                     init, feed):
+    """One step of the amp program on the card and on the CPU, and of the
+    float32 program on the CPU, from one scope with dropout on (the
+    programs share their dropout salts, so the masks): the losses and
+    every parameter's gradient."""
+    params = [p.name for p in amp_main.global_block().all_parameters()]
+    grads = [n + "@GRAD" for n in params]
+    res = []
+    for place, main, loss in ((fluid.CUDAPlace(0), amp_main, amp_loss),
+                              (fluid.CPUPlace(), amp_main, amp_loss),
+                              (fluid.CPUPlace(), f32_main, f32_loss)):
+        scope = fluid.scope_from_numpy(init, place)
+        t0 = time.perf_counter()
+        res.append((fluid.Executor(place).run(
+            main, feed=feed, fetch_list=[loss.name] + grads, scope=scope),
+            time.perf_counter() - t0))
+        del scope
+    (card, t_card), (cpu, t_cpu), (f32, _) = res
+    l2 = [_rel_l2(np, a, b) for a, b in zip(card[1:], cpu[1:])]
+    worst = int(np.argmax(l2))
+    return {"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+            "loss_cpu_f32": float(f32[0]),
+            "loss_rel_err": abs(float(card[0]) - float(cpu[0]))
+            / abs(float(cpu[0])),
+            "grad_rel_l2_max": l2[worst], "grad_rel_l2_worst": params[worst],
+            "grad_rel_l2_median": float(np.median(l2)),
+            "grad_dtypes": sorted({str(g.dtype) for g in card[1:]}),
+            "card_vs_f32_median": float(np.median(
+                [_rel_l2(np, a, b) for a, b in zip(card[1:], f32[1:])])),
+            "cpu_vs_f32_median": float(np.median(
+                [_rel_l2(np, a, b) for a, b in zip(cpu[1:], f32[1:])])),
+            "n_params": len(params), "card_s": t_card, "cpu_s": t_cpu}
+
+
+def amp_step_ok(step) -> bool:
+    return (step["loss_rel_err"] <= AMP_LOSS_RTOL
+            and step["grad_rel_l2_max"] <= AMP_GRAD_L2
+            and step["grad_dtypes"] == ["float32"]
+            and step["card_vs_f32_median"]
+            <= AMP_NOISE_RATIO * step["cpu_vs_f32_median"])
+
+
+# -- phase 9: the book's first two chapters ---------------------------------
+
+FIT_STEPS, FIT_BATCH = 200, 32
+DIGITS_STEPS, DIGITS_BATCH = 20, 64
+# card vs CPU port, first step, float32 (cuBLAS and cuDNN with TF32 off
+# against the CPU): summation order only; the gradients relative to
+# their largest magnitude
+BOOK_LOSS_RTOL, BOOK_GRAD_RTOL = 1e-5, 1e-4
+
+
+def build_book(fluid, program):
+    """``fit_a_line`` (SGD 0.01), ``conv_net`` (recognize_digits, Adam
+    0.01) or ``bf16_conv_net`` (tests/test_book.py's bf16 conv-pool net,
+    Momentum 0.05 / 0.9) -> (main, startup, loss)."""
+    from paddle_tpu_torch.models import fit_a_line, recognize_digits
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    layers = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if program == "fit_a_line":
+            loss = fit_a_line.build()[1]
+        elif program == "conv_net":
+            img = layers.data(name="img", shape=[1, 28, 28],
+                              dtype="float32")
+            label = layers.data(name="label", shape=[1], dtype="int64")
+            loss = recognize_digits.conv_net(img, label)[1]
+            fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+        else:
+            img = layers.data(name="img", shape=[3, 16, 16],
+                              dtype="bfloat16")
+            label = layers.data(name="label", shape=[1], dtype="int64")
+            conv = layers.conv2d(input=img, num_filters=8, filter_size=3,
+                                 padding=1, act="relu")
+            pool = layers.pool2d(input=conv, pool_size=2, pool_stride=2)
+            pred = layers.fc(input=pool, size=4, act="softmax")
+            loss = layers.mean(layers.cross_entropy(input=pred,
+                                                    label=label))
+            fluid.optimizer.Momentum(learning_rate=0.05,
+                                     momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+def book_feed(torch, np, program, i):
+    """Step ``i``'s batch, made from the seed: fit_a_line's noisy linear
+    model (13 features), tests/test_book.py's synthetic digits (class k
+    lights rows 2k..2k+2), or its bf16 images (class k brightens
+    channel k % 3)."""
+    rng = np.random.RandomState(SEED + i)
+    if program == "fit_a_line":
+        w = np.random.RandomState(SEED).randn(13, 1).astype(np.float32)
+        x = rng.randn(FIT_BATCH, 13).astype(np.float32)
+        return {"x": x, "y": x @ w + 0.5
+                + 0.01 * rng.randn(FIT_BATCH, 1).astype(np.float32)}
+    lbl = rng.randint(0, 10 if program == "conv_net" else 4,
+                      (DIGITS_BATCH, 1)).astype(np.int64)
+    if program == "conv_net":
+        img = rng.rand(DIGITS_BATCH, 1, 28, 28).astype(np.float32) * 0.1
+        for b, k in enumerate(lbl[:, 0]):
+            img[b, 0, k * 2: k * 2 + 3, :] += 1.0
+        return {"img": img, "label": lbl}
+    img = rng.rand(DIGITS_BATCH, 3, 16, 16).astype(np.float32) * 0.2
+    for b, k in enumerate(lbl[:, 0]):
+        img[b, k % 3] += 0.8
+    return {"img": torch.from_numpy(img).to(torch.bfloat16), "label": lbl}
+
+
+def book_phase(torch, np, fluid, program, steps):
+    """One book program: its first step on the card and on the CPU from
+    one scope (loss and every gradient), then ``steps`` steps on the
+    card on fresh seeded batches.  Returns (record, ok)."""
+    main, startup, loss = build_book(fluid, program)
+    init = initial_scope(fluid, startup)
+    params = [p.name for p in main.global_block().all_parameters()]
+    fetch = [loss.name] + [n + "@GRAD" for n in params]
+    first = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.scope_from_numpy(init, place)
+        first.append(fluid.Executor(place).run(
+            main, feed=book_feed(torch, np, program, 0), fetch_list=fetch,
+            scope=scope))
+    card, cpu = first
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    if program == "bf16_conv_net":
+        grad_err = max(_rel_l2(np, a, b) for a, b in zip(card[1:], cpu[1:]))
+        ok = loss_err <= AMP_LOSS_RTOL and grad_err <= AMP_GRAD_L2
+    else:
+        grad_err = max(float(np.abs(a - b).max())
+                       / max(float(np.abs(b).max()), 1e-30)
+                       for a, b in zip(card[1:], cpu[1:]))
+        ok = loss_err <= BOOK_LOSS_RTOL and grad_err <= BOOK_GRAD_RTOL
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    exe = fluid.Executor(place)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=book_feed(torch, np, program, i),
+                            fetch_list=[loss], scope=scope)[0])
+              for i in range(steps)]
+    wall = time.perf_counter() - t0
+    rec = {"program": program, "steps": steps, "losses": losses[::10]
+           if steps > 20 else losses, "first_loss": losses[0],
+           "last_loss": losses[-1], "ms_per_step": wall / steps * 1e3,
+           "first_step_loss_rel_err": loss_err,
+           "first_step_grad_err": grad_err}
+    if program == "fit_a_line":
+        # the verify recipe's flow 1: the loss falls ~100x in 200 steps
+        rec["last10_mean"] = float(np.mean(losses[-10:]))
+        ok = ok and rec["last10_mean"] < losses[0] / 100
+    return rec, ok and bool(np.isfinite(losses).all()) \
+        and losses[-1] < losses[0]
+
+# -- phases 11-14: the LSTM text classifiers --------------------------------
 
 # the reference's RNN benchmark (bench.py's bench_lstm, from benchmark/
 # paddle/rnn/rnn.py): IMDB text classifier at its batch and padded length
@@ -1292,7 +1514,7 @@ def train_lstm(torch, fluid, lk, main, fetch, init, feed, steps):
 
 
 def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
-    """Phases 9-12.  Returns the ``lstm`` record and the kernels-line
+    """Phases 11-14.  Returns the ``lstm`` record and the kernels-line
     entry of ``lstm_fwd``."""
     from paddle_tpu_torch.models.sentiment import stacked_lstm_net
 
@@ -1459,14 +1681,16 @@ def main() -> int:
     del extra
 
     # -- the flash kernels vs plain on the card
-    flash_err = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    flash_err = {(dt, k): 0.0 for dt in ("float32", "bfloat16")
+                 for k in ("fwd", "dq", "dkv")}
     owner = {"out": "fwd", "lse": "fwd", "dq": "dq", "dk": "dkv",
              "dv": "dkv"}
     for case in flash_cases():
         name, errs, ok = run_flash_case(torch, fa, case, dev, gen)
         log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
         for t, e in errs.items():
-            flash_err[owner[t]] = max(flash_err[owner[t]], e)
+            key = (case["dtype"], owner[t])
+            flash_err[key] = max(flash_err[key], e)
         if not ok:
             failures.append(f"flash kernel vs plain {name}: {errs}")
     masks = dropout_mask_probe(torch, fa, dev)
@@ -1544,9 +1768,11 @@ def main() -> int:
     training.update(card=card, compare=step)
     log(f"training: {json.dumps(training)}")
     want = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
-    if training["launches"] != want:
-        failures.append(f"training: flash launches {training['launches']} "
-                        f"in {TRAIN_STEPS} steps, want {want}")
+    if training["launches_by_dtype"]["float32"] != want \
+            or training["launches"] != want:
+        failures.append(f"training: flash launches "
+                        f"{training['launches_by_dtype']} in {TRAIN_STEPS} "
+                        f"steps, want {want} on float32 inputs")
     if not (np.isfinite(training["losses"]).all()
             and training["losses"][-1] < training["losses"][0]):
         failures.append(f"training: loss did not fall: "
@@ -1568,6 +1794,51 @@ def main() -> int:
         failures.append(f"serving the trained scope: {rec}")
     runs.append(rec)
     del g
+    torch.cuda.empty_cache()
+
+    # -- the bf16 recipe: one step card vs CPU, then the card alone
+    t0 = time.perf_counter()
+    amp_prog, amp_startup, amp_loss = build_training(fluid, transformer,
+                                                     AMP)
+    if amp_startup.desc.fingerprint() != startup.desc.fingerprint():
+        failures.append("amp training: its startup program differs from "
+                        "the float32 program's")
+    amp_step = compare_amp_step(
+        np, fluid, amp_prog, amp_loss, main_prog, loss, init,
+        {k: v[:COMPARE_BATCH] for k, v in feed.items()})
+    log(f"amp training step card vs CPU ({time.perf_counter() - t0:.1f}s):"
+        f" {json.dumps(amp_step)}")
+    if not amp_step_ok(amp_step):
+        failures.append(f"amp training step card vs CPU: {amp_step}")
+    torch.cuda.empty_cache()
+    training_bf16, scope = train_on_card(torch, fluid, fa, amp_prog,
+                                         amp_loss, init, feed)
+    del scope
+    torch.cuda.empty_cache()
+    training_bf16.update(card=card, amp_dtype=AMP, compare=amp_step)
+    log(f"training_bf16: {json.dumps(training_bf16)}")
+    per_run = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
+    if training_bf16["launches_by_dtype"] != {
+            "float32": {k: 0 for k in per_run}, "bfloat16": per_run}:
+        failures.append(f"amp training: flash launches by input dtype "
+                        f"{training_bf16['launches_by_dtype']} in "
+                        f"{TRAIN_STEPS} steps, want {per_run} on bf16 "
+                        f"inputs and none on float32")
+    if not (np.isfinite(training_bf16["losses"]).all()
+            and training_bf16["losses"][-1] < training_bf16["losses"][0]):
+        failures.append(f"amp training: loss did not fall: "
+                        f"{training_bf16['losses']}")
+
+    # -- the book's first two chapters
+    book = {"card": card}
+    for program, steps in (("fit_a_line", FIT_STEPS),
+                           ("conv_net", DIGITS_STEPS),
+                           ("bf16_conv_net", DIGITS_STEPS)):
+        rec, ok = book_phase(torch, np, fluid, program, steps)
+        book[program] = rec
+        log(f"book {'ok  ' if ok else 'FAIL'} {json.dumps(rec)}")
+        if not ok:
+            failures.append(f"book {program}: {rec}")
     torch.cuda.empty_cache()
 
     # -- timings at the paths' shapes: the ragged kernel on the device
@@ -1607,13 +1878,19 @@ def main() -> int:
     del pools
     torch.cuda.empty_cache()
     wide_rows = flash_wide_timings(torch, fa, dev, gen)
-    flash_rows, checks = flash_timings(torch, fa, dev, gen)
-    for name, errs, ok in checks:
-        log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
-        for t, e in errs.items():
-            flash_err[owner[t]] = max(flash_err[owner[t]], e)
-        if not ok:
-            failures.append(f"flash entry point vs plain {name}: {errs}")
+    flash_rows = {}
+    for dt in ("float32", "bfloat16"):
+        rows, checks = flash_timings(torch, fa, dev, gen, dt)
+        flash_rows[dt] = rows
+        for name, errs, ok in checks:
+            log(f"flash {'ok  ' if ok else 'FAIL'} {dt} {name} "
+                f"{json.dumps(errs)}")
+            for t, e in errs.items():
+                flash_err[(dt, owner[t])] = max(flash_err[(dt, owner[t])],
+                                                e)
+            if not ok:
+                failures.append(f"flash entry point vs plain {dt} {name}: "
+                                f"{errs}")
     fp32 = [t for t in timing if t["kv_dtype"] == "float32"]
     b_bytes = sum(t["bound_ms"] for t in fp32 if t["bound_by"] == "bytes")
     b_ops = sum(t["bound_ms"] for t in fp32 if t["bound_by"] != "bytes")
@@ -1648,36 +1925,47 @@ def main() -> int:
                               if parent is not None else None),
     }]
     replaces = {"fwd": 527, "dq": 743, "dkv": 788}
-    for k in ("fwd", "dq", "dkv"):
-        # per call, averaged over the training step's mix of 12 full and
-        # 6 causal attentions
-        def mix(key, k=k):
-            full, causal = flash_rows[(k, False)], flash_rows[(k, True)]
-            return ((ATTN_PER_STEP - CAUSAL_PER_STEP) * full[key]
-                    + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
+    # float32 rows: the float32 training run's launches; bfloat16 rows
+    # (the same kernels' bf16 instantiations): the amp training run's
+    for dt, run, suffix in (("float32", training, ""),
+                            ("bfloat16", training_bf16, "_bf16")):
+        rows = flash_rows[dt]
+        for k in ("fwd", "dq", "dkv"):
+            # per call, averaged over the training step's mix of 12 full
+            # and 6 causal attentions
+            def mix(key, k=k, rows=rows):
+                full, causal = rows[(k, False)], rows[(k, True)]
+                return ((ATTN_PER_STEP - CAUSAL_PER_STEP) * full[key]
+                        + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
 
-        by = {flash_rows[(k, c)]["bound_by"] for c in (False, True)}
-        extra = {"ms_dropout0": mix("ms_dropout0")} if k == "fwd" else {}
-        kernels.append({
-            "name": f"flash_attention_{k}",
-            "route": "cuda",
-            "source": f"paddle_tpu_torch/kernels/csrc/{fa.FLASH_KERNELS[k]}"
-                      f".cu",
-            "replaces": f"paddle_tpu/kernels/flash_attention.py:"
-                        f"{replaces[k]}",
-            "launches": training["launches"][k],
-            "max_abs_err": flash_err[k],
-            "ms": mix("ms"), "plain_ms": mix("plain_ms"),
-            "bound_ms": mix("bound_ms"),
-            "bound_by": by.pop() if len(by) == 1 else "operations",
-            "library_ms": mix("library_ms"),
-            "bound_fp32_ms": mix("bound_fp32_ms"),
-            "ms_by_width": {f"D{d}": r[k] for d, r in wide_rows.items()},
-            **extra})
+            by = {rows[(k, c)]["bound_by"] for c in (False, True)}
+            extra = ({"ms_dropout0": mix("ms_dropout0")} if k == "fwd"
+                     else {})
+            if dt == "float32":
+                extra.update(bound_fp32_ms=mix("bound_fp32_ms"),
+                             ms_by_width={f"D{d}": r[k]
+                                          for d, r in wide_rows.items()})
+            else:
+                extra.update(bound_tf32_ms=mix("bound_tf32_ms"))
+            kernels.append({
+                "name": f"flash_attention_{k}{suffix}",
+                "route": "cuda",
+                "source": f"paddle_tpu_torch/kernels/csrc/"
+                          f"{fa.FLASH_KERNELS[k]}.cu",
+                "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                            f"{replaces[k]}",
+                "launches": run["launches_by_dtype"][dt][k],
+                "max_abs_err": flash_err[(dt, k)],
+                "ms": mix("ms"), "plain_ms": mix("plain_ms"),
+                "bound_ms": mix("bound_ms"),
+                "bound_by": by.pop() if len(by) == 1 else "operations",
+                "library_ms": mix("library_ms"),
+                **extra})
     for t in timing:
         log(json.dumps(t))
-    for r in flash_rows.values():
-        log(json.dumps(r))
+    for rows in flash_rows.values():
+        for r in rows.values():
+            log(json.dumps(r))
 
     # -- the LSTM text classifiers: kernel checks, training, timings
     lstm_rec, lstm_entry = lstm_phases(torch, np, fluid, lk, dev, gen,
@@ -1687,6 +1975,8 @@ def main() -> int:
 
     print(json.dumps({"serving": {"card": card, "runs": runs}}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"training_bf16": training_bf16}), flush=True)
+    print(json.dumps({"book": book}), flush=True)
     print(json.dumps({"lstm": lstm_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")

@@ -1,4 +1,4 @@
-"""Device resolution and float32 precision for the port's entry points.
+"""Device resolution and the matmul precision of the port's entry points.
 
 An entry point runs on the GPU unless its caller asks for the CPU by
 name.  With no GPU and no such request it raises: a serving run that
@@ -37,4 +37,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     # would move logits beyond the tolerances the port is held to)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a bf16 matrix product accumulates in float32 to the end, as the
+    # reference's (preferred_element_type=float32): cuBLAS may otherwise
+    # round split-K partial sums to bf16 before adding them
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     return dev

@@ -4,17 +4,18 @@ ops built by ``layers.*``, differentiated by ``append_backward`` /
 ``Executor`` that executes the block's ops eagerly on one device
 (``lowering.py``).  Importing it registers the op emitters.
 
-Cut to what the Transformer training program and the LSTM text
-classifiers need; level-1 sequence inputs are ``SeqArray`` feeds
+Cut to what the Transformer training program (float32 or the bf16
+``amp_dtype`` recipe), the LSTM text classifiers and the book's first two
+chapters need; level-1 sequence inputs are ``SeqArray`` feeds
 (``make_seq``).  Not ported (they raise ``NotImplementedError`` where the
 API reaches them): level-2 sequences (``NestedSeqArray``), sparse
-embeddings, meshes and sequence parallelism, ``amp_dtype``, gradient
-clipping and regularizers, optimizers other than Adam, control-flow ops,
-``run_pipeline`` / ``run_steps``, the compile cache and
+embeddings, meshes and sequence parallelism, batch norm, gradient
+clipping and regularizers, optimizers other than SGD, Momentum and Adam,
+control-flow ops, ``run_pipeline`` / ``run_steps``, the compile cache and
 ``cost_analysis``."""
 
 from . import ops as _ops  # registers the op emitters  # noqa: F401
-from . import initializer, layers, optimizer, unique_name  # noqa: F401
+from . import initializer, layers, nets, optimizer, unique_name  # noqa: F401
 from .backward import append_backward
 from .core.lod import SeqArray, make_seq
 from .core.registry import registered_ops
@@ -27,7 +28,7 @@ from .framework import (Block, Operator, Parameter, Program, Variable,
 from .param_attr import ParamAttr
 
 __all__ = [
-    "layers", "optimizer", "initializer", "unique_name",
+    "layers", "nets", "optimizer", "initializer", "unique_name",
     "append_backward", "registered_ops", "SeqArray", "make_seq",
     "Executor", "Scope", "global_scope", "scope_guard", "CUDAPlace",
     "CPUPlace", "scope_from_numpy", "scope_to_numpy",

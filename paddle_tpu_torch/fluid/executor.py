@@ -10,7 +10,9 @@ update the scope's tensors in place.
 ``Executor()`` and ``Executor(CUDAPlace(i))`` run on the card and raise
 without one; only ``Executor(CPUPlace())`` runs on the CPU, as the tests
 do.  ``scope_from_numpy`` / ``scope_to_numpy`` carry named arrays (a JAX
-scope, a checkpoint) in and out of a Scope.
+scope, a checkpoint) in and out of a Scope.  Feeds may be bfloat16
+(``ml_dtypes`` arrays, as the reference takes them); fetches of a
+bfloat16 value come back as float32.
 """
 
 from __future__ import annotations
@@ -128,6 +130,18 @@ def _place_device(place) -> torch.device:
                     f"{place!r}")
 
 
+def _host_tensor(v) -> torch.Tensor:
+    """A host value as a CPU tensor (a copy).  numpy has no bfloat16 of
+    its own: an array of the ``ml_dtypes`` bfloat16 type (what a JAX
+    program feeds) crosses as its 16-bit pattern, without importing
+    ``ml_dtypes``."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(a)
+
+
 def _to_device(v, device: torch.device):
     """One host value as a device tensor; int64 and float64 narrow to
     int32 and float32 as in the reference's runtime.  Arrays are copied:
@@ -137,13 +151,15 @@ def _to_device(v, device: torch.device):
     if isinstance(v, SeqArray):
         return SeqArray(_to_device(v.data, device),
                         _to_device(v.lengths, device))
-    t = v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
+    t = v if isinstance(v, torch.Tensor) else _host_tensor(v)
     return t.to(device=device, dtype=torch_dtype(runtime_dtype(t.dtype)))
 
 
 def _to_numpy(t):
     """A fetched value on the host: a numpy array, or a SeqArray of numpy
-    data and lengths."""
+    data and lengths.  A bfloat16 value comes back as float32 (exactly):
+    numpy has no bfloat16, where the reference returns an ``ml_dtypes``
+    bfloat16 array."""
     if isinstance(t, SeqArray):
         return SeqArray(_to_numpy(t.data), _to_numpy(t.lengths))
     t = t.detach()

@@ -1,6 +1,7 @@
 """Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
-to what ``models/transformer.transformer()`` and the LSTM text
-classifiers build.  Each layer appends ops to the current block through
+to what ``models/transformer.transformer()``, the LSTM text classifiers
+and the book's first two chapters (``models/fit_a_line``,
+``models/recognize_digits``) build.  Each layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
 
@@ -8,13 +9,13 @@ from __future__ import annotations
 
 import math
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
-           "softmax_with_cross_entropy",
-           "layer_norm", "reduce_sum", "reshape",
+           "softmax_with_cross_entropy", "square_error_cost", "conv2d",
+           "pool2d", "layer_norm", "reduce_sum", "reshape",
            "fused_attention", "fused_vocab_cross_entropy"]
 
 
@@ -107,6 +108,80 @@ def cross_entropy(input, label, soft_label=False, name=None):
                                      lod_level=input.lod_level)
     helper.append_op("cross_entropy", {"X": input, "Label": label},
                      {"Out": out}, {"soft_label": soft_label})
+    return out
+
+
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("square_error_cost", {"X": input, "Y": label},
+                     {"Out": out})
+    return out
+
+
+def _pair(x):
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x, x]
+
+
+def _append_channel_bias(helper, pre_bias):
+    """A [C] bias added along axis 1 (NCHW channels), if the layer has
+    one."""
+    bias_attr = helper.bias_attr
+    if bias_attr is None:
+        return pre_bias
+    channels = pre_bias.shape[1]
+    b = helper.create_parameter(bias_attr, shape=[channels],
+                                dtype=pre_bias.dtype, is_bias=True)
+    out = helper.create_tmp_variable(pre_bias.dtype)
+    helper.append_op("elementwise_add", {"X": pre_bias, "Y": b},
+                     {"Out": out}, {"axis": 1})
+    return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, groups=1,
+           dilation=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, main_program=None,
+           startup_program=None):
+    """2-D convolution, NCHW, filter [num_filters, C / groups, kh, kw]
+    drawn from Normal(0, sqrt(2 / (kh * kw * C))), then a channel bias
+    and the activation."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name,
+                         main_program=main_program,
+                         startup_program=startup_program)
+    dtype = input.dtype
+    fsize = _pair(filter_size)
+    num_channels = input.shape[1]
+    std = (2.0 / (fsize[0] * fsize[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_filters, num_channels // groups] + list(fsize),
+        dtype=dtype, default_initializer=NormalInitializer(0.0, std))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op("conv2d", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation), "groups": groups})
+    pre_act = _append_channel_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, main_program=None,
+           startup_program=None):
+    helper = LayerHelper("pool2d", name=name, main_program=main_program,
+                         startup_program=startup_program)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("pool2d", {"X": input}, {"Out": out},
+                     {"pooling_type": pool_type,
+                      "ksize": _pair(pool_size),
+                      "strides": _pair(pool_stride),
+                      "paddings": _pair(pool_padding),
+                      "global_pooling": global_pooling,
+                      "ceil_mode": ceil_mode})
     return out
 
 

@@ -1,13 +1,13 @@
 """Thin layer wrappers over registered ops — the port of
 ``paddle_tpu/fluid/layers/ops.py``, cut to the ops the Transformer and
-the LSTM text classifiers build: the ``elementwise_*`` family, ``mean``
-and ``scale``."""
+the LSTM text classifiers build: the ``elementwise_*`` family, ``mean``,
+``scale`` and ``cast``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["mean", "scale"]
+__all__ = ["mean", "scale", "cast"]
 
 
 def _generate_binary(op_type: str):
@@ -44,3 +44,13 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
                      {"scale": float(scale), "bias": float(bias),
                       "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def cast(x, dtype):
+    """X as ``dtype``: the amp recipe's one cast at the activation
+    source."""
+    helper = LayerHelper("cast")
+    out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
+    helper.append_op("cast", {"X": x}, {"Out": out},
+                     {"in_dtype": x.dtype, "out_dtype": dtype})
+    return out

@@ -1,7 +1,7 @@
 """Softmax, losses and metrics — the port of
 ``paddle_tpu/fluid/ops/loss_ops.py``, cut to ``softmax``,
 ``cross_entropy``, ``softmax_with_cross_entropy``,
-``fused_vocab_cross_entropy`` and ``accuracy``."""
+``fused_vocab_cross_entropy``, ``square_error_cost`` and ``accuracy``."""
 
 from __future__ import annotations
 
@@ -59,6 +59,25 @@ def softmax_with_cross_entropy(ctx, logits, label):
                                       ctx.attr("soft_label", False))
 
 
+@primitive("square_error_cost", inputs=["X", "Y"], seq_transparent=True)
+def square_error_cost(ctx, x, y):
+    """reference square_error_cost: (X - Y)^2 elementwise."""
+    d = x - y
+    return d * d
+
+
+def _mm_f32(a, b):
+    """a @ b of 2-d operands as float32, summed in float32: for bf16
+    operands the reference's ``preferred_element_type=float32`` product,
+    which the card computes on the bf16 tensor cores (``out_dtype``)
+    and the CPU in float32, where every bf16 product is exact."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
 def _vocab_chunks(v: int, chunk: int):
     """(start, width) of each vocab chunk; the last carries the rest."""
     starts = list(range(0, v, max(1, chunk)))
@@ -71,7 +90,10 @@ class _ChunkedVocabXent(torch.autograd.Function):
     per row (online logsumexp) and saves only the [N] lse; the backward
     recomputes each chunk's logits and folds (softmax - onehot) into the
     dW and dX products.  The reference's custom_vjp, as a plain torch
-    Function (the reference has no kernel here either)."""
+    Function (the reference has no kernel here either).  Under the amp
+    recipe X is bf16 and W an f32 master: W's chunks are cast down, every
+    product is summed and kept in f32 (``_mm_f32``) and only the logit
+    gradients are rounded to X's dtype, as the reference does."""
 
     @staticmethod
     def forward(ctx, x2, w, ids, chunk):
@@ -80,8 +102,7 @@ class _ChunkedVocabXent(torch.autograd.Function):
         s = torch.zeros(n, device=x2.device)
         lab = torch.zeros(n, device=x2.device)
         for start, width in _vocab_chunks(w.shape[1], chunk):
-            logits = torch.matmul(
-                x2, w[:, start:start + width].to(x2.dtype)).float()
+            logits = _mm_f32(x2, w[:, start:start + width].to(x2.dtype))
             m_new = torch.maximum(m, logits.amax(dim=-1))
             s = s * torch.exp(m - m_new) + torch.exp(
                 logits - m_new[:, None]).sum(dim=-1)
@@ -103,7 +124,7 @@ class _ChunkedVocabXent(torch.autograd.Function):
         dw = []
         for start, width in _vocab_chunks(w.shape[1], ctx.chunk):
             wc = w[:, start:start + width].to(x2.dtype)
-            p = torch.exp(torch.matmul(x2, wc).float() - lse[:, None])
+            p = torch.exp(_mm_f32(x2, wc) - lse[:, None])
             rel = ids - start
             in_c = (rel >= 0) & (rel < width)
             # softmax - onehot, as a scatter: a boolean index would wait
@@ -111,8 +132,8 @@ class _ChunkedVocabXent(torch.autograd.Function):
             p.scatter_add_(1, torch.where(in_c, rel, 0)[:, None],
                            -in_c.to(p.dtype)[:, None])
             dlog = (p * dloss[:, None]).to(x2.dtype)
-            dx += torch.matmul(dlog, wc.t()).float()
-            dw.append(torch.matmul(x2.t(), dlog).float())
+            dx += _mm_f32(dlog, wc.t())
+            dw.append(_mm_f32(x2.t(), dlog))
         return (dx.to(x2.dtype), torch.cat(dw, dim=1).to(w.dtype), None,
                 None)
 

@@ -1,10 +1,15 @@
 """Math ops: the projection matmul, the elementwise family, sum, scale,
 mean and reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``,
-cut to what the Transformer, the LSTM text classifiers, their backward
-and Adam emit.  ``mul``, ``sum`` and ``elementwise_*`` see a SeqArray
-input's data and return a SeqArray, as in the reference.  The matmul is
-``torch.matmul`` (cuBLAS on the card, fp32 with TF32 off), as the
-reference leaves it to XLA."""
+cut to what the Transformer, the LSTM text classifiers, the book's first
+two chapters, their backward and the optimizers emit.  ``mul``, ``sum``
+and ``elementwise_*`` see a SeqArray input's data and return a SeqArray,
+as in the reference.  The matmul is ``torch.matmul`` (cuBLAS on the
+card: fp32 with TF32 off, bf16 accumulating in fp32), as the reference
+leaves it to XLA.
+
+``match_master_dtype`` is the amp recipe's dtype rule, shared with the
+conv ops: a bf16 activation meeting an f32 parameter casts the parameter
+down, so the op computes in the activation's dtype."""
 
 from __future__ import annotations
 
@@ -22,14 +27,26 @@ def _flatten_2d(x, num_col_dims: int):
     return x.reshape(lead, -1)
 
 
+def match_master_dtype(x, y):
+    """Y in X's dtype when both are floating and differ (a bf16
+    activation X over an f32 master parameter Y), else Y as it is
+    (reference math_ops.py match_master_dtype).  Autograd casts Y's
+    gradient back, so the master gradient stays f32."""
+    if x.is_floating_point() and y.is_floating_point() \
+            and x.dtype != y.dtype:
+        return y.to(x.dtype)
+    return y
+
+
 @primitive("mul", inputs=["X", "Y"], seq_transparent=True)
 def mul(ctx, x, y):
     """Projection matmul (reference mul_op.cc): X and Y flattened to 2-D
-    per x_num_col_dims / y_num_col_dims, multiplied, leading dims
-    restored."""
+    per x_num_col_dims / y_num_col_dims, multiplied in X's dtype
+    (accumulating in fp32), leading dims restored."""
     xd = ctx.attr("x_num_col_dims", 1)
     yd = ctx.attr("y_num_col_dims", 1)
-    out = torch.matmul(_flatten_2d(x, xd), _flatten_2d(y, yd))
+    out = torch.matmul(_flatten_2d(x, xd),
+                       _flatten_2d(match_master_dtype(x, y), yd))
     return out.reshape(*x.shape[:xd], *y.shape[yd:])
 
 
@@ -45,7 +62,9 @@ def _bcast_to_x(x, y, axis: int):
 def _elementwise(name, fn):
     @primitive(name, inputs=["X", "Y"], seq_transparent=True)
     def _op(ctx, x, y, _fn=fn):
-        return _fn(x, _bcast_to_x(x, y, ctx.attr("axis", -1)))
+        # a bf16 activation plus an f32 bias stays bf16
+        y = _bcast_to_x(x, match_master_dtype(x, y), ctx.attr("axis", -1))
+        return _fn(x, y)
     _op.__name__ = name
     return _op
 

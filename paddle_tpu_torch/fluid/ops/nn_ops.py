@@ -1,12 +1,75 @@
-"""Normalization, dropout and fused attention ops — the port of
-``paddle_tpu/fluid/ops/nn_ops.py``, cut to what the Transformer emits."""
+"""Convolution, pooling, normalization, dropout and fused attention ops —
+the port of ``paddle_tpu/fluid/ops/nn_ops.py``, cut to what the
+Transformer and the book's first two chapters emit.  ``conv2d`` is
+``torch.nn.functional.conv2d`` (cuDNN on the card, TF32 off), as the
+reference leaves its convolution to XLA; ``pool2d`` pads by hand so its
+windows, output shape and average counts are the reference's."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ...kernels.flash_attention import flash_attention, keep_scale
 from ..core.registry import primitive
+from .math_ops import match_master_dtype
+
+
+@primitive("conv2d", inputs=["Input", "Filter"], outputs=["Output"])
+def conv2d(ctx, x, w):
+    """NCHW convolution with an OIHW filter (reference conv_op.cc), in
+    X's dtype: a bf16 input casts its f32 master filter down."""
+    p = ctx.attr("paddings", [0, 0])
+    return F.conv2d(x, match_master_dtype(x, w),
+                    stride=tuple(ctx.attr("strides", [1, 1])),
+                    padding=(p[0], p[1]),
+                    dilation=tuple(ctx.attr("dilations", [1, 1])),
+                    groups=ctx.attr("groups", 1))
+
+
+def _ceil_extra_pad(in_size, k, s, p, ceil_mode):
+    """Padding past ``p`` on the high side that keeps the last, partial
+    window under ceil_mode (reference nn_ops.py ``_ceil_extra_pad``)."""
+    if not ceil_mode:
+        return 0
+    out = -((in_size + 2 * p - k) // -s) + 1
+    return max((out - 1) * s + k - (in_size + 2 * p), 0)
+
+
+def _window_sum(x, pad, ksize, strides):
+    """Sum over each window of ``x`` zero-padded by ``pad`` (F.pad's
+    order: width low, high, then height)."""
+    return F.avg_pool2d(F.pad(x, pad) if any(pad) else x, ksize, strides,
+                        divisor_override=1)
+
+
+@primitive("pool2d")
+def pool2d(ctx, x):
+    """reference pool_op.cc, as the reference computes it: windows over
+    X padded by ``paddings`` on both sides, plus under ``ceil_mode`` the
+    extra high-side pad that keeps a last partial window (PyTorch's own
+    ceil_mode drops a window that starts in the padding, the reference
+    keeps it).  Max pads with -inf; average divides by the count of
+    unpadded elements in the window (exclusive)."""
+    ptype = ctx.attr("pooling_type", "max")
+    ceil_mode = ctx.attr("ceil_mode", False)
+    if ctx.attr("global_pooling", False):
+        ksize = [x.shape[2], x.shape[3]]
+        strides, pads, ceil_mode = ksize, [0, 0], False
+    else:
+        ksize = ctx.attr("ksize", [2, 2])
+        strides = ctx.attr("strides", [2, 2])
+        pads = ctx.attr("paddings", [0, 0])
+    hi = [p + _ceil_extra_pad(x.shape[i + 2], ksize[i], strides[i], p,
+                              ceil_mode) for i, p in enumerate(pads)]
+    pad = (pads[1], hi[1], pads[0], hi[0])
+    if ptype == "max":
+        xp = F.pad(x, pad, value=-torch.inf) if any(pad) else x
+        return F.max_pool2d(xp, ksize, strides)
+    total = _window_sum(x, pad, ksize, strides)
+    if pads[0] == 0 and pads[1] == 0 and not ceil_mode:
+        return total / (ksize[0] * ksize[1])
+    return total / _window_sum(torch.ones_like(x), pad, ksize, strides)
 
 
 @primitive("layer_norm", inputs=["X", "Scale?", "Bias?"],

@@ -1,6 +1,7 @@
 """Tensor creation and manipulation ops — the port of
 ``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer,
-the LSTM text classifiers, their backward and Adam emit.
+the LSTM text classifiers, the book's first two chapters, their
+backward and the optimizers emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 host-side seed (``EmitCtx.seed``) and copy to the device, so one seed
@@ -58,6 +59,14 @@ def uniform_random(ctx, *_):
 def gaussian_random(ctx, *_):
     return _draw(ctx, lambda t, g: t.normal_(generator=g)
                  * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))
+
+
+@primitive("cast", seq_transparent=True)
+def cast(ctx, x):
+    """reference tensor_ops.py cast: to ``out_dtype`` (64-bit types
+    narrowed).  Its gradient, autograd's, casts back to X's dtype: the
+    master gradient of a bf16 activation's f32 source stays f32."""
+    return x.to(_rt_dtype(ctx.attr("out_dtype", "float32")))
 
 
 @primitive("assign", seq_transparent=True)

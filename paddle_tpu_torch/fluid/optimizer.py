@@ -6,7 +6,7 @@ cut to the ``Optimizer`` base and Adam.
 accumulators (persistable vars with startup-program init ops).  Names
 and op order are the reference's, so the optimized program serializes
 alike.  Gradient clipping, regularizers, ZeRO-style moment sharding and
-the other optimizers are not ported.
+the other optimizers (Adagrad, Adamax, ...) are not ported.
 """
 
 from __future__ import annotations
@@ -137,6 +137,35 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, pg):
+        return self.helper.append_op(
+            "sgd",
+            {"Param": pg[0], "Grad": pg[1],
+             "LearningRate": self._create_param_lr(pg)},
+            {"ParamOut": pg[0]})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        v = self._get_accumulator("velocity", pg[0])
+        return self.helper.append_op(
+            "momentum",
+            {"Param": pg[0], "Grad": pg[1], "Velocity": v,
+             "LearningRate": self._create_param_lr(pg)},
+            {"ParamOut": pg[0], "VelocityOut": v},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -175,14 +204,13 @@ def _unported(name: str):
     class _Unported(Optimizer):
         def __init__(self, *args, **kwargs):
             raise NotImplementedError(f"{name} is not ported to "
-                                      f"paddle_tpu_torch (only Adam is)")
+                                      f"paddle_tpu_torch (SGD, Momentum "
+                                      f"and Adam are)")
 
     _Unported.__name__ = _Unported.__qualname__ = name
     return _Unported
 
 
-SGDOptimizer = _unported("SGDOptimizer")
-MomentumOptimizer = _unported("MomentumOptimizer")
 AdagradOptimizer = _unported("AdagradOptimizer")
 
 Adam = AdamOptimizer

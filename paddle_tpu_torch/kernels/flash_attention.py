@@ -35,6 +35,7 @@ blocks (a second kernel merges the splits); for a CPU tensor it runs
 
 Nothing falls back: on a CUDA tensor a wrapper launches its kernel or
 raises.  Each wrapper counts its launches (``flash_attention.launches``,
+and by input dtype ``flash_attention.launches_by_dtype``;
 ``ragged_decode_attention.launches``).
 """
 
@@ -533,7 +534,7 @@ def _check_aligned(named) -> None:
                 f"boundary, its address is {t.data_ptr():#x}")
 
 
-def _flash_launch(name: str, d: int, *args) -> None:
+def _flash_launch(name: str, d: int, dtype: torch.dtype, *args) -> None:
     fn, smem_fn = _flash_entry(name)
     smem = smem_fn(d)
     _fcheck(smem <= _SMEM_LIMIT, f"{name} needs {smem} bytes of shared "
@@ -543,6 +544,8 @@ def _flash_launch(name: str, d: int, *args) -> None:
         raise RuntimeError(f"flash_attention {name} launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches[name] += 1
+    flash_attention.launches_by_dtype[str(dtype).removeprefix("torch.")][
+        name] += 1
 
 
 def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale, rate, seed, layout,
@@ -570,7 +573,7 @@ def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale, rate, seed, layout,
     if b * h * lq == 0:
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _flash_launch("fwd", d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _flash_launch("fwd", d, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), b, h, lq, lk, d, *strides, bias_b, bias_h,
                   sm_scale, int(causal), offsets[0], offsets[1], rate,
@@ -609,7 +612,7 @@ def _flash_dq_cuda(q, k, v, out, dout, lse, *cfg):
         return _flash_dq_cuda(*padded, lse, *cfg)[..., :d].contiguous()
     d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
     dq = torch.empty_like(q)
-    _flash_launch("dq", d, *ins, dq.data_ptr(), *common)
+    _flash_launch("dq", d, q.dtype, *ins, dq.data_ptr(), *common)
     return dq
 
 
@@ -623,7 +626,8 @@ def _flash_dkv_cuda(q, k, v, out, dout, lse, *cfg):
                      for g in _flash_dkv_cuda(*padded, lse, *cfg))
     d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _flash_launch("dkv", d, *ins, dk.data_ptr(), dv.data_ptr(), *common)
+    _flash_launch("dkv", d, q.dtype, *ins, dk.data_ptr(), dv.data_ptr(),
+                  *common)
     return dk, dv
 
 
@@ -693,5 +697,7 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
                                                  offsets))
 
 
-# kernel launches per kernel, CUDA path only
+# kernel launches per kernel, and per input dtype, CUDA path only
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+flash_attention.launches_by_dtype = {
+    dt: {"fwd": 0, "dq": 0, "dkv": 0} for dt in ("float32", "bfloat16")}

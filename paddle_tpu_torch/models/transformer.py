@@ -9,8 +9,10 @@ on the fused path, ``positionwise_feed_forward``,
 ``fluid.layers`` exactly as the reference does, so both packages build
 byte-identical programs; ``fluid.Executor`` runs them.  Every attention
 is one ``fused_attention`` op in the ``blhd`` layout (the flash kernels
-on the card).  Not ported: the unfused matmul + softmax attention,
-``mp_shard``, ``seq_parallel`` and ``amp_dtype``.
+on the card).  ``amp_dtype="bfloat16"`` is the reference's bf16 recipe:
+bf16 activations from one cast at each embedding, f32 master weights.
+Not ported: the unfused matmul + softmax attention, ``mp_shard`` and
+``seq_parallel``.
 
 Serving.  The reference builds its serving graphs from Fluid ops too;
 here they are ``nn.Module``s that run the same op sequence eagerly:
@@ -230,11 +232,9 @@ def decoder(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
 def prepare_embedding(word_ids, pos_ids, vocab_size, max_length, d_model,
                       dropout_rate=0.0, emb_name=None, amp_dtype=None,
                       pos_name=None):
-    """word_emb[ids] * sqrt(d_model) + pos_emb[pos], then dropout."""
-    if amp_dtype:
-        raise NotImplementedError("amp_dtype (bf16 activations over f32 "
-                                  "master weights) is not ported to "
-                                  "paddle_tpu_torch")
+    """word_emb[ids] * sqrt(d_model) + pos_emb[pos], then dropout.  With
+    ``amp_dtype`` the sum is cast once to that dtype: every op after it
+    computes in the activation dtype over the f32 master weights."""
     word_emb = layers.embedding(
         input=word_ids, size=[vocab_size, d_model],
         param_attr=emb_name)
@@ -242,6 +242,8 @@ def prepare_embedding(word_ids, pos_ids, vocab_size, max_length, d_model,
     pos_emb = layers.embedding(input=pos_ids, size=[max_length, d_model],
                                param_attr=pos_name)
     out = layers.elementwise_add(word_emb, pos_emb)
+    if amp_dtype:
+        out = layers.cast(out, amp_dtype)
     if dropout_rate:
         out = layers.dropout(out, dropout_prob=dropout_rate)
     return out

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Profile a training step of the PyTorch/CUDA port on one GPU.
 
-    python3 profile_training.py [--model transformer|lstm] [--batch N]
-                                [--steps 3] [--out FILE]
+    python3 profile_training.py [--model transformer|lstm] [--amp]
+                                [--batch N] [--steps 3] [--out FILE]
 
 Builds a training program ``chip_smoke.py`` trains: ``transformer``
-(default; Transformer-base, L=256, bench.py's recipe in float32, batch
-64) or ``lstm`` (the RNN benchmark model, hidden 512, T=100, Adam 2e-3,
-batch 128, the same ragged batch), runs two warm-up steps, then
-``--steps`` steps under ``torch.profiler`` (while a profiler runs, the
+(default; Transformer-base, L=256, bench.py's recipe, batch 64, in
+float32 or, with ``--amp``, in its bf16 recipe ``amp_dtype="bfloat16"``)
+or ``lstm`` (the RNN benchmark model, hidden 512, T=100, Adam 2e-3,
+batch 128, the same ragged batch), runs two warm-up steps, five steps
+timed without the profiler (their median wall ms), then ``--steps``
+steps under ``torch.profiler`` (while a profiler runs, the
 executor labels each Fluid op's work with its type).  Prints one JSON
 line: wall ms per step, device-busy ms per step (the sum of kernel
 times; the step runs on one stream, so kernels do not overlap), the
@@ -32,12 +34,13 @@ import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+UNPROFILED_STEPS = 5
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
             ("flash_fwd", ("fwd_kernel",)), ("flash_dq", ("dq_kernel",)),
             ("flash_dkv", ("dkv_kernel",)),
-            ("matmul", ("gemm", "Gemm", "cutlass", "xmma")),
+            ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
             ("elementwise", ("elementwise", "vectorized", "unrolled")),
             ("reduce", ("reduce", "Reduce", "softmax", "norm")),
             ("index", ("index", "gather", "scatter")))
@@ -64,6 +67,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("transformer", "lstm"),
                     default="transformer")
+    ap.add_argument("--amp", action="store_true",
+                    help="the Transformer's bf16 recipe (amp_dtype)")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 64 (transformer) or 128 (lstm)")
     ap.add_argument("--steps", type=int, default=3)
@@ -92,7 +97,8 @@ def main() -> int:
     else:
         batch = args.batch or cs.TRAIN_BATCH
         seq = cs.SEQ
-        main_prog, startup, loss = cs.build_training(fluid, transformer)
+        main_prog, startup, loss = cs.build_training(
+            fluid, transformer, cs.AMP if args.amp else None)
         feed = cs.train_feed(np, batch)
     place = fluid.CUDAPlace(0)
     exe = fluid.Executor(place)
@@ -100,6 +106,13 @@ def main() -> int:
     exe.run(startup, scope=scope)
     for _ in range(2):
         exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    # the same steps without the profiler: the fetched loss comes back as
+    # a numpy array, so each step has ended when its clock stops
+    plain = []
+    for _ in range(UNPROFILED_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+        plain.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -141,8 +154,12 @@ def main() -> int:
                                "cudaDeviceSynchronize"))
     busy = sum(by_family.values()) / 1e3 / args.steps
     step_ms = wall / args.steps * 1e3
-    rec = {"card": card, "model": args.model, "batch": batch, "seq": seq,
+    rec = {"card": card, "model": args.model,
+           "amp_dtype": cs.AMP if args.amp and args.model == "transformer"
+           else None, "batch": batch, "seq": seq,
            "steps": args.steps, "wall_ms_per_step": step_ms,
+           "unprofiled_step_ms_median":
+               sorted(plain)[len(plain) // 2] * 1e3,
            "device_busy_ms_per_step": busy,
            "device_idle_share": max(0.0, 1.0 - busy / step_ms),
            "device_ms_per_step_by_family": {

@@ -264,12 +264,15 @@ def test_unported_features_raise():
             tfluid.layers.embedding(ids, [8, 4], is_sparse=True)
         with pytest.raises(NotImplementedError, match="seq_parallel"):
             tfluid.layers.fused_attention(x, x, x, seq_parallel=True)
-        with pytest.raises(NotImplementedError, match="SGD"):
-            tfluid.optimizer.SGD(0.1)
+        with pytest.raises(NotImplementedError, match="Adagrad"):
+            tfluid.optimizer.Adagrad(0.1)
         with pytest.raises(NotImplementedError, match="regulariz"):
             tfluid.optimizer.Adam(0.1, regularization=object())
+        img = tfluid.layers.data("img", [3, 8, 8], "float32")
+        with pytest.raises(NotImplementedError, match="batch_norm"):
+            tfluid.nets.img_conv_group(img, [4, 4], pool_size=2,
+                                       conv_with_batchnorm=True)
     for kw, what in ((dict(mp_shard=True), "mp_shard"),
-                     (dict(amp_dtype="bfloat16"), "amp_dtype"),
                      (dict(fused=False), "fused=False"),
                      (dict(seq_parallel=True), "seq_parallel")):
         with pytest.raises(NotImplementedError, match=what):

@@ -60,12 +60,19 @@ SLICE_3 = {"paddle_tpu_torch.fluid.core.lod",
            "paddle_tpu_torch.models.sentiment"}
 
 
+# the modules of the book's first two chapters and the bf16 recipe
+BOOK = {"paddle_tpu_torch.fluid.nets",
+        "paddle_tpu_torch.fluid.layers.tensor",
+        "paddle_tpu_torch.models.fit_a_line",
+        "paddle_tpu_torch.models.recognize_digits"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
-    assert SLICE_3 <= names, SLICE_3 - names
+    assert SLICE_3 | BOOK <= names, (SLICE_3 | BOOK) - names
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -82,6 +89,8 @@ def test_entry_points_refuse_to_fall_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul \
+        .allow_bf16_reduced_precision_reduction is False
     with pytest.raises(NotImplementedError, match="beam"):
         PagedTransformerGenerator(24, 24, device="cpu", topk_size=4)
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
-    python3 chip_smoke.py [--parent-ragged DIR]
+    python3 chip_smoke.py [--parent-ragged DIR] [--parent-flash DIR]
 
 Runs from the root of a checkout and needs one CUDA card; it imports
 ``paddle_tpu_torch`` and never JAX or ``paddle_tpu``.  Phases:
@@ -28,7 +28,9 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    (fp32 and bf16, causal, dropout 0.1, 256x256 and 77x45), and D = 24,
    which the wrappers pad to 32; the widths above 64 (80, 128, 256: the
    wide kernels, 64-column chunks), fp32 and bf16; the dropout masks of
-   the forward and dk/dv kernels exactly;
+   the forward and dk/dv kernels exactly, on fp32 and on bf16 inputs (the
+   bf16 forward's kept values within its rounding of p); the forward with
+   no keys (every row dead);
 5. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
    through ``ContinuousBatchingScheduler`` over a Transformer-base
    ``PagedTransformerGenerator`` once per pool dtype (18 ragged-kernel
@@ -65,7 +67,10 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    dq, dk, dv); then time every kernel, its plain version and the
    PyTorch library call for the same function at the paths' shapes (the
    flash forward at dropout 0.1 and 0, the library's, in the same
-   dtype, at 0; the float32 flash kernels also at D = 80, 128, 256).
+   dtype, at 0, under every backend this PyTorch offers, the fastest
+   named; the float32 flash kernels also at D = 80, 128, 256).  The flash
+   kernels and SDPA are timed on the device clock (``device_ms``: a sleep
+   kernel holds the stream while the host queues the calls).
    The ragged kernel is timed on the device clock: 200 calls captured in
    a CUDA graph whose replay CUDA events time (``ms``), beside the same
    calls issued one by one through the wrapper (``ms_eager``), an empty
@@ -73,7 +78,10 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    kernels one call runs (the kernel nodes of a CUDA graph of its calls)
    and, with
    ``--parent-ragged DIR``, an earlier ``ragged_paged_attention.cu`` in
-   DIR built there and timed the graph's way (``parent_ms``);
+   DIR built there and timed the graph's way (``parent_ms``); with
+   ``--parent-flash DIR``, an earlier ``flash_attention_fwd.cu`` built
+   there and its bf16 forward timed through the wrapper in turns with
+   the kernel's (``parent_ms``, ``parent_ms_eager``, ``parent_host_ms``);
 11. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
@@ -105,6 +113,7 @@ failed check exits 1 without the last line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -134,6 +143,15 @@ TF32_FLOPS_PER_S = 495e12
 # ... and the bf16 tensor-core rate (the bound of the flash kernels'
 # bf16 instantiations, which the amp recipe runs)
 BF16_FLOPS_PER_S = 989e12
+# the flash kernels' dropout hash (keep_scale), counted on the pipe that
+# sets its pace: a live element takes the key's xor, three xor-shifts of
+# two operations each and the threshold compare on the int32 ALU pipe,
+# 8 operations; the position's add (the row and column terms hoisted)
+# and the two multiplies may issue as IMAD on the FMA pipe beside them,
+# 3 there.  The ALU pipe's rate is the card's: 64 int32 lanes an SM a
+# clock (Hopper) at the SM's maximum clock (int32_ops_per_s)
+HASH_ALU_OPS = 8
+INT32_LANES_PER_SM = 64
 
 # kernel vs plain on the same inputs: both compute in fp32; they differ
 # only in summation order (64-term dots, per-page partial softmax sums
@@ -149,6 +167,18 @@ LOGIT_ATOL = {"float32": 1e-3, "bfloat16": 1e-2, "int8": 1e-2}
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def int32_ops_per_s(torch) -> float:
+    """The card's int32 rate: its SMs x 64 lanes x its maximum SM clock,
+    as ``nvidia-smi --query-gpu=clocks.max.sm`` gives it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
 
 
 def card_line() -> str:
@@ -586,9 +616,12 @@ def teacher_forced(np, gpu, cpu, srcs):
 # and gradients sum up to 256 such terms; every kernel's products are
 # three TF32 products (operands split into two TF32 parts), whose
 # dropped lo*lo term and truncated lo part are below 2^-20 relative.
-# bf16: the same fp32 arithmetic on bf16 inputs, but each output is
+# bf16: fp32 sums of products of bf16 inputs, but each output is
 # rounded to bf16 on both sides, and a value near a rounding boundary
-# moves by one bf16 ulp (2^-8 relative).
+# moves by one bf16 ulp (2^-8 relative); the forward kernel also rounds
+# the dropped probabilities to bf16 before p.v, as the reference's
+# kernel does (the plain version keeps them fp32), at most 2^-9 of each
+# term, and the terms' rounding errors, of either sign, mostly cancel.
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_SHAPE = dict(B=8, H=8)
 # the head widths the kernels are built for besides 64, and one they pad
@@ -710,37 +743,62 @@ def run_flash_case(torch, fa, case, dev, gen):
     return _case_name(case), {n: e for n, (e, _) in errs.items()}, ok
 
 
-def dropout_mask_probe(torch, fa, dev):
-    """The kernels' dropout masks, compared exactly with keep_scale.  With
-    q = k = 0 every probability is 1/256 (exact), so with v one-hot on key
-    64*g + d the forward's out[r, d] is keep(r, 64g + d) / 256 exactly, and
-    with dout one-hot on row 64*g + d the dk/dv kernel's dv[c, d] is
-    keep(64g + d, c) / 256.  Returns (forward masks equal, dv masks
-    equal)."""
+def dropout_mask_probe(torch, fa, dev, dtype="float32"):
+    """The kernels' dropout masks, compared exactly with keep_scale, on
+    ``dtype`` inputs.  With q = k = 0 every probability is 1/256 (exact),
+    so with v one-hot on key 64*g + d the forward's out[r, d] is keep(r,
+    64g + d) / 256, and with dout one-hot on row 64*g + d the dk/dv
+    kernel's dv[c, d] is keep(64g + d, c) / 256.  Which entries are zero
+    must equal keep_scale's mask exactly.  In bf16 the forward rounds
+    p * keep to bf16 before p.v (half a bf16 ulp, 2^-8 relative at
+    most) and its output to bf16 (as much again), so its kept values are
+    held to keep / 256 within 2^-7 relative; in fp32 only the masks are
+    compared.  Returns (forward masks equal and kept values within that,
+    dv masks equal)."""
     B, H, L, D, rate = 1, 2, 256, 64, 0.1
-    z = torch.zeros(B, L, H, D, device=dev)
+    dt = getattr(torch, dtype)
+    z = torch.zeros(B, L, H, D, device=dev, dtype=dt)
     cfg = (False, D ** -0.5, rate, SEED, "blhd", (0, 0))
     lse = torch.full((B, H, L), float(math.log(L)), device=dev)
     bh = torch.arange(H, device=dev)[:, None, None]
-    want = fa.keep_scale(SEED, bh, torch.arange(L, device=dev)[:, None],
-                         torch.arange(L, device=dev)[None, :], rate) > 0
+    keep = fa.keep_scale(SEED, bh, torch.arange(L, device=dev)[:, None],
+                         torch.arange(L, device=dev)[None, :], rate)
+    want = keep > 0
     fwd_ok = dv_ok = True
     for g in range(L // D):
-        onehot = torch.zeros(B, L, H, D, device=dev)
+        onehot = torch.zeros(B, L, H, D, device=dev, dtype=dt)
         idx = torch.arange(D, device=dev)
         onehot[:, g * D + idx, :, idx] = 1.0
         out, _ = fa._flash_fwd_cuda(z, z, onehot, None, *cfg)
-        got = out[0].permute(1, 0, 2) > 0                 # [H, r, d]
-        fwd_ok &= torch.equal(got, want[:, :, g * D:(g + 1) * D])
+        got = out[0].permute(1, 0, 2).float()             # [H, r, d]
+        cols = slice(g * D, (g + 1) * D)
+        fwd_ok &= torch.equal(got > 0, want[:, :, cols])
+        if dtype == "bfloat16":
+            ref = keep[:, :, cols] / L
+            fwd_ok &= bool(((got - ref).abs() <= 2.0 ** -7 * ref).all())
         out0 = torch.zeros_like(z)
         _, dv = fa._flash_dkv_cuda(z, z, z, out0, onehot, lse, *cfg)
         got = dv[0].permute(1, 0, 2) > 0                  # [H, c, d]
-        dv_ok &= torch.equal(got, want[:, g * D:(g + 1) * D, :]
-                             .transpose(1, 2))
+        dv_ok &= torch.equal(got, want[:, cols, :].transpose(1, 2))
     torch.cuda.synchronize()
     return bool(fwd_ok), bool(dv_ok)
 
 
+def empty_keys_check(torch, fa, dev):
+    """The forward with no keys (Lk = 0) at D = 32 and 64, fp32 and bf16
+    (the fp32 kernel, the bf16 mma.sync and wgmma kernels' widths):
+    every row is dead, out 0 and lse +inf.  Returns the failed
+    (dtype, D)."""
+    failed = []
+    for dt in ("float32", "bfloat16"):
+        for d in (32, 64):
+            q = torch.randn(2, 77, 2, d, device=dev).to(getattr(torch, dt))
+            kv = q[:, :0]
+            out, lse = fa._flash_fwd_cuda(q, kv, kv, None, False, d ** -0.5,
+                                          0.0, 0, "blhd", (0, 0))
+            if out.any().item() or not bool((lse == math.inf).all()):
+                failed.append((dt, d))
+    return failed
 
 
 def cuda_ms(torch, fn, iters):
@@ -758,24 +816,114 @@ def cuda_ms(torch, fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def device_host_ms(torch, fn, iters, host_us=500):
+    """(ms per call of ``fn`` on the device clock, ms per call of host
+    time to issue it): a sleep kernel holds the stream while the host
+    issues ``iters`` calls behind it (up to ``host_us`` of host time a
+    call, at 2 GHz), so the host never waits for the card, the calls
+    then run back to back and CUDA events around them time the device
+    alone; if the host took longer than the sleep, once more with twice
+    the sleep.  Unlike ``graph_ms`` it needs no capture, so an autograd
+    backward and every SDPA backend time the same way."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(2):
+        torch.cuda._sleep(int(iters * host_us * 2000))
+        t0.record()
+        h0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = time.perf_counter() - h0
+        t1.record()
+        torch.cuda.synchronize()
+        if host_s < 0.9 * iters * host_us * 1e-6:
+            break
+        host_us *= 2
+    return t0.elapsed_time(t1) / iters, host_s * 1e3 / iters
+
+
+def device_ms(torch, fn, iters, host_us=500):
+    """``device_host_ms``'s device time."""
+    return device_host_ms(torch, fn, iters, host_us)[0]
+
+
 def flash_bound(kind, causal, B, H, L, D, item=4, passes=1,
-                flops_per_s=FP32_FLOPS_PER_S):
+                flops_per_s=FP32_FLOPS_PER_S, rate=0.0, int_ops_per_s=None):
     """Least time of one flash call: q, k, v (and out, dout, lse for the
     backward) read once and the outputs written once, against the dot
     products the call must do (4, 6 and 8 * L^2 * D per batch*head for
     fwd, dq and dk/dv: s and p.v; s, dp and ds.k; s, dp, p.do and ds.q),
     of which the causal mask keeps (L + 1) / 2L, done ``passes`` times
-    at ``flops_per_s``.  The defaults are the CUDA cores' fp32 bound;
-    the kernels do three TF32 products on the tensor cores (passes=3 at
-    TF32_FLOPS_PER_S)."""
+    at ``flops_per_s``, and, with dropout (``rate`` > 0), against the
+    hash's HASH_ALU_OPS int32 operations on every live element at
+    ``int_ops_per_s``.  The defaults are the CUDA cores' fp32 bound;
+    the fp32 kernels do three TF32 products on the tensor cores
+    (passes=3 at TF32_FLOPS_PER_S)."""
     keep = (L + 1) / (2 * L) if causal else 1.0
     ops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * B * H * L * L * D * keep
     t, lse = B * L * H * D * item, B * H * L * 4
     nbytes = {"fwd": 4 * t + lse, "dq": 6 * t + lse, "dkv": 7 * t + lse}[kind]
     t_ops = passes * ops / flops_per_s * 1e3
+    if rate > 0 and int_ops_per_s:
+        t_ops = max(t_ops, HASH_ALU_OPS * B * H * L * L * keep
+                    / int_ops_per_s * 1e3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_times(torch, q, k, v, dout, causal, iters=20):
+    """The library's yardstick: ``scaled_dot_product_attention`` on
+    [B, H, L, D] tensors at dropout 0, under each backend this PyTorch
+    offers (``torch.nn.attention.sdpa_kernel``), its forward (no grad)
+    and its autograd backward (dq, dk, dv) on the device clock; and as
+    the dispatcher picks (DEFAULT), on the device clock and through the
+    host call by call (``*_eager``).  Returns {backend: {"fwd": ms,
+    "bwd": ms}} or {backend: {"refused": why}} for a backend that does
+    not take these inputs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name in SDPA_BACKENDS + ("DEFAULT",):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None and name != "DEFAULT":
+            out[name] = {"refused": "not in this PyTorch"}
+            continue
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        try:
+            with (sdpa_kernel([backend]) if backend is not None
+                  else contextlib.nullcontext()):
+                with torch.no_grad():
+                    fwd = device_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            *leaves, is_causal=causal), iters)
+                lib_out = F.scaled_dot_product_attention(*leaves,
+                                                         is_causal=causal)
+            out[name] = {"fwd": fwd, "bwd": device_ms(
+                torch, lambda: torch.autograd.grad(
+                    lib_out, leaves, dout, retain_graph=True), iters)}
+            if backend is None:
+                # the dispatcher's own pick, timed also through the
+                # host: events around calls it issues one by one
+                with torch.no_grad():
+                    out[name]["fwd_eager"] = cuda_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            *leaves, is_causal=causal), iters)
+                out[name]["bwd_eager"] = cuda_ms(
+                    torch, lambda: torch.autograd.grad(
+                        lib_out, leaves, dout, retain_graph=True), iters)
+            del lib_out
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            out[name] = {"refused": str(e).strip().splitlines()[0][:200]}
+    return out
 
 
 def flash_entry_check(torch, fa, q, k, v, dout, cfg):
@@ -803,77 +951,156 @@ def flash_entry_check(torch, fa, q, k, v, dout, cfg):
     return name, {n: e for n, (e, _) in errs.items()}, ok
 
 
-def flash_timings(torch, fa, dev, gen, dtype="float32"):
+def build_parent_flash(src_dir):
+    """The parent commit's flash forward, from ``src_dir``'s
+    ``flash_attention_fwd.cu`` and its headers beside it, built there
+    with the port's nvcc flags -> the loaded library (the same C entries
+    as the package's)."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    src = os.path.join(src_dir, "flash_attention_fwd.cu")
+    lib = os.path.join(src_dir, "libparent_flash_fwd.so")
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True, text=True, timeout=600)
+    return ctypes.CDLL(lib)
+
+
+@contextlib.contextmanager
+def forward_library(fa, lib):
+    """The flash wrappers bound to ``lib``'s C entries while the block
+    runs, then to the package's again."""
+    from paddle_tpu_torch.kernels import _build
+
+    load = _build.load_library
+    _build.load_library = lambda name: lib
+    fa._flash_entry.cache_clear()
+    try:
+        yield
+    finally:
+        _build.load_library = load
+        fa._flash_entry.cache_clear()
+
+
+def flash_timings(torch, fa, dev, gen, dtype="float32", int_ops=None,
+                  parent=None):
     """At the training path's shapes, B=64, L=256, H=8, D=64, in
     ``dtype`` (float32, or bfloat16 as the amp recipe runs them), dropout
     0.1, non-causal and causal: first ``flash_entry_check``; then each
     flash kernel, its plain version and the library call
     (``scaled_dot_product_attention`` in the same dtype, dropout 0, its
-    autograd backward for dq + dk/dv), timed; the forward kernel also at
-    dropout 0, like for like with the library's.  The plain backward
-    computes dq, dk and dv in one call and is timed as such.  Bounds:
-    float32, the kernels' three TF32 products (the CUDA cores' fp32 bound
-    beside); bfloat16, 2-byte tensors and the products at the bf16
-    tensor-core rate (one TF32 pass beside: a bf16 operand is exact in
-    TF32).  Returns (timing rows, checks)."""
-    import torch.nn.functional as F
-
+    autograd backward for dq + dk/dv, under every SDPA backend:
+    ``sdpa_times``), on the device clock (``device_ms``); the forward
+    kernel also at dropout 0, like for like with the library's, through
+    the wrapper call after call (``ms_eager``: events around calls the
+    host issues one by one), and the host time to issue a call
+    (``host_ms``).  The plain backward computes dq, dk and dv in one
+    call and is timed as such.  Bounds: float32, the
+    kernels' three TF32 products (the CUDA cores' fp32 bound beside);
+    bfloat16, 2-byte tensors and the products at the bf16 tensor-core
+    rate (one TF32 pass beside); both against the dropout hash's int32
+    operations at ``int_ops`` a second.  With ``parent`` (a library from
+    ``build_parent_flash``) the parent's forward is timed through the
+    same wrapper the same ways (``parent_ms``, ``parent_host_ms``,
+    ``parent_ms_dropout0``, ``parent_ms_eager``), in turns with the
+    kernel (kernel, parent, parent, kernel: the kernel's numbers are the
+    mean of its two turns).  Returns (timing rows, checks, {causal:
+    sdpa_times})."""
     B, L, H, D = TRAIN_BATCH, SEQ, MODEL["n_head"], MODEL["d_key"]
     dt = getattr(torch, dtype)
     q, k, v, dout = (torch.randn(B, L, H, D, generator=gen).to(dev, dt)
                      for _ in range(4))
     item = q.element_size()
-    rows, checks = {}, []
+    rate = TRAIN["dropout_rate"]
+    if dtype == "float32":
+        # the kernels' products run as three TF32 products on the tensor
+        # cores; the CUDA cores' fp32 bound beside it
+        passes, flops = 3, TF32_FLOPS_PER_S
+        side_key, side_flops = "bound_fp32_ms", FP32_FLOPS_PER_S
+    else:
+        passes, flops = 1, BF16_FLOPS_PER_S
+        side_key, side_flops = "bound_tf32_ms", TF32_FLOPS_PER_S
+    rows, checks, sdpa = {}, [], {}
     for causal in (False, True):
-        cfg = (causal, D ** -0.5, TRAIN["dropout_rate"], SEED, "blhd",
-               (0, 0))
+        cfg = (causal, D ** -0.5, rate, SEED, "blhd", (0, 0))
         checks.append(flash_entry_check(torch, fa, q, k, v, dout, cfg))
         out, lse = fa._flash_fwd_cuda(q, k, v, None, *cfg)
-        qh, kh, vh, doh = (x.transpose(1, 2).contiguous().requires_grad_(
-            x is not dout) for x in (q, k, v, dout))
-        lib_out = F.scaled_dot_product_attention(qh, kh, vh,
-                                                 is_causal=causal)
-        plain_bwd = cuda_ms(torch, lambda: fa.flash_backward_plain(
-            q, k, v, out, dout, lse, None, *cfg), 5)
+        sdpa[causal] = sdpa_times(torch, *(
+            x.transpose(1, 2).contiguous() for x in (q, k, v, dout)),
+            causal)
+        plain_bwd = device_ms(torch, lambda: fa.flash_backward_plain(
+            q, k, v, out, dout, lse, None, *cfg), 5, host_us=5000)
         cfg0 = (causal, D ** -0.5, 0.0, 0, "blhd", (0, 0))
-        fwd0 = cuda_ms(torch, lambda: fa._flash_fwd_cuda(
-            q, k, v, None, *cfg0), 20)
-        t = {"fwd": cuda_ms(torch, lambda: fa._flash_fwd_cuda(
-                q, k, v, None, *cfg), 20),
-             "dq": cuda_ms(torch, lambda: fa._flash_dq_cuda(
+
+        def fwd_times():
+            def call(c=cfg):
+                return fa._flash_fwd_cuda(q, k, v, None, *c)
+            # 100 calls: the host's time a call varies more than the card's
+            ms, host = device_host_ms(torch, call, 100)
+            return {"ms": ms, "host_ms": host,
+                    "ms_dropout0": device_ms(torch, lambda: call(cfg0), 20),
+                    "ms_eager": cuda_ms(torch, call, 20)}
+
+        turns, par = [fwd_times()], {}
+        if parent is not None:
+            with forward_library(fa, parent):
+                p = [fwd_times(), fwd_times()]
+            turns.append(fwd_times())
+            par = {f"parent_{n}": (p[0][n] + p[1][n]) / 2 for n in p[0]}
+        fwd = {n: sum(x[n] for x in turns) / len(turns) for n in turns[0]}
+        t = {"fwd": fwd["ms"],
+             "dq": device_ms(torch, lambda: fa._flash_dq_cuda(
                  q, k, v, out, dout, lse, *cfg), 20),
-             "dkv": cuda_ms(torch, lambda: fa._flash_dkv_cuda(
+             "dkv": device_ms(torch, lambda: fa._flash_dkv_cuda(
                  q, k, v, out, dout, lse, *cfg), 20)}
-        plain = {"fwd": cuda_ms(torch, lambda: fa.flash_forward_plain(
-            q, k, v, None, *cfg), 5), "dq": plain_bwd, "dkv": plain_bwd}
-        with torch.no_grad():
-            lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=causal), 20)
-        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
-            lib_out, (qh, kh, vh), doh, retain_graph=True), 20)
-        library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        plain = {"fwd": device_ms(torch, lambda: fa.flash_forward_plain(
+            q, k, v, None, *cfg), 5, host_us=5000),
+            "dq": plain_bwd, "dkv": plain_bwd}
         for kind in ("fwd", "dq", "dkv"):
-            if dtype == "float32":
-                # the kernels' products run as three TF32 products on the
-                # tensor cores; the CUDA cores' fp32 bound beside it
-                side_ms, _ = flash_bound(kind, causal, B, H, L, D)
-                b_ms, b_by = flash_bound(kind, causal, B, H, L, D, passes=3,
-                                         flops_per_s=TF32_FLOPS_PER_S)
-                side = {"bound_fp32_ms": side_ms}
-            else:
-                side_ms, _ = flash_bound(kind, causal, B, H, L, D, item,
-                                         flops_per_s=TF32_FLOPS_PER_S)
-                b_ms, b_by = flash_bound(kind, causal, B, H, L, D, item,
-                                         flops_per_s=BF16_FLOPS_PER_S)
-                side = {"bound_tf32_ms": side_ms}
+            b_ms, b_by = flash_bound(kind, causal, B, H, L, D, item, passes,
+                                     flops, rate=rate, int_ops_per_s=int_ops)
+            side_ms, _ = flash_bound(kind, causal, B, H, L, D, item,
+                                     flops_per_s=side_flops)
             rows[(kind, causal)] = {
                 "kernel": kind, "dtype": dtype, "causal": causal,
-                "ms": t[kind], "plain_ms": plain[kind],
-                "library_ms": library[kind], "bound_ms": b_ms,
-                "bound_by": b_by, **side}
-        rows[("fwd", causal)]["ms_dropout0"] = fwd0
-        del lib_out, qh, kh, vh, doh, out, lse
-    return rows, checks
+                "ms": t[kind], "plain_ms": plain[kind], "bound_ms": b_ms,
+                "bound_by": b_by, side_key: side_ms}
+        b0_ms, _ = flash_bound("fwd", causal, B, H, L, D, item, passes,
+                               flops)
+        rows[("fwd", causal)].update(ms_dropout0=fwd["ms_dropout0"],
+                                     ms_eager=fwd["ms_eager"],
+                                     host_ms=fwd["host_ms"],
+                                     bound_dropout0_ms=b0_ms, **par)
+        del out, lse
+    return rows, checks, sdpa
+
+
+def backend_mix(sdpa, kind):
+    """{SDPA backend: its ``kind`` ("fwd", "bwd", or for DEFAULT also
+    "fwd_eager", "bwd_eager") ms over the training step's 12 full and 6
+    causal attentions, or why it refused}"""
+    out = {}
+    for name in sdpa[False]:
+        full, causal = sdpa[False][name], sdpa[True][name]
+        if kind in full and kind in causal:
+            out[name] = ((ATTN_PER_STEP - CAUSAL_PER_STEP) * full[kind]
+                         + CAUSAL_PER_STEP * causal[kind]) / ATTN_PER_STEP
+        else:
+            out[name] = "refused: " + (full.get("refused")
+                                       or causal.get("refused"))
+    return out
+
+
+def fastest_backend(by_backend):
+    """(backend, ms) of the fastest of ``backend_mix``'s backends (the
+    dispatcher's pick is one of them)."""
+    timed = {n: ms for n, ms in by_backend.items()
+             if n in SDPA_BACKENDS and isinstance(ms, float)}
+    if not timed:
+        return None, None
+    name = min(timed, key=timed.get)
+    return name, timed[name]
 
 
 def flash_wide_timings(torch, fa, dev, gen):
@@ -1610,6 +1837,12 @@ def main() -> int:
                     "ragged_paged_attention.cu (same C entry as the "
                     "parent commit's): build it there and time it beside "
                     "the kernel, the same way (parent_ms)")
+    ap.add_argument("--parent-flash", metavar="DIR", default=None,
+                    help="a directory holding an earlier "
+                    "flash_attention_fwd.cu and its headers (same C "
+                    "entries): build it there and time its bf16 forward "
+                    "through the wrapper in turns with the kernel's "
+                    "(parent_ms, parent_host_ms, parent_ms_eager, ...)")
     args = ap.parse_args()
     started = time.perf_counter()
     import torch
@@ -1693,11 +1926,17 @@ def main() -> int:
             flash_err[key] = max(flash_err[key], e)
         if not ok:
             failures.append(f"flash kernel vs plain {name}: {errs}")
-    masks = dropout_mask_probe(torch, fa, dev)
-    log(f"flash dropout masks equal keep_scale (fwd, dv): {masks}")
-    if not all(masks):
-        failures.append(f"flash dropout masks differ from keep_scale: "
-                        f"(fwd, dv) = {masks}")
+    for dt in ("float32", "bfloat16"):
+        masks = dropout_mask_probe(torch, fa, dev, dt)
+        log(f"flash dropout masks equal keep_scale, {dt} (fwd, dv): "
+            f"{masks}")
+        if not all(masks):
+            failures.append(f"flash dropout masks differ from keep_scale "
+                            f"in {dt}: (fwd, dv) = {masks}")
+    empty = empty_keys_check(torch, fa, dev)
+    log(f"flash forward with no keys, rows dead: {not empty}")
+    if empty:
+        failures.append(f"flash forward with no keys: {empty}")
 
     # -- serving, once per pool dtype
     srcs = prompts(np)
@@ -1878,10 +2117,22 @@ def main() -> int:
     del pools
     torch.cuda.empty_cache()
     wide_rows = flash_wide_timings(torch, fa, dev, gen)
-    flash_rows = {}
+    flash_rows, flash_sdpa = {}, {}
+    int_ops = int32_ops_per_s(torch)
+    parent_flash = None
+    if args.parent_flash:
+        parent_flash = build_parent_flash(args.parent_flash)
+        log(f"built the parent's flash forward from {args.parent_flash}")
+    log(f"int32 rate (SMs x {INT32_LANES_PER_SM} x max SM clock): "
+        f"{int_ops:.4g} ops/s")
     for dt in ("float32", "bfloat16"):
-        rows, checks = flash_timings(torch, fa, dev, gen, dt)
-        flash_rows[dt] = rows
+        rows, checks, sdpa = flash_timings(
+            torch, fa, dev, gen, dt, int_ops,
+            parent_flash if dt == "bfloat16" else None)
+        flash_rows[dt], flash_sdpa[dt] = rows, sdpa
+        for causal, by_backend in sdpa.items():
+            log(f"sdpa {dt} {'causal' if causal else 'full'}: "
+                f"{json.dumps(by_backend)}")
         for name, errs, ok in checks:
             log(f"flash {'ok  ' if ok else 'FAIL'} {dt} {name} "
                 f"{json.dumps(errs)}")
@@ -1939,8 +2190,23 @@ def main() -> int:
                         + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
 
             by = {rows[(k, c)]["bound_by"] for c in (False, True)}
-            extra = ({"ms_dropout0": mix("ms_dropout0")} if k == "fwd"
-                     else {})
+            pass_ = "fwd" if k == "fwd" else "bwd"
+            by_backend = backend_mix(flash_sdpa[dt], pass_)
+            lib_name, lib_ms = fastest_backend(by_backend)
+            by_backend["DEFAULT_eager"] = backend_mix(
+                {c: {"DEFAULT": r["DEFAULT"]} for c, r in
+                 flash_sdpa[dt].items()}, f"{pass_}_eager")["DEFAULT"]
+            extra = {}
+            if k == "fwd":
+                # the dropout hash's share: the kernel at the step's
+                # dropout less the kernel at 0
+                extra = {"ms_dropout0": mix("ms_dropout0"),
+                         "hash_ms": mix("ms") - mix("ms_dropout0"),
+                         "bound_dropout0_ms": mix("bound_dropout0_ms"),
+                         "ms_eager": mix("ms_eager"),
+                         "host_ms": mix("host_ms")}
+                extra.update({n: mix(n) for n in rows[(k, False)]
+                              if n.startswith("parent_")})
             if dt == "float32":
                 extra.update(bound_fp32_ms=mix("bound_fp32_ms"),
                              ms_by_width={f"D{d}": r[k]
@@ -1959,8 +2225,8 @@ def main() -> int:
                 "ms": mix("ms"), "plain_ms": mix("plain_ms"),
                 "bound_ms": mix("bound_ms"),
                 "bound_by": by.pop() if len(by) == 1 else "operations",
-                "library_ms": mix("library_ms"),
-                **extra})
+                "library_ms": lib_ms, "library_backend": lib_name,
+                "library_ms_by_backend": by_backend, **extra})
     for t in timing:
         log(json.dumps(t))
     for rows in flash_rows.values():

@@ -43,17 +43,29 @@ __device__ __forceinline__ uint32_t keep_threshold(float rate) {
   return (uint32_t)ceilf(rate * 16777216.0f);
 }
 
-__device__ __forceinline__ float keep_of(uint32_t seed, uint32_t bh,
-                                         uint32_t row, uint32_t col,
-                                         uint32_t thr, float inv_keep) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u;
-  x = x ^ (bh * 0xC2B2AE3Du) ^ seed;
+// the hash's three terms: row * kRowMul + col * kColMul, then xor with
+// bh * kBhMul ^ seed (the key)
+constexpr uint32_t kRowMul = 0x9E3779B1u;
+constexpr uint32_t kColMul = 0x85EBCA77u;
+constexpr uint32_t kBhMul = 0xC2B2AE3Du;
+
+// kept?  pos = row * kRowMul + col * kColMul, key = bh * kBhMul ^ seed
+__device__ __forceinline__ bool kept(uint32_t pos, uint32_t key,
+                                     uint32_t thr) {
+  uint32_t x = pos ^ key;
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
-  return (x >> 8) >= thr ? inv_keep : 0.0f;
+  return (x >> 8) >= thr;
+}
+
+__device__ __forceinline__ float keep_of(uint32_t seed, uint32_t bh,
+                                         uint32_t row, uint32_t col,
+                                         uint32_t thr, float inv_keep) {
+  return kept(row * kRowMul + col * kColMul, (bh * kBhMul) ^ seed, thr)
+             ? inv_keep : 0.0f;
 }
 
 // kept under the causal mask and the key bound?  Positions are global

@@ -1,9 +1,12 @@
 // Tensor-core and copy helpers of the flash-attention kernels for Hopper
 // (sm_90a): 3xTF32 mma.sync products, cp.async tile copies into swizzled
-// shared memory, and the fragment loads that read them.  Included by
-// flash_attention_fwd.cu and flash_attention_bwd.cu.  The split and the
-// mma wrapper are copies of lstm_fwd.cu's: each .cu builds into its own
-// library, so nothing is shared between them.
+// shared memory, and the fragment loads that read them; and, for the
+// forward's bf16 kernels, bf16 mma.sync and ldmatrix, warpgroup products
+// (wgmma) with their shared-memory descriptors, and TMA tile copies with
+// their barriers.  Included by flash_attention_fwd.cu and
+// flash_attention_bwd.cu.  The split and the mma wrapper are copies of
+// lstm_fwd.cu's: each .cu builds into its own library, so nothing is
+// shared between them.
 //
 // Fragments of mma.sync.m16n8k8.tf32 (g = lane / 4, t = lane % 4):
 //   A (16 x 8):  a0 (g, k t), a1 (g + 8, k t), a2 (g, k t+4), a3 (g+8, k t+4)
@@ -38,6 +41,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -172,6 +176,154 @@ __device__ __forceinline__ void load_b_cols(FragB& f, const T* s, int k,
   split<kLo>(ld1(s + at<D, T>(k + 1, n)), f.hi[1], f.lo[1]);
 }
 
+// -- bf16 products (the forward's bf16 kernel) ------------------------------
+//
+// Fragments of mma.sync.m16n8k16.bf16 (g = lane / 4, t = lane % 4), each
+// register a pair of neighbouring bf16 values, the lower column (or k)
+// in the low half:
+//   A (16 x 16): a0 (g, k 2t..2t+1), a1 (g + 8, k 2t..), a2 (g, k 2t+8..),
+//                a3 (g + 8, k 2t+8..)
+//   B (16 x 8):  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+//   C (16 x 8):  as m16n8k8's, c0 (g, 2t), c1 (g, 2t+1), c2, c3 row g + 8
+// The C fragments of two neighbouring 8-column steps are, rounded and
+// paired, the A fragment of a 16-deep product over those columns, in
+// the natural order: no permutation as in the TF32 products.  ldmatrix
+// reads the fragments from the swizzled tiles: each lane gives the
+// address of one 16-byte row piece (one chunk), 8 lanes an 8 x 8 matrix.
+
+// c += a * b in bf16 with fp32 sums.  Like mma(): the tensor core's sum
+// into c truncates, so long chains take fresh fragments
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// the same, each matrix transposed: lane (g, t) gets rows 2t, 2t + 1 of
+// column g
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// (lo, hi) rounded to nearest even bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; 2^-inf = 0, results below 2^-126
+// flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -- warpgroup products (wgmma, sm_90a) --------------------------------------
+//
+// wgmma.m64n64k16 over 4 warps: warp w's 16 rows of the 64 x 64 fp32
+// result lie in its lanes as 8 m16n8 C fragments, d[j][e] = c_e of
+// columns 8j..8j+7; a register A operand is, warp by warp, m16n8k16's
+// A fragment.  Operands in shared memory are [rows][64] bf16 tiles of
+// 128-byte rows, 1024-byte aligned, whose 16-byte chunks lie at c ^
+// (row % 8) (the 128-byte swizzle), read through a matrix descriptor:
+// start address, leading and stride byte offsets (16-byte units), the
+// swizzle mode.  An operand's 8-row groups lie 1024 bytes apart (the
+// stride offset).  A K-major operand (q, k: the depth along the row)
+// takes its k-th 16-deep slice at start + 32k bytes; an MN-major one
+// (v for p.v: the depth runs over rows) at start + 2048k bytes (16 rows),
+// with one 64-column atom, so its leading offset is not read.
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4)    // start address
+         | (uint64_t)1 << 16               // leading byte offset, 16 B
+         | (uint64_t)(1024 >> 4) << 32     // stride byte offset
+         | (uint64_t)1 << 62;              // 128-byte swizzle
+}
+
+// the descriptor's start moved by ``bytes`` (a multiple of 16)
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
+  return d + (bytes >> 4);
+}
+
+// register writes before a wgmma that reads them, and the accumulators
+// of earlier ones, are ordered by wgmma.fence
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// the compiler keeps an accumulator in place while a wgmma runs on it
+__device__ __forceinline__ void keep_regs(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]));
+}
+
+#define FLASH_WG_D32                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31}"
+#define FLASH_WG_OUT(d)                                                   \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),            \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),        \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),        \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),        \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),        \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),        \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),        \
+      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+
+// d (+)= A.B, 64 x 64 x 16 in bf16 with fp32 sums, A and B K-major in
+// shared memory; acc = 0 overwrites d.  Asynchronous: wg_commit, then
+// wg_wait_all before d is read
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      FLASH_WG_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FLASH_WG_OUT(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// the same with A in registers (m16n8k16 A fragments) and B MN-major
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[8][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      FLASH_WG_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FLASH_WG_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+#undef FLASH_WG_D32
+#undef FLASH_WG_OUT
+
 // 16 bytes global -> shared through L2 only; zero-filled when !valid
 // (src-size 0: nothing is read)
 __device__ __forceinline__ void cp16(void* dst, const void* src,
@@ -212,6 +364,52 @@ __device__ __forceinline__ void cp_tile(T* s, const T* base,
     const T* src = ok ? base + row * row_stride + c * E : base;
     cp16(s + r * D + chunk_at<D, T>(r, c) * E, src, ok);
   }
+}
+
+// -- tensor-memory-accelerator copies (TMA) and their barriers ---------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// a shared-memory barrier that completes when one thread has arrived
+// and the bytes it announced have landed
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// barrier initialisation made visible to the async proxy (the TMA unit)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive, announcing ``bytes`` to land before the barrier completes
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait for the barrier's phase ``parity`` to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// one box of a 4-d tensor map into shared memory (the map's swizzle),
+// counted against bar; rows past the tensor's extent are zero
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(smem_u32(bar))
+      : "memory");
 }
 
 }  // namespace flash

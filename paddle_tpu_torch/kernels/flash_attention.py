@@ -572,6 +572,11 @@ def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale, rate, seed, layout,
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     if b * h * lq == 0:
         return out, lse
+    if lk == 0:
+        # no keys: every row is dead (out 0, lse +inf), as the kernels
+        # write a dead row; the bf16 D = 64 kernel's tensor maps take no
+        # empty k or v
+        return out.zero_(), lse.fill_(float("inf"))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _flash_launch("fwd", d, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),

@@ -38,7 +38,8 @@ UNPROFILED_STEPS = 5
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
-            ("flash_fwd", ("fwd_kernel",)), ("flash_dq", ("dq_kernel",)),
+            ("flash_fwd", ("fwd_kernel", "fwd_bf16_kernel", "fwd_wg_kernel")),
+            ("flash_dq", ("dq_kernel",)),
             ("flash_dkv", ("dkv_kernel",)),
             ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
             ("elementwise", ("elementwise", "vectorized", "unrolled")),

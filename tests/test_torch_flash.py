@@ -409,6 +409,92 @@ def test_3xtf32_forward_holds_the_fp32_tolerance(causal):
     assert max(errs["3xtf32"]) <= FLASH_TOL_F32, errs
 
 
+# chip_smoke.py's FLASH_TOL["bfloat16"]: kernel vs plain on the card
+FLASH_TOL_BF16 = 2e-2
+
+
+def _bf16_forward(q, k, v, causal, rate, seed, tile=64, part=32):
+    """The bf16 forward kernels' arithmetic (fwd_wg_kernel at D = 64) on
+    [B, H, L, D] bf16 tensors: s = q.k^T as fp32 sums of products of bf16
+    values (exact in fp32), the online softmax over ``tile``-key tiles in
+    base 2 (the max over the unscaled scores, p = 2^(s * scale * log2 e -
+    m)), l the fp32 sum of the unrounded p, p * keep_scale rounded to
+    bf16 before p.v, p.v summed ``part`` keys a fresh partial and added
+    to the accumulator in fp32; out rounded to bf16.  Returns (out,
+    lse)."""
+    log2e = 1.4426950408889634
+    scale = q.shape[-1] ** -0.5 * log2e
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    lq, lk = q.shape[2], k.shape[2]
+    rows = torch.arange(lq)
+    m = torch.full(q.shape[:3], -float("inf"))
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, lk, tile):
+        cols = torch.arange(k0, min(k0 + tile, lk))
+        s = torch.matmul(qf, kf[:, :, cols].transpose(-1, -2))
+        if causal:
+            s = s.masked_fill(rows[:, None] < cols[None, :], -float("inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1) * scale)
+        m_sub = torch.where(torch.isinf(m_new), 0.0, m_new)
+        alpha = torch.exp2(m - m_sub)
+        p = torch.exp2(s * scale - m_sub[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        p = (p * tfa._plain_keep(q, rows, cols, rate, seed)).to(
+            torch.bfloat16).float()
+        vt = vf[:, :, cols]
+        pv = sum(torch.matmul(p[..., c:c + part], vt[:, :, c:c + part])
+                 for c in range(0, len(cols), part))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return ((acc / l[..., None]).to(torch.bfloat16),
+            m / log2e + torch.log(l))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_forward_rounds_p_as_the_reference(causal):
+    """The bf16 forward kernels take bf16 products with fp32 sums and
+    round the dropped probabilities to bf16 before p.v, as the
+    reference's Pallas kernel does (``pd.astype(v.dtype)``).  Emulated at
+    B=2, H=2, L=256, D=64 with dropout 0.1 on bf16 inputs, the output is
+    held:
+      * against the reference's Pallas forward in interpret mode on the
+        same bf16 inputs, which rounds p the same way: within one bf16
+        ulp of the output's largest magnitude, since the two differ only
+        in summation order and tile boundaries (a term or an output near
+        a rounding boundary lands on the other side);
+      * against the port's plain forward (fp32 p, the card's reference):
+        within chip_smoke's FLASH_TOL["bfloat16"] of max(1, magnitude),
+        the tolerance the kernel is held to there.
+    The lse, which sums the unrounded p in fp32 on both sides, is held
+    to the plain forward's within 1e-5 of its magnitude (fp32 summation
+    order)."""
+    r = np.random.RandomState(9)
+    q, k, v = (torch.tensor(r.randn(2, 2, 256, 64).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(3))
+    rate, seed = 0.1, 11
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                  for x in (q, k, v))
+    want = np.asarray(jfa.flash_attention(
+        jq, jk, jv, causal=causal, dropout_rate=rate, dropout_seed=seed,
+        layout="bhld", impl="pallas_interpret")).astype(np.float32)
+    out, lse = _bf16_forward(q, k, v, causal, rate, seed)
+    got = out.float().numpy()
+    mag = float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    err_ref = float(np.abs(got - want).max())
+    plain_out, plain_lse = tfa.flash_forward_plain(q, k, v, None, causal,
+                                                   None, rate, seed, "bhld")
+    plain = plain_out.float().numpy()
+    err_plain = float(np.abs(got - plain).max())
+    err_lse = float((lse - plain_lse).abs().max())
+    print(f"max |out - reference| {err_ref} (one ulp {ulp}), "
+          f"max |out - plain| {err_plain}, max |lse - plain| {err_lse}")
+    assert err_ref <= ulp, (err_ref, ulp)
+    assert err_plain <= FLASH_TOL_BF16 * max(1.0, float(np.abs(plain).max()))
+    assert err_lse <= 1e-5 * float(plain_lse.abs().max())
+
+
 # -- heads wider than 64: the wide kernels' work split over 64-column chunks
 
 def _chunk_order(oc, nc):

@@ -23,7 +23,10 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    dropout 0 and 0.1, float32 and bfloat16, both bias shapes (forward),
    Lq=200 against Lk=136, and block offsets where every row is dead;
    the backward's tile edges (Lq=77 against Lk=45 and 45 against 77,
-   causal and not, dropout 0.1, fp32 and one bf16) and one 'bhld' case;
+   causal and not, dropout 0.1, fp32 and bf16; bf16 also 200x136 and
+   the dead rows) and a 'bhld' case in each dtype; every bf16 D = 64
+   case must run ``dq_wg_kernel`` and ``dkv_wg_kernel`` (the kernel
+   nodes of a CUDA graph of its calls, named through the driver);
    the other head widths the kernels are built for, D = 8, 16 and 32
    (fp32 and bf16, causal, dropout 0.1, 256x256 and 77x45), and D = 24,
    which the wrappers pad to 32; the widths above 64 (80, 128, 256: the
@@ -66,7 +69,7 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    autograd backward against the plain forward and backward (out, lse,
    dq, dk, dv); then time every kernel, its plain version and the
    PyTorch library call for the same function at the paths' shapes (the
-   flash forward at dropout 0.1 and 0, the library's, in the same
+   flash kernels at dropout 0.1 and 0, the library's, in the same
    dtype, at 0, under every backend this PyTorch offers, the fastest
    named; the float32 flash kernels also at D = 80, 128, 256).  The flash
    kernels and SDPA are timed on the device clock (``device_ms``: a sleep
@@ -79,9 +82,12 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    and, with
    ``--parent-ragged DIR``, an earlier ``ragged_paged_attention.cu`` in
    DIR built there and timed the graph's way (``parent_ms``); with
-   ``--parent-flash DIR``, an earlier ``flash_attention_fwd.cu`` built
-   there and its bf16 forward timed through the wrapper in turns with
-   the kernel's (``parent_ms``, ``parent_ms_eager``, ``parent_host_ms``);
+   ``--parent-flash DIR``, an earlier ``flash_attention_fwd.cu`` (and
+   ``flash_attention_bwd.cu``, when DIR has it) built there, its bf16
+   forward timed through the wrapper and its bf16 dq and dk/dv through
+   its own entries, each in turns with the kernel's (``parent_ms``,
+   ``parent_ms_dropout0``; the forward's ``parent_ms_eager``,
+   ``parent_host_ms``);
 11. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
@@ -426,10 +432,12 @@ def ragged_extra_cases(torch, gen, dev):
     return out
 
 
-def device_kernels_per_call(torch, calls):
-    """Device kernels one call runs: ``calls`` captured into a CUDA graph
-    (after one warm-up call), its kernel nodes counted through the
-    driver (``cuGraphGetNodes``) and divided by the calls."""
+def graph_kernels(torch, calls):
+    """The device kernels ``calls`` run, in order: the calls captured into
+    a CUDA graph (after one warm-up call), its kernel nodes read through
+    the driver (``cuGraphGetNodes``) and each one's function named
+    (``cuFuncGetName``, or ``cuKernelGetName`` for a kernel the runtime
+    launched by its context-free handle) -> mangled names."""
     import ctypes
 
     calls[0]()
@@ -439,20 +447,46 @@ def device_kernels_per_call(torch, calls):
         for fn in calls:
             fn()
     cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} failed: CUDA driver error {err}")
+
     handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)),
+          "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
-    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kind, kernels = ctypes.c_int(), 0
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+          "cuGraphGetNodes")
+    kind, names = ctypes.c_int(), []
+    # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+    params = (ctypes.c_void_p * 9)()
+    name = ctypes.c_char_p()
     for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                 ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0            # CU_GRAPH_NODE_TYPE_KERNEL
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               params),
+              "cuGraphKernelNodeGetParams")
+        func, kern = params[0], params[7]
+        if func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
     del graph
-    return kernels / len(calls)
+    return names
+
+
+def device_kernels_per_call(torch, calls):
+    """Device kernels one call runs: ``graph_kernels`` of ``calls``,
+    counted and divided by the calls."""
+    return len(graph_kernels(torch, calls)) / len(calls)
 
 
 def run_ragged_extra(torch, fa, extra, failures):
@@ -638,7 +672,9 @@ def flash_cases():
     causal block_offsets (0, 256), where every row is dead; then the
     edges of the backward's 16-row warp tiles and 8-column steps: Lq=77
     against Lk=45 and 45 against 77, causal and not, dropout 0.1, in
-    fp32 (and one in bf16); and one 'bhld' case.  Then the other built
+    fp32; in bf16 (the warpgroup kernels' 64-row tiles) 77x45, 45x77 and
+    200x136, causal and not, dropout 0.1, and the dead rows; and one
+    'bhld' case in each dtype.  Then the other built
     head widths, D = 8, 16 and 32, in fp32 and bf16, causal with dropout
     0.1 at 256x256 and at the ragged 77x45 edge, and the padded width
     D = 24 at both.  Then the widths above 64 (WIDE_WIDTHS), fp32 and
@@ -659,11 +695,16 @@ def flash_cases():
     cases += [dict(dtype="float32", causal=c, rate=0.1, lq=lq, lk=lk,
                    bias=None, offsets=None, grads=True)
               for lq, lk in ((77, 45), (45, 77)) for c in (False, True)]
-    cases.append(dict(dtype="bfloat16", causal=True, rate=0.1, lq=77,
-                      lk=45, bias=None, offsets=None, grads=True))
-    cases.append(dict(dtype="float32", causal=True, rate=0.1, lq=200,
-                      lk=136, bias=None, offsets=None, grads=True,
-                      layout="bhld"))
+    # bf16 at D = 64 (the warpgroup kernels) at the same edges
+    cases += [dict(dtype="bfloat16", causal=c, rate=0.1, lq=lq, lk=lk,
+                   bias=None, offsets=None, grads=True)
+              for lq, lk in ((77, 45), (45, 77), (200, 136))
+              for c in (False, True)]
+    cases.append(dict(dtype="bfloat16", causal=True, rate=0.0, lq=256,
+                      lk=256, bias=None, offsets=(0, 256), grads=True))
+    cases += [dict(dtype=dt, causal=True, rate=0.1, lq=200, lk=136,
+                   bias=None, offsets=None, grads=True, layout="bhld")
+              for dt in ("float32", "bfloat16")]
     cases += [dict(dtype=dt, causal=True, rate=0.1, lq=lq, lk=lk, bias=None,
                    offsets=None, grads=True, d=d)
               for d in NARROW_WIDTHS for dt in ("float32", "bfloat16")
@@ -703,10 +744,33 @@ def _max_err(torch, got, want):
             want[fin].abs().max().item())
 
 
+def kernel_names(torch, fn):
+    """The kernels one call of ``fn`` runs on the device, by their source
+    names (``dq_wg_kernel``, ``fwd_kernel``, ...: the identifier in each
+    mangled name of ``graph_kernels``)."""
+    import re
+
+    return sorted({m.group(1) for n in graph_kernels(torch, [fn])
+                   for m in [re.search(r"\d+([a-z_]+_kernel)I", n)] if m})
+
+
+def wg_kernels_ran(torch, fa, args):
+    """{"dq": ..., "dkv": ...}: did the dq and dk/dv wrappers on ``args``
+    (bf16, D = 64) run the warpgroup kernels, ``dq_wg_kernel`` and
+    ``dkv_wg_kernel``?"""
+    names = kernel_names(torch, lambda: (
+        fa._flash_dq_cuda(*args), fa._flash_dkv_cuda(*args)))
+    ran = {k: f"{k}_wg_kernel" in names for k in ("dq", "dkv")}
+    if not all(ran.values()):
+        log(f"flash bf16 D=64 backward ran {names}")
+    return ran
+
+
 def run_flash_case(torch, fa, case, dev, gen):
     """One case: kernels and plain versions on the same inputs -> (name,
     {tensor: max_abs_err}, ok).  A tensor passes when its error is within
-    the dtype's tolerance times max(1, its largest magnitude)."""
+    the dtype's tolerance times max(1, its largest magnitude); a bf16
+    D = 64 case passes only if its backward ran the warpgroup kernels."""
     B, H, D = FLASH_SHAPE["B"], FLASH_SHAPE["H"], case.get("d", 64)
     dt = getattr(torch, case["dtype"])
     lq, lk = case["lq"], case["lk"]
@@ -728,7 +792,7 @@ def run_flash_case(torch, fa, case, dev, gen):
     errs = {"out": _max_err(torch, out, p_out),
             "lse": _max_err(torch, lse, p_lse)}
     if case["grads"]:
-        args = (q, k, v, out, dout, lse, *cfg)
+        args = (q, k, v, out, dout, lse, torch.empty_like(lse), *cfg)
         dq = fa._flash_dq_cuda(*args)
         dk, dv = fa._flash_dkv_cuda(*args)
         want = fa.flash_backward_plain(q, k, v, p_out, dout, p_lse, None,
@@ -738,6 +802,8 @@ def run_flash_case(torch, fa, case, dev, gen):
     torch.cuda.synchronize()
     tol = FLASH_TOL[case["dtype"]]
     ok = all(e <= tol * max(1.0, mag) for e, mag in errs.values())
+    if case["grads"] and case["dtype"] == "bfloat16" and D == 64:
+        ok = ok and all(wg_kernels_ran(torch, fa, args).values())
     if case["offsets"] == (0, case["lk"]) and case["causal"]:
         ok = ok and not out.any().item() and bool(torch.isinf(lse).all())
     return _case_name(case), {n: e for n, (e, _) in errs.items()}, ok
@@ -777,7 +843,8 @@ def dropout_mask_probe(torch, fa, dev, dtype="float32"):
             ref = keep[:, :, cols] / L
             fwd_ok &= bool(((got - ref).abs() <= 2.0 ** -7 * ref).all())
         out0 = torch.zeros_like(z)
-        _, dv = fa._flash_dkv_cuda(z, z, z, out0, onehot, lse, *cfg)
+        _, dv = fa._flash_dkv_cuda(z, z, z, out0, onehot, lse,
+                                   torch.zeros_like(lse), *cfg)
         got = dv[0].permute(1, 0, 2) > 0                  # [H, c, d]
         dv_ok &= torch.equal(got, want[:, cols, :].transpose(1, 2))
     torch.cuda.synchronize()
@@ -850,9 +917,12 @@ def device_ms(torch, fn, iters, host_us=500):
 
 
 def flash_bound(kind, causal, B, H, L, D, item=4, passes=1,
-                flops_per_s=FP32_FLOPS_PER_S, rate=0.0, int_ops_per_s=None):
+                flops_per_s=FP32_FLOPS_PER_S, rate=0.0, int_ops_per_s=None,
+                delta=False):
     """Least time of one flash call: q, k, v (and out, dout, lse for the
-    backward) read once and the outputs written once, against the dot
+    backward) read once and the outputs written once (with ``delta``, the
+    bf16 D = 64 kernels' split: dq also writes the fp32 delta rows, and
+    dk/dv reads them in place of out), against the dot
     products the call must do (4, 6 and 8 * L^2 * D per batch*head for
     fwd, dq and dk/dv: s and p.v; s, dp and ds.k; s, dp, p.do and ds.q),
     of which the causal mask keeps (L + 1) / 2L, done ``passes`` times
@@ -865,6 +935,8 @@ def flash_bound(kind, causal, B, H, L, D, item=4, passes=1,
     ops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * B * H * L * L * D * keep
     t, lse = B * L * H * D * item, B * H * L * 4
     nbytes = {"fwd": 4 * t + lse, "dq": 6 * t + lse, "dkv": 7 * t + lse}[kind]
+    if delta and kind != "fwd":
+        nbytes += lse if kind == "dq" else lse - t
     t_ops = passes * ops / flops_per_s * 1e3
     if rate > 0 and int_ops_per_s:
         t_ops = max(t_ops, HASH_ALU_OPS * B * H * L * L * keep
@@ -952,35 +1024,73 @@ def flash_entry_check(torch, fa, q, k, v, dout, cfg):
 
 
 def build_parent_flash(src_dir):
-    """The parent commit's flash forward, from ``src_dir``'s
-    ``flash_attention_fwd.cu`` and its headers beside it, built there
-    with the port's nvcc flags -> the loaded library (the same C entries
-    as the package's)."""
+    """The parent commit's flash kernels, from ``src_dir``'s
+    ``flash_attention_fwd.cu`` and, when it is there,
+    ``flash_attention_bwd.cu``, with their headers beside them, built
+    there with the port's nvcc flags, both at once -> {"fwd": the loaded
+    forward library, "bwd": the backward's or None}."""
     import ctypes
 
     from paddle_tpu_torch.kernels import _build
 
-    src = os.path.join(src_dir, "flash_attention_fwd.cu")
-    lib = os.path.join(src_dir, "libparent_flash_fwd.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
-                   check=True, capture_output=True, text=True, timeout=600)
-    return ctypes.CDLL(lib)
+    procs = {}
+    for kind in ("fwd", "bwd"):
+        src = os.path.join(src_dir, f"flash_attention_{kind}.cu")
+        if kind == "fwd" or os.path.exists(src):
+            lib = os.path.join(src_dir, f"libparent_flash_{kind}.so")
+            procs[kind] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {"bwd": None}
+    for kind, (lib, proc) in procs.items():
+        log_, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {kind} build failed:\n{log_}")
+        libs[kind] = ctypes.CDLL(lib)
+    return libs
 
 
 @contextlib.contextmanager
-def forward_library(fa, lib):
-    """The flash wrappers bound to ``lib``'s C entries while the block
-    runs, then to the package's again."""
+def flash_library(fa, libs):
+    """The flash wrappers bound, while the block runs, to the libraries
+    in ``libs`` ({kernel source name, as in ``fa.FLASH_KERNELS``: a
+    library with the package's C entries and arguments}) and to the
+    package's own for the other sources; then to the package's again."""
     from paddle_tpu_torch.kernels import _build
 
     load = _build.load_library
-    _build.load_library = lambda name: lib
+    _build.load_library = lambda name: libs.get(name) or load(name)
     fa._flash_entry.cache_clear()
     try:
         yield
     finally:
         _build.load_library = load
         fa._flash_entry.cache_clear()
+
+
+def parent_backward(torch, fa, lib, kind, q, k, v, out, dout, lse, cfg):
+    """The parent's dq (``kind`` "dq") or dk/dv ("dkv") through its own C
+    entry, whose arguments lack the delta pointer the kernels of this
+    commit added: the wrapper's checks and shared arguments
+    (``_flash_bwd_setup``), then one launch -> the gradients."""
+    import ctypes
+
+    fn = getattr(lib, f"flash_attention_{kind}")
+    if fn.argtypes is None:
+        n_ptrs = {"dq": 7, "dkv": 8}[kind]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                       + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    _, common, ins = fa._flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
+    outs = ((torch.empty_like(q),) if kind == "dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
+    err = fn(*ins, *(g.data_ptr() for g in outs), *common)
+    if err != 0:
+        raise RuntimeError(f"parent flash {kind} launch failed: CUDA "
+                           f"error {err}")
+    return outs
 
 
 def flash_timings(torch, fa, dev, gen, dtype="float32", int_ops=None,
@@ -995,17 +1105,21 @@ def flash_timings(torch, fa, dev, gen, dtype="float32", int_ops=None,
     kernel also at dropout 0, like for like with the library's, through
     the wrapper call after call (``ms_eager``: events around calls the
     host issues one by one), and the host time to issue a call
-    (``host_ms``).  The plain backward computes dq, dk and dv in one
-    call and is timed as such.  Bounds: float32, the
+    (``host_ms``); the dq and dk/dv kernels also at dropout 0
+    (``ms_dropout0``), dk/dv on the delta of one dq call.  The plain
+    backward computes dq, dk and dv in one call and is timed as such.
+    Bounds: float32, the
     kernels' three TF32 products (the CUDA cores' fp32 bound beside);
     bfloat16, 2-byte tensors and the products at the bf16 tensor-core
     rate (one TF32 pass beside); both against the dropout hash's int32
-    operations at ``int_ops`` a second.  With ``parent`` (a library from
-    ``build_parent_flash``) the parent's forward is timed through the
+    operations at ``int_ops`` a second.  With ``parent`` (the libraries
+    of ``build_parent_flash``) the parent's forward is timed through the
     same wrapper the same ways (``parent_ms``, ``parent_host_ms``,
-    ``parent_ms_dropout0``, ``parent_ms_eager``), in turns with the
-    kernel (kernel, parent, parent, kernel: the kernel's numbers are the
-    mean of its two turns).  Returns (timing rows, checks, {causal:
+    ``parent_ms_dropout0``, ``parent_ms_eager``), and its dq and dk/dv,
+    where it has them, through its own entries (``parent_backward``:
+    ``parent_ms``, ``parent_ms_dropout0``), each in turns with the kernel
+    (kernel, parent, parent, kernel: the kernel's numbers are the mean
+    of its two turns).  Returns (timing rows, checks, {causal:
     sdpa_times})."""
     B, L, H, D = TRAIN_BATCH, SEQ, MODEL["n_head"], MODEL["d_key"]
     dt = getattr(torch, dtype)
@@ -1021,6 +1135,7 @@ def flash_timings(torch, fa, dev, gen, dtype="float32", int_ops=None,
     else:
         passes, flops = 1, BF16_FLOPS_PER_S
         side_key, side_flops = "bound_tf32_ms", TF32_FLOPS_PER_S
+    split = dtype == "bfloat16"          # dq writes delta for dk/dv
     rows, checks, sdpa = {}, [], {}
     for causal in (False, True):
         cfg = (causal, D ** -0.5, rate, SEED, "blhd", (0, 0))
@@ -1042,36 +1157,76 @@ def flash_timings(torch, fa, dev, gen, dtype="float32", int_ops=None,
                     "ms_dropout0": device_ms(torch, lambda: call(cfg0), 20),
                     "ms_eager": cuda_ms(torch, call, 20)}
 
-        turns, par = [fwd_times()], {}
-        if parent is not None:
-            with forward_library(fa, parent):
-                p = [fwd_times(), fwd_times()]
-            turns.append(fwd_times())
-            par = {f"parent_{n}": (p[0][n] + p[1][n]) / 2 for n in p[0]}
-        fwd = {n: sum(x[n] for x in turns) / len(turns) for n in turns[0]}
-        t = {"fwd": fwd["ms"],
-             "dq": device_ms(torch, lambda: fa._flash_dq_cuda(
-                 q, k, v, out, dout, lse, *cfg), 20),
-             "dkv": device_ms(torch, lambda: fa._flash_dkv_cuda(
-                 q, k, v, out, dout, lse, *cfg), 20)}
+        def bwd_times(call):
+            # call(kind, cfg) launches one dq or dk/dv; the dq call first
+            # leaves the delta that dk/dv reads
+            call("dq", cfg)
+            return {f"{kind}/{n}": device_ms(
+                torch, lambda: call(kind, c), 20)
+                for kind in ("dq", "dkv")
+                for n, c in (("ms", cfg), ("ms_dropout0", cfg0))}
+
+        delta = torch.empty_like(lse)
+        fns = {"dq": fa._flash_dq_cuda, "dkv": fa._flash_dkv_cuda}
+
+        def own(kind, c):
+            return fns[kind](q, k, v, out, dout, lse, delta, *c)
+
+        def in_turns(times, parent_times):
+            # kernel, parent, parent, kernel -> (kernel means, parent
+            # means as parent_*)
+            mine, theirs = [times()], []
+            if parent_times is not None:
+                theirs = [parent_times(), parent_times()]
+                mine.append(times())
+            avg = {n: sum(x[n] for x in mine) / len(mine) for n in mine[0]}
+            par = {f"parent_{n}": sum(x[n] for x in theirs) / len(theirs)
+                   for n in (theirs[0] if theirs else ())}
+            return avg, par
+
+        def parent_fwd():
+            with flash_library(fa, {"flash_attention_fwd": parent["fwd"]}):
+                return fwd_times()
+
+        fwd, par = in_turns(fwd_times, parent and parent_fwd)
+        bwd, bpar = in_turns(lambda: bwd_times(own), (
+            parent and parent["bwd"] and (lambda: bwd_times(
+                lambda kind, c: parent_backward(
+                    torch, fa, parent["bwd"], kind, q, k, v, out, dout,
+                    lse, c)))))
+        t = {"fwd": fwd["ms"], "dq": bwd["dq/ms"], "dkv": bwd["dkv/ms"]}
+        # which device kernels one call of each runs
+        ran = {"fwd": kernel_names(
+            torch, lambda: fa._flash_fwd_cuda(q, k, v, None, *cfg))}
+        ran.update({kind: kernel_names(torch, lambda: own(kind, cfg))
+                    for kind in ("dq", "dkv")})
         plain = {"fwd": device_ms(torch, lambda: fa.flash_forward_plain(
             q, k, v, None, *cfg), 5, host_us=5000),
             "dq": plain_bwd, "dkv": plain_bwd}
         for kind in ("fwd", "dq", "dkv"):
             b_ms, b_by = flash_bound(kind, causal, B, H, L, D, item, passes,
-                                     flops, rate=rate, int_ops_per_s=int_ops)
+                                     flops, rate=rate, int_ops_per_s=int_ops,
+                                     delta=split)
             side_ms, _ = flash_bound(kind, causal, B, H, L, D, item,
-                                     flops_per_s=side_flops)
+                                     flops_per_s=side_flops, delta=split)
             rows[(kind, causal)] = {
                 "kernel": kind, "dtype": dtype, "causal": causal,
                 "ms": t[kind], "plain_ms": plain[kind], "bound_ms": b_ms,
-                "bound_by": b_by, side_key: side_ms}
-        b0_ms, _ = flash_bound("fwd", causal, B, H, L, D, item, passes,
-                               flops)
+                "bound_by": b_by, side_key: side_ms,
+                "device_kernels": ran[kind]}
+        for kind in ("fwd", "dq", "dkv"):
+            b0_ms, _ = flash_bound(kind, causal, B, H, L, D, item, passes,
+                                   flops, delta=split)
+            rows[(kind, causal)]["bound_dropout0_ms"] = b0_ms
         rows[("fwd", causal)].update(ms_dropout0=fwd["ms_dropout0"],
                                      ms_eager=fwd["ms_eager"],
-                                     host_ms=fwd["host_ms"],
-                                     bound_dropout0_ms=b0_ms, **par)
+                                     host_ms=fwd["host_ms"], **par)
+        for kind in ("dq", "dkv"):
+            row = rows[(kind, causal)]
+            row["ms_dropout0"] = bwd[f"{kind}/ms_dropout0"]
+            for n in ("ms", "ms_dropout0"):
+                if f"parent_{kind}/{n}" in bpar:
+                    row[f"parent_{n}"] = bpar[f"parent_{kind}/{n}"]
         del out, lse
     return rows, checks, sdpa
 
@@ -1116,13 +1271,12 @@ def flash_wide_timings(torch, fa, dev, gen):
                          for _ in range(4))
         cfg = (False, d ** -0.5, 0.1, SEED, "blhd", (0, 0))
         out, lse = fa._flash_fwd_cuda(q, k, v, None, *cfg)
+        bwd = (q, k, v, out, dout, lse, torch.empty_like(lse), *cfg)
         rows[d] = {
             "fwd": graph_ms(torch, [lambda: fa._flash_fwd_cuda(
                 q, k, v, None, *cfg)] * 20),
-            "dq": graph_ms(torch, [lambda: fa._flash_dq_cuda(
-                q, k, v, out, dout, lse, *cfg)] * 20),
-            "dkv": graph_ms(torch, [lambda: fa._flash_dkv_cuda(
-                q, k, v, out, dout, lse, *cfg)] * 20)}
+            "dq": graph_ms(torch, [lambda: fa._flash_dq_cuda(*bwd)] * 20),
+            "dkv": graph_ms(torch, [lambda: fa._flash_dkv_cuda(*bwd)] * 20)}
         log(f"flash D={d} (B{B} L{L} H{H} fp32 p0.1) ms: "
             f"{json.dumps(rows[d])}")
     return rows
@@ -1839,10 +1993,10 @@ def main() -> int:
                     "the kernel, the same way (parent_ms)")
     ap.add_argument("--parent-flash", metavar="DIR", default=None,
                     help="a directory holding an earlier "
-                    "flash_attention_fwd.cu and its headers (same C "
-                    "entries): build it there and time its bf16 forward "
-                    "through the wrapper in turns with the kernel's "
-                    "(parent_ms, parent_host_ms, parent_ms_eager, ...)")
+                    "flash_attention_fwd.cu (and flash_attention_bwd.cu) "
+                    "and their headers: build them there and time their "
+                    "bf16 forward, dq and dk/dv in turns with the "
+                    "kernels' (parent_ms, parent_ms_dropout0, ...)")
     args = ap.parse_args()
     started = time.perf_counter()
     import torch
@@ -2122,7 +2276,9 @@ def main() -> int:
     parent_flash = None
     if args.parent_flash:
         parent_flash = build_parent_flash(args.parent_flash)
-        log(f"built the parent's flash forward from {args.parent_flash}")
+        log(f"built the parent's flash forward"
+            f"{' and backward' if parent_flash['bwd'] else ''} from "
+            f"{args.parent_flash}")
     log(f"int32 rate (SMs x {INT32_LANES_PER_SM} x max SM clock): "
         f"{int_ops:.4g} ops/s")
     for dt in ("float32", "bfloat16"):
@@ -2196,17 +2352,19 @@ def main() -> int:
             by_backend["DEFAULT_eager"] = backend_mix(
                 {c: {"DEFAULT": r["DEFAULT"]} for c, r in
                  flash_sdpa[dt].items()}, f"{pass_}_eager")["DEFAULT"]
-            extra = {}
+            # the dropout hash's share: the kernel at the step's dropout
+            # less the kernel at 0
+            extra = {"ms_dropout0": mix("ms_dropout0"),
+                     "hash_ms": mix("ms") - mix("ms_dropout0"),
+                     "bound_dropout0_ms": mix("bound_dropout0_ms")}
             if k == "fwd":
-                # the dropout hash's share: the kernel at the step's
-                # dropout less the kernel at 0
-                extra = {"ms_dropout0": mix("ms_dropout0"),
-                         "hash_ms": mix("ms") - mix("ms_dropout0"),
-                         "bound_dropout0_ms": mix("bound_dropout0_ms"),
-                         "ms_eager": mix("ms_eager"),
-                         "host_ms": mix("host_ms")}
-                extra.update({n: mix(n) for n in rows[(k, False)]
-                              if n.startswith("parent_")})
+                extra.update(ms_eager=mix("ms_eager"),
+                             host_ms=mix("host_ms"))
+            extra.update({n: mix(n) for n in rows[(k, False)]
+                          if n.startswith("parent_")})
+            extra["device_kernels"] = sorted(
+                set(rows[(k, False)]["device_kernels"])
+                | set(rows[(k, True)]["device_kernels"]))
             if dt == "float32":
                 extra.update(bound_fp32_ms=mix("bound_fp32_ms"),
                              ms_by_width={f"D{d}": r[k]

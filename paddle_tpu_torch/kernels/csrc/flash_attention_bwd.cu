@@ -1,5 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): two kernels, dq and
-// dk/dv.
+// dk/dv, in two designs: 3xTF32 mma.sync (fp32 at every width, bf16 at
+// D = 8 and above 64; this note's first part) and, for bf16 at D = 64,
+// the Transformer's d_key, warpgroup products on TMA-fed tiles
+// (`dq_wg_kernel`, `dkv_wg_kernel`; the second part, below).
 //
 // `dq_kernel` replaces the TPU kernel `_dq_kernel` and `dkv_kernel` the
 // TPU kernel `_dkv_kernel` of paddle_tpu/kernels/flash_attention.py (both
@@ -85,6 +88,59 @@
 // Registers a thread: up to 255 (128 threads and two blocks an SM allow
 // that); the ptxas lines of the build log, which chip_smoke.py prints,
 // give each instantiation's count and its spills.
+//
+// bf16 at D = 64: `dq_wg_kernel` and `dkv_wg_kernel` replace the same
+// TPU kernels and round as they do: ds (after sm_scale) to bf16 before
+// ds.k and ds^T.q, and the dropped p to bf16 before p^T.do
+// (flash_attention.py:777, 827, 831), with fp32 sums.  dq first: it
+// forms delta = rowsum(out * dout) once per query tile and writes it to
+// a float32 [B, H, Lq] buffer; dk/dv reads it there, so it never reads
+// out.
+//
+// Bound, at the training shape in bf16: the bytes.  dq reads q, k, v,
+// out, dout and lse and writes dq and delta (101 MB, 0.030 ms at 3.35
+// TB/s); dk/dv reads q, k, v, dout, lse and delta and writes dk and dv
+// (101 MB, 0.030 ms).  Their products, 12.9 and 17.2 GFLOP on the full
+// calls, take 0.013 and 0.017 ms at the bf16 tensor-core rate (989
+// TFLOP/s); with dropout the hash's 8 int32 ALU operations a live score
+// take ~0.016 ms a full call.
+//
+// Design (the forward's `fwd_wg_kernel` turned around):
+//   * one warpgroup (128 threads) a block; dq: 64 query rows and a loop
+//     over 64-key tiles, grid (query tiles, B*H), the last query tiles
+//     first (under the causal mask they see the most keys); dk/dv: 64
+//     key rows and a loop over 64-query tiles, grid (key tiles, B*H);
+//   * all five products are wgmma.m64n64k16, bf16 in, fp32 out, four
+//     16-deep steps each: s, dp (dq) and s^T, dp^T (dk/dv) read both
+//     operands K-major from shared memory; dq += ds.k, dv += (p*keep).do
+//     and dk += ds.q take their A operand from registers (ds and p*keep
+//     rounded to bf16 out of the score accumulators, the repack of
+//     flash_attention_mma.cuh's p_frag) and their B operand MN-major
+//     (k, do and q: the depth runs down the tile's rows; wgmma reads
+//     16-bit types either way through its transpose bit);
+//   * tiles come by TMA into the 128-byte swizzle wgmma reads: dq's q
+//     and do, dk/dv's k and v once; the streamed tiles (k, v; q, do)
+//     through a ring of kBwdStages slots with an mbarrier each, one tile
+//     in flight while one is in use; dk/dv's lse and delta for a query
+//     tile go into shared memory beside its slot, a tile ahead, by the
+//     threads;
+//   * p = 2^(s * scale * log2 e - lse * log2 e): one fused multiply-add
+//     and an exp a score; the mask only on the tiles that need it (the
+//     causal diagonal, a ragged Lk); tiles wholly above the diagonal are
+//     skipped; rows past L read as zeros and carry lse = +inf, so p = 0;
+//   * dq, dk and dv accumulate in the wgmma accumulators across the
+//     loop: fresh per-tile partials (flash_attention_fwd.cu's kPart,
+//     which a chain of mma.sync products needed) measured no more
+//     accurate here, at L = 256 and 4096, and 3-4% slower;
+//   * two passes and no atomics, so the gradients are the same from run
+//     to run; the outputs go out through shared memory in 16-byte
+//     pieces, rows past L never written.
+// Shared memory a block: six 8 KB tiles (two once-loaded, two ring slots
+// of two), lse and delta of the ring's tiles, the barriers: 51,224
+// bytes.  Blocks an SM, measured fastest at the training shape
+// (tune_flash_bwd.py): dq 4 (at most 128 registers: ptxas gives it 128,
+// no spills), dk/dv 3 (at most 168: a few bytes of spills, still 10%
+// faster than two blocks at 207 registers).
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
@@ -710,9 +766,512 @@ dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- the bf16 kernels at D = 64: warpgroup products, TMA copies --------------
+//
+// dq_wg_kernel: one warpgroup (4 warps) a block and 64 query rows, a loop
+// over 64-key tiles.  s = q.k^T and dp = do.v^T are four wgmma.m64n64k16
+// each, both operands K-major in shared memory; p = 2^(s * scale * log2 e
+// - lse * log2 e) on the accumulators (the mask only on tiles that need
+// it), dp * keep, ds = p * (dp * keep - delta) * sm_scale, rounded to bf16
+// into register A fragments (as the reference's _dq_kernel rounds
+// ds.astype(k.dtype)); dq += ds.k four more, k read MN-major (the depth
+// runs over the tile's keys).  q and do come once by TMA, k and v stream
+// through a ring of kBwdStages slots.  delta = rowsum(out * dout) is
+// formed once from memory before the loop and written to a [B, H, Lq]
+// buffer for the dk/dv kernel.
+//
+// dkv_wg_kernel: the same for 64 key rows and a loop over query tiles:
+// s^T = k.q^T and dp^T = v.do^T from shared memory; p * keep and ds,
+// each rounded to bf16 as _dkv_kernel rounds them, into A fragments; dv
+// += (p * keep).do and dk += ds.q with do and q read MN-major.  k and v
+// come once by TMA; q and do stream through the ring, and the query
+// tile's lse and delta (from the dq kernel's buffer) through shared
+// memory beside them, loaded a tile ahead by the threads.
+//
+// Both: dq, dk and dv sum in the wgmma accumulators over the whole loop
+// (no fresh partials: measured as accurate, and faster; PERF.md);
+// the outputs are staged through shared memory, rounded to bf16, and
+// written in 16-byte pieces, rows past L never; rows past L read as
+// zeros (TMA) and carry lse = +inf, so p = 0 there.
+constexpr int kBwdStages = 2;            // ring slots of the streamed tiles
+constexpr int kDqBlocks = 4;             // blocks an SM (__launch_bounds__)
+constexpr int kDkvBlocks = 3;
+constexpr int kBwdThreads = 128;
+constexpr int kBwdTile = 64 * 64;        // elements of a 64-row tile
+constexpr uint32_t kBwdTileBytes = kBwdTile * sizeof(__nv_bfloat16);
+
+constexpr size_t bwd_wg_smem() {  // 2 once-loaded tiles, the ring, lse,
+  return (size_t)(2 + 2 * kBwdStages) * kBwdTileBytes   // delta, barriers
+         + 2 * kBwdStages * 64 * sizeof(float) + 8 * (kBwdStages + 1) + 1024;
+}
+
+// the tensor maps of a call: q-shaped (q, do) and k-shaped (k, v)
+struct BwdMaps {
+  CUtensorMap q, dout, k, v;
+};
+
+__device__ __forceinline__ __nv_bfloat16* align1024(unsigned char* p) {
+  return reinterpret_cast<__nv_bfloat16*>(((uintptr_t)p + 1023) &
+                                          ~(uintptr_t)1023);
+}
+
+// rows r0.. of head (b, h) in a map of either order (wg_map)
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int b, int h,
+                                          int r0, int blhd) {
+  if (blhd)
+    tma_load(dst, map, bar, 0, h, r0, b);
+  else
+    tma_load(dst, map, bar, 0, r0, h, b);
+}
+
+// sum of the products of two rows of 8 bf16 values
+__device__ __forceinline__ float dot8(const uint4& x, const uint4& y) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* c = reinterpret_cast<const uint32_t*>(&y);
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(a + i));
+    const float2 w = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(c + i));
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+// an accumulator rounded to bf16 into the swizzled 64 x 64 tile s (the
+// layout TMA gave q), then written to rows r0.. of one head, 16 bytes a
+// thread, rows at or past L never.  The caller has synchronised the
+// block after its last read of s
+__device__ __forceinline__ void store_tile(__nv_bfloat16* s,
+                                           const float (&acc)[8][4],
+                                           __nv_bfloat16* dst,
+                                           long long row_stride, int r0,
+                                           int L, int wr, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + g + 8 * i;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      st2(s + r * 64 + ((n ^ (r & 7)) << 3) + 2 * t, acc[n][2 * i],
+          acc[n][2 * i + 1]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kBwdTile / 8 / kBwdThreads; ++i) {
+    const int idx = threadIdx.x + i * kBwdThreads;
+    const int r = idx >> 3, c = idx & 7;
+    if (r0 + r < L)
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(s + r * 64 + ((c ^ (r & 7)) << 3));
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+}
+
+// dq's step on one key tile at k0: s (the warp's 16 query rows x 64 keys
+// of q.k^T, as C fragments) and dp become ds, rounded to bf16 into the A
+// fragments of the tile's four 16-key steps.  lse2 holds the thread's
+// rows' lse in log2 units, rterm their hash row terms
+template <bool kDrop, bool kMasked>
+__device__ __forceinline__ void dq_ds(const float (&s)[8][4],
+                                      const float (&dp)[8][4],
+                                      uint32_t (&dsa)[4][4],
+                                      const float (&lse2)[2],
+                                      const float (&delta)[2],
+                                      const uint32_t (&rterm)[2],
+                                      uint32_t key, int q0, int k0,
+                                      float scale2, const TileCtx& c) {
+  const uint32_t cterm = (uint32_t)(c.col_off + k0 + 2 * c.t) * kColMul;
+  float ds[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float x = fmaf(s[j][e], scale2, -lse2[i]);
+      if (kMasked)
+        x = live(q0 + c.wr + c.g + 8 * i, k0 + j * 8 + 2 * c.t + (e & 1),
+                 c.Lk, c.causal, c.row_off, c.col_off) ? x : -INFINITY;
+      const float p = ex2(x);
+      float d = dp[j][e];
+      if (kDrop) {
+        const uint32_t pos =
+            rterm[i] + cterm + (uint32_t)(j * 8 + (e & 1)) * kColMul;
+        d = kept(pos, key, c.thr) ? d * c.inv_keep : 0.0f;
+      }
+      ds[j][e] = p * (d - delta[i]) * c.sm_scale;
+    }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) p_frag(dsa[kk], ds, kk);
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, kDqBlocks)
+dq_wg_kernel(const __grid_constant__ BwdMaps maps, int q_blhd, int kv_blhd,
+             const __nv_bfloat16* __restrict__ out,
+             const __nv_bfloat16* __restrict__ dout,
+             const float* __restrict__ lse, float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
+             Strides sq_, float sm_scale, int causal, int row_off,
+             int col_off, float rate, float inv_keep, uint32_t seed) {
+  using T = __nv_bfloat16;
+  constexpr int NS = kBwdStages;
+  constexpr uint32_t kTileDesc = kBwdTileBytes >> 4;  // desc units
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // the later query tiles see more keys under the causal mask: they run
+  // first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const TileCtx tc{bh, wr, g, t, Lk, causal, row_off, col_off,
+                   sm_scale, inv_keep, seed, keep_threshold(rate)};
+
+  extern __shared__ unsigned char smem_raw[];
+  T* sQ = align1024(smem_raw);           // [64][64]
+  T* sdO = sQ + kBwdTile;                // [64][64]
+  T* sK = sdO + kBwdTile;                // [NS][64][64]
+  T* sV = sK + NS * kBwdTile;            // [NS][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NS * kBwdTile);  // [NS]
+  uint64_t* qbar = full + NS;
+
+  const int n_tiles =
+      (live_keys(q0, Lq, Lk, causal, row_off, col_off) + 63) / 64;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st <= NS; ++st) mbar_init(full + st);
+    mbar_init_fence();
+    if (n_tiles > 0) {
+      mbar_expect(qbar, 2 * kBwdTileBytes);
+      load_rows(sQ, &maps.q, qbar, b, h, q0, q_blhd);
+      load_rows(sdO, &maps.dout, qbar, b, h, q0, q_blhd);
+    }
+#pragma unroll
+    for (int st = 0; st < NS - 1; ++st)
+      if (st < n_tiles) {
+        mbar_expect(full + st, 2 * kBwdTileBytes);
+        load_rows(sK + st * kBwdTile, &maps.k, full + st, b, h, st * 64,
+                  kv_blhd);
+        load_rows(sV + st * kBwdTile, &maps.v, full + st, b, h, st * 64,
+                  kv_blhd);
+      }
+  }
+
+  // delta = rowsum(out * dout) of row wr + lane / 2, half a row a lane,
+  // from memory while the copies run; then the rows g, g + 8 of the
+  // thread's fragments
+  const long long qoff = b * sq_.b + h * sq_.h;
+  float dsum = 0.0f;
+  const int dr = q0 + wr + (lane >> 1);
+  if (dr < Lq) {
+    const long long o = qoff + (long long)dr * sq_.l + (lane & 1) * 32;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dsum += dot8(*reinterpret_cast<const uint4*>(out + o + 8 * c),
+                   *reinterpret_cast<const uint4*>(dout + o + 8 * c));
+  }
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  if ((lane & 1) == 0 && dr < Lq) delta[(long long)bh * Lq + dr] = dsum;
+  const float delta_r[2] = {__shfl_sync(0xffffffffu, dsum, 2 * g),
+                            __shfl_sync(0xffffffffu, dsum, 2 * g + 16)};
+  float lse2[2];
+  uint32_t rterm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + wr + g + 8 * i;
+    lse2[i] = r < Lq ? lse[(long long)bh * Lq + r] * kLog2e : INFINITY;
+    rterm[i] = (uint32_t)(row_off + r) * kRowMul;
+  }
+  const uint32_t key = ((uint32_t)bh * kBhMul) ^ seed;
+  const float scale2 = sm_scale * kLog2e;
+
+  __syncthreads();                       // the barriers are initialised
+  const uint64_t dQ = sw128_desc(sQ), ddO = sw128_desc(sdO);
+  const uint64_t dK0 = sw128_desc(sK), dV0 = sw128_desc(sV);
+  float acc[8][4];
+  zero(acc);
+  if (n_tiles > 0) mbar_wait(qbar, 0);
+
+  const int row_lo = row_off + q0 + wr;  // the warp's first global row
+  int slot = 0;                          // tile kt's ring slot
+  uint32_t parity = 0;                   // and its barrier's phase
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * 64;
+    // every warp is done with tile kt - 1, whose slot takes tile kt +
+    // NS - 1
+    if (kt > 0) __syncthreads();
+    const int nt = kt + NS - 1;
+    if (threadIdx.x == 0 && nt < n_tiles) {
+      const int ns = slot == 0 ? NS - 1 : slot - 1;
+      mbar_expect(full + ns, 2 * kBwdTileBytes);
+      load_rows(sK + ns * kBwdTile, &maps.k, full + ns, b, h, nt * 64,
+                kv_blhd);
+      load_rows(sV + ns * kBwdTile, &maps.v, full + ns, b, h, nt * 64,
+                kv_blhd);
+    }
+    mbar_wait(full + slot, parity);      // tile kt has landed
+    const uint32_t off = slot * kTileDesc;
+    if (++slot == NS) {
+      slot = 0;
+      parity ^= 1;
+    }
+
+    float s[8][4], dp[8][4];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss(s, desc_at(dQ, 32 * ks), desc_at(dK0 + off, 32 * ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss(dp, desc_at(ddO, 32 * ks), desc_at(dV0 + off, 32 * ks), ks);
+    wg_commit();
+    wg_wait_all();
+    keep_regs(s);
+    keep_regs(dp);
+
+    // the mask only where it can drop a key: past Lk, or causal keys
+    // past the warp's first row
+    uint32_t dsa[4][4];
+    if (k0 + 64 > Lk || (causal && row_lo < col_off + k0 + 63))
+      dq_ds<kDrop, true>(s, dp, dsa, lse2, delta_r, rterm, key, q0, k0,
+                         scale2, tc);
+    else
+      dq_ds<kDrop, false>(s, dp, dsa, lse2, delta_r, rterm, key, q0, k0,
+                          scale2, tc);
+
+    // dq += ds.k: k-step kk is keys 16kk..16kk+15, rows of the k tile
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(acc, dsa[kk], desc_at(dK0 + off, 2048 * kk), 1);
+    wg_commit();
+    wg_wait_all();
+    keep_regs(acc);
+  }
+
+  __syncthreads();                       // every warp is done with q
+  store_tile(sQ, acc, dq + qoff, sq_.l, q0, Lq, wr, g, t);
+}
+
+// dk/dv's step on one query tile at q0: s^T (the warp's 16 key rows x 64
+// queries of k.q^T) and dp^T become p * keep and ds, each rounded to
+// bf16 into the A fragments of the tile's four 16-query steps.  sL and
+// sD hold the tile's lse (log2 units) and delta by query; kterm the hash
+// column terms of the thread's two keys
+template <bool kDrop, bool kMasked>
+__device__ __forceinline__ void dkv_ds(const float (&st)[8][4],
+                                       const float (&dpt)[8][4],
+                                       uint32_t (&pa)[4][4],
+                                       uint32_t (&dsa)[4][4],
+                                       const float* sL, const float* sD,
+                                       const uint32_t (&kterm)[2],
+                                       uint32_t key, int q0, int k0,
+                                       float scale2, const TileCtx& c) {
+  const uint32_t qterm = (uint32_t)(c.row_off + q0 + 2 * c.t) * kRowMul;
+  float pk[8][4], ds[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int lq = j * 8 + 2 * c.t;      // the pair's first query
+    const float2 l2 = *reinterpret_cast<const float2*>(sL + lq);
+    const float2 dl = *reinterpret_cast<const float2*>(sD + lq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float x = fmaf(st[j][e], scale2, -((e & 1) ? l2.y : l2.x));
+      if (kMasked)
+        x = live(q0 + lq + (e & 1), k0 + c.wr + c.g + 8 * i, c.Lk,
+                 c.causal, c.row_off, c.col_off) ? x : -INFINITY;
+      const float p = ex2(x);
+      float keep = 1.0f;
+      if (kDrop) {
+        const uint32_t pos =
+            qterm + (uint32_t)(j * 8 + (e & 1)) * kRowMul + kterm[i];
+        keep = kept(pos, key, c.thr) ? c.inv_keep : 0.0f;
+      }
+      pk[j][e] = p * keep;
+      ds[j][e] = p * (dpt[j][e] * keep - ((e & 1) ? dl.y : dl.x)) *
+                 c.sm_scale;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p_frag(pa[kk], pk, kk);
+    p_frag(dsa[kk], ds, kk);
+  }
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, kDkvBlocks)
+dkv_wg_kernel(const __grid_constant__ BwdMaps maps, int q_blhd, int kv_blhd,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
+              Strides sk_, float sm_scale, int causal, int row_off,
+              int col_off, float rate, float inv_keep, uint32_t seed) {
+  using T = __nv_bfloat16;
+  constexpr int NS = kBwdStages;
+  constexpr uint32_t kTileDesc = kBwdTileBytes >> 4;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // under the causal mask the first key tiles see the most queries, and
+  // run first
+  const int k0 = blockIdx.x * 64;
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first key row
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const TileCtx tc{bh, wr, g, t, Lk, causal, row_off, col_off,
+                   sm_scale, inv_keep, seed, keep_threshold(rate)};
+
+  extern __shared__ unsigned char smem_raw[];
+  T* sK = align1024(smem_raw);           // [64][64]
+  T* sV = sK + kBwdTile;                 // [64][64]
+  T* sQ = sV + kBwdTile;                 // [NS][64][64]
+  T* sdO = sQ + NS * kBwdTile;           // [NS][64][64]
+  float* sL = reinterpret_cast<float*>(sdO + NS * kBwdTile);  // [NS][64]
+  float* sD = sL + NS * 64;                                   // [NS][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sD + NS * 64);  // [NS]
+  uint64_t* kvbar = full + NS;
+
+  // query tiles wholly above the diagonal see none of these keys
+  const int qt0 = causal ? max(0, col_off + k0 - row_off) / 64 : 0;
+  const int n = max(0, (Lq + 63) / 64 - qt0);  // query tiles to visit
+  // the lse (log2 units) and delta of query tile i into ring slot st, by
+  // the threads: 0-63 lse, 64-127 delta
+  const long long lrow = (long long)bh * Lq;
+  auto stage_rows = [&](int i, int st) {
+    const int r = (qt0 + i) * 64 + (threadIdx.x & 63);
+    if (threadIdx.x < 64)
+      sL[st * 64 + threadIdx.x] = r < Lq ? lse[lrow + r] * kLog2e : INFINITY;
+    else
+      sD[st * 64 + threadIdx.x - 64] = r < Lq ? delta[lrow + r] : 0.0f;
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st <= NS; ++st) mbar_init(full + st);
+    mbar_init_fence();
+    if (n > 0) {
+      mbar_expect(kvbar, 2 * kBwdTileBytes);
+      load_rows(sK, &maps.k, kvbar, b, h, k0, kv_blhd);
+      load_rows(sV, &maps.v, kvbar, b, h, k0, kv_blhd);
+    }
+#pragma unroll
+    for (int st = 0; st < NS - 1; ++st)
+      if (st < n) {
+        mbar_expect(full + st, 2 * kBwdTileBytes);
+        load_rows(sQ + st * kBwdTile, &maps.q, full + st, b, h,
+                  (qt0 + st) * 64, q_blhd);
+        load_rows(sdO + st * kBwdTile, &maps.dout, full + st, b, h,
+                  (qt0 + st) * 64, q_blhd);
+      }
+  }
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st)
+    if (st < n) stage_rows(st, st);
+  uint32_t kterm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    kterm[i] = (uint32_t)(col_off + k0 + wr + g + 8 * i) * kColMul;
+  const uint32_t key = ((uint32_t)bh * kBhMul) ^ seed;
+  const float scale2 = sm_scale * kLog2e;
+
+  __syncthreads();               // the barriers, lse and delta are ready
+  const uint64_t dK = sw128_desc(sK), dV = sw128_desc(sV);
+  const uint64_t dQ0 = sw128_desc(sQ), ddO0 = sw128_desc(sdO);
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (n > 0) mbar_wait(kvbar, 0);
+
+  const int key_hi = col_off + k0 + wr + 15;  // the warp's last key
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int i = 0; i < n; ++i) {
+    const int q0 = (qt0 + i) * 64;
+    // every warp is done with tile i - 1 (its q, do, lse and delta),
+    // whose slot takes tile i + NS - 1
+    if (i > 0) __syncthreads();
+    const int ni = i + NS - 1;
+    if (ni < n) {
+      const int ns = slot == 0 ? NS - 1 : slot - 1;
+      if (threadIdx.x == 0) {
+        mbar_expect(full + ns, 2 * kBwdTileBytes);
+        load_rows(sQ + ns * kBwdTile, &maps.q, full + ns, b, h,
+                  (qt0 + ni) * 64, q_blhd);
+        load_rows(sdO + ns * kBwdTile, &maps.dout, full + ns, b, h,
+                  (qt0 + ni) * 64, q_blhd);
+      }
+      stage_rows(ni, ns);
+    }
+    mbar_wait(full + slot, parity);      // tile i has landed
+    const int cur = slot;
+    const uint32_t off = slot * kTileDesc;
+    if (++slot == NS) {
+      slot = 0;
+      parity ^= 1;
+    }
+
+    float st[8][4], dpt[8][4];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss(st, desc_at(dK, 32 * ks), desc_at(dQ0 + off, 32 * ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss(dpt, desc_at(dV, 32 * ks), desc_at(ddO0 + off, 32 * ks), ks);
+    wg_commit();
+    wg_wait_all();
+    keep_regs(st);
+    keep_regs(dpt);
+
+    // the mask only where it can drop a pair: keys past Lk, or causal
+    // queries before the warp's last key
+    uint32_t pa[4][4], dsa[4][4];
+    if (k0 + 64 > Lk || (causal && row_off + q0 < key_hi))
+      dkv_ds<kDrop, true>(st, dpt, pa, dsa, sL + cur * 64, sD + cur * 64,
+                          kterm, key, q0, k0, scale2, tc);
+    else
+      dkv_ds<kDrop, false>(st, dpt, pa, dsa, sL + cur * 64, sD + cur * 64,
+                           kterm, key, q0, k0, scale2, tc);
+
+    // dv += (p * keep).do and dk += ds.q: k-step kk is queries 16kk..,
+    // rows of the do and q tiles
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(dv_acc, pa[kk], desc_at(ddO0 + off, 2048 * kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(dk_acc, dsa[kk], desc_at(dQ0 + off, 2048 * kk), 1);
+    wg_commit();
+    wg_wait_all();
+    keep_regs(dv_acc);
+    keep_regs(dk_acc);
+  }
+
+  __syncthreads();                       // every warp is done with k, v
+  const long long koff = b * sk_.b + h * sk_.h;
+  store_tile(sK, dk_acc, dk + koff, sk_.l, k0, Lk, wr, g, t);
+  store_tile(sV, dv_acc, dv + koff, sk_.l, k0, Lk, wr, g, t);
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *out, *dout;
   const float* lse;
+  float* delta;
   void *dq, *dk, *dv;
   int B, H, Lq, Lk;
   Strides sq, sk;
@@ -817,16 +1376,55 @@ int launch_wide(bool dkv, int nc, const BwdArgs& a, cudaStream_t stream) {
              : launch_dq_wide<T, false>(nc, a, stream);
 }
 
+template <bool kDrop>
+int launch_wg(bool dkv, const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = bwd_wg_smem();
+  const void* kernel = dkv ? (const void*)dkv_wg_kernel<kDrop>
+                           : (const void*)dq_wg_kernel<kDrop>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool q_blhd = a.sq.h <= a.sq.l, kv_blhd = a.sk.h <= a.sk.l;
+  BwdMaps maps;
+  if (!a.delta || !wg_map(&maps.q, a.q, a.B, a.H, a.Lq, a.sq, q_blhd) ||
+      !wg_map(&maps.dout, a.dout, a.B, a.H, a.Lq, a.sq, q_blhd) ||
+      !wg_map(&maps.k, a.k, a.B, a.H, a.Lk, a.sk, kv_blhd) ||
+      !wg_map(&maps.v, a.v, a.B, a.H, a.Lk, a.sk, kv_blhd))
+    return (int)cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  if (dkv) {
+    dim3 grid((a.Lk + 63) / 64, a.B * a.H);
+    dkv_wg_kernel<kDrop><<<grid, kBwdThreads, smem, stream>>>(
+        maps, (int)q_blhd, (int)kv_blhd, a.lse, a.delta,
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.Lq, a.Lk, a.sk,
+        a.sm_scale, a.causal, a.row_off, a.col_off, a.rate, a.inv_keep,
+        a.seed);
+  } else {
+    dim3 grid((a.Lq + 63) / 64, a.B * a.H);
+    dq_wg_kernel<kDrop><<<grid, kBwdThreads, smem, stream>>>(
+        maps, (int)q_blhd, (int)kv_blhd, static_cast<const T*>(a.out),
+        static_cast<const T*>(a.dout), a.lse, a.delta,
+        static_cast<T*>(a.dq), a.H, a.Lq, a.Lk, a.sq, a.sm_scale, a.causal,
+        a.row_off, a.col_off, a.rate, a.inv_keep, a.seed);
+  }
+  return (int)cudaGetLastError();
+}
+
 // the head widths of the repo's configurations and the reference's
 // kernel tests, and any multiple of 64 above them (the wide kernels);
-// the wrapper pads every other width up to the next of those
+// the wrapper pads every other width up to the next of those.  bf16 at
+// D = 64 runs the warpgroup kernels, every other (dtype, width) the
+// 3xTF32 ones
 template <typename T>
 int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
   switch (D) {
     case 8: return launch<8, T>(dkv, a, stream);
     case 16: return launch<16, T>(dkv, a, stream);
     case 32: return launch<32, T>(dkv, a, stream);
-    case 64: return launch<64, T>(dkv, a, stream);
+    case 64:
+      if constexpr (sizeof(T) == 2)
+        return a.rate > 0.0f ? launch_wg<true>(dkv, a, stream)
+                             : launch_wg<false>(dkv, a, stream);
+      else return launch<64, T>(dkv, a, stream);
     default:
       if (D > 64 && D % 64 == 0)
         return launch_wide<T>(dkv, D / 64, a, stream);
@@ -835,13 +1433,13 @@ int dispatch(bool dkv, int D, const BwdArgs& a, cudaStream_t stream) {
 }
 
 int run(bool dkv, const void* q, const void* k, const void* v,
-        const void* out, const void* dout, const float* lse, void* dq,
-        void* dk, void* dv, int B, int H, int Lq, int Lk, int D,
+        const void* out, const void* dout, const float* lse, float* delta,
+        void* dq, void* dk, void* dv, int B, int H, int Lq, int Lk, int D,
         long long q_sb, long long q_sh, long long q_sl, long long k_sb,
         long long k_sh, long long k_sl, float sm_scale, int causal,
         int row_off, int col_off, float rate, float inv_keep,
         unsigned int seed, int dtype, void* stream) {
-  const BwdArgs a{q,  k,     v,        out,    dout,    lse,
+  const BwdArgs a{q,  k,     v,        out,    dout,    lse,  delta,
                   dq, dk,    dv,       B,      H,       Lq,
                   Lk, {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl},
                   sm_scale, causal, row_off, col_off, rate, inv_keep, seed};
@@ -857,7 +1455,8 @@ int run(bool dkv, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dynamic shared memory of one block, in bytes, for fp32 inputs (bf16
-// inputs take half the tile bytes); D > 64 uses 64-wide chunk tiles
+// inputs take half the tile bytes, the bf16 D = 64 kernels less than the
+// fp32 ones); D > 64 uses 64-wide chunk tiles
 size_t flash_attention_dq_smem_bytes(int D) {
   return D > 64 ? flash::dq_wide_smem<float>() : flash::dq_smem<float>(D);
 }
@@ -867,36 +1466,42 @@ size_t flash_attention_dkv_smem_bytes(int D) {
 }
 
 // dq of the bias-free flash attention.  dtype: 0 fp32, 1 bf16; strides
-// in elements; dq has q's strides.  Every tensor's base must be 16-byte
+// in elements; dq has q's strides.  delta is fp32 [B, H, Lq]: the bf16
+// D = 64 kernel writes rowsum(out * dout) there for the dk/dv kernel,
+// the others leave it as it is.  Every tensor's base must be 16-byte
 // aligned and its rows (D elements) contiguous: tiles are copied in
-// 16-byte pieces.  Returns the launch's CUDA error.
+// 16-byte pieces.  Returns the launch's CUDA error (cudaErrorInvalidValue
+// for a null delta at bf16 D = 64, or a tensor map the driver refuses).
 int flash_attention_dq(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const float* lse,
-                       void* dq, int B, int H, int Lq, int Lk, int D,
-                       long long q_sb, long long q_sh, long long q_sl,
+                       float* delta, void* dq, int B, int H, int Lq, int Lk,
+                       int D, long long q_sb, long long q_sh, long long q_sl,
                        long long k_sb, long long k_sh, long long k_sl,
                        float sm_scale, int causal, int row_off, int col_off,
                        float rate, float inv_keep, unsigned int seed,
                        int dtype, void* stream) {
-  return flash::run(false, q, k, v, out, dout, lse, dq, nullptr, nullptr, B,
-                    H, Lq, Lk, D, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
-                    sm_scale, causal, row_off, col_off, rate, inv_keep, seed,
-                    dtype, stream);
+  return flash::run(false, q, k, v, out, dout, lse, delta, dq, nullptr,
+                    nullptr, B, H, Lq, Lk, D, q_sb, q_sh, q_sl, k_sb, k_sh,
+                    k_sl, sm_scale, causal, row_off, col_off, rate, inv_keep,
+                    seed, dtype, stream);
 }
 
-// dk and dv of the bias-free flash attention; both have k's strides.
+// dk and dv of the bias-free flash attention; both have k's strides.  At
+// bf16 D = 64 the kernel reads delta as a dq launch on the same inputs
+// wrote it (it forms no delta of its own); the others ignore it.
 int flash_attention_dkv(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const float* lse,
-                        void* dk, void* dv, int B, int H, int Lq, int Lk,
-                        int D, long long q_sb, long long q_sh,
-                        long long q_sl, long long k_sb, long long k_sh,
-                        long long k_sl, float sm_scale, int causal,
-                        int row_off, int col_off, float rate, float inv_keep,
-                        unsigned int seed, int dtype, void* stream) {
-  return flash::run(true, q, k, v, out, dout, lse, nullptr, dk, dv, B, H,
-                    Lq, Lk, D, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, sm_scale,
-                    causal, row_off, col_off, rate, inv_keep, seed, dtype,
-                    stream);
+                        float* delta, void* dk, void* dv, int B, int H,
+                        int Lq, int Lk, int D, long long q_sb,
+                        long long q_sh, long long q_sl, long long k_sb,
+                        long long k_sh, long long k_sl, float sm_scale,
+                        int causal, int row_off, int col_off, float rate,
+                        float inv_keep, unsigned int seed, int dtype,
+                        void* stream) {
+  return flash::run(true, q, k, v, out, dout, lse, delta, nullptr, dk, dv,
+                    B, H, Lq, Lk, D, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
+                    sm_scale, causal, row_off, col_off, rate, inv_keep, seed,
+                    dtype, stream);
 }
 
 }  // extern "C"

@@ -382,23 +382,11 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
 // ldmatrix.trans (p.v's depth runs over keys); p from s's C fragments,
 // rounded to bf16 (p_frag).  The fp32 kernel's tiles: 4 warps of 16
 // query rows, 64-key tiles, k and v double-buffered by cp.async.
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t fwd_bf16_smem() {       // q, 2 x (k, v)
   return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * D;
-}
-
-// p's A fragment of the 16-key step kk: the C fragments of 8-key steps
-// 2kk and 2kk + 1, rounded to bf16 (flash_attention_mma.cuh)
-template <int NK>
-__device__ __forceinline__ void p_frag(uint32_t (&a)[4],
-                                       const float (&s)[NK][4], int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
 // the softmax step of one key tile of the bf16 kernels, on s = q.k^T (the
@@ -904,50 +892,6 @@ fwd_wg_kernel(const __grid_constant__ WgMaps maps, int q_blhd, int kv_blhd,
       *reinterpret_cast<uint4*>(ob + (q0 + r) * sq_.l + c * 8) =
           *reinterpret_cast<const uint4*>(sQ + r * D + ((c ^ (r & 7)) << 3));
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (nothing
-// links against the driver library)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) == cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [B][L][H][64] ('blhd': dims 64, H, L, B) or [B][H][L][64] ('bhld':
-// dims 64, L, H, B; the order whose strides grow) as a map of 64-row
-// boxes of one head, 128-byte swizzled; false if the driver refuses it
-bool wg_map(CUtensorMap* map, const void* base, int B, int H, int L,
-            const Strides& st, bool blhd) {
-  EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t e = sizeof(__nv_bfloat16);
-  const cuuint64_t dims[4] = {64, (cuuint64_t)(blhd ? H : L),
-                              (cuuint64_t)(blhd ? L : H), (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)(blhd ? st.h : st.l) * e,
-                                 (cuuint64_t)(blhd ? st.l : st.h) * e,
-                                 (cuuint64_t)st.b * e};
-  const cuuint32_t box[4] = {64, blhd ? 1u : 64u, blhd ? 64u : 1u, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool kDrop, bool kBias, bool kRaw>

@@ -1,12 +1,12 @@
 // Tensor-core and copy helpers of the flash-attention kernels for Hopper
 // (sm_90a): 3xTF32 mma.sync products, cp.async tile copies into swizzled
 // shared memory, and the fragment loads that read them; and, for the
-// forward's bf16 kernels, bf16 mma.sync and ldmatrix, warpgroup products
-// (wgmma) with their shared-memory descriptors, and TMA tile copies with
-// their barriers.  Included by flash_attention_fwd.cu and
-// flash_attention_bwd.cu.  The split and the mma wrapper are copies of
-// lstm_fwd.cu's: each .cu builds into its own library, so nothing is
-// shared between them.
+// bf16 kernels, bf16 mma.sync and ldmatrix, warpgroup products (wgmma)
+// with their shared-memory descriptors, TMA tile copies with their
+// barriers, and the tensor maps those copies read (built on the host).
+// Included by flash_attention_fwd.cu and flash_attention_bwd.cu.  The
+// split and the mma wrapper are copies of lstm_fwd.cu's: each .cu builds
+// into its own library, so nothing is shared between them.
 //
 // Fragments of mma.sync.m16n8k8.tf32 (g = lane / 4, t = lane % 4):
 //   A (16 x 8):  a0 (g, k t), a1 (g + 8, k t), a2 (g, k t+4), a3 (g+8, k t+4)
@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "flash_attention_common.cuh"
 
 namespace flash {
 
@@ -225,6 +227,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// an A fragment of a 16-deep step kk from the C fragments of 8-column
+// steps 2kk and 2kk + 1 (p or ds of the bf16 kernels), rounded to bf16
+template <int NK>
+__device__ __forceinline__ void p_frag(uint32_t (&a)[4],
+                                       const float (&s)[NK][4], int kk) {
+  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x on the special-function unit; 2^-inf = 0, results below 2^-126
 // flush to 0
@@ -410,6 +425,52 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
          "r"(smem_u32(bar))
       : "memory");
+}
+
+// -- tensor maps of the bf16 D = 64 kernels (host side) ----------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (nothing
+// links against the driver library)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B][L][H][64] ('blhd': dims 64, H, L, B) or [B][H][L][64] ('bhld':
+// dims 64, L, H, B; the order whose strides grow) as a map of 64-row
+// boxes of one head, 128-byte swizzled; false if the driver refuses it
+inline bool wg_map(CUtensorMap* map, const void* base, int B, int H,
+                   int L, const Strides& st, bool blhd) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {64, (cuuint64_t)(blhd ? H : L),
+                              (cuuint64_t)(blhd ? L : H), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(blhd ? st.h : st.l) * e,
+                                 (cuuint64_t)(blhd ? st.l : st.h) * e,
+                                 (cuuint64_t)st.b * e};
+  const cuuint32_t box[4] = {64, blhd ? 1u : 64u, blhd ? 64u : 1u, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace flash

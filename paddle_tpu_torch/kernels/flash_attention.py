@@ -11,8 +11,10 @@ direction.  Its gradient is a ``torch.autograd.Function``.  For CUDA
 tensors the forward launches ``csrc/flash_attention_fwd.cu`` (the port of
 the TPU kernel ``_fwd_kernel``) and the bias-free backward launches the
 dq and dk/dv kernels of ``csrc/flash_attention_bwd.cu`` (the ports of
-``_dq_kernel`` and ``_dkv_kernel``); a backward with a bias runs the
-plain backward on every device, as the reference routes it.  For CPU
+``_dq_kernel`` and ``_dkv_kernel``), dq first: in bf16 at D = 64 its
+kernel forms delta = rowsum(out * dout) into a float32 buffer that the
+dk/dv kernel reads.  A backward with a bias runs the plain backward on
+every device, as the reference routes it.  For CPU
 tensors ``flash_forward_plain`` / ``flash_backward_plain`` run, the
 counterparts of the reference's ``_xla_forward`` / ``_xla_backward``.
 The kernels are built for head widths 8, 16, 32 and 64, and for any
@@ -452,7 +454,7 @@ def _flash_entry(name: str):
 
     lib = load_library(FLASH_KERNELS[name])
     fn = getattr(lib, f"flash_attention_{name}")
-    n_ptrs = {"fwd": 6, "dq": 7, "dkv": 8}[name]
+    n_ptrs = {"fwd": 6, "dq": 8, "dkv": 9}[name]
     head = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 \
         + [ctypes.c_longlong] * 6
     if name == "fwd":
@@ -608,32 +610,47 @@ def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
     return d, common, ins
 
 
-def _flash_dq_cuda(q, k, v, out, dout, lse, *cfg):
-    """Launch the dq kernel on the current stream -> dq."""
+def _flash_dq_cuda(q, k, v, out, dout, lse, delta, *cfg):
+    """Launch the dq kernel on the current stream -> dq.  ``delta`` is
+    float32 scratch shaped like ``lse``: the bf16 D = 64 kernel writes
+    rowsum(out * dout) there for the dk/dv launch after it."""
     d = q.shape[-1]
     w = _kernel_width(d)
     if w != d:
         padded = _pad_width((q, k, v, out, dout), w)
-        return _flash_dq_cuda(*padded, lse, *cfg)[..., :d].contiguous()
+        dq = _flash_dq_cuda(*padded, lse, delta, *cfg)
+        return dq[..., :d].contiguous()
     d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
+    _check_delta(delta, lse)
     dq = torch.empty_like(q)
-    _flash_launch("dq", d, q.dtype, *ins, dq.data_ptr(), *common)
+    _flash_launch("dq", d, q.dtype, *ins, delta.data_ptr(), dq.data_ptr(),
+                  *common)
     return dq
 
 
-def _flash_dkv_cuda(q, k, v, out, dout, lse, *cfg):
-    """Launch the dk/dv kernel on the current stream -> (dk, dv)."""
+def _flash_dkv_cuda(q, k, v, out, dout, lse, delta, *cfg):
+    """Launch the dk/dv kernel on the current stream -> (dk, dv).  At bf16
+    D = 64 it reads ``delta`` as a dq launch on the same inputs wrote
+    it."""
     d = q.shape[-1]
     w = _kernel_width(d)
     if w != d:
         padded = _pad_width((q, k, v, out, dout), w)
         return tuple(g[..., :d].contiguous()
-                     for g in _flash_dkv_cuda(*padded, lse, *cfg))
+                     for g in _flash_dkv_cuda(*padded, lse, delta, *cfg))
     d, common, ins = _flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
+    _check_delta(delta, lse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _flash_launch("dkv", d, q.dtype, *ins, dk.data_ptr(), dv.data_ptr(),
-                  *common)
+    _flash_launch("dkv", d, q.dtype, *ins, delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), *common)
     return dk, dv
+
+
+def _check_delta(delta, lse) -> None:
+    _fcheck(delta.dtype == torch.float32 and delta.shape == lse.shape
+            and delta.device == lse.device and delta.is_contiguous(),
+            f"delta must be contiguous float32 {tuple(lse.shape)} on "
+            f"{lse.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -658,9 +675,11 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, bias, out, lse = ctx.saved_tensors
         causal, sm_scale, rate, seed, layout, offsets = ctx.cfg
         if q.is_cuda and bias is None:
-            args = (q, k, v, out, dout.contiguous(), lse, *ctx.cfg)
-            return (_flash_dq_cuda(*args), *_flash_dkv_cuda(*args), None,
-                    None)
+            # dq first: at bf16 D = 64 its kernel forms delta for dk/dv's
+            args = (q, k, v, out, dout.contiguous(), lse,
+                    torch.empty_like(lse), *ctx.cfg)
+            dq = _flash_dq_cuda(*args)
+            return (dq, *_flash_dkv_cuda(*args), None, None)
         # with a bias the reference has no backward kernel either
         # (_use_pallas_bwd routes it to _xla_backward, which also yields
         # dbias): the plain backward is its routing, on every device

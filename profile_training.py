@@ -39,8 +39,8 @@ UNPROFILED_STEPS = 5
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
             ("flash_fwd", ("fwd_kernel", "fwd_bf16_kernel", "fwd_wg_kernel")),
-            ("flash_dq", ("dq_kernel",)),
-            ("flash_dkv", ("dkv_kernel",)),
+            ("flash_dq", ("dq_kernel", "dq_wg_kernel")),
+            ("flash_dkv", ("dkv_kernel", "dkv_wg_kernel")),
             ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "nvjet")),
             ("elementwise", ("elementwise", "vectorized", "unrolled")),
             ("reduce", ("reduce", "Reduce", "softmax", "norm")),

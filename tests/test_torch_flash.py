@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch.kernels.flash_attention as tfa
+import tune_flash_bwd
 
 # the module itself: paddle_tpu.kernels re-exports a function of its name
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
@@ -493,6 +494,125 @@ def test_bf16_forward_rounds_p_as_the_reference(causal):
     assert err_ref <= ulp, (err_ref, ulp)
     assert err_plain <= FLASH_TOL_BF16 * max(1.0, float(np.abs(plain).max()))
     assert err_lse <= 1e-5 * float(plain_lse.abs().max())
+
+
+def _bf16_backward(q, k, v, out, dout, lse, causal, rate, seed, tile=64,
+                   rounded=True):
+    """The bf16 backward kernels' arithmetic at D = 64 (dq_wg_kernel,
+    dkv_wg_kernel) on [B, H, L, D] bf16 tensors: s = q.k^T and dp =
+    do.v^T as fp32 sums of bf16 products, p = 2^(s * scale * log2 e - lse
+    * log2 e) under the mask, delta = rowsum(out * dout) in fp32, ds = p
+    * (dp * keep - delta) * scale; ds and p * keep rounded to bf16 before
+    the products they feed (``rounded``, as the reference's _dq_kernel
+    and _dkv_kernel round them); dq = ds.k over ``tile``-key tiles and
+    dk = ds^T.q, dv = (p * keep)^T.do over ``tile``-query tiles, each
+    tile's product a fresh fp32 partial added to the sum; the gradients
+    rounded to bf16.  Returns (dq, dk, dv)."""
+    log2e = 1.4426950408889634
+    sm_scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, out, dout))
+    lq, lk = q.shape[2], k.shape[2]
+    rows, cols = torch.arange(lq), torch.arange(lk)
+    x = (torch.matmul(qf, kf.transpose(-1, -2)) * (sm_scale * log2e)
+         - (lse * log2e)[..., None])
+    if causal:
+        x = x.masked_fill(rows[:, None] < cols[None, :], -float("inf"))
+    p = torch.exp2(x)
+    keep = tfa._plain_keep(q, rows, cols, rate, seed)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (of * dof).sum(dim=-1)
+    ds = p * (dp * keep - delta[..., None]) * sm_scale
+    pk = p * keep
+    if rounded:
+        ds, pk = (t.to(torch.bfloat16).float() for t in (ds, pk))
+
+    def tiled(a, b):
+        # a [.., M, N] . b [.., N, D], a fresh partial every ``tile`` of N
+        return sum(torch.matmul(a[..., c:c + tile], b[..., c:c + tile, :])
+                   for c in range(0, a.shape[-1], tile))
+
+    dq = tiled(ds, kf)
+    dk = tiled(ds.transpose(-1, -2), qf)
+    dv = tiled(pk.transpose(-1, -2), dof)
+    return tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+
+
+# the gradients of the bf16 backward emulation against the reference's
+# Pallas dq/dkv kernels, in bf16 ulps of each gradient's largest
+# magnitude.  Both round ds and p * keep to bf16 and the gradients once;
+# they differ in summation order, exp against exp2, and where a term
+# lands on the other side of a rounding boundary (measured: at most 0.5
+# ulp; without the rounding 0.5-1 ulp)
+BF16_BWD_ULPS = 1
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_backward_rounds_ds_and_p_as_the_reference(causal, pallas_bwd):
+    """The bf16 backward kernels at D = 64 take bf16 products with fp32
+    sums, 64-key (dq) and 64-query (dk, dv) fresh partials, and round ds
+    and the dropped p to bf16 before the products they feed, as the
+    reference's Pallas backward kernels do.  Emulated at B=2, H=2,
+    L=256, D=64 with dropout 0.1 on bf16 inputs, on the reference's own
+    bf16 output, dq, dk and dv are held:
+      * against the reference's dq/dkv Pallas kernels in interpret mode
+        (the pallas_bwd fixture routes this shape to them), within
+        BF16_BWD_ULPS bf16 ulps of each gradient's largest magnitude;
+      * against the port's plain backward (fp32 ds and p, the card's
+        reference) within chip_smoke's FLASH_TOL["bfloat16"] of max(1,
+        magnitude);
+    and the same emulation without the rounding is farther from the
+    reference in every gradient: the rounding is what the reference
+    computes."""
+    r = np.random.RandomState(10)
+    q, k, v, dout = (torch.tensor(r.randn(2, 2, 256, 64).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    rate, seed = 0.1, 11
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                       for x in (q, k, v, dout))
+    out_ref, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, causal=causal, dropout_rate=rate, dropout_seed=seed,
+        layout="bhld", impl="pallas_interpret"), jq, jk, jv)
+    want = [np.asarray(g).astype(np.float32) for g in vjp(jdo)]
+    out = torch.tensor(np.asarray(out_ref).astype(np.float32)).to(
+        torch.bfloat16)
+    _, lse = tfa.flash_forward_plain(q, k, v, None, causal, None, rate,
+                                     seed, "bhld")
+    got = _bf16_backward(q, k, v, out, dout, lse, causal, rate, seed)
+    raw = _bf16_backward(q, k, v, out, dout, lse, causal, rate, seed,
+                         rounded=False)
+    plain = tfa.flash_backward_plain(q, k, v, out, dout, lse, None, causal,
+                                     None, rate, seed, "bhld")[:3]
+    for name, g, u, w, pl in zip(("dq", "dk", "dv"), got, raw, want, plain):
+        mag = float(np.abs(w).max())
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+        err = float(np.abs(g.float().numpy() - w).max())
+        err_raw = float(np.abs(u.float().numpy() - w).max())
+        pl = pl.float().numpy()
+        err_plain = float(np.abs(g.float().numpy() - pl).max())
+        print(f"{name}: max |emulation - reference| {err / ulp:.3g} ulp "
+              f"(one ulp {ulp}), unrounded {err_raw / ulp:.3g} ulp; max "
+              f"|emulation - plain| {err_plain}")
+        assert err <= BF16_BWD_ULPS * ulp, (name, err, ulp)
+        assert err < err_raw, (name, err, err_raw)
+        assert err_plain <= FLASH_TOL_BF16 * max(1.0, float(
+            np.abs(pl).max())), (name, err_plain)
+
+
+@pytest.mark.parametrize("name", sorted(tune_flash_bwd.VARIANTS))
+def test_tune_variant_rewrites_its_constants_only(name):
+    """tune_flash_bwd.py builds each variant of the bf16 backward by
+    rewriting named constants of flash_attention_bwd.cu: each must be
+    defined there once, and the rewrite must touch those lines only."""
+    from paddle_tpu_torch.kernels import _build
+
+    src = (_build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    changes = tune_flash_bwd.VARIANTS[name]
+    out = tune_flash_bwd.variant_source(src, changes)
+    diff = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
+            if a != b]
+    assert len(diff) == len(changes)
+    for (_, line), (const, value) in zip(diff, changes.items()):
+        assert f"{const} = {value};" in line
 
 
 # -- heads wider than 64: the wide kernels' work split over 64-column chunks

@@ -1,8 +1,8 @@
 """The port stands alone, and its entry points never fall back silently.
 
-* ``paddle_tpu_torch`` (every module), ``chip_smoke`` and
-  ``profile_serving`` import in a process where importing ``jax`` or
-  ``paddle_tpu`` raises.
+* ``paddle_tpu_torch`` (every module), ``chip_smoke``,
+  ``profile_serving`` and ``tune_flash_bwd`` import in a process where
+  importing ``jax`` or ``paddle_tpu`` raises.
 * Without CUDA, an entry point raises unless the caller asks for the
   CPU by name (``device="cpu"``, ``fluid.CPUPlace()``); ``chip_smoke.py`` exits non-zero and prints no result,
   also when it sits in a directory without the rest of the repo.
@@ -38,6 +38,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import profile_serving
+import tune_flash_bwd
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

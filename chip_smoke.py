@@ -30,7 +30,10 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    the other head widths the kernels are built for, D = 8, 16 and 32
    (fp32 and bf16, causal, dropout 0.1, 256x256 and 77x45), and D = 24,
    which the wrappers pad to 32; the widths above 64 (80, 128, 256: the
-   wide kernels, 64-column chunks), fp32 and bf16; the dropout masks of
+   wide kernels, 64-column chunks), fp32 and bf16; the bf16 kernels at
+   D = 8, 32 and 128 against an emulation of the reference's rounding of
+   p, ds and p * keep (within one bf16 ulp, and no farther from it than
+   from the plain version); the dropout masks of
    the forward and dk/dv kernels exactly, on fp32 and on bf16 inputs (the
    bf16 forward's kept values within its rounding of p); the forward with
    no keys (every row dead);
@@ -40,30 +43,38 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    launches per step), and replay them teacher-forced on the card and
    on the CPU (``device="cpu"``, plain path) with the same weights;
 6. train: build ``transformer()`` at Transformer-base width through
-   ``fluid.layers`` with ``Adam(1e-4).minimize``; run one step at batch
-   2 on the card and on the CPU from the same scope and seeds (dropout
-   on) and compare the loss, gradients, updated parameters and the
-   updates themselves; then 20
+   ``fluid.layers`` with ``Adam(1e-4).minimize``; run 3 steps at batch 2
+   on the card (``Executor.run`` captures step 1 in a CUDA graph, steps
+   2 and 3 replay it) and hold step 3 against the same step run eagerly
+   (``lowering.run_block_ops``) on a clone of the card's state with its
+   seeds (bitwise, else each differing value named with its op and held
+   within the card-vs-CPU tolerances), and against the CPU port from the
+   card's state (dropout on): the loss, gradients, updated parameters
+   and the updates themselves; then 20
    steps at batch 64 on the card through ``fluid.Executor`` (the main
    path: 18 fused attentions per step, each launching the forward, dq
-   and dk/dv kernels once), with a falling loss;
+   and dk/dv kernels once; 19 executable hits, the captured graph's
+   kernel nodes naming 18 of each), with a falling loss;
 7. serve 4 requests with the trained scope, loaded by name into a
    ``PagedTransformerGenerator`` (``param_prefix="tf"``);
 8. train the same Transformer in bench.py's own bf16 recipe
    (``amp_dtype="bfloat16"``: bf16 activations, f32 master weights; the
-   same startup program and dropout salts): one step at batch 2 on the
-   card, on the CPU, and of the float32 program on the CPU, from one
-   scope (loss, every gradient in relative L2, and the card's distance
-   to the float32 gradients against the CPU's); then 20 steps at batch
-   64 on the card, 18 launches of each flash kernel per step, every one
-   on bf16 inputs (counted by dtype at the wrapper), with a falling
-   loss;
-9. the book's first two chapters on the card, each first step against
-   the CPU port from one scope (loss, every gradient): ``fit_a_line``
+   same startup program and dropout salts): step 3 at batch 2 as in 6,
+   against the eager step and against the CPU in the amp and in the
+   float32 program (loss, every gradient in relative L2, and the card's
+   distance to the float32 gradients against the CPU's); then 20 steps
+   at batch 64 on the card, 18 launches of each flash kernel per step,
+   every one on bf16 inputs (counted by dtype at the wrapper), graph and
+   hits as in 6, with a falling loss;
+9. the book's first two chapters on the card, each step 3 as in 6
+   against the eager step and the CPU port (loss, every gradient), every
+   step after the first a replay: ``fit_a_line``
    (200 SGD steps at batch 32, the loss down ~100x), ``conv_net`` (20
    Adam steps at batch 64 on synthetic digits) and the bf16 conv-pool
    net of ``tests/test_book.py`` (20 Momentum steps at batch 64, bf16
-   images as a bf16 tensor feed), with falling losses;
+   images as a bf16 tensor feed), with falling losses; then fit_a_line
+   through ``Executor.run_steps``, ``run_pipeline`` and two scopes in
+   turns on one executor, each bitwise equal to ``run`` step by step;
 10. at the training path's shapes (B=64, L=256, dropout 0.1, causal and
    not), in float32 and in bf16, hold ``flash_attention`` and its
    autograd backward against the plain forward and backward (out, lse,
@@ -99,13 +110,14 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    hand-written backward, against autograd through the plain loop);
 12. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
    128, vocab 30000, 2 x (fc + dynamic_lstm) at hidden 512, last step,
-   fc softmax, Adam 2e-3) at batch 128, T=100: one step at batch 4 card
-   vs CPU from one scope (loss, every gradient), then 20 steps on the
-   card on one fixed ragged batch (2 kernel launches per step, falling
-   loss);
+   fc softmax, Adam 2e-3) at batch 128, T=100: step 3 at batch 4 as in
+   6 (loss, every gradient), then 20 steps on the card on one fixed
+   ragged batch (2 kernel launches per step and 2 ``lstm_fwd`` kernel
+   nodes in the graph, 19 hits, falling loss);
 13. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
-   LSTMs, forward and reverse, with peepholes) for 5 steps at batch
-   128, T=100, ragged lengths (3 launches per step, falling loss);
+   LSTMs, forward and reverse, with peepholes) for 20 steps at batch
+   128, T=100, ragged lengths (3 launches per step and graph nodes, 19
+   hits, falling loss);
 14. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
    off) and cuDNN's own input product alone at B=128, T=100, H = 256,
    512 and 1280.
@@ -434,18 +446,27 @@ def ragged_extra_cases(torch, gen, dev):
 
 def graph_kernels(torch, calls):
     """The device kernels ``calls`` run, in order: the calls captured into
-    a CUDA graph (after one warm-up call), its kernel nodes read through
-    the driver (``cuGraphGetNodes``) and each one's function named
-    (``cuFuncGetName``, or ``cuKernelGetName`` for a kernel the runtime
-    launched by its context-free handle) -> mangled names."""
-    import ctypes
-
+    a CUDA graph (after one warm-up call) -> the mangled names of its
+    kernel nodes (``kernel_nodes``)."""
     calls[0]()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         for fn in calls:
             fn()
+    names, _ = kernel_nodes(graph)
+    del graph
+    return names
+
+
+def kernel_nodes(graph):
+    """A kept CUDA graph's nodes read through libcuda
+    (``cuGraphGetNodes``), each kernel node's function named
+    (``cuFuncGetName``, or ``cuKernelGetName`` for a kernel the runtime
+    launched by its context-free handle) -> (the kernel nodes' mangled
+    names in node order, the number of nodes of every type)."""
+    import ctypes
+
     cu = ctypes.CDLL("libcuda.so.1")
 
     def check(err, what):
@@ -479,8 +500,41 @@ def graph_kernels(torch, calls):
                                      ctypes.c_void_p(kern)),
                   "cuKernelGetName")
         names.append(name.value.decode())
-    del graph
-    return names
+    return names, n.value
+
+
+# the kernel families a training step's graph is counted by: the source
+# name in a mangled kernel name (``kernel_names``) -> family
+FAMILY_OF = {"fwd_kernel": "fwd", "fwd_wide_kernel": "fwd",
+             "fwd_bf16_kernel": "fwd", "fwd_wg_kernel": "fwd",
+             "dq_kernel": "dq", "dq_wide_kernel": "dq", "dq_wg_kernel": "dq",
+             "dkv_kernel": "dkv", "dkv_wide_kernel": "dkv",
+             "dkv_wg_kernel": "dkv", "lstm_fwd_kernel": "lstm_fwd"}
+
+
+def source_name(mangled):
+    """``dq_wg_kernel`` etc.: the kernel identifier in a mangled name."""
+    import re
+
+    m = re.search(r"\d+([a-z_]+_kernel)I", mangled)
+    return m.group(1) if m else None
+
+
+def step_graph(exe):
+    """The one CUDA graph an executor captured for a training path's
+    step -> {nodes, kernel_nodes, and the kernel nodes of each of this
+    repo's kernel families}."""
+    graphs = exe.graphs()
+    if len(graphs) != 1:
+        return {"graphs": len(graphs)}
+    names, nodes = kernel_nodes(graphs[0])
+    fams = {}
+    for n in names:
+        f = FAMILY_OF.get(source_name(n))
+        if f:
+            fams[f] = fams.get(f, 0) + 1
+    return {"graphs": 1, "nodes": nodes, "kernel_nodes": len(names),
+            "by_family": fams}
 
 
 def device_kernels_per_call(torch, calls):
@@ -748,10 +802,8 @@ def kernel_names(torch, fn):
     """The kernels one call of ``fn`` runs on the device, by their source
     names (``dq_wg_kernel``, ``fwd_kernel``, ...: the identifier in each
     mangled name of ``graph_kernels``)."""
-    import re
-
-    return sorted({m.group(1) for n in graph_kernels(torch, [fn])
-                   for m in [re.search(r"\d+([a-z_]+_kernel)I", n)] if m})
+    return sorted({source_name(n) for n in graph_kernels(torch, [fn])}
+                  - {None})
 
 
 def wg_kernels_ran(torch, fa, args):
@@ -807,6 +859,101 @@ def run_flash_case(torch, fa, case, dev, gen):
     if case["offsets"] == (0, case["lk"]) and case["causal"]:
         ok = ok and not out.any().item() and bool(torch.isinf(lse).all())
     return _case_name(case), {n: e for n, (e, _) in errs.items()}, ok
+
+
+# the bf16 kernels round p (forward) and ds and p * keep (backward) to
+# bf16 where the reference's kernels round them, at every head width:
+# the widths besides 64 held to that rounding, emulated, within one bf16
+# ulp of each output's largest magnitude (tests/test_torch_flash.py's
+# emulation, as it holds D = 64 against the reference's Pallas kernels)
+ROUNDING_WIDTHS = (8, 32, 128)
+
+
+def bf16_rounding_emulation(torch, fa, q, k, v, out, lse, dout, causal,
+                            rate, seed, tile=64, part=32):
+    """The reference's bf16 rounding on [B, H, L, D] bf16 tensors, in
+    fp32: the forward's online softmax over ``tile``-key tiles with the
+    dropped p rounded to bf16 before p.v (``part``-key fresh partials),
+    l the sum of the unrounded p, out rounded to bf16; the backward from
+    the kernel's own (out, lse): ds = p * (dp * keep - delta) * scale and
+    p * keep rounded to bf16 before the products they feed, the
+    gradients rounded to bf16.  -> (out, dq, dk, dv)."""
+    bf = torch.bfloat16
+    sm_scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, out, dout))
+    lq, lk = q.shape[2], k.shape[2]
+    rows = torch.arange(lq, device=q.device)
+    m = torch.full(q.shape[:3], -float("inf"), device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for k0 in range(0, lk, tile):
+        cols = torch.arange(k0, min(k0 + tile, lk), device=q.device)
+        s = torch.matmul(qf, kf[:, :, cols].transpose(-1, -2)) * sm_scale
+        if causal:
+            s = s.masked_fill(rows[:, None] < cols[None, :], -float("inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_sub = torch.where(torch.isinf(m_new), 0.0, m_new)
+        alpha = torch.exp(m - m_sub)
+        p = torch.exp(s - m_sub[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        pd = (p * fa._plain_keep(q, rows, cols, rate, seed)).to(bf).float()
+        vt = vf[:, :, cols]
+        acc = acc * alpha[..., None] + sum(
+            torch.matmul(pd[..., c:c + part], vt[:, :, c:c + part])
+            for c in range(0, len(cols), part))
+        m = m_new
+    e_out = (acc / l[..., None]).to(bf)
+    cols = torch.arange(lk, device=q.device)
+    x = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    if causal:
+        x = x.masked_fill(rows[:, None] < cols[None, :], -float("inf"))
+    p = torch.exp(x - lse[..., None])
+    keep = fa._plain_keep(q, rows, cols, rate, seed)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = (of * dof).sum(dim=-1)
+    ds = (p * (dp * keep - delta[..., None]) * sm_scale).to(bf).float()
+    pk = (p * keep).to(bf).float()
+    grads = (torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf),
+             torch.matmul(pk.transpose(-1, -2), dof))
+    return (e_out, *(g.to(bf) for g in grads))
+
+
+def rounding_check(torch, fa, dev, gen):
+    """The bf16 kernels at ROUNDING_WIDTHS (B=2, H=2, L=256, 'bhld',
+    dropout 0.1, causal and not) against ``bf16_rounding_emulation``:
+    each output's largest error in bf16 ulps of its largest magnitude
+    (``ulps``, at most 1 to pass), and its mean error against the
+    emulation and against the plain version, which keeps p and ds in
+    fp32 (``mean_emulation``, ``mean_plain``: the kernel must be no
+    farther from the emulation; one ulp alone does not tell the two
+    apart) -> {case: {tensor: {...}}}."""
+    out = {}
+    for d in ROUNDING_WIDTHS:
+        for causal in (False, True):
+            q, k, v, dout = (torch.randn(2, 2, 256, d, generator=gen).to(
+                dev, torch.bfloat16) for _ in range(4))
+            cfg = (causal, d ** -0.5, 0.1, SEED, "bhld", (0, 0))
+            o, lse = fa._flash_fwd_cuda(q, k, v, None, *cfg)
+            args = (q, k, v, o, dout, lse, torch.empty_like(lse), *cfg)
+            got = (o, fa._flash_dq_cuda(*args), *fa._flash_dkv_cuda(*args))
+            want = bf16_rounding_emulation(torch, fa, q, k, v, o, lse, dout,
+                                           causal, 0.1, SEED)
+            p_out, _ = fa.flash_forward_plain(q, k, v, None, *cfg)
+            plain = (p_out, *fa.flash_backward_plain(q, k, v, o, dout, lse,
+                                                     None, *cfg)[:3])
+            errs = {}
+            for name, g, w, pl in zip(("out", "dq", "dk", "dv"), got, want,
+                                      plain):
+                g, w, pl = g.float(), w.float(), pl.float()
+                mag = float(w.abs().max())
+                ulp = 2.0 ** (math.floor(math.log2(mag)) - 7)
+                errs[name] = {
+                    "ulps": float((g - w).abs().max()) / ulp,
+                    "mean_emulation": float((g - w).abs().mean()) / ulp,
+                    "mean_plain": float((g - pl).abs().mean()) / ulp}
+            out[f"D{d}/{'causal' if causal else 'full'}"] = errs
+    torch.cuda.synchronize()
+    return out
 
 
 def dropout_mask_probe(torch, fa, dev, dtype="float32"):
@@ -1004,9 +1151,11 @@ def flash_entry_check(torch, fa, q, k, v, dout, cfg):
     held against the plain forward and backward on the same inputs.  The
     lse is the one the wrapper saved for its backward.  Returns (name,
     {tensor: max_abs_err}, ok) as ``run_flash_case`` does."""
-    causal, _scale, rate = cfg[:3]
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-    out = fa.flash_attention(*leaves, None, *cfg)
+    causal, sm_scale, rate, seed, layout, offsets = cfg
+    out = fa.flash_attention(*leaves, None, causal, sm_scale,
+                             dropout_rate=rate, dropout_seed=seed,
+                             layout=layout, block_offsets=offsets)
     lse = out.grad_fn.saved_tensors[-1]
     grads = torch.autograd.grad(out, leaves, dout)
     p_out, p_lse = fa.flash_forward_plain(q, k, v, None, *cfg)
@@ -1068,25 +1217,31 @@ def flash_library(fa, libs):
         fa._flash_entry.cache_clear()
 
 
-def parent_backward(torch, fa, lib, kind, q, k, v, out, dout, lse, cfg):
+def parent_backward(torch, fa, lib, kind, q, k, v, out, dout, lse, delta,
+                    cfg):
     """The parent's dq (``kind`` "dq") or dk/dv ("dkv") through its own C
-    entry, whose arguments lack the delta pointer the kernels of this
-    commit added: the wrapper's checks and shared arguments
-    (``_flash_bwd_setup``), then one launch -> the gradients."""
+    entry, which takes the seed by value where this commit's takes its
+    address: the wrapper's checks and shared arguments
+    (``_flash_bwd_setup``) with the seed's value in place of its
+    address, then one launch -> the gradients; ``delta`` as the
+    wrappers pass it (dq writes it at bf16 D = 64, dk/dv reads it).
+    (The parent's forward runs through the wrapper, whose seed address
+    it reads as a value: another seed, the same work.)"""
     import ctypes
 
     fn = getattr(lib, f"flash_attention_{kind}")
     if fn.argtypes is None:
-        n_ptrs = {"dq": 7, "dkv": 8}[kind]
+        n_ptrs = {"dq": 8, "dkv": 9}[kind]
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 6 + [ctypes.c_float]
                        + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
                        + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     _, common, ins = fa._flash_bwd_setup(q, k, v, out, dout, lse, *cfg)
+    common = common[:-3] + (int(cfg[3]) & 0xFFFFFFFF,) + common[-2:]
     outs = ((torch.empty_like(q),) if kind == "dq"
             else (torch.empty_like(k), torch.empty_like(v)))
-    err = fn(*ins, *(g.data_ptr() for g in outs), *common)
+    err = fn(*ins, delta.data_ptr(), *(g.data_ptr() for g in outs), *common)
     if err != 0:
         raise RuntimeError(f"parent flash {kind} launch failed: CUDA "
                            f"error {err}")
@@ -1193,7 +1348,7 @@ def flash_timings(torch, fa, dev, gen, dtype="float32", int_ops=None,
             parent and parent["bwd"] and (lambda: bwd_times(
                 lambda kind, c: parent_backward(
                     torch, fa, parent["bwd"], kind, q, k, v, out, dout,
-                    lse, c)))))
+                    lse, delta, c)))))
         t = {"fwd": fwd["ms"], "dq": bwd["dq/ms"], "dkv": bwd["dkv/ms"]}
         # which device kernels one call of each runs
         ran = {"fwd": kernel_names(
@@ -1300,25 +1455,183 @@ N_TRAINED_REQUESTS = 4
 # encoder self, decoder self (causal) and cross attention per layer
 ATTN_PER_STEP = 3 * MODEL["n_layer"]
 CAUSAL_PER_STEP = MODEL["n_layer"]
-# card vs CPU, one step from one scope with dropout on (both draw the
+# card vs CPU, one step from one state with dropout on (both draw the
 # same hash masks): float32 end to end with TF32 off, so they differ by
 # summation order only, through 12 layers and a 32768-way softmax.  The
 # gradient error is taken relative to the gradient's largest magnitude.
-# Adam's first step moves a weight by lr * g / (|g| + eps / 0.03), about
-# +-lr, and a gradient within rounding of 0 may flip that sign: the
-# updated weights can differ by 2 lr where the gradients agree.  So the
-# update itself, w_after - w_init, is held to its own size as well, on
-# the elements whose |g| is at least UPDATE_GRAD_FLOOR of the
-# parameter's largest: there a gradient within STEP_GRAD_RTOL cannot
-# flip the step's sign and moves it by at most 1e-3 / 1e-2 = 0.1 of
-# itself, while a skipped, doubled or misdirected update is off by 1 or
-# more.
+# Adam moves a weight by lr_t * m / (sqrt(v) + eps), m = b1 m' + (1 - b1)
+# g the first moment after the step, about +-lr where g dominates, and
+# a gradient within rounding of 0 may flip that sign: the updated
+# weights can differ by 2 lr where the gradients agree.  So the update
+# itself, w_after - w_before, is held to its own size as well, on the
+# elements whose |m| is at least UPDATE_GRAD_FLOOR of (1 - b1) times the
+# gradient's largest magnitude (at step 1, m = (1 - b1) g: the elements
+# whose |g| is at least that share of the largest): both sides share m'
+# and v', so there a gradient within STEP_GRAD_RTOL moves m, and the
+# step, by at most 1e-3 / 1e-2 = 0.1 of itself, while a skipped, doubled
+# or misdirected update is off by 1 or more.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
 STEP_PARAM_ATOL = 2 * LR + 1e-6
 UPDATE_GRAD_FLOOR = 1e-2
 STEP_UPDATE_RTOL = 0.1
 UPDATE_MIN_SHARE = 0.5          # the floor must leave most elements checked
+
+
+# -- the captured step: replay against eager, card against CPU ---------------
+
+# the step the card-vs-CPU and replay checks read: step 1 runs eagerly
+# and is captured in a CUDA graph, steps 2 and 3 replay it
+COMPARE_STEP = 3
+
+
+def device_feed(torch, feed, dev):
+    """A feed dict on the card as the executor stages it: int64 and
+    float64 narrowed to int32 and float32, sequences as SeqArrays."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.core.lod import SeqArray
+    from paddle_tpu_torch.fluid.core.types import runtime_dtype, torch_dtype
+
+    def one(v):
+        if isinstance(v, SeqArray):
+            return SeqArray(one(v.data), one(v.lengths))
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        return t.to(dev, torch_dtype(runtime_dtype(t.dtype)))
+
+    return {n: one(v) for n, v in feed.items()}
+
+
+def _pieces(v):
+    return (v.data, v.lengths) if hasattr(v, "lengths") else (v,)
+
+
+def captured_step(torch, fluid, main, fetch, init, feed_of, cpu=()):
+    """Steps 1..COMPARE_STEP of ``main`` on the card from the numpy state
+    ``init``, feeding ``feed_of(i)`` and fetching ``fetch`` (names):
+    step 1 runs eagerly and is captured, the others replay the graph.
+    At the last step:
+
+    * the replay against ``lowering.run_block_ops`` run eagerly on a
+      clone of the card's state before it, with the step's seeds
+      (``step_seeds``): each fetch and each state var the step writes
+      is equal bitwise, or is listed in ``differs`` with the op that
+      wrote it (for an optimizer update, the op of its gradient too) and
+      its error;
+    * each ``(program, fetch)`` of ``cpu`` runs the same step on the CPU
+      from the card's state before it, the scope's rng at that step.
+
+    Returns {"card": the step's fetches, "before" / "after": the card's
+    state around it (numpy), "cpu": [(fetches, state after)], "differs",
+    "bitwise", "hits": executable hits}."""
+    from paddle_tpu_torch.fluid.lowering import (BlockPlan, run_block_ops,
+                                                 seed_tensor, step_seeds)
+
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    exe = fluid.Executor(place)
+    dev = exe.device
+    for i in range(COMPARE_STEP - 1):
+        exe.run(main, feed=feed_of(i), fetch_list=fetch, scope=scope)
+    feed = feed_of(COMPARE_STEP - 1)
+    plan = BlockPlan(main.desc.global_block(), list(feed), fetch)
+
+    def clone(v):
+        return (type(v)(v.data.clone(), v.lengths.clone())
+                if hasattr(v, "lengths") else v.clone())
+
+    pre = {n: clone(scope.find_var(n)) for n in plan.state_in}
+    before = fluid.scope_to_numpy(scope)
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    written = {n: clone(scope.find_var(n)) for n in plan.state_out}
+    after = fluid.scope_to_numpy(scope)
+    hits = exe.cache_stats()["executable"]["hits"]
+    del exe, scope
+    seeds = step_seeds(plan, main.random_seed, COMPARE_STEP)
+    env = dict(pre)
+    env.update(device_feed(torch, feed, dev))
+    with torch.no_grad():
+        run_block_ops(plan, env, seeds, seed_tensor(seeds).to(dev), dev,
+                      "train")
+    writer = {n: op for op in plan.ops for n in op.output_names() if n}
+
+    def source(n):
+        # the op that computed n, through the assigns that pass it on
+        op = writer.get(n)
+        while op is not None and op.type == "assign":
+            op = writer.get(op.input("X")[0])
+        return op
+
+    def op_of(n):
+        op = source(n)
+        if op is None:
+            return None
+        grad = source(op.inputs.get("Grad", [None])[0])
+        return op.type if grad is None else f"{op.type} <- {grad.type}"
+
+    differs = {}
+    for n, a, b in ([(n, g, env[n]) for n, g in zip(fetch, got)]
+                    + [(n, written[n], env[n]) for n in plan.state_out]):
+        if all(torch.equal(x, y) for x, y in zip(_pieces(a), _pieces(b))):
+            continue
+        a, b = _pieces(a)[0].double(), _pieces(b)[0].double()
+        abs_err = float((a - b).abs().max())
+        differs[n] = {"op": op_of(n), "abs_err": abs_err,
+                      "rel_err": abs_err / max(float(b.abs().max()),
+                                               1e-30)}
+    del pre, env, written
+    got = [_pieces(v)[0].float().cpu().numpy() for v in got]
+    cpu_runs = []
+    for program, names in cpu:
+        cs = fluid.scope_from_numpy(before, fluid.CPUPlace())
+        # the scope's rng at the card's: the CPU's step is step 3 too
+        cs._rng_seed, cs._rng_step = program.random_seed, COMPARE_STEP - 1
+        out = fluid.Executor(fluid.CPUPlace()).run(
+            program, feed=feed, fetch_list=names, scope=cs)
+        cpu_runs.append((out, fluid.scope_to_numpy(cs)))
+    torch.cuda.empty_cache()
+    return {"card": got, "before": before, "after": after, "cpu": cpu_runs,
+            "differs": differs, "bitwise": not differs, "hits": hits}
+
+
+def replay_ok(rec, params, loss, loss_rtol, grad_rtol, param_atol):
+    """A replay that differs from the eager step passes where each value
+    that differs is within the card-vs-CPU tolerances of its kind: the
+    loss ``loss_rtol``, a parameter ``param_atol``, any other value
+    ``grad_rtol`` of its largest magnitude."""
+    for n, d in rec["differs"].items():
+        if n == loss:
+            ok = d["rel_err"] <= loss_rtol
+        elif n in params:
+            ok = d["abs_err"] <= param_atol
+        else:
+            ok = d["rel_err"] <= grad_rtol
+        if not ok:
+            return False
+    return True
+
+
+def replay_record(rec):
+    """What a path's record keeps of ``captured_step``'s replay check."""
+    return {"step": COMPARE_STEP, "bitwise": rec["bitwise"],
+            "differs": rec["differs"], "hits": rec["hits"]}
+
+
+def graph_failures(path, rec, steps, per_step):
+    """A training path's run of ``steps`` steps: every step after the
+    first a replay (``steps - 1`` executable hits), one captured graph
+    whose kernel nodes of this repo's kernels are ``per_step`` ({family:
+    launches a step})."""
+    out = []
+    if rec["executable_hits"] != steps - 1:
+        out.append(f"{path}: {rec['executable_hits']} executable hits in "
+                   f"{steps} steps, want {steps - 1}")
+    if rec["graph"].get("by_family") != per_step:
+        out.append(f"{path}: captured graph {rec['graph']}, want kernel "
+                   f"nodes {per_step}")
+    return out
 
 
 def build_training(fluid, transformer, amp_dtype=None):
@@ -1346,27 +1659,29 @@ def train_feed(np, batch):
             "lbl_weight": np.ones((batch, SEQ), np.float32)}
 
 
-def compare_step(np, fluid, main, loss, init, feed):
-    """One step on the card and on the CPU from the same scope: the loss,
-    the gradients, the updated weights and the updates of encoder layer 0
-    and decoder layer 0.  Returns a record of the four errors."""
+def compare_step(torch, np, fluid, main, loss, init, feed):
+    """Step 3 (a graph replay) on the card and the same step on the CPU
+    from the card's state before it (``captured_step``): the loss, the
+    gradients, the updated weights and the updates of encoder layer 0
+    and decoder layer 0.  Returns a record of the four errors and of the
+    replay against the eager step."""
     params = [p.name for p in main.global_block().all_parameters()
               if p.name.startswith(("tf.enc0.", "tf.dec0."))]
     fetch = [loss.name] + [n + "@GRAD" for n in params]
-    res = []
-    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
-        scope = fluid.scope_from_numpy(init, place)
-        t0 = time.perf_counter()
-        got = fluid.Executor(place).run(main, feed=feed, fetch_list=fetch,
-                                        scope=scope)
-        res.append((got, fluid.scope_to_numpy(scope, params),
-                    time.perf_counter() - t0))
-        del scope
-    (g_card, w_card, t_card), (g_cpu, w_cpu, t_cpu) = res
+    r = captured_step(torch, fluid, main, fetch, init, lambda i: feed,
+                      [(main, fetch)])
+    g_card, g_cpu = r["card"], r["cpu"][0][0]
+    before, w_card, w_cpu = r["before"], r["after"], r["cpu"][0][1]
+    # each parameter's Adam first moment and beta1
+    adam = {op.input("Param")[0]: (op.input("Moment1")[0],
+                                   op.attr("beta1"))
+            for op in main.global_block().ops if op.type == "adam"}
     upd_err, checked, total = 0.0, 0, 0
     for n, g in zip(params, g_cpu[1:]):
-        u_card, u_cpu = w_card[n] - init[n], w_cpu[n] - init[n]
-        sure = np.abs(g) >= UPDATE_GRAD_FLOOR * np.abs(g).max()
+        u_card, u_cpu = w_card[n] - before[n], w_cpu[n] - before[n]
+        m1, beta1 = adam[n]
+        sure = np.abs(w_cpu[m1]) >= (UPDATE_GRAD_FLOOR * (1 - beta1)
+                                     * np.abs(g).max())
         if sure.any():
             upd_err = max(upd_err, float((np.abs(u_card - u_cpu)[sure]
                                           / np.abs(u_cpu)[sure]).max()))
@@ -1382,14 +1697,19 @@ def compare_step(np, fluid, main, loss, init, feed):
                                 for a, b in zip(g_card[1:], g_cpu[1:])),
             "param_max_abs_err": max(float(np.abs(w_card[n] - w_cpu[n])
                                            .max()) for n in params),
-            "n_params": len(params), "card_s": t_card, "cpu_s": t_cpu}
+            "n_params": len(params), "replay": replay_record(r),
+            "replay_ok": replay_ok(
+                r, set(before), loss.name, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+                STEP_PARAM_ATOL)}
 
 
 def train_on_card(torch, fluid, fa, main, loss, init, feed):
     """The training path: TRAIN_STEPS steps of ``Executor.run`` on the
-    card, with the flash kernels' launch counts (all, and by input
-    dtype) set to 0 just before and read just after.  Returns (record,
-    trained scope)."""
+    card (the first run eagerly and captured in a CUDA graph, the others
+    replays of it), with the flash kernels' launch counts (all, and by
+    input dtype) set to 0 just before and read just after.  Returns
+    (record, trained scope); the record has the executor's hits and the
+    graph's nodes (``step_graph``)."""
     place = fluid.CUDAPlace(0)
     scope = fluid.scope_from_numpy(init, place)
     exe = fluid.Executor(place)
@@ -1411,6 +1731,8 @@ def train_on_card(torch, fluid, fa, main, loss, init, feed):
     steady = sorted(times[1:])[len(times[1:]) // 2]        # median
     tokens = TRAIN_BATCH * SEQ * 2
     rec = {"batch": TRAIN_BATCH, "seq": SEQ, "steps": TRAIN_STEPS,
+           "executable_hits": exe.cache_stats()["executable"]["hits"],
+           "graph": step_graph(exe),
            "losses": losses, "first_step_ms": times[0] * 1e3,
            "step_ms_median": steady * 1e3,
            "step_ms_mean": sum(times[1:]) / len(times[1:]) * 1e3,
@@ -1445,25 +1767,20 @@ def _rel_l2(np, got, want):
                  / max(float(np.linalg.norm(want)), 1e-30))
 
 
-def compare_amp_step(np, fluid, amp_main, amp_loss, f32_main, f32_loss,
-                     init, feed):
-    """One step of the amp program on the card and on the CPU, and of the
-    float32 program on the CPU, from one scope with dropout on (the
-    programs share their dropout salts, so the masks): the losses and
-    every parameter's gradient."""
+def compare_amp_step(torch, np, fluid, amp_main, amp_loss, f32_main,
+                     f32_loss, init, feed):
+    """Step 3 of the amp program on the card (a graph replay), and the
+    same step of the amp program and of the float32 program on the CPU
+    from the card's state before it, dropout on (the programs share
+    their dropout salts, so the masks): the losses and every parameter's
+    gradient, and the replay against the eager step."""
     params = [p.name for p in amp_main.global_block().all_parameters()]
     grads = [n + "@GRAD" for n in params]
-    res = []
-    for place, main, loss in ((fluid.CUDAPlace(0), amp_main, amp_loss),
-                              (fluid.CPUPlace(), amp_main, amp_loss),
-                              (fluid.CPUPlace(), f32_main, f32_loss)):
-        scope = fluid.scope_from_numpy(init, place)
-        t0 = time.perf_counter()
-        res.append((fluid.Executor(place).run(
-            main, feed=feed, fetch_list=[loss.name] + grads, scope=scope),
-            time.perf_counter() - t0))
-        del scope
-    (card, t_card), (cpu, t_cpu), (f32, _) = res
+    r = captured_step(torch, fluid, amp_main, [amp_loss.name] + grads, init,
+                      lambda i: feed,
+                      [(amp_main, [amp_loss.name] + grads),
+                       (f32_main, [f32_loss.name] + grads)])
+    card, cpu, f32 = r["card"], r["cpu"][0][0], r["cpu"][1][0]
     l2 = [_rel_l2(np, a, b) for a, b in zip(card[1:], cpu[1:])]
     worst = int(np.argmax(l2))
     return {"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
@@ -1477,11 +1794,16 @@ def compare_amp_step(np, fluid, amp_main, amp_loss, f32_main, f32_loss,
                 [_rel_l2(np, a, b) for a, b in zip(card[1:], f32[1:])])),
             "cpu_vs_f32_median": float(np.median(
                 [_rel_l2(np, a, b) for a, b in zip(cpu[1:], f32[1:])])),
-            "n_params": len(params), "card_s": t_card, "cpu_s": t_cpu}
+            "n_params": len(params), "replay": replay_record(r),
+            # the replay against the eager step: fp32 state, bf16 products
+            # in both, so the float32 step's tolerances
+            "replay_ok": replay_ok(
+                r, set(params), amp_loss.name, STEP_LOSS_RTOL,
+                STEP_GRAD_RTOL, STEP_PARAM_ATOL)}
 
 
 def amp_step_ok(step) -> bool:
-    return (step["loss_rel_err"] <= AMP_LOSS_RTOL
+    return (step["replay_ok"] and step["loss_rel_err"] <= AMP_LOSS_RTOL
             and step["grad_rel_l2_max"] <= AMP_GRAD_L2
             and step["grad_dtypes"] == ["float32"]
             and step["card_vs_f32_median"]
@@ -1491,6 +1813,7 @@ def amp_step_ok(step) -> bool:
 # -- phase 9: the book's first two chapters ---------------------------------
 
 FIT_STEPS, FIT_BATCH = 200, 32
+BOOK_LR = {"fit_a_line": 0.01, "conv_net": 0.01, "bf16_conv_net": 0.05}
 DIGITS_STEPS, DIGITS_BATCH = 20, 64
 # card vs CPU port, first step, float32 (cuBLAS and cuDNN with TF32 off
 # against the CPU): summation order only; the gradients relative to
@@ -1556,20 +1879,19 @@ def book_feed(torch, np, program, i):
 
 
 def book_phase(torch, np, fluid, program, steps):
-    """One book program: its first step on the card and on the CPU from
-    one scope (loss and every gradient), then ``steps`` steps on the
-    card on fresh seeded batches.  Returns (record, ok)."""
+    """One book program: its step 3 on the card (a graph replay) against
+    the eager step and against the CPU from the card's state before it
+    (loss and every gradient), then ``steps`` steps on the card on fresh
+    seeded batches, each after the first a graph replay.  Returns
+    (record, ok)."""
     main, startup, loss = build_book(fluid, program)
     init = initial_scope(fluid, startup)
     params = [p.name for p in main.global_block().all_parameters()]
     fetch = [loss.name] + [n + "@GRAD" for n in params]
-    first = []
-    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
-        scope = fluid.scope_from_numpy(init, place)
-        first.append(fluid.Executor(place).run(
-            main, feed=book_feed(torch, np, program, 0), fetch_list=fetch,
-            scope=scope))
-    card, cpu = first
+    r = captured_step(torch, fluid, main, fetch, init,
+                      lambda i: book_feed(torch, np, program, i),
+                      [(main, fetch)])
+    card, cpu = r["card"], r["cpu"][0][0]
     loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
     if program == "bf16_conv_net":
         grad_err = max(_rel_l2(np, a, b) for a, b in zip(card[1:], cpu[1:]))
@@ -1579,6 +1901,8 @@ def book_phase(torch, np, fluid, program, steps):
                        / max(float(np.abs(b).max()), 1e-30)
                        for a, b in zip(card[1:], cpu[1:]))
         ok = loss_err <= BOOK_LOSS_RTOL and grad_err <= BOOK_GRAD_RTOL
+    replay_good = replay_ok(r, set(params), loss.name, BOOK_LOSS_RTOL,
+                            BOOK_GRAD_RTOL, 2 * BOOK_LR[program] + 1e-6)
     place = fluid.CUDAPlace(0)
     scope = fluid.scope_from_numpy(init, place)
     exe = fluid.Executor(place)
@@ -1588,17 +1912,76 @@ def book_phase(torch, np, fluid, program, steps):
                             fetch_list=[loss], scope=scope)[0])
               for i in range(steps)]
     wall = time.perf_counter() - t0
+    hits = exe.cache_stats()["executable"]["hits"]
     rec = {"program": program, "steps": steps, "losses": losses[::10]
            if steps > 20 else losses, "first_loss": losses[0],
            "last_loss": losses[-1], "ms_per_step": wall / steps * 1e3,
-           "first_step_loss_rel_err": loss_err,
-           "first_step_grad_err": grad_err}
+           "executable_hits": hits, "graph": step_graph(exe),
+           "step3_loss_rel_err": loss_err, "step3_grad_err": grad_err,
+           "replay": replay_record(r)}
+    ok = ok and replay_good and hits == steps - 1
     if program == "fit_a_line":
         # the verify recipe's flow 1: the loss falls ~100x in 200 steps
         rec["last10_mean"] = float(np.mean(losses[-10:]))
         ok = ok and rec["last10_mean"] < losses[0] / 100
     return rec, ok and bool(np.isfinite(losses).all()) \
         and losses[-1] < losses[0]
+
+def executor_modes(torch, np, fluid):
+    """fit_a_line on the card through one ``Executor`` four ways from one
+    scope, each held bitwise to four ``run`` calls on an executor of its
+    own (losses and final parameters): ``run_steps`` (the feeds staged
+    on the card, the steps replays), ``run_pipeline`` (fetches drained
+    every 2 steps), and two scopes stepped in turns through one executor
+    (each takes over the graph's buffers from the other).  -> (record,
+    ok)."""
+    main, startup, loss = build_book(fluid, "fit_a_line")
+    init = initial_scope(fluid, startup)
+    names = sorted(init)
+    place = fluid.CUDAPlace(0)
+    feeds = [book_feed(torch, np, "fit_a_line", i) for i in range(4)]
+
+    def alone(feeds):
+        scope = fluid.scope_from_numpy(init, place)
+        exe = fluid.Executor(place)
+        out = [float(exe.run(main, feed=f, fetch_list=[loss],
+                             scope=scope)[0]) for f in feeds]
+        return out, fluid.scope_to_numpy(scope, names)
+
+    def same(a, b):
+        return a[0] == b[0] and all(np.array_equal(a[1][n], b[1][n])
+                                    for n in names)
+
+    want = alone(feeds)
+    other = alone(feeds[::-1])
+    exe = fluid.Executor(place)
+    scope = fluid.scope_from_numpy(init, place)
+    steps = ([float(r[0]) for r in exe.run_steps(
+        main, feeds=feeds, fetch_list=[loss], scope=scope)],
+        fluid.scope_to_numpy(scope, names))
+    scope = fluid.scope_from_numpy(init, place)
+    pipe = ([float(r[0]) for r in fluid.Executor(place).run_pipeline(
+        main, loader=feeds, fetch_list=[loss], scope=scope,
+        fetch_every=2)], fluid.scope_to_numpy(scope, names))
+    a, b = (fluid.scope_from_numpy(init, place) for _ in range(2))
+    turns = fluid.Executor(place)
+    la, lb = [], []
+    for fa_, fb_ in zip(feeds, feeds[::-1]):
+        la.append(float(turns.run(main, feed=fa_, fetch_list=[loss],
+                                  scope=a)[0]))
+        lb.append(float(turns.run(main, feed=fb_, fetch_list=[loss],
+                                  scope=b)[0]))
+    rec = {"run_steps_bitwise": same(steps, want),
+           "run_pipeline_bitwise": same(pipe, want),
+           "two_scopes_bitwise": same((la, fluid.scope_to_numpy(a, names)),
+                                      want)
+           and same((lb, fluid.scope_to_numpy(b, names)), other),
+           "run_steps_hits": exe.cache_stats()["executable"]["hits"],
+           "two_scopes_hits": turns.cache_stats()["executable"]["hits"]}
+    ok = (rec["run_steps_bitwise"] and rec["run_pipeline_bitwise"]
+          and rec["two_scopes_bitwise"] and rec["run_steps_hits"] == 3
+          and rec["two_scopes_hits"] == 7)
+    return rec, ok
 
 # -- phases 11-14: the LSTM text classifiers --------------------------------
 
@@ -1608,7 +1991,7 @@ LSTM_VOCAB, LSTM_EMB, LSTM_HIDDEN, LSTM_NUM = 30000, 128, 512, 2
 LSTM_BATCH, LSTM_T, LSTM_LR = 128, 100, 2e-3
 LSTM_STEPS, LSTM_COMPARE_BATCH = 20, 4
 LSTM_WIDTHS = (256, 512, 1280)
-BOOK_STEPS = 5
+BOOK_STEPS = 20
 # kernel vs plain loop, same inputs on the card: fp32 on both sides,
 # summation order only (H-term dot products, expf vs torch's exp), over
 # 100 steps of a contracting recurrence
@@ -1842,32 +2225,32 @@ def initial_scope(fluid, startup):
     return fluid.scope_to_numpy(scope)
 
 
-def compare_lstm_step(np, fluid, main, loss, init, feed):
-    """One step on the card and on the CPU from one scope: the loss and
-    every parameter's gradient (each relative to its largest
-    magnitude)."""
+def compare_lstm_step(torch, np, fluid, main, loss, init, feed):
+    """Step 3 on the card (a graph replay) against the eager step and
+    against the same step on the CPU from the card's state before it:
+    the loss and every parameter's gradient (each relative to its
+    largest magnitude)."""
     params = [p.name for p in main.global_block().all_parameters()]
     fetch = [loss.name] + [n + "@GRAD" for n in params]
-    res = []
-    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
-        scope = fluid.scope_from_numpy(init, place)
-        res.append(fluid.Executor(place).run(main, feed=feed,
-                                             fetch_list=fetch, scope=scope))
-        del scope
-    card, cpu = res
+    r = captured_step(torch, fluid, main, fetch, init, lambda i: feed,
+                      [(main, fetch)])
+    card, cpu = r["card"], r["cpu"][0][0]
     return {"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
             "loss_rel_err": abs(float(card[0]) - float(cpu[0]))
             / abs(float(cpu[0])),
             "grad_rel_err": max(float(np.abs(a - b).max())
                                 / max(float(np.abs(b).max()), 1e-30)
                                 for a, b in zip(card[1:], cpu[1:])),
-            "n_params": len(params)}
+            "n_params": len(params), "replay": replay_record(r),
+            "replay_ok": replay_ok(r, set(params), loss.name,
+                                   LSTM_LOSS_RTOL, LSTM_GRAD_RTOL,
+                                   2 * LSTM_LR + 1e-6)}
 
 
 def train_lstm(torch, fluid, lk, main, fetch, init, feed, steps):
     """The LSTM training path: ``steps`` steps of ``Executor.run`` on the
-    card, the kernel's launch count set to 0 just before and read just
-    after."""
+    card (one eager and captured, then graph replays), the kernel's
+    launch count set to 0 just before and read just after."""
     place = fluid.CUDAPlace(0)
     scope = fluid.scope_from_numpy(init, place)
     exe = fluid.Executor(place)
@@ -1884,6 +2267,8 @@ def train_lstm(torch, fluid, lk, main, fetch, init, feed, steps):
     steady = sorted(times[1:])[len(times[1:]) // 2]        # median
     batch = len(feed["label"])
     return {"batch": batch, "seq": LSTM_T, "steps": steps,
+            "executable_hits": exe.cache_stats()["executable"]["hits"],
+            "graph": step_graph(exe),
             "losses": [o[0] for o in outs],
             "accuracy": [o[1] for o in outs] if len(fetch) > 1 else None,
             "first_step_ms": times[0] * 1e3,
@@ -1922,10 +2307,12 @@ def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
         [feed["words"].data[i, :n] for i, n in
          enumerate(lengths[:LSTM_COMPARE_BATCH])], max_len=LSTM_T),
         "label": feed["label"][:LSTM_COMPARE_BATCH]}
-    step = compare_lstm_step(np, fluid, main_prog, loss, init, small)
-    log(f"rnn benchmark step card vs CPU: {json.dumps(step)}")
+    step = compare_lstm_step(torch, np, fluid, main_prog, loss, init, small)
+    log(f"rnn benchmark step {COMPARE_STEP} card vs CPU and replay vs "
+        f"eager: {json.dumps(step)}")
     if not (step["loss_rel_err"] <= LSTM_LOSS_RTOL
-            and step["grad_rel_err"] <= LSTM_GRAD_RTOL):
+            and step["grad_rel_err"] <= LSTM_GRAD_RTOL
+            and step["replay_ok"]):
         failures.append(f"rnn benchmark step card vs CPU: {step}")
     bench = train_lstm(torch, fluid, lk, main_prog, [loss], init, feed,
                        LSTM_STEPS)
@@ -1935,6 +2322,8 @@ def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
         failures.append(f"rnn benchmark: {bench['launches']} lstm_fwd "
                         f"launches in {LSTM_STEPS} steps, want "
                         f"{LSTM_NUM * LSTM_STEPS}")
+    failures += graph_failures("rnn benchmark", bench, LSTM_STEPS,
+                               {"lstm_fwd": LSTM_NUM})
     if not (np.isfinite(bench["losses"]).all()
             and bench["losses"][-1] < bench["losses"][0]):
         failures.append(f"rnn benchmark: loss did not fall: "
@@ -1957,6 +2346,8 @@ def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
     if book["launches"] != n_lstm * BOOK_STEPS or n_lstm != 3:
         failures.append(f"stacked_lstm_net: {book['launches']} lstm_fwd "
                         f"launches in {BOOK_STEPS} steps, want 3 a step")
+    failures += graph_failures("stacked_lstm_net", book, BOOK_STEPS,
+                               {"lstm_fwd": n_lstm})
     if not (np.isfinite(book["losses"]).all()
             and book["losses"][-1] < book["losses"][0]):
         failures.append(f"stacked_lstm_net: loss did not fall: "
@@ -2087,6 +2478,16 @@ def main() -> int:
         if not all(masks):
             failures.append(f"flash dropout masks differ from keep_scale "
                             f"in {dt}: (fwd, dv) = {masks}")
+    rounding = rounding_check(torch, fa, dev, gen)
+    for name, errs in rounding.items():
+        ok = all(e["ulps"] <= 1.0 and e["mean_emulation"] <= e["mean_plain"]
+                 for e in errs.values())
+        log(f"flash bf16 rounding {'ok  ' if ok else 'FAIL'} {name} "
+            f"(bf16 ulps) {json.dumps(errs)}")
+        if not ok:
+            failures.append(f"flash bf16 {name}: {errs} from the "
+                            f"reference's rounding (want at most 1 ulp, "
+                            f"and no farther than from the plain version)")
     empty = empty_keys_check(torch, fa, dev)
     log(f"flash forward with no keys, rows dead: {not empty}")
     if empty:
@@ -2146,10 +2547,11 @@ def main() -> int:
         f"ops) and its {len(init)} initial arrays in "
         f"{time.perf_counter() - t0:.1f}s")
     feed = train_feed(np, TRAIN_BATCH)
-    step = compare_step(np, fluid, main_prog, loss, init,
+    step = compare_step(torch, np, fluid, main_prog, loss, init,
                         {k: v[:COMPARE_BATCH] for k, v in feed.items()})
-    log(f"training step card vs CPU: {json.dumps(step)}")
-    if not (step["loss_rel_err"] <= STEP_LOSS_RTOL
+    log(f"training step {COMPARE_STEP} card vs CPU and replay vs eager: "
+        f"{json.dumps(step)}")
+    if not (step["replay_ok"] and step["loss_rel_err"] <= STEP_LOSS_RTOL
             and step["grad_rel_err"] <= STEP_GRAD_RTOL
             and step["param_max_abs_err"] <= STEP_PARAM_ATOL
             and step["update_rel_err"] <= STEP_UPDATE_RTOL
@@ -2166,6 +2568,8 @@ def main() -> int:
         failures.append(f"training: flash launches "
                         f"{training['launches_by_dtype']} in {TRAIN_STEPS} "
                         f"steps, want {want} on float32 inputs")
+    per_step = {k: ATTN_PER_STEP for k in ("fwd", "dq", "dkv")}
+    failures += graph_failures("training", training, TRAIN_STEPS, per_step)
     if not (np.isfinite(training["losses"]).all()
             and training["losses"][-1] < training["losses"][0]):
         failures.append(f"training: loss did not fall: "
@@ -2197,10 +2601,10 @@ def main() -> int:
         failures.append("amp training: its startup program differs from "
                         "the float32 program's")
     amp_step = compare_amp_step(
-        np, fluid, amp_prog, amp_loss, main_prog, loss, init,
+        torch, np, fluid, amp_prog, amp_loss, main_prog, loss, init,
         {k: v[:COMPARE_BATCH] for k, v in feed.items()})
-    log(f"amp training step card vs CPU ({time.perf_counter() - t0:.1f}s):"
-        f" {json.dumps(amp_step)}")
+    log(f"amp training step {COMPARE_STEP} card vs CPU and replay vs eager "
+        f"({time.perf_counter() - t0:.1f}s): {json.dumps(amp_step)}")
     if not amp_step_ok(amp_step):
         failures.append(f"amp training step card vs CPU: {amp_step}")
     torch.cuda.empty_cache()
@@ -2217,6 +2621,8 @@ def main() -> int:
                         f"{training_bf16['launches_by_dtype']} in "
                         f"{TRAIN_STEPS} steps, want {per_run} on bf16 "
                         f"inputs and none on float32")
+    failures += graph_failures("amp training", training_bf16, TRAIN_STEPS,
+                               per_step)
     if not (np.isfinite(training_bf16["losses"]).all()
             and training_bf16["losses"][-1] < training_bf16["losses"][0]):
         failures.append(f"amp training: loss did not fall: "
@@ -2232,6 +2638,14 @@ def main() -> int:
         log(f"book {'ok  ' if ok else 'FAIL'} {json.dumps(rec)}")
         if not ok:
             failures.append(f"book {program}: {rec}")
+        # no kernel of this repo on these paths
+        failures += graph_failures(f"book {program}", rec, steps, {})
+    modes, ok = executor_modes(torch, np, fluid)
+    book["executor_modes"] = modes
+    log(f"executor modes {'ok  ' if ok else 'FAIL'} {json.dumps(modes)}")
+    if not ok:
+        failures.append(f"executor run_steps / run_pipeline / two scopes "
+                        f"on the card: {modes}")
     torch.cuda.empty_cache()
 
     # -- timings at the paths' shapes: the ragged kernel on the device

@@ -60,10 +60,16 @@ def _make_grad_var(block: Block, fwd_name: str, grad_name: str):
 def append_backward(loss: Variable,
                     parameter_list: Optional[Sequence[str]] = None,
                     no_grad_set: Optional[Set[str]] = None,
+                    callbacks: Optional[Sequence] = None,
                     ) -> List[Tuple[Parameter, Variable]]:
     """Append grad ops for every op contributing to ``loss``; returns
     (param, grad) pairs — mirror of reference backward.py:338.  The
-    reference's per-op callbacks (its error clip) are not ported."""
+    reference's per-op ``callbacks`` (its error clip) are not ported and
+    raise."""
+    if callbacks:
+        raise NotImplementedError("append_backward: callbacks (the "
+                                  "reference's error clip) are not ported "
+                                  "to paddle_tpu_torch")
     block = loss.block
     program = block.program
     no_grad = set(no_grad_set or ())

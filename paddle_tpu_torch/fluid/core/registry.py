@@ -46,10 +46,15 @@ class EmitCtx:
 
     Carries the op's attributes, the device that ops creating tensors
     from nothing allocate on (``meta`` during shape inference), and the
-    op's random seed: a host-side integer the lowering derives from the
-    program seed, the step and the op's ``__rng_salt__`` (the reference
-    carries a JAX key here).  The seed is None where no draw may happen,
-    as in shape inference.
+    op's random seed, the uint32 ``op_seed`` the lowering derives from
+    the program seed, the step and the op's ``__rng_salt__`` (the
+    reference carries a JAX key here).  For an op that draws on the
+    device (dropout, fused_attention) the seed is a 0-d int32 tensor
+    holding those 32 bits, a view into the step's seed buffer on the
+    executor's device, as the reference's ``rng_bits`` are a traced
+    input: a captured step reads it at each replay.  An op registered
+    with ``host_rng=True`` draws on the host and gets a Python int.  The
+    seed is None where no draw may happen, as in shape inference.
     """
 
     __slots__ = ("op", "attrs", "seed", "device", "mode")
@@ -69,14 +74,17 @@ class EmitCtx:
 class OpInfo:
     """Registered semantics for one op type."""
 
-    __slots__ = ("type", "emit", "no_grad", "stop_grad_slots", "doc")
+    __slots__ = ("type", "emit", "no_grad", "stop_grad_slots", "host_rng",
+                 "doc")
 
     def __init__(self, type: str, emit: Callable, no_grad: bool = False,
-                 stop_grad_slots: Sequence[str] = (), doc: str = ""):
+                 stop_grad_slots: Sequence[str] = (), host_rng: bool = False,
+                 doc: str = ""):
         self.type = type
         self.emit = emit          # (ctx, ins: dict[str, list]) -> dict[str, list]
         self.no_grad = no_grad
         self.stop_grad_slots = tuple(stop_grad_slots)
+        self.host_rng = host_rng  # draws on the host from an int seed
         self.doc = doc
 
 
@@ -120,7 +128,7 @@ def _parse_slot(spec: str):
 def primitive(op_type: str, inputs: Sequence[str] = ("X",),
               outputs: Sequence[str] = ("Out",), no_grad: bool = False,
               stop_grad_slots: Sequence[str] = (),
-              seq_transparent: bool = False):
+              seq_transparent: bool = False, host_rng: bool = False):
     """Decorator: register a function of (ctx, *input_slots) -> output
     value(s) as an op emitter.  The function receives one positional arg
     per input slot (a tensor, None for a missing optional, or a list for
@@ -130,7 +138,10 @@ def primitive(op_type: str, inputs: Sequence[str] = ("X",),
     ``seq_transparent=True``: a SeqArray input reaches the function as
     its ``.data``, and every output is re-wrapped with the lengths of the
     first SeqArray input — how elementwise ops inherit the sequence
-    structure of their input."""
+    structure of their input.
+
+    ``host_rng=True``: the op draws its random numbers on the host from
+    ``ctx.seed`` as a Python int, so a captured step cannot hold it."""
     in_specs = [_parse_slot(s) for s in inputs]
     out_names = list(outputs)
 
@@ -177,7 +188,7 @@ def primitive(op_type: str, inputs: Sequence[str] = ("X",),
             return out
 
         register(OpInfo(type=op_type, emit=emit, no_grad=no_grad,
-                        stop_grad_slots=stop_grad_slots,
+                        stop_grad_slots=stop_grad_slots, host_rng=host_rng,
                         doc=inspect.getdoc(fn) or ""))
         return fn
 

@@ -20,12 +20,14 @@ __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
-       act=None, name=None, main_program=None, startup_program=None):
+       act=None, name=None, main_program=None, startup_program=None,
+       use_mkldnn=False):
     """Fully connected: one ``mul`` per input (each with its own weight),
     a ``sum`` of the partial products, then the bias and the
     activation.  A sequence input [b, t, f...] keeps its time axis: its
     weight covers the feature dims and the bias broadcasts on the last
-    axis."""
+    axis.  ``use_mkldnn`` (a CPU-library switch, which the reference
+    ignores too) is accepted and ignored."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name,
                          main_program=main_program,

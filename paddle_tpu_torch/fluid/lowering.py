@@ -17,16 +17,22 @@ does neither by itself, so ``BlockPlan`` does both from the desc alone:
   grad op launches the dq and dk/dv kernels.
 
 Random numbers: each random op carries a build-time ``__rng_salt__``; its
-seed is a host-side integer hash of (program seed, step, salt)
-(``op_seed``), so the card and the CPU draw the same dropout masks from
-the same seed.
+seed is an integer hash of (program seed, step, salt) (``op_seed``), so
+the card and the CPU draw the same dropout masks from the same seed.
+The host computes a step's seeds (one per salt, ``step_seeds``) and the
+executor writes them into one int32 buffer on the device; an op that
+draws on the device gets a 0-d view of its entry, as the reference's
+``rng_bits`` are a traced input, so a step captured in a CUDA graph
+draws new masks at each replay.  An op that draws on the host
+(``host_rng``) gets the int itself.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .core.desc import BlockDesc, OpDesc
@@ -34,7 +40,8 @@ from .core.lod import SeqArray
 from .core.registry import (EmitCtx, GRAD_SUFFIX, base_op_type, get_op_info,
                             has_op, is_grad_op_type)
 
-__all__ = ["BlockPlan", "run_block_ops", "op_seed", "MARKER_OPS"]
+__all__ = ["BlockPlan", "run_block_ops", "op_seed", "step_seeds",
+           "seed_tensor", "MARKER_OPS"]
 
 # pure marker ops (wired by the executor's feed/fetch handling)
 MARKER_OPS = {"feed", "fetch"}
@@ -52,11 +59,25 @@ def op_seed(seed: int, step: int, salt: int) -> int:
     return (x ^ (x >> 31)) & 0xFFFFFFFF
 
 
+def step_seeds(plan: "BlockPlan", seed: int, step: int) -> List[int]:
+    """The uint32 seed of each of the plan's salts in step ``step``."""
+    return [op_seed(seed, step, salt) for salt in plan.salts]
+
+
+def seed_tensor(seeds: Sequence[int]) -> torch.Tensor:
+    """Host int32 tensor holding the bits of uint32 seeds (the kernels
+    read each entry as a uint32; ``keep_scale`` masks it back)."""
+    return torch.from_numpy(np.asarray(seeds, np.uint32).view(np.int32)
+                            .copy())
+
+
 class BlockPlan:
     """What running a block for given feeds and fetches needs, derived
     from the desc: the live ops in order, the state read from the scope
-    (``state_in``) and written back (``state_out``), and the tape links
-    between grad ops and their forward ops."""
+    (``state_in``) and written back (``state_out``), the tape links
+    between grad ops and their forward ops, the random ops' salts in
+    seed-buffer order (``salts``; a grad op shares its forward op's) and
+    the live ops that draw on the host (``host_rng_ops``)."""
 
     def __init__(self, block: BlockDesc, feed_names: Sequence[str],
                  fetch_names: Sequence[str]):
@@ -85,6 +106,22 @@ class BlockPlan:
                     and n not in self.state_in:
                 self.state_in.append(n)
         self.state_out = sorted(n for n in written if n in persistable)
+
+        # seed[position] = (the op's entry in the step's seeds, whether
+        # it draws on the host)
+        self.salts: List[int] = []
+        self.host_rng_ops: List[str] = []
+        self.seed: Dict[int, Tuple[int, bool]] = {}
+        for pos, op in enumerate(self.ops):
+            salt = op.attr("__rng_salt__", None)
+            if salt is None:
+                continue
+            if salt not in self.salts:
+                self.salts.append(salt)
+            host = has_op(op.type) and get_op_info(op.type).host_rng
+            if host:
+                self.host_rng_ops.append(op.type)
+            self.seed[pos] = (self.salts.index(salt), host)
 
         # tape[forward position] = the (slot, index) inputs its grad op
         # wants; grad_of[grad position] = forward position
@@ -211,21 +248,26 @@ def _emit_tape_grad(op: OpDesc, ins: Dict[str, list], entry):
     return out
 
 
-def run_block_ops(plan: BlockPlan, env: Dict[str, Any], seed: int,
-                  step: int, device: torch.device,
-                  mode: str = "train") -> Dict[str, Any]:
+def run_block_ops(plan: BlockPlan, env: Dict[str, Any],
+                  seeds: Sequence[int], seed_buf: Optional[torch.Tensor],
+                  device: torch.device, mode: str = "train"
+                  ) -> Dict[str, Any]:
     """Run the plan's ops in order into ``env`` (name -> tensor), the
-    eager analog of the reference executor's per-op loop."""
+    eager analog of the reference executor's per-op loop.  ``seeds`` are
+    the step's seeds (``step_seeds``) and ``seed_buf`` the same values as
+    an int32 tensor on ``device`` (``seed_tensor``), which the ops that
+    draw on the device read."""
     tape: Dict[int, Any] = {}
     # under a running torch.profiler, each op's work is a range named
     # after its type, so the trace attributes time to Fluid ops
     annotate = torch.autograd.profiler._is_profiler_enabled
     for pos, op in enumerate(plan.ops):
         ins = _gather_inputs(op, env)
-        salt = op.attr("__rng_salt__", None)
-        ctx = EmitCtx(op, seed=None if salt is None
-                      else op_seed(seed, step, salt), device=device,
-                      mode=mode)
+        seed = None
+        if pos in plan.seed:
+            i, host = plan.seed[pos]
+            seed = seeds[i] if host else seed_buf[i]
+        ctx = EmitCtx(op, seed=seed, device=device, mode=mode)
         with (torch.profiler.record_function(op.type) if annotate
               else contextlib.nullcontext()):
             if pos in plan.grad_of:

@@ -114,7 +114,8 @@ def dropout(ctx, x):
 def fused_attention(ctx, q, k, v, bias):
     """Fused scaled-dot-product attention: ``kernels.flash_attention``
     (the flash kernels on the card), with attention-probability dropout
-    keyed on the op's seed.  One card: the reference's sequence-parallel
+    keyed on the op's seed (a tensor on the card, read by the kernels).
+    One card: the reference's sequence-parallel
     routes need a mesh, which the port does not have."""
     if ctx.attr("impl") is not None:
         raise NotImplementedError("fused_attention: the impl attr (the "
@@ -127,5 +128,6 @@ def fused_attention(ctx, q, k, v, bias):
                            causal=ctx.attr("causal", False),
                            sm_scale=ctx.attr("sm_scale", None),
                            dropout_rate=rate,
-                           dropout_seed=ctx.seed or 0,
+                           # no seed in shape inference, where no draw
+                           dropout_seed=0 if ctx.seed is None else ctx.seed,
                            layout=ctx.attr("layout", "bhld"))

@@ -4,9 +4,11 @@ the LSTM text classifiers, the book's first two chapters, their
 backward and the optimizers emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
-host-side seed (``EmitCtx.seed``) and copy to the device, so one seed
-gives the same values on every device; during shape inference (``meta``)
-they draw nothing.  The reference's runtime narrows int64 and float64 to
+seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
+copy to the device, so one seed gives the same values on every device;
+during shape inference (``meta``) they draw nothing.  A host draw cannot
+sit in a captured step (its values would be replayed), so the executor
+runs a program that holds one eagerly once and refuses to replay it.  The reference's runtime narrows int64 and float64 to
 int32 and float32, and so do these ops.
 """
 
@@ -48,14 +50,14 @@ def _draw(ctx, fill):
     return x.to(device=ctx.device, dtype=dt)
 
 
-@primitive("uniform_random", inputs=[], no_grad=True)
+@primitive("uniform_random", inputs=[], no_grad=True, host_rng=True)
 def uniform_random(ctx, *_):
     return _draw(ctx, lambda t, g: t.uniform_(ctx.attr("min", -1.0),
                                               ctx.attr("max", 1.0),
                                               generator=g))
 
 
-@primitive("gaussian_random", inputs=[], no_grad=True)
+@primitive("gaussian_random", inputs=[], no_grad=True, host_rng=True)
 def gaussian_random(ctx, *_):
     return _draw(ctx, lambda t, g: t.normal_(generator=g)
                  * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))

@@ -44,7 +44,10 @@
 //     operand is split into a rounded TF32 high part and the exact rest,
 //     and c += lo*hi + hi*lo + hi*hi with mma.sync m16n8k8 into one fp32
 //     accumulator (flash_attention_mma.cuh).  An operand read from a
-//     bf16 tensor is exact in TF32, so its correction product is skipped.
+//     bf16 tensor is exact in TF32, so its correction product is skipped;
+//     for bf16 inputs ds and p * keep are rounded to bf16 before their
+//     products, as the reference rounds them (and as the D = 64 bf16
+//     kernels below do), so they too are exact in TF32.
 //     mma.sync, not wgmma: wgmma takes TF32 operands only K-major from
 //     shared memory, which dS^T.Q and P^T.dO are not;
 //   * the k index of every product is permuted within its 8-column step
@@ -200,9 +203,11 @@ __device__ __forceinline__ void score_pair(float (&x)[8][4], float (&y)[8][4],
 }
 
 // dq's step for one key tile at k0: ds from s and dp in place of s (row
-// q0 + wr + g + 8 * (e / 2), key column k0 + 8j + 2t + e % 2), then
-// acc += ds.k, k-step j being keys 8j..8j+7; cK is the tile's k (a
-// 64-column chunk of it in the wide kernel)
+// q0 + wr + g + 8 * (e / 2), key column k0 + 8j + 2t + e % 2), rounded
+// to bf16 for bf16 inputs as the reference rounds it
+// (flash_attention.py:777), then acc += ds.k, k-step j being keys
+// 8j..8j+7; cK is the tile's k (a 64-column chunk of it in the wide
+// kernel)
 template <int D, typename T, bool kDrop>
 __device__ __forceinline__ void dq_step(float (&s)[8][4],
                                         const float (&dp)[8][4],
@@ -225,24 +230,27 @@ __device__ __forceinline__ void dq_step(float (&s)[8][4],
       if (kDrop)
         gd *= keep_of(c.seed, c.bh, c.row_off + r, c.col_off + col, c.thr,
                       c.inv_keep);
-      s[j][e] = p * (gd - delta_r[e >> 1]) * c.sm_scale;
+      const float ds = p * (gd - delta_r[e >> 1]) * c.sm_scale;
+      s[j][e] = kLo ? ds : rn_bf16(ds);
     }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     FragA ads;
-    c_to_a(ads, s[j]);
+    c_to_a<kLo>(ads, s[j]);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       FragB bk;
       load_b_cols<D, kLo>(bk, cK, j * 8 + 2 * t, n * 8 + g);
-      mma3<true, kLo>(acc[n], ads, bk);
+      mma3<kLo, kLo>(acc[n], ads, bk);
     }
   }
 }
 
 // dk/dv's step for one query tile at q0: p * keep in place of s^T and ds
 // in place of dp^T (key row k0 + wr + g + 8 * (e / 2), query column
-// 8j + 2t + e % 2, whose lse and delta are sL and sD), then
+// 8j + 2t + e % 2, whose lse and delta are sL and sD), both rounded to
+// bf16 for bf16 inputs as the reference rounds them
+// (flash_attention.py:827, 831), then
 // dv += (p*keep)^T.do and dk += ds^T.q, k-step j being queries
 // 8j..8j+7; cQ and cdO are the tile's q and do (64-column chunks of them
 // in the wide kernel)
@@ -270,21 +278,22 @@ __device__ __forceinline__ void dkv_step(float (&st)[8][4],
           kDrop ? keep_of(c.seed, c.bh, c.row_off + r, c.col_off + col,
                           c.thr, c.inv_keep)
                 : 1.0f;
-      st[j][e] = p * keep;
-      dpt[j][e] = p * (dpt[j][e] * keep - sD[lq]) * c.sm_scale;
+      const float ds = p * (dpt[j][e] * keep - sD[lq]) * c.sm_scale;
+      st[j][e] = kLo ? p * keep : rn_bf16(p * keep);
+      dpt[j][e] = kLo ? ds : rn_bf16(ds);
     }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     FragA ap, ads;
-    c_to_a(ap, st[j]);
-    c_to_a(ads, dpt[j]);
+    c_to_a<kLo>(ap, st[j]);
+    c_to_a<kLo>(ads, dpt[j]);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       FragB bo, bq;
       load_b_cols<D, kLo>(bo, cdO, j * 8 + 2 * t, n * 8 + g);
       load_b_cols<D, kLo>(bq, cQ, j * 8 + 2 * t, n * 8 + g);
-      mma3<true, kLo>(dv_acc[n], ap, bo);
-      mma3<true, kLo>(dk_acc[n], ads, bq);
+      mma3<kLo, kLo>(dv_acc[n], ap, bo);
+      mma3<kLo, kLo>(dk_acc[n], ads, bq);
     }
   }
 }
@@ -296,7 +305,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ dout, const float* __restrict__ lse,
           T* __restrict__ dq, int H, int Lq, int Lk, Strides sq_,
           Strides sk_, float sm_scale, int causal, int row_off, int col_off,
-          float rate, float inv_keep, uint32_t seed) {
+          float rate, float inv_keep, const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   constexpr bool kLo = sizeof(T) == 4;   // fp32 inputs carry a low part
   constexpr int NT = D / 8;              // 8-column steps over D
   constexpr int NK = BK / 8;             // 8-column steps over a key tile
@@ -405,7 +417,10 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk,
            Strides sq_, Strides sk_, float sm_scale, int causal,
            int row_off, int col_off, float rate, float inv_keep,
-           uint32_t seed) {
+           const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   constexpr bool kLo = sizeof(T) == 4;
   constexpr int NT = D / 8;
   constexpr int NQ = BQ / 8;             // 8-column steps over a query tile
@@ -535,8 +550,12 @@ dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ dout, const float* __restrict__ lse,
                T* __restrict__ dq, int H, int Lq, int Lk, Strides sq_,
                Strides sk_, float sm_scale, int causal, int row_off,
-               int col_off, float rate, float inv_keep, uint32_t seed,
+               int col_off, float rate, float inv_keep,
+               const uint32_t* __restrict__ seed_p,
                int nc) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   constexpr int D = 64;
   constexpr bool kLo = sizeof(T) == 4;
   constexpr int NT = D / 8;
@@ -654,7 +673,10 @@ dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 T* __restrict__ dk, T* __restrict__ dv, int H, int Lq, int Lk,
                 Strides sq_, Strides sk_, float sm_scale, int causal,
                 int row_off, int col_off, float rate, float inv_keep,
-                uint32_t seed, int nc) {
+                const uint32_t* __restrict__ seed_p, int nc) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   constexpr int D = 64;
   constexpr bool kLo = sizeof(T) == 4;
   constexpr int NT = D / 8;
@@ -922,7 +944,11 @@ dq_wg_kernel(const __grid_constant__ BwdMaps maps, int q_blhd, int kv_blhd,
              const float* __restrict__ lse, float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
              Strides sq_, float sm_scale, int causal, int row_off,
-             int col_off, float rate, float inv_keep, uint32_t seed) {
+             int col_off, float rate, float inv_keep,
+             const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   using T = __nv_bfloat16;
   constexpr int NS = kBwdStages;
   constexpr uint32_t kTileDesc = kBwdTileBytes >> 4;  // desc units
@@ -1119,7 +1145,11 @@ dkv_wg_kernel(const __grid_constant__ BwdMaps maps, int q_blhd, int kv_blhd,
               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
               __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk,
               Strides sk_, float sm_scale, int causal, int row_off,
-              int col_off, float rate, float inv_keep, uint32_t seed) {
+              int col_off, float rate, float inv_keep,
+              const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   using T = __nv_bfloat16;
   constexpr int NS = kBwdStages;
   constexpr uint32_t kTileDesc = kBwdTileBytes >> 4;
@@ -1278,7 +1308,7 @@ struct BwdArgs {
   float sm_scale;
   int causal, row_off, col_off;
   float rate, inv_keep;
-  uint32_t seed;
+  const uint32_t* seed;
 };
 
 // dynamic shared memory past 48 KB, and the carveout that lets two
@@ -1438,7 +1468,7 @@ int run(bool dkv, const void* q, const void* k, const void* v,
         long long q_sb, long long q_sh, long long q_sl, long long k_sb,
         long long k_sh, long long k_sl, float sm_scale, int causal,
         int row_off, int col_off, float rate, float inv_keep,
-        unsigned int seed, int dtype, void* stream) {
+        const unsigned int* seed, int dtype, void* stream) {
   const BwdArgs a{q,  k,     v,        out,    dout,    lse,  delta,
                   dq, dk,    dv,       B,      H,       Lq,
                   Lk, {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl},
@@ -1466,7 +1496,8 @@ size_t flash_attention_dkv_smem_bytes(int D) {
 }
 
 // dq of the bias-free flash attention.  dtype: 0 fp32, 1 bf16; strides
-// in elements; dq has q's strides.  delta is fp32 [B, H, Lq]: the bf16
+// in elements; dq has q's strides.  seed points at the uint32 dropout
+// seed on the card, read when rate > 0 (null otherwise).  delta is fp32 [B, H, Lq]: the bf16
 // D = 64 kernel writes rowsum(out * dout) there for the dk/dv kernel,
 // the others leave it as it is.  Every tensor's base must be 16-byte
 // aligned and its rows (D elements) contiguous: tiles are copied in
@@ -1478,7 +1509,7 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
                        int D, long long q_sb, long long q_sh, long long q_sl,
                        long long k_sb, long long k_sh, long long k_sl,
                        float sm_scale, int causal, int row_off, int col_off,
-                       float rate, float inv_keep, unsigned int seed,
+                       float rate, float inv_keep, const unsigned int* seed,
                        int dtype, void* stream) {
   return flash::run(false, q, k, v, out, dout, lse, delta, dq, nullptr,
                     nullptr, B, H, Lq, Lk, D, q_sb, q_sh, q_sl, k_sb, k_sh,
@@ -1496,7 +1527,7 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
                         long long q_sh, long long q_sl, long long k_sb,
                         long long k_sh, long long k_sl, float sm_scale,
                         int causal, int row_off, int col_off, float rate,
-                        float inv_keep, unsigned int seed, int dtype,
+                        float inv_keep, const unsigned int* seed, int dtype,
                         void* stream) {
   return flash::run(true, q, k, v, out, dout, lse, delta, nullptr, dk, dv,
                     B, H, Lq, Lk, D, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,

@@ -26,8 +26,9 @@
 // Three kernels:
 //   * fp32, and bf16 at D = 8 and above 64: `fwd_kernel` and
 //     `fwd_wide_kernel`, products as 3xTF32 mma.sync (an operand read from
-//     bf16 is exact in TF32 and skips its correction product; p stays
-//     fp32 into p.v, split in two TF32 parts);
+//     bf16 is exact in TF32 and skips its correction product; in fp32 p
+//     goes into p.v split in two TF32 parts, in bf16 rounded to bf16 as
+//     in the other bf16 kernels, which TF32 holds exactly);
 //   * bf16 at D = 64, the Transformer's: `fwd_wg_kernel`, warpgroup
 //     products (wgmma) on tiles that TMA copies in;
 //   * bf16 at D = 16 and 32: `fwd_bf16_kernel`, bf16 mma.sync.m16n8k16.
@@ -138,7 +139,7 @@ struct FwdArgs {
   float sm_scale;
   int causal, row_off, col_off;
   float rate, inv_keep;
-  uint32_t seed;
+  const uint32_t* seed;
 };
 
 // one key tile's softmax step and p.v, shared by fwd_kernel and
@@ -184,7 +185,8 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BK / 8][4],
     l[i] *= alpha[i];
   }
 
-  // p = exp(s - m) into l; p * keep in place of s
+  // p = exp(s - m) into l; p * keep in place of s, rounded to bf16 for
+  // bf16 inputs (the reference's `pd.astype(v.dtype)`)
 #pragma unroll
   for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -192,11 +194,12 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BK / 8][4],
       const int i = e >> 1;
       const float p = expf(s[j][e] - m[i]);
       l[i] += p;
-      s[j][e] = kDrop ? p * keep_of(c.seed, c.bh,
-                                    c.row_off + q0 + wr + g + 8 * i,
-                                    c.col_off + k0 + j * 8 + 2 * t + (e & 1),
-                                    c.thr, c.inv_keep)
-                      : p;
+      const float pd =
+          kDrop ? p * keep_of(c.seed, c.bh, c.row_off + q0 + wr + g + 8 * i,
+                              c.col_off + k0 + j * 8 + 2 * t + (e & 1),
+                              c.thr, c.inv_keep)
+                : p;
+      s[j][e] = kLo ? pd : rn_bf16(pd);
     }
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -210,7 +213,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BK / 8][4],
   for (int j0 = 0; j0 < NK; j0 += kPart) {
     FragA ap[kPart];
 #pragma unroll
-    for (int jj = 0; jj < kPart; ++jj) c_to_a(ap[jj], s[j0 + jj]);
+    for (int jj = 0; jj < kPart; ++jj) c_to_a<kLo>(ap[jj], s[j0 + jj]);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -218,7 +221,7 @@ __device__ __forceinline__ void softmax_pv(float (&s)[BK / 8][4],
       for (int jj = 0; jj < kPart; ++jj) {
         FragB bv;
         load_b_cols<D, kLo>(bv, cV, (j0 + jj) * 8 + 2 * t, n * 8 + g);
-        mma3<true, kLo>(part, ap[jj], bv);
+        mma3<kLo, kLo>(part, ap[jj], bv);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
@@ -233,7 +236,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
            int Lk, Strides sq_, Strides sk_, int bias_b, int bias_h,
            float sm_scale, int causal, int row_off, int col_off,
-           float rate, float inv_keep, uint32_t seed) {
+           float rate, float inv_keep, const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   constexpr bool kLo = sizeof(T) == 4;   // fp32 inputs carry a low part
   constexpr int NT = D / 8;              // 8-column steps over D
   constexpr int NK = BK / 8;             // 8-column steps over a key tile
@@ -510,7 +516,11 @@ fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                 int H, int Lq, int Lk, Strides sq_, Strides sk_, int bias_b,
                 int bias_h, float sm_scale, int causal, int row_off,
-                int col_off, float rate, float inv_keep, uint32_t seed) {
+                int col_off, float rate, float inv_keep,
+                const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   using T = __nv_bfloat16;
   constexpr int KS = D / 16;             // 16-deep steps of q.k^T over D
   constexpr int NK = BK / 8;             // 8-key steps of s
@@ -717,7 +727,10 @@ fwd_wg_kernel(const __grid_constant__ WgMaps maps, int q_blhd, int kv_blhd,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H,
               int Lq, int Lk, Strides sq_, int bias_b, int bias_h,
               float sm_scale, int causal, int row_off, int col_off,
-              float rate, float inv_keep, uint32_t seed) {
+              float rate, float inv_keep, const uint32_t* __restrict__ seed_p) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   using T = __nv_bfloat16;
   constexpr int D = 64, BQw = kWgRows, BKw = kWgKeys, NK = BKw / 8;
   constexpr int NS = kWgStages;
@@ -948,7 +961,11 @@ fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
                 int Lk, Strides sq_, Strides sk_, int bias_b, int bias_h,
                 float sm_scale, int causal, int row_off, int col_off,
-                float rate, float inv_keep, uint32_t seed, int nc) {
+                float rate, float inv_keep,
+                const uint32_t* __restrict__ seed_p, int nc) {
+  // the seed is read where it lies: a captured launch sees its value
+  // at every replay
+  const uint32_t seed = kDrop ? *seed_p : 0u;
   constexpr int D = 64;                  // the chunk width
   constexpr bool kLo = sizeof(T) == 4;
   constexpr int NT = D / 8;
@@ -1130,7 +1147,10 @@ size_t flash_attention_fwd_smem_bytes(int D) {
 }
 
 // dtype: 0 fp32, 1 bf16.  bias may be null; bias_b / bias_h are its
-// leading extents (1 or B, 1 or H).  Strides are in elements.  q, k and
+// leading extents (1 or B, 1 or H).  seed points at the uint32 dropout
+// seed on the card, read by the kernel when rate > 0 (null otherwise),
+// so a CUDA graph that captured the launch reads it anew at each
+// replay.  Strides are in elements.  q, k and
 // v must start on a 16-byte boundary with their rows (D elements)
 // contiguous: tiles are copied in 16-byte pieces.  Returns the CUDA
 // error of the launch (0 on success).
@@ -1141,7 +1161,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         long long k_sh, long long k_sl, int bias_b,
                         int bias_h, float sm_scale, int causal, int row_off,
                         int col_off, float rate, float inv_keep,
-                        unsigned int seed, int dtype, void* stream) {
+                        const unsigned int* seed, int dtype, void* stream) {
   const flash::FwdArgs a{q,        k,      v,       bias,    out,
                          lse,      B,      H,       Lq,      Lk,
                          {q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl},

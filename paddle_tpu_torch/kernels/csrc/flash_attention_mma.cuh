@@ -146,12 +146,21 @@ __device__ __forceinline__ void load_a(FragA& f, const T* s, int r, int c) {
   split<kLo>(y.y, f.hi[3], f.lo[3]);
 }
 
-// A fragment from a C fragment over the same 8 columns
+// A fragment from a C fragment over the same 8 columns; with kLo false
+// the values are already exact in TF32 (rounded to bf16) and carry no
+// low part
+template <bool kLo = true>
 __device__ __forceinline__ void c_to_a(FragA& f, const float (&c)[4]) {
-  split<true>(c[0], f.hi[0], f.lo[0]);
-  split<true>(c[2], f.hi[1], f.lo[1]);
-  split<true>(c[1], f.hi[2], f.lo[2]);
-  split<true>(c[3], f.hi[3], f.lo[3]);
+  split<kLo>(c[0], f.hi[0], f.lo[0]);
+  split<kLo>(c[2], f.hi[1], f.lo[1]);
+  split<kLo>(c[1], f.hi[2], f.lo[2]);
+  split<kLo>(c[3], f.hi[3], f.lo[3]);
+}
+
+// x rounded to the nearest bf16 (ties to even), as a float: what the
+// reference's `astype(bfloat16)` does to p and ds before their products
+__device__ __forceinline__ float rn_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // B fragment whose n index is the tile's row: B[k][n] = tile[n][k];

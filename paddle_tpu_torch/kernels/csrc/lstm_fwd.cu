@@ -440,10 +440,21 @@ int launch(const Params& p, cudaStream_t st) {
   if (e != cudaSuccess) return (int)e;
   if ((long long)per_sm * sms < p.pl.grid)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  Params q = p;
-  void* args[] = {&q};
-  e = cudaLaunchCooperativeKernel(fn, dim3(p.pl.grid), dim3(kThreads), args,
-                                  (size_t)p.pl.smem, st);
+  // a cooperative launch (every block resident at once, which the
+  // per-group barriers need) through the launch attribute: stream
+  // capture records it as a kernel node that keeps the attribute, so a
+  // CUDA graph of the training step replays it cooperatively
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.pl.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)p.pl.smem;
+  cfg.stream = st;
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<NTW, WS>, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

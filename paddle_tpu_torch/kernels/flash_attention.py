@@ -237,6 +237,7 @@ def _ragged_cuda(q, pool, page_table, lengths, q_base, layer, n_layer,
 def ragged_decode_attention(q, pool, page_table, lengths, q_base=None, *,
                             layer: int, n_layer: int, causal: bool = True,
                             sm_scale: Optional[float] = None,
+                            impl: Optional[str] = None,
                             scales=None) -> torch.Tensor:
     """Attention of per-lane query blocks against a paged KV pool.
 
@@ -252,7 +253,9 @@ def ragged_decode_attention(q, pool, page_table, lengths, q_base=None, *,
 
     Returns ctx [B, C, H, D].  CUDA tensors go through the CUDA kernel
     (counted in ``ragged_decode_attention.launches``); CPU tensors
-    through ``ragged_attention_plain``."""
+    through ``ragged_attention_plain``.  ``impl`` (the reference's
+    pallas / xla switch) must be None: the device picks the route."""
+    _check_impl("ragged_decode_attention", impl)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if causal and q_base is None:
@@ -273,6 +276,16 @@ def ragged_decode_attention(q, pool, page_table, lengths, q_base=None, *,
 
 ragged_decode_attention.launches = 0     # kernel launches, CUDA path only
 ragged_decode_attention.last_plan = None  # (pages_per_split, splits)
+
+
+def _check_impl(fn: str, impl) -> None:
+    """The reference's ``impl`` picks its TPU kernel or XLA; here the
+    tensors' device picks the route, so only None is honoured."""
+    if impl is not None:
+        raise NotImplementedError(
+            f"{fn}: impl={impl!r} (the reference's pallas / xla switch) is "
+            f"not ported; CUDA tensors run the CUDA kernel and CPU tensors "
+            f"the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -302,22 +315,24 @@ def _mul_u32(x, c: int):
     return (((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c) & _U32
 
 
-def keep_scale(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+def keep_scale(seed_u32, bh, rows, cols, rate: float) -> torch.Tensor:
     """Counter-based dropout mask of the reference (``keep_scale`` of
     paddle_tpu/kernels/flash_attention.py), bit for bit: a murmur3-style
     finalizer over the global (batch*head, row, col) position and a
     uint32 seed.  The reference's uint32 arithmetic wraps modulo 2^32;
     here it runs in int64 masked to 32 bits after every multiply and
     xor.  Inputs broadcast (at least one is a tensor); returns float32
-    values in {0, 1/(1-rate)}.  Python ints stay Python ints: a scalar
-    made into a device tensor would cost a host-device copy, and with it
-    a stream synchronisation, per call."""
+    values in {0, 1/(1-rate)}.  ``seed_u32`` is an int or a 0-d integer
+    tensor holding the seed's 32 bits (an int32 seed buffer's entry
+    reads back as its uint32 value).  Python ints stay Python ints: a
+    scalar made into a device tensor would cost a host-device copy, and
+    with it a stream synchronisation, per call."""
 
     def u32(t):
         return (t.to(torch.int64) if isinstance(t, torch.Tensor)
                 else int(t)) & _U32
 
-    rows, cols, bh, seed = u32(rows), u32(cols), u32(bh), u32(seed)
+    rows, cols, bh, seed = u32(rows), u32(cols), u32(bh), u32(seed_u32)
     x = (_mul_u32(rows, 0x9E3779B1) + _mul_u32(cols, 0x85EBCA77)) & _U32
     x = x ^ _mul_u32(bh, 0xC2B2AE3D) ^ seed
     x = x ^ (x >> 16)
@@ -372,11 +387,13 @@ def _flash_args(q, sm_scale, dropout_rate, dropout_seed, layout,
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     rate = float(dropout_rate)
-    seed = 0
+    seed = None
     if rate > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed")
-        seed = int(dropout_seed) & _U32
+        # an int, or a 0-d integer tensor read where it lies (no sync)
+        seed = (dropout_seed if isinstance(dropout_seed, torch.Tensor)
+                else int(dropout_seed) & _U32)
     offsets = (0, 0) if block_offsets is None else (
         int(block_offsets[0]), int(block_offsets[1]))
     return float(sm_scale), rate, seed, offsets
@@ -460,7 +477,7 @@ def _flash_entry(name: str):
     if name == "fwd":
         head += [ctypes.c_int] * 2             # bias extents
     fn.argtypes = head + [ctypes.c_float] + [ctypes.c_int] * 3 + [
-        ctypes.c_float] * 2 + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     smem = getattr(lib, f"flash_attention_{name}_smem_bytes")
     smem.argtypes = [ctypes.c_int]
@@ -530,6 +547,38 @@ def _flash_geometry(q, k, v, layout, extra=()):
     return (b, h, lq, lk, d), strides(lq) + strides(lk)
 
 
+_SEEDS: dict = {}          # (device, uint32 seed) -> its int32 tensor
+
+
+def _device_seed(seed, device) -> Optional[torch.Tensor]:
+    """The seed as the 0-d int32 tensor on ``device`` whose address the
+    kernels read it from (None without dropout).  A tensor seed (the
+    executor's seed buffer) is used where it lies; an int becomes a
+    tensor filled by a kernel (no host copy, so no sync) and kept for the
+    next call with that int; inside a CUDA graph capture a new one's
+    fill is recorded with the call and not kept."""
+    if seed is None:
+        return None
+    if isinstance(seed, torch.Tensor):
+        _fcheck(seed.numel() == 1 and seed.device == device
+                and not seed.is_floating_point(), f"dropout seed must be "
+                f"one integer on {device}, got {seed.dtype} "
+                f"{tuple(seed.shape)} on {seed.device}")
+        return seed.reshape(()) if seed.dtype == torch.int32 \
+            else seed.reshape(()).to(torch.int32)
+    bits = seed - (1 << 32) if seed >= 1 << 31 else seed
+    key = (device, seed)
+    t = _SEEDS.get(key)
+    if t is None and torch.cuda.is_current_stream_capturing():
+        return torch.full((), bits, dtype=torch.int32, device=device)
+    if t is None:
+        if len(_SEEDS) >= 64:
+            _SEEDS.clear()
+        t = _SEEDS[key] = torch.full((), bits, dtype=torch.int32,
+                                     device=device)
+    return t
+
+
 def _check_aligned(named) -> None:
     for name, t in named:
         _fcheck(t.data_ptr() % 16 == 0, f"{name} must start on a 16-byte "
@@ -580,18 +629,23 @@ def _flash_fwd_cuda(q, k, v, bias, causal, sm_scale, rate, seed, layout,
         # empty k or v
         return out.zero_(), lse.fill_(float("inf"))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    seed_t = _device_seed(seed, q.device) if rate > 0.0 else None
     _flash_launch("fwd", d, q.dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   lse.data_ptr(), b, h, lq, lk, d, *strides, bias_b, bias_h,
                   sm_scale, int(causal), offsets[0], offsets[1], rate,
-                  1.0 / (1.0 - rate), seed, _FLASH_DTYPES[q.dtype], stream)
+                  1.0 / (1.0 - rate),
+                  None if seed_t is None else seed_t.data_ptr(),
+                  _FLASH_DTYPES[q.dtype], stream)
     return out, lse
 
 
 def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
                      seed, layout, offsets):
     """Validate the backward's inputs -> (D, the C arguments the dq and
-    dk/dv entries share after their pointers, the input pointers)."""
+    dk/dv entries share after their pointers, the input pointers).  The
+    seed goes as the address of an int32 on the card (``_device_seed``;
+    an int seed's tensor stays in ``_SEEDS`` past the launch)."""
     (b, h, lq, lk, d), strides = _flash_geometry(q, k, v, layout,
                                                  (out, dout, lse))
     _fcheck(out.shape == q.shape and dout.shape == q.shape
@@ -602,8 +656,10 @@ def _flash_bwd_setup(q, k, v, out, dout, lse, causal, sm_scale, rate,
     _fcheck(b * h * lq * lk > 0, "empty attention")
     _check_aligned((("out", out), ("dout", dout)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    seed_t = _device_seed(seed, q.device) if rate > 0.0 else None
     common = (b, h, lq, lk, d, *strides, sm_scale, int(causal), offsets[0],
-              offsets[1], rate, 1.0 / (1.0 - rate), seed,
+              offsets[1], rate, 1.0 / (1.0 - rate),
+              None if seed_t is None else seed_t.data_ptr(),
               _FLASH_DTYPES[q.dtype], stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            dout.data_ptr(), lse.data_ptr())
@@ -691,6 +747,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
                     causal: bool = False, sm_scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    impl: Optional[str] = None,
                     dropout_rate: float = 0.0, dropout_seed=None,
                     layout: str = "bhld",
                     block_offsets=None) -> torch.Tensor:
@@ -698,7 +757,12 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
     k/v [B, H, Lk, D]; layout='blhd': q [B, Lq, H, D] etc.  Optional
     additive bias [B|1, H|1, Lq, Lk].  ``dropout_rate`` > 0 drops
     attention probabilities with the hash mask keyed on
-    ``dropout_seed`` (a uint32); same seed, same mask.
+    ``dropout_seed`` (a uint32 int, or a 0-d integer tensor holding its
+    bits on q's device, which the kernels read on the card: a CUDA graph
+    replays such a call with the tensor's value at replay); same seed,
+    same mask.  ``block_q`` / ``block_k`` (the reference's Pallas tile
+    sizes) are accepted and ignored: the CUDA kernels' tiles are their
+    own constants.  ``impl`` must be None (the device picks the route).
     ``block_offsets=(row_off, col_off)`` place q and k/v at global
     positions for the causal mask and the hash.  Rows with no live key
     return 0.
@@ -707,6 +771,7 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
     in the bias-free backward (counted in ``flash_attention.launches``);
     CPU tensors run the plain versions.  On ``meta`` tensors (build-time
     shape inference) it returns an empty output and launches nothing."""
+    _check_impl("flash_attention", impl)
     if bias is not None and bias.dim() != 4:
         raise ValueError(f"bias must be 4-d, got {tuple(bias.shape)}")
     sm_scale, rate, seed, offsets = _flash_args(

@@ -3,25 +3,33 @@
 
     python3 profile_training.py [--model transformer|lstm] [--amp]
                                 [--batch N] [--steps 3] [--out FILE]
+                                [--package-root DIR]
 
 Builds a training program ``chip_smoke.py`` trains: ``transformer``
 (default; Transformer-base, L=256, bench.py's recipe, batch 64, in
 float32 or, with ``--amp``, in its bf16 recipe ``amp_dtype="bfloat16"``)
 or ``lstm`` (the RNN benchmark model, hidden 512, T=100, Adam 2e-3,
-batch 128, the same ragged batch), runs two warm-up steps, five steps
+batch 128, the same ragged batch), runs two warm-up steps (the first
+runs eagerly and is captured in a CUDA graph: its wall ms is
+``first_step_ms``; every later step replays the graph), five steps
 timed without the profiler (their median wall ms), then ``--steps``
-steps under ``torch.profiler`` (while a profiler runs, the
-executor labels each Fluid op's work with its type).  Prints one JSON
-line: wall ms per step, device-busy ms per step (the sum of kernel
+steps under ``torch.profiler``.  Prints one JSON line: the card, the
+first step's ms, peak memory, the executor's hits, the captured graph
+(nodes, kernel nodes, graph launches a step), wall ms per step,
+device-busy ms per step (the sum of kernel
 times; the step runs on one stream, so kernels do not overlap), the
 device's idle share, device ms per step by kernel family (the flash
 and LSTM kernels, matrix products, elementwise, reductions, the rest), kernel
 launches and host synchronisations per step, and per Fluid op type the
-host ms per step (time on the calling thread) and the device span its
-kernels cover (a grad op's backward kernels run on the autograd
-engine's thread, so they are counted by family, not by op).  With
-``--out``, the full tables go to that file.  Needs one CUDA card;
-imports no JAX.
+host ms per step and the device span its kernels cover (the executor
+labels each op's work with its type while a profiler runs, which only
+an eager step does: a replayed step has no per-op host time).  With
+``--out``, the full tables go to that file.  A host sync counts when a
+step makes it (a synchronize call inside a step's profiler range).
+``--package-root DIR`` profiles the ``paddle_tpu_torch`` of another
+checkout (a ``git archive`` of an earlier commit) with this script's
+programs and counts; where that package's executor has no cache or
+graph, those fields are null.  Needs one CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 UNPROFILED_STEPS = 5
+# the runtime calls that make the host wait for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
@@ -45,6 +56,9 @@ FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
             ("elementwise", ("elementwise", "vectorized", "unrolled")),
             ("reduce", ("reduce", "Reduce", "softmax", "norm")),
             ("index", ("index", "gather", "scatter")))
+
+
+STEP = "profile_training/step"
 
 
 def family(name: str) -> str:
@@ -75,6 +89,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="file for the kernel and op tables")
+    ap.add_argument("--package-root", metavar="DIR", default=None,
+                    help="profile the paddle_tpu_torch package under DIR")
     args = ap.parse_args()
 
     import torch
@@ -86,6 +102,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
+    if args.package_root:       # its package, this script's programs
+        sys.path.insert(0, os.path.abspath(args.package_root))
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models.transformer import transformer
 
@@ -105,8 +123,12 @@ def main() -> int:
     exe = fluid.Executor(place)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    for _ in range(2):
-        exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
     # the same steps without the profiler: the fetched loss comes back as
     # a numpy array, so each step has ended when its clock stops
     plain = []
@@ -120,8 +142,11 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            exe.run(main_prog, feed=feed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
+            # the fetched loss comes back as a numpy array: the step, and
+            # the card's work for it, has ended when its run returns
+            with torch.profiler.record_function(STEP):
+                exe.run(main_prog, feed=feed, fetch_list=[loss],
+                        scope=scope)
         wall = time.perf_counter() - t0
     op_types = {op.type for op in main_prog.global_block().ops}
 
@@ -130,7 +155,7 @@ def main() -> int:
     kernels = []
     for evt in prof.key_averages():
         us = _dev_us(evt)
-        if evt.key in op_types:
+        if evt.key in op_types or evt.key == STEP:
             continue
         if us > 0 and getattr(evt, "device_type", None) is not None \
                 and "CUDA" in str(evt.device_type):
@@ -148,17 +173,26 @@ def main() -> int:
                 / args.steps
         else:
             by_op[evt.name] += evt.cpu_time_total / 1e3 / args.steps
-    # host waits for the card: each one drains the stream, so the host
-    # cannot queue work ahead of it
-    syncs = sum(evt.count for evt in prof.key_averages()
-                if evt.key in ("cudaStreamSynchronize",
-                               "cudaDeviceSynchronize"))
+    # host waits for the card inside the steps: each one drains the
+    # stream, so the host cannot queue work ahead of it
+    spans = [e.time_range for e in prof.events() if e.name == STEP]
+    syncs = sum(1 for e in prof.events() if e.name in SYNC_CALLS
+                and any(r.start <= e.time_range.start <= r.end
+                        for r in spans))
+    graph_launches = sum(evt.count for evt in prof.key_averages()
+                         if evt.key == "cudaGraphLaunch")
     busy = sum(by_family.values()) / 1e3 / args.steps
     step_ms = wall / args.steps * 1e3
     rec = {"card": card, "model": args.model,
            "amp_dtype": cs.AMP if args.amp and args.model == "transformer"
            else None, "batch": batch, "seq": seq,
-           "steps": args.steps, "wall_ms_per_step": step_ms,
+           "steps": args.steps, "first_step_ms": first_ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "executable": (exe.cache_stats()["executable"]
+                          if hasattr(exe, "cache_stats") else None),
+           "graph": cs.step_graph(exe) if hasattr(exe, "graphs") else None,
+           "graph_launches_per_step": graph_launches / args.steps,
+           "wall_ms_per_step": step_ms,
            "unprofiled_step_ms_median":
                sorted(plain)[len(plain) // 2] * 1e3,
            "device_busy_ms_per_step": busy,

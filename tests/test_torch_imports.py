@@ -6,8 +6,14 @@
 * Without CUDA, an entry point raises unless the caller asks for the
   CPU by name (``device="cpu"``, ``fluid.CPUPlace()``); ``chip_smoke.py`` exits non-zero and prints no result,
   also when it sits in a directory without the rest of the repo.
+* Every public function (and method) defined in a file that both
+  packages have takes the reference's parameter names, in its order,
+  less the explicit list ``NOT_TAKEN``; the parameters the port cannot
+  honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
+  two files, so no module is imported for it).
 """
 
+import ast
 import os
 import shutil
 import subprocess
@@ -121,3 +127,117 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     out = _run(["chip_smoke.py"], cwd=cwd, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# reference parameters a port function does not take, by (file under the
+# package, function): the port's own internals (emitter contexts, the
+# lowering, plain cache writers that are not op emitters) and the decode
+# caches and serving tiers the port has not taken on yet
+NOT_TAKEN = {
+    ("fluid/core/registry.py", "EmitCtx.__init__"): {"rng", "lower_block"},
+    ("fluid/core/registry.py", "OpInfo.__init__"): {"grad_maker",
+                                                     "needs_out_slots"},
+    ("fluid/lowering.py", "run_block_ops"): {"desc", "block_idx",
+                                             "step_key"},
+    ("fluid/ops/cache_ops.py", "paged_cache_write"): {"ctx"},
+    ("fluid/ops/cache_ops.py", "quantized_paged_cache_write"): {"ctx"},
+    ("models/transformer.py", "multi_head_attention"): {
+        "cache", "static_kv", "paged_cache", "paged_static"},
+    ("models/transformer.py", "encoder_layer"): {"paged_cache"},
+    ("models/transformer.py", "encoder"): {"paged_caches"},
+    ("models/transformer.py", "decoder_layer"): {
+        "cache", "cross_kv", "paged_cache", "paged_cross"},
+    ("models/transformer.py", "decoder"): {
+        "caches", "cross_kvs", "paged_caches", "paged_crosses"},
+    ("serving/paged_decoder.py", "PagedTransformerGenerator.__init__"): {
+        "scope", "executor", "place"},
+    ("serving/paging.py", "PageAllocator.__init__"): {"host_pages"},
+}
+
+
+def _public_params(path):
+    """{function or Class.method: [parameter names]} of a file's public
+    top-level functions and public classes' public methods and
+    ``__init__``."""
+    out = {}
+    for node in ast.parse(open(path).read()).body:
+        defs = [(node.name, node)] if isinstance(node, ast.FunctionDef) \
+            else []
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            defs = [(f"{node.name}.{m.name}", m) for m in node.body
+                    if isinstance(m, ast.FunctionDef)
+                    and (not m.name.startswith("_") or m.name == "__init__")]
+        for name, fn in defs:
+            if name.startswith("_"):
+                continue
+            a = fn.args
+            out[name] = [x.arg for x in a.posonlyargs + a.args
+                         + a.kwonlyargs] + (["**"] if a.kwarg else [])
+    return out
+
+
+def test_public_signatures_keep_the_reference_parameter_names():
+    port_dir = os.path.join(ROOT, "paddle_tpu_torch")
+    missing, shared = {}, 0
+    for here, _, files in os.walk(port_dir):
+        for f in files:
+            rel = os.path.relpath(os.path.join(here, f), port_dir)
+            ref = os.path.join(ROOT, "paddle_tpu", rel)
+            if not f.endswith(".py") or not os.path.exists(ref):
+                continue
+            want, got = _public_params(ref), _public_params(
+                os.path.join(port_dir, rel))
+            for name in sorted(set(want) & set(got)):
+                shared += 1
+                skip = NOT_TAKEN.get((rel, name), set())
+                names = [n for n in want[name] if n not in skip]
+                if "**" in got[name]:
+                    # a port function with **kwargs takes the other names
+                    # there: it passes them on, or refuses them with
+                    # NotImplementedError (Executor.run's validate and
+                    # guard, cost_analysis); its named ones keep the order
+                    names = [n for n in names if n in got[name]]
+                if [n for n in got[name] if n in names] != names:
+                    missing[(rel, name)] = (want[name], got[name])
+                if skip & set(got[name]) or not skip <= set(want[name]):
+                    missing[(rel, name)] = ("stale NOT_TAKEN", sorted(skip))
+    assert shared >= 100
+    assert not missing, missing
+
+
+def test_reference_only_parameters_are_taken_or_refused():
+    """What the reference's parameters do in the port: ``fc``'s
+    ``use_mkldnn`` and ``flash_attention``'s ``block_q`` / ``block_k``
+    are accepted and change nothing, ``keep_scale`` takes ``seed_u32``
+    by name, and an ``impl`` other than None, ``append_backward``'s
+    ``callbacks`` and ``Executor``'s ``compile_cache`` raise."""
+    from paddle_tpu_torch.fluid.backward import append_backward
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 8, 8, generator=g) for _ in range(3))
+    want = fa.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True, block_q=16, block_k=32)
+    assert torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="impl"):
+        fa.flash_attention(q, k, v, impl="pallas")
+    pool = torch.zeros(2, 4, 4, 8)
+    with pytest.raises(NotImplementedError, match="impl"):
+        fa.ragged_decode_attention(
+            torch.zeros(1, 1, 2, 8), pool, torch.zeros(1, 1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+            layer=0, n_layer=1, impl="xla")
+    rows = torch.arange(4)[:, None]
+    assert torch.equal(fa.keep_scale(seed_u32=3, bh=0, rows=rows,
+                                     cols=rows.T, rate=0.5),
+                       fa.keep_scale(3, 0, rows, rows.T, 0.5))
+    with pytest.raises(NotImplementedError, match="compile_cache"):
+        fluid.Executor(fluid.CPUPlace(), compile_cache=object())
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [4], "float32")
+        h = fluid.layers.fc(x, size=3, use_mkldnn=True)
+        loss = fluid.layers.mean(h)
+        with pytest.raises(NotImplementedError, match="callbacks"):
+            append_backward(loss, callbacks=[lambda block, op: None])
+    assert h.shape[-1] == 3

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py [--parent-ragged DIR] [--parent-flash DIR]
+                          [--parent-package DIR]
 
 Runs from the root of a checkout and needs one CUDA card; it imports
 ``paddle_tpu_torch`` and never JAX or ``paddle_tpu``.  Phases:
@@ -39,9 +40,25 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    no keys (every row dead);
 5. serve 8 seeded requests (prompts of 64-256 tokens, 32 new tokens)
    through ``ContinuousBatchingScheduler`` over a Transformer-base
-   ``PagedTransformerGenerator`` once per pool dtype (18 ragged-kernel
-   launches per step), and replay them teacher-forced on the card and
-   on the CPU (``device="cpu"``, plain path) with the same weights;
+   ``PagedTransformerGenerator`` once per pool dtype: the generator runs
+   its Fluid program (``build_unified_program``) through
+   ``fluid.Executor``, ``aot_warm(8)`` captures the step in a CUDA graph
+   (the executor's one miss) and every step of the run replays it (a hit
+   a step, none missed); 18 ragged-kernel launches a step, and the
+   captured graph's kernel nodes name 18 split and 18 merge kernels;
+   one step over fresh prompts, some lanes prefilling and some
+   decoding, replayed against the same step run eagerly
+   (``run_block_ops``) on a clone of the pool: next ids equal and the
+   pool bitwise off the trash page; step ms, tokens/s, TTFT p50; the
+   pool held once (every cached step's buffer is the scope's pool, and
+   serving's peak over the resident weights and pool grows by less than
+   the pool's bytes at float32, and over float32's growth at the
+   others) and, with ``--parent-package DIR``, ``profile_serving.py``
+   on the parent's package and this one in turns, each in a process of
+   its own (every run serves every request in the same steps, and this
+   one's median peak exceeds the parent's by less than the pool's
+   bytes); then replay the requests teacher-forced on the card and on
+   the CPU (``place=CPUPlace()``, plain path) with the same weights;
 6. train: build ``transformer()`` at Transformer-base width through
    ``fluid.layers`` with ``Adam(1e-4).minimize``; run 3 steps at batch 2
    on the card (``Executor.run`` captures step 1 in a CUDA graph, steps
@@ -56,7 +73,8 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    and dk/dv kernels once; 19 executable hits, the captured graph's
    kernel nodes naming 18 of each), with a falling loss;
 7. serve 4 requests with the trained scope, loaded by name into a
-   ``PagedTransformerGenerator`` (``param_prefix="tf"``);
+   ``PagedTransformerGenerator`` (``param_prefix="tf"``), every step a
+   replay;
 8. train the same Transformer in bench.py's own bf16 recipe
    (``amp_dtype="bfloat16"``: bf16 activations, f32 master weights; the
    same startup program and dropout salts): step 3 at batch 2 as in 6,
@@ -135,6 +153,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -509,7 +528,9 @@ FAMILY_OF = {"fwd_kernel": "fwd", "fwd_wide_kernel": "fwd",
              "fwd_bf16_kernel": "fwd", "fwd_wg_kernel": "fwd",
              "dq_kernel": "dq", "dq_wide_kernel": "dq", "dq_wg_kernel": "dq",
              "dkv_kernel": "dkv", "dkv_wide_kernel": "dkv",
-             "dkv_wg_kernel": "dkv", "lstm_fwd_kernel": "lstm_fwd"}
+             "dkv_wg_kernel": "dkv", "lstm_fwd_kernel": "lstm_fwd",
+             "ragged_split_kernel": "ragged_split",
+             "ragged_merge_kernel": "ragged_merge"}
 
 
 def source_name(mangled):
@@ -521,9 +542,10 @@ def source_name(mangled):
 
 
 def step_graph(exe):
-    """The one CUDA graph an executor captured for a training path's
-    step -> {nodes, kernel_nodes, and the kernel nodes of each of this
-    repo's kernel families}."""
+    """The one CUDA graph an executor captured for a path's step (a
+    training step, the serving step at one lane count) -> {nodes,
+    kernel_nodes, and the kernel nodes of each of this repo's kernel
+    families}."""
     graphs = exe.graphs()
     if len(graphs) != 1:
         return {"graphs": len(graphs)}
@@ -611,42 +633,55 @@ def run_ragged_extra(torch, fa, extra, failures):
 # -- phases 5 and 7: serving ------------------------------------------------
 
 def make_generator(device, kv_dtype):
+    """The serving configuration's generator on ``device`` ("cuda" or
+    "cpu"): its executor at ``fluid.CUDAPlace(0)`` or ``CPUPlace()``."""
+    from paddle_tpu_torch import fluid
     from paddle_tpu_torch.serving import PagedTransformerGenerator
-    return PagedTransformerGenerator(VOCAB, VOCAB, device=device,
-                                     kv_dtype=kv_dtype, **MODEL, **SERVE)
+    place = fluid.CUDAPlace(0) if device == "cuda" else fluid.CPUPlace()
+    return PagedTransformerGenerator(VOCAB, VOCAB, kv_dtype=kv_dtype,
+                                     place=place, **MODEL, **SERVE)
 
 
-def prompts(np):
-    rng = np.random.RandomState(SEED)
-    return [rng.randint(2, VOCAB, rng.randint(64, SERVE["src_len"] + 1))
-            for _ in range(N_REQUESTS)]
+def prompts(np, seed=SEED, lengths=None):
+    """N_REQUESTS seeded prompts, of 64 .. src_len tokens or of
+    ``lengths``."""
+    rng = np.random.RandomState(seed)
+    if lengths is None:
+        lengths = [rng.randint(64, SERVE["src_len"] + 1)
+                   for _ in range(N_REQUESTS)]
+    return [rng.randint(2, VOCAB, n) for n in lengths]
 
 
 def serve_once(torch, np, fa, gen, srcs, on_start=None):
     """The serving path: requests in through the scheduler's thread,
-    tokens out.  ``on_start()``, if given, runs after the warm-up step,
-    just before the run's clock starts.  Returns (run record, every
-    request finished)."""
+    tokens out.  The warm-up is ``aot_warm(N_SLOTS)``, the unified step's
+    capture at the serving width; ``on_start()``, if given, runs after
+    it, just before the run's clock starts.  The requests are queued
+    before the thread starts, so its first step admits them all and the
+    run's steps do not depend on thread timing.  Returns (run record,
+    every request finished); the record's ``executable_during_serve``
+    counts the executor's hits and misses between the warm-up and the
+    end."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler
 
-    gen.open_slots(N_SLOTS)
-    gen.lane_step()                 # warm-up: one all-idle step
+    gen.aot_warm(N_SLOTS)
     torch.cuda.synchronize()
     sched = ContinuousBatchingScheduler(gen, n_slots=N_SLOTS,
                                         max_new_tokens=MAX_NEW)
-    steps0 = gen.cache_stats()["steps"]
+    stats0 = gen.cache_stats()
     if on_start is not None:
         on_start()
     fa.ragged_decode_attention.launches = 0
     t0 = time.perf_counter()
-    sched.serve()
     reqs = [sched.submit(s, max_new_tokens=MAX_NEW) for s in srcs]
+    sched.serve()
     done = all(r.wait(timeout=600) for r in reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     sched.shutdown(timeout=30)
     launches = fa.ragged_decode_attention.launches
-    steps = gen.cache_stats()["steps"] - steps0
+    stats = gen.cache_stats()
+    steps = stats["steps"] - stats0["steps"]
     tokens = sum(len(r.tokens) for r in reqs)
     ttft = [r.first_token - r.submitted for r in reqs
             if r.first_token is not None]
@@ -658,8 +693,127 @@ def serve_once(torch, np, fa, gen, srcs, on_start=None):
            "launches_per_step": launches / max(1, steps),
            "decode_tok_per_s": tokens / wall,
            "ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else None,
-           "step_ms": wall / max(1, steps) * 1e3}
+           "step_ms": wall / max(1, steps) * 1e3,
+           "executable": stats["executable"],
+           "executable_during_serve": {
+               k: stats["executable"][k] - stats0["executable"][k]
+               for k in ("hits", "misses")}}
     return rec, done and rec["finished"] == len(reqs)
+
+
+def serving_replay_check(torch, gen, srcs, warm_steps=4):
+    """One mid-traffic unified step as a graph replay against the same
+    step run eagerly (``lowering.run_block_ops``) on a clone of the pool
+    (and int8 scales) before it, with the same feed: the next ids equal,
+    and the pool equal bitwise off the trash page.  Page 0's rows take
+    every dead lane's and dead chunk position's write in one scatter of
+    undefined order, and no lane reads them.  ``srcs`` are prompts the
+    prefix cache does not hold, of two lengths: ``warm_steps`` lane
+    steps after admitting them leave the short ones decoding and the
+    long ones prefilling, so the step runs both towers (the encoder and
+    cross-page writes, the chunked encoder attention and the decode
+    step); the record fails unless it saw both phases.  Returns the
+    record; the lanes are cleared after."""
+    from paddle_tpu_torch.fluid.lowering import (BlockPlan, run_block_ops,
+                                                 seed_tensor)
+
+    gen.open_slots(N_SLOTS)
+    for i, s in enumerate(srcs[:N_SLOTS]):
+        gen.admit_slot(i, s, max_new=MAX_NEW)
+    for _ in range(warm_steps):
+        gen.lane_step()
+    phases = [ln.phase for ln in gen._lanes]
+    prog, _, next_ids, _ = gen._unified
+    feed = gen.step_feed()
+    plan = BlockPlan(prog.desc.global_block(), list(feed), [next_ids.name])
+    pre = {n: gen.scope.find_var(n) for n in plan.state_in}
+    pre.update({n: pre[n].clone() for n in plan.state_out})
+    hits = gen.exe.cache_stats()["executable"]["hits"]
+    got, = gen._run(feed, [next_ids])
+    replayed = gen.exe.cache_stats()["executable"]["hits"] == hits + 1
+    ids = got.cpu()
+    dev = gen.exe.device
+    env = dict(pre)
+    env.update(device_feed(torch, feed, dev))
+    with torch.no_grad():
+        run_block_ops(plan, env, [], seed_tensor([]).to(dev), dev, "infer")
+    trash = 2 * MODEL["n_layer"]
+    state = {n: bool(torch.equal(env[n][:, trash:],
+                                 gen.scope.find_var(n)[:, trash:]))
+             for n in plan.state_out}
+    rec = {"replayed": replayed, "lane_phases": phases,
+           "ids_equal": bool(torch.equal(env[next_ids.name].cpu(), ids)),
+           "state_bitwise_off_page0": state}
+    rec["ok"] = (replayed and rec["ids_equal"] and all(state.values())
+                 and {"prefill", "decode"} <= set(phases))
+    gen.absorb_step(ids.numpy())
+    for slot in range(N_SLOTS):
+        gen.clear_slot(slot)
+    del pre, env
+    return rec
+
+
+def ragged_calls_per_step(fa, sms):
+    """(ragged calls, merge launches) of one unified step at the serving
+    width: per layer an encoder self-attention over the source table, a
+    decoder self-attention over the target table and a cross-attention
+    over the source table; a call merges where ``ragged_plan`` splits it."""
+    ps = SERVE["page_size"]
+    p_src = -(-SERVE["src_len"] // ps)
+    p_out = -(-SERVE["max_out_len"] // ps)
+    tables = [p_src, p_out, p_src] * MODEL["n_layer"]
+    merges = sum(fa.ragged_plan(N_SLOTS, MODEL["n_head"], p, sms)[1] > 1
+                 for p in tables)
+    return len(tables), merges
+
+
+def serving_peak_subprocess(package_root):
+    """``profile_serving.py`` (float32 pool) on ``package_root``'s
+    package in a process of its own -> its JSON line, or the error."""
+    cmd = [sys.executable, os.path.join(ROOT, "profile_serving.py")]
+    if package_root is not None:
+        cmd += ["--package-root", package_root]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    for line in reversed(out.stdout.splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    return {"error": out.returncode, "stderr": out.stderr[-2000:]}
+
+
+def pool_held_once(gen, pool):
+    """Whether the scope's pool (and int8 scales) is still the tensor of
+    ``pool`` at its address, and every cached step of the generator's
+    executor steps that tensor as its buffer."""
+    entries = list(gen.exe._cache.values())
+    return bool(entries) and all(
+        gen.scope.find_var(n) is t and t.data_ptr() == ptr
+        and all(e.state[n] is t for e in entries if n in e.state)
+        for n, (t, ptr) in pool.items())
+
+
+def in_turns_failures(peaks):
+    """The serving profiles run in turns on the parent's package and this
+    one: each served every request, all in the same steps, and this
+    one's median peak exceeds the parent's by less than the pool's
+    bytes (the pool is held once)."""
+    bad = [p for p in peaks if "error" in p
+           or p["finished"] < p["requests"]]
+    if bad:
+        return [f"profile_serving failed: {p}" for p in bad]
+    fails = []
+    steps = {(p["steps"], p["unprofiled"]["steps"]) for p in peaks}
+    if len(steps) != 1:
+        fails.append(f"profile_serving: (profiled, unprofiled) steps "
+                     f"differ between runs: {sorted(steps)}")
+    med = {name: statistics.median(p["peak_mem_gib"] for p in peaks
+                                   if p["package"] == name)
+           for name in ("parent", "this")}
+    pool = max(p["pool_gib"] for p in peaks)
+    if not med["this"] - med["parent"] < pool:
+        fails.append(f"profile_serving: median peak {med['this']} GiB "
+                     f"against the parent's {med['parent']}: grows by the "
+                     f"pool's {pool} GiB or more")
+    return fails
 
 
 def teacher_forced(np, gpu, cpu, srcs):
@@ -2382,6 +2536,13 @@ def main() -> int:
                     "ragged_paged_attention.cu (same C entry as the "
                     "parent commit's): build it there and time it beside "
                     "the kernel, the same way (parent_ms)")
+    ap.add_argument("--parent-package", metavar="DIR", default=None,
+                    help="a directory holding an earlier checkout: after "
+                    "the serving phase, profile_serving.py runs on its "
+                    "package and on this one in turns (parent, this, "
+                    "this, parent), each in a process of its own, for "
+                    "the serving step's peak memory, wall, busy and idle "
+                    "figures side by side")
     ap.add_argument("--parent-flash", metavar="DIR", default=None,
                     help="a directory holding an earlier "
                     "flash_attention_fwd.cu (and flash_attention_bwd.cu) "
@@ -2493,23 +2654,46 @@ def main() -> int:
     if empty:
         failures.append(f"flash forward with no keys: {empty}")
 
-    # -- serving, once per pool dtype
+    # -- serving, once per pool dtype: the unified step through the
+    # executor, captured at the warm-up and replayed at every step
     srcs = prompts(np)
+    # fresh prompts, half a chunk's worth of steps apart in length
+    replay_srcs = prompts(np, SEED + 1, [64, SERVE["src_len"]]
+                          * (N_REQUESTS // 2))
     runs = []
     launches = 0
     weights = None
+    n_calls, n_merges = ragged_calls_per_step(fa, fa._sm_count(0))
+    f32_growth = None
     for kv in KV_DTYPES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         g = make_generator("cuda", kv)
         if weights is None:
             g.init_params(seed=SEED)
-            weights = {k: v.detach().cpu()
-                       for k, v in g.model.state_dict().items()}
+            weights = fluid.scope_to_numpy(g.scope, list(g._param_vars()))
         else:
-            g.model.load_state_dict(weights)
+            g.load_params(weights)
+        # the peak of building and loading, then serving's own over the
+        # resident weights and pool
+        resident = torch.cuda.memory_allocated()
+        load_peak = torch.cuda.max_memory_allocated()
+        pool = {n: (t, t.data_ptr()) for n, t in (
+            (n, g.scope.find_var(n)) for n in (g._pool_name,
+                                               g._scales_name))
+                if t is not None}
+        torch.cuda.reset_peak_memory_stats()
         rec, ok = serve_once(torch, np, fa, g, srcs)
-        rec["kv_dtype"] = kv
+        rec.update(kv_dtype=kv, card=card,
+                   resident_gib=resident / 2**30,
+                   pool_gib=g.cache_stats()["hbm"]["pool_bytes"] / 2**30,
+                   load_peak_gib=load_peak / 2**30,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   peak_reserved_gib=torch.cuda.max_memory_reserved()
+                   / 2**30,
+                   graph=step_graph(g.exe))
         launches += rec["launches"]
-        want = 3 * MODEL["n_layer"] * rec["steps"]
+        want = n_calls * rec["steps"]
         if not ok:
             failures.append(f"serving {kv}: {rec['finished']} of "
                             f"{rec['requests']} requests finished "
@@ -2517,16 +2701,50 @@ def main() -> int:
         if rec["launches"] != want or rec["steps"] == 0:
             failures.append(f"serving {kv}: {rec['launches']} kernel "
                             f"launches in {rec['steps']} steps, want {want}")
+        if rec["executable_during_serve"]["misses"] != 0 \
+                or rec["executable_during_serve"]["hits"] != rec["steps"] \
+                or rec["executable"]["misses"] != 1:
+            failures.append(f"serving {kv}: executable {rec['executable']}, "
+                            f"during the run {rec['executable_during_serve']}"
+                            f" in {rec['steps']} steps: want one miss (the "
+                            f"warm-up's capture) and a hit every step")
+        # the pool held once: the scope's pool is the tensor it was, and
+        # every cached step's buffer; serving's own growth (one step's
+        # activations, a cuBLAS workspace for each of two streams) is the
+        # same at every pool dtype, so a second pool would add its bytes
+        # to the float32 growth, or to another dtype's over that
+        rec["pool_held_once"] = pool_held_once(g, pool)
+        rec["serve_growth_gib"] = rec["peak_mem_gib"] - rec["resident_gib"]
+        if kv == "float32":
+            f32_growth = rec["serve_growth_gib"]
+        over = rec["serve_growth_gib"] - (f32_growth if kv != "float32"
+                                          else 0.0)
+        if not rec["pool_held_once"] or not over < rec["pool_gib"]:
+            failures.append(f"serving {kv}: pool held once "
+                            f"{rec['pool_held_once']}; peak "
+                            f"{rec['peak_mem_gib']} GiB over "
+                            f"{rec['resident_gib']} resident grows by "
+                            f"{over} GiB more than float32's, not less "
+                            f"than the pool's {rec['pool_gib']} GiB")
+        want_graph = {"ragged_split": n_calls, "ragged_merge": n_merges}
+        if rec["graph"].get("by_family") != want_graph:
+            failures.append(f"serving {kv}: captured graph {rec['graph']}, "
+                            f"want kernel nodes {want_graph}")
+        rec["replay_vs_eager"] = serving_replay_check(torch, g,
+                                                      replay_srcs)
+        if not rec["replay_vs_eager"]["ok"]:
+            failures.append(f"serving {kv}: replay vs eager "
+                            f"{rec['replay_vs_eager']}")
         runs.append(rec)
-        del g
+        del g, pool
         torch.cuda.empty_cache()
         log(f"served {kv}: {json.dumps(rec)}")
 
         # teacher-forced card vs CPU on the same feeds
         gpu = make_generator("cuda", kv)
         cpu = make_generator("cpu", kv)
-        gpu.model.load_state_dict(weights)
-        cpu.model.load_state_dict(weights)
+        gpu.load_params(weights)
+        cpu.load_params(weights)
         t0 = time.perf_counter()
         worst, agree = teacher_forced(np, gpu, cpu, srcs)
         rec["logits_max_abs_err_vs_cpu"] = worst
@@ -2538,6 +2756,17 @@ def main() -> int:
                             f"> {LOGIT_ATOL[kv]}")
         del gpu, cpu
         torch.cuda.empty_cache()
+    # the serving peak beside the parent's, each in a process of its own,
+    # in turns (float32 pool; profile_serving.py)
+    peaks = None
+    if args.parent_package:
+        peaks = [dict(serving_peak_subprocess(root), package=name)
+                 for name, root in (("parent", args.parent_package),
+                                    ("this", None), ("this", None),
+                                    ("parent", args.parent_package))]
+        for p in peaks:
+            log(f"profile_serving ({p['package']}): {json.dumps(p)}")
+        failures += in_turns_failures(peaks)
 
     # -- training: the program, one step card vs CPU, then the card alone
     t0 = time.perf_counter()
@@ -2587,7 +2816,8 @@ def main() -> int:
     launches += rec["launches"]
     log(f"served the trained scope: {json.dumps(rec)}")
     if not ok or rec["launches"] != ATTN_PER_STEP * rec["steps"] \
-            or rec["steps"] == 0:
+            or rec["steps"] == 0 \
+            or rec["executable_during_serve"]["misses"] != 0:
         failures.append(f"serving the trained scope: {rec}")
     runs.append(rec)
     del g
@@ -2811,7 +3041,8 @@ def main() -> int:
     lstm_rec["card"] = card
     kernels.append(lstm_entry)
 
-    print(json.dumps({"serving": {"card": card, "runs": runs}}), flush=True)
+    print(json.dumps({"serving": {"card": card, "runs": runs,
+                                  "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"training_bf16": training_bf16}), flush=True)
     print(json.dumps({"book": book}), flush=True)

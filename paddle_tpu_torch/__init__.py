@@ -5,14 +5,18 @@ The package mirrors ``paddle_tpu``'s module paths, so
 is tested against it on the same inputs.  It imports ``torch``, numpy
 and the standard library only: never ``jax``, never ``paddle_tpu``.
 
-What it covers so far is the paged serving path: the Transformer served
-by ``serving.PagedTransformerGenerator`` behind
-``serving.ContinuousBatchingScheduler``.  Its one TPU kernel, the
-ragged paged-attention walk, is a CUDA C++ kernel for ``sm_90a``
-(``kernels/csrc/ragged_paged_attention.cu``), built at first use.
+What it covers so far: Transformer training through ``fluid`` (float32
+and the bf16 recipe), the LSTM text classifiers, the book's first two
+chapters, and the paged serving path, the Transformer served by
+``serving.PagedTransformerGenerator`` (its Fluid program run through
+``fluid.Executor``) behind ``serving.ContinuousBatchingScheduler``.
+Every TPU kernel of ``paddle_tpu`` has a CUDA C++ counterpart for
+``sm_90a`` under ``kernels/csrc/``, built at first use.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU they raise instead of falling back (``device.py``).
+Entry points run on ``cuda`` unless the caller asks for the CPU
+(``device="cpu"``, ``fluid.CPUPlace()``, a generator's
+``place=fluid.CPUPlace()``); without a GPU they raise instead of
+falling back (``device.py``).
 """
 
 from .device import resolve_device

@@ -1,18 +1,19 @@
 """The port's counterpart of ``paddle_tpu.fluid``: programs of blocks of
 ops built by ``layers.*``, differentiated by ``append_backward`` /
 ``optimizer.Adam(...).minimize``, and run one step at a time by an
-``Executor`` that executes the block's ops eagerly on one device
-(``lowering.py``).  Importing it registers the op emitters.
+``Executor`` (one captured CUDA graph per step signature on the card,
+the ops run eagerly through ``lowering.py`` on the CPU).  Importing it
+registers the op emitters.
 
 Cut to what the Transformer training program (float32 or the bf16
-``amp_dtype`` recipe), the LSTM text classifiers and the book's first two
-chapters need; level-1 sequence inputs are ``SeqArray`` feeds
-(``make_seq``).  Not ported (they raise ``NotImplementedError`` where the
-API reaches them): level-2 sequences (``NestedSeqArray``), sparse
-embeddings, meshes and sequence parallelism, batch norm, gradient
-clipping and regularizers, optimizers other than SGD, Momentum and Adam,
-control-flow ops, ``run_pipeline`` / ``run_steps``, the compile cache and
-``cost_analysis``."""
+``amp_dtype`` recipe), the paged serving step, the LSTM text classifiers
+and the book's first two chapters need; level-1 sequence inputs are
+``SeqArray`` feeds (``make_seq``).  Not ported (they raise
+``NotImplementedError`` where the API reaches them): level-2 sequences
+(``NestedSeqArray``), sparse embeddings, meshes and sequence
+parallelism, batch norm, gradient clipping and regularizers, optimizers
+other than SGD, Momentum and Adam, control-flow ops, the compile cache
+and ``cost_analysis``."""
 
 from . import ops as _ops  # registers the op emitters  # noqa: F401
 from . import initializer, layers, nets, optimizer, unique_name  # noqa: F401

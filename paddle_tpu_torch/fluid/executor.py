@@ -21,12 +21,22 @@ lives at fixed addresses:
   asynchronous: no host sync);
 * the step's random seeds, one int32 buffer (``lowering.step_seeds``);
 * state: the scope's vars become the entry's own buffers after the
-  capture.  An op that updates in place (Adam, SGD, Momentum) writes
-  them; an op that writes out of place is followed by a copy back into
-  the buffer.  A var replaced in the scope (``set_var``,
+  capture.  A tensor in the scope becomes the buffer itself, as the
+  reference donates its state buffers to the step: a serving pool sized
+  to fill the card is held once, at one address, by every signature
+  that steps it, and a caller who keeps a reference to a scope tensor
+  sees every step's writes to it.  A SeqArray (and a value the step
+  writes out of place) is copied into a buffer of the entry's own.  An
+  op that updates in place (Adam, SGD, Momentum, the paged KV writes)
+  writes the buffers; an op that writes out of place is followed by a
+  copy back into the buffer.  A var replaced in the scope (``set_var``,
   ``scope_from_numpy``) is copied in before the next replay; a scope
-  that takes over the buffers from another first gives that one its own
-  copy, so two scopes run through one executor keep their own state;
+  that takes over a buffer from another first gives that one its own
+  copy, so two scopes run through one executor keep their own state.
+  A host value in the scope (a numpy array, as ``copy_weights``
+  writes) is uploaded to the device at the step that reads it.  The
+  eager first step's intermediates are dropped before the capture, so
+  the peak holds one step's activations;
 * fetches are the graph's outputs, copied out after each replay.
 
 The launch counters of the kernels (``kernels.launch_counts``) count
@@ -264,6 +274,14 @@ def _clone(v):
     return v.clone()
 
 
+def _owner_of(scope: Scope, name: str) -> Scope:
+    """The scope in ``scope``'s parent chain that holds ``name``."""
+    s: Optional[Scope] = scope
+    while s is not None and name not in s.vars:
+        s = s.parent
+    return s if s is not None else scope
+
+
 def _copy_into(dst, src) -> None:
     """``dst`` (a static buffer) takes ``src``'s values.  A host tensor
     goes through pinned memory, asynchronously: the host does not wait
@@ -310,7 +328,7 @@ class _Entry:
 
     __slots__ = ("plan", "fetch_names", "mode", "feeds", "seeds",
                  "seeds_host", "state", "graph", "fetches", "out",
-                 "launches", "holder")
+                 "launches")
 
     def __init__(self, plan: BlockPlan, fetch_names: List[str], mode: str):
         self.plan = plan
@@ -324,7 +342,6 @@ class _Entry:
         self.fetches: List[Any] = []
         self.out: Dict[str, Any] = {}
         self.launches: Dict[tuple, int] = {}
-        self.holder = None          # weakref to the scope holding `state`
 
 
 class Executor:
@@ -352,6 +369,11 @@ class Executor:
             "executable": {"hits": 0, "misses": 0, "evictions": 0},
             "structure": {"hits": 0, "misses": 0, "evictions": 0}}
         self._stream = None             # the capture stream, made once
+        # every state buffer of this executor's entries (by id, weakly),
+        # and the scope each one was last published to
+        self._buffers: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
+            weakref.WeakValueDictionary()
+        self._holders: Dict[int, "weakref.ref[Scope]"] = {}
 
     # -- caches ---------------------------------------------------------------
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
@@ -418,9 +440,14 @@ class Executor:
 
     def _store(self, key, entry: _Entry) -> None:
         self._cache[key] = entry
+        evicted = False
         while len(self._cache) > self.CACHE_CAPACITY:
             self._cache.popitem(last=False)
             self._stats["executable"]["evictions"] += 1
+            evicted = True
+        if evicted:
+            self._holders = {i: h for i, h in self._holders.items()
+                             if i in self._buffers}
 
     def _state_of(self, plan: BlockPlan, scope: Scope) -> Dict[str, Any]:
         state = {}
@@ -431,6 +458,12 @@ class Executor:
                     f"Executor: variable {n!r} is read by the program but "
                     f"absent from the scope — did you run the startup "
                     f"program?")
+            if not isinstance(v, (torch.Tensor, SeqArray)):
+                # a host value (as the reference's jit takes numpy state):
+                # uploaded once, and the scope that holds it keeps the
+                # device tensor
+                v = _to_device(v, self.device)
+                _owner_of(scope, n).set_var(n, v)
             dev = v.data.device if isinstance(v, SeqArray) else v.device
             if dev != self.device:
                 raise ValueError(f"Executor: scope variable {n!r} is on "
@@ -498,12 +531,21 @@ class Executor:
             run_block_ops(plan, env, seeds, entry.seeds, dev, mode)
         for n in plan.state_out:
             scope.set_var(n, env[n])
-        # a fed value is the feed buffer, which the next step overwrites
-        fetches = [_clone(env[n]) if n in feed else env[n]
+        # a fed value is the feed buffer, which the next step overwrites,
+        # and a state value the buffer the next step updates
+        fetches = [_clone(env[n]) if n in feed or n in state else env[n]
                    for n in fetch_names]
-        # the state buffers: the entry's own copies of the step's state
-        entry.state = {n: _clone(env[n] if n in plan.state_out else v)
-                       for n, v in state.items()}
+        # the state buffers: the scope's tensors where the step read them
+        # or wrote them in place, else the entry's own copies
+        for n, v in state.items():
+            new = env[n] if n in plan.state_out else v
+            entry.state[n] = new if new is v and isinstance(
+                v, torch.Tensor) else _clone(new)
+            if isinstance(entry.state[n], torch.Tensor):
+                self._buffers[id(entry.state[n])] = entry.state[n]
+        # the eager step's intermediates go before the capture makes its
+        # own, so the peak holds one step's activations, not two
+        del env
         if dev.type == "cuda" and not plan.host_rng_ops:
             self._capture(entry)
         self._publish(entry, scope, out=False)
@@ -540,10 +582,11 @@ class Executor:
         if out:
             for n, v in entry.out.items():
                 scope.set_var(n, v if n in entry.state else _clone(v))
+        held = weakref.ref(scope)
         for n, v in entry.state.items():
             if n in scope.vars:
                 scope.set_var(n, v)
-        entry.holder = weakref.ref(scope)
+            self._holders[id(v)] = held
 
     @staticmethod
     def _load(entry: _Entry, feed, seeds) -> None:
@@ -555,12 +598,13 @@ class Executor:
     def _bind(self, entry: _Entry, state, scope: Scope) -> None:
         """Before a replay: each state buffer holds the scope's value.  A
         var the scope replaced is copied in; if another scope holds the
-        buffers, it keeps a copy of its own first."""
-        holder = entry.holder() if entry.holder is not None else None
+        buffer, it keeps a copy of its own first."""
         for n, buf in entry.state.items():
             v = state[n]
             if v is buf:
                 continue
+            ref = self._holders.get(id(buf))
+            holder = ref() if ref is not None else None
             if holder is not None and holder is not scope \
                     and holder.vars.get(n) is buf:
                 holder.set_var(n, _clone(buf))

@@ -1,6 +1,7 @@
 """Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
-to what ``models/transformer.transformer()``, the LSTM text classifiers
-and the book's first two chapters (``models/fit_a_line``,
+to what ``models/transformer.transformer()``, the paged serving step
+(``ragged_decode_attention``), the LSTM text classifiers and the book's
+first two chapters (``models/fit_a_line``,
 ``models/recognize_digits``) build.  Each layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
@@ -16,7 +17,8 @@ from ..param_attr import ParamAttr
 __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "softmax_with_cross_entropy", "square_error_cost", "conv2d",
            "pool2d", "layer_norm", "reduce_sum", "reshape",
-           "fused_attention", "fused_vocab_cross_entropy"]
+           "fused_attention", "fused_vocab_cross_entropy",
+           "ragged_decode_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -309,3 +311,32 @@ def fused_vocab_cross_entropy(input, label, vocab_size, chunk=8192,
                      {"X": input, "W": w, "Label": label}, {"Loss": loss},
                      {"chunk": int(chunk)})
     return loss
+
+
+def ragged_decode_attention(q, pool, page_table, lengths, q_base=None,
+                            layer=0, n_layer=1, causal=True, sm_scale=None,
+                            impl=None, scales=None, name=None):
+    """Attention of per-lane query blocks against the paged KV pool,
+    walking each lane's page list (``ops/cache_ops.ragged_decode_attention``;
+    the CUDA kernel lives in ``kernels/flash_attention``).  q [B, C, H, D]
+    (C=1 steady-state decode, C=chunk during chunked prefill), pool
+    [H, R, page_size, D], page_table [B, P] int32 logical pages, lengths
+    [B] int32 live positions, q_base [B] int32 global query start
+    (required when causal).  ``scales`` ([1, R, page_size] fp32) rides
+    along for int8 pools."""
+    helper = LayerHelper("ragged_decode_attention", name=name)
+    out = helper.create_tmp_variable(q.dtype, stop_gradient=True)
+    attrs = {"layer": int(layer), "n_layer": int(n_layer),
+             "causal": bool(causal)}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    if impl is not None:
+        attrs["impl"] = impl
+    inputs = {"Q": q, "Pool": pool, "PageTable": page_table,
+              "Lengths": lengths}
+    if q_base is not None:
+        inputs["QBase"] = q_base
+    if scales is not None:
+        inputs["Scales"] = scales
+    helper.append_op("ragged_decode_attention", inputs, {"Out": out}, attrs)
+    return out

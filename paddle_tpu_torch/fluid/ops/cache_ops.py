@@ -1,30 +1,37 @@
-"""Paged KV-cache writes — the port of ``paged_cache_write`` and
-``quantized_paged_cache_write`` from ``paddle_tpu/fluid/ops/cache_ops.py``.
+"""Paged KV-cache ops — the port of ``paged_cache_write``,
+``quantized_paged_cache_write`` and ``ragged_decode_attention`` from
+``paddle_tpu/fluid/ops/cache_ops.py``, with the reference's slots and
+attrs.
 
-The pool is ONE tensor ``[H, R, page_size, D]``; a *logical* page spans
-every layer and K+V of a page_size-token span, and
+The pool is ONE persistable tensor ``[H, R, page_size, D]``; a *logical*
+page spans every layer and K+V of a page_size-token span, and
 ``kernels.flash_attention.paged_kv_rows`` is the single source of truth
 for the physical-row arithmetic.  Logical page 0 is the trash page that
-dead lanes and dead chunk positions write into.
+dead lanes and dead chunk positions write into, so one program serves
+any mix of prefilling, decoding and idle lanes.
 
-Both writes are plain scatters (the JAX package leaves them to XLA), so
+The writes are plain scatters (the JAX package leaves them to XLA), so
 here they are ``index_put_`` on the pool.  Where JAX donated the pool
 and got a fresh array back, the port writes the pool IN PLACE and
-returns the same tensor.  Two tokens of one write can only share a
-(row, slot) on the trash page, whose contents no live lane reads, so
-the order in which duplicate writes land does not matter.
+returns the same tensor: ``Out`` aliases ``Pool`` (and ``ScalesOut``
+aliases ``Scales``), so the executor sees its state var written in
+place and copies nothing back.  Two tokens of one write can only share
+a (row, slot) on the trash page, whose contents no live lane reads, so
+the order in which duplicate writes land does not matter.  No emitter
+reads a value on the host: the serving step is captured in a CUDA graph.
+All three are inference-only (``no_grad``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
+from ..core.registry import primitive
 from ...kernels.flash_attention import paged_kv_rows
 from .quant_ops import abs_max_scale, quantize_array
 
-__all__ = ["paged_cache_write", "quantized_paged_cache_write"]
+__all__ = ["paged_cache_write", "quantized_paged_cache_write",
+           "ragged_decode_attention"]
 
 
 def _per_token(k, v, pages, offsets):
@@ -40,15 +47,19 @@ def _per_token(k, v, pages, offsets):
     return k, v, pages, offsets
 
 
-def paged_cache_write(pool: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pages: torch.Tensor, offsets: torch.Tensor, *,
-                      layer: int, n_layer: int) -> torch.Tensor:
+@primitive("paged_cache_write",
+           inputs=["Pool", "K", "V", "Pages", "Offsets"], outputs=["Out"],
+           no_grad=True)
+def paged_cache_write(ctx, pool, k, v, pages, offsets):
     """Scatter one layer's K/V for up to C tokens per lane into the pool.
 
     ``k``/``v`` [B, C, H, D] head-interleaved values, ``pages`` [B, C]
-    logical page per token, ``offsets`` [B, C] slot within the page.
-    Writes ``pool`` in place (cast to the pool's dtype, rounding to
-    nearest even for bf16) and returns it."""
+    logical page per token, ``offsets`` [B, C] slot within the page;
+    attrs ``layer`` / ``n_layer`` resolve pages to physical rows.  Writes
+    ``pool`` in place (cast to the pool's dtype, rounding to nearest even
+    for bf16) and returns it."""
+    layer = int(ctx.attr("layer", 0))
+    n_layer = int(ctx.attr("n_layer", 1))
     k, v, pages, offsets = _per_token(k, v, pages, offsets)
     k_rows, v_rows = paged_kv_rows(pages, layer, n_layer)
     # pool[h, rows[b, c], offs[b, c]] <- value[b, c, h, :]
@@ -57,15 +68,16 @@ def paged_cache_write(pool: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return pool
 
 
-def quantized_paged_cache_write(pool: torch.Tensor, scales: torch.Tensor,
-                                k: torch.Tensor, v: torch.Tensor,
-                                pages: torch.Tensor, offsets: torch.Tensor,
-                                *, layer: int, n_layer: int
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+@primitive("quantized_paged_cache_write",
+           inputs=["Pool", "Scales", "K", "V", "Pages", "Offsets"],
+           outputs=["Out", "ScalesOut"], no_grad=True)
+def quantized_paged_cache_write(ctx, pool, scales, k, v, pages, offsets):
     """``paged_cache_write`` for an int8 pool: each token's K (and V)
     [H, D] slab quantizes with one fp32 max-abs scale, stored in the
     ``scales`` sidecar [1, R, page_size] at the same (row, slot) the int8
     bytes land in.  Writes both in place and returns them."""
+    layer = int(ctx.attr("layer", 0))
+    n_layer = int(ctx.attr("n_layer", 1))
     k, v, pages, offsets = _per_token(k, v, pages, offsets)
     k_rows, v_rows = paged_kv_rows(pages, layer, n_layer)
     for val, rows in ((k, k_rows), (v, v_rows)):
@@ -75,3 +87,25 @@ def quantized_paged_cache_write(pool: torch.Tensor, scales: torch.Tensor,
         pool[:, rows, offsets] = q.permute(2, 0, 1, 3)
         scales[0, rows, offsets] = sc
     return pool, scales
+
+
+@primitive("ragged_decode_attention",
+           inputs=["Q", "Pool", "PageTable", "Lengths", "QBase?", "Scales?"],
+           outputs=["Out"], no_grad=True)
+def ragged_decode_attention(ctx, q, pool, page_table, lengths, q_base,
+                            scales):
+    """Per-lane attention over the lane's page list: the CUDA kernel on
+    the card, ``ragged_attention_plain`` on the CPU (see
+    ``kernels.flash_attention.ragged_decode_attention``: q [B, C, H, D],
+    pool [H, R, page_size, D], page_table [B, P] int32 logical pages,
+    lengths [B], optional q_base [B] for causal chunk queries, optional
+    Scales [1, R, page_size] fp32 block scales for an int8 pool)."""
+    from ...kernels.flash_attention import ragged_decode_attention as _ra
+
+    return _ra(q, pool, page_table, lengths, q_base,
+               layer=int(ctx.attr("layer", 0)),
+               n_layer=int(ctx.attr("n_layer", 1)),
+               causal=bool(ctx.attr("causal", True)),
+               sm_scale=ctx.attr("sm_scale", None),
+               impl=ctx.attr("impl", None),
+               scales=scales)

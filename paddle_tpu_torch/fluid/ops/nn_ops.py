@@ -76,11 +76,27 @@ def pool2d(ctx, x):
            outputs=["Y", "Mean", "Variance"])
 def layer_norm(ctx, x, scale, bias):
     """reference layer_norm_op.cc: normalize over dims [begin_norm_axis:)
-    in fp32; Mean and Variance carry no gradient."""
+    in fp32; Mean and Variance carry no gradient.
+
+    Where no gradient is taken (a step run under ``no_grad``, as serving
+    runs), Y, Mean and the reciprocal deviation come from one fused
+    ``native_layer_norm``, and Variance from that reciprocal.  Under
+    autograd (a training forward whose ``layer_norm_grad`` follows) the
+    reference's formula is written out op by op (eight kernels), and its
+    gradient is autograd's of those ops: the fused backward moved the
+    card's float32 gradients 12x farther from the CPU's at the
+    Transformer's step 3."""
     eps = ctx.attr("epsilon", 1e-5)
     axis = ctx.attr("begin_norm_axis", 1)
     lead = x.shape[:axis]
     x2 = x.reshape(*lead, -1).float()
+    if not torch.is_grad_enabled():
+        y, mu, rstd = torch.native_layer_norm(
+            x2, (x2.shape[-1],),
+            None if scale is None else scale.reshape(-1),
+            None if bias is None else bias.reshape(-1), eps)
+        return (y.reshape(x.shape).to(x.dtype), mu.reshape(lead),
+                rstd.reshape(lead) ** -2 - eps)
     mu = x2.mean(dim=-1, keepdim=True)
     var = x2.var(dim=-1, keepdim=True, correction=0)
     y = (x2 - mu) * torch.rsqrt(var + eps)

@@ -1,7 +1,7 @@
 """Tensor creation and manipulation ops — the port of
-``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer,
-the LSTM text classifiers, the book's first two chapters, their
-backward and the optimizers emit.
+``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer
+(training and the paged serving step), the LSTM text classifiers, the
+book's first two chapters, their backward and the optimizers emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
@@ -89,6 +89,13 @@ def _ids(ids: torch.Tensor) -> torch.Tensor:
     if ids.dim() > 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     return ids.long()
+
+
+@primitive("argmax", no_grad=True, seq_transparent=True)
+def argmax(ctx, x):
+    """Index of the largest value along ``axis`` (default the last), as
+    int32; the first of tied maxima, as ``jnp.argmax`` picks."""
+    return torch.argmax(x, dim=ctx.attr("axis", -1)).to(torch.int32)
 
 
 @primitive("lookup_table", inputs=["W", "Ids"], stop_grad_slots=("Ids",))

@@ -253,14 +253,18 @@ def ragged_decode_attention(q, pool, page_table, lengths, q_base=None, *,
 
     Returns ctx [B, C, H, D].  CUDA tensors go through the CUDA kernel
     (counted in ``ragged_decode_attention.launches``); CPU tensors
-    through ``ragged_attention_plain``.  ``impl`` (the reference's
-    pallas / xla switch) must be None: the device picks the route."""
+    through ``ragged_attention_plain``; ``meta`` tensors (a program's
+    shape inference) give an empty result of q's shape.  ``impl`` (the
+    reference's pallas / xla switch) must be None: the device picks the
+    route."""
     _check_impl("ragged_decode_attention", impl)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if causal and q_base is None:
         raise ValueError("ragged_decode_attention: causal masking needs "
                          "q_base (global position of the first query)")
+    if q.device.type == "meta":         # build-time shape inference
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if q_base is None:
         q_base = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":

@@ -1,67 +1,46 @@
 """Transformer (encoder-decoder NMT) — the port of
 ``paddle_tpu/models/transformer.py``: the Fluid training graph and the
-paged serving model.
+paged serving graphs.
+
+Every builder appends Fluid ops through ``fluid.layers`` exactly as the
+reference does, so both packages build byte-identical programs, and
+``fluid.Executor`` runs them (on the card each step signature is one
+captured CUDA graph).
 
 Training.  ``transformer()`` and its builders (``multi_head_attention``
 on the fused path, ``positionwise_feed_forward``,
 ``pre_post_process_layer``, ``encoder(_layer)``, ``decoder(_layer)``,
-``prepare_embedding``, ``wrap_encoder``) append Fluid ops through
-``fluid.layers`` exactly as the reference does, so both packages build
-byte-identical programs; ``fluid.Executor`` runs them.  Every attention
-is one ``fused_attention`` op in the ``blhd`` layout (the flash kernels
-on the card).  ``amp_dtype="bfloat16"`` is the reference's bf16 recipe:
-bf16 activations from one cast at each embedding, f32 master weights.
-Not ported: the unfused matmul + softmax attention, ``mp_shard`` and
-``seq_parallel``.
+``prepare_embedding``, ``wrap_encoder``): every attention is one
+``fused_attention`` op in the ``blhd`` layout (the flash kernels on the
+card).  ``amp_dtype="bfloat16"`` is the reference's bf16 recipe: bf16
+activations from one cast at each embedding, f32 master weights.
 
-Serving.  The reference builds its serving graphs from Fluid ops too;
-here they are ``nn.Module``s that run the same op sequence eagerly:
+Serving.  The paged branches of ``multi_head_attention``
+(``paged_cache``: project q/k/v, write K/V into the pool, attend
+causally over the lane's pages; ``paged_static``: project q, attend over
+cross pages written at prefill), threaded through the layer builders as
+``paged_cache(s)`` / ``paged_cross(es)``, and the three serving towers
+``paged_prefill_chunk``, ``paged_decode_step`` and ``verify_step``,
+which ``serving.paged_decoder.build_unified_program`` assembles into
+the unified prefill+decode step.  Parameter names under
+``param_prefix`` are the training graph's, so one scope serves both.
 
-* ``embed_tokens`` — word embedding x sqrt(d_model) + position
-  embedding (the builder ``prepare_embedding`` with dropout off);
-* ``MultiHeadAttention`` in its two paged modes — ``paged_cache``
-  (project q/k/v, write K/V into the pool, attend causally over the
-  lane's pages: write-then-attend) and ``paged_static`` (project q,
-  attend over cross pages written at prefill);
-* ``FeedForward`` (``positionwise_feed_forward``: fc1 + relu, fc2);
-* ``PostProcess`` — the "dan" chain: dropout (off in serving), residual
-  add, ``layer_norm`` over the last axis with epsilon 1e-5;
-* ``EncoderLayer`` / ``DecoderLayer``;
-* ``PagedTransformer`` with ``paged_prefill_chunk``, ``verify_step``
-  (K = 1, the plain decode step) and ``unified_step``: the chunked
-  prefill tower and the decode step of every lane in one call, then the
-  vocab projection and the argmax — what the reference's
-  ``build_unified_program`` computes.
-
-Weights keep Fluid's ``[in, out]`` layout, and every parameter's
-``state_dict`` key is its Fluid name without the prefix
-(``enc0.self.q.w``, ``dec1.cross.k.w``, ``enc0.post_ffn.ln2.w``,
-``vocab_proj.w``), so weights carry across from a JAX scope by name.
+Not ported: the unfused matmul + softmax attention, the dense decode
+caches (``cache`` / ``static_kv``, the dense generator's), ``mp_shard``
+and ``seq_parallel``.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional, Tuple
-
 import numpy as np
-import torch
-import torch.nn.functional as F
-from torch import nn
 
 from ..fluid import ParamAttr, layers, unique_name
-from ..fluid.ops.cache_ops import (paged_cache_write,
-                                   quantized_paged_cache_write)
-from ..kernels.flash_attention import ragged_decode_attention
 
 __all__ = ["transformer", "multi_head_attention", "positionwise_feed_forward",
            "pre_post_process_layer", "encoder_layer", "encoder",
            "decoder_layer", "decoder", "prepare_embedding", "wrap_encoder",
-           "make_attn_bias", "PagedTransformer", "embed_tokens",
-           "MultiHeadAttention", "FeedForward", "PostProcess",
-           "EncoderLayer", "DecoderLayer", "Linear", "LayerNorm"]
-
-LN_EPS = 1e-5
+           "make_attn_bias", "paged_prefill_chunk", "paged_decode_step",
+           "verify_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +49,8 @@ LN_EPS = 1e-5
 
 def _nm(prefix, key):
     """Parameter name under an explicit prefix; None keeps auto-naming.
-    ``transformer(param_prefix=...)`` names every parameter, which is how
-    a trained scope reaches ``PagedTransformerGenerator.load_params``."""
+    ``transformer(param_prefix=...)`` names every parameter, and the
+    serving towers re-create the same names, so one scope serves both."""
     return None if prefix is None else f"{prefix}.{key}"
 
 
@@ -89,14 +68,32 @@ def _attr(mp_shard, name=None):
 def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                          d_model, n_head=1, dropout_rate=0.0,
                          mp_shard=False, fused=False, seq_parallel=False,
-                         causal=False, prefix=None):
-    """Project q/k/v, attend with one ``fused_attention`` op on the
-    head-interleaved [b, l, h, d] tensors (``layout='blhd'``: no
-    split-heads transposes), merge heads, output projection.
+                         causal=False, prefix=None, paged_cache=None,
+                         paged_static=None):
+    """Project q/k/v, attend, merge heads, output projection.
+
+    Training: one ``fused_attention`` op on the head-interleaved
+    [b, l, h, d] tensors (``layout='blhd'``: no split-heads transposes);
     ``causal=True`` masks future keys inside the kernel instead of
-    through a materialised bias; attention-probability dropout happens
-    inside the kernel too.  Only the fused path is ported."""
-    if not fused:
+    through a materialised bias, and attention-probability dropout
+    happens inside the kernel too.  Only this fused path is ported.
+
+    Paged serving (block-table page indirection over ONE pooled KV
+    tensor; see serving/paged_decoder.py):
+      ``paged_cache={"pool","table","pages","offsets","lengths","base",
+      "layer","n_layer","scales"}`` — the chunk's K/V are scattered into
+      the pool at per-token (page, offset) and the queries attend
+      causally over the lane's page list (``paged_cache_write`` or, with
+      ``scales``, ``quantized_paged_cache_write``, then
+      ``ragged_decode_attention``: write-then-attend).
+      ``paged_static={"pool","table","lengths","layer","n_layer",
+      "scales"}`` — read-only cross-attention against pages written at
+      prefill."""
+    paged = paged_cache is not None or paged_static is not None
+    if paged_cache is not None and paged_static is not None:
+        raise ValueError("multi_head_attention: pick ONE of paged_cache / "
+                         "paged_static")
+    if not fused and not paged:
         raise NotImplementedError("multi_head_attention(fused=False): the "
                                   "matmul + softmax composition is not "
                                   "ported to paddle_tpu_torch")
@@ -112,24 +109,61 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
         b, l = x.shape[0], x.shape[1]
         return layers.reshape(x, [-1 if b == -1 else b, l, n_head, d_head])
 
-    k = layers.fc(input=keys, size=d_key * n_head, bias_attr=False,
-                  num_flatten_dims=2,
-                  param_attr=_attr(mp_shard, _nm(prefix, "k.w")))
-    v = layers.fc(input=values, size=d_value * n_head, bias_attr=False,
-                  num_flatten_dims=2,
-                  param_attr=_attr(mp_shard, _nm(prefix, "v.w")))
-    q = interleave_heads(q, d_key)      # [b, lq, h, dk]
+    def merge_heads_proj(ctx):
+        b, l = ctx.shape[0], ctx.shape[1]
+        return layers.fc(
+            input=layers.reshape(
+                ctx, [-1 if b == -1 else b, l, n_head * d_value]),
+            size=d_model, bias_attr=False, num_flatten_dims=2,
+            param_attr=o_attr)
+
+    if paged_static is not None:
+        ps = paged_static
+        ctx = layers.ragged_decode_attention(
+            interleave_heads(q, d_key), ps["pool"], ps["table"],
+            ps["lengths"], layer=ps["layer"], n_layer=ps["n_layer"],
+            causal=False, sm_scale=float(d_key) ** -0.5,
+            scales=ps.get("scales"))
+        return merge_heads_proj(ctx)
+
+    def project_kv():
+        k = layers.fc(input=keys, size=d_key * n_head, bias_attr=False,
+                      num_flatten_dims=2,
+                      param_attr=_attr(mp_shard, _nm(prefix, "k.w")))
+        v = layers.fc(input=values, size=d_value * n_head, bias_attr=False,
+                      num_flatten_dims=2,
+                      param_attr=_attr(mp_shard, _nm(prefix, "v.w")))
+        return k, v
+
+    if paged_cache is not None:
+        pc = paged_cache
+        q = interleave_heads(q, d_key)          # [b, lq, h, dk]
+        k, v = project_kv()
+        kv_scales = pc.get("scales")
+        if kv_scales is not None:           # int8 pool: quantize on write
+            pool, kv_scales = layers.quantized_paged_cache_write(
+                pc["pool"], kv_scales, interleave_heads(k, d_key),
+                interleave_heads(v, d_value), pc["pages"], pc["offsets"],
+                layer=pc["layer"], n_layer=pc["n_layer"])
+        else:
+            pool = layers.paged_cache_write(
+                pc["pool"], interleave_heads(k, d_key),
+                interleave_heads(v, d_value), pc["pages"], pc["offsets"],
+                layer=pc["layer"], n_layer=pc["n_layer"])
+        ctx = layers.ragged_decode_attention(
+            q, pool, pc["table"], pc["lengths"], pc["base"],
+            layer=pc["layer"], n_layer=pc["n_layer"], causal=True,
+            sm_scale=float(d_key) ** -0.5, scales=kv_scales)
+        return merge_heads_proj(ctx)
+
+    k, v = project_kv()
+    q = interleave_heads(q, d_key)
     k = interleave_heads(k, d_key)
     v = interleave_heads(v, d_value)
     ctx = layers.fused_attention(q, k, v, bias=attn_bias, causal=causal,
                                  sm_scale=float(d_key) ** -0.5,
                                  dropout_rate=dropout_rate, layout="blhd")
-    b, l = ctx.shape[0], ctx.shape[1]
-    return layers.fc(
-        input=layers.reshape(ctx, [-1 if b == -1 else b, l,
-                                   n_head * d_value]),
-        size=d_model, bias_attr=False, num_flatten_dims=2,
-        param_attr=o_attr)
+    return merge_heads_proj(ctx)
 
 
 def positionwise_feed_forward(x, d_inner_hid, d_hid, mp_shard=False,
@@ -162,11 +196,12 @@ def pre_post_process_layer(prev_out, out, process_cmd, dropout_rate=0.0,
 
 def encoder_layer(enc_input, attn_bias, n_head, d_key, d_value, d_model,
                   d_inner_hid, dropout_rate=0.0, mp_shard=False,
-                  fused=False, seq_parallel=False, prefix=None):
+                  fused=False, seq_parallel=False, prefix=None,
+                  paged_cache=None):
     attn_output = multi_head_attention(
         enc_input, enc_input, enc_input, attn_bias, d_key, d_value, d_model,
         n_head, dropout_rate, mp_shard, fused, seq_parallel,
-        prefix=_nm(prefix, "self"))
+        prefix=_nm(prefix, "self"), paged_cache=paged_cache)
     attn_output = pre_post_process_layer(enc_input, attn_output, "dan",
                                          dropout_rate,
                                          prefix=_nm(prefix, "post_self"))
@@ -180,34 +215,41 @@ def encoder_layer(enc_input, attn_bias, n_head, d_key, d_value, d_model,
 
 def encoder(enc_input, attn_bias, n_layer, n_head, d_key, d_value, d_model,
             d_inner_hid, dropout_rate=0.0, mp_shard=False, fused=False,
-            seq_parallel=False, prefix=None):
+            seq_parallel=False, prefix=None, paged_caches=None):
     for i in range(n_layer):
         enc_input = encoder_layer(enc_input, attn_bias, n_head, d_key,
                                   d_value, d_model, d_inner_hid,
                                   dropout_rate, mp_shard, fused,
-                                  seq_parallel, prefix=_nm(prefix, f"enc{i}"))
+                                  seq_parallel, prefix=_nm(prefix, f"enc{i}"),
+                                  paged_cache=None if paged_caches is None
+                                  else paged_caches[i])
     return enc_input
 
 
 def decoder_layer(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
                   n_head, d_key, d_value, d_model, d_inner_hid,
                   dropout_rate=0.0, mp_shard=False, fused=False,
-                  seq_parallel=False, causal=False, prefix=None):
-    """One decoder layer of the training graph: self-attention over the
-    whole target (``slf_attn_bias`` or ``causal``), cross-attention over
-    the encoder output, feed-forward."""
+                  seq_parallel=False, causal=False, prefix=None,
+                  paged_cache=None, paged_cross=None):
+    """One decoder layer.  Training re-attends over the whole target
+    (``slf_attn_bias`` or ``causal``) and over the encoder output;
+    paged serving passes ``paged_cache`` (self-attention over the lane's
+    self pages) and ``paged_cross`` (cross-attention over the cross pages
+    written at prefill)."""
     slf_attn = multi_head_attention(dec_input, dec_input, dec_input,
                                     slf_attn_bias, d_key, d_value, d_model,
                                     n_head, dropout_rate, mp_shard, fused,
                                     seq_parallel, causal=causal,
-                                    prefix=_nm(prefix, "self"))
+                                    prefix=_nm(prefix, "self"),
+                                    paged_cache=paged_cache)
     slf_attn = pre_post_process_layer(dec_input, slf_attn, "dan",
                                       dropout_rate,
                                       prefix=_nm(prefix, "post_self"))
     cross = multi_head_attention(slf_attn, enc_output, enc_output,
                                  dec_enc_attn_bias, d_key, d_value, d_model,
                                  n_head, dropout_rate, mp_shard, fused,
-                                 seq_parallel, prefix=_nm(prefix, "cross"))
+                                 seq_parallel, prefix=_nm(prefix, "cross"),
+                                 paged_static=paged_cross)
     cross = pre_post_process_layer(slf_attn, cross, "dan", dropout_rate,
                                    prefix=_nm(prefix, "post_cross"))
     ffd = positionwise_feed_forward(cross, d_inner_hid, d_model, mp_shard,
@@ -219,13 +261,18 @@ def decoder_layer(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
 def decoder(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
             n_layer, n_head, d_key, d_value, d_model, d_inner_hid,
             dropout_rate=0.0, mp_shard=False, fused=False,
-            seq_parallel=False, causal=False, prefix=None):
+            seq_parallel=False, causal=False, prefix=None,
+            paged_caches=None, paged_crosses=None):
     for i in range(n_layer):
         dec_input = decoder_layer(dec_input, enc_output, slf_attn_bias,
                                   dec_enc_attn_bias, n_head, d_key, d_value,
                                   d_model, d_inner_hid, dropout_rate,
                                   mp_shard, fused, seq_parallel,
-                                  causal=causal, prefix=_nm(prefix, f"dec{i}"))
+                                  causal=causal, prefix=_nm(prefix, f"dec{i}"),
+                                  paged_cache=None if paged_caches is None
+                                  else paged_caches[i],
+                                  paged_cross=None if paged_crosses is None
+                                  else paged_crosses[i])
     return dec_input
 
 
@@ -362,281 +409,127 @@ def make_attn_bias(lengths, seq_len, n_head, causal=False):
 
 
 # ---------------------------------------------------------------------------
-# the paged serving model
+# the paged serving towers (serving/paged_decoder.build_unified_program)
 # ---------------------------------------------------------------------------
 
+def paged_prefill_chunk(pf_word, pf_pos, pf_base, pf_len, enc_table,
+                        enc_pages, cross_pages, w_offsets, pool,
+                        src_vocab_size, max_length, n_layer, n_head, d_key,
+                        d_value, d_model, d_inner_hid, param_prefix,
+                        kv_scales=None, mp_shard=False):
+    """One chunked-prefill tower step: encode up to C source tokens per
+    lane CAUSALLY against the lane's paged encoder-KV prefix, and
+    project + page-write the chunk's cross-attention K/V.  The causal
+    encoder makes chunked prefill exact and a prefix's K/V a function of
+    the prefix alone (what makes prefix sharing sound).
 
-class Linear(nn.Module):
-    """Fluid ``fc`` with ``num_flatten_dims=2``: ``x @ w (+ b)``, weight
-    ``[in, out]``."""
+    Feeds: ``pf_word``/``pf_pos`` [b, C] int64 (chunk tokens at GLOBAL
+    positions), ``pf_base`` [b] int32 (chunk start), ``pf_len`` [b]
+    int32 (encoded length INCLUDING this chunk), ``enc_table`` [b, P]
+    int32, ``enc_pages``/``cross_pages``/``w_offsets`` [b, C] int32
+    per-token write targets (trash page 0 for dead tokens and lanes).
+    ``kv_scales`` (int8 pools) is the [1, R, page_size] fp32 block-scale
+    sidecar: K/V quantize on write and dequantize inside the ragged
+    attention walk.  Returns the chunk's encoder output [b, C, d_model]."""
+    if not param_prefix:
+        raise ValueError("paged_prefill_chunk requires param_prefix")
+    emb = prepare_embedding(pf_word, pf_pos, src_vocab_size, max_length,
+                            d_model, 0.0,
+                            emb_name=_nm(param_prefix, "src_emb.w"),
+                            pos_name=_nm(param_prefix, "src_pos_emb.w"))
+    paged = [{"pool": pool, "table": enc_table, "pages": enc_pages,
+              "offsets": w_offsets, "lengths": pf_len, "base": pf_base,
+              "layer": i, "n_layer": n_layer, "scales": kv_scales}
+             for i in range(n_layer)]
+    enc_chunk = encoder(emb, None, n_layer, n_head, d_key, d_value,
+                        d_model, d_inner_hid, 0.0, mp_shard=mp_shard,
+                        prefix=param_prefix, paged_caches=paged)
+    b, c = enc_chunk.shape[0], enc_chunk.shape[1]
 
-    def __init__(self, d_in: int, d_out: int, bias: bool = False):
-        super().__init__()
-        self.w = nn.Parameter(torch.empty(d_in, d_out))
-        self.b = nn.Parameter(torch.empty(d_out)) if bias else None
+    def heads(x, d_head):
+        return layers.reshape(x, [-1 if b == -1 else b, c, n_head, d_head])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.w)
-        return y if self.b is None else y + self.b
-
-
-class LayerNorm(nn.Module):
-    """Fluid ``layer_norm`` over the last axis (scale ``w``, shift ``b``)."""
-
-    def __init__(self, d: int):
-        super().__init__()
-        self.w = nn.Parameter(torch.empty(d))
-        self.b = nn.Parameter(torch.empty(d))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.w, self.b, LN_EPS)
-
-
-class Embedding(nn.Module):
-    """Fluid ``embedding`` table ``w [rows, d]``."""
-
-    def __init__(self, rows: int, d: int):
-        super().__init__()
-        self.w = nn.Parameter(torch.empty(rows, d))
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.w[ids]
-
-
-def embed_tokens(word: Embedding, pos: Embedding, word_ids: torch.Tensor,
-                 pos_ids: torch.Tensor) -> torch.Tensor:
-    """word_emb[ids] * sqrt(d_model) + pos_emb[pos] (the reference's
-    ``prepare_embedding`` with dropout off)."""
-    d_model = word.w.shape[1]
-    return word(word_ids) * float(d_model) ** 0.5 + pos(pos_ids)
-
-
-class MultiHeadAttention(nn.Module):
-    """Paged multi-head attention.  ``paged_cache`` and ``paged_static``
-    are dicts as in the reference: ``{"pool", "table", "pages",
-    "offsets", "lengths", "base", "layer", "n_layer", "scales"}`` and
-    ``{"pool", "table", "lengths", "layer", "n_layer", "scales"}``."""
-
-    def __init__(self, d_model: int, n_head: int, d_key: int, d_value: int):
-        super().__init__()
-        self.n_head, self.d_key, self.d_value = n_head, d_key, d_value
-        self.q = Linear(d_model, d_key * n_head)
-        self.k = Linear(d_model, d_key * n_head)
-        self.v = Linear(d_model, d_value * n_head)
-        self.out = Linear(d_value * n_head, d_model)
-
-    def heads(self, x: torch.Tensor, d_head: int) -> torch.Tensor:
-        """[b, l, h * d] -> [b, l, h, d] (the reference's
-        interleave_heads reshape)."""
-        return x.reshape(x.shape[0], x.shape[1], self.n_head, d_head)
-
-    def forward(self, x: torch.Tensor, paged_cache: Optional[Dict] = None,
-                paged_static: Optional[Dict] = None) -> torch.Tensor:
-        if (paged_cache is None) == (paged_static is None):
-            raise ValueError("MultiHeadAttention: pass exactly one of "
-                             "paged_cache / paged_static")
-        q = self.heads(self.q(x), self.d_key)
-        sm_scale = float(self.d_key) ** -0.5
-        if paged_static is not None:
-            ps = paged_static
-            ctx = ragged_decode_attention(
-                q, ps["pool"], ps["table"], ps["lengths"],
-                layer=ps["layer"], n_layer=ps["n_layer"], causal=False,
-                sm_scale=sm_scale, scales=ps.get("scales"))
+    for i in range(n_layer):
+        pre = _nm(param_prefix, f"dec{i}.cross")
+        k = layers.fc(input=enc_chunk, size=d_key * n_head,
+                      bias_attr=False, num_flatten_dims=2,
+                      param_attr=_attr(mp_shard, _nm(pre, "k.w")))
+        v = layers.fc(input=enc_chunk, size=d_value * n_head,
+                      bias_attr=False, num_flatten_dims=2,
+                      param_attr=_attr(mp_shard, _nm(pre, "v.w")))
+        if kv_scales is not None:
+            pool, kv_scales = layers.quantized_paged_cache_write(
+                pool, kv_scales, heads(k, d_key), heads(v, d_value),
+                cross_pages, w_offsets, layer=i, n_layer=n_layer)
         else:
-            pc = paged_cache
-            k = self.heads(self.k(x), self.d_key)
-            v = self.heads(self.v(x), self.d_value)
-            scales = pc.get("scales")
-            if scales is not None:          # int8 pool: quantize on write
-                quantized_paged_cache_write(
-                    pc["pool"], scales, k, v, pc["pages"], pc["offsets"],
-                    layer=pc["layer"], n_layer=pc["n_layer"])
-            else:
-                paged_cache_write(pc["pool"], k, v, pc["pages"],
-                                  pc["offsets"], layer=pc["layer"],
-                                  n_layer=pc["n_layer"])
-            ctx = ragged_decode_attention(
-                q, pc["pool"], pc["table"], pc["lengths"], pc["base"],
-                layer=pc["layer"], n_layer=pc["n_layer"], causal=True,
-                sm_scale=sm_scale, scales=scales)
-        b, l = ctx.shape[0], ctx.shape[1]
-        return self.out(ctx.reshape(b, l, self.n_head * self.d_value))
+            pool = layers.paged_cache_write(pool, heads(k, d_key),
+                                            heads(v, d_value), cross_pages,
+                                            w_offsets, layer=i,
+                                            n_layer=n_layer)
+    return enc_chunk
 
 
-class FeedForward(nn.Module):
-    """relu(x @ fc1.w + fc1.b) @ fc2.w + fc2.b."""
-
-    def __init__(self, d_model: int, d_inner_hid: int):
-        super().__init__()
-        self.fc1 = Linear(d_model, d_inner_hid, bias=True)
-        self.fc2 = Linear(d_inner_hid, d_model, bias=True)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(torch.relu(self.fc1(x)))
-
-
-class PostProcess(nn.Module):
-    """The "dan" chain: (dropout, off in serving), residual add, layer
-    norm.  The norm is the chain's third command, hence ``ln2``."""
-
-    def __init__(self, d_model: int):
-        super().__init__()
-        self.ln2 = LayerNorm(d_model)
-
-    def forward(self, prev: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        return self.ln2(out + prev)
+def paged_decode_step(trg_word, trg_pos, self_table, self_pages,
+                      self_offsets, self_lengths, self_base, cross_table,
+                      src_lengths, pool, trg_vocab_size, max_length,
+                      n_layer, n_head, d_key, d_value, d_model, d_inner_hid,
+                      param_prefix, kv_scales=None, mp_shard=False):
+    """One paged incremental decode step: each lane's token K/V lands in
+    its self pages (``self_pages``/``self_offsets`` [b, 1] int32) and
+    attention walks ``self_table``/``cross_table`` [b, P] int32 under
+    ``self_lengths``/``src_lengths``.  Returns logits [b, 1, vocab].  The
+    1-token case of ``verify_step`` (the same op sequence)."""
+    return verify_step(trg_word, trg_pos, self_table, self_pages,
+                       self_offsets, self_lengths, self_base, cross_table,
+                       src_lengths, pool, trg_vocab_size, max_length,
+                       n_layer, n_head, d_key, d_value, d_model,
+                       d_inner_hid, param_prefix, kv_scales=kv_scales,
+                       n_tokens=1, mp_shard=mp_shard)
 
 
-def _register(module: nn.Module, name: str, child: nn.Module) -> nn.Module:
-    """Register ``child`` under a Fluid name that is not a valid or
-    convenient attribute name (``self``, ``enc0``)."""
-    module.add_module(name, child)
-    return child
+def verify_step(trg_word, trg_pos, self_table, self_pages, self_offsets,
+                self_lengths, self_base, cross_table, src_lengths, pool,
+                trg_vocab_size, max_length, n_layer, n_head, d_key,
+                d_value, d_model, d_inner_hid, param_prefix,
+                kv_scales=None, n_tokens=1, logit_mask=None,
+                mp_shard=False):
+    """Score ``n_tokens`` (K) positions per lane in one step.
 
-
-class EncoderLayer(nn.Module):
-    def __init__(self, d_model, n_head, d_key, d_value, d_inner_hid):
-        super().__init__()
-        _register(self, "self", MultiHeadAttention(d_model, n_head, d_key,
-                                                   d_value))
-        self.post_self = PostProcess(d_model)
-        self.ffn = FeedForward(d_model, d_inner_hid)
-        self.post_ffn = PostProcess(d_model)
-
-    @property
-    def attn(self) -> MultiHeadAttention:
-        """The self-attention, registered under its Fluid name ``self``."""
-        return self._modules["self"]
-
-    def forward(self, x: torch.Tensor, paged_cache: Dict) -> torch.Tensor:
-        x = self.post_self(x, self.attn(x, paged_cache=paged_cache))
-        return self.post_ffn(x, self.ffn(x))
-
-
-class DecoderLayer(nn.Module):
-    def __init__(self, d_model, n_head, d_key, d_value, d_inner_hid):
-        super().__init__()
-        _register(self, "self", MultiHeadAttention(d_model, n_head, d_key,
-                                                   d_value))
-        self.post_self = PostProcess(d_model)
-        # cross.k/cross.v project the encoder output at prefill
-        # (PagedTransformer.paged_prefill_chunk); decode reads the pages
-        self.cross = MultiHeadAttention(d_model, n_head, d_key, d_value)
-        self.post_cross = PostProcess(d_model)
-        self.ffn = FeedForward(d_model, d_inner_hid)
-        self.post_ffn = PostProcess(d_model)
-
-    @property
-    def attn(self) -> MultiHeadAttention:
-        """The self-attention, registered under its Fluid name ``self``."""
-        return self._modules["self"]
-
-    def forward(self, x: torch.Tensor, paged_cache: Dict,
-                paged_static: Dict) -> torch.Tensor:
-        x = self.post_self(x, self.attn(x, paged_cache=paged_cache))
-        x = self.post_cross(x, self.cross(x, paged_static=paged_static))
-        return self.post_ffn(x, self.ffn(x))
-
-
-class PagedTransformer(nn.Module):
-    """The paged serving model: chunked causal prefill tower plus the
-    paged decode step.  Parameter keys are the Fluid names without the
-    ``param_prefix``."""
-
-    def __init__(self, src_vocab_size, trg_vocab_size, n_layer, n_head,
-                 d_key, d_value, d_model, d_inner_hid, max_length):
-        super().__init__()
-        self.n_layer = int(n_layer)
-        self.d_key, self.d_value = d_key, d_value
-        self.src_emb = Embedding(src_vocab_size, d_model)
-        self.src_pos_emb = Embedding(max_length, d_model)
-        self.trg_emb = Embedding(trg_vocab_size, d_model)
-        self.trg_pos_emb = Embedding(max_length, d_model)
-        self.enc = [_register(self, f"enc{i}", EncoderLayer(
-            d_model, n_head, d_key, d_value, d_inner_hid))
-            for i in range(n_layer)]
-        self.dec = [_register(self, f"dec{i}", DecoderLayer(
-            d_model, n_head, d_key, d_value, d_inner_hid))
-            for i in range(n_layer)]
-        self.vocab_proj = Linear(d_model, trg_vocab_size)
-
-    @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> None:
-        """Random init from ``generator`` (a CPU ``torch.Generator``):
-        Xavier-uniform matrices and tables, unit norm scales, zero
-        biases — the Fluid defaults' shapes of distribution.  Values are
-        drawn on the CPU and copied, so one seed gives the same weights
-        on every device."""
-        for name, p in self.named_parameters():
-            if p.dim() == 2:
-                lim = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
-                val = torch.empty(p.shape).uniform_(-lim, lim,
-                                                    generator=generator)
-            elif name.endswith("ln2.w"):
-                val = torch.ones(p.shape)
-            else:
-                val = torch.zeros(p.shape)
-            p.copy_(val)
-
-    def _paged(self, pool, scales, table, lengths, layer, pages=None,
-               offsets=None, base=None) -> Dict:
-        return {"pool": pool, "scales": scales, "table": table,
-                "pages": pages, "offsets": offsets, "lengths": lengths,
-                "base": base, "layer": layer, "n_layer": self.n_layer}
-
-    def paged_prefill_chunk(self, f: Dict[str, torch.Tensor], pool,
-                            scales=None) -> torch.Tensor:
-        """One chunked-prefill tower step: encode up to C source tokens
-        per lane CAUSALLY against the lane's paged encoder-KV prefix, then
-        project and page-write the chunk's cross-attention K/V.  Feeds as
-        in the reference: ``pf_word``/``pf_pos`` [b, C], ``pf_base``,
-        ``pf_len`` [b], ``enc_table`` [b, P], ``enc_pages``,
-        ``cross_pages``, ``w_offsets`` [b, C].  Writes ``pool`` (and
-        ``scales``) in place; returns the encoder output [b, C, d]."""
-        x = embed_tokens(self.src_emb, self.src_pos_emb, f["pf_word"],
-                         f["pf_pos"])
-        for i, layer in enumerate(self.enc):
-            x = layer(x, self._paged(pool, scales, f["enc_table"],
-                                     f["pf_len"], i, f["enc_pages"],
-                                     f["w_offsets"], f["pf_base"]))
-        for i, layer in enumerate(self.dec):
-            k = layer.cross.heads(layer.cross.k(x), self.d_key)
-            v = layer.cross.heads(layer.cross.v(x), self.d_value)
-            if scales is not None:
-                quantized_paged_cache_write(pool, scales, k, v,
-                                            f["cross_pages"],
-                                            f["w_offsets"], layer=i,
-                                            n_layer=self.n_layer)
-            else:
-                paged_cache_write(pool, k, v, f["cross_pages"],
-                                  f["w_offsets"], layer=i,
-                                  n_layer=self.n_layer)
-        return x
-
-    def verify_step(self, f: Dict[str, torch.Tensor], pool,
-                    scales=None) -> torch.Tensor:
-        """The paged decode step over every lane: each lane's tokens
-        (``trg_word``/``trg_pos`` [b, K]) write K/V into its self pages
-        and attend causally over ``self_table``, then attend over its
-        cross pages.  Returns logits [b, K, vocab]."""
-        x = embed_tokens(self.trg_emb, self.trg_pos_emb, f["trg_word"],
-                         f["trg_pos"])
-        for i, layer in enumerate(self.dec):
-            x = layer(x,
-                      self._paged(pool, scales, f["self_table"],
-                                  f["self_lengths"], i, f["self_pages"],
-                                  f["self_offsets"], f["self_base"]),
-                      self._paged(pool, scales, f["cross_table"],
-                                  f["src_lengths"], i))
-        return self.vocab_proj(x)
-
-    @torch.no_grad()
-    def unified_step(self, f: Dict[str, torch.Tensor], pool, scales=None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The reference's unified program: the prefill tower, then the
-        decode step, on one pool.  Returns (next_ids int32 [b, K],
-        logits [b, K, vocab])."""
-        self.paged_prefill_chunk(f, pool, scales)
-        logits = self.verify_step(f, pool, scales)
-        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+    Feeds: ``trg_word``/``trg_pos`` [b, K] int64 (the lane's tokens at
+    GLOBAL positions base..base+K-1), ``self_pages``/``self_offsets``
+    [b, K] int32 per-token write targets (trash page 0 past the lane's
+    live tokens), ``self_lengths`` [b] int32 (= base + live tokens),
+    ``self_base`` [b] int32.  Each token's K/V scatters into the lane's
+    self pages and the K queries attend CAUSALLY over the lane's page
+    list (query j reads keys <= base + j), then over its cross pages.
+    ``logit_mask``, an additive [b, K, vocab] float32 feed, is added to
+    the logits (constrained generation with masks as data).  Returns
+    logits [b, K, vocab]."""
+    if not param_prefix:
+        raise ValueError("verify_step requires param_prefix")
+    emb = prepare_embedding(trg_word, trg_pos, trg_vocab_size, max_length,
+                            d_model, 0.0,
+                            emb_name=_nm(param_prefix, "trg_emb.w"),
+                            pos_name=_nm(param_prefix, "trg_pos_emb.w"))
+    emb = layers.reshape(emb, [-1, int(n_tokens), d_model])
+    paged_caches = [{"pool": pool, "table": self_table,
+                     "pages": self_pages, "offsets": self_offsets,
+                     "lengths": self_lengths, "base": self_base,
+                     "layer": i, "n_layer": n_layer, "scales": kv_scales}
+                    for i in range(n_layer)]
+    paged_crosses = [{"pool": pool, "table": cross_table,
+                      "lengths": src_lengths, "layer": i,
+                      "n_layer": n_layer, "scales": kv_scales}
+                     for i in range(n_layer)]
+    dec_output = decoder(emb, None, None, None, n_layer, n_head, d_key,
+                         d_value, d_model, d_inner_hid, 0.0,
+                         mp_shard=mp_shard, prefix=param_prefix,
+                         paged_caches=paged_caches,
+                         paged_crosses=paged_crosses)
+    logits = layers.fc(input=dec_output, size=trg_vocab_size,
+                       num_flatten_dims=2, bias_attr=False,
+                       param_attr=_attr(False, _nm(param_prefix,
+                                                   "vocab_proj.w")))
+    if logit_mask is not None:
+        logits = layers.elementwise_add(logits, logit_mask)
+    return logits

@@ -5,27 +5,32 @@
   by every lane, layer and role (encoder-KV, cross-KV, decoder-self-KV);
   a logical page spans all layers and K+V of a page_size-token span;
 * **per-request page tables** from the host-side ``PageAllocator``, fed
-  to the device as int32 data each step;
+  to the device as int32 data each step (a new page id changes no
+  signature);
 * **chunked prefill**: the source is encoded CAUSALLY in fixed-size
   chunks in the SAME step that decodes the in-flight lanes
-  (``PagedTransformer.unified_step``, the counterpart of the reference's
-  ``build_unified_program``); lanes in neither phase ride along with
+  (``build_unified_program``); lanes in neither phase ride along with
   trash-page writes and length-1 masks;
 * **prefix sharing**: full prompt chunks are content-addressed (chain
   hashes), so identical prompt prefixes map to the same physical pages
   with refcounts.
 
-The host-side logic (admission, page tables, feeds, greedy) is the
-reference's, line for line, so both packages make the same decisions on
-the same requests.  Where the reference ran a compiled program through
-its Executor, this runs ``PagedTransformer.unified_step`` eagerly under
-``torch.no_grad``; the pool lives in the generator and is written in
-place.  Pools may be float32, bfloat16 or int8 (with a float32
-per-(row, slot) scale sidecar).
+As in the reference, the generator builds the unified prefill+decode
+step as a Fluid program and runs it through ``fluid.Executor`` in its
+``scope``, where the pool (and the int8 pool's scale sidecar) are
+persistable vars that the step's paged KV writes update in place.  On
+the card the first ``lane_step`` at a lane count runs eagerly and is
+captured in a CUDA graph; every later one at that lane count replays it
+(``cache_stats()["executable"]``; ``aot_warm`` does the capture ahead of
+traffic).  The host-side logic (admission, page tables, feeds, greedy)
+is the reference's, line for line, so both packages make the same
+decisions on the same requests.  Pools may be float32, bfloat16 or int8
+(with a float32 per-(row, slot) scale sidecar).
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-beam search, the host-RAM KV tier and sessions, the sharded mesh, AOT
-pre-resolution and speculative decoding.
+beam search, the host-RAM KV tier and sessions, the sharded mesh,
+speculative decoding, ``build_manifest_program`` and the static HBM
+estimates.
 """
 
 from __future__ import annotations
@@ -35,15 +40,18 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from ..models.transformer import PagedTransformer
+from .. import fluid
+from ..fluid import layers
+from ..fluid.analysis.dataflow import ProgramView
+from ..fluid.analysis.recompile import enumerate_buckets
+from ..models import transformer as T
 from ..observability import tracing as _obs_tracing
 from .decoder import _Cfg, dense_kv_bytes_per_slot
 from .paging import (PageAllocator, PoolCapacityError, TRASH_PAGE,
                      chunk_hashes)
 
-__all__ = ["PagedTransformerGenerator", "kv_page_bytes",
-           "default_num_pages"]
+__all__ = ["PagedTransformerGenerator", "copy_weights", "kv_page_bytes",
+           "build_unified_program", "default_num_pages"]
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -53,11 +61,6 @@ def _ceil_div(a: int, b: int) -> int:
 _KV_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
 _KV_TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                    "int8": torch.int8}
-
-# decode-time cache state in a JAX scope (paged pool + sidecar, dense
-# per-lane caches): never weights, so load_params skips them
-_CACHE_MARKERS = ("@kv_pool", "@kv_scales", "@kcache", "@vcache",
-                  "@crossk", "@crossv")
 
 
 def kv_page_bytes(n_layer: int, n_head: int, d_head: int, page_size: int,
@@ -75,6 +78,47 @@ def kv_page_bytes(n_layer: int, n_head: int, d_head: int, page_size: int,
     return data + scales
 
 
+# decode-time cache state (paged pool + sidecar, dense per-lane caches):
+# never weights, so never copy_weights material — carrying them across
+# scopes would drag stale cache contents (and for the pool, the wrong
+# dtype) into the destination generator
+_CACHE_MARKERS = ("@kv_pool", "@kv_scales", "@kcache", "@vcache",
+                  "@crossk", "@crossv")
+
+
+def copy_weights(src_scope, dst_scope, prefix: Optional[str] = None,
+                 dst_prefix: Optional[str] = None) -> int:
+    """Copy vars from ``src_scope`` into ``dst_scope`` EXCEPT cache-state
+    vars (``_CACHE_MARKERS``): two generators sharing one
+    ``param_prefix`` (a float-pool and an int8-pool pair) share weight
+    NAMES, so each needs its own scope, but copying cache vars would
+    carry stale decode state across.  ``prefix`` restricts the copy to
+    one model's ``param_prefix``; ``dst_prefix`` (requires ``prefix``)
+    rewrites the leading prefix on the way over.  Unset placeholders are
+    skipped.  ``src_scope`` may be a JAX scope: its arrays arrive as
+    numpy copies, which the executor uploads at the first step that
+    reads them; a tensor of a port scope is cloned where it lies.
+    Returns the number of vars copied."""
+    if dst_prefix is not None and prefix is None:
+        raise ValueError("copy_weights: dst_prefix requires prefix")
+    n = 0
+    for name in list(src_scope.vars):
+        if any(m in name for m in _CACHE_MARKERS):
+            continue
+        if prefix is not None and not name.startswith(prefix):
+            continue
+        val = src_scope.find_var(name)
+        if val is None:
+            continue
+        out_name = name if dst_prefix is None \
+            else dst_prefix + name[len(prefix):]
+        dst_scope.set_var(out_name, val.detach().clone()
+                          if isinstance(val, torch.Tensor)
+                          else np.array(np.asarray(val)))
+        n += 1
+    return n
+
+
 def default_num_pages(src_len: int, max_out_len: int,
                       page_size: int) -> int:
     """The constructor's pool-sizing default: room for ~8 worst-case
@@ -82,6 +126,83 @@ def default_num_pages(src_len: int, max_out_len: int,
     p_src = _ceil_div(src_len, page_size)
     p_out = _ceil_div(max_out_len, page_size)
     return 8 * (2 * p_src + p_out) + 1
+
+
+def build_unified_program(cfg: _Cfg, *, src_len: int, max_out_len: int,
+                          page_size: int, num_pages: int, chunk_size: int,
+                          param_prefix: str, kv_dtype: str = "float32",
+                          verify_tokens: int = 1,
+                          logit_masks: bool = False,
+                          shard_axis: Optional[str] = None):
+    """Build the unified prefill+decode program DESC — pure Python, no
+    device allocation, no scope; the generator's ``_build_unified`` calls
+    it with its own config.  The pool (and the int8 sidecar) are
+    persistable vars with recorded shapes.  Returns ``(prog, startup,
+    next_ids, logits)``; it serializes to the reference's bytes.
+
+    ``verify_tokens=K`` widens the decode half to a per-lane K-token axis
+    (``trg_word``/``trg_pos``/``self_pages``/``self_offsets`` [b, K],
+    scored causally in one step by ``models.transformer.verify_step``);
+    ``logit_masks=True`` adds a ``logit_mask`` [b, K, vocab] additive
+    float32 feed applied to the logits before the argmax.  The
+    reference's ``shard_axis`` (tensor-parallel annotations) needs a
+    mesh and is not ported."""
+    if shard_axis:
+        raise NotImplementedError("build_unified_program(shard_axis=...): "
+                                  "the sharded serving mesh is not ported "
+                                  "to paddle_tpu_torch")
+    c = cfg
+    C = int(chunk_size)
+    K = int(verify_tokens)
+    p_src = _ceil_div(int(src_len), int(page_size))
+    p_out = _ceil_div(int(max_out_len), int(page_size))
+    pool_shape = [c.n_head, int(num_pages) * c.n_layer * 2,
+                  int(page_size), c.d_key]
+    scales_shape = [1, int(num_pages) * c.n_layer * 2, int(page_size)]
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, startup), fluid.unique_name.guard():
+        block = prog.global_block()
+        pool = block.create_var(name=f"{param_prefix}@kv_pool",
+                                shape=pool_shape, dtype=kv_dtype,
+                                persistable=True)
+        kv_scales = None
+        if kv_dtype == "int8":
+            kv_scales = block.create_var(
+                name=f"{param_prefix}@kv_scales", shape=scales_shape,
+                dtype="float32", persistable=True)
+        pf_word = layers.data("pf_word", [C], "int64")
+        pf_pos = layers.data("pf_pos", [C], "int64")
+        pf_base = layers.data("pf_base", [], "int32")
+        pf_len = layers.data("pf_len", [], "int32")
+        enc_table = layers.data("enc_table", [p_src], "int32")
+        enc_pages = layers.data("enc_pages", [C], "int32")
+        cross_pages = layers.data("cross_pages", [C], "int32")
+        w_offsets = layers.data("w_offsets", [C], "int32")
+        T.paged_prefill_chunk(
+            pf_word, pf_pos, pf_base, pf_len, enc_table, enc_pages,
+            cross_pages, w_offsets, pool, c.src_vocab_size,
+            c.max_length, c.n_layer, c.n_head, c.d_key, c.d_value,
+            c.d_model, c.d_inner_hid, param_prefix, kv_scales=kv_scales)
+        trg_word = layers.data("trg_word", [K], "int64")
+        trg_pos = layers.data("trg_pos", [K], "int64")
+        self_table = layers.data("self_table", [p_out], "int32")
+        self_pages = layers.data("self_pages", [K], "int32")
+        self_offsets = layers.data("self_offsets", [K], "int32")
+        self_lengths = layers.data("self_lengths", [], "int32")
+        self_base = layers.data("self_base", [], "int32")
+        cross_table = layers.data("cross_table", [p_src], "int32")
+        src_lengths = layers.data("src_lengths", [], "int32")
+        logit_mask = layers.data(
+            "logit_mask", [K, c.trg_vocab_size], "float32") \
+            if logit_masks else None
+        logits = T.verify_step(
+            trg_word, trg_pos, self_table, self_pages, self_offsets,
+            self_lengths, self_base, cross_table, src_lengths, pool,
+            c.trg_vocab_size, c.max_length, c.n_layer, c.n_head,
+            c.d_key, c.d_value, c.d_model, c.d_inner_hid, param_prefix,
+            kv_scales=kv_scales, n_tokens=K, logit_mask=logit_mask)
+        next_ids = layers.argmax(logits, axis=-1)
+    return prog, startup, next_ids, logits
 
 
 class _Lane:
@@ -120,17 +241,23 @@ class PagedTransformerGenerator:
     The scheduler surface is page-aware: ``open_slots / admit_slot /
     clear_slot / lane_step`` plus ``can_admit / prompt_infeasible /
     pages_needed`` for admission control.  ``greedy`` decodes a whole
-    batch through the same loop.  Weights come from ``init_params(seed)``
-    or, by their Fluid names, from ``load_params``."""
+    batch through the same loop.  The unified program runs through
+    ``executor`` (default ``fluid.Executor(place)``, ``place`` default
+    ``fluid.CUDAPlace(0)``: pass ``place=fluid.CPUPlace()`` or a CPU
+    executor to run on the CPU) in ``scope`` (default a new one), which
+    holds the pool and the weights under their Fluid names.  Weights come
+    from ``init_params(seed)`` (the unified startup program), by name from
+    ``load_params``, or from another scope through ``copy_weights``."""
 
     page_aware = True
 
     def __init__(self, src_vocab_size, trg_vocab_size, *, n_layer=6,
                  n_head=8, d_key=64, d_value=64, d_model=512,
                  d_inner_hid=2048, max_length=256, src_len=64,
-                 max_out_len=64, device=None, param_prefix="tf",
-                 start_id=0, end_id=1, page_size=8, num_pages=None,
-                 chunk_size=8, prefix_sharing=True, topk_size=None,
+                 max_out_len=64, scope=None, executor=None, place=None,
+                 param_prefix="tf", start_id=0, end_id=1,
+                 page_size=8, num_pages=None, chunk_size=8,
+                 prefix_sharing=True, topk_size=None,
                  kv_dtype="float32", mesh=None, mesh_axes=None,
                  host_pages=0, session_store=None, xfer_width=4,
                  demote_watermark=0):
@@ -152,7 +279,6 @@ class PagedTransformerGenerator:
         if kv_dtype not in _KV_ITEMSIZE:
             raise ValueError(f"kv_dtype={kv_dtype!r}: pick one of "
                              f"{sorted(_KV_ITEMSIZE)}")
-        self.device = resolve_device(device)
         self.cfg = _Cfg(src_vocab_size, trg_vocab_size, n_layer, n_head,
                         d_key, d_value, d_model, d_inner_hid, max_length)
         self.src_len = int(src_len)
@@ -169,7 +295,11 @@ class PagedTransformerGenerator:
             num_pages = default_num_pages(self.src_len, self.max_out_len,
                                           self.page_size)
         self.num_pages = int(num_pages)
+        self.scope = scope or fluid.Scope()
+        self.exe = executor or fluid.Executor(place or fluid.CUDAPlace(0))
         self.kv_dtype = kv_dtype
+        self._pool_name = f"{param_prefix}@kv_pool"
+        self._scales_name = f"{param_prefix}@kv_scales"
         self._pool_shape = (n_head, self.num_pages * n_layer * 2,
                             self.page_size, d_key)
         self._scales_shape = (1, self.num_pages * n_layer * 2,
@@ -181,66 +311,97 @@ class PagedTransformerGenerator:
         self._slots = 0
         self._steps = 0
         self._tracer = _obs_tracing.tracer()
-        self.model = PagedTransformer(
-            src_vocab_size, trg_vocab_size, n_layer, n_head, d_key,
-            d_value, d_model, d_inner_hid, max_length).to(self.device)
-        self.model.eval()
-        self.model.requires_grad_(False)
+        self._build_unified()
         self._reset_pool()
 
     # -- device pool ---------------------------------------------------------
     def _reset_pool(self):
-        self.pool = torch.zeros(self._pool_shape,
-                                dtype=_KV_TORCH_DTYPE[self.kv_dtype],
-                                device=self.device)
-        self.kv_scales = (torch.zeros(self._scales_shape,
-                                      dtype=torch.float32,
-                                      device=self.device)
-                          if self.kv_dtype == "int8" else None)
+        """A zero pool (and, for int8, a zero scale sidecar) on the
+        executor's device, as persistable vars of the scope."""
+        dev = self.exe.device
+        self.scope.set_var(self._pool_name, torch.zeros(
+            self._pool_shape, dtype=_KV_TORCH_DTYPE[self.kv_dtype],
+            device=dev))
+        if self.kv_dtype == "int8":
+            self.scope.set_var(self._scales_name, torch.zeros(
+                self._scales_shape, dtype=torch.float32, device=dev))
+
+    # -- program builders ----------------------------------------------------
+    def _build_unified(self):
+        """ONE program = one step: the chunked-prefill tower (causal
+        encoder chunk + cross-KV page writes) AND the paged decode step
+        over every lane.  Lanes not in a given phase ride along with
+        trash-page writes and length-1 masks, so any mix of admitting /
+        prefilling / decoding lanes replays the same captured step."""
+        self._unified = build_unified_program(
+            self.cfg, src_len=self.src_len, max_out_len=self.max_out_len,
+            page_size=self.page_size, num_pages=self.num_pages,
+            chunk_size=self.chunk, param_prefix=self.prefix,
+            kv_dtype=self.kv_dtype)
+
+    def _run(self, feed, fetch_list):
+        """One unified step on ``feed`` through the executor, in this
+        generator's scope; the fetches stay device tensors."""
+        with fluid.scope_guard(self.scope):
+            return self.exe.run(self._unified[0], feed=feed,
+                                fetch_list=fetch_list, return_numpy=False,
+                                mode="infer")
 
     # -- parameters ----------------------------------------------------------
     def init_params(self, seed: Optional[int] = None) -> None:
-        """Random-init every parameter from a seeded CPU
-        ``torch.Generator`` (the same weights on every device)."""
-        gen = torch.Generator()
-        gen.manual_seed(0 if seed is None else int(seed))
-        self.model.init_params(gen)
+        """Random-init every parameter with the unified startup program
+        (the Fluid initializers, drawn on the host from ``seed``).  It
+        runs eagerly, on an executor of its own at this generator's
+        place: a program that draws on the host is never captured, and
+        the generator's executor would refuse to run it twice."""
+        if seed is not None:
+            self._unified[1].random_seed = seed
+        with fluid.scope_guard(self.scope):
+            fluid.Executor(self.exe.place).run(self._unified[1])
+
+    def _param_vars(self) -> Dict[str, object]:
+        """The unified program's parameters: its persistable vars less
+        the cache state, by name."""
+        return {n: vd for n, vd in
+                self._unified[0].desc.global_block().vars.items()
+                if vd.persistable and not any(m in n for m in _CACHE_MARKERS)}
 
     def load_params(self, named_arrays: Mapping[str, np.ndarray],
                     prefix: Optional[str] = None) -> int:
         """Carry weights across from a JAX scope: ``named_arrays`` maps
         Fluid names (``tf.enc0.self.q.w``, ``tf.vocab_proj.w``, ...) to
-        arrays.  Cache variables (``@kv_pool`` and the like) and names
-        outside ``prefix`` (default: this generator's ``param_prefix``)
-        are skipped, as the reference's ``copy_weights`` skips them.
-        Every parameter of the model must be present with its shape;
-        returns the number loaded."""
+        arrays, which go into this generator's scope under its own
+        ``param_prefix``.  Cache variables (``@kv_pool`` and the like)
+        and names outside ``prefix`` (default: this generator's
+        ``param_prefix``) are skipped, as ``copy_weights`` skips them.
+        Every parameter of the unified program must be present with its
+        shape, and nothing is loaded otherwise; returns the number
+        loaded."""
         prefix = self.prefix if prefix is None else prefix
-        params = dict(self.model.named_parameters())
-        seen = set()
+        params = self._param_vars()
+        vals = {}
         for name, arr in named_arrays.items():
             if any(m in name for m in _CACHE_MARKERS) \
                     or not name.startswith(prefix + "."):
                 continue
-            key = name[len(prefix) + 1:]
-            p = params.get(key)
-            if p is None:
+            dst = f"{self.prefix}.{name[len(prefix) + 1:]}"
+            vd = params.get(dst)
+            if vd is None:
                 raise KeyError(f"load_params: {name!r} names no parameter "
                                f"of the paged Transformer")
-            val = torch.tensor(np.asarray(arr))
-            if tuple(val.shape) != tuple(p.shape):
+            arr = np.asarray(arr)
+            if tuple(arr.shape) != tuple(vd.shape):
                 raise ValueError(f"load_params: {name!r} has shape "
-                                 f"{tuple(val.shape)}, the model wants "
-                                 f"{tuple(p.shape)}")
-            with torch.no_grad():
-                p.copy_(val.to(p.dtype))
-            seen.add(key)
-        missing = sorted(set(params) - seen)
+                                 f"{tuple(arr.shape)}, the model wants "
+                                 f"{tuple(vd.shape)}")
+            vals[dst] = arr.astype(vd.dtype)
+        missing = sorted(set(params) - set(vals))
         if missing:
             raise KeyError(f"load_params: no value for {len(missing)} "
                            f"parameter(s) under {prefix!r}, e.g. "
-                           f"{prefix}.{missing[0]}")
-        return len(seen)
+                           f"{prefix}.{missing[0][len(self.prefix) + 1:]}")
+        fluid.scope_from_numpy(vals, self.exe.place, scope=self.scope)
+        return len(vals)
 
     # -- admission accounting ------------------------------------------------
     def _prompt_pages(self, n_tokens: int) -> int:
@@ -494,13 +655,14 @@ class PagedTransformerGenerator:
         return feed
 
     def run_feed(self, feed: Mapping[str, np.ndarray]):
-        """Run one unified step on this generator's pool: the feed goes to
-        the device, the prefill tower and the decode step write the pool
-        in place.  Returns (next_ids int32 [B, 1], logits [B, 1, vocab])
-        as device tensors."""
-        f = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-             for k, v in feed.items()}
-        return self.model.unified_step(f, self.pool, self.kv_scales)
+        """Run one unified step on ``feed`` through the executor: the
+        prefill tower and the decode step write the pool in place.
+        Returns (next_ids int32 [B, 1], logits [B, 1, vocab]) as device
+        tensors (a signature of its own beside ``lane_step``'s, over the
+        same pool)."""
+        _, _, next_ids, logits = self._unified
+        nxt, lg = self._run(feed, [next_ids, logits])
+        return nxt, lg
 
     def absorb_step(self, next_ids) -> Dict[int, int]:
         """Host bookkeeping after a step ran on ``step_feed()``'s feed:
@@ -524,11 +686,12 @@ class PagedTransformerGenerator:
 
     def lane_step(self) -> Dict[int, int]:
         """ONE step over every lane: prefill lanes advance one source
-        chunk, decode lanes emit one token.  Returns {slot: token} for
-        the lanes that decoded."""
+        chunk, decode lanes emit one token.  The next ids are the one
+        fetch, and reading them is the step's one host wait.  Returns
+        {slot: token} for the lanes that decoded."""
         if self._slots == 0:
             raise RuntimeError("open_slots() before lane_step()")
-        nxt, _logits = self.run_feed(self.step_feed())
+        nxt, = self._run(self.step_feed(), [self._unified[2]])
         return self.absorb_step(nxt.cpu().numpy())
 
     # -- greedy --------------------------------------------------------------
@@ -568,6 +731,29 @@ class PagedTransformerGenerator:
             self.clear_slot(i)
         return np.asarray([row[:target] for row in out], np.int64)
 
+    # -- ahead-of-traffic warm-up -----------------------------------------
+    def bucket_set(self, n_slots: int):
+        """The unified program's closed signature set at the given lane
+        count: the batch axis is the ONLY dynamic feed axis, so this
+        enumerates to exactly one signature per serving width (one
+        captured step on the card)."""
+        return enumerate_buckets(ProgramView(self._unified[0].desc),
+                                 batch_buckets=(int(n_slots),))
+
+    def aot_warm(self, n_slots: int) -> None:
+        """Resolve the unified step AT THE SERVING LANE COUNT without
+        admitting any request: one all-idle ``lane_step`` — every lane
+        rides along with trash-page writes and length-1 masks, so no KV
+        state or lane bookkeeping changes.  On the card this is the
+        step's capture in a CUDA graph.  Lanes are left open at
+        ``n_slots`` (the scheduler re-opens them at attach anyway)."""
+        if any(lane.phase != "idle" for lane in self._lanes):
+            raise RuntimeError(
+                "aot_warm: lanes are busy — pre-resolution is for "
+                "load/publish time, not mid-traffic")
+        self.open_slots(int(n_slots))
+        self.lane_step()
+
     # -- accounting ----------------------------------------------------------
     def kv_bytes_per_slot_dense(self) -> int:
         """What ONE lane costs in the dense-cache decoder — the baseline
@@ -581,14 +767,15 @@ class PagedTransformerGenerator:
         return self.page_bytes // self.page_size
 
     def cache_stats(self) -> Dict[str, object]:
-        """Page / prefix / pool-bytes accounting (the reference's
-        ``cache_stats`` without its executable-cache, shard and tier
-        blocks)."""
+        """Page / prefix / pool-bytes accounting next to the executor's
+        executable-cache counters (the zero-recompile assertion surface;
+        the reference's shard and tier blocks are not ported)."""
         pages = self.alloc.stats()
         active = sum(1 for lane in self._lanes
                      if lane.phase not in ("idle",))
         in_use_bytes = self.page_bytes * pages["in_use"]
         return {
+            "executable": self.exe.cache_stats()["executable"],
             "pages": pages,
             "steps": self._steps,
             "hbm": {

@@ -25,7 +25,7 @@ at zero so the two allocators report the same schema.
 
 Soundness note: prefix K/V only depends on the prefix because the paged
 serving path encodes the source CAUSALLY
-(``models/transformer.PagedTransformer.paged_prefill_chunk``).
+(``models/transformer.paged_prefill_chunk``).
 """
 
 from __future__ import annotations

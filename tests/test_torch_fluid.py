@@ -97,6 +97,32 @@ def test_layer_norm_matches_reference(axis):
         _close(g, w, GRAD_TOL)
 
 
+@pytest.mark.parametrize("axis", [1, 2])
+def test_layer_norm_without_grad_matches_reference(axis):
+    """Under ``no_grad`` (how serving runs a step) the emitter takes its
+    fused route: Y, Mean and Variance as the reference's, in float32 and
+    for a bf16 input."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(3, 5, 16).astype(np.float32) * 2 + 1
+    n = 16 if axis == 2 else 80
+    arrays = {"X": x, "Scale": rng.randn(n).astype(np.float32),
+              "Bias": rng.randn(n).astype(np.float32)}
+    attrs = {"epsilon": 1e-5, "begin_norm_axis": axis}
+    jo = _emit_jax("layer_norm", {k: [jnp.asarray(v)]
+                                  for k, v in arrays.items()}, attrs)
+    ins = {k: [torch.from_numpy(v)] for k, v in arrays.items()}
+    with torch.no_grad():
+        to = _emit_port("layer_norm", ins, attrs)
+        ins["X"] = [ins["X"][0].to(torch.bfloat16)]
+        tb = _emit_port("layer_norm", ins, attrs)
+    for slot in ("Y", "Mean", "Variance"):
+        _close(to[slot][0], jo[slot][0], OUT_TOL)
+    assert tb["Y"][0].dtype == torch.bfloat16
+    np.testing.assert_allclose(tb["Y"][0].float().numpy(),
+                               np.asarray(jo["Y"][0]), rtol=2 ** -6,
+                               atol=2 ** -6)
+
+
 @pytest.mark.parametrize("p", [0.1, 0.5])
 def test_dropout_mask_is_the_references(p):
     """Same uint32 seed (the JAX op draws it from its key), same mask."""

@@ -4,8 +4,11 @@
   ``profile_serving`` and ``tune_flash_bwd`` import in a process where
   importing ``jax`` or ``paddle_tpu`` raises.
 * Without CUDA, an entry point raises unless the caller asks for the
-  CPU by name (``device="cpu"``, ``fluid.CPUPlace()``); ``chip_smoke.py`` exits non-zero and prints no result,
-  also when it sits in a directory without the rest of the repo.
+  CPU by name (``device="cpu"``, ``fluid.CPUPlace()``, a generator's
+  ``place=fluid.CPUPlace()``); ``chip_smoke.py`` exits non-zero and
+  prints no result,
+  also when it sits in a directory without the rest of the repo, and
+  it fails a faulty serving profile of its ``--parent-package`` turns.
 * Every public function (and method) defined in a file that both
   packages have takes the reference's parameter names, in its order,
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
@@ -99,7 +102,8 @@ def test_entry_points_refuse_to_fall_back(monkeypatch):
     assert torch.backends.cuda.matmul \
         .allow_bf16_reduced_precision_reduction is False
     with pytest.raises(NotImplementedError, match="beam"):
-        PagedTransformerGenerator(24, 24, device="cpu", topk_size=4)
+        PagedTransformerGenerator(24, 24, place=fluid.CPUPlace(),
+                                  topk_size=4)
 
 
 def test_executor_runs_on_the_card_unless_given_cpu_place(monkeypatch):
@@ -129,28 +133,54 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok"' not in out.stdout
 
 
+def _profile(package, **kw):
+    rec = {"package": package, "requests": 8, "finished": 8, "steps": 33,
+           "unprofiled": {"steps": 40}, "pool_gib": 0.375,
+           "peak_mem_gib": 0.8 if package == "parent" else 0.95}
+    return dict(rec, **kw)
+
+
+@pytest.mark.parametrize("fault", [None, "error", "unfinished", "steps",
+                                   "pool_cloned"])
+def test_chip_smoke_fails_a_faulty_serving_profile(fault):
+    """``chip_smoke.py --parent-package`` holds the serving profiles run
+    in turns (parent, this, this, parent): a run that failed or left a
+    request unfinished, runs that took different steps, and a median
+    peak that grows over the parent's by the pool's bytes each fail the
+    smoke."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    peaks = [_profile(p) for p in ("parent", "this", "this", "parent")]
+    if fault == "error":
+        peaks[1] = {"package": "this", "error": 1, "stderr": "Traceback"}
+    elif fault == "unfinished":
+        peaks[2]["finished"] = 7
+    elif fault == "steps":
+        peaks[3]["steps"] = 34
+    elif fault == "pool_cloned":
+        for p in peaks[1:3]:
+            p["peak_mem_gib"] = 0.8 + 0.375
+    fails = chip_smoke.in_turns_failures(peaks)
+    assert (fails == []) == (fault is None), fails
+
+
 # reference parameters a port function does not take, by (file under the
 # package, function): the port's own internals (emitter contexts, the
-# lowering, plain cache writers that are not op emitters) and the decode
-# caches and serving tiers the port has not taken on yet
+# lowering) and the dense decode caches and serving tiers the port has
+# not taken on yet
 NOT_TAKEN = {
     ("fluid/core/registry.py", "EmitCtx.__init__"): {"rng", "lower_block"},
     ("fluid/core/registry.py", "OpInfo.__init__"): {"grad_maker",
                                                      "needs_out_slots"},
     ("fluid/lowering.py", "run_block_ops"): {"desc", "block_idx",
                                              "step_key"},
-    ("fluid/ops/cache_ops.py", "paged_cache_write"): {"ctx"},
-    ("fluid/ops/cache_ops.py", "quantized_paged_cache_write"): {"ctx"},
     ("models/transformer.py", "multi_head_attention"): {
-        "cache", "static_kv", "paged_cache", "paged_static"},
-    ("models/transformer.py", "encoder_layer"): {"paged_cache"},
-    ("models/transformer.py", "encoder"): {"paged_caches"},
-    ("models/transformer.py", "decoder_layer"): {
-        "cache", "cross_kv", "paged_cache", "paged_cross"},
-    ("models/transformer.py", "decoder"): {
-        "caches", "cross_kvs", "paged_caches", "paged_crosses"},
-    ("serving/paged_decoder.py", "PagedTransformerGenerator.__init__"): {
-        "scope", "executor", "place"},
+        "cache", "static_kv"},
+    ("models/transformer.py", "decoder_layer"): {"cache", "cross_kv"},
+    ("models/transformer.py", "decoder"): {"caches", "cross_kvs"},
     ("serving/paging.py", "PageAllocator.__init__"): {"host_pages"},
 }
 

@@ -10,8 +10,9 @@
   and an emulation of the kernel's split-and-merge (per-split online
   softmax partials, then their log-sum-exp merge) agrees with the same
   JAX entry within the same 1e-5.
-* ``paged_cache_write``, ``quantized_paged_cache_write``,
-  ``abs_max_scale`` and ``quantize_array``: bit for bit.
+* the ``paged_cache_write`` and ``quantized_paged_cache_write`` op
+  emitters (called with an attribute context, as the JAX emitters
+  are), ``abs_max_scale`` and ``quantize_array``: bit for bit.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
@@ -274,9 +275,9 @@ def test_paged_cache_write_bitwise(kv_dtype, chunk):
         jnp.asarray(offsets))
     pool = torch.zeros(H, R, PS, D, dtype=tdt)
     got = cache_ops.paged_cache_write(
-        pool, torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(pages), torch.from_numpy(offsets), layer=1,
-        n_layer=L)
+        _Ctx(layer=1, n_layer=L), pool, torch.from_numpy(k),
+        torch.from_numpy(v), torch.from_numpy(pages),
+        torch.from_numpy(offsets))
     assert got is pool                                 # written in place
     np.testing.assert_array_equal(got.to(torch.float32).numpy(),
                                   np.asarray(want).astype(np.float32))
@@ -293,10 +294,11 @@ def test_quantized_paged_cache_write_bitwise(chunk):
         jnp.asarray(pages), jnp.asarray(offsets))
     pool = torch.zeros(H, R, PS, D, dtype=torch.int8)
     scales = torch.zeros(1, R, PS)
-    cache_ops.quantized_paged_cache_write(
-        pool, scales, torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(pages), torch.from_numpy(offsets), layer=2,
-        n_layer=L)
+    got_pool, got_scales = cache_ops.quantized_paged_cache_write(
+        _Ctx(layer=2, n_layer=L), pool, scales, torch.from_numpy(k),
+        torch.from_numpy(v), torch.from_numpy(pages),
+        torch.from_numpy(offsets))
+    assert got_pool is pool and got_scales is scales   # written in place
     np.testing.assert_array_equal(pool.numpy(), np.asarray(want_pool))
     np.testing.assert_array_equal(scales.numpy(), np.asarray(want_scales))
 

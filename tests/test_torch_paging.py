@@ -16,6 +16,7 @@ import torch
 from paddle_tpu.serving import PageAllocator as JaxAllocator
 from paddle_tpu.serving import PoolCapacityError as JaxPoolCapacityError
 from paddle_tpu.serving.paging import chunk_hashes as jax_chunk_hashes
+from paddle_tpu_torch import fluid
 from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       PageAllocator,
                                       PagedTransformerGenerator,
@@ -30,7 +31,7 @@ def _gen(num_pages, max_out_len=OUT, prefix_sharing=True, seed=2):
     gen = PagedTransformerGenerator(
         V, V, n_layer=NL, n_head=NH, d_key=DK, d_value=DK, d_model=DM,
         d_inner_hid=DI, max_length=64, src_len=SRC,
-        max_out_len=max_out_len, device="cpu", page_size=PS,
+        max_out_len=max_out_len, place=fluid.CPUPlace(), page_size=PS,
         chunk_size=CHUNK, num_pages=num_pages,
         prefix_sharing=prefix_sharing)
     gen.init_params(seed=seed)
@@ -192,12 +193,16 @@ def test_scheduler_backpressure_and_cancel():
 
 
 def test_load_params_refuses_incomplete_or_misshapen_weights():
+    """The parameter set is the unified program's persistable vars less
+    the pool: every one must come with its shape, and a refused call
+    loads nothing."""
     gen = _gen(num_pages=8)
-    arrays = {f"tf.{k}": v.numpy().copy()
-              for k, v in gen.model.state_dict().items()}
+    params = list(gen._param_vars())
+    arrays = {n: v * 2 for n, v in
+              fluid.scope_to_numpy(gen.scope, params).items()}
     arrays["tf@kv_pool"] = np.zeros(3)              # cache vars: skipped
     arrays["other.enc0.self.q.w"] = np.zeros(3)     # another model: skipped
-    assert gen.load_params(arrays) == len(list(gen.model.parameters()))
+    w = gen.scope.find_var("tf.vocab_proj.w").clone()
     with pytest.raises(KeyError, match="no value"):
         gen.load_params({k: v for k, v in arrays.items()
                          if k != "tf.vocab_proj.w"})
@@ -205,5 +210,7 @@ def test_load_params_refuses_incomplete_or_misshapen_weights():
         gen.load_params(dict(arrays, **{"tf.vocab_proj.w": np.zeros((2, 2))}))
     with pytest.raises(KeyError, match="names no parameter"):
         gen.load_params(dict(arrays, **{"tf.enc9.self.q.w": np.zeros(1)}))
-    assert torch.equal(gen.model.vocab_proj.w,
+    assert torch.equal(gen.scope.find_var("tf.vocab_proj.w"), w)
+    assert gen.load_params(arrays) == len(params)
+    assert torch.equal(gen.scope.find_var("tf.vocab_proj.w"),
                        torch.from_numpy(arrays["tf.vocab_proj.w"]))

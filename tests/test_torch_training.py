@@ -15,7 +15,7 @@ gradient near zero can flip the sign of a ~1e-4 step).
 
 With dropout on, the port's steps are deterministic in (seed, step) and
 train; and the trained scope serves through the port's paged generator
-under its ``param_prefix`` names.  Under ``torch.profiler`` the executor
+under its ``param_prefix`` names, with the training graph's logits.  Under ``torch.profiler`` the executor
 labels each op's work with its type.
 """
 
@@ -27,7 +27,7 @@ from paddle_tpu import fluid as jfluid
 from paddle_tpu.models import transformer as JT
 from paddle_tpu_torch import fluid as tfluid
 from paddle_tpu_torch.models import transformer as TT
-from paddle_tpu_torch.serving import PagedTransformerGenerator
+from paddle_tpu_torch.serving import PagedTransformerGenerator, copy_weights
 
 V, S, NL, NH, DM = 64, 16, 2, 2, 16
 LOSS_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -130,7 +130,7 @@ def test_dropout_steps_are_seeded_train_and_serve():
         V, V, n_layer=NL, n_head=NH, d_key=DM // NH, d_value=DM // NH,
         d_model=DM, d_inner_hid=2 * DM, max_length=2 * S, src_len=S,
         max_out_len=4, page_size=4, num_pages=32, chunk_size=4,
-        device="cpu", param_prefix="tf")
+        place=tfluid.CPUPlace(), param_prefix="tf")
     assert gen.load_params(tfluid.scope_to_numpy(scope, params)) \
         == len(params)
     out = gen.greedy(feed["src_word"][:2], [S, S - 3], max_new=4,
@@ -139,34 +139,39 @@ def test_dropout_steps_are_seeded_train_and_serve():
 
 
 def test_serving_modules_compute_the_fluid_programs_logits():
-    """The serving nn.Modules and the Fluid ops are two implementations of
-    one model; this ties them.  A scope initialized by the Fluid startup
-    program is loaded into the paged generator, which decodes 4 tokens
-    greedily; the Fluid program's ``predict``, fed the same source and
-    the decoded prefix, gives the same logits at each position.  The
-    serving encoder is causal (the reference's chunked prefill), so the
-    program gets a causal source bias.  float32 on both sides, summation
-    order only: 1e-4 absolute on logits of magnitude ~1."""
-    main, startup = tfluid.Program(), tfluid.Program()
-    main.random_seed = startup.random_seed = 7
-    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+    """The serving program and the training program are one model: a
+    port scope trained for 2 Adam steps, copied by ``copy_weights`` into
+    the paged generator's scope, decodes 4 tokens greedily through the
+    generator's Executor; the training graph's ``predict``, fed the same
+    source and the decoded prefix, gives the same logits at each
+    position.  The serving encoder is causal (the reference's chunked
+    prefill), so the forward gets a causal source bias.  float32 on both
+    sides, summation order only: 1e-4 absolute on logits of magnitude
+    ~1."""
+    main, startup, loss = build(tfluid, TT, materialize_attn_bias=False,
+                                fused_vocab_loss=True)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    for _ in range(2):
+        exe.run(main, feed=feed_data(False), fetch_list=[loss], scope=scope)
+    forward = tfluid.Program()
+    with tfluid.program_guard(forward, tfluid.Program()), \
+            tfluid.unique_name.guard():
         _, predict, _ = TT.transformer(
             V, V, 2 * S, n_layer=NL, n_head=NH, d_key=DM // NH,
             d_value=DM // NH, d_model=DM, d_inner_hid=2 * DM,
             dropout_rate=0.0, src_seq_len=S, trg_seq_len=S, fused=True,
             materialize_attn_bias=True, param_prefix="tf")
-    exe = tfluid.Executor(tfluid.CPUPlace())
-    scope = tfluid.Scope()
-    exe.run(startup, scope=scope)
-    params = [p.name for p in main.global_block().all_parameters()]
 
     n_new = 4
     gen = PagedTransformerGenerator(
         V, V, n_layer=NL, n_head=NH, d_key=DM // NH, d_value=DM // NH,
         d_model=DM, d_inner_hid=2 * DM, max_length=2 * S, src_len=S,
         max_out_len=n_new, page_size=4, num_pages=32, chunk_size=4,
-        device="cpu", param_prefix="tf")
-    gen.load_params(tfluid.scope_to_numpy(scope, params))
+        place=tfluid.CPUPlace(), param_prefix="tf")
+    assert copy_weights(scope, gen.scope, prefix="tf") >= \
+        len(main.global_block().all_parameters())
     src = np.random.RandomState(3).randint(2, V, S)
     gen.open_slots(1)
     gen.admit_slot(0, src, max_new=n_new)
@@ -189,7 +194,7 @@ def test_serving_modules_compute_the_fluid_programs_logits():
             "trg_src_attn_bias": TT.make_attn_bias(full, S, NH),
             "lbl_word": np.zeros((1, S), np.int64),
             "lbl_weight": np.ones((1, S), np.float32)}
-    got, = exe.run(main, feed=feed, fetch_list=[predict], scope=scope)
+    got, = exe.run(forward, feed=feed, fetch_list=[predict], scope=scope)
     np.testing.assert_allclose(np.asarray(got)[0, :n_new], np.stack(served),
                                rtol=0, atol=1e-4)
     assert tokens == list(np.argmax(np.asarray(got)[0, :n_new], axis=-1))

@@ -59,7 +59,34 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    one's median peak exceeds the parent's by less than the pool's
    bytes); then replay the requests teacher-forced on the card and on
    the CPU (``place=CPUPlace()``, plain path) with the same weights;
-6. train: build ``transformer()`` at Transformer-base width through
+6. beam search at full width, 4 seeded sources of 64-256 tokens, W = 4,
+   32 new tokens, once per pool dtype: ``PagedTransformerGenerator.beam``
+   on the card twice (the first run captures the unified step at 4
+   lanes, the beam step at (4, 4) and the backtrace: 3 executable
+   misses; the second misses none and hits every step), 12 ragged
+   launches a replayed beam step and 12 split and merge kernel nodes in
+   its graph, the beam step's 12 ragged calls at 16 lanes held against
+   the plain version at the arguments of the second run's first and
+   last steps (their shared page tables, lengths and bases, over the
+   pool the run left), the pool held once, copy-on-write copies made,
+   no page left in use and the allocator's invariants; the card's beam
+   against the CPU port's from the same weights (ids and parents equal
+   at every step, scores within 1e-4 relative for the float32 pool, the
+   same backtrace; the float error of a step is a fixed bound, the
+   teacher-forced logit difference and a rounding a step; a step whose
+   W+1 best candidate totals lie within it is printed, and a difference
+   there ends the comparison as a near tie), and teacher-forced, the
+   CPU selecting along the card's trajectory, at every step (ids and
+   parents equal but at a near tie, scores within a step's tolerance);
+   the bf16 and int8 pools' ids against the float32 pool's (at least
+   0.9 agree); the dense ``TransformerGenerator(causal_encoder=True)``'s
+   beam on the card against the paged beam; the dense generator's
+   greedy streams through ``ContinuousBatchingScheduler`` against the
+   paged generator's, token for token; and at 2 layers the full re-run
+   decoder's greedy against both; the beam step's median ms (paged by
+   pool dtype, dense), hypothesis tokens/s, executable hits and misses
+   and COW copies go to the ``beam`` line;
+7. train: build ``transformer()`` at Transformer-base width through
    ``fluid.layers`` with ``Adam(1e-4).minimize``; run 3 steps at batch 2
    on the card (``Executor.run`` captures step 1 in a CUDA graph, steps
    2 and 3 replay it) and hold step 3 against the same step run eagerly
@@ -72,19 +99,19 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    path: 18 fused attentions per step, each launching the forward, dq
    and dk/dv kernels once; 19 executable hits, the captured graph's
    kernel nodes naming 18 of each), with a falling loss;
-7. serve 4 requests with the trained scope, loaded by name into a
+8. serve 4 requests with the trained scope, loaded by name into a
    ``PagedTransformerGenerator`` (``param_prefix="tf"``), every step a
    replay;
-8. train the same Transformer in bench.py's own bf16 recipe
+9. train the same Transformer in bench.py's own bf16 recipe
    (``amp_dtype="bfloat16"``: bf16 activations, f32 master weights; the
-   same startup program and dropout salts): step 3 at batch 2 as in 6,
+   same startup program and dropout salts): step 3 at batch 2 as in 7,
    against the eager step and against the CPU in the amp and in the
    float32 program (loss, every gradient in relative L2, and the card's
    distance to the float32 gradients against the CPU's); then 20 steps
    at batch 64 on the card, 18 launches of each flash kernel per step,
    every one on bf16 inputs (counted by dtype at the wrapper), graph and
-   hits as in 6, with a falling loss;
-9. the book's first two chapters on the card, each step 3 as in 6
+   hits as in 7, with a falling loss;
+10. the book's first two chapters on the card, each step 3 as in 7
    against the eager step and the CPU port (loss, every gradient), every
    step after the first a replay: ``fit_a_line``
    (200 SGD steps at batch 32, the loss down ~100x), ``conv_net`` (20
@@ -93,7 +120,7 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    images as a bf16 tensor feed), with falling losses; then fit_a_line
    through ``Executor.run_steps``, ``run_pipeline`` and two scopes in
    turns on one executor, each bitwise equal to ``run`` step by step;
-10. at the training path's shapes (B=64, L=256, dropout 0.1, causal and
+11. at the training path's shapes (B=64, L=256, dropout 0.1, causal and
    not), in float32 and in bf16, hold ``flash_attention`` and its
    autograd backward against the plain forward and backward (out, lse,
    dq, dk, dv); then time every kernel, its plain version and the
@@ -117,7 +144,7 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    its own entries, each in turns with the kernel's (``parent_ms``,
    ``parent_ms_dropout0``; the forward's ``parent_ms_eager``,
    ``parent_host_ms``);
-11. hold the fused LSTM forward kernel (``lstm_forward``) against its
+12. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
    activations at H=200, B=1, T=1, and the edges of the kernel's
@@ -126,22 +153,22 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    positions exactly 0; and for the peephole cases and the variants the
    gradients of every input, through the kernel forward and the
    hand-written backward, against autograd through the plain loop);
-12. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
+13. train the RNN benchmark model (``bench.py``'s ``bench_lstm``: emb
    128, vocab 30000, 2 x (fc + dynamic_lstm) at hidden 512, last step,
    fc softmax, Adam 2e-3) at batch 128, T=100: step 3 at batch 4 as in
-   6 (loss, every gradient), then 20 steps on the card on one fixed
+   7 (loss, every gradient), then 20 steps on the card on one fixed
    ragged batch (2 kernel launches per step and 2 ``lstm_fwd`` kernel
    nodes in the graph, 19 hits, falling loss);
-13. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
+14. train the book's ``stacked_lstm_net`` (emb 128, hid 512, 3 stacked
    LSTMs, forward and reverse, with peepholes) for 20 steps at batch
    128, T=100, ragged lengths (3 launches per step and graph nodes, 19
    hits, falling loss);
-14. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
+15. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
    off) and cuDNN's own input product alone at B=128, T=100, H = 256,
    512 and 1280.
 
 It prints the card's name and power limit, a ``serving`` line, a
-``training`` line, a ``training_bf16`` line, a ``book`` line, an
+``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book`` line, an
 ``lstm`` line, a ``kernels`` line (the flash kernels once in float32 and
 once, ``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
 failed check exits 1 without the last line.
@@ -226,7 +253,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-# -- phases 3 and 10: the ragged kernel against its plain version ----------
+# -- phases 3 and 11: the ragged kernel against its plain version ----------
 
 def kernel_cases(torch, gen):
     """Argument sets at the serving path's shapes: 8 lanes, 8 heads,
@@ -550,13 +577,19 @@ def step_graph(exe):
     if len(graphs) != 1:
         return {"graphs": len(graphs)}
     names, nodes = kernel_nodes(graphs[0])
+    return {"graphs": 1, "nodes": nodes, "kernel_nodes": len(names),
+            "by_family": graph_families(names)}
+
+
+def graph_families(names):
+    """This repo's kernel families among a graph's kernel nodes (their
+    mangled names, ``kernel_nodes``) -> {family: nodes}."""
     fams = {}
     for n in names:
         f = FAMILY_OF.get(source_name(n))
         if f:
             fams[f] = fams.get(f, 0) + 1
-    return {"graphs": 1, "nodes": nodes, "kernel_nodes": len(names),
-            "by_family": fams}
+    return fams
 
 
 def device_kernels_per_call(torch, calls):
@@ -630,16 +663,18 @@ def run_ragged_extra(torch, fa, extra, failures):
     return recs, worst
 
 
-# -- phases 5 and 7: serving ------------------------------------------------
+# -- phases 5 and 8: serving ------------------------------------------------
 
-def make_generator(device, kv_dtype):
+def make_generator(device, kv_dtype, model=None):
     """The serving configuration's generator on ``device`` ("cuda" or
-    "cpu"): its executor at ``fluid.CUDAPlace(0)`` or ``CPUPlace()``."""
+    "cpu"): its executor at ``fluid.CUDAPlace(0)`` or ``CPUPlace()``;
+    ``model`` replaces MODEL's dims (another depth)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.serving import PagedTransformerGenerator
     place = fluid.CUDAPlace(0) if device == "cuda" else fluid.CPUPlace()
     return PagedTransformerGenerator(VOCAB, VOCAB, kv_dtype=kv_dtype,
-                                     place=place, **MODEL, **SERVE)
+                                     place=place, **(model or MODEL),
+                                     **SERVE)
 
 
 def prompts(np, seed=SEED, lengths=None):
@@ -850,7 +885,510 @@ def teacher_forced(np, gpu, cpu, srcs):
     return worst, agree / max(1, total)
 
 
-# -- phases 4 and 10: flash kernels against their plain versions -----------
+# -- phase 6: beam search on the paged engine, the dense generator and the
+# full re-run decoder ----------------------------------------------------------
+
+# 4 sources of 64 .. src_len tokens, W beams, MAX_NEW steps each
+BEAM_SOURCES, BEAM_W = 4, 4
+# the smaller model the full re-run decoder is held to the others at
+RERUN_LAYERS = 2
+# card vs CPU beam scores, float32 pool: fp32 end to end, summation
+# order only (the ragged kernel's split walk, cuBLAS against the CPU's
+# GEMMs), 1e-4 relative as the reference holds its dense and paged beams
+BEAM_SCORE_RTOL, BEAM_SCORE_ATOL = 1e-4, 1e-5
+# the bf16 and int8 pools' beams against the float32 pool's (ids that
+# agree), as tests/test_paged_serving.py holds the int8 pool's
+BEAM_AGREE = 0.9
+
+
+def beam_sources(np):
+    """BEAM_SOURCES seeded prompts -> (tokens [b, src_len], lengths)."""
+    seqs = prompts(np, SEED + 2)[:BEAM_SOURCES]
+    tok = np.zeros((len(seqs), SERVE["src_len"]), np.int64)
+    for i, q in enumerate(seqs):
+        tok[i, :len(q)] = q
+    return tok, np.asarray([len(q) for q in seqs], np.int32)
+
+
+def score_tol(kv, t):
+    """How far two runs' accumulated scores may drift apart after step t
+    (1-based): float32 pools by the reference's 1e-4 relative; bf16 and
+    int8 pools by the teacher-forced logit limit, twice a step (a
+    log-softmax moves by at most twice its logits' largest change)."""
+    if kv == "float32":
+        return lambda x: BEAM_SCORE_ATOL + BEAM_SCORE_RTOL * abs(x)
+    return lambda x: 2 * LOGIT_ATOL[kv] * t
+
+
+@contextlib.contextmanager
+def watch_runs(exe, prog, on_run, extra_fetch=(), on_start=None):
+    """While active, each ``exe.run`` of ``prog`` also fetches
+    ``extra_fetch`` and calls ``on_run(feed, outs, seconds)`` (host
+    clock, the fetch's wait included), after ``on_start()`` if given;
+    the caller gets the outputs it asked for, or what ``on_run`` returns
+    in their place when that is not None."""
+    real = exe.run
+
+    def run(program=None, feed=None, fetch_list=None, *a, **kw):
+        if program is not prog:
+            return real(program, feed, fetch_list, *a, **kw)
+        if on_start is not None:
+            on_start()
+        t0 = time.perf_counter()
+        outs = real(program, feed, list(fetch_list) + list(extra_fetch),
+                    *a, **kw)
+        given = on_run(feed, outs, time.perf_counter() - t0)
+        return outs[:len(fetch_list)] if given is None else given
+
+    exe.run = run
+    try:
+        yield
+    finally:
+        exe.run = real
+
+
+def cpu_beam(np, gen, W, tok, lens, max_new, follow=None):
+    """The CPU generator's beam over the sources, with each step's
+    margin: the smallest gap between neighbours among the W+1 best
+    candidate totals (the W-th and (W+1)-th among them), the smallest
+    over sources.  Where two runs' float errors exceed it, they may
+    rightly select differently.  With ``follow``, another run's
+    trajectory (the third item of ``beam(return_trace=True)``), each
+    step hands the beam loop that run's selection in place of its own:
+    the CPU decodes along that trajectory (teacher-forced) and makes
+    each of its own selections from the same ids and scores as that
+    run.  -> (beam result, margins by step, the CPU's own (ids, scores,
+    parents) by step)."""
+    prog = gen._beam_steps.get(W) or gen._build_beam_step(W)
+    topk = next(op for op in prog[0].global_block().ops
+                if op.type == "top_k").output("Out")[0]
+    margins, own = [], []
+
+    def on_run(feed, outs, _s):
+        pre_ids, pre_scores = feed["pre_ids"], feed["pre_scores"]
+        total = pre_scores[..., None] + np.log(
+            np.clip(np.asarray(outs[3], np.float32), 1e-12, None))
+        frozen = np.full_like(total, -1e9)
+        frozen[..., 0] = pre_scores
+        total = np.where((pre_ids == gen.end_id)[..., None], frozen, total)
+        best = -np.sort(-total.reshape(len(total), -1), axis=1)[:, :W + 1]
+        margins.append(float((best[:, :-1] - best[:, 1:]).min()))
+        own.append(tuple(np.asarray(x) for x in outs[:3]))
+        if follow is not None:
+            return [steps[len(own)] for steps in follow]
+        return None
+
+    with watch_runs(gen.exe, prog[0], on_run, [topk]):
+        res = gen.beam(tok, lens, beam_size=W, max_new=max_new,
+                       return_trace=True)
+    return res, margins, own
+
+
+def rounding(np, scores):
+    """A float32 ulp at the largest selected score's magnitude: how far
+    rounding the sum pre_score + log p may move a total (totals of
+    pruned candidates, at -1e9, left out)."""
+    live = np.abs(scores[scores > -1e8])
+    return float(np.spacing(np.float32(live.max()))) if live.size else 0.0
+
+
+def compare_beams(np, got, want, margins, kv, logit_err):
+    """Two beam results step by step: ids and parents equal, scores
+    within ``score_tol(kv, t)``, and the same backtrace.  The float
+    error between the runs' candidate totals at step t is a fixed
+    bound: a candidate's total moves by at most a step's log-probability
+    error (twice ``logit_err``, the runs' largest logit difference
+    teacher-forced) and a rounding each step, and two candidates' order
+    within twice that sum.  A step whose margin (``margins``, the CPU
+    run's, ``cpu_beam``) is within it is a near tie, listed; a first
+    difference at a near tie is a selection the runs may rightly make
+    apart (``tie_at``), and the steps after it are not compared here
+    (``compare_forced`` compares them).  -> record with ``ok``."""
+    (g_ids, g_sc, (gi, gs, gp)), (w_ids, w_sc, (wi, ws, wp)) = got, want
+    rec = {"steps": len(gi) - 1, "max_score_diff": 0.0, "tie_at": None,
+           "near_ties": [], "ok": True}
+    drift = 0.0
+    for t in range(1, min(len(gi), len(wi))):
+        tol = score_tol(kv, t)
+        drift += 2 * logit_err + rounding(np, ws[t])
+        err = 2 * drift
+        m = margins[t - 1] if t - 1 < len(margins) else None
+        if m is not None and m <= err:
+            rec["near_ties"].append({"step": t, "margin": m,
+                                     "float_error": err})
+        if not (np.array_equal(gi[t], wi[t]) and np.array_equal(gp[t],
+                                                                 wp[t])):
+            if m is not None and m <= err:
+                rec["tie_at"] = {"step": t, "margin": m,
+                                 "float_error": err}
+            else:
+                rec["ok"] = False
+                rec["first_difference"] = {"step": t, "margin": m,
+                                           "float_error": err}
+            return rec
+        diff = float(np.abs(gs[t] - ws[t]).max())
+        rec["max_score_diff"] = max(rec["max_score_diff"], diff)
+        if not np.all(np.abs(gs[t] - ws[t]) <= np.vectorize(tol)(ws[t])):
+            rec["ok"] = False
+            rec["score_step"] = t
+            return rec
+    same = len(gi) == len(wi) and all(
+        np.array_equal(np.asarray(getattr(g_ids, f)),
+                       np.asarray(getattr(w_ids, f)))
+        for f in ("data", "outer_lengths", "inner_lengths"))
+    rec["same_backtrace"] = same
+    rec["ok"] = rec["ok"] and same
+    return rec
+
+
+def compare_forced(np, own, trace, margins, kv, logit_err):
+    """The CPU's own selections along the card's trajectory (``cpu_beam``
+    with ``follow``, its ``own`` and ``margins``) against the card's
+    ``trace``, at every step.  Both make a step's selection from the same
+    ids and scores, so a candidate's totals differ by one step's
+    log-probability error (twice ``logit_err``) and a rounding, and two
+    candidates' order may flip only within twice that.  Ids and parents
+    must be equal at every step whose margin exceeds it; a difference
+    within it is a near tie, listed in ``ties``; a step selected alike
+    has its scores within ``score_tol(kv, 1)``.  -> record with
+    ``ok``."""
+    ids, scores, parents = trace
+    tol = np.vectorize(score_tol(kv, 1))
+    rec = {"steps": len(own), "compared": 0, "max_score_diff": 0.0,
+           "ties": [], "ok": len(own) == len(ids) - 1}
+    for t, (o_ids, o_scores, o_parents) in enumerate(own, 1):
+        err = 2 * (2 * logit_err + rounding(np, scores[t]))
+        if not (np.array_equal(o_ids, ids[t])
+                and np.array_equal(o_parents, parents[t])):
+            at = {"step": t, "margin": margins[t - 1], "float_error": err}
+            if margins[t - 1] <= err:
+                rec["ties"].append(at)
+            else:
+                rec["ok"] = False
+                rec.setdefault("differences", []).append(at)
+            continue
+        rec["compared"] += 1
+        diff = np.abs(o_scores - scores[t])
+        rec["max_score_diff"] = max(rec["max_score_diff"],
+                                    float(diff.max()))
+        if not np.all(diff <= tol(scores[t])):
+            rec["ok"] = False
+            rec.setdefault("score_steps", []).append(t)
+    return rec
+
+
+def step_entries(exe, prog):
+    """The executor's cached entries of ``prog`` (every signature)."""
+    fp = prog.desc.fingerprint()
+    return [e for k, e in exe._cache.items() if k[0] == fp]
+
+
+def beam_ragged_calls(fa, b, sms):
+    """(ragged calls, merges) of one paged beam step over b lanes: per
+    layer a self-attention over the target table and a cross-attention
+    over the source table."""
+    ps = SERVE["page_size"]
+    tables = [-(-SERVE["max_out_len"] // ps),
+              -(-SERVE["src_len"] // ps)] * MODEL["n_layer"]
+    merges = sum(fa.ragged_plan(b, MODEL["n_head"], p, sms)[1] > 1
+                 for p in tables)
+    return len(tables), merges
+
+
+def beam_kernel_check(torch, fa, scope, prog, feeds):
+    """Every ``ragged_decode_attention`` op of the paged beam step
+    ``prog`` through the wrapper against the plain version, at the op's
+    own arguments from each of ``feeds`` (beam steps' feeds: the b*W
+    lanes' page tables, shared between beams, their lengths and bases)
+    over the pool and scales in ``scope`` as the run left them, with a
+    seeded query of the step's shape, [b*W, 1, H, D].  -> {calls, lanes
+    (the batch sizes called), plans (``last_plan``), max_abs_err,
+    ok}."""
+    ops = [op for op in prog.global_block().ops
+           if op.type == "ragged_decode_attention"]
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    lanes, plans, worst, ok = set(), set(), 0.0, True
+    for feed in feeds:
+        for op in ops:
+            pool = scope.find_var(op.input("Pool")[0])
+            scales = (scope.find_var(op.input("Scales")[0])
+                      if op.input("Scales") else None)
+            table, lengths = (torch.as_tensor(feed[op.input(k)[0]]).to(
+                pool.device) for k in ("PageTable", "Lengths"))
+            q_base = (torch.as_tensor(feed[op.input("QBase")[0]]).to(
+                pool.device) if op.input("QBase") else None)
+            q = torch.randn(table.shape[0], 1, MODEL["n_head"],
+                            MODEL["d_key"], generator=gen).to(pool.device)
+            kw = {k: op.attr(k) for k in ("layer", "n_layer", "causal",
+                                          "sm_scale")}
+            got = fa.ragged_decode_attention(q, pool, table, lengths,
+                                             q_base, scales=scales, **kw)
+            plans.add(getattr(fa.ragged_decode_attention, "last_plan",
+                              None))
+            want = fa.ragged_attention_plain(
+                q, pool, table, lengths,
+                torch.zeros_like(lengths) if q_base is None else q_base,
+                kw["layer"],
+                kw["n_layer"], kw["causal"], kw["sm_scale"], scales=scales)
+            worst = max(worst, float((got - want).abs().max()))
+            ok = ok and bool(torch.allclose(got, want, atol=KERNEL_ATOL,
+                                            rtol=KERNEL_RTOL))
+            lanes.add(int(table.shape[0]))
+    return {"calls": len(ops) * len(feeds), "lanes": sorted(lanes),
+            "plans": sorted(plans, key=str), "max_abs_err": worst, "ok": ok}
+
+
+def beam_on_card(torch, np, fa, g, tok, lens, sms):
+    """The paged beam on the card, twice over the same sources: the
+    first run captures the unified step at b lanes, the beam step at
+    (b, W) and the backtrace at the trajectory's length; the second,
+    counted from zero, replays them (its ragged launches on the beam
+    steps, step times on the host clock).  Then the beam step's ragged
+    calls are held against the plain version at the arguments of the
+    second run's first and last beam steps (``beam_kernel_check``).
+    -> (record, second run's result)."""
+    W = BEAM_W
+    prog = (g._beam_steps.get(W) or g._build_beam_step(W))[0]
+    n_calls, n_merges = beam_ragged_calls(fa, len(tok) * W, sms)
+    pool = {n: (t, t.data_ptr()) for n, t in (
+        (n, g.scope.find_var(n)) for n in (g._pool_name, g._scales_name))
+            if t is not None}
+    cow0 = g.cache_stats()["pages"]["cow_copies"]
+    st0 = g.cache_stats()["executable"]
+    g.beam(tok, lens, beam_size=W, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    st1 = g.cache_stats()["executable"]
+    step_s, per_step, at_start, feeds = [], [], [], []
+
+    def on_run(feed, _outs, sec):
+        step_s.append(sec)
+        per_step.append(fa.ragged_decode_attention.launches - at_start[-1])
+        feeds.append(feed)
+
+    fa.ragged_decode_attention.launches = 0
+    with watch_runs(g.exe, prog, on_run, on_start=lambda: at_start.append(
+            fa.ragged_decode_attention.launches)):
+        t0 = time.perf_counter()
+        res = g.beam(tok, lens, beam_size=W, max_new=MAX_NEW,
+                     return_trace=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = fa.ragged_decode_attention.launches
+    st2 = g.cache_stats()["executable"]
+    steps = len(res[2][0]) - 1
+    entries = step_entries(g.exe, prog)
+    fams = graph_families(kernel_nodes(entries[0].graph)[0]) \
+        if len(entries) == 1 and entries[0].graph is not None else None
+    pages = g.cache_stats()["pages"]
+    try:
+        g.alloc.check_invariants()
+        invariants = True
+    except AssertionError:
+        invariants = False
+    kernel = beam_kernel_check(torch, fa, g.scope, prog,
+                               (feeds[0], feeds[-1]))
+    torch.cuda.synchronize()
+    rec = {
+        "steps": steps, "beam_step_ms_median":
+            statistics.median(step_s) * 1e3 if step_s else None,
+        "beam_step_ms": [x * 1e3 for x in step_s],
+        "hyp_tok_per_s": len(tok) * W * steps / sum(step_s),
+        "beam_wall_s": wall,
+        "first_run_executable": {k: st1[k] - st0[k]
+                                 for k in ("hits", "misses")},
+        "second_run_executable": {k: st2[k] - st1[k]
+                                  for k in ("hits", "misses")},
+        "beam_step_entries": len(entries),
+        "ragged_launches": launches,
+        "ragged_per_beam_step": sorted(set(per_step)),
+        "graph_by_family": fams,
+        "want_graph": {"ragged_split": n_calls, "ragged_merge": n_merges},
+        "kernel_vs_plain": kernel,
+        "pool_held_once": pool_held_once(g, pool),
+        "cow_copies": pages["cow_copies"] - cow0,
+        "in_use": pages["in_use"], "invariants": invariants}
+    # the first run misses the unified step at b lanes, the beam step at
+    # (b, W) and the backtrace at its length; the second misses nothing;
+    # the kernel check makes each of the step's ragged calls at its
+    # first and last step, at the step's b*W lanes
+    rec["ok"] = bool(
+        kernel["ok"] and kernel["calls"] == 2 * n_calls
+        and kernel["lanes"] == [len(tok) * W]
+        and rec["second_run_executable"]["misses"] == 0
+        and rec["second_run_executable"]["hits"] >= steps + 1
+        and rec["first_run_executable"]["misses"] == 3
+        and len(entries) == 1 and len(step_s) == steps
+        and per_step == [n_calls] * steps
+        and fams == rec["want_graph"] and rec["pool_held_once"]
+        and rec["cow_copies"] > 0 and rec["in_use"] == 0 and invariants)
+    return rec, res
+
+
+def beam_phase(torch, np, fluid, fa, card, weights, srcs, logit_err):
+    """Phase 6: beam search on the paged engine for each pool dtype (the
+    card's run against the CPU port's from the same weights; bf16 and
+    int8 against the float32 pool's), against the dense generator's
+    beam on the card, then the dense generator's greedy through the
+    scheduler against the paged generator's, and the full re-run
+    decoder at RERUN_LAYERS layers against both.  ``logit_err``: each
+    pool dtype's card-vs-CPU logit difference, teacher-forced (the
+    serving phase's), which sizes the float error a near tie is judged
+    by.  -> (record, ragged launches of the paged beam runs, worst
+    kernel error, failures)."""
+    from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                          FullRerunDecoder,
+                                          TransformerGenerator)
+    failures = []
+    tok, lens = beam_sources(np)
+    sms = fa._sm_count(0)
+    rec = {"card": card, "sources": len(tok), "beam": BEAM_W,
+           "max_new": MAX_NEW, "paged": {}}
+    launches, kernel_err = 0, 0.0
+    card_runs = {}
+    for kv in KV_DTYPES:
+        t0 = time.perf_counter()
+        g = make_generator("cuda", kv)
+        g.load_params(weights)
+        run, res = beam_on_card(torch, np, fa, g, tok, lens, sms)
+        launches += run["ragged_launches"]
+        kernel_err = max(kernel_err, run["kernel_vs_plain"]["max_abs_err"])
+        card_runs[kv] = res
+        del g
+        torch.cuda.empty_cache()
+        cpu = make_generator("cpu", kv)
+        cpu.load_params(weights)
+        want, margins, _ = cpu_beam(np, cpu, BEAM_W, tok, lens, MAX_NEW)
+        forced, f_margins, own = cpu_beam(np, cpu, BEAM_W, tok, lens,
+                                          MAX_NEW, follow=res[2])
+        del cpu
+        run["vs_cpu"] = compare_beams(np, res, want, margins, kv,
+                                      logit_err[kv])
+        # every step, the CPU selecting along the card's trajectory; its
+        # backtrace of that trajectory is the card's
+        run["vs_cpu_forced"] = compare_forced(np, own, res[2], f_margins,
+                                              kv, logit_err[kv])
+        run["vs_cpu_forced"]["same_backtrace"] = all(
+            np.array_equal(np.asarray(getattr(forced[0], f)),
+                           np.asarray(getattr(res[0], f)))
+            for f in ("data", "outer_lengths", "inner_lengths"))
+        if kv == "float32":
+            rec["cpu_margins"] = margins
+        else:
+            a, b = (np.asarray(card_runs[k][0]) for k in ("float32", kv))
+            n = min(a.shape[-1], b.shape[-1])
+            run["ids_agree_with_float32"] = float(
+                (a[..., :n] == b[..., :n]).mean())
+            if not run["ids_agree_with_float32"] >= BEAM_AGREE:
+                failures.append(f"beam {kv}: ids agree with the float32 "
+                                f"pool's beam on "
+                                f"{run['ids_agree_with_float32']}, want "
+                                f">= {BEAM_AGREE}")
+        for how, ties in (("", run["vs_cpu"]["near_ties"]),
+                          (" teacher-forced", run["vs_cpu_forced"]["ties"])):
+            for tie in ties:
+                log(f"beam {kv}{how}: candidate margin {tie['margin']} at "
+                    f"step {tie['step']} within the float error "
+                    f"{tie['float_error']} ({card})")
+        if not run["ok"]:
+            failures.append(f"beam {kv} on the card: {run}")
+        if not run["vs_cpu"]["ok"]:
+            failures.append(f"beam {kv}: card vs CPU {run['vs_cpu']}")
+        if not (run["vs_cpu_forced"]["ok"]
+                and run["vs_cpu_forced"]["same_backtrace"]):
+            failures.append(f"beam {kv}: card vs CPU teacher-forced "
+                            f"{run['vs_cpu_forced']}")
+        run["seconds"] = time.perf_counter() - t0
+        rec["paged"][kv] = run
+        log(f"beam {kv}: {json.dumps(run)}")
+
+    # the dense generator on the card, same weights, causal encoder
+    place = fluid.CUDAPlace(0)
+    dense = TransformerGenerator(
+        VOCAB, VOCAB, place=place, causal_encoder=True,
+        scope=fluid.scope_from_numpy(weights, place),
+        max_length=SERVE["max_length"], src_len=SERVE["src_len"],
+        max_out_len=SERVE["max_out_len"], **MODEL)
+    dense_prog = dense._build_beam_step(BEAM_W)[0]
+    dense.beam(tok, lens, beam_size=BEAM_W, max_new=MAX_NEW)     # captures
+    step_s = []
+    with watch_runs(dense.exe, dense_prog,
+                    lambda _f, _o, sec: step_s.append(sec)):
+        d_res = dense.beam(tok, lens, beam_size=BEAM_W, max_new=MAX_NEW,
+                           return_trace=True)
+    d_cmp = compare_beams(np, card_runs["float32"], d_res,
+                          rec.get("cpu_margins", []), "float32",
+                          logit_err["float32"])
+    rec["dense"] = {"beam_step_ms_median": statistics.median(step_s) * 1e3,
+                    "hyp_tok_per_s": len(tok) * BEAM_W * len(step_s)
+                    / sum(step_s),
+                    "paged_vs_dense": d_cmp,
+                    "executable": dense.cache_stats()["executable"]}
+    if not d_cmp["ok"]:
+        failures.append(f"beam: paged vs dense on the card {d_cmp}")
+
+    # greedy streams: the dense generator behind the scheduler against
+    # the paged generator behind it, the same requests
+    def streams(model):
+        sched = ContinuousBatchingScheduler(model, n_slots=N_SLOTS,
+                                            max_new_tokens=MAX_NEW)
+        reqs = [sched.submit(q, max_new_tokens=MAX_NEW) for q in srcs]
+        while any(not r.done for r in reqs):
+            sched.step_once()
+        return [list(r.tokens) for r in reqs], [repr(r.error) for r in reqs
+                                                if r.error is not None]
+
+    d_streams, d_err = streams(dense)
+    del dense
+    torch.cuda.empty_cache()
+    paged = make_generator("cuda", "float32")
+    paged.load_params(weights)
+    p_streams, p_err = streams(paged)
+    del paged
+    torch.cuda.empty_cache()
+    rec["scheduler_dense_equals_paged"] = d_streams == p_streams
+    rec["scheduler_tokens"] = sum(len(x) for x in d_streams)
+    if d_err or p_err or d_streams != p_streams:
+        first = next((i for i, (a, b) in enumerate(zip(d_streams,
+                                                       p_streams))
+                      if a != b), None)
+        failures.append(f"scheduler over the dense generator: streams "
+                        f"differ from the paged generator's (request "
+                        f"{first}); errors {d_err} {p_err}")
+
+    # the full re-run decoder at RERUN_LAYERS layers against both
+    small = dict(MODEL, n_layer=RERUN_LAYERS)
+    place_kw = dict(place=place, max_length=SERVE["max_length"],
+                    src_len=SERVE["src_len"], **small)
+    paged2 = make_generator("cuda", "float32", small)
+    paged2.init_params(seed=SEED + 3)
+    w2 = fluid.scope_to_numpy(paged2.scope, list(paged2._param_vars()))
+    dense2 = TransformerGenerator(
+        VOCAB, VOCAB, causal_encoder=True,
+        scope=fluid.scope_from_numpy(w2, place),
+        max_out_len=SERVE["max_out_len"], **place_kw)
+    full2 = FullRerunDecoder(
+        VOCAB, VOCAB, causal_encoder=True,
+        scope=fluid.scope_from_numpy(w2, place), trg_len=MAX_NEW,
+        **place_kw)
+    t0 = time.perf_counter()
+    outs = {name: m.greedy(tok, lens, max_new=MAX_NEW, stop_at_end=False)
+            for name, m in (("paged", paged2), ("dense", dense2),
+                            ("full_rerun", full2))}
+    rec["full_rerun"] = {
+        "layers": RERUN_LAYERS, "seconds": time.perf_counter() - t0,
+        "equal": {k: bool(np.array_equal(v, outs["paged"]))
+                  for k, v in outs.items()}}
+    if not all(rec["full_rerun"]["equal"].values()):
+        failures.append(f"greedy at {RERUN_LAYERS} layers: paged, dense and "
+                        f"full re-run differ {rec['full_rerun']}")
+    del paged2, dense2, full2
+    torch.cuda.empty_cache()
+    return rec, launches, kernel_err, failures
+
+
+
+# -- phases 4 and 11: flash kernels against their plain versions -----------
 
 # kernel vs plain, same inputs on the card.  fp32: both compute in fp32
 # and differ in summation order only (64-tile online softmax against one
@@ -1591,12 +2129,12 @@ def flash_wide_timings(torch, fa, dev, gen):
     return rows
 
 
-# -- phases 6 and 7: training, and serving what was trained ------------------
+# -- phases 7 and 8: training, and serving what was trained ------------------
 
 # bench.py's Transformer-base training recipe: fused attention without
 # materialised biases (causal decoder self-attention in the kernel),
 # the streamed vocab loss, dropout 0.1, Adam(1e-4), in float32 here and
-# in its own bf16 recipe in phase 8.  max_length is the serving
+# in its own bf16 recipe in phase 9.  max_length is the serving
 # generator's, so the position tables carry over.
 SEQ = 256
 TRAIN = dict(max_length=SERVE["max_length"], dropout_rate=0.1,
@@ -1898,7 +2436,7 @@ def train_on_card(torch, fluid, fa, main, loss, init, feed):
     return rec, scope
 
 
-# -- phase 8: the bf16 recipe -----------------------------------------------
+# -- phase 9: the bf16 recipe -----------------------------------------------
 
 # bench.py's own recipe (bench.py:456-462, amp_dtype="bfloat16"): bf16
 # activations from one cast at each embedding, f32 master weights
@@ -1964,7 +2502,7 @@ def amp_step_ok(step) -> bool:
             <= AMP_NOISE_RATIO * step["cpu_vs_f32_median"])
 
 
-# -- phase 9: the book's first two chapters ---------------------------------
+# -- phase 10: the book's first two chapters --------------------------------
 
 FIT_STEPS, FIT_BATCH = 200, 32
 BOOK_LR = {"fit_a_line": 0.01, "conv_net": 0.01, "bf16_conv_net": 0.05}
@@ -2137,7 +2675,7 @@ def executor_modes(torch, np, fluid):
           and rec["two_scopes_hits"] == 7)
     return rec, ok
 
-# -- phases 11-14: the LSTM text classifiers --------------------------------
+# -- phases 12-15: the LSTM text classifiers --------------------------------
 
 # the reference's RNN benchmark (bench.py's bench_lstm, from benchmark/
 # paddle/rnn/rnn.py): IMDB text classifier at its batch and padded length
@@ -2768,6 +3306,18 @@ def main() -> int:
             log(f"profile_serving ({p['package']}): {json.dumps(p)}")
         failures += in_turns_failures(peaks)
 
+    # -- beam search on the paged engine, the dense generator, the full
+    # re-run decoder
+    t0 = time.perf_counter()
+    beam, beam_launches, beam_err, beam_fails = beam_phase(
+        torch, np, fluid, fa, card, weights, srcs,
+        {r["kv_dtype"]: r["logits_max_abs_err_vs_cpu"] for r in runs})
+    failures += beam_fails
+    launches += beam_launches
+    max_err = max(max_err, beam_err)
+    log(f"beam phase ({time.perf_counter() - t0:.1f}s): {json.dumps(beam)}")
+    torch.cuda.empty_cache()
+
     # -- training: the program, one step card vs CPU, then the card alone
     t0 = time.perf_counter()
     main_prog, startup, loss = build_training(fluid, transformer)
@@ -2952,6 +3502,7 @@ def main() -> int:
         "source": "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:181",
         "launches": launches,
+        "launches_beam": beam_launches,
         "max_abs_err": max_err,
         # one call of each of the step's three shapes, float32 pool, on
         # the device clock; ms_eager through the wrapper call by call
@@ -3043,6 +3594,7 @@ def main() -> int:
 
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
+    print(json.dumps({"beam": beam}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"training_bf16": training_bf16}), flush=True)
     print(json.dumps({"book": book}), flush=True)

@@ -8,8 +8,10 @@ and the standard library only: never ``jax``, never ``paddle_tpu``.
 What it covers so far: Transformer training through ``fluid`` (float32
 and the bf16 recipe), the LSTM text classifiers, the book's first two
 chapters, and the paged serving path, the Transformer served by
-``serving.PagedTransformerGenerator`` (its Fluid program run through
-``fluid.Executor``) behind ``serving.ContinuousBatchingScheduler``.
+``serving.PagedTransformerGenerator`` (its Fluid programs run through
+``fluid.Executor``; greedy and beam search) behind
+``serving.ContinuousBatchingScheduler``, with the dense
+``serving.TransformerGenerator`` and ``FullRerunDecoder`` beside it.
 Every TPU kernel of ``paddle_tpu`` has a CUDA C++ counterpart for
 ``sm_90a`` under ``kernels/csrc/``, built at first use.
 

@@ -11,7 +11,9 @@ fields are torch tensors on the executor's device (``make_seq`` builds
 one on the host, with numpy fields, for a feed), and the class is a plain
 container: the executor and the lowering unwrap and re-wrap it where the
 reference relies on JAX's pytree flattening.  Level-2 sequences
-(``NestedSeqArray``) are not ported.
+(``NestedSeqArray``) are ported as the output type of
+``beam_search_decode`` only: the executor fetches one, and a ``data``
+var or an op input of level 2 is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["SeqArray", "make_seq", "seq_mask"]
+__all__ = ["SeqArray", "NestedSeqArray", "make_seq", "seq_mask"]
 
 
 class SeqArray:
@@ -61,6 +63,45 @@ class SeqArray:
     def __repr__(self):
         return (f"SeqArray(data={tuple(self.data.shape)}, "
                 f"lengths={tuple(self.lengths.shape)})")
+
+
+class NestedSeqArray:
+    """Level-2 sequences: a batch of sequences of sequences (the
+    reference's nested LoD; beam decode's per-source candidate lists).
+
+        data           [batch, max_outer, max_inner, *feat]
+        outer_lengths  [batch]             sub-sequences per row
+        inner_lengths  [batch, max_outer]  items per sub-sequence
+
+    ``np.asarray(nested)`` is the padded data block."""
+
+    __slots__ = ("data", "outer_lengths", "inner_lengths")
+
+    def __init__(self, data, outer_lengths, inner_lengths):
+        self.data = data
+        self.outer_lengths = outer_lengths
+        self.inner_lengths = inner_lengths
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def lod_level(self):
+        return 2
+
+    def __array__(self, dtype=None, copy=None):
+        arr = np.asarray(self.data)
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __repr__(self):
+        return (f"NestedSeqArray(data={tuple(self.data.shape)}, "
+                f"outer={tuple(self.outer_lengths.shape)}, "
+                f"inner={tuple(self.inner_lengths.shape)})")
 
 
 def seq_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

@@ -74,7 +74,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import add_launches, launch_counts
-from .core.lod import SeqArray
+from .core.lod import NestedSeqArray, SeqArray
 from .core.types import runtime_dtype, torch_dtype
 from .framework import Program, Variable, default_main_program
 from .lowering import (MARKER_OPS, BlockPlan, run_block_ops, seed_tensor,
@@ -208,11 +208,11 @@ def _to_device(v, device: torch.device):
 def _to_numpy(t):
     """A scope value on the host: a numpy array of its own (a CPU
     tensor's is copied: the next step updates the tensor in place), or a
-    SeqArray of numpy data and lengths.  A bfloat16 value comes back as
-    float32 (exactly): numpy has no bfloat16, where the reference
+    SeqArray (NestedSeqArray) of numpy fields.  A bfloat16 value comes
+    back as float32 (exactly): numpy has no bfloat16, where the reference
     returns an ``ml_dtypes`` bfloat16 array."""
-    if isinstance(t, SeqArray):
-        return SeqArray(_to_numpy(t.data), _to_numpy(t.lengths))
+    if isinstance(t, (SeqArray, NestedSeqArray)):
+        return _like(t, [_to_numpy(x) for x in _tensors(t)])
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -258,20 +258,30 @@ def _sig_of(v) -> tuple:
 
 
 def _tensors(v) -> List[torch.Tensor]:
-    return [v.data, v.lengths] if isinstance(v, SeqArray) else [v]
+    """A value's tensors: a SeqArray's data and lengths, a
+    NestedSeqArray's (the output of ``beam_search_decode``) data and
+    both lengths, else the tensor itself."""
+    if isinstance(v, SeqArray):
+        return [v.data, v.lengths]
+    if isinstance(v, NestedSeqArray):
+        return [v.data, v.outer_lengths, v.inner_lengths]
+    return [v]
+
+
+def _like(v, parts):
+    """``parts`` (one per entry of ``_tensors(v)``) in ``v``'s structure."""
+    if isinstance(v, (SeqArray, NestedSeqArray)):
+        return type(v)(*parts)
+    return parts[0]
 
 
 def _empty_like(v, device):
-    if isinstance(v, SeqArray):
-        return SeqArray(_empty_like(v.data, device),
-                        _empty_like(v.lengths, device))
-    return torch.empty(v.shape, dtype=v.dtype, device=device)
+    return _like(v, [torch.empty(t.shape, dtype=t.dtype, device=device)
+                     for t in _tensors(v)])
 
 
 def _clone(v):
-    if isinstance(v, SeqArray):
-        return SeqArray(v.data.clone(), v.lengths.clone())
-    return v.clone()
+    return _like(v, [t.clone() for t in _tensors(v)])
 
 
 def _owner_of(scope: Scope, name: str) -> Scope:
@@ -294,9 +304,9 @@ def _copy_into(dst, src) -> None:
 
 
 def _fetch_numpy(values) -> List[Any]:
-    """Fetched values as numpy arrays of their own (SeqArrays of them),
-    copied from the card through pinned memory, asynchronously, with one
-    wait for all of them."""
+    """Fetched values as numpy arrays of their own (SeqArrays and
+    NestedSeqArrays of them), copied from the card through pinned
+    memory, asynchronously, with one wait for all of them."""
     host = []
     wait = None
     for v in values:
@@ -316,8 +326,7 @@ def _fetch_numpy(values) -> List[Any]:
         host.append(outs)
     if wait is not None:
         wait.synchronize()
-    return [SeqArray(o[0].numpy(), o[1].numpy()) if isinstance(v, SeqArray)
-            else o[0].numpy() for v, o in zip(values, host)]
+    return [_like(v, [t.numpy() for t in o]) for v, o in zip(values, host)]
 
 
 class _Entry:

@@ -20,7 +20,7 @@ import torch
 from . import unique_name
 from .core import registry as _registry
 from .core.desc import BlockDesc, OpDesc, ProgramDesc, VarDesc
-from .core.lod import SeqArray
+from .core.lod import NestedSeqArray, SeqArray
 from .core.registry import EmitCtx, get_op_info
 from .core.types import VarType, canonical_dtype, runtime_dtype, torch_dtype
 
@@ -48,6 +48,14 @@ _NO_INFER_OPS = {"feed", "fetch", "while", "conditional_block", "print",
 _RANDOM_OPS = {"dropout", "uniform_random", "gaussian_random",
                "truncated_gaussian_random", "nce", "sampling_id",
                "fused_attention"}
+
+# ops whose ``is_test`` attr ``Program.clone(for_test=True)`` sets
+_TEST_SENSITIVE_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+    "fused_attention": ("is_test",),
+}
+
 
 class Variable:
     """A named, typed slot in a Block, backed by a VarDesc."""
@@ -278,7 +286,11 @@ class Block:
         for slot, vals in out_abs.items():
             for var, av in zip(out_vars.get(slot, []), vals):
                 lod = 0
-                if isinstance(av, SeqArray):
+                if isinstance(av, NestedSeqArray):
+                    # drop both dummy sequence axes
+                    lod, av = 2, av.data
+                    shape = [av.shape[0]] + list(av.shape[3:])
+                elif isinstance(av, SeqArray):
                     # drop the dummy time axis, as the desc records it
                     lod, av = 1, av.data
                     shape = [av.shape[0]] + list(av.shape[2:])
@@ -378,6 +390,56 @@ class Program:
 
     def serialize_to_string(self) -> bytes:
         return self.desc.serialize_to_string()
+
+    @classmethod
+    def parse_from_string(cls, data: bytes) -> "Program":
+        p = cls()
+        p._load_desc(ProgramDesc.parse_from_string(data))
+        return p
+
+    def _load_desc(self, desc: ProgramDesc):
+        self.desc = desc
+        self.blocks = []
+        for bd in desc.blocks:
+            b = Block(self, bd)
+            for name in bd.vars:
+                b.vars[name] = Variable(b, name)
+            for od in bd.ops:
+                b.ops.append(Operator(b, od))
+            self.blocks.append(b)
+        self._current_block_idx = 0
+        # an op appended after the load must not reuse a loaded op's salt
+        self._rng_salt = max(
+            (int(od.attrs["__rng_salt__"])
+             for bd in desc.blocks for od in bd.ops
+             if "__rng_salt__" in od.attrs), default=0)
+        self._bump_version()
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A deep copy through the wire format, Parameters kept as such.
+        ``for_test=True`` sets ``is_test`` on the ops that behave
+        differently at inference (dropout, batch_norm, fused_attention)."""
+        p = Program.parse_from_string(self.serialize_to_string())
+        for b_src, b_dst in zip(self.blocks, p.blocks):
+            for name, v in b_src.vars.items():
+                if isinstance(v, Parameter):
+                    pv = Parameter.__new__(Parameter)
+                    pv.block = b_dst
+                    pv.desc = b_dst.desc.vars[name]
+                    pv.op = None
+                    pv.trainable = v.trainable
+                    pv.optimize_attr = v.optimize_attr
+                    pv.regularizer = v.regularizer
+                    pv.gradient_clip_attr = v.gradient_clip_attr
+                    pv.sharding = v.sharding
+                    b_dst.vars[name] = pv
+        if for_test:
+            for b in p.blocks:
+                for op in b.ops:
+                    if "is_test" in _TEST_SENSITIVE_OPS.get(op.type, ()):
+                        op.desc.attrs["is_test"] = True
+        p._seed = self._seed
+        return p
 
     @property
     def random_seed(self):

@@ -1,8 +1,8 @@
 """Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
-to what ``models/transformer.transformer()``, the paged serving step
-(``ragged_decode_attention``), the LSTM text classifiers and the book's
-first two chapters (``models/fit_a_line``,
-``models/recognize_digits``) build.  Each layer appends ops to the current block through
+to what ``models/transformer.transformer()`` (fused or unfused
+attention), the paged and dense serving steps and beam search, the LSTM
+text classifiers and the book's first two chapters
+(``models/fit_a_line``, ``models/recognize_digits``) build.  Each layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
 
@@ -16,9 +16,10 @@ from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "softmax_with_cross_entropy", "square_error_cost", "conv2d",
-           "pool2d", "layer_norm", "reduce_sum", "reshape",
-           "fused_attention", "fused_vocab_cross_entropy",
-           "ragged_decode_attention"]
+           "pool2d", "layer_norm", "reduce_sum", "reshape", "transpose",
+           "matmul", "topk", "beam_search", "beam_search_decode",
+           "batch_gather", "fused_attention", "fused_vocab_cross_entropy",
+           "decode_attention", "ragged_decode_attention"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -258,6 +259,78 @@ def reshape(x, shape, act=None, name=None):
     return helper.append_activation(out)
 
 
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("transpose", {"X": x}, {"Out": out},
+                     {"axis": list(perm)})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("matmul", {"X": x, "Y": y}, {"Out": out},
+                     {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                      "alpha": float(alpha)})
+    return out
+
+
+def topk(input, k=1):
+    helper = LayerHelper("top_k")
+    vals = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    idx = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("top_k", {"X": input}, {"Out": vals, "Indices": idx},
+                     {"k": k})
+    return vals, idx
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=False, name=None):
+    """One beam-search step on a dense [batch, beam] grid
+    (``ops/beam_ops.beam_search``).  Returns (selected_ids,
+    selected_scores, parent_idx); parent_idx carries the ancestry the
+    reference's LoD encodes."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_tmp_variable(pre_ids.dtype)
+    sel_scores = helper.create_tmp_variable("float32")
+    parent = helper.create_tmp_variable("int32")
+    sel_ids.stop_gradient = parent.stop_gradient = True
+    helper.append_op(
+        "beam_search",
+        {"pre_ids": pre_ids, "pre_scores": pre_scores, "ids": ids,
+         "scores": scores},
+        {"selected_ids": sel_ids, "selected_scores": sel_scores,
+         "parent_idx": parent},
+        {"beam_size": beam_size, "end_id": end_id, "level": level,
+         "is_accumulated": is_accumulated})
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, scores, parents, end_id, name=None):
+    """Backtrace the beam arrays into ranked hypotheses
+    (``ops/beam_ops.beam_search_decode``): SentenceIds a level-2
+    NestedSeqArray, SentenceScores [B, W]."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_tmp_variable(ids.dtype)
+    sent_scores = helper.create_tmp_variable("float32")
+    sent_ids.stop_gradient = sent_scores.stop_gradient = True
+    helper.append_op(
+        "beam_search_decode",
+        {"Ids": ids, "Scores": scores, "Parents": parents},
+        {"SentenceIds": sent_ids, "SentenceScores": sent_scores},
+        {"end_id": end_id})
+    return sent_ids, sent_scores
+
+
+def batch_gather(x, index, name=None):
+    """out[b, j] = x[b, index[b, j]]: the dense beam's cache reorder."""
+    helper = LayerHelper("batch_gather", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("batch_gather", {"X": x, "Index": index}, {"Out": out})
+    return out
+
+
 def fused_attention(q, k, v, bias=None, causal=False, sm_scale=None,
                     seq_parallel=False, sp_impl="ring", impl=None,
                     dropout_rate=0.0, is_test=False, layout="bhld",
@@ -311,6 +384,24 @@ def fused_vocab_cross_entropy(input, label, vocab_size, chunk=8192,
                      {"X": input, "W": w, "Label": label}, {"Loss": loss},
                      {"chunk": int(chunk)})
     return loss
+
+
+def decode_attention(q, k_cache, v_cache, lengths, sm_scale=None,
+                     name=None):
+    """A decode step's attention over a preallocated KV cache with a
+    per-lane length mask (``ops/cache_ops.decode_attention``), layout
+    'blhd': q [B, Lq, H, D], caches [B, Lmax, H, D], lengths [B] int32
+    live cache rows."""
+    helper = LayerHelper("decode_attention", name=name)
+    out = helper.create_tmp_variable(q.dtype, stop_gradient=True)
+    attrs = {}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    helper.append_op("decode_attention",
+                     {"Q": q, "KCache": k_cache, "VCache": v_cache,
+                      "Lengths": lengths},
+                     {"Out": out}, attrs)
+    return out
 
 
 def ragged_decode_attention(q, pool, page_table, lengths, q_base=None,

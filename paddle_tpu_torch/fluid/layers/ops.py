@@ -1,13 +1,31 @@
 """Thin layer wrappers over registered ops — the port of
 ``paddle_tpu/fluid/layers/ops.py``, cut to the ops the Transformer and
-the LSTM text classifiers build: the ``elementwise_*`` family, ``mean``,
-``scale`` and ``cast``."""
+the LSTM text classifiers build: ``softmax``, the ``elementwise_*``
+family, ``mean``, ``scale`` and ``cast``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["mean", "scale", "cast"]
+
+
+def _generate_unary(op_type: str):
+    def layer(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+        helper.append_op(op_type, {"X": x}, {"Out": out}, attrs)
+        return out
+
+    layer.__name__ = op_type
+    layer.__doc__ = f"generated wrapper for the `{op_type}` op"
+    return layer
+
+
+_globals = globals()
+for _op in ["softmax"]:
+    _globals[_op] = _generate_unary(_op)
+    __all__.append(_op)
 
 
 def _generate_binary(op_type: str):
@@ -23,7 +41,6 @@ def _generate_binary(op_type: str):
     return layer
 
 
-_globals = globals()
 for _op in ["elementwise_add", "elementwise_sub", "elementwise_mul",
             "elementwise_div"]:
     _globals[_op] = _generate_binary(_op)

@@ -1,14 +1,23 @@
 """Tensor layers — the port of ``paddle_tpu/fluid/layers/tensor.py``,
-cut to ``cast``, ``argmax`` and the paged KV-cache writes; the creation
-layers (``fill_constant``, ``zeros``, ``concat``, ...), the dense
-``cache_write`` and the page copy / transfer layers are not ported."""
+cut to ``assign``, ``cast``, ``argmax``, the dense and paged KV-cache
+writes and the copy-on-write page copy; the creation layers
+(``fill_constant``, ``zeros``, ``concat``, ...) and the KV-tier transfer
+layers are not ported."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "argmax", "paged_cache_write",
-           "quantized_paged_cache_write"]
+__all__ = ["assign", "cast", "argmax", "cache_write", "paged_cache_write",
+           "quantized_paged_cache_write", "paged_page_copy"]
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign")
+    output = output or helper.create_tmp_variable(input.dtype,
+                                                  lod_level=input.lod_level)
+    helper.append_op("assign", {"X": input}, {"Out": output})
+    return output
 
 
 def cast(x, dtype):
@@ -21,6 +30,21 @@ def argmax(x, axis=-1):
     helper = LayerHelper("argmax")
     out = helper.create_tmp_variable("int32", stop_gradient=True)
     helper.append_op("argmax", {"X": x}, {"Out": out}, {"axis": axis})
+    return out
+
+
+def cache_write(cache, value, index, axis=1, out=None):
+    """Write ``value`` into the preallocated ``cache`` var at ``index``
+    along ``axis`` (``ops/cache_ops.cache_write``).  Out defaults to the
+    cache variable itself, so the step writes the persistable cache in
+    place.  ``index`` is one offset, or with axis=1 a [B] vector of each
+    row's position (continuous batching)."""
+    helper = LayerHelper("cache_write")
+    out = out or cache
+    out.stop_gradient = True
+    helper.append_op("cache_write",
+                     {"Cache": cache, "Value": value, "Index": index},
+                     {"Out": out}, {"axis": int(axis)})
     return out
 
 
@@ -59,3 +83,32 @@ def quantized_paged_cache_write(pool, scales, k, v, pages, offsets, layer,
                      {"Out": out, "ScalesOut": scales_out},
                      {"layer": int(layer), "n_layer": int(n_layer)})
     return out, scales_out
+
+
+def paged_page_copy(pool, src, dst, n_layer, out=None, scales=None,
+                    scales_out=None):
+    """Copy whole logical pages ``src[b] -> dst[b]`` (all layers, K and
+    V) in the step, before its writes: the device half of copy-on-write
+    page sharing; ``src == dst`` is a lane's no-op
+    (``ops/cache_ops.paged_page_copy``).  With the int8 pool's
+    ``scales`` the fp32 block scales move with the bytes
+    (``quantized_paged_page_copy``) and (pool, scales) is returned."""
+    if scales is not None:
+        helper = LayerHelper("quantized_paged_page_copy")
+        out = out or pool
+        scales_out = scales_out or scales
+        out.stop_gradient = True
+        scales_out.stop_gradient = True
+        helper.append_op("quantized_paged_page_copy",
+                         {"Pool": pool, "Scales": scales, "Src": src,
+                          "Dst": dst},
+                         {"Out": out, "ScalesOut": scales_out},
+                         {"n_layer": int(n_layer)})
+        return out, scales_out
+    helper = LayerHelper("paged_page_copy")
+    out = out or pool
+    out.stop_gradient = True
+    helper.append_op("paged_page_copy",
+                     {"Pool": pool, "Src": src, "Dst": dst},
+                     {"Out": out}, {"n_layer": int(n_layer)})
+    return out

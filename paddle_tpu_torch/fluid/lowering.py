@@ -7,8 +7,9 @@ into the first run by common-subexpression elimination.  Eager PyTorch
 does neither by itself, so ``BlockPlan`` does both from the desc alone:
 
 * dead-code elimination: only ops that feed a fetch or write a
-  persistable var run (the Transformer's unfetched ``predict``
-  projection, for one, never does);
+  persistable var run, and the forward op of each live grad op that
+  takes its product from the forward's graph (the Transformer's
+  unfetched ``predict`` projection, for one, never runs);
 * a forward op whose ``*_grad`` op has no emitter of its own runs under
   autograd with the inputs its grad op asks for as leaves, and keeps its
   graph on a tape; the grad op takes the vector-Jacobian product through
@@ -90,6 +91,14 @@ class BlockPlan:
                    for n in op.output_names()):
                 live.append(op)
                 needed.update(n for n in op.input_names() if n)
+                if is_grad_op_type(op.type) and not has_op(op.type):
+                    # its product needs its forward op's taped graph, so
+                    # the forward op lives even where nothing fetches
+                    # its output
+                    needed.update(n.split(GRAD_SUFFIX)[0]
+                                  for slot, names in op.inputs.items()
+                                  if slot.endswith(GRAD_SUFFIX)
+                                  for n in names if n)
         self.ops: List[OpDesc] = live[::-1]
 
         feeds = set(feed_names)

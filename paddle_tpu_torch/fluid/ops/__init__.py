@@ -1,11 +1,13 @@
 """Op corpus of the port: importing this package registers every op
 emitter the slices run (tensor, math, activation, nn, loss, optimizer,
-sequence and recurrent ops, and the serving step's paged KV writes and
-ragged attention in ``cache_ops``).  ``quant_ops`` holds the int8
-quantize-on-write rule as plain tensor functions."""
+sequence and recurrent ops, the serving steps' KV-cache writes, page
+copies and attentions in ``cache_ops``, and beam search in
+``beam_ops``).  ``quant_ops`` holds the int8 quantize-on-write rule as
+plain tensor functions."""
 
 from . import (  # noqa: F401
     activation_ops,
+    beam_ops,
     cache_ops,
     loss_ops,
     math_ops,

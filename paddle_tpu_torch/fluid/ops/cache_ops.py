@@ -1,7 +1,15 @@
-"""Paged KV-cache ops — the port of ``paged_cache_write``,
-``quantized_paged_cache_write`` and ``ragged_decode_attention`` from
-``paddle_tpu/fluid/ops/cache_ops.py``, with the reference's slots and
-attrs.
+"""KV-cache ops — the port of ``paddle_tpu/fluid/ops/cache_ops.py``, with
+the reference's slots and attrs: the dense generator's ``cache_write``
+and ``decode_attention``, and the paged engine's ``paged_cache_write``,
+``quantized_paged_cache_write``, ``ragged_decode_attention`` and the
+copy-on-write page copies ``paged_page_copy`` /
+``quantized_paged_page_copy``.
+
+``cache_write`` writes a preallocated [B, L, H, D] cache in place at
+each lane's position (``Out`` aliases ``Cache``), and
+``decode_attention`` attends over the cache's first ``lengths`` rows:
+the reference leaves both to XLA, so here they are plain PyTorch on
+every device (``kernels.flash_attention.decode_attention``).
 
 The pool is ONE persistable tensor ``[H, R, page_size, D]``; a *logical*
 page spans every layer and K+V of a page_size-token span, and
@@ -19,7 +27,7 @@ place and copies nothing back.  Two tokens of one write can only share
 a (row, slot) on the trash page, whose contents no live lane reads, so
 the order in which duplicate writes land does not matter.  No emitter
 reads a value on the host: the serving step is captured in a CUDA graph.
-All three are inference-only (``no_grad``).
+Every op here is inference-only (``no_grad``).
 """
 
 from __future__ import annotations
@@ -30,8 +38,52 @@ from ..core.registry import primitive
 from ...kernels.flash_attention import paged_kv_rows
 from .quant_ops import abs_max_scale, quantize_array
 
-__all__ = ["paged_cache_write", "quantized_paged_cache_write",
-           "ragged_decode_attention"]
+__all__ = ["cache_write", "decode_attention", "paged_cache_write",
+           "quantized_paged_cache_write", "ragged_decode_attention",
+           "paged_page_copy", "quantized_paged_page_copy"]
+
+
+@primitive("cache_write", inputs=["Cache", "Value", "Index"],
+           outputs=["Out"], no_grad=True)
+def cache_write(ctx, cache, value, index):
+    """Write ``value`` into ``cache`` at ``index`` along ``axis``, in
+    place, and return ``cache``.  ``index`` [1] (or a scalar): one offset
+    for every row, clamped so the value fits, as
+    ``lax.dynamic_update_slice`` clamps it; ``index`` [B] with axis 1:
+    row b's value [k, ...] lands at positions index[b] .. index[b]+k-1
+    (continuous batching: each lane at its own depth)."""
+    axis = int(ctx.attr("axis", 1))
+    idx = index.reshape(-1).to(torch.long)
+    value = value.to(cache.dtype)
+    k = value.shape[axis]
+    span = torch.arange(k, device=cache.device)
+    if idx.shape[0] == 1:
+        start = idx.clamp(0, cache.shape[axis] - k)
+        cache.index_copy_(axis, start + span, value)
+        return cache
+    if axis != 1:
+        raise ValueError(f"cache_write: per-row index vectors require "
+                         f"axis=1, got axis={axis}")
+    b = cache.shape[0]
+    if idx.shape[0] != b:
+        raise ValueError(f"cache_write: index vector length {idx.shape[0]} "
+                         f"!= cache batch {b}")
+    rows = idx[:, None] + span[None, :]                      # [B, k]
+    batch = torch.arange(b, device=cache.device)[:, None]
+    cache[batch, rows] = value
+    return cache
+
+
+@primitive("decode_attention", inputs=["Q", "KCache", "VCache", "Lengths"],
+           outputs=["Out"], no_grad=True)
+def decode_attention(ctx, q, k_cache, v_cache, lengths):
+    """Length-masked attention of a decode step's queries over the KV
+    cache (``kernels.flash_attention.decode_attention``: q [B, Lq, H, D],
+    caches [B, Lmax, H, D], lengths [B] live rows)."""
+    from ...kernels.flash_attention import decode_attention as _da
+
+    return _da(q, k_cache, v_cache, lengths,
+               sm_scale=ctx.attr("sm_scale", None))
 
 
 def _per_token(k, v, pages, offsets):
@@ -109,3 +161,41 @@ def ragged_decode_attention(ctx, q, pool, page_table, lengths, q_base,
                sm_scale=ctx.attr("sm_scale", None),
                impl=ctx.attr("impl", None),
                scales=scales)
+
+
+def _page_copy_rows(src, dst, n_layer: int):
+    """Logical pages [B] -> their physical rows [B, 2L] (every layer, K
+    and V)."""
+    span = torch.arange(2 * n_layer, device=src.device)[None, :]
+    src = src.reshape(-1).to(torch.long)
+    dst = dst.reshape(-1).to(torch.long)
+    return (src[:, None] * (2 * n_layer) + span,
+            dst[:, None] * (2 * n_layer) + span)
+
+
+@primitive("paged_page_copy", inputs=["Pool", "Src", "Dst"],
+           outputs=["Out"], no_grad=True)
+def paged_page_copy(ctx, pool, src, dst):
+    """Copy whole logical pages (all layers, K and V) ``src[b] ->
+    dst[b]`` in place: the device half of copy-on-write, run in the beam
+    step before its writes.  The source rows are gathered before the
+    scatter, so a lane with no copy (``TRASH_PAGE -> TRASH_PAGE``, the
+    no-op encoding) writes the trash rows' own values back."""
+    src_rows, dst_rows = _page_copy_rows(src, dst,
+                                         int(ctx.attr("n_layer", 1)))
+    pool[:, dst_rows] = pool[:, src_rows]
+    return pool
+
+
+@primitive("quantized_paged_page_copy",
+           inputs=["Pool", "Scales", "Src", "Dst"],
+           outputs=["Out", "ScalesOut"], no_grad=True)
+def quantized_paged_page_copy(ctx, pool, scales, src, dst):
+    """``paged_page_copy`` for an int8 pool: the fp32 block scales move
+    with the same physical rows as the int8 bytes, so a copied page is
+    bitwise its parent, scales included."""
+    src_rows, dst_rows = _page_copy_rows(src, dst,
+                                         int(ctx.attr("n_layer", 1)))
+    pool[:, dst_rows] = pool[:, src_rows]
+    scales[:, dst_rows] = scales[:, src_rows]
+    return pool, scales

@@ -1,11 +1,12 @@
-"""Math ops: the projection matmul, the elementwise family, sum, scale,
-mean and reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``,
-cut to what the Transformer, the LSTM text classifiers, the book's first
-two chapters, their backward and the optimizers emit.  ``mul``, ``sum``
-and ``elementwise_*`` see a SeqArray input's data and return a SeqArray,
-as in the reference.  The matmul is ``torch.matmul`` (cuBLAS on the
-card: fp32 with TF32 off, bf16 accumulating in fp32), as the reference
-leaves it to XLA.
+"""Math ops: the projection matmul, the batched ``matmul`` of the
+unfused attention, the elementwise family, sum, scale, mean and
+reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``, cut to
+what the Transformer, the LSTM text classifiers, the book's first two
+chapters, their backward and the optimizers emit.  ``mul``, ``matmul``,
+``sum`` and ``elementwise_*`` see a SeqArray input's data and return a
+SeqArray, as in the reference.  The matmuls are ``torch.matmul``
+(cuBLAS on the card: fp32 with TF32 off, bf16 accumulating in fp32), as
+the reference leaves them to XLA.
 
 ``match_master_dtype`` is the amp recipe's dtype rule, shared with the
 conv ops: a bf16 activation meeting an f32 parameter casts the parameter
@@ -48,6 +49,25 @@ def mul(ctx, x, y):
     out = torch.matmul(_flatten_2d(x, xd),
                        _flatten_2d(match_master_dtype(x, y), yd))
     return out.reshape(*x.shape[:xd], *y.shape[yd:])
+
+
+@primitive("matmul", inputs=["X", "Y"], seq_transparent=True)
+def matmul(ctx, x, y):
+    """Batched matmul with optional transposes of the last two axes and
+    a scale ``alpha`` (reference matmul_op.cc), summed in fp32 and
+    returned in X's dtype; 1-D operands follow numpy's vector rules."""
+    if ctx.attr("transpose_X", False) and x.dim() >= 2:
+        x = x.transpose(-1, -2)
+    if ctx.attr("transpose_Y", False) and y.dim() >= 2:
+        y = y.transpose(-1, -2)
+    alpha = ctx.attr("alpha", 1.0)
+    if alpha != 1.0 and x.dtype != torch.float32:
+        # scale the fp32 sums before they round to X's dtype
+        return (torch.matmul(x.float(), y.float()) * alpha).to(x.dtype)
+    out = torch.matmul(x, y)
+    if alpha != 1.0:
+        out = out * alpha
+    return out.to(x.dtype)
 
 
 def _bcast_to_x(x, y, axis: int):

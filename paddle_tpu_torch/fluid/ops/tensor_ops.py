@@ -1,7 +1,8 @@
 """Tensor creation and manipulation ops — the port of
 ``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer
-(training and the paged serving step), the LSTM text classifiers, the
-book's first two chapters, their backward and the optimizers emit.
+(training, the unfused attention, the paged and dense serving steps and
+beam search), the LSTM text classifiers, the book's first two chapters,
+their backward and the optimizers emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
@@ -139,6 +140,14 @@ def lookup_table_grad(ctx, w, ids, og):
 @primitive("top_k", inputs=["X"], outputs=["Out", "Indices"], no_grad=True)
 def top_k(ctx, x):
     """reference top_k_op.cc: the k largest values of the last axis and
-    their int32 indices."""
-    vals, idx = torch.topk(x, ctx.attr("k", 1), dim=-1)
+    their int32 indices, equal values lower index first, as
+    ``jax.lax.top_k`` orders them (``beam_ops.stable_top_k``)."""
+    from .beam_ops import stable_top_k
+
+    vals, idx = stable_top_k(x, ctx.attr("k", 1))
     return vals, idx.to(torch.int32)
+
+
+@primitive("transpose")
+def transpose(ctx, x):
+    return x.permute(*ctx.attr("axis"))

@@ -22,7 +22,9 @@ multiple of 64 above them (the wide kernels, in 64-column chunks); the
 wrappers zero-pad every other width to the next of those and slice the
 results back (exact: zero columns change no product).
 
-Serving half.  The paged KV pool is ONE tensor ``[H, R, page_size, D]``
+Serving half.  ``decode_attention`` is the dense generator's attention
+over its [B, L, H, D] caches, plain PyTorch (the reference's is XLA, not
+a Pallas kernel).  The paged KV pool is ONE tensor ``[H, R, page_size, D]``
 (head-major: one head's page is a contiguous ``page_size x D`` slab).  A
 *logical* page spans every layer and both K and V of a page_size-token
 span: physical row = ``(page * n_layer + layer) * 2`` (+1 for V).
@@ -49,7 +51,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["paged_kv_rows", "ragged_attention_plain",
+__all__ = ["decode_attention", "paged_kv_rows", "ragged_attention_plain",
            "ragged_decode_attention", "ragged_plan", "KERNEL_NAME",
            "FLASH_KERNELS",
            "DEFAULT_MASK_VALUE", "keep_scale", "flash_attention",
@@ -59,6 +61,28 @@ KERNEL_NAME = "ragged_paged_attention"
 MASK_VALUE = -1e9          # the reference's masked-score value, exactly
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SMEM_LIMIT = 232448       # dynamic shared memory one sm_90 block may use
+
+
+def decode_attention(q, k_cache, v_cache, lengths,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """A decode step's attention over a preallocated KV cache: q [B, Lq,
+    H, D] (Lq is 1 in steady decode) against k_cache / v_cache [B, Lmax,
+    H, D], of which the first ``lengths[b]`` rows are live (the rest
+    masked to -1e9).  Returns ctx [B, Lq, H, D].  The reference computes
+    it with XLA, outside any Pallas kernel, so it is plain PyTorch on
+    every device; scores and sums are fp32."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    lmax = k_cache.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).to(torch.float32)
+    scores = scores * sm_scale
+    live = (torch.arange(lmax, dtype=torch.int32, device=q.device)[None, :]
+            < lengths.to(torch.int32)[:, None])                # [B, Lmax]
+    scores = torch.where(live[:, None, None, :], scores,
+                         torch.full_like(scores, MASK_VALUE))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(v_cache.dtype), v_cache)
+    return ctx.to(q.dtype)
 
 
 def paged_kv_rows(page_table: torch.Tensor, layer: int, n_layer: int):

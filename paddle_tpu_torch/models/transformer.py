@@ -1,33 +1,38 @@
 """Transformer (encoder-decoder NMT) — the port of
 ``paddle_tpu/models/transformer.py``: the Fluid training graph and the
-paged serving graphs.
+dense and paged serving graphs.
 
 Every builder appends Fluid ops through ``fluid.layers`` exactly as the
 reference does, so both packages build byte-identical programs, and
 ``fluid.Executor`` runs them (on the card each step signature is one
 captured CUDA graph).
 
-Training.  ``transformer()`` and its builders (``multi_head_attention``
-on the fused path, ``positionwise_feed_forward``,
-``pre_post_process_layer``, ``encoder(_layer)``, ``decoder(_layer)``,
-``prepare_embedding``, ``wrap_encoder``): every attention is one
+Training.  ``transformer()`` and its builders (``multi_head_attention``,
+``positionwise_feed_forward``, ``pre_post_process_layer``,
+``encoder(_layer)``, ``decoder(_layer)``, ``prepare_embedding``,
+``wrap_encoder``): with ``fused=True`` every attention is one
 ``fused_attention`` op in the ``blhd`` layout (the flash kernels on the
-card).  ``amp_dtype="bfloat16"`` is the reference's bf16 recipe: bf16
+card); with ``fused=False``, the reference's default, the unfused
+matmul + softmax composition over an additive bias (plain PyTorch ops:
+the reference computes it outside any Pallas kernel).
+``amp_dtype="bfloat16"`` is the reference's bf16 recipe: bf16
 activations from one cast at each embedding, f32 master weights.
 
-Serving.  The paged branches of ``multi_head_attention``
+Serving.  The dense decode towers ``decode_prefill`` (encode once,
+project every layer's cross K/V) and ``decode_step`` (the dense caches
+of ``multi_head_attention``'s ``cache`` / ``static_kv`` branches,
+threaded through the layer builders as ``cache`` / ``cross_kv``), which
+``serving.decoder.TransformerGenerator`` runs; the paged branches
 (``paged_cache``: project q/k/v, write K/V into the pool, attend
-causally over the lane's pages; ``paged_static``: project q, attend over
-cross pages written at prefill), threaded through the layer builders as
-``paged_cache(s)`` / ``paged_cross(es)``, and the three serving towers
+causally over the lane's pages; ``paged_static``: project q, attend
+over cross pages written at prefill), threaded through as
+``paged_cache(s)`` / ``paged_cross(es)``, and the three paged towers
 ``paged_prefill_chunk``, ``paged_decode_step`` and ``verify_step``,
-which ``serving.paged_decoder.build_unified_program`` assembles into
-the unified prefill+decode step.  Parameter names under
-``param_prefix`` are the training graph's, so one scope serves both.
+which ``serving.paged_decoder`` assembles into its unified step and its
+beam step.  Parameter names under ``param_prefix`` are the training
+graph's, so one scope serves all of them.
 
-Not ported: the unfused matmul + softmax attention, the dense decode
-caches (``cache`` / ``static_kv``, the dense generator's), ``mp_shard``
-and ``seq_parallel``.
+Not ported: ``mp_shard`` and ``seq_parallel``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from ..fluid import ParamAttr, layers, unique_name
 __all__ = ["transformer", "multi_head_attention", "positionwise_feed_forward",
            "pre_post_process_layer", "encoder_layer", "encoder",
            "decoder_layer", "decoder", "prepare_embedding", "wrap_encoder",
-           "make_attn_bias", "paged_prefill_chunk", "paged_decode_step",
+           "make_attn_bias", "position_encoding_init", "decode_prefill",
+           "decode_step", "paged_prefill_chunk", "paged_decode_step",
            "verify_step"]
 
 
@@ -68,15 +74,28 @@ def _attr(mp_shard, name=None):
 def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                          d_model, n_head=1, dropout_rate=0.0,
                          mp_shard=False, fused=False, seq_parallel=False,
-                         causal=False, prefix=None, paged_cache=None,
+                         causal=False, prefix=None, cache=None,
+                         static_kv=None, paged_cache=None,
                          paged_static=None):
     """Project q/k/v, attend, merge heads, output projection.
 
-    Training: one ``fused_attention`` op on the head-interleaved
-    [b, l, h, d] tensors (``layout='blhd'``: no split-heads transposes);
-    ``causal=True`` masks future keys inside the kernel instead of
-    through a materialised bias, and attention-probability dropout
-    happens inside the kernel too.  Only this fused path is ported.
+    Training: with ``fused=True`` one ``fused_attention`` op on the
+    head-interleaved [b, l, h, d] tensors (``layout='blhd'``: no
+    split-heads transposes; the flash kernels on the card), where
+    ``causal=True`` masks future keys inside the kernel and
+    attention-probability dropout happens inside the kernel too.  With
+    ``fused=False`` (the default, as in the reference) the unfused
+    composition: split heads, ``scale``, ``matmul`` q.k^T, the bias add,
+    ``softmax``, dropout, ``matmul`` with v, merge heads; causal masking
+    then comes from the bias (``make_attn_bias(causal=True)``).
+
+    Dense decode (``serving/decoder.py``):
+      ``cache={"k","v","index","lengths"}`` — the current token's k/v are
+      written into the persistable cache vars at ``index``
+      (``cache_write``) and the query attends over the cache's first
+      ``lengths`` rows (``decode_attention``);
+      ``static_kv={"k","v","lengths"}`` — cross-attention against K/V
+      projected once at prefill (``decode_prefill``).
 
     Paged serving (block-table page indirection over ONE pooled KV
     tensor; see serving/paged_decoder.py):
@@ -89,14 +108,6 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
       ``paged_static={"pool","table","lengths","layer","n_layer",
       "scales"}`` — read-only cross-attention against pages written at
       prefill."""
-    paged = paged_cache is not None or paged_static is not None
-    if paged_cache is not None and paged_static is not None:
-        raise ValueError("multi_head_attention: pick ONE of paged_cache / "
-                         "paged_static")
-    if not fused and not paged:
-        raise NotImplementedError("multi_head_attention(fused=False): the "
-                                  "matmul + softmax composition is not "
-                                  "ported to paddle_tpu_torch")
     if seq_parallel:
         raise NotImplementedError("multi_head_attention(seq_parallel=...) "
                                   "is not ported to paddle_tpu_torch")
@@ -117,15 +128,6 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
             size=d_model, bias_attr=False, num_flatten_dims=2,
             param_attr=o_attr)
 
-    if paged_static is not None:
-        ps = paged_static
-        ctx = layers.ragged_decode_attention(
-            interleave_heads(q, d_key), ps["pool"], ps["table"],
-            ps["lengths"], layer=ps["layer"], n_layer=ps["n_layer"],
-            causal=False, sm_scale=float(d_key) ** -0.5,
-            scales=ps.get("scales"))
-        return merge_heads_proj(ctx)
-
     def project_kv():
         k = layers.fc(input=keys, size=d_key * n_head, bias_attr=False,
                       num_flatten_dims=2,
@@ -135,34 +137,90 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                       param_attr=_attr(mp_shard, _nm(prefix, "v.w")))
         return k, v
 
-    if paged_cache is not None:
-        pc = paged_cache
+    if paged_cache is not None or paged_static is not None:
+        if sum(x is not None
+               for x in (cache, static_kv, paged_cache, paged_static)) > 1:
+            raise ValueError("multi_head_attention: pick ONE of cache / "
+                             "static_kv / paged_cache / paged_static")
         q = interleave_heads(q, d_key)          # [b, lq, h, dk]
-        k, v = project_kv()
-        kv_scales = pc.get("scales")
-        if kv_scales is not None:           # int8 pool: quantize on write
-            pool, kv_scales = layers.quantized_paged_cache_write(
-                pc["pool"], kv_scales, interleave_heads(k, d_key),
-                interleave_heads(v, d_value), pc["pages"], pc["offsets"],
-                layer=pc["layer"], n_layer=pc["n_layer"])
+        if paged_static is not None:
+            ps = paged_static
+            ctx = layers.ragged_decode_attention(
+                q, ps["pool"], ps["table"], ps["lengths"],
+                layer=ps["layer"], n_layer=ps["n_layer"], causal=False,
+                sm_scale=float(d_key) ** -0.5, scales=ps.get("scales"))
         else:
-            pool = layers.paged_cache_write(
-                pc["pool"], interleave_heads(k, d_key),
-                interleave_heads(v, d_value), pc["pages"], pc["offsets"],
-                layer=pc["layer"], n_layer=pc["n_layer"])
-        ctx = layers.ragged_decode_attention(
-            q, pool, pc["table"], pc["lengths"], pc["base"],
-            layer=pc["layer"], n_layer=pc["n_layer"], causal=True,
-            sm_scale=float(d_key) ** -0.5, scales=kv_scales)
+            pc = paged_cache
+            k, v = project_kv()
+            kv_scales = pc.get("scales")
+            if kv_scales is not None:       # int8 pool: quantize on write
+                pool, kv_scales = layers.quantized_paged_cache_write(
+                    pc["pool"], kv_scales, interleave_heads(k, d_key),
+                    interleave_heads(v, d_value), pc["pages"],
+                    pc["offsets"], layer=pc["layer"],
+                    n_layer=pc["n_layer"])
+            else:
+                pool = layers.paged_cache_write(
+                    pc["pool"], interleave_heads(k, d_key),
+                    interleave_heads(v, d_value), pc["pages"],
+                    pc["offsets"], layer=pc["layer"],
+                    n_layer=pc["n_layer"])
+            ctx = layers.ragged_decode_attention(
+                q, pool, pc["table"], pc["lengths"], pc["base"],
+                layer=pc["layer"], n_layer=pc["n_layer"], causal=True,
+                sm_scale=float(d_key) ** -0.5, scales=kv_scales)
+        return merge_heads_proj(ctx)
+
+    if cache is not None or static_kv is not None:
+        if cache is not None and static_kv is not None:
+            raise ValueError("multi_head_attention: cache and static_kv "
+                             "are mutually exclusive")
+        q = interleave_heads(q, d_key)          # [b, lq, h, dk]
+        if static_kv is not None:
+            ctx = layers.decode_attention(
+                q, static_kv["k"], static_kv["v"], static_kv["lengths"],
+                sm_scale=float(d_key) ** -0.5)
+        else:
+            k, v = project_kv()
+            kc = layers.cache_write(cache["k"], interleave_heads(k, d_key),
+                                    cache["index"], axis=1)
+            vc = layers.cache_write(cache["v"], interleave_heads(v, d_value),
+                                    cache["index"], axis=1)
+            ctx = layers.decode_attention(q, kc, vc, cache["lengths"],
+                                          sm_scale=float(d_key) ** -0.5)
         return merge_heads_proj(ctx)
 
     k, v = project_kv()
-    q = interleave_heads(q, d_key)
-    k = interleave_heads(k, d_key)
-    v = interleave_heads(v, d_value)
-    ctx = layers.fused_attention(q, k, v, bias=attn_bias, causal=causal,
-                                 sm_scale=float(d_key) ** -0.5,
-                                 dropout_rate=dropout_rate, layout="blhd")
+    if fused:
+        q = interleave_heads(q, d_key)
+        k = interleave_heads(k, d_key)
+        v = interleave_heads(v, d_value)
+        ctx = layers.fused_attention(q, k, v, bias=attn_bias, causal=causal,
+                                     sm_scale=float(d_key) ** -0.5,
+                                     dropout_rate=dropout_rate,
+                                     layout="blhd")
+        return merge_heads_proj(ctx)
+
+    def split_heads(x, d_head):
+        return layers.transpose(interleave_heads(x, d_head), [0, 2, 1, 3])
+
+    q = split_heads(q, d_key)                   # [b, h, lq, dk]
+    k = split_heads(k, d_key)
+    v = split_heads(v, d_value)
+    if causal:
+        raise NotImplementedError(
+            "in-graph causal masking without a bias tensor requires the "
+            "fused attention path (fused=True); pass a causal attn_bias "
+            "from make_attn_bias otherwise")
+    q = layers.scale(q, scale=float(d_key) ** -0.5)
+    product = layers.matmul(q, k, transpose_y=True)   # [b, h, lq, lk]
+    if attn_bias is not None:
+        product = layers.elementwise_add(product, attn_bias)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx = layers.matmul(weights, v)                   # [b, h, lq, dv]
+    ctx = layers.transpose(ctx, [0, 2, 1, 3])
     return merge_heads_proj(ctx)
 
 
@@ -230,9 +288,12 @@ def decoder_layer(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
                   n_head, d_key, d_value, d_model, d_inner_hid,
                   dropout_rate=0.0, mp_shard=False, fused=False,
                   seq_parallel=False, causal=False, prefix=None,
-                  paged_cache=None, paged_cross=None):
+                  cache=None, cross_kv=None, paged_cache=None,
+                  paged_cross=None):
     """One decoder layer.  Training re-attends over the whole target
-    (``slf_attn_bias`` or ``causal``) and over the encoder output;
+    (``slf_attn_bias`` or ``causal``) and over the encoder output; dense
+    decode passes ``cache`` (self-attention over the layer's KV cache)
+    and ``cross_kv`` (the cross K/V from prefill and the source lengths);
     paged serving passes ``paged_cache`` (self-attention over the lane's
     self pages) and ``paged_cross`` (cross-attention over the cross pages
     written at prefill)."""
@@ -240,7 +301,7 @@ def decoder_layer(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
                                     slf_attn_bias, d_key, d_value, d_model,
                                     n_head, dropout_rate, mp_shard, fused,
                                     seq_parallel, causal=causal,
-                                    prefix=_nm(prefix, "self"),
+                                    prefix=_nm(prefix, "self"), cache=cache,
                                     paged_cache=paged_cache)
     slf_attn = pre_post_process_layer(dec_input, slf_attn, "dan",
                                       dropout_rate,
@@ -249,6 +310,7 @@ def decoder_layer(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
                                  dec_enc_attn_bias, d_key, d_value, d_model,
                                  n_head, dropout_rate, mp_shard, fused,
                                  seq_parallel, prefix=_nm(prefix, "cross"),
+                                 static_kv=cross_kv,
                                  paged_static=paged_cross)
     cross = pre_post_process_layer(slf_attn, cross, "dan", dropout_rate,
                                    prefix=_nm(prefix, "post_cross"))
@@ -262,13 +324,17 @@ def decoder(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
             n_layer, n_head, d_key, d_value, d_model, d_inner_hid,
             dropout_rate=0.0, mp_shard=False, fused=False,
             seq_parallel=False, causal=False, prefix=None,
-            paged_caches=None, paged_crosses=None):
+            caches=None, cross_kvs=None, paged_caches=None,
+            paged_crosses=None):
     for i in range(n_layer):
         dec_input = decoder_layer(dec_input, enc_output, slf_attn_bias,
                                   dec_enc_attn_bias, n_head, d_key, d_value,
                                   d_model, d_inner_hid, dropout_rate,
                                   mp_shard, fused, seq_parallel,
                                   causal=causal, prefix=_nm(prefix, f"dec{i}"),
+                                  cache=None if caches is None else caches[i],
+                                  cross_kv=None if cross_kvs is None
+                                  else cross_kvs[i],
                                   paged_cache=None if paged_caches is None
                                   else paged_caches[i],
                                   paged_cross=None if paged_crosses is None
@@ -406,6 +472,93 @@ def make_attn_bias(lengths, seq_len, n_head, causal=False):
         future = np.triu(np.ones((seq_len, seq_len)), k=1) * -1e9
         bias = bias + future[None, None]
     return bias.astype(np.float32)
+
+
+def position_encoding_init(n_position, d_model):
+    """Sinusoid table (the reference transformer's position_encoding_init)."""
+    pos = np.arange(n_position)[:, None]
+    dim = np.arange(d_model)[None, :]
+    angle = pos / np.power(10000, 2 * (dim // 2) / d_model)
+    table = np.zeros((n_position, d_model), np.float32)
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table
+
+
+# ---------------------------------------------------------------------------
+# the dense decode towers (serving/decoder.py)
+# ---------------------------------------------------------------------------
+
+def decode_prefill(src_word, src_pos, src_slf_attn_bias, src_vocab_size,
+                   max_length, n_layer, n_head, d_key, d_value, d_model,
+                   d_inner_hid, param_prefix, dropout_rate=0.0):
+    """The dense prefill tower: encode the source once (the unfused
+    attention, as the reference builds it) and project every decoder
+    layer's cross-attention K/V from the encoder output, under the
+    training graph's parameter names.  Returns ``(enc_output,
+    cross_kvs)``, ``cross_kvs`` a list of ``(k_i, v_i)`` vars, each [b,
+    src_len, n_head, d]: the ``static_kv`` layout ``decode_step``
+    reads."""
+    if not param_prefix:
+        raise ValueError("decode_prefill requires param_prefix (the "
+                         "explicit-name sharing contract with the "
+                         "training graph)")
+    enc_output = wrap_encoder(src_word, src_pos, src_slf_attn_bias,
+                              src_vocab_size, max_length, n_layer, n_head,
+                              d_key, d_value, d_model, d_inner_hid,
+                              dropout_rate, prefix=param_prefix)
+    b, s = enc_output.shape[0], enc_output.shape[1]
+
+    def heads(x, d_head):
+        return layers.reshape(x, [-1 if b == -1 else b, s, n_head, d_head])
+
+    cross_kvs = []
+    for i in range(n_layer):
+        pre = _nm(param_prefix, f"dec{i}.cross")
+        k = layers.fc(input=enc_output, size=d_key * n_head,
+                      bias_attr=False, num_flatten_dims=2,
+                      param_attr=_attr(False, _nm(pre, "k.w")))
+        v = layers.fc(input=enc_output, size=d_value * n_head,
+                      bias_attr=False, num_flatten_dims=2,
+                      param_attr=_attr(False, _nm(pre, "v.w")))
+        cross_kvs.append((heads(k, d_key), heads(v, d_value)))
+    return enc_output, cross_kvs
+
+
+def decode_step(trg_word, trg_pos, cache_index, self_lengths, src_lengths,
+                self_caches, cross_caches, trg_vocab_size, max_length,
+                n_layer, n_head, d_key, d_value, d_model, d_inner_hid,
+                param_prefix):
+    """One dense incremental decode step.  Feeds: ``trg_word`` /
+    ``trg_pos`` [b, 1], ``cache_index`` [b] int32 (each lane's write
+    position), ``self_lengths`` [b] int32 (position + 1),
+    ``src_lengths`` [b] int32.  ``self_caches``: per layer ``{"k",
+    "v"}`` persistable vars [b, max_out_len, h, d], written in place by
+    ``cache_write``; ``cross_caches``: per layer ``{"k", "v"}`` [b,
+    src_len, h, d] from ``decode_prefill``.  Returns logits [b, 1,
+    vocab]."""
+    if not param_prefix:
+        raise ValueError("decode_step requires param_prefix (the "
+                         "explicit-name sharing contract with the "
+                         "training graph)")
+    emb = prepare_embedding(trg_word, trg_pos, trg_vocab_size, max_length,
+                            d_model, 0.0,
+                            emb_name=_nm(param_prefix, "trg_emb.w"),
+                            pos_name=_nm(param_prefix, "trg_pos_emb.w"))
+    # [b, 1] ids embed to [b, d]; the decoder works on [b, 1, d]
+    emb = layers.reshape(emb, [-1, 1, d_model])
+    caches = [{"k": c["k"], "v": c["v"], "index": cache_index,
+               "lengths": self_lengths} for c in self_caches]
+    cross = [{"k": c["k"], "v": c["v"], "lengths": src_lengths}
+             for c in cross_caches]
+    dec_output = decoder(emb, None, None, None, n_layer, n_head, d_key,
+                         d_value, d_model, d_inner_hid, 0.0,
+                         prefix=param_prefix, caches=caches,
+                         cross_kvs=cross)
+    return layers.fc(input=dec_output, size=trg_vocab_size,
+                     num_flatten_dims=2, bias_attr=False,
+                     param_attr=_attr(False, _nm(param_prefix,
+                                                 "vocab_proj.w")))
 
 
 # ---------------------------------------------------------------------------

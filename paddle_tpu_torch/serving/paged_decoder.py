@@ -13,7 +13,12 @@
   trash-page writes and length-1 masks;
 * **prefix sharing**: full prompt chunks are content-addressed (chain
   hashes), so identical prompt prefixes map to the same physical pages
-  with refcounts.
+  with refcounts;
+* **beam search** (``beam``): the b*W beam lanes decode over shared
+  pages.  After each step a hypothesis takes its parent's page table,
+  page by page, under refcounts; a lane about to write a shared,
+  partly filled page first gets its own copy in the same step
+  (copy-on-write, ``paged_page_copy``), never a copy of the whole cache.
 
 As in the reference, the generator builds the unified prefill+decode
 step as a Fluid program and runs it through ``fluid.Executor`` in its
@@ -22,15 +27,17 @@ persistable vars that the step's paged KV writes update in place.  On
 the card the first ``lane_step`` at a lane count runs eagerly and is
 captured in a CUDA graph; every later one at that lane count replays it
 (``cache_stats()["executable"]``; ``aot_warm`` does the capture ahead of
-traffic).  The host-side logic (admission, page tables, feeds, greedy)
-is the reference's, line for line, so both packages make the same
-decisions on the same requests.  Pools may be float32, bfloat16 or int8
-(with a float32 per-(row, slot) scale sidecar).
+traffic).  The beam step is a program of its own, run the same way: one
+capture per (b, W), the scope's pool its buffer as it is the unified
+step's.  The host-side logic (admission, page tables, feeds, greedy,
+the beam's table reorder and copy-on-write) is the reference's, line for
+line, so both packages make the same decisions on the same requests.
+Pools may be float32, bfloat16 or int8 (with a float32 per-(row, slot)
+scale sidecar).
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-beam search, the host-RAM KV tier and sessions, the sharded mesh,
-speculative decoding, ``build_manifest_program`` and the static HBM
-estimates.
+the host-RAM KV tier and sessions, the sharded mesh, speculative
+decoding, ``build_manifest_program`` and the static HBM estimates.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from ..fluid.analysis.dataflow import ProgramView
 from ..fluid.analysis.recompile import enumerate_buckets
 from ..models import transformer as T
 from ..observability import tracing as _obs_tracing
-from .decoder import _Cfg, dense_kv_bytes_per_slot
+from .decoder import (_Cfg, build_backtrace, dense_kv_bytes_per_slot,
+                      run_backtrace)
 from .paging import (PageAllocator, PoolCapacityError, TRASH_PAGE,
                      chunk_hashes)
 
@@ -241,7 +249,9 @@ class PagedTransformerGenerator:
     The scheduler surface is page-aware: ``open_slots / admit_slot /
     clear_slot / lane_step`` plus ``can_admit / prompt_infeasible /
     pages_needed`` for admission control.  ``greedy`` decodes a whole
-    batch through the same loop.  The unified program runs through
+    batch through the same loop, ``beam`` by beam search over shared
+    pages (``topk_size``: the candidates a beam offers each step,
+    default 2W).  The unified and beam programs run through
     ``executor`` (default ``fluid.Executor(place)``, ``place`` default
     ``fluid.CUDAPlace(0)``: pass ``place=fluid.CPUPlace()`` or a CPU
     executor to run on the CPU) in ``scope`` (default a new one), which
@@ -261,8 +271,7 @@ class PagedTransformerGenerator:
                  kv_dtype="float32", mesh=None, mesh_axes=None,
                  host_pages=0, session_store=None, xfer_width=4,
                  demote_watermark=0):
-        unported = {"topk_size (beam search)": topk_size is not None,
-                    "mesh / mesh_axes": mesh is not None or bool(mesh_axes),
+        unported = {"mesh / mesh_axes": mesh is not None or bool(mesh_axes),
                     "host_pages (KV host tier)": host_pages != 0,
                     "session_store": session_store is not None,
                     "xfer_width (KV host tier)": xfer_width != 4,
@@ -289,6 +298,7 @@ class PagedTransformerGenerator:
         self.page_size = int(page_size)
         self.chunk = int(chunk_size)
         self.prefix_sharing = bool(prefix_sharing)
+        self.topk_size = topk_size
         self.p_src = _ceil_div(self.src_len, self.page_size)
         self.p_out = _ceil_div(self.max_out_len, self.page_size)
         if num_pages is None:
@@ -311,6 +321,8 @@ class PagedTransformerGenerator:
         self._slots = 0
         self._steps = 0
         self._tracer = _obs_tracing.tracer()
+        self._beam_steps: Dict[int, tuple] = {}
+        self._decode_prog = None
         self._build_unified()
         self._reset_pool()
 
@@ -326,6 +338,20 @@ class PagedTransformerGenerator:
             self.scope.set_var(self._scales_name, torch.zeros(
                 self._scales_shape, dtype=torch.float32, device=dev))
 
+    def _pool_var(self, block):
+        return block.create_var(name=self._pool_name,
+                                shape=list(self._pool_shape),
+                                dtype=self.kv_dtype, persistable=True)
+
+    def _scales_var(self, block):
+        """The int8 pool's fp32 block-scale sidecar (None for float
+        pools)."""
+        if self.kv_dtype != "int8":
+            return None
+        return block.create_var(name=self._scales_name,
+                                shape=list(self._scales_shape),
+                                dtype="float32", persistable=True)
+
     # -- program builders ----------------------------------------------------
     def _build_unified(self):
         """ONE program = one step: the chunked-prefill tower (causal
@@ -338,6 +364,61 @@ class PagedTransformerGenerator:
             page_size=self.page_size, num_pages=self.num_pages,
             chunk_size=self.chunk, param_prefix=self.prefix,
             kv_dtype=self.kv_dtype)
+
+    def _build_beam_step(self, W: int):
+        """The paged beam step: the copy-on-write page copies, the paged
+        decode tower over the b*W lanes, and the beam_search selection.
+        No cache reorder is in the program: the host gives each
+        hypothesis its parent's (shared, refcounted) page table."""
+        c = self.cfg
+        K = self.topk_size or min(2 * W, c.trg_vocab_size)
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, startup), fluid.unique_name.guard():
+            pool = self._pool_var(prog.global_block())
+            kv_scales = self._scales_var(prog.global_block())
+            pre_ids = layers.data("pre_ids", [W], "int64")
+            pre_scores = layers.data("pre_scores", [W], "float32")
+            tok = layers.data("trg_word", [1], "int64")       # [bW, 1]
+            tp = layers.data("trg_pos", [1], "int64")
+            cow_src = layers.data("cow_src", [], "int32")
+            cow_dst = layers.data("cow_dst", [], "int32")
+            self_table = layers.data("self_table", [self.p_out], "int32")
+            self_pages = layers.data("self_pages", [1], "int32")
+            self_offsets = layers.data("self_offsets", [1], "int32")
+            self_lengths = layers.data("self_lengths", [], "int32")
+            self_base = layers.data("self_base", [], "int32")
+            cross_table = layers.data("cross_table", [self.p_src], "int32")
+            src_lengths = layers.data("src_lengths", [], "int32")
+            if kv_scales is not None:
+                pool, kv_scales = layers.paged_page_copy(
+                    pool, cow_src, cow_dst, n_layer=c.n_layer,
+                    scales=kv_scales)
+            else:
+                pool = layers.paged_page_copy(pool, cow_src, cow_dst,
+                                              n_layer=c.n_layer)
+            logits = T.paged_decode_step(
+                tok, tp, self_table, self_pages, self_offsets,
+                self_lengths, self_base, cross_table, src_lengths, pool,
+                c.trg_vocab_size, c.max_length, c.n_layer, c.n_head,
+                c.d_key, c.d_value, c.d_model, c.d_inner_hid, self.prefix,
+                kv_scales=kv_scales)
+            probs = layers.softmax(
+                layers.reshape(logits, [-1, W, c.trg_vocab_size]))
+            topk_scores, topk_idx = layers.topk(probs, k=K)
+            sel_ids, sel_scores, parent = layers.beam_search(
+                pre_ids, pre_scores, topk_idx, topk_scores, W,
+                end_id=self.end_id)
+        self._beam_steps[W] = (prog, startup, sel_ids, sel_scores, parent)
+        return self._beam_steps[W]
+
+    def _build_backtrace(self):
+        self._decode_prog = build_backtrace(self.end_id)
+        return self._decode_prog
+
+    def _backtrace(self, ids_steps, score_steps, parent_steps):
+        return run_backtrace(self.exe, self.scope,
+                             self._decode_prog or self._build_backtrace(),
+                             ids_steps, score_steps, parent_steps)
 
     def _run(self, feed, fetch_list):
         """One unified step on ``feed`` through the executor, in this
@@ -411,6 +492,8 @@ class PagedTransformerGenerator:
         return _ceil_div(int(max_new), self.page_size) if max_new else 0
 
     def _resolve_max_new(self, max_new: Optional[int]) -> int:
+        """None -> the generator's cap; 0 stays 0 (beam reserves no self
+        pages at admission: it allocates them lane by lane)."""
         if max_new is None:
             return self.max_out_len
         return min(int(max_new), self.max_out_len)
@@ -730,6 +813,124 @@ class PagedTransformerGenerator:
         for i in range(b):
             self.clear_slot(i)
         return np.asarray([row[:target] for row in out], np.int64)
+
+    # -- beam ----------------------------------------------------------------
+    def beam(self, src_tokens, src_lengths, beam_size: int,
+             max_new: Optional[int] = None, return_trace: bool = False):
+        """Paged beam decode: the prompts chunk-prefill through the
+        unified step, then b*W beam lanes decode over shared pages, one
+        beam step each token.  After a step each selected hypothesis
+        takes its parent's page table (every page reffed for the new
+        table before the old tables are unreffed); a lane that will
+        write into a page it shares gets a fresh page and the step copies
+        the shared one into it first (copy-on-write, ``note_cow``).
+        Every page is unreffed and every lane cleared in ``finally``,
+        also after an error.  Returns (NestedSeqArray [b, W, T] best
+        first, scores [b, W]), and with ``return_trace=True`` the
+        per-step (ids, scores, parents) trajectory too."""
+        W = int(beam_size)
+        ps = self.page_size
+        src_tokens = np.asarray(src_tokens)
+        src_lengths = np.asarray(src_lengths, np.int32)
+        b = src_tokens.shape[0]
+        bw = b * W
+        max_new = min(max_new or self.max_out_len, self.max_out_len)
+        self.open_slots(b)
+        for i in range(b):
+            self.admit_slot(i, src_tokens[i, :src_lengths[i]], max_new=0)
+        while any(lane.phase == "prefill" for lane in self._lanes):
+            self.lane_step()
+        prog, _, sel_ids_v, sel_scores_v, parent_v = \
+            self._beam_steps.get(W) or self._build_beam_step(W)
+
+        lane_tables: List[List[int]] = [[] for _ in range(bw)]
+        lane_cross = np.zeros((bw, self.p_src), np.int32)
+        lane_srclen = np.repeat(src_lengths, W).astype(np.int32)
+        for i in range(b):
+            tbl = self._lanes[i].cross_table
+            for w in range(W):
+                lane_cross[i * W + w, :len(tbl)] = tbl
+        pre_ids = np.full((b, W), self.start_id, np.int64)
+        pre_scores = np.concatenate(
+            [np.zeros((b, 1), np.float32),
+             np.full((b, W - 1), -1e9, np.float32)], axis=1)
+        ids_steps = [pre_ids]
+        score_steps = [pre_scores]
+        parent_steps = [np.zeros((b, W), np.int32)]
+        try:
+            with fluid.scope_guard(self.scope):
+                for t in range(max_new):
+                    off = t % ps
+                    cow_src = np.full(bw, TRASH_PAGE, np.int32)
+                    cow_dst = np.full(bw, TRASH_PAGE, np.int32)
+                    for ln in range(bw):
+                        tbl = lane_tables[ln]
+                        if off == 0:
+                            tbl.append(self.alloc.alloc(1)[0])
+                        elif self.alloc.refcount(tbl[-1]) > 1:
+                            new = self.alloc.alloc(1)[0]
+                            cow_src[ln] = tbl[-1]
+                            cow_dst[ln] = new
+                            self.alloc.unref(tbl[-1])
+                            self.alloc.note_cow()
+                            tbl[-1] = new
+                    self_table = np.zeros((bw, self.p_out), np.int32)
+                    self_pages = np.zeros((bw, 1), np.int32)
+                    for ln in range(bw):
+                        tbl = lane_tables[ln]
+                        self_table[ln, :len(tbl)] = tbl
+                        self_pages[ln, 0] = tbl[t // ps]
+                    feed = {
+                        "pre_ids": pre_ids, "pre_scores": pre_scores,
+                        "trg_word": pre_ids.reshape(bw, 1),
+                        "trg_pos": np.full((bw, 1), t, np.int64),
+                        "cow_src": cow_src, "cow_dst": cow_dst,
+                        "self_table": self_table,
+                        "self_pages": self_pages,
+                        "self_offsets": np.full((bw, 1), off, np.int32),
+                        "self_lengths": np.full(bw, t + 1, np.int32),
+                        "self_base": np.full(bw, t, np.int32),
+                        "cross_table": lane_cross,
+                        "src_lengths": lane_srclen,
+                    }
+                    si, ss, pa = self.exe.run(
+                        prog, feed=feed,
+                        fetch_list=[sel_ids_v, sel_scores_v, parent_v],
+                        mode="infer")
+                    pre_ids = np.asarray(si).astype(np.int64)
+                    pre_scores = np.asarray(ss).astype(np.float32)
+                    parent = np.asarray(pa).astype(np.int32)
+                    # the table reorder: each selected hypothesis
+                    # continues from its PARENT's pages — ref the new
+                    # view of every lane first, then drop the old refs
+                    new_tables = []
+                    for i in range(b):
+                        for w in range(W):
+                            src_tbl = lane_tables[i * W + int(parent[i, w])]
+                            for p in src_tbl:
+                                self.alloc.ref(p)
+                            new_tables.append(list(src_tbl))
+                    for tbl in lane_tables:
+                        for p in tbl:
+                            self.alloc.unref(p)
+                    lane_tables = new_tables
+                    ids_steps.append(pre_ids)
+                    score_steps.append(pre_scores)
+                    parent_steps.append(parent)
+                    if (pre_ids == self.end_id).all():
+                        break
+        finally:
+            for tbl in lane_tables:
+                for p in tbl:
+                    self.alloc.unref(p)
+            for i in range(b):
+                self.clear_slot(i)
+        out_ids, out_scores = self._backtrace(ids_steps, score_steps,
+                                              parent_steps)
+        if return_trace:
+            return out_ids, out_scores, (ids_steps, score_steps,
+                                         parent_steps)
+        return out_ids, out_scores
 
     # -- ahead-of-traffic warm-up -----------------------------------------
     def bucket_set(self, n_slots: int):

@@ -299,10 +299,16 @@ def test_unported_features_raise():
             tfluid.nets.img_conv_group(img, [4, 4], pool_size=2,
                                        conv_with_batchnorm=True)
     for kw, what in ((dict(mp_shard=True), "mp_shard"),
-                     (dict(fused=False), "fused=False"),
                      (dict(seq_parallel=True), "seq_parallel")):
         with pytest.raises(NotImplementedError, match=what):
             build(tfluid, TT, minimize=False, **kw)
+    # the unfused attention is ported; as in the reference, it masks
+    # causally only through a bias
+    with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
+        q = tfluid.layers.data("q", [4, 8], "float32")
+        with pytest.raises(NotImplementedError, match="fused=True"):
+            TT.multi_head_attention(q, q, q, None, 4, 4, 8, n_head=2,
+                                    causal=True)
     exe = tfluid.Executor(tfluid.CPUPlace())
     with pytest.raises(NotImplementedError, match="cost_analysis"):
         exe.cost_analysis()

@@ -101,9 +101,9 @@ def test_entry_points_refuse_to_fall_back(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul \
         .allow_bf16_reduced_precision_reduction is False
-    with pytest.raises(NotImplementedError, match="beam"):
+    with pytest.raises(NotImplementedError, match="host_pages"):
         PagedTransformerGenerator(24, 24, place=fluid.CPUPlace(),
-                                  topk_size=4)
+                                  host_pages=4)
 
 
 def test_executor_runs_on_the_card_unless_given_cpu_place(monkeypatch):
@@ -169,18 +169,13 @@ def test_chip_smoke_fails_a_faulty_serving_profile(fault):
 
 # reference parameters a port function does not take, by (file under the
 # package, function): the port's own internals (emitter contexts, the
-# lowering) and the dense decode caches and serving tiers the port has
-# not taken on yet
+# lowering) and the serving tier the port has not taken on yet
 NOT_TAKEN = {
     ("fluid/core/registry.py", "EmitCtx.__init__"): {"rng", "lower_block"},
     ("fluid/core/registry.py", "OpInfo.__init__"): {"grad_maker",
                                                      "needs_out_slots"},
     ("fluid/lowering.py", "run_block_ops"): {"desc", "block_idx",
                                              "step_key"},
-    ("models/transformer.py", "multi_head_attention"): {
-        "cache", "static_kv"},
-    ("models/transformer.py", "decoder_layer"): {"cache", "cross_kv"},
-    ("models/transformer.py", "decoder"): {"caches", "cross_kvs"},
     ("serving/paging.py", "PageAllocator.__init__"): {"host_pages"},
 }
 

@@ -165,12 +165,34 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    hits, falling loss);
 15. time the LSTM kernel, its plain loop, ``torch.nn.LSTM`` (cuDNN, TF32
    off) and cuDNN's own input product alone at B=128, T=100, H = 256,
-   512 and 1280.
+   512 and 1280;
+16. image classification, no kernel of this repo on its path (every
+   launch count 0 before and after each run): ResNet-50 in bench.py's
+   recipe (224 px, 1000 classes, Momentum 0.1 / 0.9) with bf16 images
+   over f32 masters, then in float32: step 3 at 64 px and batch 2 (a
+   replay, at a learning rate of 1e-3, after 100 steps there on fresh
+   batches: at its initialization the network is chaotic; see R50_*)
+   against the eager step (cuDNN's deterministic algorithms) and against
+   the CPU port from the card's state before it (the loss, every
+   gradient and the 106 moving stats: float32 each gradient within 0.1
+   in relative L2, bf16 by the amp rule); step 3 at batch 128 against the eager step; then 20
+   steps at batch 128 on one fixed batch kept on the card from the
+   startup program run there (19 executable hits in float32; 18 in bf16,
+   whose first step turns the moving stats from bf16 to float32, as the
+   reference's does; one graph; one host sync a replayed step; images/s,
+   median step ms over steps 2-20, peak memory); AlexNet, GoogLeNet and
+   SmallNet in bench.py's recipe (bf16 images, Momentum 0.01 / 0.9,
+   batch 128): step 3 against the eager step, then 10 steps on one fixed
+   batch; the book's CIFAR ResNet-32 (Momentum 0.02 / 0.9) and VGG-16
+   with batch norm (Adam 1e-3) at 32 px, batch 128, 20 steps on fresh
+   synthetic batches.  Every path's losses finite, the mean of the last
+   5 below the first 5.
 
 It prints the card's name and power limit, a ``serving`` line, a
-``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book`` line, an
-``lstm`` line, a ``kernels`` line (the flash kernels once in float32 and
-once, ``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
+``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
+line, an ``lstm`` line, an ``image`` line, a ``kernels`` line (the flash
+kernels once in float32 and once, ``*_bf16``, in bf16) and, last, the
+``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
 failed check exits 1 without the last line.
 """
 
@@ -2212,7 +2234,9 @@ def captured_step(torch, fluid, main, fetch, init, feed_of, cpu=()):
       wrote it (for an optimizer update, the op of its gradient too) and
       its error;
     * each ``(program, fetch)`` of ``cpu`` runs the same step on the CPU
-      from the card's state before it, the scope's rng at that step.
+      from the card's state before it, the scope's rng at that step; a
+      third entry, ``(program, fetch, change)``, feeds it
+      ``change(feed)`` in the step's feed's place.
 
     Returns {"card": the step's fetches, "before" / "after": the card's
     state around it (numpy), "cpu": [(fetches, state after)], "differs",
@@ -2276,12 +2300,13 @@ def captured_step(torch, fluid, main, fetch, init, feed_of, cpu=()):
     del pre, env, written
     got = [_pieces(v)[0].float().cpu().numpy() for v in got]
     cpu_runs = []
-    for program, names in cpu:
+    for program, names, *change in cpu:
         cs = fluid.scope_from_numpy(before, fluid.CPUPlace())
         # the scope's rng at the card's: the CPU's step is step 3 too
         cs._rng_seed, cs._rng_step = program.random_seed, COMPARE_STEP - 1
         out = fluid.Executor(fluid.CPUPlace()).run(
-            program, feed=feed, fetch_list=names, scope=cs)
+            program, feed=change[0](feed) if change else feed,
+            fetch_list=names, scope=cs)
         cpu_runs.append((out, fluid.scope_to_numpy(cs)))
     torch.cuda.empty_cache()
     return {"card": got, "before": before, "after": after, "cpu": cpu_runs,
@@ -3066,6 +3091,425 @@ def lstm_phases(torch, np, fluid, lk, dev, gen, failures):
     return rec, entry
 
 
+# -- phase 16: image classification -----------------------------------------
+
+# bench.py's image recipes: ResNet-50 (bench_resnet, bench.py:91-118) and
+# the reference's other image benchmarks (_build_image_net,
+# bench.py:161-185), bf16 images over f32 master weights, Momentum 0.9,
+# one fixed seeded batch; and the book's CIFAR programs as
+# tests/test_book.py trains them, the depth-32 ResNet under Momentum
+# 0.02 / 0.9 and VGG-16 under Adam 1e-3, float32, on its synthetic data.
+# name: (image px, classes, learning rate)
+IMAGE_NETS = {"resnet50": (224, 1000, 0.1), "alexnet": (227, 1000, 0.01),
+              "googlenet": (224, 1000, 0.01), "smallnet": (32, 10, 0.01)}
+CIFAR_NETS = {"resnet_cifar10": (32, 10, 0.02),
+              "vgg16_bn_drop": (32, 10, 1e-3)}
+IMAGE_BATCH, IMAGE_COMPARE_BATCH = 128, 2
+RESNET_STEPS, IMAGE_NET_STEPS, CIFAR_STEPS = 20, 10, 20
+# replayed steps profiled for the host syncs a step makes, and the
+# runtime calls that make the host wait for the card
+SYNC_STEPS = 3
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+# ResNet-50's step 3, card vs CPU port, at R50_COMPARE_PX px and batch
+# IMAGE_COMPARE_BATCH.  At the reference's initialization the network is
+# chaotic: a one-ulp change of every pixel moves its float32 gradients
+# by percents, and its bf16 gradients lie ~1.4 in relative L2 from its
+# float32 ones, which is noise (zeroed gradients read 1.0).  So the
+# compare starts after R50_WARM_STEPS steps on the card at
+# R50_COMPARE_LR (the scope's learning-rate var; at the recipe's 0.1 one
+# step from the initialization saturates the softmax), each on a fresh
+# seeded batch.  There the same nudge moves the float32 gradients by a
+# median ~3e-6 of their largest and bf16 moves them by ~0.25 in relative
+# L2 (tests/test_torch_image.py, at 64 px; at 224 px and batch 2 the
+# network is still chaotic after 150 such steps).  A relu whose input
+# sits within rounding of 0 can still switch, and moves the gradients
+# upstream of it by up to ~8% of their largest (seen under one nudge in
+# two at some such states).  On an H100 the card's sums in another order
+# switched none in one warm-up (every gradient within 1.1e-5 of its
+# largest), and in two others moved 8% and 56% of the gradients by more
+# than STEP_GRAD_RTOL of their largest, by up to 0.027 in relative L2.
+# So the Transformer's element-wise limit is recorded (calm_share), and
+# the gate is every gradient within R50_GRAD_L2 in relative L2: a
+# halved gradient reads 0.5, a zeroed one 1.0.  The warm-up runs cuDNN's
+# deterministic algorithms, so a card reaches the same state each run.
+# float32: the loss STEP_LOSS_RTOL, the moving stats R50_STAT_RTOL of
+# their largest, the gradients R50_GRAD_L2.  bf16: the
+# card against the CPU's bf16 step, the loss AMP_LOSS_RTOL and each
+# gradient R50_BF16_GRAD_L2 in relative L2, twice the Transformer's
+# AMP_GRAD_L2: the two round to bf16 after sums in another order, and at
+# batch 2 that moves this network's gradients as far as bf16 itself does
+# (measured: 0.23 median, 0.32 largest, against the CPU's bf16-to-float32
+# 0.23, 0.30), where a zeroed gradient reads 1.0.  Both against the
+# CPU's float32 step from the same state: the card's gradient distances
+# (the median and the largest over parameters) within AMP_NOISE_RATIO of
+# the CPU's, so one gradient at half its size fails (~0.5 against
+# 1.25 x 0.30); its stats' within R50_FWD_NOISE_RATIO.
+R50_COMPARE_PX, R50_WARM_STEPS, R50_COMPARE_LR = 64, 100, 1e-3
+R50_STAT_RTOL, R50_GRAD_L2 = 1e-3, 0.1
+R50_BF16_GRAD_L2, R50_FWD_NOISE_RATIO = 2 * AMP_GRAD_L2, 1.5
+
+
+def build_image(fluid, model, dtype="bfloat16", px=None):
+    """One of IMAGE_NETS in bench.py's recipe (images [3, px, px] of
+    ``dtype``, int64 labels, the mean cross entropy, Momentum(lr, 0.9)),
+    or one of CIFAR_NETS as the book trains it; ``px`` in place of the
+    recipe's image size -> (main, startup, loss)."""
+    from paddle_tpu_torch.models import benchmark_nets as bn
+    from paddle_tpu_torch.models import image_classification as ic
+
+    size, ncls, lr = {**IMAGE_NETS, **CIFAR_NETS}[model]
+    px = px or size
+    build = {"resnet50": lambda x: ic.resnet_imagenet(x, ncls, depth=50),
+             "alexnet": lambda x: bn.alexnet(x, class_num=ncls),
+             "googlenet": lambda x: bn.googlenet_v1(x, class_num=ncls),
+             "smallnet": lambda x: bn.smallnet_cifar(x, class_num=ncls),
+             "resnet_cifar10": lambda x: ic.resnet_cifar10(x, 32, ncls),
+             "vgg16_bn_drop": lambda x: ic.vgg16_bn_drop(x, ncls)}[model]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", [3, px, px], dtype)
+        label = fluid.layers.data("label", [1], "int64")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(
+            input=build(img), label=label))
+        if model == "vgg16_bn_drop":
+            fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+        else:
+            fluid.optimizer.Momentum(learning_rate=lr,
+                                     momentum=0.9).minimize(loss)
+    return main, startup, loss
+
+
+def image_feed(torch, np, model, batch, dtype="bfloat16", i=0, px=None):
+    """A batch made from the seed: bench.py's for IMAGE_NETS (images
+    uniform in [0, 1), random labels), tests/test_book.py's synthetic
+    CIFAR batch for CIFAR_NETS (class k brightens channel k % 3; step
+    ``i``'s own seed), images of ``px`` px in place of the recipe's.
+    bf16 images as a bf16 tensor."""
+    size, ncls, _ = {**IMAGE_NETS, **CIFAR_NETS}[model]
+    px = px or size
+    rng = np.random.RandomState(SEED + i)
+    lbl = rng.randint(0, ncls, (batch, 1)).astype(np.int64)
+    img = rng.rand(batch, 3, px, px).astype(np.float32)
+    if model in CIFAR_NETS:
+        img *= 0.2
+        for b, k in enumerate(lbl[:, 0]):
+            img[b, k % 3] += 0.8
+    if dtype == "bfloat16":
+        img = torch.from_numpy(img).to(torch.bfloat16)
+    return {"img": img, "label": lbl}
+
+
+def ulp_nudged(np, feed):
+    """The feed with every pixel moved one float32 ulp up or down."""
+    img = feed["img"]
+    up = np.random.RandomState(SEED).rand(*img.shape) < 0.5
+    return dict(feed, img=np.nextafter(
+        img, np.where(up, np.inf, -np.inf).astype(np.float32)))
+
+
+def as_float32(torch, feed):
+    """A bf16 image feed as the float32 program takes it."""
+    return dict(feed, img=feed["img"].float().numpy())
+
+
+def moving_stats(main):
+    """The moving means and variances the program's batch norms write."""
+    return [op.output(s)[0] for op in main.global_block().ops
+            if op.type == "batch_norm" for s in ("MeanOut", "VarianceOut")]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms only, so that a replay and the
+    same step run eagerly can agree bitwise (some backward algorithms
+    add with atomics)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _max_rel(np, got, want):
+    return float(np.abs(got - want).max()
+                 / max(float(np.abs(want).max()), 1e-30))
+
+
+def resnet_compare(torch, np, fluid, dtype):
+    """Step 3 of ResNet-50 in bench.py's recipe at R50_COMPARE_PX px and
+    IMAGE_COMPARE_BATCH, from the card's state after R50_WARM_STEPS steps
+    (a graph replay; the learning rate R50_COMPARE_LR), against the same
+    step run eagerly, and against the CPU port from the card's state
+    before it: the loss, every gradient and the moving stats, by the R50
+    rules above.  float32 also records the CPU's own gradient change
+    when every pixel moves one float32 ulp (the state's conditioning).
+    -> (record, ok)."""
+    main, startup, loss = build_image(fluid, "resnet50", dtype,
+                                      R50_COMPARE_PX)
+    init = initial_scope(fluid, startup)
+    lr_var, = {op.input("LearningRate")[0]
+               for op in main.global_block().ops if op.type == "momentum"}
+    init[lr_var] = np.array([R50_COMPARE_LR], np.float32)
+    params = [p.name for p in main.global_block().all_parameters()]
+    fetch = ([loss.name] + [n + "@GRAD" for n in params]
+             + moving_stats(main))
+    if dtype == "float32":
+        cpu = [(main, fetch), (main, fetch, lambda f: ulp_nudged(np, f))]
+    else:
+        f32 = build_image(fluid, "resnet50", "float32", R50_COMPARE_PX)[0]
+        cpu = [(main, fetch), (f32, fetch, lambda f: as_float32(torch, f))]
+
+    def feed_of(i):
+        return image_feed(torch, np, "resnet50", IMAGE_COMPARE_BATCH,
+                          dtype, i, R50_COMPARE_PX)
+
+    t0 = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    exe = fluid.Executor(place)
+    with cudnn_deterministic(torch):
+        warm = [float(exe.run(main, feed=feed_of(100 + i),
+                              fetch_list=[loss], scope=scope)[0])
+                for i in range(R50_WARM_STEPS)]
+        init = fluid.scope_to_numpy(scope)
+        del exe, scope
+        r = captured_step(torch, fluid, main, fetch, init, feed_of, cpu)
+    n = len(params)
+
+    def split(values):
+        return float(values[0]), values[1:1 + n], values[1 + n:]
+
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu), (l_ref, g_ref, s_ref) \
+        = split(r["card"]), split(r["cpu"][0][0]), split(r["cpu"][1][0])
+
+    def gaps(a, b):
+        d = [_rel_l2(np, x, y) for x, y in zip(a, b)]
+        return float(np.median(d)), max(d)
+
+    rec = {"dtype": dtype, "px": R50_COMPARE_PX,
+           "batch": IMAGE_COMPARE_BATCH, "n_params": n,
+           "warm_losses": warm[::10] + warm[-1:], "loss_card": l_card,
+           "loss_cpu": l_cpu,
+           "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+           "replay": replay_record(r), "seconds": time.perf_counter() - t0}
+    rec["replay_ok"] = r["bitwise"] or replay_ok(
+        r, set(params), loss.name, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+        2 * R50_COMPARE_LR + 1e-6)
+    l2 = [_rel_l2(np, a, b) for a, b in zip(g_card, g_cpu)]
+    worst = int(np.argmax(l2))
+    rec.update(grad_rel_l2_max=l2[worst], grad_rel_l2_worst=params[worst],
+               grad_rel_l2_median=float(np.median(l2)))
+    if dtype == "float32":
+        rel = [_max_rel(np, a, b) for a, b in zip(g_card, g_cpu)]
+        floor = [_max_rel(np, a, b) for a, b in zip(g_ref, g_cpu)]
+        rec.update(
+            calm_share=float(np.mean(np.array(rel) <= STEP_GRAD_RTOL)),
+            grad_rel_err_median=float(np.median(rel)),
+            grad_rel_err_max=max(rel),
+            stat_rel_err=max(_max_rel(np, a, b)
+                             for a, b in zip(s_card, s_cpu)),
+            floor_calm_share=float(np.mean(np.array(floor)
+                                           <= STEP_GRAD_RTOL)),
+            floor_rel_err_median=float(np.median(floor)),
+            floor_rel_err_max=max(floor))
+        ok = (rec["loss_rel_err"] <= STEP_LOSS_RTOL
+              and rec["stat_rel_err"] <= R50_STAT_RTOL
+              and l2[worst] <= R50_GRAD_L2)
+    else:
+        (cm, cx), (pm, px_) = gaps(g_card, g_ref), gaps(g_cpu, g_ref)
+        (sm, sx), (tm, tx) = gaps(s_card, s_ref), gaps(s_cpu, s_ref)
+        rec.update(loss_cpu_f32=l_ref,
+                   card_vs_f32_median=cm, card_vs_f32_max=cx,
+                   cpu_vs_f32_median=pm, cpu_vs_f32_max=px_,
+                   stats_card_vs_f32_median=sm, stats_card_vs_f32_max=sx,
+                   stats_cpu_vs_f32_median=tm, stats_cpu_vs_f32_max=tx,
+                   grad_dtypes=sorted({str(g.dtype) for g in g_card}))
+        ok = (rec["loss_rel_err"] <= AMP_LOSS_RTOL
+              and l2[worst] <= R50_BF16_GRAD_L2
+              and cm <= AMP_NOISE_RATIO * pm and cx <= AMP_NOISE_RATIO * px_
+              and sm <= R50_FWD_NOISE_RATIO * tm
+              and sx <= R50_FWD_NOISE_RATIO * tx
+              and rec["grad_dtypes"] == ["float32"])
+    return rec, ok and rec["replay_ok"]
+
+
+def replay_check(torch, np, fluid, model, dtype, feed):
+    """Step 3 of ``model`` on ``feed`` (a graph replay) from the startup's
+    state against the same step run eagerly, under cuDNN's deterministic
+    algorithms: bitwise, or each differing value within the card-vs-CPU
+    limits.  -> (record, ok)."""
+    main, startup, loss = build_image(fluid, model, dtype)
+    init = initial_scope(fluid, startup)
+    params = [p.name for p in main.global_block().all_parameters()]
+    with cudnn_deterministic(torch):
+        r = captured_step(torch, fluid, main, [loss.name], init,
+                          lambda i: feed)
+    ok = r["bitwise"] or replay_ok(
+        r, set(params), loss.name, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+        2 * {**IMAGE_NETS, **CIFAR_NETS}[model][2] + 1e-6)
+    return replay_record(r), ok
+
+
+def host_syncs_per_step(torch, step, steps=SYNC_STEPS):
+    """The host's waits for the card (synchronize calls) inside each of
+    ``steps`` calls of ``step``, under torch.profiler, a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name = "chip_smoke/step"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            with torch.profiler.record_function(name):
+                step()
+    return host_syncs_in(prof.events(), name) / steps
+
+
+def host_syncs_in(events, name):
+    """The synchronize calls among a profile's ``events`` that start
+    inside a range named ``name`` (each drains the stream, so the host
+    cannot queue work ahead of it)."""
+    spans = [e.time_range for e in events if e.name == name]
+    return sum(1 for e in events if e.name in SYNC_CALLS
+               and any(r.start <= e.time_range.start <= r.end
+                       for r in spans))
+
+
+def zero_launch_counts():
+    """Every kernel's launch count set to 0."""
+    from paddle_tpu_torch.kernels import add_launches, launch_counts
+
+    add_launches({k: -v for k, v in launch_counts().items()})
+
+
+def train_images(torch, np, fluid, main, startup, loss, feeds, steps):
+    """An image path as bench.py runs it: the startup program on the
+    card, then ``steps`` steps of ``Executor.run`` (eager and captured,
+    then replays) over ``feeds`` (step i takes feeds[i % len(feeds)],
+    staged on the card first, as bench.py keeps its batch on the
+    device), every kernel's launch count set to 0 just before and read
+    just after (no kernel of this repo lies on these paths), then
+    SYNC_STEPS more steps profiled for the host syncs a replayed step
+    makes.  -> record."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    dev = torch.device("cuda", 0)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    staged = [device_feed(torch, f, dev) for f in feeds]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        # the fetched loss comes back as a numpy array: the step is done
+        lv, = exe.run(main, feed=staged[i % len(staged)],
+                      fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+    launches = sum(launch_counts().values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    stats = exe.cache_stats()["executable"]
+    syncs = host_syncs_per_step(torch, lambda: exe.run(
+        main, feed=staged[-1], fetch_list=[loss], scope=scope))
+    steady = statistics.median(times[1:])
+    batch = int(staged[0]["label"].shape[0])
+    rec = {"batch": batch, "steps": steps, "losses": losses,
+           "first_step_ms": times[0] * 1e3, "step_ms_median": steady * 1e3,
+           "images_per_s": batch / steady, "peak_mem_gib": peak,
+           "peak_reserved_gib": reserved, "executable": stats,
+           "graph": step_graph(exe), "host_syncs_per_step": syncs,
+           "repo_kernel_launches": launches}
+    del exe, scope, staged
+    torch.cuda.empty_cache()
+    return rec
+
+
+def image_train_failures(path, rec, hits):
+    """What a training path's record must show: ``hits`` executable hits,
+    one captured graph with no kernel of this repo in it and none
+    launched, one host sync a replayed step (the fetch), finite losses,
+    the mean of the last 5 below the mean of the first 5."""
+    out = []
+    if rec["executable"]["hits"] != hits:
+        out.append(f"{path}: {rec['executable']} in {rec['steps']} steps, "
+                   f"want {hits} hits")
+    if rec["graph"].get("graphs") != 1 or rec["graph"].get("by_family") \
+            or rec["repo_kernel_launches"]:
+        out.append(f"{path}: graph {rec['graph']}, launches "
+                   f"{rec['repo_kernel_launches']}: want one graph and no "
+                   f"kernel of this repo")
+    if rec["host_syncs_per_step"] != 1:
+        out.append(f"{path}: {rec['host_syncs_per_step']} host syncs a "
+                   f"step, want 1")
+    losses = rec["losses"]
+    if not (all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < statistics.mean(losses[:5])):
+        out.append(f"{path}: the loss did not fall, {losses}")
+    return out
+
+
+def image_phase(torch, np, fluid, card):
+    """Phase 16: ResNet-50 in bench.py's bf16 recipe and in float32 (step
+    3 at R50_COMPARE_PX against the eager step and the CPU, step 3 at
+    IMAGE_BATCH against the eager step, then RESNET_STEPS steps at
+    IMAGE_BATCH), AlexNet, GoogLeNet and SmallNet in bench.py's recipe
+    (step 3 against the eager step at IMAGE_BATCH, then IMAGE_NET_STEPS
+    steps), each on one fixed batch, and the book's CIFAR ResNet-32 and
+    VGG-16 (CIFAR_STEPS steps on fresh synthetic batches); every loss
+    falling.  -> (the ``image`` record, failures)."""
+    rec, fails = {"card": card}, []
+    runs = [("resnet50", dt, RESNET_STEPS) for dt in ("bfloat16", "float32")]
+    runs += [(m, "bfloat16", IMAGE_NET_STEPS)
+             for m in ("alexnet", "googlenet", "smallnet")]
+    for model, dtype, steps in runs:
+        t0 = time.perf_counter()
+        key = f"{model}_{dtype}" if model == "resnet50" else model
+        extra = {}
+        if model == "resnet50":
+            cmp_, ok = resnet_compare(torch, np, fluid, dtype)
+            log(f"image resnet50 {dtype} step {COMPARE_STEP} at "
+                f"{R50_COMPARE_PX} px {'ok  ' if ok else 'FAIL'} "
+                f"{json.dumps(cmp_)}")
+            if not ok:
+                fails.append(f"resnet50 {dtype} step {COMPARE_STEP}: {cmp_}")
+            extra["compare"] = cmp_
+        feed = image_feed(torch, np, model, IMAGE_BATCH, dtype)
+        replay, ok = replay_check(torch, np, fluid, model, dtype, feed)
+        if not ok:
+            fails.append(f"{key} step {COMPARE_STEP} replay vs eager: "
+                         f"{replay}")
+        main, startup, loss = build_image(fluid, model, dtype)
+        run = train_images(torch, np, fluid, main, startup, loss, [feed],
+                           steps)
+        # bf16 ResNet-50: the startup program fills the moving stats in
+        # bf16 and the first step makes them float32, as the reference's
+        # does, so the executor keeps no step 1 and captures step 2
+        hits = steps - (2 if key == "resnet50_bfloat16" else 1)
+        fails += image_train_failures(key, run, hits)
+        run.update(extra, replay=replay, seconds=time.perf_counter() - t0)
+        rec[key] = run
+        log(f"image {key}: {json.dumps(run)}")
+    for model in CIFAR_NETS:
+        t0 = time.perf_counter()
+        main, startup, loss = build_image(fluid, model, "float32")
+        run = train_images(
+            torch, np, fluid, main, startup, loss,
+            [image_feed(torch, np, model, IMAGE_BATCH, "float32", i)
+             for i in range(CIFAR_STEPS)], CIFAR_STEPS)
+        fails += image_train_failures(model, run, CIFAR_STEPS - 1)
+        run["seconds"] = time.perf_counter() - t0
+        rec[model] = run
+        log(f"image {model}: {json.dumps(run)}")
+    return rec, fails
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3592,6 +4036,13 @@ def main() -> int:
     lstm_rec["card"] = card
     kernels.append(lstm_entry)
 
+    # -- image classification: no kernel of this repo on its path
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    image, image_fails = image_phase(torch, np, fluid, card)
+    failures += image_fails
+    log(f"image phase ({time.perf_counter() - t0:.1f}s)")
+
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
@@ -3599,6 +4050,7 @@ def main() -> int:
     print(json.dumps({"training_bf16": training_bf16}), flush=True)
     print(json.dumps({"book": book}), flush=True)
     print(json.dumps({"lstm": lstm_rec}), flush=True)
+    print(json.dumps({"image": image}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

@@ -36,7 +36,11 @@ lives at fixed addresses:
   A host value in the scope (a numpy array, as ``copy_weights``
   writes) is uploaded to the device at the step that reads it.  The
   eager first step's intermediates are dropped before the capture, so
-  the peak holds one step's activations;
+  the peak holds one step's activations.  A first step that changes a
+  state var's shape or dtype (the bf16 recipe's moving statistics,
+  filled in bf16 by the startup program and float32 after the first
+  ``batch_norm``) is neither captured nor cached: the scope has left its
+  signature, and the next step misses and captures at the new one;
 * fetches are the graph's outputs, copied out after each replay.
 
 The launch counters of the kernels (``kernels.launch_counts``) count
@@ -520,10 +524,11 @@ class Executor:
         entry.fetches = [env[n] for n in entry.fetch_names]
 
     def _first_step(self, plan, fetch_names, mode, feed, state, seeds,
-                    scope) -> Tuple[_Entry, List[Any]]:
+                    scope) -> Tuple[Optional[_Entry], List[Any]]:
         """A miss: run the step eagerly on the scope's tensors, then give
         the entry its buffers and, on the card, capture the graph.
-        Returns the entry and the eager step's fetches."""
+        Returns the entry (None for a step that moved its own state to
+        another signature) and the eager step's fetches."""
         entry = _Entry(plan, fetch_names, mode)
         dev = self.device
         entry.feeds = {n: _empty_like(v, dev) for n, v in feed.items()}
@@ -544,6 +549,14 @@ class Executor:
         # and a state value the buffer the next step updates
         fetches = [_clone(env[n]) if n in feed or n in state else env[n]
                    for n in fetch_names]
+        if any(_sig_of(env[n]) != _sig_of(state[n])
+               for n in plan.state_out if n in state):
+            # the step changed a state var's shape or dtype (the bf16
+            # recipe's moving statistics: bf16 from the startup program,
+            # float32 after a batch_norm step), so the scope has left
+            # this signature and no later step can replay it: neither
+            # captured nor cached
+            return None, fetches
         # the state buffers: the scope's tensors where the step read them
         # or wrote them in place, else the entry's own copies
         for n, v in state.items():
@@ -650,7 +663,8 @@ class Executor:
         if entry is None:
             entry, fetches = self._first_step(plan, fetch_names, mode, feed,
                                               state, seeds, scope)
-            self._store(key, entry)
+            if entry is not None:
+                self._store(key, entry)
             return fetches
         self._load(entry, feed, seeds)
         return self._replay(entry, state, scope)

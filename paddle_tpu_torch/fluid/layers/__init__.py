@@ -1,7 +1,7 @@
 """fluid.layers — the port of ``paddle_tpu/fluid/layers``, cut to the
-layers the Transformer, the LSTM text classifiers and the book's first
-two chapters build.  Control flow and the tensor-creation layers are
-not ported."""
+layers the Transformer, the LSTM text classifiers, the book's first
+three chapters and the reference's image benchmarks build.  Control
+flow and the tensor-creation layers are not ported."""
 
 from . import io, nn, ops, recurrent, sequence, tensor  # noqa: F401
 from .io import *  # noqa: F401,F403

@@ -1,8 +1,10 @@
 """Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
 to what ``models/transformer.transformer()`` (fused or unfused
 attention), the paged and dense serving steps and beam search, the LSTM
-text classifiers and the book's first two chapters
-(``models/fit_a_line``, ``models/recognize_digits``) build.  Each layer appends ops to the current block through
+text classifiers, the book's first three chapters (``models/fit_a_line``,
+``models/recognize_digits``, ``models/image_classification``) and the
+reference's image benchmarks (``models/benchmark_nets``) build.  Each
+layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
 
@@ -16,7 +18,8 @@ from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "softmax_with_cross_entropy", "square_error_cost", "conv2d",
-           "pool2d", "layer_norm", "reduce_sum", "reshape", "transpose",
+           "pool2d", "batch_norm", "layer_norm", "lrn", "reduce_sum",
+           "reshape", "transpose",
            "matmul", "topk", "beam_search", "beam_search_decode",
            "batch_gather", "fused_attention", "fused_vocab_cross_entropy",
            "decode_attention", "ragged_decode_attention"]
@@ -209,6 +212,49 @@ def accuracy(input, label, k=1, correct=None, total=None, **kw):
     return acc_out
 
 
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               main_program=None, startup_program=None):
+    """Batch normalization (``ops/nn_ops.batch_norm``): the parameters
+    ``.scale`` (init 1) and ``.offset`` (init 0), and the moving mean and
+    variance as persistable global vars (init 0 and 1, named
+    ``moving_mean_name`` / ``moving_variance_name`` if given) that the op
+    updates in the program, then the activation."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name,
+                         main_program=main_program,
+                         startup_program=startup_program)
+    dtype = input.dtype
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    pshape = [channels]
+    scale = helper.create_parameter(
+        helper.param_attr, shape=pshape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0), suffix="scale")
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                   shape=pshape, dtype=dtype, is_bias=True,
+                                   suffix="offset")
+    mean = helper.create_global_variable(
+        shape=pshape, dtype=dtype, persistable=True, name=moving_mean_name)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        shape=pshape, dtype=dtype, persistable=True,
+        name=moving_variance_name)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_tmp_variable(dtype, stop_gradient=True)
+    saved_var = helper.create_tmp_variable(dtype, stop_gradient=True)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        "batch_norm",
+        {"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+         "Variance": variance},
+        {"Y": out, "MeanOut": mean, "VarianceOut": variance,
+         "SavedMean": saved_mean, "SavedVariance": saved_var},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -232,6 +278,17 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                      {"Y": out, "Mean": mean, "Variance": var},
                      {"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across channels (``ops/misc_ops.lrn``);
+    its ``MidOut`` is a second, gradient-free output."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    mid = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op("lrn", {"X": input}, {"Out": out, "MidOut": mid},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
 
 
 def _make_reduce(op_type):

@@ -1,15 +1,24 @@
 """Tensor layers — the port of ``paddle_tpu/fluid/layers/tensor.py``,
-cut to ``assign``, ``cast``, ``argmax``, the dense and paged KV-cache
-writes and the copy-on-write page copy; the creation layers
-(``fill_constant``, ``zeros``, ``concat``, ...) and the KV-tier transfer
-layers are not ported."""
+cut to ``concat``, ``assign``, ``cast``, ``argmax``, the dense and paged
+KV-cache writes and the copy-on-write page copy; the creation layers
+(``fill_constant``, ``zeros``, ...) and the KV-tier transfer layers are
+not ported."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["assign", "cast", "argmax", "cache_write", "paged_cache_write",
-           "quantized_paged_cache_write", "paged_page_copy"]
+__all__ = ["concat", "assign", "cast", "argmax", "cache_write",
+           "paged_cache_write", "quantized_paged_cache_write",
+           "paged_page_copy"]
+
+
+def concat(input, axis=0, name=None):
+    """The inputs joined along ``axis`` (``ops/tensor_ops.concat``)."""
+    helper = LayerHelper("concat", name=name, input=input)
+    out = helper.create_tmp_variable(helper.input_dtype())
+    helper.append_op("concat", {"X": input}, {"Out": out}, {"axis": axis})
+    return out
 
 
 def assign(input, output=None):

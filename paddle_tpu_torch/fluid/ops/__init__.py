@@ -1,8 +1,8 @@
 """Op corpus of the port: importing this package registers every op
 emitter the slices run (tensor, math, activation, nn, loss, optimizer,
-sequence and recurrent ops, the serving steps' KV-cache writes, page
-copies and attentions in ``cache_ops``, and beam search in
-``beam_ops``).  ``quant_ops`` holds the int8 quantize-on-write rule as
+sequence and recurrent ops, ``lrn`` in ``misc_ops``, the serving steps'
+KV-cache writes, page copies and attentions in ``cache_ops``, and beam
+search in ``beam_ops``).  ``quant_ops`` holds the int8 quantize-on-write rule as
 plain tensor functions."""
 
 from . import (  # noqa: F401
@@ -11,6 +11,7 @@ from . import (  # noqa: F401
     cache_ops,
     loss_ops,
     math_ops,
+    misc_ops,
     nn_ops,
     optimizer_ops,
     rnn_ops,

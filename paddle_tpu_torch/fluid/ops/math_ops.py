@@ -28,6 +28,16 @@ def _flatten_2d(x, num_col_dims: int):
     return x.reshape(lead, -1)
 
 
+def weak_scalar(c: float, t: torch.Tensor) -> float:
+    """A Python scalar as the reference combines it with ``t``: JAX's
+    weak typing rounds it to ``t``'s dtype first (0.9 beside a bf16
+    tensor is 0.8984375), where PyTorch would compute with it in
+    float32."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(c, dtype=t.dtype))
+    return c
+
+
 def match_master_dtype(x, y):
     """Y in X's dtype when both are floating and differ (a bf16
     activation X over an f32 master parameter Y), else Y as it is

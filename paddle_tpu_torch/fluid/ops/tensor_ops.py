@@ -1,8 +1,9 @@
 """Tensor creation and manipulation ops — the port of
 ``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer
 (training, the unfused attention, the paged and dense serving steps and
-beam search), the LSTM text classifiers, the book's first two chapters,
-their backward and the optimizers emit.
+beam search), the LSTM text classifiers, the book's first three
+chapters, the reference's image benchmarks (``concat``: GoogLeNet's
+inception towers), their backward and the optimizers emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
@@ -75,6 +76,13 @@ def cast(ctx, x):
 @primitive("assign", seq_transparent=True)
 def assign(ctx, x):
     return x
+
+
+@primitive("concat", inputs=["X*"])
+def concat(ctx, xs):
+    """The inputs joined along ``axis`` (default 0); the gradient is
+    autograd's, each input's slice of the output gradient."""
+    return torch.cat(xs, dim=ctx.attr("axis", 0))
 
 
 @primitive("reshape")

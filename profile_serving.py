@@ -199,7 +199,7 @@ def main() -> int:
                 ragged_n += evt.count
             kernels.append((us, evt.count, evt.key))
     busy = sum(by_family.values()) / 1e3 / steps
-    syncs = sum(1 for e in prof.events() if e.name in pt.SYNC_CALLS)
+    syncs = sum(1 for e in prof.events() if e.name in cs.SYNC_CALLS)
     graph_launches = sum(evt.count for evt in prof.key_averages()
                          if evt.key == "cudaGraphLaunch")
     out = {"card": card, "package_root": os.path.abspath(args.package_root),

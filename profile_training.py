@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Profile a training step of the PyTorch/CUDA port on one GPU.
 
-    python3 profile_training.py [--model transformer|lstm] [--amp]
+    python3 profile_training.py [--model transformer|lstm|resnet50|
+                                 alexnet|googlenet|smallnet] [--amp]
                                 [--batch N] [--steps 3] [--out FILE]
                                 [--package-root DIR]
 
 Builds a training program ``chip_smoke.py`` trains: ``transformer``
 (default; Transformer-base, L=256, bench.py's recipe, batch 64, in
-float32 or, with ``--amp``, in its bf16 recipe ``amp_dtype="bfloat16"``)
-or ``lstm`` (the RNN benchmark model, hidden 512, T=100, Adam 2e-3,
-batch 128, the same ragged batch), runs two warm-up steps (the first
+float32 or, with ``--amp``, in its bf16 recipe ``amp_dtype="bfloat16"``),
+``lstm`` (the RNN benchmark model, hidden 512, T=100, Adam 2e-3,
+batch 128, the same ragged batch) or an image model in bench.py's
+recipe (``resnet50``: 224 px, 1000 classes, Momentum 0.1 / 0.9;
+``alexnet``, ``googlenet``, ``smallnet``: Momentum 0.01 / 0.9; bf16
+images over f32 master weights, batch 128, one fixed batch kept on the
+card; the startup program run on the card, as bench.py runs it), runs
+two warm-up steps (the first
 runs eagerly and is captured in a CUDA graph: its wall ms is
 ``first_step_ms``; every later step replays the graph), five steps
 timed without the profiler (their median wall ms), then ``--steps``
@@ -29,12 +35,18 @@ step makes it (a synchronize call inside a step's profiler range).
 ``--package-root DIR`` profiles the ``paddle_tpu_torch`` of another
 checkout (a ``git archive`` of an earlier commit) with this script's
 programs and counts; where that package's executor has no cache or
-graph, those fields are null.  Needs one CUDA card; imports no JAX.
+graph, those fields are null.  For an image model one more step then
+runs eagerly (``lowering.run_block_ops``) under the profiler, for the
+device time of each Fluid op type's kernels
+(``eager_device_ms_by_op_type``: the kernels a replayed step runs too)
+and the ``batch_norm`` ops' share of it (forward and backward).  Needs
+one CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import sys
@@ -43,9 +55,6 @@ from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 UNPROFILED_STEPS = 5
-# the runtime calls that make the host wait for the card
-SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-              "cudaEventSynchronize")
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("lstm_fwd", ("lstm_fwd_kernel",)),
@@ -78,14 +87,56 @@ def _dev_us(evt, self_only=True) -> float:
     return 0.0
 
 
+def eager_op_ms(torch, main_prog, loss, feed, scope):
+    """One step of ``main_prog`` run eagerly on the scope's state under
+    the profiler -> {Fluid op type: device ms of the kernels its ops
+    launch}.  The lowering labels each op's work with its type while a
+    profiler runs; a grad op's kernels are launched from autograd's own
+    thread while the op's range is open, so each kernel goes to the
+    range open when the PyTorch op that launched it started."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.fluid.lowering import (BlockPlan, run_block_ops,
+                                                 seed_tensor, step_seeds)
+
+    plan = BlockPlan(main_prog.desc.global_block(), list(feed),
+                     [loss.name])
+    env = {n: scope.find_var(n) for n in plan.state_in}
+    env.update(feed)
+    dev = torch.device("cuda", 0)
+    seeds = step_seeds(plan, main_prog.random_seed or 0, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            torch.no_grad():
+        run_block_ops(plan, env, seeds, seed_tensor(seeds).to(dev), dev)
+        torch.cuda.synchronize()
+    types = {op.type for op in plan.ops}
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if e.name in types
+                    and "CUDA" not in str(getattr(e, "device_type", "")))
+    starts = [r[0] for r in ranges]
+    out = defaultdict(float)
+    for evt in events:
+        kernels = getattr(evt, "kernels", None) or ()
+        i = bisect.bisect_right(starts, evt.time_range.start) - 1
+        if not kernels or i < 0 or evt.time_range.start > ranges[i][1]:
+            continue
+        out[ranges[i][2]] += sum(k.duration for k in kernels) / 1e3
+    return dict(out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("transformer", "lstm"),
+    ap.add_argument("--model", choices=("transformer", "lstm", "resnet50",
+                                        "alexnet", "googlenet", "smallnet"),
                     default="transformer")
     ap.add_argument("--amp", action="store_true",
                     help="the Transformer's bf16 recipe (amp_dtype)")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 64 (transformer) or 128 (lstm)")
+                    help="default 64 (transformer) or 128 (lstm, image "
+                    "models)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None,
                     help="file for the kernel and op tables")
@@ -108,7 +159,15 @@ def main() -> int:
     from paddle_tpu_torch.models.transformer import transformer
 
     card = cs.card_line()
-    if args.model == "lstm":
+    image = args.model in cs.IMAGE_NETS
+    if image:
+        batch = args.batch or cs.IMAGE_BATCH
+        seq = None
+        main_prog, startup, loss = cs.build_image(fluid, args.model)
+        feed = cs.device_feed(torch, cs.image_feed(torch, np, args.model,
+                                                   batch),
+                              torch.device("cuda", 0))
+    elif args.model == "lstm":
         batch = args.batch or cs.LSTM_BATCH
         seq = cs.LSTM_T
         main_prog, startup, loss = cs.build_rnn_benchmark(fluid)
@@ -173,19 +232,14 @@ def main() -> int:
                 / args.steps
         else:
             by_op[evt.name] += evt.cpu_time_total / 1e3 / args.steps
-    # host waits for the card inside the steps: each one drains the
-    # stream, so the host cannot queue work ahead of it
-    spans = [e.time_range for e in prof.events() if e.name == STEP]
-    syncs = sum(1 for e in prof.events() if e.name in SYNC_CALLS
-                and any(r.start <= e.time_range.start <= r.end
-                        for r in spans))
+    syncs = cs.host_syncs_in(prof.events(), STEP)
     graph_launches = sum(evt.count for evt in prof.key_averages()
                          if evt.key == "cudaGraphLaunch")
     busy = sum(by_family.values()) / 1e3 / args.steps
     step_ms = wall / args.steps * 1e3
     rec = {"card": card, "model": args.model,
-           "amp_dtype": cs.AMP if args.amp and args.model == "transformer"
-           else None, "batch": batch, "seq": seq,
+           "amp_dtype": cs.AMP if (args.amp and args.model == "transformer")
+           or image else None, "batch": batch, "seq": seq,
            "steps": args.steps, "first_step_ms": first_ms,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "executable": (exe.cache_stats()["executable"]
@@ -206,6 +260,15 @@ def main() -> int:
                by_op.items(), key=lambda kv: -kv[1])[:15]),
            "device_span_ms_per_step_by_op_type": dict(sorted(
                dev_by_op.items(), key=lambda kv: -kv[1])[:15])}
+    if image:
+        eager = eager_op_ms(torch, main_prog, loss, feed, scope)
+        total = sum(eager.values())
+        rec["eager_device_ms"] = total
+        rec["eager_device_ms_by_op_type"] = dict(sorted(
+            eager.items(), key=lambda kv: -kv[1]))
+        rec["batch_norm_device_share"] = (
+            eager.get("batch_norm", 0.0) + eager.get("batch_norm_grad", 0.0)
+        ) / total if total else None
     print(json.dumps(rec), flush=True)
     if args.out is None:
         return 0

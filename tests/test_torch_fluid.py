@@ -294,10 +294,11 @@ def test_unported_features_raise():
             tfluid.optimizer.Adagrad(0.1)
         with pytest.raises(NotImplementedError, match="regulariz"):
             tfluid.optimizer.Adam(0.1, regularization=object())
+        # batch_norm is ported (tests/test_torch_image.py holds the bytes)
         img = tfluid.layers.data("img", [3, 8, 8], "float32")
-        with pytest.raises(NotImplementedError, match="batch_norm"):
-            tfluid.nets.img_conv_group(img, [4, 4], pool_size=2,
-                                       conv_with_batchnorm=True)
+        out = tfluid.nets.img_conv_group(img, [4, 4], pool_size=2,
+                                         conv_with_batchnorm=True)
+        assert out.shape == (-1, 4, 7, 7)
     for kw, what in ((dict(mp_shard=True), "mp_shard"),
                      (dict(seq_parallel=True), "seq_parallel")):
         with pytest.raises(NotImplementedError, match=what):

@@ -1,7 +1,8 @@
 """The port stands alone, and its entry points never fall back silently.
 
 * ``paddle_tpu_torch`` (every module), ``chip_smoke``,
-  ``profile_serving`` and ``tune_flash_bwd`` import in a process where
+  ``profile_serving``, ``tune_flash_bwd`` and ``batch_norm_probe``
+  import in a process where
   importing ``jax`` or ``paddle_tpu`` raises.
 * Without CUDA, an entry point raises unless the caller asks for the
   CPU by name (``device="cpu"``, ``fluid.CPUPlace()``, a generator's
@@ -48,6 +49,7 @@ for name in names:
 import chip_smoke
 import profile_serving
 import tune_flash_bwd
+import batch_norm_probe
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

@@ -186,14 +186,34 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    batch; the book's CIFAR ResNet-32 (Momentum 0.02 / 0.9) and VGG-16
    with batch norm (Adam 1e-3) at 32 px, batch 128, 20 steps on fresh
    synthetic batches.  Every path's losses finite, the mean of the last
-   5 below the first 5.
+   5 below the first 5;
+17. sparse embeddings, no kernel of this repo on their paths (every
+   launch count 0 before and after each run): the sparse update ops
+   (sgd, momentum with and without Nesterov, adam, adagrad) and
+   ``merge_rows`` on the card against the CPU port at repeated and
+   vacated rows (``merge_rows`` twice bitwise equal: no atomics); CTR
+   wide&deep at ``models/ctr.py``'s width (26 slots of 1,000,001 ids,
+   embed 16, 400-400-400, Adagrad 0.1, batch 1024), once with
+   ``is_sparse=True`` and once dense, from one startup run on the card,
+   20 steps each on the same seeded batches: the peak (sparse below
+   dense), step 3 replayed bitwise against the eager step and against
+   the CPU port at full size from the card's state, step ms and
+   examples/s over steps 4-20, one graph, 19 hits, one host sync a
+   replayed step, the device's time a step (10 replays of the graph
+   between CUDA events), a falling loss, sparse and dense losses
+   together; then the
+   book's word2vec, recommender (sparse tables) and ``convolution_net``
+   at their published sizes: step 3 against the eager step and the CPU
+   port (loss, dense gradients, the state the step writes), 20 steps,
+   19 hits, the loss falling.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
-line, an ``lstm`` line, an ``image`` line, a ``kernels`` line (the flash
-kernels once in float32 and once, ``*_bf16``, in bf16) and, last, the
-``{"ok": true, ...}`` line; per-case detail goes to standard error.  Any
-failed check exits 1 without the last line.
+line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, a
+``kernels`` line (the flash kernels once in float32 and once,
+``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line;
+per-case detail goes to standard error.  Any failed check exits 1
+without the last line.
 """
 
 from __future__ import annotations
@@ -3403,6 +3423,7 @@ def train_images(torch, np, fluid, main, startup, loss, feeds, steps):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
     zero_launch_counts()
     losses, times = [], []
     for i in range(steps):
@@ -3508,6 +3529,555 @@ def image_phase(torch, np, fluid, card):
         rec[model] = run
         log(f"image {model}: {json.dumps(run)}")
     return rec, fails
+
+
+# -- phase 17: sparse embeddings and the book's embedding chapters ----------
+
+# CTR wide&deep at models/ctr.py's defaults: 26 categorical slots, 13
+# dense features, embed 16, hidden 400-400-400, Adagrad 0.1, batch 1024.
+# Each slot's table has 1,000,001 rows: the hashed Criteo vocabulary of
+# the PaddlePaddle CTR examples.  26 deep [V, 16] and 26 wide [V, 1]
+# tables: 1.77 GB of float32, 3.5 GB with Adagrad's moments.
+CTR_SLOTS, CTR_DENSE, CTR_VOCAB, CTR_EMBED = 26, 13, 1_000_001, 16
+CTR_HIDDEN, CTR_LR, CTR_BATCH = (400, 400, 400), 0.1, 1024
+# steps a run; seeded batches staged on the card and taken in turn
+CTR_STEPS, CTR_BATCHES = 20, 4
+# the ids' skew: a Zipf draw (exponent 1.1) hashed over the table, so
+# the most frequent ids repeat in a batch, as clicked categories do
+CTR_ZIPF = 1.1
+# card vs CPU port, step 3 from the card's state, both sides float32:
+# the loss SPARSE_LOSS_RTOL (summation order only); each state var the
+# step writes within SPARSE_UPDATE_RTOL of that var's largest update,
+# beyond the float32 rounding of each side's sum (two ulps of the new
+# value: an update far below a parameter's size rounds away, and
+# word2vec's read 4e-4 of its largest without this slack).  Adagrad's
+# update lr * g / (sqrt(m) + eps) is steepest where |g| is near eps
+# (1e-6): a summation-order difference dg moves it by ~lr * dg / (4 eps)
+# there, and CTR's embeddings read 4.0e-3 of their largest update on an
+# H100 for that reason alone.  So an Adagrad parameter's elements are
+# held where this step's gradient (the square root of its moment's
+# change) is at least SPARSE_G_FLOOR of the var's largest, and the
+# moment itself (the squared gradients) everywhere.
+SPARSE_LOSS_RTOL, SPARSE_UPDATE_RTOL, SPARSE_G_FLOOR = 1e-5, 1e-3, 1e-3
+# replays of a captured step timed on the device clock
+REPLAY_TIMES = 10
+# the book's embedding chapters at their published sizes: word2vec
+# (book ch.04: embed 32, hidden 256, the imikolov dictionary's 2073
+# words, batch 32, SGD), the recommender (ch.05: MovieLensDims()'s
+# vocabularies, sparse tables, SGD 0.2, batch 256) and convolution_net
+# (ch.06: the IMDB dictionary's 5147 words, emb 32, hid 32, Adam 2e-3,
+# batch 128, reviews of up to 100 words)
+W2V_DICT, W2V_EMBED, W2V_HIDDEN, W2V_BATCH, W2V_LR = 2073, 32, 256, 32, 0.1
+REC_BATCH, REC_LR = 256, 0.2
+CONV_DICT, CONV_BATCH, CONV_T, CONV_LR = 5147, 128, 100, 2e-3
+EMB_STEPS, EMB_BATCHES = 20, 4
+# the sparse update ops on the card against the CPU: a [SPARSE_OP_V,
+# SPARSE_OP_D] table, SPARSE_OP_N rows with repeats and sentinel slots;
+# fp32 on both sides, sqrt and division rounding alike but for an ulp
+SPARSE_OP_V, SPARSE_OP_D, SPARSE_OP_N = 100_000, 16, 4096
+SPARSE_OP_RTOL = 1e-5
+
+
+def ctr_build(fluid, is_sparse):
+    """CTR wide&deep (models/ctr.py) at CTR_* with Adagrad -> (main,
+    startup, loss).  The sparse and the dense program share their
+    startup program: the same parameters from the same seed."""
+    from paddle_tpu_torch.models import ctr
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    layers = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = [layers.data(f"C{i}", [1], "int64") for i in range(CTR_SLOTS)]
+        dense = layers.data("dense", [CTR_DENSE], "float32")
+        label = layers.data("label", [1], "float32")
+        loss, _ = ctr.wide_and_deep(ids, dense, label, slot_vocab=CTR_VOCAB,
+                                    embed_dim=CTR_EMBED,
+                                    hidden_sizes=CTR_HIDDEN,
+                                    is_sparse=is_sparse)
+        fluid.optimizer.Adagrad(learning_rate=CTR_LR).minimize(loss)
+    return main, startup, loss
+
+
+def ctr_feed(np, i):
+    """Batch ``i``: each slot's ids a Zipf draw hashed over its table,
+    13 normal dense features, a click where slot 0's id is even (the
+    wide part can learn it, tests/test_sparse.py's signal)."""
+    rng = np.random.RandomState(SEED + i)
+    batch = CTR_BATCH
+    z = rng.zipf(CTR_ZIPF, (batch, CTR_SLOTS)).astype(np.int64)
+    ids = (z * 2654435761 + np.arange(CTR_SLOTS) * 40503) % CTR_VOCAB
+    feed = {f"C{k}": ids[:, k:k + 1] for k in range(CTR_SLOTS)}
+    feed["dense"] = rng.randn(batch, CTR_DENSE).astype(np.float32)
+    feed["label"] = (ids[:, :1] % 2 == 0).astype(np.float32)
+    return feed
+
+
+def sparse_tables(main):
+    """The parameters a program looks up with a sparse gradient."""
+    return sorted({op.input("W")[0] for op in main.global_block().ops
+                   if op.type == "lookup_table" and op.attr("is_sparse")})
+
+
+def update_errors(np, card, cpu, before, names, moments=None):
+    """Each var of ``names`` after the step, card against CPU: the largest
+    difference beyond two float32 ulps of the CPU's value, over the var's
+    largest update on the CPU.  ``moments`` maps an Adagrad parameter to
+    its moment: the parameter is held only where this step's gradient
+    (sqrt of the moment's change) is at least SPARSE_G_FLOOR of its
+    largest.  -> {name: error}."""
+    out = {}
+    for n in names:
+        a, b, b0 = (np.asarray(x[n], np.float64) for x in (card, cpu, before))
+        slack = 2 * np.spacing(np.abs(np.asarray(cpu[n], np.float32)))
+        excess = np.maximum(np.abs(a - b) - slack, 0.0)
+        m = (moments or {}).get(n)
+        if m is not None:
+            g = np.sqrt(np.abs(np.asarray(cpu[m], np.float64)
+                               - np.asarray(before[m], np.float64)))
+            excess = np.where(g >= SPARSE_G_FLOOR * g.max(), excess, 0.0)
+        out[n] = float(excess.max()) / max(float(np.abs(b - b0).max()),
+                                           1e-30)
+    return out
+
+
+def adagrad_moments(main):
+    """{parameter: its Adagrad moment} of a program's adagrad ops."""
+    return {op.input("Param")[0]: op.input("Moment")[0]
+            for op in main.global_block().ops if op.type == "adagrad"}
+
+
+def replay_ms(torch, exe):
+    """The device's time for one step: REPLAY_TIMES replays of the
+    executor's one captured graph between two CUDA events (the feeds
+    left in its buffers, the state moving on)."""
+    graph = exe.graphs()[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(REPLAY_TIMES):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / REPLAY_TIMES
+
+
+def ctr_run(torch, np, fluid, is_sparse, state0, feeds, host_feeds,
+            failures):
+    """One CTR run on the card from ``state0`` (the startup's tensors on
+    the card, cloned): CTR_STEPS steps of ``Executor.run`` over ``feeds``
+    (staged on the card; ``host_feeds`` the same on the host) in turn,
+    every kernel's launch count set to 0 before and read after.  Steps
+    1-2 give the peak over what is resident before them (``state0`` and
+    the run's own state: one eager step and the capture); step 3, a
+    replay, is held bitwise against the same step run eagerly
+    (``run_block_ops``) on a clone of the state before it, and against
+    the CPU port from that state (the full tables); steps 4-CTR_STEPS
+    give the step time; then SYNC_STEPS profiled steps give the host
+    syncs a step, and REPLAY_TIMES replays of the graph the device's
+    time a step."""
+    from paddle_tpu_torch.fluid.lowering import (BlockPlan, run_block_ops,
+                                                 seed_tensor, step_seeds)
+    from paddle_tpu_torch.kernels import launch_counts
+
+    kind = "sparse" if is_sparse else "dense"
+    main, _, loss = ctr_build(fluid, is_sparse)
+    place = fluid.CUDAPlace(0)
+    dev = torch.device("cuda", 0)
+    scope = fluid.Scope()
+    for n, v in state0.items():
+        scope.set_var(n, v.clone())
+    exe = fluid.Executor(place)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    zero_launch_counts()
+    losses, times = [], []
+
+    def step(i):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                      scope=scope)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+
+    for i in range(COMPARE_STEP - 1):
+        step(i)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    # step 3: the replay, the eager step and the CPU, from one state
+    k = (COMPARE_STEP - 1) % len(feeds)
+    feed = feeds[k]
+    plan = BlockPlan(main.desc.global_block(), list(feed), [loss.name])
+    # the state before step 3 on the card (the eager step updates it in
+    # place), on the CPU for the CPU's step, and as numpy
+    pre = {n: scope.find_var(n).clone() for n in plan.state_in}
+    cpu_scope = fluid.Scope()
+    for n, v in pre.items():
+        cpu_scope.set_var(n, v.to("cpu", copy=True))
+    before = {n: cpu_scope.find_var(n).numpy().copy()
+              for n in plan.state_out}
+    step(COMPARE_STEP - 1)
+    written = {n: scope.find_var(n).clone() for n in plan.state_out}
+    env = dict(pre)
+    env.update(feed)
+    seeds = step_seeds(plan, main.random_seed, COMPARE_STEP)
+    with torch.no_grad():
+        run_block_ops(plan, env, seeds, seed_tensor(seeds).to(dev), dev,
+                      "train")
+    differs = sorted(n for n in plan.state_out
+                     if not torch.equal(written[n], env[n]))
+    eager_loss = float(env[loss.name])
+    bitwise = not differs and eager_loss == losses[-1]
+    del env, pre
+    cpu_scope._rng_seed, cpu_scope._rng_step = main.random_seed, \
+        COMPARE_STEP - 1
+    t0 = time.perf_counter()
+    cpu_loss = float(fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=host_feeds[k], fetch_list=[loss], scope=cpu_scope)[0])
+    cpu_s = time.perf_counter() - t0
+    card_after = {n: written[n].cpu().numpy() for n in plan.state_out}
+    cpu_after = {n: cpu_scope.find_var(n).numpy() for n in plan.state_out}
+    del written, cpu_scope
+    upd = update_errors(np, card_after, cpu_after, before, plan.state_out,
+                        adagrad_moments(main))
+    del card_after, cpu_after, before
+    loss_err = abs(losses[-1] - cpu_loss) / abs(cpu_loss)
+    worst = max(upd, key=upd.get)
+    torch.cuda.empty_cache()
+    for i in range(COMPARE_STEP, CTR_STEPS):
+        step(i)
+    launches = sum(launch_counts().values())
+    hits = exe.cache_stats()["executable"]
+    syncs = host_syncs_per_step(torch, lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope))
+    device = replay_ms(torch, exe)
+    steady = statistics.median(times[COMPARE_STEP:])
+    rec = {"is_sparse": is_sparse, "batch": CTR_BATCH, "steps": CTR_STEPS,
+           "losses": losses, "first_step_ms": times[0] * 1e3,
+           "step_ms_median": steady * 1e3,
+           "examples_per_s": CTR_BATCH / steady,
+           "device_ms": device, "host_share": 1 - device / (steady * 1e3),
+           "resident_gib": resident, "peak_mem_gib": peak,
+           "peak_over_resident_gib": peak - resident,
+           "peak_reserved_gib": reserved,
+           "executable": hits, "graph": step_graph(exe),
+           "host_syncs_per_step": syncs,
+           "repo_kernel_launches": launches,
+           "replay": {"step": COMPARE_STEP, "bitwise": bitwise,
+                      "differs": differs[:10], "n_differs": len(differs),
+                      "eager_loss": eager_loss},
+           "cpu": {"loss_rel_err": loss_err, "worst_update": worst,
+                   "worst_update_rel_err": upd[worst],
+                   "cpu_step_s": cpu_s}}
+    del exe, scope
+    torch.cuda.empty_cache()
+    if hits["hits"] != CTR_STEPS - 1:
+        failures.append(f"ctr {kind}: {hits}, want {CTR_STEPS - 1} hits")
+    if rec["graph"].get("graphs") != 1 or rec["graph"].get("by_family") \
+            or launches:
+        failures.append(f"ctr {kind}: graph {rec['graph']}, launches "
+                        f"{launches}: want one graph, no kernel of this "
+                        f"repo")
+    if syncs != 1:
+        failures.append(f"ctr {kind}: {syncs} host syncs a step, want 1")
+    if not bitwise:
+        failures.append(f"ctr {kind}: step {COMPARE_STEP} replay vs eager "
+                        f"differs in {differs[:10]} (loss {losses[-1]} vs "
+                        f"{eager_loss})")
+    if loss_err > SPARSE_LOSS_RTOL or upd[worst] > SPARSE_UPDATE_RTOL:
+        failures.append(f"ctr {kind}: card vs CPU at step {COMPARE_STEP}: "
+                        f"loss {loss_err}, {worst} {upd[worst]}")
+    if not (all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < statistics.mean(losses[:5])):
+        failures.append(f"ctr {kind}: the loss did not fall, {losses}")
+    return rec
+
+
+def ctr_phase(torch, np, fluid, failures):
+    """CTR wide&deep at full width, sparse then dense, from one startup
+    run on the card, on the same seeded batches.  -> record."""
+    t0 = time.perf_counter()
+    main, startup, _ = ctr_build(fluid, True)
+    tables = sparse_tables(main)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    state0 = {n: v for n, v in scope.vars.items() if v is not None}
+    del scope
+    startup_s = time.perf_counter() - t0
+    dev = torch.device("cuda", 0)
+    host_feeds = [ctr_feed(np, i) for i in range(CTR_BATCHES)]
+    feeds = [device_feed(torch, f, dev) for f in host_feeds]
+    rec = {"slots": CTR_SLOTS, "vocab": CTR_VOCAB, "embed": CTR_EMBED,
+           "hidden": list(CTR_HIDDEN), "batch": CTR_BATCH,
+           "optimizer": f"Adagrad {CTR_LR}", "tables": len(tables),
+           "tables_gib": sum(state0[n].numel() * state0[n].element_size()
+                             for n in tables) / 2**30,
+           "state_gib": sum(v.numel() * v.element_size()
+                            for v in state0.values()) / 2**30,
+           "startup_s": startup_s,
+           "distinct_ids_per_slot_batch0": float(np.mean(
+               [len(np.unique(host_feeds[0][f"C{k}"]))
+                for k in range(CTR_SLOTS)]))}
+    for is_sparse in (True, False):
+        kind = "sparse" if is_sparse else "dense"
+        rec[kind] = ctr_run(torch, np, fluid, is_sparse, state0, feeds,
+                            host_feeds, failures)
+        log(f"sparse ctr {kind}: {json.dumps(rec[kind])}")
+    if not rec["sparse"]["peak_mem_gib"] < rec["dense"]["peak_mem_gib"]:
+        failures.append(f"ctr: sparse peak {rec['sparse']['peak_mem_gib']} "
+                        f"GiB not below dense "
+                        f"{rec['dense']['peak_mem_gib']}")
+    # the sparse Adagrad is the dense one on the touched rows, op for op,
+    # and leaves the others as the dense one does (m + 0, p - 0)
+    rec["sparse_vs_dense_loss_max_rel"] = max(
+        abs(a - b) / abs(b) for a, b in zip(rec["sparse"]["losses"],
+                                            rec["dense"]["losses"]))
+    if rec["sparse_vs_dense_loss_max_rel"] > SPARSE_LOSS_RTOL:
+        failures.append(f"ctr: sparse and dense losses apart by "
+                        f"{rec['sparse_vs_dense_loss_max_rel']}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def build_embedding_model(fluid, model):
+    """word2vec (``ngram_model``), the recommender or ``convolution_net``
+    at the sizes above -> (main, startup, loss)."""
+    from paddle_tpu_torch.models import recommender, sentiment, word2vec
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    layers = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if model == "word2vec":
+            words = [layers.data(n, [1], "int64") for n in
+                     ("firstw", "secondw", "thirdw", "forthw", "nextw")]
+            loss, _ = word2vec.ngram_model(words, W2V_DICT, W2V_EMBED,
+                                           W2V_HIDDEN)
+            fluid.optimizer.SGD(learning_rate=W2V_LR).minimize(loss)
+        elif model == "recommender":
+            loss, _ = recommender.recommender(recommender.MovieLensDims())
+            fluid.optimizer.SGD(learning_rate=REC_LR).minimize(loss)
+        else:
+            data = layers.data("words", [1], "int64", lod_level=1)
+            label = layers.data("label", [1], "int64")
+            loss, _, _ = sentiment.convolution_net(data, label, CONV_DICT)
+            fluid.optimizer.Adam(learning_rate=CONV_LR).minimize(loss)
+    return main, startup, loss
+
+
+def embedding_feed(np, fluid, model, i):
+    """Batch ``i`` of a learnable synthetic signal (tests/test_book.py's):
+    word2vec's next word the context's sum mod the dictionary, the
+    recommender's rating from the user and movie ids' parity, the review
+    class from which half of the dictionary its words come from."""
+    rng = np.random.RandomState(SEED + i)
+    if model == "word2vec":
+        ctx = rng.randint(0, W2V_DICT, (W2V_BATCH, 4))
+        nxt = ctx.sum(axis=1, keepdims=True) % W2V_DICT
+        ids = np.concatenate([ctx, nxt], axis=1).astype(np.int64)
+        return {n: ids[:, k:k + 1] for k, n in enumerate(
+            ("firstw", "secondw", "thirdw", "forthw", "nextw"))}
+    if model == "recommender":
+        from paddle_tpu_torch.models.recommender import MovieLensDims
+
+        d, b = MovieLensDims(), REC_BATCH
+        uid = rng.randint(0, d.max_user_id, (b, 1))
+        mid = rng.randint(0, d.max_movie_id, (b, 1))
+        return {"user_id": uid, "gender_id": uid % 2,
+                "age_id": uid % d.n_age_buckets,
+                "job_id": uid % d.max_job_id, "movie_id": mid,
+                "category_id": fluid.make_seq(
+                    [rng.randint(0, d.n_categories, rng.randint(1, 4))
+                     for _ in range(b)], dtype=np.int32, max_len=4),
+                "movie_title": fluid.make_seq(
+                    [rng.randint(0, d.title_dict_size, rng.randint(3, 16))
+                     for _ in range(b)], dtype=np.int32, max_len=16),
+                "score": (2.5 + ((uid + mid) % 2) * 2.0).astype(np.float32)}
+    lbl = rng.randint(0, 2, CONV_BATCH)
+    half = CONV_DICT // 2
+    seqs = [rng.randint(half * c, half * (c + 1), rng.randint(5, CONV_T + 1))
+            for c in lbl]
+    return {"words": fluid.make_seq(seqs, dtype=np.int32, max_len=CONV_T),
+            "label": lbl[:, None].astype(np.int64)}
+
+
+def embedding_model_phase(torch, np, fluid, model, failures):
+    """A book embedding chapter: step 3 on the card (a replay) against the
+    eager step and the CPU port from the card's state (the loss, every
+    dense gradient, every state var the step writes), then EMB_STEPS
+    steps over EMB_BATCHES seeded batches, every kernel's launch count
+    set to 0 before and read after.  -> record."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_embedding_model(fluid, model)
+    init = initial_scope(fluid, startup)
+    sparse = set(sparse_tables(main))
+    params = [p.name for p in main.global_block().all_parameters()]
+    fetch = [loss.name] + [n + "@GRAD" for n in params if n not in sparse]
+    feeds = [embedding_feed(np, fluid, model, i) for i in range(EMB_BATCHES)]
+    r = captured_step(torch, fluid, main, fetch, init,
+                      lambda i: feeds[i % len(feeds)], [(main, fetch)])
+    card, (cpu, cpu_after) = r["card"], r["cpu"][0]
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    grad_err = max(float(np.abs(a - b).max())
+                   / max(float(np.abs(b).max()), 1e-30)
+                   for a, b in zip(card[1:], cpu[1:]))
+    written = [n for n in cpu_after if n in r["before"]
+               and not np.array_equal(cpu_after[n], r["before"][n])]
+    upd = update_errors(np, r["after"], cpu_after, r["before"], written,
+                        adagrad_moments(main))
+    worst = max(upd, key=upd.get)
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    exe = fluid.Executor(place)
+    dev = torch.device("cuda", 0)
+    staged = [device_feed(torch, f, dev) for f in feeds]
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [float(exe.run(main, feed=staged[i % len(staged)],
+                            fetch_list=[loss], scope=scope)[0])
+              for i in range(EMB_STEPS)]
+    wall = time.perf_counter() - t1
+    launches = sum(launch_counts().values())
+    hits = exe.cache_stats()["executable"]["hits"]
+    rec = {"model": model, "sparse_tables": sorted(sparse),
+           "steps": EMB_STEPS, "losses": losses,
+           "ms_per_step": wall / EMB_STEPS * 1e3, "executable_hits": hits,
+           "graph": step_graph(exe), "repo_kernel_launches": launches,
+           "step3_loss_rel_err": loss_err, "step3_grad_err": grad_err,
+           "step3_worst_update": worst,
+           "step3_worst_update_rel_err": upd[worst],
+           "replay": replay_record(r),
+           "seconds": time.perf_counter() - t0}
+    del exe, scope, staged
+    torch.cuda.empty_cache()
+    if not r["bitwise"]:
+        failures.append(f"{model}: step {COMPARE_STEP} replay vs eager: "
+                        f"{r['differs']}")
+    if loss_err > BOOK_LOSS_RTOL or grad_err > BOOK_GRAD_RTOL \
+            or upd[worst] > SPARSE_UPDATE_RTOL:
+        failures.append(f"{model}: card vs CPU at step {COMPARE_STEP}: loss "
+                        f"{loss_err}, grads {grad_err}, {worst} {upd[worst]}")
+    if hits != EMB_STEPS - 1 or rec["graph"].get("graphs") != 1 \
+            or rec["graph"].get("by_family") or launches:
+        failures.append(f"{model}: {hits} hits, graph {rec['graph']}, "
+                        f"launches {launches}")
+    if not (all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < statistics.mean(losses[:5])):
+        failures.append(f"{model}: the loss did not fall, {losses}")
+    return rec
+
+
+def sparse_op_checks(torch, np, failures):
+    """Every sparse update op (sgd, momentum with and without Nesterov,
+    adam, adagrad) and ``merge_rows`` on the card against the same op on
+    the CPU: SPARSE_OP_N rows over a [SPARSE_OP_V, SPARSE_OP_D] table,
+    Zipf-repeated, a quarter of the slots vacated (the sentinel row),
+    non-zero moments.  The outputs within SPARSE_OP_RTOL of their
+    largest, the rows no slot names bitwise unchanged, each state tensor
+    written in place, and ``merge_rows`` run twice bitwise equal (no
+    atomics).  -> {op: the largest error over its outputs}."""
+    from paddle_tpu_torch.fluid.core import registry as reg
+    from paddle_tpu_torch.fluid.core.desc import OpDesc
+    from paddle_tpu_torch.fluid.core.selected_rows import (SelectedRows,
+                                                           merge_rows)
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED)
+    v, d, n = SPARSE_OP_V, SPARSE_OP_D, SPARSE_OP_N
+    rows = (rng.zipf(CTR_ZIPF, n) * 2654435761 % v).astype(np.int32)
+    rows[rng.rand(n) < 0.25] = v
+    vals = rng.randn(n, d).astype(np.float32)
+    untouched = np.setdiff1d(np.arange(v), rows)
+    cases = {"sgd": ({}, ["Param"], ["ParamOut"]),
+             "momentum": ({"mu": 0.9}, ["Param", "Velocity"],
+                          ["ParamOut", "VelocityOut"]),
+             "momentum_nesterov": ({"mu": 0.9, "use_nesterov": True},
+                                   ["Param", "Velocity"],
+                                   ["ParamOut", "VelocityOut"]),
+             "adam": ({"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+                      ["Param", "Moment1", "Moment2", "Beta1Pow",
+                       "Beta2Pow"],
+                      ["ParamOut", "Moment1Out", "Moment2Out",
+                       "Beta1PowOut", "Beta2PowOut"]),
+             "adagrad": ({"epsilon": 1e-6}, ["Param", "Moment"],
+                         ["ParamOut", "MomentOut"])}
+    out = {}
+    for name, (attrs, state, outs) in cases.items():
+        op = name.split("_")[0]
+        arrays = {"LearningRate": np.array([0.1], np.float32)}
+        for s in state:
+            arrays[s] = (np.array([0.9 ** 3 if s == "Beta1Pow"
+                                   else 0.999 ** 3], np.float32)
+                         if s.startswith("Beta") else
+                         np.abs(rng.randn(v, d)).astype(np.float32))
+        got = {}
+        for where in ("cuda", "cpu"):
+            device = dev if where == "cuda" else torch.device("cpu")
+            ins = {s: [torch.tensor(a, device=device)]
+                   for s, a in arrays.items()}
+            ins["Grad"] = [SelectedRows(torch.tensor(rows, device=device),
+                                        torch.tensor(vals, device=device),
+                                        v)]
+            desc = OpDesc(op, {s: [s] for s in ins}, {}, attrs)
+            res = reg.get_op_info(op).emit(reg.EmitCtx(desc, device=device),
+                                           ins)
+            for s, o in zip(state, outs):
+                if res[o][0] is not ins[s][0]:
+                    failures.append(f"sparse op {name}: {o} not in place")
+            got[where] = {o: res[o][0].cpu().numpy() for o in outs}
+        err = 0.0
+        for o in outs:
+            a, b = got["cuda"][o], got["cpu"][o]
+            err = max(err, float(np.abs(a - b).max())
+                      / max(float(np.abs(b).max()), 1e-30))
+            src = arrays[state[outs.index(o)]]
+            if src.shape[0] == v and not np.array_equal(a[untouched],
+                                                        src[untouched]):
+                failures.append(f"sparse op {name}: {o} changed a row no "
+                                f"slot names")
+        out[name] = err
+        if err > SPARSE_OP_RTOL:
+            failures.append(f"sparse op {name}: card vs CPU {err}")
+    sr = SelectedRows(torch.tensor(rows, device=dev),
+                      torch.tensor(vals, device=dev), v)
+    m1, m2 = merge_rows(sr), merge_rows(sr)
+    mc = merge_rows(SelectedRows(torch.tensor(rows), torch.tensor(vals), v))
+    same = torch.equal(m1.rows, m2.rows) and torch.equal(m1.values,
+                                                         m2.values)
+    rows_equal = torch.equal(m1.rows.cpu(), mc.rows)
+    merge_err = float((m1.values.cpu() - mc.values).abs().max()
+                      / mc.values.abs().max())
+    out["merge_rows"] = merge_err
+    out["merge_rows_repeat_bitwise"] = same
+    if not (same and rows_equal and merge_err <= SPARSE_OP_RTOL):
+        failures.append(f"merge_rows: repeat bitwise {same}, rows equal "
+                        f"{rows_equal}, card vs CPU {merge_err}")
+    return out
+
+
+def sparse_phase(torch, np, fluid, card):
+    """Phase 17: the sparse update ops and ``merge_rows`` against the CPU,
+    CTR wide&deep at full width (sparse, then dense), and the book's
+    word2vec, recommender and ``convolution_net``.  -> (the ``sparse``
+    record, failures)."""
+    failures = []
+    t0 = time.perf_counter()
+    rec = {"card": card, "ops": sparse_op_checks(torch, np, failures)}
+    log(f"sparse ops card vs CPU: {json.dumps(rec['ops'])}")
+    rec["ctr"] = ctr_phase(torch, np, fluid, failures)
+    for model in ("word2vec", "recommender", "convolution_net"):
+        rec[model] = embedding_model_phase(torch, np, fluid, model, failures)
+        log(f"sparse {model}: {json.dumps(rec[model])}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, failures
 
 
 def main() -> int:
@@ -4043,6 +4613,13 @@ def main() -> int:
     failures += image_fails
     log(f"image phase ({time.perf_counter() - t0:.1f}s)")
 
+    # -- sparse embeddings and the book's embedding chapters: no kernel of
+    # this repo on their paths
+    torch.cuda.empty_cache()
+    sparse, sparse_fails = sparse_phase(torch, np, fluid, card)
+    failures += sparse_fails
+    log(f"sparse phase ({sparse['seconds']:.1f}s)")
+
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
@@ -4051,6 +4628,7 @@ def main() -> int:
     print(json.dumps({"book": book}), flush=True)
     print(json.dumps({"lstm": lstm_rec}), flush=True)
     print(json.dumps({"image": image}), flush=True)
+    print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

@@ -6,21 +6,26 @@ the ops run eagerly through ``lowering.py`` on the CPU).  Importing it
 registers the op emitters.
 
 Cut to what the Transformer training program (float32 or the bf16
-``amp_dtype`` recipe), the paged serving step, the LSTM text classifiers
-and the book's first two chapters need; level-1 sequence inputs are
-``SeqArray`` feeds (``make_seq``), and ``io`` holds ``prune_program``.
-Not ported (they raise ``NotImplementedError`` where the API reaches
-them): level-2 sequence inputs (``NestedSeqArray`` is only
-``beam_search_decode``'s output), sparse embeddings, meshes and sequence
-parallelism, batch norm, gradient clipping and regularizers, optimizers
-other than SGD, Momentum and Adam, control-flow ops, the compile cache
-and ``cost_analysis``."""
+``amp_dtype`` recipe), the paged serving step, the LSTM text
+classifiers, the book's chapters through image classification, the
+embedding chapters (CTR wide&deep, word2vec, the recommender: sparse
+embeddings) and the optimizer front end (every optimizer but
+ModelAverage, ``regularizer``, ``clip``, ``learning_rate_decay``) need;
+level-1 sequence inputs are ``SeqArray`` feeds (``make_seq``,
+``DataFeeder``), and ``io`` holds ``prune_program``.  Not ported (they
+raise ``NotImplementedError`` where the API reaches them): level-2
+sequence inputs (``NestedSeqArray`` is only ``beam_search_decode``'s
+output), meshes and sequence parallelism, ModelAverage, control-flow
+ops, the compile cache and ``cost_analysis``."""
 
 from . import ops as _ops  # registers the op emitters  # noqa: F401
-from . import initializer, io, layers, nets, optimizer, unique_name  # noqa: F401
+from . import (clip, initializer, io, layers,  # noqa: F401
+               learning_rate_decay, nets, optimizer, regularizer,
+               unique_name)
 from .backward import append_backward
 from .core.lod import SeqArray, make_seq
 from .core.registry import registered_ops
+from .data_feeder import DataFeeder
 from .executor import (CPUPlace, CUDAPlace, Executor, Scope, global_scope,
                        scope_from_numpy, scope_guard, scope_to_numpy)
 from .framework import (Block, Operator, Parameter, Program, Variable,
@@ -31,6 +36,7 @@ from .param_attr import ParamAttr
 
 __all__ = [
     "layers", "nets", "optimizer", "initializer", "unique_name", "io",
+    "regularizer", "clip", "learning_rate_decay", "DataFeeder",
     "append_backward", "registered_ops", "SeqArray", "make_seq",
     "Executor", "Scope", "global_scope", "scope_guard", "CUDAPlace",
     "CPUPlace", "scope_from_numpy", "scope_to_numpy",

@@ -63,17 +63,22 @@ def append_backward(loss: Variable,
                     callbacks: Optional[Sequence] = None,
                     ) -> List[Tuple[Parameter, Variable]]:
     """Append grad ops for every op contributing to ``loss``; returns
-    (param, grad) pairs — mirror of reference backward.py:338.  The
-    reference's per-op ``callbacks`` (its error clip) are not ported and
-    raise."""
-    if callbacks:
-        raise NotImplementedError("append_backward: callbacks (the "
-                                  "reference's error clip) are not ported "
-                                  "to paddle_tpu_torch")
+    (param, grad) pairs — mirror of reference backward.py:338.
+
+    ``callbacks``: callables ``cb(block, op)`` invoked after each op this
+    pass appends (the reference's _append_backward_ops_ hook) — how
+    ``Optimizer.minimize`` applies per-var ``error_clip``
+    (``clip.error_clip_callback``) to gradients as they are produced."""
     block = loss.block
     program = block.program
     no_grad = set(no_grad_set or ())
-    emit = block.append_op
+    callbacks = list(callbacks or ())
+
+    def emit(type, inputs=None, outputs=None, attrs=None, **kw):
+        op = block.append_op(type, inputs, outputs, attrs, **kw)
+        for cb in callbacks:
+            cb(block, op)
+        return op
 
     fwd_ops = list(block.ops)
 

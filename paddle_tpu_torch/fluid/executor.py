@@ -79,6 +79,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import add_launches, launch_counts
 from .core.lod import NestedSeqArray, SeqArray
+from .core.selected_rows import SelectedRows
 from .core.types import runtime_dtype, torch_dtype
 from .framework import Program, Variable, default_main_program
 from .lowering import (MARKER_OPS, BlockPlan, run_block_ops, seed_tensor,
@@ -264,11 +265,14 @@ def _sig_of(v) -> tuple:
 def _tensors(v) -> List[torch.Tensor]:
     """A value's tensors: a SeqArray's data and lengths, a
     NestedSeqArray's (the output of ``beam_search_decode``) data and
-    both lengths, else the tensor itself."""
+    both lengths, a SelectedRows' (a sparse gradient) rows and values,
+    else the tensor itself."""
     if isinstance(v, SeqArray):
         return [v.data, v.lengths]
     if isinstance(v, NestedSeqArray):
         return [v.data, v.outer_lengths, v.inner_lengths]
+    if isinstance(v, SelectedRows):
+        return [v.rows, v.values]
     return [v]
 
 
@@ -276,6 +280,8 @@ def _like(v, parts):
     """``parts`` (one per entry of ``_tensors(v)``) in ``v``'s structure."""
     if isinstance(v, (SeqArray, NestedSeqArray)):
         return type(v)(*parts)
+    if isinstance(v, SelectedRows):
+        return SelectedRows(*parts, v.height)
     return parts[0]
 
 
@@ -310,7 +316,10 @@ def _copy_into(dst, src) -> None:
 def _fetch_numpy(values) -> List[Any]:
     """Fetched values as numpy arrays of their own (SeqArrays and
     NestedSeqArrays of them), copied from the card through pinned
-    memory, asynchronously, with one wait for all of them."""
+    memory, asynchronously, with one wait for all of them.  A fetched
+    SelectedRows comes back as the reference's ``np.asarray`` gives it:
+    a 0-d object array holding the SelectedRows (of numpy arrays
+    here)."""
     host = []
     wait = None
     for v in values:
@@ -330,7 +339,12 @@ def _fetch_numpy(values) -> List[Any]:
         host.append(outs)
     if wait is not None:
         wait.synchronize()
-    return [_like(v, [t.numpy() for t in o]) for v, o in zip(values, host)]
+    out = [_like(v, [t.numpy() for t in o]) for v, o in zip(values, host)]
+    for i, v in enumerate(out):
+        if isinstance(v, SelectedRows):
+            out[i] = np.empty((), dtype=object)
+            out[i][()] = v
+    return out
 
 
 class _Entry:

@@ -1,9 +1,11 @@
 """Neural-net layers — the port of ``paddle_tpu/fluid/layers/nn.py``, cut
 to what ``models/transformer.transformer()`` (fused or unfused
 attention), the paged and dense serving steps and beam search, the LSTM
-text classifiers, the book's first three chapters (``models/fit_a_line``,
-``models/recognize_digits``, ``models/image_classification``) and the
-reference's image benchmarks (``models/benchmark_nets``) build.  Each
+text classifiers, the book's chapters (``models/fit_a_line``,
+``models/recognize_digits``, ``models/image_classification``,
+``models/word2vec``, ``models/recommender``), the reference's image
+benchmarks (``models/benchmark_nets``) and CTR wide&deep
+(``models/ctr``) build.  Each
 layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
@@ -17,7 +19,8 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
-           "softmax_with_cross_entropy", "square_error_cost", "conv2d",
+           "softmax_with_cross_entropy", "square_error_cost",
+           "sigmoid_cross_entropy_with_logits", "cos_sim", "conv2d",
            "pool2d", "batch_norm", "layer_norm", "lrn", "reduce_sum",
            "reshape", "transpose",
            "matmul", "topk", "beam_search", "beam_search_decode",
@@ -70,19 +73,19 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 def embedding(input, size, is_sparse=False, padding_idx=None,
               param_attr=None, dtype="float32", name=None,
               main_program=None, startup_program=None):
-    """Embedding lookup with a dense gradient.  ``is_sparse=True`` (the
-    reference's SelectedRows gradient) is not ported."""
-    if is_sparse:
-        raise NotImplementedError("embedding(is_sparse=True): SelectedRows "
-                                  "gradients are not ported to "
-                                  "paddle_tpu_torch")
+    """Embedding lookup.  ``is_sparse=True`` gives the table a
+    SelectedRows gradient (the looked-up rows and their output
+    gradients, no dense [vocab, dim] tensor), as the reference's
+    lookup_table_op does: sgd and adagrad apply it as a row scatter,
+    momentum and adam as lazy row updates, the other optimizers
+    densify it."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name,
                          main_program=main_program,
                          startup_program=startup_program)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype)
     out = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
-    attrs = {"is_sparse": False}
+    attrs = {"is_sparse": bool(is_sparse)}
     if padding_idx is not None:
         attrs["padding_idx"] = int(padding_idx)
     helper.append_op("lookup_table", {"W": w, "Ids": input}, {"Out": out},
@@ -119,11 +122,33 @@ def cross_entropy(input, label, soft_label=False, name=None):
     return out
 
 
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    """Elementwise binary cross-entropy on logits (reference
+    sigmoid_cross_entropy_with_logits_op.cc, the CTR nets' loss)."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": x, "Label": label}, {"Out": out})
+    return out
+
+
 def square_error_cost(input, label, name=None):
     helper = LayerHelper("square_error_cost", name=name)
     out = helper.create_tmp_variable(input.dtype)
     helper.append_op("square_error_cost", {"X": input, "Y": label},
                      {"Out": out})
+    return out
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity (reference cos_sim_op.cc); the norms
+    are gradient-free outputs."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_tmp_variable(X.dtype)
+    xnorm = helper.create_tmp_variable(X.dtype, stop_gradient=True)
+    ynorm = helper.create_tmp_variable(X.dtype, stop_gradient=True)
+    helper.append_op("cos_sim", {"X": X, "Y": Y},
+                     {"Out": out, "XNorm": xnorm, "YNorm": ynorm})
     return out
 
 

@@ -1,13 +1,15 @@
 """Thin layer wrappers over registered ops — the port of
-``paddle_tpu/fluid/layers/ops.py``, cut to the ops the Transformer and
-the LSTM text classifiers build: ``softmax``, the ``elementwise_*``
-family, ``mean``, ``scale`` and ``cast``."""
+``paddle_tpu/fluid/layers/ops.py``: a generated wrapper for each of the
+reference's unary ops (every activation, ``softmax``, ``log_softmax``,
+``sequence_softmax``, ``square``, ``sign``, ``clip``, ``clip_by_norm``)
+and binary ``elementwise_*`` ops, and ``mean``, ``scale`` and
+``cast``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["mean", "scale", "cast"]
+__all__ = []
 
 
 def _generate_unary(op_type: str):
@@ -22,8 +24,17 @@ def _generate_unary(op_type: str):
     return layer
 
 
+_UNARY_OPS = [
+    "sigmoid", "logsigmoid", "exp", "relu", "relu6", "tanh", "tanh_shrink",
+    "sqrt", "rsqrt", "abs", "ceil", "floor", "round", "reciprocal", "log",
+    "square", "softplus", "softsign", "softshrink", "hard_shrink",
+    "hard_sigmoid", "thresholded_relu", "elu", "pow", "stanh", "swish",
+    "gelu", "leaky_relu", "brelu", "sign", "softmax", "log_softmax",
+    "clip", "clip_by_norm", "sequence_softmax",
+]
+
 _globals = globals()
-for _op in ["softmax"]:
+for _op in _UNARY_OPS:
     _globals[_op] = _generate_unary(_op)
     __all__.append(_op)
 
@@ -41,8 +52,10 @@ def _generate_binary(op_type: str):
     return layer
 
 
-for _op in ["elementwise_add", "elementwise_sub", "elementwise_mul",
-            "elementwise_div"]:
+_BINARY_OPS = ["elementwise_add", "elementwise_sub", "elementwise_mul",
+               "elementwise_div", "elementwise_max", "elementwise_min",
+               "elementwise_pow"]
+for _op in _BINARY_OPS:
     _globals[_op] = _generate_binary(_op)
     __all__.append(_op)
 
@@ -71,3 +84,6 @@ def cast(x, dtype):
     helper.append_op("cast", {"X": x}, {"Out": out},
                      {"in_dtype": x.dtype, "out_dtype": dtype})
     return out
+
+
+__all__ += ["mean", "scale", "cast"]

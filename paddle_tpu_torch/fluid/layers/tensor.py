@@ -1,16 +1,37 @@
 """Tensor layers — the port of ``paddle_tpu/fluid/layers/tensor.py``,
-cut to ``concat``, ``assign``, ``cast``, ``argmax``, the dense and paged
-KV-cache writes and the copy-on-write page copy; the creation layers
-(``fill_constant``, ``zeros``, ...) and the KV-tier transfer layers are
-not ported."""
+cut to ``create_global_var``, ``fill_constant`` (the learning-rate
+schedules' constants), ``concat``, ``assign``, ``cast``, ``argmax``,
+the dense and paged KV-cache writes and the copy-on-write page copy;
+the other creation layers and the KV-tier transfer layers are not
+ported."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["concat", "assign", "cast", "argmax", "cache_write",
+__all__ = ["create_global_var", "fill_constant", "concat", "assign",
+           "cast", "argmax", "cache_write",
            "paged_cache_write", "quantized_paged_cache_write",
            "paged_page_copy"]
+
+
+def create_global_var(shape, value, dtype, persistable=False, name=None):
+    from ..initializer import ConstantInitializer
+
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(shape=shape, dtype=dtype,
+                                        persistable=persistable, name=name)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
+
+
+def fill_constant(shape, dtype, value, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    out = out or helper.create_tmp_variable(dtype)
+    helper.append_op("fill_constant", {}, {"Out": out},
+                     {"shape": list(shape), "dtype": dtype,
+                      "value": float(value)})
+    return out
 
 
 def concat(input, axis=0, name=None):

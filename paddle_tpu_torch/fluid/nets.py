@@ -1,13 +1,13 @@
 """Composite network helpers — the port of ``paddle_tpu/fluid/nets.py``,
-cut to the image helpers: ``simple_img_conv_pool`` and
-``img_conv_group``.  ``sequence_conv_pool``, ``glu`` and
+cut to the image helpers (``simple_img_conv_pool``, ``img_conv_group``)
+and the text-CNN block ``sequence_conv_pool``.  ``glu`` and
 ``scaled_dot_product_attention`` are absent."""
 
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -47,3 +47,12 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                                      dropout_prob=conv_batchnorm_drop_rate[i])
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
+                       pool_type="max", param_attr=None):
+    """A ``sequence_conv`` and then a ``sequence_pool`` over time."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size, act=act,
+                                    param_attr=param_attr)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -1,7 +1,8 @@
 """Softmax, losses and metrics — the port of
 ``paddle_tpu/fluid/ops/loss_ops.py``, cut to ``softmax``,
-``cross_entropy``, ``softmax_with_cross_entropy``,
-``fused_vocab_cross_entropy``, ``square_error_cost`` and ``accuracy``."""
+``log_softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``,
+``fused_vocab_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
+``square_error_cost``, ``squared_l2_norm`` and ``accuracy``."""
 
 from __future__ import annotations
 
@@ -14,6 +15,11 @@ from ..core.registry import primitive
 @primitive("softmax", seq_transparent=True)
 def softmax(ctx, x):
     return torch.softmax(x, dim=-1)
+
+
+@primitive("log_softmax", seq_transparent=True)
+def log_softmax(ctx, x):
+    return torch.log_softmax(x, dim=-1)
 
 
 def _label_ce(logp, label, soft_label):
@@ -64,6 +70,20 @@ def square_error_cost(ctx, x, y):
     """reference square_error_cost: (X - Y)^2 elementwise."""
     d = x - y
     return d * d
+
+
+@primitive("sigmoid_cross_entropy_with_logits", inputs=["X", "Label"],
+           stop_grad_slots=("Label",), seq_transparent=True)
+def sigmoid_ce_logits(ctx, x, label):
+    """Binary cross-entropy on logits, elementwise, in the reference's
+    stable form max(x, 0) - x * label + log1p(exp(-|x|))."""
+    return (torch.clamp(x, min=0) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+@primitive("squared_l2_norm")
+def squared_l2_norm(ctx, x):
+    return (x * x).sum()
 
 
 def _mm_f32(a, b):

@@ -1,10 +1,10 @@
 """Math ops: the projection matmul, the batched ``matmul`` of the
-unfused attention, the elementwise family, sum, scale, mean and
-reductions — the port of ``paddle_tpu/fluid/ops/math_ops.py``, cut to
-what the Transformer, the LSTM text classifiers, the book's first two
-chapters, their backward and the optimizers emit.  ``mul``, ``matmul``,
-``sum`` and ``elementwise_*`` see a SeqArray input's data and return a
-SeqArray, as in the reference.  The matmuls are ``torch.matmul``
+unfused attention, the elementwise family, sum (over SelectedRows
+too), scale, mean, the clip and norm ops and ``cos_sim`` — the port
+of ``paddle_tpu/fluid/ops/math_ops.py``, less the reductions other than
+``reduce_sum``.  ``mul``, ``matmul``, ``sum``, ``scale`` and the
+elementwise ops see a SeqArray input's data and return a SeqArray, as
+in the reference.  The matmuls are ``torch.matmul``
 (cuBLAS on the card: fp32 with TF32 off, bf16 accumulating in fp32), as
 the reference leaves them to XLA.
 
@@ -103,12 +103,37 @@ _elementwise("elementwise_add", lambda x, y: x + y)
 _elementwise("elementwise_sub", lambda x, y: x - y)
 _elementwise("elementwise_mul", lambda x, y: x * y)
 _elementwise("elementwise_div", lambda x, y: x / y)
+# ties split the gradient evenly, as jnp.maximum / jnp.minimum do
+_elementwise("elementwise_max", torch.maximum)
+_elementwise("elementwise_min", torch.minimum)
+_elementwise("elementwise_pow", torch.pow)
 
 
 @primitive("sum", inputs=["X*"], seq_transparent=True)
 def sum_op(ctx, xs):
     """Variadic add — also the fan-in accumulator ``append_backward``
-    inserts."""
+    inserts.  SelectedRows inputs (sparse embedding gradients, reference
+    sum_op.cc's SelectedRows path): all sparse gives one SelectedRows of
+    the concatenated rows and values (duplicates kept); sparse beside
+    dense gives the dense sum with the sparse parts scattered onto it."""
+    from ..core.selected_rows import SelectedRows
+
+    sparse = [x for x in xs if isinstance(x, SelectedRows)]
+    if sparse:
+        dense = [x for x in xs if not isinstance(x, SelectedRows)]
+        if not dense:
+            if len(sparse) == 1:
+                return sparse[0]
+            return SelectedRows(torch.cat([s.rows for s in sparse]),
+                                torch.cat([s.values for s in sparse]),
+                                sparse[0].height)
+        # a tensor of its own: the scatters below write it in place
+        out = dense[0].clone() if len(dense) == 1 else dense[0] + dense[1]
+        for x in dense[2:]:
+            out = out + x
+        for sr in sparse:
+            sr.scatter_add_to(out)
+        return out
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -121,13 +146,67 @@ def mean(ctx, x):
     return torch.mean(x)
 
 
-@primitive("scale")
+@primitive("scale", seq_transparent=True)
 def scale(ctx, x):
-    s = ctx.attr("scale", 1.0)
-    b = ctx.attr("bias", 0.0)
+    """scale * x + bias (or (x + bias) * scale), the scalars rounded to
+    a bf16 X's dtype first, as the reference's weak typing rounds them."""
+    s = weak_scalar(ctx.attr("scale", 1.0), x)
+    b = weak_scalar(ctx.attr("bias", 0.0), x)
     if ctx.attr("bias_after_scale", True):
         return x * s + b
     return (x + b) * s
+
+
+def _fill(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor of ``value`` in ``like``'s dtype, on its device (a
+    fill, no host copy)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def clip_values(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): min(max(x, lo), hi), a value at a bound
+    taking half the gradient, as jnp.clip's max / min give it."""
+    return torch.minimum(torch.maximum(x, _fill(lo, x)), _fill(hi, x))
+
+
+@primitive("square", seq_transparent=True)
+def square(ctx, x):
+    return x * x
+
+
+@primitive("clip", seq_transparent=True)
+def clip(ctx, x):
+    """reference clip_op.cc."""
+    return clip_values(x, ctx.attr("min"), ctx.attr("max"))
+
+
+@primitive("sign", seq_transparent=True)
+def sign(ctx, x):
+    return torch.sign(x)
+
+
+@primitive("clip_by_norm")
+def clip_by_norm(ctx, x):
+    """reference clip_by_norm_op.cc: X scaled down to ``max_norm`` where
+    its L2 norm exceeds it."""
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt((x * x).sum())
+    return torch.where(norm > max_norm, x * (max_norm / norm), x)
+
+
+@primitive("norm")
+def norm_op(ctx, x):
+    return torch.sqrt((x * x).sum())
+
+
+@primitive("cos_sim", inputs=["X", "Y"], outputs=["Out", "XNorm", "YNorm"])
+def cos_sim(ctx, x, y):
+    """reference cos_sim_op.cc: row-wise cosine over the last axis, with
+    the two norms."""
+    xn = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    yn = torch.sqrt((y * y).sum(dim=-1, keepdim=True))
+    out = (x * y).sum(dim=-1, keepdim=True) / (xn * yn + 1e-12)
+    return out, xn, yn
 
 
 def _reduce(name, fn):

@@ -1,7 +1,8 @@
 """Sequence ops over SeqArray (padded data + lengths) — the port of
-``paddle_tpu/fluid/ops/sequence_ops.py``, cut to ``sequence_pool``.
-Offset walking becomes masking: a dense reduction over
-[batch, max_len, ...] with the validity mask."""
+``paddle_tpu/fluid/ops/sequence_ops.py``, cut to ``sequence_pool``,
+``sequence_softmax`` and ``sequence_conv``.  Offset walking becomes
+masking: dense work over [batch, max_len, ...] with the validity
+mask."""
 
 from __future__ import annotations
 
@@ -52,3 +53,43 @@ def sequence_pool(ctx, x):
         return out, torch.zeros(out.shape, dtype=torch.int32,
                                 device=out.device)
     raise ValueError(f"unknown pooltype {ptype}")
+
+
+@primitive("sequence_softmax")
+def sequence_softmax(ctx, x):
+    """reference sequence_softmax_op.cc: softmax over each sequence's
+    valid positions (the time axis), padding 0."""
+    if not isinstance(x, SeqArray):
+        raise TypeError("sequence_softmax expects a sequence input")
+    m = _mask(x)
+    logits = torch.where(m, x.data.float(), -torch.inf)
+    out = torch.softmax(logits, dim=1)
+    return SeqArray(torch.where(m, out, 0.0).to(x.data.dtype), x.lengths)
+
+
+@primitive("sequence_conv", inputs=["X", "Filter"])
+def sequence_conv(ctx, x, w):
+    """reference sequence_conv_op.cc (ContextProjection): each step's
+    window of ``context_length`` steps from ``context_start`` on, zero
+    outside the sequence, concatenated and projected by the filter
+    [context_length * D, F].  The product is ``torch.matmul`` summed in
+    float32, as the reference's ``jnp.matmul`` is."""
+    if not isinstance(x, SeqArray):
+        raise TypeError("sequence_conv expects a sequence input")
+    ctx_len = ctx.attr("context_length", 3)
+    ctx_start = ctx.attr("context_start", -((ctx_len - 1) // 2))
+    m = _mask(x).to(x.data.dtype)
+    data = x.data * m                                  # padding zeroed
+    t = data.shape[1]
+    pos = torch.arange(t, device=data.device)
+    cols = []
+    for off in range(ctx_start, ctx_start + ctx_len):
+        shifted = torch.roll(data, -off, dims=1)
+        valid = ((pos + off >= 0) & (pos + off < t)).reshape(1, t, 1)
+        cols.append(torch.where(valid, shifted, 0.0))
+    ctx_mat = torch.cat(cols, dim=-1)                  # [b, t, L * D]
+    if ctx_mat.dtype == torch.float32:
+        out = torch.matmul(ctx_mat, w)
+    else:
+        out = torch.matmul(ctx_mat.float(), w.float()).to(data.dtype)
+    return SeqArray(out * m, x.lengths)

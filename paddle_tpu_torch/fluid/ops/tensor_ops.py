@@ -3,7 +3,9 @@
 (training, the unfused attention, the paged and dense serving steps and
 beam search), the LSTM text classifiers, the book's first three
 chapters, the reference's image benchmarks (``concat``: GoogLeNet's
-inception towers), their backward and the optimizers emit.
+inception towers), the embedding chapters (``lookup_table`` with its
+sparse gradient), their backward, the optimizers and the learning-rate
+schedules emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
@@ -110,11 +112,8 @@ def argmax(ctx, x):
 @primitive("lookup_table", inputs=["W", "Ids"], stop_grad_slots=("Ids",))
 def lookup_table(ctx, w, ids):
     """Embedding gather (reference lookup_table_op.cc); padding_idx rows
-    are zero.  SeqArray ids give a SeqArray with their lengths.  Dense
-    only."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError("lookup_table: is_sparse=True "
-                                  "(SelectedRows gradients) is not ported")
+    are zero.  SeqArray ids give a SeqArray with their lengths.  The
+    forward is the same for ``is_sparse``; only the gradient differs."""
     seq = isinstance(ids, SeqArray)
     idv = _ids(ids.data if seq else ids)
     out = w[idv]
@@ -127,12 +126,15 @@ def lookup_table(ctx, w, ids):
 @primitive("lookup_table_grad", inputs=["W", "Ids", "Out@GRAD"],
            outputs=["W@GRAD"], no_grad=True)
 def lookup_table_grad(ctx, w, ids, og):
-    """Hand-written adjoint of lookup_table: the dense scatter-add of the
-    output gradients into the looked-up rows (a sequence's padding rows
-    too, whose gradients are zero)."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError("lookup_table_grad: is_sparse=True is "
-                                  "not ported")
+    """Hand-written adjoint of lookup_table.  ``is_sparse=True`` returns a
+    SelectedRows (rows: every looked-up id, a sequence's padding
+    positions too, duplicates kept; values: the output gradients, zero
+    at padding_idx and at padding positions), as the reference does: no
+    [V, D] buffer is written.  Dense: that SelectedRows summed into
+    [V, D] (``SelectedRows.to_dense``, a sorted segment sum without
+    atomics), so the gradient is the same at every run."""
+    from ..core.selected_rows import SelectedRows
+
     if isinstance(ids, SeqArray):
         ids = ids.data
     if isinstance(og, SeqArray):
@@ -142,7 +144,10 @@ def lookup_table_grad(ctx, w, ids, og):
     pad = ctx.attr("padding_idx", None)
     if pad is not None:
         vals = torch.where((rows == pad)[:, None], 0.0, vals)
-    return torch.zeros_like(w).index_add_(0, rows, vals.to(w.dtype))
+    rows = rows.to(torch.int32)
+    if ctx.attr("is_sparse", False):
+        return SelectedRows(rows, vals, w.shape[0])
+    return SelectedRows(rows, vals.to(w.dtype), w.shape[0]).to_dense()
 
 
 @primitive("top_k", inputs=["X"], outputs=["Out", "Indices"], no_grad=True)

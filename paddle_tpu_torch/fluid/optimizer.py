@@ -1,12 +1,16 @@
-"""Optimizer front end — the port of ``paddle_tpu/fluid/optimizer.py``,
-cut to the ``Optimizer`` base and Adam.
+"""Optimizer front end — the port of ``paddle_tpu/fluid/optimizer.py``
+(analog of python/paddle/v2/fluid/optimizer.py: Optimizer base :29,
+minimize :220, SGD / Momentum / Adagrad / Adam / Adamax / DecayedAdagrad
+at :244-544; Adadelta / RMSProp / Ftrl exist as ops).
 
-``minimize`` keeps the two-phase contract: ``append_backward`` for the
-(param, grad) pairs, then one update op per parameter plus its
-accumulators (persistable vars with startup-program init ops).  Names
-and op order are the reference's, so the optimized program serializes
-alike.  Gradient clipping, regularizers, ZeRO-style moment sharding and
-the other optimizers (Adagrad, Adamax, ...) are not ported.
+``minimize`` keeps the reference's contract: ``append_backward`` with the
+error-clip callback for the (param, grad) pairs, then the gradient
+clips, the regularizers, and one update op per parameter plus its
+accumulators (persistable vars with startup-program init ops), the
+optimizer's finishing ops and the global step's increment.  Names and op
+order are the reference's, so the optimized program serializes alike.
+ModelAverage and ZeRO-style moment sharding (``shard_moments_over``) are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -16,34 +20,35 @@ from typing import Dict, List, Optional, Tuple
 
 from . import unique_name
 from .backward import append_backward
+from .clip import append_gradient_clip_ops, error_clip_callback
 from .framework import (Block, Parameter, Program, Variable,
                         default_main_program)
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer", "SGD", "SGDOptimizer",
-           "Momentum", "MomentumOptimizer", "Adagrad", "AdagradOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+           "Adagrad", "AdagradOptimizer", "Adam", "AdamOptimizer",
+           "Adamax", "AdamaxOptimizer", "DecayedAdagrad",
+           "DecayedAdagradOptimizer", "Adadelta", "AdadeltaOptimizer",
+           "RMSProp", "RMSPropOptimizer", "Ftrl", "FtrlOptimizer",
+           "ModelAverage"]
 
 
 class Optimizer:
-    """Base optimizer."""
+    """Base optimizer (reference optimizer.py:29)."""
 
     def __init__(self, learning_rate, regularization=None,
                  global_step: Optional[Variable] = None,
                  shard_moments_over: Optional[str] = None):
         if not isinstance(learning_rate, (float, int, Variable)):
             raise TypeError("learning_rate must be float or Variable")
-        if regularization is not None:
-            raise NotImplementedError("Optimizer(regularization=...): "
-                                      "regularizers are not ported to "
-                                      "paddle_tpu_torch")
-        if global_step is not None:
-            raise NotImplementedError("Optimizer(global_step=...) is not "
-                                      "ported to paddle_tpu_torch")
         if shard_moments_over is not None:
             raise NotImplementedError("Optimizer(shard_moments_over=...): "
                                       "meshes are not ported to "
                                       "paddle_tpu_torch")
+        self._global_step = global_step
+        self.regularization = regularization
         self._learning_rate = learning_rate
         self._learning_rate_map: Dict[int, Variable] = {}
         # accumulators[name][param_name] = Variable
@@ -106,32 +111,52 @@ class Optimizer:
     def _append_optimize_op(self, block: Block, param_and_grad):
         raise NotImplementedError
 
+    def _finish_update(self, block: Block):
+        pass
+
+    def _increment_global_step(self, block: Block):
+        self.helper.append_op(
+            "scale", {"X": self._global_step}, {"Out": self._global_step},
+            {"scale": 1.0, "bias": 1.0, "bias_after_scale": True})
+
     # -- main entry ----------------------------------------------------------
     def create_optimization_pass(self, parameters_and_grads, loss,
                                  startup_program=None):
+        """reference optimizer.py:160."""
         program = loss.block.program
-        # anchor the helper on the loss's program, not the ambient default
+        # anchor the helper on the loss's program, not the ambient default —
+        # layers may have been built with an explicit main_program
         self.helper = LayerHelper(self.__class__.__name__,
                                   main_program=program,
                                   startup_program=startup_program)
         self._create_accumulators(loss.block,
                                   [p for p, g in parameters_and_grads])
         self._create_global_learning_rate(program)
-        return [self._append_optimize_op(loss.block, pg)
-                for pg in parameters_and_grads if pg[1] is not None]
+
+        optimize_ops = []
+        for pg in parameters_and_grads:
+            if pg[1] is None:
+                continue
+            optimize_ops.append(self._append_optimize_op(loss.block, pg))
+        self._finish_update(loss.block)
+        if self._global_step is not None:
+            self._increment_global_step(loss.block)
+        return optimize_ops
 
     def minimize(self, loss: Variable, startup_program: Optional[Program] = None,
                  parameter_list=None, no_grad_set=None
                  ) -> Tuple[list, List[Tuple[Parameter, Variable]]]:
-        """Backward, then the optimization pass.  A parameter with a
-        gradient clip attr raises: clipping is not ported."""
-        params_grads = append_backward(loss, parameter_list, no_grad_set)
-        for p, _g in params_grads:
-            if getattr(p, "gradient_clip_attr", None) is not None \
-                    or getattr(p, "regularizer", None) is not None:
-                raise NotImplementedError(
-                    f"parameter {p.name!r}: gradient clipping and "
-                    f"regularizers are not ported to paddle_tpu_torch")
+        """reference optimizer.py:220 — backward, then the gradient clips
+        and regularizers, then the optimization pass.
+        error_clip_callback rides the backward walk (reference
+        optimizer.py:225 passes the same callback), so per-var
+        ``error_clip`` attrs clip gradients the moment they finalize."""
+        program = loss.block.program
+        params_grads = append_backward(loss, parameter_list, no_grad_set,
+                                       callbacks=[error_clip_callback])
+        params_grads = append_gradient_clip_ops(params_grads, program)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization, program)
         optimize_ops = self.create_optimization_pass(params_grads, loss,
                                                      startup_program)
         return optimize_ops, params_grads
@@ -164,6 +189,25 @@ class MomentumOptimizer(Optimizer):
              "LearningRate": self._create_param_lr(pg)},
             {"ParamOut": pg[0], "VelocityOut": v},
             {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, pg):
+        m = self._get_accumulator("moment", pg[0])
+        return self.helper.append_op(
+            "adagrad",
+            {"Param": pg[0], "Grad": pg[1], "Moment": m,
+             "LearningRate": self._create_param_lr(pg)},
+            {"ParamOut": pg[0], "MomentOut": m},
+            {"epsilon": self._epsilon})
 
 
 class AdamOptimizer(Optimizer):
@@ -200,20 +244,158 @@ class AdamOptimizer(Optimizer):
              "epsilon": self._epsilon})
 
 
-def _unported(name: str):
-    class _Unported(Optimizer):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(f"{name} is not ported to "
-                                      f"paddle_tpu_torch (SGD, Momentum "
-                                      f"and Adam are)")
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
-    _Unported.__name__ = _Unported.__qualname__ = name
-    return _Unported
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, fill_value=self._beta1,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, pg):
+        p = pg[0]
+        return self.helper.append_op(
+            "adamax",
+            {"Param": p, "Grad": pg[1],
+             "LearningRate": self._create_param_lr(pg),
+             "Moment": self._get_accumulator("moment", p),
+             "InfNorm": self._get_accumulator("inf_norm", p),
+             "Beta1Pow": self._get_accumulator("beta1_pow_acc", p)},
+            {"ParamOut": p,
+             "MomentOut": self._get_accumulator("moment", p),
+             "InfNormOut": self._get_accumulator("inf_norm", p)},
+            {"beta1": self._beta1, "beta2": self._beta2,
+             "epsilon": self._epsilon})
+
+    def _finish_update(self, block):
+        for p, acc in self._accumulators["beta1_pow_acc"].items():
+            self.helper.append_op("scale", {"X": acc}, {"Out": acc},
+                                  {"scale": self._beta1})
 
 
-AdagradOptimizer = _unported("AdagradOptimizer")
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
 
-Adam = AdamOptimizer
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, pg):
+        m = self._get_accumulator("moment", pg[0])
+        return self.helper.append_op(
+            "decayed_adagrad",
+            {"Param": pg[0], "Grad": pg[1], "Moment": m,
+             "LearningRate": self._create_param_lr(pg)},
+            {"ParamOut": pg[0], "MomentOut": m},
+            {"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate=1.0, rho=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, pg):
+        p = pg[0]
+        ag = self._get_accumulator("avg_squared_grad", p)
+        au = self._get_accumulator("avg_squared_update", p)
+        return self.helper.append_op(
+            "adadelta",
+            {"Param": p, "Grad": pg[1], "AvgSquaredGrad": ag,
+             "AvgSquaredUpdate": au},
+            {"ParamOut": p, "AvgSquaredGradOut": ag,
+             "AvgSquaredUpdateOut": au},
+            {"rho": self._rho, "epsilon": self._epsilon})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon, self._momentum = rho, epsilon, momentum
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+
+    def _append_optimize_op(self, block, pg):
+        p = pg[0]
+        m = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        return self.helper.append_op(
+            "rmsprop",
+            {"Param": p, "Grad": pg[1], "Moment": m, "MeanSquare": ms,
+             "LearningRate": self._create_param_lr(pg)},
+            {"ParamOut": p, "MomentOut": m, "MeanSquareOut": ms},
+            {"decay": self._rho, "epsilon": self._epsilon,
+             "momentum": self._momentum})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, pg):
+        p = pg[0]
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return self.helper.append_op(
+            "ftrl",
+            {"Param": p, "Grad": pg[1], "SquaredAccumulator": sq,
+             "LinearAccumulator": lin,
+             "LearningRate": self._create_param_lr(pg)},
+            {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin},
+            {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power})
+
+
+class ModelAverage(Optimizer):
+    """Polyak parameter averaging (reference ModelAverage, its
+    ``average_accumulates`` op): not ported."""
+
+    def __init__(self, average_window_rate: float = 0.15,
+                 min_average_window: int = 10000,
+                 max_average_window: int = 10000,
+                 main_program: Optional[Program] = None,
+                 startup_program: Optional[Program] = None, **kw):
+        raise NotImplementedError("ModelAverage (and its "
+                                  "average_accumulates op) is not ported "
+                                  "to paddle_tpu_torch")
+
+    def apply(self, executor, need_restore: bool = True):
+        raise NotImplementedError("ModelAverage is not ported to "
+                                  "paddle_tpu_torch")
+
+    def restore(self, executor):
+        raise NotImplementedError("ModelAverage is not ported to "
+                                  "paddle_tpu_torch")
+
+
+# short aliases (reference exposes both)
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
+Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

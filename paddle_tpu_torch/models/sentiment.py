@@ -1,12 +1,30 @@
 """Sentiment classification — the port of ``paddle_tpu/models/sentiment.py``
-(book ch.06), cut to ``stacked_lstm_net``.  ``convolution_net`` needs
-``sequence_conv`` and is not ported."""
+(book ch.06): the text conv net and the stacked LSTM over word
+sequences."""
 
 from __future__ import annotations
 
-from ..fluid import layers
+from ..fluid import layers, nets
 
-__all__ = ["stacked_lstm_net"]
+__all__ = ["convolution_net", "stacked_lstm_net"]
+
+
+def convolution_net(data, label, input_dim, class_dim=2, emb_dim=32,
+                    hid_dim=32):
+    """The chapter's double-window text CNN."""
+    emb = layers.embedding(input=data, size=[input_dim, emb_dim])
+    conv_3 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                     filter_size=3, act="tanh",
+                                     pool_type="sqrt")
+    conv_4 = nets.sequence_conv_pool(input=emb, num_filters=hid_dim,
+                                     filter_size=4, act="tanh",
+                                     pool_type="sqrt")
+    prediction = layers.fc(input=[conv_3, conv_4], size=class_dim,
+                           act="softmax")
+    cost = layers.cross_entropy(input=prediction, label=label)
+    avg_cost = layers.mean(cost)
+    acc = layers.accuracy(input=prediction, label=label)
+    return avg_cost, acc, prediction
 
 
 def stacked_lstm_net(data, label, input_dim, class_dim=2, emb_dim=128,

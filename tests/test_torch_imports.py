@@ -1,8 +1,8 @@
 """The port stands alone, and its entry points never fall back silently.
 
 * ``paddle_tpu_torch`` (every module), ``chip_smoke``,
-  ``profile_serving``, ``tune_flash_bwd`` and ``batch_norm_probe``
-  import in a process where
+  ``profile_serving``, ``tune_flash_bwd``, ``batch_norm_probe`` and
+  ``segment_sum_probe`` import in a process where
   importing ``jax`` or ``paddle_tpu`` raises.
 * Without CUDA, an entry point raises unless the caller asks for the
   CPU by name (``device="cpu"``, ``fluid.CPUPlace()``, a generator's
@@ -50,6 +50,7 @@ import chip_smoke
 import profile_serving
 import tune_flash_bwd
 import batch_norm_probe
+import segment_sum_probe
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad
@@ -79,12 +80,24 @@ BOOK = {"paddle_tpu_torch.fluid.nets",
         "paddle_tpu_torch.models.recognize_digits"}
 
 
+# the modules of the sparse embeddings and the optimizer front end
+SPARSE = {"paddle_tpu_torch.fluid.core.selected_rows",
+          "paddle_tpu_torch.fluid.regularizer",
+          "paddle_tpu_torch.fluid.clip",
+          "paddle_tpu_torch.fluid.learning_rate_decay",
+          "paddle_tpu_torch.fluid.data_feeder",
+          "paddle_tpu_torch.models.ctr",
+          "paddle_tpu_torch.models.word2vec",
+          "paddle_tpu_torch.models.recommender"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
-    assert SLICE_3 | BOOK <= names, (SLICE_3 | BOOK) - names
+    want = SLICE_3 | BOOK | SPARSE
+    assert want <= names, want - names
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -236,8 +249,9 @@ def test_reference_only_parameters_are_taken_or_refused():
     """What the reference's parameters do in the port: ``fc``'s
     ``use_mkldnn`` and ``flash_attention``'s ``block_q`` / ``block_k``
     are accepted and change nothing, ``keep_scale`` takes ``seed_u32``
-    by name, and an ``impl`` other than None, ``append_backward``'s
-    ``callbacks`` and ``Executor``'s ``compile_cache`` raise."""
+    by name, ``append_backward``'s ``callbacks`` run on each op it
+    appends, and an ``impl`` other than None and ``Executor``'s
+    ``compile_cache`` raise."""
     from paddle_tpu_torch.fluid.backward import append_backward
     from paddle_tpu_torch.kernels import flash_attention as fa
 
@@ -265,6 +279,8 @@ def test_reference_only_parameters_are_taken_or_refused():
         x = fluid.layers.data("x", [4], "float32")
         h = fluid.layers.fc(x, size=3, use_mkldnn=True)
         loss = fluid.layers.mean(h)
-        with pytest.raises(NotImplementedError, match="callbacks"):
-            append_backward(loss, callbacks=[lambda block, op: None])
+        seen = []
+        append_backward(loss, callbacks=[lambda block, op: seen.append(
+            op.type)])
+    assert seen[0] == "fill_constant" and "mul_grad" in seen
     assert h.shape[-1] == 3

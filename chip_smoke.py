@@ -205,12 +205,35 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    book's word2vec, recommender (sparse tables) and ``convolution_net``
    at their published sizes: step 3 against the eager step and the CPU
    port (loss, dense gradients, the state the step writes), 20 steps,
-   19 hits, the loss falling.
+   19 hits, the loss falling;
+18. control flow and the seq2seq models (book ch.08): the attention
+   seq2seq at ``bench.py``'s ``bench_nmt_quality`` width (dict 2000,
+   word 128, hidden 256, Adam 2e-3, batch 128) on seeded reversal pairs
+   of 8-32 tokens (``make_seq(..., bucket=8)``): step 3 at 4 rows
+   against the eager step (bitwise) and the CPU port (the Transformer's
+   float32 limits; every weight's update against Adam's rule applied to
+   the card's gradient), then 20 steps on 4 batches of one signature (one captured
+   graph, 19 hits, one ``lstm_fwd`` launch and graph node a step, one
+   host sync a step, step ms, target tokens/s, peak memory, the loss
+   falling); the beam decode (beam 3, 32 steps, top-k 50) of 128
+   sources in a While on the trained weights, run eagerly on the card
+   with the host reading the loop's condition (decode ms, iterations
+   and host syncs per iteration, one miss then hits, no graph, one
+   ``lstm_fwd`` launch a decode), and against the CPU port step by
+   step (ids and parents equal, scores within 1e-4 relative, the same
+   backtrace; near ties printed as the beam phase prints them); the
+   book's ``train_model`` with its ``decode_model`` and
+   ``seq_to_seq_net`` (its encoder's two LSTMs, one reversed: 2
+   launches a step) at the chapter's widths, step 3 against eager
+   (bitwise) and the CPU and 5 steps each; a bounded ``While(max_iters=8)``
+   differentiated on the card in two cases (its body's squares averaged,
+   or summed: saturating), step 3 against eager and the CPU, and in
+   float64 on the card against the CPU.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
-line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, a
-``kernels`` line (the flash kernels once in float32 and once,
+line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
+line, a ``kernels`` line (the flash kernels once in float32 and once,
 ``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line;
 per-case detail goes to standard error.  Any failed check exits 1
 without the last line.
@@ -226,6 +249,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -989,12 +1013,23 @@ def watch_runs(exe, prog, on_run, extra_fetch=(), on_start=None):
         exe.run = real
 
 
+def beam_margin(np, pre_ids, pre_scores, scores, W, end_id):
+    """One beam step's margin: the smallest gap between neighbours among
+    the W+1 best candidate totals (pre_score + log p; a finished beam,
+    whose last id is ``end_id``, keeps its total frozen in its first
+    candidate), the smallest over sources.  Where two runs' float errors
+    exceed it, they may rightly select differently."""
+    total = pre_scores[..., None] + np.log(np.clip(scores, 1e-12, None))
+    frozen = np.full_like(total, -1e9)
+    frozen[..., 0] = pre_scores
+    total = np.where((pre_ids == end_id)[..., None], frozen, total)
+    best = -np.sort(-total.reshape(len(total), -1), axis=1)[:, :W + 1]
+    return float((best[:, :-1] - best[:, 1:]).min())
+
+
 def cpu_beam(np, gen, W, tok, lens, max_new, follow=None):
     """The CPU generator's beam over the sources, with each step's
-    margin: the smallest gap between neighbours among the W+1 best
-    candidate totals (the W-th and (W+1)-th among them), the smallest
-    over sources.  Where two runs' float errors exceed it, they may
-    rightly select differently.  With ``follow``, another run's
+    margin (``beam_margin``).  With ``follow``, another run's
     trajectory (the third item of ``beam(return_trace=True)``), each
     step hands the beam loop that run's selection in place of its own:
     the CPU decodes along that trajectory (teacher-forced) and makes
@@ -1007,14 +1042,9 @@ def cpu_beam(np, gen, W, tok, lens, max_new, follow=None):
     margins, own = [], []
 
     def on_run(feed, outs, _s):
-        pre_ids, pre_scores = feed["pre_ids"], feed["pre_scores"]
-        total = pre_scores[..., None] + np.log(
-            np.clip(np.asarray(outs[3], np.float32), 1e-12, None))
-        frozen = np.full_like(total, -1e9)
-        frozen[..., 0] = pre_scores
-        total = np.where((pre_ids == gen.end_id)[..., None], frozen, total)
-        best = -np.sort(-total.reshape(len(total), -1), axis=1)[:, :W + 1]
-        margins.append(float((best[:, :-1] - best[:, 1:]).min()))
+        margins.append(beam_margin(np, feed["pre_ids"], feed["pre_scores"],
+                                   np.asarray(outs[3], np.float32), W,
+                                   gen.end_id))
         own.append(tuple(np.asarray(x) for x in outs[:3]))
         if follow is not None:
             return [steps[len(own)] for steps in follow]
@@ -2210,6 +2240,16 @@ STEP_PARAM_ATOL = 2 * LR + 1e-6
 UPDATE_GRAD_FLOOR = 1e-2
 STEP_UPDATE_RTOL = 0.1
 UPDATE_MIN_SHARE = 0.5          # the floor must leave most elements checked
+# Adam's rule on every element: the card's update w_after - w_before
+# against the rule applied in float64 to the card's own gradient and the
+# moments and beta powers before the step, which both sides share.  The
+# card computes the rule in float32, a dozen roundings at most, each
+# within one ulp of the terms it combines (m's two terms may cancel, so
+# they bound m's error, not m itself), and rounds the weight once: so
+# within UPDATE_RULE_ULPS float32 epsilons of
+# lr_t (b1 |m'| + (1 - b1) |g|) / (sqrt(v) + eps), plus one ulp of the
+# weight.  A skipped, halved or misdirected update is off by its size.
+UPDATE_RULE_ULPS = 32
 
 
 # -- the captured step: replay against eager, card against CPU ---------------
@@ -2271,7 +2311,8 @@ def captured_step(torch, fluid, main, fetch, init, feed_of, cpu=()):
     for i in range(COMPARE_STEP - 1):
         exe.run(main, feed=feed_of(i), fetch_list=fetch, scope=scope)
     feed = feed_of(COMPARE_STEP - 1)
-    plan = BlockPlan(main.desc.global_block(), list(feed), fetch)
+    plan = BlockPlan(main.desc.global_block(), list(feed), fetch,
+                     program=main.desc)
 
     def clone(v):
         return (type(v)(v.data.clone(), v.lengths.clone())
@@ -2396,27 +2437,56 @@ def train_feed(np, batch):
             "lbl_weight": np.ones((batch, SEQ), np.float32)}
 
 
-def compare_step(torch, np, fluid, main, loss, init, feed):
+def adam_rule_excess(np, op, before, w_after, g):
+    """The card's update of one parameter against Adam's rule (``adam``
+    op ``op``) applied in float64 to its gradient ``g`` from the state
+    ``before`` the step: the largest error over the elements, in units
+    of each element's rounding allowance (UPDATE_RULE_ULPS); at most 1
+    where every element follows the rule."""
+    def st(slot):
+        return before[op.input(slot)[0]].astype(np.float64)
+
+    b1, b2 = op.attr("beta1"), op.attr("beta2")
+    eps = op.attr("epsilon")
+    g = g.astype(np.float64)
+    m1, m2 = st("Moment1"), st("Moment2")
+    m = b1 * m1 + (1 - b1) * g
+    v = b2 * m2 + (1 - b2) * g * g
+    lr_t = float(st("LearningRate").reshape(-1)[0] * np.sqrt(
+        1 - st("Beta2Pow").reshape(-1)[0])
+        / (1 - st("Beta1Pow").reshape(-1)[0]))
+    scale = lr_t / (np.sqrt(v) + eps)
+    w0 = st("Param")
+    got = w_after.astype(np.float64) - w0
+    allowed = (UPDATE_RULE_ULPS * np.finfo(np.float32).eps * scale
+               * (b1 * np.abs(m1) + (1 - b1) * np.abs(g))
+               + np.spacing(np.abs(w_after).astype(np.float32)))
+    return float((np.abs(got + scale * m) / allowed).max())
+
+
+def compare_step(torch, np, fluid, main, loss, init, feed, params=None,
+                 lr=LR):
     """Step 3 (a graph replay) on the card and the same step on the CPU
     from the card's state before it (``captured_step``): the loss, the
-    gradients, the updated weights and the updates of encoder layer 0
-    and decoder layer 0.  Returns a record of the four errors and of the
-    replay against the eager step."""
-    params = [p.name for p in main.global_block().all_parameters()
-              if p.name.startswith(("tf.enc0.", "tf.dec0."))]
+    gradients, the updated weights and the updates of ``params`` (by
+    default encoder layer 0 and decoder layer 0 of the Transformer), a
+    weight held to twice the program's Adam rate ``lr``.  Returns a
+    record of the four errors and of the replay against the eager
+    step."""
+    if params is None:
+        params = [p.name for p in main.global_block().all_parameters()
+                  if p.name.startswith(("tf.enc0.", "tf.dec0."))]
     fetch = [loss.name] + [n + "@GRAD" for n in params]
     r = captured_step(torch, fluid, main, fetch, init, lambda i: feed,
                       [(main, fetch)])
     g_card, g_cpu = r["card"], r["cpu"][0][0]
     before, w_card, w_cpu = r["before"], r["after"], r["cpu"][0][1]
-    # each parameter's Adam first moment and beta1
-    adam = {op.input("Param")[0]: (op.input("Moment1")[0],
-                                   op.attr("beta1"))
-            for op in main.global_block().ops if op.type == "adam"}
+    adam = {op.input("Param")[0]: op for op in main.global_block().ops
+            if op.type == "adam"}
     upd_err, checked, total = 0.0, 0, 0
     for n, g in zip(params, g_cpu[1:]):
         u_card, u_cpu = w_card[n] - before[n], w_cpu[n] - before[n]
-        m1, beta1 = adam[n]
+        m1, beta1 = adam[n].input("Moment1")[0], adam[n].attr("beta1")
         sure = np.abs(w_cpu[m1]) >= (UPDATE_GRAD_FLOOR * (1 - beta1)
                                      * np.abs(g).max())
         if sure.any():
@@ -2424,9 +2494,11 @@ def compare_step(torch, np, fluid, main, loss, init, feed):
                                           / np.abs(u_cpu)[sure]).max()))
         checked += int(sure.sum())
         total += g.size
+    rule_worst = max(adam_rule_excess(np, adam[n], before, w_card[n], g)
+                     for n, g in zip(params, g_card[1:]))
     return {"loss_card": float(g_card[0]), "loss_cpu": float(g_cpu[0]),
             "update_rel_err": upd_err, "update_checked_share":
-            checked / max(1, total),
+            checked / max(1, total), "update_rule_worst": rule_worst,
             "loss_rel_err": abs(float(g_card[0]) - float(g_cpu[0]))
             / abs(float(g_cpu[0])),
             "grad_rel_err": max(float(np.abs(a - b).max())
@@ -2437,7 +2509,7 @@ def compare_step(torch, np, fluid, main, loss, init, feed):
             "n_params": len(params), "replay": replay_record(r),
             "replay_ok": replay_ok(
                 r, set(before), loss.name, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
-                STEP_PARAM_ATOL)}
+                2 * lr + 1e-6)}
 
 
 def train_on_card(torch, fluid, fa, main, loss, init, feed):
@@ -3397,6 +3469,26 @@ def host_syncs_in(events, name):
                        for r in spans))
 
 
+def device_busy(events, wall_ms):
+    """The device's work among torch.profiler ``events`` over a window
+    of ``wall_ms`` on the host's clock -> (kernels {name: [device us,
+    launches]}, busy ms: the sum of their device times, which do not
+    overlap on one stream, idle share: 1 - busy / wall).  A device event
+    named as a host event is the device's copy of a host range
+    (``record_function``'s: a step's, an eager Fluid op's), not work,
+    and is left out."""
+    on_dev = ["CUDA" in str(getattr(e, "device_type", "")) for e in events]
+    host = {e.name for e, d in zip(events, on_dev) if not d}
+    kernels = {}
+    for e, d in zip(events, on_dev):
+        if d and e.name not in host:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    busy = sum(us for us, _ in kernels.values()) / 1e3
+    return kernels, busy, 1.0 - busy / wall_ms
+
+
 def zero_launch_counts():
     """Every kernel's launch count set to 0."""
     from paddle_tpu_torch.kernels import add_launches, launch_counts
@@ -4080,6 +4172,594 @@ def sparse_phase(torch, np, fluid, card):
     return rec, failures
 
 
+# -- phase 18: control flow and the seq2seq models ---------------------------
+
+# bench.py's bench_nmt_quality (bench.py:2632-2680): the attention seq2seq
+# (machine_translation.attention_*) at dict 2000, word 128, hidden 256,
+# Adam 2e-3, batch 128, beam 3, max_length 32, top-k 50 (the decoder's
+# default), decode parameters shared with training by name.  Its data
+# here: seeded reversal pairs of NMT_MIN_LEN-NMT_MAX_LEN tokens (ids 2 up;
+# 0 starts and 1 ends a target), make_seq(..., bucket=NMT_BUCKET), one
+# source of NMT_MAX_LEN tokens a batch so every batch has one signature;
+# NMT_BATCHES batches staged on the card and taken in turn
+NMT_DICT, NMT_WORD, NMT_HIDDEN, NMT_LR = 2000, 128, 256, 2e-3
+NMT_BATCH, NMT_BEAM, NMT_MAX_LEN, NMT_TOPK = 128, 3, 32, 50
+NMT_MIN_LEN, NMT_BUCKET, NMT_START, NMT_END = 8, 8, 0, 1
+NMT_STEPS, NMT_BATCHES, NMT_COMPARE_BATCH, NMT_DECODE_RUNS = 20, 4, 4, 3
+# the book's chapter 8 (fluid/tests/book/test_machine_translation.py,
+# test_rnn_encoder_decoder.py): the wmt14 dictionary's 30000 words, word
+# 16, hidden 32 (the models' defaults), beam 2, max_length 8; a few steps
+# at batch 32 on one fixed batch of 4-10 tokens
+BOOK_NMT_DICT, BOOK_NMT_BATCH, BOOK_NMT_STEPS = 30000, 32, 5
+BOOK_NMT_LEN, BOOK_NMT_BEAM, BOOK_NMT_MAX_LEN = (4, 10), 2, 8
+# the bounded While: max_iters WHILE_ITERS, 5 iterations taken, an fc of
+# width WHILE_WIDTH in the body, batch WHILE_BATCH, SGD WHILE_LR; the
+# body accumulates the mean ("mean") or the sum ("sum") of its output's
+# squares.  The sum's gradients, near 1e4, diverge SGD at this rate: by
+# step 3 the tanh units saturate, where their derivative 1 - y^2 cancels,
+# and float32 gradients lie a few percent of their largest from float64
+# ones.  So each case also runs its step eagerly in float64 from the
+# card's state before it, on the card and on the CPU: the two held to
+# LSTM_GRAD_RTOL, and in the "sum" case the card's float32 gradients no
+# farther from float64 than WHILE_NOISE_RATIO times the CPU's are.
+WHILE_ITERS, WHILE_TAKEN, WHILE_WIDTH, WHILE_BATCH = 8, 5, 256, 64
+WHILE_LR, WHILE_NOISE_RATIO = 0.1, 4.0
+# the card's and the CPU's log-probabilities of the top-k candidates at
+# a decode step whose inputs agree: float32 on both sides with TF32 off,
+# summation order only (a 2000-way softmax over 256-wide products); a
+# larger difference is a fault, not a bound for the near-tie rule
+NMT_LOGPROB_ATOL = 1e-3
+
+
+LSTM_COUNTER = "lstm/lstm_forward/launches"
+
+
+def named_launches(counts):
+    """``launch_counts()`` keyed by its paths joined with '/'."""
+    return {"/".join(map(str, k)): v for k, v in counts.items()}
+
+
+def nmt_batch(np, fluid, rng, batch, dict_size, lengths=None):
+    """Seeded reversal pairs: a source of ``lengths`` tokens (by default
+    NMT_MIN_LEN-NMT_MAX_LEN, the first row NMT_MAX_LEN), its target
+    the start id and the source reversed, the next-word target the
+    source reversed and the end id; bucketed as bench.py buckets."""
+    if lengths is None:
+        lengths = rng.randint(NMT_MIN_LEN, NMT_MAX_LEN + 1, batch)
+        lengths[0] = NMT_MAX_LEN
+    srcs = [rng.randint(2, dict_size, n) for n in lengths]
+
+    def seq(rows):
+        return fluid.make_seq(rows, dtype=np.int64, bucket=NMT_BUCKET)
+
+    return {"src": seq(srcs),
+            "trg": seq([np.concatenate([[NMT_START], s[::-1]])
+                        for s in srcs]),
+            "nxt": seq([np.concatenate([s[::-1], [NMT_END]])
+                        for s in srcs])}
+
+
+def build_nmt(fluid, model, dict_size, word, hidden, lr, beam=None,
+              max_len=None):
+    """A training program of ``model`` (machine_translation's
+    ``train_model`` or ``attention_train_model``, or
+    rnn_encoder_decoder's ``seq_to_seq_net``) with Adam, and, given
+    ``beam``, its beam decoder over the same weights, pruned to its
+    outputs.  -> (main, startup, loss, (decode program, ids, scores) or
+    None)."""
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.models import rnn_encoder_decoder as red
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        src, trg, nxt = [fluid.layers.data(name=n, shape=[1], dtype="int64",
+                                           lod_level=1)
+                         for n in ("src", "trg", "nxt")]
+        if model == "seq_to_seq_net":
+            loss, _ = red.seq_to_seq_net(src, trg, nxt, dict_size,
+                                         dict_size, embedding_dim=word,
+                                         encoder_size=hidden,
+                                         decoder_size=hidden)
+        else:
+            loss, _ = getattr(mt, model)(src, trg, nxt, dict_size,
+                                         word_dim=word, hidden_dim=hidden)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+        decode = None
+        if beam is not None:
+            dec = (mt.attention_decode_model if model.startswith(
+                "attention") else mt.decode_model)
+            ids, scores = dec(src, dict_size, word_dim=word,
+                              hidden_dim=hidden, beam_size=beam,
+                              topk_size=NMT_TOPK, max_length=max_len,
+                              start_id=NMT_START, end_id=NMT_END)
+            decode = (fluid.io.prune_program(main, [ids, scores]), ids,
+                      scores)
+    return main, startup, loss, decode
+
+
+def nmt_step_ok(step, lr):
+    """Step 3 replayed bitwise against the eager step, card vs CPU port
+    at the Transformer's float32 limits (PERF.md section 2) with this
+    program's rate, and every element's update held to Adam's rule on
+    the card's gradient (``update_rule_worst``).  The Transformer's
+    floor on the share of elements its relative update check covers
+    does not apply: these programs' gradients span orders of magnitude
+    between the vocabulary projection and the rest, and the vocabulary
+    rows this batch leaves out have none (measured on an H100: 0.21 of
+    the attention model's elements, 0.003-0.01 of the book models'
+    reach that check's floor); the rule's check covers them all."""
+    return (step["replay"]["bitwise"]
+            and step["loss_rel_err"] <= STEP_LOSS_RTOL
+            and step["grad_rel_err"] <= STEP_GRAD_RTOL
+            and step["param_max_abs_err"] <= 2 * lr + 1e-6
+            and step["update_rel_err"] <= STEP_UPDATE_RTOL
+            and step["update_rule_worst"] <= 1.0)
+
+
+def train_nmt(torch, np, fluid, main, loss, init, feeds, steps):
+    """A seq2seq training path: ``steps`` steps of ``Executor.run`` on
+    the card over ``feeds`` (staged on the card, taken in turn; one
+    signature), every kernel's launch count set to 0 just before and
+    read just after, then SYNC_STEPS more steps profiled for the host
+    syncs a replayed step makes, and REPLAY_TIMES replays of the graph
+    between CUDA events for the device's time a step.  -> (record,
+    scope)."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    dev = torch.device("cuda", 0)
+    scope = fluid.scope_from_numpy(init, fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    staged = [device_feed(torch, f, dev) for f in feeds]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    zero_launch_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=staged[i % len(staged)], fetch_list=[loss],
+                      scope=scope)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+    launches = named_launches(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = exe.cache_stats()["executable"]
+    syncs = host_syncs_per_step(torch, lambda: exe.run(
+        main, feed=staged[-1], fetch_list=[loss], scope=scope))
+    device = replay_ms(torch, exe) if exe.graphs() else None
+    steady = statistics.median(times[1:])
+    # the real target tokens a batch (next words, the end id included)
+    tokens = statistics.mean(int(np.asarray(f["nxt"].lengths).sum())
+                             for f in feeds)
+    rec = {"batch": int(np.asarray(feeds[0]["src"].lengths).shape[0]),
+           "steps": steps, "losses": losses,
+           "first_step_ms": times[0] * 1e3, "step_ms_median": steady * 1e3,
+           "device_ms": device,
+           "host_share": (1 - device / (steady * 1e3)
+                          if device is not None else None),
+           "target_tokens_per_batch": tokens,
+           "target_tokens_per_s": tokens / steady,
+           "padded_target_len": int(np.asarray(feeds[0]["nxt"].data)
+                                    .shape[1]),
+           "resident_gib": resident, "peak_mem_gib": peak,
+           "peak_over_resident_gib": peak - resident, "executable": stats,
+           "executable_hits": stats["hits"], "graph": step_graph(exe),
+           "host_syncs_per_step": syncs,
+           "lstm_launches": launches.pop(LSTM_COUNTER, 0),
+           "other_kernel_launches": sum(launches.values())}
+    rec["lstm_launches_per_step"] = rec["lstm_launches"] / steps
+    del exe, staged
+    return rec, scope
+
+
+def nmt_train_failures(path, rec, lstm_per_step):
+    """``steps - 1`` hits, one graph whose kernel nodes of this repo are
+    ``lstm_per_step`` lstm_fwd nodes, that many launches a step, one
+    host sync a replayed step, finite losses falling (the mean of the
+    last 5 below the first 5; the last below the first on a run shorter
+    than 10)."""
+    out = graph_failures(path, rec, rec["steps"],
+                         {"lstm_fwd": lstm_per_step})
+    if rec["lstm_launches"] != lstm_per_step * rec["steps"] \
+            or rec["other_kernel_launches"]:
+        out.append(f"{path}: {rec['lstm_launches']} lstm_fwd launches in "
+                   f"{rec['steps']} steps, want {lstm_per_step} a step, "
+                   f"and {rec['other_kernel_launches']} of other kernels, "
+                   f"want 0")
+    if rec["host_syncs_per_step"] != 1:
+        out.append(f"{path}: {rec['host_syncs_per_step']} host syncs a "
+                   f"step, want 1 (the fetch)")
+    ls = rec["losses"]
+    k = 5 if len(ls) >= 10 else 1
+    if not (all(math.isfinite(x) for x in ls)
+            and sum(ls[-k:]) / k < sum(ls[:k]) / k):
+        out.append(f"{path}: loss did not fall: {ls}")
+    return out
+
+
+@contextlib.contextmanager
+def beam_steps_recorded(torch):
+    """While active, each ``beam_search`` op records its inputs and
+    outputs (device clones: no host read in the loop) -> the list of
+    steps, as numpy after the block."""
+    from paddle_tpu_torch.fluid.core.registry import get_op_info
+
+    info = get_op_info("beam_search")
+    real, steps = info.emit, []
+
+    def emit(ctx, ins):
+        outs = real(ctx, ins)
+        steps.append({k: v[0].detach().clone() for k, v in
+                      list(ins.items()) + list(outs.items())})
+        return outs
+
+    info.emit = emit
+    try:
+        yield steps
+    finally:
+        info.emit = real
+        for s in steps:
+            for k in s:
+                s[k] = s[k].float().cpu().numpy() if s[k].is_floating_point() \
+                    else s[k].cpu().numpy()
+
+
+def decode_on(torch, np, fluid, prog, ids, scores, place, scope, src):
+    """One decode of ``src`` with each step's beam_search recorded ->
+    ((ids, scores, (step ids, step scores, step parents), index 0 the
+    start), the recorded steps)."""
+    exe = fluid.Executor(place)
+    with beam_steps_recorded(torch) as steps:
+        got_ids, got_sc = exe.run(prog, feed={"src": src},
+                                  fetch_list=[ids, scores], scope=scope,
+                                  mode="infer")
+    first = steps[0]
+    trace = ([first["pre_ids"]] + [s["selected_ids"] for s in steps],
+             [first["pre_scores"]] + [s["selected_scores"] for s in steps],
+             [np.zeros_like(first["pre_ids"])]
+             + [s["parent_idx"] for s in steps])
+    return (got_ids, got_sc, trace), steps
+
+
+def decode_compare(torch, np, fluid, prog, ids, scores, card_scope, src, W):
+    """The card's decode against the CPU port's from the card's weights,
+    step by step (``compare_beams``: ids and parents equal, scores within
+    1e-4 relative, the same backtrace; a difference at a step whose
+    margin, the CPU run's, lies within the float error is a near tie,
+    printed, and ends the comparison).  A step's float error is the
+    largest difference of the two runs' top-k log-probabilities over the
+    steps whose inputs agree, held to NMT_LOGPROB_ATOL.  -> record."""
+    names = [n for n, v in prog.global_block().vars.items()
+             if v.persistable and card_scope.find_var(n) is not None]
+    cpu_scope = fluid.scope_from_numpy(
+        fluid.scope_to_numpy(card_scope, names), fluid.CPUPlace())
+    card, card_steps = decode_on(torch, np, fluid, prog, ids, scores,
+                                 fluid.CUDAPlace(0), card_scope, src)
+    cpu, cpu_steps = decode_on(torch, np, fluid, prog, ids, scores,
+                               fluid.CPUPlace(), cpu_scope, src)
+    err = 0.0
+    for a, b in zip(card_steps, cpu_steps):
+        err = max(err, float(np.abs(
+            np.log(np.clip(a["scores"], 1e-12, None))
+            - np.log(np.clip(b["scores"], 1e-12, None))).max()))
+        if not (np.array_equal(a["selected_ids"], b["selected_ids"])
+                and np.array_equal(a["parent_idx"], b["parent_idx"])):
+            break                   # the next step's inputs differ
+    margins = [beam_margin(np, s["pre_ids"], s["pre_scores"], s["scores"],
+                           W, NMT_END) for s in cpu_steps]
+    # compare_beams takes a logit error, twice which bounds a step's
+    # log-probability error: the measured one, halved
+    rec = compare_beams(np, card, cpu, margins, "float32", err / 2)
+    rec.update(logprob_err=err, iterations=len(card_steps),
+               cpu_iterations=len(cpu_steps))
+    rec["ok"] = (rec["ok"] and err <= NMT_LOGPROB_ATOL
+                 and len(card_steps) == len(cpu_steps))
+    return rec
+
+
+def profiled_call(torch, fn):
+    """One call of ``fn`` under torch.profiler, inside a named range ->
+    {the host's synchronize calls inside it, its wall ms, the device's
+    busy ms and idle share over it (``device_busy``), the kernels run
+    and the five that took longest in all}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name = "chip_smoke/call"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(name):
+            t0 = time.perf_counter()
+            fn()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    kernels, busy, idle = device_busy(events, wall)
+    short = defaultdict(float)          # names cut to 80 characters
+    for k, (us, _) in kernels.items():
+        short[k[:80]] += us / 1e3
+    return {"host_syncs": host_syncs_in(events, name), "wall_ms": wall,
+            "device_busy_ms": busy, "device_idle_share": idle,
+            "kernels": sum(n for _, n in kernels.values()),
+            "top_kernels_ms": dict(sorted(short.items(),
+                                          key=lambda kv: -kv[1])[:5])}
+
+
+def decode_timing(torch, fluid, prog, ids, scores, scope, src, runs):
+    """``runs`` + 1 decodes of ``src`` on the card through one executor
+    (the first a miss, run eagerly as every call of a host-driven loop
+    is; the others hits), every kernel's launch count set to 0 just
+    before and read just after, the loops' iterations and condition
+    reads counted, then one more profiled for its host syncs, the
+    device's busy time and idle share (both over that profiled call)
+    and kernels.  -> record."""
+    from paddle_tpu_torch.fluid.ops.control_flow_ops import HOST_LOOP
+    from paddle_tpu_torch.kernels import launch_counts
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    staged = device_feed(torch, {"src": src}, torch.device("cuda", 0))
+
+    def run():
+        return exe.run(prog, feed=staged, fetch_list=[ids, scores],
+                       scope=scope, mode="infer")
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    HOST_LOOP.update(iterations=0, reads=0)
+    times = []
+    for _ in range(runs + 1):
+        t0 = time.perf_counter()
+        run()                   # numpy fetches: the decode is done
+        times.append(time.perf_counter() - t0)
+    launches = named_launches(launch_counts())
+    loops = dict(HOST_LOOP)
+    stats = exe.cache_stats()["executable"]
+    prof = profiled_call(torch, run)
+    syncs = prof["host_syncs"]
+    iters = loops["iterations"] / (runs + 1)
+    return {"sources": int(staged["src"].lengths.shape[0]),
+            "first_ms": times[0] * 1e3,
+            "ms_per_batch": statistics.median(times[1:]) * 1e3,
+            "ms_runs": [t * 1e3 for t in times[1:]],
+            "profiled": prof, "device_idle_share": prof["device_idle_share"],
+            "iterations_per_decode": iters,
+            "condition_reads_per_decode": loops["reads"] / (runs + 1),
+            "host_syncs_per_decode": syncs,
+            "host_syncs_per_iteration": syncs / iters if iters else None,
+            "executable": stats, "graphs": len(exe.graphs()),
+            "lstm_launches": launches[LSTM_COUNTER],
+            "lstm_launches_per_decode": launches[LSTM_COUNTER] / (runs + 1),
+            "other_kernel_launches": sum(launches.values())
+            - launches[LSTM_COUNTER]}
+
+
+def bounded_while_program(fluid, reduce):
+    """A While with max_iters (WHILE_TAKEN iterations of WHILE_ITERS
+    taken) whose body applies an fc and accumulates the ``reduce``
+    ("mean" or "sum") of its output's squares, under SGD -> (main,
+    startup, loss, fetch names)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data(name="x", shape=[WHILE_WIDTH], dtype="float32")
+        i = layers.fill_constant(shape=[1], dtype="int64", value=0)
+        n = layers.fill_constant(shape=[1], dtype="int64",
+                                 value=WHILE_TAKEN)
+        i.stop_gradient = n.stop_gradient = True
+        h = layers.fc(input=x, size=WHILE_WIDTH, act="tanh")
+        acc = layers.fill_constant(shape=[1], dtype="float32", value=0.0)
+        cond = layers.less_than(x=i, y=n)
+        loop = layers.While(cond=cond, max_iters=WHILE_ITERS)
+        with loop.block():
+            nh = layers.fc(input=h, size=WHILE_WIDTH, act="tanh",
+                           param_attr=fluid.ParamAttr(name="while_fc.w"))
+            layers.assign(nh, h)
+            sq = layers.square(nh)
+            layers.assign(layers.elementwise_add(
+                x=acc, y=(layers.mean(sq) if reduce == "mean"
+                          else layers.reduce_sum(sq))), acc)
+            layers.increment(x=i, in_place=True)
+            layers.less_than(x=i, y=n, cond=cond)
+        loss = layers.mean(acc)
+        fluid.optimizer.SGD(learning_rate=WHILE_LR).minimize(loss)
+    params = [p.name for p in main.global_block().all_parameters()]
+    return main, startup, loss, [loss.name] + [p + "@GRAD" for p in params]
+
+
+def eager_step(torch, np, main, fetch, state, feed, device, dtype):
+    """Step COMPARE_STEP of ``main`` run eagerly
+    (``lowering.run_block_ops``) on ``device`` from the numpy ``state``,
+    its floating values and ``feed`` in ``dtype`` -> the fetches, as
+    float64 arrays.  (An accumulator the program fills in float32 stays
+    float32: its gradient, an exact 1, is all that passes through it.)"""
+    from paddle_tpu_torch.fluid.lowering import (BlockPlan, run_block_ops,
+                                                 seed_tensor, step_seeds)
+
+    plan = BlockPlan(main.desc.global_block(), list(feed), fetch,
+                     program=main.desc)
+
+    def put(a):
+        t = torch.from_numpy(np.array(a))
+        return t.to(device, dtype if t.is_floating_point() else torch.int32)
+
+    env = {n: put(state[n]) for n in plan.state_in}
+    env.update({k: put(v) for k, v in feed.items()})
+    seeds = step_seeds(plan, main.random_seed, COMPARE_STEP)
+    with torch.no_grad():
+        run_block_ops(plan, env, seeds, seed_tensor(seeds).to(device),
+                      device, "train")
+    return [env[n].double().cpu().numpy() for n in fetch]
+
+
+def grad_gap(np, got, want):
+    """The largest gradient error, each relative to its gradient's
+    largest magnitude (the fetches after the loss)."""
+    return max(_max_rel(np, a, b) for a, b in zip(got[1:], want[1:]))
+
+
+def bounded_while_check(torch, np, fluid, reduce):
+    """The bounded While on the card (``bounded_while_program``): step 3
+    (a replay) against the eager step and the CPU port in float32, one
+    graph, two hits; the same step eagerly in float64 from the card's
+    state before it, on the card and on the CPU, and each float32 run's
+    gradients against the CPU's float64 ones.  Held: the loss 1e-5
+    relative, the float64 runs each gradient 1e-4 of its largest, and
+    the float32 gradients card vs CPU at the same limit ("mean"), or no
+    farther from float64 than WHILE_NOISE_RATIO times the CPU's ("sum":
+    saturated, see WHILE_NOISE_RATIO).  -> (record, ok)."""
+    main, startup, loss, fetch = bounded_while_program(fluid, reduce)
+    init = initial_scope(fluid, startup)
+    rng = np.random.RandomState(SEED)
+    feed = {"x": rng.randn(WHILE_BATCH, WHILE_WIDTH).astype(np.float32)}
+    r = captured_step(torch, fluid, main, fetch, init, lambda i: feed,
+                      [(main, fetch)])
+    card, cpu = r["card"], r["cpu"][0][0]
+    card64, cpu64 = (eager_step(torch, np, main, fetch, r["before"], feed,
+                                dev, torch.float64)
+                     for dev in (torch.device("cuda", 0),
+                                 torch.device("cpu")))
+    rec = {"reduce": reduce, "loss_card": float(card[0]),
+           "loss_cpu": float(cpu[0]),
+           "loss_rel_err": abs(float(card[0]) - float(cpu[0]))
+           / abs(float(cpu[0])),
+           "grad_rel_err": grad_gap(np, card, cpu),
+           "grad_rel_err_float64": grad_gap(np, card64, cpu64),
+           "card_float32_vs_float64": grad_gap(np, card, cpu64),
+           "cpu_float32_vs_float64": grad_gap(np, cpu, cpu64),
+           "n_grads": len(fetch) - 1, "replay": replay_record(r)}
+    f32_ok = (rec["grad_rel_err"] <= LSTM_GRAD_RTOL if reduce == "mean"
+              else rec["card_float32_vs_float64"]
+              <= WHILE_NOISE_RATIO * rec["cpu_float32_vs_float64"]
+              + LSTM_GRAD_RTOL)
+    ok = (rec["loss_rel_err"] <= LSTM_LOSS_RTOL and f32_ok
+          and rec["grad_rel_err_float64"] <= LSTM_GRAD_RTOL
+          and r["hits"] == COMPARE_STEP - 1
+          and replay_ok(r, set(init), loss.name, LSTM_LOSS_RTOL,
+                        LSTM_GRAD_RTOL, 2 * WHILE_LR + 1e-6))
+    return rec, ok
+
+
+def nmt_phase(torch, np, fluid, card):
+    """Phase 18: the attention seq2seq at bench_nmt_quality's width
+    (step 3 card vs CPU and vs eager at NMT_COMPARE_BATCH rows, NMT_STEPS
+    steps at NMT_BATCH, the beam decode of NMT_BATCH sources on the
+    trained weights against the CPU port, timed), the book's
+    ``train_model`` / ``decode_model`` and ``seq_to_seq_net`` at the
+    chapter's widths, and a bounded While differentiated on the card.
+    -> (the ``nmt`` record, lstm_fwd launches of the training runs and
+    the timed decodes, failures)."""
+    t0 = time.perf_counter()
+    fails, launches = [], 0
+    rec = {"card": card, "config": {
+        "dict": NMT_DICT, "word_dim": NMT_WORD, "hidden_dim": NMT_HIDDEN,
+        "lr": NMT_LR, "batch": NMT_BATCH, "beam": NMT_BEAM,
+        "max_length": NMT_MAX_LEN, "topk": NMT_TOPK}}
+
+    # -- the attention seq2seq: step 3, then NMT_STEPS steps
+    main, startup, loss, (dec, ids, scores) = build_nmt(
+        fluid, "attention_train_model", NMT_DICT, NMT_WORD, NMT_HIDDEN,
+        NMT_LR, NMT_BEAM, NMT_MAX_LEN)
+    init = initial_scope(fluid, startup)
+    rng = np.random.RandomState(SEED + 18)
+    feeds = [nmt_batch(np, fluid, rng, NMT_BATCH, NMT_DICT)
+             for _ in range(NMT_BATCHES)]
+    small = nmt_batch(np, fluid, np.random.RandomState(SEED + 19),
+                      NMT_COMPARE_BATCH, NMT_DICT)
+    params = [p.name for p in main.global_block().all_parameters()]
+    step = compare_step(torch, np, fluid, main, loss, init, small, params,
+                        NMT_LR)
+    log(f"nmt attention step {COMPARE_STEP} card vs CPU and replay vs "
+        f"eager: {json.dumps(step)}")
+    if not nmt_step_ok(step, NMT_LR):
+        fails.append(f"nmt attention step {COMPARE_STEP}: {step}")
+    train, scope = train_nmt(torch, np, fluid, main, loss, init, feeds,
+                             NMT_STEPS)
+    train["compare"] = step
+    fails += nmt_train_failures("nmt attention", train, 1)
+    launches += train["lstm_launches"]
+    rec["attention_train"] = train
+    log(f"nmt attention training: {json.dumps(train)}")
+
+    # -- the beam decode in a While on the trained weights
+    src = nmt_batch(np, fluid, np.random.RandomState(SEED + 20), NMT_BATCH,
+                    NMT_DICT)["src"]
+    timing = decode_timing(torch, fluid, dec, ids, scores, scope, src,
+                           NMT_DECODE_RUNS)
+    rec["attention_decode"] = timing
+    launches += timing["lstm_launches"]
+    log(f"nmt attention decode: {json.dumps(timing)}")
+    runs = NMT_DECODE_RUNS + 1
+    if timing["executable"]["misses"] != 1 \
+            or timing["executable"]["hits"] != runs - 1 \
+            or timing["graphs"] != 0 \
+            or timing["lstm_launches"] != runs \
+            or timing["other_kernel_launches"] \
+            or timing["iterations_per_decode"] != NMT_MAX_LEN \
+            or timing["condition_reads_per_decode"] != NMT_MAX_LEN + 1 \
+            or timing["host_syncs_per_decode"] != NMT_MAX_LEN + 2:
+        fails.append(f"nmt attention decode: {timing}; want one miss, a "
+                     f"hit a later call, no graph, one lstm_fwd launch, "
+                     f"{NMT_MAX_LEN} iterations and {NMT_MAX_LEN + 2} host "
+                     f"syncs a decode (a condition read an iteration, one "
+                     f"to stop, the fetch)")
+    cmp_ = decode_compare(torch, np, fluid, dec, ids, scores, scope, src,
+                          NMT_BEAM)
+    rec["attention_decode_vs_cpu"] = cmp_
+    log(f"nmt attention decode card vs CPU "
+        f"{'ok  ' if cmp_['ok'] else 'FAIL'}: {json.dumps(cmp_)}")
+    if not cmp_["ok"]:
+        fails.append(f"nmt attention decode card vs CPU: {cmp_}")
+    del scope, init, feeds
+    torch.cuda.empty_cache()
+
+    # -- the book's other two models at the chapter's widths
+    for model, n_lstm in (("train_model", 1), ("seq_to_seq_net", 2)):
+        main, startup, loss, decode = build_nmt(
+            fluid, model, BOOK_NMT_DICT, 16, 32, NMT_LR,
+            BOOK_NMT_BEAM if model == "train_model" else None,
+            BOOK_NMT_MAX_LEN)
+        init = initial_scope(fluid, startup)
+        rng = np.random.RandomState(SEED + 21)
+        feed = nmt_batch(np, fluid, rng, BOOK_NMT_BATCH, BOOK_NMT_DICT,
+                         rng.randint(*BOOK_NMT_LEN, BOOK_NMT_BATCH))
+        small = {k: fluid.make_seq(
+            [v.data[i, :v.lengths[i]] for i in range(NMT_COMPARE_BATCH)],
+            dtype=np.int64, bucket=NMT_BUCKET) for k, v in feed.items()}
+        params = [p.name for p in main.global_block().all_parameters()]
+        step = compare_step(torch, np, fluid, main, loss, init, small,
+                            params, NMT_LR)
+        if not nmt_step_ok(step, NMT_LR):
+            fails.append(f"nmt {model} step {COMPARE_STEP}: {step}")
+        run, scope = train_nmt(torch, np, fluid, main, loss, init, [feed],
+                               BOOK_NMT_STEPS)
+        run["compare"] = step
+        fails += nmt_train_failures(f"nmt {model}", run, n_lstm)
+        launches += run["lstm_launches"]
+        if decode is not None:
+            run["decode_vs_cpu"] = decode_compare(
+                torch, np, fluid, *decode, scope, feed["src"],
+                BOOK_NMT_BEAM)
+            if not run["decode_vs_cpu"]["ok"]:
+                fails.append(f"nmt decode_model card vs CPU: "
+                             f"{run['decode_vs_cpu']}")
+        rec[model] = run
+        log(f"nmt {model}: {json.dumps(run)}")
+        del scope
+        torch.cuda.empty_cache()
+
+    # -- a bounded While, differentiated on the card
+    rec["bounded_while"] = {}
+    for reduce in ("mean", "sum"):
+        got, ok = bounded_while_check(torch, np, fluid, reduce)
+        rec["bounded_while"][reduce] = got
+        log(f"nmt bounded While ({reduce}) {'ok  ' if ok else 'FAIL'}: "
+            f"{json.dumps(got)}")
+        if not ok:
+            fails.append(f"bounded While ({reduce}) on the card: {got}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, launches, fails
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4620,6 +5300,15 @@ def main() -> int:
     failures += sparse_fails
     log(f"sparse phase ({sparse['seconds']:.1f}s)")
 
+    # -- control flow and the seq2seq models: the LSTM kernel in each
+    # encoder, the decode loop driven from the host
+    torch.cuda.empty_cache()
+    nmt, nmt_launches, nmt_fails = nmt_phase(torch, np, fluid, card)
+    failures += nmt_fails
+    lstm_entry["launches"] += nmt_launches
+    lstm_entry["launches_seq2seq"] = nmt_launches
+    log(f"nmt phase ({nmt['seconds']:.1f}s)")
+
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
@@ -4629,6 +5318,7 @@ def main() -> int:
     print(json.dumps({"lstm": lstm_rec}), flush=True)
     print(json.dumps({"image": image}), flush=True)
     print(json.dumps({"sparse": sparse}), flush=True)
+    print(json.dumps({"nmt": nmt}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

@@ -55,16 +55,23 @@ class EmitCtx:
     input: a captured step reads it at each replay.  An op registered
     with ``host_rng=True`` draws on the host and gets a Python int.  The
     seed is None where no draw may happen, as in shape inference.
+
+    ``lower_block(idx, env) -> env`` runs sub-block ``idx`` over the
+    name -> value map ``env`` (the control-flow ops' hook into the
+    lowering, as in the reference); None where no block may run, as in
+    shape inference.
     """
 
-    __slots__ = ("op", "attrs", "seed", "device", "mode")
+    __slots__ = ("op", "attrs", "seed", "device", "lower_block", "mode")
 
     def __init__(self, op, seed: Optional[int] = None,
-                 device: Optional[torch.device] = None, mode: str = "train"):
+                 device: Optional[torch.device] = None,
+                 lower_block: Optional[Callable] = None, mode: str = "train"):
         self.op = op
         self.attrs = op.attrs
         self.seed = seed
         self.device = torch.device("cpu") if device is None else device
+        self.lower_block = lower_block
         self.mode = mode                # "train" | "infer"
 
     def attr(self, name: str, default: Any = None) -> Any:

@@ -50,8 +50,24 @@ host cannot be captured: the eager step runs under
 naming its op.  A program that holds an op drawing on the host
 (``host_rng``: ``uniform_random``, ``gaussian_random``, which startup
 programs hold) runs eagerly at its first call and raises at its second
-on the card: a replay would repeat the first draw.  Nothing on the card
-runs eagerly in a graph's place.
+on the card: a replay would repeat the first draw.
+
+Control flow (``ops/control_flow_ops.py``).  A captured CUDA graph
+holds a fixed sequence of launches, so it cannot hold a trip count the
+data decides.  A step whose loops all have static trip counts (a
+``while`` with ``max_iters``, ``recurrent`` and ``dynamic_recurrent``
+over the padded time axis, ``conditional_block`` as a device select)
+is captured like any other: a training step with a ``DynamicRNN`` is
+one graph replay after its first run.  A step holding a ``while``
+without ``max_iters`` (a beam-search decode loop) runs eagerly on the
+card at every call, its entry cached like any other (a hit a call after
+the first, as the reference's executor counts it): the host drives the
+loop and reads the condition once per iteration, the only host sync the
+sync guard lets through (``control_flow_ops.read_condition``; a read
+under capture raises).  Such a step never runs on the CPU in the card's
+place.  Replaying the loop's body as a captured graph of its own per
+signature is the lever to measure next.  Nothing else on the card runs
+eagerly in a graph's place.
 
 ``Executor(CPUPlace())`` runs on the CPU, as the tests do, with the same
 caches, buffers and copies, and the step run eagerly where the card
@@ -449,7 +465,7 @@ class Executor:
             return plan
         self._stats["structure"]["misses"] += 1
         plan = BlockPlan(program.desc.global_block(), feed_names,
-                         fetch_names)
+                         fetch_names, program=program.desc)
         self._cls_cache[key] = plan
         while len(self._cls_cache) > self.CACHE_CAPACITY:
             self._cls_cache.popitem(last=False)
@@ -582,7 +598,8 @@ class Executor:
         # the eager step's intermediates go before the capture makes its
         # own, so the peak holds one step's activations, not two
         del env
-        if dev.type == "cuda" and not plan.host_rng_ops:
+        if dev.type == "cuda" and not plan.host_rng_ops \
+                and not plan.host_loops:
             self._capture(entry)
         self._publish(entry, scope, out=False)
         return entry, fetches
@@ -660,6 +677,11 @@ class Executor:
         if entry.graph is not None:
             entry.graph.replay()
             add_launches(entry.launches)
+        elif self.device.type == "cuda":
+            # a step whose loop the host drives: eager on the card, and
+            # still no host sync but the loops' condition reads
+            with _sync_errors():
+                self._body(entry)
         else:
             self._body(entry)
         self._publish(entry, scope)

@@ -380,6 +380,20 @@ class Program:
     def global_block(self) -> Block:
         return self.blocks[0]
 
+    def create_block(self) -> Block:
+        """A new block whose parent is the current one; it becomes the
+        current block (a control-flow layer builds its body there, and
+        its ops resolve the parent's vars through ``Block.var``)."""
+        bd = self.desc.append_block(self._current_block_idx)
+        b = Block(self, bd)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
+
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
 

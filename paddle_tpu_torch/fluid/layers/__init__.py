@@ -1,9 +1,12 @@
 """fluid.layers — the port of ``paddle_tpu/fluid/layers``, cut to the
-layers the Transformer, the LSTM text classifiers, the book's first
-three chapters and the reference's image benchmarks build.  Control
-flow and the tensor-creation layers are not ported."""
+layers the Transformer, the LSTM text classifiers, the book's chapters
+through machine translation (control flow: While, StaticRNN,
+DynamicRNN, Switch, IfElse and the tensor arrays) and the reference's
+image benchmarks build."""
 
-from . import io, nn, ops, recurrent, sequence, tensor  # noqa: F401
+from . import (control_flow, io, nn, ops, recurrent,  # noqa: F401
+               sequence, tensor)
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

@@ -4,8 +4,10 @@ attention), the paged and dense serving steps and beam search, the LSTM
 text classifiers, the book's chapters (``models/fit_a_line``,
 ``models/recognize_digits``, ``models/image_classification``,
 ``models/word2vec``, ``models/recommender``), the reference's image
-benchmarks (``models/benchmark_nets``) and CTR wide&deep
-(``models/ctr``) build.  Each
+benchmarks (``models/benchmark_nets``), CTR wide&deep
+(``models/ctr``) and the seq2seq models (``models/machine_translation``,
+``models/rnn_encoder_decoder``: ``squeeze``, ``unsqueeze``, ``expand``)
+build.  Each
 layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
@@ -22,7 +24,7 @@ __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "softmax_with_cross_entropy", "square_error_cost",
            "sigmoid_cross_entropy_with_logits", "cos_sim", "conv2d",
            "pool2d", "batch_norm", "layer_norm", "lrn", "reduce_sum",
-           "reshape", "transpose",
+           "reshape", "transpose", "squeeze", "unsqueeze", "expand",
            "matmul", "topk", "beam_search", "beam_search_decode",
            "batch_gather", "fused_attention", "fused_vocab_cross_entropy",
            "decode_attention", "ragged_decode_attention"]
@@ -346,6 +348,33 @@ def transpose(x, perm, name=None):
     out = helper.create_tmp_variable(x.dtype)
     helper.append_op("transpose", {"X": x}, {"Out": out},
                      {"axis": list(perm)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    """Drop the size-1 dims at ``axes``."""
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("squeeze", {"X": input}, {"Out": out},
+                     {"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    """Insert size-1 dims at ``axes``."""
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("unsqueeze", {"X": input}, {"Out": out},
+                     {"axes": list(axes)})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    """Tile each dim ``expand_times[i]`` times."""
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("expand", {"X": x}, {"Out": out},
+                     {"expand_times": list(expand_times)})
     return out
 
 

@@ -1,13 +1,13 @@
 """Sequence layers — the port of ``paddle_tpu/fluid/layers/sequence.py``,
 cut to ``sequence_conv``, ``sequence_pool`` and its first / last step
-forms."""
+forms, ``sequence_expand`` and ``sequence_pad``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
-           "sequence_last_step"]
+           "sequence_last_step", "sequence_expand", "sequence_pad"]
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
@@ -52,3 +52,22 @@ def sequence_first_step(input):
 
 def sequence_last_step(input):
     return sequence_pool(input, "last")
+
+
+def sequence_expand(x, y, name=None):
+    """Each row of ``x`` broadcast across the steps of ``y``'s sequence
+    in that row."""
+    helper = LayerHelper("sequence_expand", name=name)
+    out = helper.create_tmp_variable(x.dtype, lod_level=1)
+    helper.append_op("sequence_expand", {"X": x, "Y": y}, {"Out": out})
+    return out
+
+
+def sequence_pad(x, name=None):
+    """A sequence batch as (dense [B, T, ...], mask [B, T]): the bridge
+    to dense ops over padded data."""
+    helper = LayerHelper("sequence_pad", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op("sequence_pad", {"X": x}, {"Out": out, "Mask": mask})
+    return out, mask

@@ -1,16 +1,18 @@
 """Tensor layers — the port of ``paddle_tpu/fluid/layers/tensor.py``,
 cut to ``create_global_var``, ``fill_constant`` (the learning-rate
-schedules' constants), ``concat``, ``assign``, ``cast``, ``argmax``,
-the dense and paged KV-cache writes and the copy-on-write page copy;
-the other creation layers and the KV-tier transfer layers are not
+schedules' constants), ``fill_constant_batch_size_like``, ``zeros``,
+``ones``, ``concat``, ``sums``, ``assign``, ``cast``, ``argmax``, the
+dense and paged KV-cache writes and the copy-on-write page copy; the
+other creation layers and the KV-tier transfer layers are not
 ported."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "fill_constant", "concat", "assign",
-           "cast", "argmax", "cache_write",
+__all__ = ["create_global_var", "fill_constant",
+           "fill_constant_batch_size_like", "zeros", "ones", "concat",
+           "sums", "assign", "cast", "argmax", "cache_write",
            "paged_cache_write", "quantized_paged_cache_write",
            "paged_page_copy"]
 
@@ -34,11 +36,42 @@ def fill_constant(shape, dtype, value, out=None, name=None):
     return out
 
 
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  name=None):
+    """A constant whose ``output_dim_idx`` dim is ``input``'s
+    ``input_dim_idx`` dim at run time."""
+    helper = LayerHelper("fill_constant_batch_size_like", name=name)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("fill_constant_batch_size_like", {"Input": input},
+                     {"Out": out},
+                     {"shape": list(shape), "dtype": dtype,
+                      "value": float(value), "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx})
+    return out
+
+
+def zeros(shape, dtype, name=None):
+    return fill_constant(shape, dtype, 0.0, name=name)
+
+
+def ones(shape, dtype, name=None):
+    return fill_constant(shape, dtype, 1.0, name=name)
+
+
 def concat(input, axis=0, name=None):
     """The inputs joined along ``axis`` (``ops/tensor_ops.concat``)."""
     helper = LayerHelper("concat", name=name, input=input)
     out = helper.create_tmp_variable(helper.input_dtype())
     helper.append_op("concat", {"X": input}, {"Out": out}, {"axis": axis})
+    return out
+
+
+def sums(input, out=None):
+    """The elementwise sum of the inputs (the ``sum`` op)."""
+    helper = LayerHelper("sums", input=input)
+    out = out or helper.create_tmp_variable(helper.input_dtype())
+    helper.append_op("sum", {"X": input}, {"Out": out})
     return out
 
 

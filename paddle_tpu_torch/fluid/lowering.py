@@ -17,6 +17,15 @@ does neither by itself, so ``BlockPlan`` does both from the desc alone:
   ``fused_attention`` launches its forward kernel once per step and its
   grad op launches the dq and dk/dv kernels.
 
+Sub-blocks: an op of a control-flow family (``while``, ``recurrent``,
+``dynamic_recurrent``, ``conditional_block``) names a sub-block, which
+its emitter runs through ``EmitCtx.lower_block``: every op of the
+sub-block in order, into a copy of the map it is given, with no
+dead-code elimination inside, as the reference traces it.  Nested
+blocks go through the same hook.  Such an op with a ``*_grad`` op is
+taped like any other, so its gradient is autograd's vector-Jacobian
+product through the whole loop.
+
 Random numbers: each random op carries a build-time ``__rng_salt__``; its
 seed is an integer hash of (program seed, step, salt) (``op_seed``), so
 the card and the CPU draw the same dropout masks from the same seed.
@@ -25,7 +34,9 @@ executor writes them into one int32 buffer on the device; an op that
 draws on the device gets a 0-d view of its entry, as the reference's
 ``rng_bits`` are a traced input, so a step captured in a CUDA graph
 draws new masks at each replay.  An op that draws on the host
-(``host_rng``) gets the int itself.
+(``host_rng``) gets the int itself.  A random op in a sub-block has its
+salt in the same buffer, so each iteration draws what the reference's
+fixed step key draws.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .core.desc import BlockDesc, OpDesc
+from .core.desc import BlockDesc, OpDesc, ProgramDesc
 from .core.lod import SeqArray
 from .core.registry import (EmitCtx, GRAD_SUFFIX, base_op_type, get_op_info,
                             has_op, is_grad_op_type)
@@ -77,11 +88,16 @@ class BlockPlan:
     from the desc: the live ops in order, the state read from the scope
     (``state_in``) and written back (``state_out``), the tape links
     between grad ops and their forward ops, the random ops' salts in
-    seed-buffer order (``salts``; a grad op shares its forward op's) and
-    the live ops that draw on the host (``host_rng_ops``)."""
+    seed-buffer order (``salts``; a grad op shares its forward op's,
+    and the ops of sub-blocks are walked too), the live ops that draw
+    on the host (``host_rng_ops``) and the ops whose trip count the
+    host reads (``host_loops``, in sub-blocks too).  ``program`` is the
+    desc whose sub-blocks the block's control-flow ops run
+    (``sub_blocks``: index -> its ops and their seed entries)."""
 
     def __init__(self, block: BlockDesc, feed_names: Sequence[str],
-                 fetch_names: Sequence[str]):
+                 fetch_names: Sequence[str],
+                 program: Optional[ProgramDesc] = None):
         ops = [op for op in block.ops if op.type not in MARKER_OPS]
         persistable = {n for n, vd in block.vars.items() if vd.persistable}
         needed = set(fetch_names)
@@ -117,29 +133,22 @@ class BlockPlan:
         self.state_out = sorted(n for n in written if n in persistable)
 
         # seed[position] = (the op's entry in the step's seeds, whether
-        # it draws on the host)
+        # it draws on the host); the same for each sub-block's ops
         self.salts: List[int] = []
         self.host_rng_ops: List[str] = []
-        self.seed: Dict[int, Tuple[int, bool]] = {}
-        for pos, op in enumerate(self.ops):
-            salt = op.attr("__rng_salt__", None)
-            if salt is None:
-                continue
-            if salt not in self.salts:
-                self.salts.append(salt)
-            host = has_op(op.type) and get_op_info(op.type).host_rng
-            if host:
-                self.host_rng_ops.append(op.type)
-            self.seed[pos] = (self.salts.index(salt), host)
+        self.host_loops: List[str] = []
+        self.sub_blocks: Dict[int, Tuple[List[OpDesc],
+                                         Dict[int, Tuple[int, bool]]]] = {}
+        self.seed = self._walk(self.ops, program)
 
         # tape[forward position] = the (slot, index) inputs its grad op
         # wants; grad_of[grad position] = forward position
         self.tape: Dict[int, List[Tuple[str, int]]] = {}
         self.grad_of: Dict[int, int] = {}
-        last_writer: Dict[str, int] = {}
+        writers: Dict[str, List[int]] = {}
         for pos, op in enumerate(self.ops):
             if is_grad_op_type(op.type) and not has_op(op.type):
-                fwd = self._forward_of(pos, op, last_writer)
+                fwd = self._forward_of(pos, op, writers)
                 self.grad_of[pos] = fwd
                 self.tape[fwd] = [
                     (slot[: -len(GRAD_SUFFIX)], i)
@@ -147,13 +156,45 @@ class BlockPlan:
                     for i, n in enumerate(names) if n]
             for n in op.output_names():
                 if n:
-                    last_writer[n] = pos
+                    writers.setdefault(n, []).append(pos)
+
+    def _walk(self, ops: List[OpDesc], program: Optional[ProgramDesc]
+              ) -> Dict[int, Tuple[int, bool]]:
+        """The seed entries of ``ops``; the sub-blocks they run are
+        planned on the way (every op, in order)."""
+        seed = {}
+        for pos, op in enumerate(ops):
+            if op.type == "while" and op.attr("max_iters", None) is None:
+                # a trip count only the data decides: the host reads
+                # the condition
+                self.host_loops.append(op.type)
+            salt = op.attr("__rng_salt__", None)
+            if salt is not None:
+                if salt not in self.salts:
+                    self.salts.append(salt)
+                host = has_op(op.type) and get_op_info(op.type).host_rng
+                if host:
+                    self.host_rng_ops.append(op.type)
+                seed[pos] = (self.salts.index(salt), host)
+            idx = op.block_attr("sub_block")
+            if idx is None or idx in self.sub_blocks:
+                continue
+            if program is None:
+                raise ValueError(f"op {op.type} runs block {idx}: the plan "
+                                 f"needs the program (BlockPlan(..., "
+                                 f"program=...))")
+            sub_ops = [o for o in program.block(idx).ops
+                       if o.type not in MARKER_OPS]
+            self.sub_blocks[idx] = (sub_ops, self._walk(sub_ops, program))
+        return seed
 
     def _forward_of(self, pos: int, op: OpDesc,
-                    last_writer: Dict[str, int]) -> int:
+                    writers: Dict[str, List[int]]) -> int:
         """The position of the forward op whose output gradients grad op
-        ``op`` consumes: the last writer of the var a cotangent names
-        (``x@GRAD`` or ``x@GRAD@ZERO`` -> ``x``)."""
+        ``op`` consumes: the latest writer of the var a cotangent names
+        (``x@GRAD`` or ``x@GRAD@ZERO`` -> ``x``) of the grad op's type
+        without a grad op yet (a loop may write the var again in place
+        after its forward op)."""
         base = base_op_type(op.type)
         if not has_op(base):
             raise KeyError(f"no emitter for op type {op.type!r}")
@@ -161,12 +202,10 @@ class BlockPlan:
             if not slot.endswith(GRAD_SUFFIX):
                 continue
             for n in names:
-                fwd = last_writer.get(n.split(GRAD_SUFFIX)[0]) if n else None
-                if fwd is not None and self.ops[fwd].type == base:
-                    if fwd in self.tape:
-                        raise RuntimeError(f"op #{fwd} ({base}) has two "
-                                           "grad ops")
-                    return fwd
+                for fwd in reversed(writers.get(n.split(GRAD_SUFFIX)[0], [])
+                                    if n else []):
+                    if self.ops[fwd].type == base and fwd not in self.tape:
+                        return fwd
         raise RuntimeError(f"grad op #{pos} ({op.type}) has no live forward "
                            f"op in this block")
 
@@ -270,13 +309,32 @@ def run_block_ops(plan: BlockPlan, env: Dict[str, Any],
     # under a running torch.profiler, each op's work is a range named
     # after its type, so the trace attributes time to Fluid ops
     annotate = torch.autograd.profiler._is_profiler_enabled
+
+    def seed_of(entries, pos):
+        if pos not in entries:
+            return None
+        i, host = entries[pos]
+        return seeds[i] if host else seed_buf[i]
+
+    def lower_block(idx: int, sub_env: Dict[str, Any]) -> Dict[str, Any]:
+        """Sub-block ``idx``'s ops, in order, into a copy of
+        ``sub_env``."""
+        sub_env = dict(sub_env)
+        ops, entries = plan.sub_blocks[idx]
+        for pos, op in enumerate(ops):
+            ins = _gather_inputs(op, sub_env)
+            ctx = EmitCtx(op, seed=seed_of(entries, pos), device=device,
+                          mode=mode, lower_block=lower_block)
+            with (torch.profiler.record_function(op.type) if annotate
+                  else contextlib.nullcontext()):
+                outs = get_op_info(op.type).emit(ctx, ins)
+            _scatter_outputs(op, outs, sub_env)
+        return sub_env
+
     for pos, op in enumerate(plan.ops):
         ins = _gather_inputs(op, env)
-        seed = None
-        if pos in plan.seed:
-            i, host = plan.seed[pos]
-            seed = seeds[i] if host else seed_buf[i]
-        ctx = EmitCtx(op, seed=seed, device=device, mode=mode)
+        ctx = EmitCtx(op, seed=seed_of(plan.seed, pos), device=device,
+                      mode=mode, lower_block=lower_block)
         with (torch.profiler.record_function(op.type) if annotate
               else contextlib.nullcontext()):
             if pos in plan.grad_of:

@@ -1,14 +1,16 @@
 """Op corpus of the port: importing this package registers every op
 emitter the slices run (tensor, math, activation, nn, loss, optimizer,
 sequence and recurrent ops, ``lrn`` in ``misc_ops``, the serving steps'
-KV-cache writes, page copies and attentions in ``cache_ops``, and beam
-search in ``beam_ops``).  ``quant_ops`` holds the int8 quantize-on-write rule as
-plain tensor functions."""
+KV-cache writes, page copies and attentions in ``cache_ops``, beam search
+in ``beam_ops``, and the control-flow ops and tensor arrays in
+``control_flow_ops``).  ``quant_ops`` holds the int8 quantize-on-write
+rule as plain tensor functions."""
 
 from . import (  # noqa: F401
     activation_ops,
     beam_ops,
     cache_ops,
+    control_flow_ops,
     loss_ops,
     math_ops,
     misc_ops,

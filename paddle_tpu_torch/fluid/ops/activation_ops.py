@@ -6,7 +6,9 @@ positive branch's slope at 0 (as ``jnp.abs`` and ``jax.nn.leaky_relu``
 do), a value at a bound of a clip takes half the gradient (``relu6``,
 ``hard_sigmoid``, ``brelu``, as ``jnp.clip``'s max and min do), ``gelu``
 is the tanh form (``jax.nn.gelu``'s default) and ``softplus`` /
-``logsigmoid`` are ``logaddexp`` forms (no threshold)."""
+``logsigmoid`` are ``logaddexp`` forms (no threshold).  A float attr
+beside a bf16 X is rounded to bf16 first (``weak_scalar``), as JAX's
+weak typing rounds it in the reference."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import math
 import torch
 
 from ..core.registry import primitive
-from .math_ops import clip_values
+from .math_ops import clip_values, weak_scalar
 
 
 def _act(name, fn):
@@ -74,22 +76,26 @@ _act("softshrink", lambda c, x: _softshrink(x, c.attr("lambda", 0.5)))
 _act("hard_shrink", lambda c, x: torch.where(
     _abs(x) > c.attr("threshold", 0.5), x, torch.zeros_like(x)))
 _act("hard_sigmoid", lambda c, x: clip_values(
-    c.attr("slope", 0.2) * x + c.attr("offset", 0.5), 0.0, 1.0))
+    weak_scalar(c.attr("slope", 0.2), x) * x
+    + weak_scalar(c.attr("offset", 0.5), x), 0.0, 1.0))
 _act("thresholded_relu", lambda c, x: torch.where(
     x > c.attr("threshold", 1.0), x, torch.zeros_like(x)))
-_act("elu", lambda c, x: _elu(x, c.attr("alpha", 1.0)))
-_act("pow", lambda c, x: torch.pow(x, c.attr("factor", 1.0)))
-_act("stanh", lambda c, x: c.attr("scale_b", 1.7159) * torch.tanh(
-    c.attr("scale_a", 2.0 / 3.0) * x))
+_act("elu", lambda c, x: _elu(x, weak_scalar(c.attr("alpha", 1.0), x)))
+_act("pow", lambda c, x: torch.pow(x, weak_scalar(c.attr("factor", 1.0),
+                                                  x)))
+_act("stanh", lambda c, x: weak_scalar(c.attr("scale_b", 1.7159), x)
+     * torch.tanh(weak_scalar(c.attr("scale_a", 2.0 / 3.0), x) * x))
 _act("square_act", lambda c, x: x * x)
-_act("swish", lambda c, x: x * torch.sigmoid(c.attr("beta", 1.0) * x))
+_act("swish", lambda c, x: x * torch.sigmoid(
+    weak_scalar(c.attr("beta", 1.0), x) * x))
 _act("gelu", lambda c, x: _gelu(x))
 
 
 @primitive("leaky_relu", seq_transparent=True)
 def leaky_relu(ctx, x):
     """jax.nn.leaky_relu: x where x >= 0, else alpha * x."""
-    return torch.where(x >= 0, x, ctx.attr("alpha", 0.02) * x)
+    return torch.where(x >= 0, x, weak_scalar(ctx.attr("alpha", 0.02), x)
+                       * x)
 
 
 @primitive("brelu", seq_transparent=True)

@@ -1,6 +1,7 @@
 """Sequence ops over SeqArray (padded data + lengths) — the port of
 ``paddle_tpu/fluid/ops/sequence_ops.py``, cut to ``sequence_pool``,
-``sequence_softmax`` and ``sequence_conv``.  Offset walking becomes
+``sequence_softmax``, ``sequence_conv``, ``sequence_expand`` (level-1
+Y) and ``sequence_pad``.  Offset walking becomes
 masking: dense work over [batch, max_len, ...] with the validity
 mask."""
 
@@ -93,3 +94,32 @@ def sequence_conv(ctx, x, w):
     else:
         out = torch.matmul(ctx_mat.float(), w.float()).to(data.dtype)
     return SeqArray(out * m, x.lengths)
+
+
+@primitive("sequence_expand", inputs=["X", "Y"])
+def sequence_expand(ctx, x, y):
+    """reference sequence_expand_op.cc: each batch row of X ([B, ...], or
+    [B, 1, ...]) broadcast across the steps of Y's sequence in that row,
+    padding zeroed by a multiply (the reference's), with Y's lengths.
+    A level-2 Y is not ported."""
+    if not isinstance(y, SeqArray):
+        raise NotImplementedError(
+            "sequence_expand: only a level-1 (SeqArray) Y is ported to "
+            "paddle_tpu_torch")
+    xd = x.data if isinstance(x, SeqArray) else x
+    if xd.dim() == y.data.dim():            # [B, 1, ...] -> expand time
+        xd = xd[:, 0]
+    expanded = xd[:, None].expand((xd.shape[0], y.max_len)
+                                  + tuple(xd.shape[1:]))
+    m = seq_mask(y.lengths, y.max_len)
+    m = m.reshape(m.shape + (1,) * (expanded.dim() - 2))
+    return SeqArray(expanded * m.to(xd.dtype), y.lengths)
+
+
+@primitive("sequence_pad", inputs=["X"], outputs=["Out", "Mask"])
+def sequence_pad(ctx, x):
+    """A SeqArray as (its padded data [B, T, ...], a float mask [B, T]
+    in its dtype): the bridge to dense ops (reference
+    sequence_pad_op.cc).  The gradient reaches the sequence through Out;
+    what lands on padding is dropped there."""
+    return x.data, seq_mask(x.lengths, x.data.shape[1]).to(x.data.dtype)

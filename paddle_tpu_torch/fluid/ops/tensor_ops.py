@@ -1,11 +1,12 @@
 """Tensor creation and manipulation ops — the port of
 ``paddle_tpu/fluid/ops/tensor_ops.py``, cut to what the Transformer
 (training, the unfused attention, the paged and dense serving steps and
-beam search), the LSTM text classifiers, the book's first three
-chapters, the reference's image benchmarks (``concat``: GoogLeNet's
-inception towers), the embedding chapters (``lookup_table`` with its
-sparse gradient), their backward, the optimizers and the learning-rate
-schedules emit.
+beam search), the LSTM text classifiers, the book's chapters through
+machine translation (``fill_constant_batch_size_like``, ``squeeze``,
+``unsqueeze``, ``expand``: the seq2seq beam decoders), the reference's
+image benchmarks (``concat``: GoogLeNet's inception towers), the
+embedding chapters (``lookup_table`` with its sparse gradient), their
+backward, the optimizers and the learning-rate schedules emit.
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
@@ -32,6 +33,20 @@ def _rt_dtype(name) -> torch.dtype:
 @primitive("fill_constant", inputs=[], no_grad=True)
 def fill_constant(ctx, *_):
     return torch.full(tuple(ctx.attr("shape")), ctx.attr("value", 0.0),
+                      dtype=_rt_dtype(ctx.attr("dtype", "float32")),
+                      device=ctx.device)
+
+
+@primitive("fill_constant_batch_size_like", inputs=["Input"], no_grad=True)
+def fill_constant_batch_size_like(ctx, ref):
+    """A constant of ``shape`` whose ``output_dim_idx`` dim copies the
+    ``input_dim_idx`` dim of Input (reference
+    fill_constant_batch_size_like_op.cc)."""
+    data = ref.data if isinstance(ref, SeqArray) else ref
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        data.shape[ctx.attr("input_dim_idx", 0)]
+    return torch.full(tuple(shape), ctx.attr("value", 0.0),
                       dtype=_rt_dtype(ctx.attr("dtype", "float32")),
                       device=ctx.device)
 
@@ -93,6 +108,28 @@ def reshape(ctx, x):
     shape = list(ctx.attr("shape"))
     return x.reshape([x.shape[i] if d == 0 else d
                       for i, d in enumerate(shape)])
+
+
+@primitive("squeeze")
+def squeeze(ctx, x):
+    """The size-1 dims at ``axes`` (every size-1 dim without) dropped."""
+    axes = ctx.attr("axes", None)
+    return x.squeeze(tuple(axes)) if axes else x.squeeze()
+
+
+@primitive("unsqueeze")
+def unsqueeze(ctx, x):
+    """A size-1 dim inserted at each of ``axes``, in ascending order."""
+    for ax in sorted(ctx.attr("axes")):
+        x = x.unsqueeze(ax)
+    return x
+
+
+@primitive("expand")
+def expand(ctx, x):
+    """X tiled ``expand_times[i]`` times along dim i (``jnp.tile``); the
+    gradient sums the tiles."""
+    return torch.tile(x, tuple(ctx.attr("expand_times")))
 
 
 def _ids(ids: torch.Tensor) -> torch.Tensor:

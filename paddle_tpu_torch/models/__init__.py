@@ -5,4 +5,6 @@ classifiers (the conv net and the stacked LSTM); ``fit_a_line``,
 three chapters (the last with the reference's ResNet-50), ``word2vec``
 and ``recommender`` its fourth and fifth; ``benchmark_nets`` the
 reference's AlexNet, GoogLeNet and SmallNet; ``ctr`` wide&deep CTR
-prediction over sparse embeddings."""
+prediction over sparse embeddings; ``machine_translation`` and
+``rnn_encoder_decoder`` the book's eighth chapter (seq2seq with and
+without attention, beam decode in a While loop)."""

@@ -186,19 +186,19 @@ def main() -> int:
         return 1
 
     steps = rec["steps"]
+    found, busy, idle = cs.device_busy(prof.events(),
+                                       rec["step_ms"] * steps)
+    busy /= steps
     by_family = defaultdict(float)
     n_kernels, ragged_us, ragged_n, kernels = 0, 0.0, 0, []
-    for evt in prof.key_averages():
-        us = pt._dev_us(evt)
-        if us > 0 and "CUDA" in str(getattr(evt, "device_type", "")):
-            ragged = "ragged" in evt.key
-            by_family["ragged" if ragged else pt.family(evt.key)] += us
-            n_kernels += evt.count
-            if ragged:
-                ragged_us += us
-                ragged_n += evt.count
-            kernels.append((us, evt.count, evt.key))
-    busy = sum(by_family.values()) / 1e3 / steps
+    for name, (us, n) in found.items():
+        ragged = "ragged" in name
+        by_family["ragged" if ragged else pt.family(name)] += us
+        n_kernels += n
+        if ragged:
+            ragged_us += us
+            ragged_n += n
+        kernels.append((us, n, name))
     syncs = sum(1 for e in prof.events() if e.name in cs.SYNC_CALLS)
     graph_launches = sum(evt.count for evt in prof.key_averages()
                          if evt.key == "cudaGraphLaunch")
@@ -207,7 +207,7 @@ def main() -> int:
            "finished": rec["finished"], "steps": steps,
            "wall_ms_per_step": rec["step_ms"],
            "device_busy_ms_per_step": busy,
-           "device_idle_share": 1.0 - busy / rec["step_ms"],
+           "device_idle_share": idle,
            "host_syncs_per_step": syncs / steps,
            "graph_launches_per_step": graph_launches / steps,
            "decode_tok_per_s": rec["decode_tok_per_s"],

@@ -77,16 +77,6 @@ def family(name: str) -> str:
     return "other"
 
 
-def _dev_us(evt, self_only=True) -> float:
-    """Device microseconds of a profiler event, across torch versions."""
-    names = (("self_device_time_total", "self_cuda_time_total")
-             if self_only else ("device_time_total", "cuda_time_total"))
-    for n in names:
-        if hasattr(evt, n):
-            return float(getattr(evt, n))
-    return 0.0
-
-
 def eager_op_ms(torch, main_prog, loss, feed, scope):
     """One step of ``main_prog`` run eagerly on the scope's state under
     the profiler -> {Fluid op type: device ms of the kernels its ops
@@ -208,19 +198,15 @@ def main() -> int:
                         scope=scope)
         wall = time.perf_counter() - t0
     op_types = {op.type for op in main_prog.global_block().ops}
-
+    step_ms = wall / args.steps * 1e3
+    found, busy, idle = cs.device_busy(prof.events(), wall * 1e3)
+    busy /= args.steps
     by_family = defaultdict(float)
-    launches = 0
     kernels = []
-    for evt in prof.key_averages():
-        us = _dev_us(evt)
-        if evt.key in op_types or evt.key == STEP:
-            continue
-        if us > 0 and getattr(evt, "device_type", None) is not None \
-                and "CUDA" in str(evt.device_type):
-            by_family[family(evt.key)] += us
-            launches += evt.count
-            kernels.append((us, evt.count, evt.key))
+    for name, (us, n) in found.items():
+        by_family[family(name)] += us
+        kernels.append((us, n, name))
+    launches = sum(n for _, n, _ in kernels)
     # per Fluid op type: host time of its annotation on the calling
     # thread, and the span its kernels cover on the device timeline
     by_op, dev_by_op = defaultdict(float), defaultdict(float)
@@ -235,8 +221,6 @@ def main() -> int:
     syncs = cs.host_syncs_in(prof.events(), STEP)
     graph_launches = sum(evt.count for evt in prof.key_averages()
                          if evt.key == "cudaGraphLaunch")
-    busy = sum(by_family.values()) / 1e3 / args.steps
-    step_ms = wall / args.steps * 1e3
     rec = {"card": card, "model": args.model,
            "amp_dtype": cs.AMP if (args.amp and args.model == "transformer")
            or image else None, "batch": batch, "seq": seq,
@@ -250,7 +234,7 @@ def main() -> int:
            "unprofiled_step_ms_median":
                sorted(plain)[len(plain) // 2] * 1e3,
            "device_busy_ms_per_step": busy,
-           "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "device_idle_share": idle,
            "device_ms_per_step_by_family": {
                k: v / 1e3 / args.steps for k, v in sorted(
                    by_family.items(), key=lambda kv: -kv[1])},

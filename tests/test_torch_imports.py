@@ -186,7 +186,7 @@ def test_chip_smoke_fails_a_faulty_serving_profile(fault):
 # package, function): the port's own internals (emitter contexts, the
 # lowering) and the serving tier the port has not taken on yet
 NOT_TAKEN = {
-    ("fluid/core/registry.py", "EmitCtx.__init__"): {"rng", "lower_block"},
+    ("fluid/core/registry.py", "EmitCtx.__init__"): {"rng"},
     ("fluid/core/registry.py", "OpInfo.__init__"): {"grad_maker",
                                                      "needs_out_slots"},
     ("fluid/lowering.py", "run_block_ops"): {"desc", "block_idx",

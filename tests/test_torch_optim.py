@@ -9,7 +9,9 @@ the port, against the JAX package on the CPU.
 * Every activation op, forward and the gradient of sum(out * w), on
   seeded values with exact 0s and the clip bounds among them (where
   ``abs``, ``leaky_relu`` and the clips have their reference slopes):
-  OUT_TOL / GRAD_TOL (float32, summation order and libm only).  The
+  OUT_TOL / GRAD_TOL (float32, summation order and libm only); the six
+  whose float attrs meet X also on bf16 X, the attrs rounded to bf16 as
+  the reference's weak typing rounds them (BF16_ACTIVATIONS).  The
   math and loss ops the clips, regularizers, schedules and models emit
   (``square``, ``clip``, ``sign``, ``clip_by_norm``, ``norm``,
   ``squared_l2_norm``, ``cos_sim``, ``elementwise_max / min / pow``,
@@ -135,8 +137,53 @@ def _act_input(name):
     return x
 
 
-@pytest.mark.parametrize("name", sorted(ACTIVATIONS))
+# the ops whose float attrs meet a bf16 X (ROADMAP C6), at attrs bf16
+# does not hold exactly: the reference rounds each to bf16 first (JAX's
+# weak typing).  (output ulps, gradient tolerance as a share of its
+# largest magnitude): exact where the port rounds where the reference
+# does; swish's output within 2 bf16 ulps and the stanh and swish
+# gradients within 1.5% of their largest, the order of rounding inside
+# the reference's fused bf16 chain.  Without the attrs rounded the
+# outputs lie 1 (leaky_relu, elu), 3 (stanh), 15 (swish) and 64
+# (hard_sigmoid) ulps apart, and pow's gradient 4 ulps.
+BF16_ACTIVATIONS = {
+    "leaky_relu": ({"alpha": 0.02}, 0, 0.0),
+    "elu": ({"alpha": 0.3}, 0, 0.0),
+    "stanh": ({}, 0, 1.5e-2),
+    "hard_sigmoid": ({"slope": 0.2, "offset": 0.5}, 0, 0.0),
+    "swish": ({"beta": 1.3}, 2, 1.5e-2),
+    "pow": ({"factor": 1.7}, 0, 0.0),
+}
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of the larger magnitude, elementwise."""
+    got, want = got.astype(np.float32), want.astype(np.float32)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    return np.abs(got - want) / ulp
+
+
+@pytest.mark.parametrize("name", sorted(ACTIVATIONS) + [
+    f"{n}/bf16" for n in sorted(BF16_ACTIVATIONS)])
 def test_activation_matches_reference(name):
+    if name.endswith("/bf16"):
+        name = name[:-len("/bf16")]
+        attrs, out_ulps, grad_share = BF16_ACTIVATIONS[name]
+        rng = np.random.RandomState(len(name))
+        x = (rng.randn(16, 64) * 3).astype(np.float32)
+        if name == "pow":
+            x = np.abs(x) + 0.1
+        jo, to, jg, tg = _both(name, {"X": x.astype(BF16)}, attrs,
+                               wrt=("X",))
+        want, got = np.asarray(jo["Out"][0]), to["Out"][0]
+        assert got.dtype == want.dtype == BF16
+        assert _bf16_ulps(got, want).max() <= out_ulps
+        gwant = np.asarray(jg[0]).astype(np.float32)
+        np.testing.assert_allclose(
+            tg[0].astype(np.float32), gwant, rtol=0,
+            atol=grad_share * float(np.abs(gwant).max()))
+        return
     attrs = ACTIVATIONS[name]
     if attrs == "positive":
         attrs = {"factor": 2.5} if name == "pow" else {}

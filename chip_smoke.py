@@ -147,7 +147,9 @@ Runs from the root of a checkout and needs one CUDA card; it imports
 12. hold the fused LSTM forward kernel (``lstm_forward``) against its
    plain loop: B=128, T=100 at H = 256, 512 and 1280 with and without
    peepholes, ragged lengths with 0 and 1, reverse, h0/c0, non-default
-   activations at H=200, B=1, T=1, and the edges of the kernel's
+   activations at H=200, the SRL cell (B=128, T=64, H=128, relu /
+   sigmoid / sigmoid, ragged, forward and reverse), B=1, T=1, and the
+   edges of the kernel's
    tiling: B=100 at H=512, H=1000 ragged and reverse, the widest H whose
    weight slice stays in shared memory and the next (h, c, masked
    positions exactly 0; and for the peephole cases and the variants the
@@ -228,12 +230,34 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    (bitwise) and the CPU and 5 steps each; a bounded ``While(max_iters=8)``
    differentiated on the card in two cases (its body's squares averaged,
    or summed: saturating), step 3 against eager and the CPU, and in
-   float64 on the card against the CPU.
+   float64 on the card against the CPU;
+19. semantic role labeling (book ch.07) and the evaluators: the slice's
+   16 new ops on the card against the CPU port at the path's sizes
+   (``linear_chain_crf``'s loss and gradients, its gradients twice
+   bitwise; Viterbi paths and chunk counts bitwise; ``gather`` and
+   ``scatter`` over repeated ids, ``one_hot`` out of range, the reduce
+   ops over ties and zeros; ``truncated_gaussian_random`` by its
+   statistics); the SRL cell (B = 128, T = 64, H = 128, relu / sigmoid
+   / sigmoid) timed against its plain loop and bound; then
+   ``srl_model(SRLDims())`` at full width (8 LSTMs of H = 128, sparse
+   predicate and mark tables, SGD 2e-3, a ChunkEvaluator and a
+   ModelAverage in the program) on seeded sentences of 5-60 words
+   padded to 64, batch 128: step 3 at 4 sentences against the eager
+   step (bitwise) and the CPU port (loss, dense gradients, sparse
+   updates; Viterbi and chunk counts on the card's emissions on both
+   devices, equal), 20 steps on 4 batches (one graph, 19 hits, 8
+   ``lstm_fwd`` launches and graph nodes a step, step ms, target
+   tokens/s, peak memory, the loss falling), the frozen word table and
+   the predicate rows no batch fed bitwise unchanged, the evaluator's
+   counts against a host recount of the fetched paths, ModelAverage's
+   ``apply`` against its rule in float64 and ``restore`` bitwise
+   (twice), a step after them bitwise the same step without, and after
+   ``reset`` a count from zero; host syncs, device ms, busy and idle.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
-line, a ``kernels`` line (the flash kernels once in float32 and once,
+line, an ``srl`` line, a ``kernels`` line (the flash kernels once in float32 and once,
 ``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line;
 per-case detail goes to standard error.  Any failed check exits 1
 without the last line.
@@ -2837,6 +2861,14 @@ def lstm_cases(lk, limits):
     cases.append(("H200/relu-identity-sigmoid/ragged", 64, 30, 200,
                   dict(default, ragged=True,
                        acts=("relu", "identity", "sigmoid")), True))
+    # semantic role labeling's cell (phase 19): db_lstm's 8 layers of
+    # H = 128 over SRL_BATCH sentences padded to SRL_PAD, relu candidate,
+    # sigmoid gate and cell, peepholes, alternating direction
+    for rev in (False, True):
+        cases.append((f"H128/srl/relu-sigmoid-sigmoid/ragged"
+                      f"{'/reverse' if rev else ''}", SRL_BATCH, SRL_PAD,
+                      SRL_H, dict(default, ragged=True, reverse=rev,
+                                  acts=SRL_ACTS), True))
     cases.append(("H1280/ragged/reverse/h0c0", 8, 20, 1280,
                   dict(default, ragged=True, reverse=True, init=True), True))
     cases.append(("B1/T1/H256", 1, 1, 256, dict(default), True))
@@ -2917,15 +2949,18 @@ def run_lstm_case(torch, lk, gen, dev, case):
         lk.device_plan(B, H, dev)
 
 
-def lstm_bound(B, T, H, passes=3, flops_per_s=TF32_FLOPS_PER_S):
-    """Least time of one forward: x, w, the bias and peepholes and the
-    lengths read once, h and c written once, against the recurrent
-    product's 2*B*T*H*4H operations done ``passes`` times at
-    ``flops_per_s`` (every step is live with full lengths).  The kernel
-    does three TF32 products on the tensor cores; passes=1 at
-    FP32_FLOPS_PER_S is the CUDA cores' fp32 bound."""
-    nbytes = 4 * (B * T * 4 * H + 4 * H * H + 7 * H + B + 2 * B * T * H)
-    t_ops = passes * 2 * B * T * H * 4 * H / flops_per_s * 1e3
+def lstm_bound(B, T, H, passes=3, flops_per_s=TF32_FLOPS_PER_S,
+               live=None):
+    """Least time of one forward: x's live rows, w, the bias and
+    peepholes and the lengths read once, h and c written once, against
+    the recurrent product's 2*live*H*4H operations done ``passes`` times
+    at ``flops_per_s``; ``live`` is the number of (row, step) pairs
+    inside the lengths, B*T with full lengths.  The kernel does three
+    TF32 products on the tensor cores; passes=1 at FP32_FLOPS_PER_S is
+    the CUDA cores' fp32 bound."""
+    live = B * T if live is None else live
+    nbytes = 4 * (live * 4 * H + 4 * H * H + 7 * H + B + 2 * B * T * H)
+    t_ops = passes * 2 * live * H * 4 * H / flops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -3739,11 +3774,11 @@ def adagrad_moments(main):
             for op in main.global_block().ops if op.type == "adagrad"}
 
 
-def replay_ms(torch, exe):
+def replay_ms(torch, exe, graph=None):
     """The device's time for one step: REPLAY_TIMES replays of the
-    executor's one captured graph between two CUDA events (the feeds
-    left in its buffers, the state moving on)."""
-    graph = exe.graphs()[0]
+    executor's one captured graph (or ``graph``) between two CUDA events
+    (the feeds left in its buffers, the state moving on)."""
+    graph = exe.graphs()[0] if graph is None else graph
     graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -4760,6 +4795,646 @@ def nmt_phase(torch, np, fluid, card):
     return rec, launches, fails
 
 
+# -- phase 19: semantic role labeling and the evaluators ---------------------
+
+# the book's chapter 7 (fluid/tests/book/test_label_semantic_roles.py):
+# srl_model(SRLDims()) at full width, CoNLL-05's dictionaries (44068
+# words, 106 labels, 3162 predicates, 2 marks), word 32, mark 5, hidden
+# 512, depth 8: 8 dynamic_lstms of H = 128 in alternating directions,
+# relu candidate, sigmoid gate and cell, peepholes; the predicate and
+# mark tables sparse, the word table frozen, the CRF transitions at
+# mix_hidden_lr 1e-3; SGD at 2e-3: the chapter's 0.01 diverges on
+# these sentences at batch 128 (this phase with SRL_LR = 0.01: NaN by
+# step 7 on an H100); then
+# ChunkEvaluator(crf_decode, target, "IOB", 53) and ModelAverage.  The
+# repo holds no CoNLL-05 corpus, so the data are seeded sentences of
+# SRL_LEN words in the corpus reader's layout (one predicate a sentence,
+# its five context words and the predicate repeated along it, mark 1
+# within two words of it), padded to SRL_PAD (one signature), the tags
+# derived from the word ids as tests/test_book.py derives them;
+# SRL_BATCHES batches staged on the card and taken in turn
+SRL_BATCH, SRL_PAD, SRL_LEN, SRL_LR = 128, 64, (5, 60), 2e-3
+SRL_STEPS, SRL_BATCHES, SRL_COMPARE_BATCH = 20, 4, 4
+SRL_CHUNK_TYPES = 53
+SRL_H, SRL_ACTS = 128, ("sigmoid", "sigmoid", "relu")
+SRL_DEPTH = 8
+SRL_CTX = ("ctx_n2_data", "ctx_n1_data", "ctx_0_data", "ctx_p1_data",
+           "ctx_p2_data")
+# ModelAverage's windows: rate 0.15, min 4, max 8.  The window
+# min(8, int(0.15 n)) stays below 4 until update 27, so the partial sum
+# moves to sum_3 and the count restarts at updates 4, 8, 12, 16 and 20:
+# five shifts in SRL_STEPS steps
+SRL_AVG = dict(average_window_rate=0.15, min_average_window=4,
+               max_average_window=8)
+# the new ops on the card against the CPU port: float32 on both sides,
+# summation order only; linear_chain_crf's loss and gradients at the
+# LSTM paths' limits (a 64-step logsumexp recursion)
+SRL_OP_RTOL = 1e-5
+
+
+def build_srl(fluid):
+    """srl_model(SRLDims()) with SGD, then its ChunkEvaluator and its
+    ModelAverage -> (main, startup, loss, feature_out, crf_decode,
+    evaluator, model average)."""
+    from paddle_tpu_torch.models.label_semantic_roles import (SRLDims,
+                                                              srl_model)
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, feature_out, crf_decode, target, _ = srl_model(SRLDims())
+        fluid.optimizer.SGD(learning_rate=SRL_LR).minimize(loss)
+        ev = fluid.evaluator.ChunkEvaluator(crf_decode, target, "IOB",
+                                            SRL_CHUNK_TYPES)
+        ma = fluid.optimizer.ModelAverage(**SRL_AVG)
+    return main, startup, loss, feature_out, crf_decode, ev, ma
+
+
+def srl_batch(np, fluid, rng, batch):
+    """``batch`` seeded sentences in the CoNLL-05 reader's layout, padded
+    to SRL_PAD; the tag of a word is its id mod the label count."""
+    from paddle_tpu_torch.models.label_semantic_roles import SRLDims
+
+    dims = SRLDims()
+    cols = defaultdict(list)
+    for n in rng.randint(SRL_LEN[0], SRL_LEN[1] + 1, batch):
+        w = rng.randint(0, dims.word_dict_len, n)
+        at = rng.randint(n)                         # the predicate's place
+        cols["word_data"].append(w)
+        for name, d in zip(SRL_CTX, (-2, -1, 0, 1, 2)):
+            cols[name].append(np.full(n, w[min(max(at + d, 0), n - 1)]))
+        cols["verb_data"].append(np.full(n, rng.randint(dims.pred_len)))
+        cols["mark_data"].append((np.abs(np.arange(n) - at) <= 2)
+                                 .astype(np.int64))
+        cols["target"].append(w % dims.label_dict_len)
+    return {k: fluid.make_seq(v, dtype=np.int64, max_len=SRL_PAD)
+            for k, v in cols.items()}
+
+
+def chunk_counts(np, path, target, lengths):
+    """(inferred, label, correct) IOB chunks of tag rows, counted on the
+    host by the reference's rule (``crf_ops.chunk_eval``): tag 2t opens
+    a chunk of type t, 2t + 1 continues one, and also opens one where
+    the previous step's type differs or there is none; a label chunk is
+    correct where every step of it agrees with the inference in chunk
+    starts and types."""
+    ni = nl = nc = 0
+    for p, t, n in zip(path, target, lengths):
+        p, t = np.asarray(p).reshape(-1)[:n], np.asarray(t).reshape(-1)[:n]
+
+        def starts(tags):
+            typ = tags // 2
+            s = tags % 2 == 0
+            s[1:] |= typ[1:] != typ[:-1]
+            s[:1] = True
+            return s, typ
+
+        (ps, pt), (ls, lt) = starts(p), starts(t)
+        ni, nl = ni + int(ps.sum()), nl + int(ls.sum())
+        agree = (ps == ls) & (pt == lt)
+        ends = list(np.flatnonzero(ls)) + [n]
+        nc += sum(bool(agree[a:b].all()) for a, b in zip(ends, ends[1:]))
+    return ni, nl, nc
+
+
+def average_rule(np, snaps, rate, min_win, max_win):
+    """ModelAverage's average after the steps whose parameters ``snaps``
+    holds ({name: array} after each update, in order), by the
+    reference's rule (``average_accumulates``, then the apply program)
+    in float64 -> ({name: average}, {name: per-element limit}).  The
+    card sums in float32: the average of cnt terms through the running
+    sums, their sum and a division rounds at most cnt + 3 times, each by
+    at most 2^-24 of the largest term, so an element is held within
+    (cnt + 3) 2^-24 max_j |p_j| of the float64 value."""
+    last, partial, n_acc, old = [], [], 0, 0
+    for n_upd, snap in enumerate(snaps, 1):
+        n_acc += 1
+        partial.append(snap)
+        window = min(max_win, int(np.float32(n_upd) * np.float32(rate)))
+        if n_acc >= min_win and n_acc >= window:
+            last, partial, old, n_acc = partial, [], n_acc, 0
+    terms = last + partial
+    cnt = n_acc + old
+    avg = {n: sum(s[n].astype(np.float64) for s in terms) / max(cnt, 1)
+           for n in snaps[0]}
+    lim = {n: (cnt + 3) * 2.0 ** -24 * np.max([np.abs(s[n]) for s in terms],
+                                              axis=0)
+           for n in snaps[0]}
+    return avg, lim, cnt
+
+
+def _op_value(torch, spec, device, grad):
+    """An op input on ``device`` from its spec (("t", array), ("seq",
+    array, lengths), ("list", [arrays])) -> (value for the slot, the
+    float leaves that take a gradient)."""
+    from paddle_tpu_torch.fluid.core.lod import SeqArray
+
+    arrays = spec[1] if spec[0] == "list" else [spec[1]]
+    ts = [torch.tensor(a, device=device) for a in arrays]
+    leaves = [t.requires_grad_(True) for t in ts
+              if grad and t.is_floating_point()]
+    if spec[0] == "seq":
+        ts = [SeqArray(ts[0], torch.tensor(spec[2], device=device))]
+    return ts, leaves
+
+
+def run_op(torch, np, op, specs, attrs, wrt, device, seed=None):
+    """One emitter call on ``device`` with the gradient of
+    sum(out * w) over its float outputs for the slots ``wrt`` -> (the
+    outputs' tensors on the CPU, the gradients on the CPU)."""
+    from paddle_tpu_torch.fluid.core import registry as reg
+    from paddle_tpu_torch.fluid.core.desc import OpDesc
+
+    ins, leaves = {}, []
+    for slot, spec in specs.items():
+        ins[slot], ls = _op_value(torch, spec, device, slot in wrt)
+        leaves += ls
+    desc = OpDesc(op, {s: [f"{s}{i}" for i in range(len(v))]
+                       for s, v in ins.items()}, {}, attrs)
+    ctx = reg.EmitCtx(desc, seed=seed, device=device)
+    with torch.enable_grad():
+        res = reg.get_op_info(op).emit(ctx, ins)
+    vals = [v for slot in sorted(res) for v in res[slot]]
+    seqs = [v for v in vals if hasattr(v, "lengths")]
+    outs = [v.data if hasattr(v, "lengths") else v for v in vals] + \
+        [v.lengths for v in seqs]
+    grads = []
+    if wrt:
+        rng = np.random.RandomState(7)
+        live = [o for o in outs if o.requires_grad]
+        total = sum((o * torch.tensor(rng.randn(*o.shape).astype(
+            np.float32), device=device)).sum() for o in live)
+        grads = torch.autograd.grad(total, leaves)
+    return [o.detach().cpu() for o in outs], [g.cpu() for g in grads]
+
+
+def srl_op_cases(np):
+    """name -> (op, specs, attrs, wrt, exact: outputs bitwise, repeat:
+    the card's gradients run twice bitwise) at the SRL path's sizes: its
+    CRF over SRL_BATCH x SRL_PAD emissions of 106 tags, repeated indices
+    for gather / scatter, ids out of range for one_hot, ties for the
+    max / min reductions, zeros for reduce_prod."""
+    rng = np.random.RandomState(SEED + 19)
+    b, t, k = SRL_BATCH, SRL_PAD, 106
+    lens = rng.randint(SRL_LEN[0], SRL_LEN[1] + 1, b).astype(np.int32)
+    emis = rng.randn(b, t, k).astype(np.float32)
+    trans = (rng.randn(k + 2, k) * 0.1).astype(np.float32)
+    lbl = rng.randint(0, k, (b, t, 1)).astype(np.int32)
+    inf = np.where(rng.rand(b, t, 1) < 0.7, lbl,
+                   rng.randint(0, k, (b, t, 1))).astype(np.int32)
+    ties = rng.randint(0, 3, (512, 64)).astype(np.float32)
+    zeros = rng.uniform(0.5, 1.5, (256, 16)).astype(np.float32)
+    zeros[::7, 3] = 0.0
+    zeros[::11, 5] = 0.0
+    table = rng.randn(4096, 64).astype(np.float32)
+    ids = (rng.zipf(CTR_ZIPF, 8192) % 4096).astype(np.int32)
+    shape = [4096, 64]
+    acc = {f"InSum{i}": ("t", rng.randn(*shape).astype(np.float32))
+           for i in (1, 2, 3)}
+    acc.update(Param=("t", table),
+               InNumAccumulates=("t", np.array([3], np.int32)),
+               InOldNumAccumulates=("t", np.array([4], np.int32)),
+               InNumUpdates=("t", np.array([16383], np.int32)))
+    seq = ("seq", emis, lens)
+    return {
+        "linear_chain_crf": ("linear_chain_crf", {
+            "Emission": seq, "Transition": ("t", trans),
+            "Label": ("seq", lbl, lens)}, {}, ("Emission", "Transition"),
+            False, True),
+        "crf_decoding": ("crf_decoding", {
+            "Emission": seq, "Transition": ("t", trans)}, {}, (), True,
+            False),
+        "crf_decoding/label": ("crf_decoding", {
+            "Emission": seq, "Transition": ("t", trans),
+            "Label": ("seq", lbl, lens)}, {}, (), True, False),
+        "chunk_eval": ("chunk_eval", {
+            "Inference": ("seq", inf, lens), "Label": ("seq", lbl, lens)},
+            {"chunk_scheme": "IOB", "num_chunk_types": SRL_CHUNK_TYPES},
+            (), True, False),
+        "average_accumulates": ("average_accumulates", acc,
+                                {"average_window": 0.15,
+                                 "min_average_window": 4,
+                                 "max_average_window": 8}, (), True, False),
+        "gather": ("gather", {"X": ("t", table), "Index": ("t", ids)}, {},
+                   ("X",), True, True),
+        "scatter/add": ("scatter", {
+            "X": ("t", table), "Ids": ("t", ids),
+            "Updates": ("t", rng.randn(8192, 64).astype(np.float32))},
+            {"overwrite": False}, ("X", "Updates"), False, True),
+        "scatter/overwrite": ("scatter", {
+            "X": ("t", table),
+            "Ids": ("t", rng.permutation(4096)[:1000].astype(np.int32)),
+            "Updates": ("t", rng.randn(1000, 64).astype(np.float32))},
+            {}, ("X", "Updates"), True, False),
+        "slice": ("slice", {"X": ("t", emis)},
+                  {"axes": [1, 2], "starts": [3, -50], "ends": [-2, 1000]},
+                  ("X",), True, False),
+        "split": ("split", {"X": ("t", emis)},
+                  {"sections": [6, 50, 50], "axis": 2}, ("X",), True, False),
+        "one_hot": ("one_hot", {"X": ("t", (ids[:, None] % 5000 - 400)
+                                      .astype(np.int32))},
+                    {"depth": 4096}, (), True, False),
+        "shape": ("shape", {"X": seq}, {}, (), True, False),
+        "multiplex": ("multiplex", {
+            "Ids": ("t", rng.randint(0, 3, (512, 1)).astype(np.int32)),
+            "X": ("list", [ties, ties * 2, -ties])}, {}, ("X",), True,
+            False),
+        "reduce_mean": ("reduce_mean", {"X": ("t", emis)},
+                        {"dim": [0, 2]}, ("X",), False, False),
+        "reduce_mean/seq": ("reduce_mean", {"X": seq}, {"dim": [2]},
+                            ("X",), False, False),
+        "reduce_max": ("reduce_max", {"X": ("t", ties)}, {"dim": [1]},
+                       ("X",), True, False),
+        "reduce_min": ("reduce_min", {"X": ("t", ties)},
+                       {"dim": [0], "keep_dim": True}, ("X",), True, False),
+        "reduce_prod": ("reduce_prod", {"X": ("t", zeros)}, {"dim": [1]},
+                        ("X",), False, False),
+    }
+
+
+def srl_op_checks(torch, np, failures):
+    """The slice's 16 new ops on the card against the CPU port at the
+    SRL path's sizes (``srl_op_cases``): outputs and gradients within
+    SRL_OP_RTOL of their largest (bitwise where ``exact``), the CRF's
+    loss and gradients at the LSTM paths' limits, the gradients of
+    ``linear_chain_crf``, ``gather`` and adding ``scatter`` run twice on
+    the card bitwise equal (no atomics); ``truncated_gaussian_random``
+    bitwise the CPU's draw (a host draw), inside two standard
+    deviations, its mean and standard deviation within 5 standard errors
+    of the truncated normal's.  -> {case: record}."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, (op, specs, attrs, wrt, exact, repeat) in \
+            srl_op_cases(np).items():
+        got, g_got = run_op(torch, np, op, specs, attrs, wrt, dev)
+        want, g_want = run_op(torch, np, op, specs, attrs, wrt,
+                              torch.device("cpu"))
+        rec = {"outputs": len(got), "grads": len(g_got)}
+        errs = []
+        for a, b in zip(got + g_got, want + g_want):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                errs.append(float("inf"))
+            elif not a.is_floating_point():
+                errs.append(0.0 if torch.equal(a, b) else float("inf"))
+            else:
+                errs.append(float((a - b).abs().max())
+                            / max(float(b.abs().max()), 1e-30))
+        n_out = len(got)
+        rec["out_err"] = max(errs[:n_out]) if n_out else 0.0
+        rec["grad_err"] = max(errs[n_out:]) if len(errs) > n_out else 0.0
+        rec["bitwise"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        if op == "linear_chain_crf":
+            ok = (rec["out_err"] <= LSTM_LOSS_RTOL
+                  and rec["grad_err"] <= LSTM_GRAD_RTOL)
+        else:
+            ok = (rec["bitwise"] if exact else
+                  rec["out_err"] <= SRL_OP_RTOL) \
+                and rec["grad_err"] <= SRL_OP_RTOL
+        if repeat:
+            _, g2 = run_op(torch, np, op, specs, attrs, wrt, dev)
+            rec["grads_repeat_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(g_got, g2))
+            ok = ok and rec["grads_repeat_bitwise"]
+        rec["ok"] = ok
+        out[name] = rec
+        if not ok:
+            failures.append(f"srl op {name}: card vs CPU {rec}")
+    attrs = {"shape": [1000, 1000], "dtype": "float32", "mean": 0.5,
+             "std": 0.02}
+    draws = [run_op(torch, np, "truncated_gaussian_random", {}, attrs, (),
+                    d, seed=SEED)[0][0]
+             for d in (dev, torch.device("cpu"))]
+    x = draws[0].double()
+    trunc_std = math.sqrt(1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi)
+                          / math.erf(2 / math.sqrt(2)))
+    se = 0.02 * trunc_std / math.sqrt(x.numel())
+    rec = {"bitwise_cpu": torch.equal(draws[0], draws[1]),
+           "min": float(x.min()), "max": float(x.max()),
+           "mean": float(x.mean()), "std": float(x.std()),
+           "want_std": 0.02 * trunc_std}
+    rec["ok"] = (rec["bitwise_cpu"] and rec["min"] >= 0.46 - 1e-6
+                 and rec["max"] <= 0.54 + 1e-6
+                 and abs(rec["mean"] - 0.5) <= 5 * se
+                 and abs(rec["std"] / rec["want_std"] - 1) <= 0.01)
+    out["truncated_gaussian_random"] = rec
+    if not rec["ok"]:
+        failures.append(f"srl op truncated_gaussian_random: {rec}")
+    return out
+
+
+def srl_cell_timing(torch, lk, dev, gen, lengths):
+    """The SRL path's LSTM call (B = SRL_BATCH, T = SRL_PAD, H = SRL_H,
+    peepholes, SRL_ACTS, the sentences' ``lengths``): the kernel (twice,
+    around the plain loop) and the plain loop on the device clock, and
+    the bound for the steps inside the lengths.  No library call
+    computes this cell: cuDNN's LSTM fixes tanh for the candidate and
+    the cell."""
+    cfg = dict(peep=True, reverse=False, init=False, ragged=False,
+               acts=SRL_ACTS)
+    (x, w, b, _, _, _), kw = lstm_inputs(torch, gen, dev, SRL_BATCH,
+                                         SRL_PAD, SRL_H, cfg)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        k1 = cuda_ms(torch, lambda: lk.lstm_forward(x, w, b, lens, **kw), 20)
+        plain = cuda_ms(torch, lambda: lk.lstm_forward_plain(
+            x, w, b, lens, **kw), 3)
+        k2 = cuda_ms(torch, lambda: lk.lstm_forward(x, w, b, lens, **kw), 20)
+    live = int(sum(lengths))
+    b_ms, b_by = lstm_bound(SRL_BATCH, SRL_PAD, SRL_H, live=live)
+    return {"B": SRL_BATCH, "T": SRL_PAD, "H": SRL_H, "acts": SRL_ACTS,
+            "live_steps": live, "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_ms": lstm_bound(SRL_BATCH, SRL_PAD, SRL_H, 1,
+                                        FP32_FLOPS_PER_S, live)[0],
+            "library_ms": None,
+            "library": "none: cuDNN's LSTM fixes tanh",
+            "plan": lk.device_plan(SRL_BATCH, SRL_H, dev)}
+
+
+def srl_compare(torch, np, fluid, main, loss, feature_out, crf_decode,
+                init, small, sparse):
+    """Step 3 at SRL_COMPARE_BATCH sentences (``captured_step``): the
+    replay against the eager step, the card against the CPU port from
+    the card's state before it (the loss, every dense gradient, the
+    sparse tables' updates), and ``crf_decoding`` and ``chunk_eval`` run
+    on both devices on the card's emissions and transitions: paths and
+    counts equal, and the card's program path equal to its op's."""
+    params = [p.name for p in main.global_block().all_parameters()
+              if p.trainable and p.name not in sparse]
+    fetch = [loss.name, feature_out.name, crf_decode.name] + \
+        [n + "@GRAD" for n in params]
+    r = captured_step(torch, fluid, main, fetch, init, lambda i: small,
+                      [(main, fetch)])
+    card = r["card"]
+    cpu = [np.asarray(v.data if hasattr(v, "lengths") else v)
+           for v in r["cpu"][0][0]]
+    before, after, cpu_after = r["before"], r["after"], r["cpu"][0][1]
+    rec = {"loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+           "loss_rel_err": abs(float(card[0]) - float(cpu[0]))
+           / abs(float(cpu[0])),
+           "grad_rel_err": max(float(np.abs(a - b).max())
+                               / max(float(np.abs(b).max()), 1e-30)
+                               for a, b in zip(card[3:], cpu[3:])),
+           "n_dense_grads": len(params), "replay": replay_record(r),
+           "replay_ok": replay_ok(r, set(before), loss.name,
+                                  LSTM_LOSS_RTOL, LSTM_GRAD_RTOL,
+                                  2 * SRL_LR + 1e-6)}
+    rec["sparse_update_rel_err"] = max(
+        float(np.abs((after[n] - before[n]) - (cpu_after[n] - before[n]))
+              .max()) / max(float(np.abs(cpu_after[n] - before[n]).max()),
+                            1e-30) for n in sparse)
+    # Viterbi and the chunk counts on the card's emissions, both devices
+    lens = np.asarray(small["word_data"].lengths)
+    specs = {"Emission": ("seq", card[1], lens),
+             "Transition": ("t", before["crfw"])}
+    devices = (torch.device("cuda", 0), torch.device("cpu"))
+    paths = [run_op(torch, np, "crf_decoding", specs, {}, (), d)[0][0]
+             for d in devices]
+    lbl = np.asarray(small["target"].data).astype(np.int32)
+    # chunk_eval's outputs by slot name: F1-Score, NumCorrectChunks,
+    # NumInferChunks, NumLabelChunks, Precision, Recall
+    counts = [run_op(torch, np, "chunk_eval", {
+        "Inference": ("seq", p.numpy(), lens), "Label": ("seq", lbl, lens)},
+        {}, (), d)[0] for p, d in zip(paths, devices)]
+    rec["decode_equal"] = torch.equal(paths[0], paths[1])
+    rec["program_path_equal"] = bool(np.array_equal(
+        card[2].astype(np.int32), paths[0].numpy()))
+    rec["chunk_counts"] = dict(zip(("correct", "inferred", "label"),
+                                   (float(c) for c in counts[0][1:4])))
+    rec["chunk_counts_equal"] = all(torch.equal(a, b)
+                                    for a, b in zip(*counts))
+    rec["ok"] = (rec["replay"]["bitwise"]
+                 and rec["loss_rel_err"] <= LSTM_LOSS_RTOL
+                 and rec["grad_rel_err"] <= LSTM_GRAD_RTOL
+                 and rec["sparse_update_rel_err"] <= LSTM_GRAD_RTOL
+                 and rec["decode_equal"] and rec["program_path_equal"]
+                 and rec["chunk_counts_equal"])
+    return rec
+
+
+def srl_phase(torch, np, fluid, lk, card):
+    """Phase 19: the slice's ops on the card against the CPU, the SRL
+    cell's timing, then the book's label_semantic_roles at full width
+    through ``fluid.Executor``: step 3 against eager and the CPU, 20
+    steps on SRL_BATCHES batches (the compiled step, the frozen and the
+    unfed rows, the loss), the ChunkEvaluator against a recount,
+    ModelAverage's apply against its rule and restore bitwise, a step
+    after them bitwise the same step without, ``reset`` counting from
+    zero, then the host syncs, the device's time and its busy and idle
+    share.  -> (the ``srl`` record, lstm_fwd launches of the training
+    run, the SRL cell's timing row, failures)."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    t0 = time.perf_counter()
+    fails = []
+    rec = {"card": card, "config": {
+        "dims": "SRLDims()", "depth": SRL_DEPTH, "lstm_H": SRL_H,
+        "batch": SRL_BATCH, "padded_len": SRL_PAD, "lengths": SRL_LEN,
+        "sgd_lr": SRL_LR, "chunk_types": SRL_CHUNK_TYPES,
+        "model_average": SRL_AVG}}
+    rec["ops"] = srl_op_checks(torch, np, fails)
+    log(f"srl ops card vs CPU: {json.dumps(rec['ops'])}")
+
+    main, startup, loss, feature_out, crf_decode, ev, ma = build_srl(fluid)
+    init = initial_scope(fluid, startup)
+    rng = np.random.RandomState(SEED + 19)
+    feeds = [srl_batch(np, fluid, rng, SRL_BATCH)
+             for _ in range(SRL_BATCHES)]
+    small = srl_batch(np, fluid, np.random.RandomState(SEED + 20),
+                      SRL_COMPARE_BATCH)
+    sparse = sparse_tables(main)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 19)
+    rec["lstm_cell"] = srl_cell_timing(
+        torch, lk, dev, gen, [int(n) for n in feeds[0]["target"].lengths])
+    log(f"srl lstm cell: {json.dumps(rec['lstm_cell'])}")
+    step = srl_compare(torch, np, fluid, main, loss, feature_out,
+                       crf_decode, init, small, sparse)
+    rec["compare"] = step
+    log(f"srl step {COMPARE_STEP} card vs CPU and replay vs eager: "
+        f"{json.dumps(step)}")
+    if not step["ok"]:
+        fails.append(f"srl step {COMPARE_STEP}: {step}")
+    torch.cuda.empty_cache()
+
+    # -- SRL_STEPS steps through the executor
+    params = [p.name for p in ma._params]
+    scope = fluid.scope_from_numpy(init, fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    staged = [device_feed(torch, f, dev) for f in feeds]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    # each step's parameters, copied to pinned host memory behind it on
+    # the stream (no host sync): ModelAverage's rule is replayed on them
+    snaps = [{n: torch.empty(init[n].shape, pin_memory=True)
+              for n in params} for _ in range(SRL_STEPS)]
+    fetch = [loss, crf_decode]
+    zero_launch_counts()
+    losses, times, paths = [], [], []
+    for i in range(SRL_STEPS):
+        t1 = time.perf_counter()
+        lv, path = exe.run(main, feed=staged[i % SRL_BATCHES],
+                           fetch_list=fetch, scope=scope)
+        times.append(time.perf_counter() - t1)
+        losses.append(float(lv))
+        paths.append(np.asarray(path.data))
+        for n, h in snaps[i].items():
+            h.copy_(scope.find_var(n), non_blocking=True)
+    launches = named_launches(launch_counts())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    snaps = [{n: t.numpy() for n, t in s.items()} for s in snaps]
+    stats = exe.cache_stats()["executable"]
+    steady = statistics.median(times[1:])
+    tokens = statistics.mean(int(np.asarray(f["target"].lengths).sum())
+                             for f in feeds)
+    lstm_n = launches.pop(LSTM_COUNTER, 0)
+    train = {"batch": SRL_BATCH, "steps": SRL_STEPS, "losses": losses,
+             "first_step_ms": times[0] * 1e3,
+             "step_ms_median": steady * 1e3,
+             "target_tokens_per_batch": tokens,
+             "target_tokens_per_s": tokens / steady,
+             "resident_gib": resident, "peak_mem_gib": peak,
+             "peak_over_resident_gib": peak - resident,
+             "executable": stats, "executable_hits": stats["hits"],
+             "graph": step_graph(exe), "lstm_launches": lstm_n,
+             "lstm_launches_per_step": lstm_n / SRL_STEPS,
+             "other_kernel_launches": sum(launches.values())}
+    fails += graph_failures("srl", train, SRL_STEPS,
+                            {"lstm_fwd": SRL_DEPTH})
+    if lstm_n != SRL_DEPTH * SRL_STEPS or train["other_kernel_launches"]:
+        fails.append(f"srl: {lstm_n} lstm_fwd launches in {SRL_STEPS} "
+                     f"steps, want {SRL_DEPTH} a step, and "
+                     f"{train['other_kernel_launches']} of other kernels")
+    if not (all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < statistics.mean(losses[:5])):
+        fails.append(f"srl: the loss did not fall: {losses}")
+
+    # -- the frozen word table, and the sparse tables' unfed rows
+    now = fluid.scope_to_numpy(scope, ["emb"] + sparse)
+    state = {"emb_unchanged": bool(np.array_equal(now["emb"], init["emb"]))}
+    ids_of = {op.input("W")[0]: op.input("Ids")[0]
+              for op in main.global_block().ops
+              if op.type == "lookup_table" and op.attr("is_sparse")}
+    for n in sparse:
+        # padding positions look up row 0 too
+        fed = np.unique(np.concatenate(
+            [np.asarray(f[ids_of[n]].data).reshape(-1) for f in feeds]))
+        unfed = np.setdiff1d(np.arange(now[n].shape[0]), fed)
+        state[n] = {"rows": int(now[n].shape[0]), "unfed": int(unfed.size),
+                    "unfed_unchanged": bool(np.array_equal(
+                        now[n][unfed], init[n][unfed])),
+                    "fed_changed": int((now[n][fed] != init[n][fed])
+                                       .any(axis=1).sum())}
+    train["state"] = state
+    if not state["emb_unchanged"] or not all(
+            state[n]["unfed_unchanged"] for n in sparse) \
+            or not any(state[n]["unfed"] for n in sparse):
+        fails.append(f"srl: frozen or unfed rows changed: {state}")
+
+    # -- the ChunkEvaluator against a host recount of the fetched paths
+    want = np.zeros(3)
+    for i, p in enumerate(paths):
+        f = feeds[i % SRL_BATCHES]["target"]
+        want += chunk_counts(np, p, f.data, f.lengths)
+    names = [ev.num_infer.name, ev.num_label.name, ev.num_correct.name]
+    got = [float(fluid.scope_to_numpy(scope, [n])[n].sum()) for n in names]
+    train["chunk"] = {"counts": got, "recount": want.tolist(),
+                      "eval": [float(v) for v in ev.eval(scope=scope)]}
+    if got != want.tolist():
+        fails.append(f"srl ChunkEvaluator: {got}, host recount "
+                     f"{want.tolist()}")
+
+    # -- ModelAverage: apply against the rule, restore bitwise, twice
+    avg, lim, cnt = average_rule(np, snaps, SRL_AVG["average_window_rate"],
+                                 SRL_AVG["min_average_window"],
+                                 SRL_AVG["max_average_window"])
+    snap = {n: v.clone() for n, v in scope.vars.items()
+            if isinstance(v, torch.Tensor)}
+    ptrs = {n: scope.find_var(n).data_ptr() for n in params}
+    mrec = {"averaged_steps": cnt, "rounds": []}
+    for _ in range(2):
+        with fluid.scope_guard(scope):
+            with ma.apply(exe, need_restore=False):
+                applied = fluid.scope_to_numpy(scope, params)
+            ma.restore(exe)
+        back = fluid.scope_to_numpy(scope, params)
+        excess = max(float((np.abs(applied[n] - avg[n]) / np.maximum(
+            lim[n], 1e-30)).max()) for n in params)
+        mrec["rounds"].append({
+            "apply_excess": excess,
+            "apply_max_abs_err": max(float(np.abs(applied[n] - avg[n])
+                                           .max()) for n in params),
+            "restore_bitwise": all(np.array_equal(back[n], snaps[-1][n])
+                                   for n in params)})
+    # a step after apply / restore, then the same step from the state
+    # before them: bitwise equal
+    k = SRL_STEPS % SRL_BATCHES
+    l1, _ = exe.run(main, feed=staged[k], fetch_list=fetch, scope=scope)
+    after1 = {n: scope.find_var(n).clone() for n in snap}
+    mrec["restored_at_graph_addresses"] = all(
+        scope.find_var(n).data_ptr() == p for n, p in ptrs.items())
+    for n, v in snap.items():
+        scope.set_var(n, v.clone())
+    l2, _ = exe.run(main, feed=staged[k], fetch_list=fetch, scope=scope)
+    mrec["step_after_restore_bitwise"] = bool(
+        float(l1) == float(l2) and all(torch.equal(after1[n],
+                                                   scope.find_var(n))
+                                       for n in snap))
+    train["model_average"] = mrec
+    del snap, after1
+    if not (all(r["apply_excess"] <= 1.0 and r["restore_bitwise"]
+                for r in mrec["rounds"])
+            and mrec["restored_at_graph_addresses"]
+            and mrec["step_after_restore_bitwise"] and cnt > 0):
+        fails.append(f"srl ModelAverage: {mrec}")
+
+    # -- reset(): the next replay counts from zero
+    ev.reset(scope=scope)
+    f = feeds[(k + 1) % SRL_BATCHES]
+    _, path = exe.run(main, feed=staged[(k + 1) % SRL_BATCHES],
+                      fetch_list=fetch, scope=scope)
+    got = [float(fluid.scope_to_numpy(scope, [n])[n].sum()) for n in names]
+    want = list(chunk_counts(np, np.asarray(path.data), f["target"].data,
+                             f["target"].lengths))
+    train["chunk"]["after_reset"] = {"counts": got, "recount": want}
+    if got != [float(x) for x in want]:
+        fails.append(f"srl ChunkEvaluator after reset: {got}, host "
+                     f"recount {want}")
+
+    # -- the host's syncs a step, the device's time, busy and idle share
+    train["host_syncs_per_step"] = host_syncs_per_step(torch, lambda: exe.run(
+        main, feed=staged[0], fetch_list=fetch, scope=scope))
+    if train["host_syncs_per_step"] != 1:
+        fails.append(f"srl: {train['host_syncs_per_step']} host syncs a "
+                     f"step, want 1 (the fetch)")
+    # the training step's graph: the one used last (graphs() is least
+    # recently used first)
+    train["device_ms"] = (replay_ms(torch, exe, exe.graphs()[-1])
+                          if exe.graphs() else None)
+    prof = profiled_call(torch, lambda: exe.run(
+        main, feed=staged[0], fetch_list=fetch, scope=scope))
+    train["profiled_step"] = prof
+    # three entries: the training step, apply and restore, each missed
+    # once and replayed at every later run
+    train["executable_after"] = exe.cache_stats()["executable"]
+    if train["executable_after"]["misses"] != 3 \
+            or len(exe.graphs()) != 3:
+        fails.append(f"srl: {train['executable_after']}, "
+                     f"{len(exe.graphs())} graphs: want 3 misses (the "
+                     f"step, apply, restore) and 3 graphs")
+    train["device_busy_ms"] = prof["device_busy_ms"]
+    train["device_idle_share"] = prof["device_idle_share"]
+    rec["train"] = train
+    log(f"srl training: {json.dumps(train)}")
+    del exe, scope, staged
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, lstm_n, rec["lstm_cell"], fails
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5309,6 +5984,18 @@ def main() -> int:
     lstm_entry["launches_seq2seq"] = nmt_launches
     log(f"nmt phase ({nmt['seconds']:.1f}s)")
 
+    # -- semantic role labeling and the evaluators: the LSTM kernel in
+    # each of db_lstm's 8 layers, H = 128
+    torch.cuda.empty_cache()
+    srl, srl_launches, srl_cell, srl_fails = srl_phase(torch, np, fluid, lk,
+                                                       card)
+    failures += srl_fails
+    lstm_entry["launches"] += srl_launches
+    lstm_entry["launches_srl"] = srl_launches
+    # the SRL path's own call: H = 128, relu / sigmoid / sigmoid, ragged
+    lstm_entry["srl_cell"] = srl_cell
+    log(f"srl phase ({srl['seconds']:.1f}s)")
+
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
@@ -5319,6 +6006,7 @@ def main() -> int:
     print(json.dumps({"image": image}), flush=True)
     print(json.dumps({"sparse": sparse}), flush=True)
     print(json.dumps({"nmt": nmt}), flush=True)
+    print(json.dumps({"srl": srl}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

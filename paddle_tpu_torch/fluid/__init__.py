@@ -9,17 +9,18 @@ Cut to what the Transformer training program (float32 or the bf16
 ``amp_dtype`` recipe), the paged serving step, the LSTM text
 classifiers, the book's chapters through image classification, the
 embedding chapters (CTR wide&deep, word2vec, the recommender: sparse
-embeddings) and the optimizer front end (every optimizer but
-ModelAverage, ``regularizer``, ``clip``, ``learning_rate_decay``) need;
-level-1 sequence inputs are ``SeqArray`` feeds (``make_seq``,
-``DataFeeder``), and ``io`` holds ``prune_program``.  Not ported (they
-raise ``NotImplementedError`` where the API reaches them): level-2
-sequence inputs (``NestedSeqArray`` is only ``beam_search_decode``'s
-output), meshes and sequence parallelism, ModelAverage, control-flow
-ops, the compile cache and ``cost_analysis``."""
+embeddings), the optimizer front end (every optimizer, ModelAverage
+too, ``regularizer``, ``clip``, ``learning_rate_decay``), control flow
+and the seq2seq models, and semantic role labeling (the linear-chain
+CRF, ``evaluator``) need; level-1 sequence inputs are ``SeqArray``
+feeds (``make_seq``, ``DataFeeder``), and ``io`` holds
+``prune_program``.  Not ported (they raise ``NotImplementedError``
+where the API reaches them): level-2 sequence inputs
+(``NestedSeqArray`` is only ``beam_search_decode``'s output), meshes
+and sequence parallelism, the compile cache and ``cost_analysis``."""
 
 from . import ops as _ops  # registers the op emitters  # noqa: F401
-from . import (clip, initializer, io, layers,  # noqa: F401
+from . import (clip, evaluator, initializer, io, layers,  # noqa: F401
                learning_rate_decay, nets, optimizer, regularizer,
                unique_name)
 from .backward import append_backward
@@ -36,7 +37,7 @@ from .param_attr import ParamAttr
 
 __all__ = [
     "layers", "nets", "optimizer", "initializer", "unique_name", "io",
-    "regularizer", "clip", "learning_rate_decay", "DataFeeder",
+    "regularizer", "clip", "learning_rate_decay", "evaluator", "DataFeeder",
     "append_backward", "registered_ops", "SeqArray", "make_seq",
     "Executor", "Scope", "global_scope", "scope_guard", "CUDAPlace",
     "CPUPlace", "scope_from_numpy", "scope_to_numpy",

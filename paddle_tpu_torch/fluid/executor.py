@@ -29,7 +29,11 @@ lives at fixed addresses:
   writes out of place) is copied into a buffer of the entry's own.  An
   op that updates in place (Adam, SGD, Momentum, the paged KV writes)
   writes the buffers; an op that writes out of place is followed by a
-  copy back into the buffer.  A var replaced in the scope (``set_var``,
+  copy back into the buffer.  A value written out of place that shares
+  memory with a state or feed buffer (an ``assign`` of one persistable
+  to another, as ModelAverage's apply and restore programs make) is
+  copied first, so the var keeps its value when that buffer moves on.
+  A var replaced in the scope (``set_var``,
   ``scope_from_numpy``) is copied in before the next replay; a scope
   that takes over a buffer from another first gives that one its own
   copy, so two scopes run through one executor keep their own state.
@@ -329,6 +333,31 @@ def _copy_into(dst, src) -> None:
         d.copy_(x, non_blocking=True)
 
 
+def _storages(values) -> set:
+    """The addresses of the storages behind ``values``' tensors."""
+    return {t.untyped_storage().data_ptr() for v in values
+            for t in _tensors(v) if isinstance(t, torch.Tensor)}
+
+
+def _own_outputs(plan: BlockPlan, env: Dict[str, Any], state, feeds
+                 ) -> None:
+    """Each state var the step writes out of place gets memory of its
+    own where its value shares a state or feed buffer (an ``assign`` of
+    one persistable to another returns its input, a ``reshape`` a view
+    of it): the reference's values are immutable, and here the buffer
+    is written after the step (a state var's copy-back, the next feed)
+    or by the next step in place, which would change the var too."""
+    held = None
+    for n in plan.state_out:
+        v = env[n]
+        if v is state.get(n):
+            continue
+        if held is None:
+            held = _storages(list(state.values()) + list(feeds.values()))
+        if _storages([v]) & held:
+            env[n] = _clone(v)
+
+
 def _fetch_numpy(values) -> List[Any]:
     """Fetched values as numpy arrays of their own (SeqArrays and
     NestedSeqArrays of them), copied from the card through pinned
@@ -545,6 +574,7 @@ class Executor:
         with torch.no_grad():
             run_block_ops(plan, env, entry.seeds_host, entry.seeds,
                           self.device, entry.mode)
+            _own_outputs(plan, env, entry.state, entry.feeds)
             for n in plan.state_out:
                 if n in entry.state and env[n] is not entry.state[n]:
                     for d, x in zip(_tensors(entry.state[n]),
@@ -573,6 +603,7 @@ class Executor:
                  and not plan.host_rng_ops else contextlib.nullcontext())
         with torch.no_grad(), guard:
             run_block_ops(plan, env, seeds, entry.seeds, dev, mode)
+            _own_outputs(plan, env, state, entry.feeds)
         for n in plan.state_out:
             scope.set_var(n, env[n])
         # a fed value is the feed buffer, which the next step overwrites,

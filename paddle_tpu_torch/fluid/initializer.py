@@ -1,6 +1,6 @@
 """Parameter initializers — the port of ``paddle_tpu/fluid/initializer.py``,
-cut to what the Transformer and Adam create: constant, uniform (Xavier's
-default) and normal.  Each appends an init op to the startup program;
+cut to constant, uniform (Xavier's and MSRA's default), normal and
+truncated normal, Xavier and MSRA.  Each appends an init op to the startup program;
 the random ops draw from a seeded CPU ``torch.Generator``
 (``ops/tensor_ops.py``), so one seed gives the same weights on every
 device."""
@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Constant", "Uniform", "Normal", "Xavier",
-           "ConstantInitializer", "UniformInitializer",
-           "NormalInitializer", "XavierInitializer"]
+__all__ = ["Constant", "Uniform", "Normal", "TruncatedNormal", "Xavier",
+           "MSRA", "ConstantInitializer", "UniformInitializer",
+           "NormalInitializer", "XavierInitializer", "MSRAInitializer"]
 
 
 class Initializer:
@@ -62,6 +62,19 @@ class NormalInitializer(Initializer):
                                "std": float(self.scale)})
 
 
+class TruncatedNormalInitializer(Initializer):
+    """Normal draws truncated to two standard deviations."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op("truncated_gaussian_random", outputs={"Out": var},
+                        attrs={"shape": list(var.shape), "dtype": var.dtype,
+                               "mean": float(self.loc),
+                               "std": float(self.scale)})
+
+
 class XavierInitializer(Initializer):
     """Glorot — reference initializer.py XavierInitializer."""
 
@@ -80,7 +93,25 @@ class XavierInitializer(Initializer):
             NormalInitializer(0.0, std)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    """He/Kaiming — reference initializer.py MSRAInitializer."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in = uniform, fan_in
+
+    def __call__(self, var, block):
+        fi, _ = self._fan_in_out(var)
+        fi = self.fan_in or fi
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fi))
+            UniformInitializer(-limit, limit)(var, block)
+        else:
+            NormalInitializer(0.0, float(np.sqrt(2.0 / fi)))(var, block)
+
+
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -7,7 +7,8 @@ text classifiers, the book's chapters (``models/fit_a_line``,
 benchmarks (``models/benchmark_nets``), CTR wide&deep
 (``models/ctr``) and the seq2seq models (``models/machine_translation``,
 ``models/rnn_encoder_decoder``: ``squeeze``, ``unsqueeze``, ``expand``)
-build.  Each
+build, and the general tensor layers (``one_hot``, ``split``,
+``gather``, ``multiplex``, the reductions).  Each
 layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
@@ -24,6 +25,8 @@ __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "softmax_with_cross_entropy", "square_error_cost",
            "sigmoid_cross_entropy_with_logits", "cos_sim", "conv2d",
            "pool2d", "batch_norm", "layer_norm", "lrn", "reduce_sum",
+           "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+           "one_hot", "split", "gather", "multiplex",
            "reshape", "transpose", "squeeze", "unsqueeze", "expand",
            "matmul", "topk", "beam_search", "beam_search_decode",
            "batch_gather", "fused_attention", "fused_vocab_cross_entropy",
@@ -333,6 +336,49 @@ def _make_reduce(op_type):
 
 
 reduce_sum = _make_reduce("reduce_sum")
+reduce_mean = _make_reduce("reduce_mean")
+reduce_max = _make_reduce("reduce_max")
+reduce_min = _make_reduce("reduce_min")
+reduce_prod = _make_reduce("reduce_prod")
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_tmp_variable("float32")
+    helper.append_op("one_hot", {"X": input}, {"Out": out}, {"depth": depth})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``input`` cut along ``dim`` into ``num_or_sections`` equal parts,
+    or parts of the listed sizes."""
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        attrs = {"num": num, "axis": dim}
+    else:
+        num = len(num_or_sections)
+        attrs = {"sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_tmp_variable(input.dtype) for _ in range(num)]
+    helper.append_op("split", {"X": input}, {"Out": outs}, attrs)
+    return outs
+
+
+def gather(input, index, name=None):
+    """reference gather_op.cc — rows of input by index."""
+    helper = LayerHelper("gather", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("gather", {"X": input, "Index": index}, {"Out": out})
+    return out
+
+
+def multiplex(inputs, index, name=None):
+    """reference multiplex_op.cc — per-row select among candidate tensors."""
+    helper = LayerHelper("multiplex", name=name)
+    out = helper.create_tmp_variable(inputs[0].dtype)
+    helper.append_op("multiplex", {"Ids": index, "X": inputs}, {"Out": out})
+    return out
 
 
 def reshape(x, shape, act=None, name=None):

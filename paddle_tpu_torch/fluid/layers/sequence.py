@@ -1,13 +1,15 @@
 """Sequence layers — the port of ``paddle_tpu/fluid/layers/sequence.py``,
 cut to ``sequence_conv``, ``sequence_pool`` and its first / last step
-forms, ``sequence_expand`` and ``sequence_pad``."""
+forms, ``sequence_expand``, ``sequence_pad`` and the linear-chain CRF
+(``linear_chain_crf``, ``crf_decoding``)."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
 __all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
-           "sequence_last_step", "sequence_expand", "sequence_pad"]
+           "sequence_last_step", "sequence_expand", "sequence_pad",
+           "linear_chain_crf", "crf_decoding"]
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
@@ -71,3 +73,42 @@ def sequence_pad(x, name=None):
     mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
     helper.append_op("sequence_pad", {"X": x}, {"Out": out, "Mask": mask})
     return out, mask
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """CRF negative log-likelihood per sequence (reference layers/nn.py
+    linear_chain_crf:791); its sum or mean is the training loss.  The
+    transition parameter is [num_tags + 2, num_tags]: row 0 start, row 1
+    stop, the rest transitions."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(helper.param_attr,
+                                         shape=[num_tags + 2, num_tags],
+                                         dtype=input.dtype,
+                                         suffix="transition")
+    nll = helper.create_tmp_variable(input.dtype)
+    helper.append_op("linear_chain_crf",
+                     {"Emission": input, "Transition": transition,
+                      "Label": label},
+                     {"LogLikelihood": nll})
+    return nll
+
+
+def crf_decoding(input, param_attr=None, label=None):
+    """Viterbi decode (reference layers/nn.py crf_decoding).
+    ``param_attr`` names the transition parameter of the
+    ``linear_chain_crf`` it decodes: creating it again by that name
+    shares it, as in the reference."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(helper.param_attr,
+                                         shape=[num_tags + 2, num_tags],
+                                         dtype=input.dtype,
+                                         suffix="transition")
+    path = helper.create_tmp_variable("int32", lod_level=1,
+                                      stop_gradient=True)
+    inputs = {"Emission": input, "Transition": transition}
+    if label is not None:
+        inputs["Label"] = label
+    helper.append_op("crf_decoding", inputs, {"ViterbiPath": path})
+    return path

@@ -1,13 +1,16 @@
 """Composite network helpers — the port of ``paddle_tpu/fluid/nets.py``,
-cut to the image helpers (``simple_img_conv_pool``, ``img_conv_group``)
-and the text-CNN block ``sequence_conv_pool``.  ``glu`` and
-``scaled_dot_product_attention`` are absent."""
+the image helpers (``simple_img_conv_pool``, ``img_conv_group``), the
+text-CNN block ``sequence_conv_pool``, ``glu`` and the single-program
+``scaled_dot_product_attention``."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -56,3 +59,25 @@ def sequence_conv_pool(input, num_filters, filter_size, act="sigmoid",
                                     filter_size=filter_size, act=act,
                                     param_attr=param_attr)
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: ``input`` split in two along ``dim``, the first
+    half times the sigmoid of the second."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """softmax(q k^T / sqrt(d)) v as single ops (reference nets.py): a
+    ``scale``, two ``matmul``s, a ``softmax`` and, given a rate, a
+    ``dropout``.  ``num_heads`` is taken and unused, as in the
+    reference."""
+    d = queries.shape[-1]
+    scaled_q = layers.scale(queries, scale=float(1.0 / np.sqrt(d)))
+    logits = layers.matmul(scaled_q, keys, transpose_y=True)
+    weights = layers.softmax(logits)
+    if dropout_rate > 0.0:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    return layers.matmul(weights, values)

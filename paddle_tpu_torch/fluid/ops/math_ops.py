@@ -1,10 +1,10 @@
 """Math ops: the projection matmul, the batched ``matmul`` of the
 unfused attention, the elementwise family, sum (over SelectedRows
-too), scale, mean, the clip and norm ops and ``cos_sim`` — the port
-of ``paddle_tpu/fluid/ops/math_ops.py``, less the reductions other than
-``reduce_sum``.  ``mul``, ``matmul``, ``sum``, ``scale`` and the
-elementwise ops see a SeqArray input's data and return a SeqArray, as
-in the reference.  The matmuls are ``torch.matmul``
+too), scale, mean, the clip and norm ops, ``cos_sim`` and the
+reductions (sum, mean, max, min, prod) — the port of
+``paddle_tpu/fluid/ops/math_ops.py``.  ``mul``, ``matmul``, ``sum``,
+``scale`` and the elementwise ops see a SeqArray input's data and
+return a SeqArray, as in the reference.  The matmuls are ``torch.matmul``
 (cuBLAS on the card: fp32 with TF32 off, bf16 accumulating in fp32), as
 the reference leaves them to XLA.
 
@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ..core.lod import SeqArray
 from ..core.registry import primitive
 
 
@@ -209,19 +210,49 @@ def cos_sim(ctx, x, y):
     return out, xn, yn
 
 
+def _prod(x, dim, keepdim=False):
+    """``jnp.prod`` over the dims ``dim``: ``torch.prod`` one dim at a
+    time (the last first), whose gradient is right where X holds
+    zeros."""
+    for d in sorted((d % x.dim() for d in dim), reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
 def _reduce(name, fn):
     @primitive(name)
     def _op(ctx, x, _fn=fn):
         """reference reduce_op.cc: dim (list or int), keep_dim,
-        reduce_all."""
+        reduce_all.  A SeqArray input keeps its sequence when only
+        feature dims (2 and up) are reduced; ``reduce_sum`` with
+        reduce_all sums its valid steps; any other reduce over its time
+        axis raises, as in the reference.  max and min share a tie's
+        gradient equally, as JAX's do."""
         dim = ctx.attr("dim", [0])
-        if ctx.attr("reduce_all", False):
+        keep = ctx.attr("keep_dim", False)
+        dim = None if ctx.attr("reduce_all", False) else \
+            ((dim,) if isinstance(dim, int) else tuple(dim))
+        if isinstance(x, SeqArray):
+            ndim = x.data.dim()
+            if dim is not None and all((d % ndim) >= 2 for d in dim):
+                return x.with_data(_fn(x.data, dim=dim, keepdim=keep))
+            if name != "reduce_sum" or dim is not None:
+                raise NotImplementedError(
+                    f"{name} over the time axis of a sequence input is "
+                    f"ill-defined in the padded layout; pool the sequence "
+                    f"axis first (sequence_pool)")
+            m = x.mask(x.data.dtype).reshape(
+                tuple(x.data.shape[:2]) + (1,) * (ndim - 2))
+            x = x.data * m
+        if dim is None:
             dim = tuple(range(x.dim()))
-        elif isinstance(dim, int):
-            dim = (dim,)
-        return _fn(x, dim=tuple(dim), keepdim=ctx.attr("keep_dim", False))
+        return _fn(x, dim=dim, keepdim=keep)
     _op.__name__ = name
     return _op
 
 
 _reduce("reduce_sum", torch.sum)
+_reduce("reduce_mean", torch.mean)
+_reduce("reduce_max", torch.amax)
+_reduce("reduce_min", torch.amin)
+_reduce("reduce_prod", _prod)

@@ -1,6 +1,6 @@
 """Optimizer update ops — the port of
-``paddle_tpu/fluid/ops/optimizer_ops.py``, less ``average_accumulates``
-(ModelAverage is not ported).
+``paddle_tpu/fluid/ops/optimizer_ops.py``, with ModelAverage's
+``average_accumulates``.
 
 The reference updates functionally and lets XLA donate the buffers; here
 each op updates the parameter and its accumulators in place (the output
@@ -264,3 +264,43 @@ def proximal_adagrad(ctx, p, m, g, lr):
     prox = p.float() - lr * g / torch.sqrt(m)
     return p.copy_(_prox_shrink(prox, lr, ctx.attr("l1", 0.0),
                                 ctx.attr("l2", 0.0))), m
+
+
+@primitive("average_accumulates",
+           inputs=["Param", "InSum1", "InSum2", "InSum3",
+                   "InNumAccumulates", "InOldNumAccumulates",
+                   "InNumUpdates"],
+           outputs=["OutSum1", "OutSum2", "OutSum3", "OutNumAccumulates",
+                    "OutOldNumAccumulates", "OutNumUpdates"],
+           no_grad=True)
+def average_accumulates(ctx, p, sum1, sum2, sum3, num_acc, old_num_acc,
+                        num_upd):
+    """ModelAverage's windowed parameter sums (reference
+    parameter/AverageOptimizer.h:23 update() and
+    isAverageWindowTooLong()).  sum1 holds the running partial window,
+    flushed into sum2 every 16384 updates so the float32 sum keeps its
+    precision; when the window is full (num_acc >= min_window and >=
+    min(max_window, num_upd * rate)) the partial sums move to sum3 and
+    the count restarts.  The counters are the runtime's int32 (the
+    declared int64 narrowed, as in the reference).  Every branch is a
+    device ``where``: no host control flow, so the op stays inside a
+    captured step."""
+    rate = float(ctx.attr("average_window", 0.15))
+    min_win = int(ctx.attr("min_average_window", 10000))
+    max_win = int(ctx.attr("max_average_window", 10000))
+    kmax = 16384
+
+    num_upd = num_upd + 1
+    num_acc = num_acc + 1
+    sum1 = sum1 + p.float()
+    flush = torch.remainder(num_upd, kmax) == 0
+    sum2 = torch.where(flush, sum2 + sum1, sum2)
+    sum1 = torch.where(flush, torch.zeros_like(sum1), sum1)
+    window = (num_upd.float() * rate).to(num_upd.dtype).clamp_max(max_win)
+    shift = (num_acc >= min_win) & (num_acc >= window)
+    sum3 = torch.where(shift, sum1 + sum2, sum3)
+    sum1 = torch.where(shift, torch.zeros_like(sum1), sum1)
+    sum2 = torch.where(shift, torch.zeros_like(sum2), sum2)
+    old_num_acc = torch.where(shift, num_acc, old_num_acc)
+    num_acc = torch.where(shift, torch.zeros_like(num_acc), num_acc)
+    return sum1, sum2, sum3, num_acc, old_num_acc, num_upd

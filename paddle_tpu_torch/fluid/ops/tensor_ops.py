@@ -6,18 +6,26 @@ machine translation (``fill_constant_batch_size_like``, ``squeeze``,
 ``unsqueeze``, ``expand``: the seq2seq beam decoders), the reference's
 image benchmarks (``concat``: GoogLeNet's inception towers), the
 embedding chapters (``lookup_table`` with its sparse gradient), their
-backward, the optimizers and the learning-rate schedules emit.
+backward, the optimizers and the learning-rate schedules emit, and the
+general tensor ops (``gather``, ``scatter``, ``slice``, ``split``,
+``one_hot``, ``shape``, ``multiplex``, ``truncated_gaussian_random``).
+``gather``'s gradient and ``scatter``'s adding form sum repeated ids
+with the fixed-order ``segment_sum``, never ``index_add_`` (atomics on
+the card: a sum that changes from run to run).
 
 Random ops draw from a CPU ``torch.Generator`` seeded with the op's
 seed (``EmitCtx.seed``, a Python int for these ``host_rng`` ops) and
 copy to the device, so one seed gives the same values on every device;
 during shape inference (``meta``) they draw nothing.  A host draw cannot
 sit in a captured step (its values would be replayed), so the executor
-runs a program that holds one eagerly once and refuses to replay it.  The reference's runtime narrows int64 and float64 to
-int32 and float32, and so do these ops.
+runs a program that holds one eagerly once and refuses to replay it.
+The reference's runtime narrows int64 and float64 to int32 and float32,
+and so do these ops.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -201,3 +209,109 @@ def top_k(ctx, x):
 @primitive("transpose")
 def transpose(ctx, x):
     return x.permute(*ctx.attr("axis"))
+
+
+def _normal_truncated(t: torch.Tensor, gen: torch.Generator, lo=-2.0,
+                      hi=2.0) -> torch.Tensor:
+    """``t`` filled with standard normal draws truncated to [lo, hi], by
+    the inverse CDF of uniform draws between the bounds' CDFs (as
+    ``torch.nn.init.trunc_normal_`` draws them)."""
+    cdf = [0.5 * (1.0 + math.erf(x / math.sqrt(2.0))) for x in (lo, hi)]
+    t.uniform_(2 * cdf[0] - 1, 2 * cdf[1] - 1, generator=gen)
+    return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(lo, hi)
+
+
+@primitive("truncated_gaussian_random", inputs=[], no_grad=True,
+           host_rng=True)
+def truncated_gaussian_random(ctx, *_):
+    """Normal draws truncated to two standard deviations, then scaled by
+    ``std`` and shifted by ``mean`` (``jax.random.truncated_normal(-2,
+    2)``'s distribution; the bits are the host generator's)."""
+    return _draw(ctx, lambda t, g: _normal_truncated(t, g)
+                 * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))
+
+
+@primitive("gather", inputs=["X", "Index"], stop_grad_slots=("Index",))
+def gather(ctx, x, index):
+    """Rows of X by Index (reference gather_op.cc), ids in [0, rows),
+    as an embedding lookup: its gradient is
+    ``aten.embedding_dense_backward``, ``segment_sum``'s fixed-order
+    sum of repeated ids' rows."""
+    ids = index.reshape(-1).long()
+    rows = torch.nn.functional.embedding(ids, x.reshape(x.shape[0], -1))
+    return rows.reshape(tuple(ids.shape) + tuple(x.shape[1:]))
+
+
+@primitive("scatter", inputs=["X", "Ids", "Updates"],
+           stop_grad_slots=("Ids",))
+def scatter(ctx, x, ids, updates):
+    """X with the rows at Ids replaced by (``overwrite``, the default)
+    or increased by the rows of Updates.  Adding sums repeated ids'
+    updates first, in a fixed order (``segment_sum``, whose adjoint
+    gathers the output gradient's rows).  Overwriting
+    with a repeated id is left open by the reference (``.at[].set``
+    picks one of the updates, which one is not specified), and so here:
+    give each row one update."""
+    from ..core.selected_rows import segment_sum
+
+    ids = ids.reshape(-1).long()
+    if ctx.attr("overwrite", True):
+        return x.index_put((ids,), updates.to(x.dtype))
+    return x + segment_sum(updates.to(x.dtype), ids, x.shape[0])
+
+
+@primitive("slice")
+def slice_op(ctx, x):
+    """reference slice_op.cc: ``x[starts:ends]`` along each of ``axes``,
+    negative bounds counted from the end and clamped, as Python slices
+    are."""
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(ctx.attr("axes"), ctx.attr("starts"),
+                          ctx.attr("ends")):
+        idx[ax] = slice(st, en)
+    return x[tuple(idx)]
+
+
+@primitive("split", inputs=["X"], outputs=["Out"])
+def split(ctx, x):
+    """X cut along ``axis`` into ``sections`` sizes, or ``num`` equal
+    parts (reference split_op.cc); the gradient joins the parts'."""
+    axis = ctx.attr("axis", 0)
+    sections = ctx.attr("sections", None)
+    if sections:
+        return list(torch.split(x, list(sections), dim=axis))
+    num = ctx.attr("num", 0)
+    if x.shape[axis] % num:
+        raise ValueError(f"split: dim {axis} of size {x.shape[axis]} "
+                         f"does not divide into {num} equal parts")
+    return list(torch.split(x, x.shape[axis] // num, dim=axis))
+
+
+@primitive("one_hot", no_grad=True)
+def one_hot(ctx, x):
+    """float32 [..., depth] rows, 1 at each id; an id outside [0, depth)
+    gives a row of zeros, as ``jax.nn.one_hot`` does (a comparison with
+    ``arange(depth)``: no range check, no host sync)."""
+    ids = _ids(x)
+    depth = ctx.attr("depth")
+    return (ids[..., None] == torch.arange(depth, device=ids.device)
+            ).to(torch.float32)
+
+
+@primitive("shape", no_grad=True)
+def shape_op(ctx, x):
+    """X's shape as an int32 vector, written by fills on the device (no
+    host copy)."""
+    out = torch.empty(len(x.shape), dtype=torch.int32, device=ctx.device)
+    for i, d in enumerate(x.shape):
+        out[i] = d
+    return out
+
+
+@primitive("multiplex", inputs=["Ids", "X*"], stop_grad_slots=("Ids",))
+def multiplex(ctx, ids, xs):
+    """Row i of the output is row i of X[Ids[i]] (reference
+    multiplex_op.cc)."""
+    stacked = torch.stack(xs, dim=0)                   # [n, batch, ...]
+    rows = ids.reshape(-1).long()
+    return stacked[rows, torch.arange(stacked.shape[1], device=rows.device)]

@@ -9,8 +9,10 @@ clips, the regularizers, and one update op per parameter plus its
 accumulators (persistable vars with startup-program init ops), the
 optimizer's finishing ops and the global step's increment.  Names and op
 order are the reference's, so the optimized program serializes alike.
-ModelAverage and ZeRO-style moment sharding (``shard_moments_over``) are
-not ported and raise.
+``ModelAverage`` appends its ``average_accumulates`` ops to the training
+program and builds its apply / restore programs as the reference does.
+ZeRO-style moment sharding (``shard_moments_over``) is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from . import unique_name
 from .backward import append_backward
 from .clip import append_gradient_clip_ops, error_clip_callback
 from .framework import (Block, Parameter, Program, Variable,
-                        default_main_program)
+                        default_main_program, default_startup_program)
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
@@ -368,25 +370,200 @@ class FtrlOptimizer(Optimizer):
 
 
 class ModelAverage(Optimizer):
-    """Polyak parameter averaging (reference ModelAverage, its
-    ``average_accumulates`` op): not ported."""
+    """Polyak parameter averaging over a trailing window — the port of
+    the reference's ModelAverage (paddle/parameter/AverageOptimizer.h:23,
+    used by the NMT/SRL recipes via v2 ``settings(... average_window)``;
+    doc/design/parameter_average.md).
+
+    Build it AFTER the real optimizer's ``minimize``, inside the same
+    program/startup guards::
+
+        optimizer.Momentum(...).minimize(cost)
+        model_avg = optimizer.ModelAverage(average_window_rate=0.15,
+                                           min_average_window=100,
+                                           max_average_window=10000)
+        ...train (the accumulation runs inside the training step)...
+        with model_avg.apply(exe):      # params <- windowed average
+            infer / save                 # (backed up first)
+        # params restored on exit; model_avg.restore(exe) for manual use
+
+    Per parameter it keeps three fp32 sums (partial window / precision
+    flush / last full window) and three counters, maintained by one
+    ``average_accumulates`` op appended to the training program, which
+    runs inside the captured training step like any optimizer
+    accumulator.
+
+    ``apply`` and ``restore`` run programs of their own in the global
+    scope, as the reference's do (``fluid.scope_guard`` puts the
+    training scope there): they replace the parameters' tensors in it,
+    and the training step's next replay copies the new values into the
+    buffers its graph holds (``Executor``: a var the scope replaced is
+    copied in)."""
 
     def __init__(self, average_window_rate: float = 0.15,
                  min_average_window: int = 10000,
                  max_average_window: int = 10000,
                  main_program: Optional[Program] = None,
                  startup_program: Optional[Program] = None, **kw):
-        raise NotImplementedError("ModelAverage (and its "
-                                  "average_accumulates op) is not ported "
-                                  "to paddle_tpu_torch")
+        super().__init__(0.0, **kw)
+        self._avg_rate = float(average_window_rate)
+        self._min_win = int(min_average_window)
+        self._max_win = int(max_average_window)
+        program = main_program or default_main_program()
+        startup = startup_program or default_startup_program()
+        self.helper = LayerHelper("model_average", main_program=program,
+                                  startup_program=startup)
+        block = program.global_block()
+        self._params = [v for v in block.vars.values()
+                        if isinstance(v, Parameter) and v.trainable]
+        if not self._params:
+            raise ValueError("ModelAverage: no trainable parameters — "
+                             "build it after the layers (and minimize)")
+        for p in self._params:
+            self._add_accumulator("sum_1", p)
+            self._add_accumulator("sum_2", p)
+            self._add_accumulator("sum_3", p)
+            self._add_accumulator("num_accumulates", p, shape=[1],
+                                  dtype="int64")
+            self._add_accumulator("old_num_accumulates", p, shape=[1],
+                                  dtype="int64")
+            self._add_accumulator("num_updates", p, shape=[1],
+                                  dtype="int64")
+            self._append_average_accumulate_op(p)
+        self._apply_program = Program()
+        self._restore_program = Program()
+        self._build_apply_restore()
+
+    def _append_average_accumulate_op(self, param):
+        names = {n: self._get_accumulator(n, param)
+                 for n in ("sum_1", "sum_2", "sum_3", "num_accumulates",
+                           "old_num_accumulates", "num_updates")}
+        self.helper.append_op(
+            "average_accumulates",
+            {"Param": param, "InSum1": names["sum_1"],
+             "InSum2": names["sum_2"], "InSum3": names["sum_3"],
+             "InNumAccumulates": names["num_accumulates"],
+             "InOldNumAccumulates": names["old_num_accumulates"],
+             "InNumUpdates": names["num_updates"]},
+            {"OutSum1": names["sum_1"], "OutSum2": names["sum_2"],
+             "OutSum3": names["sum_3"],
+             "OutNumAccumulates": names["num_accumulates"],
+             "OutOldNumAccumulates": names["old_num_accumulates"],
+             "OutNumUpdates": names["num_updates"]},
+            {"average_window": self._avg_rate,
+             "min_average_window": self._min_win,
+             "max_average_window": self._max_win})
+
+    def _build_apply_restore(self):
+        """Two tiny programs sharing the training scope by var NAME:
+        apply backs each param up and writes the windowed average over
+        it; restore copies the backup back (reference AverageOptimizer
+        apply()/restore() traversal callbacks).  Before any update the
+        count is 0 and the sums are all zero — then the gate min(cnt,1)
+        keeps the RAW param instead of zeroing the model."""
+        ab = self._apply_program.global_block()
+        rb = self._restore_program.global_block()
+        for p in self._params:
+            accs = {n: self._get_accumulator(n, p)
+                    for n in ("sum_1", "sum_2", "sum_3",
+                              "num_accumulates", "old_num_accumulates")}
+            backup_name = unique_name.generate(f"{p.name}_backup")
+            # the backup lives in the SCOPE (created by apply's assign);
+            # declared in both programs, persistable so it survives runs
+            for blk, prog in ((ab, self._apply_program),
+                              (rb, self._restore_program)):
+                blk.create_var(name=p.name, shape=list(p.shape),
+                               dtype=p.dtype, persistable=True)
+                blk.create_var(name=backup_name, shape=list(p.shape),
+                               dtype=p.dtype, persistable=True)
+            for n, v in accs.items():
+                ab.create_var(name=v.name, shape=list(v.shape),
+                              dtype=v.dtype, persistable=True)
+            pa, ba = ab.vars[p.name], ab.vars[backup_name]
+            ab.append_op("assign", {"X": pa}, {"Out": ba}, {})
+            total = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_total"),
+                dtype="float32")
+            ab.append_op("sum", {"X": [ab.vars[accs["sum_1"].name],
+                                       ab.vars[accs["sum_2"].name],
+                                       ab.vars[accs["sum_3"].name]]},
+                         {"Out": total}, {})
+            cnt = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_cnt"),
+                dtype="int64")
+            ab.append_op("sum",
+                         {"X": [ab.vars[accs["num_accumulates"].name],
+                                ab.vars[accs["old_num_accumulates"].name]]},
+                         {"Out": cnt}, {})
+            cntf = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_cntf"),
+                dtype="float32")
+            ab.append_op("cast", {"X": cnt}, {"Out": cntf},
+                         {"in_dtype": "int64", "out_dtype": "float32"})
+            one = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_one"),
+                dtype="float32")
+            ab.append_op("fill_constant", {}, {"Out": one},
+                         {"shape": [1], "value": 1.0, "dtype": "float32"})
+            denom = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_den"),
+                dtype="float32")
+            ab.append_op("elementwise_max", {"X": cntf, "Y": one},
+                         {"Out": denom}, {})
+            avg = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_val"),
+                dtype="float32")
+            ab.append_op("elementwise_div", {"X": total, "Y": denom},
+                         {"Out": avg}, {})
+            # gate = min(cnt, 1): 0 before any update, 1 after —
+            # param <- gate*avg + (1-gate)*param
+            gate = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_gate"),
+                dtype="float32")
+            ab.append_op("elementwise_min", {"X": cntf, "Y": one},
+                         {"Out": gate}, {})
+            gated = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_gated"),
+                dtype="float32")
+            ab.append_op("elementwise_mul", {"X": avg, "Y": gate},
+                         {"Out": gated}, {})
+            inv = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_inv"),
+                dtype="float32")
+            ab.append_op("scale", {"X": gate}, {"Out": inv},
+                         {"scale": -1.0, "bias": 1.0,
+                          "bias_after_scale": True})
+            keep = ab.create_var(
+                name=unique_name.generate(f"{p.name}_avg_keep"),
+                dtype="float32")
+            ab.append_op("elementwise_mul", {"X": ba, "Y": inv},
+                         {"Out": keep}, {})
+            ab.append_op("elementwise_add", {"X": gated, "Y": keep},
+                         {"Out": pa}, {})
+            rb.append_op("assign", {"X": rb.vars[backup_name]},
+                         {"Out": rb.vars[p.name]}, {})
 
     def apply(self, executor, need_restore: bool = True):
-        raise NotImplementedError("ModelAverage is not ported to "
-                                  "paddle_tpu_torch")
+        """Context manager: swap params to their windowed averages in the
+        current scope; restore originals on exit (unless need_restore
+        is False — then call restore() manually)."""
+        import contextlib
+
+        outer = self
+
+        @contextlib.contextmanager
+        def ctx():
+            executor.run(outer._apply_program, fetch_list=[])
+            try:
+                yield
+            finally:
+                if need_restore:
+                    outer.restore(executor)
+
+        return ctx()
 
     def restore(self, executor):
-        raise NotImplementedError("ModelAverage is not ported to "
-                                  "paddle_tpu_torch")
+        executor.run(self._restore_program, fetch_list=[])
 
 
 # short aliases (reference exposes both)

@@ -7,4 +7,6 @@ and ``recommender`` its fourth and fifth; ``benchmark_nets`` the
 reference's AlexNet, GoogLeNet and SmallNet; ``ctr`` wide&deep CTR
 prediction over sparse embeddings; ``machine_translation`` and
 ``rnn_encoder_decoder`` the book's eighth chapter (seq2seq with and
-without attention, beam decode in a While loop)."""
+without attention, beam decode in a While loop);
+``label_semantic_roles`` its seventh (the deep bidirectional LSTM
+scorer and the linear-chain CRF)."""

@@ -288,8 +288,6 @@ def test_unported_features_raise():
             tfluid.layers.data("s", [4], "int64", lod_level=2)
         with pytest.raises(NotImplementedError, match="seq_parallel"):
             tfluid.layers.fused_attention(x, x, x, seq_parallel=True)
-        with pytest.raises(NotImplementedError, match="ModelAverage"):
-            tfluid.optimizer.ModelAverage(0.15)
         # sparse embeddings, Adagrad and regularizers are ported
         # (tests/test_torch_sparse.py, tests/test_torch_optim.py)
         emb = tfluid.layers.embedding(ids, [8, 4], is_sparse=True)

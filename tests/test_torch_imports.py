@@ -15,6 +15,8 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
+* The port registers 152 of the reference's 234 ops, each under the
+  reference's name.
 """
 
 import ast
@@ -80,6 +82,12 @@ BOOK = {"paddle_tpu_torch.fluid.nets",
         "paddle_tpu_torch.models.recognize_digits"}
 
 
+# the modules of the semantic role labeling slice
+SRL = {"paddle_tpu_torch.fluid.ops.crf_ops",
+       "paddle_tpu_torch.fluid.evaluator",
+       "paddle_tpu_torch.models.label_semantic_roles"}
+
+
 # the modules of the sparse embeddings and the optimizer front end
 SPARSE = {"paddle_tpu_torch.fluid.core.selected_rows",
           "paddle_tpu_torch.fluid.regularizer",
@@ -96,8 +104,27 @@ def test_port_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
-    want = SLICE_3 | BOOK | SPARSE
+    want = SLICE_3 | BOOK | SPARSE | SRL
     assert want <= names, want - names
+
+
+# ops of the semantic role labeling slice: the CRF, chunk evaluation,
+# ModelAverage's accumulation, and the general tensor and reduce ops
+SRL_OPS = {"linear_chain_crf", "crf_decoding", "chunk_eval",
+           "average_accumulates", "gather", "scatter", "slice", "split",
+           "one_hot", "shape", "multiplex", "truncated_gaussian_random",
+           "reduce_mean", "reduce_max", "reduce_min", "reduce_prod"}
+
+
+def test_registered_ops_are_a_subset_of_the_reference():
+    """The port registers 152 of the reference's 234 ops, each under the
+    reference's name, the SRL slice's 16 among them."""
+    from paddle_tpu.fluid.core.registry import registered_ops as jops
+
+    ported, ref = set(fluid.registered_ops()), set(jops())
+    assert len(SRL_OPS) == 16 and SRL_OPS <= ported
+    assert ported <= ref, ported - ref
+    assert (len(ported), len(ref)) == (152, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):

@@ -27,6 +27,11 @@ the port, against the JAX package on the CPU.
   10 steps (OUT_TOL).  A regularizer on a sparse gradient warns and is
   skipped, a clip on one raises the reference's "sparse-grad" error, and
   ``append_backward``'s callbacks see every op it appends.
+* ModelAverage: its programs serialize to the reference's bytes; over
+  SGD steps, ``apply`` gives tests/test_model_average.py's simulated
+  average and the reference's, ``restore`` the raw weights bitwise, and
+  training after a restore goes on from them; with the update counters
+  at 16383, the precision flush moves the sums as the reference does.
 """
 
 import warnings
@@ -564,6 +569,145 @@ def test_append_backward_callbacks_see_every_appended_op():
     assert seen[0].type == "fill_constant"
 
 
-def test_model_average_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ModelAverage"):
-        tfluid.optimizer.ModelAverage(0.15)
+def _averaged_fc(fluid, lr, rate, min_win, max_win):
+    """tests/test_model_average.py's net: a bias-free fc ``w``, SGD, then
+    ModelAverage -> (main, startup, loss, model average)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [3], "float32")
+        y = fluid.layers.data("y", [1], "float32")
+        pred = fluid.layers.fc(x, size=1, bias_attr=False,
+                               param_attr=fluid.ParamAttr(name="w"))
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        fluid.optimizer.SGD(learning_rate=lr).minimize(loss)
+        avg = fluid.optimizer.ModelAverage(
+            average_window_rate=rate, min_average_window=min_win,
+            max_average_window=max_win)
+    return main, startup, loss, avg
+
+
+def _ma_feed(i):
+    rng = np.random.RandomState(40 + i)
+    return {"x": rng.rand(4, 3).astype(np.float32),
+            "y": rng.rand(4, 1).astype(np.float32)}
+
+
+def _ma_run(fluid, scope, exe, main, loss, avg, steps, first=0):
+    """``steps`` SGD steps, then apply (read the weights), restore, and
+    apply without restore then restore by hand -> (w after the steps,
+    the observed gradients, w averaged, w restored, w averaged again,
+    w restored again)."""
+    def w():
+        return np.array(fluid.scope_to_numpy(scope, ["w"])["w"]) \
+            if fluid is tfluid else np.array(scope.find_var("w"))
+
+    grads = []
+    with fluid.scope_guard(scope):
+        for i in range(first, first + steps):
+            before = w()
+            exe.run(main, feed=_ma_feed(i), fetch_list=[loss])
+            grads.append((before - w()) / MA_LR)
+        raw = w()
+        with avg.apply(exe):
+            applied = w()
+        back = w()
+        with avg.apply(exe, need_restore=False):
+            pass
+        again = w()
+        avg.restore(exe)
+        back2 = w()
+    return raw, grads, applied, back, again, back2
+
+
+MA_LR = 0.1
+
+
+def test_model_average_matches_reference_and_simulation():
+    """The port's ModelAverage against tests/test_model_average.py's
+    numpy simulation of the rule and against the reference run from the
+    same scope: 7 steps, apply / restore, apply without restore and a
+    manual restore, 3 more steps (the training step reads the restored
+    weights), and the same again; the averaged weights within
+    PARAM_ATOL, the restored ones bitwise the raw ones."""
+    from tests.test_model_average import _simulate
+
+    rate, min_win, max_win = 1.0, 2, 4
+    jm, js, jl, ja = _averaged_fc(jfluid, MA_LR, rate, min_win, max_win)
+    tm, ts, tl, ta = _averaged_fc(tfluid, MA_LR, rate, min_win, max_win)
+    for a, b in ((jm, tm), (js, ts), (ja._apply_program, ta._apply_program),
+                 (ja._restore_program, ta._restore_program)):
+        assert b.serialize_to_string() == a.serialize_to_string()
+    jscope, jexe = jfluid.Scope(), jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(jscope):
+        jexe.run(js)
+    init = {n: np.asarray(jscope.find_var(n)) for n in jscope.vars
+            if jscope.find_var(n) is not None}
+    cpu = tfluid.CPUPlace()
+    tscope, texe = tfluid.scope_from_numpy(init, cpu), tfluid.Executor(cpu)
+    grads = []
+    for first, steps in ((0, 7), (7, 3)):
+        want = _ma_run(jfluid, jscope, jexe, jm, jl, ja, steps, first)
+        got = _ma_run(tfluid, tscope, texe, tm, tl, ta, steps, first)
+        raw, g, applied, back, again, back2 = got
+        grads += g
+        _, avg_sim = _simulate(init["w"], grads, MA_LR, rate, min_win,
+                               max_win)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=0, atol=PARAM_ATOL)
+        np.testing.assert_allclose(applied, avg_sim, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(again, avg_sim, rtol=1e-5, atol=1e-6)
+        assert not np.allclose(applied, raw)
+        np.testing.assert_array_equal(back, raw)
+        np.testing.assert_array_equal(back2, raw)
+
+
+def test_model_average_flushes_at_16384_updates():
+    """The precision flush: with the update counters at 16383 in both
+    scopes (a long run's state), the next update moves sum_1 into sum_2
+    and the one after adds to sum_1 again; every accumulator equals the
+    reference's, and so do the averaged weights."""
+    jm, js, jl, ja = _averaged_fc(jfluid, MA_LR, 0.15, 10000, 20000)
+    tm, _, tl, ta = _averaged_fc(tfluid, MA_LR, 0.15, 10000, 20000)
+    jscope, jexe = jfluid.Scope(), jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(jscope):
+        jexe.run(js)
+    init = {n: np.asarray(jscope.find_var(n)) for n in jscope.vars
+            if jscope.find_var(n) is not None}
+    accs = {k: ja._get_accumulator(k, ja._params[0]).name
+            for k in ("sum_1", "sum_2", "sum_3", "num_accumulates",
+                      "old_num_accumulates", "num_updates")}
+    rng = np.random.RandomState(5)
+    init[accs["num_updates"]] = np.array([16383], np.int32)
+    init[accs["num_accumulates"]] = np.array([3000], np.int32)
+    init[accs["old_num_accumulates"]] = np.array([1200], np.int32)
+    for k in ("sum_1", "sum_2", "sum_3"):
+        init[accs[k]] = rng.rand(3, 1).astype(np.float32) * 100
+    jscope = jfluid.Scope()
+    for n, v in init.items():
+        jscope.set_var(n, jnp.asarray(v))
+    cpu = tfluid.CPUPlace()
+    tscope, texe = tfluid.scope_from_numpy(init, cpu), tfluid.Executor(cpu)
+    for i in range(2):
+        with jfluid.scope_guard(jscope):
+            jexe.run(jm, feed=_ma_feed(i), fetch_list=[jl])
+        texe.run(tm, feed=_ma_feed(i), fetch_list=[tl], scope=tscope)
+        want = {k: np.asarray(jscope.find_var(n)) for k, n in accs.items()}
+        got = tfluid.scope_to_numpy(tscope, list(accs.values()))
+        for k, n in accs.items():
+            np.testing.assert_allclose(got[n], want[k], rtol=1e-6,
+                                       err_msg=f"step {i} {k}")
+        if i == 0:        # the flush: sum_1 emptied into sum_2
+            assert got[accs["num_updates"]][0] == 16384
+            assert not got[accs["sum_1"]].any()
+            np.testing.assert_allclose(
+                got[accs["sum_2"]], init[accs["sum_2"]] + init[accs["sum_1"]]
+                + tfluid.scope_to_numpy(tscope, ["w"])["w"], rtol=1e-6)
+    with jfluid.scope_guard(jscope):
+        with ja.apply(jexe):
+            javg = np.asarray(jscope.find_var("w"))
+    with tfluid.scope_guard(tscope):
+        with ta.apply(texe):
+            tavg = tfluid.scope_to_numpy(tscope, ["w"])["w"]
+    np.testing.assert_allclose(tavg, javg, rtol=1e-6)

@@ -1,8 +1,8 @@
 """fluid.layers — the port of ``paddle_tpu/fluid/layers``, cut to the
 layers the Transformer, the LSTM text classifiers, the book's chapters
 through machine translation (control flow: While, StaticRNN,
-DynamicRNN, Switch, IfElse and the tensor arrays) and the reference's
-image benchmarks build."""
+DynamicRNN, Switch, IfElse and the tensor arrays), the reference's
+image benchmarks, and CTC speech recognition and SSD detection build."""
 
 from . import (control_flow, io, nn, ops, recurrent,  # noqa: F401
                sequence, tensor)

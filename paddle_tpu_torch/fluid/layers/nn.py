@@ -8,7 +8,10 @@ benchmarks (``models/benchmark_nets``), CTR wide&deep
 (``models/ctr``) and the seq2seq models (``models/machine_translation``,
 ``models/rnn_encoder_decoder``: ``squeeze``, ``unsqueeze``, ``expand``)
 build, and the general tensor layers (``one_hot``, ``split``,
-``gather``, ``multiplex``, the reductions).  Each
+``gather``, ``multiplex``, the reductions), the speech and detection
+layers (``conv2d_transpose``, ``conv3d``, ``pool3d``, ``l2_normalize``,
+``nce``, ``im2sequence``, ``prior_box``, ``bipartite_match``,
+``multiclass_nms``, ``ssd_loss``, ``detection_output``).  Each
 layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
@@ -30,7 +33,10 @@ __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "reshape", "transpose", "squeeze", "unsqueeze", "expand",
            "matmul", "topk", "beam_search", "beam_search_decode",
            "batch_gather", "fused_attention", "fused_vocab_cross_entropy",
-           "decode_attention", "ragged_decode_attention"]
+           "decode_attention", "ragged_decode_attention",
+           "conv2d_transpose", "conv3d", "pool3d", "l2_normalize", "nce",
+           "im2sequence", "prior_box", "bipartite_match", "multiclass_nms",
+           "ssd_loss", "detection_output"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -588,3 +594,207 @@ def ragged_decode_attention(q, pool, page_table, lengths, q_base=None,
         inputs["Scales"] = scales
     helper.append_op("ragged_decode_attention", inputs, {"Out": out}, attrs)
     return out
+
+
+def _triple(x):
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x, x, x]
+
+
+def _single_out_layer(op_type, inputs, attrs, stop_gradient=False,
+                      name=None):
+    """One op whose one output slot, Out, is a var of the first input's
+    dtype."""
+    helper = LayerHelper(op_type, name=name)
+    first = next(iter(inputs.values()))
+    out = helper.create_tmp_variable(first.dtype,
+                                     stop_gradient=stop_gradient)
+    helper.append_op(op_type, inputs, {"Out": out}, attrs)
+    return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """Transposed 2-D convolution, NCHW, filter [C, num_filters, kh, kw]
+    (conv_transpose_op.cc), then a channel bias and the activation."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[input.shape[1], num_filters] + _pair(filter_size),
+        dtype=dtype)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op("conv2d_transpose", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation)})
+    pre_act = _append_channel_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, groups=1,
+           dilation=1, param_attr=None, bias_attr=None, act=None,
+           name=None):
+    """3-D convolution, NCDHW, filter [num_filters, C / groups, kd, kh,
+    kw] drawn from Normal(0, sqrt(2 / (kd * kh * kw * C))), then a
+    channel bias and the activation."""
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    fsize = _triple(filter_size)
+    num_channels = input.shape[1]
+    std = (2.0 / (math.prod(fsize) * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_filters, num_channels // groups] + fsize, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, float(std)))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op("conv3d", {"Input": input, "Filter": w},
+                     {"Output": pre_bias},
+                     {"strides": _triple(stride),
+                      "paddings": _triple(padding),
+                      "dilations": _triple(dilation), "groups": groups})
+    pre_act = _append_channel_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           name=None):
+    """3-D pooling, NCDHW (``ops/nn_ops.pool3d``)."""
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("pool3d", {"X": input}, {"Out": out},
+                     {"pooling_type": pool_type,
+                      "ksize": _triple(pool_size),
+                      "strides": _triple(pool_stride),
+                      "paddings": _triple(pool_padding),
+                      "global_pooling": global_pooling,
+                      "ceil_mode": ceil_mode})
+    return out
+
+
+def l2_normalize(x, axis=-1, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("l2_normalize", {"X": x}, {"Out": out},
+                     {"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None):
+    """Noise-contrastive estimation (nce_op.cc): a [classes, dim] weight
+    and a [classes] bias; the op draws its negatives from its seed.
+    ``sample_weight`` is taken and not read, as in the reference."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_total_classes, input.shape[1]],
+                                dtype=input.dtype)
+    b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                shape=[num_total_classes], dtype=input.dtype,
+                                is_bias=True)
+    cost = helper.create_tmp_variable(input.dtype)
+    helper.append_op("nce", {"Input": input, "Label": label,
+                             "Weight": w, "Bias": b}, {"Cost": cost},
+                     {"num_total_classes": num_total_classes,
+                      "num_neg_samples": num_neg_samples or 10})
+    return cost
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("im2sequence", {"X": input}, {"Out": out},
+                     {"kernels": _pair(filter_size),
+                      "strides": _pair(stride), "paddings": _pair(padding)})
+    return out
+
+
+def prior_box(input, image, min_sizes, max_sizes=None, aspect_ratios=None,
+              variances=None, flip=False, clip=False, step_h=0.0,
+              step_w=0.0, offset=0.5, name=None):
+    """SSD's priors of a feature map (prior_box_op.cc) -> (boxes,
+    variances), each [fh, fw, n_priors, 4]."""
+    helper = LayerHelper("prior_box", name=name)
+    boxes = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    var = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op("prior_box", {"Input": input, "Image": image},
+                     {"Boxes": boxes, "Variances": var},
+                     {"min_sizes": list(min_sizes),
+                      "max_sizes": list(max_sizes or []),
+                      "aspect_ratios": list(aspect_ratios or [1.0]),
+                      "variances": list(variances
+                                        or [0.1, 0.1, 0.2, 0.2]),
+                      "flip": flip, "clip": clip, "step_h": step_h,
+                      "step_w": step_w, "offset": offset})
+    return boxes, var
+
+
+def bipartite_match(dist_matrix, match_type="bipartite",
+                    dist_threshold=0.5, name=None):
+    """bipartite_match_op.cc -> (matched row of each column, its
+    distance)."""
+    helper = LayerHelper("bipartite_match", name=name)
+    idx = helper.create_tmp_variable("int32", stop_gradient=True)
+    dist = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op("bipartite_match", {"DistMat": dist_matrix},
+                     {"ColToRowMatchIndices": idx,
+                      "ColToRowMatchDist": dist},
+                     {"match_type": match_type,
+                      "dist_threshold": dist_threshold})
+    return idx, dist
+
+
+def multiclass_nms(bboxes, scores, score_threshold=0.01,
+                   nms_threshold=0.45, nms_top_k=16, keep_top_k=16,
+                   name=None):
+    """Per-class NMS over [n, 4] boxes -> [keep_top_k, 6] rows."""
+    return _single_out_layer("multiclass_nms",
+                             {"BBoxes": bboxes, "Scores": scores},
+                             {"score_threshold": score_threshold,
+                              "nms_threshold": nms_threshold,
+                              "nms_top_k": nms_top_k,
+                              "keep_top_k": keep_top_k},
+                             stop_gradient=True, name=name)
+
+
+def ssd_loss(location, confidence, gt_box, gt_label, prior_box_var,
+             overlap_threshold=0.5, neg_pos_ratio=3.0,
+             background_label=0, name=None):
+    """SSD's MultiBox training loss per image, [B, 1];
+    ``prior_box_var`` is the (boxes, variances) pair ``prior_box``
+    returns."""
+    helper = LayerHelper("ssd_loss", name=name)
+    pb, pv = prior_box_var
+    out = helper.create_tmp_variable("float32")
+    helper.append_op("ssd_loss",
+                     {"Location": location, "Confidence": confidence,
+                      "GTBox": gt_box, "GTLabel": gt_label,
+                      "PriorBox": pb, "PriorVar": pv},
+                     {"Out": out},
+                     {"overlap_threshold": float(overlap_threshold),
+                      "neg_pos_ratio": float(neg_pos_ratio),
+                      "background_label": int(background_label)})
+    return out
+
+
+def detection_output(loc, conf, prior_box, prior_var,
+                     background_id=0, nms_threshold=0.45, nms_top_k=400,
+                     keep_top_k=200, confidence_threshold=0.01,
+                     name=None):
+    """SSD's inference head: the decoded boxes, softmaxed scores and
+    per-class NMS -> [B, keep_top_k, 6] rows."""
+    return _single_out_layer(
+        "detection_output",
+        {"Location": loc, "Confidence": conf, "PriorBox": prior_box,
+         "PriorVar": prior_var},
+        {"background_id": int(background_id),
+         "nms_threshold": float(nms_threshold),
+         "nms_top_k": int(nms_top_k), "keep_top_k": int(keep_top_k),
+         "confidence_threshold": float(confidence_threshold)},
+        stop_gradient=True, name=name)

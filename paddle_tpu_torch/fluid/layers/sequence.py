@@ -1,7 +1,8 @@
 """Sequence layers — the port of ``paddle_tpu/fluid/layers/sequence.py``,
 cut to ``sequence_conv``, ``sequence_pool`` and its first / last step
-forms, ``sequence_expand``, ``sequence_pad`` and the linear-chain CRF
-(``linear_chain_crf``, ``crf_decoding``)."""
+forms, ``sequence_expand``, ``sequence_pad``, the linear-chain CRF
+(``linear_chain_crf``, ``crf_decoding``) and CTC (``warpctc``,
+``edit_distance``, ``ctc_align``, ``ctc_greedy_decoder``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "sequence_expand", "sequence_pad",
-           "linear_chain_crf", "crf_decoding"]
+           "linear_chain_crf", "crf_decoding", "warpctc", "edit_distance",
+           "ctc_align", "ctc_greedy_decoder"]
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
@@ -112,3 +114,46 @@ def crf_decoding(input, param_attr=None, label=None):
         inputs["Label"] = label
     helper.append_op("crf_decoding", inputs, {"ViterbiPath": path})
     return path
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, name=None):
+    """CTC loss (reference layers/nn.py warpctc, ``ops/ctc_ops.warpctc``)
+    of a sequence of raw logits [b, T, classes] against blank-free label
+    sequences -> [b, 1]."""
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_tmp_variable(input.dtype)
+    helper.append_op("warpctc", {"Logits": input, "Label": label},
+                     {"Loss": loss},
+                     {"blank": int(blank),
+                      "norm_by_times": bool(norm_by_times)})
+    return loss
+
+
+def edit_distance(input, label, normalized=False, name=None):
+    """Levenshtein distance of each hypothesis from its reference
+    (edit_distance_op.cc) -> [b, 1] float32."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op("edit_distance", {"Hyps": input, "Refs": label},
+                     {"Out": out}, {"normalized": bool(normalized)})
+    return out
+
+
+def ctc_align(input, blank=0, name=None):
+    """A greedy CTC path with repeats merged and blanks dropped."""
+    helper = LayerHelper("ctc_align", name=name)
+    out = helper.create_tmp_variable("int32", lod_level=1,
+                                     stop_gradient=True)
+    helper.append_op("ctc_align", {"Input": input}, {"Output": out},
+                     {"blank": int(blank)})
+    return out
+
+
+def ctc_greedy_decoder(input, blank=0, name=None):
+    """The greedy CTC decode: the argmax class of each step, then
+    ``ctc_align``."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    ids = helper.create_tmp_variable("int32", lod_level=1,
+                                     stop_gradient=True)
+    helper.append_op("argmax", {"X": input}, {"Out": ids}, {"axis": -1})
+    return ctc_align(ids, blank=blank, name=name)

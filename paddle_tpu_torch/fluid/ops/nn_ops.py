@@ -1,18 +1,25 @@
 """Convolution, pooling, normalization, dropout and fused attention ops —
-the port of ``paddle_tpu/fluid/ops/nn_ops.py``, cut to what the
-Transformer, the book's first three chapters and the reference's image
-benchmarks emit.  ``conv2d`` is ``torch.nn.functional.conv2d`` (cuDNN on
-the card, TF32 off), as the reference leaves its convolution to XLA;
-``pool2d`` pads by hand so its windows, output shape and average counts
-are the reference's; ``batch_norm`` writes out the reference's formula
-(biased batch variance in float32) with a closed-form backward."""
+the port of ``paddle_tpu/fluid/ops/nn_ops.py``.  The convolutions are
+``torch.nn.functional``'s (cuDNN on the card, TF32 off), as the
+reference leaves its convolutions to XLA: ``conv2d``,
+``depthwise_conv2d`` (groups = channels), ``conv2d_transpose`` (an IOHW
+filter, output (in - 1) * stride + filter - 2 * pad) and ``conv3d``;
+``pool2d`` / ``pool3d`` pad by hand so their windows, output shape and
+average counts are the reference's; ``batch_norm`` writes out the
+reference's formula (biased batch variance in float32) with a
+closed-form backward; ``nce`` draws its negatives on the device from
+the op's seed; ``im2sequence`` is ``F.unfold``, whose patch features
+are channel-major as ``conv_general_dilated_patches``' are."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-from ...kernels.flash_attention import flash_attention, keep_scale
+from ...kernels.flash_attention import (counter_hash, flash_attention,
+                                         keep_scale)
 from ..core.registry import primitive
 from .math_ops import match_master_dtype, weak_scalar
 
@@ -40,38 +47,87 @@ def _ceil_extra_pad(in_size, k, s, p, ceil_mode):
 
 def _window_sum(x, pad, ksize, strides):
     """Sum over each window of ``x`` zero-padded by ``pad`` (F.pad's
-    order: width low, high, then height)."""
-    return F.avg_pool2d(F.pad(x, pad) if any(pad) else x, ksize, strides,
-                        divisor_override=1)
+    order: the last dim's low and high pads first), 2-D or 3-D by the
+    window's rank."""
+    pool = F.avg_pool2d if len(ksize) == 2 else F.avg_pool3d
+    return pool(F.pad(x, pad) if any(pad) else x, ksize, strides,
+                divisor_override=1)
+
+
+def _pool(ctx, x, nd):
+    """The reference's pooling over the last ``nd`` dims, as it computes
+    it: windows over X padded by ``paddings`` on both sides, plus under
+    ``ceil_mode`` the extra high-side pad that keeps a last partial
+    window (PyTorch's own ceil_mode drops a window that starts in the
+    padding, the reference keeps it); ``global_pooling`` pools the
+    whole of those dims.  Max pads with -inf; average divides by the
+    count of unpadded elements in the window (exclusive)."""
+    ptype = ctx.attr("pooling_type", "max")
+    ceil_mode = ctx.attr("ceil_mode", False)
+    if ctx.attr("global_pooling", False):
+        ksize = list(x.shape[2:])
+        strides, pads, ceil_mode = ksize, [0] * nd, False
+    else:
+        ksize = ctx.attr("ksize", [2] * nd)
+        strides = ctx.attr("strides", [2] * nd)
+        pads = ctx.attr("paddings", [0] * nd)
+    hi = [p + _ceil_extra_pad(x.shape[i + 2], ksize[i], strides[i], p,
+                              ceil_mode) for i, p in enumerate(pads)]
+    pad = tuple(v for i in reversed(range(nd)) for v in (pads[i], hi[i]))
+    if ptype == "max":
+        xp = F.pad(x, pad, value=-torch.inf) if any(pad) else x
+        return (F.max_pool2d if nd == 2 else F.max_pool3d)(xp, ksize,
+                                                            strides)
+    total = _window_sum(x, pad, ksize, strides)
+    if not any(pads) and not ceil_mode:
+        return total / math.prod(ksize)
+    return total / _window_sum(torch.ones_like(x), pad, ksize, strides)
 
 
 @primitive("pool2d")
 def pool2d(ctx, x):
-    """reference pool_op.cc, as the reference computes it: windows over
-    X padded by ``paddings`` on both sides, plus under ``ceil_mode`` the
-    extra high-side pad that keeps a last partial window (PyTorch's own
-    ceil_mode drops a window that starts in the padding, the reference
-    keeps it).  Max pads with -inf; average divides by the count of
-    unpadded elements in the window (exclusive)."""
-    ptype = ctx.attr("pooling_type", "max")
-    ceil_mode = ctx.attr("ceil_mode", False)
-    if ctx.attr("global_pooling", False):
-        ksize = [x.shape[2], x.shape[3]]
-        strides, pads, ceil_mode = ksize, [0, 0], False
-    else:
-        ksize = ctx.attr("ksize", [2, 2])
-        strides = ctx.attr("strides", [2, 2])
-        pads = ctx.attr("paddings", [0, 0])
-    hi = [p + _ceil_extra_pad(x.shape[i + 2], ksize[i], strides[i], p,
-                              ceil_mode) for i, p in enumerate(pads)]
-    pad = (pads[1], hi[1], pads[0], hi[0])
-    if ptype == "max":
-        xp = F.pad(x, pad, value=-torch.inf) if any(pad) else x
-        return F.max_pool2d(xp, ksize, strides)
-    total = _window_sum(x, pad, ksize, strides)
-    if pads[0] == 0 and pads[1] == 0 and not ceil_mode:
-        return total / (ksize[0] * ksize[1])
-    return total / _window_sum(torch.ones_like(x), pad, ksize, strides)
+    """reference pool_op.cc (``_pool`` over H and W)."""
+    return _pool(ctx, x, 2)
+
+
+@primitive("pool3d")
+def pool3d(ctx, x):
+    """NCDHW pooling, the reference's Pool3DLayer capability (``_pool``
+    over D, H and W)."""
+    return _pool(ctx, x, 3)
+
+
+@primitive("depthwise_conv2d", inputs=["Input", "Filter"], outputs=["Output"])
+def depthwise_conv2d(ctx, x, w):
+    """reference conv_op.cc's depthwise variant: one group per input
+    channel (the reference reads no dilations here)."""
+    p = ctx.attr("paddings", [0, 0])
+    return F.conv2d(x, match_master_dtype(x, w),
+                    stride=tuple(ctx.attr("strides", [1, 1])),
+                    padding=(p[0], p[1]), groups=x.shape[1])
+
+
+@primitive("conv2d_transpose", inputs=["Input", "Filter"], outputs=["Output"])
+def conv2d_transpose(ctx, x, w):
+    """reference conv_transpose_op.cc: the IOHW filter over X with
+    ``strides`` and ``paddings``, output (in - 1) * stride + filter -
+    2 * pad (the reference's lhs-dilated convolution with the flipped
+    filter; it reads no dilations)."""
+    p = ctx.attr("paddings", [0, 0])
+    return F.conv_transpose2d(x, match_master_dtype(x, w),
+                              stride=tuple(ctx.attr("strides", [1, 1])),
+                              padding=(p[0], p[1]))
+
+
+@primitive("conv3d", inputs=["Input", "Filter"], outputs=["Output"])
+def conv3d(ctx, x, w):
+    """NCDHW convolution with an OIDHW filter (the reference's
+    Conv3DLayer capability)."""
+    return F.conv3d(x, match_master_dtype(x, w),
+                    stride=tuple(ctx.attr("strides", [1, 1, 1])),
+                    padding=tuple(ctx.attr("paddings", [0, 0, 0])),
+                    dilation=tuple(ctx.attr("dilations", [1, 1, 1])),
+                    groups=ctx.attr("groups", 1))
 
 
 def _bn_axes(x, layout):
@@ -217,6 +273,66 @@ def dropout(ctx, x):
     scale = keep_scale(ctx.seed, 0, idx, 0, float(p))
     scale = scale.reshape(x.shape).to(x.dtype)
     return x * scale, (scale > 0).to(x.dtype)
+
+
+@primitive("l2_normalize")
+def l2_normalize(ctx, x):
+    """X over sqrt(sum(X * X, axis) + epsilon)."""
+    norm = torch.sqrt((x * x).sum(dim=ctx.attr("axis", -1), keepdim=True)
+                      + ctx.attr("epsilon", 1e-12))
+    return x / norm
+
+
+def nce_negatives(seed, batch: int, k: int, n_classes: int, device):
+    """[batch, k] negative class ids, uniform over [0, n_classes): the
+    top bits of ``counter_hash(seed, 0, row, col)`` times n_classes.  A
+    function of the op's seed alone, drawn on the device (a captured
+    step reads a new seed at each replay)."""
+    rows = torch.arange(batch, device=device)[:, None]
+    cols = torch.arange(k, device=device)[None, :]
+    return (counter_hash(seed, 0, rows, cols) * n_classes) >> 32
+
+
+def nce_loss(x, label, w, b, neg):
+    """The reference nce's cost over given negatives ``neg`` [b, k]: the
+    logistic loss of each row's label as positive and its k negatives as
+    negatives, summed -> [b, 1]."""
+    batch = x.shape[0]
+    ids = torch.cat([label.reshape(batch, 1).long(), neg.long()], dim=1)
+    logits = torch.einsum("bd,bkd->bk", x, w[ids]) + b[ids]
+    labels = torch.zeros_like(logits)
+    labels[:, 0] = 1.0
+    loss = (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+    return loss.sum(dim=1, keepdim=True)
+
+
+@primitive("nce", inputs=["Input", "Label", "Weight", "Bias"],
+           outputs=["Cost"], stop_grad_slots=("Label",))
+def nce(ctx, x, label, w, b):
+    """Noise-contrastive estimation (reference nce_op.cc): per row, the
+    label and ``num_neg_samples`` uniform negatives (``nce_negatives``
+    from the op's seed; the reference draws with ``jax.random``, so the
+    ids differ and the rule is the same), scored by ``nce_loss``."""
+    k = ctx.attr("num_neg_samples", 10)
+    if ctx.seed is None:                     # shape inference: no draw
+        neg = torch.zeros(x.shape[0], k, dtype=torch.int64,
+                          device=x.device)
+    else:
+        neg = nce_negatives(ctx.seed, x.shape[0], k,
+                            ctx.attr("num_total_classes"), x.device)
+    return nce_loss(x, label, w, b, neg)
+
+
+@primitive("im2sequence")
+def im2sequence(ctx, x):
+    """reference im2sequence_op.cc: the image's patches as a sequence,
+    [b, n_patches, c * kh * kw], features channel-major."""
+    k = ctx.attr("kernels", [1, 1])
+    s = ctx.attr("strides", [1, 1])
+    p = ctx.attr("paddings", [0, 0])
+    return F.unfold(x, kernel_size=tuple(k), stride=tuple(s),
+                    padding=(p[0], p[1])).transpose(1, 2)
 
 
 @primitive("fused_attention", inputs=["Q", "K", "V", "Bias?"],

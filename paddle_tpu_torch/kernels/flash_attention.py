@@ -54,7 +54,8 @@ import torch
 __all__ = ["decode_attention", "paged_kv_rows", "ragged_attention_plain",
            "ragged_decode_attention", "ragged_plan", "KERNEL_NAME",
            "FLASH_KERNELS",
-           "DEFAULT_MASK_VALUE", "keep_scale", "flash_attention",
+           "DEFAULT_MASK_VALUE", "counter_hash", "keep_scale",
+           "flash_attention",
            "flash_forward_plain", "flash_backward_plain"]
 
 KERNEL_NAME = "ragged_paged_attention"
@@ -343,6 +344,26 @@ def _mul_u32(x, c: int):
     return (((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c) & _U32
 
 
+def counter_hash(seed_u32, bh, rows, cols) -> torch.Tensor:
+    """The 32 bits ``keep_scale`` draws at each (batch*head, row, col)
+    position under a uint32 seed, as an int64 tensor in [0, 2^32): the
+    murmur3-style finalizer, its uint32 arithmetic run in int64 masked
+    to 32 bits after every multiply and xor."""
+
+    def u32(t):
+        return (t.to(torch.int64) if isinstance(t, torch.Tensor)
+                else int(t)) & _U32
+
+    rows, cols, bh, seed = u32(rows), u32(cols), u32(bh), u32(seed_u32)
+    x = (_mul_u32(rows, 0x9E3779B1) + _mul_u32(cols, 0x85EBCA77)) & _U32
+    x = x ^ _mul_u32(bh, 0xC2B2AE3D) ^ seed
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul_u32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
 def keep_scale(seed_u32, bh, rows, cols, rate: float) -> torch.Tensor:
     """Counter-based dropout mask of the reference (``keep_scale`` of
     paddle_tpu/kernels/flash_attention.py), bit for bit: a murmur3-style
@@ -356,18 +377,7 @@ def keep_scale(seed_u32, bh, rows, cols, rate: float) -> torch.Tensor:
     scalar made into a device tensor would cost a host-device copy, and
     with it a stream synchronisation, per call."""
 
-    def u32(t):
-        return (t.to(torch.int64) if isinstance(t, torch.Tensor)
-                else int(t)) & _U32
-
-    rows, cols, bh, seed = u32(rows), u32(cols), u32(bh), u32(seed_u32)
-    x = (_mul_u32(rows, 0x9E3779B1) + _mul_u32(cols, 0x85EBCA77)) & _U32
-    x = x ^ _mul_u32(bh, 0xC2B2AE3D) ^ seed
-    x = x ^ (x >> 16)
-    x = _mul_u32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul_u32(x, 0xC2B2AE35)
-    x = x ^ (x >> 16)
+    x = counter_hash(seed_u32, bh, rows, cols)
     # top 24 bits -> uniform [0, 1), compared with the rate rounded to
     # float32, as the reference compares
     u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))

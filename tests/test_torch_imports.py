@@ -15,7 +15,7 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
-* The port registers 152 of the reference's 234 ops, each under the
+* The port registers 172 of the reference's 234 ops, each under the
   reference's name.
 """
 
@@ -25,6 +25,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -116,15 +117,28 @@ SRL_OPS = {"linear_chain_crf", "crf_decoding", "chunk_eval",
            "reduce_mean", "reduce_max", "reduce_min", "reduce_prod"}
 
 
+# ops of the speech and detection slice: CTC, the GRU ops, the rest of
+# nn_ops and the detection ops
+SPEECH_DETECTION_OPS = {
+    "warpctc", "edit_distance", "ctc_align", "dynamic_gru", "lstm_unit",
+    "gru_unit", "depthwise_conv2d", "conv2d_transpose", "conv3d", "pool3d",
+    "l2_normalize", "nce", "im2sequence", "prior_box", "bipartite_match",
+    "multiclass_nms", "detection_output", "iou_similarity",
+    "positive_negative_pair", "ssd_loss"}
+
+
 def test_registered_ops_are_a_subset_of_the_reference():
-    """The port registers 152 of the reference's 234 ops, each under the
-    reference's name, the SRL slice's 16 among them."""
+    """The port registers 172 of the reference's 234 ops, each under the
+    reference's name, the SRL slice's 16 and the speech and detection
+    slice's 20 among them."""
     from paddle_tpu.fluid.core.registry import registered_ops as jops
 
     ported, ref = set(fluid.registered_ops()), set(jops())
     assert len(SRL_OPS) == 16 and SRL_OPS <= ported
+    assert len(SPEECH_DETECTION_OPS) == 20
+    assert SPEECH_DETECTION_OPS <= ported
     assert ported <= ref, ported - ref
-    assert (len(ported), len(ref)) == (152, 234)
+    assert (len(ported), len(ref)) == (172, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -207,6 +221,79 @@ def test_chip_smoke_fails_a_faulty_serving_profile(fault):
             p["peak_mem_gib"] = 0.8 + 0.375
     fails = chip_smoke.in_turns_failures(peaks)
     assert (fails == []) == (fault is None), fails
+
+
+def _smoke():
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    return chip_smoke
+
+
+def _rows():
+    """Two images' detection rows: class, score, a box."""
+    return np.float32([
+        [[1, 0.9, 0.1, 0.1, 0.4, 0.4], [2, 0.8, 0.5, 0.5, 0.9, 0.9],
+         [-1, -1, -1, -1, -1, -1]],
+        [[3, 0.7, 0.2, 0.2, 0.6, 0.6], [3, 0.6, 0.6, 0.1, 0.9, 0.3],
+         [-1, -1, -1, -1, -1, -1]]])
+
+
+@pytest.mark.parametrize("fault", [None, "ulp", "near_tie_score",
+                                   "near_tie_iou", "class", "score"])
+def test_chip_smoke_detection_rows_compare(fault):
+    """``chip_smoke.detection_rows_compare`` (phase 21's rows, card vs
+    CPU): an ulp apart is equal; two rows whose scores lie within
+    NEAR_TIE swapped, or a box kept on one side whose IoU with a kept
+    box of its class is within NEAR_TIE of the NMS threshold, is a near
+    tie; another class or score differs."""
+    cs = _smoke()
+    cpu, card = _rows(), _rows()
+    if fault == "ulp":
+        card[0, 0, 1] = np.nextafter(card[0, 0, 1], np.float32(2))
+    elif fault == "near_tie_score":
+        cpu[1, 1, 1] = card[1, 1, 1] = 0.7 - 2e-6
+        card[1, [0, 1]] = card[1, [1, 0]]
+    elif fault == "near_tie_iou":
+        # IoU of [0.1, 0.1, 0.4, 0.4] and [0.1, 0.1, 0.4, b] equal to the
+        # threshold 0.45 (a suppression that flipped): b = 0.235
+        card[0, 2] = [1, 0.5, 0.1, 0.1, 0.4, 0.235]
+    elif fault == "class":
+        card[0, 1, 0] = 4
+    elif fault == "score":
+        card[1, 0, 1] = 0.71
+    out = cs.detection_rows_compare(np, card, cpu)
+    assert out["equal"] + len(out["near_ties"]) + len(out["differ"]) == 2
+    if fault in (None, "ulp"):
+        assert out["equal"] == 2, out
+    elif fault.startswith("near_tie"):
+        assert [t[0] for t in out["near_ties"]] == [1 if "score" in fault
+                                                    else 0], out
+        assert not out["differ"]
+    else:
+        assert out["differ"] and not out["near_ties"], out
+
+
+def test_chip_smoke_grads_by_conditioning():
+    """``chip_smoke.grads_by_conditioning`` (phase 21's gradients, card
+    vs CPU): each within SSD_GRAD_REL_L2 in relative L2, and the median
+    distance within SSD_NOISE_RATIO times the CPU's own under a one-ulp
+    nudge of the input."""
+    cs = _smoke()
+    g = [np.linspace(-1, 1, 11, dtype=np.float32) + i for i in range(3)]
+    loss = np.float32(3.0)
+    cpu = [loss] + g
+    nudged = [loss] + [x * np.float32(1 + 1e-3) for x in g]
+    near = [loss] + [x * np.float32(1 + 2e-3) for x in g]
+    out = cs.grads_by_conditioning(np, near, cpu, nudged)
+    assert out[-1] and abs(out[2] - 2e-3) < 1e-4
+    far = [loss] + [x * np.float32(1 + 1e-2) for x in g]
+    assert not cs.grads_by_conditioning(np, far, cpu, nudged)[-1]
+    one_off = [loss, g[0], g[1] * np.float32(1.2), g[2]]
+    out = cs.grads_by_conditioning(np, one_off, cpu, cpu)
+    assert not out[-1] and out[1] == 1
 
 
 # reference parameters a port function does not take, by (file under the

@@ -283,13 +283,37 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    slice's ops off both paths (``conv2d_transpose``, ``conv3d``,
    ``pool3d``, ``l2_normalize``, ``im2sequence``, ``gru_unit``,
    ``lstm_unit``, ``nce``), forward and gradient, card against CPU at
-   one realistic shape each, ``nce`` on the card's drawn ids.
+   one realistic shape each, ``nce`` on the card's drawn ids;
+22. Fast R-CNN (``frcnn_phase``), no kernel of this repo on its path:
+   VGG-16's 13 conv + relu layers and 4 max pools (stride 16),
+   ``roi_pool`` 7 x 7 at 1/16, fc6 / fc7 of 4096 with dropout 0.5, 21
+   classes by softmax cross-entropy and 84 box outputs by ``smooth_l1``
+   on the RoI's class's 4 columns, Momentum 1e-3 / 0.9 with weight decay
+   5e-4, 2 images of 600 x 800 and 128 RoIs a batch: step 3 at 2 x 128
+   x 160 and 16 RoIs against the eager step (deterministic cuDNN) and
+   the CPU port (loss 1e-4 relative, each gradient 0.1 in relative L2),
+   ``roi_pool`` out and gradient card against CPU bit for bit, 20 steps
+   on one batch (step ms, images/s, RoIs/s, the rest as in 20);
+23. learning to rank (``ranking_phase``), no kernel of this repo:
+   LambdaRank (``lambda_rank_cost``, ndcg 10, 256 queries of 8-128
+   documents) and RankNet (``rank_loss``, 16,384 pairs), a 46 -> 128 ->
+   64 -> 1 tanh scorer, Adam 1e-3, the AUC fetched every step: step 3
+   against the eager step and the CPU port (loss 1e-5 relative,
+   gradients 1e-4 of their largest), 20 steps each; ``lambda_rank_cost``
+   and ``auc`` card against CPU on the same tied scores, bit for bit;
+24. the slice's 34 ops at realistic shapes card against CPU
+   (``loss_misc_op_checks``): outputs 1e-5 and gradients 1e-4 of their
+   largest, bit for bit where exact, ``roi_pool``, ``hsigmoid`` and
+   ``selective_fc``'s gradients twice the same bits, hsigmoid's path
+   length at every label, ``sampling_id`` by a chi-square test.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
-line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, a ``kernels`` line (the flash kernels once in float32 and once,
-``*_bf16``, in bf16) and, last, the ``{"ok": true, ...}`` line;
+line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
+line, a ``ranking`` line, a ``kernels`` line (the flash kernels once
+in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
+true, ...}`` line;
 per-case detail goes to standard error.  Any failed check exits 1
 without the last line.
 """
@@ -3525,11 +3549,21 @@ def host_syncs_per_step(torch, step, steps=SYNC_STEPS):
     return host_syncs_in(prof.events(), name) / steps
 
 
+def on_device(event):
+    """Whether a torch.profiler event lies on the card's timeline (a
+    kernel, a copy, or the device's copy of a host range)."""
+    return "CUDA" in str(getattr(event, "device_type", ""))
+
+
 def host_syncs_in(events, name):
     """The synchronize calls among a profile's ``events`` that start
-    inside a range named ``name`` (each drains the stream, so the host
-    cannot queue work ahead of it)."""
-    spans = [e.time_range for e in events if e.name == name]
+    inside a host range named ``name`` (each drains the stream, so the
+    host cannot queue work ahead of it).  The range's device copy spans
+    its kernels on the card's timeline and ends after the host's range:
+    the profiler's own synchronize at its exit can fall inside it, so it
+    is left out."""
+    spans = [e.time_range for e in events
+             if e.name == name and not on_device(e)]
     return sum(1 for e in events if e.name in SYNC_CALLS
                and any(r.start <= e.time_range.start <= r.end
                        for r in spans))
@@ -3543,7 +3577,7 @@ def device_busy(events, wall_ms):
     named as a host event is the device's copy of a host range
     (``record_function``'s: a step's, an eager Fluid op's), not work,
     and is left out."""
-    on_dev = ["CUDA" in str(getattr(e, "device_type", "")) for e in events]
+    on_dev = [on_device(e) for e in events]
     host = {e.name for e, d in zip(events, on_dev) if not d}
     kernels = {}
     for e, d in zip(events, on_dev):
@@ -4993,8 +5027,9 @@ def run_op(torch, np, op, specs, attrs, wrt, device, seed=None):
     if wrt:
         rng = np.random.RandomState(7)
         live = [o for o in outs if o.requires_grad]
-        total = sum((o * torch.tensor(rng.randn(*o.shape).astype(
-            np.float32), device=device)).sum() for o in live)
+        total = sum((o * torch.tensor(np.asarray(rng.randn(*o.shape),
+                                              np.float32),
+                                   device=device)).sum() for o in live)
         grads = torch.autograd.grad(total, leaves)
     return [o.detach().cpu() for o in outs], [g.cpu() for g in grads]
 
@@ -6168,6 +6203,670 @@ def slice_op_checks(torch, np, failures):
     return out
 
 
+# -- phase 22: Fast R-CNN (VGG-16) at 600 x 800 -----------------------------
+# Girshick, "Fast R-CNN" (ICCV 2015, arXiv:1504.08083), its VGG-16 model
+# on VOC: VGG-16's 13 3x3 conv + relu layers with the four 2x2 max pools
+# before conv5 (feature stride 16), roi_pool 7 x 7 on conv5_3 at 1/16,
+# fc6 and fc7 of 4096 (relu, dropout 0.5), cls_score over 21 classes
+# (softmax cross-entropy) and bbox_pred of 84 (smooth L1, sigma 1, on the
+# 4 columns of the RoI's class), Momentum 1e-3 / 0.9, weight decay 5e-4;
+# every layer trained (the paper freezes conv1-conv2).  2 images of 600 x
+# 800 a batch, 64 RoIs each, a quarter foreground
+FRCNN = dict(height=600, width=800, classes=21, fc=4096, scale=1.0,
+             lr=1e-3)
+FRCNN_IMAGES, FRCNN_ROIS, FRCNN_STEPS = 2, 128, 20
+# step 3 card vs CPU: 2 images of 128 x 160, 16 RoIs, full width
+FRCNN_COMPARE = dict(height=128, width=160, rois=16)
+VGG16_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
+
+
+def build_fast_rcnn(fluid, height, width, classes, fc, scale, lr,
+                    seed=SEED):
+    """The Fast R-CNN training program (``FRCNN``), channel widths times
+    ``scale``: feeds ``img`` [3, height, width], ``rois`` [5] (image, x1,
+    y1, x2, y2 in pixels), ``label`` [1], ``bbox_target`` and
+    ``inside_w`` [4 classes] -> (main, startup, test, loss, cls_loss,
+    loc_loss, pool5).  The test program is cloned before the
+    optimizer."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    L = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = L.data("img", [3, height, width], "float32")
+        rois = L.data("rois", [5], "float32")
+        label = L.data("label", [1], "int64")
+        target = L.data("bbox_target", [4 * classes], "float32")
+        inside = L.data("inside_w", [4 * classes], "float32")
+        x = img
+        for i, (n, reps) in enumerate(VGG16_BLOCKS):
+            for _ in range(reps):
+                x = L.conv2d(x, max(1, int(n * scale)), 3, padding=1,
+                             act="relu")
+            if i < len(VGG16_BLOCKS) - 1:
+                x = L.pool2d(x, 2, "max", 2)
+        pool5 = L.roi_pool(x, rois, 7, 7, 1.0 / 16)
+        h = pool5
+        for _ in range(2):
+            h = L.dropout(L.fc(h, fc, act="relu"), 0.5)
+        cls_loss = L.mean(L.softmax_with_cross_entropy(L.fc(h, classes),
+                                                       label))
+        bbox = L.fc(h, 4 * classes)
+        loc_loss = L.mean(L.smooth_l1(L.elementwise_mul(bbox, inside),
+                                      L.elementwise_mul(target, inside),
+                                      sigma=1.0))
+        loss = L.sums([cls_loss, loc_loss])
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(
+            learning_rate=lr, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(5e-4)).minimize(loss)
+    return main, startup, test, loss, cls_loss, loc_loss, pool5
+
+
+def frcnn_batch(np, rng, images, rois, height, width, classes):
+    """``images`` images (uniform [0, 1) pixels, a brighter rectangle
+    under each foreground RoI) and ``rois`` RoIs split evenly between
+    them: boxes of 16 to 400 pixels a side inside the image, corners
+    on multiples of 16 for one RoI in eight (bin edges on feature
+    cells), a quarter foreground with classes 1 .. classes - 1 and box
+    targets N(0, 0.1), the rest background (class 0, no targets)."""
+    img = rng.rand(images, 3, height, width).astype(np.float32) * 0.5
+    per = rois // images
+    out = np.zeros((rois, 5), np.float32)
+    label = np.zeros((rois, 1), np.int64)
+    target = np.zeros((rois, 4 * classes), np.float32)
+    inside = np.zeros((rois, 4 * classes), np.float32)
+    for r in range(rois):
+        b = min(r // per, images - 1)
+        w = rng.uniform(16, min(400, width))
+        h = rng.uniform(16, min(400, height))
+        x1 = rng.uniform(0, width - w)
+        y1 = rng.uniform(0, height - h)
+        box = np.float32([x1, y1, x1 + w - 1, y1 + h - 1])
+        if r % 8 == 7:
+            box = np.minimum(np.round(box / 16) * 16,
+                             [width - 1, height - 1] * 2).astype(np.float32)
+        out[r] = [b, *box]
+        if r % 4 == 0:
+            c = rng.randint(1, classes)
+            label[r] = c
+            target[r, 4 * c:4 * c + 4] = rng.randn(4) * 0.1
+            inside[r, 4 * c:4 * c + 4] = 1.0
+            bx = box.astype(int)
+            img[b, c % 3, bx[1]:bx[3] + 1, bx[0]:bx[2] + 1] += 0.5
+    return {"img": img, "rois": out, "label": label, "bbox_target": target,
+            "inside_w": inside}
+
+
+def roi_pool_bitwise(torch, np, x, rois, scale):
+    """``roi_pool`` 7 x 7 at ``scale`` on the card and on the CPU on the
+    same inputs: out and the gradient of sum(out * w) in X bit for bit,
+    and the card's gradient twice the same bits -> record."""
+    dev = torch.device("cuda", 0)
+    specs = {"X": ("t", x), "ROIs": ("t", rois)}
+    attrs = {"pooled_height": 7, "pooled_width": 7, "spatial_scale": scale}
+    got, g_got = run_op(torch, np, "roi_pool", specs, attrs, ("X",), dev)
+    want, g_want = run_op(torch, np, "roi_pool", specs, attrs, ("X",),
+                          torch.device("cpu"))
+    _, g_again = run_op(torch, np, "roi_pool", specs, attrs, ("X",), dev)
+    return {"shape": list(x.shape), "rois": int(rois.shape[0]),
+            "out_bitwise": torch.equal(got[0], want[0]),
+            "grad_bitwise": torch.equal(g_got[0], g_want[0]),
+            "grad_repeat_bitwise": torch.equal(g_got[0], g_again[0]),
+            "out_err": op_rel_errs(torch, got, want)[0],
+            "grad_err": op_rel_errs(torch, g_got, g_want)[0],
+            "tied_zero_share": float((torch.tensor(x) == 0).float().mean())}
+
+
+def roi_pool_ms(torch, np, rois, iters=5):
+    """The device's ms for ``roi_pool`` 7 x 7 at 1/16 on a [2, 512, 37,
+    50] relu-like map and ``rois`` (the training step's shapes): forward
+    alone and forward plus backward (CUDA events, ``cuda_ms``)."""
+    from paddle_tpu_torch.fluid.ops import misc_ops
+
+    dev = torch.device("cuda", 0)
+    x = torch.relu(torch.randn(2, 512, 37, 50, device=dev,
+                               generator=torch.Generator(dev).manual_seed(
+                                   SEED))).requires_grad_(True)
+    r = torch.tensor(rois, device=dev)
+    g = torch.ones(r.shape[0], 512, 7, 7, device=dev)
+
+    def fwd():
+        bi, ymask, xmask = misc_ops.roi_bins(r, 1.0 / 16, 7, 7, 37, 50)
+        return misc_ops._RoIPool.apply(x, bi, ymask, xmask)
+
+    return {"forward": cuda_ms(torch, fwd, iters),
+            "forward_backward": cuda_ms(
+                torch, lambda: torch.autograd.backward(fwd(), g), iters)}
+
+
+def frcnn_phase(torch, np, fluid, card):
+    """Phase 22: Fast R-CNN (``FRCNN``): step 3 at FRCNN_COMPARE's size
+    (full width) against the eager step (bitwise, cuDNN's deterministic
+    algorithms) and the CPU port (the loss within 1e-4 relative, each
+    gradient within R50_GRAD_L2 in relative L2, ResNet-50's float32
+    rule; the largest error over the gradient's largest recorded);
+    ``roi_pool`` card against CPU on the same inputs, out and gradient
+    bit for bit; FRCNN_STEPS steps at FRCNN_IMAGES x 600 x 800 with
+    FRCNN_ROIS RoIs on one batch (step ms, images/s and RoIs/s, nodes,
+    hits, syncs, peak over the resident state, busy and idle, no kernel
+    of this repo, the loss falling; ``roi_pool``'s own device ms at the
+    step's shapes).  -> (record, failures)."""
+    t0 = time.perf_counter()
+    fails = []
+    dims = dict(FRCNN)
+    main, startup, test, loss, cls_loss, loc_loss, pool5 = \
+        build_fast_rcnn(fluid, **dims)
+    init = initial_scope(fluid, startup)
+    params = [p.name for p in main.global_block().all_parameters()]
+    rec = {"card": card, "config": dict(
+        dims, images=FRCNN_IMAGES, rois=FRCNN_ROIS,
+        pool5=list(pool5.shape) if pool5.shape else None,
+        program_ops=len(main.global_block().ops),
+        parameters=int(sum(init[p].size for p in params)))}
+    rng = np.random.RandomState(SEED + 22)
+    feed = frcnn_batch(np, rng, FRCNN_IMAGES, FRCNN_ROIS, dims["height"],
+                       dims["width"], dims["classes"])
+    cmp_dims = dict(dims, height=FRCNN_COMPARE["height"],
+                    width=FRCNN_COMPARE["width"])
+    small_main = build_fast_rcnn(fluid, **cmp_dims)[0]
+    small = frcnn_batch(np, np.random.RandomState(SEED + 23), FRCNN_IMAGES,
+                        FRCNN_COMPARE["rois"], cmp_dims["height"],
+                        cmp_dims["width"], dims["classes"])
+    log(f"frcnn: {rec['config']}, built and initialized in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # -- step 3 against the eager step and the CPU port
+    fetch = [loss.name] + [n + "@GRAD" for n in params]
+    t1 = time.perf_counter()
+    with cudnn_deterministic(torch):
+        r = captured_step(torch, fluid, small_main, fetch, init,
+                          lambda i: small, [(small_main, fetch)])
+    card_v, cpu_v = r["card"], [np.asarray(v) for v in r["cpu"][0][0]]
+    l2 = [_rel_l2(np, a, b) for a, b in zip(card_v[1:], cpu_v[1:])]
+    cmp_ = {"images": FRCNN_IMAGES, "px": [cmp_dims["height"],
+                                           cmp_dims["width"]],
+            "rois": FRCNN_COMPARE["rois"], "loss_card": float(card_v[0]),
+            "loss_cpu": float(cpu_v[0]),
+            "loss_rel_err": abs(float(card_v[0]) - float(cpu_v[0]))
+            / abs(float(cpu_v[0])),
+            "grad_rel_l2_max": max(l2),
+            "grad_rel_l2_worst": params[int(np.argmax(l2))],
+            "grad_rel_l2_median": float(np.median(l2)),
+            "grad_rel_err_max": grad_gap(np, card_v, cpu_v),
+            "n_grads": len(params), "replay": replay_record(r),
+            "replay_ok": r["bitwise"],
+            "seconds": time.perf_counter() - t1}
+    # roi_pool on the same inputs on both devices: relu-like features
+    # (a third exactly 0: tied maxima) at the compare size, the batch's
+    # RoIs
+    fh, fw = cmp_dims["height"] // 16, cmp_dims["width"] // 16
+    xr = np.maximum(rng.randn(FRCNN_IMAGES, 512, fh, fw), -0.4).astype(
+        np.float32)
+    xr[xr < 0] = 0.0
+    cmp_["roi_pool"] = roi_pool_bitwise(torch, np, xr, small["rois"],
+                                        1.0 / 16)
+    rec["compare"] = cmp_
+    log(f"frcnn step {COMPARE_STEP} card vs CPU and replay vs eager: "
+        f"{json.dumps(cmp_)}")
+    rp = cmp_["roi_pool"]
+    if not (cmp_["replay_ok"] and cmp_["loss_rel_err"] <= STEP_LOSS_RTOL
+            and cmp_["grad_rel_l2_max"] <= R50_GRAD_L2
+            and rp["out_bitwise"] and rp["grad_bitwise"]
+            and rp["grad_repeat_bitwise"]):
+        fails.append(f"frcnn step {COMPARE_STEP}: {cmp_}")
+    del r
+    torch.cuda.empty_cache()
+
+    # -- FRCNN_STEPS steps at full size
+    train, scope, exe = train_path(torch, np, fluid, main, init, [loss],
+                                   feed, FRCNN_STEPS, FRCNN_IMAGES)
+    steady_s = train["step_ms_median"] / 1e3
+    train.update(images=FRCNN_IMAGES, rois=FRCNN_ROIS,
+                 images_per_s=train["units_per_s"],
+                 rois_per_s=FRCNN_ROIS / steady_s)
+    fails += image_train_failures("frcnn", train, FRCNN_STEPS - 1)
+    del exe, scope
+    torch.cuda.empty_cache()
+    train["roi_pool_ms"] = roi_pool_ms(torch, np, feed["rois"])
+    rec["train"] = train
+    log(f"frcnn training: {json.dumps(train)}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, fails
+
+
+# -- phase 23: learning to rank (LambdaRank, RankNet) -----------------------
+# LETOR 4.0 MQ2007's shape: 46 features a document, graded labels 0-2;
+# no corpus in the repo, so seeded synthetic queries whose labels follow
+# a hidden linear score.  The scorer (46 -> 128 -> 64 -> 1, tanh) is
+# this repo's choice.  LambdaRank: lambda_rank_cost (ndcg_num 10) over
+# 256 queries of 8-128 documents padded to 128, its mean the loss;
+# RankNet: rank_loss over 16,384 pairs of differently labelled documents
+# of the same queries; both Adam 1e-3, both fetch the AUC of
+# [1 - p, p], p = sigmoid(score), against label > 0, every step
+RANK = dict(features=46, hidden=(128, 64), ndcg_num=10, lr=1e-3)
+RANK_QUERIES, RANK_DOCS, RANK_PAIRS, RANK_STEPS = 256, (8, 128), 16384, 20
+RANK_COMPARE = dict(queries=8, docs=(4, 24), pairs=64)
+
+
+def _scorer(fluid, x, hidden):
+    """The shared scorer: tanh fcs of ``hidden``, then one output
+    without a bias (both losses see only score differences, so an
+    output bias would get a gradient of rounding noise, which Adam
+    scales to full steps); the parameters named, so that every tower
+    shares them."""
+    for i, n in enumerate(hidden):
+        x = fluid.layers.fc(x, n, act="tanh",
+                            param_attr=fluid.ParamAttr(name=f"rank_w{i}"),
+                            bias_attr=fluid.ParamAttr(name=f"rank_b{i}"))
+    return fluid.layers.fc(
+        x, 1, param_attr=fluid.ParamAttr(name=f"rank_w{len(hidden)}"),
+        bias_attr=False)
+
+
+def build_ranking(fluid, kind, features, hidden, ndcg_num, lr, seed=SEED):
+    """LambdaRank (``kind`` "lambdarank": feeds ``docs`` and ``label``,
+    sequences) or RankNet ("ranknet": ``left``, ``right`` [features] and
+    ``pair_label`` [1]), each with the AUC tower on ``flat_docs``
+    [features] against ``rel`` [1] (label > 0) -> (main, startup, loss,
+    auc)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    L = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if kind == "lambdarank":
+            docs = L.data("docs", [features], "float32", lod_level=1)
+            label = L.data("label", [1], "float32", lod_level=1)
+            cost = L.lambda_rank_cost(_scorer(fluid, docs, hidden), label,
+                                      ndcg_num=ndcg_num)
+        else:
+            left = L.data("left", [features], "float32")
+            right = L.data("right", [features], "float32")
+            pair = L.data("pair_label", [1], "float32")
+            cost = L.rank_loss(pair, _scorer(fluid, left, hidden),
+                               _scorer(fluid, right, hidden))
+        loss = L.mean(cost)
+        flat = L.data("flat_docs", [features], "float32")
+        rel = L.data("rel", [1], "int64")
+        p = L.sigmoid(_scorer(fluid, flat, hidden))
+        auc = L.auc(L.concat([L.scale(p, -1.0, 1.0), p], axis=1), rel)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, auc
+
+
+def ranking_batch(np, fluid, rng, kind, queries, docs, pairs, features):
+    """``queries`` queries of ``docs`` (lo, hi) documents: features
+    uniform [0, 1), labels 0-2 by thresholds on a hidden linear score
+    plus noise (about 55% 0, 30% 1, 15% 2); for RankNet ``pairs`` pairs
+    of two documents of one query with different labels, label 1 where
+    the left one ranks higher.  Every document also flat (``flat_docs``)
+    with ``rel`` = label > 0."""
+    w = np.random.RandomState(SEED).randn(features).astype(np.float32)
+    n = rng.randint(docs[0], docs[1] + 1, queries)
+    feats, labels = [], []
+    for k in n:
+        x = rng.rand(k, features).astype(np.float32)
+        s = (x - 0.5) @ w / np.sqrt(features) + 0.3 * rng.randn(k)
+        labels.append(np.digitize(s, [0.1, 0.5]).astype(np.float32))
+        feats.append(x)
+    flat = np.concatenate(feats)
+    lab = np.concatenate(labels)
+    feed = {"flat_docs": flat, "rel": (lab > 0).astype(np.int64)[:, None]}
+    if kind == "lambdarank":
+        feed["docs"] = fluid.make_seq(feats, dtype=np.float32,
+                                      max_len=docs[1])
+        feed["label"] = fluid.make_seq([v[:, None] for v in labels],
+                                       dtype=np.float32, max_len=docs[1])
+        return feed
+    left, right, pl = [], [], []
+    while len(pl) < pairs:
+        q = rng.randint(queries)
+        i, j = rng.randint(n[q], size=2)
+        if labels[q][i] == labels[q][j]:
+            continue
+        left.append(feats[q][i])
+        right.append(feats[q][j])
+        pl.append(float(labels[q][i] > labels[q][j]))
+    feed.update(left=np.stack(left), right=np.stack(right),
+                pair_label=np.float32(pl)[:, None])
+    return feed
+
+
+def rank_ops_bitwise(torch, np, rng):
+    """``lambda_rank_cost`` and ``auc`` on the card and on the CPU on
+    the same scores: RANK_QUERIES queries of RANK_DOCS documents, scores
+    rounded to 1/8 and labels 0-2 (ties), and AUC over every document's
+    sigmoid, a quarter saturated (exactly 0 or 1) -> record."""
+    dev = torch.device("cuda", 0)
+    lo, hi = RANK_DOCS
+    lengths = rng.randint(lo, hi + 1, RANK_QUERIES).astype(np.int32)
+    score = (np.round(rng.randn(RANK_QUERIES, hi, 1) * 8) / 8).astype(
+        np.float32)
+    label = rng.randint(0, 3, (RANK_QUERIES, hi, 1)).astype(np.float32)
+    specs = {"Score": ("seq", score, lengths),
+             "Label": ("seq", label, lengths)}
+    attrs = {"ndcg_num": RANK["ndcg_num"]}
+    cost = [run_op(torch, np, "lambda_rank_cost", specs, attrs, ("Score",),
+                   d) for d in (dev, torch.device("cpu"))]
+    n = int(lengths.sum())
+    p = 1.0 / (1.0 + np.exp(-rng.randn(n) * 4))
+    p[rng.rand(n) < 0.25] = np.float32(rng.rand() > 0.5)
+    p = p.astype(np.float32)
+    auc_specs = {"Out": ("t", np.stack([1 - p, p], axis=1)),
+                 "Indices": ("t", np.zeros((n, 1), np.int32)),
+                 "Label": ("t", rng.randint(0, 2, (n, 1)).astype(np.int64))}
+    aucs = [run_op(torch, np, "auc", auc_specs, {}, (), d)[0][0]
+            for d in (dev, torch.device("cpu"))]
+    return {"queries": RANK_QUERIES, "documents": n,
+            "cost_bitwise": torch.equal(cost[0][0][0], cost[1][0][0]),
+            "cost_err": op_rel_errs(torch, cost[0][0], cost[1][0])[0],
+            "grad_err": op_rel_errs(torch, cost[0][1], cost[1][1])[0],
+            "auc_bitwise": torch.equal(aucs[0], aucs[1]),
+            "auc": float(aucs[0])}
+
+
+def ranking_phase(torch, np, fluid, card):
+    """Phase 23: LambdaRank and RankNet (``RANK``), each: step 3 at
+    RANK_COMPARE's size against the eager step (bitwise) and the CPU
+    port (loss 1e-5 relative, every gradient 1e-4 of its largest),
+    RANK_STEPS Adam steps on one batch fetching the loss and the AUC
+    (step ms, queries/s or pairs/s, the rest as phase 22); then
+    ``lambda_rank_cost`` and ``auc`` card against CPU on the same scores,
+    bit for bit.  -> (record, failures)."""
+    t0 = time.perf_counter()
+    fails = []
+    rec = {"card": card}
+    for kind in ("lambdarank", "ranknet"):
+        t1 = time.perf_counter()
+        main, startup, loss, auc = build_ranking(fluid, kind, **RANK)
+        init = initial_scope(fluid, startup)
+        params = [p.name for p in main.global_block().all_parameters()]
+        feed = ranking_batch(np, fluid, np.random.RandomState(SEED + 30),
+                             kind, RANK_QUERIES, RANK_DOCS, RANK_PAIRS,
+                             RANK["features"])
+        small = ranking_batch(np, fluid, np.random.RandomState(SEED + 31),
+                              kind, RANK_COMPARE["queries"],
+                              RANK_COMPARE["docs"], RANK_COMPARE["pairs"],
+                              RANK["features"])
+        fetch = [loss.name] + [n + "@GRAD" for n in params]
+        r = captured_step(torch, fluid, main, fetch, init,
+                          lambda i: small, [(main, fetch)])
+        card_v, cpu_v = r["card"], [np.asarray(v) for v in r["cpu"][0][0]]
+        cmp_ = {"loss_card": float(card_v[0]), "loss_cpu": float(cpu_v[0]),
+                "loss_rel_err": abs(float(card_v[0]) - float(cpu_v[0]))
+                / abs(float(cpu_v[0])),
+                "grad_rel_err": grad_gap(np, card_v, cpu_v),
+                "replay": replay_record(r), "replay_ok": r["bitwise"]}
+        if not (cmp_["replay_ok"] and cmp_["loss_rel_err"] <= LSTM_LOSS_RTOL
+                and cmp_["grad_rel_err"] <= LSTM_GRAD_RTOL):
+            fails.append(f"{kind} step {COMPARE_STEP}: {cmp_}")
+        units = (RANK_QUERIES if kind == "lambdarank" else RANK_PAIRS)
+        train, scope, exe = train_path(torch, np, fluid, main, init,
+                                       [loss, auc], feed, RANK_STEPS, units)
+        train.update(documents=int(len(feed["flat_docs"])),
+                     **{("queries_per_s" if kind == "lambdarank"
+                         else "pairs_per_s"): train["units_per_s"]})
+        aucs = [float(np.asarray(v)) for v in exe.run(
+            main, feed=device_feed(torch, feed, torch.device("cuda", 0)),
+            fetch_list=[auc], scope=scope)]
+        train["auc_after"] = aucs[0]
+        fails += image_train_failures(kind, train, RANK_STEPS - 1)
+        rec[kind] = {"compare": cmp_, "train": train, "config": dict(
+            RANK, queries=RANK_QUERIES, docs=RANK_DOCS,
+            pairs=RANK_PAIRS if kind == "ranknet" else None,
+            parameters=int(sum(init[p].size for p in params))),
+            "seconds": time.perf_counter() - t1}
+        log(f"{kind}: {json.dumps(rec[kind])}")
+        del exe, scope, r
+        torch.cuda.empty_cache()
+    ops = rank_ops_bitwise(torch, np, np.random.RandomState(SEED + 32))
+    rec["ops"] = ops
+    log(f"ranking ops card vs CPU: {json.dumps(ops)}")
+    if not (ops["cost_bitwise"] and ops["auc_bitwise"]
+            and ops["grad_err"] <= LSTM_GRAD_RTOL):
+        fails.append(f"ranking ops card vs CPU: {ops}")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, fails
+
+
+# -- phase 24: the slice's ops at realistic shapes, card against CPU --------
+# chi2(k - 1) upper quantile at a 1e-4 false-alarm rate (Wilson-Hilferty)
+CHI2_Z = 3.719
+
+
+def chi2_quantile(k):
+    return k * (1 - 2 / (9 * k) + CHI2_Z * math.sqrt(2 / (9 * k))) ** 3
+
+
+def loss_misc_op_cases(np):
+    """name -> (op, specs, attrs, wrt, exact) of the slice's ops at
+    shapes their users run: hsigmoid over 100,000 classes (batch 1024,
+    512 features), selective_fc over 100,000 columns (k 64, -1 slots),
+    row_conv at the speech path's 32 x 400 x 2048 (future context 19),
+    bilinear_interp [32, 256, 19, 19] -> 38 x 38, spp on conv5_3
+    [2, 512, 37, 50], max_pool2d_with_index / unpool [32, 64, 150, 150]
+    2 x 2, cross_entropy_over_beam (3 expansions, batch 128), conv_shift
+    [1024, 128] by 3, roi_pool on conv5_3 with phase 22's RoIs, and
+    [1024, 1000] for the rest."""
+    rng = np.random.RandomState(SEED + 24)
+
+    def r(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def ints(hi, *shape):
+        return rng.randint(0, hi, shape).astype(np.int32)
+
+    b, n = 1024, 1000
+    bin01 = ints(2, b, n).astype(np.float32)
+    sel = ints(100000, b, 64)
+    sel[rng.rand(b, 64) < 0.1] = -1
+    pool_in = np.round(r(32, 64, 150, 150) * 4) / 4
+    lens = rng.randint(200, 401, 32).astype(np.int32)
+    feat = np.maximum(r(2, 512, 37, 50), -0.4)
+    feat[feat < 0] = 0.0
+    rois = frcnn_batch(np, np.random.RandomState(SEED + 22), 2, 128, 600,
+                       800, 21)["rois"]
+    beams = {"Scores": ("list", [r(128, n), r(128, 4, n), r(128, 16, n)]),
+             "Ids": ("list", [ints(n, 128, 4), ints(n, 128, 4, 4),
+                              ints(n, 128, 16, 4)]),
+             "Gold": ("list", [ints(n, 128), ints(n, 128), ints(n, 128)])}
+    for k, ids in enumerate(beams["Ids"][1]):
+        ids[..., -1][k % 4] = -1
+    return {
+        "cross_entropy_with_selfnorm": (
+            "cross_entropy_with_selfnorm",
+            {"X": ("t", u(b, n, lo=1e-3, hi=1e-2)),
+             "Label": ("t", ints(n, b, 1))},
+            {"softmax_selfnorm_alpha": 0.1}, ("X",), False),
+        "cross_entropy_over_beam": ("cross_entropy_over_beam", beams, {},
+                                    ("Scores",), False),
+        "smooth_l1_loss": ("smooth_l1_loss", {"X": ("t", r(b, n)),
+                                              "Y": ("t", r(b, n))},
+                           {"sigma": 3.0}, ("X", "Y"), False),
+        "huber_loss": ("huber_loss", {"X": ("t", r(b, n)),
+                                      "Y": ("t", r(b, n))},
+                       {"delta": 1.0}, ("X", "Y"), False),
+        "hinge_loss": ("hinge_loss", {"Logits": ("t", r(b, n)),
+                                      "Labels": ("t", bin01)}, {},
+                       ("Logits",), False),
+        "squared_l2_distance": ("squared_l2_distance",
+                                {"X": ("t", r(b, n)), "Y": ("t", r(b, n))},
+                                {}, ("X", "Y"), False),
+        "auc": ("auc", {"Out": ("t", u(b * n, 2)),
+                        "Indices": ("t", ints(2, b * n, 1)),
+                        "Label": ("t", ints(2, b * n, 1))}, {}, (), True),
+        "precision_recall": ("precision_recall",
+                             {"MaxProbs": ("t", u(b * 100, 1)),
+                              "Indices": ("t", ints(n, b * 100, 1)),
+                              "Labels": ("t", ints(n, b * 100, 1))},
+                             {"class_number": n}, (), True),
+        "pad": ("pad", {"X": ("t", r(b, n))},
+                {"paddings": [1, 2, 3, 4], "pad_value": 0.5}, ("X",), True),
+        "crop": ("crop", {"X": ("t", r(b, n))},
+                 {"offsets": [10, 20], "shape": [-1, 900]}, ("X",), True),
+        "rotate": ("rotate", {"X": ("t", r(32, 64, 40, 50))}, {}, ("X",),
+                   True),
+        "scale_sub_region": ("scale_sub_region",
+                             {"X": ("t", r(32, 64, 40, 50)),
+                              "Indices": ("t", np.tile(np.int32(
+                                  [[3, 40, 5, 30, 2, 49]]), (32, 1)))},
+                             {"value": 0.5}, ("X",), False),
+        "selective_fc": ("selective_fc",
+                         {"X": ("t", r(b, 512)),
+                          "W": ("t", r(512, 100000, scale=0.05)),
+                          "Select": ("t", sel),
+                          "Bias": ("t", r(100000))}, {},
+                         ("X", "W", "Bias"), False),
+        "lod_reset": ("lod_reset", {"X": ("seq", r(32, 400, 64), lens),
+                                    "Y": ("seq", r(32, 400, 1), lens[::-1]
+                                          .copy())}, {}, ("X",), True),
+        "label_smooth": ("label_smooth", {"X": ("t", u(b, n))},
+                         {"epsilon": 0.1}, ("X",), False),
+        "rank_loss": ("rank_loss", {"Label": ("t", bin01[:, :1]),
+                                    "Left": ("t", r(b, 1)),
+                                    "Right": ("t", r(b, 1))}, {},
+                      ("Left", "Right"), False),
+        "margin_rank_loss": ("margin_rank_loss",
+                             {"Label": ("t", 2 * bin01 - 1),
+                              "X1": ("t", r(b, n)), "X2": ("t", r(b, n))},
+                             {"margin": 0.1}, ("X1", "X2"), False),
+        "log_loss": ("log_loss", {"Predicted": ("t", u(b, n, lo=0.01,
+                                                      hi=0.99)),
+                                  "Labels": ("t", bin01)},
+                     {"epsilon": 1e-4}, ("Predicted",), False),
+        "modified_huber_loss": ("modified_huber_loss",
+                                {"X": ("t", r(b, n, scale=2.0)),
+                                 "Y": ("t", bin01)}, {}, ("X",), False),
+        "conv_shift": ("conv_shift", {"X": ("t", r(b, 128)),
+                                      "Y": ("t", r(b, 3))}, {},
+                       ("X", "Y"), False),
+        "row_conv": ("row_conv", {"X": ("seq", r(32, 400, 2048), lens),
+                                  "Filter": ("t", r(20, 2048, scale=0.2))},
+                     {}, ("X", "Filter"), False),
+        "max_pool2d_with_index": ("max_pool2d_with_index",
+                                  {"X": ("t", pool_in)},
+                                  {"ksize": [2, 2], "strides": [2, 2]},
+                                  ("X",), True),
+        "roi_pool": ("roi_pool", {"X": ("t", feat), "ROIs": ("t", rois)},
+                     {"pooled_height": 7, "pooled_width": 7,
+                      "spatial_scale": 1.0 / 16}, ("X",), True),
+        "spp": ("spp", {"X": ("t", feat)}, {"pyramid_height": 3},
+                ("X",), True),
+        "spp/avg": ("spp", {"X": ("t", feat)},
+                    {"pyramid_height": 3, "pooling_type": "avg"}, ("X",),
+                    False),
+        "bilinear_interp": ("bilinear_interp",
+                            {"X": ("t", r(32, 256, 19, 19))},
+                            {"out_h": 38, "out_w": 38}, ("X",), False),
+        "minus": ("minus", {"X": ("t", r(b, n)), "Y": ("t", r(b, n))}, {},
+                  ("X", "Y"), True),
+        "l1_norm": ("l1_norm", {"X": ("t", r(b, n))}, {}, ("X",), False),
+        "is_empty": ("is_empty", {"X": ("t", r(b, n))}, {}, (), True),
+        "assign_value": ("assign_value", {},
+                         {"shape": [4, 8], "fp32_values": [
+                             float(v) for v in r(32)]}, (), True),
+        "bilinear_tensor_product": ("bilinear_tensor_product",
+                                    {"X": ("t", r(b, 64)),
+                                     "Y": ("t", r(b, 48)),
+                                     "Weight": ("t", r(128, 64, 48,
+                                                       scale=0.1)),
+                                     "Bias": ("t", r(1, 128))}, {},
+                                    ("X", "Y", "Weight", "Bias"), False),
+        "hsigmoid": ("hsigmoid", {"X": ("t", r(b, 512, scale=0.1)),
+                                  "Label": ("t", ints(100000, b, 1)),
+                                  "W": ("t", r(99999, 512, scale=0.1)),
+                                  "Bias": ("t", r(99999, scale=0.1))},
+                     {"num_classes": 100000}, ("X", "W", "Bias"), False),
+    }
+
+
+# the cases whose gradients must be the same bits twice on the card (a
+# gather's gradient summed in a fixed order, no atomic scatter)
+REPLAY_BITWISE = ("roi_pool", "hsigmoid", "selective_fc")
+
+
+def loss_misc_op_checks(torch, np, failures):
+    """Phase 24: ``loss_misc_op_cases`` on the card against the CPU port,
+    outputs within SRL_OP_RTOL of their largest and gradients within
+    LSTM_GRAD_RTOL, outputs and gradients bit for bit where ``exact``;
+    REPLAY_BITWISE's gradients twice the same bits on the card; the
+    unpool of max_pool2d_with_index's card output (stride = kernel);
+    hsigmoid's path length at every one of 100,000 labels against the
+    CPU's and the bit length; sampling_id by a chi-square test (100
+    draws of 1024 rows over 1000 classes).  -> {case: record}."""
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    out = {}
+
+    def check(name, op, specs, attrs, wrt, exact):
+        t0 = time.perf_counter()
+        got, g_got = run_op(torch, np, op, specs, attrs, wrt, dev)
+        want, g_want = run_op(torch, np, op, specs, attrs, wrt, cpu)
+        errs = op_rel_errs(torch, got + g_got, want + g_want)
+        k = len(got)
+        rec = {"out_err": max(errs[:k], default=0.0),
+               "grad_err": max(errs[k:], default=0.0),
+               "bitwise": all(torch.equal(a, b) for a, b in
+                              zip(got + g_got, want + g_want))}
+        ok = (rec["bitwise"] if exact else
+              rec["out_err"] <= SRL_OP_RTOL
+              and rec["grad_err"] <= LSTM_GRAD_RTOL)
+        if name in REPLAY_BITWISE:
+            _, g2 = run_op(torch, np, op, specs, attrs, wrt, dev)
+            rec["grads_repeat_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(g_got, g2))
+            ok = ok and rec["grads_repeat_bitwise"]
+        rec.update(ok=ok, seconds=time.perf_counter() - t0)
+        out[name] = rec
+        if not ok:
+            failures.append(f"op {name} card vs CPU: {rec}")
+        torch.cuda.empty_cache()
+        return got
+
+    for name, case in loss_misc_op_cases(np).items():
+        got = check(name, *case)
+        if name == "max_pool2d_with_index":
+            mask, pooled = got       # the outputs in slot order
+            check("unpool", "unpool", {"X": ("t", pooled.numpy()),
+                                       "Indices": ("t", mask.numpy())},
+                  {"unpooled_size": [150, 150]}, ("X",), True)
+    # hsigmoid's path length at every label of 100,000 classes
+    from paddle_tpu_torch.fluid.ops.misc_ops import hsigmoid_path_length
+
+    c = torch.arange(100000, 200000, dtype=torch.int32)
+    lengths = [hsigmoid_path_length(c.to(d)).cpu() for d in (dev, cpu)]
+    bits = torch.tensor(np.floor(np.log2(np.arange(100000, 200000,
+                                                   dtype=np.float64)))
+                        .astype(np.int32))
+    rec = {"card_cpu_equal": torch.equal(lengths[0], lengths[1]),
+           "bit_length_equal": torch.equal(lengths[0], bits)}
+    rec["ok"] = rec["card_cpu_equal"] and rec["bit_length_equal"]
+    out["hsigmoid/path_length"] = rec
+    if not rec["ok"]:
+        failures.append(f"op hsigmoid path length: {rec}")
+    # sampling_id: 100 draws of 1024 rows of one distribution over 1000
+    rng = np.random.RandomState(SEED + 25)
+    p = rng.uniform(0.2, 1.0, 1000).astype(np.float32)
+    x = np.tile(p / p.sum(), (1024, 1)).astype(np.float32)
+    counts = torch.zeros(1000, dtype=torch.int64, device=dev)
+    for i in range(100):
+        seed = torch.full((), SEED + i, dtype=torch.int32, device=dev)
+        ids = run_op(torch, np, "sampling_id", {"X": ("t", x)}, {}, (), dev,
+                     seed=seed)[0][0]
+        counts += torch.bincount(ids.reshape(-1).to(dev).long(),
+                                 minlength=1000)
+    expect = 102400 * (p.astype(np.float64) / p.sum())
+    cnt = counts.cpu().numpy()
+    chi2 = float(((cnt - expect) ** 2 / expect).sum())
+    rec = {"draws": 102400, "chi2": chi2, "quantile": chi2_quantile(999)}
+    rec["ok"] = chi2 < rec["quantile"]
+    out["sampling_id"] = rec
+    if not rec["ok"]:
+        failures.append(f"op sampling_id: {rec}")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6743,6 +7442,22 @@ def main() -> int:
     log(f"ssd phase ({ssd['seconds']:.1f}s), op check "
         f"({time.perf_counter() - t0:.1f}s): {json.dumps(ssd['ops'])}")
 
+    # -- Fast R-CNN and learning to rank: no kernel of this repo on their
+    # paths; then the slice's ops at realistic shapes
+    torch.cuda.empty_cache()
+    frcnn, frcnn_fails = frcnn_phase(torch, np, fluid, card)
+    failures += frcnn_fails
+    log(f"frcnn phase ({frcnn['seconds']:.1f}s)")
+    torch.cuda.empty_cache()
+    ranking, ranking_fails = ranking_phase(torch, np, fluid, card)
+    failures += ranking_fails
+    log(f"ranking phase ({ranking['seconds']:.1f}s)")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranking["loss_misc_ops"] = loss_misc_op_checks(torch, np, failures)
+    log(f"loss and misc op check ({time.perf_counter() - t0:.1f}s): "
+        f"{json.dumps(ranking['loss_misc_ops'])}")
+
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
@@ -6756,6 +7471,8 @@ def main() -> int:
     print(json.dumps({"srl": srl}), flush=True)
     print(json.dumps({"speech": speech}), flush=True)
     print(json.dumps({"ssd": ssd}), flush=True)
+    print(json.dumps({"frcnn": frcnn}), flush=True)
+    print(json.dumps({"ranking": ranking}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

@@ -2,7 +2,8 @@
 layers the Transformer, the LSTM text classifiers, the book's chapters
 through machine translation (control flow: While, StaticRNN,
 DynamicRNN, Switch, IfElse and the tensor arrays), the reference's
-image benchmarks, and CTC speech recognition and SSD detection build."""
+image benchmarks, CTC speech recognition, SSD detection, Fast R-CNN
+and learning to rank build."""
 
 from . import (control_flow, io, nn, ops, recurrent,  # noqa: F401
                sequence, tensor)

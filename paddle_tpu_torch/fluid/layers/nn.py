@@ -11,8 +11,13 @@ build, and the general tensor layers (``one_hot``, ``split``,
 ``gather``, ``multiplex``, the reductions), the speech and detection
 layers (``conv2d_transpose``, ``conv3d``, ``pool3d``, ``l2_normalize``,
 ``nce``, ``im2sequence``, ``prior_box``, ``bipartite_match``,
-``multiclass_nms``, ``ssd_loss``, ``detection_output``).  Each
-layer appends ops to the current block through
+``multiclass_nms``, ``ssd_loss``, ``detection_output``), and the
+layers of the loss and miscellaneous ops (``smooth_l1``, ``roi_pool``,
+``spp``, ``unpool``, ``max_pool2d_with_index``, ``bilinear_interp``,
+the ranking losses, ``auc``, ``hsigmoid``, ``selective_fc``, ``pad``,
+``crop``, ``lod_reset``, ``row_conv`` and the rest; the reference's
+all but ``dynamic_lstmp``, ``switch_moe`` and the quantized layers).
+Each layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
 
@@ -36,7 +41,13 @@ __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "decode_attention", "ragged_decode_attention",
            "conv2d_transpose", "conv3d", "pool3d", "l2_normalize", "nce",
            "im2sequence", "prior_box", "bipartite_match", "multiclass_nms",
-           "ssd_loss", "detection_output"]
+           "ssd_loss", "detection_output", "smooth_l1", "auc", "hsigmoid",
+           "sampling_id", "bilinear_interp", "prelu", "maxout",
+           "selective_fc", "scale_sub_region", "rotate",
+           "cross_entropy_over_beam", "cross_entropy_with_selfnorm", "pad",
+           "crop", "lod_reset", "label_smooth", "rank_loss",
+           "margin_rank_loss", "log_loss", "conv_shift", "row_conv",
+           "roi_pool", "spp", "unpool", "max_pool2d_with_index"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -602,15 +613,21 @@ def _triple(x):
     return [x, x, x]
 
 
-def _single_out_layer(op_type, inputs, attrs, stop_gradient=False,
-                      name=None):
-    """One op whose one output slot, Out, is a var of the first input's
-    dtype."""
+def _single_out_layer(op_type, inputs, attrs=None, dtype=None, lod=0,
+                      extra_outputs=None, stop_gradient=False, name=None):
+    """One op whose output slot Out is a var of ``dtype`` (default: the
+    first input's) at ``lod``; each slot of ``extra_outputs`` gets a
+    gradient-free var of the first input's dtype."""
     helper = LayerHelper(op_type, name=name)
     first = next(iter(inputs.values()))
-    out = helper.create_tmp_variable(first.dtype,
+    first = first[0] if isinstance(first, list) else first
+    out = helper.create_tmp_variable(dtype or first.dtype, lod_level=lod,
                                      stop_gradient=stop_gradient)
-    helper.append_op(op_type, inputs, {"Out": out}, attrs)
+    outputs = {"Out": out}
+    for slot in (extra_outputs or []):
+        outputs[slot] = helper.create_tmp_variable(first.dtype,
+                                                   stop_gradient=True)
+    helper.append_op(op_type, inputs, outputs, attrs or {})
     return out
 
 
@@ -798,3 +815,288 @@ def detection_output(loc, conf, prior_box, prior_var,
          "nms_top_k": int(nms_top_k), "keep_top_k": int(keep_top_k),
          "confidence_threshold": float(confidence_threshold)},
         stop_gradient=True, name=name)
+
+
+def smooth_l1(x, y, sigma=1.0):
+    """Smooth L1 loss summed over the last axis (smooth_l1_loss_op.cc)
+    -> [B, 1]; the op's Diff is a second output."""
+    helper = LayerHelper("smooth_l1")
+    diff = helper.create_tmp_variable(x.dtype)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("smooth_l1_loss", {"X": x, "Y": y},
+                     {"Diff": diff, "Out": out}, {"sigma": sigma})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1):
+    """Rank-based AUC of ``input``'s positive-class column against 0/1
+    ``label``, after a ``top_k`` whose indices the op takes (and does
+    not read), as the reference builds it."""
+    helper = LayerHelper("auc")
+    topk_out = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    topk_indices = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("top_k", {"X": input},
+                     {"Out": topk_out, "Indices": topk_indices}, {"k": topk})
+    out = helper.create_tmp_variable("float32", stop_gradient=True)
+    helper.append_op("auc", {"Out": input, "Indices": topk_indices,
+                             "Label": label}, {"AUC": out},
+                     {"curve": curve, "num_thresholds": num_thresholds})
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid cost over the default complete binary tree:
+    a [num_classes - 1, feat] weight and, unless ``bias_attr`` is
+    False, a [num_classes - 1] bias -> the per-row cost [B, 1]."""
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = input.dtype
+    feat = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_classes - 1, feat], dtype=dtype)
+    inputs = {"X": input, "Label": label, "W": w}
+    if bias_attr is not False:
+        inputs["Bias"] = helper.create_parameter(
+            helper.bias_attr or ParamAttr(), shape=[num_classes - 1],
+            dtype=dtype, is_bias=True)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("hsigmoid", inputs, {"Out": out},
+                     {"num_classes": int(num_classes)})
+    return out
+
+
+def sampling_id(x, name=None):
+    """One class id per row drawn from the row's probabilities."""
+    helper = LayerHelper("sampling_id", name=name)
+    out = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("sampling_id", {"X": x}, {"Out": out}, {})
+    return out
+
+
+def bilinear_interp(input, out_h, out_w, name=None):
+    """Bilinear upsampling of [B, C, H, W] to (out_h, out_w), corners
+    aligned."""
+    helper = LayerHelper("bilinear_interp", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("bilinear_interp", {"X": input}, {"Out": out},
+                     {"out_h": int(out_h), "out_w": int(out_w)})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """Parametric ReLU with a learned slope, initialized 0.25: one for
+    ``mode`` 'all', one per channel ('channel', NCHW axis 1) or one per
+    feature element ('element')."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        shape = [1]
+    elif mode == "channel":
+        shape = [x.shape[1]]
+    elif mode == "element":
+        shape = list(x.shape[1:])
+    else:
+        raise ValueError(f"prelu: unknown mode {mode!r}")
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    helper.append_op("prelu", {"X": x, "Alpha": alpha}, {"Out": out},
+                     {"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    """The max over each group of ``groups`` channels, NCHW."""
+    return _single_out_layer("maxout", {"X": x},
+                             {"groups": int(groups)}, name=name)
+
+
+def selective_fc(input, size, select=None, act=None, param_attr=None,
+                 bias_attr=None, name=None):
+    """An fc computed only at ``select``'s columns ([B, k] ids, -1
+    padded) -> [B, k]; without ``select``, ``fc``."""
+    if select is None:
+        return fc(input, size, act=act, param_attr=param_attr,
+                  bias_attr=bias_attr, name=name)
+    helper = LayerHelper("selective_fc", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[int(input.shape[-1]), size],
+                                dtype=dtype)
+    inputs = {"X": input, "W": w, "Select": select}
+    if helper.bias_attr is not None:
+        inputs["Bias"] = helper.create_parameter(
+            helper.bias_attr, shape=[size], dtype=dtype, is_bias=True)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op("selective_fc", inputs, {"Out": out})
+    return helper.append_activation(out)
+
+
+def scale_sub_region(input, indices, value, name=None):
+    """Each sample's CHW block ``indices`` [B, 6] (1-based, inclusive
+    [c0, c1, h0, h1, w0, w1]) scaled by ``value``."""
+    helper = LayerHelper("scale_sub_region", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("scale_sub_region",
+                     {"X": input, "Indices": indices}, {"Out": out},
+                     {"value": float(value)})
+    return out
+
+
+def rotate(x, name=None):
+    """Each [H, W] map turned 90 degrees clockwise."""
+    return _single_out_layer("rotate", {"X": x}, {}, name=name)
+
+
+def cross_entropy_over_beam(beams, name=None):
+    """The learning-to-search beam cost of (candidate_scores,
+    selected_ids, gold) triples, one per beam expansion -> [B, 1]."""
+    helper = LayerHelper("cross_entropy_over_beam", name=name)
+    out = helper.create_tmp_variable("float32")
+    helper.append_op("cross_entropy_over_beam",
+                     {"Scores": [b[0] for b in beams],
+                      "Ids": [b[1] for b in beams],
+                      "Gold": [b[2] for b in beams]},
+                     {"Out": out})
+    return out
+
+
+def cross_entropy_with_selfnorm(input, label, softmax_selfnorm_alpha=0.1,
+                                name=None):
+    """Self-normalized cross-entropy of unnormalized positive scores ->
+    [B, 1]."""
+    helper = LayerHelper("cross_entropy_with_selfnorm", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("cross_entropy_with_selfnorm",
+                     {"X": input, "Label": label}, {"Out": out},
+                     {"softmax_selfnorm_alpha": float(softmax_selfnorm_alpha)})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    """Constant padding, ``paddings`` = [before0, after0, ...]."""
+    return _single_out_layer("pad", {"X": x},
+                             {"paddings": list(paddings),
+                              "pad_value": float(pad_value)}, name=name)
+
+
+def crop(x, shape=None, offsets=None, y=None, name=None):
+    """The ``shape`` block of ``x`` at ``offsets`` (or ``y``'s shape)."""
+    inputs = {"X": x}
+    attrs = {"offsets": list(offsets or [0] * len(x.shape))}
+    if y is not None:
+        inputs["Y"] = y
+    else:
+        attrs["shape"] = list(shape)
+    return _single_out_layer("crop", inputs, attrs, name=name)
+
+
+def lod_reset(x, y=None, target_lod=None, name=None):
+    """The same data under new sequence lengths, ``y``'s or those of the
+    offsets ``target_lod``.  As in the reference, the output var's shape
+    is left undeclared where the op's inference fails (a dense ``y``:
+    ROADMAP C8)."""
+    inputs = {"X": x}
+    attrs = {}
+    if y is not None:
+        inputs["Y"] = y
+    else:
+        attrs["target_lod"] = list(target_lod)
+    return _single_out_layer("lod_reset", inputs, attrs, lod=1, name=name)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """(1 - epsilon) label + epsilon prior (uniform by default)."""
+    inputs = {"X": label}
+    if prior_dist is not None:
+        inputs["PriorDist"] = prior_dist
+    return _single_out_layer("label_smooth", inputs,
+                             {"epsilon": float(epsilon)}, name=name)
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet's pairwise logistic loss of the scores ``left`` and
+    ``right``."""
+    return _single_out_layer("rank_loss",
+                             {"Label": label, "Left": left,
+                              "Right": right}, name=name)
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    """max(0, -label (left - right) + margin)."""
+    return _single_out_layer("margin_rank_loss",
+                             {"Label": label, "X1": left, "X2": right},
+                             {"margin": float(margin)},
+                             extra_outputs=["Activated"], name=name)
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """The binary log loss of probabilities ``input``."""
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("log_loss", {"Predicted": input, "Labels": label},
+                     {"Loss": out}, {"epsilon": float(epsilon)})
+    return out
+
+
+def conv_shift(x, y, name=None):
+    """Per-row circular correlation of ``x`` with ``y``."""
+    return _single_out_layer("conv_shift", {"X": x, "Y": y}, name=name)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """DeepSpeech2's lookahead convolution over a sequence: a
+    [future_context_size + 1, feat] filter."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act,
+                         name=name)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[future_context_size + 1,
+                                       input.shape[-1]],
+                                dtype=input.dtype)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("row_conv", {"X": input, "Filter": w}, {"Out": out})
+    return helper.append_activation(out)
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, name=None):
+    """Max pool of each RoI ([R, 5] = image, x1, y1, x2, y2) to
+    [pooled_height, pooled_width] bins -> [R, C, ph, pw]."""
+    return _single_out_layer("roi_pool", {"X": input, "ROIs": rois},
+                             {"pooled_height": pooled_height,
+                              "pooled_width": pooled_width,
+                              "spatial_scale": spatial_scale}, name=name)
+
+
+def spp(input, pyramid_height=3, pool_type="max", name=None):
+    """Spatial pyramid pooling, flattened -> [B, C * sum(4^l)]."""
+    return _single_out_layer("spp", {"X": input},
+                             {"pyramid_height": pyramid_height,
+                              "pooling_type": pool_type}, name=name)
+
+
+def unpool(x, indices, unpooled_size, name=None):
+    """Pooled values written back at ``max_pool2d_with_index``'s
+    indices."""
+    return _single_out_layer("unpool", {"X": x, "Indices": indices},
+                             {"unpooled_size": list(unpooled_size)},
+                             name=name)
+
+
+def max_pool2d_with_index(input, pool_size, pool_stride=None, name=None):
+    """Max pool and the flat index of each window's maximum (the Mask
+    ``unpool`` reads) -> (out, mask)."""
+    helper = LayerHelper("max_pool2d_with_index", name=name)
+    k = pool_size if isinstance(pool_size, (list, tuple)) \
+        else [pool_size, pool_size]
+    s = pool_stride if pool_stride is not None else list(k)
+    s = s if isinstance(s, (list, tuple)) else [s, s]
+    out = helper.create_tmp_variable(input.dtype)
+    mask = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("max_pool2d_with_index", {"X": input},
+                     {"Out": out, "Mask": mask},
+                     {"ksize": list(k), "strides": list(s)})
+    return out, mask

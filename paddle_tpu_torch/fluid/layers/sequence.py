@@ -1,8 +1,9 @@
 """Sequence layers — the port of ``paddle_tpu/fluid/layers/sequence.py``,
 cut to ``sequence_conv``, ``sequence_pool`` and its first / last step
 forms, ``sequence_expand``, ``sequence_pad``, the linear-chain CRF
-(``linear_chain_crf``, ``crf_decoding``) and CTC (``warpctc``,
-``edit_distance``, ``ctc_align``, ``ctc_greedy_decoder``)."""
+(``linear_chain_crf``, ``crf_decoding``), CTC (``warpctc``,
+``edit_distance``, ``ctc_align``, ``ctc_greedy_decoder``) and
+``lambda_rank_cost``."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from ..layer_helper import LayerHelper
 __all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "sequence_expand", "sequence_pad",
            "linear_chain_crf", "crf_decoding", "warpctc", "edit_distance",
-           "ctc_align", "ctc_greedy_decoder"]
+           "ctc_align", "ctc_greedy_decoder", "lambda_rank_cost"]
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
@@ -157,3 +158,12 @@ def ctc_greedy_decoder(input, blank=0, name=None):
                                      stop_gradient=True)
     helper.append_op("argmax", {"X": input}, {"Out": ids}, {"axis": -1})
     return ctc_align(ids, blank=blank, name=name)
+
+
+def lambda_rank_cost(score, label, ndcg_num=5, name=None):
+    """LambdaRank cost per query sequence -> [B, 1]."""
+    helper = LayerHelper("lambda_rank_cost", name=name)
+    out = helper.create_tmp_variable("float32")
+    helper.append_op("lambda_rank_cost", {"Score": score, "Label": label},
+                     {"Out": out}, {"ndcg_num": int(ndcg_num)})
+    return out

@@ -26,11 +26,13 @@ from .beam_ops import stable_top_k
 NEG = -1e30
 
 
-def _consts(values, device) -> torch.Tensor:
-    """A float32 vector of Python floats made on ``device`` by fills (a
+def fills(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A vector of Python numbers made on ``device`` by fills (a
     host-to-device copy would be a host sync inside a captured step)."""
-    return torch.stack([torch.full((), float(v), dtype=torch.float32,
-                                   device=device) for v in values])
+    if not len(values):
+        return torch.empty(0, dtype=dtype, device=device)
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in values])
 
 
 @primitive("prior_box", inputs=["Input", "Image"],
@@ -77,16 +79,16 @@ def prior_box(ctx, feat, image):
         * step_w
     cxg = cx[None, :, None].expand(fh, fw, n)
     cyg = cy[:, None, None].expand(fh, fw, n)
-    bw = _consts([w for w, _ in whs], dev) / 2.0
-    bh = _consts([h for _, h in whs], dev) / 2.0
+    bw = fills([w for w, _ in whs], dev) / 2.0
+    bh = fills([h for _, h in whs], dev) / 2.0
     # divided by device tensors: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, an ulp off the CPU's quotient
-    iw_t, ih_t = _consts([iw, ih], dev).unbind(0)
+    iw_t, ih_t = fills([iw, ih], dev).unbind(0)
     boxes = torch.stack([(cxg - bw) / iw_t, (cyg - bh) / ih_t,
                          (cxg + bw) / iw_t, (cyg + bh) / ih_t], dim=-1)
     if ctx.attr("clip", False):
         boxes = torch.clamp(boxes, 0.0, 1.0)
-    var = _consts(variances, dev).expand(boxes.shape).contiguous()
+    var = fills(variances, dev).expand(boxes.shape).contiguous()
     return boxes, var
 
 

@@ -231,15 +231,20 @@ def truncated_gaussian_random(ctx, *_):
                  * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))
 
 
+def take_rows(table, idx):
+    """table[idx] along axis 0 (any trailing shape), as an embedding
+    lookup: its gradient is ``aten.embedding_dense_backward``,
+    ``segment_sum``'s fixed-order sum of repeated ids' rows."""
+    flat = torch.nn.functional.embedding(
+        idx.reshape(-1).long(), table.reshape(table.shape[0], -1))
+    return flat.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
 @primitive("gather", inputs=["X", "Index"], stop_grad_slots=("Index",))
 def gather(ctx, x, index):
-    """Rows of X by Index (reference gather_op.cc), ids in [0, rows),
-    as an embedding lookup: its gradient is
-    ``aten.embedding_dense_backward``, ``segment_sum``'s fixed-order
-    sum of repeated ids' rows."""
-    ids = index.reshape(-1).long()
-    rows = torch.nn.functional.embedding(ids, x.reshape(x.shape[0], -1))
-    return rows.reshape(tuple(ids.shape) + tuple(x.shape[1:]))
+    """Rows of X by Index (reference gather_op.cc), ids in [0, rows)
+    (``take_rows``)."""
+    return take_rows(x, index.reshape(-1))
 
 
 @primitive("scatter", inputs=["X", "Ids", "Updates"],

@@ -121,8 +121,8 @@ def compare_op(op_type, specs, attrs, wrt=(), grad_slots=None,
         return jo, to
     slots = sorted(grad_slots or [s for s in jo
                                   if parts(jo[s][0])[0].dtype.kind == "f"])
-    ws = {s: [np.random.RandomState(30 + i).randn(
-        *parts(v)[0].shape).astype(np.float32)
+    ws = {s: [np.asarray(np.random.RandomState(30 + i).randn(
+        *parts(v)[0].shape), np.float32)
         for i, v in enumerate(jo[s])] for s in slots}
     floats = {s: (specs[s][1] if specs[s][0] == "list" else [specs[s][1]])
               for s in wrt}
@@ -361,8 +361,9 @@ def test_im2sequence_lod_reset_fc_cannot_be_built_in_the_reference():
     not build in the reference: ``lod_reset``'s output var has no shape
     (its layer is ``_single_out_layer``, whose inference fails here), so
     ``fc`` raises at ``input_shape[1:]``.  The port's ``im2sequence``
-    declares the reference's output shape; ``lod_reset`` is not ported
-    yet, and its port will inherit this."""
+    declares the reference's output shape, and its ``lod_reset`` layer
+    is the reference's: it leaves the shape undeclared, and ``fc``
+    raises where the reference's raises."""
     shapes = []
     for fluid in (jfluid, tfluid):
         main, startup = fluid.Program(), fluid.Program()
@@ -370,10 +371,10 @@ def test_im2sequence_lod_reset_fc_cannot_be_built_in_the_reference():
             img = fluid.layers.data("img", [1, 32, 100], "float32")
             seq = fluid.layers.im2sequence(img, filter_size=[32, 1])
             shapes.append(tuple(seq.shape))
-            if fluid is jfluid:
-                lens = fluid.layers.data("lens", [1], "int32")
-                reset = fluid.layers.lod_reset(seq, y=lens)
-                assert reset.shape is None
-                with pytest.raises(TypeError, match="NoneType"):
-                    fluid.layers.fc(reset, 10)
+            lens = fluid.layers.data("lens", [1], "int32")
+            reset = fluid.layers.lod_reset(seq, y=lens)
+            assert reset.shape is None
+            assert reset.lod_level == 1
+            with pytest.raises(TypeError, match="NoneType"):
+                fluid.layers.fc(reset, 10)
     assert shapes[0] == shapes[1] == (-1, 100, 32)

@@ -15,7 +15,7 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
-* The port registers 172 of the reference's 234 ops, each under the
+* The port registers 206 of the reference's 234 ops, each under the
   reference's name.
 """
 
@@ -127,18 +127,33 @@ SPEECH_DETECTION_OPS = {
     "positive_negative_pair", "ssd_loss"}
 
 
+# ops of the loss and miscellaneous slice: the rest of loss_ops.py and
+# misc_ops.py but lstmp and isfinite
+LOSS_MISC_OPS = {
+    "cross_entropy_with_selfnorm", "cross_entropy_over_beam",
+    "smooth_l1_loss", "huber_loss", "hinge_loss", "squared_l2_distance",
+    "auc", "precision_recall", "lambda_rank_cost", "pad", "crop", "rotate",
+    "scale_sub_region", "selective_fc", "lod_reset", "label_smooth",
+    "rank_loss", "margin_rank_loss", "log_loss", "modified_huber_loss",
+    "conv_shift", "row_conv", "max_pool2d_with_index", "unpool",
+    "roi_pool", "spp", "minus", "l1_norm", "is_empty", "assign_value",
+    "bilinear_tensor_product", "hsigmoid", "sampling_id",
+    "bilinear_interp"}
+
+
 def test_registered_ops_are_a_subset_of_the_reference():
-    """The port registers 172 of the reference's 234 ops, each under the
-    reference's name, the SRL slice's 16 and the speech and detection
-    slice's 20 among them."""
+    """The port registers 206 of the reference's 234 ops, each under the
+    reference's name, the SRL slice's 16, the speech and detection
+    slice's 20 and the loss and miscellaneous slice's 34 among them."""
     from paddle_tpu.fluid.core.registry import registered_ops as jops
 
     ported, ref = set(fluid.registered_ops()), set(jops())
     assert len(SRL_OPS) == 16 and SRL_OPS <= ported
     assert len(SPEECH_DETECTION_OPS) == 20
     assert SPEECH_DETECTION_OPS <= ported
+    assert len(LOSS_MISC_OPS) == 34 and LOSS_MISC_OPS <= ported
     assert ported <= ref, ported - ref
-    assert (len(ported), len(ref)) == (172, 234)
+    assert (len(ported), len(ref)) == (206, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -294,6 +309,41 @@ def test_chip_smoke_grads_by_conditioning():
     one_off = [loss, g[0], g[1] * np.float32(1.2), g[2]]
     out = cs.grads_by_conditioning(np, one_off, cpu, cpu)
     assert not out[-1] and out[1] == 1
+
+
+def test_chip_smoke_host_syncs_in():
+    """``chip_smoke.host_syncs_in`` counts the synchronize calls that
+    start inside the host's ranges of a name.  The range's device copy
+    (its kernels' span on the card's timeline, which ends after the
+    host's range) does not count: the profiler's own synchronize at its
+    exit, which starts after the last host range, stays out."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    cs = _smoke()
+
+    def ev(name, start, end, device=DeviceType.CPU):
+        return SimpleNamespace(name=name, device_type=device,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    step = "chip_smoke/step"
+    events = []
+    for i in range(3):
+        t = 100.0 * i
+        events += [ev(step, t, t + 90),
+                   ev(step, t + 5, t + 95, DeviceType.CUDA),
+                   ev("cudaStreamSynchronize", t + 60, t + 89),
+                   ev("cudaLaunchKernel", t + 10, t + 11)]
+    # the profiler's exit: after the last host range, inside its device
+    # copy
+    events.append(ev("cudaDeviceSynchronize", 292, 293))
+    assert cs.host_syncs_in(events, step) == 3
+    # a sync inside a host range counts, whatever its kind
+    events.append(ev("cudaEventSynchronize", 150, 151))
+    assert cs.host_syncs_in(events, step) == 4
+    assert cs.on_device(events[1]) and not cs.on_device(events[0])
 
 
 # reference parameters a port function does not take, by (file under the

@@ -305,13 +305,44 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    (``loss_misc_op_checks``): outputs 1e-5 and gradients 1e-4 of their
    largest, bit for bit where exact, ``roi_pool``, ``hsigmoid`` and
    ``selective_fc``'s gradients twice the same bits, hsigmoid's path
-   length at every label, ``sampling_id`` by a chi-square test.
+   length at every label, ``sampling_id`` by a chi-square test;
+25. speculative and constrained decoding (``speculative_phase``) at
+   Transformer-base width, float32 and int8 pools, K = 4, the serving
+   phase's 8 prompts through the scheduler at 8 lanes: the target with
+   an identical-weights draft (accept rate 1.0, but where the draft's
+   own top-2 logit margin at a rejected token is a near tie), then a
+   fresh target with its layers past the first near-identity (output
+   projections x 0.01 before it serves anything, as bench.py's
+   ``bench_speculative`` builds it) and a 1-layer draft sharing the
+   rest (accept rate at least 0.5); streams against each target's
+   plain greedy (equal, or a flip where the plain step's top-2 logit
+   margin is within twice the teacher-forced logit error: printed, and
+   the request's later tokens not compared); accept rate, tokens a
+   round, tokens/s against the same target's plain run; ragged
+   launches a verify step and a draft step, each over its own steps
+   (want 18 and 3 for 1 layer: 3 a layer), the verify and draft
+   steps' captured graphs naming their split and merge nodes; one
+   mid-traffic verify step replayed against the same step eager on a
+   clone of the pool (ids equal, pool bitwise off page 0); 3 rounds
+   profiled (round ms, the device's idle share over them);
+   a 64-token set and a small DFA, every token within its grammar;
+   no executable miss on either executor after ``aot_warm``;
+26. the host tier and sessions (``tier_phase``), the serving model with
+   97 pages, 1024 host pages, transfers 4 pages a step, a
+   ``SessionStore`` on a temporary directory: download -> upload ->
+   download of a conversation's pages bitwise per pool dtype; eight
+   conversations through two slots, each suspended after 8 tokens and
+   resumed for 8 more, token for token against one 16-token decode;
+   resume TTFT against re-prefill TTFT; spill (demote) and prefetch
+   (promote) GB/s; no executable miss after a warm cycle; one artifact
+   torn by ``kv.spill_corrupt`` degrading to re-prefill.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
 line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
-line, a ``ranking`` line, a ``kernels`` line (the flash kernels once
+line, a ``ranking`` line, a ``speculative`` line, a ``tiers`` line, a
+``kernels`` line (the flash kernels once
 in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
 true, ...}`` line;
 per-case detail goes to standard error.  Any failed check exits 1
@@ -713,12 +744,17 @@ def source_name(mangled):
     return m.group(1) if m else None
 
 
-def step_graph(exe):
+def step_graph(exe, prog=None):
     """The one CUDA graph an executor captured for a path's step (a
-    training step, the serving step at one lane count) -> {nodes,
-    kernel_nodes, and the kernel nodes of each of this repo's kernel
-    families}."""
-    graphs = exe.graphs()
+    training step, the serving step at one lane count; of ``prog``'s
+    entries only, if given) -> {nodes, kernel_nodes, and the kernel
+    nodes of each of this repo's kernel families}."""
+    if prog is None:
+        graphs = exe.graphs()
+    else:
+        key = exe._program_key(prog)
+        graphs = [e.graph for k, e in exe._cache.items()
+                  if k[0] == key and e.graph is not None]
     if len(graphs) != 1:
         return {"graphs": len(graphs)}
     names, nodes = kernel_nodes(graphs[0])
@@ -933,15 +969,18 @@ def serving_replay_check(torch, gen, srcs, warm_steps=4):
     return rec
 
 
-def ragged_calls_per_step(fa, sms):
+def ragged_calls_per_step(fa, sms, n_layer=None):
     """(ragged calls, merge launches) of one unified step at the serving
-    width: per layer an encoder self-attention over the source table, a
-    decoder self-attention over the target table and a cross-attention
-    over the source table; a call merges where ``ragged_plan`` splits it."""
+    width (of ``n_layer`` layers, default MODEL's): per layer an encoder
+    self-attention over the source table, a decoder self-attention over
+    the target table and a cross-attention over the source table; a call
+    merges where ``ragged_plan`` splits it.  The speculative verify and
+    draft programs are unified programs too, at C = K + 1 and 1 queries
+    a lane: the same calls."""
     ps = SERVE["page_size"]
     p_src = -(-SERVE["src_len"] // ps)
     p_out = -(-SERVE["max_out_len"] // ps)
-    tables = [p_src, p_out, p_src] * MODEL["n_layer"]
+    tables = [p_src, p_out, p_src] * (n_layer or MODEL["n_layer"])
     merges = sum(fa.ragged_plan(N_SLOTS, MODEL["n_head"], p, sms)[1] > 1
                  for p in tables)
     return len(tables), merges
@@ -6867,6 +6906,711 @@ def loss_misc_op_checks(torch, np, failures):
     return out
 
 
+# -- phase 25: speculative and constrained decoding --------------------------
+
+# the draft length, and the 1-layer draft's target as bench.py's
+# bench_speculative builds it (:926): the target's layers the draft lacks
+# have their residual-branch output projections scaled by SPEC_EPS, so the
+# two models usually argmax alike, as a distilled draft tracks its teacher
+SPEC_K = 4
+SPEC_EPS = 0.01
+SPEC_DRAFT_LAYERS = 1
+SPEC_KV_DTYPES = ("float32", "int8")
+# constrained traffic: a 64-token set, and a small key / value / separator
+# DFA (accepting between fields)
+SPEC_TOKEN_SET = {"type": "token_set", "allowed": list(range(1000, 1064))}
+SPEC_DFA = {"type": "dfa", "start": "k",
+            "edges": ([["k", t, "v"] for t in range(200, 208)]
+                      + [["v", t, "s"] for t in range(300, 332)]
+                      + [["s", 5, "k"]]),
+            "accept": ["k"]}
+# verify rounds profiled for the round's ms and the host's share of it
+SPEC_PROFILED_ROUNDS = 3
+# the 1-layer draft's accept rate below which the recipe is broken: the
+# reference's own run of it read 0.8628 (BENCH_r07.json, "speculative")
+SPEC_ACCEPT_FLOOR = 0.5
+
+
+def eps_scaled_names(prefix, n_layer, n_draft):
+    """The residual-branch output projections of the target layers a
+    ``n_draft``-layer draft lacks (bench.py:966-972)."""
+    names = []
+    for i in range(n_draft, n_layer):
+        names += [f"{prefix}.enc{i}.self.out.w", f"{prefix}.enc{i}.ffn.fc2.w",
+                  f"{prefix}.enc{i}.ffn.fc2.b", f"{prefix}.dec{i}.self.out.w",
+                  f"{prefix}.dec{i}.cross.out.w",
+                  f"{prefix}.dec{i}.ffn.fc2.w", f"{prefix}.dec{i}.ffn.fc2.b"]
+    return names
+
+
+def plain_with_margins(torch, np, gen, srcs):
+    """Plain greedy of ``srcs`` through the unified step (``run_feed``,
+    logits fetched), each request ending at end_id or MAX_NEW tokens ->
+    (tokens per request, the emitting step's top-2 logit margin per
+    token)."""
+    gen.open_slots(len(srcs))
+    for i, s in enumerate(srcs):
+        gen.admit_slot(i, s, max_new=MAX_NEW)
+    out = [[] for _ in srcs]
+    margins = [[] for _ in srcs]
+    while any(ln.phase != "idle" for ln in gen._lanes):
+        ids, logits = gen.run_feed(gen.step_feed())
+        top2 = torch.topk(logits[:, 0].float(), 2, dim=-1).values
+        marg = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        for slot, tok in gen.absorb_step(ids.cpu().numpy()).items():
+            out[slot].append(tok)
+            margins[slot].append(float(marg[slot]))
+            if tok == gen.end_id or len(out[slot]) >= MAX_NEW:
+                gen.clear_slot(slot)
+    return out, margins
+
+
+def stream_compare(got, want, margins, tol):
+    """Streams against plain greedy's: equal, or differing first where the
+    plain step's top-2 margin is within ``tol`` (a near tie: printed, and
+    that request's later tokens not compared, for they follow another
+    prefix), else differing."""
+    rec = {"equal": 0, "near_ties": [], "differ": []}
+    for r, (g, w) in enumerate(zip(got, want)):
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 None)
+        if j is None and len(g) == len(w):
+            rec["equal"] += 1
+        elif j is not None and margins[r][j] < tol:
+            rec["near_ties"].append([r, j, margins[r][j]])
+        else:
+            rec["differ"].append([r, j, len(g), len(w)])
+    return rec
+
+
+def scheduled_run(torch, model, srcs, decode=None):
+    """``srcs`` through a ContinuousBatchingScheduler over ``model`` at
+    N_SLOTS, MAX_NEW tokens each (queued before the loop runs, so the
+    steps do not depend on thread timing) -> (tokens per request, wall
+    s, every request finished without error)."""
+    from paddle_tpu_torch.serving import ContinuousBatchingScheduler
+
+    sched = ContinuousBatchingScheduler(model, n_slots=N_SLOTS,
+                                        max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(s, max_new_tokens=MAX_NEW, decode=decode)
+            for s in srcs]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok = all(r.done and r.error is None for r in reqs)
+    return [list(r.tokens) for r in reqs], wall, ok
+
+
+def grammar_ok(spec_c, row, end_id):
+    """Every token of ``row`` allowed by the constraint ``spec_c`` at its
+    place (a wire spec, walked here without the serving code)."""
+    if spec_c["type"] == "token_set":
+        return all(t in set(spec_c["allowed"]) | {end_id} for t in row)
+    edges = {(s, t): n for s, t, n in spec_c["edges"]}
+    state = spec_c["start"]
+    for t in row:
+        if t == end_id and state in spec_c["accept"]:
+            state = None
+            continue
+        if state is None or (state, t) not in edges:
+            return False
+        state = edges[(state, t)]
+    return True
+
+
+def verify_replay_check(torch, spec):
+    """One verify step of ``spec``'s next round as a graph replay against
+    the same step run eagerly (``run_block_ops``) on a clone of the
+    target's pool (and int8 scales) before it: next ids equal, and the
+    pool bitwise off the trash page.  Returns the record and the round's
+    emitted tokens."""
+    from paddle_tpu_torch.fluid.lowering import (BlockPlan, run_block_ops,
+                                                 seed_tensor)
+
+    tgt = spec.target
+    prog = spec._verify[0]
+    seen = {}
+    orig = tgt.exe.run
+
+    def run(program=None, feed=None, fetch_list=None, **kw):
+        if program is not prog:
+            return orig(program, feed=feed, fetch_list=fetch_list, **kw)
+        plan = BlockPlan(prog.desc.global_block(), list(feed),
+                         [f.name for f in fetch_list])
+        pre = {n: tgt.scope.find_var(n) for n in plan.state_in}
+        pre.update({n: pre[n].clone() for n in plan.state_out})
+        hits = tgt.exe.cache_stats()["executable"]["hits"]
+        out = orig(program, feed=feed, fetch_list=fetch_list, **kw)
+        seen.update(plan=plan, feed=dict(feed), pre=pre,
+                    ids=out[0].clone(), fetch=fetch_list[0].name,
+                    replayed=tgt.exe.cache_stats()["executable"]["hits"]
+                    == hits + 1)
+        return out
+
+    tgt.exe.run = run
+    try:
+        emitted = spec.lane_step()
+    finally:
+        del tgt.exe.run
+    dev = tgt.exe.device
+    env = dict(seen["pre"])
+    env.update(device_feed(torch, seen["feed"], dev))
+    with torch.no_grad():
+        run_block_ops(seen["plan"], env, [], seed_tensor([]).to(dev), dev,
+                      "infer")
+    trash = 2 * MODEL["n_layer"]
+    state = {n: bool(torch.equal(env[n][:, trash:],
+                                 tgt.scope.find_var(n)[:, trash:]))
+             for n in seen["plan"].state_out}
+    rec = {"replayed": seen["replayed"],
+           "ids_equal": bool(torch.equal(env[seen["fetch"]], seen["ids"])),
+           "state_bitwise_off_page0": state,
+           "verifying_lanes": len(emitted)}
+    rec["ok"] = (rec["replayed"] and rec["ids_equal"]
+                 and all(state.values()) and len(emitted) > 0)
+    return rec, emitted
+
+
+def spec_delta(after, before):
+    keys = ("rounds", "drafted", "accepted", "bonus", "emitted",
+            "plain_tokens", "draft_steps", "verify_steps", "cow_copies")
+    d = {k: after[k] - before[k] for k in keys}
+    d["accept_rate"] = d["accepted"] / d["drafted"] if d["drafted"] else None
+    d["tokens_per_round"] = ((d["emitted"] - d["plain_tokens"])
+                             / d["rounds"] if d["rounds"] else None)
+    return d
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    """``obj.<name>`` replaced by ``make(old)`` inside the block, then
+    put back."""
+    own = name in vars(obj)
+    old = getattr(obj, name)
+    setattr(obj, name, make(old))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, old)
+        else:
+            delattr(obj, name)
+
+
+@contextlib.contextmanager
+def draft_margin_probe(torch, spec, tol):
+    """Inside the block, each rejected drafted token of ``spec``'s rounds
+    with the draft's own top-2 logit margin where it drafted that token:
+    the draft program fetches its logits too (a signature of its own,
+    which ``aot_warm`` captures), and each verify step's ids are held
+    against the round's drafts.  A rejection is excused where that
+    margin is within ``tol`` (a near tie that the draft's and the verify
+    step's rounding may break apart).  Yields the record: the drafts
+    checked, the rejections ([slot, index in the round, margin]), how
+    many were excused and how many not, and the lanes whose drafts the
+    dispatches seen do not account for (the probe's own check)."""
+    prog, _, _, logits = spec._draft_prog
+    hist = defaultdict(list)    # slot -> (token, margin) of its dispatches
+    planned = set()
+    rec = {"drafted": 0, "rejections": [], "excused": 0, "unexcused": 0,
+           "untracked": 0}
+
+    def fetch_margins(run):
+        def wrapped(program=None, feed=None, fetch_list=None, **kw):
+            if program is not prog:
+                return run(program, feed=feed, fetch_list=fetch_list, **kw)
+            ids, lg = run(program, feed=feed,
+                          fetch_list=[fetch_list[0], logits], **kw)
+            top2 = torch.topk(lg.reshape(lg.shape[0], -1).float(), 2,
+                              dim=-1).values
+            marg = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            toks = ids.reshape(-1).cpu().numpy()
+            for slot in planned:
+                hist[slot].append((int(toks[slot]), float(marg[slot])))
+            return [ids]
+        return wrapped
+
+    def note_plan(dispatch):
+        def wrapped(plan):
+            planned.clear()
+            planned.update(plan)
+            return dispatch(plan)
+        return wrapped
+
+    def judge(dispatch):
+        def wrapped(rows):
+            ids = dispatch(rows)
+            for slot, (inputs, _m) in rows.items():
+                drafts = inputs[1:]
+                if not drafts:
+                    continue
+                # a lane's drafts come from its last len(drafts) draft
+                # dispatches of the round (its catch-up inputs first)
+                got = hist[slot][-len(drafts):]
+                rec["drafted"] += len(drafts)
+                if [t for t, _ in got] != drafts:
+                    rec["untracked"] += 1
+                    continue
+                m = next((i for i, d in enumerate(drafts)
+                          if int(ids[slot][i]) != d), None)
+                if m is not None:
+                    rec["rejections"].append([slot, m, got[m][1]])
+                    rec["excused" if got[m][1] < tol else "unexcused"] += 1
+            hist.clear()
+            return ids
+        return wrapped
+
+    with patched(spec.draft.exe, "run", fetch_margins), \
+            patched(spec, "_dispatch_draft", note_plan), \
+            patched(spec, "_dispatch_verify", judge):
+        yield rec
+
+
+def speculative_run(torch, fa, spec, srcs, plain, margins, tol,
+                    draft_layers, decode=None):
+    """``srcs`` through the scheduler over ``spec`` after ``aot_warm``
+    (the verify, draft and copy-on-write steps captured at N_SLOTS) ->
+    its record: tokens/s, the counters' deltas, the ragged launches of
+    the run and of each verify and draft step (its launches over its
+    steps; want 3 a layer), executable misses of both executors, and
+    (unconstrained) the streams against plain greedy's under the
+    near-tie rule."""
+    spec.aot_warm(N_SLOTS)
+    c0, s0 = spec.cache_stats(), dict(spec.cache_stats()["speculative"])
+    per = {"verify": [0, 0], "draft": [0, 0]}     # launches, steps
+
+    def counting(kind):
+        def make(dispatch):
+            def wrapped(arg):
+                n0 = fa.ragged_decode_attention.launches
+                out = dispatch(arg)
+                per[kind][0] += fa.ragged_decode_attention.launches - n0
+                per[kind][1] += 1
+                return out
+            return wrapped
+        return make
+
+    fa.ragged_decode_attention.launches = 0
+    with patched(spec, "_dispatch_verify", counting("verify")), \
+            patched(spec, "_dispatch_draft", counting("draft")):
+        toks, wall, ok = scheduled_run(torch, spec, srcs, decode)
+    launches = fa.ragged_decode_attention.launches
+    c1 = spec.cache_stats()
+    d = spec_delta(dict(spec.cache_stats()["speculative"]), s0)
+    rec = {"finished": ok, "tokens": sum(map(len, toks)), "wall_s": wall,
+           "tok_per_s": sum(map(len, toks)) / wall, **d,
+           "ms_per_round": wall * 1e3 / max(1, d["verify_steps"]),
+           "launches": launches,
+           "launches_outside_steps": (launches - per["verify"][0]
+                                      - per["draft"][0]),
+           "launches_per_verify_step": (per["verify"][0] / per["verify"][1]
+                                        if per["verify"][1] else None),
+           "launches_per_draft_step": (per["draft"][0] / per["draft"][1]
+                                       if per["draft"][1] else None),
+           "launches_want_per_step": [3 * MODEL["n_layer"],
+                                      3 * draft_layers],
+           "misses": {k: c1[k]["misses"] - c0[k]["misses"]
+                      for k in ("executable", "draft_executable")}}
+    if decode is None:
+        rec["vs_plain"] = stream_compare(toks, plain, margins, tol)
+    else:
+        rec["grammar_ok"] = all(grammar_ok(decode["constraint"], t,
+                                           spec.end_id) for t in toks)
+    return rec, toks
+
+
+def speculative_failures(name, rec, constrained=False):
+    fails = []
+    if not rec["finished"]:
+        fails.append(f"speculative {name}: a request failed")
+    got = [rec["launches_per_verify_step"], rec["launches_per_draft_step"]]
+    if got != rec["launches_want_per_step"] or rec["launches_outside_steps"]:
+        fails.append(f"speculative {name}: {got} ragged launches a verify "
+                     f"and a draft step, want {rec['launches_want_per_step']}"
+                     f" (3 a layer), {rec['launches_outside_steps']} "
+                     f"outside them")
+    if any(rec["misses"].values()):
+        fails.append(f"speculative {name}: executable misses after "
+                     f"aot_warm {rec['misses']}")
+    if constrained and not rec["grammar_ok"]:
+        fails.append(f"speculative {name}: a token outside the grammar")
+    if not constrained and rec["vs_plain"]["differ"]:
+        fails.append(f"speculative {name}: streams differ from plain "
+                     f"greedy beyond near ties {rec['vs_plain']}")
+    return fails
+
+
+def plain_run(torch, fa, gen, srcs, plain):
+    """``srcs`` through the scheduler over ``gen`` after ``aot_warm`` ->
+    (record: tokens/s, whether the tokens are ``plain``; its ragged
+    launches; every request finished with those tokens)."""
+    gen.aot_warm(N_SLOTS)
+    fa.ragged_decode_attention.launches = 0
+    toks, wall, ok = scheduled_run(torch, gen, srcs)
+    rec = {"tokens": sum(map(len, toks)), "wall_s": wall,
+           "tok_per_s": sum(map(len, toks)) / wall,
+           "same_as_run_feed": toks == plain}
+    return rec, fa.ragged_decode_attention.launches, ok and toks == plain
+
+
+def speculative_phase(torch, np, fluid, fa, card, weights, srcs,
+                      logit_err):
+    """Phase 25: speculative and constrained decoding at Transformer-base
+    width, per pool dtype of SPEC_KV_DTYPES: the target with the serving
+    weights and an identical-weights draft (accept rate 1.0 but where
+    the draft's own top-2 margin was a near tie), then a fresh target
+    whose layers past the first are near-identity (SPEC_EPS, scaled
+    before it serves anything) and the 1-layer draft that shares the
+    rest (accept rate at least SPEC_ACCEPT_FLOOR); K = SPEC_K, the
+    serving phase's 8 prompts through the scheduler at 8 lanes.  Streams
+    against each target's plain greedy under the near-tie rule (a flip
+    where the plain step's top-2 margin is within twice the
+    teacher-forced logit error: two card runs, each that close to the
+    CPU's); tokens/s against the same target's plain run; a verify step
+    replayed against the same step eager; the verify and draft steps'
+    graphs and ragged launches; constrained traffic (a 64-token set, a
+    DFA) within its grammar; no executable miss after ``aot_warm``.
+    Returns (record, ragged launches, failures)."""
+    from paddle_tpu_torch.serving import SpeculativeGenerator
+
+    t_phase = time.perf_counter()
+    failures, runs = [], []
+    launches = 0
+    sms = fa._sm_count(0)
+    want_verify, want_draft = (
+        dict(zip(("ragged_split", "ragged_merge"),
+                 ragged_calls_per_step(fa, sms, n)))
+        for n in (MODEL["n_layer"], SPEC_DRAFT_LAYERS))
+    for kv in SPEC_KV_DTYPES:
+        torch.cuda.empty_cache()
+        tol = 2 * logit_err[kv]
+        target = make_generator("cuda", kv)
+        target.load_params(weights)
+        same = make_generator("cuda", kv)
+        same.load_params(weights)
+        rec = {"kv_dtype": kv, "card": card, "k": SPEC_K,
+               "near_tie_tol": tol}
+        # plain greedy: the stream and margins, then its timed run
+        plain, margins = plain_with_margins(torch, np, target, srcs)
+        rec["plain"], n, ok = plain_run(torch, fa, target, srcs, plain)
+        launches += n
+        if not ok:
+            failures.append(f"speculative {kv}: the plain scheduled run "
+                            f"differs from run_feed's greedy")
+        spec = SpeculativeGenerator(target, same, k=SPEC_K)
+        with draft_margin_probe(torch, spec, tol) as probe:
+            r, _ = speculative_run(torch, fa, spec, srcs, plain, margins,
+                                   tol, MODEL["n_layer"])
+        r["draft_margins"] = probe
+        launches += r["launches"]
+        rec["identical_draft"] = r
+        failures += speculative_failures(f"{kv}/identical", r)
+        if probe["unexcused"] or probe["untracked"] or not probe["drafted"]:
+            failures.append(f"speculative {kv}: identical draft rejected "
+                            f"beyond the draft's near ties {probe}")
+        rec["verify_graph"] = step_graph(target.exe, spec._verify[0])
+        if rec["verify_graph"].get("by_family") != want_verify:
+            failures.append(f"speculative {kv}: verify graph "
+                            f"{rec['verify_graph']}, want {want_verify}")
+        del spec, same, target
+        torch.cuda.empty_cache()
+
+        # the near-identity target, scaled before it serves a request (a
+        # prefix it cached under other weights would feed it stale
+        # encoder and cross pages), and its 1-layer draft
+        target = make_generator("cuda", kv)
+        target.load_params(weights)
+        for n in eps_scaled_names(target.prefix, MODEL["n_layer"],
+                                  SPEC_DRAFT_LAYERS):
+            target.scope.find_var(n).mul_(SPEC_EPS)
+        draft = make_generator("cuda", kv, dict(MODEL,
+                                                n_layer=SPEC_DRAFT_LAYERS))
+        draft.load_params({n: v for n, v in weights.items()
+                           if n in draft._param_vars()})
+        plain1, margins1 = plain_with_margins(torch, np, target, srcs)
+        rec["plain_near_identity"], n, ok = plain_run(torch, fa, target,
+                                                      srcs, plain1)
+        launches += n
+        if not ok:
+            failures.append(f"speculative {kv}: the near-identity target's "
+                            f"scheduled run differs from run_feed's greedy")
+        spec1 = SpeculativeGenerator(target, draft, k=SPEC_K)
+        r, _ = speculative_run(torch, fa, spec1, srcs, plain1, margins1,
+                               tol, SPEC_DRAFT_LAYERS)
+        launches += r["launches"]
+        rec["draft_1_layer"] = r
+        failures += speculative_failures(f"{kv}/1-layer", r)
+        if not (r["accept_rate"] or 0) >= SPEC_ACCEPT_FLOOR:
+            failures.append(f"speculative {kv}: the 1-layer draft's accept "
+                            f"rate {r['accept_rate']}, want at least "
+                            f"{SPEC_ACCEPT_FLOOR}")
+        rec["draft_graph"] = step_graph(draft.exe, spec1._draft_prog[0])
+        if rec["draft_graph"].get("by_family") != want_draft:
+            failures.append(f"speculative {kv}: draft graph "
+                            f"{rec['draft_graph']}, want {want_draft}")
+        for name, c in (("token_set", SPEC_TOKEN_SET), ("dfa", SPEC_DFA)):
+            r, _ = speculative_run(torch, fa, spec1, srcs, None, None, tol,
+                                   SPEC_DRAFT_LAYERS, {"constraint": c})
+            launches += r["launches"]
+            rec[f"constrained_{name}"] = r
+            failures += speculative_failures(f"{kv}/{name}", r, True)
+
+        # one mid-traffic round: its verify step replayed vs eager, then
+        # SPEC_PROFILED_ROUNDS rounds profiled (the round's ms, and the
+        # device's busy time and idle share over them)
+        spec1.open_slots(N_SLOTS)
+        for i, s in enumerate(srcs):
+            spec1.admit_slot(i, s, max_new=MAX_NEW)
+        while any(ln.phase == "prefill" for ln in spec1.target._lanes) or \
+                any(ln.phase == "prefill" for ln in spec1.draft._lanes):
+            spec1.lane_step()
+        fa.ragged_decode_attention.launches = 0
+        rec["verify_replay_vs_eager"], _ = verify_replay_check(torch, spec1)
+        if not rec["verify_replay_vs_eager"]["ok"]:
+            failures.append(f"speculative {kv}: verify replay vs eager "
+                            f"{rec['verify_replay_vs_eager']}")
+        prof = profiled_call(torch, lambda: [
+            spec1.lane_step() for _ in range(SPEC_PROFILED_ROUNDS)])
+        launches += fa.ragged_decode_attention.launches
+        prof["round_ms"] = prof["wall_ms"] / SPEC_PROFILED_ROUNDS
+        rec["rounds_profiled"] = prof
+        for i in range(N_SLOTS):
+            spec1.clear_slot(i)
+        spec1.check_invariants()
+        rec["speedup_vs_plain"] = (rec["draft_1_layer"]["tok_per_s"]
+                                   / rec["plain_near_identity"]["tok_per_s"])
+        runs.append(rec)
+        log(f"speculative {kv}: {json.dumps(rec)}")
+        del spec1, draft, target
+        torch.cuda.empty_cache()
+    one = runs[0]
+    per_step = {
+        "launches_verify_step": one["draft_1_layer"][
+            "launches_per_verify_step"],
+        "launches_draft_step": one["draft_1_layer"][
+            "launches_per_draft_step"],
+        "verify_graph_nodes": one["verify_graph"].get("by_family"),
+        "draft_graph_nodes": one["draft_graph"].get("by_family")}
+    return ({"runs": runs, "per_step": per_step,
+             "seconds": time.perf_counter() - t_phase}, launches, failures)
+
+
+# -- phase 26: the host tier and sessions ------------------------------------
+
+# the serving model with a pool that keeps two or three conversations
+# (a 256-token prompt holds 2 x 16 prompt pages and its decode pages),
+# a host tier of 1024 pages, transfers 4 pages a step
+TIER_NUM_PAGES = 97
+TIER_HOST_PAGES = 1024
+TIER_XFER_WIDTH = 4
+TIER_SLOTS = 2
+TIER_TURN = 8                   # tokens a turn; two turns a conversation
+
+
+def make_tiered(device, kv_dtype, store):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.serving import PagedTransformerGenerator
+    place = fluid.CUDAPlace(0) if device == "cuda" else fluid.CPUPlace()
+    return PagedTransformerGenerator(
+        VOCAB, VOCAB, kv_dtype=kv_dtype, place=place, session_store=store,
+        host_pages=TIER_HOST_PAGES, xfer_width=TIER_XFER_WIDTH,
+        **MODEL, **dict(SERVE, num_pages=TIER_NUM_PAGES))
+
+
+def tier_round_trip(torch, np, gen, src):
+    """A prompt prefilled and decoding a few tokens, then its cross and
+    self pages downloaded, uploaded into fresh pages and downloaded from
+    there: bitwise equal (bf16 slabs as their bits)."""
+    gen.open_slots(1)
+    gen.admit_slot(0, src, max_new=TIER_TURN)
+    for _ in range(64):
+        if gen._lanes[0].phase == "decode" and gen._lanes[0].pos >= 2:
+            break
+        gen.lane_step()
+    lane = gen._lanes[0]
+    pages = list(lane.cross_table) + list(lane.self_table[:1])
+    first = gen._tier_download(pages)
+    fresh = gen.alloc.alloc(len(pages))
+    gen._tier_upload(fresh, first)
+    again = gen._tier_download(fresh)
+    for p in fresh:
+        gen.alloc.unref(p)
+    gen.clear_slot(0)
+
+    def bits(x):
+        return None if x is None else (
+            x.view(torch.int16).numpy() if isinstance(x, torch.Tensor)
+            else x)
+
+    same = all(np.array_equal(bits(first[k]), bits(again[k]))
+               if first[k] is not None else again[k] is None
+               for k in ("kv", "scales"))
+    gen.alloc.check_invariants()
+    return {"pages": len(pages), "bitwise": bool(same)}
+
+
+def tier_phase(torch, np, fluid, fa, card, weights):
+    """Phase 26: the host tier and sessions on the serving model with
+    TIER_NUM_PAGES pages (two or three conversations resident), a host
+    tier of TIER_HOST_PAGES pages and a ``SessionStore`` on a temporary
+    directory: per pool dtype, download -> upload -> download of a
+    conversation's pages bitwise; float32: eight conversations through
+    two slots, each suspended after a turn of TIER_TURN tokens and
+    resumed for a second, against each conversation decoded in one go
+    (token for token); resume TTFT against re-prefill TTFT; spill
+    (demote) and prefetch (promote) GB/s; no executable miss across the
+    churn after a warm cycle; one artifact torn by ``kv.spill_corrupt``
+    degrading to re-prefill with the first turn's tokens.  Returns
+    (record, ragged launches, failures)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.resilience import chaos
+    from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                          SessionStore)
+
+    t_phase = time.perf_counter()
+    failures = []
+    rec = {"card": card, "num_pages": TIER_NUM_PAGES,
+           "host_pages": TIER_HOST_PAGES, "xfer_width": TIER_XFER_WIDTH,
+           "round_trip": {}}
+    srcs = prompts(np, SEED + 3)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kvs_")
+    fa.ragged_decode_attention.launches = 0
+    try:
+        for kv in KV_DTYPES:
+            g = make_tiered("cuda", kv, SessionStore(dirname=os.path.join(
+                tmp, f"rt-{kv}")))
+            g.load_params(weights)
+            rec["round_trip"][kv] = tier_round_trip(torch, np, g, srcs[0])
+            if not rec["round_trip"][kv]["bitwise"]:
+                failures.append(f"tiers {kv}: download -> upload -> "
+                                f"download not bitwise")
+            del g
+            torch.cuda.empty_cache()
+
+        store = SessionStore(dirname=os.path.join(tmp, "churn"))
+        gen = make_tiered("cuda", "float32", store)
+        gen.load_params(weights)
+        sched = ContinuousBatchingScheduler(gen, n_slots=TIER_SLOTS,
+                                            max_new_tokens=2 * TIER_TURN)
+
+        def run(src, max_new, session=None):
+            # the serve loop's prefetch of a queued prompt's demoted
+            # chunks, as when the request waits behind busy lanes: an
+            # admission on an idle loop comes first and would prefill a
+            # demoted chunk again (ROADMAP C10)
+            gen.tier_maintenance(prefetch=src)
+            req = sched.submit(src, max_new_tokens=max_new,
+                               session=session)
+            sched.run_until_idle()
+            if not (req.done and req.error is None):
+                failures.append(f"tiers: request failed {req.error!r}")
+            return req
+
+        # the uninterrupted decodes; then a warm cycle (suspend, resume,
+        # demote, promote) after which the executable misses freeze
+        whole = [run(s, 2 * TIER_TURN).tokens for s in srcs]
+        run(srcs[0], 2, session="warm")
+        run(srcs[0], 2, session="warm")
+        while gen.alloc.demote_one():
+            pass
+        gen.tier_maintenance(prefetch=srcs[0])
+        store.delete("warm")
+        torch.cuda.synchronize()
+        misses0 = gen.exe.cache_stats()["executable"]["misses"]
+        stats0 = dict(gen.cache_stats()["tiers"])
+
+        first = [run(s, TIER_TURN, session=f"c{i}")
+                 for i, s in enumerate(srcs)]
+        second = [run(s, TIER_TURN, session=f"c{i}")
+                  for i, s in enumerate(srcs)]
+        rec["resumed"] = sum(r.resumed for r in second)
+        rec["parity"] = [list(a.tokens) + list(b.tokens) == w
+                         for a, b, w in zip(first, second, whole)]
+        if rec["resumed"] != len(srcs) or not all(rec["parity"]):
+            failures.append(f"tiers: {rec['resumed']} of {len(srcs)} "
+                            f"resumed, parity {rec['parity']}")
+        ttft_resume = [r.first_token - r.submitted for r in second]
+        fresh = prompts(np, SEED + 4, [len(s) for s in srcs])
+        reprefill = [run(s, TIER_TURN) for s in fresh]
+        ttft_prefill = [r.first_token - r.submitted for r in reprefill]
+        rec["resume_ttft_ms"] = float(np.median(ttft_resume)) * 1e3
+        rec["reprefill_ttft_ms"] = float(np.median(ttft_prefill)) * 1e3
+        rec["resume_vs_reprefill_ttft"] = (rec["resume_ttft_ms"]
+                                           / rec["reprefill_ttft_ms"])
+
+        # spill and prefetch rates through the transfer programs
+        a0 = dict(gen.alloc.stats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while gen.alloc.demote_one():
+            pass
+        d2h = time.perf_counter() - t0
+        a1 = dict(gen.alloc.stats())
+        t0 = time.perf_counter()
+        for h in list(gen.alloc.host._entries):
+            # only into free pages: an allocation under pressure would
+            # demote another chunk in the timed window
+            if gen.alloc.free_count() < 2:
+                break
+            gen.alloc.promote_chunk(h)
+        torch.cuda.synchronize()
+        h2d = time.perf_counter() - t0
+        a2 = dict(gen.alloc.stats())
+        spill = a1["spilled_bytes"] - a0["spilled_bytes"]
+        fetch = a2["fetched_bytes"] - a1["fetched_bytes"]
+        rec["spill_gb_per_s"] = spill / d2h / 1e9 if spill else None
+        rec["prefetch_gb_per_s"] = fetch / h2d / 1e9 if fetch else None
+        rec["spilled_bytes"], rec["fetched_bytes"] = spill, fetch
+        if not spill or not fetch:
+            failures.append(f"tiers: no demotion or promotion ({spill} "
+                            f"spilled, {fetch} fetched bytes)")
+        gen.alloc.check_invariants()
+
+        # one torn artifact: re-prefill, the first turn's tokens
+        run(srcs[1], TIER_TURN, session="torn")
+        corrupt0 = store.stats()["corrupt"]
+        prev = chaos.install(chaos.FaultInjector(
+            spec="kv.spill_corrupt=1.0", seed=SEED))
+        try:
+            torn = run(srcs[1], TIER_TURN, session="torn")
+        finally:
+            chaos.install(prev)
+        rec["corrupt_degraded"] = {
+            "resumed": torn.resumed,
+            "corrupt": store.stats()["corrupt"] - corrupt0,
+            "tokens_equal": list(torn.tokens) == whole[1][:TIER_TURN]}
+        if torn.resumed or rec["corrupt_degraded"]["corrupt"] != 1 or \
+                not rec["corrupt_degraded"]["tokens_equal"]:
+            failures.append(f"tiers: torn artifact "
+                            f"{rec['corrupt_degraded']}")
+        rec["misses_after_warm"] = (
+            gen.exe.cache_stats()["executable"]["misses"] - misses0)
+        if rec["misses_after_warm"]:
+            failures.append(f"tiers: {rec['misses_after_warm']} executable "
+                            f"misses across the churn")
+        st = gen.cache_stats()["tiers"]
+        rec["tier_counts"] = {k: st[k] - stats0.get(k, 0) for k in
+                              ("suspends", "resumes", "resume_misses",
+                               "demotes", "promotes", "prefetches")}
+        rec["sessions"] = store.stats()
+        rec["xfer_graphs"] = {
+            name: step_graph(gen.exe, p)["graphs"] for name, p in
+            (("down", gen._xfer()["down"][0]), ("up", gen._xfer()["up"]))}
+        sched.shutdown(timeout=30)
+        gen.alloc.check_invariants()
+        del gen, sched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = fa.ragged_decode_attention.launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return rec, launches, failures
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7110,9 +7854,12 @@ def main() -> int:
     # -- beam search on the paged engine, the dense generator, the full
     # re-run decoder
     t0 = time.perf_counter()
+    # the teacher-forced logit error of each pool dtype: the float error
+    # the beam's and the speculative streams' near ties are judged by
+    logit_err = {r["kv_dtype"]: r["logits_max_abs_err_vs_cpu"]
+                 for r in runs}
     beam, beam_launches, beam_err, beam_fails = beam_phase(
-        torch, np, fluid, fa, card, weights, srcs,
-        {r["kv_dtype"]: r["logits_max_abs_err_vs_cpu"] for r in runs})
+        torch, np, fluid, fa, card, weights, srcs, logit_err)
     failures += beam_fails
     launches += beam_launches
     max_err = max(max_err, beam_err)
@@ -7458,6 +8205,25 @@ def main() -> int:
     log(f"loss and misc op check ({time.perf_counter() - t0:.1f}s): "
         f"{json.dumps(ranking['loss_misc_ops'])}")
 
+    # -- speculative and constrained decoding; the host tier and
+    # sessions: the ragged kernel in the verify and draft steps
+    torch.cuda.empty_cache()
+    spec_rec, spec_launches, spec_fails = speculative_phase(
+        torch, np, fluid, fa, card, weights, srcs, logit_err)
+    failures += spec_fails
+    log(f"speculative phase ({spec_rec['seconds']:.1f}s)")
+    tiers, tier_launches, tier_fails = tier_phase(torch, np, fluid, fa,
+                                                  card, weights)
+    failures += tier_fails
+    log(f"tier phase ({tiers['seconds']:.1f}s): {json.dumps(tiers)}")
+    kernels[0]["launches"] += spec_launches + tier_launches
+    kernels[0]["launches_speculative"] = spec_launches
+    kernels[0]["launches_tiers"] = tier_launches
+    # a verify step's ragged launches (its prefill tower and its
+    # k+1-query decode) and a 1-layer draft step's, over their steps in
+    # phase 25's float32 run, and their graphs' ragged nodes
+    kernels[0].update(spec_rec["per_step"])
+
     print(json.dumps({"serving": {"card": card, "runs": runs,
                                   "profile_in_turns": peaks}}), flush=True)
     print(json.dumps({"beam": beam}), flush=True)
@@ -7473,6 +8239,8 @@ def main() -> int:
     print(json.dumps({"ssd": ssd}), flush=True)
     print(json.dumps({"frcnn": frcnn}), flush=True)
     print(json.dumps({"ranking": ranking}), flush=True)
+    print(json.dumps({"speculative": spec_rec}), flush=True)
+    print(json.dumps({"tiers": tiers}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

@@ -2,9 +2,9 @@
 cut to ``create_global_var``, ``fill_constant`` (the learning-rate
 schedules' constants), ``fill_constant_batch_size_like``, ``zeros``,
 ``ones``, ``concat``, ``sums``, ``assign``, ``cast``, ``argmax``, the
-dense and paged KV-cache writes and the copy-on-write page copy; the
-other creation layers and the KV-tier transfer layers are not
-ported."""
+dense and paged KV-cache writes, the copy-on-write page copy and the
+KV-tier transfers (``paged_page_gather`` / ``paged_page_scatter``); the
+other creation layers are not ported."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ __all__ = ["create_global_var", "fill_constant",
            "fill_constant_batch_size_like", "zeros", "ones", "concat",
            "sums", "assign", "cast", "argmax", "cache_write",
            "paged_cache_write", "quantized_paged_cache_write",
-           "paged_page_copy"]
+           "paged_page_copy", "paged_page_gather", "paged_page_scatter"]
 
 
 def create_global_var(shape, value, dtype, persistable=False, name=None):
@@ -173,5 +173,59 @@ def paged_page_copy(pool, src, dst, n_layer, out=None, scales=None,
     out.stop_gradient = True
     helper.append_op("paged_page_copy",
                      {"Pool": pool, "Src": src, "Dst": dst},
+                     {"Out": out}, {"n_layer": int(n_layer)})
+    return out
+
+
+def paged_page_gather(pool, pages, n_layer, scales=None):
+    """Gather W whole logical pages out of the paged pool as a dense
+    [H, W*2L, page_size, D] slab: the device half of a KV-tier download
+    (``ops/cache_ops.paged_page_gather``).  ``pages`` [W] int32 is data;
+    short transfers pad with the trash page.  With the int8 pool's
+    ``scales`` the fp32 block scales come along and (slab, scale_slab)
+    is returned."""
+    if scales is not None:
+        helper = LayerHelper("quantized_paged_page_gather")
+        out = helper.create_tmp_variable(pool.dtype, stop_gradient=True)
+        scales_out = helper.create_tmp_variable(scales.dtype,
+                                                stop_gradient=True)
+        helper.append_op("quantized_paged_page_gather",
+                         {"Pool": pool, "Scales": scales, "Pages": pages},
+                         {"Out": out, "ScalesOut": scales_out},
+                         {"n_layer": int(n_layer)})
+        return out, scales_out
+    helper = LayerHelper("paged_page_gather")
+    out = helper.create_tmp_variable(pool.dtype, stop_gradient=True)
+    helper.append_op("paged_page_gather",
+                     {"Pool": pool, "Pages": pages},
+                     {"Out": out}, {"n_layer": int(n_layer)})
+    return out
+
+
+def paged_page_scatter(pool, data, pages, n_layer, out=None, scales=None,
+                       scale_data=None, scales_out=None):
+    """Scatter a gathered slab back into W logical pages: the device half
+    of a KV-tier upload (``ops/cache_ops.paged_page_scatter``).  ``Out``
+    defaults to the pool variable itself, written in place; trash-page
+    entries take the padding rows.  With ``scales`` and ``scale_data``
+    (an int8 pool) the fp32 block scales land at the same rows and
+    (pool, scales) is returned."""
+    if scales is not None:
+        helper = LayerHelper("quantized_paged_page_scatter")
+        out = out or pool
+        scales_out = scales_out or scales
+        out.stop_gradient = True
+        scales_out.stop_gradient = True
+        helper.append_op("quantized_paged_page_scatter",
+                         {"Pool": pool, "Scales": scales, "Data": data,
+                          "ScaleData": scale_data, "Pages": pages},
+                         {"Out": out, "ScalesOut": scales_out},
+                         {"n_layer": int(n_layer)})
+        return out, scales_out
+    helper = LayerHelper("paged_page_scatter")
+    out = out or pool
+    out.stop_gradient = True
+    helper.append_op("paged_page_scatter",
+                     {"Pool": pool, "Data": data, "Pages": pages},
                      {"Out": out}, {"n_layer": int(n_layer)})
     return out

@@ -1,9 +1,10 @@
 """KV-cache ops — the port of ``paddle_tpu/fluid/ops/cache_ops.py``, with
 the reference's slots and attrs: the dense generator's ``cache_write``
 and ``decode_attention``, and the paged engine's ``paged_cache_write``,
-``quantized_paged_cache_write``, ``ragged_decode_attention`` and the
+``quantized_paged_cache_write``, ``ragged_decode_attention``, the
 copy-on-write page copies ``paged_page_copy`` /
-``quantized_paged_page_copy``.
+``quantized_paged_page_copy`` and the KV-tier transfers
+``paged_page_gather`` / ``paged_page_scatter`` (and their int8 forms).
 
 ``cache_write`` writes a preallocated [B, L, H, D] cache in place at
 each lane's position (``Out`` aliases ``Cache``), and
@@ -40,7 +41,9 @@ from .quant_ops import abs_max_scale, quantize_array
 
 __all__ = ["cache_write", "decode_attention", "paged_cache_write",
            "quantized_paged_cache_write", "ragged_decode_attention",
-           "paged_page_copy", "quantized_paged_page_copy"]
+           "paged_page_copy", "quantized_paged_page_copy",
+           "paged_page_gather", "paged_page_scatter",
+           "quantized_paged_page_gather", "quantized_paged_page_scatter"]
 
 
 @primitive("cache_write", inputs=["Cache", "Value", "Index"],
@@ -198,4 +201,59 @@ def quantized_paged_page_copy(ctx, pool, scales, src, dst):
                                          int(ctx.attr("n_layer", 1)))
     pool[:, dst_rows] = pool[:, src_rows]
     scales[:, dst_rows] = scales[:, src_rows]
+    return pool, scales
+
+
+# -- the KV tier's transfers ------------------------------------------------
+# gather pulls whole logical pages out of the pool as a dense [H, W*2L,
+# page_size, D] slab the host fetches (device to host); scatter writes
+# such a slab back into pages (host to device).  W is fixed per program
+# (short transfers pad with the trash page) and the page lists are int32
+# data, so the tier adds two captured steps and no recompiles.
+
+def _page_rows(pages, n_layer: int):
+    """Logical pages [W] -> their physical rows [W*2L], page by page."""
+    span = torch.arange(2 * n_layer, device=pages.device)[None, :]
+    pages = pages.reshape(-1).to(torch.long)
+    return (pages[:, None] * (2 * n_layer) + span).reshape(-1)
+
+
+@primitive("paged_page_gather", inputs=["Pool", "Pages"],
+           outputs=["Out"], no_grad=True)
+def paged_page_gather(ctx, pool, pages):
+    """Gather W whole logical pages (all layers, K and V) into a dense
+    slab [H, W*2L, page_size, D] for the host; ``pages`` [W] int32, a
+    trash-page entry gathers rows the host ignores."""
+    return pool[:, _page_rows(pages, int(ctx.attr("n_layer", 1)))]
+
+
+@primitive("paged_page_scatter", inputs=["Pool", "Data", "Pages"],
+           outputs=["Out"], no_grad=True)
+def paged_page_scatter(ctx, pool, data, pages):
+    """Scatter a gathered slab [H, W*2L, page_size, D] into the pool at
+    W logical pages, in place (``Out`` aliases ``Pool``); the padding
+    entries all land on the trash page, in any order."""
+    rows = _page_rows(pages, int(ctx.attr("n_layer", 1)))
+    pool[:, rows] = data.to(pool.dtype)
+    return pool
+
+
+@primitive("quantized_paged_page_gather", inputs=["Pool", "Scales", "Pages"],
+           outputs=["Out", "ScalesOut"], no_grad=True)
+def quantized_paged_page_gather(ctx, pool, scales, pages):
+    """``paged_page_gather`` for an int8 pool: the fp32 block-scale rows
+    travel with the int8 bytes (the same physical rows)."""
+    rows = _page_rows(pages, int(ctx.attr("n_layer", 1)))
+    return pool[:, rows], scales[:, rows]
+
+
+@primitive("quantized_paged_page_scatter",
+           inputs=["Pool", "Scales", "Data", "ScaleData", "Pages"],
+           outputs=["Out", "ScalesOut"], no_grad=True)
+def quantized_paged_page_scatter(ctx, pool, scales, data, scale_data, pages):
+    """``paged_page_scatter`` for an int8 pool: the int8 bytes and their
+    fp32 block scales land at the same physical rows, both in place."""
+    rows = _page_rows(pages, int(ctx.attr("n_layer", 1)))
+    pool[:, rows] = data.to(pool.dtype)
+    scales[:, rows] = scale_data.to(scales.dtype)
     return pool, scales

@@ -18,7 +18,14 @@
   pages.  After each step a hypothesis takes its parent's page table,
   page by page, under refcounts; a lane about to write a shared,
   partly filled page first gets its own copy in the same step
-  (copy-on-write, ``paged_page_copy``), never a copy of the whole cache.
+  (copy-on-write, ``paged_page_copy``), never a copy of the whole cache;
+* **a host-RAM tier and sessions** (``host_pages``, ``session_store``):
+  evicted prefix chunks demote to host RAM and promote back bit for bit
+  on the next hit, and whole lanes suspend to checksummed artifacts
+  (``serving/sessions.SessionStore``) and resume without re-prefill.
+  The bytes move through two fixed-width programs of their own
+  (``paged_page_gather`` / ``paged_page_scatter``, ``xfer_width`` pages
+  a step), each captured once.
 
 As in the reference, the generator builds the unified prefill+decode
 step as a Fluid program and runs it through ``fluid.Executor`` in its
@@ -30,18 +37,22 @@ captured in a CUDA graph; every later one at that lane count replays it
 traffic).  The beam step is a program of its own, run the same way: one
 capture per (b, W), the scope's pool its buffer as it is the unified
 step's.  The host-side logic (admission, page tables, feeds, greedy,
-the beam's table reorder and copy-on-write) is the reference's, line for
-line, so both packages make the same decisions on the same requests.
+the beam's table reorder and copy-on-write, demotion, suspend and
+resume) is the reference's, line for line, so both packages make the
+same decisions on the same requests.
 Pools may be float32, bfloat16 or int8 (with a float32 per-(row, slot)
 scale sidecar).
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the host-RAM KV tier and sessions, the sharded mesh, speculative
-decoding, ``build_manifest_program`` and the static HBM estimates.
+Speculative and constrained decoding compose two of these generators
+(``serving/speculative.SpeculativeGenerator``).  Not ported yet, and
+refused with ``NotImplementedError`` when asked for: the sharded mesh,
+``build_manifest_program`` and the static HBM estimates.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
@@ -51,6 +62,7 @@ from .. import fluid
 from ..fluid import layers
 from ..fluid.analysis.dataflow import ProgramView
 from ..fluid.analysis.recompile import enumerate_buckets
+from ..fluid.executor import _host_tensor
 from ..models import transformer as T
 from ..observability import tracing as _obs_tracing
 from .decoder import (_Cfg, build_backtrace, dense_kv_bytes_per_slot,
@@ -84,6 +96,34 @@ def kv_page_bytes(n_layer: int, n_head: int, d_head: int, page_size: int,
     data = rows * page_size * n_head * d_head * _KV_ITEMSIZE[kv_dtype]
     scales = rows * page_size * 4 if kv_dtype == "int8" else 0
     return data + scales
+
+
+def _host_kv(v) -> torch.Tensor:
+    """A payload's slab as a CPU tensor: a tensor as it is, an array
+    (numpy, or ``ml_dtypes`` bfloat16 as its bits) through the
+    executor's host conversion."""
+    return v.detach().cpu() if isinstance(v, torch.Tensor) \
+        else _host_tensor(v)
+
+
+def _host_slabs(*slabs):
+    """Slabs (or None) as host values, copied off the card through pinned
+    memory with one wait for all: numpy arrays, but a bf16 slab stays a
+    CPU ``torch.bfloat16`` tensor (numpy has no bfloat16)."""
+    host, wait = [], None
+    for t in slabs:
+        if t is not None and t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            wait = torch.cuda.current_stream(t.device)
+            t = h
+        elif t is not None:
+            t = t.clone()
+        host.append(t)
+    if wait is not None:
+        wait.synchronize()
+    return [t if t is None or t.dtype == torch.bfloat16 else t.numpy()
+            for t in host]
 
 
 # decode-time cache state (paged pool + sidecar, dense per-lane caches):
@@ -271,17 +311,10 @@ class PagedTransformerGenerator:
                  kv_dtype="float32", mesh=None, mesh_axes=None,
                  host_pages=0, session_store=None, xfer_width=4,
                  demote_watermark=0):
-        unported = {"mesh / mesh_axes": mesh is not None or bool(mesh_axes),
-                    "host_pages (KV host tier)": host_pages != 0,
-                    "session_store": session_store is not None,
-                    "xfer_width (KV host tier)": xfer_width != 4,
-                    "demote_watermark (KV host tier)":
-                        demote_watermark != 0}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
+        if mesh is not None or mesh_axes:
             raise NotImplementedError(
-                f"PagedTransformerGenerator: {', '.join(asked)} not "
-                f"ported to paddle_tpu_torch yet")
+                "PagedTransformerGenerator: mesh / mesh_axes (the sharded "
+                "serving mesh) not ported to paddle_tpu_torch yet")
         if d_key != d_value:
             raise ValueError("paged KV pool requires d_key == d_value "
                              "(one pool row shape serves both)")
@@ -316,7 +349,23 @@ class PagedTransformerGenerator:
                               self.page_size)
         self.page_bytes = kv_page_bytes(n_layer, n_head, d_key,
                                         self.page_size, kv_dtype)
-        self.alloc = PageAllocator(self.num_pages, self.page_size)
+        # the host tier: host_pages > 0 attaches a host-RAM demotion tier
+        # behind the allocator; session_store enables suspend/resume of
+        # whole lanes; both opt-in (the defaults destroy on evict)
+        self.host_pages = int(host_pages)
+        self.sessions = session_store
+        self.xfer_width = max(1, int(xfer_width))
+        self.demote_watermark = int(demote_watermark)
+        self.alloc = PageAllocator(self.num_pages, self.page_size,
+                                   host_pages=self.host_pages)
+        self._xfer_progs = None
+        self._pending_suspends: Dict[str, Dict] = {}
+        self._tier_stats = {"suspends": 0, "suspend_drops": 0,
+                            "resumes": 0, "resume_misses": 0,
+                            "prefetches": 0, "eager_demotes": 0}
+        if self.host_pages > 0:
+            self.alloc.set_pager(self._tier_download, self._tier_upload,
+                                 page_bytes=self.page_bytes)
         self._lanes: List[_Lane] = []
         self._slots = 0
         self._steps = 0
@@ -613,6 +662,343 @@ class PagedTransformerGenerator:
         for p in lane.self_table:
             self.alloc.unref(p)
         lane.reset()
+
+    # -- tiered KV and sessions ----------------------------------------------
+    def _xfer(self):
+        """Build the device<->host copy programs once: ``down`` gathers W
+        whole logical pages into a dense slab the host fetches; ``up``
+        scatters such a slab back into the pool, in place.  W
+        (``xfer_width``) is fixed and short transfers pad with the trash
+        page, so each program is captured once: the tier adds two
+        executables and no recompiles."""
+        if self._xfer_progs is not None:
+            return self._xfer_progs
+        c = self.cfg
+        W = self.xfer_width
+        rows = W * 2 * c.n_layer
+        down, d_start = fluid.Program(), fluid.Program()
+        with fluid.program_guard(down, d_start), \
+                fluid.unique_name.guard():
+            block = down.global_block()
+            pool = self._pool_var(block)
+            kv_scales = self._scales_var(block)
+            pages = layers.data("xfer_pages", [W], "int32",
+                                append_batch_size=False)
+            if kv_scales is not None:
+                slab, sslab = layers.paged_page_gather(
+                    pool, pages, n_layer=c.n_layer, scales=kv_scales)
+                d_fetch = [slab, sslab]
+            else:
+                slab = layers.paged_page_gather(pool, pages,
+                                                n_layer=c.n_layer)
+                d_fetch = [slab]
+        up, u_start = fluid.Program(), fluid.Program()
+        with fluid.program_guard(up, u_start), fluid.unique_name.guard():
+            block = up.global_block()
+            pool = self._pool_var(block)
+            kv_scales = self._scales_var(block)
+            pages = layers.data("xfer_pages", [W], "int32",
+                                append_batch_size=False)
+            data = layers.data("xfer_data",
+                               [c.n_head, rows, self.page_size, c.d_key],
+                               self.kv_dtype, append_batch_size=False)
+            if kv_scales is not None:
+                sdata = layers.data("xfer_scales",
+                                    [1, rows, self.page_size], "float32",
+                                    append_batch_size=False)
+                layers.paged_page_scatter(pool, data, pages,
+                                          n_layer=c.n_layer,
+                                          scales=kv_scales,
+                                          scale_data=sdata)
+            else:
+                layers.paged_page_scatter(pool, data, pages,
+                                          n_layer=c.n_layer)
+        self._xfer_progs = {"down": (down, d_fetch), "up": up}
+        return self._xfer_progs
+
+    def _tier_download(self, pages) -> Dict[str, object]:
+        """Device to host: pull whole logical pages.  Groups of
+        ``xfer_width`` ride one fixed-signature step each; the slabs are
+        joined on the device and cross to the host in one copy per
+        tensor (through pinned memory on the card), one wait for all.
+        Returns ``{"kv": [h, n*2L, ps, d], "scales": [1, n*2L, ps] or
+        None}`` with rows in the order of ``pages``: numpy arrays, but a
+        bf16 pool's slab is a CPU ``torch.bfloat16`` tensor (its bits as
+        they lie; numpy has no bfloat16)."""
+        down, fetches = self._xfer()["down"]
+        c = self.cfg
+        W, L2, ps = self.xfer_width, 2 * c.n_layer, self.page_size
+        kv_parts: List[torch.Tensor] = []
+        sc_parts: List[torch.Tensor] = []
+        pages = [int(p) for p in pages]
+        for i in range(0, len(pages), W):
+            grp = pages[i:i + W]
+            pad = np.full(W, TRASH_PAGE, np.int32)
+            pad[:len(grp)] = grp
+            with fluid.scope_guard(self.scope):
+                out = self.exe.run(down, feed={"xfer_pages": pad},
+                                   fetch_list=fetches, return_numpy=False,
+                                   mode="infer")
+            kv_parts.append(out[0][:, :len(grp) * L2])
+            if len(fetches) > 1:
+                sc_parts.append(out[1][:, :len(grp) * L2])
+        if not kv_parts:
+            kv_parts = [torch.zeros((c.n_head, 0, ps, c.d_key),
+                                    dtype=_KV_TORCH_DTYPE[self.kv_dtype])]
+        kv, scales = _host_slabs(
+            torch.cat(kv_parts, dim=1),
+            torch.cat(sc_parts, dim=1) if sc_parts else None)
+        return {"kv": kv, "scales": scales}
+
+    def _tier_upload(self, pages, payload) -> None:
+        """Host to device: scatter a ``_tier_download`` payload (or an
+        artifact's arrays: numpy, ``ml_dtypes`` bfloat16, or a bf16
+        tensor) into ``pages``, in place, ``xfer_width`` pages a step;
+        the padding rows land on the trash page."""
+        up = self._xfer()["up"]
+        c = self.cfg
+        W, L2, ps = self.xfer_width, 2 * c.n_layer, self.page_size
+        kv = _host_kv(payload["kv"])
+        scales = payload.get("scales")
+        scales = _host_kv(scales) if scales is not None else None
+        pages = [int(p) for p in pages]
+        if kv.shape[1] != len(pages) * L2:
+            raise ValueError(
+                f"tier upload: payload holds {kv.shape[1] // L2} pages, "
+                f"target list has {len(pages)}")
+        for i in range(0, len(pages), W):
+            grp = pages[i:i + W]
+            pad = np.full(W, TRASH_PAGE, np.int32)
+            pad[:len(grp)] = grp
+            data = torch.zeros((c.n_head, W * L2, ps, c.d_key),
+                               dtype=kv.dtype)
+            data[:, :len(grp) * L2] = kv[:, i * L2:(i + len(grp)) * L2]
+            feed = {"xfer_pages": pad, "xfer_data": data}
+            if self.kv_dtype == "int8":
+                sdata = torch.zeros((1, W * L2, ps), dtype=torch.float32)
+                if scales is not None:
+                    sdata[:, :len(grp) * L2] = \
+                        scales[:, i * L2:(i + len(grp)) * L2]
+                feed["xfer_scales"] = sdata
+            with fluid.scope_guard(self.scope):
+                self.exe.run(up, feed=feed, fetch_list=[], mode="infer")
+
+    def session_fingerprint(self) -> str:
+        """The artifact key prefix a suspended lane's KV is only valid
+        under: model geometry + pool dtype/layout + weights identity
+        (the param prefix — two models sharing a scope differ here).
+        A changed fingerprint turns every stored session into a clean
+        miss (degrade to re-prefill), never a wrong-KV resume."""
+        c = self.cfg
+        doc = json.dumps([c.src_vocab_size, c.trg_vocab_size, c.n_layer,
+                          c.n_head, c.d_key, c.d_value, c.d_model,
+                          c.d_inner_hid, c.max_length, self.kv_dtype,
+                          self.page_size, self.src_len, self.max_out_len,
+                          self.prefix], separators=(",", ":"))
+        return hashlib.sha256(doc.encode("utf-8")).hexdigest()[:24]
+
+    def detach_slot(self, slot: int, session_id: str) -> bool:
+        """Suspend a lane WITHOUT device work: the lane's page
+        references (self pages, cross pages, chunk refs) transfer to a
+        pending-suspend record and the slot frees immediately — safe to
+        call under the scheduler lock at retire time.  The d2h copy and
+        artifact store happen later in ``tier_maintenance`` (off the
+        lock).  False when sessions are off or the lane is not in a
+        suspendable phase (the caller falls back to ``clear_slot``)."""
+        if self.sessions is None:
+            return False
+        lane = self._lanes[slot]
+        if lane.phase not in ("decode", "hold") or not lane.self_table:
+            return False
+        old = self._pending_suspends.pop(session_id, None)
+        if old is not None:
+            # same session suspended twice before maintenance ran: the
+            # newer lane state supersedes — drop the stale record's refs
+            self._release_suspend_refs(old)
+        self._pending_suspends[session_id] = {
+            "src": np.array(lane.src), "s_true": lane.s_true,
+            "max_new": lane.max_new, "pos": lane.pos, "cur": lane.cur,
+            "self_table": list(lane.self_table),
+            "cross_table": list(lane.cross_table),
+            "cross_owned": list(lane.cross_owned),
+            "hit_hashes": list(lane.hit_hashes),
+            "inserted_hashes": list(lane.inserted_hashes),
+            # a fully-cached admit reaches decode without _finish_prefill
+            # — it still holds enc-owned refs that must release with the
+            # record, not leak
+            "enc_owned": list(lane.enc_owned),
+        }
+        lane.reset()
+        return True
+
+    def _release_suspend_refs(self, rec: Dict) -> None:
+        for h in rec["hit_hashes"] + rec["inserted_hashes"]:
+            self.alloc.unref_chunk(h)
+        for p in rec["cross_owned"] + rec["enc_owned"]:
+            self.alloc.unref(p)
+        for p in rec["self_table"]:
+            self.alloc.unref(p)
+
+    def _complete_suspend(self, session_id: str) -> bool:
+        """Finish one pending suspend: download the lane's used self
+        pages + cross pages, store the checksummed artifact, release the
+        page references.  Runs on the serve-loop thread OUTSIDE the
+        scheduler lock (this is device and disk I/O).  The references are released even when the store fails:
+        the session degrades to re-prefill, the pool never leaks."""
+        rec = self._pending_suspends.pop(session_id, None)
+        if rec is None:
+            return False
+        ps = self.page_size
+        n_self_used = _ceil_div(rec["pos"], ps) if rec["pos"] else 0
+        ok = False
+        try:
+            cross = self._tier_download(rec["cross_table"])
+            own = self._tier_download(rec["self_table"][:n_self_used]) \
+                if n_self_used else {"kv": None, "scales": None}
+            arrays = {"cross_kv": cross["kv"]}
+            if cross["scales"] is not None:
+                arrays["cross_scales"] = cross["scales"]
+            if own["kv"] is not None:
+                arrays["self_kv"] = own["kv"]
+                if own["scales"] is not None:
+                    arrays["self_scales"] = own["scales"]
+            meta = {"pos": rec["pos"], "cur": rec["cur"],
+                    "s_true": rec["s_true"], "max_new": rec["max_new"],
+                    "src": [int(t) for t in rec["src"]],
+                    "n_cross": len(rec["cross_table"]),
+                    "n_self": n_self_used}
+            ok = self.sessions.put(session_id, self.session_fingerprint(),
+                                   meta, arrays)
+        except Exception:
+            ok = False
+        finally:
+            self._release_suspend_refs(rec)
+        self._tier_stats["suspends" if ok else "suspend_drops"] += 1
+        self._tracer.instant("session/suspend", cat="serving",
+                             sid=session_id, ok=ok,
+                             pages=len(rec["cross_table"]) + n_self_used)
+        return ok
+
+    def resume_slot(self, slot: int, session_id: str,
+                    max_new: Optional[int] = None):
+        """Resume a suspended session into an idle slot: allocate fresh
+        cross + self pages, upload the artifact's KV (+ int8 scale
+        sidecars), and restore the lane straight to ``decode`` phase at
+        its recorded position — no re-prefill.  Runs OUTSIDE the
+        scheduler lock (device + disk I/O, like ``admit_slot``).
+
+        Returns ``{"s_true", "pos", "max_new"}`` on success or None on
+        any miss — unknown/corrupt/stale artifact, position at the
+        generator's cap, or pool pressure — in which case the caller
+        degrades to a fresh ``admit_slot`` of the recorded prompt
+        (greedy decode is deterministic, so degrading costs prefill
+        latency, never wrong tokens)."""
+        if self.sessions is None:
+            return None
+        if not self._lanes:
+            raise RuntimeError("open_slots() before resume_slot()")
+        lane = self._lanes[slot]
+        if lane.phase != "idle":
+            raise RuntimeError(f"resume_slot: slot {slot} is busy")
+        if session_id in self._pending_suspends:
+            # resumed before maintenance flushed it: complete the spill
+            # now so the resume reads a stored artifact (one code path)
+            self._complete_suspend(session_id)
+        got = self.sessions.get(session_id, self.session_fingerprint())
+        if got is None:
+            self._tier_stats["resume_misses"] += 1
+            return None
+        meta, arrays = got
+        pos = int(meta["pos"])
+        ps = self.page_size
+        # the self_table feed width is fixed at p_out: a resumed lane
+        # continues within the SAME compiled signature, so its total
+        # output (recorded pos + continuation) caps at max_out_len
+        mn = self._resolve_max_new(max_new)
+        mn = min(mn, self.max_out_len - pos)
+        if mn <= 0:
+            self._tier_stats["resume_misses"] += 1
+            return None
+        n_cross = int(meta["n_cross"])
+        n_self_used = int(meta["n_self"])
+        n_self = min(self.p_out, max(n_self_used,
+                                     _ceil_div(pos + mn, ps)))
+        try:
+            pages = self.alloc.alloc(n_cross + n_self)
+        except PoolCapacityError:
+            self._tier_stats["resume_misses"] += 1
+            return None
+        cross_pages = pages[:n_cross]
+        self_pages = pages[n_cross:]
+        try:
+            self._tier_upload(cross_pages,
+                              {"kv": arrays["cross_kv"],
+                               "scales": arrays.get("cross_scales")})
+            if n_self_used:
+                self._tier_upload(self_pages[:n_self_used],
+                                  {"kv": arrays["self_kv"],
+                                   "scales": arrays.get("self_scales")})
+        except Exception:
+            for p in pages:
+                self.alloc.unref(p)
+            self._tier_stats["resume_misses"] += 1
+            return None
+        lane.src = np.asarray(meta["src"], np.int64)
+        lane.s_true = int(meta["s_true"])
+        lane.max_new = mn
+        lane.hashes = []
+        lane.hit_hashes = []
+        lane.inserted_hashes = []
+        lane.enc_table = []
+        lane.enc_owned = []
+        lane.cross_table = cross_pages
+        lane.cross_owned = cross_pages
+        lane.self_table = self_pages
+        lane.enc_done = lane.s_true
+        lane.pending_chunk = 0
+        lane.cur = int(meta["cur"])
+        lane.pos = pos
+        lane.phase = "decode"
+        self._tier_stats["resumes"] += 1
+        self._tracer.instant("session/resume", cat="serving",
+                             sid=session_id, slot=slot, pos=pos,
+                             pages=len(pages))
+        return {"s_true": lane.s_true, "pos": pos, "max_new": mn}
+
+    def tier_maintenance(self, prefetch=None) -> bool:
+        """The serve loop's off-lock tier slice: complete pending
+        suspends (d2h + artifact store), prefetch-promote a queued
+        prompt's demoted chunks during the admission gap, and eager-
+        demote LRU chunks down to the free-page watermark.  Returns
+        True when any device/disk work happened (the scheduler counts
+        that as progress so shutdown drains suspends)."""
+        did = False
+        for sid in list(self._pending_suspends):
+            self._complete_suspend(sid)
+            did = True
+        if prefetch is not None and self.prefix_sharing \
+                and self.alloc.tiered:
+            hashes = chunk_hashes(np.asarray(prefetch).reshape(-1),
+                                  self.page_size)
+            resident = len(self.alloc.lookup_chain(hashes, count=False))
+            for h in hashes[resident:]:
+                if not self.alloc.promote_chunk(h):
+                    break
+                self._tier_stats["prefetches"] += 1
+                did = True
+        if self.demote_watermark and self.alloc.tiered:
+            while self.alloc.free_count() < self.demote_watermark:
+                if not self.alloc.demote_one():
+                    break
+                self._tier_stats["eager_demotes"] += 1
+                did = True
+        if self.sessions is not None \
+                and self.sessions.idle_spill_s is not None:
+            # suspend-on-idle at the host-RAM level: sessions nobody
+            # resumed lately drop their RAM copy (disk keeps them)
+            if self.sessions.spill_idle():
+                did = True
+        return did
 
     def _finish_prefill(self, lane: _Lane) -> None:
         lane.phase = "decode"
@@ -969,8 +1355,9 @@ class PagedTransformerGenerator:
 
     def cache_stats(self) -> Dict[str, object]:
         """Page / prefix / pool-bytes accounting next to the executor's
-        executable-cache counters (the zero-recompile assertion surface;
-        the reference's shard and tier blocks are not ported)."""
+        executable-cache counters (the zero-recompile assertion surface),
+        the host tier's and the session store's counters (the
+        reference's shard block is not ported)."""
         pages = self.alloc.stats()
         active = sum(1 for lane in self._lanes
                      if lane.phase not in ("idle",))
@@ -989,4 +1376,18 @@ class PagedTransformerGenerator:
                 if active else 0,
                 "dense_bytes_per_slot": self.kv_bytes_per_slot_dense(),
             },
+            "tiers": {
+                "host_pages": pages.get("host_pages", 0),
+                "host_pages_used": pages.get("host_pages_used", 0),
+                "host_chunks": pages.get("host_chunks", 0),
+                "demotes": pages.get("demotes", 0),
+                "promotes": pages.get("promotes", 0),
+                "host_evictions": pages.get("host_evictions", 0),
+                "spilled_bytes": pages.get("spilled_bytes", 0),
+                "fetched_bytes": pages.get("fetched_bytes", 0),
+                "pending_suspends": len(self._pending_suspends),
+                **self._tier_stats,
+            },
+            "sessions": self.sessions.stats()
+            if self.sessions is not None else None,
         }

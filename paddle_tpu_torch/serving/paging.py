@@ -10,8 +10,9 @@ calls give the same page ids, refcounts, chain hashes and stats.
 
 * **Pages** come from one free list; logical page 0 is the reserved
   trash page (dead lanes write there) and is never handed out.
-* **Refcounts** make sharing safe: prefix-cache hits share prompt pages
-  across requests.
+* **Refcounts** make sharing safe: beam lanes share a parent's pages
+  (copy-on-write before a shared page is written), and prefix-cache hits
+  share prompt pages across requests.
 * **Prefix chunks**: a *chunk* is one full page of prompt tokens, keyed
   by a chain hash (the chunk's tokens and the previous chunk's hash), so
   a hit guarantees the whole prefix matches; each cached chunk owns an
@@ -19,9 +20,27 @@ calls give the same page ids, refcounts, chain hashes and stats.
   zero move to an LRU *evictable* list: still hittable, reclaimed only
   under pool pressure.
 
-The reference's host-RAM demotion tier (``HostPool``, ``set_pager``,
-``promote_chunk``) is not ported yet; its counters stay in ``stats()``
-at zero so the two allocators report the same schema.
+Tiered states.  With a host tier attached (``host_pages > 0`` plus a
+pager through ``set_pager``), a chunk moves through five states instead
+of three:
+
+    in-use (rc>0)  --unref_chunk-->  evictable (rc==0, on the card)
+    evictable      --pressure----->  demoted   (bytes in host RAM, the
+                                               card's pages freed)
+    demoted        --promote_chunk-> evictable (fresh pages, bytes
+                                               uploaded; the host copy
+                                               dropped: a hash lives in
+                                               exactly ONE tier)
+    demoted        --host pressure-> gone      (host-LRU evicted)
+    evictable      --pressure------> gone      (no tier attached, or
+                                               the pager failed)
+
+Demotion happens inside ``alloc`` (the admission path, which the
+scheduler runs outside its lock) and in the generator's
+``tier_maintenance`` slice, never under the scheduler lock.  The pager
+callables do the device<->host copies; the allocator only moves
+bookkeeping and opaque payloads, so ``check_invariants`` can assert the
+cross-tier exclusivity and accounting without touching the device.
 
 Soundness note: prefix K/V only depends on the prefix because the paged
 serving path encodes the source CAUSALLY
@@ -39,7 +58,7 @@ import numpy as np
 
 from ..utils.sync import RANK_COLLECTOR_INIT, OrderedLock
 
-__all__ = ["PageAllocator", "PoolCapacityError", "TRASH_PAGE",
+__all__ = ["PageAllocator", "HostPool", "PoolCapacityError", "TRASH_PAGE",
            "chunk_hashes"]
 
 TRASH_PAGE = 0
@@ -155,11 +174,80 @@ def chunk_hashes(tokens: Sequence[int], page_size: int) -> List[str]:
     return out
 
 
+class HostPool:
+    """Second KV tier: demoted prefix-chunk payloads in host RAM.
+
+    Holds OPAQUE payload blobs (whatever the pager's download produced —
+    host KV rows plus the int8 scale sidecar when quantized) keyed by
+    chain hash, with LRU eviction against a page-count capacity.  The
+    pool never touches the device; the owning :class:`PageAllocator`
+    moves bytes through the pager and only hands finished payloads here.
+    """
+
+    def __init__(self, capacity_pages: int):
+        self.capacity_pages = int(capacity_pages)
+        # hash -> (payload, n_pages); insertion order == LRU order
+        self._entries: "OrderedDict[str, Tuple[object, int]]" = OrderedDict()
+        self._pages_used = 0
+        self.evictions = 0
+
+    def __contains__(self, h: str) -> bool:
+        return h in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def pages_used(self) -> int:
+        return self._pages_used
+
+    def put(self, h: str, payload: object, n_pages: int) -> bool:
+        """Insert (or refresh) a demoted chunk, evicting LRU entries to
+        fit.  Returns False when the payload alone exceeds capacity —
+        the chunk is simply lost, exactly as an untiered evict."""
+        n_pages = int(n_pages)
+        if n_pages > self.capacity_pages:
+            return False
+        if h in self._entries:
+            _, old = self._entries.pop(h)
+            self._pages_used -= old
+        while self._pages_used + n_pages > self.capacity_pages:
+            _, (_, np_) = self._entries.popitem(last=False)
+            self._pages_used -= np_
+            self.evictions += 1
+        self._entries[h] = (payload, n_pages)
+        self._pages_used += n_pages
+        return True
+
+    def get(self, h: str) -> Optional[object]:
+        """Peek a payload (refreshes LRU recency); None on miss."""
+        entry = self._entries.get(h)
+        if entry is None:
+            return None
+        self._entries.move_to_end(h)
+        return entry[0]
+
+    def pop(self, h: str) -> Optional[object]:
+        entry = self._entries.pop(h, None)
+        if entry is None:
+            return None
+        self._pages_used -= entry[1]
+        return entry[0]
+
+    def check_invariants(self) -> None:
+        assert self._pages_used == sum(n for _, n in self._entries.values())
+        assert 0 <= self._pages_used <= self.capacity_pages, \
+            f"host pool over capacity: {self._pages_used} pages of " \
+            f"{self.capacity_pages}"
+
+
 class PageAllocator:
     """Free-list + refcount allocator over ``num_pages`` logical pages
-    (page 0 reserved as trash), with a chunk-level prefix cache."""
+    (page 0 reserved as trash), with a chunk-level prefix cache and an
+    optional host-RAM demotion tier (``host_pages`` + ``set_pager``)."""
 
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int,
+                 host_pages: int = 0):
         if num_pages < 2:
             raise ValueError("PageAllocator needs >= 2 pages (page 0 is "
                              "the reserved trash page)")
@@ -174,6 +262,14 @@ class PageAllocator:
                        "prefix_lookups": 0, "prefix_hits": 0,
                        "cow_copies": 0, "demotes": 0, "promotes": 0,
                        "spilled_bytes": 0, "fetched_bytes": 0}
+        # second tier: host-RAM pool for demoted refcount-0 chunks.
+        # Opt-in (host_pages=0 keeps the pre-tier destroy-on-evict
+        # semantics); bytes move through the pager callables installed
+        # by the generator via set_pager().
+        self.host = HostPool(host_pages) if host_pages > 0 else None
+        self._download = None           # (pages: List[int]) -> payload
+        self._upload = None             # (pages: List[int], payload) -> None
+        self._page_bytes = 0
         _LIVE_ALLOCATORS.add(self)
         _register_pool_collector()
 
@@ -291,9 +387,93 @@ class PageAllocator:
         h, _ = self._evictable.popitem(last=False)
         enc, cross, rc = self._chunks.pop(h)
         assert rc == 0, (h, rc)
+        if self.host is not None and self._download is not None:
+            try:
+                payload = self._download([enc, cross])
+            except Exception:
+                payload = None          # pager failure degrades to destroy
+            if payload is not None and self.host.put(h, payload, 2):
+                self._stats["demotes"] += 1
+                self._stats["spilled_bytes"] += 2 * self._page_bytes
         self.unref(enc)
         self.unref(cross)
         self._stats["evictions"] += 1
+
+    def free_count(self) -> int:
+        """Pages on the free list RIGHT NOW (excludes evictable-chunk
+        pages ``available()`` counts) — the eager-demotion watermark's
+        measure of immediately allocatable headroom."""
+        return len(self._free)
+
+    def demote_one(self) -> bool:
+        """Evict the LRU refcount-0 chunk (demoting it to the host tier
+        when one is attached); False when nothing is evictable.  The
+        generator's ``tier_maintenance`` drains toward its watermark
+        with this so admissions find free pages instead of paying the
+        demotion DMA inline."""
+        if not self._evictable:
+            return False
+        self._evict_lru()
+        return True
+
+    # -- host tier -----------------------------------------------------------
+    def set_pager(self, download, upload, page_bytes: int = 0) -> None:
+        """Install the device<->host copy callables (generator-owned
+        compiled programs).  ``download(pages) -> payload`` pulls the
+        listed pages' KV rows (+ scale sidecar) to host numpy;
+        ``upload(pages, payload)`` scatters a payload back into fresh
+        pages.  Both run device work — callers of ``alloc`` /
+        ``promote_chunk`` must therefore be off the scheduler lock."""
+        self._download = download
+        self._upload = upload
+        self._page_bytes = int(page_bytes)
+
+    @property
+    def tiered(self) -> bool:
+        return self.host is not None and self._download is not None \
+            and self._upload is not None
+
+    def host_lookup_chain(self, hashes: Sequence[str]) -> List[str]:
+        """Longest prefix of ``hashes`` resident across BOTH tiers —
+        what the chain could hit after promotion.  Admission uses this
+        to decide prefetch-back; takes no references, moves no bytes."""
+        out: List[str] = []
+        for h in hashes:
+            if h in self._chunks or (self.host is not None
+                                     and h in self.host):
+                out.append(h)
+            else:
+                break
+        return out
+
+    def promote_chunk(self, h: str) -> bool:
+        """Pull a demoted chunk back into HBM: allocate a fresh
+        (enc, cross) page pair, upload the host payload, and re-register
+        the chunk as refcount-0 *evictable* (hittable; ``ref_chunk`` pins
+        it).  The host copy is dropped — a hash lives in exactly one
+        tier.  Returns False when the chunk is not demoted, already
+        resident, or HBM cannot fit the pair right now."""
+        if h in self._chunks:
+            return False
+        if not self.tiered or h not in self.host:
+            return False
+        payload = self.host.get(h)
+        try:
+            enc, cross = self.alloc(2)
+        except PoolCapacityError:
+            return False
+        try:
+            self._upload([enc, cross], payload)
+        except Exception:
+            self.unref(enc)
+            self.unref(cross)
+            return False
+        self.host.pop(h)
+        self._chunks[h] = [enc, cross, 0]
+        self._evictable[h] = None
+        self._stats["promotes"] += 1
+        self._stats["fetched_bytes"] += 2 * self._page_bytes
+        return True
 
     # -- accounting ----------------------------------------------------------
     def check_invariants(self) -> None:
@@ -310,6 +490,11 @@ class PageAllocator:
         for h, (enc, cross, rc) in self._chunks.items():
             assert enc in held and cross in held, f"cached chunk {h[:8]} " \
                 "points at freed pages"
+        if self.host is not None:
+            self.host.check_invariants()
+            both = set(self._chunks) & set(self.host._entries)
+            assert not both, \
+                f"chunk resident in both tiers: {sorted(both)[:3]}"
 
     def stats(self) -> Dict[str, object]:
         lk = self._stats["prefix_lookups"]
@@ -319,9 +504,15 @@ class PageAllocator:
                     evictable=2 * len(self._evictable),
                     in_use=self.in_use(),
                     cached_chunks=len(self._chunks),
-                    # the host tier is not ported: its fields stay 0
-                    host_pages=0, host_pages_used=0, host_chunks=0,
-                    host_evictions=0,
+                    # ``is not None``: an EMPTY host tier is falsy
+                    host_pages=(self.host.capacity_pages
+                                if self.host is not None else 0),
+                    host_pages_used=(self.host.pages_used
+                                     if self.host is not None else 0),
+                    host_chunks=(len(self.host)
+                                 if self.host is not None else 0),
+                    host_evictions=(self.host.evictions
+                                    if self.host is not None else 0),
                     utilization=round(self.in_use()
                                       / max(1, self.total_usable), 4),
                     prefix_hit_rate=round(

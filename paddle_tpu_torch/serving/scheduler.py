@@ -20,8 +20,11 @@ The scheduler also keeps the reference's multi-model lane groups
 (``add_model``/``remove_model``), routed and policy-driven admission,
 cancellation and clean shutdown.  It reads the optional model features
 (``static_hbm_estimate``, ``resume_slot``/``detach_slot``,
-``tier_maintenance``, ``speculative_aware``) through ``getattr``, so the
-port's generator, which has none of them yet, serves without them.
+``tier_maintenance``, ``speculative_aware``) through ``getattr``, as
+the reference does: a ``SpeculativeGenerator`` group takes per-request
+decode options, a ``PagedTransformerGenerator`` with a session store
+suspends and resumes sessions and runs the tier's maintenance slice, and
+no port model has the static HBM estimate yet, so every group's is 0.
 """
 
 from __future__ import annotations

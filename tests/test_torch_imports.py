@@ -15,7 +15,7 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
-* The port registers 206 of the reference's 234 ops, each under the
+* The port registers 210 of the reference's 234 ops, each under the
   reference's name.
 """
 
@@ -100,12 +100,20 @@ SPARSE = {"paddle_tpu_torch.fluid.core.selected_rows",
           "paddle_tpu_torch.models.recommender"}
 
 
+# the modules of the speculative, constrained and tiered serving slice
+SPECULATIVE_TIERS = {"paddle_tpu_torch.serving.speculative",
+                     "paddle_tpu_torch.serving.constraints",
+                     "paddle_tpu_torch.serving.sessions",
+                     "paddle_tpu_torch.resilience",
+                     "paddle_tpu_torch.resilience.chaos"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
-    want = SLICE_3 | BOOK | SPARSE | SRL
+    want = SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS
     assert want <= names, want - names
 
 
@@ -141,10 +149,16 @@ LOSS_MISC_OPS = {
     "bilinear_interp"}
 
 
+# the KV tier's page transfers
+TIER_OPS = {"paged_page_gather", "paged_page_scatter",
+            "quantized_paged_page_gather", "quantized_paged_page_scatter"}
+
+
 def test_registered_ops_are_a_subset_of_the_reference():
-    """The port registers 206 of the reference's 234 ops, each under the
+    """The port registers 210 of the reference's 234 ops, each under the
     reference's name, the SRL slice's 16, the speech and detection
-    slice's 20 and the loss and miscellaneous slice's 34 among them."""
+    slice's 20, the loss and miscellaneous slice's 34 and the KV tier's
+    4 transfers among them."""
     from paddle_tpu.fluid.core.registry import registered_ops as jops
 
     ported, ref = set(fluid.registered_ops()), set(jops())
@@ -152,8 +166,9 @@ def test_registered_ops_are_a_subset_of_the_reference():
     assert len(SPEECH_DETECTION_OPS) == 20
     assert SPEECH_DETECTION_OPS <= ported
     assert len(LOSS_MISC_OPS) == 34 and LOSS_MISC_OPS <= ported
+    assert len(TIER_OPS) == 4 and TIER_OPS <= ported
     assert ported <= ref, ported - ref
-    assert (len(ported), len(ref)) == (206, 234)
+    assert (len(ported), len(ref)) == (210, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -172,9 +187,9 @@ def test_entry_points_refuse_to_fall_back(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul \
         .allow_bf16_reduced_precision_reduction is False
-    with pytest.raises(NotImplementedError, match="host_pages"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         PagedTransformerGenerator(24, 24, place=fluid.CPUPlace(),
-                                  host_pages=4)
+                                  mesh_axes={"model": 2})
 
 
 def test_executor_runs_on_the_card_unless_given_cpu_place(monkeypatch):
@@ -348,14 +363,13 @@ def test_chip_smoke_host_syncs_in():
 
 # reference parameters a port function does not take, by (file under the
 # package, function): the port's own internals (emitter contexts, the
-# lowering) and the serving tier the port has not taken on yet
+# lowering)
 NOT_TAKEN = {
     ("fluid/core/registry.py", "EmitCtx.__init__"): {"rng"},
     ("fluid/core/registry.py", "OpInfo.__init__"): {"grad_maker",
                                                      "needs_out_slots"},
     ("fluid/lowering.py", "run_block_ops"): {"desc", "block_idx",
                                              "step_key"},
-    ("serving/paging.py", "PageAllocator.__init__"): {"host_pages"},
 }
 
 

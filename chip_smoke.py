@@ -335,14 +335,36 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    resumed for 8 more, token for token against one 16-token decode;
    resume TTFT against re-prefill TTFT; spill (demote) and prefetch
    (promote) GB/s; no executable miss after a warm cycle; one artifact
-   torn by ``kv.spill_corrupt`` degrading to re-prefill.
+   torn by ``kv.spill_corrupt`` degrading to re-prefill;
+27. persistence and the inference engine (``persistence_phase``) on
+   phase 18's attention seq2seq: 20 steps on plain feeds; 10 steps fed
+   through ``fluid.DataLoader(device_prefetch=True)`` with a
+   ``CheckpointManager`` saving at steps 5 and 10, dropped, and a fresh
+   scope and executor restoring step 10 and running steps 11-20 (every
+   loss and persistable bit for bit the plain run's; one miss, one
+   graph, one ``lstm_fwd`` launch and one host sync a step); a torn
+   newest checkpoint restoring step 5; 5 replayed steps under
+   ``fluid.profiler.profiler()`` (5 ``executor_step/train`` calls, one
+   host sync a step) and one under ``cuda_profiler`` (a trace file);
+   the beam decoder saved by ``save_inference_model`` and served by
+   ``InferenceEngine`` in batch buckets 16-128, float and int8: 128
+   sources (a full bucket, bit for bit a direct ``Executor.run``), a
+   tail of 37 padded to 64 against a direct run of its rows, 4 sources
+   against the CPU port's engine on the same artifact (both by phase
+   18's beam rule), no bucket miss after warm-up, one ``lstm_fwd``
+   launch a decode, sentences/s, the artifact's bytes and save / load
+   ms; int8's rewrite, weights and scales bit for bit the CPU port's,
+   its top-beam agreement with float; the book's ``conv_net`` trained
+   20 steps and served int8 at 128 images, card against CPU; the quant
+   ops card vs CPU at the path's shapes (1e-5 of their largest,
+   ``quantize`` / ``dequantize`` bit for bit).
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
 line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
 line, a ``ranking`` line, a ``speculative`` line, a ``tiers`` line, a
-``kernels`` line (the flash kernels once
+``persistence`` line, a ``kernels`` line (the flash kernels once
 in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
 true, ...}`` line;
 per-case detail goes to standard error.  Any failed check exits 1
@@ -4544,15 +4566,17 @@ def beam_steps_recorded(torch):
                     else s[k].cpu().numpy()
 
 
-def decode_on(torch, np, fluid, prog, ids, scores, place, scope, src):
-    """One decode of ``src`` with each step's beam_search recorded ->
-    ((ids, scores, (step ids, step scores, step parents), index 0 the
-    start), the recorded steps)."""
-    exe = fluid.Executor(place)
+def recorded_decode(torch, run, rows=None):
+    """One decode (``run()`` -> (ids, scores)) with each beam_search step
+    recorded -> ((ids, scores, (step ids, step scores, step parents),
+    index 0 the start), the recorded steps), every recorded array cut to
+    its first ``rows`` sources."""
+    import numpy as np
+
     with beam_steps_recorded(torch) as steps:
-        got_ids, got_sc = exe.run(prog, feed={"src": src},
-                                  fetch_list=[ids, scores], scope=scope,
-                                  mode="infer")
+        got_ids, got_sc = run()
+    if rows is not None:
+        steps[:] = [{k: v[:rows] for k, v in s.items()} for s in steps]
     first = steps[0]
     trace = ([first["pre_ids"]] + [s["selected_ids"] for s in steps],
              [first["pre_scores"]] + [s["selected_scores"] for s in steps],
@@ -4561,14 +4585,47 @@ def decode_on(torch, np, fluid, prog, ids, scores, place, scope, src):
     return (got_ids, got_sc, trace), steps
 
 
+def beam_rule(np, got, got_steps, want, want_steps, W):
+    """Phase 18's beam rule: two decodes step by step (``compare_beams``:
+    ids and parents equal, scores within 1e-4 relative, the same
+    backtrace; a difference at a step whose margin, ``want``'s, lies
+    within the float error is a near tie, printed, and ends the
+    comparison).  A step's float error is the largest difference of the
+    two runs' top-k log-probabilities over the steps whose inputs agree,
+    held to NMT_LOGPROB_ATOL.  -> record."""
+    err = 0.0
+    for a, b in zip(got_steps, want_steps):
+        err = max(err, float(np.abs(
+            np.log(np.clip(a["scores"], 1e-12, None))
+            - np.log(np.clip(b["scores"], 1e-12, None))).max()))
+        if not (np.array_equal(a["selected_ids"], b["selected_ids"])
+                and np.array_equal(a["parent_idx"], b["parent_idx"])):
+            break                   # the next step's inputs differ
+    margins = [beam_margin(np, s["pre_ids"], s["pre_scores"], s["scores"],
+                           W, NMT_END) for s in want_steps]
+    # compare_beams takes a logit error, twice which bounds a step's
+    # log-probability error: the measured one, halved
+    rec = compare_beams(np, got, want, margins, "float32", err / 2)
+    rec.update(logprob_err=err, iterations=len(got_steps),
+               cpu_iterations=len(want_steps))
+    rec["ok"] = (rec["ok"] and err <= NMT_LOGPROB_ATOL
+                 and len(got_steps) == len(want_steps))
+    return rec
+
+
+def decode_on(torch, np, fluid, prog, ids, scores, place, scope, src):
+    """One decode of ``src`` with each step's beam_search recorded -> ((ids,
+    scores, (step ids, step scores, step parents), index 0 the start),
+    the recorded steps)."""
+    exe = fluid.Executor(place)
+    return recorded_decode(torch, lambda: exe.run(
+        prog, feed={"src": src}, fetch_list=[ids, scores], scope=scope,
+        mode="infer"))
+
+
 def decode_compare(torch, np, fluid, prog, ids, scores, card_scope, src, W):
     """The card's decode against the CPU port's from the card's weights,
-    step by step (``compare_beams``: ids and parents equal, scores within
-    1e-4 relative, the same backtrace; a difference at a step whose
-    margin, the CPU run's, lies within the float error is a near tie,
-    printed, and ends the comparison).  A step's float error is the
-    largest difference of the two runs' top-k log-probabilities over the
-    steps whose inputs agree, held to NMT_LOGPROB_ATOL.  -> record."""
+    by ``beam_rule``.  -> record."""
     names = [n for n, v in prog.global_block().vars.items()
              if v.persistable and card_scope.find_var(n) is not None]
     cpu_scope = fluid.scope_from_numpy(
@@ -4577,24 +4634,7 @@ def decode_compare(torch, np, fluid, prog, ids, scores, card_scope, src, W):
                                  fluid.CUDAPlace(0), card_scope, src)
     cpu, cpu_steps = decode_on(torch, np, fluid, prog, ids, scores,
                                fluid.CPUPlace(), cpu_scope, src)
-    err = 0.0
-    for a, b in zip(card_steps, cpu_steps):
-        err = max(err, float(np.abs(
-            np.log(np.clip(a["scores"], 1e-12, None))
-            - np.log(np.clip(b["scores"], 1e-12, None))).max()))
-        if not (np.array_equal(a["selected_ids"], b["selected_ids"])
-                and np.array_equal(a["parent_idx"], b["parent_idx"])):
-            break                   # the next step's inputs differ
-    margins = [beam_margin(np, s["pre_ids"], s["pre_scores"], s["scores"],
-                           W, NMT_END) for s in cpu_steps]
-    # compare_beams takes a logit error, twice which bounds a step's
-    # log-probability error: the measured one, halved
-    rec = compare_beams(np, card, cpu, margins, "float32", err / 2)
-    rec.update(logprob_err=err, iterations=len(card_steps),
-               cpu_iterations=len(cpu_steps))
-    rec["ok"] = (rec["ok"] and err <= NMT_LOGPROB_ATOL
-                 and len(card_steps) == len(cpu_steps))
-    return rec
+    return beam_rule(np, card, card_steps, cpu, cpu_steps, W)
 
 
 def profiled_call(torch, fn):
@@ -7611,6 +7651,543 @@ def tier_phase(torch, np, fluid, fa, card, weights):
     return rec, launches, failures
 
 
+# -- phase 27: persistence and the inference engine ---------------------------
+
+# phase 18's attention seq2seq at bench_nmt_quality's widths: PERSIST_STEPS
+# steps on plain feeds, and again fed through a DataLoader with a
+# CheckpointManager saving every PERSIST_SAVE_EVERY steps (keeping
+# PERSIST_KEEP), dropped after PERSIST_CRASH_AT steps as a crash would
+# drop it and resumed by a fresh scope and executor; NMT_BATCHES seeded
+# batches of one signature, taken in turn.  Then its beam decoder, saved
+# by save_inference_model, served by InferenceEngine in ENGINE_BUCKETS
+# (time bucket ENGINE_TIME_BUCKET), float and int8: NMT_BATCH sources
+# (a full bucket) ENGINE_RUNS times and a tail of ENGINE_TAIL, and
+# ENGINE_CPU_SOURCES sources on the CPU port beside the card.  The book's
+# conv_net, trained DIGITS_STEPS steps, served int8 at QUANT_DIGITS_BATCH
+# images; the quant ops card vs CPU within QUANT_OP_RTOL of their largest
+# output; PROFILED_STEPS replayed steps under fluid.profiler
+PERSIST_STEPS, PERSIST_CRASH_AT = 20, 10
+PERSIST_SAVE_EVERY, PERSIST_KEEP = 5, 3
+ENGINE_BUCKETS, ENGINE_TIME_BUCKET = (16, 32, 64, 128), 8
+ENGINE_TAIL, ENGINE_CPU_SOURCES, ENGINE_RUNS = 37, 4, 3
+QUANT_DIGITS_BATCH, QUANT_OP_RTOL = 128, 1e-5
+QUANT_MATMUL = (1024, 1000)
+PROFILED_STEPS = 5
+
+
+def _rows(src, n):
+    """A SeqArray feed's first ``n`` rows."""
+    return type(src)(src.data[:n], src.lengths[:n])
+
+
+def _host_state(fluid, scope, program):
+    """``program``'s persistables in ``scope`` as numpy, by name."""
+    names = [v.name for v in program.list_vars()
+             if v.persistable and scope.find_var(v.name) is not None]
+    return fluid.scope_to_numpy(scope, names)
+
+
+def _bitwise(np, a, b):
+    """Two {name: array} maps (or two lists) of arrays -> the names (or
+    indices) whose shape, dtype or bits differ."""
+    if not isinstance(a, dict):
+        a, b = dict(enumerate(a)), dict(enumerate(b))
+    out = [k for k in sorted(set(a) | set(b), key=str)
+           if k not in a or k not in b
+           or np.asarray(a[k]).shape != np.asarray(b[k]).shape
+           or np.asarray(a[k]).dtype != np.asarray(b[k]).dtype
+           or np.asarray(a[k]).tobytes() != np.asarray(b[k]).tobytes()]
+    return out
+
+
+def _decode_parts(out):
+    """A decode's (ids, scores) fetches as a list of arrays."""
+    ids, scores = out
+    return [ids.data, ids.outer_lengths, ids.inner_lengths, scores]
+
+
+def persist_train(torch, np, fluid, main, loss, init, feeds, steps,
+                  loader=False, ckpt=None, scope=None, start=0):
+    """Steps ``start + 1`` .. ``start + steps`` of the seq2seq on the
+    card (from a scope of ``init``, or ``scope``), batch i from
+    ``feeds[i % len(feeds)]`` as host feeds, through a
+    ``fluid.DataLoader(device_prefetch=True)`` with ``loader``, and
+    ``ckpt.save(step)`` after each; every kernel's launch count set to 0
+    just before and read just after.  SYNC_STEPS steps ending two before
+    the last (no checkpoint among them) are profiled for the host syncs
+    a step.  -> (record, the losses, scope, executor)."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    if scope is None:
+        scope = fluid.scope_from_numpy(init, fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    batches = [feeds[i % len(feeds)] for i in range(start, start + steps)]
+    it = iter(fluid.DataLoader(lambda: iter(batches), capacity=2)
+              if loader else batches)
+    losses, times, saves = [], [], []
+
+    def step(timed=True):
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=next(it), fetch_list=[loss], scope=scope)
+        if timed:
+            times.append(time.perf_counter() - t0)
+        losses.append(np.asarray(lv))
+        t0 = time.perf_counter()
+        if ckpt is not None and ckpt.save(start + len(losses), main, scope):
+            saves.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    window = steps - SYNC_STEPS - 2
+    syncs = None
+    while len(losses) < steps:
+        if len(losses) == window:
+            syncs = host_syncs_per_step(torch, lambda: step(False))
+        else:
+            step()
+    launches = named_launches(launch_counts())
+    rec = {"steps": steps, "start": start, "loader": loader,
+           "losses": [float(x) for x in losses],
+           "first_step_ms": times[0] * 1e3,
+           "step_ms_median": statistics.median(times[1:]) * 1e3,
+           "executable": exe.cache_stats()["executable"],
+           "host_syncs_per_step": syncs, "save_ms": saves,
+           "lstm_launches": launches.pop(LSTM_COUNTER, 0),
+           "other_kernel_launches": sum(launches.values()),
+           "graphs": len(exe.graphs())}
+    return rec, losses, scope, exe
+
+
+def persist_train_failures(path, rec):
+    """One miss and a hit a later step, one graph, one lstm_fwd launch a
+    step, one host sync a replayed step (the fetch; the checkpoint's
+    copies and the loader's included)."""
+    out = []
+    steps = rec["steps"]
+    if rec["executable"]["misses"] != 1 \
+            or rec["executable"]["hits"] != steps - 1 or rec["graphs"] != 1:
+        out.append(f"{path}: executable {rec['executable']}, "
+                   f"{rec['graphs']} graphs, want one miss and a hit a "
+                   f"later step in one graph")
+    if rec["lstm_launches"] != steps or rec["other_kernel_launches"]:
+        out.append(f"{path}: {rec['lstm_launches']} lstm_fwd launches in "
+                   f"{steps} steps, want 1 a step, and "
+                   f"{rec['other_kernel_launches']} of other kernels")
+    if rec["host_syncs_per_step"] != 1:
+        out.append(f"{path}: {rec['host_syncs_per_step']} host syncs a "
+                   f"step, want 1 (the fetch)")
+    return out
+
+
+def checkpoint_part(torch, np, fluid, workdir, rec, fails):
+    """Train, checkpoint, crash, restore (phase 27, part 1) -> (the main
+    program, its loss, its decoder, the uninterrupted run's scope, the
+    resumed run's executor and scope, lstm_fwd launches)."""
+    from paddle_tpu_torch.fluid.checkpoint import CheckpointManager
+
+    main, startup, loss, (dec, ids, scores) = build_nmt(
+        fluid, "attention_train_model", NMT_DICT, NMT_WORD, NMT_HIDDEN,
+        NMT_LR, NMT_BEAM, NMT_MAX_LEN)
+    init = initial_scope(fluid, startup)
+    rng = np.random.RandomState(SEED + 27)
+    feeds = [nmt_batch(np, fluid, rng, NMT_BATCH, NMT_DICT)
+             for _ in range(NMT_BATCHES)]
+    plain, plain_losses, scope_a, _ = persist_train(
+        torch, np, fluid, main, loss, init, feeds, PERSIST_STEPS)
+    want_state = _host_state(fluid, scope_a, main)
+    fails += persist_train_failures("persistence plain", plain)
+
+    ckdir = os.path.join(workdir, "ckpt")
+    mgr = CheckpointManager(ckdir, max_to_keep=PERSIST_KEEP,
+                            save_interval_steps=PERSIST_SAVE_EVERY)
+    t0 = time.perf_counter()
+    first, first_losses, scope_b, exe_b = persist_train(
+        torch, np, fluid, main, loss, init, feeds, PERSIST_CRASH_AT,
+        loader=True, ckpt=mgr)
+    first["wall_s"] = time.perf_counter() - t0
+    fails += persist_train_failures("persistence loader", first)
+    del scope_b, exe_b                  # a crash drops them
+    torch.cuda.empty_cache()
+
+    scope_c = fluid.Scope()
+    t0 = time.perf_counter()
+    step = mgr.restore(main, scope_c)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    resumed, resumed_losses, scope_c, exe_c = persist_train(
+        torch, np, fluid, main, loss, init, feeds,
+        PERSIST_STEPS - PERSIST_CRASH_AT, loader=True, scope=scope_c,
+        start=PERSIST_CRASH_AT)
+    fails += persist_train_failures("persistence resumed", resumed)
+    got_state = _host_state(fluid, scope_c, main)
+    ck_files = os.listdir(os.path.join(ckdir, f"ckpt-{PERSIST_CRASH_AT}"))
+    ck_bytes = sum(os.path.getsize(os.path.join(
+        ckdir, f"ckpt-{PERSIST_CRASH_AT}", n)) for n in ck_files)
+    loader_diff = _bitwise(np, first_losses,
+                           plain_losses[:PERSIST_CRASH_AT])
+    resumed_diff = _bitwise(np, resumed_losses,
+                            plain_losses[PERSIST_CRASH_AT:])
+    state_diff = _bitwise(np, got_state, want_state)
+    # a torn newest checkpoint: restore falls back to the one before it
+    newest = os.path.join(ckdir, f"ckpt-{PERSIST_CRASH_AT}")
+    victim = os.path.join(newest, sorted(n for n in ck_files
+                                         if n != "META.json")[0])
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    fallback = CheckpointManager(ckdir).restore(main, fluid.Scope())
+    ck = {"restored_step": step, "fallback_step": fallback,
+          "checkpoints": sorted(os.listdir(ckdir)),
+          "checkpoint_bytes": ck_bytes, "files": len(ck_files),
+          "save_ms": first["save_ms"],
+          "save_mb_per_s": [ck_bytes / 2**20 / (ms / 1e3)
+                            for ms in first["save_ms"]],
+          "restore_ms": restore_ms,
+          "restore_mb_per_s": ck_bytes / 2**20 / (restore_ms / 1e3),
+          "loader_vs_plain_differ": loader_diff,
+          "resumed_vs_plain_differ": resumed_diff,
+          "state_differ": state_diff, "persistables": len(want_state),
+          "plain_step_ms_median": plain["step_ms_median"],
+          "loader_step_ms_median": first["step_ms_median"],
+          "resumed_step_ms_median": resumed["step_ms_median"]}
+    rec["checkpoint"] = dict(ck, plain=plain, loader=first, resumed=resumed)
+    log(f"persistence checkpoint: {json.dumps(rec['checkpoint'])}")
+    if step != PERSIST_CRASH_AT or fallback != PERSIST_CRASH_AT - \
+            PERSIST_SAVE_EVERY or loader_diff or resumed_diff or state_diff:
+        fails.append(f"persistence: restore {step}, after a torn newest "
+                     f"{fallback}; loader vs plain losses differ at "
+                     f"{loader_diff}, resumed at {resumed_diff}, "
+                     f"persistables {state_diff}")
+    return main, loss, (dec, ids, scores), scope_a, exe_c, scope_c, \
+        plain["lstm_launches"] + first["lstm_launches"] \
+        + resumed["lstm_launches"]
+
+
+def engine_part(torch, np, fluid, workdir, decoder, scope, rec, fails):
+    """Ship and serve the trained decoder, float then int8 (phase 27,
+    parts 2-3) -> (lstm_fwd launches, the records by mode, and the int8
+    engine under "int8_engine")."""
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    dec, ids, scores = decoder
+    model_dir = os.path.join(workdir, "nmt_model")
+    t0 = time.perf_counter()
+    fluid.io.save_inference_model(model_dir, ["src"], [ids, scores],
+                                  fluid.Executor(fluid.CUDAPlace(0)),
+                                  main_program=dec, scope=scope)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(os.path.getsize(os.path.join(model_dir, n))
+                 for n in os.listdir(model_dir))
+    src = nmt_batch(np, fluid, np.random.RandomState(SEED + 28), NMT_BATCH,
+                    NMT_DICT)["src"]
+    tail = nmt_batch(np, fluid, np.random.RandomState(SEED + 29),
+                     ENGINE_TAIL, NMT_DICT)["src"]
+    few = _rows(src, ENGINE_CPU_SOURCES)
+    kw = dict(batch_buckets=ENGINE_BUCKETS, time_bucket=ENGINE_TIME_BUCKET)
+    cpu_kw = dict(place=fluid.CPUPlace(), time_bucket=ENGINE_TIME_BUCKET,
+                  batch_buckets=(ENGINE_CPU_SOURCES,))
+    launches = 0
+    out = {"artifact_bytes": nbytes, "files": len(os.listdir(model_dir)),
+           "save_ms": save_ms, "save_mb_per_s": nbytes / 2**20
+           / (save_ms / 1e3)}
+    direct = fluid.Executor(fluid.CUDAPlace(0))
+
+    def run_direct(feed):
+        return direct.run(dec, feed={"src": feed}, fetch_list=[ids, scores],
+                          scope=scope, mode="infer")
+
+    top = {}
+    for mode in ("off", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(dirname=model_dir, quantize=mode, **kw)
+        torch.cuda.synchronize()
+        r = {"load_ms": (time.perf_counter() - t0) * 1e3}
+        r["load_mb_per_s"] = nbytes / 2**20 / (r["load_ms"] / 1e3)
+        eng.warmup([{"src": src}, {"src": tail}, {"src": few}])
+        zero_launch_counts()
+        times = []
+        for _ in range(ENGINE_RUNS):
+            t0 = time.perf_counter()
+            full = eng.infer({"src": src})
+            times.append(time.perf_counter() - t0)
+        r["ms_per_batch"] = statistics.median(times) * 1e3
+        r["sentences_per_s"] = NMT_BATCH / statistics.median(times)
+        # one more under torch.profiler: kernels, device busy, idle share
+        r["profiled"] = profiled_call(torch, lambda: eng.infer({"src": src}))
+        top[mode] = np.asarray(full[0].data)[:, 0]
+        if mode == "off":
+            # a full bucket, no padding: the direct run's bits
+            r["full_bucket_bitwise"] = not _bitwise(
+                np, _decode_parts(full), _decode_parts(run_direct(src)))
+            # the tail, padded to its bucket, against the direct run of
+            # its rows by phase 18's rule
+            got, got_steps = recorded_decode(
+                torch, lambda: eng.infer({"src": tail}), ENGINE_TAIL)
+            want, want_steps = recorded_decode(
+                torch, lambda: run_direct(tail))
+            r["tail_vs_direct"] = beam_rule(np, got, got_steps, want,
+                                            want_steps, NMT_BEAM)
+        card, card_steps = recorded_decode(
+            torch, lambda: eng.infer({"src": few}), ENGINE_CPU_SOURCES)
+        # every decode on the card since the counts were set to 0: the
+        # timed ones, the profiled one, the direct full batch, the tail
+        # on both, the few
+        decodes = ENGINE_RUNS + (5 if mode == "off" else 2)
+        launches_here = named_launches(launch_counts())
+        r["lstm_launches"] = launches_here.pop(LSTM_COUNTER, 0)
+        r["other_kernel_launches"] = sum(launches_here.values())
+        r["decodes"] = decodes
+        launches += r["lstm_launches"]
+        cpu_eng = InferenceEngine(dirname=model_dir, quantize=mode, **cpu_kw)
+        cpu, cpu_steps = recorded_decode(
+            torch, lambda: cpu_eng.infer({"src": few}))
+        r["card_vs_cpu"] = beam_rule(np, card, card_steps, cpu, cpu_steps,
+                                     NMT_BEAM)
+        st = eng.cache_stats()
+        r.update(bucket_hits=st["bucket_hits"],
+                 bucket_misses=st["bucket_misses"],
+                 buckets=len(st["buckets"]), padding=st["padding"],
+                 executable=st["executable"])
+        ok = (st["bucket_misses"] == 0 and r["card_vs_cpu"]["ok"]
+              and r["lstm_launches"] == decodes
+              and not r["other_kernel_launches"])
+        if mode == "off":
+            ok = ok and r["full_bucket_bitwise"] \
+                and r["tail_vs_direct"]["ok"]
+        else:
+            q, cq = st["quant"], cpu_eng.cache_stats()["quant"]
+            r["quant"] = {k: q[k] for k in (
+                "weights_quantized", "ops_rewritten", "weight_bytes_before",
+                "weight_bytes_after", "weight_bytes_saved")}
+            r["quant_equal_cpu"] = (q == cq)
+            r["weights_differ_cpu"] = _bitwise(
+                np, _host_state(fluid, eng.scope, eng.program),
+                _host_state(fluid, cpu_eng.scope, cpu_eng.program))
+            r["program_equal_cpu"] = (eng.program.serialize_to_string()
+                                      == cpu_eng.program
+                                      .serialize_to_string())
+            ok = ok and r["quant_equal_cpu"] and not \
+                r["weights_differ_cpu"] and r["program_equal_cpu"] \
+                and q["weights_quantized"] > 0
+            r["top_beam_token_agreement_vs_float"] = float(
+                (top["int8"] == top["off"]).mean())
+            out["int8_engine"] = eng
+        out[mode] = r
+        log(f"persistence engine {mode} {'ok  ' if ok else 'FAIL'}: "
+            f"{json.dumps(r, default=str)}")
+        if not ok:
+            fails.append(f"persistence engine {mode}: {r}")
+        del cpu_eng
+    return launches, out
+
+
+def quant_op_cases(np, fluid, engine):
+    """The quant ops card vs CPU at the path's shapes (phase 27, part 4):
+    the int8 decoder's quantized_mul weights at NMT_BATCH x NMT_BEAM rows,
+    quantized_matmul 2-D and batched at QUANT_MATMUL, quantize /
+    dequantize bit for bit."""
+    rng = np.random.RandomState(SEED + 30)
+    cases = []
+    seen = set()
+    for b in engine.program.blocks:
+        for op in b.ops:
+            if op.type != "quantized_mul" or op.input("Y")[0] in seen:
+                continue
+            y = op.input("Y")[0]
+            seen.add(y)
+            w = fluid.scope_to_numpy(engine.scope, [y])[y]
+            s = fluid.scope_to_numpy(engine.scope, [y + "@quant.scale"])
+            k = int(np.prod(w.shape[:op.attr("y_num_col_dims", 1)]))
+            x = rng.randn(NMT_BATCH * NMT_BEAM, k).astype(np.float32)
+            cases.append((f"quantized_mul/{y}", "quantized_mul",
+                          {"X": ("t", x), "Y": ("t", w),
+                           "Scale": ("t", s[y + "@quant.scale"])},
+                          {"y_num_col_dims": op.attr("y_num_col_dims", 1)}))
+    m, n = QUANT_MATMUL
+    x2 = rng.randn(m, n).astype(np.float32)
+    w2 = rng.randint(-127, 128, (n, n)).astype(np.int8)
+    sc = (np.abs(rng.randn(n)) / 127).astype(np.float32)
+    cases += [("quantized_matmul/2d", "quantized_matmul",
+               {"X": ("t", x2), "Y": ("t", w2), "Scale": ("t", sc)}, {}),
+              ("quantized_matmul/batched", "quantized_matmul",
+               {"X": ("t", np.stack([x2, -x2])),
+                "Y": ("t", np.stack([w2, w2[::-1]])),
+                "Scale": ("t", sc)}, {"transpose_Y": True}),
+              ("quantize/channel", "quantize", {"X": ("t", x2)},
+               {"axis": 1}),
+              ("quantize/tensor", "quantize", {"X": ("t", x2)}, {}),
+              ("dequantize", "dequantize",
+               {"X": ("t", w2), "Scale": ("t", sc)}, {"axis": 1})]
+    return cases
+
+
+def run_quant_cases(torch, np, cases, fails):
+    """Each case's op on the card and on the CPU -> {case: error}: the
+    largest difference over the largest output, 0 where bit for bit is
+    required (quantize, dequantize) and met."""
+    out = {}
+    for name, op, specs, attrs in cases:
+        got, _ = run_op(torch, np, op, specs, attrs, (), torch.device(
+            "cuda", 0))
+        want, _ = run_op(torch, np, op, specs, attrs, (), torch.device(
+            "cpu"))
+        exact = op in ("quantize", "dequantize")
+        if exact:
+            err = max(0.0 if torch.equal(a, b) else float("inf")
+                      for a, b in zip(got, want))
+        else:
+            err = max(op_rel_errs(torch, got, want))
+        out[name] = err
+        if not err <= (0.0 if exact else QUANT_OP_RTOL):
+            fails.append(f"persistence quant op {name}: card vs CPU {err}")
+    return out
+
+
+def digits_int8(torch, np, fluid, rec, fails):
+    """The book's conv_net trained DIGITS_STEPS steps on the card, then
+    served int8 by InferenceEngine at QUANT_DIGITS_BATCH images on the
+    card and on the CPU port (the outputs within QUANT_OP_RTOL of their
+    largest), and its quantized_conv2d / quantized_mul ops card vs CPU at
+    their shapes -> the record's cases."""
+    from paddle_tpu_torch.models import recognize_digits
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data(name="img", shape=[1, 28, 28],
+                                dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        pred, loss, _ = recognize_digits.conv_net(img, label)
+        infer = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    infer = fluid.io.prune_program(infer, [pred])
+    scope = fluid.scope_from_numpy(initial_scope(fluid, startup),
+                                   fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses = [float(exe.run(main, feed=book_feed(torch, np, "conv_net", i),
+                            fetch_list=[loss], scope=scope)[0])
+              for i in range(DIGITS_STEPS)]
+    rng = np.random.RandomState(SEED + 31)
+    images = (rng.rand(QUANT_DIGITS_BATCH, 1, 28, 28) * 0.1).astype(
+        np.float32)
+    kw = dict(feed_names=["img"], fetch_vars=[pred], quantize="int8",
+              batch_buckets=(QUANT_DIGITS_BATCH,))
+    card = InferenceEngine(program=infer, scope=scope, **kw)
+    cpu = InferenceEngine(
+        program=infer, place=fluid.CPUPlace(),
+        scope=fluid.scope_from_numpy(_host_state(fluid, scope, infer),
+                                     fluid.CPUPlace()), **kw)
+    got, = card.infer({"img": images})
+    want, = cpu.infer({"img": images})
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    r = {"losses_first_last": [losses[0], losses[-1]],
+         "engine_out_rel_err": err, "quant": {
+             k: card.cache_stats()["quant"][k] for k in (
+                 "weights_quantized", "ops_rewritten",
+                 "weight_bytes_saved")}}
+    if not err <= QUANT_OP_RTOL or not losses[-1] < losses[0]:
+        fails.append(f"persistence conv_net int8: {r}")
+    cases = []
+    spatial = iter((28, 12))            # conv_net's two conv inputs
+    for op in card.program.global_block().ops:
+        if op.type not in ("quantized_conv2d", "quantized_mul"):
+            continue
+        slot = "Filter" if op.type == "quantized_conv2d" else "Y"
+        w_name = op.input(slot)[0]
+        w = fluid.scope_to_numpy(cpu.scope, [w_name])[w_name]
+        s_name = w_name + "@quant.scale"
+        scale = fluid.scope_to_numpy(cpu.scope, [s_name])[s_name]
+        if op.type == "quantized_conv2d":
+            hw = next(spatial)
+            specs = {"Input": ("t", rng.randn(QUANT_DIGITS_BATCH, w.shape[1],
+                                              hw, hw).astype(np.float32))}
+        else:
+            specs = {"X": ("t", rng.randn(QUANT_DIGITS_BATCH,
+                                          w.shape[0]).astype(np.float32))}
+        specs.update({slot: ("t", w), "Scale": ("t", scale)})
+        cases.append((f"{op.type}/{w_name}", op.type, specs,
+                      dict(op.attrs)))
+    rec["conv_net_int8"] = r
+    log(f"persistence conv_net int8: {json.dumps(r)}")
+    return cases
+
+
+def profiler_part(torch, np, fluid, workdir, main, loss, exe, scope, rec,
+                  fails):
+    """PROFILED_STEPS replayed steps under ``fluid.profiler.profiler()``
+    (the table's executor_step/train calls, the steps' host syncs), and
+    one under ``cuda_profiler(dir)`` (a trace file written)."""
+    from paddle_tpu_torch.fluid import profiler
+
+    feed = nmt_batch(np, fluid, np.random.RandomState(SEED + 27), NMT_BATCH,
+                     NMT_DICT)
+
+    def step():
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    with profiler.profiler(print_table=False):
+        syncs = host_syncs_per_step(torch, step, steps=PROFILED_STEPS)
+        table = profiler.get_profile_table()
+    trace_dir = os.path.join(workdir, "trace")
+    with profiler.cuda_profiler(trace_dir):
+        step()
+    traces = [n for n in os.listdir(trace_dir) if n.endswith(".json")]
+    calls = {r["name"]: r["calls"] for r in table}
+    r = {"table": table, "host_syncs_per_step": syncs,
+         "trace_files": len(traces),
+         "trace_bytes": sum(os.path.getsize(os.path.join(trace_dir, n))
+                            for n in traces)}
+    rec["profiler"] = r
+    log(f"persistence profiler: {json.dumps(r)}")
+    if calls.get("executor_step/train") != PROFILED_STEPS or syncs != 1 \
+            or len(traces) != 1:
+        fails.append(f"persistence profiler: {r}")
+
+
+def persistence_phase(torch, np, fluid, card):
+    """Phase 27: persistence, the inference engine with int8 PTQ, the
+    DataLoader and the profiler on the attention seq2seq at
+    bench_nmt_quality's widths.  -> (the ``persistence`` record, lstm_fwd
+    launches of its training runs and decodes, failures)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    fails = []
+    rec = {"card": card, "config": {
+        "dict": NMT_DICT, "word_dim": NMT_WORD, "hidden_dim": NMT_HIDDEN,
+        "batch": NMT_BATCH, "beam": NMT_BEAM, "max_length": NMT_MAX_LEN,
+        "steps": PERSIST_STEPS, "crash_at": PERSIST_CRASH_AT,
+        "save_every": PERSIST_SAVE_EVERY, "buckets": ENGINE_BUCKETS,
+        "tail": ENGINE_TAIL}}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        main, loss, decoder, scope_a, exe_c, scope_c, launches = \
+            checkpoint_part(torch, np, fluid, workdir, rec, fails)
+        profiler_part(torch, np, fluid, workdir, main, loss, exe_c, scope_c,
+                      rec, fails)
+        del exe_c, scope_c
+        torch.cuda.empty_cache()
+        engine_launches, engines = engine_part(
+            torch, np, fluid, workdir, decoder, scope_a, rec, fails)
+        launches += engine_launches
+        int8 = engines.pop("int8_engine")
+        rec["engine"] = engines
+        cases = quant_op_cases(np, fluid, int8)
+        del int8, scope_a
+        torch.cuda.empty_cache()
+        cases += digits_int8(torch, np, fluid, rec, fails)
+        rec["quant_ops"] = run_quant_cases(torch, np, cases, fails)
+        log(f"persistence quant ops card vs CPU: "
+            f"{json.dumps(rec['quant_ops'])}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["lstm_launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, launches, fails
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8216,6 +8793,15 @@ def main() -> int:
                                                   card, weights)
     failures += tier_fails
     log(f"tier phase ({tiers['seconds']:.1f}s): {json.dumps(tiers)}")
+    # -- persistence and the inference engine: the LSTM kernel in the
+    # seq2seq's encoder, in training steps and in every decode
+    torch.cuda.empty_cache()
+    persist, persist_launches, persist_fails = persistence_phase(
+        torch, np, fluid, card)
+    failures += persist_fails
+    lstm_entry["launches"] += persist_launches
+    lstm_entry["launches_persistence"] = persist_launches
+    log(f"persistence phase ({persist['seconds']:.1f}s)")
     kernels[0]["launches"] += spec_launches + tier_launches
     kernels[0]["launches_speculative"] = spec_launches
     kernels[0]["launches_tiers"] = tier_launches
@@ -8241,6 +8827,7 @@ def main() -> int:
     print(json.dumps({"ranking": ranking}), flush=True)
     print(json.dumps({"speculative": spec_rec}), flush=True)
     print(json.dumps({"tiers": tiers}), flush=True)
+    print(json.dumps({"persistence": persist}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

@@ -13,22 +13,27 @@ embeddings), the optimizer front end (every optimizer, ModelAverage
 too, ``regularizer``, ``clip``, ``learning_rate_decay``), control flow
 and the seq2seq models, and semantic role labeling (the linear-chain
 CRF, ``evaluator``) need; level-1 sequence inputs are ``SeqArray``
-feeds (``make_seq``, ``DataFeeder``), and ``io`` holds
-``prune_program``.  Not ported (they raise ``NotImplementedError``
-where the API reaches them): level-2 sequence inputs
-(``NestedSeqArray`` is only ``beam_search_decode``'s output), meshes
-and sequence parallelism, the compile cache and ``cost_analysis``."""
+feeds (``make_seq``, ``DataFeeder``, the prefetching ``DataLoader``).
+``io`` saves and loads tensors, checkpoints and inference models in the
+reference's file format, ``checkpoint`` keeps periodic training
+checkpoints, ``transforms`` rewrites an inference program to int8
+weights, and ``profiler`` times steps.  Not ported (they raise
+``NotImplementedError`` where the API reaches them): level-2 sequence
+inputs (``NestedSeqArray`` is only ``beam_search_decode``'s output),
+meshes and sequence parallelism, the compile cache, ``cost_analysis``
+and ``export_stablehlo``."""
 
 from . import ops as _ops  # registers the op emitters  # noqa: F401
-from . import (clip, evaluator, initializer, io, layers,  # noqa: F401
-               learning_rate_decay, nets, optimizer, regularizer,
-               unique_name)
+from . import (checkpoint, clip, evaluator, initializer, io,  # noqa: F401
+               layers, learning_rate_decay, nets, optimizer, profiler,
+               regularizer, transforms, unique_name)
 from .backward import append_backward
 from .core.lod import SeqArray, make_seq
 from .core.registry import registered_ops
 from .data_feeder import DataFeeder
 from .executor import (CPUPlace, CUDAPlace, Executor, Scope, global_scope,
                        scope_from_numpy, scope_guard, scope_to_numpy)
+from .pipeline_io import DataLoader
 from .framework import (Block, Operator, Parameter, Program, Variable,
                         default_main_program, default_startup_program,
                         program_guard, switch_main_program,
@@ -38,6 +43,7 @@ from .param_attr import ParamAttr
 __all__ = [
     "layers", "nets", "optimizer", "initializer", "unique_name", "io",
     "regularizer", "clip", "learning_rate_decay", "evaluator", "DataFeeder",
+    "DataLoader", "checkpoint", "profiler", "transforms",
     "append_backward", "registered_ops", "SeqArray", "make_seq",
     "Executor", "Scope", "global_scope", "scope_guard", "CUDAPlace",
     "CPUPlace", "scope_from_numpy", "scope_to_numpy",

@@ -1,8 +1,8 @@
 """DataFeeder — the port of ``paddle_tpu/fluid/data_feeder.py`` (analog of
 python/paddle/v2/fluid/data_feeder.py): python minibatch rows into the
 executor's feed dict (dense arrays, or SeqArrays for lod_level > 0
-slots).  The reference's background loader (``decorate_reader``,
-``pipeline_io.DataLoader``) is not ported and raises."""
+slots); ``decorate_reader`` wraps a batch reader in the prefetching
+``pipeline_io.DataLoader``."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ class DataFeeder:
     def __init__(self, feed_list: Sequence[Variable], place=None,
                  program=None, seq_bucket: int = 16):
         self.feed_vars = list(feed_list)
+        self.place = place
         # max_len padded up to a multiple: bounds the step signatures a
         # run of batches captures
         self.seq_bucket = seq_bucket
@@ -46,6 +47,13 @@ class DataFeeder:
 
     def decorate_reader(self, reader, capacity: int = 2,
                         device_prefetch: bool = True):
-        raise NotImplementedError("DataFeeder.decorate_reader (the "
-                                  "reference's pipeline_io.DataLoader) is "
-                                  "not ported to paddle_tpu_torch")
+        """Reference ``DataFeeder.decorate_reader``: wrap a batch reader
+        so this feeder's row -> feed-dict conversion and the copy to
+        the device (this feeder's place; the card by default) happen on
+        a background thread, ``capacity`` batches ahead of the consuming
+        step.  Returns a ``DataLoader``: iterate it and pass each dict
+        to ``Executor.run`` / ``run_pipeline``."""
+        from .pipeline_io import DataLoader
+
+        return DataLoader(reader, feeder=self, capacity=capacity,
+                          device_prefetch=device_prefetch, place=self.place)

@@ -82,12 +82,29 @@ replays, one sync); ``run_pipeline`` runs a loader's feeds with fetches
 drained every ``fetch_every`` steps.  ``scope_from_numpy`` /
 ``scope_to_numpy`` carry named arrays (a JAX scope, a checkpoint) in and
 out of a Scope.  Feeds may be bfloat16 (``ml_dtypes`` arrays, as the
-reference takes them); fetches of a bfloat16 value come back as float32.
+reference takes them); a fetched bfloat16 value comes back as an
+``ml_dtypes`` bfloat16 array holding the same bits, as the reference's
+does, where ``ml_dtypes`` imports, and as float32 (the same values)
+where it does not (``ml_dtypes`` is not a dependency of the port).
+Checkpoints never go through the fetch: ``io.py`` writes a scope's
+tensors by their bits.
+
+Host IO ops (``save``, ``load``, ``save_combine``, ``load_combine``)
+run on the host outside the step, as in the reference: those before the
+block's first other op before it, those after its last op after it
+(``BlockPlan.pre_host`` / ``post_host``); a block of host ops alone
+captures nothing.  A loaded value replaces the scope's var
+(``set_var``), so the next replay copies it into the graph's buffer.  A
+program holding ``print`` runs eagerly at every step on the card and is
+never captured: a CUDA graph cannot print, and the reference prints at
+every step (``jax.debug.print``).  Each step runs inside
+``profiler.record_event(f"executor_step/{mode}")``, host clock only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -102,11 +119,17 @@ from .core.lod import NestedSeqArray, SeqArray
 from .core.selected_rows import SelectedRows
 from .core.types import runtime_dtype, torch_dtype
 from .framework import Program, Variable, default_main_program
-from .lowering import (MARKER_OPS, BlockPlan, run_block_ops, seed_tensor,
-                       step_seeds)
+from .lowering import (HOST_OPS, MARKER_OPS, BlockPlan, run_block_ops,
+                       seed_tensor, step_seeds)
+from .profiler import record_event
 
 __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "CPUPlace",
-           "CUDAPlace", "scope_from_numpy", "scope_to_numpy"]
+           "CUDAPlace", "scope_from_numpy", "scope_to_numpy", "CAPTURE_LOCK"]
+
+# held while a step is captured in a CUDA graph: a thread that issues
+# work on the card beside the executor (the DataLoader's prefetch) takes
+# it, so no allocation or copy of another thread lands in a capture
+CAPTURE_LOCK = threading.Lock()
 
 
 class CUDAPlace:
@@ -217,6 +240,16 @@ def _host_tensor(v) -> torch.Tensor:
     return torch.tensor(a)
 
 
+def _on_host(v, device: torch.device) -> bool:
+    """Whether a scope value is a host value to upload for a step on
+    ``device``: a numpy array (a SeqArray of them), or a CPU tensor when
+    the step runs on the card."""
+    parts = _tensors(v) if isinstance(v, (torch.Tensor, SeqArray)) else [v]
+    return any(not isinstance(t, torch.Tensor)
+               or (t.device.type == "cpu" and device.type != "cpu")
+               for t in parts)
+
+
 def _to_device(v, device: torch.device):
     """One host value as a device tensor; int64 and float64 narrow to
     int32 and float32 as in the reference's runtime.  Arrays are copied:
@@ -230,18 +263,30 @@ def _to_device(v, device: torch.device):
     return t.to(device=device, dtype=torch_dtype(runtime_dtype(t.dtype)))
 
 
+def _bf16_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU bfloat16 tensor as numpy: an ``ml_dtypes`` bfloat16 array of
+    the same bits (what the reference returns) where ``ml_dtypes``
+    imports, else float32 holding the same values (numpy has no
+    bfloat16 of its own)."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return t.float().numpy()
+    return t.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 def _to_numpy(t):
     """A scope value on the host: a numpy array of its own (a CPU
     tensor's is copied: the next step updates the tensor in place), or a
     SeqArray (NestedSeqArray) of numpy fields.  A bfloat16 value comes
-    back as float32 (exactly): numpy has no bfloat16, where the reference
-    returns an ``ml_dtypes`` bfloat16 array."""
+    back by ``_bf16_numpy``."""
     if isinstance(t, (SeqArray, NestedSeqArray)):
         return _like(t, [_to_numpy(x) for x in _tensors(t)])
+    if not isinstance(t, torch.Tensor):
+        return np.array(t)
     t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+    t = t.clone() if t.device.type == "cpu" else t.cpu()
+    return _bf16_numpy(t) if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def scope_from_numpy(arrays: Mapping[str, Any], place=None,
@@ -371,8 +416,6 @@ def _fetch_numpy(values) -> List[Any]:
         outs = []
         for t in _tensors(v):
             t = t.detach()
-            if t.dtype == torch.bfloat16:
-                t = t.float()
             if t.is_cuda:
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
@@ -384,7 +427,9 @@ def _fetch_numpy(values) -> List[Any]:
         host.append(outs)
     if wait is not None:
         wait.synchronize()
-    out = [_like(v, [t.numpy() for t in o]) for v, o in zip(values, host)]
+    out = [_like(v, [_bf16_numpy(t) if t.dtype == torch.bfloat16
+                     else t.numpy() for t in o])
+           for v, o in zip(values, host)]
     for i, v in enumerate(out):
         if isinstance(v, SelectedRows):
             out[i] = np.empty((), dtype=object)
@@ -530,10 +575,10 @@ class Executor:
                     f"Executor: variable {n!r} is read by the program but "
                     f"absent from the scope — did you run the startup "
                     f"program?")
-            if not isinstance(v, (torch.Tensor, SeqArray)):
-                # a host value (as the reference's jit takes numpy state):
-                # uploaded once, and the scope that holds it keeps the
-                # device tensor
+            if _on_host(v, self.device):
+                # a host value (as the reference's jit takes numpy state;
+                # a loaded checkpoint's values): uploaded once, and the
+                # scope that holds it keeps the device tensor
                 v = _to_device(v, self.device)
                 _owner_of(scope, n).set_var(n, v)
             dev = v.data.device if isinstance(v, SeqArray) else v.device
@@ -551,6 +596,8 @@ class Executor:
                        for f in (fetch_list or [])]
         prog_fp = self._program_key(program)
         plan = self._plan(prog_fp, program, list(feed), fetch_names)
+        for op in plan.pre_host:
+            _run_host_op(op, scope)
         state = self._state_of(plan, scope)
         key = (prog_fp, mode,
                tuple((n, _sig_of(v)) for n, v in sorted(feed.items())),
@@ -630,7 +677,7 @@ class Executor:
         # own, so the peak holds one step's activations, not two
         del env
         if dev.type == "cuda" and not plan.host_rng_ops \
-                and not plan.host_loops:
+                and not plan.host_loops and not plan.prints:
             self._capture(entry)
         self._publish(entry, scope, out=False)
         return entry, fetches
@@ -641,7 +688,8 @@ class Executor:
         # can be read (``graphs()``)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with torch.cuda.graph(graph, stream=self._capture_stream()):
+            with CAPTURE_LOCK, torch.cuda.graph(
+                    graph, stream=self._capture_stream()):
                 self._body(entry)
             graph.instantiate()
         except Exception as e:
@@ -709,8 +757,9 @@ class Executor:
             entry.graph.replay()
             add_launches(entry.launches)
         elif self.device.type == "cuda":
-            # a step whose loop the host drives: eager on the card, and
-            # still no host sync but the loops' condition reads
+            # a step whose loop the host drives, or that prints: eager on
+            # the card, and still no host sync but the loops' condition
+            # reads and the prints
             with _sync_errors():
                 self._body(entry)
         else:
@@ -724,6 +773,8 @@ class Executor:
         key, plan, state, fetch_names = self._prepare(
             program, feed, fetch_list, scope, mode)
         if not plan.ops and not fetch_names:
+            for op in plan.post_host:
+                _run_host_op(op, scope)
             return []
         seeds = step_seeds(plan, *scope.next_rng_bits(program.random_seed))
         entry = self._lookup(key)
@@ -732,9 +783,12 @@ class Executor:
                                               state, seeds, scope)
             if entry is not None:
                 self._store(key, entry)
-            return fetches
-        self._load(entry, feed, seeds)
-        return self._replay(entry, state, scope)
+        else:
+            self._load(entry, feed, seeds)
+            fetches = self._replay(entry, state, scope)
+        for op in plan.post_host:
+            _run_host_op(op, scope)
+        return fetches
 
     # -- entry points -------------------------------------------------------------
     def run(self, program: Optional[Program] = None,
@@ -752,7 +806,8 @@ class Executor:
         program = program or default_main_program()
         scope = scope or global_scope()
         feed = {k: _feed_value(v) for k, v in (feed or {}).items()}
-        fetches = self._step(program, feed, fetch_list, scope, mode)
+        with record_event(f"executor_step/{mode}"):
+            fetches = self._step(program, feed, fetch_list, scope, mode)
         return _fetch_numpy(fetches) if return_numpy else fetches
 
     def run_steps(self, program: Optional[Program] = None,
@@ -800,8 +855,8 @@ class Executor:
                      fetch_every: int = 8, return_numpy: bool = True,
                      mode: str = "train", on_fetch=None,
                      guard=None) -> Union[List[Any], int]:
-        """Run every feed dict of ``loader`` (an iterable, or a zero-arg
-        callable returning one; the reference's DataLoader is not ported)
+        """Run every feed dict of ``loader`` (an iterable such as a
+        ``fluid.DataLoader``, or a zero-arg callable returning one)
         through ``run()`` without waiting for each step's fetches: they
         stay on the device and are drained every ``fetch_every`` steps,
         so the host queues steps ahead of the card.  The steps are
@@ -822,7 +877,8 @@ class Executor:
             loader = loader()
         fetch_every = max(1, int(fetch_every))
         blk = (program or default_main_program()).desc.global_block()
-        written = {n for op in blk.ops if op.type not in MARKER_OPS
+        written = {n for op in blk.ops
+                   if op.type not in MARKER_OPS and op.type not in HOST_OPS
                    for n in op.output_names() if n}
         force_numpy = False
         for f in (fetch_list or []):
@@ -875,6 +931,32 @@ class Executor:
     def cost_analysis(self, *args, **kwargs):
         raise NotImplementedError("Executor.cost_analysis (XLA's HLO cost "
                                   "model) is not ported to paddle_tpu_torch")
+
+
+def _run_host_op(op, scope: Scope) -> None:
+    """One host IO op on ``scope`` (the reference executor's
+    ``_run_host_op``): ``save`` / ``save_combine`` write the scope's
+    values of ``X`` to ``file_path``, ``load`` / ``load_combine`` set
+    ``Out`` from it."""
+    from . import io as fluid_io
+
+    if op.type in ("save", "save_combine"):
+        names = op.input("X")
+        path = op.attr("file_path")
+        if op.type == "save":
+            fluid_io.save_tensor(scope.find_var(names[0]), path)
+        else:
+            fluid_io.save_tensors({n: scope.find_var(n) for n in names},
+                                  path)
+    elif op.type in ("load", "load_combine"):
+        names = op.output("Out")
+        path = op.attr("file_path")
+        if op.type == "load":
+            scope.set_var(names[0], fluid_io.load_tensor(path))
+        else:
+            loaded = fluid_io.load_tensors(path)
+            for n in names:
+                scope.set_var(n, loaded[n])
 
 
 def _staged(v, device):

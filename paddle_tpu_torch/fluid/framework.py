@@ -463,6 +463,10 @@ class Program:
     def random_seed(self, seed):
         self._seed = seed
 
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
+
     def __repr__(self):
         nops = sum(len(b.ops) for b in self.blocks)
         return f"Program(blocks={len(self.blocks)}, ops={nops})"

@@ -11,8 +11,9 @@ its closure inputs (``P``).  DynamicRNN is one masked
 ``dynamic_recurrent`` op over the padded SeqArray layout, where the
 reference's fluid assembles lod_rank_table, lod_tensor_to_array, While
 and shrink_memory.  Step inputs are batch-major [B, T, D] (dense) or
-sequence vars (lod_level=1).  ``Print`` needs the ``print`` op, which
-is not ported, and raises.
+sequence vars (lod_level=1).  ``Print`` appends a ``print`` op, which
+prints at every step (a program holding one runs eagerly on the card,
+never captured: see ``ops/io_ops.py``).
 """
 
 from __future__ import annotations
@@ -199,11 +200,14 @@ def Print(input, first_n=-1, message=None, summarize=-1,
           print_tensor_name=True, print_tensor_type=True,
           print_tensor_shape=True, print_tensor_lod=True,
           print_phase="both"):
-    """reference print_op.cc: debug-print a tensor in the running graph.
-    Not ported: it needs the ``print`` op (ROADMAP Queue A10)."""
-    raise NotImplementedError(
-        "layers.Print needs the print op, which is not ported to "
-        "paddle_tpu_torch (ROADMAP Queue A10)")
+    """reference print_op.cc: debug-print a tensor at every step of the
+    running program."""
+    helper = LayerHelper("print")
+    helper.append_op("print", inputs={"In": input},
+                     attrs={"first_n": first_n, "summarize": summarize,
+                            "message": message or "",
+                            "print_phase": print_phase})
+    return input
 
 
 # ---------------------------------------------------------------------------

@@ -53,10 +53,14 @@ from .core.registry import (EmitCtx, GRAD_SUFFIX, base_op_type, get_op_info,
                             has_op, is_grad_op_type)
 
 __all__ = ["BlockPlan", "run_block_ops", "op_seed", "step_seeds",
-           "seed_tensor", "MARKER_OPS"]
+           "seed_tensor", "MARKER_OPS", "HOST_OPS"]
 
+# host IO ops: the executor runs them outside the step, before or after it
+HOST_OPS = {"save", "load", "save_combine", "load_combine"}
 # pure marker ops (wired by the executor's feed/fetch handling)
 MARKER_OPS = {"feed", "fetch"}
+# ops run for their side effect alone: live whatever the fetches
+SIDE_EFFECT_OPS = {"print"}
 
 _M64 = (1 << 64) - 1
 
@@ -90,21 +94,45 @@ class BlockPlan:
     between grad ops and their forward ops, the random ops' salts in
     seed-buffer order (``salts``; a grad op shares its forward op's,
     and the ops of sub-blocks are walked too), the live ops that draw
-    on the host (``host_rng_ops``) and the ops whose trip count the
-    host reads (``host_loops``, in sub-blocks too).  ``program`` is the
-    desc whose sub-blocks the block's control-flow ops run
-    (``sub_blocks``: index -> its ops and their seed entries)."""
+    on the host (``host_rng_ops``), the ops whose trip count the
+    host reads (``host_loops``, in sub-blocks too) and the ``print`` ops
+    (``prints``, in sub-blocks too: a step that prints reads its values
+    on the host, so it is never captured).  The host IO ops (``save``,
+    ``load`` and their combine forms) are not in ``ops``: the executor
+    runs ``pre_host`` before the step and ``post_host`` after it, and
+    one between two compute ops raises.  ``program`` is the desc whose
+    sub-blocks the block's control-flow ops run (``sub_blocks``: index
+    -> its ops and their seed entries)."""
 
     def __init__(self, block: BlockDesc, feed_names: Sequence[str],
                  fetch_names: Sequence[str],
                  program: Optional[ProgramDesc] = None):
-        ops = [op for op in block.ops if op.type not in MARKER_OPS]
+        # as the reference's executor splits them: a host op before the
+        # first other op (a marker counts) runs before the step, one
+        # after it runs after the step
+        self.pre_host: List[OpDesc] = []
+        self.post_host: List[OpDesc] = []
+        for i, op in enumerate(block.ops):
+            if op.type not in HOST_OPS:
+                continue
+            if all(o.type in HOST_OPS for o in block.ops[:i]):
+                self.pre_host.append(op)
+            elif all(o.type in HOST_OPS for o in block.ops[i:]):
+                self.post_host.append(op)
+            else:
+                raise NotImplementedError(
+                    "save/load ops interleaved between compute ops are "
+                    "not supported; put IO ops at the block boundary or "
+                    "in their own program")
+        ops = [op for op in block.ops
+               if op.type not in MARKER_OPS and op.type not in HOST_OPS]
         persistable = {n for n, vd in block.vars.items() if vd.persistable}
         needed = set(fetch_names)
         live = []
         for op in reversed(ops):
-            if any(n and (n in needed or n in persistable)
-                   for n in op.output_names()):
+            if op.type in SIDE_EFFECT_OPS or any(
+                    n and (n in needed or n in persistable)
+                    for n in op.output_names()):
                 live.append(op)
                 needed.update(n for n in op.input_names() if n)
                 if is_grad_op_type(op.type) and not has_op(op.type):
@@ -137,6 +165,7 @@ class BlockPlan:
         self.salts: List[int] = []
         self.host_rng_ops: List[str] = []
         self.host_loops: List[str] = []
+        self.prints: List[str] = []
         self.sub_blocks: Dict[int, Tuple[List[OpDesc],
                                          Dict[int, Tuple[int, bool]]]] = {}
         self.seed = self._walk(self.ops, program)
@@ -168,6 +197,8 @@ class BlockPlan:
                 # a trip count only the data decides: the host reads
                 # the condition
                 self.host_loops.append(op.type)
+            if op.type in SIDE_EFFECT_OPS:
+                self.prints.append(op.type)
             salt = op.attr("__rng_salt__", None)
             if salt is not None:
                 if salt not in self.salts:

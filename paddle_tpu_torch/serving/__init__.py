@@ -29,7 +29,13 @@ dense paths.
   sequences retire and queued requests backfill their slot; ``serve()``
   runs the loop on a thread with per-request latency accounting.
 
-``InferenceEngine`` and the gateway are not ported yet.
+* ``InferenceEngine`` (engine.py): any pruned Fluid program (a
+  ``save_inference_model`` directory, or a program over a trained
+  scope) served in batch and time buckets, float or int8
+  (``quantize="int8"``: the post-training rewrite of
+  ``fluid.transforms``).
+
+The gateway is not ported yet.
 """
 
 from .decoder import FullRerunDecoder, TransformerGenerator
@@ -43,6 +49,7 @@ from .constraints import (Constraint, DFAConstraint, TokenSetConstraint,
                           compile_constraint)
 from .speculative import SpeculativeGenerator
 from .sessions import SessionStore
+from .engine import InferenceEngine
 
 __all__ = ["TransformerGenerator", "FullRerunDecoder",
            "PagedTransformerGenerator", "build_unified_program",
@@ -51,4 +58,4 @@ __all__ = ["TransformerGenerator", "FullRerunDecoder",
            "ContinuousBatchingScheduler", "Request", "RequestCancelled",
            "SchedulerShutdown", "SpeculativeGenerator", "Constraint",
            "TokenSetConstraint", "DFAConstraint", "compile_constraint",
-           "SessionStore"]
+           "SessionStore", "InferenceEngine"]

@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..fluid.io import _array_from, _host_array
 from ..utils.sync import RANK_COLLECTOR_INIT, RANK_SESSIONS, OrderedLock
 
 __all__ = ["SessionStore", "SESSION_MAGIC"]
@@ -57,26 +58,15 @@ _collector_registered = [False]
 
 
 def _encode(a) -> Tuple[str, List[int], bytes]:
-    """One array's (dtype name, shape, raw bytes): a numpy array as it
-    lies, a CPU bf16 tensor as its 16-bit patterns under ``"bfloat16"``,
-    any other tensor through numpy."""
+    """One array's (dtype name, shape, raw bytes), by ``fluid.io``'s
+    encoding (a CPU bf16 tensor as its 16-bit patterns under
+    ``"bfloat16"``); any other value as the reference's ``_frame`` takes
+    it, through ``np.ascontiguousarray`` (which makes a 0-d array 1-d)."""
     if isinstance(a, torch.Tensor):
-        t = a.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            return ("bfloat16", list(t.shape),
-                    t.view(torch.int16).numpy().tobytes())
-        a = t.numpy()
-    a = np.ascontiguousarray(a)
-    return a.dtype.name, list(a.shape), a.tobytes()
-
-
-def _decode(raw: bytes, dtype: str, shape):
-    """``_encode``'s inverse: a numpy array of its own, or for
-    ``"bfloat16"`` a CPU ``torch.bfloat16`` tensor of its own."""
-    if dtype == "bfloat16":
-        bits = np.frombuffer(raw, np.int16).reshape(shape).copy()
-        return torch.from_numpy(bits).view(torch.bfloat16)
-    return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+        if a.dtype == torch.bfloat16:
+            return _host_array(a)
+        a = a.detach().cpu().numpy()
+    return _host_array(np.ascontiguousarray(a))
 
 
 def _frame(sid: str, fingerprint: str, meta: Dict[str, Any],
@@ -123,7 +113,7 @@ def _unframe(raw: bytes, sid: str, fingerprint: str
     off = 0
     try:
         for name, dtype, shape, nbytes in header["arrays"]:
-            arrays[name] = _decode(blob[off:off + nbytes], dtype, shape)
+            arrays[name] = _array_from(blob[off:off + nbytes], dtype, shape)
             off += nbytes
     except Exception:
         return None

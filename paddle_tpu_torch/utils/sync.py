@@ -20,6 +20,7 @@ from typing import Dict, Optional
 
 __all__ = ["OrderedLock", "OrderedRLock", "OrderedCondition", "RANK_TABLE"]
 
+RANK_LOADER = 8            # pipeline.loader       fluid/pipeline_io.py
 RANK_SCHEDULER = 30        # serving.scheduler     serving/scheduler.py
 RANK_SESSIONS = 34         # serving.sessions      serving/sessions.py
 RANK_CONSTRAINTS = 46      # serving.constraints   serving/speculative.py
@@ -27,10 +28,12 @@ RANK_COLLECTOR_INIT = 70   # obs.collector_init    one-shot register guards
 RANK_METRICS_REGISTRY = 80  # metrics.registry     observability/metrics.py
 RANK_METRICS_FAMILY = 82   # metrics.family        observability/metrics.py
 RANK_METRICS_CHILD = 84    # metrics.child         observability/metrics.py
+RANK_PROFILER = 85         # fluid.profiler        fluid/profiler.py
 RANK_TRACER = 86           # obs.tracer            observability/tracing.py
 RANK_CHAOS = 90            # chaos.injector        resilience/chaos.py
 
 RANK_TABLE: Dict[str, int] = {
+    "pipeline.loader": RANK_LOADER,
     "serving.scheduler": RANK_SCHEDULER,
     "serving.sessions": RANK_SESSIONS,
     "serving.constraints": RANK_CONSTRAINTS,
@@ -38,6 +41,7 @@ RANK_TABLE: Dict[str, int] = {
     "metrics.registry": RANK_METRICS_REGISTRY,
     "metrics.family": RANK_METRICS_FAMILY,
     "metrics.child": RANK_METRICS_CHILD,
+    "fluid.profiler": RANK_PROFILER,
     "obs.tracer": RANK_TRACER,
     "chaos.injector": RANK_CHAOS,
 }

@@ -553,10 +553,23 @@ def test_host_loop_plan_and_condition_reads():
 
 
 def test_print_raises_naming_the_op():
-    with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
-        x = tfluid.layers.data(name="x", shape=[3], dtype="float32")
-        with pytest.raises(NotImplementedError, match="print op"):
-            tfluid.layers.Print(x)
+    """``layers.Print`` now builds the reference's ``print`` op (it raised
+    before the op was ported): the program's bytes are the reference's,
+    and the plan keeps the op live and marks the step uncapturable
+    (``tests/test_torch_pipeline_io.py`` runs it)."""
+    progs = {}
+    for pkg, fluid in (("jax", jfluid), ("port", tfluid)):
+        main = fluid.Program()
+        with fluid.program_guard(main, fluid.Program()):
+            x = fluid.layers.data(name="x", shape=[3], dtype="float32")
+            assert fluid.layers.Print(x, message="m") is x
+        progs[pkg] = main
+    assert progs["port"].serialize_to_string() == \
+        progs["jax"].serialize_to_string()
+    plan = BlockPlan(progs["port"].desc.global_block(), ["x"], [],
+                     program=progs["port"].desc)
+    assert [op.type for op in plan.ops] == ["print"]
+    assert plan.prints == ["print"]
 
 
 def test_sub_block_random_ops_are_seeded():

@@ -15,7 +15,7 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
-* The port registers 210 of the reference's 234 ops, each under the
+* The port registers 222 of the reference's 234 ops, each under the
   reference's name.
 """
 
@@ -108,12 +108,25 @@ SPECULATIVE_TIERS = {"paddle_tpu_torch.serving.speculative",
                      "paddle_tpu_torch.resilience.chaos"}
 
 
+# the modules of the persistence and inference-engine slice
+PERSISTENCE = {"paddle_tpu_torch.fluid.io",
+               "paddle_tpu_torch.fluid.checkpoint",
+               "paddle_tpu_torch.fluid.ops.io_ops",
+               "paddle_tpu_torch.fluid.ops.quant_ops",
+               "paddle_tpu_torch.fluid.transforms",
+               "paddle_tpu_torch.fluid.transforms.quantize",
+               "paddle_tpu_torch.fluid.pipeline_io",
+               "paddle_tpu_torch.fluid.profiler",
+               "paddle_tpu_torch.serving.engine",
+               "paddle_tpu_torch.utils.reader"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
-    want = SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS
+    want = SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS | PERSISTENCE
     assert want <= names, want - names
 
 
@@ -154,11 +167,18 @@ TIER_OPS = {"paged_page_gather", "paged_page_scatter",
             "quantized_paged_page_gather", "quantized_paged_page_scatter"}
 
 
+# the feed / fetch, checkpoint IO and print ops, and the int8 ops
+IO_QUANT_OPS = {"feed", "fetch", "save", "load", "save_combine",
+                "load_combine", "print", "quantize", "dequantize",
+                "quantized_mul", "quantized_matmul", "quantized_conv2d"}
+
+
 def test_registered_ops_are_a_subset_of_the_reference():
-    """The port registers 210 of the reference's 234 ops, each under the
+    """The port registers 222 of the reference's 234 ops, each under the
     reference's name, the SRL slice's 16, the speech and detection
-    slice's 20, the loss and miscellaneous slice's 34 and the KV tier's
-    4 transfers among them."""
+    slice's 20, the loss and miscellaneous slice's 34, the KV tier's 4
+    transfers and the persistence slice's 12 IO and int8 ops among
+    them."""
     from paddle_tpu.fluid.core.registry import registered_ops as jops
 
     ported, ref = set(fluid.registered_ops()), set(jops())
@@ -167,8 +187,9 @@ def test_registered_ops_are_a_subset_of_the_reference():
     assert SPEECH_DETECTION_OPS <= ported
     assert len(LOSS_MISC_OPS) == 34 and LOSS_MISC_OPS <= ported
     assert len(TIER_OPS) == 4 and TIER_OPS <= ported
+    assert len(IO_QUANT_OPS) == 12 and IO_QUANT_OPS <= ported
     assert ported <= ref, ported - ref
-    assert (len(ported), len(ref)) == (210, 234)
+    assert (len(ported), len(ref)) == (222, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):

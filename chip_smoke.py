@@ -357,14 +357,32 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    its top-beam agreement with float; the book's ``conv_net`` trained
    20 steps and served int8 at 128 images, card against CPU; the quant
    ops card vs CPU at the path's shapes (1e-5 of their largest,
-   ``quantize`` / ``dequantize`` bit for bit).
+   ``quantize`` / ``dequantize`` bit for bit);
+28. static analysis and cost (``cost_phase``): the card's rates
+   calibrated (a 1024 x 1024 float32 product, a device-to-device copy,
+   CUDA events) beside the data sheet's; bench.py's cost check on its
+   three programs (the book's ``conv_net`` pruned for inference at
+   batch 64, a 2-layer Transformer training step, the paged int8 decode
+   step at 8 lanes) and the Transformer-base bf16 step at batch 64: the
+   planner's peak against ``Executor.memory_analysis``, the roofline
+   against ``Executor.device_time_per_step``, the ratios and the
+   reference's bands printed, not held; phase 1's served generator per
+   pool dtype and phase 25's speculative pair: ``static_hbm_estimate``
+   within 2.5x of the footprint measured while serving the 8 prompts
+   through a scheduler budgeted at the estimate, a budget one byte
+   short refused with nothing allocated; phase 27's engine estimate
+   against its decode peak, recorded; ``analyze_program(level="full")``
+   over every program the script built, no error finding; 3 float32
+   training steps with ``validate="full"`` bit for bit those without,
+   the pre-flight analyzing once.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
 line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
 line, a ``ranking`` line, a ``speculative`` line, a ``tiers`` line, a
-``persistence`` line, a ``kernels`` line (the flash kernels once
+``persistence`` line, a ``cost`` line, a ``kernels`` line (the flash
+kernels once
 in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
 true, ...}`` line;
 per-case detail goes to standard error.  Any failed check exits 1
@@ -7898,6 +7916,7 @@ def engine_part(torch, np, fluid, workdir, decoder, scope, rec, fails):
     top = {}
     for mode in ("off", "int8"):
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         eng = InferenceEngine(dirname=model_dir, quantize=mode, **kw)
         torch.cuda.synchronize()
@@ -7905,11 +7924,23 @@ def engine_part(torch, np, fluid, workdir, decoder, scope, rec, fails):
         r["load_mb_per_s"] = nbytes / 2**20 / (r["load_ms"] / 1e3)
         eng.warmup([{"src": src}, {"src": tail}, {"src": few}])
         zero_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(ENGINE_RUNS):
             t0 = time.perf_counter()
             full = eng.infer({"src": src})
             times.append(time.perf_counter() - t0)
+        # phase 28's record: the engine's static estimate (its largest
+        # bucket) against what it holds and peaks at over a full decode,
+        # above what was allocated before it was built
+        plan = eng.static_hbm_estimate()
+        r["hbm"] = {"estimate_bytes": plan.peak_bytes,
+                    "components": dict(plan.components),
+                    "measured_bytes": torch.cuda.max_memory_allocated()
+                    - base}
+        r["hbm"]["estimate_over_measured"] = (plan.peak_bytes
+                                              / r["hbm"]["measured_bytes"])
         r["ms_per_batch"] = statistics.median(times) * 1e3
         r["sentences_per_s"] = NMT_BATCH / statistics.median(times)
         # one more under torch.profiler: kernels, device busy, idle share
@@ -8188,6 +8219,461 @@ def persistence_phase(torch, np, fluid, card):
     return rec, launches, fails
 
 
+# -- phase 28: static analysis and cost ----------------------------------------
+
+# the reference's bands (bench.py:2360-2361): the planner's peak within
+# 2.5x of the measured one, the roofline step within 6x
+COST_HBM_BAND, COST_TIME_BAND = 2.5, 6.0
+# bench.py's cost check: the book's conv_net pruned for inference at
+# batch 64; a 2-layer Transformer training step (vocab 2048, seq 64,
+# batch 8, fused, Adam); the paged int8 decode step at 8 lanes
+COST_MNIST_BATCH = 64
+COST_TF = dict(vocab=2048, seq=64, batch=8, n_layer=2, n_head=4, d_key=32,
+               d_model=128, d_inner_hid=256)
+COST_LANES = 8
+COST_ITERS, COST_TRIALS = 10, 3
+# the Transformer-base float32 training path run with and without the
+# analyzer's pre-flight
+VALIDATE_BATCH, VALIDATE_STEPS = 8, 3
+
+
+def calibrated_chip(torch, cost):
+    """The card's achievable rates, measured as bench.py's
+    ``_calibrated_chip`` measures a TPU's: a 1024 x 1024 float32 product
+    (TF32 off, as the port runs it) and a 64 MiB device-to-device copy,
+    each 20 times between CUDA events, the best of 3 trials ->
+    ``ChipSpec("calibrated", ...)`` with the data sheet's HBM size and
+    links."""
+    dev = torch.device("cuda", 0)
+    n = 1024
+    a = torch.randn(n, n, device=dev)
+    b = torch.randn(n, n, device=dev)
+    src = torch.randn(16 * 2**20, device=dev)
+    dst = torch.empty_like(src)
+
+    def seconds(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3 / reps)
+        return best
+
+    t_mm = seconds(lambda: torch.mm(a, b))
+    t_copy = seconds(lambda: dst.copy_(src))
+    sheet = cost.CHIP_SPECS["h100"]
+    return cost.ChipSpec("calibrated", 2.0 * n ** 3 / t_mm,
+                         2.0 * src.numel() * 4 / t_copy, sheet.hbm_bytes,
+                         ici_bw=sheet.ici_bw, dcn_bw=sheet.dcn_bw)
+
+
+def cost_check(torch, cost, prog, feed, fetch, scope, exe, batch, chip,
+               mode):
+    """One program's predicted-vs-measured row (bench.py's
+    ``_cost_gate``): the planner's peak against ``memory_analysis``, the
+    roofline step at ``chip`` (and at the data sheet) against
+    ``device_time_per_step``; the ratios and whether each lies in the
+    reference's band (recorded, not held)."""
+    plan = cost.plan_program(prog, assume_batch=batch)
+    roof = cost.roofline(prog, chip, assume_batch=batch)
+    sheet = cost.roofline(prog, "h100", assume_batch=batch)
+    torch.cuda.empty_cache()
+    mem = exe.memory_analysis(prog, feed=feed, fetch_list=fetch,
+                              scope=scope, mode=mode)
+    torch.cuda.empty_cache()
+    dt = exe.device_time_per_step(prog, feed=feed, fetch_list=fetch,
+                                  scope=scope, iters=COST_ITERS,
+                                  trials=COST_TRIALS, mode=mode)
+    torch.cuda.empty_cache()
+    row = {"batch": batch, "predicted_peak_bytes": plan.peak_bytes,
+           "components": dict(plan.components),
+           "measured_peak_bytes": mem["peak_bytes"], "memory": mem,
+           "predicted_step_ms": roof.step_time_s * 1e3,
+           "predicted_step_ms_sheet": sheet.step_time_s * 1e3,
+           "measured_step_ms": dt * 1e3,
+           "predicted_gflops": roof.total_flops / 1e9,
+           "predicted_hbm_mib": roof.total_bytes / 2**20,
+           "unregistered_ops": dict(roof.unregistered)}
+    row["hbm_ratio"] = plan.peak_bytes / mem["peak_bytes"]
+    row["time_ratio"] = roof.step_time_s / dt
+    row["time_ratio_sheet"] = sheet.step_time_s / dt
+    row["hbm_within_band"] = 1 / COST_HBM_BAND <= row["hbm_ratio"] \
+        <= COST_HBM_BAND
+    row["time_within_band"] = 1 / COST_TIME_BAND <= row["time_ratio"] \
+        <= COST_TIME_BAND
+    return row
+
+
+def cost_programs(torch, np, fluid, cost, chip):
+    """The reference's cost check on its three programs at its sizes:
+    {name: cost_check row}."""
+    from paddle_tpu_torch.models import recognize_digits
+    from paddle_tpu_torch.models.transformer import transformer
+    from paddle_tpu_torch.serving import PagedTransformerGenerator
+    from paddle_tpu_torch.serving.paging import TRASH_PAGE
+
+    rng = np.random.RandomState(SEED + 40)
+    place = fluid.CUDAPlace(0)
+    rows = {}
+    # the book's conv_net, pruned for inference
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", [1, 28, 28], "float32")
+        label = fluid.layers.data("label", [1], "int64")
+        predict, _, _ = recognize_digits.conv_net(img, label)
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    pruned = fluid.io.prune_program(main, [predict])
+    feed = {"img": rng.rand(COST_MNIST_BATCH, 1, 28, 28)
+            .astype(np.float32)}
+    rows["mnist"] = cost_check(torch, cost, pruned, feed, [predict], scope,
+                               fluid.Executor(place), COST_MNIST_BATCH,
+                               chip, "infer")
+    # the 2-layer Transformer training step
+    c = COST_TF
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _, _ = transformer(
+            src_vocab_size=c["vocab"], trg_vocab_size=c["vocab"],
+            max_length=c["seq"] + 1, dropout_rate=0.1,
+            src_seq_len=c["seq"], trg_seq_len=c["seq"],
+            n_layer=c["n_layer"], n_head=c["n_head"], d_key=c["d_key"],
+            d_value=c["d_key"], d_model=c["d_model"],
+            d_inner_hid=c["d_inner_hid"], fused=True,
+            materialize_attn_bias=False, fused_vocab_loss=True)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(avg_cost)
+    scope = fluid.scope_from_numpy(initial_scope(fluid, startup), place)
+    b, s = c["batch"], c["seq"]
+    pos = np.tile(np.arange(s, dtype=np.int64), (b, 1))
+    feed = {"src_word": rng.randint(1, c["vocab"], (b, s)),
+            "src_pos": pos,
+            "trg_word": rng.randint(1, c["vocab"], (b, s)),
+            "trg_pos": pos,
+            "lbl_word": rng.randint(1, c["vocab"], (b, s)),
+            "lbl_weight": np.ones((b, s), np.float32)}
+    rows["nmt_transformer"] = cost_check(
+        torch, cost, main, feed, [avg_cost], scope, fluid.Executor(place),
+        b, chip, "train")
+    # the paged int8 decode step: the unified serving step at 8 lanes
+    gen = PagedTransformerGenerator(
+        c["vocab"], c["vocab"], n_layer=c["n_layer"], n_head=c["n_head"],
+        d_key=c["d_key"], d_value=c["d_key"], d_model=c["d_model"],
+        d_inner_hid=c["d_inner_hid"], max_length=128, src_len=64,
+        max_out_len=64, page_size=8, chunk_size=8, kv_dtype="int8",
+        param_prefix="cost_bench", place=place)
+    gen.init_params(seed=0)
+    gen.open_slots(COST_LANES)
+    prog, _, next_ids, _ = gen._unified
+    n, ch = COST_LANES, gen.chunk
+    feed = {"pf_word": np.zeros((n, ch), np.int64),
+            "pf_pos": np.zeros((n, ch), np.int64),
+            "pf_base": np.zeros(n, np.int32),
+            "pf_len": np.ones(n, np.int32),
+            "enc_table": np.zeros((n, gen.p_src), np.int32),
+            "enc_pages": np.full((n, ch), TRASH_PAGE, np.int32),
+            "cross_pages": np.full((n, ch), TRASH_PAGE, np.int32),
+            "w_offsets": np.zeros((n, ch), np.int32),
+            "trg_word": np.zeros((n, 1), np.int64),
+            "trg_pos": np.zeros((n, 1), np.int64),
+            "self_table": np.zeros((n, gen.p_out), np.int32),
+            "self_pages": np.full((n, 1), TRASH_PAGE, np.int32),
+            "self_offsets": np.zeros((n, 1), np.int32),
+            "self_lengths": np.ones(n, np.int32),
+            "self_base": np.zeros(n, np.int32),
+            "cross_table": np.zeros((n, gen.p_src), np.int32),
+            "src_lengths": np.ones(n, np.int32)}
+    rows["paged_decode_step"] = cost_check(
+        torch, cost, prog, feed, [next_ids], gen.scope, gen.exe, n, chip,
+        "infer")
+    rows["paged_decode_step"]["static_hbm_estimate"] = \
+        gen.static_hbm_estimate(assume_lanes=n).peak_bytes
+    return rows
+
+
+def admission_run(torch, model, srcs, decode=None):
+    """The estimate admission relies on, held against what the model
+    takes on the card: ``static_hbm_estimate(N_SLOTS)``; a scheduler
+    whose budget is one byte short refuses it (``HBMBudgetError``) and
+    allocates nothing; one whose budget is the estimate admits it and
+    reports it in ``stats()``; then ``srcs`` are served through that
+    scheduler, the peak memory reset just before.  Returns the record;
+    the caller reads the peak."""
+    from paddle_tpu_torch.serving.scheduler import (
+        ContinuousBatchingScheduler, HBMBudgetError)
+
+    plan = model.static_hbm_estimate(N_SLOTS)
+    est = int(plan.peak_bytes)
+    rec = {"estimate_bytes": est, "components": dict(plan.components)}
+    short = ContinuousBatchingScheduler(hbm_budget_bytes=est - 1,
+                                        max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        short.add_model("served", model, N_SLOTS)
+        rec["refused"] = False
+    except HBMBudgetError as e:
+        rec["refused"] = True
+        rec["suggested_model_axis"] = e.suggested_model_axis
+    torch.cuda.synchronize()
+    rec["refusal_allocated_bytes"] = torch.cuda.memory_allocated() - before
+    rec["refused_committed_bytes"] = short.hbm_committed()
+    sched = ContinuousBatchingScheduler(hbm_budget_bytes=est,
+                                        max_new_tokens=MAX_NEW)
+    sched.add_model("served", model, N_SLOTS)
+    st = sched.stats()
+    rec["stats_static_hbm_bytes"] = st["models"]["served"][
+        "static_hbm_bytes"]
+    rec["stats_committed_bytes"] = st["hbm"]["committed_bytes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [sched.submit(s, max_new_tokens=MAX_NEW, model="served",
+                         decode=decode) for s in srcs]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    rec["finished"] = all(r.done and r.error is None for r in reqs)
+    rec["tokens"] = sum(len(r.tokens) for r in reqs)
+    return rec
+
+
+def admission_failures(name, rec):
+    """What phase 28 holds of an admission record: the estimate within
+    the reference's 2.5x of the measured footprint, the refusal, nothing
+    allocated by it, the admission at the estimate, every request
+    served."""
+    out = []
+    r = rec["estimate_over_measured"]
+    if not 1 / COST_HBM_BAND <= r <= COST_HBM_BAND:
+        out.append(f"admission {name}: estimate {rec['estimate_bytes']} "
+                   f"bytes against {rec['measured_bytes']} measured "
+                   f"(ratio {r}), outside {COST_HBM_BAND}x")
+    if not rec["refused"] or rec["refusal_allocated_bytes"] != 0 \
+            or rec["refused_committed_bytes"] != 0:
+        out.append(f"admission {name}: a budget one byte short of the "
+                   f"estimate: refused {rec['refused']}, allocated "
+                   f"{rec['refusal_allocated_bytes']} bytes, committed "
+                   f"{rec['refused_committed_bytes']}")
+    if rec["stats_static_hbm_bytes"] != rec["estimate_bytes"] \
+            or rec["stats_committed_bytes"] != rec["estimate_bytes"]:
+        out.append(f"admission {name}: stats() report "
+                   f"{rec['stats_static_hbm_bytes']} / "
+                   f"{rec['stats_committed_bytes']} bytes, want the "
+                   f"estimate {rec['estimate_bytes']}")
+    if not rec["finished"]:
+        out.append(f"admission {name}: not every request was served")
+    return out
+
+
+def measured_admission(torch, build, srcs, decode=None):
+    """``build()`` -> the model, on the card; its admission run with the
+    footprint it measures: the resident weights and pool plus serving's
+    peak growth (the peak over serving above what was allocated before
+    the model was built), as phase 1 measures serving."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    rec = admission_run(torch, model, srcs, decode)
+    rec["resident_bytes"] = resident
+    rec["measured_bytes"] = torch.cuda.max_memory_allocated() - base
+    rec["serve_growth_bytes"] = rec["measured_bytes"] - resident
+    rec["estimate_over_measured"] = (rec["estimate_bytes"]
+                                     / rec["measured_bytes"])
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def track_programs(fluid):
+    """Keep every Program built from now on (``Program.__init__`` wrapped;
+    parsed and cloned programs go through it too) for the analyzer pass
+    of phase 28.  Returns the list they are appended to."""
+    from paddle_tpu_torch.fluid import framework
+
+    built = []
+    init = framework.Program.__init__
+
+    def tracked(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    framework.Program.__init__ = tracked
+    return built
+
+
+def analyze_built(programs):
+    """``analyze_program(level="full")`` over every distinct program (by
+    fingerprint) of ``programs`` -> (record, error findings)."""
+    from paddle_tpu_torch.fluid.analysis import analyze_program
+
+    t0 = time.perf_counter()
+    seen, errors, ops = set(), [], 0
+    counts = {"error": 0, "warning": 0, "info": 0}
+    for prog in programs:
+        fp = prog.desc.fingerprint()
+        if fp in seen or not prog.desc.blocks[0].ops:
+            continue
+        seen.add(fp)
+        ops += sum(len(b.ops) for b in prog.desc.blocks)
+        diag = analyze_program(prog, level="full")
+        for k, v in diag.to_dict()["counts"].items():
+            counts[k] += v
+        errors += [f.render() for f in diag.errors()]
+    return {"programs_built": len(programs), "distinct": len(seen),
+            "ops": ops, "findings": counts,
+            "seconds": time.perf_counter() - t0}, errors
+
+
+def validated_steps(np, fluid, main, loss, init, feed):
+    """VALIDATE_STEPS steps of the float32 training path on the card
+    with ``validate="full"`` and without, each from ``init`` on a fresh
+    scope and executor -> record: the losses bit for bit, the
+    pre-flight's counters (one analysis, then fingerprint-cache hits)."""
+    place = fluid.CUDAPlace(0)
+    losses, stats = {}, None
+    for validate in (None, "full"):
+        scope = fluid.scope_from_numpy(init, place)
+        exe = fluid.Executor(place)
+        losses[validate or "off"] = [
+            np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope, validate=validate)[0])
+            for _ in range(VALIDATE_STEPS)]
+        if validate:
+            stats = exe.cache_stats()["validate"]
+        del scope, exe
+    bitwise = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                  for a, b in zip(losses["off"], losses["full"]))
+    return {"batch": VALIDATE_BATCH, "steps": VALIDATE_STEPS,
+            "losses": {k: [float(x) for x in v] for k, v in losses.items()},
+            "bitwise": bitwise, "validate": stats,
+            "ok": bitwise and stats["runs"] == 1
+            and stats["cached"] == VALIDATE_STEPS - 1}
+
+
+def cost_phase(torch, np, fluid, card, weights, srcs, programs,
+               training=None, engine=None):
+    """Phase 28: the static analyzer and the cost model on the card.
+
+    1. The calibrated chip (``calibrated_chip``) beside the data sheet.
+    2. The reference's cost check on its three programs
+       (``cost_programs``): the planner's peak against
+       ``memory_analysis``, the roofline against
+       ``device_time_per_step``; recorded, not held.
+    3. Phase 1's served Transformer-base per pool dtype and phase 25's
+       speculative pair (K = SPEC_K, a 1-layer draft):
+       ``static_hbm_estimate(8)`` against the measured footprint (the
+       reference's 2.5x, held), a budget one byte short refused with
+       nothing allocated, a budget at the estimate admitting the model
+       (``measured_admission``); ``engine`` is phase 27's
+       ``InferenceEngine`` record, recorded.
+    4. The Transformer-base training step in bench.py's bf16 recipe at
+       TRAIN_BATCH: planner and roofline against the measurements.
+    5. ``analyze_program(level="full")`` over every program chip_smoke
+       built (``programs``): no error-severity finding; VALIDATE_STEPS
+       float32 training steps with ``validate="full"`` bit for bit those
+       without, the second call a fingerprint-cache hit.
+
+    ``training`` is (float32 main, its loss, bf16 main, its loss, the
+    initial arrays) when the caller built them.  Returns (record, ragged
+    launches, flash launches by input dtype, failures)."""
+    from paddle_tpu_torch.fluid.analysis import cost
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models.transformer import transformer
+    from paddle_tpu_torch.serving import SpeculativeGenerator
+
+    t_phase = time.perf_counter()
+    failures = []
+    zero_launch_counts()
+    chip = calibrated_chip(torch, cost)
+    sheet = cost.CHIP_SPECS["h100"]
+    rec = {"card": card, "chip": {"calibrated": chip.to_dict(),
+                                  "data_sheet": sheet.to_dict()}}
+    log(f"cost: calibrated {chip!r} against the data sheet's {sheet!r}")
+
+    rec["cost_check"] = cost_programs(torch, np, fluid, cost, chip)
+    for name, row in rec["cost_check"].items():
+        log(f"cost check {name}: {json.dumps(row)}")
+
+    rec["admission"] = {}
+    for kv in KV_DTYPES:
+        def build(kv=kv):
+            g = make_generator("cuda", kv)
+            g.load_params(weights)
+            return g
+        r = measured_admission(torch, build, srcs)
+        rec["admission"][kv] = r
+        failures += admission_failures(kv, r)
+        log(f"cost admission {kv}: {json.dumps(r)}")
+
+    def build_pair():
+        target = make_generator("cuda", "float32")
+        target.load_params(weights)
+        draft = make_generator("cuda", "float32",
+                               dict(MODEL, n_layer=SPEC_DRAFT_LAYERS))
+        draft.load_params({n: v for n, v in weights.items()
+                           if n in draft._param_vars()})
+        return SpeculativeGenerator(target, draft, k=SPEC_K)
+
+    r = measured_admission(torch, build_pair, srcs)
+    rec["admission"]["speculative"] = r
+    failures += admission_failures("speculative", r)
+    log(f"cost admission speculative: {json.dumps(r)}")
+    rec["admission"]["engine"] = engine
+
+    # the Transformer-base step in bench.py's bf16 recipe
+    if training is None:
+        main, startup, loss = build_training(fluid, transformer)
+        amp, _, amp_loss = build_training(fluid, transformer, AMP)
+        init = initial_scope(fluid, startup)
+    else:
+        main, loss, amp, amp_loss, init = training
+    place = fluid.CUDAPlace(0)
+    scope = fluid.scope_from_numpy(init, place)
+    rec["transformer_base_bf16"] = cost_check(
+        torch, cost, amp, train_feed(np, TRAIN_BATCH), [amp_loss], scope,
+        fluid.Executor(place), TRAIN_BATCH, chip, "train")
+    log(f"cost check transformer_base_bf16: "
+        f"{json.dumps(rec['transformer_base_bf16'])}")
+    del scope
+    torch.cuda.empty_cache()
+
+    rec["validated"] = validated_steps(
+        np, fluid, main, loss, init, train_feed(np, VALIDATE_BATCH))
+    if not rec["validated"]["ok"]:
+        failures.append(f"validated training steps: {rec['validated']}")
+    torch.cuda.empty_cache()
+    rec["analyzer"], errors = analyze_built(programs)
+    rec["analyzer"]["errors"] = errors
+    if errors:
+        failures.append(f"analyzer: {len(errors)} error findings over "
+                        f"chip_smoke's programs: {errors[:10]}")
+    log(f"cost analyzer: {json.dumps(rec['analyzer'])}")
+
+    counts = named_launches(launch_counts())
+    ragged = counts.get("flash_attention/ragged_decode_attention/launches",
+                        0)
+    flash = {dt: {k: counts.get(f"flash_attention/flash_attention/"
+                                f"launches_by_dtype/{dt}/{k}", 0)
+                  for k in ("fwd", "dq", "dkv")}
+             for dt in ("float32", "bfloat16")}
+    rec["launches"] = {"ragged": ragged, "flash": flash}
+    if not ragged or not all(flash[dt]["fwd"] for dt in flash):
+        failures.append(f"cost phase: launches {rec['launches']}: the "
+                        f"ragged and flash kernels must run in this phase")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, ragged, flash, failures
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8228,6 +8714,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
+    # every program built from here on, for phase 28's analyzer pass
+    programs = track_programs(fluid)
 
     # -- build: every kernel source at once
     t0 = time.perf_counter()
@@ -8802,9 +9290,26 @@ def main() -> int:
     lstm_entry["launches"] += persist_launches
     lstm_entry["launches_persistence"] = persist_launches
     log(f"persistence phase ({persist['seconds']:.1f}s)")
-    kernels[0]["launches"] += spec_launches + tier_launches
+    # -- static analysis and cost: the ragged kernel in the served
+    # generators and the int8 decode step, the flash kernels in the
+    # Transformer steps
+    torch.cuda.empty_cache()
+    cost, cost_ragged, cost_flash, cost_fails = cost_phase(
+        torch, np, fluid, card, weights, srcs, programs,
+        (main_prog, loss, amp_prog, amp_loss, init),
+        persist["engine"]["off"].get("hbm"))
+    failures += cost_fails
+    log(f"cost phase ({cost['seconds']:.1f}s)")
+    kernels[0]["launches"] += spec_launches + tier_launches + cost_ragged
     kernels[0]["launches_speculative"] = spec_launches
     kernels[0]["launches_tiers"] = tier_launches
+    kernels[0]["launches_cost"] = cost_ragged
+    for row in kernels[1:]:
+        if row["name"].startswith("flash_attention_"):
+            k, _, dt = row["name"][len("flash_attention_"):].partition("_")
+            n = cost_flash["bfloat16" if dt else "float32"][k]
+            row["launches"] += n
+            row["launches_cost"] = n
     # a verify step's ragged launches (its prefill tower and its
     # k+1-query decode) and a 1-layer draft step's, over their steps in
     # phase 25's float32 run, and their graphs' ragged nodes
@@ -8828,6 +9333,7 @@ def main() -> int:
     print(json.dumps({"speculative": spec_rec}), flush=True)
     print(json.dumps({"tiers": tiers}), flush=True)
     print(json.dumps({"persistence": persist}), flush=True)
+    print(json.dumps({"cost": cost}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
     if failures:

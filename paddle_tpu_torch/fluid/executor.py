@@ -104,6 +104,8 @@ every step (``jax.debug.print``).  Each step runs inside
 from __future__ import annotations
 
 import contextlib
+import os
+import statistics
 import threading
 import time
 import weakref
@@ -341,6 +343,17 @@ def _tensors(v) -> List[torch.Tensor]:
     return [v]
 
 
+def _nbytes(values) -> int:
+    """Bytes of every tensor the values hold."""
+    return sum(t.numel() * t.element_size() for v in values
+               for t in _tensors(v) if isinstance(t, torch.Tensor))
+
+
+def _fetch_names(fetch_list) -> List[str]:
+    return [f.name if isinstance(f, Variable) else str(f)
+            for f in (fetch_list or [])]
+
+
 def _like(v, parts):
     """``parts`` (one per entry of ``_tensors(v)``) in ``v``'s structure."""
     if isinstance(v, (SeqArray, NestedSeqArray)):
@@ -484,7 +497,16 @@ class Executor:
         self._cls_cache: "OrderedDict[tuple, BlockPlan]" = OrderedDict()
         self._stats = {
             "executable": {"hits": 0, "misses": 0, "evictions": 0},
-            "structure": {"hits": 0, "misses": 0, "evictions": 0}}
+            "structure": {"hits": 0, "misses": 0, "evictions": 0},
+            # pre-flight analysis (validate=...): "runs" = analyses
+            # performed, "cached" = steps that skipped re-analysis
+            # because the (fingerprint, level) was already validated
+            "validate": {"runs": 0, "cached": 0}}
+        # the same counters by analysis level, and the (program
+        # fingerprint, level) pairs already analyzed clean: the analyzer
+        # runs once per program structure, not per step
+        self._validate_by_level: Dict[str, Dict[str, int]] = {}
+        self._validated: set = set()
         self._stream = None             # the capture stream, made once
         # every state buffer of this executor's entries (by id, weakly),
         # and the scope each one was last published to
@@ -498,12 +520,56 @@ class Executor:
         captured CUDA graph on the card) and the structure cache (the
         block's plan per program, feed names and fetch names):
         ``{'executable': {hits, misses, evictions, size}, 'structure':
-        {...}}``, the reference's two blocks of the same name.  A hot
-        training loop converges to pure hits."""
+        {...}, 'validate': {runs, cached, size, by_level}}``, the
+        reference's blocks of the same names.  A hot training loop
+        converges to pure hits."""
         out = {k: dict(v) for k, v in self._stats.items()}
         out["executable"]["size"] = len(self._cache)
         out["structure"]["size"] = len(self._cls_cache)
+        out["validate"]["size"] = len(self._validated)
+        out["validate"]["by_level"] = {
+            lv: dict(c) for lv, c in self._validate_by_level.items()}
         return out
+
+    # -- static-analysis pre-flight -------------------------------------------
+    @staticmethod
+    def _validate_level(validate: Optional[str]) -> str:
+        """The effective pre-flight level: the explicit argument, else the
+        ``PADDLE_TPU_VALIDATE`` env flag (the reference's name), else
+        off.  Any analysis level is accepted."""
+        from .analysis import check_level
+
+        level = (validate if validate is not None
+                 else os.environ.get("PADDLE_TPU_VALIDATE", "off"))
+        if level != "off":
+            try:
+                check_level(level)
+            except ValueError:
+                raise ValueError(f"validate must be 'off' or an analysis "
+                                 f"level, got {level!r}") from None
+        return level
+
+    def _preflight(self, program: Program, level: str,
+                   fetch_names: Sequence[str]) -> None:
+        """Run the static analyzer once per (program fingerprint, level);
+        raise ProgramValidationError on error-severity findings.  Later
+        steps of the same program are fingerprint-cache hits."""
+        key = (self._program_key(program), level)
+        by_level = self._validate_by_level.setdefault(
+            level, {"runs": 0, "cached": 0})
+        if key in self._validated:
+            self._stats["validate"]["cached"] += 1
+            by_level["cached"] += 1
+            return
+        self._stats["validate"]["runs"] += 1
+        by_level["runs"] += 1
+        from .analysis import ProgramValidationError, analyze_program
+
+        diag = analyze_program(program, level=level, fetch=fetch_names)
+        if diag.has_errors:
+            raise ProgramValidationError(diag,
+                                         context=f"validate={level!r}")
+        self._validated.add(key)
 
     def graphs(self) -> List[Any]:
         """The CUDA graphs of the cached steps, least recently used
@@ -592,8 +658,7 @@ class Executor:
     def _prepare(self, program, feed, fetch_list, scope, mode):
         """-> (the signature, the plan, the state values, the fetch
         names)."""
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
+        fetch_names = _fetch_names(fetch_list)
         prog_fp = self._program_key(program)
         plan = self._plan(prog_fp, program, list(feed), fetch_names)
         for op in plan.pre_host:
@@ -795,16 +860,26 @@ class Executor:
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
             scope: Optional[Scope] = None, return_numpy: bool = True,
-            mode: str = "train", **unported) -> List[Any]:
+            mode: str = "train", validate: Optional[str] = None,
+            guard=None) -> List[Any]:
         """One step of ``program``'s global block.  ``mode="infer"``
-        turns dropout off.  The reference's ``validate`` and ``guard``
-        options are not ported and raise."""
-        if unported:
-            raise NotImplementedError(
-                f"Executor.run: {', '.join(sorted(unported))} not ported "
-                f"to paddle_tpu_torch")
+        turns dropout off.  ``validate``: the static-analysis pre-flight
+        — "off" (the default), "structural" (desc-only passes), "full"
+        (adds the shape/dtype re-check) or "cost"; without it the
+        ``PADDLE_TPU_VALIDATE`` env flag decides.  The analysis is cached
+        by program fingerprint, so a hot loop pays it once, and it
+        changes nothing the step computes.  The reference's ``guard``
+        (its training guardrails) is not ported and raises."""
+        if guard is not None:
+            raise NotImplementedError("Executor.run: guard (the "
+                                      "reference's guardrails, ROADMAP "
+                                      "A13) is not ported to "
+                                      "paddle_tpu_torch")
         program = program or default_main_program()
         scope = scope or global_scope()
+        level = self._validate_level(validate)
+        if level != "off":
+            self._preflight(program, level, _fetch_names(fetch_list))
         feed = {k: _feed_value(v) for k, v in (feed or {}).items()}
         with record_event(f"executor_step/{mode}"):
             fetches = self._step(program, feed, fetch_list, scope, mode)
@@ -828,6 +903,9 @@ class Executor:
             return []
         program = program or default_main_program()
         scope = scope or global_scope()
+        level = self._validate_level(None)
+        if level != "off":          # PADDLE_TPU_VALIDATE covers these too
+            self._preflight(program, level, _fetch_names(fetch_list))
         feeds = [{k: _feed_value(v) for k, v in f.items()} for f in feeds]
         sig0 = tuple((n, _sig_of(v)) for n, v in sorted(feeds[0].items()))
         for i, f in enumerate(feeds[1:], 1):
@@ -928,9 +1006,145 @@ class Executor:
         drain()
         return n_steps if on_fetch is not None else results
 
-    def cost_analysis(self, *args, **kwargs):
-        raise NotImplementedError("Executor.cost_analysis (XLA's HLO cost "
-                                  "model) is not ported to paddle_tpu_torch")
+    # -- analysis of one step ------------------------------------------------
+    def cost_analysis(self, program: Optional[Program] = None,
+                      feed: Optional[Dict[str, Any]] = None,
+                      fetch_list: Optional[Sequence] = None,
+                      scope: Optional[Scope] = None,
+                      mode: str = "train") -> Dict[str, float]:
+        """Totals of one step's per-op cost table
+        (``profiler.op_cost_table``: every op run alone on meta tensors,
+        products counted by ``FlopCounterMode``), WITHOUT executing the
+        step: ``{'flops', 'bytes accessed'}``, the reference's keys for
+        its XLA cost analysis of the compiled step.  ``fetch_list`` is
+        accepted for the reference's signature; the table covers every
+        op of the block."""
+        from .profiler import op_cost_table
+
+        rows = op_cost_table(program, feed, scope, mode, print_table=False)
+        return {"flops": float(sum(r["flops"] for r in rows)),
+                "bytes accessed": float(sum(r["bytes"] for r in rows))}
+
+    def _analysis_step(self, program, feed, fetch_list, scope):
+        """(program, feeds on the device, fetch names, plan, a copy of
+        the state the step reads): what ``memory_analysis`` and
+        ``device_time_per_step`` run, without touching the scope's values
+        or its rng."""
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        feed = {k: _staged(_feed_value(v), self.device)
+                for k, v in (feed or {}).items()}
+        fetch_names = _fetch_names(fetch_list)
+        plan = BlockPlan(program.desc.global_block(), list(feed),
+                         fetch_names, program=program.desc)
+        state = {n: _clone(v) for n, v in self._state_of(plan,
+                                                          scope).items()}
+        return program, feed, fetch_names, plan, state
+
+    def memory_analysis(self, program: Optional[Program] = None,
+                        feed: Optional[Dict[str, Any]] = None,
+                        fetch_list: Optional[Sequence] = None,
+                        scope: Optional[Scope] = None,
+                        mode: str = "train") -> Dict[str, float]:
+        """The measured memory of one step at this signature, the
+        counterpart of the static planner's peak
+        (``analysis.cost.plan_program``).
+
+        This is a measurement, not a compiler's static figure (the
+        reference reads XLA's buffer assignment): the step runs once,
+        eagerly, on a copy of the state it reads (the scope keeps its
+        values and its rng; fixed seeds), and ``temp_bytes`` is the
+        caching allocator's peak over that run above what was allocated
+        before it.  The reference's keys: ``argument_bytes`` (feeds +
+        the state read), ``output_bytes`` (fetches + the state written),
+        ``alias_bytes`` (outputs written in place into an argument's
+        memory), ``temp_bytes``, ``generated_code_bytes`` (0: no code is
+        generated) and ``peak_bytes`` = arguments + temps, the step's
+        own allocations over its resident arguments.  On the CPU no
+        allocator keeps a peak: ``temp_bytes`` and ``peak_bytes`` are
+        NaN there."""
+        program, feed, fetch_names, plan, state = self._analysis_step(
+            program, feed, fetch_list, scope)
+        dev = self.device
+        cuda = dev.type == "cuda"
+        seeds = [0] * len(plan.salts)
+        env = dict(state)
+        env.update(feed)
+        argument_bytes = _nbytes(env.values())
+        held = _storages(env.values())
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        with torch.no_grad():
+            run_block_ops(plan, env, seeds,
+                          seed_tensor(seeds).to(dev), dev, mode)
+        temp = float("nan")
+        if cuda:
+            torch.cuda.synchronize(dev)
+            temp = float(torch.cuda.max_memory_allocated(dev) - base)
+        outs = [env[n] for n in list(plan.state_out) + fetch_names]
+        output_bytes = _nbytes(outs)
+        alias_bytes = sum(_nbytes([v]) for v in outs
+                          if _storages([v]) & held)
+        return {"argument_bytes": float(argument_bytes),
+                "output_bytes": float(output_bytes),
+                "temp_bytes": temp,
+                "alias_bytes": float(alias_bytes),
+                "generated_code_bytes": 0.0,
+                "peak_bytes": float(argument_bytes) + temp}
+
+    def device_time_per_step(self, program: Optional[Program] = None,
+                             feed: Optional[Dict[str, Any]] = None,
+                             fetch_list: Optional[Sequence] = None,
+                             scope: Optional[Scope] = None,
+                             iters: int = 50, trials: int = 3,
+                             mode: str = "train") -> float:
+        """Seconds per step on the device clock: the step is captured
+        once (a fresh executor's first run, on a copy of the state it
+        reads: the scope is NOT updated), then each trial replays its
+        CUDA graph ``iters`` times between two CUDA events; the median
+        over ``trials`` is returned.  No host work sits between the
+        replays, so this is the card's time for the step, the
+        counterpart of the reference's chained steps in one jit.  On the
+        CPU (or for a step the executor does not capture) each trial
+        runs ``iters`` steps on the host clock."""
+        program, feed, fetch_names, plan, state = self._analysis_step(
+            program, feed, fetch_list, scope)
+        scratch = Scope()
+        for n, v in state.items():
+            scratch.set_var(n, v)
+        exe = Executor(self.place)
+        exe.run(program, feed, fetch_names, scratch, return_numpy=False,
+                mode=mode)
+        entry = next(iter(exe._cache.values()), None)
+        graph = entry.graph if entry is not None else None
+        times = []
+        for _ in range(max(1, trials)):
+            if graph is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    graph.replay()
+                end.record()
+                end.synchronize()
+                # each replay launches the captured kernels once more
+                add_launches({k: n * iters
+                              for k, n in entry.launches.items()})
+                times.append(start.elapsed_time(end) / 1e3 / iters)
+                continue
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = exe.run(program, feed, fetch_names, scratch,
+                              return_numpy=False, mode=mode)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            else:
+                _fetch_numpy(out)
+            times.append((time.perf_counter() - t0) / iters)
+        exe.close()
+        return float(statistics.median(times))
 
 
 def _run_host_op(op, scope: Scope) -> None:

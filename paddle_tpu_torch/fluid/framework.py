@@ -285,25 +285,16 @@ class Block:
             return
         for slot, vals in out_abs.items():
             for var, av in zip(out_vars.get(slot, []), vals):
-                lod = 0
-                if isinstance(av, NestedSeqArray):
-                    # drop both dummy sequence axes
-                    lod, av = 2, av.data
-                    shape = [av.shape[0]] + list(av.shape[3:])
-                elif isinstance(av, SeqArray):
-                    # drop the dummy time axis, as the desc records it
-                    lod, av = 1, av.data
-                    shape = [av.shape[0]] + list(av.shape[2:])
-                elif isinstance(av, torch.Tensor):
-                    shape = list(av.shape)
-                else:
+                red = reduce_abstract(av)
+                if red is None:
                     continue
+                shape, dtype, lod = red
                 var.desc.lod_level = (max(var.desc.lod_level, lod)
                                       if lod else 0)
                 if batch_dyn and shape and shape[0] == _DUMMY_BATCH:
                     shape[0] = -1
                 var.desc.shape = shape
-                var.desc.dtype = runtime_dtype(av.dtype)
+                var.desc.dtype = dtype
 
 
 def abstract_from_meta(shape, dtype: str, lod_level: int = 0,
@@ -326,6 +317,25 @@ def abstract_from_meta(shape, dtype: str, lod_level: int = 0,
         lengths = torch.empty([shape[0]], dtype=torch.int32, device="meta")
         return SeqArray(data, lengths)
     return torch.empty(shape, dtype=dt, device="meta")
+
+
+def reduce_abstract(av):
+    """Collapse an emitter's meta output to its recorded-desc form:
+    ``(shape, dtype_name, lod_level)`` — dropping the dummy time axes a
+    SeqArray/NestedSeqArray carries — or None for opaque values (a
+    RankTable, a tensor array).  The inverse of ``abstract_from_meta``,
+    shared by ``_infer_op`` and the analyzer's shape re-check."""
+    if isinstance(av, NestedSeqArray):
+        # drop both dummy sequence axes
+        d = av.data
+        return [d.shape[0]] + list(d.shape[3:]), runtime_dtype(d.dtype), 2
+    if isinstance(av, SeqArray):
+        # drop the dummy time axis, as the desc records it
+        d = av.data
+        return [d.shape[0]] + list(d.shape[2:]), runtime_dtype(d.dtype), 1
+    if isinstance(av, torch.Tensor):
+        return list(av.shape), runtime_dtype(av.dtype), 0
+    return None
 
 
 def _names_dict(d) -> Dict[str, List[str]]:
@@ -462,6 +472,24 @@ class Program:
     @random_seed.setter
     def random_seed(self, seed):
         self._seed = seed
+
+    def analyze(self, level: str = "full", fetch_list=None,
+                passes=None, options=None):
+        """Run the static analyzer (fluid/analysis) over this program —
+        dataflow verification, grad-graph lint, sharding/donation safety,
+        and (at ``level="full"``) abstract shape/dtype re-checking against
+        the recorded descs.  ``level="cost"`` instead runs the static
+        cost family (peak-HBM planner, roofline estimate, recompile-
+        hazard lint, comms estimator); ``options`` feeds those passes
+        (assume_batch, chip, budget_bytes, batch/time_buckets,
+        mesh_axes, dcn_axes) and their structured output lands in the
+        returned report's ``.reports``.  Returns a ``Diagnostics``
+        report; pass ``fetch_list`` (vars or names you intend to read)
+        so dead-code findings reflect real intent."""
+        from .analysis import analyze_program
+
+        return analyze_program(self, level=level, fetch=fetch_list,
+                               passes=passes, options=options)
 
     def list_vars(self):
         for b in self.blocks:

@@ -22,9 +22,10 @@ finite:
 ``quantize="int8"`` runs the post-training int8 rewrite
 (``fluid.transforms.quantize_program``) on a clone of the program and a
 private host copy of its persistables: a caller's card tensors may be a
-captured graph's buffers and are never quantized in place.  Not ported
-(they raise, naming their queue item): ``static_hbm_estimate`` (the cost
-model, ROADMAP A14) and ``preresolve(stop_on_compile=True)`` (it reads
+captured graph's buffers and are never quantized in place.
+``static_hbm_estimate`` is the cost model's plan of the served program,
+the number the scheduler admits the engine on.  Not ported (it raises,
+naming its queue item): ``preresolve(stop_on_compile=True)`` (it reads
 the persistent compile cache's misses, A10(b)).
 """
 
@@ -307,11 +308,15 @@ class InferenceEngine:
 
     # -- static cost surface --------------------------------------------------
     def static_hbm_estimate(self, batch: Optional[int] = None):
-        """The reference's static peak-HBM plan of the served program:
-        not ported (it needs the cost model, ROADMAP A14)."""
-        raise NotImplementedError(
-            "InferenceEngine.static_hbm_estimate needs analysis/cost.py, "
-            "not ported to paddle_tpu_torch (ROADMAP Queue A14)")
+        """Static peak-HBM plan of the served program at ``batch``
+        (default: the largest configured batch bucket — the worst
+        signature this engine will ever dispatch).  The scheduler
+        budgets with this number.  Priced with the step's state written
+        in place, as the port's executor runs it."""
+        from ..fluid.analysis.cost import plan_program
+
+        b = int(batch) if batch is not None else max(self.batch_buckets)
+        return plan_program(self.program, assume_batch=b)
 
     def bucket_set(self, max_time: Optional[int] = None):
         """Enumerate the closed set of step signatures this engine can

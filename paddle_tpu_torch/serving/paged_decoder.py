@@ -44,9 +44,12 @@ Pools may be float32, bfloat16 or int8 (with a float32 per-(row, slot)
 scale sidecar).
 
 Speculative and constrained decoding compose two of these generators
-(``serving/speculative.SpeculativeGenerator``).  Not ported yet, and
-refused with ``NotImplementedError`` when asked for: the sharded mesh,
-``build_manifest_program`` and the static HBM estimates.
+(``serving/speculative.SpeculativeGenerator``).  The static HBM
+estimate (``static_hbm_estimate``, ``estimate_generator_hbm`` from a
+manifest config) is the cost model's plan of the unified program's
+desc, the number the scheduler admits a lane group on.  Not ported yet,
+and refused with ``NotImplementedError`` when asked for: the sharded
+mesh (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -251,6 +254,79 @@ def build_unified_program(cfg: _Cfg, *, src_len: int, max_out_len: int,
             kv_scales=kv_scales, n_tokens=K, logit_mask=logit_mask)
         next_ids = layers.argmax(logits, axis=-1)
     return prog, startup, next_ids, logits
+
+
+# lanes assumed when pricing a generator's activations before any
+# scheduler attaches (matches the default_num_pages ~8-request sizing)
+HBM_ESTIMATE_LANES = 8
+
+
+def estimate_generator_hbm(config: Dict, assume_lanes: int = None,
+                           assume_donation: bool = True,
+                           verify_tokens: int = 1,
+                           logit_masks: bool = False,
+                           mesh_axes: Optional[Dict[str, int]] = None):
+    """Static peak-HBM plan for a paged generator described by a
+    gateway manifest config — built and planned as a DESC, before any
+    device allocation.  Params, the KV pool, and the int8 scale sidecar
+    are persistable vars with recorded shapes; activations price at
+    ``assume_lanes`` in-flight lanes.  ``assume_donation=False`` prices
+    a step without in-place state writes (pool/param write-backs get
+    fresh buffers); the port's executor always writes in place, so its
+    generators price the default.  ``verify_tokens``/``logit_masks``
+    price the speculative VERIFY shape of the program — K-token
+    activations and the [lanes, K, vocab] mask feed.  A non-empty
+    ``mesh_axes`` (or ``config["mesh_axes"]``) raises: the sharded plan
+    is not ported (ROADMAP A15).  Returns the
+    ``analysis.cost.ProgramMemoryPlan``."""
+    from ..fluid.analysis.cost import plan_program
+
+    prog, _ = build_manifest_program(
+        config, verify_tokens=verify_tokens, logit_masks=logit_masks,
+        mesh_axes=mesh_axes)
+    lanes = HBM_ESTIMATE_LANES if assume_lanes is None \
+        else int(assume_lanes)
+    return plan_program(prog, assume_batch=lanes,
+                        assume_donation=assume_donation)
+
+
+def build_manifest_program(config: Dict, verify_tokens: int = 1,
+                           logit_masks: bool = False,
+                           mesh_axes: Optional[Dict[str, int]] = None):
+    """Build the unified decode-step desc a gateway manifest describes —
+    the front half of ``estimate_generator_hbm``.  ``mesh_axes``
+    defaults to ``config["mesh_axes"]``; a non-empty one raises (ROADMAP
+    A15).  Returns ``(program, mesh_axes)``, as the reference's."""
+    cfg = _Cfg(int(config["src_vocab_size"]),
+               int(config["trg_vocab_size"]),
+               int(config.get("n_layer", 6)),
+               int(config.get("n_head", 8)),
+               int(config.get("d_key", 64)),
+               int(config.get("d_value", 64)),
+               int(config.get("d_model", 512)),
+               int(config.get("d_inner_hid", 2048)),
+               int(config.get("max_length", 256)))
+    src_len = int(config.get("src_len", 64))
+    max_out_len = int(config.get("max_out_len", 64))
+    page_size = int(config.get("page_size", 8))
+    num_pages = config.get("num_pages")
+    if num_pages is None:
+        num_pages = default_num_pages(src_len, max_out_len, page_size)
+    if mesh_axes is None:
+        mesh_axes = config.get("mesh_axes")
+    if mesh_axes:
+        raise NotImplementedError(
+            "build_manifest_program: mesh_axes (the sharded serving "
+            "mesh's per-shard plan) is not ported to paddle_tpu_torch "
+            "(ROADMAP A15)")
+    prog, _, _, _ = build_unified_program(
+        cfg, src_len=src_len, max_out_len=max_out_len,
+        page_size=page_size, num_pages=int(num_pages),
+        chunk_size=int(config.get("chunk_size", 8)),
+        param_prefix=str(config.get("param_prefix", "tf")),
+        kv_dtype=str(config.get("kv_dtype", "float32")),
+        verify_tokens=int(verify_tokens), logit_masks=bool(logit_masks))
+    return prog, mesh_axes
 
 
 class _Lane:
@@ -1342,6 +1418,25 @@ class PagedTransformerGenerator:
         self.lane_step()
 
     # -- accounting ----------------------------------------------------------
+    def static_hbm_estimate(self, assume_lanes: int = None):
+        """Static peak-HBM plan of the unified serving program (params
+        + KV pool + int8 sidecar + per-step activations at
+        ``assume_lanes``) — the number the scheduler admits a lane group
+        on.  Priced with the step's state written in place, as the
+        port's executor runs it (a captured step's pool is the scope's
+        tensor): the reference's plan for an executor without a
+        persistent compile cache."""
+        from ..fluid.analysis.cost import plan_program
+
+        lanes = HBM_ESTIMATE_LANES if assume_lanes is None \
+            else int(assume_lanes)
+        cached = getattr(self, "_static_hbm_cache", None)
+        if cached is not None and cached[0] == lanes:
+            return cached[1]
+        plan = plan_program(self._unified[0], assume_batch=lanes)
+        self._static_hbm_cache = (lanes, plan)
+        return plan
+
     def kv_bytes_per_slot_dense(self) -> int:
         """What ONE lane costs in the dense-cache decoder — the baseline
         the paged pool's bytes in use are compared against."""

@@ -45,7 +45,8 @@ ragged attention of a verify or draft step is the CUDA kernel's launch.
 The host logic is the reference's, line for line, so both packages make
 the same decisions on the same requests.  Beam search and speculation
 are mutually exclusive (``beam()`` raises).  The joint static HBM
-estimate is not ported (``estimate_speculative_hbm`` raises).
+estimate (``static_hbm_estimate``, ``estimate_speculative_hbm`` from two
+manifest configs) prices both programs with the cost model.
 """
 
 from __future__ import annotations
@@ -62,23 +63,47 @@ from ..fluid.analysis.recompile import enumerate_buckets
 from ..observability import tracing as _obs_tracing
 from ..utils.sync import RANK_CONSTRAINTS, OrderedLock
 from .constraints import Constraint, compile_constraint, masks_along
-from .paged_decoder import PagedTransformerGenerator, build_unified_program
+from .paged_decoder import (HBM_ESTIMATE_LANES, PagedTransformerGenerator,
+                            build_unified_program, estimate_generator_hbm)
 from .paging import TRASH_PAGE
 
 __all__ = ["SpeculativeGenerator", "estimate_speculative_hbm"]
 
 
+class _CombinedPlan:
+    """Joint static peak-HBM plan of a target+draft pair: the two pools,
+    parameter sets, and per-step activations are ALL resident at once,
+    so the budget is the sum.  Components carry a ``target.`` /
+    ``draft.`` prefix so an ``HBMBudgetError`` names which half wants
+    the bytes."""
+
+    def __init__(self, target_plan, draft_plan):
+        self.target_plan = target_plan
+        self.draft_plan = draft_plan
+        self.peak_bytes = int(target_plan.peak_bytes
+                              + draft_plan.peak_bytes)
+        comp: Dict[str, int] = {}
+        for tag, plan in (("target", target_plan), ("draft", draft_plan)):
+            for k, v in dict(plan.components).items():
+                comp[f"{tag}.{k}"] = int(v)
+        self.components = comp
+
+
 def estimate_speculative_hbm(target_config: Dict, draft_config: Dict,
                              k: int = 4, assume_lanes: int = None,
-                             assume_donation: bool = True):
-    """The reference's joint static peak-HBM plan of a speculative pair,
-    priced from two gateway manifests before any construction.  It rests
-    on the static HBM planner (``estimate_generator_hbm``,
-    ``fluid.analysis.cost``), which is not ported (ROADMAP A14)."""
-    raise NotImplementedError(
-        "estimate_speculative_hbm: the static HBM planner "
-        "(estimate_generator_hbm, ROADMAP A14) is not ported to "
-        "paddle_tpu_torch")
+                             assume_donation: bool = True) -> _CombinedPlan:
+    """Static peak-HBM plan of a speculative pair from two gateway
+    manifest configs, before any construction.  The target is priced at
+    its VERIFY shape (k+1-token activations + the mask feed), the draft
+    at its masked 1-token decode shape; both pools and parameter sets
+    count."""
+    t = estimate_generator_hbm(target_config, assume_lanes=assume_lanes,
+                               assume_donation=assume_donation,
+                               verify_tokens=int(k) + 1, logit_masks=True)
+    d = estimate_generator_hbm(draft_config, assume_lanes=assume_lanes,
+                               assume_donation=assume_donation,
+                               verify_tokens=1, logit_masks=True)
+    return _CombinedPlan(t, d)
 
 
 class _SpecState:
@@ -771,6 +796,26 @@ class SpeculativeGenerator:
         return out
 
     # -- accounting ----------------------------------------------------------
+    def static_hbm_estimate(self, assume_lanes: int = None):
+        """Joint static peak-HBM plan: the target priced at its VERIFY
+        program shape + the draft at its masked decode shape — both
+        pools, parameter sets and per-step activations are resident at
+        once, so the scheduler's budget is the sum.  Each half is priced
+        with its state written in place, as the port's executors run
+        it."""
+        from ..fluid.analysis.cost import plan_program
+
+        lanes = HBM_ESTIMATE_LANES if assume_lanes is None \
+            else int(assume_lanes)
+        cached = getattr(self, "_static_hbm_cache", None)
+        if cached is not None and cached[0] == lanes:
+            return cached[1]
+        plan = _CombinedPlan(
+            plan_program(self._verify[0], assume_batch=lanes),
+            plan_program(self._draft_prog[0], assume_batch=lanes))
+        self._static_hbm_cache = (lanes, plan)
+        return plan
+
     def kv_bytes_per_token(self) -> int:
         """Target-pool bytes per cached token (the draft pool's bytes
         are reported separately in ``cache_stats``)."""

@@ -283,9 +283,13 @@ def test_quantize_program_on_conv_net_is_the_references():
 
 def test_engine_surfaces_and_refusals(decoder_artifact):
     dirname, state = decoder_artifact
-    _, teng = _engines(dirname, "off")
-    with pytest.raises(NotImplementedError, match="A14"):
-        teng.static_hbm_estimate()
+    jeng, teng = _engines(dirname, "off")
+    # the static HBM estimate is ported: the reference's plan, byte for
+    # byte (tests/test_torch_cost.py holds the scheduler's admission)
+    for b in (None, 2):
+        want, got = jeng.static_hbm_estimate(b), teng.static_hbm_estimate(b)
+        assert (got.peak_bytes, got.components) == \
+            (want.peak_bytes, want.components)
     with pytest.raises(NotImplementedError, match=r"A10\(b\)"):
         teng.preresolve(max_time=8, stop_on_compile=True)
     with pytest.raises(ValueError, match="'off' or 'int8'"):

@@ -309,11 +309,15 @@ def test_unported_features_raise():
             TT.multi_head_attention(q, q, q, None, 4, 4, 8, n_head=2,
                                     causal=True)
     exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="cost_analysis"):
-        exe.cost_analysis()
+    # cost_analysis is ported (tests/test_torch_cost.py): a program of
+    # no ops costs nothing
+    assert exe.cost_analysis(tfluid.Program()) == {"flops": 0.0,
+                                                  "bytes accessed": 0.0}
     # run_steps and run_pipeline are ported (tests/test_torch_executor.py);
     # the pipeline's guardrails are not
     with pytest.raises(NotImplementedError, match="guard"):
         exe.run_pipeline(main, loader=[], guard="raise")
-    with pytest.raises(NotImplementedError, match="validate"):
+    # validate is ported (tests/test_torch_analysis.py); a level it does
+    # not know is refused, as the reference refuses it
+    with pytest.raises(ValueError, match="validate"):
         exe.run(main, validate=True)

@@ -121,12 +121,25 @@ PERSISTENCE = {"paddle_tpu_torch.fluid.io",
                "paddle_tpu_torch.utils.reader"}
 
 
+# the modules of the static analyzer and cost model slice
+ANALYSIS = {"paddle_tpu_torch.fluid.analysis",
+            "paddle_tpu_torch.fluid.analysis.diagnostics",
+            "paddle_tpu_torch.fluid.analysis.dataflow",
+            "paddle_tpu_torch.fluid.analysis.passes",
+            "paddle_tpu_torch.fluid.analysis.recompile",
+            "paddle_tpu_torch.fluid.analysis.cost",
+            "paddle_tpu_torch.fluid.analysis.comms",
+            "paddle_tpu_torch.tools",
+            "paddle_tpu_torch.tools.plint"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
-    want = SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS | PERSISTENCE
+    want = (SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS | PERSISTENCE
+            | ANALYSIS)
     assert want <= names, want - names
 
 

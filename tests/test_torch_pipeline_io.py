@@ -16,7 +16,8 @@
 * The profiler: ``executor_step/<mode>`` events with the reference's
   names and call counts, the printed table, ``record_event`` spans in
   the tracer, ``cuda_profiler`` writing a Chrome trace, and
-  ``op_cost_table`` refused (A14).
+  ``op_cost_table``'s products (the rest is in
+  tests/test_torch_cost.py).
 """
 
 import json
@@ -279,5 +280,9 @@ def test_cuda_profiler_writes_a_trace_and_op_cost_table_is_refused(
     events = json.load(open(tmp_path / traces[0]))["traceEvents"]
     # the lowering names each op's range after its type under a profiler
     assert any(e.get("name") == "mul" for e in events)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tprof.op_cost_table(main)
+    # op_cost_table is ported: the two fc products, 2 * M * N * K flops
+    # at the feed's batch of 5, as the reference's table counts them
+    rows = tprof.op_cost_table(main, feed=_feed(0), scope=scope,
+                               print_table=False)
+    fwd = sorted(r["flops"] for r in rows if r["op"].endswith(" mul"))
+    assert fwd == [2.0 * 5 * 16 * 4, 2.0 * 5 * 8 * 16]

@@ -139,8 +139,11 @@ def test_programs_serialize_like_the_reference(both):
         assert g[0].desc.serialize_to_string() == \
             w[0].desc.serialize_to_string()
     assert tspec.bucket_set(4) == jspec.bucket_set(4)
-    with pytest.raises(NotImplementedError, match="A14"):
-        speculative.estimate_speculative_hbm({}, {})
+    # the joint static HBM estimate is ported: the reference's, byte for
+    # byte
+    want, got = jspec.static_hbm_estimate(4), tspec.static_hbm_estimate(4)
+    assert (got.peak_bytes, got.components) == \
+        (want.peak_bytes, want.components)
 
 
 @pytest.mark.parametrize("draft", ["same", "other"])

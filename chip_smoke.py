@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py [--parent-ragged DIR] [--parent-flash DIR]
-                          [--parent-package DIR]
+                          [--parent-package DIR] [--phases N,N,...]
 
 Runs from the root of a checkout and needs one CUDA card; it imports
 ``paddle_tpu_torch`` and never JAX or ``paddle_tpu``.  Phases:
@@ -374,14 +374,44 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    against its decode peak, recorded; ``analyze_program(level="full")``
    over every program the script built, no error finding; 3 float32
    training steps with ``validate="full"`` bit for bit those without,
-   the pre-flight analyzing once.
+   the pre-flight analyzing once;
+29. the serving gateway and the compile cache (``gateway_phase``) on
+   phase 5's Transformer-base generator (float32 pool, 8 slots, the
+   seeded weights) and phase 27's beam decoder (seeded weights): two
+   versions saved as generator artifacts; ``aot_compile.precompile`` of
+   v1 twice (1 compile, then 0 with the same keys); two fresh
+   processes side by side, each on a copy of the package with no built
+   kernels, restart to first token cold on v2 and warm on v1 (warm: 0
+   nvcc builds, 0 persistent misses); a ``Gateway`` with ``GatewayServer`` and
+   ``ObservabilityServer`` on 127.0.0.1:0, a latency and a batch tenant,
+   the 8 prompts over HTTP (4 blocking, 4 streamed) against a direct
+   scheduler's tokens (equal, or a flip within twice the teacher-forced
+   logit error, printed), 18 ragged launches a served step, HTTP TTFT
+   and tokens/s beside the direct run's; a hot swap to v2 with 8
+   requests in flight (none lost, no executable miss after its warm,
+   swap-to-first-token); a stream cancelled mid-prefill (its pages free
+   at the next step, invariants hold); a journaled gateway stopped after
+   2 of 8 requests and a new one replaying exactly the 6 others; the
+   registry budgeted one byte under the estimate (refused, nothing
+   allocated) and at it (admitted), the mounted estimate over the
+   unmounted by at least the pool; the decoder pre-warmed into its
+   ``compiled/`` and loaded through the registry (its records loaded,
+   ``infer`` bit for bit a direct decode, one ``lstm_fwd`` a decode);
+   ``/metrics``, ``/statusz`` and ``/healthz``.
+
+``--phases`` runs only the listed phases of this list and the phases
+they need (``PHASE_NEEDS``; phases 1 and 2 always run; 7-8, 12-15 and
+22-24 run together); the ``kernels`` line is printed when phases 11 and
+12 ran, and phase 29 alone takes phase 5's seeded weights and the
+float32 logit limit for its near-tie rule.
 
 It prints the card's name and power limit, a ``serving`` line, a
 ``beam`` line, a ``training`` line, a ``training_bf16`` line, a ``book``
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
 line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
 line, a ``ranking`` line, a ``speculative`` line, a ``tiers`` line, a
-``persistence`` line, a ``cost`` line, a ``kernels`` line (the flash
+``persistence`` line, a ``cost`` line, a ``gateway`` line, a ``kernels``
+line (the flash
 kernels once
 in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
 true, ...}`` line;
@@ -8674,6 +8704,611 @@ def cost_phase(torch, np, fluid, card, weights, srcs, programs,
     return rec, ragged, flash, failures
 
 
+# -- phase 29: the serving gateway and the compile cache ----------------------
+
+# tenants of the HTTP run: one latency class, one batch class
+GW_TENANTS = (("interactive", "latency"), ("bulk", "batch"))
+# the engine artifact's buckets: a full NMT batch at every time bucket up
+# to NMT_MAX_LEN (a ragged feed's set closes only with a time cap)
+GW_ENGINE_BUCKETS = (NMT_BATCH,)
+# a fresh serving process: a copy of the package with no built kernels
+# loads a model version through a Gateway and serves one request
+GW_CHILD = r"""
+import json, sys, time
+t_spawn, root, version = float(sys.argv[1]), sys.argv[2], sys.argv[3]
+prompt = json.loads(sys.argv[4])
+import torch
+import paddle_tpu_torch
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.serving.gateway import Gateway, ModelRegistry
+t_import = time.time()
+gw = Gateway(registry=ModelRegistry(root=root), n_slots=int(sys.argv[5]),
+             max_new_tokens=int(sys.argv[6]))
+gw.load_model("tb", version)
+t_loaded = time.time()
+first = []
+gw.serve()
+req = gw.submit("tb", prompt, max_new=int(sys.argv[6]),
+                on_token=lambda r, t: first.append(time.time())
+                if t is not None and not first else None)
+done = req.wait(600)
+gw.shutdown(timeout=60)
+inst = gw.registry.instance("tb")
+print(json.dumps({
+    "package": paddle_tpu_torch.__file__,
+    "restart_to_first_token_ms": (first[0] - t_spawn) * 1e3
+    if first else None,
+    "import_ms": (t_import - t_spawn) * 1e3,
+    "load_ms": (t_loaded - t_import) * 1e3, "done": done,
+    "error": None if req.error is None else repr(req.error),
+    "tokens": list(req.tokens), "nvcc": dict(_build.stats),
+    "persistent": inst.exe.cache_stats()["persistent"]}, default=str))
+"""
+
+
+def gw_package_copy(workdir, name):
+    """A copy of the package with no ``kernels/build/`` (nor caches):
+    what a fresh machine's checkout holds -> the directory to put on
+    PYTHONPATH.  One copy a process: a build one process makes must not
+    serve the next."""
+    import shutil
+
+    dst = os.path.join(workdir, f"pkg_{name}")
+    shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"),
+                    os.path.join(dst, "paddle_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return dst
+
+
+def gw_fresh_process(pkg, root, version, prompt):
+    """GW_CHILD started in a process of its own on ``pkg``'s package (the
+    restart-to-first-token clock starts at the spawn) -> a function that
+    waits for it and returns its record."""
+    env = dict(os.environ, PYTHONPATH=pkg)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", GW_CHILD, repr(t0), root, version,
+         json.dumps([int(t) for t in prompt]), str(N_SLOTS), str(MAX_NEW)],
+        cwd=pkg, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def result():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        for line in reversed(out.splitlines()):
+            if line.startswith("{"):
+                rec = json.loads(line)
+                rec["wall_ms"] = (time.time() - t0) * 1e3
+                return rec
+        return {"error": f"exit {proc.returncode}", "stderr": err[-3000:]}
+    return result
+
+
+def gw_direct(torch, np, gen, srcs):
+    """The direct path the gateway is held against: ``srcs`` through a
+    ContinuousBatchingScheduler's thread over ``gen`` at N_SLOTS (queued
+    before the thread starts) -> (tokens per request, TTFT p50 s,
+    tokens/s)."""
+    from paddle_tpu_torch.serving import ContinuousBatchingScheduler
+
+    gen.aot_warm(N_SLOTS)
+    sched = ContinuousBatchingScheduler(gen, n_slots=N_SLOTS,
+                                        max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(s, max_new_tokens=MAX_NEW) for s in srcs]
+    sched.serve()
+    ok = all(r.wait(timeout=600) for r in reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched.shutdown(timeout=30)
+    ttft = [r.first_token - r.submitted for r in reqs
+            if r.first_token is not None]
+    return ([list(r.tokens) for r in reqs], {
+        "ok": ok and all(r.error is None for r in reqs),
+        "ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else None,
+        "tok_per_s": sum(len(r.tokens) for r in reqs) / wall,
+        "wall_s": wall})
+
+
+# the HTTP clients: a process of their own (the standard library only),
+# so their threads do not share the serving process's interpreter lock;
+# every request sent at once, each -> [tokens, seconds to the first
+# token (a stream's first line; a blocking call's whole response)]
+GW_CLIENTS = r"""
+import json, sys, time, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+addr, bodies = sys.argv[1], json.loads(sys.argv[2])
+
+def call(body):
+    req = urllib.request.Request(
+        f"http://{addr}/v1/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not body.get("stream"):
+            return json.loads(resp.read())["tokens"], \
+                time.perf_counter() - t0
+        toks, first = [], None
+        for line in resp:
+            msg = json.loads(line)
+            if "token" in msg:
+                first = first or time.perf_counter() - t0
+                toks.append(msg["token"])
+            elif msg.get("error"):
+                raise RuntimeError(msg["error"])
+        return toks, first
+
+# a warm client: its HTTP stack's first-use set-up (the opener, the
+# proxy lookup) stays out of the timed requests
+urllib.request.urlopen(f"http://{addr}/healthz", timeout=60).read()
+t0 = time.perf_counter()
+with ThreadPoolExecutor(len(bodies)) as pool:
+    out = list(pool.map(call, bodies))
+print(json.dumps({"results": out, "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def gw_get(addr, route, timeout=60):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}{route}",
+                                timeout=timeout) as r:
+        return r.read()
+
+
+def gw_http_part(torch, np, fa, gw, addr, srcs, want, margins, tol, rec,
+                 fails):
+    """(c): the 8 prompts over HTTP at once from another process, 4
+    blocking and 4 streamed, alternating tenants; tokens against the
+    direct run under the near-tie rule; 18 ragged launches a served
+    step."""
+    n_calls, _ = ragged_calls_per_step(fa, fa._sm_count(0))
+    steps0 = gw.sched.stats()["steps"]
+    fa.ragged_decode_attention.launches = 0
+    bodies = [{"model": "tb", "prompt": [int(t) for t in s],
+               "max_new": MAX_NEW, "stream": i % 2 == 1,
+               "tenant": GW_TENANTS[i % 2][0]} for i, s in enumerate(srcs)]
+    run = subprocess.run([sys.executable, "-c", GW_CLIENTS, addr,
+                          json.dumps(bodies)], capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        fails.append(f"gateway http clients: exit {run.returncode}: "
+                     f"{run.stderr[-2000:]}")
+        return fa.ragged_decode_attention.launches
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    results, wall = out["results"], out["wall_s"]
+    steps = gw.sched.stats()["steps"] - steps0
+    launches = fa.ragged_decode_attention.launches
+    got = [toks for toks, _ in results]
+    served = [r for r in gw.sched.finished_requests()][-len(srcs):]
+    ttft_srv = [r.first_token - r.submitted for r in served
+                if r.first_token is not None]
+    http = {"requests": len(bodies),
+            "stream_ttft_p50_s": float(np.percentile(
+                [t for (_, t), b in zip(results, bodies) if b["stream"]],
+                50)),
+            "server_ttft_p50_s": float(np.percentile(ttft_srv, 50)),
+            "tok_per_s": sum(map(len, got)) / wall, "wall_s": wall,
+            "steps": steps, "ragged_launches": launches,
+            "launches_per_step": launches / max(1, steps),
+            "vs_direct": stream_compare(got, want, margins, tol)}
+    rec["http"] = http
+    for r, j, m in http["vs_direct"]["near_ties"]:
+        log(f"gateway http: request {r} flips at token {j}, plain top-2 "
+            f"margin {m} within {tol}")
+    if http["vs_direct"]["differ"]:
+        fails.append(f"gateway http: tokens differ from the direct "
+                     f"scheduler's: {http['vs_direct']}")
+    if steps == 0 or launches != n_calls * steps:
+        fails.append(f"gateway http: {launches} ragged launches in {steps} "
+                     f"served steps, want {n_calls} a step")
+    return launches
+
+
+def gw_swap_part(torch, np, gw, srcs, want, margins, tol, rec, fails):
+    """(d): swap to v2 with 8 requests in flight; none lost, no
+    executable miss on v2 after its warm; swap-to-first-token."""
+    reqs = [gw.submit("tb", s, max_new=MAX_NEW) for s in srcs]
+    t0 = time.perf_counter()
+    gw.swap_model("tb", "2")
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    v2 = gw.registry.instance("tb@2")
+    miss0 = v2.exe.cache_stats()["executable"]["misses"]
+    first = []
+    probe = gw.submit("tb", srcs[0], max_new=MAX_NEW,
+                      on_token=lambda r, t: first.append(time.perf_counter())
+                      if t is not None and not first else None)
+    done = all(r.wait(600) for r in reqs + [probe])
+    lost = [i for i, r in enumerate(reqs + [probe])
+            if not r.done or r.error is not None]
+    got = [list(r.tokens) for r in reqs + [probe]]
+    swap = {"swap_ms": swap_ms,
+            "swap_to_first_token_ms": (first[0] - t0) * 1e3
+            if first else None,
+            "lost": lost, "groups": sorted({r.group for r in reqs}),
+            "probe_group": probe.group,
+            "v2_misses_after_warm": v2.exe.cache_stats()["executable"]
+            ["misses"] - miss0,
+            "v2_persistent": v2.exe.cache_stats()["persistent"],
+            "vs_direct": stream_compare(got, want + [want[0]],
+                                        margins + [margins[0]], tol),
+            "models": [e["key"] for e in gw.registry.entries()]}
+    rec["swap"] = swap
+    if not done or lost or swap["v2_misses_after_warm"] != 0 \
+            or swap["probe_group"] != "tb@2" or swap["models"] != ["tb@2"] \
+            or swap["vs_direct"]["differ"]:
+        fails.append(f"gateway hot swap: {swap}")
+
+
+def gw_cancel_part(torch, np, fluid, root, srcs, rec, fails):
+    """(e): a stream cancelled mid-prefill frees its pages at the next
+    step boundary; the allocator's invariants hold."""
+    from paddle_tpu_torch.serving import RequestCancelled
+    from paddle_tpu_torch.serving.gateway import Gateway, ModelRegistry
+
+    gw = Gateway(registry=ModelRegistry(root=root), n_slots=N_SLOTS,
+                 max_new_tokens=MAX_NEW)
+    gw.load_model("tb", "1")
+    gen = gw.registry.instance("tb")
+    long = max(srcs, key=len)
+    stream = gw.submit_stream("tb", long, max_new=MAX_NEW, timeout=60)
+    gw.sched.step_once()
+    gw.sched.step_once()
+    phase = [ln.phase for ln in gen._lanes if ln.phase != "idle"]
+    held = gen.alloc.in_use()
+    stream.close()
+    gw.sched.step_once()
+    gen.alloc.check_invariants()
+    cancel = {"lane_phase_at_cancel": phase, "pages_before": held,
+              "pages_after": gen.alloc.in_use(),
+              "cancelled": isinstance(stream.request.error,
+                                      RequestCancelled)}
+    rec["cancel"] = cancel
+    if phase != ["prefill"] or held == 0 or cancel["pages_after"] != 0 \
+            or not cancel["cancelled"]:
+        fails.append(f"gateway cancel mid-prefill: {cancel}")
+    gw.shutdown(timeout=60)
+
+
+def gw_journal_part(torch, np, root, workdir, srcs, want, margins, tol, rec,
+                    fails):
+    """(f): a journaled gateway shut down without draining after 2 of 8
+    requests finish; a new one on the same journal replays exactly the
+    6 unfinished, once each, tokens as the direct run's."""
+    from paddle_tpu_torch.serving.gateway import Gateway, ModelRegistry
+
+    path = os.path.join(workdir, "gw.journal")
+    gw1 = Gateway(registry=ModelRegistry(root=root), n_slots=N_SLOTS,
+                  max_new_tokens=MAX_NEW, journal_path=path)
+    gw1.load_model("tb", "1")
+    first = [gw1.submit("tb", s, max_new=MAX_NEW) for s in srcs[:2]]
+    gw1.run_until_idle()
+    for s in srcs[2:]:
+        gw1.submit("tb", s, max_new=MAX_NEW)
+    gw1.shutdown(drain=False, timeout=60)
+    pending = len(gw1.journal.pending())
+    del gw1
+    torch.cuda.empty_cache()
+    gw2 = Gateway(registry=ModelRegistry(root=root), n_slots=N_SLOTS,
+                  max_new_tokens=MAX_NEW, journal_path=path)
+    gw2.load_model("tb", "1")
+    recovered = gw2.recover()
+    gw2.run_until_idle()
+    replayed = [[int(t) for t in r.src] for r in recovered]
+    jrec = {"finished_before": sum(r.error is None for r in first),
+            "pending_after_shutdown": pending, "replayed": len(recovered),
+            "replayed_once_each": replayed == [[int(t) for t in s]
+                                               for s in srcs[2:]],
+            "errors": [repr(r.error) for r in recovered
+                       if r.error is not None],
+            "pending_after_recover": len(gw2.journal.pending()),
+            "vs_direct": stream_compare([list(r.tokens) for r in recovered],
+                                        want[2:], margins[2:], tol)}
+    rec["journal"] = jrec
+    if jrec["finished_before"] != 2 or pending != 6 or \
+            not jrec["replayed_once_each"] or jrec["errors"] or \
+            jrec["pending_after_recover"] or jrec["vs_direct"]["differ"]:
+        fails.append(f"gateway journal recovery: {jrec}")
+    gw2.shutdown(timeout=60)
+
+
+def gw_budget_part(torch, gen, root, rec, fails):
+    """(g): a registry one byte under the (mounted) estimate refuses the
+    load with nothing allocated; at it, the load is admitted; the
+    mounted estimate exceeds the unmounted one by the pool's bytes."""
+    from paddle_tpu_torch.serving.gateway import (HBMBudgetError,
+                                                  ModelRegistry)
+
+    d = os.path.join(root, "tb", "1")
+    with open(os.path.join(d, "gateway.json")) as f:
+        cfg = json.load(f)["config"]
+    mounted, comp = ModelRegistry._estimate_cost_detail("generator", d, cfg)
+    bare, _ = ModelRegistry._estimate_cost_detail("generator", None, cfg)
+    pool = gen.page_bytes * gen.num_pages
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    refused = False
+    try:
+        ModelRegistry(root=root, hbm_budget_bytes=mounted - 1).load("tb",
+                                                                    "1")
+    except HBMBudgetError:
+        refused = True
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    reg = ModelRegistry(root=root, hbm_budget_bytes=mounted)
+    t0 = time.perf_counter()
+    admitted = reg.load("tb", "1") == "tb@1"
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    budget = {"estimate_mounted_bytes": mounted,
+              "estimate_unmounted_bytes": bare, "pool_bytes": pool,
+              "components": comp, "refused_one_byte_under": refused,
+              "bytes_allocated_by_refusal": allocated,
+              "admitted_at_estimate": admitted, "registry_load_ms": load_ms}
+    rec["budget"] = budget
+    if not (refused and allocated == 0 and admitted
+            and mounted - bare >= pool):
+        fails.append(f"gateway budget: {budget}")
+    del reg
+    torch.cuda.empty_cache()
+
+
+def gw_engine_part(torch, np, fluid, workdir, rec, fails):
+    """(h): phase 27's beam decoder (seeded weights) saved as an engine
+    artifact, its closed bucket set pre-warmed into ``compiled/`` by
+    ``aot_compile``, loaded through the registry; ``_warm`` runs
+    ``preresolve(stop_on_compile=True)`` (a ragged feed's set is open
+    without a time cap, as in the reference: nothing resolved there),
+    the set is then resolved over the shipped records; ``infer`` equals
+    a direct decode bit for bit with one ``lstm_fwd`` launch a decode."""
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.serving.gateway import Gateway, ModelRegistry
+    from paddle_tpu_torch.tools.aot_compile import precompile
+
+    _, startup, _, (dec, ids, scores) = build_nmt(
+        fluid, "attention_train_model", NMT_DICT, NMT_WORD, NMT_HIDDEN,
+        NMT_LR, NMT_BEAM, NMT_MAX_LEN)
+    scope = fluid.scope_from_numpy(initial_scope(fluid, startup),
+                                   fluid.CUDAPlace(0))
+    model_dir = os.path.join(workdir, "engines", "nmt", "1")
+    os.makedirs(os.path.dirname(model_dir))
+    fluid.io.save_inference_model(model_dir, ["src"], [ids, scores],
+                                  fluid.Executor(fluid.CUDAPlace(0)),
+                                  main_program=dec, scope=scope)
+    kw = dict(batch_buckets=GW_ENGINE_BUCKETS, time_bucket=NMT_BUCKET)
+    t0 = time.perf_counter()
+    pre = precompile(model_dir, max_time=NMT_MAX_LEN, **kw)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    gw = Gateway(registry=ModelRegistry(root=os.path.dirname(
+        os.path.dirname(model_dir))))
+    gw.load_model("nmt", "1", **kw)
+    eng = gw.registry.instance("nmt")
+    at_warm = dict(eng.exe.cache_stats()["persistent"])
+    n = eng.preresolve(max_time=NMT_MAX_LEN, stop_on_compile=True)
+    shipped = eng.exe.cache_stats()["persistent"]
+    src = nmt_batch(np, fluid, np.random.RandomState(SEED + 29), NMT_BATCH,
+                    NMT_DICT)["src"]
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got = eng.infer({"src": src})
+    launches = named_launches(launch_counts())
+    want = fluid.Executor(fluid.CUDAPlace(0)).run(
+        dec, feed={"src": src}, fetch_list=[ids, scores], scope=scope,
+        mode="infer")
+    lstm = launches.pop(LSTM_COUNTER, 0)
+    engine = {"precompile": {k: pre[k] for k in ("signatures", "compiles",
+                                                 "stores")},
+              "precompile_ms": pre_ms,
+              "persistent_at_warm": at_warm, "resolved": n,
+              "persistent": shipped,
+              "bitwise_direct": not _bitwise(np, _decode_parts(got),
+                                             _decode_parts(want)),
+              "lstm_launches_per_decode": lstm,
+              "other_kernel_launches": sum(launches.values())}
+    rec["engine"] = engine
+    if pre["compiles"] != pre["signatures"] or n != pre["signatures"] or \
+            shipped["misses"] != 0 or shipped["hits"] != n or \
+            not engine["bitwise_direct"] or lstm != 1 or \
+            engine["other_kernel_launches"]:
+        fails.append(f"gateway engine: {engine}")
+    return lstm
+
+
+def gw_observability_part(obs_addr, rec, fails):
+    """(i): /metrics carries the gateway's and the persistent cache's
+    series, /statusz lists the attached sources, /healthz is ok."""
+    text = gw_get(obs_addr, "/metrics").decode()
+    want = ("paddle_gateway_requests_total", "paddle_gateway_tokens_total",
+            "paddle_gateway_request_latency_seconds",
+            "paddle_gateway_model_hbm_bytes", "paddle_aot_cache_events_total",
+            'paddle_executor_cache_events_total{cache="persistent"')
+    status = json.loads(gw_get(obs_addr, "/statusz"))
+    health = json.loads(gw_get(obs_addr, "/healthz"))
+    obs = {"series_missing": [s for s in want if s not in text],
+           "statusz_sources": status.get("sources"),
+           "healthz_ok": health.get("ok")}
+    rec["observability"] = obs
+    if obs["series_missing"] or obs["statusz_sources"] != [
+            "gateway", "gateway_executor", "gateway_registry",
+            "gateway_router"] or obs["healthz_ok"] is not True:
+        fails.append(f"gateway observability: {obs}")
+
+
+def gateway_phase(torch, np, fluid, fa, card, weights, srcs, logit_err):
+    """Phase 29: the serving gateway and the compile cache on phase 5's
+    Transformer-base generator (float32 pool, 8 slots; ``weights``,
+    seeded) and phase 27's beam decoder.  -> (the ``gateway`` record,
+    ragged launches, lstm_fwd launches, failures)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.observability.server import ObservabilityServer
+    from paddle_tpu_torch.serving.gateway import (Gateway, GatewayServer,
+                                                  ModelRegistry,
+                                                  TenantConfig,
+                                                  TenantRouter)
+    from paddle_tpu_torch.tools.aot_compile import precompile
+
+    t_phase = time.perf_counter()
+    fails = []
+    rec = {"card": card}
+    tol = 2 * logit_err
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
+    root = os.path.join(workdir, "store")
+    gen = make_generator("cuda", "float32")
+    gen.load_params(weights)
+    ragged = 0
+    try:
+        # (a) two versions of one set of weights; v1 pre-warmed twice,
+        # while (b)'s cold process starts on v2 beside it (the phase
+        # stays under 90 s only with the two restarts overlapped)
+        t0 = time.perf_counter()
+        for v in ("1", "2"):
+            ModelRegistry.save_generator_artifact(gen, root, "tb", v)
+        rec["save_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+        pkgs = {name: gw_package_copy(workdir, name)
+                for name in ("cold", "warm")}
+        cold_run = gw_fresh_process(pkgs["cold"], root, "2", srcs[0])
+        v1 = os.path.join(root, "tb", "1")
+        reports = [precompile(v1, n_slots=N_SLOTS) for _ in range(2)]
+        rec["precompile"] = [{k: r[k] for k in ("signatures", "compiles",
+                                                "loads", "stores", "bytes")}
+                             for r in reports]
+        if reports[0]["compiles"] != 1 or reports[1]["compiles"] != 0 \
+                or reports[1]["keys"] != reports[0]["keys"] \
+                or not reports[0]["keys"]:
+            fails.append(f"gateway precompile: {rec['precompile']}, keys "
+                         f"{reports[0]['keys']} then {reports[1]['keys']}")
+        torch.cuda.empty_cache()
+
+        # (b) fresh processes on a package with no built kernels: cold on
+        # v2 (no compiled/, started above), warm on v1 beside it
+        warm_run = gw_fresh_process(pkgs["warm"], root, "1", srcs[0])
+        want, margins = plain_with_margins(torch, np, gen, srcs)
+        runs = {"cold": cold_run(), "warm": warm_run()}
+        rec["restart"] = runs
+        for name, r in runs.items():
+            log(f"gateway fresh process {name}: {json.dumps(r)}")
+            if r.get("error") or not r.get("done") or \
+                    not r["package"].startswith(pkgs[name]):
+                fails.append(f"gateway fresh process {name}: {r}")
+        warm, cold = runs["warm"], runs["cold"]
+        if "nvcc" in warm and (warm["nvcc"]["nvcc_builds"] != 0 or
+                               warm["nvcc"]["cache_restores"] < 1 or
+                               warm["persistent"]["misses"] != 0 or
+                               warm["persistent"]["hits"] < 1):
+            fails.append(f"gateway warm restart: {warm}")
+        if "nvcc" in cold and (cold["nvcc"]["nvcc_builds"] < 1 or
+                               cold["persistent"]["misses"] < 1):
+            fails.append(f"gateway cold restart: {cold}")
+        if "tokens" in warm and "tokens" in cold:
+            flips = stream_compare([warm["tokens"], cold["tokens"]],
+                                   [want[0]] * 2, [margins[0]] * 2, tol)
+            rec["restart_vs_direct"] = flips
+            if flips["differ"]:
+                fails.append(f"gateway fresh processes' tokens: {flips}")
+
+        # the direct scheduler (c) is held against, nothing beside it
+        direct_toks, direct = gw_direct(torch, np, gen, srcs)
+        direct["vs_plain"] = stream_compare(direct_toks, want, margins, tol)
+        rec["direct"] = direct
+        if not direct["ok"] or direct["vs_plain"]["differ"]:
+            fails.append(f"gateway direct scheduler: {direct}")
+        torch.cuda.empty_cache()
+
+        # (c) HTTP, (d) hot swap, (i) observability
+        router = TenantRouter(tenants=[TenantConfig(n, slo=s)
+                                       for n, s in GW_TENANTS])
+        registry = ModelRegistry(root=root)
+        gw = Gateway(registry=registry, router=router, n_slots=N_SLOTS,
+                     max_new_tokens=MAX_NEW)
+        t0 = time.perf_counter()
+        gw.load_model("tb", "1")
+        torch.cuda.synchronize()
+        rec["load_and_warm_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["load_persistent"] = registry.instance("tb").exe.cache_stats()[
+            "persistent"]
+        srv = GatewayServer(gw)
+        addr = srv.start()
+        obs = ObservabilityServer()
+        obs.attach("gateway", gw).attach("gateway_registry", registry)
+        obs.attach("gateway_router", router)
+        obs.attach("gateway_executor", registry.instance("tb").exe)
+        obs_addr = obs.start()
+        try:
+            ragged += gw_http_part(torch, np, fa, gw, addr, srcs, want,
+                                   margins, tol, rec, fails)
+            fa.ragged_decode_attention.launches = 0
+            gw_swap_part(torch, np, gw, srcs, want, margins, tol, rec, fails)
+            ragged += fa.ragged_decode_attention.launches
+            gw_observability_part(obs_addr, rec, fails)
+        finally:
+            obs.stop()
+            srv.stop(drain=True)
+        del gw, registry
+        torch.cuda.empty_cache()
+
+        # (e) cancel mid-prefill, (f) journal, (g) budget
+        fa.ragged_decode_attention.launches = 0
+        gw_cancel_part(torch, np, fluid, root, srcs, rec, fails)
+        torch.cuda.empty_cache()
+        gw_journal_part(torch, np, root, workdir, srcs, want, margins, tol,
+                        rec, fails)
+        ragged += fa.ragged_decode_attention.launches
+        torch.cuda.empty_cache()
+        gw_budget_part(torch, gen, root, rec, fails)
+        # (h) the engine artifact
+        lstm = gw_engine_part(torch, np, fluid, workdir, rec, fails)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del gen
+    torch.cuda.empty_cache()
+    rec["nvcc"] = dict(_build.stats)
+    rec["ragged_launches"] = ragged
+    rec["lstm_launches"] = lstm
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, ragged, lstm, fails
+
+
+# phases another phase needs: their records, scopes or programs
+PHASE_NEEDS = {6: {5}, 8: {7}, 9: {7}, 11: {3, 4, 7, 9}, 13: {12}, 14: {12},
+               15: {12}, 18: {12}, 19: {12}, 25: {5}, 26: {5},
+               27: {12}, 28: {5, 7, 9, 27}}
+# phases that run as one block
+PHASE_GROUPS = ({7, 8}, {12, 13, 14, 15}, {22, 23, 24})
+N_PHASES = 29
+
+
+def select_phases(spec):
+    """``--phases`` ("3,29"; None: every phase) -> the set of phases to
+    run: those listed, the phases they need (PHASE_NEEDS, closed), their
+    blocks (PHASE_GROUPS), and phases 1 and 2 (the card line, the
+    build)."""
+    every = set(range(1, N_PHASES + 1))
+    if spec is None:
+        return every
+    want = {int(x) for x in str(spec).split(",") if x.strip()}
+    if not want <= every:
+        raise SystemExit(f"chip_smoke: no phase {sorted(want - every)} "
+                         f"(1-{N_PHASES})")
+    want |= {1, 2}
+    while True:
+        more = set(want)
+        for n in want:
+            more |= PHASE_NEEDS.get(n, set())
+        for group in PHASE_GROUPS:
+            if group & more:
+                more |= group
+        if more == want:
+            return want
+        want = more
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8695,12 +9330,20 @@ def main() -> int:
                     "and their headers: build them there and time their "
                     "bf16 forward, dq and dk/dv in turns with the "
                     "kernels' (parent_ms, parent_ms_dropout0, ...)")
+    ap.add_argument("--phases", metavar="N,N,...", default=None,
+                    help="run only these phases of the list in the "
+                    "module docstring, and the phases they need (1 and 2 "
+                    "always run); default: every phase")
     args = ap.parse_args()
     started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
         return 2
+    selected = select_phases(args.phases)
+
+    def on(*ns):
+        return any(n in selected for n in ns)
     sys.path.insert(0, ROOT)
     import numpy as np
 
@@ -8736,71 +9379,73 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator()
     gen.manual_seed(SEED)
-    cases = kernel_cases(torch, gen)
-    for case in cases.values():
-        case["lengths"] = case["lengths"].to(dev)
-        case["q_base"] = case["q_base"].to(dev)
-        for s in case["sets"]:
-            s["q"] = s["q"].to(dev)
-            s["table"] = s["table"].to(dev)
-    pools = make_pools(torch, gen, dev)
-    max_err = 0.0
-    for kv, (pool, scales) in pools.items():
-        for name, case in cases.items():
-            case_err = 0.0
-            for s in case["sets"][:4]:
-                got = run_case(fa, case, s, pool, scales, False)
-                want = run_case(fa, case, s, pool, scales, True)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                ok = bool(torch.allclose(got, want, atol=KERNEL_ATOL,
-                                         rtol=KERNEL_RTOL))
-                dead = bool((got[5] == 0).all())
-                case_err = max(case_err, err)
-                if not ok or not dead:
-                    failures.append(f"kernel {kv}/{name}: max_abs_err "
-                                    f"{err} (dead lane zero: {dead})")
-            max_err = max(max_err, case_err)
-            log(f"kernel vs plain {kv}/{name}: max_abs_err {case_err}")
-    extra = ragged_extra_cases(torch, gen, dev)
-    extra_grids, extra_err = run_ragged_extra(torch, fa, extra, failures)
-    max_err = max(max_err, extra_err)
-    del extra
+    max_err, extra_grids = 0.0, None
+    if on(3):
+        cases = kernel_cases(torch, gen)
+        for case in cases.values():
+            case["lengths"] = case["lengths"].to(dev)
+            case["q_base"] = case["q_base"].to(dev)
+            for s in case["sets"]:
+                s["q"] = s["q"].to(dev)
+                s["table"] = s["table"].to(dev)
+        pools = make_pools(torch, gen, dev)
+        for kv, (pool, scales) in pools.items():
+            for name, case in cases.items():
+                case_err = 0.0
+                for s in case["sets"][:4]:
+                    got = run_case(fa, case, s, pool, scales, False)
+                    want = run_case(fa, case, s, pool, scales, True)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    ok = bool(torch.allclose(got, want, atol=KERNEL_ATOL,
+                                             rtol=KERNEL_RTOL))
+                    dead = bool((got[5] == 0).all())
+                    case_err = max(case_err, err)
+                    if not ok or not dead:
+                        failures.append(f"kernel {kv}/{name}: max_abs_err "
+                                        f"{err} (dead lane zero: {dead})")
+                max_err = max(max_err, case_err)
+                log(f"kernel vs plain {kv}/{name}: max_abs_err {case_err}")
+        extra = ragged_extra_cases(torch, gen, dev)
+        extra_grids, extra_err = run_ragged_extra(torch, fa, extra, failures)
+        max_err = max(max_err, extra_err)
+        del extra
 
     # -- the flash kernels vs plain on the card
     flash_err = {(dt, k): 0.0 for dt in ("float32", "bfloat16")
                  for k in ("fwd", "dq", "dkv")}
     owner = {"out": "fwd", "lse": "fwd", "dq": "dq", "dk": "dkv",
              "dv": "dkv"}
-    for case in flash_cases():
-        name, errs, ok = run_flash_case(torch, fa, case, dev, gen)
-        log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
-        for t, e in errs.items():
-            key = (case["dtype"], owner[t])
-            flash_err[key] = max(flash_err[key], e)
-        if not ok:
-            failures.append(f"flash kernel vs plain {name}: {errs}")
-    for dt in ("float32", "bfloat16"):
-        masks = dropout_mask_probe(torch, fa, dev, dt)
-        log(f"flash dropout masks equal keep_scale, {dt} (fwd, dv): "
-            f"{masks}")
-        if not all(masks):
-            failures.append(f"flash dropout masks differ from keep_scale "
-                            f"in {dt}: (fwd, dv) = {masks}")
-    rounding = rounding_check(torch, fa, dev, gen)
-    for name, errs in rounding.items():
-        ok = all(e["ulps"] <= 1.0 and e["mean_emulation"] <= e["mean_plain"]
-                 for e in errs.values())
-        log(f"flash bf16 rounding {'ok  ' if ok else 'FAIL'} {name} "
-            f"(bf16 ulps) {json.dumps(errs)}")
-        if not ok:
-            failures.append(f"flash bf16 {name}: {errs} from the "
-                            f"reference's rounding (want at most 1 ulp, "
-                            f"and no farther than from the plain version)")
-    empty = empty_keys_check(torch, fa, dev)
-    log(f"flash forward with no keys, rows dead: {not empty}")
-    if empty:
-        failures.append(f"flash forward with no keys: {empty}")
+    if on(4):
+        for case in flash_cases():
+            name, errs, ok = run_flash_case(torch, fa, case, dev, gen)
+            log(f"flash {'ok  ' if ok else 'FAIL'} {name} {json.dumps(errs)}")
+            for t, e in errs.items():
+                key = (case["dtype"], owner[t])
+                flash_err[key] = max(flash_err[key], e)
+            if not ok:
+                failures.append(f"flash kernel vs plain {name}: {errs}")
+        for dt in ("float32", "bfloat16"):
+            masks = dropout_mask_probe(torch, fa, dev, dt)
+            log(f"flash dropout masks equal keep_scale, {dt} (fwd, dv): "
+                f"{masks}")
+            if not all(masks):
+                failures.append(f"flash dropout masks differ from keep_scale "
+                                f"in {dt}: (fwd, dv) = {masks}")
+        rounding = rounding_check(torch, fa, dev, gen)
+        for name, errs in rounding.items():
+            ok = all(e["ulps"] <= 1.0 and e["mean_emulation"] <= e["mean_plain"]
+                     for e in errs.values())
+            log(f"flash bf16 rounding {'ok  ' if ok else 'FAIL'} {name} "
+                f"(bf16 ulps) {json.dumps(errs)}")
+            if not ok:
+                failures.append(f"flash bf16 {name}: {errs} from the "
+                                f"reference's rounding (want at most 1 ulp, "
+                                f"and no farther than from the plain version)")
+        empty = empty_keys_check(torch, fa, dev)
+        log(f"flash forward with no keys, rows dead: {not empty}")
+        if empty:
+            failures.append(f"flash forward with no keys: {empty}")
 
     # -- serving, once per pool dtype: the unified step through the
     # executor, captured at the warm-up and replayed at every step
@@ -8813,529 +9458,574 @@ def main() -> int:
     weights = None
     n_calls, n_merges = ragged_calls_per_step(fa, fa._sm_count(0))
     f32_growth = None
-    for kv in KV_DTYPES:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        g = make_generator("cuda", kv)
-        if weights is None:
-            g.init_params(seed=SEED)
-            weights = fluid.scope_to_numpy(g.scope, list(g._param_vars()))
-        else:
-            g.load_params(weights)
-        # the peak of building and loading, then serving's own over the
-        # resident weights and pool
-        resident = torch.cuda.memory_allocated()
-        load_peak = torch.cuda.max_memory_allocated()
-        pool = {n: (t, t.data_ptr()) for n, t in (
-            (n, g.scope.find_var(n)) for n in (g._pool_name,
-                                               g._scales_name))
-                if t is not None}
-        torch.cuda.reset_peak_memory_stats()
-        rec, ok = serve_once(torch, np, fa, g, srcs)
-        rec.update(kv_dtype=kv, card=card,
-                   resident_gib=resident / 2**30,
-                   pool_gib=g.cache_stats()["hbm"]["pool_bytes"] / 2**30,
-                   load_peak_gib=load_peak / 2**30,
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   peak_reserved_gib=torch.cuda.max_memory_reserved()
-                   / 2**30,
-                   graph=step_graph(g.exe))
-        launches += rec["launches"]
-        want = n_calls * rec["steps"]
-        if not ok:
-            failures.append(f"serving {kv}: {rec['finished']} of "
-                            f"{rec['requests']} requests finished "
-                            f"{rec['errors']}")
-        if rec["launches"] != want or rec["steps"] == 0:
-            failures.append(f"serving {kv}: {rec['launches']} kernel "
-                            f"launches in {rec['steps']} steps, want {want}")
-        if rec["executable_during_serve"]["misses"] != 0 \
-                or rec["executable_during_serve"]["hits"] != rec["steps"] \
-                or rec["executable"]["misses"] != 1:
-            failures.append(f"serving {kv}: executable {rec['executable']}, "
-                            f"during the run {rec['executable_during_serve']}"
-                            f" in {rec['steps']} steps: want one miss (the "
-                            f"warm-up's capture) and a hit every step")
-        # the pool held once: the scope's pool is the tensor it was, and
-        # every cached step's buffer; serving's own growth (one step's
-        # activations, a cuBLAS workspace for each of two streams) is the
-        # same at every pool dtype, so a second pool would add its bytes
-        # to the float32 growth, or to another dtype's over that
-        rec["pool_held_once"] = pool_held_once(g, pool)
-        rec["serve_growth_gib"] = rec["peak_mem_gib"] - rec["resident_gib"]
-        if kv == "float32":
-            f32_growth = rec["serve_growth_gib"]
-        over = rec["serve_growth_gib"] - (f32_growth if kv != "float32"
-                                          else 0.0)
-        if not rec["pool_held_once"] or not over < rec["pool_gib"]:
-            failures.append(f"serving {kv}: pool held once "
-                            f"{rec['pool_held_once']}; peak "
-                            f"{rec['peak_mem_gib']} GiB over "
-                            f"{rec['resident_gib']} resident grows by "
-                            f"{over} GiB more than float32's, not less "
-                            f"than the pool's {rec['pool_gib']} GiB")
-        want_graph = {"ragged_split": n_calls, "ragged_merge": n_merges}
-        if rec["graph"].get("by_family") != want_graph:
-            failures.append(f"serving {kv}: captured graph {rec['graph']}, "
-                            f"want kernel nodes {want_graph}")
-        rec["replay_vs_eager"] = serving_replay_check(torch, g,
-                                                      replay_srcs)
-        if not rec["replay_vs_eager"]["ok"]:
-            failures.append(f"serving {kv}: replay vs eager "
-                            f"{rec['replay_vs_eager']}")
-        runs.append(rec)
-        del g, pool
-        torch.cuda.empty_cache()
-        log(f"served {kv}: {json.dumps(rec)}")
-
-        # teacher-forced card vs CPU on the same feeds
-        gpu = make_generator("cuda", kv)
-        cpu = make_generator("cpu", kv)
-        gpu.load_params(weights)
-        cpu.load_params(weights)
-        t0 = time.perf_counter()
-        worst, agree = teacher_forced(np, gpu, cpu, srcs)
-        rec["logits_max_abs_err_vs_cpu"] = worst
-        rec["token_agreement_vs_cpu"] = agree
-        log(f"teacher-forced {kv}: max |dlogit| {worst}, argmax agreement "
-            f"{agree} ({time.perf_counter() - t0:.1f}s)")
-        if not worst <= LOGIT_ATOL[kv]:
-            failures.append(f"logits {kv}: card vs CPU max_abs_err {worst} "
-                            f"> {LOGIT_ATOL[kv]}")
-        del gpu, cpu
-        torch.cuda.empty_cache()
-    # the serving peak beside the parent's, each in a process of its own,
-    # in turns (float32 pool; profile_serving.py)
     peaks = None
-    if args.parent_package:
-        peaks = [dict(serving_peak_subprocess(root), package=name)
-                 for name, root in (("parent", args.parent_package),
-                                    ("this", None), ("this", None),
-                                    ("parent", args.parent_package))]
-        for p in peaks:
-            log(f"profile_serving ({p['package']}): {json.dumps(p)}")
-        failures += in_turns_failures(peaks)
+    if on(5):
+        for kv in KV_DTYPES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            g = make_generator("cuda", kv)
+            if weights is None:
+                g.init_params(seed=SEED)
+                weights = fluid.scope_to_numpy(g.scope, list(g._param_vars()))
+            else:
+                g.load_params(weights)
+            # the peak of building and loading, then serving's own over the
+            # resident weights and pool
+            resident = torch.cuda.memory_allocated()
+            load_peak = torch.cuda.max_memory_allocated()
+            pool = {n: (t, t.data_ptr()) for n, t in (
+                (n, g.scope.find_var(n)) for n in (g._pool_name,
+                                                   g._scales_name))
+                    if t is not None}
+            torch.cuda.reset_peak_memory_stats()
+            rec, ok = serve_once(torch, np, fa, g, srcs)
+            rec.update(kv_dtype=kv, card=card,
+                       resident_gib=resident / 2**30,
+                       pool_gib=g.cache_stats()["hbm"]["pool_bytes"] / 2**30,
+                       load_peak_gib=load_peak / 2**30,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       peak_reserved_gib=torch.cuda.max_memory_reserved()
+                       / 2**30,
+                       graph=step_graph(g.exe))
+            launches += rec["launches"]
+            want = n_calls * rec["steps"]
+            if not ok:
+                failures.append(f"serving {kv}: {rec['finished']} of "
+                                f"{rec['requests']} requests finished "
+                                f"{rec['errors']}")
+            if rec["launches"] != want or rec["steps"] == 0:
+                failures.append(f"serving {kv}: {rec['launches']} kernel "
+                                f"launches in {rec['steps']} steps, want {want}")
+            if rec["executable_during_serve"]["misses"] != 0 \
+                    or rec["executable_during_serve"]["hits"] != rec["steps"] \
+                    or rec["executable"]["misses"] != 1:
+                failures.append(f"serving {kv}: executable {rec['executable']}, "
+                                f"during the run {rec['executable_during_serve']}"
+                                f" in {rec['steps']} steps: want one miss (the "
+                                f"warm-up's capture) and a hit every step")
+            # the pool held once: the scope's pool is the tensor it was, and
+            # every cached step's buffer; serving's own growth (one step's
+            # activations, a cuBLAS workspace for each of two streams) is the
+            # same at every pool dtype, so a second pool would add its bytes
+            # to the float32 growth, or to another dtype's over that
+            rec["pool_held_once"] = pool_held_once(g, pool)
+            rec["serve_growth_gib"] = rec["peak_mem_gib"] - rec["resident_gib"]
+            if kv == "float32":
+                f32_growth = rec["serve_growth_gib"]
+            over = rec["serve_growth_gib"] - (f32_growth if kv != "float32"
+                                              else 0.0)
+            if not rec["pool_held_once"] or not over < rec["pool_gib"]:
+                failures.append(f"serving {kv}: pool held once "
+                                f"{rec['pool_held_once']}; peak "
+                                f"{rec['peak_mem_gib']} GiB over "
+                                f"{rec['resident_gib']} resident grows by "
+                                f"{over} GiB more than float32's, not less "
+                                f"than the pool's {rec['pool_gib']} GiB")
+            want_graph = {"ragged_split": n_calls, "ragged_merge": n_merges}
+            if rec["graph"].get("by_family") != want_graph:
+                failures.append(f"serving {kv}: captured graph {rec['graph']}, "
+                                f"want kernel nodes {want_graph}")
+            rec["replay_vs_eager"] = serving_replay_check(torch, g,
+                                                          replay_srcs)
+            if not rec["replay_vs_eager"]["ok"]:
+                failures.append(f"serving {kv}: replay vs eager "
+                                f"{rec['replay_vs_eager']}")
+            runs.append(rec)
+            del g, pool
+            torch.cuda.empty_cache()
+            log(f"served {kv}: {json.dumps(rec)}")
+
+            # teacher-forced card vs CPU on the same feeds
+            gpu = make_generator("cuda", kv)
+            cpu = make_generator("cpu", kv)
+            gpu.load_params(weights)
+            cpu.load_params(weights)
+            t0 = time.perf_counter()
+            worst, agree = teacher_forced(np, gpu, cpu, srcs)
+            rec["logits_max_abs_err_vs_cpu"] = worst
+            rec["token_agreement_vs_cpu"] = agree
+            log(f"teacher-forced {kv}: max |dlogit| {worst}, argmax agreement "
+                f"{agree} ({time.perf_counter() - t0:.1f}s)")
+            if not worst <= LOGIT_ATOL[kv]:
+                failures.append(f"logits {kv}: card vs CPU max_abs_err {worst} "
+                                f"> {LOGIT_ATOL[kv]}")
+            del gpu, cpu
+            torch.cuda.empty_cache()
+        # the serving peak beside the parent's, each in a process of its own,
+        # in turns (float32 pool; profile_serving.py)
+        if args.parent_package:
+            peaks = [dict(serving_peak_subprocess(root), package=name)
+                     for name, root in (("parent", args.parent_package),
+                                        ("this", None), ("this", None),
+                                        ("parent", args.parent_package))]
+            for p in peaks:
+                log(f"profile_serving ({p['package']}): {json.dumps(p)}")
+            failures += in_turns_failures(peaks)
 
     # -- beam search on the paged engine, the dense generator, the full
     # re-run decoder
-    t0 = time.perf_counter()
     # the teacher-forced logit error of each pool dtype: the float error
     # the beam's and the speculative streams' near ties are judged by
     logit_err = {r["kv_dtype"]: r["logits_max_abs_err_vs_cpu"]
                  for r in runs}
-    beam, beam_launches, beam_err, beam_fails = beam_phase(
-        torch, np, fluid, fa, card, weights, srcs, logit_err)
-    failures += beam_fails
-    launches += beam_launches
-    max_err = max(max_err, beam_err)
-    log(f"beam phase ({time.perf_counter() - t0:.1f}s): {json.dumps(beam)}")
-    torch.cuda.empty_cache()
+    beam, beam_launches = None, 0
+    if on(6):
+        t0 = time.perf_counter()
+        beam, beam_launches, beam_err, beam_fails = beam_phase(
+            torch, np, fluid, fa, card, weights, srcs, logit_err)
+        failures += beam_fails
+        launches += beam_launches
+        max_err = max(max_err, beam_err)
+        log(f"beam phase ({time.perf_counter() - t0:.1f}s): "
+            f"{json.dumps(beam)}")
+        torch.cuda.empty_cache()
 
     # -- training: the program, one step card vs CPU, then the card alone
-    t0 = time.perf_counter()
-    main_prog, startup, loss = build_training(fluid, transformer)
-    init = initial_scope(fluid, startup)
-    log(f"built the training program ({len(main_prog.global_block().ops)} "
-        f"ops) and its {len(init)} initial arrays in "
-        f"{time.perf_counter() - t0:.1f}s")
-    feed = train_feed(np, TRAIN_BATCH)
-    step = compare_step(torch, np, fluid, main_prog, loss, init,
-                        {k: v[:COMPARE_BATCH] for k, v in feed.items()})
-    log(f"training step {COMPARE_STEP} card vs CPU and replay vs eager: "
-        f"{json.dumps(step)}")
-    if not (step["replay_ok"] and step["loss_rel_err"] <= STEP_LOSS_RTOL
-            and step["grad_rel_err"] <= STEP_GRAD_RTOL
-            and step["param_max_abs_err"] <= STEP_PARAM_ATOL
-            and step["update_rel_err"] <= STEP_UPDATE_RTOL
-            and step["update_checked_share"] >= UPDATE_MIN_SHARE):
-        failures.append(f"training step card vs CPU: {step}")
-    torch.cuda.empty_cache()
-    training, scope = train_on_card(torch, fluid, fa, main_prog, loss, init,
-                                    feed)
-    training.update(card=card, compare=step)
-    log(f"training: {json.dumps(training)}")
-    want = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
-    if training["launches_by_dtype"]["float32"] != want \
-            or training["launches"] != want:
-        failures.append(f"training: flash launches "
-                        f"{training['launches_by_dtype']} in {TRAIN_STEPS} "
-                        f"steps, want {want} on float32 inputs")
-    per_step = {k: ATTN_PER_STEP for k in ("fwd", "dq", "dkv")}
-    failures += graph_failures("training", training, TRAIN_STEPS, per_step)
-    if not (np.isfinite(training["losses"]).all()
-            and training["losses"][-1] < training["losses"][0]):
-        failures.append(f"training: loss did not fall: "
-                        f"{training['losses']}")
+    training = training_bf16 = None
+    if on(7):
+        t0 = time.perf_counter()
+        main_prog, startup, loss = build_training(fluid, transformer)
+        init = initial_scope(fluid, startup)
+        log(f"built the training program ({len(main_prog.global_block().ops)} "
+            f"ops) and its {len(init)} initial arrays in "
+            f"{time.perf_counter() - t0:.1f}s")
+        feed = train_feed(np, TRAIN_BATCH)
+        step = compare_step(torch, np, fluid, main_prog, loss, init,
+                            {k: v[:COMPARE_BATCH] for k, v in feed.items()})
+        log(f"training step {COMPARE_STEP} card vs CPU and replay vs eager: "
+            f"{json.dumps(step)}")
+        if not (step["replay_ok"] and step["loss_rel_err"] <= STEP_LOSS_RTOL
+                and step["grad_rel_err"] <= STEP_GRAD_RTOL
+                and step["param_max_abs_err"] <= STEP_PARAM_ATOL
+                and step["update_rel_err"] <= STEP_UPDATE_RTOL
+                and step["update_checked_share"] >= UPDATE_MIN_SHARE):
+            failures.append(f"training step card vs CPU: {step}")
+        torch.cuda.empty_cache()
+        training, scope = train_on_card(torch, fluid, fa, main_prog, loss, init,
+                                        feed)
+        training.update(card=card, compare=step)
+        log(f"training: {json.dumps(training)}")
+        want = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
+        if training["launches_by_dtype"]["float32"] != want \
+                or training["launches"] != want:
+            failures.append(f"training: flash launches "
+                            f"{training['launches_by_dtype']} in {TRAIN_STEPS} "
+                            f"steps, want {want} on float32 inputs")
+        per_step = {k: ATTN_PER_STEP for k in ("fwd", "dq", "dkv")}
+        failures += graph_failures("training", training, TRAIN_STEPS, per_step)
+        if not (np.isfinite(training["losses"]).all()
+                and training["losses"][-1] < training["losses"][0]):
+            failures.append(f"training: loss did not fall: "
+                            f"{training['losses']}")
 
-    # -- serve what was trained: the scope's parameters, by name
-    params = [p.name for p in main_prog.global_block().all_parameters()]
-    trained = fluid.scope_to_numpy(scope, params)
-    del scope
-    torch.cuda.empty_cache()
-    g = make_generator("cuda", "float32")
-    n_loaded = g.load_params(trained)
-    rec, ok = serve_once(torch, np, fa, g, srcs[:N_TRAINED_REQUESTS])
-    rec.update(kv_dtype="float32", weights="trained", loaded=n_loaded)
-    launches += rec["launches"]
-    log(f"served the trained scope: {json.dumps(rec)}")
-    if not ok or rec["launches"] != ATTN_PER_STEP * rec["steps"] \
-            or rec["steps"] == 0 \
-            or rec["executable_during_serve"]["misses"] != 0:
-        failures.append(f"serving the trained scope: {rec}")
-    runs.append(rec)
-    del g
-    torch.cuda.empty_cache()
+        # -- serve what was trained: the scope's parameters, by name
+        params = [p.name for p in main_prog.global_block().all_parameters()]
+        trained = fluid.scope_to_numpy(scope, params)
+        del scope
+        torch.cuda.empty_cache()
+        g = make_generator("cuda", "float32")
+        n_loaded = g.load_params(trained)
+        rec, ok = serve_once(torch, np, fa, g, srcs[:N_TRAINED_REQUESTS])
+        rec.update(kv_dtype="float32", weights="trained", loaded=n_loaded)
+        launches += rec["launches"]
+        log(f"served the trained scope: {json.dumps(rec)}")
+        if not ok or rec["launches"] != ATTN_PER_STEP * rec["steps"] \
+                or rec["steps"] == 0 \
+                or rec["executable_during_serve"]["misses"] != 0:
+            failures.append(f"serving the trained scope: {rec}")
+        runs.append(rec)
+        del g
+        torch.cuda.empty_cache()
 
     # -- the bf16 recipe: one step card vs CPU, then the card alone
-    t0 = time.perf_counter()
-    amp_prog, amp_startup, amp_loss = build_training(fluid, transformer,
-                                                     AMP)
-    if amp_startup.desc.fingerprint() != startup.desc.fingerprint():
-        failures.append("amp training: its startup program differs from "
-                        "the float32 program's")
-    amp_step = compare_amp_step(
-        torch, np, fluid, amp_prog, amp_loss, main_prog, loss, init,
-        {k: v[:COMPARE_BATCH] for k, v in feed.items()})
-    log(f"amp training step {COMPARE_STEP} card vs CPU and replay vs eager "
-        f"({time.perf_counter() - t0:.1f}s): {json.dumps(amp_step)}")
-    if not amp_step_ok(amp_step):
-        failures.append(f"amp training step card vs CPU: {amp_step}")
-    torch.cuda.empty_cache()
-    training_bf16, scope = train_on_card(torch, fluid, fa, amp_prog,
-                                         amp_loss, init, feed)
-    del scope
-    torch.cuda.empty_cache()
-    training_bf16.update(card=card, amp_dtype=AMP, compare=amp_step)
-    log(f"training_bf16: {json.dumps(training_bf16)}")
-    per_run = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
-    if training_bf16["launches_by_dtype"] != {
-            "float32": {k: 0 for k in per_run}, "bfloat16": per_run}:
-        failures.append(f"amp training: flash launches by input dtype "
-                        f"{training_bf16['launches_by_dtype']} in "
-                        f"{TRAIN_STEPS} steps, want {per_run} on bf16 "
-                        f"inputs and none on float32")
-    failures += graph_failures("amp training", training_bf16, TRAIN_STEPS,
-                               per_step)
-    if not (np.isfinite(training_bf16["losses"]).all()
-            and training_bf16["losses"][-1] < training_bf16["losses"][0]):
-        failures.append(f"amp training: loss did not fall: "
-                        f"{training_bf16['losses']}")
+    if on(9):
+        t0 = time.perf_counter()
+        amp_prog, amp_startup, amp_loss = build_training(fluid, transformer,
+                                                         AMP)
+        if amp_startup.desc.fingerprint() != startup.desc.fingerprint():
+            failures.append("amp training: its startup program differs from "
+                            "the float32 program's")
+        amp_step = compare_amp_step(
+            torch, np, fluid, amp_prog, amp_loss, main_prog, loss, init,
+            {k: v[:COMPARE_BATCH] for k, v in feed.items()})
+        log(f"amp training step {COMPARE_STEP} card vs CPU and replay vs eager "
+            f"({time.perf_counter() - t0:.1f}s): {json.dumps(amp_step)}")
+        if not amp_step_ok(amp_step):
+            failures.append(f"amp training step card vs CPU: {amp_step}")
+        torch.cuda.empty_cache()
+        training_bf16, scope = train_on_card(torch, fluid, fa, amp_prog,
+                                             amp_loss, init, feed)
+        del scope
+        torch.cuda.empty_cache()
+        training_bf16.update(card=card, amp_dtype=AMP, compare=amp_step)
+        log(f"training_bf16: {json.dumps(training_bf16)}")
+        per_run = {k: ATTN_PER_STEP * TRAIN_STEPS for k in ("fwd", "dq", "dkv")}
+        if training_bf16["launches_by_dtype"] != {
+                "float32": {k: 0 for k in per_run}, "bfloat16": per_run}:
+            failures.append(f"amp training: flash launches by input dtype "
+                            f"{training_bf16['launches_by_dtype']} in "
+                            f"{TRAIN_STEPS} steps, want {per_run} on bf16 "
+                            f"inputs and none on float32")
+        failures += graph_failures("amp training", training_bf16, TRAIN_STEPS,
+                                   per_step)
+        if not (np.isfinite(training_bf16["losses"]).all()
+                and training_bf16["losses"][-1] < training_bf16["losses"][0]):
+            failures.append(f"amp training: loss did not fall: "
+                            f"{training_bf16['losses']}")
 
     # -- the book's first two chapters
-    book = {"card": card}
-    for program, steps in (("fit_a_line", FIT_STEPS),
-                           ("conv_net", DIGITS_STEPS),
-                           ("bf16_conv_net", DIGITS_STEPS)):
-        rec, ok = book_phase(torch, np, fluid, program, steps)
-        book[program] = rec
-        log(f"book {'ok  ' if ok else 'FAIL'} {json.dumps(rec)}")
+    book = None
+    if on(10):
+        book = {"card": card}
+        for program, steps in (("fit_a_line", FIT_STEPS),
+                               ("conv_net", DIGITS_STEPS),
+                               ("bf16_conv_net", DIGITS_STEPS)):
+            rec, ok = book_phase(torch, np, fluid, program, steps)
+            book[program] = rec
+            log(f"book {'ok  ' if ok else 'FAIL'} {json.dumps(rec)}")
+            if not ok:
+                failures.append(f"book {program}: {rec}")
+            # no kernel of this repo on these paths
+            failures += graph_failures(f"book {program}", rec, steps, {})
+        modes, ok = executor_modes(torch, np, fluid)
+        book["executor_modes"] = modes
+        log(f"executor modes {'ok  ' if ok else 'FAIL'} {json.dumps(modes)}")
         if not ok:
-            failures.append(f"book {program}: {rec}")
-        # no kernel of this repo on these paths
-        failures += graph_failures(f"book {program}", rec, steps, {})
-    modes, ok = executor_modes(torch, np, fluid)
-    book["executor_modes"] = modes
-    log(f"executor modes {'ok  ' if ok else 'FAIL'} {json.dumps(modes)}")
-    if not ok:
-        failures.append(f"executor run_steps / run_pipeline / two scopes "
-                        f"on the card: {modes}")
-    torch.cuda.empty_cache()
+            failures.append(f"executor run_steps / run_pipeline / two scopes "
+                            f"on the card: {modes}")
+        torch.cuda.empty_cache()
 
     # -- timings at the paths' shapes: the ragged kernel on the device
     # clock (a CUDA graph of 200 calls), through the wrapper one call at
     # a time (ms_eager), the parent's kernel by the same graph method,
     # and the plain version
-    parent = None
-    if args.parent_ragged:
-        parent = build_parent_ragged(args.parent_ragged)
-        log(f"built the parent's ragged kernel from {args.parent_ragged}")
-    floor_ms = launch_floor_ms(torch, fa, 200)
-    timing = []
-    for kv, (pool, scales) in pools.items():
-        for name, case in cases.items():
-            dev_ms = graph_ms(torch, case_calls(fa, case, pool, scales, 200))
-            eager = time_case(torch, fa, case, pool, scales, False, 200)
-            pms = time_case(torch, fa, case, pool, scales, True, 20)
-            dev_ms2 = graph_ms(torch, case_calls(fa, case, pool, scales,
-                                                 200))
-            par = (graph_ms(torch, parent_calls(torch, parent, fa, case,
-                                                pool, scales, 200))
-                   if parent is not None else None)
-            b_ms, b_by = bound(case, pool, scales)
-            per_call = device_kernels_per_call(
-                torch, case_calls(fa, case, pool, scales, 16))
-            pps, splits = fa.ragged_decode_attention.last_plan
-            timing.append({"kv_dtype": kv, "case": name, "ms": dev_ms,
-                           "ms_repeat": dev_ms2, "ms_eager": eager,
-                           "parent_ms": par, "plain_ms": pms,
-                           "bound_ms": b_ms, "bound_by": b_by,
-                           "launch_floor_ms": floor_ms,
-                           "pages_per_split": pps, "splits": splits,
-                           "device_kernels_per_call": per_call})
-            if per_call != (1 if splits == 1 else 2):
-                failures.append(f"ragged {kv}/{name}: {per_call} device "
-                                f"kernels a call at {splits} splits")
-    del pools
-    torch.cuda.empty_cache()
-    wide_rows = flash_wide_timings(torch, fa, dev, gen)
-    flash_rows, flash_sdpa = {}, {}
-    int_ops = int32_ops_per_s(torch)
-    parent_flash = None
-    if args.parent_flash:
-        parent_flash = build_parent_flash(args.parent_flash)
-        log(f"built the parent's flash forward"
-            f"{' and backward' if parent_flash['bwd'] else ''} from "
-            f"{args.parent_flash}")
-    log(f"int32 rate (SMs x {INT32_LANES_PER_SM} x max SM clock): "
-        f"{int_ops:.4g} ops/s")
-    for dt in ("float32", "bfloat16"):
-        rows, checks, sdpa = flash_timings(
-            torch, fa, dev, gen, dt, int_ops,
-            parent_flash if dt == "bfloat16" else None)
-        flash_rows[dt], flash_sdpa[dt] = rows, sdpa
-        for causal, by_backend in sdpa.items():
-            log(f"sdpa {dt} {'causal' if causal else 'full'}: "
-                f"{json.dumps(by_backend)}")
-        for name, errs, ok in checks:
-            log(f"flash {'ok  ' if ok else 'FAIL'} {dt} {name} "
-                f"{json.dumps(errs)}")
-            for t, e in errs.items():
-                flash_err[(dt, owner[t])] = max(flash_err[(dt, owner[t])],
-                                                e)
-            if not ok:
-                failures.append(f"flash entry point vs plain {dt} {name}: "
-                                f"{errs}")
-    fp32 = [t for t in timing if t["kv_dtype"] == "float32"]
-    b_bytes = sum(t["bound_ms"] for t in fp32 if t["bound_by"] == "bytes")
-    b_ops = sum(t["bound_ms"] for t in fp32 if t["bound_by"] != "bytes")
-    by_case = {t["case"]: t for t in fp32}
-    kernels = [{
-        "name": fa.KERNEL_NAME,
-        "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/kernels/flash_attention.py:181",
-        "launches": launches,
-        "launches_beam": beam_launches,
-        "max_abs_err": max_err,
-        # one call of each of the step's three shapes, float32 pool, on
-        # the device clock; ms_eager through the wrapper call by call
-        "ms": sum(t["ms"] for t in fp32),
-        "plain_ms": sum(t["plain_ms"] for t in fp32),
-        "bound_ms": b_bytes + b_ops,
-        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None,
-        "ms_eager": sum(t["ms_eager"] for t in fp32),
-        "parent_ms": (sum(t["parent_ms"] for t in fp32)
-                      if parent is not None else None),
-        "launch_floor_ms": floor_ms,
-        # device kernels one call runs: kernel nodes of a CUDA graph of
-        # 16 calls, over 16
-        "kernels_per_call": {c: t["device_kernels_per_call"]
-                             for c, t in by_case.items()},
-        "ms_by_case": {f"{t['kv_dtype']}/{t['case']}": t["ms"]
-                       for t in timing},
-        "extra_grids": extra_grids,
-        "parent_ms_by_case": ({f"{t['kv_dtype']}/{t['case']}":
-                               t["parent_ms"] for t in timing}
-                              if parent is not None else None),
-    }]
-    replaces = {"fwd": 527, "dq": 743, "dkv": 788}
-    # float32 rows: the float32 training run's launches; bfloat16 rows
-    # (the same kernels' bf16 instantiations): the amp training run's
-    for dt, run, suffix in (("float32", training, ""),
-                            ("bfloat16", training_bf16, "_bf16")):
-        rows = flash_rows[dt]
-        for k in ("fwd", "dq", "dkv"):
-            # per call, averaged over the training step's mix of 12 full
-            # and 6 causal attentions
-            def mix(key, k=k, rows=rows):
-                full, causal = rows[(k, False)], rows[(k, True)]
-                return ((ATTN_PER_STEP - CAUSAL_PER_STEP) * full[key]
-                        + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
+    kernels = None
+    if on(11):
+        parent = None
+        if args.parent_ragged:
+            parent = build_parent_ragged(args.parent_ragged)
+            log(f"built the parent's ragged kernel from {args.parent_ragged}")
+        floor_ms = launch_floor_ms(torch, fa, 200)
+        timing = []
+        for kv, (pool, scales) in pools.items():
+            for name, case in cases.items():
+                dev_ms = graph_ms(torch, case_calls(fa, case, pool, scales, 200))
+                eager = time_case(torch, fa, case, pool, scales, False, 200)
+                pms = time_case(torch, fa, case, pool, scales, True, 20)
+                dev_ms2 = graph_ms(torch, case_calls(fa, case, pool, scales,
+                                                     200))
+                par = (graph_ms(torch, parent_calls(torch, parent, fa, case,
+                                                    pool, scales, 200))
+                       if parent is not None else None)
+                b_ms, b_by = bound(case, pool, scales)
+                per_call = device_kernels_per_call(
+                    torch, case_calls(fa, case, pool, scales, 16))
+                pps, splits = fa.ragged_decode_attention.last_plan
+                timing.append({"kv_dtype": kv, "case": name, "ms": dev_ms,
+                               "ms_repeat": dev_ms2, "ms_eager": eager,
+                               "parent_ms": par, "plain_ms": pms,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "launch_floor_ms": floor_ms,
+                               "pages_per_split": pps, "splits": splits,
+                               "device_kernels_per_call": per_call})
+                if per_call != (1 if splits == 1 else 2):
+                    failures.append(f"ragged {kv}/{name}: {per_call} device "
+                                    f"kernels a call at {splits} splits")
+        del pools
+        torch.cuda.empty_cache()
+        wide_rows = flash_wide_timings(torch, fa, dev, gen)
+        flash_rows, flash_sdpa = {}, {}
+        int_ops = int32_ops_per_s(torch)
+        parent_flash = None
+        if args.parent_flash:
+            parent_flash = build_parent_flash(args.parent_flash)
+            log(f"built the parent's flash forward"
+                f"{' and backward' if parent_flash['bwd'] else ''} from "
+                f"{args.parent_flash}")
+        log(f"int32 rate (SMs x {INT32_LANES_PER_SM} x max SM clock): "
+            f"{int_ops:.4g} ops/s")
+        for dt in ("float32", "bfloat16"):
+            rows, checks, sdpa = flash_timings(
+                torch, fa, dev, gen, dt, int_ops,
+                parent_flash if dt == "bfloat16" else None)
+            flash_rows[dt], flash_sdpa[dt] = rows, sdpa
+            for causal, by_backend in sdpa.items():
+                log(f"sdpa {dt} {'causal' if causal else 'full'}: "
+                    f"{json.dumps(by_backend)}")
+            for name, errs, ok in checks:
+                log(f"flash {'ok  ' if ok else 'FAIL'} {dt} {name} "
+                    f"{json.dumps(errs)}")
+                for t, e in errs.items():
+                    flash_err[(dt, owner[t])] = max(flash_err[(dt, owner[t])],
+                                                    e)
+                if not ok:
+                    failures.append(f"flash entry point vs plain {dt} {name}: "
+                                    f"{errs}")
+        fp32 = [t for t in timing if t["kv_dtype"] == "float32"]
+        b_bytes = sum(t["bound_ms"] for t in fp32 if t["bound_by"] == "bytes")
+        b_ops = sum(t["bound_ms"] for t in fp32 if t["bound_by"] != "bytes")
+        by_case = {t["case"]: t for t in fp32}
+        kernels = [{
+            "name": fa.KERNEL_NAME,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/kernels/flash_attention.py:181",
+            "launches": launches,
+            "launches_beam": beam_launches,
+            "max_abs_err": max_err,
+            # one call of each of the step's three shapes, float32 pool, on
+            # the device clock; ms_eager through the wrapper call by call
+            "ms": sum(t["ms"] for t in fp32),
+            "plain_ms": sum(t["plain_ms"] for t in fp32),
+            "bound_ms": b_bytes + b_ops,
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None,
+            "ms_eager": sum(t["ms_eager"] for t in fp32),
+            "parent_ms": (sum(t["parent_ms"] for t in fp32)
+                          if parent is not None else None),
+            "launch_floor_ms": floor_ms,
+            # device kernels one call runs: kernel nodes of a CUDA graph of
+            # 16 calls, over 16
+            "kernels_per_call": {c: t["device_kernels_per_call"]
+                                 for c, t in by_case.items()},
+            "ms_by_case": {f"{t['kv_dtype']}/{t['case']}": t["ms"]
+                           for t in timing},
+            "extra_grids": extra_grids,
+            "parent_ms_by_case": ({f"{t['kv_dtype']}/{t['case']}":
+                                   t["parent_ms"] for t in timing}
+                                  if parent is not None else None),
+        }]
+        replaces = {"fwd": 527, "dq": 743, "dkv": 788}
+        # float32 rows: the float32 training run's launches; bfloat16 rows
+        # (the same kernels' bf16 instantiations): the amp training run's
+        for dt, run, suffix in (("float32", training, ""),
+                                ("bfloat16", training_bf16, "_bf16")):
+            rows = flash_rows[dt]
+            for k in ("fwd", "dq", "dkv"):
+                # per call, averaged over the training step's mix of 12 full
+                # and 6 causal attentions
+                def mix(key, k=k, rows=rows):
+                    full, causal = rows[(k, False)], rows[(k, True)]
+                    return ((ATTN_PER_STEP - CAUSAL_PER_STEP) * full[key]
+                            + CAUSAL_PER_STEP * causal[key]) / ATTN_PER_STEP
 
-            by = {rows[(k, c)]["bound_by"] for c in (False, True)}
-            pass_ = "fwd" if k == "fwd" else "bwd"
-            by_backend = backend_mix(flash_sdpa[dt], pass_)
-            lib_name, lib_ms = fastest_backend(by_backend)
-            by_backend["DEFAULT_eager"] = backend_mix(
-                {c: {"DEFAULT": r["DEFAULT"]} for c, r in
-                 flash_sdpa[dt].items()}, f"{pass_}_eager")["DEFAULT"]
-            # the dropout hash's share: the kernel at the step's dropout
-            # less the kernel at 0
-            extra = {"ms_dropout0": mix("ms_dropout0"),
-                     "hash_ms": mix("ms") - mix("ms_dropout0"),
-                     "bound_dropout0_ms": mix("bound_dropout0_ms")}
-            if k == "fwd":
-                extra.update(ms_eager=mix("ms_eager"),
-                             host_ms=mix("host_ms"))
-            extra.update({n: mix(n) for n in rows[(k, False)]
-                          if n.startswith("parent_")})
-            extra["device_kernels"] = sorted(
-                set(rows[(k, False)]["device_kernels"])
-                | set(rows[(k, True)]["device_kernels"]))
-            if dt == "float32":
-                extra.update(bound_fp32_ms=mix("bound_fp32_ms"),
-                             ms_by_width={f"D{d}": r[k]
-                                          for d, r in wide_rows.items()})
-            else:
-                extra.update(bound_tf32_ms=mix("bound_tf32_ms"))
-            kernels.append({
-                "name": f"flash_attention_{k}{suffix}",
-                "route": "cuda",
-                "source": f"paddle_tpu_torch/kernels/csrc/"
-                          f"{fa.FLASH_KERNELS[k]}.cu",
-                "replaces": f"paddle_tpu/kernels/flash_attention.py:"
-                            f"{replaces[k]}",
-                "launches": run["launches_by_dtype"][dt][k],
-                "max_abs_err": flash_err[(dt, k)],
-                "ms": mix("ms"), "plain_ms": mix("plain_ms"),
-                "bound_ms": mix("bound_ms"),
-                "bound_by": by.pop() if len(by) == 1 else "operations",
-                "library_ms": lib_ms, "library_backend": lib_name,
-                "library_ms_by_backend": by_backend, **extra})
-    for t in timing:
-        log(json.dumps(t))
-    for rows in flash_rows.values():
-        for r in rows.values():
-            log(json.dumps(r))
+                by = {rows[(k, c)]["bound_by"] for c in (False, True)}
+                pass_ = "fwd" if k == "fwd" else "bwd"
+                by_backend = backend_mix(flash_sdpa[dt], pass_)
+                lib_name, lib_ms = fastest_backend(by_backend)
+                by_backend["DEFAULT_eager"] = backend_mix(
+                    {c: {"DEFAULT": r["DEFAULT"]} for c, r in
+                     flash_sdpa[dt].items()}, f"{pass_}_eager")["DEFAULT"]
+                # the dropout hash's share: the kernel at the step's dropout
+                # less the kernel at 0
+                extra = {"ms_dropout0": mix("ms_dropout0"),
+                         "hash_ms": mix("ms") - mix("ms_dropout0"),
+                         "bound_dropout0_ms": mix("bound_dropout0_ms")}
+                if k == "fwd":
+                    extra.update(ms_eager=mix("ms_eager"),
+                                 host_ms=mix("host_ms"))
+                extra.update({n: mix(n) for n in rows[(k, False)]
+                              if n.startswith("parent_")})
+                extra["device_kernels"] = sorted(
+                    set(rows[(k, False)]["device_kernels"])
+                    | set(rows[(k, True)]["device_kernels"]))
+                if dt == "float32":
+                    extra.update(bound_fp32_ms=mix("bound_fp32_ms"),
+                                 ms_by_width={f"D{d}": r[k]
+                                              for d, r in wide_rows.items()})
+                else:
+                    extra.update(bound_tf32_ms=mix("bound_tf32_ms"))
+                kernels.append({
+                    "name": f"flash_attention_{k}{suffix}",
+                    "route": "cuda",
+                    "source": f"paddle_tpu_torch/kernels/csrc/"
+                              f"{fa.FLASH_KERNELS[k]}.cu",
+                    "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                                f"{replaces[k]}",
+                    "launches": run["launches_by_dtype"][dt][k],
+                    "max_abs_err": flash_err[(dt, k)],
+                    "ms": mix("ms"), "plain_ms": mix("plain_ms"),
+                    "bound_ms": mix("bound_ms"),
+                    "bound_by": by.pop() if len(by) == 1 else "operations",
+                    "library_ms": lib_ms, "library_backend": lib_name,
+                    "library_ms_by_backend": by_backend, **extra})
+        for t in timing:
+            log(json.dumps(t))
+        for rows in flash_rows.values():
+            for r in rows.values():
+                log(json.dumps(r))
 
     # -- the LSTM text classifiers: kernel checks, training, timings
-    lstm_rec, lstm_entry = lstm_phases(torch, np, fluid, lk, dev, gen,
-                                       failures)
-    lstm_rec["card"] = card
-    kernels.append(lstm_entry)
+    lstm_rec = lstm_entry = None
+    if on(12):
+        lstm_rec, lstm_entry = lstm_phases(torch, np, fluid, lk, dev, gen,
+                                           failures)
+        lstm_rec["card"] = card
+        if kernels is not None:
+            kernels.append(lstm_entry)
 
     # -- image classification: no kernel of this repo on its path
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    image, image_fails = image_phase(torch, np, fluid, card)
-    failures += image_fails
-    log(f"image phase ({time.perf_counter() - t0:.1f}s)")
+    image = sparse = nmt = srl = speech = ssd = frcnn = ranking = None
+    spec_rec = tiers = persist = cost = gateway = None
+    if on(16):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        image, image_fails = image_phase(torch, np, fluid, card)
+        failures += image_fails
+        log(f"image phase ({time.perf_counter() - t0:.1f}s)")
 
     # -- sparse embeddings and the book's embedding chapters: no kernel of
     # this repo on their paths
-    torch.cuda.empty_cache()
-    sparse, sparse_fails = sparse_phase(torch, np, fluid, card)
-    failures += sparse_fails
-    log(f"sparse phase ({sparse['seconds']:.1f}s)")
+    if on(17):
+        torch.cuda.empty_cache()
+        sparse, sparse_fails = sparse_phase(torch, np, fluid, card)
+        failures += sparse_fails
+        log(f"sparse phase ({sparse['seconds']:.1f}s)")
 
     # -- control flow and the seq2seq models: the LSTM kernel in each
     # encoder, the decode loop driven from the host
-    torch.cuda.empty_cache()
-    nmt, nmt_launches, nmt_fails = nmt_phase(torch, np, fluid, card)
-    failures += nmt_fails
-    lstm_entry["launches"] += nmt_launches
-    lstm_entry["launches_seq2seq"] = nmt_launches
-    log(f"nmt phase ({nmt['seconds']:.1f}s)")
+    if on(18):
+        torch.cuda.empty_cache()
+        nmt, nmt_launches, nmt_fails = nmt_phase(torch, np, fluid, card)
+        failures += nmt_fails
+        lstm_entry["launches"] += nmt_launches
+        lstm_entry["launches_seq2seq"] = nmt_launches
+        log(f"nmt phase ({nmt['seconds']:.1f}s)")
 
     # -- semantic role labeling and the evaluators: the LSTM kernel in
     # each of db_lstm's 8 layers, H = 128
-    torch.cuda.empty_cache()
-    srl, srl_launches, srl_cell, srl_fails = srl_phase(torch, np, fluid, lk,
-                                                       card)
-    failures += srl_fails
-    lstm_entry["launches"] += srl_launches
-    lstm_entry["launches_srl"] = srl_launches
-    # the SRL path's own call: H = 128, relu / sigmoid / sigmoid, ragged
-    lstm_entry["srl_cell"] = srl_cell
-    log(f"srl phase ({srl['seconds']:.1f}s)")
+    if on(19):
+        torch.cuda.empty_cache()
+        srl, srl_launches, srl_cell, srl_fails = srl_phase(torch, np, fluid, lk,
+                                                           card)
+        failures += srl_fails
+        lstm_entry["launches"] += srl_launches
+        lstm_entry["launches_srl"] = srl_launches
+        # the SRL path's own call: H = 128, relu / sigmoid / sigmoid, ragged
+        lstm_entry["srl_cell"] = srl_cell
+        log(f"srl phase ({srl['seconds']:.1f}s)")
 
     # -- speech recognition with CTC and MobileNet-SSD: no kernel of this
     # repo on their paths; then the slice's ops off both paths
-    torch.cuda.empty_cache()
-    speech, speech_fails = speech_phase(torch, np, fluid, card)
-    failures += speech_fails
-    log(f"speech phase ({speech['seconds']:.1f}s)")
-    torch.cuda.empty_cache()
-    ssd, ssd_fails = ssd_phase(torch, np, fluid, card)
-    failures += ssd_fails
-    t0 = time.perf_counter()
-    ssd["ops"] = slice_op_checks(torch, np, failures)
-    log(f"ssd phase ({ssd['seconds']:.1f}s), op check "
-        f"({time.perf_counter() - t0:.1f}s): {json.dumps(ssd['ops'])}")
+    if on(20):
+        torch.cuda.empty_cache()
+        speech, speech_fails = speech_phase(torch, np, fluid, card)
+        failures += speech_fails
+        log(f"speech phase ({speech['seconds']:.1f}s)")
+    if on(21):
+        torch.cuda.empty_cache()
+        ssd, ssd_fails = ssd_phase(torch, np, fluid, card)
+        failures += ssd_fails
+        t0 = time.perf_counter()
+        ssd["ops"] = slice_op_checks(torch, np, failures)
+        log(f"ssd phase ({ssd['seconds']:.1f}s), op check "
+            f"({time.perf_counter() - t0:.1f}s): {json.dumps(ssd['ops'])}")
 
     # -- Fast R-CNN and learning to rank: no kernel of this repo on their
     # paths; then the slice's ops at realistic shapes
-    torch.cuda.empty_cache()
-    frcnn, frcnn_fails = frcnn_phase(torch, np, fluid, card)
-    failures += frcnn_fails
-    log(f"frcnn phase ({frcnn['seconds']:.1f}s)")
-    torch.cuda.empty_cache()
-    ranking, ranking_fails = ranking_phase(torch, np, fluid, card)
-    failures += ranking_fails
-    log(f"ranking phase ({ranking['seconds']:.1f}s)")
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    ranking["loss_misc_ops"] = loss_misc_op_checks(torch, np, failures)
-    log(f"loss and misc op check ({time.perf_counter() - t0:.1f}s): "
-        f"{json.dumps(ranking['loss_misc_ops'])}")
+    if on(22, 23, 24):
+        torch.cuda.empty_cache()
+        frcnn, frcnn_fails = frcnn_phase(torch, np, fluid, card)
+        failures += frcnn_fails
+        log(f"frcnn phase ({frcnn['seconds']:.1f}s)")
+        torch.cuda.empty_cache()
+        ranking, ranking_fails = ranking_phase(torch, np, fluid, card)
+        failures += ranking_fails
+        log(f"ranking phase ({ranking['seconds']:.1f}s)")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        ranking["loss_misc_ops"] = loss_misc_op_checks(torch, np, failures)
+        log(f"loss and misc op check ({time.perf_counter() - t0:.1f}s): "
+            f"{json.dumps(ranking['loss_misc_ops'])}")
 
     # -- speculative and constrained decoding; the host tier and
     # sessions: the ragged kernel in the verify and draft steps
-    torch.cuda.empty_cache()
-    spec_rec, spec_launches, spec_fails = speculative_phase(
-        torch, np, fluid, fa, card, weights, srcs, logit_err)
-    failures += spec_fails
-    log(f"speculative phase ({spec_rec['seconds']:.1f}s)")
-    tiers, tier_launches, tier_fails = tier_phase(torch, np, fluid, fa,
-                                                  card, weights)
-    failures += tier_fails
-    log(f"tier phase ({tiers['seconds']:.1f}s): {json.dumps(tiers)}")
+    spec_launches = tier_launches = cost_ragged = gw_ragged = 0
+    if on(25):
+        torch.cuda.empty_cache()
+        spec_rec, spec_launches, spec_fails = speculative_phase(
+            torch, np, fluid, fa, card, weights, srcs, logit_err)
+        failures += spec_fails
+        log(f"speculative phase ({spec_rec['seconds']:.1f}s)")
+    if on(26):
+        tiers, tier_launches, tier_fails = tier_phase(torch, np, fluid, fa,
+                                                      card, weights)
+        failures += tier_fails
+        log(f"tier phase ({tiers['seconds']:.1f}s): {json.dumps(tiers)}")
     # -- persistence and the inference engine: the LSTM kernel in the
     # seq2seq's encoder, in training steps and in every decode
-    torch.cuda.empty_cache()
-    persist, persist_launches, persist_fails = persistence_phase(
-        torch, np, fluid, card)
-    failures += persist_fails
-    lstm_entry["launches"] += persist_launches
-    lstm_entry["launches_persistence"] = persist_launches
-    log(f"persistence phase ({persist['seconds']:.1f}s)")
+    if on(27):
+        torch.cuda.empty_cache()
+        persist, persist_launches, persist_fails = persistence_phase(
+            torch, np, fluid, card)
+        failures += persist_fails
+        lstm_entry["launches"] += persist_launches
+        lstm_entry["launches_persistence"] = persist_launches
+        log(f"persistence phase ({persist['seconds']:.1f}s)")
     # -- static analysis and cost: the ragged kernel in the served
     # generators and the int8 decode step, the flash kernels in the
     # Transformer steps
-    torch.cuda.empty_cache()
-    cost, cost_ragged, cost_flash, cost_fails = cost_phase(
-        torch, np, fluid, card, weights, srcs, programs,
-        (main_prog, loss, amp_prog, amp_loss, init),
-        persist["engine"]["off"].get("hbm"))
-    failures += cost_fails
-    log(f"cost phase ({cost['seconds']:.1f}s)")
-    kernels[0]["launches"] += spec_launches + tier_launches + cost_ragged
-    kernels[0]["launches_speculative"] = spec_launches
-    kernels[0]["launches_tiers"] = tier_launches
-    kernels[0]["launches_cost"] = cost_ragged
-    for row in kernels[1:]:
-        if row["name"].startswith("flash_attention_"):
-            k, _, dt = row["name"][len("flash_attention_"):].partition("_")
-            n = cost_flash["bfloat16" if dt else "float32"][k]
-            row["launches"] += n
-            row["launches_cost"] = n
-    # a verify step's ragged launches (its prefill tower and its
-    # k+1-query decode) and a 1-layer draft step's, over their steps in
-    # phase 25's float32 run, and their graphs' ragged nodes
-    kernels[0].update(spec_rec["per_step"])
+    if on(28):
+        torch.cuda.empty_cache()
+        cost, cost_ragged, cost_flash, cost_fails = cost_phase(
+            torch, np, fluid, card, weights, srcs, programs,
+            (main_prog, loss, amp_prog, amp_loss, init),
+            persist["engine"]["off"].get("hbm"))
+        failures += cost_fails
+        log(f"cost phase ({cost['seconds']:.1f}s)")
+    # -- the serving gateway and the compile cache: the ragged kernel in
+    # every served step, the LSTM kernel in every engine decode
+    if on(29):
+        torch.cuda.empty_cache()
+        if weights is None:
+            # phase 5's seeded weights, where phase 5 did not run
+            g = make_generator("cuda", "float32")
+            g.init_params(seed=SEED)
+            weights = fluid.scope_to_numpy(g.scope, list(g._param_vars()))
+            del g
+        gateway, gw_ragged, gw_lstm, gw_fails = gateway_phase(
+            torch, np, fluid, fa, card, weights, srcs,
+            logit_err.get("float32", LOGIT_ATOL["float32"]))
+        failures += gw_fails
+        if lstm_entry is not None:
+            lstm_entry["launches"] += gw_lstm
+            lstm_entry["launches_gateway"] = gw_lstm
+        log(f"gateway phase ({gateway['seconds']:.1f}s): "
+            f"{json.dumps(gateway)}")
+    if kernels is not None:
+        kernels[0]["launches"] += (spec_launches + tier_launches
+                                   + cost_ragged + gw_ragged)
+        kernels[0]["launches_speculative"] = spec_launches
+        kernels[0]["launches_tiers"] = tier_launches
+        kernels[0]["launches_cost"] = cost_ragged
+        kernels[0]["launches_gateway"] = gw_ragged
+        for row in kernels[1:]:
+            if row["name"].startswith("flash_attention_") and on(28):
+                k, _, dt = row["name"][len("flash_attention_"):].partition(
+                    "_")
+                n = cost_flash["bfloat16" if dt else "float32"][k]
+                row["launches"] += n
+                row["launches_cost"] = n
+        # a verify step's ragged launches (its prefill tower and its
+        # k+1-query decode) and a 1-layer draft step's, over their steps in
+        # phase 25's float32 run, and their graphs' ragged nodes
+        if spec_rec is not None:
+            kernels[0].update(spec_rec["per_step"])
 
-    print(json.dumps({"serving": {"card": card, "runs": runs,
-                                  "profile_in_turns": peaks}}), flush=True)
-    print(json.dumps({"beam": beam}), flush=True)
-    print(json.dumps({"training": training}), flush=True)
-    print(json.dumps({"training_bf16": training_bf16}), flush=True)
-    print(json.dumps({"book": book}), flush=True)
-    print(json.dumps({"lstm": lstm_rec}), flush=True)
-    print(json.dumps({"image": image}), flush=True)
-    print(json.dumps({"sparse": sparse}), flush=True)
-    print(json.dumps({"nmt": nmt}), flush=True)
-    print(json.dumps({"srl": srl}), flush=True)
-    print(json.dumps({"speech": speech}), flush=True)
-    print(json.dumps({"ssd": ssd}), flush=True)
-    print(json.dumps({"frcnn": frcnn}), flush=True)
-    print(json.dumps({"ranking": ranking}), flush=True)
-    print(json.dumps({"speculative": spec_rec}), flush=True)
-    print(json.dumps({"tiers": tiers}), flush=True)
-    print(json.dumps({"persistence": persist}), flush=True)
-    print(json.dumps({"cost": cost}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    log(f"chip_smoke: all phases in {time.perf_counter() - started:.1f}s")
+    lines = {"serving": {"card": card, "runs": runs,
+                         "profile_in_turns": peaks} if on(5) else None,
+             "beam": beam, "training": training,
+             "training_bf16": training_bf16, "book": book,
+             "lstm": lstm_rec, "image": image, "sparse": sparse,
+             "nmt": nmt, "srl": srl, "speech": speech, "ssd": ssd,
+             "frcnn": frcnn, "ranking": ranking, "speculative": spec_rec,
+             "tiers": tiers, "persistence": persist, "cost": cost,
+             "gateway": gateway, "kernels": kernels}
+    for name, rec in lines.items():
+        if rec is not None:
+            print(json.dumps({name: rec}), flush=True)
+    log(f"chip_smoke: phases {sorted(selected)} in "
+        f"{time.perf_counter() - started:.1f}s")
     if failures:
         for f in failures:
             log(f"chip_smoke: FAIL: {f}")

@@ -717,7 +717,9 @@ def block_byte_plan(view: ProgramView, block_idx: int = 0,
     — the pool/param write-back copy the in-place step avoids.
     Dying-transient reuse still applies either way.  The port's executor
     always writes in place (a captured step's state buffers are the
-    scope's tensors), so its estimates price the donating step.
+    scope's tensors); its serving estimates price the step without
+    donation where the executor mounts a compile cache only to admit
+    as the reference's do.
     """
     b = view.blocks[block_idx]
     plan = BlockBytePlan.__new__(BlockBytePlan)

@@ -89,6 +89,17 @@ where it does not (``ml_dtypes`` is not a dependency of the port).
 Checkpoints never go through the fetch: ``io.py`` writes a scope's
 tensors by their bits.
 
+The persistent tier (``fluid/compile_cache.py``): ``Executor(
+compile_cache=...)`` (None: the process default, ``PADDLE_TPU_AOT_CACHE``;
+False: none) is consulted at each new signature.  A stored record of the
+signature's plan, checked against the plan derived here, and the kernel
+libraries it names, restored and loaded without ``nvcc``, make a hit; a
+signature without a sound record, or a step that had to build a
+library, is a miss, and its record and libraries are stored.  Either way
+the step still runs eagerly once and is captured: a CUDA graph cannot
+be stored.  ``cache_stats()["persistent"]`` counts hits, misses, stores,
+the bytes the hits read and their load ms.
+
 Host IO ops (``save``, ``load``, ``save_combine``, ``load_combine``)
 run on the host outside the step, as in the reference: those before the
 block's first other op before it, those after its last op after it
@@ -116,7 +127,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import add_launches, launch_counts
+from ..kernels import _build, add_launches, launch_counts, libraries_of
 from .core.lod import NestedSeqArray, SeqArray
 from .core.selected_rows import SelectedRows
 from .core.types import runtime_dtype, torch_dtype
@@ -485,11 +496,12 @@ class Executor:
 
     def __init__(self, place: Union[CUDAPlace, CPUPlace, None] = None,
                  compile_cache=None):
-        if compile_cache not in (None, False):
-            raise NotImplementedError("Executor: compile_cache (the "
-                                      "reference's persistent AOT tier) is "
-                                      "not ported to paddle_tpu_torch")
         self.device = _place_device(place)
+        # persistent tier (fluid/compile_cache.py): None = the process
+        # default (PADDLE_TPU_AOT_CACHE / set_default_cache), False =
+        # disabled, a CompileCache = exactly it (the gateway registry
+        # mounts a per-version artifact cache)
+        self._compile_cache = compile_cache
         self.place = place if place is not None else CUDAPlace(
             self.device.index or 0)
         self._cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
@@ -498,6 +510,14 @@ class Executor:
         self._stats = {
             "executable": {"hits": 0, "misses": 0, "evictions": 0},
             "structure": {"hits": 0, "misses": 0, "evictions": 0},
+            # the persistent tier's view from THIS executor: hits =
+            # signatures whose record and kernel libraries loaded from
+            # disk, misses = signatures resolved without them while a
+            # cache was attached (a record not on disk, or a library
+            # nvcc had to build: the "compiles"), stores = records
+            # published back, bytes/load_ms = what the hits cost to read
+            "persistent": {"hits": 0, "misses": 0, "stores": 0,
+                           "bytes": 0, "load_ms": 0.0},
             # pre-flight analysis (validate=...): "runs" = analyses
             # performed, "cached" = steps that skipped re-analysis
             # because the (fingerprint, level) was already validated
@@ -513,19 +533,64 @@ class Executor:
         self._buffers: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
             weakref.WeakValueDictionary()
         self._holders: Dict[int, "weakref.ref[Scope]"] = {}
+        # the counter dicts above stay the hot path's source of truth;
+        # the metrics registry reads them at scrape time (this bound
+        # method held weakly: a collected executor stops contributing)
+        from ..observability.metrics import registry as _obs_registry
+
+        _obs_registry().register_collector(self._collect_metrics)
+
+    def _collect_metrics(self):
+        """Scrape-time view of cache_stats() as the reference's labeled
+        series; samples from every live executor sum into one rollup."""
+        from ..observability.metrics import Sample
+
+        for cache in ("executable", "structure"):
+            st = self._stats[cache]
+            for ev in ("hits", "misses", "evictions"):
+                yield Sample(
+                    "paddle_executor_cache_events_total", "counter",
+                    (("cache", cache), ("event", ev)), float(st[ev]),
+                    "Compiled-step / structure-classification cache events")
+        for ev in ("hits", "misses", "stores"):
+            yield Sample(
+                "paddle_executor_cache_events_total", "counter",
+                (("cache", "persistent"), ("event", ev)),
+                float(self._stats["persistent"][ev]),
+                "Compiled-step / structure-classification cache events")
+        for cache, size in (("executable", len(self._cache)),
+                            ("structure", len(self._cls_cache)),
+                            ("validated", len(self._validated))):
+            yield Sample("paddle_executor_cache_size", "gauge",
+                         (("cache", cache),), float(size),
+                         "Live entries per executor-side cache")
+        for ev in ("runs", "cached"):
+            yield Sample("paddle_executor_validate_total", "counter",
+                         (("event", ev),),
+                         float(self._stats["validate"][ev]),
+                         "Static-analysis pre-flight runs vs fingerprint "
+                         "cache hits")
 
     # -- caches ---------------------------------------------------------------
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
         """Counters of the executable cache (step signatures, each a
-        captured CUDA graph on the card) and the structure cache (the
-        block's plan per program, feed names and fetch names):
-        ``{'executable': {hits, misses, evictions, size}, 'structure':
-        {...}, 'validate': {runs, cached, size, by_level}}``, the
-        reference's blocks of the same names.  A hot training loop
-        converges to pure hits."""
+        captured CUDA graph on the card), the structure cache (the
+        block's plan per program, feed names and fetch names) and the
+        persistent compile cache: ``{'executable': {hits, misses,
+        evictions, size}, 'structure': {...}, 'persistent': {hits,
+        misses, stores, bytes, load_ms[, cache]}, 'validate': {runs,
+        cached, size, by_level}}``, the reference's blocks of the same
+        names.  A hot training loop converges to pure hits."""
         out = {k: dict(v) for k, v in self._stats.items()}
         out["executable"]["size"] = len(self._cache)
         out["structure"]["size"] = len(self._cls_cache)
+        out["persistent"]["load_ms"] = round(
+            out["persistent"]["load_ms"], 3)
+        aot = self._aot_cache()
+        if aot is not None:
+            # the attached directory's own view (shared with any other
+            # executor mounting the same dir) rides along for /statusz
+            out["persistent"]["cache"] = aot.stats()
         out["validate"]["size"] = len(self._validated)
         out["validate"]["by_level"] = {
             lv: dict(c) for lv, c in self._validate_by_level.items()}
@@ -570,6 +635,66 @@ class Executor:
             raise ProgramValidationError(diag,
                                          context=f"validate={level!r}")
         self._validated.add(key)
+
+    # -- the persistent tier ----------------------------------------------------
+    def set_compile_cache(self, cache) -> None:
+        """Attach (or with False, disable; with None, defer to the
+        process default) the persistent compile cache this executor
+        consults at each new signature."""
+        self._compile_cache = cache
+
+    def _aot_cache(self):
+        if self._compile_cache is False:
+            return None
+        if self._compile_cache is not None:
+            return self._compile_cache
+        from . import compile_cache as _cc
+
+        return _cc.default_cache()
+
+    def _persistent_key(self, aot, key) -> str:
+        return aot.entry_key((key, ("device", self.device.type)))
+
+    def _persistent_load(self, aot, key, plan: BlockPlan
+                         ) -> Optional[Dict[str, Any]]:
+        """The stored record of signature ``key`` when it is sound and
+        matches ``plan``, with every kernel library it names loaded from
+        disk (restored from the cache where not built yet); else None."""
+        from .compile_cache import plan_record
+
+        read0 = aot._stats["bytes_read"]
+        t0 = time.perf_counter()
+        record = aot.load(self._persistent_key(aot, key))
+        if record is None or record.get("plan") != plan_record(plan) \
+                or not aot.load_libraries(record.get("libraries", [])):
+            return None
+        pstats = self._stats["persistent"]
+        pstats["bytes"] += aot._stats["bytes_read"] - read0
+        pstats["load_ms"] += (time.perf_counter() - t0) * 1e3
+        return record
+
+    def _persistent_settle(self, aot, key, plan: BlockPlan, mode: str,
+                           record, launched, builds: int) -> None:
+        """After a new signature's first step: a hit when its record
+        loaded and the step built no library that record lacks; else a
+        miss (a compile), and the record and the libraries the step
+        launched are stored."""
+        from .compile_cache import _canon, plan_record
+
+        libs = libraries_of(launched)
+        pstats = self._stats["persistent"]
+        if record is not None and builds == 0 \
+                and set(libs) <= set(record.get("libraries", [])):
+            pstats["hits"] += 1
+            return
+        pstats["misses"] += 1
+        aot.store_libraries(libs)
+        if aot.store(self._persistent_key(aot, key),
+                     {"signature": _canon(key), "mode": mode,
+                      "device": self.device.type,
+                      "plan": plan_record(plan),
+                      "libraries": list(libs)}):
+            pstats["stores"] += 1
 
     def graphs(self) -> List[Any]:
         """The CUDA graphs of the cached steps, least recently used
@@ -844,8 +969,19 @@ class Executor:
         seeds = step_seeds(plan, *scope.next_rng_bits(program.random_seed))
         entry = self._lookup(key)
         if entry is None:
+            aot = self._aot_cache()
+            record = None if aot is None else \
+                self._persistent_load(aot, key, plan)
+            before = launch_counts()
+            builds = _build.stats["nvcc_builds"]
             entry, fetches = self._first_step(plan, fetch_names, mode, feed,
                                               state, seeds, scope)
+            if aot is not None:
+                after = launch_counts()
+                self._persistent_settle(
+                    aot, key, plan, mode, record,
+                    {k: n - before.get(k, 0) for k, n in after.items()},
+                    _build.stats["nvcc_builds"] - builds)
             if entry is not None:
                 self._store(key, entry)
         else:

@@ -7,14 +7,16 @@ Each wrapper counts its launches on a plain attribute of its function.
 ``launch_counts`` reads them all as one flat dict and ``add_launches``
 adds such a dict back: the executor uses the pair to take the launches
 that a CUDA graph capture records (and does not run) out of the counts,
-and to add them at every replay of the graph."""
+and to add them at every replay of the graph.  ``libraries_of`` names
+the built libraries (``_build``) behind the counters that such a dict
+moves: the compile cache stores those beside a step's record."""
 
 from __future__ import annotations
 
 import importlib
 from typing import Dict, Tuple
 
-__all__ = ["launch_counts", "add_launches"]
+__all__ = ["launch_counts", "add_launches", "libraries_of"]
 
 # (module, wrapper, attribute) of every launch counter: an int, or a dict
 # of ints, or a dict of such dicts
@@ -58,3 +60,23 @@ def add_launches(delta: Dict[Tuple, int]) -> None:
         for k in keys[:-1]:
             d = d[k]
         d[keys[-1]] += n
+
+
+def libraries_of(delta: Dict[Tuple, int]) -> Tuple[str, ...]:
+    """The kernel libraries whose launches ``delta`` (a
+    ``launch_counts``-shaped dict of differences) counts, sorted."""
+    fa = importlib.import_module(f"{__name__}.flash_attention")
+    lk = importlib.import_module(f"{__name__}.lstm")
+    # (module, wrapper) -> the library its launches run, or, for a
+    # counter keyed by kernel, {key: library}
+    library = {("flash_attention", "ragged_decode_attention"):
+               fa.KERNEL_NAME,
+               ("flash_attention", "flash_attention"): fa.FLASH_KERNELS,
+               ("lstm", "lstm_forward"): lk.KERNEL_NAME}
+    out = set()
+    for (mod, fn, attr, *keys), n in delta.items():
+        lib = library.get((mod, fn))
+        if not n or lib is None or attr != "launches":
+            continue
+        out.add(lib[keys[0]] if isinstance(lib, dict) else lib)
+    return tuple(sorted(out))

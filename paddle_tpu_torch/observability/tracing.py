@@ -1,19 +1,29 @@
 """Structured trace spans — the port's copy of
-``paddle_tpu/observability/tracing.py``.
+``paddle_tpu/observability/tracing.py``: ring-buffered, thread-safe,
+exportable as Chrome-trace / Perfetto JSON.
 
-``Tracer`` keeps a bounded ring of Chrome-trace event dicts: ``span``
-(an "X" complete event), ``instant`` (an "i" lifecycle mark: submitted,
-admitted, token, retired) and ``complete`` (an X event from timestamps
-taken elsewhere); ``events()`` reads them back.  Ids come from a
-process-local counter, so two runs that do the same work emit the same
-id sequence.  The reference's Chrome-trace export is not ported yet.
-Host-only: nothing here touches the device.
+``Tracer`` keeps a bounded ring of event dicts (append under one lock):
+
+* ``span(name, **args)`` — context manager emitting a Chrome "X"
+  (complete) event with microsecond ``ts``/``dur``;
+* ``instant(name, **args)`` — zero-duration "i" event (lifecycle marks:
+  submitted / admitted / token / retired);
+* ``complete(name, start, end, **args)`` — an X event from timestamps
+  recorded elsewhere (the scheduler builds the whole-request span from
+  the Request's own submitted/finished marks).
+
+Ids come from a process-local counter, so two runs that do the same
+work emit the same id sequence.  ``chrome_trace()`` emits the
+``{"traceEvents": [...]}`` JSON that chrome://tracing and Perfetto load
+(``/trace`` of the observability server).  Host-only: nothing here
+touches the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 import os
 import threading
 import time
@@ -22,7 +32,7 @@ from typing import Dict, List, Optional
 
 from ..utils.sync import RANK_TRACER, OrderedLock
 
-__all__ = ["Tracer", "tracer"]
+__all__ = ["Tracer", "tracer", "span", "instant"]
 
 
 class Tracer:
@@ -31,8 +41,8 @@ class Tracer:
     emit into a cheap no-op."""
 
     def __init__(self, capacity: int = 65536, enabled: bool = True):
-        # emits happen under the scheduler lock (instants from
-        # _retire_locked/_note_token), so the tracer ranks above it
+        # innermost-but-one rank: emits happen under the scheduler and
+        # router locks (span instants from _retire_locked/_note_token)
         self._lock = OrderedLock("obs.tracer", RANK_TRACER)
         self._events: deque = deque(maxlen=int(capacity))
         self._ids = itertools.count(1)
@@ -40,6 +50,7 @@ class Tracer:
         self.dropped = 0
         self._pid = os.getpid()
 
+    # -- emit ----------------------------------------------------------------
     def _emit(self, ev: Dict[str, object]) -> None:
         with self._lock:
             if len(self._events) == self._events.maxlen:
@@ -75,7 +86,8 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, cat: str = "", **args):
         """Time a block as one complete event.  Yields a mutable dict
-        merged into the event's args at exit."""
+        merged into the event's args at exit — fill in results computed
+        inside the block (token ids, counts)."""
         if not self.enabled:
             yield {}
             return
@@ -87,6 +99,19 @@ class Tracer:
             self.complete(name, t0, time.perf_counter(), cat=cat,
                           **{**args, **extra})
 
+    # -- control -------------------------------------------------------------
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self.dropped = 0
+
+    # -- export --------------------------------------------------------------
     def events(self, name: Optional[str] = None,
                cat: Optional[str] = None) -> List[Dict[str, object]]:
         """Snapshot of the ring (optionally filtered), oldest first."""
@@ -98,6 +123,16 @@ class Tracer:
             evs = [e for e in evs if e["cat"] == cat]
         return evs
 
+    def chrome_trace(self) -> Dict[str, object]:
+        return {"traceEvents": self.events(), "displayTimeUnit": "ms"}
+
+    def export(self, path: str) -> int:
+        """Write the Chrome-trace JSON; returns the event count."""
+        trace = self.chrome_trace()
+        with open(path, "w") as f:
+            json.dump(trace, f)
+        return len(trace["traceEvents"])
+
 
 _tracer = Tracer()
 
@@ -105,3 +140,12 @@ _tracer = Tracer()
 def tracer() -> Tracer:
     """The process-global tracer every instrumented surface shares."""
     return _tracer
+
+
+def span(name: str, cat: str = "", **args):
+    """Module-level shorthand for ``tracer().span(...)``."""
+    return _tracer.span(name, cat=cat, **args)
+
+
+def instant(name: str, cat: str = "", **args) -> None:
+    _tracer.instant(name, cat=cat, **args)

@@ -8,18 +8,31 @@ same spec and seed fire the same draws on every run, across processes,
 and in both packages.  An optional journal logs each draw for post-hoc
 replay checks.
 
-The port's code reaches one point so far:
+The port's code reaches these points:
 
   * ``kv.spill_corrupt`` — tear a suspended session's artifact as it is
                         read (serving/sessions.py): the checksum must
                         turn it into a miss (the resume degrades to a
-                        fresh prefill), never into wrong KV bytes.
+                        fresh prefill), never into wrong KV bytes;
+  * ``ckpt.truncate`` / ``io.publish`` — a torn checkpoint file, a
+                        crashed versioned-artifact publish
+                        (fluid/checkpoint.py, fluid/io.py);
+  * ``registry.load`` — fail a ModelRegistry.load before construction;
+  * ``gateway.swap``  — "crash" a Gateway.swap_model after the new
+                        version loaded and warmed but before the alias
+                        flip (the old version must keep serving);
+  * ``aot.corrupt``   — truncate a persistent compile-cache entry's
+                        bytes as they are read (fluid/compile_cache.py):
+                        the checksum must turn it into a miss that
+                        overwrites it, never load garbage;
+  * ``sync.preempt``  — seeded yield/sleep perturbation at lock
+                        acquire/release boundaries (armed via
+                        ``utils.sync.enable_preemption``).
 
-The reference threads its other points (``master.*``, ``ckpt.truncate``,
-``guard.*``, ``io.publish``, ``registry.load``, ``gateway.swap``,
-``aot.corrupt``, ``net.*``, ``coord.crash``, ``sync.preempt``) through
-modules the port has not taken on; the injector's actions for them are
-kept, so one spec configures both packages alike.
+The reference threads its other points (``master.*``, ``guard.*``,
+``net.*``, ``coord.crash``) through modules the port has not taken on;
+the injector's actions for them are kept, so one spec configures both
+packages alike.
 
 Configuration (environment, all off by default), the reference's:
 

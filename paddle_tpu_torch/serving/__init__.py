@@ -35,7 +35,8 @@ dense paths.
   (``quantize="int8"``: the post-training rewrite of
   ``fluid.transforms``).
 
-The gateway is not ported yet.
+The serving gateway (registry, router, journal, HTTP front end) is the
+subpackage ``serving.gateway``.
 """
 
 from .decoder import FullRerunDecoder, TransformerGenerator

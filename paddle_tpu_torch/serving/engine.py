@@ -24,9 +24,11 @@ finite:
 private host copy of its persistables: a caller's card tensors may be a
 captured graph's buffers and are never quantized in place.
 ``static_hbm_estimate`` is the cost model's plan of the served program,
-the number the scheduler admits the engine on.  Not ported (it raises,
-naming its queue item): ``preresolve(stop_on_compile=True)`` (it reads
-the persistent compile cache's misses, A10(b)).
+the number the gateway registry and the scheduler admit the engine on.
+``preresolve`` resolves the closed bucket set before traffic, through
+the executor's persistent compile cache when one is mounted
+(``stop_on_compile=True`` stops at the first signature the cache does
+not hold).
 """
 
 from __future__ import annotations
@@ -310,13 +312,18 @@ class InferenceEngine:
     def static_hbm_estimate(self, batch: Optional[int] = None):
         """Static peak-HBM plan of the served program at ``batch``
         (default: the largest configured batch bucket — the worst
-        signature this engine will ever dispatch).  The scheduler
-        budgets with this number.  Priced with the step's state written
-        in place, as the port's executor runs it."""
+        signature this engine will ever dispatch).  The gateway
+        registry and the scheduler budget with this number.  Priced
+        without in-place state writes when the executor mounts a
+        persistent compile cache, exactly as the reference prices it,
+        so the two registries admit alike; the port's captured step
+        writes in place either way, so that price is above the card's
+        by the state's write-back."""
         from ..fluid.analysis.cost import plan_program
 
         b = int(batch) if batch is not None else max(self.batch_buckets)
-        return plan_program(self.program, assume_batch=b)
+        return plan_program(self.program, assume_batch=b,
+                            assume_donation=self.exe._aot_cache() is None)
 
     def bucket_set(self, max_time: Optional[int] = None):
         """Enumerate the closed set of step signatures this engine can
@@ -369,17 +376,31 @@ class InferenceEngine:
         """Dispatch every signature in the closed bucket set once (via
         ``warmup`` — registers buckets without skewing hit counters), so
         each step is cached (captured, on the card) before traffic.
-        Returns the number of signatures resolved.
-        ``stop_on_compile=True`` (stop at the first miss of the
-        reference's persistent compile cache) raises."""
-        if stop_on_compile:
-            raise NotImplementedError(
-                "InferenceEngine.preresolve(stop_on_compile=True) reads the "
-                "persistent compile cache's misses, not ported to "
-                "paddle_tpu_torch (ROADMAP Queue A10(b))")
+        With a persistent compile cache attached to the executor, each
+        signature loads its stored record and kernel libraries instead
+        of building them; without one, this is the offline pass that
+        POPULATES the cache.  Returns the number of signatures resolved.
+
+        ``stop_on_compile=True`` bounds the pass to what the cache
+        actually holds: the first signature that MISSES the persistent
+        tier (a record not on disk, or a kernel library nvcc had to
+        build) ends the sweep, leaving the remaining buckets to lazy
+        per-request resolution — the caller wanted to LOAD a shipped
+        set, not synchronously build an unshipped one (``Gateway._warm``
+        on a partially pre-warmed artifact).  The one miss resolved is
+        stored back, so each restart heals one more bucket."""
         feeds = self.aot_bucket_feeds(max_time=max_time)
-        self.warmup(feeds)
-        return len(feeds)
+        if not stop_on_compile:
+            self.warmup(feeds)
+            return len(feeds)
+        n = 0
+        for feed in feeds:
+            before = self.exe.cache_stats()["persistent"]["misses"]
+            self.warmup([feed])
+            n += 1
+            if self.exe.cache_stats()["persistent"]["misses"] > before:
+                break
+        return n
 
     def cache_stats(self) -> Dict[str, Any]:
         """{'bucket_hits', 'bucket_misses', 'buckets': {key: count},

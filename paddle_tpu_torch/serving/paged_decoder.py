@@ -272,8 +272,10 @@ def estimate_generator_hbm(config: Dict, assume_lanes: int = None,
     are persistable vars with recorded shapes; activations price at
     ``assume_lanes`` in-flight lanes.  ``assume_donation=False`` prices
     a step without in-place state writes (pool/param write-backs get
-    fresh buffers); the port's executor always writes in place, so its
-    generators price the default.  ``verify_tokens``/``logit_masks``
+    fresh buffers): the reference's price of a step whose executor
+    mounts a persistent compile cache, which the gateway registry
+    charges for an artifact load (the port's executor writes in place
+    either way).  ``verify_tokens``/``logit_masks``
     price the speculative VERIFY shape of the program — K-token
     activations and the [lanes, K, vocab] mask feed.  A non-empty
     ``mesh_axes`` (or ``config["mesh_axes"]``) raises: the sharded plan
@@ -1421,20 +1423,27 @@ class PagedTransformerGenerator:
     def static_hbm_estimate(self, assume_lanes: int = None):
         """Static peak-HBM plan of the unified serving program (params
         + KV pool + int8 sidecar + per-step activations at
-        ``assume_lanes``) — the number the scheduler admits a lane group
-        on.  Priced with the step's state written in place, as the
-        port's executor runs it (a captured step's pool is the scope's
-        tensor): the reference's plan for an executor without a
-        persistent compile cache."""
+        ``assume_lanes``) — the number the gateway registry budgets
+        with and the scheduler admits a lane group on.  A generator
+        whose executor mounts a persistent compile cache is priced
+        WITHOUT in-place state writes, exactly as the reference prices
+        it (its cached executables dispatch that way), so the two
+        registries admit alike.  The port's captured step writes the
+        pool in place either way (its pool is the scope's tensor), so
+        with a cache mounted this estimate is above the card's by the
+        pool's write-back."""
         from ..fluid.analysis.cost import plan_program
 
         lanes = HBM_ESTIMATE_LANES if assume_lanes is None \
             else int(assume_lanes)
+        donation = self.exe._aot_cache() is None
+        key = ("_hbm_plan", lanes, donation)
         cached = getattr(self, "_static_hbm_cache", None)
-        if cached is not None and cached[0] == lanes:
+        if cached is not None and cached[0] == key:
             return cached[1]
-        plan = plan_program(self._unified[0], assume_batch=lanes)
-        self._static_hbm_cache = (lanes, plan)
+        plan = plan_program(self._unified[0], assume_batch=lanes,
+                            assume_donation=donation)
+        self._static_hbm_cache = (key, plan)
         return plan
 
     def kv_bytes_per_slot_dense(self) -> int:

@@ -800,20 +800,26 @@ class SpeculativeGenerator:
         """Joint static peak-HBM plan: the target priced at its VERIFY
         program shape + the draft at its masked decode shape — both
         pools, parameter sets and per-step activations are resident at
-        once, so the scheduler's budget is the sum.  Each half is priced
-        with its state written in place, as the port's executors run
-        it."""
+        once, so the registry's and the scheduler's budget is the sum.
+        Each half is priced without in-place state writes when ITS
+        executor mounts a persistent compile cache, as the reference's
+        are (the port's captured steps write in place either way)."""
         from ..fluid.analysis.cost import plan_program
 
         lanes = HBM_ESTIMATE_LANES if assume_lanes is None \
             else int(assume_lanes)
+        t_don = self.target.exe._aot_cache() is None
+        d_don = self.draft.exe._aot_cache() is None
+        key = ("_spec_hbm", lanes, t_don, d_don)
         cached = getattr(self, "_static_hbm_cache", None)
-        if cached is not None and cached[0] == lanes:
+        if cached is not None and cached[0] == key:
             return cached[1]
         plan = _CombinedPlan(
-            plan_program(self._verify[0], assume_batch=lanes),
-            plan_program(self._draft_prog[0], assume_batch=lanes))
-        self._static_hbm_cache = (lanes, plan)
+            plan_program(self._verify[0], assume_batch=lanes,
+                         assume_donation=t_don),
+            plan_program(self._draft_prog[0], assume_batch=lanes,
+                         assume_donation=d_don))
+        self._static_hbm_cache = (key, plan)
         return plan
 
     def kv_bytes_per_token(self) -> int:

@@ -133,13 +133,31 @@ ANALYSIS = {"paddle_tpu_torch.fluid.analysis",
             "paddle_tpu_torch.tools.plint"}
 
 
+# the modules of the serving gateway and compile cache slice
+GATEWAY = {"paddle_tpu_torch.utils.sync",
+           "paddle_tpu_torch.utils.journal",
+           "paddle_tpu_torch.observability.metrics",
+           "paddle_tpu_torch.observability.server",
+           "paddle_tpu_torch.fluid.compile_cache",
+           "paddle_tpu_torch.kernels._build",
+           "paddle_tpu_torch.serving.gateway",
+           "paddle_tpu_torch.serving.gateway.router",
+           "paddle_tpu_torch.serving.gateway.journal",
+           "paddle_tpu_torch.serving.gateway.registry",
+           "paddle_tpu_torch.serving.gateway.gateway",
+           "paddle_tpu_torch.serving.gateway.server",
+           "paddle_tpu_torch.tools.aot_compile",
+           "paddle_tpu_torch.tools.gateway",
+           "paddle_tpu_torch.tools.obs"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
     want = (SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS | PERSISTENCE
-            | ANALYSIS)
+            | ANALYSIS | GATEWAY)
     assert want <= names, want - names
 
 
@@ -462,8 +480,9 @@ def test_reference_only_parameters_are_taken_or_refused():
     ``use_mkldnn`` and ``flash_attention``'s ``block_q`` / ``block_k``
     are accepted and change nothing, ``keep_scale`` takes ``seed_u32``
     by name, ``append_backward``'s ``callbacks`` run on each op it
-    appends, and an ``impl`` other than None and ``Executor``'s
-    ``compile_cache`` raise."""
+    appends, an ``impl`` other than None raises, and ``Executor``'s
+    ``compile_cache`` is taken: the executor consults exactly that
+    cache (False: none)."""
     from paddle_tpu_torch.fluid.backward import append_backward
     from paddle_tpu_torch.kernels import flash_attention as fa
 
@@ -484,8 +503,14 @@ def test_reference_only_parameters_are_taken_or_refused():
     assert torch.equal(fa.keep_scale(seed_u32=3, bh=0, rows=rows,
                                      cols=rows.T, rate=0.5),
                        fa.keep_scale(3, 0, rows, rows.T, 0.5))
-    with pytest.raises(NotImplementedError, match="compile_cache"):
-        fluid.Executor(fluid.CPUPlace(), compile_cache=object())
+    from paddle_tpu_torch.fluid.compile_cache import CompileCache
+
+    cache = CompileCache(os.path.join(ROOT, "no-such-dir"))
+    exe = fluid.Executor(fluid.CPUPlace(), compile_cache=cache)
+    assert exe._aot_cache() is cache and cache.keys() == []
+    assert "cache" in exe.cache_stats()["persistent"]
+    assert fluid.Executor(fluid.CPUPlace(),
+                          compile_cache=False)._aot_cache() is None
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         x = fluid.layers.data("x", [4], "float32")

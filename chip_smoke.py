@@ -397,7 +397,37 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    unmounted by at least the pool; the decoder pre-warmed into its
    ``compiled/`` and loaded through the registry (its records loaded,
    ``infer`` bit for bit a direct decode, one ``lstm_fwd`` a decode);
-   ``/metrics``, ``/statusz`` and ``/healthz``.
+   ``/metrics``, ``/statusz`` and ``/healthz``;
+30. the closed train -> publish -> canary -> promote loop
+   (``lifecycle_phase``) on the Transformer-base at batch 64: 20
+   unguarded and 20 guarded float32 steps (10 each in the bf16 recipe)
+   from one scope, the two scopes bit for bit equal after every step,
+   each step one replay with 18 flash launches of each kernel, 0 host
+   syncs unguarded and 1 guarded (3 profiled steps each), the median
+   step ms and their ratio; a poisoned batch under ``skip`` (the state
+   bit for bit pre-step) and under ``rollback`` every 3 (bit for bit
+   the snapshot), ``health_stats()`` as scripted; a guarded
+   ``ResilientTrainer`` over a ``MasterServer`` / ``MasterClient`` on
+   localhost, uninterrupted and interrupted by a chaos fault at step 3
+   then resumed by a fresh trainer on the same checkpoints (bit for bit
+   the uninterrupted state, every chunk done), and ``escalate_after=1``
+   on a poisoned batch answered by a checkpoint restore; the trainer
+   publishing v1-v3 through ``GeneratorPublisher(aot_warm=8)`` (v3's
+   weights negated) and a ``ReleaseController`` on a serving
+   ``Gateway`` (8 slots): v1 promoted after its offline gate, v2
+   canaried at 0.25 on the 8 prompts (the seeded slice's 2 admissions)
+   and promoted, v3 canaried by a fresh controller re-armed from the
+   journal and rolled back on its quality probes, then
+   ``tools.lifecycle`` promote and rollback directives applied at the
+   next step; the ``CURRENT`` marker and the journal's events as
+   expected, no request lost, 18 ragged launches a lane step; phase
+   27's decoder as an engine candidate promoted directly (``infer``
+   bit for bit a direct decode, one ``lstm_fwd``); ``tools.gateway
+   serve --supervise 1`` in a process of its own on a copy of the
+   package with no built kernels, its child SIGKILLed with 4 streamed
+   requests in flight: respawned, the 4 replayed from its journal and
+   finished, no nvcc build (the library restored from v2's
+   ``compiled/``).
 
 ``--phases`` runs only the listed phases of this list and the phases
 they need (``PHASE_NEEDS``; phases 1 and 2 always run; 7-8, 12-15 and
@@ -410,7 +440,8 @@ It prints the card's name and power limit, a ``serving`` line, a
 line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
 line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
 line, a ``ranking`` line, a ``speculative`` line, a ``tiers`` line, a
-``persistence`` line, a ``cost`` line, a ``gateway`` line, a ``kernels``
+``persistence`` line, a ``cost`` line, a ``gateway`` line, a ``lifecycle``
+line (its ``summary`` first), a ``kernels``
 line (the flash
 kernels once
 in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
@@ -9275,13 +9306,986 @@ def gateway_phase(torch, np, fluid, fa, card, weights, srcs, logit_err):
     return rec, ragged, lstm, fails
 
 
+# -- phase 30: the closed train -> publish -> canary -> promote loop ---------
+
+# guarded against unguarded Transformer-base steps, from one scope: float32
+# and, fewer, the bf16 recipe
+GUARD_STEPS, GUARD_STEPS_BF16 = 20, 10
+# the watchdog's deadline for a training step (the first dispatch's eager
+# step and capture take seconds), and for the injected stall, which
+# sleeps LC_HANG_SECONDS on the worker thread
+LC_STEP_TIMEOUT, LC_HANG_TIMEOUT, LC_HANG_SECONDS = 120.0, 1.0, 3.0
+# tokens a release probe decodes
+LC_PROBE_NEW = 8
+
+
+def bit_diff(torch, a, b, names):
+    """The names among ``names`` whose values differ, bit for bit, between
+    ``a`` and ``b`` ({name: tensor} or Scopes; compared on the card)."""
+    def get(src, n):
+        v = src.find_var(n) if hasattr(src, "find_var") else src[n]
+        if v is not None and not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(__import__("numpy").ascontiguousarray(v))
+        return v if v is None or v.is_cuda else v.cuda()
+
+    out = []
+    for n in names:
+        x, y = get(a, n), get(b, n)
+        if x is None or y is None or x.dtype != y.dtype \
+                or x.shape != y.shape or not torch.equal(
+                    x.contiguous().reshape(-1).view(torch.uint8),
+                    y.contiguous().reshape(-1).view(torch.uint8)):
+            out.append(n)
+    return out
+
+
+def card_copy(torch, scope, names):
+    """{name: a clone on the card} of ``scope``'s tensors."""
+    return {n: scope.find_var(n).detach().clone() for n in names}
+
+
+def flash_launch_total(fa):
+    return sum(fa.flash_attention.launches.values())
+
+
+def guarded_training(torch, np, fluid, fa, amp, steps, init, rec, fails):
+    """(a) ``steps`` unguarded and guarded Transformer-base steps (batch
+    TRAIN_BATCH, the feed on the card, fetches left there) from one
+    initial scope, in turns: the two scopes bit for bit equal after every
+    step; each step one replay of its executor's one graph, 18 flash
+    launches; host syncs a step under torch.profiler (3 more steps each);
+    in float32 a third executor runs the same steps under the watchdog
+    (``step_timeout``: each dispatch, the first one's eager step and
+    capture included, on a worker thread) and is held to the same
+    checks, then a ``guard.hang`` stall must surface as StepTimeout
+    (``watchdog_hang``); then, guarded only, a poisoned batch under ``skip`` (the state bit
+    for bit pre-step) and two clean steps and a poisoned one under
+    ``rollback`` every 3 (the state bit for bit the snapshot), with
+    ``health_stats()`` against the script's counts.  -> (guarded
+    executor, its scope, the program, its loss).  ``init``: the startup
+    program's arrays (the float32 and bf16 programs share it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models.transformer import transformer
+    from paddle_tpu_torch.resilience import (FaultInjector, GuardPolicy,
+                                             install)
+
+    tag = "bf16" if amp else "float32"
+    main, _, loss = build_training(fluid, transformer, amp)
+    place = fluid.CUDAPlace(0)
+    feed = device_feed(torch, train_feed(np, TRAIN_BATCH),
+                       torch.device("cuda", 0))
+    scopes = {"plain": fluid.scope_from_numpy(init, place),
+              "guarded": fluid.scope_from_numpy(init, place)}
+    exes = {"plain": fluid.Executor(place), "guarded": fluid.Executor(place)}
+    skip = GuardPolicy("skip")
+    guards = {"plain": None, "guarded": skip}
+    if not amp:
+        scopes["watchdog"] = fluid.scope_from_numpy(init, place)
+        exes["watchdog"] = fluid.Executor(place)
+        guards["watchdog"] = GuardPolicy("skip",
+                                         step_timeout=LC_STEP_TIMEOUT)
+    names = sorted(n for n, v in scopes["plain"].vars.items()
+                   if isinstance(v, torch.Tensor))
+    times = {k: [] for k in scopes}
+    launches = {k: 0 for k in scopes}
+
+    def step(k):
+        return exes[k].run(main, feed=feed, fetch_list=[loss],
+                           scope=scopes[k], return_numpy=False,
+                           guard=guards[k])
+
+    def compare(when):
+        for k in scopes:
+            diff = bit_diff(torch, scopes["plain"], scopes[k], names) \
+                if k != "plain" else []
+            if diff:
+                return {"exe": k, "step": when, "vars": diff[:8],
+                        "n": len(diff)}
+        return None
+
+    diverged = None
+    for i in range(steps):
+        for k in scopes:
+            torch.cuda.synchronize()
+            n0 = flash_launch_total(fa)
+            t0 = time.perf_counter()
+            step(k)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+            launches[k] += flash_launch_total(fa) - n0
+        diverged = diverged or compare(i + 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SYNC_STEPS):
+            for k in scopes:
+                with torch.profiler.record_function(f"chip_smoke/{k}"):
+                    step(k)
+    torch.cuda.synchronize()
+    syncs = {k: host_syncs_in(prof.events(), f"chip_smoke/{k}") / SYNC_STEPS
+             for k in scopes}
+    diverged = diverged or compare("profiled")
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
+    out = {"steps": steps, "state_vars": len(names),
+           "state_bytes": sum(scopes["plain"].find_var(n).nbytes
+                              for n in names),
+           "step_ms_median": med,
+           "first_step_ms": {k: v[0] * 1e3 for k, v in times.items()},
+           "guard_ratio": med["guarded"] / med["plain"],
+           "watchdog_ratio": (med["watchdog"] / med["plain"]
+                              if "watchdog" in med else None),
+           "bitwise_every_step": diverged is None, "diverged": diverged,
+           "flash_launches_per_step": {k: v / steps
+                                       for k, v in launches.items()},
+           "host_syncs_per_step": syncs,
+           "executable": {k: exes[k].cache_stats()["executable"]
+                          for k in exes},
+           "graphs": {k: len(exes[k].graphs()) for k in exes}}
+    rec[f"guard_{tag}"] = out
+    log(f"lifecycle guarded training {tag}: {json.dumps(out)}")
+    total = steps + SYNC_STEPS
+    if diverged is not None or syncs["plain"] != 0 \
+            or any(syncs[k] != 1 for k in scopes if k != "plain") or any(
+                v != 3 * ATTN_PER_STEP for v in
+                out["flash_launches_per_step"].values()) \
+            or any(out["executable"][k]["misses"] != 1
+                   or out["executable"][k]["hits"] != total - 1
+                   or out["graphs"][k] != 1 for k in exes):
+        fails.append(f"lifecycle guarded training {tag}: {out}")
+    if "watchdog" in exes:
+        watchdog_hang(torch, main, feed, loss, exes, scopes, guards, names,
+                      rec, fails)
+        del exes["watchdog"], scopes["watchdog"]
+    gx, gs = exes["guarded"], scopes["guarded"]
+    del exes["plain"], scopes["plain"]
+    if amp:
+        return None
+    torch.cuda.empty_cache()
+
+    # a poisoned batch under skip: the state bit for bit pre-step
+    pre = card_copy(torch, gs, names)
+    install(FaultInjector(spec="guard.nan=1.0", seed=SEED))
+    try:
+        lv, = gx.run(main, feed=feed, fetch_list=[loss], scope=gs,
+                     guard=skip)
+    finally:
+        install(None)
+    skipped = bit_diff(torch, gs, pre, names)
+    # rollback every 3: two clean steps, then a poisoned one -> the state
+    # the first of the three started from
+    rb = GuardPolicy("rollback", snapshot_every=3)
+    for _ in range(2):
+        gx.run(main, feed=feed, fetch_list=[loss], scope=gs,
+               return_numpy=False, guard=rb)
+    moved = bit_diff(torch, gs, pre, names)
+    install(FaultInjector(spec="guard.nan=1.0", seed=SEED))
+    try:
+        gx.run(main, feed=feed, fetch_list=[loss], scope=gs,
+               return_numpy=False, guard=rb)
+    finally:
+        install(None)
+    rolled = bit_diff(torch, gs, pre, names)
+    want = {"guarded_steps": total + 4, "nonfinite_steps": 2, "skips": 1,
+            "rollbacks": 1, "escalations": 0, "watchdog_fires": 0,
+            "retries": 0}
+    rec["guard_recovery"] = {
+        "skip_loss_finite": bool(np.isfinite(lv).all()),
+        "skip_bitwise_pre_step": not skipped,
+        "clean_steps_moved": len(moved),
+        "rollback_bitwise_snapshot": not rolled,
+        "health_stats": gx.health_stats()}
+    log(f"lifecycle guard recovery: {json.dumps(rec['guard_recovery'])}")
+    if skipped or rolled or not moved or np.isfinite(lv).all() \
+            or gx.health_stats() != want:
+        fails.append(f"lifecycle guard recovery: {rec['guard_recovery']}, "
+                     f"want health {want}")
+    del pre
+    return gx, gs, main, loss
+
+
+def watchdog_hang(torch, main, feed, loss, exes, scopes, guards, names, rec,
+                  fails):
+    """A ``guard.hang`` stall of LC_HANG_SECONDS on the watchdog's worker
+    thread, under a rollback policy with an LC_HANG_TIMEOUT deadline:
+    StepTimeout (retry-safe: the stall came before the launch) before
+    the stall ends, one watchdog fire, the scope put back bit for bit to
+    its pre-step state (the last-good snapshot), and the next watchdog
+    step bit for bit the plain executor's step at the same seeds."""
+    from paddle_tpu_torch.resilience import (FaultInjector, GuardPolicy,
+                                             StepTimeout, install)
+
+    wx, ws = exes["watchdog"], scopes["watchdog"]
+    pre = card_copy(torch, ws, names)
+    fires = wx.health_stats()["watchdog_fires"]
+    policy = GuardPolicy("rollback", snapshot_every=1,
+                         step_timeout=LC_HANG_TIMEOUT)
+    install(FaultInjector(spec="guard.hang=1.0", seed=SEED,
+                          hang_seconds=LC_HANG_SECONDS))
+    err = None
+    t0 = time.perf_counter()
+    try:
+        wx.run(main, feed=feed, fetch_list=[loss], scope=ws,
+               return_numpy=False, guard=policy)
+    except StepTimeout as e:
+        err = e
+    finally:
+        install(None)
+    surfaced = time.perf_counter() - t0
+    restored = not bit_diff(torch, ws, pre, names)
+    del pre
+    # the abandoned step drew its seeds before its dispatch, as the
+    # reference's executor does, so the plain scope skips that step's
+    # seeds too
+    scopes["plain"].next_rng_bits(main.random_seed)
+    for k in ("plain", "watchdog"):
+        exes[k].run(main, feed=feed, fetch_list=[loss], scope=scopes[k],
+                    return_numpy=False, guard=guards[k])
+    after = bit_diff(torch, scopes["plain"], ws, names)
+    out = {"step_timeout_s": LC_HANG_TIMEOUT, "hang_s": LC_HANG_SECONDS,
+           "raised": type(err).__name__ if err is not None else None,
+           "retry_safe": getattr(err, "retry_safe", None),
+           "surfaced_s": surfaced, "scope_bitwise_pre_step": restored,
+           "watchdog_fires": wx.health_stats()["watchdog_fires"] - fires,
+           "next_step_bitwise_plain": not after}
+    rec["guard_watchdog"] = out
+    log(f"lifecycle guard watchdog: {json.dumps(out)}")
+    if err is None or not err.retry_safe or surfaced >= LC_HANG_SECONDS \
+            or not restored or out["watchdog_fires"] != 1 or after:
+        fails.append(f"lifecycle guard watchdog: {out}")
+
+
+def lc_records(np, chunk, n=2):
+    """A master chunk's records: ``n`` seeded training batches."""
+    out = []
+    for j in range(n):
+        rng = np.random.RandomState(SEED + 1000 * chunk + j)
+        pos = np.tile(np.arange(SEQ), (TRAIN_BATCH, 1))
+        out.append({"src_word": rng.randint(2, VOCAB, (TRAIN_BATCH, SEQ)),
+                    "src_pos": pos,
+                    "trg_word": rng.randint(2, VOCAB, (TRAIN_BATCH, SEQ)),
+                    "trg_pos": pos,
+                    "lbl_word": rng.randint(2, VOCAB, (TRAIN_BATCH, SEQ)),
+                    "lbl_weight": np.ones((TRAIN_BATCH, SEQ), np.float32)})
+    return out
+
+
+def lc_trainer(fluid, gx, main, loss, init, ckpt, queue, policy, scope,
+               fault_at=None, poison=(), publisher=None, every=0,
+               per_chunk=2, save_every=2):
+    """A ResilientTrainer on the guarded executor ``gx`` (its captured
+    graph serves every run here) over ``queue``, checkpointing every 2
+    steps into ``ckpt``.  A step's dropout masks are a function of the
+    global step (the scope's rng position is set from it), so a resumed
+    run draws what an uninterrupted one drew.  ``save_every``: the
+    checkpoint cadence in steps (a chunk's end and the run's last step
+    are checkpointed whatever it is).  ``fault_at``: a chaos
+    ``guard.fault`` at that step (no retry: StepFault); ``poison``: the
+    steps whose batch carries a NaN; ``per_chunk``: batches a chunk."""
+    import numpy as np
+
+    from paddle_tpu_torch.resilience import (FaultInjector,
+                                             ResilientTrainer, install)
+
+    trainer = ResilientTrainer(
+        ckpt, queue, lambda c: lc_records(np, c, per_chunk),
+        program=main, scope=scope, save_interval_steps=save_every,
+        max_to_keep=2,
+        poll_interval=0.02, guard=policy, guard_executor=gx,
+        publisher=publisher, publish_every_steps=every)
+
+    def train_step(rec, step):
+        scope._rng_step = step - 1
+        if step in poison:
+            rec = dict(rec, lbl_weight=rec["lbl_weight"].copy())
+            rec["lbl_weight"][0, 0] = float("nan")
+        if step == fault_at:
+            install(FaultInjector(spec="guard.fault=1.0", seed=SEED))
+        try:
+            gx.run(main, feed=rec, fetch_list=[loss], scope=scope,
+                   return_numpy=False, guard=policy)
+        finally:
+            install(None)
+
+    def init_fn():
+        fluid.scope_from_numpy(init, fluid.CUDAPlace(0), scope=scope)
+    return trainer, train_step, init_fn
+
+
+def master_part(torch, np, fluid, gx, main, loss, init, workdir, rec,
+                fails):
+    """(b) a guarded ResilientTrainer fed by a MasterServer through a
+    MasterClient on localhost, 2 chunks of 2 batches, interrupted by a
+    chaos fault at step 3 (the second chunk's first batch) and resumed
+    by a fresh trainer on the same checkpoint directory -> the final
+    state bit for bit that of the same 4 batches run straight through
+    (no trainer, no checkpoint), every chunk done, none failed; then
+    ``escalate_after=1`` on a poisoned batch -> NonFiniteEscalation,
+    answered by a restore of step 4's checkpoint (the state bit for bit
+    the checkpoint's, journaled)."""
+    from paddle_tpu_torch.parallel import (MasterClient, MasterServer,
+                                           TaskQueue)
+    from paddle_tpu_torch.resilience import GuardPolicy, StepFault
+
+    names = sorted(init)
+    skip = GuardPolicy("skip")
+    out = {}
+    t0 = time.perf_counter()
+    straight = fluid.scope_from_numpy(init, fluid.CUDAPlace(0))
+    batches = lc_records(np, 0) + lc_records(np, 1)
+    for step, feed in enumerate(batches, 1):
+        straight._rng_step = step - 1
+        gx.run(main, feed=feed, fetch_list=[loss], scope=straight,
+               return_numpy=False, guard=skip)
+    out["straight_s"] = time.perf_counter() - t0
+
+    q = TaskQueue(timeout_secs=120)
+    q.set_dataset([0, 1])
+    server = MasterServer(q, snapshot_path=os.path.join(workdir,
+                                                        "master.snap"))
+    addr = server.start()
+    ckpt = os.path.join(workdir, "ckpt")
+    runs, secs = [], []
+    try:
+        for fault in (3, None):
+            scope = fluid.Scope()           # a fresh process's scope
+            t, step_fn, init_fn = lc_trainer(
+                fluid, gx, main, loss, init, ckpt,
+                MasterClient(addr, worker="w0"), skip, scope,
+                fault_at=fault)
+            t0 = time.perf_counter()
+            try:
+                runs.append(t.run(step_fn, init_fn=init_fn))
+            except StepFault as e:
+                runs.append(f"StepFault: {str(e)[:60]}")
+            secs.append(time.perf_counter() - t0)
+        out["interrupted"] = {"runs": runs, "run_s": secs,
+                              "counts": q.counts(),
+                              "checkpoints": sorted(os.listdir(ckpt))}
+    finally:
+        server.stop()
+    diff = bit_diff(torch, straight, scope, names)
+    out["resumed_bitwise"] = not diff
+    out["differing"] = diff[:8]
+
+    # escalate_after=1: the third chunk's poisoned batch escalates; the
+    # trainer restores step 4's checkpoint and drains the queue
+    q = TaskQueue(timeout_secs=120)
+    q.set_dataset([2])
+    scope = fluid.Scope()
+    before = gx.health_stats()
+    t, step_fn, init_fn = lc_trainer(
+        fluid, gx, main, loss, init, ckpt, q,
+        GuardPolicy("skip", escalate_after=1), scope, poison=(5,),
+        per_chunk=1)
+    t0 = time.perf_counter()
+    final = t.run(step_fn, init_fn=init_fn)
+    journal = [json.loads(ln) for ln in open(t.guard_journal_path())]
+    esc = bit_diff(torch, scope, straight, names)
+    out["escalation"] = {"final_step": final, "journal": journal,
+                         "escalations": gx.health_stats()["escalations"]
+                         - before["escalations"],
+                         "state_bitwise_checkpoint": not esc,
+                         "differing": esc[:8], "counts": q.counts(),
+                         "run_s": time.perf_counter() - t0}
+    rec["master"] = out
+    log(f"lifecycle master: {json.dumps(out, default=str)}")
+    if not (out["resumed_bitwise"] and len(runs) == 2
+            and str(runs[0]).startswith("StepFault") and runs[1] == 4
+            and out["interrupted"]["counts"]["done"] == 2
+            and out["interrupted"]["counts"]["failed"] == 0
+            and out["escalation"]["escalations"] == 1
+            and out["escalation"]["state_bitwise_checkpoint"]
+            and [j["event"] for j in journal] == ["escalate-restore"]
+            and journal[0]["restored_step"] == 4
+            and out["escalation"]["counts"]["done"] == 1):
+        fails.append(f"lifecycle master and trainer: {out}")
+
+
+def lc_probe_refs(gen, prompts, max_new):
+    """Greedy answers of ``gen`` (the publisher's serving clone) to the
+    probe prompts: the references the live quality probes score against
+    (the freshest trained candidate's own answers)."""
+    import numpy as np
+
+    lens = np.array([len(p) for p in prompts], np.int32)
+    src = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        src[i, :len(p)] = p
+    out = np.asarray(gen.greedy(src, lens, max_new=max_new,
+                                stop_at_end=False))
+    return {tuple(int(t) for t in p): [int(t) for t in row]
+            for p, row in zip(prompts, out)}
+
+
+class LcPublisher:
+    """The trainer's publish hook for phase 30: a GeneratorPublisher
+    (``aot_warm`` at the gateway's lanes), the greedy references of the
+    probe prompts recorded at ``ref_step``, and at ``bad_step`` a
+    corrupt candidate — every parameter negated, finite — published in
+    the trained weights' place."""
+
+    def __init__(self, inner, params, probes, probe_max_new, ref_step,
+                 bad_step):
+        self.inner, self.params = inner, params
+        self.probes, self.probe_max_new = probes, probe_max_new
+        self.ref_step, self.bad_step = ref_step, bad_step
+        self.refs = None
+        self.ms = {}
+
+    def publish(self, step, program=None, scope=None):
+        from paddle_tpu_torch import fluid
+
+        t0 = time.perf_counter()
+        if step == self.bad_step:
+            bad = fluid.Scope()
+            for n in self.params:
+                bad.set_var(n, -scope.find_var(n))
+            scope = bad
+        version = self.inner.publish(step, program, scope)
+        self.ms[version] = (time.perf_counter() - t0) * 1e3
+        if step == self.ref_step:
+            self.refs = lc_probe_refs(self.inner._generator(), self.probes,
+                                      self.probe_max_new)
+        return version
+
+
+def publish_part(torch, np, fluid, gx, main, loss, init, workdir, srcs,
+                 rec, fails):
+    """(c), first half: a guarded trainer takes 3 steps and publishes
+    v1-v3 through ``GeneratorPublisher(aot_warm=N_SLOTS)`` (v3's weights
+    negated), checkpointing only at its end; the greedy answers of v2 to
+    the probe prompts are recorded at its publish.  -> (the store's
+    root, those references, the probe prompts)."""
+    from paddle_tpu_torch.lifecycle import GeneratorPublisher
+    from paddle_tpu_torch.parallel import TaskQueue
+    from paddle_tpu_torch.resilience import GuardPolicy
+
+    root = os.path.join(workdir, "store")
+    out = {}
+    probes = [[int(t) for t in p] for p in srcs[:2]]
+    params = [p.name for p in main.global_block().all_parameters()]
+    cfg = dict(src_vocab_size=VOCAB, trg_vocab_size=VOCAB,
+               kv_dtype="float32", param_prefix=TRAIN["param_prefix"],
+               **MODEL, **SERVE)
+    pub = LcPublisher(GeneratorPublisher(root, "tb", cfg,
+                                         place=fluid.CUDAPlace(0),
+                                         aot_warm=N_SLOTS),
+                      params, probes, LC_PROBE_NEW, ref_step=2,
+                      bad_step=3)
+    q = TaskQueue(timeout_secs=120)
+    q.set_dataset([3])
+    scope = fluid.Scope()
+    trainer, step_fn, init_fn = lc_trainer(
+        fluid, gx, main, loss, init, os.path.join(workdir, "ckpt_pub"), q,
+        GuardPolicy("skip"), scope, publisher=pub, every=1, per_chunk=4,
+        save_every=1000)
+    t0 = time.perf_counter()
+    final = trainer.run(step_fn, init_fn=init_fn, max_steps=3)
+    out["train_publish_s"] = time.perf_counter() - t0
+    out["published"] = fluid.io.list_model_versions(root, "tb")
+    out["publish_ms"] = pub.ms
+    out["compiled"] = {v: os.path.isdir(os.path.join(root, "tb", v,
+                                                     "compiled"))
+                       for v in out["published"]}
+    out["trained_steps"] = final
+    rec["publish"] = out
+    log(f"lifecycle publish: {json.dumps(out)}")
+    if out["published"] != ["1", "2", "3"] or final != 3 \
+            or not all(out["compiled"].values()) or pub.refs is None:
+        fails.append(f"lifecycle publish: {out}")
+    del scope, trainer
+    torch.cuda.empty_cache()
+    return root, pub.refs, probes
+
+
+def controller_part(torch, np, fluid, fa, main, workdir, root, refs, probes,
+                    srcs, rec, fails):
+    """(c), second half: a ReleaseController on a serving Gateway (8
+    slots) promotes v1 after its offline gate, canaries v2 at 0.25 on
+    the phase's 8 prompts and promotes it, canaries v3 and rolls it back
+    on its quality probes after a fresh controller re-armed it from the
+    journal; then operator promote and rollback directives through
+    ``tools.lifecycle``.  -> the gateway (still serving)."""
+    from paddle_tpu_torch.lifecycle import ReleaseConfig, ReleaseController
+    from paddle_tpu_torch.resilience import FaultInjector
+    from paddle_tpu_torch.serving.gateway import (Gateway, ModelRegistry,
+                                                  TenantRouter)
+    from paddle_tpu_torch.tools import lifecycle as lifecycle_cli
+
+    out = {}
+    params = [p.name for p in main.global_block().all_parameters()]
+
+    # the canary slice's seed: 2 of the 8 admissions to the canary
+    fraction = 0.25
+    seed = next(s for s in range(1000) if sum(
+        FaultInjector.decision(s, "canary.tb", i) < fraction
+        for i in range(N_REQUESTS)) == 2)
+    expect = ["canary" if FaultInjector.decision(seed, "canary.tb", i)
+              < fraction else "stable" for i in range(N_REQUESTS)]
+
+    def quality(prompt, tokens):
+        want = refs[tuple(int(t) for t in prompt)]
+        return sum(a == b for a, b in zip(tokens, want)) / len(want)
+
+    def finite(inst):
+        return float(all(bool(torch.isfinite(inst.scope.find_var(n)).all())
+                         for n in params
+                         if inst.scope.find_var(n) is not None))
+
+    rcfg = ReleaseConfig("tb", n_slots=N_SLOTS, canary_fraction=fraction,
+                         canary_requests=2, canary_timeout_s=300,
+                         p95_ratio=5.0, min_eval=1.0,
+                         max_quality_delta=0.25, probe_prompts=probes,
+                         probe_max_new=LC_PROBE_NEW, seed=seed)
+    jpath = os.path.join(workdir, "release.journal")
+    gw = Gateway(registry=ModelRegistry(root=root), router=TenantRouter(),
+                 n_slots=N_SLOTS, max_new_tokens=MAX_NEW)
+    gw.serve()
+    rc = ReleaseController(gw, rcfg, journal_path=jpath, eval_fn=finite,
+                           quality_fn=quality)
+    marks = []
+    steps = {}
+
+    def step(ctl, tag):
+        t = time.perf_counter()
+        r = ctl.step()
+        steps[tag] = {"result": r, "ms": (time.perf_counter() - t) * 1e3}
+        marks.append(fluid.io.current_model_version(root, "tb"))
+        return r
+
+    window = {"launches": 0, "steps": 0}
+
+    def traffic(ctl, tag):
+        """The 8 prompts at the alias, then the verdict step; the ragged
+        launches and lane steps of the window."""
+        n0 = fa.ragged_decode_attention.launches
+        s0 = gw.sched.stats()["steps"]
+        reqs = [gw.submit("tb", s, max_new=MAX_NEW) for s in srcs]
+        done = all(r.wait(300) for r in reqs)
+        slc = ctl._canary
+        routed = ["canary" if r.group == slc.canary_key else "stable"
+                  for r in reqs] if slc is not None else None
+        res = step(ctl, tag)
+        window["launches"] += fa.ragged_decode_attention.launches - n0
+        window["steps"] += gw.sched.stats()["steps"] - s0
+        return reqs, done, routed, res
+
+    step(rc, "v1")                               # promote after the gate
+    step(rc, "v2_arm")                           # canary v2
+    reqs2, done2, routed2, _ = traffic(rc, "v2_verdict")
+    t = time.perf_counter()
+    probe = gw.submit("tb", srcs[0], max_new=4)
+    probe.wait(120)
+    out["ttft_after_swap_ms"] = (probe.first_token - probe.submitted) * 1e3 \
+        if probe.first_token is not None else None
+    out["swap_to_first_token_ms"] = steps["v2_verdict"]["ms"] + \
+        (time.perf_counter() - t) * 1e3
+    step(rc, "v3_arm")                           # canary v3
+    # a fresh controller on the same journal, mid-canary: re-armed with
+    # the journaled fraction and seed
+    rc._uninstall_canary()
+    rc2 = ReleaseController(gw, rcfg, journal_path=jpath, eval_fn=finite,
+                            quality_fn=quality)
+    out["resume"] = rc2.resume()
+    out["rearmed"] = [rc2._canary.fraction, rc2._canary.seed] \
+        if rc2._canary is not None else None
+    # two Transformer-base versions resident: the registry's estimates
+    # and the card's peak so far
+    hbm = {"registry_used_bytes": gw.registry.stats()["hbm_used_bytes"],
+           "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    reqs3, done3, routed3, _ = traffic(rc2, "v3_verdict")
+    # operator directives, journaled by the lifecycle CLI
+    cli = ["--journal", jpath, "--model", "tb", "--root", root]
+    codes = [lifecycle_cli.main(["promote", "1"] + cli)]
+    step(rc2, "directive_promote")
+    codes.append(lifecycle_cli.main(["rollback", "2"] + cli))
+    step(rc2, "directive_rollback")
+    events = [(e["event"], e.get("version"), e.get("reason"))
+              for e in rc2.journal.replay()]
+    every = reqs2 + reqs3
+    out.update(
+        seed=seed, steps=steps, current_marker=marks, cli_codes=codes,
+        routed_v2=routed2, routed_v3=routed3, expected_routing=expect,
+        canary_stats=None if rc2._canary is None else rc2._canary.stats(),
+        lost=sum(not (r.done and r.error is None
+                      and len(r.tokens) == MAX_NEW) for r in every),
+        requests=len(every), traffic_done=bool(done2 and done3),
+        ragged_window=dict(window,
+                           per_step=window["launches"]
+                           / max(1, window["steps"])),
+        events=events, resolve=gw.registry.resolve("tb"),
+        hbm=hbm,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rec["release"] = out
+    log(f"lifecycle release: {json.dumps(out, default=str)}")
+    want_events = [
+        ("candidate", "1", None), ("promoted", "1", None),
+        ("candidate", "2", None), ("canary-start", "2", None),
+        ("promoted", "2", None), ("candidate", "3", None),
+        ("canary-start", "3", None), ("resume", None, None),
+        ("rollback", "3", "quality"), ("directive", "1", None),
+        ("promoted", "1", None), ("directive-done", None, None),
+        ("directive", "2", None), ("rollback", "1", "operator"),
+        ("directive-done", None, None)]
+    want_steps = {"v1": "promoted", "v2_arm": "canary-started",
+                  "v2_verdict": "promoted", "v3_arm": "canary-started",
+                  "v3_verdict": "rollback",
+                  "directive_promote": "directive-promote",
+                  "directive_rollback": "directive-rollback"}
+    if {k: v["result"] for k, v in steps.items()} != want_steps \
+            or marks != ["1", "1", "2", "2", "2", "1", "2"] \
+            or events != want_events or codes != [0, 0] \
+            or routed2 != expect or routed3 != expect \
+            or out["rearmed"] != [fraction, seed] \
+            or out["lost"] or not out["traffic_done"] \
+            or window["launches"] != ATTN_PER_STEP * window["steps"] \
+            or window["steps"] == 0 or out["resolve"] != "tb@2":
+        fails.append(f"lifecycle release loop: {out}")
+    return gw
+
+
+def engine_candidate_part(torch, np, fluid, gw, workdir, rec, fails):
+    """(e) phase 27's beam decoder (seeded) published as an engine
+    candidate (``CandidatePublisher``) and promoted directly by a
+    ReleaseController of its own alias on the same gateway: ``infer``
+    bit for bit a direct decode, one ``lstm_fwd`` a decode."""
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.lifecycle import (CandidatePublisher,
+                                            ReleaseConfig,
+                                            ReleaseController)
+    from paddle_tpu_torch.serving.gateway import ModelRegistry
+
+    _, startup, _, (dec, ids, scores) = build_nmt(
+        fluid, "attention_train_model", NMT_DICT, NMT_WORD, NMT_HIDDEN,
+        NMT_LR, NMT_BEAM, NMT_MAX_LEN)
+    scope = fluid.scope_from_numpy(initial_scope(fluid, startup),
+                                   fluid.CUDAPlace(0))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    root = os.path.join(workdir, "engines")
+    CandidatePublisher(root, "nmt", ["src"], [ids, scores], exe,
+                       main_program=dec, scope=scope).publish(1)
+    side = ModelRegistry(root=root)
+    kw = dict(batch_buckets=GW_ENGINE_BUCKETS, time_bucket=NMT_BUCKET)
+
+    def loader(version):
+        return side.instance(side.load("nmt", version, **kw))
+
+    rc = ReleaseController(gw, ReleaseConfig("nmt"), root=root,
+                           journal_path=os.path.join(workdir, "nmt.j"),
+                           loader=loader)
+    t0 = time.perf_counter()
+    result = rc.step()
+    promote_ms = (time.perf_counter() - t0) * 1e3
+    src = nmt_batch(np, fluid, np.random.RandomState(SEED + 30), NMT_BATCH,
+                    NMT_DICT)["src"]
+    torch.cuda.synchronize()
+    before = launch_counts()
+    got = gw.registry.instance("nmt").infer({"src": src})
+    launches = named_launches({k: n - before.get(k, 0)
+                               for k, n in launch_counts().items()})
+    want = exe.run(dec, feed={"src": src}, fetch_list=[ids, scores],
+                   scope=scope, mode="infer")
+    lstm = launches.pop(LSTM_COUNTER, 0)
+    out = {"result": result, "promote_ms": promote_ms,
+           "current": fluid.io.current_model_version(root, "nmt"),
+           "bitwise_direct": not _bitwise(np, _decode_parts(got),
+                                          _decode_parts(want)),
+           "lstm_launches_per_decode": lstm,
+           "other_kernel_launches": sum(launches.values())}
+    rec["engine_candidate"] = out
+    log(f"lifecycle engine candidate: {json.dumps(out)}")
+    if result != "promoted" or out["current"] != "1" \
+            or not out["bitwise_direct"] or lstm != 1 \
+            or out["other_kernel_launches"]:
+        fails.append(f"lifecycle engine candidate: {out}")
+    return lstm
+
+
+def lc_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def supervise_start(workdir, root, version):
+    """(d), first third: ``tools.gateway serve --supervise 1`` in a
+    process of its own, on a copy of the package with no built kernels,
+    serving ``version`` of the store's ``tb`` with a request journal ->
+    the handle ``supervise_kill`` and ``supervise_finish`` read."""
+    pkg = gw_package_copy(workdir, "supervised")
+    port = lc_free_port()
+    h = {"pkg": pkg, "addr": f"127.0.0.1:{port}",
+         "journal": os.path.join(workdir, "supervised.journal"),
+         "logs": os.path.join(workdir, "supervised_logs"),
+         "t0": time.time()}
+    argv = [sys.executable, "-m", "paddle_tpu_torch.tools.gateway", "serve",
+            "--root", root, "--model", f"tb={version}", "--port", str(port),
+            "--journal", h["journal"], "--slots", str(N_SLOTS),
+            "--max-new", str(MAX_NEW), "--supervise", "1",
+            "--log-dir", h["logs"]]
+    h["proc"] = subprocess.Popen(argv, cwd=pkg,
+                                 env=dict(os.environ, PYTHONPATH=pkg,
+                                          PYTHONUNBUFFERED="1"),
+                                 stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.DEVNULL)
+    return h
+
+
+def lc_status(addr, timeout=2):
+    try:
+        return json.loads(gw_get(addr, "/statusz", timeout))
+    except Exception:
+        return None
+
+
+def lc_wait_up(h, not_pid=None, timeout=240):
+    """The served gateway's /statusz once a child other than
+    ``not_pid`` answers it (None at the timeout)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        st = lc_status(h["addr"])
+        if st is not None and st.get("pid") != not_pid:
+            return st
+        if h["proc"].poll() is not None:
+            return None
+        time.sleep(0.2)
+    return None
+
+
+def supervise_kill(h, srcs):
+    """(d), second third: once the supervised gateway is up, 4 streamed
+    requests in flight (their first token read, their connections held
+    open) and the child SIGKILLed; the supervisor respawns it meanwhile.
+    Records into ``h``."""
+    import signal
+    import urllib.request
+
+    from paddle_tpu_torch.serving.gateway import RequestJournal
+
+    out = h["out"] = {}
+    h["conns"] = []
+    st = lc_wait_up(h)
+    out["first_up_s"] = time.time() - h["t0"]
+    if st is None:
+        out["error"] = "the supervised gateway never came up"
+        return
+    pid = h["pid"] = st["pid"]
+    try:
+        for src in srcs[:4]:
+            req = urllib.request.Request(
+                f"http://{h['addr']}/v1/generate",
+                data=json.dumps({"model": "tb",
+                                 "prompt": [int(t) for t in src],
+                                 "max_new": MAX_NEW,
+                                 "stream": True}).encode(),
+                headers={"Content-Type": "application/json"})
+            r = urllib.request.urlopen(req, timeout=120)
+            r.readline()                  # the first token: in flight
+            h["conns"].append(r)
+        out["pending_at_kill"] = len(RequestJournal(h["journal"]).pending())
+    except Exception as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+    h["t_kill"] = time.time()
+    os.kill(pid, signal.SIGKILL)
+
+
+def supervise_finish(h, rec, fails):
+    """(d), last third: the respawned child answers, has replayed the
+    journal's 4 unfinished requests and finished them; no nvcc build in
+    either child (the kernel library restored from the version's
+    ``compiled/`` cache: no build log in the copy's ``kernels/build/``).
+    Stops both processes."""
+    from paddle_tpu_torch.serving.gateway import RequestJournal
+
+    out = h.get("out", {})
+    try:
+        if "pid" in h:
+            st = lc_wait_up(h, not_pid=h["pid"])
+            out["restart_s"] = time.time() - h["t_kill"]
+            out["new_pid"] = None if st is None else st["pid"]
+            deadline = time.time() + 120
+            left = None
+            while time.time() < deadline:
+                left = len(RequestJournal(h["journal"]).pending())
+                if left == 0:
+                    break
+                time.sleep(0.2)
+            out["pending_after"] = left
+        log_text = ""
+        for root_, _, files in os.walk(h["logs"]):
+            for f in files:
+                log_text += open(os.path.join(root_, f)).read()
+        out["recovered_lines"] = [ln for ln in log_text.splitlines()
+                                  if ln.startswith("recovered")]
+        build = os.path.join(h["pkg"], "paddle_tpu_torch", "kernels",
+                             "build")
+        files = os.listdir(build) if os.path.isdir(build) else []
+        out["nvcc_build_logs"] = sorted(f for f in files
+                                        if f.endswith(".log"))
+        out["libraries"] = sorted(f for f in files if f.endswith(".so"))
+    except Exception as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        for c in h.get("conns", []):
+            try:
+                c.close()
+            except Exception:
+                pass
+        supervise_stop(h)
+    rec["supervise"] = out
+    log(f"lifecycle supervise: {json.dumps(out)}")
+    if out.get("error") or out.get("new_pid") is None \
+            or out.get("pending_at_kill") != 4 \
+            or out.get("pending_after") != 0 \
+            or out.get("recovered_lines") != [
+                "recovered 4 journaled request(s)"] \
+            or out.get("nvcc_build_logs") or not out.get("libraries"):
+        fails.append(f"lifecycle supervise: {out}")
+
+
+def supervise_stop(h):
+    """Stop the supervisor (an interrupt: it stops its child first),
+    then anything left of either."""
+    import signal
+
+    proc = h["proc"]
+    child = lc_status(h["addr"], timeout=1)
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if child is not None:
+        try:
+            os.kill(child["pid"], signal.SIGKILL)
+        except OSError:
+            pass
+
+
+def lifecycle_summary(rec):
+    """The figures the ``lifecycle`` line leads with (None where a part
+    did not get that far)."""
+    def get(*path):
+        v = rec
+        for k in path:
+            if not isinstance(v, dict) or k not in v:
+                return None
+            v = v[k]
+        return v
+
+    routed = [get("release", k) or [] for k in ("routed_v2", "routed_v3")]
+    health = rec.get("health_stats") or {}
+    return {
+        "card": rec.get("card"),
+        "guard_ratio_float32": get("guard_float32", "guard_ratio"),
+        "guard_ratio_bf16": get("guard_bf16", "guard_ratio"),
+        "guard_state_bytes": get("guard_float32", "state_bytes"),
+        "watchdog_ratio": get("guard_float32", "watchdog_ratio"),
+        "hang_surfaced_s": get("guard_watchdog", "surfaced_s"),
+        "skips": health.get("skips"),
+        "rollbacks": health.get("rollbacks"),
+        "escalations": health.get("escalations"),
+        "promote_v1_ms": get("release", "steps", "v1", "ms"),
+        "promote_v2_ms": get("release", "steps", "v2_verdict", "ms"),
+        "rollback_v3_ms": get("release", "steps", "v3_verdict", "ms"),
+        "ttft_after_swap_ms": get("release", "ttft_after_swap_ms"),
+        "canary_admissions": [r.count("canary") for r in routed],
+        "requests_lost": get("release", "lost"),
+        "supervise_restart_s": get("supervise", "restart_s"),
+        "seconds": rec.get("seconds")}
+
+
+def lifecycle_phase(torch, np, fluid, fa, card, weights, srcs):
+    """Phase 30: the closed train -> publish -> canary -> promote loop on
+    the Transformer-base.  -> (the ``lifecycle`` record, flash launches
+    {float32, bfloat16} x {fwd, dq, dkv}, ragged launches, lstm_fwd
+    launches, failures)."""
+    t_phase = time.perf_counter()
+    fails = []
+    rec = {"card": card}
+    fa.flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    by_dtype = fa.flash_attention.launches_by_dtype
+    for dt in by_dtype:
+        by_dtype[dt] = {"fwd": 0, "dq": 0, "dkv": 0}
+    fa.ragged_decode_attention.launches = 0
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    sup = None
+    lstm = 0
+    try:
+        # (a) guarded training, bf16 then float32 (its executor serves
+        # the trainers below: one captured graph)
+        t0 = time.perf_counter()
+        from paddle_tpu_torch.models.transformer import transformer
+
+        init = initial_scope(fluid, build_training(fluid, transformer)[1])
+        guarded_training(torch, np, fluid, fa, AMP, GUARD_STEPS_BF16, init,
+                         rec, fails)
+        torch.cuda.empty_cache()
+        gx, gs, main, loss = guarded_training(
+            torch, np, fluid, fa, None, GUARD_STEPS, init, rec, fails)
+        del gs
+        rec["guard_seconds"] = time.perf_counter() - t0
+        # (c) first half: v1-v3 published; (d) starts on v2 and comes up
+        # while (b) trains
+        t0 = time.perf_counter()
+        root, refs, probes = publish_part(torch, np, fluid, gx, main, loss,
+                                          init, workdir, srcs, rec, fails)
+        rec["publish_seconds"] = time.perf_counter() - t0
+        sup = supervise_start(workdir, root, "2")
+        t0 = time.perf_counter()
+        master_part(torch, np, fluid, gx, main, loss, init, workdir, rec,
+                    fails)
+        rec["master_seconds"] = time.perf_counter() - t0
+        rec["health_stats"] = gx.health_stats()
+        del gx
+        torch.cuda.empty_cache()
+        # (d): requests in flight, the child killed; it restarts while
+        # (c)'s controller and (e) run
+        supervise_kill(sup, srcs)
+        t0 = time.perf_counter()
+        gw = controller_part(torch, np, fluid, fa, main, workdir, root,
+                             refs, probes, srcs, rec, fails)
+        rec["release_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lstm = engine_candidate_part(torch, np, fluid, gw, workdir, rec,
+                                     fails)
+        rec["engine_seconds"] = time.perf_counter() - t0
+        gw.shutdown(timeout=60)
+        del gw
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        supervise_finish(sup, rec, fails)
+        rec["supervise_wait_seconds"] = time.perf_counter() - t0
+        sup = None
+    finally:
+        if sup is not None:
+            supervise_stop(sup)
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flash = {dt: dict(n) for dt, n in by_dtype.items()}
+    ragged = fa.ragged_decode_attention.launches
+    rec["flash_launches"] = flash
+    rec["ragged_launches"] = ragged
+    rec["lstm_launches"] = lstm
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec = {"summary": lifecycle_summary(rec), **rec}
+    return rec, flash, ragged, lstm, fails
+
+
 # phases another phase needs: their records, scopes or programs
 PHASE_NEEDS = {6: {5}, 8: {7}, 9: {7}, 11: {3, 4, 7, 9}, 13: {12}, 14: {12},
                15: {12}, 18: {12}, 19: {12}, 25: {5}, 26: {5},
                27: {12}, 28: {5, 7, 9, 27}}
 # phases that run as one block
 PHASE_GROUPS = ({7, 8}, {12, 13, 14, 15}, {22, 23, 24})
-N_PHASES = 29
+N_PHASES = 30
 
 
 def select_phases(spec):
@@ -9992,9 +10996,29 @@ def main() -> int:
             lstm_entry["launches_gateway"] = gw_lstm
         log(f"gateway phase ({gateway['seconds']:.1f}s): "
             f"{json.dumps(gateway)}")
+    # -- the closed train -> publish -> canary -> promote loop: the flash
+    # kernels in every guarded step, the ragged kernel in every served
+    # version, the LSTM kernel in the engine candidate's decode
+    lifecycle = None
+    lc_flash, lc_ragged = None, 0
+    if on(30):
+        torch.cuda.empty_cache()
+        if weights is None:
+            g = make_generator("cuda", "float32")
+            g.init_params(seed=SEED)
+            weights = fluid.scope_to_numpy(g.scope, list(g._param_vars()))
+            del g
+        lifecycle, lc_flash, lc_ragged, lc_lstm, lc_fails = lifecycle_phase(
+            torch, np, fluid, fa, card, weights, srcs)
+        failures += lc_fails
+        if lstm_entry is not None:
+            lstm_entry["launches"] += lc_lstm
+            lstm_entry["launches_lifecycle"] = lc_lstm
+        log(f"lifecycle phase ({lifecycle['seconds']:.1f}s)")
     if kernels is not None:
         kernels[0]["launches"] += (spec_launches + tier_launches
-                                   + cost_ragged + gw_ragged)
+                                   + cost_ragged + gw_ragged + lc_ragged)
+        kernels[0]["launches_lifecycle"] = lc_ragged
         kernels[0]["launches_speculative"] = spec_launches
         kernels[0]["launches_tiers"] = tier_launches
         kernels[0]["launches_cost"] = cost_ragged
@@ -10006,6 +11030,12 @@ def main() -> int:
                 n = cost_flash["bfloat16" if dt else "float32"][k]
                 row["launches"] += n
                 row["launches_cost"] = n
+            if row["name"].startswith("flash_attention_") and on(30):
+                k, _, dt = row["name"][len("flash_attention_"):].partition(
+                    "_")
+                n = lc_flash["bfloat16" if dt else "float32"][k]
+                row["launches"] += n
+                row["launches_lifecycle"] = n
         # a verify step's ragged launches (its prefill tower and its
         # k+1-query decode) and a 1-layer draft step's, over their steps in
         # phase 25's float32 run, and their graphs' ragged nodes
@@ -10020,7 +11050,8 @@ def main() -> int:
              "nmt": nmt, "srl": srl, "speech": speech, "ssd": ssd,
              "frcnn": frcnn, "ranking": ranking, "speculative": spec_rec,
              "tiers": tiers, "persistence": persist, "cost": cost,
-             "gateway": gateway, "kernels": kernels}
+             "gateway": gateway, "lifecycle": lifecycle,
+             "kernels": kernels}
     for name, rec in lines.items():
         if rec is not None:
             print(json.dumps({name: rec}), flush=True)

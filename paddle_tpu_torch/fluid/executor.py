@@ -100,6 +100,19 @@ the step still runs eagerly once and is captured: a CUDA graph cannot
 be stored.  ``cache_stats()["persistent"]`` counts hits, misses, stores,
 the bytes the hits read and their load ms.
 
+Guarded steps (``run(..., guard=GuardPolicy(...))``,
+``resilience/guardrails.py``): a guarded signature is an entry of its
+own whose body saves a pre-step copy of every state entry the step
+writes, runs the ops, computes the finiteness sentinel over the loss,
+the gradients and the updated parameters, and writes ``torch.where(flag,
+new, pre)`` back in place; on the card all of it is the one captured
+graph, and the host reads the flag once after the replay (under the
+policy's watchdog thread, on the caller's stream, when it has a
+``step_timeout``).  A bad step publishes no write-only persistable;
+skip, rollback (a device snapshot every ``snapshot_every`` steps),
+raise and escalation follow the reference, counted in
+``health_stats()`` and the ``paddle_guardrail_events_total`` series.
+
 Host IO ops (``save``, ``load``, ``save_combine``, ``load_combine``)
 run on the host outside the step, as in the reference: those before the
 block's first other op before it, those after its last op after it
@@ -469,7 +482,7 @@ class _Entry:
 
     __slots__ = ("plan", "fetch_names", "mode", "feeds", "seeds",
                  "seeds_host", "state", "graph", "fetches", "out",
-                 "launches")
+                 "launches", "guard")
 
     def __init__(self, plan: BlockPlan, fetch_names: List[str], mode: str):
         self.plan = plan
@@ -483,6 +496,9 @@ class _Entry:
         self.fetches: List[Any] = []
         self.out: Dict[str, Any] = {}
         self.launches: Dict[tuple, int] = {}
+        # a guarded signature's GuardedStep (resilience/guardrails.py):
+        # its pre-step copies and health flag, run in the body
+        self.guard = None
 
 
 class Executor:
@@ -533,6 +549,17 @@ class Executor:
         self._buffers: "weakref.WeakValueDictionary[int, torch.Tensor]" = \
             weakref.WeakValueDictionary()
         self._holders: Dict[int, "weakref.ref[Scope]"] = {}
+        # guardrail counters (health_stats()) and the per-(program,
+        # scope) guard contexts: the rollback snapshot and the
+        # consecutive-bad-step counter.  Keyed by program fingerprint
+        # with the owning scope held weakly — a snapshot of program A's
+        # state must never be republished into program B's scope
+        self._health = {"guarded_steps": 0, "nonfinite_steps": 0,
+                        "skips": 0, "rollbacks": 0, "escalations": 0,
+                        "watchdog_fires": 0, "retries": 0}
+        self._guard_ctxs: "OrderedDict[tuple, dict]" = OrderedDict()
+        # (prog fp, fetch names, policy.check) -> sentinel check names
+        self._guard_names: Dict[tuple, tuple] = {}
         # the counter dicts above stay the hot path's source of truth;
         # the metrics registry reads them at scrape time (this bound
         # method held weakly: a collected executor stops contributing)
@@ -570,6 +597,21 @@ class Executor:
                          float(self._stats["validate"][ev]),
                          "Static-analysis pre-flight runs vs fingerprint "
                          "cache hits")
+        for ev, v in self._health.items():
+            yield Sample("paddle_guardrail_events_total", "counter",
+                         (("event", ev),), float(v),
+                         "Guardrail sentinel/recovery counters "
+                         "(health_stats)")
+
+    def health_stats(self) -> Dict[str, int]:
+        """Guardrail counters (see resilience/guardrails.py):
+        guarded_steps (dispatches run under a GuardPolicy),
+        nonfinite_steps (health flag came back False), skips /
+        rollbacks / escalations (recovery actions taken),
+        watchdog_fires (dispatch deadline expiries), retries
+        (transient-fault re-dispatches).  Deltas over a training window
+        are the divergence telemetry the reference never had."""
+        return dict(self._health)
 
     # -- caches ---------------------------------------------------------------
     def cache_stats(self) -> Dict[str, Dict[str, int]]:
@@ -808,10 +850,15 @@ class Executor:
         plan = entry.plan
         env = dict(entry.state)
         env.update(entry.feeds)
+        guard = entry.guard
         with torch.no_grad():
+            if guard is not None:
+                guard.save(entry.state)
             run_block_ops(plan, env, entry.seeds_host, entry.seeds,
                           self.device, entry.mode)
             _own_outputs(plan, env, entry.state, entry.feeds)
+            if guard is not None:
+                guard.gate(env)
             for n in plan.state_out:
                 if n in entry.state and env[n] is not entry.state[n]:
                     for d, x in zip(_tensors(entry.state[n]),
@@ -821,11 +868,18 @@ class Executor:
         entry.fetches = [env[n] for n in entry.fetch_names]
 
     def _first_step(self, plan, fetch_names, mode, feed, state, seeds,
-                    scope) -> Tuple[Optional[_Entry], List[Any]]:
+                    scope, guard=None
+                    ) -> Tuple[Optional[_Entry], List[Any], bool]:
         """A miss: run the step eagerly on the scope's tensors, then give
         the entry its buffers and, on the card, capture the graph.
         Returns the entry (None for a step that moved its own state to
-        another signature) and the eager step's fetches."""
+        another signature), the eager step's fetches and its health
+        (True unguarded).  With ``guard`` (a GuardedStep) the step saves
+        its pre-step copies first and gates its state after the ops, as
+        every replay of the captured body does; a step whose flag comes
+        back False publishes no write-only persistable."""
+        from ..resilience import guardrails as gr
+
         entry = _Entry(plan, fetch_names, mode)
         dev = self.device
         entry.feeds = {n: _empty_like(v, dev) for n, v in feed.items()}
@@ -836,13 +890,23 @@ class Executor:
         env.update(entry.feeds)
         # a host sync would break the capture: raise at it, naming its op
         # (a host draw copies to the card, and is never captured)
-        guard = (_sync_errors() if dev.type == "cuda"
-                 and not plan.host_rng_ops else contextlib.nullcontext())
-        with torch.no_grad(), guard:
+        no_sync = (_sync_errors() if dev.type == "cuda"
+                   and not plan.host_rng_ops else contextlib.nullcontext())
+        if guard is not None:
+            guard.save(state)
+            gr.mark_launched(state)
+        with torch.no_grad(), no_sync:
             run_block_ops(plan, env, seeds, entry.seeds, dev, mode)
             _own_outputs(plan, env, state, entry.feeds)
+            if guard is not None:
+                guard.gate(env)
+        healthy = True
+        if guard is not None:
+            healthy = guard.read()
+            gr.mark_launched(state, False)
         for n in plan.state_out:
-            scope.set_var(n, env[n])
+            if healthy or n in state:
+                scope.set_var(n, env[n])
         # a fed value is the feed buffer, which the next step overwrites,
         # and a state value the buffer the next step updates
         fetches = [_clone(env[n]) if n in feed or n in state else env[n]
@@ -854,7 +918,7 @@ class Executor:
             # float32 after a batch_norm step), so the scope has left
             # this signature and no later step can replay it: neither
             # captured nor cached
-            return None, fetches
+            return None, fetches, healthy
         # the state buffers: the scope's tensors where the step read them
         # or wrote them in place, else the entry's own copies
         for n, v in state.items():
@@ -866,11 +930,12 @@ class Executor:
         # the eager step's intermediates go before the capture makes its
         # own, so the peak holds one step's activations, not two
         del env
+        entry.guard = guard
         if dev.type == "cuda" and not plan.host_rng_ops \
                 and not plan.host_loops and not plan.prints:
             self._capture(entry)
         self._publish(entry, scope, out=False)
-        return entry, fetches
+        return entry, fetches, healthy
 
     def _capture(self, entry: _Entry) -> None:
         before = launch_counts()
@@ -894,16 +959,20 @@ class Executor:
         add_launches({k: -n for k, n in entry.launches.items()})
         entry.graph = graph
 
-    def _publish(self, entry: _Entry, scope: Scope, out: bool = True
-                 ) -> None:
+    def _publish(self, entry: _Entry, scope: Scope, out: bool = True,
+                 healthy: bool = True) -> None:
         """After a step: the scope's vars are the entry's buffers (a
         state var the step only reads, where the scope itself holds it).
         With ``out``, the state vars the step wrote too (a var the block
-        writes and never reads as a copy); the eager first step has set
-        those already."""
+        writes and never reads as a copy; not after a guarded step whose
+        flag came back False: such a var has no pre-step twin to gate);
+        the eager first step has set those already."""
         if out:
             for n, v in entry.out.items():
-                scope.set_var(n, v if n in entry.state else _clone(v))
+                if n in entry.state:
+                    scope.set_var(n, v)
+                elif healthy:
+                    scope.set_var(n, _clone(v))
         held = weakref.ref(scope)
         for n, v in entry.state.items():
             if n in scope.vars:
@@ -935,6 +1004,13 @@ class Executor:
     def _replay(self, entry: _Entry, state, scope: Scope) -> List[Any]:
         """A hit: the entry's step on its buffers (the graph on the
         card).  Returns the fetches, copied out of the buffers."""
+        self._check_replayable(entry)
+        self._bind(entry, state, scope)
+        self._launch(entry)
+        self._publish(entry, scope)
+        return [_clone(f) for f in entry.fetches]
+
+    def _check_replayable(self, entry: _Entry) -> None:
         if entry.plan.host_rng_ops and self.device.type == "cuda":
             raise NotImplementedError(
                 f"Executor: this program holds "
@@ -942,8 +1018,15 @@ class Executor:
                 f"draws on the host: a replay would repeat its first draw. "
                 f"Run such a program (a startup program) once per "
                 f"executor on the card, or on CPUPlace")
-        self._bind(entry, state, scope)
+
+    def _launch(self, entry: _Entry) -> None:
+        """The entry's step on its bound buffers: one graph replay on the
+        card, the body eagerly where there is no graph."""
         if entry.graph is not None:
+            if entry.guard is not None:
+                # a replay's pre-step copies are never known complete
+                # from the host (GuardedStep.restore)
+                entry.guard.saved = False
             entry.graph.replay()
             add_launches(entry.launches)
         elif self.device.type == "cuda":
@@ -954,12 +1037,13 @@ class Executor:
                 self._body(entry)
         else:
             self._body(entry)
-        self._publish(entry, scope)
-        return [_clone(f) for f in entry.fetches]
 
-    def _step(self, program, feed, fetch_list, scope, mode) -> List[Any]:
+    def _step(self, program, feed, fetch_list, scope, mode,
+              policy=None) -> List[Any]:
         """One step at the feeds' signature: a miss runs it eagerly and
-        caches it (captured, on the card), a hit replays it."""
+        caches it (captured, on the card), a hit replays it.  With
+        ``policy`` (a GuardPolicy) the step is guarded
+        (``_run_guarded``), at a signature of its own."""
         key, plan, state, fetch_names = self._prepare(
             program, feed, fetch_list, scope, mode)
         if not plan.ops and not fetch_names:
@@ -967,28 +1051,240 @@ class Executor:
                 _run_host_op(op, scope)
             return []
         seeds = step_seeds(plan, *scope.next_rng_bits(program.random_seed))
-        entry = self._lookup(key)
-        if entry is None:
-            aot = self._aot_cache()
-            record = None if aot is None else \
-                self._persistent_load(aot, key, plan)
-            before = launch_counts()
-            builds = _build.stats["nvcc_builds"]
-            entry, fetches = self._first_step(plan, fetch_names, mode, feed,
-                                              state, seeds, scope)
-            if aot is not None:
-                after = launch_counts()
-                self._persistent_settle(
-                    aot, key, plan, mode, record,
-                    {k: n - before.get(k, 0) for k, n in after.items()},
-                    _build.stats["nvcc_builds"] - builds)
-            if entry is not None:
-                self._store(key, entry)
+        if policy is not None:
+            fetches = self._run_guarded(program, key, plan, state,
+                                        fetch_names, feed, seeds, scope,
+                                        mode, policy)
         else:
-            self._load(entry, feed, seeds)
-            fetches = self._replay(entry, state, scope)
+            entry = self._lookup(key)
+            if entry is None:
+                entry, fetches, _ = self._miss(key, plan, fetch_names, mode,
+                                               feed, state, seeds, scope)
+            else:
+                self._load(entry, feed, seeds)
+                fetches = self._replay(entry, state, scope)
         for op in plan.post_host:
             _run_host_op(op, scope)
+        return fetches
+
+    def _miss(self, key, plan, fetch_names, mode, feed, state, seeds, scope,
+              guard=None):
+        """A new signature: its first step (``_first_step``), the
+        persistent tier consulted before it and settled after it, and
+        the entry cached.  -> (entry, fetches, healthy)."""
+        aot = self._aot_cache()
+        record = None if aot is None else \
+            self._persistent_load(aot, key, plan)
+        before = launch_counts()
+        builds = _build.stats["nvcc_builds"]
+        entry, fetches, healthy = self._first_step(
+            plan, fetch_names, mode, feed, state, seeds, scope, guard)
+        if aot is not None:
+            after = launch_counts()
+            self._persistent_settle(
+                aot, key, plan, mode, record,
+                {k: n - before.get(k, 0) for k, n in after.items()},
+                _build.stats["nvcc_builds"] - builds)
+        if entry is not None:
+            self._store(key, entry)
+        return entry, fetches, healthy
+
+    # -- guardrails ----------------------------------------------------------
+    def _guard_check_names(self, prog_fp: str, policy, program: Program,
+                           plan: BlockPlan, fetch_names) -> tuple:
+        """The sentinel's check set for this (program, fetch,
+        policy.check) — cached, since re-walking every parameter per
+        step is the hot-loop Python cost the plan cache exists to avoid.
+        'loss' = the fetches (non-floats are skipped by the sentinel),
+        'grads' = each parameter's @GRAD the step writes, 'params' = the
+        post-update parameters.  Parameters are identified on the
+        FRAMEWORK block (the desc block's VarDescs don't record
+        parameter-ness)."""
+        key = (prog_fp, tuple(fetch_names), policy.check)
+        cached = self._guard_names.get(key)
+        if cached is not None:
+            return cached
+        from .core.registry import grad_var_name
+        from .framework import Parameter
+
+        names: List[str] = []
+        want = set(policy.check)
+        if "loss" in want:
+            names.extend(fetch_names)
+        params = [n for n, v in program.global_block().vars.items()
+                  if isinstance(v, Parameter)]
+        if "grads" in want:
+            written = {n for op in plan.ops for n in op.output_names() if n}
+            names.extend(g for g in (grad_var_name(p) for p in params)
+                         if g in written)
+        if "params" in want:
+            pset = set(params)
+            names.extend(n for n in plan.state_out if n in pset)
+        out = tuple(dict.fromkeys(names))
+        self._guard_names[key] = out
+        return out
+
+    def _guard_ctx_for(self, prog_fp: str, scope: Scope) -> dict:
+        """The guard context (rollback snapshot + escalation counter) for
+        this (program, scope) pairing — rollback must republish values
+        that came from THIS scope's run of THIS program, and alternating
+        scopes must each keep their own escalation counter.  The scope
+        is held weakly and verified by identity (an id() reused after GC
+        must not inherit a stale snapshot).  LRU-bounded like the step
+        cache: an evicted context drops its snapshot instead of pinning
+        device memory for programs that will never run again."""
+        key = (prog_fp, id(scope))
+        ctx = self._guard_ctxs.get(key)
+        if ctx is None or ctx["scope"]() is not scope:
+            ctx = {"scope": weakref.ref(scope), "snapshot": None,
+                   "since_snapshot": 0, "consecutive_bad": 0}
+            self._guard_ctxs[key] = ctx
+        else:
+            self._guard_ctxs.move_to_end(key)
+        while len(self._guard_ctxs) > self.CACHE_CAPACITY:
+            self._guard_ctxs.popitem(last=False)
+        while len(self._guard_names) > self.CACHE_CAPACITY:
+            self._guard_names.pop(next(iter(self._guard_names)))
+        return ctx
+
+    def _run_guarded(self, program, key, plan, state, fetch_names, feed,
+                     seeds, scope, mode, policy) -> List[Any]:
+        """One guarded step: chaos points -> rollback snapshot upkeep ->
+        watchdog/retry dispatch (the step with its sentinel and gated
+        publish, then the flag's one host read) -> recovery accounting.
+        Returns the fetches; raises NonFiniteError / NonFiniteEscalation
+        with the (pre-step) state already in the scope.  A StepFault /
+        StepTimeout escape republishes the last-good snapshot into the
+        scope when one exists (rollback policy); without one the scope
+        keeps whatever the failed dispatch left (pair step_timeout with
+        on_nonfinite="rollback" when the scope must survive a wedged
+        device)."""
+        from ..observability.tracing import tracer as _obs_tracer
+        from ..resilience import guardrails as gr
+        from ..resilience.chaos import injector
+
+        prog_fp = key[0]
+        check = self._guard_check_names(prog_fp, policy, program, plan,
+                                        fetch_names)
+        key = key + (("guard",) + check,)
+        tr = _obs_tracer()
+        inj = injector()
+        if inj.enabled():
+            feed = gr.poison_feed(feed, inj)
+        gctx = self._guard_ctx_for(prog_fp, scope)
+        if policy.on_nonfinite == "rollback" and (
+                gctx["snapshot"] is None
+                or gctx["since_snapshot"] >= policy.snapshot_every):
+            # pre-step state is always last-good (bad steps publish the
+            # gated pre-step values), so snapshotting before dispatch is
+            # safe at any cadence
+            gctx["snapshot"] = gr.device_snapshot(state)
+            gctx["since_snapshot"] = 0
+        found = self._lookup(key)
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.current_stream(self.device) if cuda else None
+        if found is not None:
+            self._check_replayable(found)
+
+        def dispatch(ctl):
+            if inj.enabled():
+                inj.maybe_fail("guard.fault")
+                inj.maybe_hang("guard.hang")
+            if not ctl.begin_consume():
+                # the watchdog abandoned this attempt while it stalled
+                # host-side; a retry may already be running on the same
+                # state — do not touch the device (the claim is atomic
+                # with the monitor's cancel)
+                raise gr.StepFault("dispatch abandoned after watchdog "
+                                   "timeout")
+            entry = found
+            guard = entry.guard if entry is not None else \
+                gr.build_guarded_step_fn(state_in=plan.state_in,
+                                         state_out=plan.state_out,
+                                         check_names=check)
+            target = entry.state if entry is not None else state
+            if cuda:
+                # the watchdog's worker thread: the executor's device,
+                # and the caller's stream, which the feeds were copied on
+                torch.cuda.set_device(self.device)
+            try:
+                with (torch.cuda.stream(stream) if cuda
+                      else contextlib.nullcontext()):
+                    if entry is None:
+                        _, fetches, healthy = self._miss(
+                            key, plan, fetch_names, mode, feed, state,
+                            seeds, scope, guard)
+                        return fetches, healthy
+                    self._load(entry, feed, seeds)
+                    self._bind(entry, state, scope)
+                    gr.mark_launched(target)
+                    self._launch(entry)
+                    # the flag materialises here, INSIDE the watchdog
+                    # deadline — a hung replay blocks on this read
+                    healthy = guard.read()
+                    gr.mark_launched(target, False)
+                    self._publish(entry, scope, healthy=healthy)
+                    return [_clone(f) for f in entry.fetches], healthy
+            except Exception:
+                # a fault after the launch is only re-dispatchable once
+                # the state is exactly pre-step again: the guard's
+                # complete pre-step copies put back
+                if not gr.state_buffers_live(target) \
+                        and guard.restore(target):
+                    gr.mark_launched(target, False)
+                if gr.state_buffers_live(target):
+                    ctl.unconsume()
+                raise
+
+        try:
+            fetches, healthy = gr.dispatch_guarded(dispatch, policy,
+                                                   self._health)
+        except gr.StepFault:
+            # the failed/hung dispatch may have left a partly written
+            # state; with a rollback policy we hold a last-good snapshot
+            # no step writes — republish it so the scope is whole for
+            # whoever catches this
+            if gctx["snapshot"] is not None:
+                for n, v in gr.device_snapshot(gctx["snapshot"]).items():
+                    scope.set_var(n, v)
+                gctx["since_snapshot"] = 0
+                tr.instant("guard/fault_rollback", cat="guard")
+            raise
+        self._health["guarded_steps"] += 1
+        gctx["since_snapshot"] += 1
+        if healthy:
+            gctx["consecutive_bad"] = 0
+            return fetches
+        self._health["nonfinite_steps"] += 1
+        gctx["consecutive_bad"] += 1
+        escalate = (policy.escalate_after > 0
+                    and gctx["consecutive_bad"] >= policy.escalate_after)
+        tr.instant("guard/nonfinite_step", cat="guard",
+                   consecutive=gctx["consecutive_bad"])
+        if escalate:
+            tr.instant("guard/escalation", cat="guard")
+            self._health["escalations"] += 1
+            gctx["consecutive_bad"] = 0
+            gctx["snapshot"] = None     # the restorer will change the scope
+            raise gr.NonFiniteEscalation(
+                f"{policy.escalate_after} consecutive non-finite steps "
+                f"under on_nonfinite={policy.on_nonfinite!r}; escalate to "
+                f"checkpoint restore")
+        if policy.on_nonfinite == "raise":
+            raise gr.NonFiniteError(
+                "guarded step produced non-finite values (loss/grad/param "
+                "sentinel); scope holds the pre-step state")
+        if policy.on_nonfinite == "rollback":
+            tr.instant("guard/rollback", cat="guard")
+            self._health["rollbacks"] += 1
+            # publish COPIES: the snapshot itself must survive the steps
+            # that write whatever sits in the scope
+            for n, v in gr.device_snapshot(gctx["snapshot"]).items():
+                scope.set_var(n, v)
+            gctx["since_snapshot"] = 0  # scope now equals the snapshot
+        else:                           # "skip": gated state IS pre-step
+            tr.instant("guard/skip", cat="guard")
+            self._health["skips"] += 1
         return fetches
 
     # -- entry points -------------------------------------------------------------
@@ -1004,13 +1300,25 @@ class Executor:
         (adds the shape/dtype re-check) or "cost"; without it the
         ``PADDLE_TPU_VALIDATE`` env flag decides.  The analysis is cached
         by program fingerprint, so a hot loop pays it once, and it
-        changes nothing the step computes.  The reference's ``guard``
-        (its training guardrails) is not ported and raises."""
+        changes nothing the step computes.
+
+        ``guard``: a ``resilience.GuardPolicy`` (or an ``on_nonfinite``
+        string shorthand) enabling the training guardrails: the step
+        runs with a finiteness sentinel over loss/grads/params and a
+        gated publish of the state it writes, both in its body (so in
+        its one graph replay on the card), and the host reads the one
+        health flag after it; non-finite steps are raised/skipped/
+        rolled back per the policy with the scope never holding a
+        corrupted update, and the dispatch runs under the policy's
+        watchdog deadline + transient-fault retry.  Counters:
+        ``health_stats()``.  Guarded steps are bitwise-identical to
+        unguarded ones on healthy batches."""
+        policy = None
         if guard is not None:
-            raise NotImplementedError("Executor.run: guard (the "
-                                      "reference's guardrails, ROADMAP "
-                                      "A13) is not ported to "
-                                      "paddle_tpu_torch")
+            from ..resilience.guardrails import GuardPolicy
+
+            policy = (guard if isinstance(guard, GuardPolicy)
+                      else GuardPolicy(on_nonfinite=str(guard)))
         program = program or default_main_program()
         scope = scope or global_scope()
         level = self._validate_level(validate)
@@ -1018,7 +1326,8 @@ class Executor:
             self._preflight(program, level, _fetch_names(fetch_list))
         feed = {k: _feed_value(v) for k, v in (feed or {}).items()}
         with record_event(f"executor_step/{mode}"):
-            fetches = self._step(program, feed, fetch_list, scope, mode)
+            fetches = self._step(program, feed, fetch_list, scope, mode,
+                                 policy)
         return _fetch_numpy(fetches) if return_numpy else fetches
 
     def run_steps(self, program: Optional[Program] = None,
@@ -1079,11 +1388,9 @@ class Executor:
         ``on_fetch(outs)``, streams each step's fetches to it and returns
         the step count.  A fetched state value (a persistable, or a var
         the block does not write) is drained at once, every step, as the
-        reference does.  ``guard`` is not ported."""
-        if guard is not None:
-            raise NotImplementedError("Executor.run_pipeline: guard (the "
-                                      "reference's guardrails) is not "
-                                      "ported to paddle_tpu_torch")
+        reference does.  ``guard`` (a GuardPolicy) threads through to each
+        step's run(); the health flag is read per step, so a guarded
+        pipeline trades the deferred-fetch overlap for the sentinel."""
         if loader is None:
             raise ValueError("run_pipeline needs a loader (an iterable of "
                              "feed dicts)")
@@ -1127,7 +1434,8 @@ class Executor:
             for feed in loader:
                 pending.append(self.run(program, feed=feed,
                                         fetch_list=fetch_list, scope=scope,
-                                        return_numpy=False, mode=mode))
+                                        return_numpy=False, mode=mode,
+                                        guard=guard))
                 n_steps += 1
                 if len(pending) >= fetch_every:
                     drain()

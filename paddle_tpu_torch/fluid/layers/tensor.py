@@ -1,7 +1,8 @@
 """Tensor layers — the port of ``paddle_tpu/fluid/layers/tensor.py``,
 cut to ``create_global_var``, ``fill_constant`` (the learning-rate
 schedules' constants), ``fill_constant_batch_size_like``, ``zeros``,
-``ones``, ``concat``, ``sums``, ``assign``, ``cast``, ``argmax``, the
+``ones``, ``concat``, ``sums``, ``assign``, ``cast``, ``argmax``,
+``isfinite``, the
 dense and paged KV-cache writes, the copy-on-write page copy and the
 KV-tier transfers (``paged_page_gather`` / ``paged_page_scatter``); the
 other creation layers are not ported."""
@@ -12,7 +13,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["create_global_var", "fill_constant",
            "fill_constant_batch_size_like", "zeros", "ones", "concat",
-           "sums", "assign", "cast", "argmax", "cache_write",
+           "sums", "assign", "cast", "argmax", "isfinite", "cache_write",
            "paged_cache_write", "quantized_paged_cache_write",
            "paged_page_copy", "paged_page_gather", "paged_page_scatter"]
 
@@ -228,4 +229,17 @@ def paged_page_scatter(pool, data, pages, n_layer, out=None, scales=None,
     helper.append_op("paged_page_scatter",
                      {"Pool": pool, "Data": data, "Pages": pages},
                      {"Out": out}, {"n_layer": int(n_layer)})
+    return out
+
+
+def isfinite(x):
+    """Scalar bool: true iff every element of ``x`` (one var or a list
+    of vars) is finite — reference ``fluid.layers.isfinite``
+    (isfinite_op.cc).  ``Executor.run(..., guard=...)`` captures the
+    same reduction over loss/grads/params in the step itself."""
+    helper = LayerHelper("isfinite", input=x)
+    out = helper.create_tmp_variable("bool", stop_gradient=True)
+    helper.append_op("isfinite",
+                     {"X": x if isinstance(x, (list, tuple)) else [x]},
+                     {"Out": out})
     return out

@@ -1,18 +1,18 @@
 """Miscellaneous ops — the port of ``paddle_tpu/fluid/ops/misc_ops.py``,
-whole but ``lstmp`` and ``isfinite``: shape surgery (``pad``, ``crop``,
+whole but ``lstmp``: shape surgery (``pad``, ``crop``,
 ``rotate``, ``scale_sub_region``, ``lod_reset``), ``selective_fc``,
 ``lrn``, the small losses (``label_smooth``, ``rank_loss``,
 ``margin_rank_loss``, ``log_loss``, ``modified_huber_loss``), the
 sequence ops ``conv_shift`` and ``row_conv``, the spatial pooling family
 (``max_pool2d_with_index``, ``unpool``, ``roi_pool``, ``spp``,
 ``bilinear_interp``), and ``minus``, ``l1_norm``, ``is_empty``,
-``assign_value``, ``bilinear_tensor_product``, ``hsigmoid`` and
-``sampling_id``.
+``assign_value``, ``isfinite``, ``bilinear_tensor_product``,
+``hsigmoid`` and ``sampling_id``.
 
 Each op is the reference's formula in PyTorch, with three rules of the
 port: a float attr beside a bf16 input is rounded to bf16 first
 (``weak_scalar``); a gather whose gradient sums repeated rows goes
-through ``F.embedding`` (the fixed-order ``segment_sum`` backward, never
+through ``take_rows`` (the fixed-order ``segment_sum`` backward, never
 an atomic scatter), so a replayed step is the eager step to the bit; and
 no emitter reads a value on the host or copies one to the card (the
 constants are fills), so a step that runs them is captured whole.
@@ -487,6 +487,37 @@ def assign_value(ctx):
         return fills([float(v) for v in fp32], ctx.device).reshape(shape)
     return fills([int(v) for v in int32 or []], ctx.device,
                  torch.int32).reshape(shape)
+
+
+def all_finite(values) -> torch.Tensor:
+    """A 0-d bool tensor on the values' device: true iff every element of
+    every float tensor among ``values`` (SeqArrays: their data) is
+    finite.  Non-float values are vacuously finite.  One reduction per
+    tensor, no host read: the guarded step's sentinel
+    (``resilience/guardrails.py``) captures it in the step's graph."""
+    flag = None
+    for v in values:
+        data = v.data if isinstance(v, SeqArray) else v
+        if not (isinstance(data, torch.Tensor)
+                and data.dtype.is_floating_point):
+            continue
+        ok = torch.isfinite(data).all()
+        flag = ok if flag is None else torch.logical_and(flag, ok)
+    if flag is None:
+        dev = next((t.device for t in (
+            v.data if isinstance(v, SeqArray) else v for v in values)
+            if isinstance(t, torch.Tensor)), torch.device("cpu"))
+        flag = torch.ones((), dtype=torch.bool, device=dev)
+    return flag
+
+
+@primitive("isfinite", inputs=["X*"], no_grad=True)
+def isfinite(ctx, xs):
+    """reference isfinite_op.cc (fluid ``layers.isfinite``): Out = a
+    scalar bool, true iff EVERY element of every input tensor is finite;
+    non-float inputs are vacuously finite, as the reference scans float
+    tensors only."""
+    return all_finite(xs)
 
 
 @primitive("bilinear_tensor_product",

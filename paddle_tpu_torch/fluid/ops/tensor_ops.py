@@ -231,12 +231,32 @@ def truncated_gaussian_random(ctx, *_):
                  * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0))
 
 
+class _TakeRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose gradient sums repeated ids'
+    rows with ``segment_sum`` (in index order, the same bits at every
+    run: autograd's own adjoint, ``aten.embedding_dense_backward``, is
+    not deterministic on the card where ids repeat many times)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ..core.selected_rows import segment_sum
+
+        idx, = ctx.saved_tensors
+        return segment_sum(grad, idx, ctx.rows), None
+
+
 def take_rows(table, idx):
     """table[idx] along axis 0 (any trailing shape), as an embedding
-    lookup: its gradient is ``aten.embedding_dense_backward``,
-    ``segment_sum``'s fixed-order sum of repeated ids' rows."""
-    flat = torch.nn.functional.embedding(
-        idx.reshape(-1).long(), table.reshape(table.shape[0], -1))
+    lookup: its gradient is ``segment_sum``'s fixed-order sum of repeated
+    ids' rows."""
+    flat = _TakeRows.apply(table.reshape(table.shape[0], -1),
+                           idx.reshape(-1).long())
     return flat.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
 
 

@@ -18,9 +18,13 @@
 
 Exit status: 0 = ok, 1 = the gateway answered with an error,
 2 = could not reach/parse the endpoint, 13 = serve exited on wedge
-(non-zero so a supervisor restarts it).  ``serve --supervise`` (the
-reference's re-exec under ``resilience.run_supervised``) raises
-``NotImplementedError``: the supervised service is ROADMAP A13."""
+(non-zero so a supervisor restarts it).
+
+::
+
+    # supervised: respawn on crash/wedge, journal replays on the way up
+    python -m paddle_tpu_torch.tools.gateway serve --root models/ \
+        --journal gw.journal --supervise 2 --exit-on-wedge 30"""
 
 from __future__ import annotations
 
@@ -81,14 +85,15 @@ def _strip_supervise(argv: List[str]) -> List[str]:
 
 def _cmd_serve(args, raw_argv: List[str]) -> int:
     if args.supervise:
-        # the reference re-execs THIS command (_strip_supervise(raw_argv))
-        # under its elastic launcher: a crash or an --exit-on-wedge exit
-        # respawns the gateway, which replays its journal on the way up
-        raise NotImplementedError(
-            "gateway serve --supervise re-executes under "
-            "resilience.run_supervised, not ported to paddle_tpu_torch "
-            "(ROADMAP A13); run serve without it under your own "
-            "supervisor: --journal replays on restart")
+        # re-exec THIS command (minus --supervise) under the supervised
+        # service: a crash or an --exit-on-wedge exit respawns the
+        # gateway, which replays its journal on the way back up
+        from ..resilience import run_supervised
+
+        return run_supervised(
+            ["-m", "paddle_tpu_torch.tools.gateway"]
+            + _strip_supervise(raw_argv),
+            max_restarts=args.supervise, log_dir=args.log_dir)
 
     from ..observability.server import ObservabilityServer
     from ..serving.gateway import (Gateway, GatewayServer, ModelRegistry,
@@ -196,7 +201,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     sv.add_argument("--journal", default=None,
                     help="request journal path (replayed on restart)")
     sv.add_argument("--supervise", type=int, default=0, metavar="N",
-                    help="run under the elastic launcher with N "
+                    help="run under the supervised service with N "
                          "restarts")
     sv.add_argument("--exit-on-wedge", type=float, default=0,
                     metavar="SECONDS",

@@ -453,8 +453,12 @@ def test_executor_preflight_rejects_bad_program_and_reads_the_flag(
     monkeypatch.delenv("PADDLE_TPU_VALIDATE")
     with pytest.raises(NotImplementedError, match="A15"):
         exe.run(startup, scope=tfluid.Scope(), validate="shard")
-    with pytest.raises(NotImplementedError, match="A13"):
-        exe.run(startup, scope=tfluid.Scope(), guard="raise")
+    # the guardrails are ported (tests/test_torch_guardrails.py): a
+    # guarded startup run writes finite parameters and runs
+    guarded = tfluid.Scope()
+    assert exe.run(startup, scope=guarded, guard="raise") == []
+    assert exe.health_stats()["guarded_steps"] == 1
+    assert exe.health_stats()["nonfinite_steps"] == 0
 
 
 def test_executor_results_unchanged_by_validation():

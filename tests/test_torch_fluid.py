@@ -313,10 +313,10 @@ def test_unported_features_raise():
     # no ops costs nothing
     assert exe.cost_analysis(tfluid.Program()) == {"flops": 0.0,
                                                   "bytes accessed": 0.0}
-    # run_steps and run_pipeline are ported (tests/test_torch_executor.py);
-    # the pipeline's guardrails are not
-    with pytest.raises(NotImplementedError, match="guard"):
-        exe.run_pipeline(main, loader=[], guard="raise")
+    # run_steps and run_pipeline are ported (tests/test_torch_executor.py),
+    # and the pipeline's guardrails (tests/test_torch_guardrails.py): an
+    # empty loader runs no step
+    assert exe.run_pipeline(main, loader=[], guard="raise") == []
     # validate is ported (tests/test_torch_analysis.py); a level it does
     # not know is refused, as the reference refuses it
     with pytest.raises(ValueError, match="validate"):

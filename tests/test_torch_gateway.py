@@ -22,8 +22,9 @@ artifact and serves it from there through its own ``ModelRegistry`` and
 * the port alone: a hot swap with requests in flight loses none and adds
   no executable miss after ``_warm``; a cancelled stream frees its pages;
   the HTTP front end answers generate (blocking and chunked), models and
-  its error codes; the CLI; ``serve --supervise`` (A13) and a
-  ``mesh_axes`` manifest (A15) raise ``NotImplementedError``.
+  its error codes; the CLI; ``serve --supervise`` re-executes the serve
+  command under ``resilience.run_supervised``; a ``mesh_axes`` manifest
+  (A15) raises ``NotImplementedError``.
 
 Every HTTP call and wait takes its own timeout.
 """
@@ -508,5 +509,25 @@ def test_serve_supervise_is_refused_naming_a13(tmp_path):
         jax_gateway_cli._strip_supervise(argv)
     assert gateway_cli._strip_supervise(["serve", "--supervise=3"]) == \
         ["serve"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        gateway_cli.main(argv)
+    # the supervised service is ported: serve --supervise re-executes
+    # this serve command, less --supervise, under run_supervised
+    import paddle_tpu_torch.resilience as resilience
+
+    calls = []
+
+    def fake_run_supervised(child, max_restarts, log_dir):
+        calls.append((child, max_restarts, log_dir))
+        return 0
+
+    monkeypatch = pytest.MonkeyPatch()
+    try:
+        monkeypatch.setattr(resilience, "run_supervised",
+                            fake_run_supervised)
+        assert gateway_cli.main(argv + ["--log-dir",
+                                        str(tmp_path / "logs")]) == 0
+    finally:
+        monkeypatch.undo()
+    assert calls == [(["-m", "paddle_tpu_torch.tools.gateway"]
+                      + gateway_cli._strip_supervise(argv)
+                      + ["--log-dir", str(tmp_path / "logs")], 2,
+                      str(tmp_path / "logs"))]

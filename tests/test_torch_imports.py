@@ -15,7 +15,7 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
-* The port registers 222 of the reference's 234 ops, each under the
+* The port registers 223 of the reference's 234 ops, each under the
   reference's name.
 """
 
@@ -151,13 +151,29 @@ GATEWAY = {"paddle_tpu_torch.utils.sync",
            "paddle_tpu_torch.tools.obs"}
 
 
+# the modules of the closed train -> publish -> canary -> promote slice
+LIFECYCLE = {"paddle_tpu_torch.resilience.retry",
+             "paddle_tpu_torch.resilience.guardrails",
+             "paddle_tpu_torch.resilience.service",
+             "paddle_tpu_torch.resilience.trainer",
+             "paddle_tpu_torch.parallel",
+             "paddle_tpu_torch.parallel.master",
+             "paddle_tpu_torch.parallel.master_service",
+             "paddle_tpu_torch.lifecycle",
+             "paddle_tpu_torch.lifecycle.journal",
+             "paddle_tpu_torch.lifecycle.canary",
+             "paddle_tpu_torch.lifecycle.publish",
+             "paddle_tpu_torch.lifecycle.controller",
+             "paddle_tpu_torch.tools.lifecycle"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
     want = (SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS | PERSISTENCE
-            | ANALYSIS | GATEWAY)
+            | ANALYSIS | GATEWAY | LIFECYCLE)
     assert want <= names, want - names
 
 
@@ -205,11 +221,11 @@ IO_QUANT_OPS = {"feed", "fetch", "save", "load", "save_combine",
 
 
 def test_registered_ops_are_a_subset_of_the_reference():
-    """The port registers 222 of the reference's 234 ops, each under the
+    """The port registers 223 of the reference's 234 ops, each under the
     reference's name, the SRL slice's 16, the speech and detection
     slice's 20, the loss and miscellaneous slice's 34, the KV tier's 4
-    transfers and the persistence slice's 12 IO and int8 ops among
-    them."""
+    transfers, the persistence slice's 12 IO and int8 ops and the
+    guardrails' ``isfinite`` among them."""
     from paddle_tpu.fluid.core.registry import registered_ops as jops
 
     ported, ref = set(fluid.registered_ops()), set(jops())
@@ -219,8 +235,9 @@ def test_registered_ops_are_a_subset_of_the_reference():
     assert len(LOSS_MISC_OPS) == 34 and LOSS_MISC_OPS <= ported
     assert len(TIER_OPS) == 4 and TIER_OPS <= ported
     assert len(IO_QUANT_OPS) == 12 and IO_QUANT_OPS <= ported
+    assert "isfinite" in ported
     assert ported <= ref, ported - ref
-    assert (len(ported), len(ref)) == (222, 234)
+    assert (len(ported), len(ref)) == (223, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):

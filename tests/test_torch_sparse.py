@@ -75,6 +75,36 @@ def _both_sr(rows, vals, height):
             TSR(torch.tensor(rows), torch.tensor(vals), height))
 
 
+@pytest.mark.parametrize("height,dim,n,kind", [
+    (258, 8, 1024, "positions"), (4096, 16, 512, "zipf"),
+    (5, 3, 1, "one")])
+def test_segment_sum_is_the_cpu_embedding_adjoint_bit_for_bit(height, dim,
+                                                              n, kind):
+    """``segment_sum`` (a stable sort, a sum a run, ``index_add_`` of the
+    run sums and zeros) gives the bits of PyTorch's embedding adjoint on
+    the CPU, which adds each row's values in index order from 0.0: position-table ids (each row
+    many times), Zipf-drawn ids, one id; and its gradient is the row
+    gather of the output's."""
+    from paddle_tpu_torch.fluid.core.selected_rows import segment_sum
+
+    rng = np.random.RandomState(7)
+    if kind == "positions":
+        ids = np.tile(np.arange(256), n // 256)
+    else:
+        ids = rng.zipf(1.1, n) * 2654435761 % height
+    ids = torch.tensor(ids.astype(np.int64))
+    vals = torch.tensor(rng.randn(n, dim).astype(np.float32),
+                        requires_grad=True)
+    got = segment_sum(vals, ids, height)
+    want = torch.ops.aten.embedding_dense_backward(vals.detach(), ids,
+                                                   height, -1, False)
+    assert torch.equal(got.detach().view(torch.int32),
+                       want.view(torch.int32))
+    dout = torch.tensor(rng.randn(height, dim).astype(np.float32))
+    got.backward(dout)
+    assert torch.equal(vals.grad, dout[ids])
+
+
 @pytest.mark.parametrize("sentinel", [False, True])
 def test_merge_rows_matches_reference(sentinel):
     """Merged rows: the distinct rows ascending, then the sentinel;

@@ -427,7 +427,43 @@ Runs from the root of a checkout and needs one CUDA card; it imports
    package with no built kernels, its child SIGKILLed with 4 streamed
    requests in flight: respawned, the 4 replayed from its journal and
    finished, no nvcc build (the library restored from v2's
-   ``compiled/``).
+   ``compiled/``);
+31. the serving fleet (``fleet_phase``): phase 5's Transformer-base
+   saved as an artifact, two ``tools.gateway serve`` replicas (8
+   slots, float32 pool, a journal each) under ``FleetSupervisor`` from
+   a copy of the package with the kernels this run built, behind a
+   ``FleetRouter`` (page 16, affinity depth 2) and
+   ``FleetRouterServer``; 20 requests of 32 new tokens through
+   ``/v1/generate`` (two 64-token system prompts the rendezvous hash
+   puts on different replicas, 8 suffixes each, and 4 prompts shorter
+   than a page): each group on its replica, that replica's prefix-cache
+   hits up (its ``/metrics``), the short ones routed least-loaded,
+   every stream plain greedy's under phase 29's near-tie rule (the
+   direct scheduler's beside it); one replica SIGKILLed through
+   ``/v1/fleet`` holding 4 or more of 16 requests: each answered once,
+   its journal settled by migration (one done record a jid), its
+   respawn back in rotation with no nvcc build; the other drained with
+   a queued tail (migrated, no duplicate); ``tools.fleet status``;
+   the router's latency and tokens/s, respawn-to-ready s, migration ms
+   and the replicas' own ragged launches (``/metrics``) recorded;
+32. the pod (``pod_phase``): ``python -m paddle_tpu_torch.launch
+   --nprocs 3 --pod-rendezvous auto --pod-min-world 2 --max-restarts
+   1``, each rank ``ResilientTrainer(coordinator=PodClient(...))``
+   training ``stacked_lstm_net`` at the LSTM phases' widths on a global
+   batch of 120 (its gradients fetched each step, SGD applied by
+   ``apply_update``); host-0 poisons step 2 (an agreed pod-wide skip,
+   journaled alike on every host); a seeded ``coord.crash`` in
+   host-2's first life SIGKILLs it entering step 5's barrier; the
+   survivors re-rendezvous at world 2 and rewind to step 4's manifest,
+   the respawned host rejoins once evicted; a pre-seeded torn manifest
+   is never restored; every host ends on the committed manifest's
+   parameters, bit for bit, with no lost or duplicated step on the
+   effective timeline; the reduced step-1 gradient within 1e-4 of the
+   largest of the CPU port's float64 mean of the three shards; the
+   loss falls; 3 ``lstm_fwd`` launches a step in every rank, one graph
+   a batch shape; a rank's step split (replay, fetch, coordinator
+   round trip, update), the generations and the eviction seconds
+   recorded.
 
 ``--phases`` runs only the listed phases of this list and the phases
 they need (``PHASE_NEEDS``; phases 1 and 2 always run; 7-8, 12-15 and
@@ -441,7 +477,8 @@ line, an ``lstm`` line, an ``image`` line, a ``sparse`` line, an ``nmt``
 line, an ``srl`` line, a ``speech`` line, an ``ssd`` line, an ``frcnn``
 line, a ``ranking`` line, a ``speculative`` line, a ``tiers`` line, a
 ``persistence`` line, a ``cost`` line, a ``gateway`` line, a ``lifecycle``
-line (its ``summary`` first), a ``kernels``
+line (its ``summary`` first), a ``fleet`` and a ``pod`` line (each its
+``summary`` first), a ``kernels``
 line (the flash
 kernels once
 in float32 and once, ``*_bf16``, in bf16) and, last, the ``{"ok":
@@ -10279,13 +10316,987 @@ def lifecycle_phase(torch, np, fluid, fa, card, weights, srcs):
     return rec, flash, ragged, lstm, fails
 
 
+# -- phase 31: the serving fleet ---------------------------------------------
+
+# two system prompts of 4 pages, 8 distinct 2-page suffixes each; 4
+# prompts shorter than a page (no affinity key)
+FLEET_SYSTEM, FLEET_SUFFIX, FLEET_GROUP, FLEET_SHORT = 64, 32, 8, 4
+FLEET_DEPTH = 2
+# requests a replica holds when it is killed (in flight or queued), and
+# queued beyond its slots when it is drained
+FLEET_KILL_AT, FLEET_DRAIN_AT = 4, 4
+# a replica process's deadline to answer /readyz (import, load, warm)
+FLEET_READY_S = 300.0
+# the fleet's HTTP clients: a process of their own (the standard library
+# only), every request sent at once, each -> its whole response and its
+# seconds
+FLEET_CLIENTS = r"""
+import json, sys, time, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+addr, bodies = sys.argv[1], json.loads(sys.argv[2])
+
+def call(body):
+    req = urllib.request.Request(
+        f"http://{addr}/v1/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out = json.loads(resp.read())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+urllib.request.urlopen(f"http://{addr}/healthz", timeout=60).read()
+t0 = time.perf_counter()
+with ThreadPoolExecutor(len(bodies)) as pool:
+    out = list(pool.map(call, bodies))
+print(json.dumps({"results": out, "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def fleet_owner(key, names):
+    """The replica ``FleetRouter``'s rendezvous hash gives ``key``."""
+    import hashlib
+
+    return max(names, key=lambda n: hashlib.sha1(
+        f"{key}|{n}".encode()).digest())
+
+
+def fleet_prompts(np, names):
+    """One system prompt a replica, drawn in turn from a seeded stream
+    until the rendezvous hash has put one on each -> (systems,
+    {replica: index of its system prompt})."""
+    from paddle_tpu_torch.serving.paging import affinity_key
+
+    rng = np.random.RandomState(SEED + 31)
+    systems, owners = [], {}
+    while len(systems) < len(names):
+        s = rng.randint(2, VOCAB, FLEET_SYSTEM)
+        owner = fleet_owner(affinity_key(s, SERVE["page_size"],
+                                         FLEET_DEPTH), names)
+        if owner not in owners:
+            owners[owner] = len(systems)
+            systems.append(s)
+    return systems, owners
+
+
+def fleet_group(np, system, n, seed):
+    """``n`` prompts: ``system`` and a seeded suffix of FLEET_SUFFIX."""
+    rng = np.random.RandomState(seed)
+    return [np.concatenate([system, rng.randint(2, VOCAB, FLEET_SUFFIX)])
+            for _ in range(n)]
+
+
+def fleet_clients(addr, srcs, wait=True):
+    """``srcs`` through the router at once (FLEET_CLIENTS) -> {results,
+    wall_s} or {error}; with ``wait=False`` a function that waits for
+    it."""
+    bodies = [{"model": "tb", "prompt": [int(t) for t in s],
+               "max_new": MAX_NEW} for s in srcs]
+    proc = subprocess.Popen([sys.executable, "-c", FLEET_CLIENTS, addr,
+                             json.dumps(bodies)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def result():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode != 0:
+            return {"error": f"exit {proc.returncode}: {err[-2000:]}"}
+        return json.loads(out.strip().splitlines()[-1])
+    return result() if wait else result
+
+
+def fleet_post(addr, body):
+    """A ``/v1/fleet`` verb -> the router's JSON reply."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://{addr}/v1/fleet", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def fleet_metrics(addr):
+    """A replica's /metrics -> {(name, labels): value} of its prefix-cache
+    and kernel-launch series (None: no answer)."""
+    import re
+
+    try:
+        text = gw_get(addr, "/metrics", 10).decode()
+    except Exception:
+        return None
+    out = {}
+    for ln in text.splitlines():
+        m = re.match(r'(paddle_kv_prefix_events_total|'
+                     r'paddle_kernel_launches_total)\{([^}]*)\} (\S+)$', ln)
+        if m:
+            out[(m.group(1), m.group(2))] = float(m.group(3))
+    return out
+
+
+def fleet_obs_addr(log_path):
+    """The observability address a replica's log names last (its latest
+    process's)."""
+    addr = None
+    if os.path.exists(log_path):
+        for ln in open(log_path, errors="replace"):
+            if ln.startswith("observability on "):
+                addr = ln.split()[-1]
+    return addr
+
+
+def fleet_wait(pred, timeout, step=0.05):
+    """``pred()``'s first truthy value within ``timeout`` s, else None."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        v = pred()
+        if v:
+            return v
+        time.sleep(step)
+    return None
+
+
+def fleet_build_files(pkg):
+    """{file: mtime} of a package copy's built kernel libraries."""
+    build = os.path.join(pkg, "paddle_tpu_torch", "kernels", "build")
+    if not os.path.isdir(build):
+        return {}
+    return {f: os.stat(os.path.join(build, f)).st_mtime_ns
+            for f in sorted(os.listdir(build))}
+
+
+def fleet_routed():
+    """This process's routing decisions so far, by policy
+    (``paddle_fleet_routed_total``)."""
+    from paddle_tpu_torch.observability.metrics import registry
+
+    out = {}
+    for m in registry().snapshot()["metrics"]:
+        if m["name"] == "paddle_fleet_routed_total":
+            for s in m["samples"]:
+                out[s["labels"]["policy"]] = s["value"]
+    return out
+
+
+def fleet_new_pending(path, before):
+    """Entries of a replica's journal with no done record, less
+    ``before``'s jids."""
+    from paddle_tpu_torch.serving.gateway import RequestJournal
+
+    return [e for e in RequestJournal(path).pending()
+            if e["jid"] not in before]
+
+
+def fleet_settled(path, timeout=60):
+    """A journal once nothing is pending (or at ``timeout``) -> (settled,
+    {the done records' error fields: count}, jids with more than one
+    done record)."""
+    from paddle_tpu_torch.serving.gateway import RequestJournal
+
+    ok = fleet_wait(lambda: not RequestJournal(path).pending(), timeout)
+    dones = {}
+    for ln in open(path):
+        try:
+            r = json.loads(ln)
+        except ValueError:
+            continue
+        if r.get("op") == "done":
+            dones.setdefault(r["jid"], []).append(r.get("error") or "ok")
+    kinds = {}
+    for v in dones.values():
+        for e in v:
+            kinds[e] = kinds.get(e, 0) + 1
+    return bool(ok), kinds, sorted(j for j, v in dones.items()
+                                   if len(v) != 1)
+
+
+def fleet_wave(name, out, want, margins, tol, rec, fails):
+    """A wave's responses: every request answered once (distinct jids),
+    each stream plain greedy's under the near-tie rule -> the results."""
+    if "error" in out:
+        fails.append(f"fleet {name}: {out['error']}")
+        return []
+    res = out["results"]
+    jids = [r.get("jid") for r in res]
+    vs = stream_compare([r["tokens"] for r in res], want, margins, tol)
+    rec[name] = {"requests": len(res),
+                 "replicas": [r["replica"] for r in res],
+                 "distinct_jids": len(set(jids)), "vs_plain": vs,
+                 "wall_s": out["wall_s"]}
+    for r, j, m in vs["near_ties"]:
+        log(f"fleet {name}: request {r} flips at token {j}, plain top-2 "
+            f"margin {m} within {tol}")
+    if len(res) != len(want) or len(set(jids)) != len(want) \
+            or None in jids or vs["differ"]:
+        fails.append(f"fleet {name}: {rec[name]}")
+    return res
+
+
+def fleet_affinity_part(np, addr, obs, names, owners, wave1, n_groups,
+                        want, margins, tol, rec, fails):
+    """(a): each group's leader first (its prefix cached), then the
+    rest of the groups and the short prompts at once; each group on the
+    replica the hash gives it, that replica's prefix-cache hits up, the
+    short prompts placed least-loaded."""
+    hits0 = {n: fleet_metrics(obs[n]) or {} for n in names}
+    routed0 = fleet_routed()
+    lead = fleet_clients(addr, wave1[:n_groups])
+    rest = fleet_clients(addr, wave1[n_groups:])
+    if "error" in lead or "error" in rest:
+        out = {"error": lead.get("error") or rest.get("error")}
+    else:
+        out = {"results": lead["results"] + rest["results"],
+               "wall_s": rest["wall_s"]}
+    res = fleet_wave("wave1", out, want, margins, tol, rec, fails)
+    routed = fleet_routed()
+    rec["routed"] = {k: routed.get(k, 0) - routed0.get(k, 0)
+                     for k in routed}
+    key = ("paddle_kv_prefix_events_total", 'event="hits"')
+    rec["prefix_hits"] = {n: (fleet_metrics(obs[n]) or {}).get(key, 0)
+                          - hits0[n].get(key, 0) for n in names}
+    if rec["routed"].get("least_loaded") != FLEET_SHORT or \
+            rec["routed"].get("affinity") != len(wave1) - FLEET_SHORT:
+        fails.append(f"fleet routing policies: {rec['routed']}")
+    if not res:
+        return
+    placed = [r["replica"] for r in res]
+    rec["groups"] = {}
+    for owner, gi in owners.items():
+        idx = [gi] + [n_groups + gi * (FLEET_GROUP - 1) + k
+                      for k in range(FLEET_GROUP - 1)]
+        on = sorted({placed[i] for i in idx})
+        rec["groups"][owner] = on
+        if on != [owner]:
+            fails.append(f"fleet affinity: group {gi} on {on}, the hash "
+                         f"gives {owner}")
+        if rec["prefix_hits"][owner] <= 0:
+            fails.append(f"fleet affinity: {owner} reports no prefix-cache "
+                         f"hit: {rec['prefix_hits']}")
+    rec["short_on"] = placed[-FLEET_SHORT:]
+    lat = [r["seconds"] for r in res]
+    rec["router"] = {"latency_p50_s": float(np.percentile(lat, 50)),
+                     "tok_per_s": sum(len(r["tokens"]) for r in res[
+                         n_groups:]) / rest["wall_s"]}
+
+
+def fleet_kill_part(addr, router, specs, victim, wave, want, margins, tol,
+                    rec, fails):
+    """(b): ``wave`` to the victim (affinity), the victim SIGKILLed
+    through ``/v1/fleet`` once it holds FLEET_KILL_AT of them; every
+    request answered once, the victim's journal settled by migration
+    (one done record a jid).  -> the kill's time."""
+    path = specs[victim].journal_path
+    before = {e["jid"] for e in fleet_new_pending(path, ())}
+    run = fleet_clients(addr, wave, wait=False)
+    held = fleet_wait(lambda: len(fleet_new_pending(path, before))
+                      >= FLEET_KILL_AT, 120, 0.005)
+    rec["held_at_kill"] = len(fleet_new_pending(path, before))
+    t_kill = time.time()
+    rec["killed"] = fleet_post(addr, {"action": "kill", "replica": victim})
+    if not held:
+        fails.append(f"fleet kill: {victim} never held {FLEET_KILL_AT} "
+                     f"requests")
+    fleet_wave("kill_wave", run(), want, margins, tol, rec, fails)
+    ok, kinds, dup = fleet_settled(path)
+    rec["migration_ms"] = (time.time() - t_kill) * 1e3 if ok else None
+    rec["victim_journal"] = {"done": kinds, "duplicated": dup,
+                             "migrations": router._by_name(victim)
+                             .migrations}
+    if not ok or dup or router._by_name(victim).migrations < 1 or \
+            not any(k.startswith("migrated") for k in kinds):
+        fails.append(f"fleet kill migration: settled {ok}, "
+                     f"{rec['victim_journal']}")
+    return t_kill
+
+
+def fleet_drain_part(addr, specs, survivor, wave, want, margins, tol, rec,
+                     fails):
+    """(d): ``wave`` to the survivor, drained through ``/v1/fleet`` once
+    FLEET_DRAIN_AT of them queue beyond its slots; every request
+    answered once, its queued tail migrated, no duplicate."""
+    path = specs[survivor].journal_path
+    before = {e["jid"] for e in fleet_new_pending(path, ())}
+    run = fleet_clients(addr, wave, wait=False)
+    held = fleet_wait(lambda: len(fleet_new_pending(path, before))
+                      >= N_SLOTS + FLEET_DRAIN_AT, 120, 0.005)
+    rec["held_at_drain"] = len(fleet_new_pending(path, before))
+    t_drain = time.time()
+    rec["drained"] = fleet_post(addr, {"action": "drain",
+                                       "replica": survivor})
+    if not held:
+        fails.append(f"fleet drain: {survivor} never queued "
+                     f"{FLEET_DRAIN_AT} requests beyond its slots")
+    fleet_wave("drain_wave", run(), want, margins, tol, rec, fails)
+    ok, kinds, dup = fleet_settled(path)
+    rec["drain_migration_ms"] = (time.time() - t_drain) * 1e3 if ok \
+        else None
+    rec["survivor_journal"] = {"done": kinds, "duplicated": dup}
+    if not ok or dup:
+        fails.append(f"fleet drain migration: settled {ok}, "
+                     f"{rec['survivor_journal']}")
+
+
+def fleet_summary(rec):
+    """The figures the ``fleet`` line leads with."""
+    router = rec.get("router") or {}
+    direct = rec.get("direct") or {}
+    return {"card": rec.get("card"),
+            "router_latency_p50_s": router.get("latency_p50_s"),
+            "router_tok_per_s": router.get("tok_per_s"),
+            "direct_ttft_p50_s": direct.get("ttft_p50_s"),
+            "direct_tok_per_s": direct.get("tok_per_s"),
+            "replicas_ready_s": rec.get("replicas_ready_s"),
+            "respawn_to_ready_s": rec.get("respawn_to_ready_s"),
+            "migration_ms": rec.get("migration_ms"),
+            "drain_migration_ms": rec.get("drain_migration_ms"),
+            "prefix_hits": rec.get("prefix_hits"),
+            "replica_ragged_launches": rec.get("replica_ragged_launches"),
+            "seconds": rec.get("seconds")}
+
+
+def fleet_phase(torch, np, fluid, fa, card, weights, logit_err):
+    """Phase 31: the serving fleet on phase 5's Transformer-base (float32
+    pool, 8 slots; ``weights``, seeded): two ``tools.gateway serve``
+    replicas under ``FleetSupervisor``, from a copy of the package with
+    the kernels this run built, each with its own journal, behind a
+    ``FleetRouter`` (page 16, affinity depth 2) and
+    ``FleetRouterServer``.  -> (the ``fleet`` record, this process's
+    ragged launches, failures)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.serving.fleet import (FleetRouter,
+                                                FleetRouterServer,
+                                                FleetSupervisor)
+    from paddle_tpu_torch.serving.gateway import ModelRegistry
+
+    t_phase = time.perf_counter()
+    fails = []
+    rec = {"card": card}
+    tol = 2 * logit_err
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    root = os.path.join(workdir, "store")
+    cwd = os.getcwd()
+    sup = srv = None
+    fa.ragged_decode_attention.launches = 0
+    in_process = 0
+    try:
+        gen = make_generator("cuda", "float32")
+        gen.load_params(weights)
+        ModelRegistry.save_generator_artifact(gen, root, "tb", "1")
+        pkg = os.path.join(workdir, "pkg")
+        shutil.copytree(os.path.join(ROOT, "paddle_tpu_torch"),
+                        os.path.join(pkg, "paddle_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        built = fleet_build_files(pkg)
+        logs = os.path.join(workdir, "logs")
+        # ``python -m`` takes the package from the working directory
+        os.chdir(pkg)
+        sup = FleetSupervisor(
+            root=root, models=["tb=1"], n=2,
+            journal_dir=os.path.join(workdir, "journals"), slots=N_SLOTS,
+            max_new=MAX_NEW, max_restarts=2, log_dir=logs,
+            env_extra={"PYTHONPATH": pkg, "PYTHONUNBUFFERED": "1"},
+            extra_args=["--obs-port", "0"])
+        t0 = time.time()
+        sup.start()
+        specs = {s.name: s for s in sup.replica_specs()}
+        names = sorted(specs)
+        systems, owners = fleet_prompts(np, names)
+        victim, survivor = names
+        groups = [fleet_group(np, s, FLEET_GROUP, SEED + 310 + i)
+                  for i, s in enumerate(systems)]
+        rng = np.random.RandomState(SEED + 311)
+        short = [rng.randint(2, VOCAB, int(n)) for n in
+                 rng.randint(3, SERVE["page_size"], FLEET_SHORT)]
+        kill_wave = fleet_group(np, systems[owners[victim]], 2 * N_SLOTS,
+                                SEED + 312)
+        drain_wave = fleet_group(np, systems[owners[survivor]],
+                                 2 * N_SLOTS, SEED + 313)
+        wave1 = [g[0] for g in groups] + [p for g in groups
+                                          for p in g[1:]] + short
+        every = wave1 + kill_wave + drain_wave
+        # plain greedy, and the direct scheduler, while the replicas start
+        want, margins = [], []
+        for i in range(0, len(every), N_SLOTS):
+            w, m = plain_with_margins(torch, np, gen, every[i:i + N_SLOTS])
+            want += w
+            margins += m
+        n1, n2 = len(wave1), len(wave1) + len(kill_wave)
+        direct_toks, direct = gw_direct(torch, np, gen, wave1)
+        direct["vs_plain"] = stream_compare(direct_toks, want[:n1],
+                                            margins[:n1], tol)
+        rec["direct"] = direct
+        if not direct["ok"] or direct["vs_plain"]["differ"]:
+            fails.append(f"fleet direct scheduler: {direct}")
+        in_process = fa.ragged_decode_attention.launches
+        del gen
+        torch.cuda.empty_cache()
+
+        def up():
+            for n in names:
+                try:
+                    if not json.loads(gw_get(specs[n].address, "/readyz",
+                                             5)).get("ready"):
+                        return False
+                except Exception:
+                    return False
+            return True
+        if not fleet_wait(up, FLEET_READY_S, 0.5):
+            raise RuntimeError(f"fleet: replicas not ready within "
+                               f"{FLEET_READY_S} s: {sup.status()}")
+        rec["replicas_ready_s"] = time.time() - t0
+        obs = {n: fleet_obs_addr(os.path.join(logs, f"{n}.log"))
+               for n in names}
+        router = FleetRouter(sup.replica_specs(),
+                             page_size=SERVE["page_size"],
+                             affinity_depth=FLEET_DEPTH, probe_interval=0.1,
+                             settle_timeout=20.0, request_timeout=600.0,
+                             seed=SEED)
+        srv = FleetRouterServer(router)
+        addr = srv.start()
+        fleet_affinity_part(np, addr, obs, names, owners, wave1,
+                            len(groups), want[:n1], margins[:n1], tol, rec,
+                            fails)
+        t_kill = fleet_kill_part(addr, router, specs, victim, kill_wave,
+                                 want[n1:n2], margins[n1:n2], tol, rec,
+                                 fails)
+        # (c) the respawn back in rotation, with no nvcc build
+        back = fleet_wait(lambda: router._by_name(victim).state == "ready"
+                          and sup.status()[victim]["restarts"] >= 1,
+                          FLEET_READY_S, 0.1)
+        rec["respawn_to_ready_s"] = time.time() - t_kill if back else None
+        rec["restarts"] = {n: s["restarts"] for n, s in sup.status().items()}
+        rec["nvcc_built_files"] = sorted(
+            f for f, t in fleet_build_files(pkg).items()
+            if built.get(f) != t)
+        if not back or rec["nvcc_built_files"]:
+            fails.append(f"fleet respawn: back in rotation {bool(back)}, "
+                         f"files built {rec['nvcc_built_files']}")
+        obs[victim] = fleet_obs_addr(os.path.join(logs, f"{victim}.log"))
+        fleet_drain_part(addr, specs, survivor, drain_wave, want[n2:],
+                         margins[n2:], tol, rec, fails)
+        # (e) the CLI's status; the replicas' own kernel counts
+        st = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.fleet", "status",
+             addr], cwd=pkg, env=dict(os.environ, PYTHONPATH=pkg),
+            capture_output=True, text=True, timeout=120)
+        states = ({r["name"]: r["state"]
+                   for r in json.loads(st.stdout)["replicas"]}
+                  if st.returncode == 0 else None)
+        rec["cli_status"] = states
+        if states != {victim: "ready", survivor: "draining"}:
+            fails.append(f"fleet CLI status: exit {st.returncode}, "
+                         f"{states or st.stderr[-1000:]}")
+        kkey = ("paddle_kernel_launches_total",
+                'kernel="ragged_decode_attention"')
+        rec["replica_ragged_launches"] = {
+            n: (fleet_metrics(obs[n]) or {}).get(kkey) for n in names}
+        rec["router_stats"] = router.stats()
+    finally:
+        os.chdir(cwd)
+        if srv is not None:
+            srv.stop()
+        if sup is not None:
+            sup.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["ragged_launches"] = in_process
+    rec["seconds"] = time.perf_counter() - t_phase
+    return {"summary": fleet_summary(rec), **rec}, in_process, fails
+
+
+# -- phase 32: the pod -------------------------------------------------------
+
+# bench.py's batch 128 rounded to 120, so that 3 and then 2 ranks share it
+# equally; the LSTM phases' widths (dict LSTM_VOCAB, emb 128, hid 512, 3
+# stacked, T = LSTM_T)
+POD_HOSTS, POD_MIN_WORLD, POD_BATCH = 3, 2, 120
+POD_STEPS, POD_NAN_STEP = 10, 2
+# SGD's rate, and the word pool of each class (the first POD_POOL ids of
+# the dict for class 0, the next for class 1): at 0.3 the full-batch loss
+# falls at every step of ten on the CPU port, at 1.0 it diverges
+POD_LR, POD_POOL = 0.3, 100
+# seed 5 at p = 0.12: FaultInjector.decision(5, "coord.crash", i) first
+# fires at draw 4, so the victim dies entering step 5's barrier, after
+# the world-3 manifests of steps 2 and 4 committed
+POD_CRASH_SEED, POD_CRASH_PROB, POD_CRASH_STEP = 5, 0.12, 5
+POD_VICTIM, POD_NAN_HOST = "host-2", "host-0"
+# the launcher's heartbeat (its coordinator evicts after 10 s of
+# silence), and the run's wall limit
+POD_HEARTBEAT, POD_WALL_S = 0.5, 600
+# the reduced gradient against the CPU port's float64 mean (the LSTM
+# paths' limit, relative to each gradient's largest magnitude)
+POD_GRAD_RTOL = LSTM_GRAD_RTOL
+# one pod rank: ResilientTrainer(coordinator=PodClient) over the book's
+# stacked_lstm_net; a shard of one global batch a step, gradients
+# fetched from the card, SGD applied by apply_update; one JSON record a
+# life
+POD_WORKER = r"""
+import json, os, sys, time
+cfg = json.loads(sys.argv[1])
+host = os.environ["PADDLE_TPU_POD_HOST"]
+addr = os.environ["PADDLE_TPU_POD_COORDINATOR"]
+out = cfg["out"]
+import numpy as np
+import torch
+from paddle_tpu_torch import fluid
+import paddle_tpu_torch.kernels.lstm as lk
+from paddle_tpu_torch.models.sentiment import stacked_lstm_net
+from paddle_tpu_torch.parallel import PodClient
+from paddle_tpu_torch.resilience import (FaultInjector, ResilientTrainer,
+                                         install)
+
+with open(os.path.join(out, "coordinator"), "w") as f:
+    f.write(addr)
+lives = os.path.join(out, host + ".lives")
+first = not os.path.exists(lives)
+with open(lives, "a") as f:
+    f.write(f"{os.getpid()}\n")
+rec = {"host": host, "pid": os.getpid(), "first_life": first,
+       "steps": [], "t0": time.time()}
+
+
+class TimedClient(PodClient):
+    def step_sync(self, step, *a, **kw):
+        t0 = time.perf_counter()
+        out = super().step_sync(step, *a, **kw)
+        rec["steps"][-1]["sync_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+client = TimedClient(addr, host, poll_interval=0.02)
+if host == cfg["victim"]:
+    if first:
+        # armed in the victim's first life only: the respawn must not
+        # draw the crash again
+        install(FaultInjector(spec=f"coord.crash={cfg['crash_prob']}",
+                              seed=cfg["crash_seed"],
+                              log_path=os.path.join(out, "chaos.log")))
+    else:
+        # rejoin once the pod has evicted the dead incarnation
+        while host in client.status()["members"]:
+            time.sleep(0.1)
+        rec["rejoin_at"] = time.time()
+
+main, startup = fluid.Program(), fluid.Program()
+main.random_seed = startup.random_seed = cfg["seed"]
+with fluid.program_guard(main, startup), fluid.unique_name.guard():
+    words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                              lod_level=1)
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    cost, _, _ = stacked_lstm_net(words, label, input_dim=cfg["vocab"],
+                                  emb_dim=cfg["emb"], hid_dim=cfg["hid"],
+                                  stacked_num=cfg["stacked"])
+    pairs = fluid.append_backward(cost)
+names = [p.name for p, _ in pairs]
+gvars = [g for _, g in pairs]
+init_scope = fluid.Scope()
+fluid.Executor(fluid.CPUPlace()).run(startup, scope=init_scope)
+init = fluid.scope_to_numpy(init_scope, names)
+cuda = cfg["device"] == "cuda"
+place = fluid.CUDAPlace(0) if cuda else fluid.CPUPlace()
+dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+scope = fluid.Scope()
+exe = fluid.Executor(place)
+rng = np.random.RandomState(cfg["seed"])
+B, T, pool = cfg["batch"], cfg["t"], cfg["pool"]
+lengths = rng.randint(T // 2, T + 1, B)
+labels = rng.randint(0, 2, (B, 1)).astype(np.int64)
+# a class's words come from a pool of its own: a task the net learns
+seqs = [rng.randint(int(c) * pool, (int(c) + 1) * pool, (int(n), 1))
+        for n, c in zip(lengths, labels[:, 0])]
+
+
+def read_chunk(step, rank, world):
+    idx = list(range(rank, B, world))
+    return {"words": fluid.make_seq([seqs[i] for i in idx], dtype=np.int32,
+                                    max_len=T),
+            "label": labels[idx]}
+
+
+def train_step(feed, step):
+    t0 = time.perf_counter()
+    outs = exe.run(main, feed=feed, fetch_list=[cost] + gvars, scope=scope,
+                   return_numpy=False)
+    if cuda:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vals = [o.cpu().numpy() for o in outs]
+    t2 = time.perf_counter()
+    grads = dict(zip(names, vals[1:]))
+    if step == cfg["nan_step"] and host == cfg["nan_host"]:
+        grads = {k: v * np.nan for k, v in grads.items()}
+    rec["steps"].append({"step": step, "loss": float(vals[0]),
+                         "world": client.view.world,
+                         "generation": client.view.generation,
+                         "step_ms": (t1 - t0) * 1e3,
+                         "fetch_ms": (t2 - t1) * 1e3})
+    return True, grads
+
+
+def apply_update(reduced, step):
+    t0 = time.perf_counter()
+    if step == 1 and host == "host-0" and first:
+        np.savez(os.path.join(out, "reduced-step1.npz"), **reduced)
+    for n in names:
+        cur = scope.find_var(n)
+        if not isinstance(cur, torch.Tensor):
+            cur = torch.as_tensor(np.asarray(cur))
+        g = torch.from_numpy(reduced[n]).to(dev)
+        # replaced in the scope: copied into the step's buffer at the
+        # next replay
+        scope.set_var(n, cur.to(dev) - cfg["lr"] * g)
+    if cuda:
+        torch.cuda.synchronize()
+    rec["steps"][-1]["update_ms"] = (time.perf_counter() - t0) * 1e3
+
+
+def cold_init():
+    open(os.path.join(out, host + ".fresh"), "w").close()
+    for n, v in init.items():
+        scope.set_var(n, v)
+
+
+trainer = ResilientTrainer(
+    cfg["ckpt"], coordinator=client, read_chunk=read_chunk,
+    apply_update=apply_update, program=main, scope=scope,
+    save_interval_steps=2, rendezvous_deadline=cfg["deadline"],
+    step_deadline=cfg["deadline"],
+    heartbeat_interval=float(os.environ["PADDLE_TPU_POD_HEARTBEAT"]))
+lk.lstm_forward.launches = 0
+final = trainer.run(train_step, init_fn=cold_init, max_steps=cfg["steps"])
+rec.update(final=final, status=trainer.status(),
+           launches=lk.lstm_forward.launches,
+           executable=exe.cache_stats()["executable"],
+           graphs=len(exe.graphs()) if cuda else None, t1=time.time())
+np.savez(os.path.join(out, f"{host}.final.npz"),
+         **fluid.scope_to_numpy(scope, names))
+with open(os.path.join(out, f"{host}-{os.getpid()}.json"), "w") as f:
+    json.dump(rec, f)
+print("POD-WORKER-DONE", host, final, flush=True)
+"""
+
+
+def pod_config(workdir):
+    """The worker's configuration at the LSTM phases' widths, on the
+    card."""
+    return {"out": os.path.join(workdir, "out"),
+            "ckpt": os.path.join(workdir, "pod"), "device": "cuda",
+            "vocab": LSTM_VOCAB, "emb": 128, "hid": 512, "stacked": 3,
+            "batch": POD_BATCH, "t": LSTM_T, "seed": SEED,
+            "pool": POD_POOL,
+            "steps": POD_STEPS, "lr": POD_LR, "nan_step": POD_NAN_STEP,
+            "nan_host": POD_NAN_HOST, "victim": POD_VICTIM,
+            "crash_prob": POD_CRASH_PROB, "crash_seed": POD_CRASH_SEED,
+            "deadline": 300.0}
+
+
+def pod_launch(cfg, workdir):
+    """``python -m paddle_tpu_torch.launch --nprocs 3 --pod-rendezvous auto
+    --pod-min-world 2 --max-restarts 1`` over POD_WORKER, the coordinator's
+    /status polled while it runs -> (exit code, wall s, the distinct
+    status views with their times)."""
+    import signal
+    import urllib.request
+
+    script = os.path.join(workdir, "pod_worker.py")
+    with open(script, "w") as f:
+        f.write(POD_WORKER)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.launch", "--nprocs",
+           str(POD_HOSTS), "--pod-rendezvous", "auto", "--pod-min-world",
+           str(POD_MIN_WORLD), "--max-restarts", "1", "--pod-heartbeat",
+           str(POD_HEARTBEAT), "--log-dir", os.path.join(workdir, "logs"),
+           script, json.dumps(cfg)]
+    t0 = time.time()
+    with open(os.path.join(workdir, "launcher.log"), "w") as lf:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=lf, stderr=lf,
+                                env=dict(os.environ, PYTHONPATH=ROOT),
+                                start_new_session=True)
+    views, last = [], None
+    addr_file = os.path.join(cfg["out"], "coordinator")
+    try:
+        while proc.poll() is None and time.time() - t0 < POD_WALL_S:
+            if os.path.exists(addr_file):
+                try:
+                    with urllib.request.urlopen(
+                            f"http://{open(addr_file).read()}/status",
+                            timeout=2) as r:
+                        st = json.loads(r.read())
+                    view = (st["generation"], st["world"],
+                            st["members"], st["host_losses"])
+                    if view != last:
+                        views.append({"t": time.time() - t0,
+                                      "at": time.time(),
+                                      "generation": view[0],
+                                      "world": view[1], "members": view[2],
+                                      "host_losses": view[3]})
+                        last = view
+                except Exception:
+                    pass
+            time.sleep(0.1)
+    finally:
+        if proc.poll() is None:
+            # the launcher tears its ranks down on an interrupt; then the
+            # whole session goes
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                pass
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            proc.wait()
+    return proc.returncode, time.time() - t0, views
+
+
+def pod_timeline(events):
+    """One host's pod-* journal replayed: verdicts advance the timeline,
+    resync / rollback-restore rewind it -> [(step, verdict)]."""
+    line = []
+    for r in events:
+        if r["event"] in ("pod-resync", "pod-rollback-restore"):
+            line = [(s, v) for s, v in line if s <= r["step"]]
+        else:
+            line.append((r["step"], r["event"]))
+    return line
+
+
+def pod_cpu_reduced(np, fluid, cfg):
+    """The CPU port's step-1 gradients of the world-3 shards from the
+    workers' initial parameters, averaged in float64 -> {name: array}."""
+    from paddle_tpu_torch.models.sentiment import stacked_lstm_net
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = cfg["seed"]
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        cost, _, _ = stacked_lstm_net(words, label, input_dim=cfg["vocab"],
+                                      emb_dim=cfg["emb"],
+                                      hid_dim=cfg["hid"],
+                                      stacked_num=cfg["stacked"])
+        pairs = fluid.append_backward(cost)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(cfg["seed"])
+    B, T, pool = cfg["batch"], cfg["t"], cfg["pool"]
+    lengths = rng.randint(T // 2, T + 1, B)
+    labels = rng.randint(0, 2, (B, 1)).astype(np.int64)
+    seqs = [rng.randint(int(c) * pool, (int(c) + 1) * pool, (int(n), 1))
+            for n, c in zip(lengths, labels[:, 0])]
+    total = {}
+    for rank in range(POD_HOSTS):
+        idx = list(range(rank, B, POD_HOSTS))
+        feed = {"words": fluid.make_seq([seqs[i] for i in idx],
+                                        dtype=np.int32, max_len=T),
+                "label": labels[idx]}
+        got = exe.run(main, feed=feed, fetch_list=[g for _, g in pairs],
+                      scope=scope)
+        for (p, _), g in zip(pairs, got):
+            total[p.name] = total.get(p.name, 0) + np.asarray(
+                g, np.float64)
+    return {n: v / POD_HOSTS for n, v in total.items()}
+
+
+def pod_check(np, fluid, cfg, rc, views, rec, fails):
+    """The run's records against the scenario's rules (see pod_phase)."""
+    from paddle_tpu_torch.fluid.checkpoint import PodCheckpointManager
+    from paddle_tpu_torch.resilience import FaultInjector
+
+    out = cfg["out"]
+    lives = {}
+    for f in sorted(os.listdir(out)):
+        if f.endswith(".json"):
+            r = json.load(open(os.path.join(out, f)))
+            lives.setdefault(r["host"], []).append(r)
+    rec["lives"] = {h: len(v) for h, v in lives.items()}
+    if rc != 0:
+        fails.append(f"pod launcher exit {rc}")
+    victim_lives = open(os.path.join(out, POD_VICTIM + ".lives")) \
+        .read().split() if os.path.exists(
+            os.path.join(out, POD_VICTIM + ".lives")) else []
+    fired = []
+    if os.path.exists(os.path.join(out, "chaos.log")):
+        for ln in open(os.path.join(out, "chaos.log")):
+            point, index, value, hit = ln.split()
+            if abs(float(value) - FaultInjector.decision(
+                    POD_CRASH_SEED, point, int(index))) > 1e-9:
+                fails.append(f"pod chaos draw {ln.strip()} is not the "
+                             f"seed's")
+            if hit == "1":
+                fired.append(int(index))
+    rec["victim_lives"] = len(victim_lives)
+    rec["crash_draws"] = fired
+    if len(victim_lives) != 2 or fired != [POD_CRASH_STEP - 1]:
+        fails.append(f"pod crash: {len(victim_lives)} lives of "
+                     f"{POD_VICTIM}, fatal draws {fired}")
+    for h in ("host-0", "host-1", "host-2"):
+        if not os.path.exists(os.path.join(out, h + ".fresh")):
+            fails.append(f"pod: {h} never cold-started (a torn manifest "
+                         f"restored?)")
+    pm = PodCheckpointManager(cfg["ckpt"])
+    committed = pm.committed_steps()
+    rec["committed"] = committed
+    restored = pm.restore(0)
+    if 999 in committed or not restored or restored[0] != POD_STEPS:
+        fails.append(f"pod manifests: committed {committed}")
+        return
+    items = restored[1]
+    finals = {}
+    for h in lives:
+        path = os.path.join(out, h + ".final.npz")
+        if os.path.exists(path):
+            finals[h] = np.load(path)
+    rec["bitwise_equal"] = {
+        h: all(f[n].tobytes() == items[n].tobytes() for n in items)
+        for h, f in finals.items()}
+    if sorted(finals) != ["host-0", "host-1", "host-2"] or \
+            not all(rec["bitwise_equal"].values()):
+        fails.append(f"pod final parameters: {rec['bitwise_equal']}")
+    per_host, verdicts = {}, {}
+    for ln in open(os.path.join(cfg["ckpt"], "guard.journal")):
+        r = json.loads(ln)
+        if not r["event"].startswith("pod-"):
+            continue
+        per_host.setdefault(r["host"], []).append(r)
+        if r["event"] not in ("pod-resync", "pod-rollback-restore"):
+            verdicts.setdefault(f"{r['generation']}/{r['step']}",
+                                set()).add(r["event"])
+    split = {k: sorted(v) for k, v in verdicts.items() if len(v) != 1}
+    if split:
+        fails.append(f"pod verdicts differ across hosts: {split}")
+    rec["resyncs"] = {}
+    for h in ("host-0", "host-1"):
+        line = pod_timeline(per_host.get(h, []))
+        resyncs = [(r["step"], r["world"], r["generation"])
+                   for r in per_host.get(h, [])
+                   if r["event"] == "pod-resync"]
+        rec["resyncs"][h] = resyncs
+        if [s for s, _ in line] != list(range(1, POD_STEPS + 1)) or \
+                {s for s, v in line if v == "pod-skip"} != {POD_NAN_STEP}:
+            fails.append(f"pod timeline of {h}: {line}")
+        if not resyncs or resyncs[0][1] != POD_MIN_WORLD or \
+                resyncs[0][0] >= POD_CRASH_STEP:
+            fails.append(f"pod: {h} did not re-rendezvous at world "
+                         f"{POD_MIN_WORLD} below step {POD_CRASH_STEP}: "
+                         f"{resyncs}")
+    rec["regrown_to_3"] = any(w == POD_HOSTS for rs in rec["resyncs"].values()
+                              for _, w, _ in rs[1:]) or any(
+        v["world"] == POD_HOSTS and v["host_losses"] >= 1 for v in views)
+    # the effective timeline's losses (each step's last record)
+    effective = {}
+    for r in sorted(lives.get("host-0", []), key=lambda r: r["t0"]):
+        for s in r["steps"]:
+            effective[s["step"]] = s["loss"]
+    losses = [effective[s] for s in sorted(effective)]
+    rec["losses"] = losses
+    if len(losses) != POD_STEPS or \
+            np.mean(losses[-5:]) >= np.mean(losses[:5]):
+        fails.append(f"pod losses did not fall: {losses}")
+    # kernels: 3 lstm_fwd launches a train step in every life; one
+    # captured graph a batch shape, a hit every step after its first
+    rec["launches"], rec["executable"] = {}, {}
+    for h, rs in lives.items():
+        for r in rs:
+            n = len(r["steps"])
+            rec["launches"][f"{h}/{r['pid']}"] = [r["launches"], n]
+            rec["executable"][f"{h}/{r['pid']}"] = r["executable"]
+            shapes = len({s["world"] for s in r["steps"]})
+            if r["launches"] != 3 * n or \
+                    r["executable"]["misses"] != shapes or \
+                    r["executable"]["hits"] != n - shapes:
+                fails.append(f"pod kernels of {h} ({r['pid']}): "
+                             f"{r['launches']} lstm_fwd launches in {n} "
+                             f"steps, executable {r['executable']}, "
+                             f"{shapes} batch shapes")
+    # the step's split (host-0, steps at a fixed shape after the first)
+    steps = [s for s in (lives.get("host-0") or [{}])[0].get("steps", [])
+             [1:] if "sync_ms" in s]
+    rec["step_split_ms"] = {
+        k: float(np.median([s[k] for s in steps if k in s]))
+        if any(k in s for s in steps) else None
+        for k in ("step_ms", "fetch_ms", "sync_ms", "update_ms")}
+    # eviction: the victim's death (its last chaos draw) to the first
+    # status that counts the loss
+    chaos = os.path.join(out, "chaos.log")
+    lost = next((v for v in views if v["host_losses"] >= 1), None)
+    rec["eviction_s"] = (lost["at"] - os.stat(chaos).st_mtime) \
+        if lost and os.path.exists(chaos) else None
+    rec["generations"] = [(v["generation"], v["world"]) for v in views]
+    try:
+        want = pod_cpu_reduced(np, fluid, cfg)
+        got = np.load(os.path.join(out, "reduced-step1.npz"))
+        errs = {n: float(np.abs(got[n].astype(np.float64) - w).max()
+                         / max(float(np.abs(w).max()), 1e-30))
+                for n, w in want.items()}
+        rec["reduced_step1_rel_err"] = max(errs.values())
+        if sorted(errs) != sorted(got.files) or \
+                rec["reduced_step1_rel_err"] > POD_GRAD_RTOL:
+            fails.append(f"pod reduced step-1 gradient vs CPU: {errs}")
+    except Exception as e:
+        fails.append(f"pod reduced step-1 gradient: "
+                     f"{type(e).__name__}: {e}")
+
+
+def pod_phase(torch, np, fluid, card):
+    """Phase 32: a 3-rank elastic pod through the launcher, each rank
+    ``ResilientTrainer(coordinator=PodClient(...))`` over
+    ``PodCheckpointManager`` training ``stacked_lstm_net`` on the card.
+    -> (the ``pod`` record, failures)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.fluid.checkpoint import PodCheckpointManager
+
+    t_phase = time.perf_counter()
+    fails = []
+    rec = {"card": card}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+    try:
+        cfg = pod_config(workdir)
+        os.makedirs(cfg["out"])
+        # a torn manifest from before: one staged rank, no COMMIT
+        PodCheckpointManager(cfg["ckpt"]).stage(
+            999, 0, POD_HOSTS, {"fc_0.w_0": np.full((4, 1), 77.0,
+                                                     np.float32)})
+        rc, wall, views = pod_launch(cfg, workdir)
+        rec["launcher_rc"], rec["wall_s"] = rc, wall
+        rec["views"] = views
+        pod_check(np, fluid, cfg, rc, views, rec, fails)
+        if fails:
+            logs = os.path.join(workdir, "logs")
+            for f in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+                log(f"pod {f}: " + open(os.path.join(logs, f),
+                                        errors="replace").read()[-3000:])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    summary = {"card": card, "wall_s": rec.get("wall_s"),
+               "step_split_ms": rec.get("step_split_ms"),
+               "generations": rec.get("generations"),
+               "eviction_s": rec.get("eviction_s"),
+               "regrown_to_3": rec.get("regrown_to_3"),
+               "reduced_step1_rel_err": rec.get("reduced_step1_rel_err"),
+               "launches": rec.get("launches"),
+               "seconds": rec["seconds"]}
+    return {"summary": summary, **rec}, fails
+
+
 # phases another phase needs: their records, scopes or programs
 PHASE_NEEDS = {6: {5}, 8: {7}, 9: {7}, 11: {3, 4, 7, 9}, 13: {12}, 14: {12},
                15: {12}, 18: {12}, 19: {12}, 25: {5}, 26: {5},
                27: {12}, 28: {5, 7, 9, 27}}
 # phases that run as one block
 PHASE_GROUPS = ({7, 8}, {12, 13, 14, 15}, {22, 23, 24})
-N_PHASES = 30
+N_PHASES = 32
 
 
 def select_phases(spec):
@@ -11015,9 +12026,40 @@ def main() -> int:
             lstm_entry["launches"] += lc_lstm
             lstm_entry["launches_lifecycle"] = lc_lstm
         log(f"lifecycle phase ({lifecycle['seconds']:.1f}s)")
+    # -- the multi-process control plane: the serving fleet (the ragged
+    # kernel in every replica's served step; in this process, the plain
+    # greedy and the direct scheduler it is held to) and the pod (the
+    # LSTM kernel in every rank's step; the ranks' launches on the pod
+    # line)
+    fleet = pod = None
+    fleet_ragged = 0
+    if on(31):
+        torch.cuda.empty_cache()
+        if weights is None:
+            g = make_generator("cuda", "float32")
+            g.init_params(seed=SEED)
+            weights = fluid.scope_to_numpy(g.scope, list(g._param_vars()))
+            del g
+        fleet, fleet_ragged, fleet_fails = fleet_phase(
+            torch, np, fluid, fa, card, weights,
+            logit_err.get("float32", LOGIT_ATOL["float32"]))
+        failures += fleet_fails
+        log(f"fleet phase ({fleet['seconds']:.1f}s)")
+    if on(32):
+        torch.cuda.empty_cache()
+        pod, pod_fails = pod_phase(torch, np, fluid, card)
+        failures += pod_fails
+        log(f"pod phase ({pod['seconds']:.1f}s)")
     if kernels is not None:
         kernels[0]["launches"] += (spec_launches + tier_launches
-                                   + cost_ragged + gw_ragged + lc_ragged)
+                                   + cost_ragged + gw_ragged + lc_ragged
+                                   + fleet_ragged)
+        kernels[0]["launches_fleet"] = fleet_ragged
+        if fleet is not None:
+            kernels[0]["launches_fleet_replicas"] = fleet[
+                "replica_ragged_launches"]
+        if pod is not None and lstm_entry is not None:
+            lstm_entry["launches_pod_ranks"] = pod.get("launches")
         kernels[0]["launches_lifecycle"] = lc_ragged
         kernels[0]["launches_speculative"] = spec_launches
         kernels[0]["launches_tiers"] = tier_launches
@@ -11050,8 +12092,8 @@ def main() -> int:
              "nmt": nmt, "srl": srl, "speech": speech, "ssd": ssd,
              "frcnn": frcnn, "ranking": ranking, "speculative": spec_rec,
              "tiers": tiers, "persistence": persist, "cost": cost,
-             "gateway": gateway, "lifecycle": lifecycle,
-             "kernels": kernels}
+             "gateway": gateway, "lifecycle": lifecycle, "fleet": fleet,
+             "pod": pod, "kernels": kernels}
     for name, rec in lines.items():
         if rec is not None:
             print(json.dumps({name: rec}), flush=True)

@@ -9,12 +9,17 @@ adds such a dict back: the executor uses the pair to take the launches
 that a CUDA graph capture records (and does not run) out of the counts,
 and to add them at every replay of the graph.  ``libraries_of`` names
 the built libraries (``_build``) behind the counters that such a dict
-moves: the compile cache stores those beside a step's record."""
+moves: the compile cache stores those beside a step's record.  The
+counters are also a scrape-time series, ``paddle_kernel_launches_total``
+by kernel, so a process serving over HTTP (a fleet replica) reports its
+launches on ``/metrics``."""
 
 from __future__ import annotations
 
 import importlib
 from typing import Dict, Tuple
+
+from ..observability.metrics import Sample, registry
 
 __all__ = ["launch_counts", "add_launches", "libraries_of"]
 
@@ -80,3 +85,19 @@ def libraries_of(delta: Dict[Tuple, int]) -> Tuple[str, ...]:
             continue
         out.add(lib[keys[0]] if isinstance(lib, dict) else lib)
     return tuple(sorted(out))
+
+
+def _collect_launches():
+    """The ``launches`` counters as ``paddle_kernel_launches_total``
+    samples, one a kernel (``ragged_decode_attention``,
+    ``flash_attention_fwd`` / ``_dq`` / ``_dkv``, ``lstm_forward``)."""
+    for (mod, fn, attr, *keys), n in launch_counts().items():
+        if attr != "launches":
+            continue
+        kernel = "_".join([fn] + [str(k) for k in keys])
+        yield Sample("paddle_kernel_launches_total", "counter",
+                     (("kernel", kernel),), float(n),
+                     "Launches of this repo's CUDA kernels (CUDA path)")
+
+
+registry().register_collector(_collect_launches)

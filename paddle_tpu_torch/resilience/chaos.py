@@ -27,12 +27,19 @@ The port's code reaches these points:
                         overwrites it, never load garbage;
   * ``sync.preempt``  — seeded yield/sleep perturbation at lock
                         acquire/release boundaries (armed via
-                        ``utils.sync.enable_preemption``).
+                        ``utils.sync.enable_preemption``);
+  * ``net.partition`` / ``net.delay`` — a dropped (retried) or a
+                        seeded-delayed pod RPC, client side
+                        (parallel/coordinator.py ``PodClient``);
+  * ``coord.crash``   — SIGKILL self at a pod step barrier's entry
+                        (``PodClient.step_sync``): the host loss the
+                        pod coordinator and ``ResilientTrainer``'s pod
+                        mode recover from.
 
-The reference threads its other points (``master.*``, ``guard.*``,
-``net.*``, ``coord.crash``) through modules the port has not taken on;
-the injector's actions for them are kept, so one spec configures both
-packages alike.
+The reference's ``master.*`` and ``guard.*`` points run through the
+master service and the guarded step, ported with them; the injector's
+actions are the reference's, so one spec configures both packages
+alike.
 
 Configuration (environment, all off by default), the reference's:
 

@@ -14,12 +14,9 @@ durability (journal, artifact store); supervision only guarantees the
 process comes back.  A service that wants restart-on-wedge exits
 non-zero from its own health watchdog (``Gateway.wedged`` +
 ``tools.gateway serve --exit-on-wedge``) and rides the same budget.
-The reference builds ``run_supervised`` on its multi-rank elastic
-launcher (``paddle_tpu/launch.py``, not ported); here it is one
-``SupervisedService`` with the launcher's single-rank contract: the
-same argv and env on every respawn, ``PADDLE_TPU_NPROCS=1`` /
-``PADDLE_TPU_PROC_ID=0``, and an append-mode log at
-``<log_dir>/rank-0.log``."""
+``run_supervised`` is the elastic launcher's single-rank case
+(``launch.py``: ``launch(1, argv, max_restarts=...)``), as the
+reference has it."""
 
 from __future__ import annotations
 
@@ -41,25 +38,12 @@ def run_supervised(argv: List[str], max_restarts: int = 2,
     """Run ``python <argv...>`` as a supervised single-rank service:
     non-zero exits respawn the process (same argv, same env) while the
     restart budget lasts.  Returns the final exit code (0 = clean
-    exit).  Logs land under ``log_dir`` (``rank-0.log``, appended
-    across incarnations); an interrupt stops the child with the
-    SIGTERM -> SIGKILL escalation."""
-    log_path = None
-    if log_dir is not None:
-        os.makedirs(log_dir, exist_ok=True)
-        log_path = os.path.join(log_dir, "rank-0.log")
-    svc = SupervisedService(list(argv), max_restarts=max_restarts,
-                            log_path=log_path, name="supervised",
-                            env_extra={"PADDLE_TPU_NPROCS": "1",
-                                       "PADDLE_TPU_PROC_ID": "0"})
-    svc.start()
-    try:
-        svc.wait()
-    except BaseException:
-        svc.stop()
-        raise
-    rc = svc.stop()
-    return 0 if rc is None else int(rc)
+    exit).  Built on the elastic launcher, so logs land per-rank under
+    ``log_dir`` and SIGTERM->SIGKILL escalation applies."""
+    from ..launch import launch
+
+    return launch(1, list(argv), max_restarts=int(max_restarts),
+                  log_dir=log_dir)
 
 
 class SupervisedService:

@@ -34,11 +34,36 @@ relative to chunk size if duplicated steps matter.
 
 Pod (multi-host) mode
 ---------------------
-The reference's ``coordinator=PodClient(...)`` switches run() to an
-elastic multi-host loop over ``parallel/coordinator.py``, which is not
-ported (ROADMAP A16): passing ``coordinator=`` raises
-``NotImplementedError``.  ``fluid.checkpoint.PodCheckpointManager``,
-the pod loop's snapshot store, is ported on its own.
+Passing ``coordinator=PodClient(...)`` switches run() to the elastic
+multi-host loop: rendezvous into a generation, lockstep
+per-step agreement barriers through the coordinator (a local NaN
+becomes an agreed pod-wide skip/rollback — applied by all hosts or
+none), coordinator-reduced gradients applied via ``apply_update``
+(identical bytes on every host), and coordinated pod snapshots through
+``PodCheckpointManager`` (all-ranks staged barrier before the COMMIT
+marker).  On host loss the survivors' generation goes stale; they
+re-rendezvous at the smaller world, restore the newest committed
+manifest, and replay from there — steps past the last commit re-run
+(at-least-once), but the journal's resync records make the effective
+trajectory exact.  Pod-mode contracts (all deterministic per rank):
+
+  * ``read_chunk(step, rank, world) -> record``  (equal shards, so the
+    coordinator's mean of host-means is the global mean)
+  * ``train_step(record, step) -> (healthy, grads_dict)``  — gradients
+    are FETCHED, not applied; the trainer additionally verifies
+    finiteness and proposes skip/rollback per the guard policy
+  * ``apply_update(reduced_grads, step)``  — apply the agreed update
+  * ``state_get() / state_set(dict)``  — snapshot state as a plain
+    name->ndarray dict (defaults adapt program persistables + scope)
+
+Every host must construct identical initial params in ``init_fn``
+(seed it); after that, agreement + coordinator-side reduction keep the
+replicas bitwise identical by construction.
+
+In the port a host's ``train_step`` fetches its gradients from the card
+(numpy), the coordinator reduces them on the host, and ``apply_update``
+writes the agreed update back (a replaced scope var is copied into the
+captured step's buffer at the next replay: one graph, a hit a step).
 """
 
 from __future__ import annotations
@@ -48,7 +73,7 @@ import os
 import time
 from typing import Callable, Optional
 
-from ..fluid.checkpoint import CheckpointManager
+from ..fluid.checkpoint import CheckpointManager, PodCheckpointManager
 from ..parallel.master import master_reader
 
 __all__ = ["ResilientTrainer"]
@@ -98,9 +123,9 @@ class ResilientTrainer:
         construction (the staged publish never exposes a partial
         version).
     coordinator / apply_update / state_get / state_set /
-    rendezvous_deadline / step_deadline / heartbeat_interval: the
-        reference's pod mode; ``coordinator=`` raises (module
-        docstring), the others are accepted and unused.
+    rendezvous_deadline / step_deadline / heartbeat_interval: pod mode
+        (module docstring): a ``PodClient`` and the update, state and
+        deadline hooks of the lockstep loop.
     """
 
     def __init__(self, checkpoint_dir: str, queue=None, read_chunk=None,
@@ -114,16 +139,26 @@ class ResilientTrainer:
                  rendezvous_deadline: float = 120.0,
                  step_deadline: float = 120.0,
                  heartbeat_interval: float = 1.0):
-        if coordinator is not None:
-            raise NotImplementedError(
-                "ResilientTrainer(coordinator=...): pod mode runs over "
-                "parallel/coordinator.py, which is not ported to "
-                "paddle_tpu_torch (ROADMAP A16); use lease mode (queue=)")
         self.manager = CheckpointManager(
             checkpoint_dir, max_to_keep=max_to_keep,
             save_interval_steps=save_interval_steps)
-        if queue is None:
-            raise ValueError("need a queue (lease mode)")
+        self.coordinator = coordinator
+        self.apply_update = apply_update
+        self.state_get = state_get
+        self.state_set = state_set
+        self.rendezvous_deadline = float(rendezvous_deadline)
+        self.step_deadline = float(step_deadline)
+        self.heartbeat_interval = float(heartbeat_interval)
+        self.pod: Optional[PodCheckpointManager] = None
+        if coordinator is not None:
+            if apply_update is None:
+                raise ValueError("pod mode (coordinator=) needs "
+                                 "apply_update=")
+            self.pod = PodCheckpointManager(checkpoint_dir,
+                                            max_to_keep=max_to_keep)
+        elif queue is None:
+            raise ValueError("need a queue (lease mode) or a "
+                             "coordinator (pod mode)")
         self.queue = queue
         self.read_chunk = read_chunk
         self.program = program
@@ -165,6 +200,11 @@ class ResilientTrainer:
                "last_step": self._last_step,
                "last_saved_step": self._last_saved_step,
                "guarded": self.guard is not None}
+        if self.coordinator is not None:
+            v = getattr(self.coordinator, "view", None)
+            out["pod"] = None if v is None else {
+                "generation": v.generation, "rank": v.rank,
+                "world": v.world}
         if self.publisher is not None:
             out["last_published_step"] = self._last_published_step
             out["last_published_version"] = self._last_published_version
@@ -277,9 +317,14 @@ class ResilientTrainer:
         checkpoint every save_interval_steps.  `init_fn` runs only when
         no checkpoint exists (startup-program initialization); a crash
         anywhere re-enters through resume() on the next run().  Returns
-        the final step (the queue drained, or `max_steps` reached)."""
+        the final step (the queue drained, or `max_steps` reached).
+
+        In pod mode (coordinator=) the loop is the lockstep multi-host
+        one instead — see the module docstring for the contracts."""
         from .chaos import injector
 
+        if self.coordinator is not None:
+            return self._run_pod(train_step, init_fn, max_steps)
         if self.guard is not None:
             train_step = self._wrap_guarded(train_step)
         restored = self.resume()
@@ -335,6 +380,153 @@ class ResilientTrainer:
         self._maybe_publish(step, force=True)
         self._last_step, self._last_saved_step = step, last_saved
         return step
+
+    # -- pod (multi-host) mode -----------------------------------------------
+    def _pod_state_get(self):
+        if self.state_get is not None:
+            return self.state_get()
+        from ..fluid.executor import global_scope, scope_to_numpy
+        from ..fluid.framework import default_main_program
+
+        program = self.program or default_main_program()
+        scope = self.scope or global_scope()
+        # the program's persistables as host arrays (a card's tensors
+        # are fetched)
+        return scope_to_numpy(scope, [
+            v.name for v in program.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None])
+
+    def _pod_state_set(self, items) -> None:
+        if self.state_set is not None:
+            self.state_set(items)
+            return
+        from ..fluid.executor import global_scope
+
+        scope = self.scope or global_scope()
+        for name, val in items.items():
+            scope.set_var(name, val)
+
+    def _pod_proposal(self) -> str:
+        """Map a locally-unhealthy step to this host's vote, per the
+        guard policy (skip unless the policy escalates to rollback;
+        'raise' would kill just this host and diverge the pod, so it
+        too proposes the agreed skip)."""
+        if self.guard is not None and getattr(
+                self.guard, "on_nonfinite", "skip") == "rollback":
+            return "rollback"
+        return "skip"
+
+    def _pod_save(self, step: int, view, client) -> None:
+        """One coordinated snapshot: stage (durable) -> all-ranks
+        barrier -> rank 0 writes COMMIT -> rank 0 records the pod's
+        resume point.  Only AFTER the marker is on disk may the step
+        count as committed — a crash anywhere earlier leaves a torn,
+        never-restored manifest."""
+        self.pod.stage(step, view.rank, view.world,
+                       self._pod_state_get())
+        client.snapshot_barrier(step, deadline=self.step_deadline)
+        if view.rank == 0 and self.pod.commit(step, view.world):
+            client.committed(step)
+
+    def _pod_resync(self, client):
+        """The elastic shrink/regrow edge: re-rendezvous into the new
+        generation, restore the newest committed manifest, and rewind
+        to its step (no manifest -> step 0 with current params — every
+        host rewinds identically, so lockstep holds)."""
+        view = client.resync(deadline=self.rendezvous_deadline)
+        restored = self.pod.restore(view.rank)
+        if restored is None:
+            step, last_saved = 0, None
+        else:
+            step, items = restored
+            self._pod_state_set(items)
+            last_saved = step
+        self._journal_guard(step, "pod-resync", host=client.host,
+                            generation=view.generation,
+                            world=view.world)
+        self._last_step = step
+        self._last_saved_step = last_saved
+        return view, step, last_saved
+
+    def _run_pod(self, train_step, init_fn, max_steps) -> int:
+        """The lockstep elastic loop: every step is one agreement
+        barrier; every agreed verdict is journaled on every host (the
+        cross-host audit trail — hosts MUST journal identical verdicts
+        per (generation, step)); saves are coordinated manifests."""
+        import numpy as np
+
+        from ..parallel.coordinator import StaleGeneration
+
+        client = self.coordinator
+        view = client.join(deadline=self.rendezvous_deadline)
+        client.start_heartbeats(self.heartbeat_interval)
+        try:
+            restored = self.pod.restore(view.rank)
+            if restored is None:
+                if init_fn is not None:
+                    init_fn()
+                step, last_saved = 0, None
+            else:
+                step, items = restored
+                self._pod_state_set(items)
+                last_saved = step
+            self._last_step, self._last_saved_step = step, last_saved
+            while max_steps is None or step < max_steps:
+                nxt = step + 1
+                try:
+                    record = self.read_chunk(nxt, view.rank, view.world)
+                    healthy, grads = train_step(record, nxt)
+                    verdict = "continue"
+                    if not healthy or grads is None or not all(
+                            np.all(np.isfinite(np.asarray(g)))
+                            for g in grads.values()):
+                        verdict = self._pod_proposal()
+                    agreed, reduced = client.step_sync(
+                        nxt, verdict,
+                        grads if verdict == "continue" else None,
+                        deadline=self.step_deadline)
+                except StaleGeneration:
+                    view, step, last_saved = self._pod_resync(client)
+                    continue
+                self._journal_guard(nxt, f"pod-{agreed}",
+                                    host=client.host,
+                                    generation=view.generation,
+                                    world=view.world)
+                if agreed == "rollback":
+                    rolled = self.pod.restore(view.rank)
+                    if rolled is not None:
+                        step, items = rolled
+                        self._pod_state_set(items)
+                        self._journal_guard(step, "pod-rollback-restore",
+                                            host=client.host,
+                                            generation=view.generation)
+                        self._last_step = step
+                        continue
+                    # nothing durable to roll back to: the agreed
+                    # outcome degrades to the same all-hosts skip
+                elif agreed == "continue" and reduced is not None:
+                    self.apply_update(reduced, nxt)
+                step = nxt
+                self._last_step = step
+                try:
+                    if self.manager.should_save(step):
+                        self._pod_save(step, view, client)
+                        last_saved = step
+                        self._last_saved_step = step
+                except StaleGeneration:
+                    view, step, last_saved = self._pod_resync(client)
+            # the final state always persists (same rule as lease mode)
+            if step > 0 and last_saved != step:
+                try:
+                    self._pod_save(step, view, client)
+                    self._last_saved_step = step
+                except StaleGeneration:
+                    # the pod moved on at the finish line; the newest
+                    # committed manifest stands as the durable result
+                    pass
+            return step
+        finally:
+            client.stop_heartbeats()
 
     def _drive_chunk(self, task, it, train_step, max_steps, step,
                      last_saved):

@@ -59,7 +59,7 @@ import numpy as np
 from ..utils.sync import RANK_COLLECTOR_INIT, OrderedLock
 
 __all__ = ["PageAllocator", "HostPool", "PoolCapacityError", "TRASH_PAGE",
-           "chunk_hashes"]
+           "chunk_hashes", "affinity_key"]
 
 TRASH_PAGE = 0
 
@@ -172,6 +172,23 @@ def chunk_hashes(tokens: Sequence[int], page_size: int) -> List[str]:
         out.append(h.hexdigest())
         prev = out[-1].encode()
     return out
+
+
+def affinity_key(tokens: Sequence[int], page_size: int,
+                 depth: int = 2) -> Optional[str]:
+    """Routing key for prefix-cache affinity: the chain hash of the
+    prompt's leading ``depth`` full chunks (fewer when the prompt is
+    shorter).  Two prompts with the same key share their whole leading
+    prefix — routing them to the same replica lands the second on the
+    pages the first already cached.  ``None`` when the prompt has no
+    full chunk (nothing cacheable, nothing to be sticky about) — the
+    fleet router falls back to least-loaded."""
+    depth = max(1, int(depth))
+    # only the leading chunks are hashed — the router must not pay a
+    # whole-prompt sha1 chain per request just to pick a replica
+    hs = chunk_hashes(np.asarray(tokens).reshape(-1)[:depth * page_size],
+                      page_size)
+    return hs[-1] if hs else None
 
 
 class HostPool:

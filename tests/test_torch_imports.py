@@ -167,13 +167,29 @@ LIFECYCLE = {"paddle_tpu_torch.resilience.retry",
              "paddle_tpu_torch.tools.lifecycle"}
 
 
+# the modules of the multi-process control plane slice
+CONTROL_PLANE = {"paddle_tpu_torch.serving.paging",
+                 "paddle_tpu_torch.launch",
+                 "paddle_tpu_torch.serving.fleet",
+                 "paddle_tpu_torch.serving.fleet.router",
+                 "paddle_tpu_torch.serving.fleet.server",
+                 "paddle_tpu_torch.serving.fleet.supervisor",
+                 "paddle_tpu_torch.tools.fleet",
+                 "paddle_tpu_torch.parallel",
+                 "paddle_tpu_torch.parallel.coordinator",
+                 "paddle_tpu_torch.resilience.trainer",
+                 "paddle_tpu_torch.resilience.service",
+                 "paddle_tpu_torch.resilience.chaos",
+                 "paddle_tpu_torch.tools.syncheck"}
+
+
 def test_port_imports_without_jax_or_reference():
     out = _run(["-c", _ISOLATED], cwd=ROOT)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 50                   # every module was imported
     want = (SLICE_3 | BOOK | SPARSE | SRL | SPECULATIVE_TIERS | PERSISTENCE
-            | ANALYSIS | GATEWAY | LIFECYCLE)
+            | ANALYSIS | GATEWAY | LIFECYCLE | CONTROL_PLANE)
     assert want <= names, want - names
 
 
@@ -442,6 +458,32 @@ NOT_TAKEN = {
 }
 
 
+# entry points of the control plane slice the check must reach
+CONTROL_PLANE_ENTRIES = {
+    ("launch.py", "launch"), ("launch.py", "launch_hosts"),
+    ("launch.py", "find_free_port"),
+    ("serving/paging.py", "affinity_key"),
+    ("serving/fleet/router.py", "FleetRouter.__init__"),
+    ("serving/fleet/router.py", "FleetRouter.generate"),
+    ("serving/fleet/router.py", "FleetRouter.proxy"),
+    ("serving/fleet/router.py", "FleetRouter.drain"),
+    ("serving/fleet/server.py", "FleetRouterServer.__init__"),
+    ("serving/fleet/supervisor.py", "FleetSupervisor.__init__"),
+    ("serving/fleet/supervisor.py", "FleetSupervisor.start"),
+    ("tools/fleet.py", "main"),
+    ("parallel/coordinator.py", "PodCoordinator.__init__"),
+    ("parallel/coordinator.py", "PodCoordinator.step_sync"),
+    ("parallel/coordinator.py", "CoordinatorServer.__init__"),
+    ("parallel/coordinator.py", "PodClient.__init__"),
+    ("parallel/coordinator.py", "PodClient.step_sync"),
+    ("parallel/coordinator.py", "agree_verdicts"),
+    ("parallel/coordinator.py", "pack_arrays"),
+    ("resilience/trainer.py", "ResilientTrainer.__init__"),
+    ("resilience/trainer.py", "ResilientTrainer.run"),
+    ("resilience/service.py", "run_supervised"),
+    ("tools/syncheck.py", "check_file"), ("tools/syncheck.py", "main")}
+
+
 def _public_params(path):
     """{function or Class.method: [parameter names]} of a file's public
     top-level functions and public classes' public methods and
@@ -465,7 +507,7 @@ def _public_params(path):
 
 def test_public_signatures_keep_the_reference_parameter_names():
     port_dir = os.path.join(ROOT, "paddle_tpu_torch")
-    missing, shared = {}, 0
+    missing, shared, compared = {}, 0, set()
     for here, _, files in os.walk(port_dir):
         for f in files:
             rel = os.path.relpath(os.path.join(here, f), port_dir)
@@ -476,6 +518,7 @@ def test_public_signatures_keep_the_reference_parameter_names():
                 os.path.join(port_dir, rel))
             for name in sorted(set(want) & set(got)):
                 shared += 1
+                compared.add((rel, name))
                 skip = NOT_TAKEN.get((rel, name), set())
                 names = [n for n in want[name] if n not in skip]
                 if "**" in got[name]:
@@ -489,6 +532,7 @@ def test_public_signatures_keep_the_reference_parameter_names():
                 if skip & set(got[name]) or not skip <= set(want[name]):
                     missing[(rel, name)] = ("stale NOT_TAKEN", sorted(skip))
     assert shared >= 100
+    assert CONTROL_PLANE_ENTRIES <= compared, CONTROL_PLANE_ENTRIES - compared
     assert not missing, missing
 
 

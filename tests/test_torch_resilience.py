@@ -14,8 +14,9 @@ supervised service against the JAX package, on the CPU.
   chaos fault, resumed by a fresh trainer on the same checkpoint
   directory, ends on the parameters of an uninterrupted run, bit for
   bit, with no chunk lost; the reference's trainer makes the same
-  leases, steps and checkpoints over the same dataset;
-  ``coordinator=`` (pod mode, ROADMAP A16) raises;
+  leases, steps and checkpoints over the same dataset; pod mode
+  (``coordinator=``) takes the reference's constructor rules (its runs
+  are in ``test_torch_coordinator.py``);
 * ``run_supervised`` / ``SupervisedService``: a ``python -c`` child
   that fails once is respawned and the run ends 0; a SIGKILLed child
   comes back (the one kill of these files).
@@ -345,11 +346,16 @@ def test_trainer_status_and_pod_mode_refused(tmp_path):
     q.set_dataset([0])
     t = ResilientTrainer(str(tmp_path), q, read_chunk)
     assert t.status()["last_step"] is None and not t.status()["guarded"]
-    with pytest.raises(NotImplementedError, match="A16"):
-        ResilientTrainer(str(tmp_path), None, read_chunk,
-                         coordinator=object(), apply_update=lambda *a: 0)
-    with pytest.raises(ValueError):
-        ResilientTrainer(str(tmp_path))
+    # pod mode takes the reference's constructor rules: a coordinator
+    # needs apply_update, and with it the trainer is built
+    for cls in (ResilientTrainer, JaxTrainer):
+        with pytest.raises(ValueError, match="apply_update"):
+            cls(str(tmp_path), None, read_chunk, coordinator=object())
+        pod = cls(str(tmp_path), None, read_chunk, coordinator=object(),
+                  apply_update=lambda *a: 0)
+        assert pod.pod is not None and pod.status()["pod"] is None
+        with pytest.raises(ValueError, match="queue"):
+            cls(str(tmp_path))
 
 
 # -- supervised services ---------------------------------------------------------

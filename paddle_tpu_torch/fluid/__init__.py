@@ -12,23 +12,23 @@ embedding chapters (CTR wide&deep, word2vec, the recommender: sparse
 embeddings), the optimizer front end (every optimizer, ModelAverage
 too, ``regularizer``, ``clip``, ``learning_rate_decay``), control flow
 and the seq2seq models, and semantic role labeling (the linear-chain
-CRF, ``evaluator``) need; level-1 sequence inputs are ``SeqArray``
-feeds (``make_seq``, ``DataFeeder``, the prefetching ``DataLoader``).
+CRF, ``evaluator``) need; sequence inputs are ``SeqArray`` feeds
+(``make_seq``, ``DataFeeder``, the prefetching ``DataLoader``), level-2
+ones ``NestedSeqArray`` feeds (``make_nested_seq``).
 ``io`` saves and loads tensors, checkpoints and inference models in the
 reference's file format, ``checkpoint`` keeps periodic training
 checkpoints, ``transforms`` rewrites an inference program to int8
 weights, and ``profiler`` times steps.  Not ported (they raise
-``NotImplementedError`` where the API reaches them): level-2 sequence
-inputs (``NestedSeqArray`` is only ``beam_search_decode``'s output),
-meshes and sequence parallelism, the compile cache, ``cost_analysis``
-and ``export_stablehlo``."""
+``NotImplementedError`` where the API reaches them): meshes and
+sequence parallelism, and ``io.export_stablehlo``."""
 
 from . import ops as _ops  # registers the op emitters  # noqa: F401
 from . import (checkpoint, clip, evaluator, initializer, io,  # noqa: F401
                layers, learning_rate_decay, nets, optimizer, profiler,
                regularizer, transforms, unique_name)
 from .backward import append_backward
-from .core.lod import SeqArray, make_seq
+from .core.lod import (NestedSeqArray, SeqArray, make_nested_seq,
+                       make_seq)
 from .core.registry import registered_ops
 from .data_feeder import DataFeeder
 from .executor import (CPUPlace, CUDAPlace, Executor, Scope, global_scope,
@@ -45,6 +45,7 @@ __all__ = [
     "regularizer", "clip", "learning_rate_decay", "evaluator", "DataFeeder",
     "DataLoader", "checkpoint", "profiler", "transforms",
     "append_backward", "registered_ops", "SeqArray", "make_seq",
+    "NestedSeqArray", "make_nested_seq",
     "Executor", "Scope", "global_scope", "scope_guard", "CUDAPlace",
     "CPUPlace", "scope_from_numpy", "scope_to_numpy",
     "Program", "Block", "Operator", "Variable", "Parameter", "ParamAttr",

@@ -11,9 +11,8 @@ fields are torch tensors on the executor's device (``make_seq`` builds
 one on the host, with numpy fields, for a feed), and the class is a plain
 container: the executor and the lowering unwrap and re-wrap it where the
 reference relies on JAX's pytree flattening.  Level-2 sequences
-(``NestedSeqArray``) are ported as the output type of
-``beam_search_decode`` only: the executor fetches one, and a ``data``
-var or an op input of level 2 is not ported.
+(``NestedSeqArray``, packed on the host by ``make_nested_seq``) are a
+batch of sequences of sequences, padded on both levels.
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["SeqArray", "NestedSeqArray", "make_seq", "seq_mask"]
+__all__ = ["SeqArray", "NestedSeqArray", "make_seq", "seq_mask",
+           "make_nested_seq"]
 
 
 class SeqArray:
@@ -67,13 +67,15 @@ class SeqArray:
 
 class NestedSeqArray:
     """Level-2 sequences: a batch of sequences of sequences (the
-    reference's nested LoD; beam decode's per-source candidate lists).
+    reference's nested LoD: paragraphs of sentences of words, beam
+    decode's per-source candidate lists).
 
         data           [batch, max_outer, max_inner, *feat]
         outer_lengths  [batch]             sub-sequences per row
         inner_lengths  [batch, max_outer]  items per sub-sequence
 
-    ``np.asarray(nested)`` is the padded data block."""
+    ``np.asarray(nested)`` is the padded data block; LoD-aware ops read
+    the lengths."""
 
     __slots__ = ("data", "outer_lengths", "inner_lengths")
 
@@ -97,6 +99,32 @@ class NestedSeqArray:
     def __array__(self, dtype=None, copy=None):
         arr = np.asarray(self.data)
         return arr.astype(dtype) if dtype is not None else arr
+
+    def outer_mask(self) -> torch.Tensor:
+        """[batch, max_outer] bool: which sub-sequences exist."""
+        return seq_mask(self.outer_lengths, self.data.shape[1])
+
+    def inner_mask(self) -> torch.Tensor:
+        """[batch, max_outer, max_inner] bool: which items exist."""
+        pos = torch.arange(self.data.shape[2], dtype=torch.int32,
+                           device=self.inner_lengths.device)
+        m = pos < self.inner_lengths.to(torch.int32)[..., None]
+        return m & self.outer_mask()[..., None]
+
+    def flatten_outer(self) -> SeqArray:
+        """Level 1: [batch * max_outer, max_inner, *feat] with each
+        sub-sequence's length (0 for a vacant outer slot)."""
+        b, n = self.data.shape[:2]
+        lens = torch.where(self.outer_mask(),
+                           self.inner_lengths.to(torch.int32), 0)
+        return SeqArray(self.data.reshape((b * n,) + self.data.shape[2:]),
+                        lens.reshape(b * n))
+
+    def with_data(self, data) -> "NestedSeqArray":
+        return NestedSeqArray(data, self.outer_lengths, self.inner_lengths)
+
+    def detach(self) -> "NestedSeqArray":
+        return self.with_data(self.data.detach())
 
     def __repr__(self):
         return (f"NestedSeqArray(data={tuple(self.data.shape)}, "
@@ -126,3 +154,39 @@ def make_seq(seqs, dtype=None, max_len=None, bucket=None) -> SeqArray:
     for i, s in enumerate(seqs):
         data[i, : len(s)] = s
     return SeqArray(data, lengths)
+
+
+def make_nested_seq(nested, dtype=None, outer_bucket=None,
+                    inner_bucket=None) -> NestedSeqArray:
+    """Host-side packing: a list (batch) of lists (outer) of sequences ->
+    NestedSeqArray of numpy arrays, zero-padded on both levels.
+    ``outer_bucket`` / ``inner_bucket`` round the padded extents up to a
+    multiple of them."""
+    batch = len(nested)
+    outer_lengths = np.asarray([len(row) for row in nested], np.int32)
+    n_max = int(outer_lengths.max()) if batch else 0
+    if outer_bucket:
+        n_max = int(np.ceil(max(n_max, 1) / outer_bucket) * outer_bucket)
+    seqs = [[np.asarray(s, dtype=dtype) for s in row] for row in nested]
+    m_max = max((len(s) for row in seqs for s in row), default=0)
+    if inner_bucket:
+        m_max = int(np.ceil(max(m_max, 1) / inner_bucket) * inner_bucket)
+    # the feature shape of the first row's first sub-sequence, or of a
+    # later row's while that is () (an empty first sub-sequence); the
+    # dtype of the first sub-sequence: the reference's choice
+    feat = ()
+    for row in seqs:
+        if row:
+            feat = row[0].shape[1:]
+        if feat:
+            break
+    first = next((s for row in seqs for s in row), None)
+    data = np.zeros((batch, n_max, m_max) + feat,
+                    dtype=(first.dtype if first is not None else None)
+                    or dtype)
+    inner_lengths = np.zeros((batch, n_max), np.int32)
+    for i, row in enumerate(seqs):
+        for j, s in enumerate(row):
+            data[i, j, : len(s)] = s
+            inner_lengths[i, j] = len(s)
+    return NestedSeqArray(data, outer_lengths, inner_lengths)

@@ -130,7 +130,6 @@ from __future__ import annotations
 import contextlib
 import os
 import statistics
-import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -141,6 +140,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import _build, add_launches, launch_counts, libraries_of
+from ..utils.sync import RANK_LOADER, OrderedLock
 from .core.lod import NestedSeqArray, SeqArray
 from .core.selected_rows import SelectedRows
 from .core.types import runtime_dtype, torch_dtype
@@ -154,8 +154,11 @@ __all__ = ["Scope", "global_scope", "scope_guard", "Executor", "CPUPlace",
 
 # held while a step is captured in a CUDA graph: a thread that issues
 # work on the card beside the executor (the DataLoader's prefetch) takes
-# it, so no allocation or copy of another thread lands in a capture
-CAPTURE_LOCK = threading.Lock()
+# it, so no allocation or copy of another thread lands in a capture.
+# The outermost rank: a capture runs the step's ops, which may load a
+# kernel library (native.build) or record a profiler event, and no
+# caller holds an ordered lock around a step's device work
+CAPTURE_LOCK = OrderedLock("executor.capture", RANK_LOADER)
 
 
 class CUDAPlace:
@@ -268,9 +271,10 @@ def _host_tensor(v) -> torch.Tensor:
 
 def _on_host(v, device: torch.device) -> bool:
     """Whether a scope value is a host value to upload for a step on
-    ``device``: a numpy array (a SeqArray of them), or a CPU tensor when
-    the step runs on the card."""
-    parts = _tensors(v) if isinstance(v, (torch.Tensor, SeqArray)) else [v]
+    ``device``: a numpy array (a SeqArray or NestedSeqArray of them), or
+    a CPU tensor when the step runs on the card."""
+    parts = (_tensors(v) if isinstance(v, (torch.Tensor, SeqArray,
+                                           NestedSeqArray)) else [v])
     return any(not isinstance(t, torch.Tensor)
                or (t.device.type == "cpu" and device.type != "cpu")
                for t in parts)
@@ -280,11 +284,10 @@ def _to_device(v, device: torch.device):
     """One host value as a device tensor; int64 and float64 narrow to
     int32 and float32 as in the reference's runtime.  Arrays are copied:
     the optimizer ops update scope tensors in place, and a read-only
-    array (a JAX buffer) must not be written through.  A SeqArray moves
-    as its data and its int32 lengths."""
-    if isinstance(v, SeqArray):
-        return SeqArray(_to_device(v.data, device),
-                        _to_device(v.lengths, device))
+    array (a JAX buffer) must not be written through.  A SeqArray
+    (NestedSeqArray) moves as its data and its int32 lengths."""
+    if isinstance(v, (SeqArray, NestedSeqArray)):
+        return _like(v, [_to_device(t, device) for t in _tensors(v)])
     t = v if isinstance(v, torch.Tensor) else _host_tensor(v)
     return t.to(device=device, dtype=torch_dtype(runtime_dtype(t.dtype)))
 
@@ -338,10 +341,10 @@ def _feed_value(v):
     """One feed entry as a tensor of the runtime dtype (int64 and float64
     narrow to int32 and float32, as in the reference's runtime): a host
     value as a CPU tensor (a copy: the step must not write through a
-    caller's array), a tensor where it lies.  A SeqArray keeps its
-    structure, with int32 lengths."""
-    if isinstance(v, SeqArray):
-        return SeqArray(_feed_value(v.data), _feed_value(v.lengths))
+    caller's array), a tensor where it lies.  A SeqArray
+    (NestedSeqArray) keeps its structure, with int32 lengths."""
+    if isinstance(v, (SeqArray, NestedSeqArray)):
+        return _like(v, [_feed_value(t) for t in _tensors(v)])
     t = v if isinstance(v, torch.Tensor) else _host_tensor(v)
     return t.to(dtype=torch_dtype(runtime_dtype(t.dtype)))
 
@@ -350,13 +353,14 @@ def _sig_of(v) -> tuple:
     """Shape and dtype of a feed or state value (never its contents)."""
     if isinstance(v, SeqArray):
         return ("seq",) + tuple(v.data.shape) + (str(v.data.dtype),)
+    if isinstance(v, NestedSeqArray):
+        return ("nested",) + tuple(v.data.shape) + (str(v.data.dtype),)
     return tuple(v.shape) + (str(v.dtype),)
 
 
 def _tensors(v) -> List[torch.Tensor]:
     """A value's tensors: a SeqArray's data and lengths, a
-    NestedSeqArray's (the output of ``beam_search_decode``) data and
-    both lengths, a SelectedRows' (a sparse gradient) rows and values,
+    NestedSeqArray's data and both lengths, a SelectedRows' (a sparse gradient) rows and values,
     else the tensor itself."""
     if isinstance(v, SeqArray):
         return [v.data, v.lengths]
@@ -814,7 +818,9 @@ class Executor:
                 # scope that holds it keeps the device tensor
                 v = _to_device(v, self.device)
                 _owner_of(scope, n).set_var(n, v)
-            dev = v.data.device if isinstance(v, SeqArray) else v.device
+            dev = (v.data.device
+                   if isinstance(v, (SeqArray, NestedSeqArray))
+                   else v.device)
             if dev != self.device:
                 raise ValueError(f"Executor: scope variable {n!r} is on "
                                  f"{dev}, the executor runs on "
@@ -1620,8 +1626,8 @@ def _run_host_op(op, scope: Scope) -> None:
 def _staged(v, device):
     """A feed value on ``device``: a host tensor copied there through
     pinned memory, asynchronously."""
-    if isinstance(v, SeqArray):
-        return SeqArray(_staged(v.data, device), _staged(v.lengths, device))
+    if isinstance(v, (SeqArray, NestedSeqArray)):
+        return _like(v, [_staged(t, device) for t in _tensors(v)])
     if v.device == device:
         return v
     if device.type == "cuda" and not v.is_cuda:

@@ -302,15 +302,19 @@ def abstract_from_meta(shape, dtype: str, lod_level: int = 0,
     """A ``meta`` tensor from recorded var metadata: the dummy extent for
     dynamic dims, int64 narrowed to the reference runtime's int32.  A
     sequence var (``lod_level == 1``) becomes a SeqArray of meta tensors
-    with a dummy time axis after the batch axis."""
+    with a dummy time axis after the batch axis, a level-2 var a
+    NestedSeqArray with two dummy axes there."""
     if shape is None:
         raise ValueError(f"variable {name} has no shape")
-    if lod_level >= 2:
-        raise NotImplementedError(
-            f"variable {name}: lod_level >= 2 (NestedSeqArray) is not "
-            f"ported to paddle_tpu_torch")
     shape = [(_DUMMY_BATCH if d == -1 else d) for d in shape]
     dt = torch_dtype(runtime_dtype(dtype))
+    if lod_level >= 2:
+        data = torch.empty([shape[0], _DUMMY_TIME, _DUMMY_TIME, *shape[1:]],
+                           dtype=dt, device="meta")
+        outer = torch.empty([shape[0]], dtype=torch.int32, device="meta")
+        inner = torch.empty([shape[0], _DUMMY_TIME], dtype=torch.int32,
+                            device="meta")
+        return NestedSeqArray(data, outer, inner)
     if lod_level == 1:
         data = torch.empty([shape[0], _DUMMY_TIME, *shape[1:]], dtype=dt,
                            device="meta")

@@ -17,11 +17,8 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
     """Declare an input variable.  With ``append_batch_size`` (default)
     the leading batch dim is dynamic (-1).  With ``lod_level=1`` the
     value fed is a SeqArray (padded [batch, time, *shape] + lengths, see
-    ``core/lod.py``); level-2 sequences are not ported."""
-    if lod_level >= 2:
-        raise NotImplementedError(
-            f"data({name!r}): lod_level >= 2 (NestedSeqArray) is not "
-            f"ported to paddle_tpu_torch")
+    ``core/lod.py``), with ``lod_level=2`` a NestedSeqArray (padded
+    [batch, outer, inner, *shape] + both levels' lengths)."""
     helper = LayerHelper("data", name=name, main_program=main_program,
                          startup_program=startup_program)
     shape = list(shape)

@@ -15,8 +15,8 @@ layers (``conv2d_transpose``, ``conv3d``, ``pool3d``, ``l2_normalize``,
 layers of the loss and miscellaneous ops (``smooth_l1``, ``roi_pool``,
 ``spp``, ``unpool``, ``max_pool2d_with_index``, ``bilinear_interp``,
 the ranking losses, ``auc``, ``hsigmoid``, ``selective_fc``, ``pad``,
-``crop``, ``lod_reset``, ``row_conv`` and the rest; the reference's
-all but ``dynamic_lstmp``, ``switch_moe`` and the quantized layers).
+``crop``, ``lod_reset``, ``row_conv``, ``dynamic_lstmp`` and the rest;
+the reference's all but ``switch_moe`` and the quantized layers).
 Each layer appends ops to the current block through
 ``LayerHelper`` exactly as the reference does, so both packages build
 byte-identical programs."""
@@ -47,7 +47,7 @@ __all__ = ["fc", "embedding", "dropout", "cross_entropy", "accuracy",
            "cross_entropy_over_beam", "cross_entropy_with_selfnorm", "pad",
            "crop", "lod_reset", "label_smooth", "rank_loss",
            "margin_rank_loss", "log_loss", "conv_shift", "row_conv",
-           "roi_pool", "spp", "unpool", "max_pool2d_with_index"]
+           "dynamic_lstmp", "roi_pool", "spp", "unpool", "max_pool2d_with_index"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -1059,6 +1059,45 @@ def row_conv(input, future_context_size, param_attr=None, act=None,
     out = helper.create_tmp_variable(input.dtype, lod_level=1)
     helper.append_op("row_conv", {"X": input, "Filter": w}, {"Out": out})
     return helper.append_activation(out)
+
+
+def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
+                  use_peepholes=True, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="tanh",
+                  name=None):
+    """LSTM with a recurrent projection (reference layers dynamic_lstmp,
+    lstmp_op.cc) over ``input``, the [B, T, 4 * size] gate
+    pre-activations.  ``size`` counts cells (the JAX package's
+    convention; ``dynamic_lstm``'s ``size`` is 4x the hidden width):
+    Weight [proj_size, 4 * size], ProjWeight [size, proj_size], Bias
+    [1, 7 * size] with the peepholes, else [1, 4 * size].  Returns
+    (projection, cell) sequence variables."""
+    helper = LayerHelper("lstmp", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[proj_size, 4 * size],
+                                dtype=input.dtype)
+    w_proj = helper.create_parameter(helper.param_attr,
+                                     shape=[size, proj_size],
+                                     dtype=input.dtype)
+    bias_size = 7 * size if use_peepholes else 4 * size
+    b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                shape=[1, bias_size], dtype=input.dtype,
+                                is_bias=True)
+    proj = helper.create_tmp_variable(input.dtype, lod_level=1)
+    cell = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("lstmp",
+                     {"Input": input, "Weight": w, "ProjWeight": w_proj,
+                      "Bias": b},
+                     {"Projection": proj, "Cell": cell},
+                     {"use_peepholes": use_peepholes,
+                      "is_reverse": is_reverse,
+                      "gate_activation": gate_activation,
+                      "cell_activation": cell_activation,
+                      "candidate_activation": candidate_activation,
+                      "proj_activation": proj_activation})
+    return proj, cell
 
 
 def roi_pool(input, rois, pooled_height=1, pooled_width=1,

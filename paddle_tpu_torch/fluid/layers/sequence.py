@@ -1,18 +1,25 @@
 """Sequence layers — the port of ``paddle_tpu/fluid/layers/sequence.py``,
-cut to ``sequence_conv``, ``sequence_pool`` and its first / last step
-forms, ``sequence_expand``, ``sequence_pad``, the linear-chain CRF
-(``linear_chain_crf``, ``crf_decoding``), CTC (``warpctc``,
-``edit_distance``, ``ctc_align``, ``ctc_greedy_decoder``) and
-``lambda_rank_cost``."""
+every layer of it: ``sequence_conv``, ``sequence_context``,
+``sequence_pool`` and its first / last step forms,
+``nested_sequence_pool``, ``sequence_expand``, ``sequence_concat``,
+``sequence_reshape``, ``sequence_slice``, ``sequence_erase``,
+``sequence_mask``, ``sequence_pad``, ``kmax_seq_score``,
+``sub_nested_seq``, the linear-chain CRF (``linear_chain_crf``,
+``crf_decoding``), CTC (``warpctc``, ``edit_distance``, ``ctc_align``,
+``ctc_greedy_decoder``) and ``lambda_rank_cost``."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["sequence_conv", "sequence_pool", "sequence_first_step",
-           "sequence_last_step", "sequence_expand", "sequence_pad",
-           "linear_chain_crf", "crf_decoding", "warpctc", "edit_distance",
-           "ctc_align", "ctc_greedy_decoder", "lambda_rank_cost"]
+__all__ = ["sequence_conv", "sequence_context", "sequence_pool",
+           "nested_sequence_pool", "sequence_first_step",
+           "sequence_last_step", "sequence_expand", "sequence_concat",
+           "sequence_reshape", "sequence_slice", "sequence_erase",
+           "sequence_mask", "sequence_pad", "linear_chain_crf",
+           "crf_decoding", "warpctc", "edit_distance", "ctc_align",
+           "ctc_greedy_decoder", "lambda_rank_cost", "kmax_seq_score",
+           "sub_nested_seq"]
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
@@ -41,6 +48,21 @@ def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
     return helper.append_activation(out)
 
 
+def sequence_context(input, context_length, context_start=None,
+                     name=None):
+    """The sliding window of ``context_length`` steps concatenated on the
+    feature axis (the reference's ContextProjection; zero outside the
+    sequence)."""
+    helper = LayerHelper("sequence_context", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    if context_start is None:
+        context_start = -((context_length - 1) // 2)
+    helper.append_op("sequence_context", {"X": input}, {"Out": out},
+                     {"context_length": int(context_length),
+                      "context_start": int(context_start)})
+    return out
+
+
 def sequence_pool(input, pool_type, name=None):
     helper = LayerHelper("sequence_pool", name=name)
     out = helper.create_tmp_variable(input.dtype)
@@ -48,6 +70,18 @@ def sequence_pool(input, pool_type, name=None):
     helper.append_op("sequence_pool", {"X": input},
                      {"Out": out, "MaxIndex": max_index},
                      {"pooltype": pool_type})
+    return out
+
+
+def nested_sequence_pool(input, pool_type="sum", name=None):
+    """Pool the inner level of a level-2 sequence batch (paragraphs of
+    sentences of words to paragraphs of sentence vectors): the
+    level-collapsing half of the reference's nested-LoD
+    sequence_pool."""
+    helper = LayerHelper("nested_sequence_pool", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("nested_sequence_pool", {"X": input}, {"Out": out},
+                     {"pool_type": pool_type})
     return out
 
 
@@ -65,6 +99,51 @@ def sequence_expand(x, y, name=None):
     helper = LayerHelper("sequence_expand", name=name)
     out = helper.create_tmp_variable(x.dtype, lod_level=1)
     helper.append_op("sequence_expand", {"X": x, "Y": y}, {"Out": out})
+    return out
+
+
+def sequence_concat(input, axis=0, name=None):
+    """axis=0 (the reference's default): the sequences of each row
+    joined in time, lengths summed; axis=1: the features of aligned
+    sequences side by side."""
+    helper = LayerHelper("sequence_concat", name=name)
+    first = input[0] if isinstance(input, (list, tuple)) else input
+    out = helper.create_tmp_variable(first.dtype, lod_level=1)
+    helper.append_op("sequence_concat", {"X": input}, {"Out": out},
+                     {"axis": int(axis)})
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("sequence_reshape", {"X": input}, {"Out": out},
+                     {"new_dim": new_dim})
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("sequence_slice",
+                     {"X": input, "Offset": offset, "Length": length},
+                     {"Out": out})
+    return out
+
+
+def sequence_erase(input, tokens, name=None):
+    helper = LayerHelper("sequence_erase", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    helper.append_op("sequence_erase", {"X": input}, {"Out": out},
+                     {"tokens": list(tokens)})
+    return out
+
+
+def sequence_mask(x, maxlen, dtype="float32"):
+    helper = LayerHelper("sequence_mask")
+    out = helper.create_tmp_variable(dtype, stop_gradient=True)
+    helper.append_op("sequence_mask_op", {"X": x}, {"Out": out},
+                     {"maxlen": maxlen, "out_dtype": dtype})
     return out
 
 
@@ -166,4 +245,30 @@ def lambda_rank_cost(score, label, ndcg_num=5, name=None):
     out = helper.create_tmp_variable("float32")
     helper.append_op("lambda_rank_cost", {"Score": score, "Label": label},
                      {"Out": out}, {"ndcg_num": int(ndcg_num)})
+    return out
+
+
+def kmax_seq_score(input, beam_size=1, name=None):
+    """The top ``beam_size`` positions of each (sub-)sequence of width-1
+    scores, -1 padded (reference KmaxSeqScoreLayer.cpp).  A level-1
+    input gives dense [B, beam]; a level-2 input a sequence over the
+    outer axis, one row per sub-sequence."""
+    helper = LayerHelper("kmax_seq_score", name=name)
+    out = helper.create_tmp_variable(
+        "float32", lod_level=max(input.lod_level - 1, 0),
+        stop_gradient=True)
+    helper.append_op("kmax_seq_score", {"X": input}, {"Out": out},
+                     {"beam_size": int(beam_size)})
+    return out
+
+
+def sub_nested_seq(input, selected_indices, name=None):
+    """Whole sub-sequences of a level-2 sequence picked by per-row index
+    lists ([B, k], -1 ends a row; reference SubNestedSequenceLayer.cpp).
+    The output keeps lod_level 2."""
+    helper = LayerHelper("sub_nested_seq", name=name)
+    out = helper.create_tmp_variable(input.dtype, lod_level=2)
+    helper.append_op("sub_nested_seq",
+                     {"X": input, "Selection": selected_indices},
+                     {"Out": out})
     return out

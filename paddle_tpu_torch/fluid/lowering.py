@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from .core.desc import BlockDesc, OpDesc, ProgramDesc
-from .core.lod import SeqArray
+from .core.lod import NestedSeqArray, SeqArray
 from .core.registry import (EmitCtx, GRAD_SUFFIX, base_op_type, get_op_info,
                             has_op, is_grad_op_type)
 
@@ -266,21 +266,25 @@ def _scatter_outputs(op: OpDesc, outs: Dict[str, list], env: Dict[str, Any]):
 
 
 def _data(v):
-    """The tensor autograd sees: a SeqArray's padded data."""
-    return v.data if isinstance(v, SeqArray) else v
+    """The tensor autograd sees: a SeqArray's (NestedSeqArray's) padded
+    data."""
+    return v.data if isinstance(v, (SeqArray, NestedSeqArray)) else v
 
 
 def _emit_taped(ctx: EmitCtx, op: OpDesc, ins: Dict[str, list],
                 wanted: List[Tuple[str, int]]):
     """Run a forward op under autograd with the wanted inputs as leaves
-    (a SeqArray input's leaf is its data).  Returns (outputs detached for
+    (a SeqArray or NestedSeqArray input's leaf is its data, its lengths
+    carried along).  Returns (outputs detached for
     the env, (leaves, inputs, outputs with graph))."""
     ins = {slot: list(vals) for slot, vals in ins.items()}
     leaves = {}
     for slot, i in wanted:
         v = ins[slot][i]
         leaf = _data(v).detach().requires_grad_(True)
-        ins[slot][i] = v.with_data(leaf) if isinstance(v, SeqArray) else leaf
+        ins[slot][i] = (v.with_data(leaf)
+                        if isinstance(v, (SeqArray, NestedSeqArray))
+                        else leaf)
         leaves[(slot, i)] = leaf
     with torch.enable_grad():
         outs = get_op_info(op.type).emit(ctx, ins)
@@ -294,7 +298,7 @@ def _emit_tape_grad(op: OpDesc, ins: Dict[str, list], entry):
     taped graph with the cotangents ``<OutSlot>@GRAD``; gradients go out
     under ``<InSlot>@GRAD``, aligned with the forward slot's entries.  An
     input the outputs do not depend on gets zeros, and the gradient of a
-    SeqArray input keeps that input's lengths."""
+    SeqArray (NestedSeqArray) input keeps that input's lengths."""
     leaves, primals, outs = entry
     cotangents = {s[: -len(GRAD_SUFFIX)]: v for s, v in ins.items()
                   if s.endswith(GRAD_SUFFIX)}
@@ -320,7 +324,7 @@ def _emit_tape_grad(op: OpDesc, ins: Dict[str, list], entry):
             if n and g is None:
                 g = torch.zeros_like(leaves[(fwd_slot, i)])
             primal = primals[fwd_slot][i] if n else None
-            if isinstance(primal, SeqArray):
+            if isinstance(primal, (SeqArray, NestedSeqArray)):
                 g = primal.with_data(g)
             vals.append(g)
         out[slot] = vals

@@ -334,19 +334,25 @@ def _recurrent_common(ctx, ins, masked: bool):
     datas = []
     for x in ins.get("X", []):
         if isinstance(x, NestedSeqArray):
-            raise NotImplementedError(
-                f"{op.type}: a level-2 (NestedSeqArray) step input is not "
-                f"ported to paddle_tpu_torch")
-        if isinstance(x, SeqArray):
+            # a step input over sub-sequences (the reference's
+            # recurrent-over-subsequences): the loop steps the OUTER
+            # axis and each step sees one sub-sequence of every row as a
+            # level-1 SeqArray, data [B, M, ...] and lengths
+            # inner_lengths[:, step]
+            lengths = x.outer_lengths if lengths is None else lengths
+            datas.append(SeqArray(
+                x.data.transpose(0, 1).contiguous(),
+                x.inner_lengths.transpose(0, 1).contiguous()))
+        elif isinstance(x, SeqArray):
             lengths = x.lengths if lengths is None else lengths
             datas.append(x.data.transpose(0, 1))          # [T, B, ...]
         else:
             datas.append(x.transpose(0, 1))
 
-    T, batch = datas[0].shape[0], datas[0].shape[1]
-    dtype = (datas[0].dtype if datas[0].is_floating_point()
-             else torch.float32)
-    dev = datas[0].device
+    lead = datas[0].data if isinstance(datas[0], SeqArray) else datas[0]
+    T, batch = lead.shape[0], lead.shape[1]
+    dtype = lead.dtype if lead.is_floating_point() else torch.float32
+    dev = lead.device
 
     inits = list(ins.get("InitStates", []))
     carry = []
@@ -367,7 +373,9 @@ def _recurrent_common(ctx, ins, masked: bool):
     else:
         mask = torch.ones((T, batch), dtype=dtype, device=dev)
     if reverse:
-        datas = [torch.flip(d, [0]) for d in datas]
+        datas = [SeqArray(torch.flip(d.data, [0]), torch.flip(d.lengths, [0]))
+                 if isinstance(d, SeqArray) else torch.flip(d, [0])
+                 for d in datas]
         mask = torch.flip(mask, [0])
 
     steps = []
@@ -375,7 +383,9 @@ def _recurrent_common(ctx, ins, masked: bool):
         mt = mask[t]
         env = dict(p_env)
         env.update(zip(state_names, carry))
-        env.update(zip(in_names, (d[t] for d in datas)))
+        env.update(zip(in_names, (
+            SeqArray(d.data[t], d.lengths[t]) if isinstance(d, SeqArray)
+            else d[t] for d in datas)))
         env = ctx.lower_block(sub_idx, env)
         new = tuple(env[n] for n in update_names)
         outs = tuple(env[n] for n in out_names)

@@ -1,9 +1,10 @@
 """Miscellaneous ops — the port of ``paddle_tpu/fluid/ops/misc_ops.py``,
-whole but ``lstmp``: shape surgery (``pad``, ``crop``,
+whole: shape surgery (``pad``, ``crop``,
 ``rotate``, ``scale_sub_region``, ``lod_reset``), ``selective_fc``,
 ``lrn``, the small losses (``label_smooth``, ``rank_loss``,
 ``margin_rank_loss``, ``log_loss``, ``modified_huber_loss``), the
-sequence ops ``conv_shift`` and ``row_conv``, the spatial pooling family
+sequence ops ``conv_shift``, ``row_conv`` and ``lstmp`` (the LSTM with a
+recurrent projection), the spatial pooling family
 (``max_pool2d_with_index``, ``unpool``, ``roi_pool``, ``spp``,
 ``bilinear_interp``), and ``minus``, ``l1_norm``, ``is_empty``,
 ``assign_value``, ``isfinite``, ``bilinear_tensor_product``,
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ...kernels.flash_attention import counter_hash
+from ...kernels.lstm import recurrent_product
 from ..core.lod import SeqArray
 from ..core.registry import primitive
 from .detection_ops import fills
@@ -235,6 +237,56 @@ def row_conv(ctx, x, w):
     for j in range(ctx_len):
         out = out + padded[:, j: j + t] * w[j]
     return SeqArray(torch.where(valid, out, zero), x.lengths)
+
+
+@primitive("lstmp", inputs=["Input", "Weight", "ProjWeight", "Bias",
+                            "H0?", "C0?"],
+           outputs=["Projection", "Cell"])
+def lstmp(ctx, x, w, w_proj, b, h0, c0):
+    """reference lstmp_op.cc: an LSTM whose recurrent state is the
+    projection r = proj_act(h @ ProjWeight) [B, P], fed back through
+    Weight [P, 4 * size]; Input is the pre-projected [B, T, 4 * size],
+    gate blocks c~, i, f, o, Bias [4 * size] or [7 * size] with the
+    peepholes.  The reference's step (a ``lax.scan``) as a loop of
+    PyTorch ops under autograd (``rnn_ops._scan_seq``): no TPU kernel
+    computes it.  -> (Projection [B, T, P], Cell [B, T, size])."""
+    from .rnn_ops import _ACTS, _scan_seq
+
+    if not isinstance(x, SeqArray):
+        raise TypeError("lstmp expects a sequence input")
+    size, proj_size = w_proj.shape
+    gate_act = _ACTS[ctx.attr("gate_activation", "sigmoid")]
+    cell_act = _ACTS[ctx.attr("cell_activation", "tanh")]
+    cand_act = _ACTS[ctx.attr("candidate_activation", "tanh")]
+    proj_act = _ACTS[ctx.attr("proj_activation", "tanh")]
+    peep = ctx.attr("use_peepholes", True)
+    bias = b.reshape(-1)
+    gate_bias = bias[:4 * size]
+    w_ic, w_fc, w_oc = (bias[4 * size:5 * size], bias[5 * size:6 * size],
+                        bias[6 * size:7 * size])
+    batch, dt, dev = x.data.shape[0], x.data.dtype, x.data.device
+    r0 = h0 if h0 is not None else torch.zeros(batch, proj_size, dtype=dt,
+                                               device=dev)
+    c0 = c0 if c0 is not None else torch.zeros(batch, size, dtype=dt,
+                                               device=dev)
+
+    def step(carry, xt):
+        r, c = carry
+        gates = xt + recurrent_product(r, w) + gate_bias
+        gc, gi, gf, go = gates.chunk(4, dim=-1)
+        if peep:
+            gi = gi + w_ic * c
+            gf = gf + w_fc * c
+        c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
+        if peep:
+            go = go + w_oc * c_new
+        h_new = gate_act(go) * cell_act(c_new)
+        r_new = proj_act(recurrent_product(h_new, w_proj))
+        return (r_new, c_new), torch.cat([r_new, c_new], dim=-1)
+
+    rc = _scan_seq(x, step, (r0, c0), ctx.attr("is_reverse", False))
+    return (x.with_data(rc[..., :proj_size]),
+            x.with_data(rc[..., proj_size:]))
 
 
 # ---------------------------------------------------------------------------

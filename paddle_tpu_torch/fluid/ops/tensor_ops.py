@@ -29,7 +29,7 @@ import math
 
 import torch
 
-from ..core.lod import SeqArray
+from ..core.lod import NestedSeqArray, SeqArray
 from ..core.registry import primitive
 from ..core.types import runtime_dtype, torch_dtype
 
@@ -157,9 +157,10 @@ def argmax(ctx, x):
 @primitive("lookup_table", inputs=["W", "Ids"], stop_grad_slots=("Ids",))
 def lookup_table(ctx, w, ids):
     """Embedding gather (reference lookup_table_op.cc); padding_idx rows
-    are zero.  SeqArray ids give a SeqArray with their lengths.  The
-    forward is the same for ``is_sparse``; only the gradient differs."""
-    seq = isinstance(ids, SeqArray)
+    are zero.  SeqArray (NestedSeqArray) ids give a SeqArray
+    (NestedSeqArray) with their lengths.  The forward is the same for
+    ``is_sparse``; only the gradient differs."""
+    seq = isinstance(ids, (SeqArray, NestedSeqArray))
     idv = _ids(ids.data if seq else ids)
     out = w[idv]
     pad = ctx.attr("padding_idx", None)
@@ -180,9 +181,9 @@ def lookup_table_grad(ctx, w, ids, og):
     atomics), so the gradient is the same at every run."""
     from ..core.selected_rows import SelectedRows
 
-    if isinstance(ids, SeqArray):
+    if isinstance(ids, (SeqArray, NestedSeqArray)):
         ids = ids.data
-    if isinstance(og, SeqArray):
+    if isinstance(og, (SeqArray, NestedSeqArray)):
         og = og.data
     rows = _ids(ids).reshape(-1)
     vals = og.reshape(-1, og.shape[-1])

@@ -28,7 +28,8 @@ __all__ = ["launch_counts", "add_launches", "libraries_of"]
 _COUNTERS = (("flash_attention", "flash_attention", "launches"),
              ("flash_attention", "flash_attention", "launches_by_dtype"),
              ("flash_attention", "ragged_decode_attention", "launches"),
-             ("lstm", "lstm_forward", "launches"))
+             ("lstm", "lstm_forward", "launches"),
+             ("lstm", "lstm_forward", "launches_by_dtype"))
 
 
 def _owner(mod: str, fn: str):

@@ -33,6 +33,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from ..utils.sync import RANK_NATIVE_BUILD, OrderedLock
+
 __all__ = ["NVCC_FLAGS", "build_all", "load_library", "nvcc_path",
            "library_plan", "mount", "has_library", "store_library",
            "restore_library", "source_digests", "atomic_write", "stats"]
@@ -51,7 +53,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_MAGIC = b"PDLKLIB1\n"
 LIB_SUFFIX = ".klib"
 
-_lock = threading.Lock()
+_lock = OrderedLock("native.build", RANK_NATIVE_BUILD)
 _libs: Dict[str, ctypes.CDLL] = {}
 _mounts: List[str] = []
 # this process's library builds and restores (chip_smoke's warm-start

@@ -2,21 +2,26 @@
 ``_cell_kernel``, over the whole contract of the ``dynamic_lstm`` op
 (``paddle_tpu/fluid/ops/rnn_ops.py``).
 
-``lstm_forward`` runs the forward time loop: for CUDA tensors it launches
-``csrc/lstm_fwd.cu`` once for all T steps (counted in
-``lstm_forward.launches``); for CPU tensors it runs ``lstm_forward_plain``,
-a per-step PyTorch loop with the op's exact semantics.  Anything else
-raises: nothing falls back.  ``dynamic_lstm`` wraps it in the autograd
-Function ``_DynamicLSTM``, whose backward is plain PyTorch on every
-device (``lstm_backward_plain``): the JAX package has no backward kernel
-either, its gradient is the generic vjp of the scan.
+``lstm_forward`` runs the forward time loop in float32 or bfloat16: for
+CUDA tensors it launches ``csrc/lstm_fwd.cu`` once for all T steps (its
+fp32 or its bf16 kernel, counted in ``lstm_forward.launches`` and by
+input dtype in ``lstm_forward.launches_by_dtype``); for CPU tensors it
+runs ``lstm_forward_plain``, a per-step PyTorch loop with the op's exact
+semantics.  Anything else raises: nothing falls back.  ``dynamic_lstm``
+wraps it in the autograd Function ``_DynamicLSTM``, whose backward is
+plain PyTorch on every device (``lstm_backward_plain``, in float32 for
+either dtype): the JAX package has no backward kernel either, its
+gradient is the generic vjp of the scan.
 
 Semantics (the op's): x [B, T, 4H] is the pre-projected input, w [H, 4H]
 the recurrence, gate blocks in the order c~, i, f, o; bias [4H], or [7H]
 with the peepholes w_ic, w_fc, w_oc.  Past a row's length the carry is
 frozen and the outputs are 0; ``is_reverse`` walks the padded time axis
 backwards, so a right-padded row sees its padding first, with the carry
-held at its initial value.
+held at its initial value.  In bfloat16 (the op on bf16 parameters) the
+step rounds where the reference's does: the recurrent product summed in
+float32 and cast to bf16, then every operation of the gates and the cell
+in bf16, h and c carried in bf16.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 __all__ = ["KERNEL_NAME", "ACTIVATIONS", "lstm_forward", "lstm_forward_plain",
            "lstm_backward_plain", "lstm_plan", "device_plan", "device_limits",
-           "dynamic_lstm"]
+           "dynamic_lstm", "recurrent_product"]
 
 KERNEL_NAME = "lstm_fwd"
 # activation name -> the kernel's code (the order of rnn_ops._ACTS)
@@ -69,15 +74,25 @@ def _mask(lengths, T: int, dtype):
     return keep.to(dtype)[..., None]
 
 
+def recurrent_product(h, w):
+    """h @ w summed in float32 and cast to h's dtype (the reference's
+    ``preferred_element_type=jnp.float32`` and ``astype``)."""
+    if h.dtype == torch.float32:
+        return torch.matmul(h, w)
+    return torch.matmul(h.float(), w.float()).to(h.dtype)
+
+
 def lstm_forward_plain(x, w, bias, lengths, h0=None, c0=None,
                        use_peepholes=True, is_reverse=False,
                        gate_activation="sigmoid", cell_activation="tanh",
-                       candidate_activation="tanh", matmul=torch.matmul):
+                       candidate_activation="tanh",
+                       matmul=recurrent_product):
     """The forward as a per-step loop, the counterpart of the reference's
-    ``_scan_seq`` + ``dynamic_lstm`` step -> (h, c), each [B, T, H].
-    ``matmul`` computes the recurrent product h @ w (a test passes a
-    rounded product to see what the kernel's tensor-core arithmetic
-    does over T steps)."""
+    ``_scan_seq`` + ``dynamic_lstm`` step -> (h, c), each [B, T, H], in
+    x's dtype: in bf16 each PyTorch op computes in float32 and rounds its
+    result, as the reference's bf16 step does.  ``matmul`` computes the
+    recurrent product h @ w (a test passes a rounded product to see what
+    the kernel's tensor-core arithmetic does over T steps)."""
     B, T, _ = x.shape
     H = w.shape[0]
     ga, ca, cda = (_act(gate_activation), _act(cell_activation),
@@ -109,10 +124,12 @@ def lstm_forward_plain(x, w, bias, lengths, h0=None, c0=None,
 # a wm x wn grid: each owns one 16-row m-tile of the block's rows and ntw
 # n-tiles of 8 columns (2 units x 4 gates) of the [H, 4k] weight slice.
 THREADS, WARPS, MAX_TILES, MAX_STAGES = 256, 8, 8, 16
-CHUNKS = (64, 32, 16)           # h columns a ring slot stages, largest first
+# bytes of h a ring slot stages a row, largest first: 64, 32 or 16 fp32
+# columns, 128, 64 or 32 bf16 ones (whole pairs of the mma's k-steps)
+CHUNK_BYTES = (256, 128, 64)
 # the order in which the C entry point reads the plan
 PLAN_FIELDS = ("k", "nh", "nb", "Bs", "wm", "wn", "ntw", "kc", "stages",
-               "hp", "kp", "w_smem", "ring_off", "stage_floats", "smem",
+               "hp", "kp", "w_smem", "ring_off", "stage_elems", "smem",
                "grid")
 
 
@@ -120,33 +137,36 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _ring(bsp: int, H: int, n: int, w_smem: bool, smem_max: int):
+def _ring(bsp: int, H: int, n: int, w_smem: bool, smem_max: int,
+          elem: int):
     """The ring of h chunks in the shared memory left beside the weight
     slice, or None when fewer than two slots fit: the widest chunk kc
     (fewer block barriers, longer runs of products between them) that
     keeps two chunks in flight ahead of the one being multiplied, or
     all of them, or else as many as fit.  hp is H rounded up to kc: the
-    h buffer's row pitch; kp = hp + 4 the row pitch of the n-major slice
-    (4 mod 8 words: its ldmatrix reads are free of bank conflicts)."""
+    h buffer's row pitch; kp = hp + 16 bytes the row pitch of the
+    n-major slice (16 mod 32 bytes: its ldmatrix reads are free of bank
+    conflicts).  Counts are in values of ``elem`` bytes."""
     best = None
-    for kc in CHUNKS:
+    for kc in (c // elem for c in CHUNK_BYTES):
         hp = _cdiv(H, kc) * kc
-        ring_off = n * (hp + 4) if w_smem else 0
+        kp = hp + 16 // elem
+        ring_off = n * kp if w_smem else 0
         stage = bsp * kc              # rows unpadded (XOR-swizzled)
         stages = min(MAX_STAGES, hp // kc + 1,
-                     (smem_max // 4 - ring_off) // stage)
+                     (smem_max // elem - ring_off) // stage)
         if stages < 2:
             continue
         key = (min(stages - 1, 2, hp // kc), kc)
         if best is None or key > best[0]:
-            best = (key, dict(kc=kc, stages=stages, hp=hp, kp=hp + 4,
-                              ring_off=ring_off, stage_floats=stage,
-                              smem=4 * (ring_off + stages * stage)))
+            best = (key, dict(kc=kc, stages=stages, hp=hp, kp=kp,
+                              ring_off=ring_off, stage_elems=stage,
+                              smem=elem * (ring_off + stages * stage)))
     return None if best is None else best[1]
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(B: int, H: int, sms: int, smem_max: int):
+def _plan(B: int, H: int, sms: int, smem_max: int, elem: int):
     best, best_cost = None, None
     for k in range(2, 2 * WARPS * MAX_TILES + 1, 2):
         nh = _cdiv(H, k)
@@ -163,7 +183,7 @@ def _plan(B: int, H: int, sms: int, smem_max: int):
             if ntw > MAX_TILES:
                 continue
             for w_smem in (1, 0):
-                ring = _ring(16 * mt, H, n, bool(w_smem), smem_max)
+                ring = _ring(16 * mt, H, n, bool(w_smem), smem_max, elem)
                 if ring is not None:
                     break
             if ring is None:
@@ -182,8 +202,9 @@ def _plan(B: int, H: int, sms: int, smem_max: int):
     return best
 
 
-def lstm_plan(B: int, H: int, sms: int, smem_max: int) -> dict:
-    """The kernel's work split for B rows and H units on a card with
+def lstm_plan(B: int, H: int, sms: int, smem_max: int, elem: int = 4) -> dict:
+    """The kernel's work split for B rows and H units of ``elem``-byte
+    values (4: the fp32 kernel, 2: the bf16 one) on a card with
     ``sms`` SMs and ``smem_max`` bytes of shared memory a block: units
     per block k and unit groups nh, batch groups nb of Bs rows, the warp
     grid wm x wn and n-tiles per warp ntw, the h ring (chunk kc columns,
@@ -191,7 +212,7 @@ def lstm_plan(B: int, H: int, sms: int, smem_max: int) -> dict:
     it sits in shared memory, the shared-memory layout and bytes, and the
     grid (at most one block per SM: the launch is cooperative).  Raises
     ValueError when no split fits."""
-    plan = _plan(int(B), int(H), int(sms), int(smem_max))
+    plan = _plan(int(B), int(H), int(sms), int(smem_max), int(elem))
     if plan is None:
         raise ValueError(f"lstm_fwd: no work split for B={B}, H={H} fits "
                          f"{sms} SMs and {smem_max} bytes of shared memory")
@@ -200,18 +221,20 @@ def lstm_plan(B: int, H: int, sms: int, smem_max: int) -> dict:
 
 @functools.lru_cache(maxsize=1)
 def _kernel_fn():
-    """The C entry points, built and bound at first use."""
+    """The C entry points, built and bound at first use: ({dtype: the
+    launch entry}, the limits query)."""
     from ._build import load_library
 
     lib = load_library(KERNEL_NAME)
-    fn = lib.lstm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fns = {torch.float32: lib.lstm_fwd, torch.bfloat16: lib.lstm_fwd_bf16}
+    for fn in fns.values():
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     limits = lib.lstm_fwd_limits
     limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
     limits.restype = ctypes.c_int
-    return fn, limits
+    return fns, limits
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,9 +250,11 @@ def device_limits(index: int):
     return out[0], out[1]
 
 
-def device_plan(B: int, H: int, device) -> dict:
-    """``lstm_plan`` for the card that holds ``device``."""
-    return lstm_plan(B, H, *device_limits(torch.device(device).index or 0))
+def device_plan(B: int, H: int, device, dtype=torch.float32) -> dict:
+    """``lstm_plan`` for the card that holds ``device``, for the kernel
+    of ``dtype``."""
+    return lstm_plan(B, H, *device_limits(torch.device(device).index or 0),
+                     elem=torch.empty((), dtype=dtype).element_size())
 
 
 def _check(cond: bool, what: str) -> None:
@@ -254,30 +279,27 @@ def _lstm_cuda(x, w, bias, lengths, h0, c0, use_peepholes, is_reverse,
     tensors = [x, w, bias, lengths]
     for s in (h0, c0):
         if s is not None:
-            _check(tuple(s.shape) == (B, H) and s.dtype == torch.float32,
-                   "h0 / c0 must be float32 [B, H]")
+            _check(tuple(s.shape) == (B, H), "h0 / c0 must be [B, H]")
             tensors.append(s)
     for t in tensors:
         _check(t.device == dev, f"tensor on {t.device}, expected {dev}")
         _check(t.is_contiguous(), "inputs must be contiguous")
-    _check(w.dtype == torch.float32 and bias.dtype == torch.float32,
-           "w and bias must be float32")
-    h = torch.empty(B, T, H, dtype=torch.float32, device=dev)
+    h = torch.empty(B, T, H, dtype=x.dtype, device=dev)
     c = torch.empty_like(h)
     if B * T * H == 0:
         return h, c
-    fn, _ = _kernel_fn()
-    plan = device_plan(B, H, dev)
+    fns, _ = _kernel_fn()
+    plan = device_plan(B, H, dev, x.dtype)
     # h_{t-1} double buffer, rows padded to hp with zeros the kernel never
     # writes; one step counter per batch group
-    hbuf = torch.zeros(2, B, plan["hp"], dtype=torch.float32, device=dev)
+    hbuf = torch.zeros(2, B, plan["hp"], dtype=x.dtype, device=dev)
     counters = torch.zeros(plan["nb"], dtype=torch.int32, device=dev)
     packed = (ctypes.c_int * len(PLAN_FIELDS))(*(plan[f]
                                                  for f in PLAN_FIELDS))
     bias = bias.reshape(-1)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        err = fns[x.dtype](x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                  bias[4 * H:].data_ptr() if use_peepholes else None,
                  ptr(h0), ptr(c0), lengths.data_ptr(), h.data_ptr(),
                  c.data_ptr(), hbuf.data_ptr(), counters.data_ptr(), B, T, H,
@@ -287,8 +309,9 @@ def _lstm_cuda(x, w, bias, lengths, h0, c0, use_peepholes, is_reverse,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lstm_fwd launch failed: CUDA error {err} (B={B}, "
-                           f"T={T}, H={H}, plan {plan})")
+                           f"T={T}, H={H}, {x.dtype}, plan {plan})")
     lstm_forward.launches += 1
+    lstm_forward.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return h, c
 
 
@@ -297,17 +320,21 @@ def lstm_forward(x, w, bias, lengths, h0=None, c0=None, *,
                  gate_activation: str = "sigmoid",
                  cell_activation: str = "tanh",
                  candidate_activation: str = "tanh"):
-    """The LSTM forward time loop -> (h, c), each [B, T, H].
+    """The LSTM forward time loop -> (h, c), each [B, T, H] in x's dtype.
 
-    x [B, T, 4H] float32, w [H, 4H], bias [4H] or [7H] (peepholes),
-    lengths [B] int32, optional h0 / c0 [B, H].  CUDA tensors launch the
-    fused kernel once (counted in ``lstm_forward.launches``); CPU tensors
-    run ``lstm_forward_plain``.  Only float32 is ported: the reference's
-    ``amp_dtype`` (bf16 activations) is not."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"lstm_forward: dtype {x.dtype} (the "
-                                  "reference's amp_dtype) is not ported; "
-                                  "float32 only")
+    x [B, T, 4H], w [H, 4H], bias [4H] or [7H] (peepholes), optional h0 /
+    c0 [B, H], all float32 or all bfloat16; lengths [B] int32.  CUDA
+    tensors launch the fused kernel of that dtype once (counted in
+    ``lstm_forward.launches`` and ``launches_by_dtype``); CPU tensors
+    run ``lstm_forward_plain``."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"lstm_forward: dtype {x.dtype}; float32 "
+                                  "and bfloat16 are ported")
+    for name, t in (("w", w), ("bias", bias), ("h0", h0), ("c0", c0)):
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"lstm_forward: {name} is {t.dtype}, x is "
+                             f"{x.dtype}; the parameters and the state "
+                             f"share x's dtype")
     for name in (gate_activation, cell_activation, candidate_activation):
         _act(name)
     cfg = dict(use_peepholes=use_peepholes, is_reverse=is_reverse,
@@ -322,6 +349,7 @@ def lstm_forward(x, w, bias, lengths, h0=None, c0=None, *,
 
 
 lstm_forward.launches = 0            # kernel launches, CUDA path only
+lstm_forward.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def lstm_backward_plain(dh_out, dc_out, x, w, bias, lengths, h0, c0, h, c,
@@ -329,7 +357,9 @@ def lstm_backward_plain(dh_out, dc_out, x, w, bias, lengths, h0, c0, h, c,
                         gate_activation="sigmoid", cell_activation="tanh",
                         candidate_activation="tanh"):
     """Gradients of the forward w.r.t. (x, w, bias, h0, c0) from those of
-    its outputs (h, c), given the outputs themselves.
+    its outputs (h, c), given the outputs themselves, computed in float32
+    whatever the dtype (bf16 saved states too) and returned in each
+    input's dtype.
 
     The gate pre-activations are recomputed with one batched product,
     x + h_prev @ w + bias as [B*T, H] x [H, 4H], where h_prev is the
@@ -338,6 +368,10 @@ def lstm_backward_plain(dh_out, dc_out, x, w, bias, lengths, h0, c0, h, c,
     dc through the peepholes and the masks, with one [B, 4H] x [4H, H]
     product a step; dw, the bias and the peepholes' gradients are one
     product or sum each.  dh0 / dc0 are None when h0 / c0 are."""
+    dtypes = [None if t is None else t.dtype for t in (x, w, bias, h0, c0)]
+    up = [None if t is None else t.float()
+          for t in (dh_out, dc_out, x, w, bias, h0, c0, h, c)]
+    dh_out, dc_out, x, w, bias, h0, c0, h, c = up
     B, T, _ = x.shape
     H = w.shape[0]
     ga, ca, cda = (_act(gate_activation), _act(cell_activation),
@@ -407,8 +441,10 @@ def lstm_backward_plain(dh_out, dc_out, x, w, bias, lengths, h0, c0, h, c,
         db += [(dai * cp).sum((0, 1)), (daf * cp).sum((0, 1)),
                (dao * cn).sum((0, 1))]
     dbias = torch.cat(db).reshape(bias.shape)
-    return (da, dw, dbias, dh if h0 is not None else None,
-            dc if c0 is not None else None)
+    grads = (da, dw, dbias, dh if h0 is not None else None,
+             dc if c0 is not None else None)
+    return tuple(g if g is None else g.to(dt)
+                 for g, dt in zip(grads, dtypes))
 
 
 class _DynamicLSTM(torch.autograd.Function):

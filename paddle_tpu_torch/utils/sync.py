@@ -64,9 +64,10 @@ __all__ = [
 # are policed by the cycle detector instead.  Keep this table in sync
 # with the reference's README "Concurrency discipline".
 RANK_LOADER = 8            # pipeline.loader       fluid/pipeline_io.py
+#                            executor.capture      fluid/executor.py
 RANK_SERVICE = 10          # resilience.service    resilience/service.py
 RANK_LIFECYCLE = 12        # lifecycle.controller  lifecycle/controller.py
-RANK_NATIVE_BUILD = 14     # native.build          native/__init__.py
+RANK_NATIVE_BUILD = 14     # native.build          kernels/_build.py
 RANK_NATIVE = 15           # native.lib            native/__init__.py
 RANK_COORD = 18            # coord.state           parallel/coordinator.py
 RANK_MASTER_SNAP = 20      # master.snapshot       parallel/master_service.py

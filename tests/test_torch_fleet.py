@@ -280,8 +280,13 @@ def _backoff(pkg, tmp):
         router.health_check_once()
         gw1, srv1, _, c1 = reps[1]
         _hard_kill(gw1, srv1, c1)
-        router.health_check_once()
         r1 = router._by_name("r1")
+        # the kill can return inside the probe interval (the listener's
+        # shutdown waits for up to one poll of serve_forever): make r1 due,
+        # as FleetRouter.restore does, so the sweep always probes it
+        with router._lock:
+            r1.next_probe = 0.0
+        router.health_check_once()
         out = [r1.state, r1.fails, _stats(router)["ready"]]
         out.append(list(itertools.islice(r1.delays, 8)))
         for _ in range(4):

@@ -283,9 +283,12 @@ def test_unported_features_raise():
     with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
         x = tfluid.layers.data("x", [4], "float32")
         ids = tfluid.layers.data("ids", [4], "int64")
-        # level-1 sequences are ported; level-2 (NestedSeqArray) is not
-        with pytest.raises(NotImplementedError, match="lod_level"):
-            tfluid.layers.data("s", [4], "int64", lod_level=2)
+        # level-2 sequences are ported: a NestedSeqArray var declares
+        # (its level recorded) and feeds (below)
+        nested = tfluid.layers.data("s", [1], "int64", lod_level=2)
+        assert nested.lod_level == 2 and nested.shape == (-1, 1)
+        emb_s = tfluid.layers.embedding(nested, [8, 4])
+        assert emb_s.lod_level == 2 and emb_s.shape == (-1, 4)
         with pytest.raises(NotImplementedError, match="seq_parallel"):
             tfluid.layers.fused_attention(x, x, x, seq_parallel=True)
         # sparse embeddings, Adagrad and regularizers are ported
@@ -309,6 +312,21 @@ def test_unported_features_raise():
             TT.multi_head_attention(q, q, q, None, 4, 4, 8, n_head=2,
                                     causal=True)
     exe = tfluid.Executor(tfluid.CPUPlace())
+    # the level-2 var feeds: a NestedSeqArray in, its embedding out with
+    # the feed's lengths (tests/test_torch_nested_lod.py holds the ops)
+    nmain, nstart = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(nmain, nstart), tfluid.unique_name.guard():
+        s = tfluid.layers.data("s", [1], "int64", lod_level=2)
+        e = tfluid.layers.embedding(s, [8, 4])
+    nscope = tfluid.Scope()
+    exe.run(nstart, scope=nscope)
+    feed = tfluid.make_nested_seq([[[[1]], [[2], [3]]], [[[4]]]],
+                                  dtype=np.int64)
+    got, = exe.run(nmain, feed={"s": feed}, fetch_list=[e], scope=nscope)
+    assert isinstance(got, tfluid.NestedSeqArray)
+    assert got.data.shape == (2, 2, 2, 4)
+    np.testing.assert_array_equal(got.outer_lengths, [2, 1])
+    np.testing.assert_array_equal(got.inner_lengths, [[1, 2], [1, 0]])
     # cost_analysis is ported (tests/test_torch_cost.py): a program of
     # no ops costs nothing
     assert exe.cost_analysis(tfluid.Program()) == {"flops": 0.0,

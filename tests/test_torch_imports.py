@@ -15,8 +15,8 @@
   less the explicit list ``NOT_TAKEN``; the parameters the port cannot
   honour raise ``NotImplementedError`` (found by an ``ast`` walk of the
   two files, so no module is imported for it).
-* The port registers 223 of the reference's 234 ops, each under the
-  reference's name.
+* The port registers 233 of the reference's 234 ops, each under the
+  reference's name (all but ``switch_moe``).
 """
 
 import ast
@@ -236,12 +236,20 @@ IO_QUANT_OPS = {"feed", "fetch", "save", "load", "save_combine",
                 "quantized_mul", "quantized_matmul", "quantized_conv2d"}
 
 
+# the level-2 sequence slice: nine sequence ops and lstmp
+SEQUENCE_OPS = {"sequence_context", "nested_sequence_pool",
+                "sequence_concat", "sequence_reshape", "sequence_slice",
+                "sequence_erase", "sequence_mask_op", "kmax_seq_score",
+                "sub_nested_seq", "lstmp"}
+
+
 def test_registered_ops_are_a_subset_of_the_reference():
-    """The port registers 223 of the reference's 234 ops, each under the
+    """The port registers 233 of the reference's 234 ops, each under the
     reference's name, the SRL slice's 16, the speech and detection
     slice's 20, the loss and miscellaneous slice's 34, the KV tier's 4
-    transfers, the persistence slice's 12 IO and int8 ops and the
-    guardrails' ``isfinite`` among them."""
+    transfers, the persistence slice's 12 IO and int8 ops, the
+    guardrails' ``isfinite`` and the level-2 sequence slice's 10 among
+    them; only ``switch_moe`` is left."""
     from paddle_tpu.fluid.core.registry import registered_ops as jops
 
     ported, ref = set(fluid.registered_ops()), set(jops())
@@ -252,8 +260,10 @@ def test_registered_ops_are_a_subset_of_the_reference():
     assert len(TIER_OPS) == 4 and TIER_OPS <= ported
     assert len(IO_QUANT_OPS) == 12 and IO_QUANT_OPS <= ported
     assert "isfinite" in ported
+    assert len(SEQUENCE_OPS) == 10 and SEQUENCE_OPS <= ported
     assert ported <= ref, ported - ref
-    assert (len(ported), len(ref)) == (223, 234)
+    assert ref - ported == {"switch_moe"}
+    assert (len(ported), len(ref)) == (233, 234)
 
 
 def test_entry_points_refuse_to_fall_back(monkeypatch):
@@ -389,6 +399,50 @@ def test_chip_smoke_detection_rows_compare(fault):
         assert not out["differ"]
     else:
         assert out["differ"] and not out["near_ties"], out
+
+
+@pytest.mark.parametrize("fault", [None, "ulp", "near_tie_score",
+                                   "near_tie_iou", "score", "box"])
+def test_chip_smoke_map_decisions_compare(fault):
+    """``chip_smoke.map_decisions_compare`` (phase 21's DetectionMAP,
+    card vs CPU): rows an ulp apart decide alike; a false positive and a
+    true positive of two images whose scores lie within NEAR_TIE on both
+    sides and swap ranks, or a box whose IoU with its ground truth lies
+    at the overlap threshold, is a near tie (and moves the mAP); a score
+    or a box moved past it differs."""
+    from paddle_tpu_torch.fluid.evaluator import DetectionMAP
+
+    cs = _smoke()
+    gts = [[[1.0, 0.1, 0.1, 0.4, 0.4]], [[1.0, 0.0, 0.0, 1.0, 1.0]]]
+    cpu = np.float32([
+        [[1, 0.9, 0.1, 0.1, 0.4, 0.4], [1, 0.5, 0.6, 0.6, 0.9, 0.9]],
+        [[1, 0.5000004, 0.0, 0.0, 1.0, 0.5], [-1, -1, -1, -1, -1, -1]]])
+    card = cpu.copy()
+    if fault == "ulp":
+        card[0, 1, 1] = np.nextafter(card[0, 1, 1], np.float32(0))
+    elif fault == "near_tie_score":
+        card[0, 1, 1], card[1, 0, 1] = cpu[1, 0, 1], cpu[0, 1, 1]
+    elif fault == "near_tie_iou":
+        card[1, 0, 5] = np.nextafter(np.float32(0.5), np.float32(0))
+    elif fault == "score":
+        card[0, 1, 1] = 0.6
+    elif fault == "box":
+        card[1, 0, 5] = 0.4
+    out = cs.map_decisions_compare(np, DetectionMAP._iou, card, cpu, gts)
+    maps = []
+    for rows in (card, cpu):
+        m = DetectionMAP(0.5)
+        m.update(cs.detections_of(np, rows), gts)
+        maps.append(float(m.eval()))
+    if fault in (None, "ulp"):
+        assert out == {"near_ties": [], "differ": []}, out
+        assert maps[0] == maps[1]
+    elif fault.startswith("near_tie"):
+        assert [t[:2] for t in out["near_ties"]] == [(1, 1)], out
+        assert not out["differ"] and maps[0] != maps[1], (out, maps)
+    else:
+        assert [d[:2] for d in out["differ"]] == [(1, 1)], out
+        assert not out["near_ties"] and maps[0] != maps[1], (out, maps)
 
 
 def test_chip_smoke_grads_by_conditioning():

@@ -552,9 +552,7 @@ def test_syncheck_cli_json_and_the_port_tree(tmp_path):
 
     tree = os.path.join(ROOT, "paddle_tpu_torch")
     findings = syncheck.check_paths([tree])
-    # the two raw locks older port code holds (ROADMAP Queue C); nothing
-    # else, and nothing in the control plane's modules
-    assert sorted((os.path.relpath(f.path, tree), f.code)
-                  for f in findings) == [
-        ("fluid/executor.py", "raw-lock"),
-        ("kernels/_build.py", "raw-lock")]
+    # every lock of the port is ranked: the executor's capture lock and
+    # the kernel build's lock too
+    assert [(os.path.relpath(f.path, tree), f.line, f.code)
+            for f in findings] == []

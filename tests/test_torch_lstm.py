@@ -14,8 +14,28 @@ against the JAX package, on the CPU.
   Input, Weight, Bias, H0 and C0 (the port's hand-written backward of
   ``_DynamicLSTM`` against ``jax.vjp`` of the scan).  float32 on both
   sides, summation order only, over 9 steps of width 8: 1e-5.
-* The wrapper refuses what it does not run: bf16 (``amp_dtype`` is not
-  ported), unknown activations, devices other than the CPU and CUDA.
+* bf16 (the op on bf16 parameters, ``dynamic_lstm(dtype="bfloat16")``):
+  the port's emitter on bf16 inputs against the reference's, over the
+  same cases and one of T=20, H=16: Hidden and Cell within 2e-2 absolute
+  (measured: at most 7.8e-3, two bf16 ulps at magnitude 1-2; the two
+  sides round at the same points, XLA may keep more precision between
+  them), padding exactly 0, in bf16.  The gradients: the port's backward
+  computes in float32 from the bf16 states, the reference's vjp in bf16,
+  so each is held against the reference's float32 gradient on the same
+  (bf16-valued) inputs: the port's relative L2 distance within
+  max(1e-2, the bf16 vjp's own distance) (measured: at most 6e-3; the
+  bf16 vjp's up to 7e-2 where relu gates flip).  The RNN benchmark model
+  with bf16 LSTMs (``layers.cast`` before and after) serializes to the
+  same bytes in both packages (its LSTM parameters bf16 through
+  ``ParamAttr(keep_dtype=True)``) and one step from the reference's scope
+  (bf16 parameters copied) gives its loss within 1e-3 relative
+  (measured 3.5e-5) and its gradients within 5e-2 relative L2
+  (measured at most 1.1e-2).
+* The wrapper refuses what it does not run: dtypes other than float32 and
+  bf16, mixed dtypes, unknown activations, devices other than the CPU
+  and CUDA; a bf16 call on the CPU is the plain loop's, bit for bit.
+* The kernel's work split at an H100's limits, for its fp32 and its
+  bf16 kernel.
 """
 
 import functools
@@ -25,14 +45,18 @@ import types
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import chip_smoke
+from paddle_tpu import fluid as jfluid
 from paddle_tpu.fluid.core import registry as jreg
 from paddle_tpu.fluid.core.desc import OpDesc as JOpDesc
 from paddle_tpu.fluid.core.lod import SeqArray as JSeq
+from paddle_tpu_torch import fluid as tfluid
 from paddle_tpu_torch.fluid.core import registry as treg
 from paddle_tpu_torch.fluid.core.desc import OpDesc as TOpDesc
 from paddle_tpu_torch.fluid.core.lod import SeqArray as TSeq
@@ -176,12 +200,159 @@ def test_dynamic_lstm_backward_matches_reference_vjp(case):
                                    **OP_TOL)
 
 
+# -- bf16: the op on bf16 parameters
+
+BF16_OUT_ATOL = 2e-2
+BF16_GRAD_FLOOR = 1e-2
+BF16_CASES = [(c, (B, T, H, LENGTHS)) for c in CASES] + [
+    (dict(use_peepholes=True, is_reverse=False, init=True),
+     (6, 20, 16, np.array([20, 0, 5, 1, 17, 20], np.int32)))]
+
+
+def _bf16(a):
+    return np.asarray(a).astype(ml_dtypes.bfloat16)
+
+
+def _op_pair(arrays, attrs, lengths):
+    """(the reference's emitter as a function of the arrays, the port's
+    as a function of a dict of tensors) -> (Hidden data, Cell data)."""
+    jinfo, tinfo = (jreg.get_op_info("dynamic_lstm"),
+                    treg.get_op_info("dynamic_lstm"))
+    jctx = jreg.EmitCtx(_desc(JOpDesc, attrs, arrays))
+    tctx = treg.EmitCtx(_desc(TOpDesc, attrs, arrays))
+    names = list(arrays)
+
+    def jf(*xs):
+        ins = {n: [x] for n, x in zip(names, xs)}
+        ins["Input"] = [JSeq(ins["Input"][0], jnp.asarray(lengths))]
+        out = jinfo.emit(jctx, ins)
+        return out["Hidden"][0].data, out["Cell"][0].data
+
+    def tf(leaves):
+        ins = {n: [t] for n, t in leaves.items()}
+        ins["Input"] = [TSeq(leaves["Input"], torch.tensor(lengths))]
+        out = tinfo.emit(tctx, ins)
+        return out["Hidden"][0].data, out["Cell"][0].data
+
+    return jf, tf
+
+
+def _rel_l2(got, want):
+    got, want = (np.asarray(a, np.float32) for a in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("case,shape", BF16_CASES,
+                         ids=[_case_id(c) + f"-T{s[1]}" for c, s in
+                              BF16_CASES])
+def test_dynamic_lstm_bf16_matches_reference(case, shape):
+    b, t, h, lengths = shape
+    r = np.random.RandomState(1)
+    arrays = {"Input": r.randn(b, t, 4 * h) * 0.5,
+              "Weight": r.randn(h, 4 * h) * 0.3,
+              "Bias": r.randn((7 if case["use_peepholes"] else 4) * h) * 0.2}
+    if case["init"]:
+        arrays["H0"], arrays["C0"] = r.randn(b, h), r.randn(b, h)
+    # bf16 values, held as float32 for the float32 reference
+    arrays = {n: _bf16(a).astype(np.float32) for n, a in arrays.items()}
+    attrs = {k: v for k, v in case.items() if k != "init"}
+    dh = _bf16(r.randn(b, t, h)).astype(np.float32)
+    dc = _bf16(r.randn(b, t, h)).astype(np.float32)
+    jf, tf = _op_pair(arrays, attrs, lengths)
+    (want_h, want_c), vjp_bf16 = jax.vjp(
+        jf, *[jnp.asarray(_bf16(a)) for a in arrays.values()])
+    want_bf16 = vjp_bf16((jnp.asarray(_bf16(dh)), jnp.asarray(_bf16(dc))))
+    _, vjp_f32 = jax.vjp(jf, *[jnp.asarray(a) for a in arrays.values()])
+    want_f32 = vjp_f32((jnp.asarray(dh), jnp.asarray(dc)))
+
+    leaves = {n: torch.tensor(a).bfloat16().requires_grad_(True)
+              for n, a in arrays.items()}
+    got_h, got_c = tf(leaves)
+    assert got_h.dtype == got_c.dtype == torch.bfloat16
+    pad = np.arange(t)[None, :] >= lengths[:, None]
+    for got, want in ((got_h, want_h), (got_c, want_c)):
+        got = got.detach().float().numpy()
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=0, atol=BF16_OUT_ATOL)
+        assert not got[pad].any()
+    got = torch.autograd.grad(
+        (got_h, got_c), list(leaves.values()),
+        (torch.tensor(dh).bfloat16(), torch.tensor(dc).bfloat16()))
+    for name, g, wb, wf in zip(arrays, got, want_bf16, want_f32):
+        assert g.dtype == torch.bfloat16, name
+        ours, theirs = _rel_l2(g.float(), wf), _rel_l2(wb, wf)
+        assert ours <= max(BF16_GRAD_FLOOR, theirs), (name, ours, theirs)
+
+
+BF16_BENCH = dict(vocab=50, emb=8, hidden=8)
+
+
+def build_bench_bf16(fluid):
+    """chip_smoke's phase-33 bf16 RNN benchmark model (each fc's output
+    cast to bf16 before ``dynamic_lstm(dtype="bfloat16")``, the last step
+    cast back to float32 before the softmax fc) at small widths.  Its
+    LSTMs' parameters are bf16 through ``ParamAttr(keep_dtype=True)``:
+    without it both packages keep float32 master weights
+    (``LayerHelper``), and the reference's step cannot carry bf16 state
+    beside them."""
+    return chip_smoke.build_rnn_benchmark(fluid, cell="lstm_bf16",
+                                          **BF16_BENCH)
+
+
+def test_bf16_rnn_benchmark_step_matches_reference():
+    jm, js, jcost = build_bench_bf16(jfluid)
+    tm, ts, tcost = build_bench_bf16(tfluid)
+    assert tm.serialize_to_string() == jm.serialize_to_string()
+    assert ts.serialize_to_string() == js.serialize_to_string()
+    lstm_params = [op.input(s)[0] for op in tm.global_block().ops
+                   if op.type == "dynamic_lstm" for s in ("Weight", "Bias")]
+    assert all(tm.global_block().var(n).dtype == "bfloat16"
+               for n in lstm_params) and len(lstm_params) == 4
+    r = np.random.RandomState(5)
+    seqs = [r.randint(0, BF16_BENCH["vocab"], (n, 1)) for n in (10, 3, 1, 7)]
+    label = r.randint(0, 2, (4, 1)).astype(np.int64)
+
+    def feed(make_seq):
+        return {"words": make_seq(seqs, dtype=np.int32, max_len=10),
+                "label": label}
+    params = [p.name for p in tm.global_block().all_parameters()]
+    fetch = [tcost.name] + [n + "@GRAD" for n in params]
+    scope = jfluid.Scope()
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(scope):
+        exe.run(js)
+        init = {n: np.asarray(scope.find_var(n)) for n in scope.vars
+                if scope.find_var(n) is not None}
+        want = exe.run(jm, feed=feed(jfluid.make_seq), fetch_list=fetch)
+    assert init[lstm_params[0]].dtype.name == "bfloat16"
+    cpu = tfluid.CPUPlace()
+    tscope = tfluid.scope_from_numpy(init, cpu)
+    assert tscope.find_var(lstm_params[0]).dtype == torch.bfloat16
+    got = tfluid.Executor(cpu).run(tm, feed=feed(tfluid.make_seq),
+                                   fetch_list=fetch, scope=tscope)
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-3)
+    for n, g, w in zip(params, got[1:], want[1:]):
+        assert _rel_l2(g, w) <= 5e-2, (n, _rel_l2(g, w))
+
+
 def test_wrapper_refuses_what_it_does_not_run():
     x = torch.zeros(2, 3, 16)
     w, b = torch.zeros(4, 16), torch.zeros(28)
     lens = torch.full((2,), 3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="amp_dtype"):
-        lstm.lstm_forward(x.bfloat16(), w, b, lens)
+    # bf16 runs on the CPU as the plain loop in bf16 (the CUDA kernel's
+    # counterpart); float16 and mixed dtypes are refused
+    r = np.random.RandomState(4)
+    xb, wb, bb = (torch.tensor(r.randn(*t.shape).astype(np.float32))
+                  .bfloat16() for t in (x, w, b))
+    got = lstm.lstm_forward(xb, wb, bb, lens)
+    want = lstm.lstm_forward_plain(xb, wb, bb, lens)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        lstm.lstm_forward(x.half(), w.half(), b.half(), lens)
+    with pytest.raises(ValueError, match="share x's dtype"):
+        lstm.lstm_forward(xb, w, bb, lens)
     with pytest.raises(ValueError, match="activation"):
         lstm.lstm_forward(x, w, b, lens, gate_activation="gelu")
     with pytest.raises(ValueError, match="device"):
@@ -221,10 +392,11 @@ def _owners(plan, B, H):
     return b[ok], u[ok], blk[ok], (warp * 32 + lane)[ok]
 
 
-@pytest.mark.parametrize("H", [1, 200, 256, 512, 1000, 1280, 2048])
+@pytest.mark.parametrize("elem", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("H", [1, 200, 256, 512, 1000, 1280, 1848, 2048])
 @pytest.mark.parametrize("B", [1, 4, 100, 128])
-def test_plan_covers_every_pair_once_and_fits(B, H):
-    plan = lstm.lstm_plan(B, H, SMS, SMEM)
+def test_plan_covers_every_pair_once_and_fits(B, H, elem):
+    plan = lstm.lstm_plan(B, H, SMS, SMEM, elem)
     b, u, blk, thr = _owners(plan, B, H)
     # every (row, unit) pair has exactly one owner
     key = b.astype(np.int64) * H + u
@@ -239,23 +411,36 @@ def test_plan_covers_every_pair_once_and_fits(B, H):
     assert plan["wm"] * plan["wn"] <= lstm.WARPS and plan["Bs"] <= \
         16 * plan["wm"] and 1 <= plan["ntw"] <= lstm.MAX_TILES
     # the shared-memory layout fits: weight slice, then the h ring
-    w_bytes = 16 * plan["k"] * plan["kp"] if plan["w_smem"] else 0
-    assert plan["ring_off"] * 4 == w_bytes
-    assert plan["smem"] == w_bytes + 4 * plan["stages"] \
-        * plan["stage_floats"] <= SMEM
+    w_bytes = 4 * elem * plan["k"] * plan["kp"] if plan["w_smem"] else 0
+    assert plan["ring_off"] * elem == w_bytes
+    assert plan["smem"] == w_bytes + elem * plan["stages"] \
+        * plan["stage_elems"] <= SMEM
     assert 2 <= plan["stages"] <= lstm.MAX_STAGES
     assert plan["hp"] % plan["kc"] == 0 and plan["hp"] >= H
-    assert plan["kc"] % 16 == 0          # whole pairs of k-steps a chunk
-    # bank-conflict-free slice rows (kp = 4 mod 8 words); ring rows are
-    # kc words, swizzled
-    assert plan["kp"] % 8 == 4 and plan["kp"] >= plan["hp"]
-    assert plan["stage_floats"] == 16 * plan["wm"] * plan["kc"]
+    # whole pairs of the mma's k-steps a chunk (8 fp32, 16 bf16 values:
+    # 32 bytes), at most 16 pieces of 16 bytes a ring row
+    assert plan["kc"] * elem % 64 == 0 and plan["kc"] * elem <= 256
+    # bank-conflict-free slice rows (a pitch of 16 mod 32 bytes); ring
+    # rows are kc values, swizzled
+    assert plan["kp"] * elem % 32 == 16 and plan["kp"] >= plan["hp"]
+    assert plan["stage_elems"] == 16 * plan["wm"] * plan["kc"]
     # the weight slice is resident wherever any slice fits: the smallest
-    # (fewest units a block) beside the smallest ring (two 16-column
-    # slots of one 16-row tile) must not fit when it is not
+    # (fewest units a block) beside the smallest ring (two 64-byte slots
+    # of one 16-row tile) must not fit when it is not
     if not plan["w_smem"]:
         k0 = next(k for k in range(2, 4 * H + 3, 2) if -(-H // k) <= SMS)
-        assert 4 * (4 * k0 * (-(-H // 16) * 16 + 4) + 2 * 16 * 16) > SMEM
+        c0 = 64 // elem
+        assert elem * (4 * k0 * (-(-H // c0) * c0 + 16 // elem)
+                       + 2 * 16 * c0) > SMEM
+
+
+def test_bf16_slice_stays_resident_to_a_wider_h():
+    """The bf16 slice takes half the bytes: at B=128 on an H100 the
+    widest H whose slice stays in shared memory is 1320 in fp32 and 1848
+    in bf16 (chip_smoke's ``resident_edge`` cases)."""
+    for elem, edge in ((4, 1320), (2, 1848)):
+        assert lstm.lstm_plan(128, edge, SMS, SMEM, elem)["w_smem"]
+        assert not lstm.lstm_plan(128, edge + 1, SMS, SMEM, elem)["w_smem"]
 
 
 def test_plan_raises_when_nothing_fits():
